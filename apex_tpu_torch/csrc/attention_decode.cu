@@ -1,0 +1,228 @@
+// Paged decode attention for Hopper (sm_90a).
+//
+// Replaces apex_tpu/ops/attention_decode.py::_decode_kernel, the Pallas
+// TPU kernel behind fmha_decode: a few query rows per sequence (sq >= 1)
+// attend to that sequence's K/V, which lives in a shared page pool
+// (num_pages, h, page_size, d) addressed through a per-sequence page
+// table.  Query row i of sequence b sits at position lengths[b] - sq + i
+// and, causal, attends to cache positions <= its own (the cache already
+// holds the query tokens' own K/V: write-before-attend).
+//
+// Translation from the TPU kernel:
+//  - The TPU grid walks (b, head block, logical page) in order and
+//    carries (m, l, acc) across the page axis in VMEM scratch; the page
+//    table reaches the DMA engine through scalar prefetch.  Here one
+//    block owns one (sequence, head) pair and loops over the logical
+//    pages itself, reading its own page_table row: nothing has to carry
+//    across blocks.
+//  - The block's 8 warps split the tokens of each page (warp w takes
+//    tokens w, w + 8, ...) and each keeps its own online-softmax state
+//    (m, l, acc) per query row, in registers; a lane holds D / 32
+//    consecutive dims of q, of the current K/V row and of acc, so a K or
+//    V row is read by one warp as one coalesced 2*D (bf16) or 4*D (fp32)
+//    byte line.  At the end the warps' states are merged through shared
+//    memory (rescale by exp(m_w - M), sum) and the block writes O.
+//  - Pages at or past lengths[b] are not visited, the tail page stops at
+//    lengths[b], and a position a row may not see (causal) is skipped:
+//    masked probabilities are exactly zero because masked K/V are never
+//    read.  So garbage on the null page 0 (idle slots write there), even
+//    NaN, cannot reach a live row through 0 * NaN.
+//  - The running max starts at the finite fill -1e30 (the JAX kernel's
+//    _NEG_INF) and the final divide clamps l at 1e-30, so an idle slot
+//    (length 0) sees no token and writes a finite zero row.
+//
+// What bounds it on the card: every K/V byte it reads is used for 2
+// flops per query row (~1 flop per byte at sq = 1 in bf16), so it is
+// bound by the bytes of the valid K/V rows.  With one block per (b, h)
+// a 4-slot batch of 8 heads launches 32 blocks, a quarter of the 132 SMs:
+// this first kernel cannot reach the card's memory rate at that batch;
+// splitting the page walk across blocks is later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxSq = 8;        // query rows per sequence this kernel takes
+constexpr float kNegInf = -1e30f;
+
+template <int E>
+__device__ __forceinline__ void load_row(const float* p, float* out) {
+#pragma unroll
+  for (int e = 0; e < E; e += 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p + e);
+    out[e] = x.x;
+    out[e + 1] = x.y;
+  }
+}
+
+template <int E>
+__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float* out) {
+#pragma unroll
+  for (int e = 0; e < E; e += 2) {
+    const float2 x =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + e));
+    out[e] = x.x;
+    out[e + 1] = x.y;
+  }
+}
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// q, out: (b, h, sq, D); k_pages, v_pages: (num_pages, h, page_size, D);
+// page_table: (b, pages_per_seq) int32; lengths: (b,) int32.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                    const T* __restrict__ v_pages,
+                    const int* __restrict__ page_table,
+                    const int* __restrict__ lengths, T* __restrict__ out,
+                    int h, int sq, int page_size, int pages_per_seq,
+                    int causal, float scale) {
+  constexpr int E = D / 32;    // dims per lane
+  __shared__ float sm_m[kWarps][kMaxSq];
+  __shared__ float sm_l[kWarps][kMaxSq];
+  __shared__ float sm_acc[kWarps][kMaxSq][D];
+
+  const int head = blockIdx.x;
+  const int b = blockIdx.y;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int len = lengths[b];
+
+  float qr[kMaxSq][E], acc[kMaxSq][E], m[kMaxSq], l[kMaxSq];
+#pragma unroll
+  for (int i = 0; i < kMaxSq; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      qr[i][e] = 0.0f;
+      acc[i][e] = 0.0f;
+    }
+    if (i < sq) {
+      load_row<E>(q + (((long)b * h + head) * sq + i) * D + lane * E, qr[i]);
+#pragma unroll
+      for (int e = 0; e < E; ++e) qr[i][e] *= scale;
+    }
+  }
+
+  const int n_pages = min(pages_per_seq, (len + page_size - 1) / page_size);
+  const int* row = page_table + (long)b * pages_per_seq;
+  for (int p = 0; p < n_pages; ++p) {
+    const long base = ((long)row[p] * h + head) * page_size * D;
+    for (int t = warp; t < page_size; t += kWarps) {
+      const int pos = p * page_size + t;
+      if (pos >= len) break;       // the tail page ends at len
+      float kv[E], vv[E];
+      load_row<E>(k_pages + base + (long)t * D + lane * E, kv);
+      load_row<E>(v_pages + base + (long)t * D + lane * E, vv);
+#pragma unroll
+      for (int i = 0; i < kMaxSq; ++i) {
+        if (i >= sq) break;
+        if (causal && pos > len - sq + i) continue;   // warp-uniform
+        float s = 0.0f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) s = fmaf(qr[i][e], kv[e], s);
+        s = warp_sum(s);
+        const float m_new = fmaxf(m[i], s);
+        const float corr = expf(m[i] - m_new);
+        const float pexp = expf(s - m_new);
+        l[i] = l[i] * corr + pexp;
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[i][e] = fmaf(acc[i][e], corr, pexp * vv[e]);
+        m[i] = m_new;
+      }
+    }
+  }
+
+  // merge the warps' partial softmax states
+#pragma unroll
+  for (int i = 0; i < kMaxSq; ++i) {
+    if (i >= sq) break;
+    if (lane == 0) {
+      sm_m[warp][i] = m[i];
+      sm_l[warp][i] = l[i];
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) sm_acc[warp][i][lane * E + e] = acc[i][e];
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < sq * D; idx += kThreads) {
+    const int i = idx / D, c = idx % D;
+    float mm = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, sm_m[w][i]);
+    float ll = 0.0f, o = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = expf(sm_m[w][i] - mm);
+      ll = fmaf(sm_l[w][i], f, ll);
+      o = fmaf(sm_acc[w][i][c], f, o);
+    }
+    store(out + (((long)b * h + head) * sq + i) * D + c, o / fmaxf(ll, 1e-30f));
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
+                   const int* page_table, const int* lengths, void* out,
+                   int b, int h, int sq, int page_size, int pages_per_seq,
+                   int causal, float scale, cudaStream_t stream) {
+  dim3 grid(h, b);
+  paged_decode_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pages),
+      static_cast<const T*>(v_pages), page_table, lengths,
+      static_cast<T*>(out), h, sq, page_size, pages_per_seq, causal, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = fp32, 1 = bf16.  Returns a cudaError_t code (0 = success).
+int paged_decode(const void* q, const void* k_pages, const void* v_pages,
+                 const int* page_table, const int* lengths, void* out, int b,
+                 int h, int sq, int d, int page_size, int pages_per_seq,
+                 int dtype, int causal, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (b <= 0 || b > 65535 || h <= 0 || sq < 1 || sq > kMaxSq ||
+      page_size < 1 || pages_per_seq < 1)
+    return cudaErrorInvalidValue;
+  if (dtype == 0 && d == 128)
+    return launch<float, 128>(q, k_pages, v_pages, page_table, lengths, out,
+                              b, h, sq, page_size, pages_per_seq, causal,
+                              scale, s);
+  if (dtype == 0 && d == 64)
+    return launch<float, 64>(q, k_pages, v_pages, page_table, lengths, out,
+                             b, h, sq, page_size, pages_per_seq, causal,
+                             scale, s);
+  if (dtype == 1 && d == 128)
+    return launch<__nv_bfloat16, 128>(q, k_pages, v_pages, page_table,
+                                      lengths, out, b, h, sq, page_size,
+                                      pages_per_seq, causal, scale, s);
+  if (dtype == 1 && d == 64)
+    return launch<__nv_bfloat16, 64>(q, k_pages, v_pages, page_table,
+                                     lengths, out, b, h, sq, page_size,
+                                     pages_per_seq, causal, scale, s);
+  return cudaErrorInvalidValue;
+}
+
+const char* error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,0 +1,542 @@
+"""Megatron-style GPT, serving greedily on one GPU through the port's kernels.
+
+Counterpart of ``apex_tpu/models/gpt.py``.  The JAX model is a factory of
+pure functions over a parameter pytree with stacked layers; here it is an
+``nn.Module`` whose layers are a ``ModuleList`` (``apex_tpu_torch.convert``
+carries weights across both ways).  The math is kept exactly:
+
+- the fused qkv projection's output is grouped per head,
+  ``[h0_q h0_k h0_v h1_q ...]``, and split by one reshape;
+- ``gelu(approximate="tanh")`` (or SwiGLU), a tied LM head;
+- the residual stream runs in the compute dtype, every norm takes its
+  input as given and the final norm an fp32 copy of the stream, with the
+  normalized output cast to the compute dtype;
+- decode clips learned positions to the table.
+
+Attention goes through ``ops.attention.flash_attention`` (the short
+kernel: sequences up to 512) in the forward and prefill, and through
+``ops.attention_decode.fmha_decode`` (the paged kernel) in decode; every
+norm through ``ops.layer_norm``'s kernel.  On the CPU the same calls run
+the kernels' plain versions.
+
+Ported so far: ``apply``, ``prefill_forward``, ``decode_step`` and the
+monolithic greedy serving of ``decode_fns`` / ``generate``, plus the
+full-recompute ``generate_reference`` that gates them, at tensor-parallel
+world size 1.  Options that are not ported raise ``NotImplementedError``
+naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from apex_tpu_torch.ops.attention import flash_attention
+from apex_tpu_torch.ops.attention_decode import fmha_decode
+from apex_tpu_torch.ops.attention_short import FMHA_SHORT_MAX_SEQ
+from apex_tpu_torch.ops.layer_norm import (
+    fused_layer_norm_affine,
+    fused_rms_norm_affine,
+)
+from apex_tpu_torch.serving.kv_cache import (
+    KVCacheConfig,
+    PagedKVCache,
+    init_pools,
+    write_targets,
+    write_tokens,
+)
+from apex_tpu_torch.serving.sampling import sample
+from apex_tpu_torch.serving.serve import ContinuousBatcher, Request
+from apex_tpu_torch.transformer.tensor_parallel import (
+    ColumnParallelLinear,
+    RowParallelLinear,
+    VocabParallelEmbedding,
+    normal_init,
+)
+from apex_tpu_torch.utils.platform import resolve_device
+
+__all__ = ["GPTConfig", "GPTModel", "GPTDecodeFns"]
+
+#: options of the JAX serving entry points that the port does not take
+#: yet, with the ROADMAP.md item that brings each
+_UNPORTED = {
+    "temperature": "queue A item 3 (temperature sampling)",
+    "top_k": "queue A item 3 (temperature sampling)",
+    "top_p": "queue A item 3 (temperature sampling)",
+    "kv_dtype": "queue A item 3 (int8 KV pages)",
+    "weight_dtype": "queue A item 6 (quantized weight pools)",
+    "prefill_chunk": "queue A item 7 (chunked prefill)",
+    "prefix_cache": "queue A item 7 (prefix cache)",
+    "speculate_k": "queue A item 7 (speculative decoding)",
+    "spec_tree": "queue A item 7 (speculative decoding)",
+    "draft_model": "queue A item 7 (speculative decoding)",
+    "tp": "queue A item 9 (tensor parallelism)",
+}
+
+
+def _reject_unported(**options) -> None:
+    for name, value in options.items():
+        if value is not None and value is not False and value != 0.0:
+            raise NotImplementedError(
+                f"{name}={value!r} is not ported yet "
+                f"(ROADMAP.md {_UNPORTED[name]})")
+
+
+@dataclasses.dataclass
+class GPTDecodeFns:
+    """The serving steps :meth:`GPTModel.decode_fns` returns, with the
+    call contract of :class:`apex_tpu_torch.serving.ContinuousBatcher`."""
+
+    prefill: Any
+    decode: Any
+    eos_id: Any = None
+
+
+@dataclasses.dataclass
+class GPTConfig:
+    """Hyperparameters, as in the JAX package's ``GPTConfig``.
+
+    Not ported yet: ``position_embedding="rope"`` (ROADMAP.md queue A
+    item 3), dropout (item 4) and mixture-of-experts (item 9)."""
+
+    vocab_size: int = 32000
+    num_layers: int = 4
+    hidden_size: int = 512
+    num_attention_heads: int = 8
+    max_position_embeddings: int = 1024
+    position_embedding: str = "learned"
+    activation: str = "gelu"
+    normalization: str = "layernorm"
+    ffn_hidden_size: Optional[int] = None
+    hidden_dropout: float = 0.0
+    attention_dropout: float = 0.0
+    layernorm_epsilon: float = 1e-5
+    init_method_std: float = 0.02
+    params_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.bfloat16
+    num_experts: Optional[int] = None
+
+    def __post_init__(self):
+        if self.ffn_hidden_size is None:
+            self.ffn_hidden_size = 4 * self.hidden_size
+        if self.hidden_size % self.num_attention_heads:
+            raise ValueError(
+                "hidden_size must be divisible by num_attention_heads")
+        if self.position_embedding == "rope":
+            raise NotImplementedError(
+                "rope positions are not ported yet "
+                "(ROADMAP.md queue A item 3)")
+        if self.position_embedding != "learned":
+            raise ValueError(
+                f"position_embedding must be 'learned' or 'rope', got "
+                f"{self.position_embedding!r}")
+        if self.activation not in ("gelu", "swiglu"):
+            raise ValueError(
+                f"activation must be 'gelu' or 'swiglu', got "
+                f"{self.activation!r}")
+        if self.normalization not in ("layernorm", "rmsnorm"):
+            raise ValueError(
+                f"normalization must be 'layernorm' or 'rmsnorm', got "
+                f"{self.normalization!r}")
+        if self.hidden_dropout > 0.0 or self.attention_dropout > 0.0:
+            raise NotImplementedError(
+                "dropout is not ported yet (ROADMAP.md queue A item 4)")
+        if self.num_experts is not None:
+            raise NotImplementedError(
+                "mixture-of-experts is not ported yet "
+                "(ROADMAP.md queue A item 9)")
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+
+class Norm(nn.Module):
+    """ln1/ln2/final_ln: fused LayerNorm (``scale`` + ``bias``) or RMSNorm
+    (``scale`` only), fp32 statistics either way."""
+
+    def __init__(self, hidden: int, normalization: str, eps: float,
+                 dtype: torch.dtype, device):
+        super().__init__()
+        self.hidden = hidden
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(hidden, dtype=dtype,
+                                             device=device))
+        if normalization == "layernorm":
+            self.bias = nn.Parameter(torch.zeros(hidden, dtype=dtype,
+                                                 device=device))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bias is None:
+            return fused_rms_norm_affine(x, self.scale, self.hidden,
+                                         eps=self.eps)
+        return fused_layer_norm_affine(x, self.scale, self.bias,
+                                       self.hidden, eps=self.eps)
+
+
+class GPTLayer(nn.Module):
+    """One transformer layer's parameters (the JAX ``layers`` subtree at
+    one index of the stacked dim)."""
+
+    def __init__(self, c: GPTConfig, device, generator):
+        super().__init__()
+        init = normal_init(c.init_method_std)
+        # Megatron output-layer init: std / sqrt(2 * L)
+        out_init = normal_init(c.init_method_std / math.sqrt(2.0 * c.num_layers))
+        kw = dict(params_dtype=c.params_dtype, device=device,
+                  generator=generator)
+
+        def norm():
+            return Norm(c.hidden_size, c.normalization, c.layernorm_epsilon,
+                        c.params_dtype, device)
+
+        self.ln1 = norm()
+        self.qkv = ColumnParallelLinear(c.hidden_size, 3 * c.hidden_size,
+                                        init_method=init, **kw)
+        self.attn_proj = RowParallelLinear(c.hidden_size, c.hidden_size,
+                                           init_method=out_init, **kw)
+        self.ln2 = norm()
+        self.fc1 = ColumnParallelLinear(c.hidden_size, c.ffn_hidden_size,
+                                        init_method=init, **kw)
+        if c.activation == "swiglu":
+            self.fc_gate = ColumnParallelLinear(
+                c.hidden_size, c.ffn_hidden_size, init_method=init, **kw)
+        else:
+            self.fc_gate = None
+        self.fc2 = RowParallelLinear(c.ffn_hidden_size, c.hidden_size,
+                                     init_method=out_init, **kw)
+
+
+class GPTModel(nn.Module):
+    """Decoder-only transformer LM.
+
+    ``device`` defaults to the GPU (and raises without one); pass
+    ``device="cpu"`` for the plain PyTorch versions of the kernels.
+    Parameters are drawn from a ``torch.Generator`` seeded with ``seed``
+    (load JAX weights with :func:`apex_tpu_torch.convert.params_from_jax`
+    and ``load_state_dict``)."""
+
+    def __init__(self, config: GPTConfig, *, device=None, seed: int = 0):
+        super().__init__()
+        c = config
+        self.config = c
+        self.device = resolve_device(device)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        init = normal_init(c.init_method_std)
+        self.embedding = VocabParallelEmbedding(
+            c.vocab_size, c.hidden_size, init_method=init,
+            params_dtype=c.params_dtype, device=self.device, generator=gen)
+        self.pos_embedding = nn.Parameter(torch.empty(
+            (c.max_position_embeddings, c.hidden_size),
+            dtype=c.params_dtype, device=self.device))
+        init(self.pos_embedding, gen)
+        self.layers = nn.ModuleList(
+            GPTLayer(c, self.device, gen) for _ in range(c.num_layers))
+        self.final_ln = Norm(c.hidden_size, c.normalization,
+                             c.layernorm_epsilon, c.params_dtype,
+                             self.device)
+
+    # ------------------------------------------------------------ forward
+    def _qkv_heads(self, layer: GPTLayer, y: torch.Tensor):
+        """(b, s, h) normed activations -> (q, k, v), each ``(b, heads, s,
+        head_dim)``, from the per-head-grouped qkv output."""
+        c = self.config
+        b, s, _ = y.shape
+        qkv = layer.qkv(y).reshape(b, s, c.num_attention_heads, 3,
+                                   c.head_dim)
+        return tuple(qkv[:, :, :, i].transpose(1, 2) for i in range(3))
+
+    def _dense_mlp(self, layer: GPTLayer, y: torch.Tensor) -> torch.Tensor:
+        if layer.fc_gate is not None:
+            y = F.silu(layer.fc_gate(y)) * layer.fc1(y)
+        else:
+            y = F.gelu(layer.fc1(y), approximate="tanh")
+        return layer.fc2(y)
+
+    def _layer(self, layer: GPTLayer, x: torch.Tensor):
+        """One layer over ``x (b, s, h)``: returns the layer output and
+        the attention-ready ``k``/``v`` ``(b, heads, s, head_dim)``."""
+        c = self.config
+        b, s, _ = x.shape
+        residual = x
+        y = layer.ln1(x).to(c.compute_dtype)
+        q, k, v = self._qkv_heads(layer, y)
+        attn = flash_attention(q, k, v, causal=True)
+        attn = attn.transpose(1, 2).reshape(b, s, c.hidden_size)
+        x = residual + layer.attn_proj(attn).to(residual.dtype)
+        residual = x
+        y = layer.ln2(x).to(c.compute_dtype)
+        return residual + self._dense_mlp(layer, y).to(residual.dtype), k, v
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        s = tokens.shape[1]
+        x = self.embedding(tokens)
+        x = x + self.pos_embedding[:s][None].to(x.dtype)
+        return x.to(self.config.compute_dtype)
+
+    def _final_norm(self, x: torch.Tensor) -> torch.Tensor:
+        return self.final_ln(x.float()).to(self.config.compute_dtype)
+
+    def hidden_states(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Embed, run all layers, final norm: ``(b, s, h)`` hidden in the
+        compute dtype (the JAX version also returns the MoE aux loss,
+        which a dense model does not have)."""
+        x = self._embed(tokens)
+        for layer in self.layers:
+            x, _, _ = self._layer(layer, x)
+        return self._final_norm(x)
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """Tied-embedding LM head: ``(..., h) -> (..., vocab)``."""
+        w = self.embedding.weight.to(hidden.dtype)
+        return torch.matmul(hidden, w.t())
+
+    def apply(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Forward to logits ``(b, s, vocab)``."""
+        return self.logits(self.hidden_states(tokens))
+
+    forward = apply
+
+    # ------------------------------------------------- serving / decode
+    def prefill_forward(self, tokens: torch.Tensor):
+        """Prompt ingestion over ``tokens (b, s)`` through the attention
+        ladder, also returning each layer's K/V for the cache write:
+        ``(hidden (b, s, h), k, v)`` with k/v ``(num_layers, b, heads, s,
+        head_dim)``."""
+        x = self._embed(tokens)
+        ks, vs = [], []
+        for layer in self.layers:
+            x, k, v = self._layer(layer, x)
+            ks.append(k)
+            vs.append(v)
+        return self._final_norm(x), torch.stack(ks), torch.stack(vs)
+
+    def decode_step(
+        self,
+        tokens: torch.Tensor,
+        positions: torch.Tensor,
+        active: torch.Tensor,
+        page_table: torch.Tensor,
+        pools: Dict[str, torch.Tensor],
+    ):
+        """ONE decode step for a fixed batch of serving slots.  ``tokens
+        (S,)`` are the current tokens, each at 0-based ``positions[s]``;
+        ``active (S,)`` masks live slots (idle slots compute garbage and
+        write it to the null page).  Every layer writes its new K/V into
+        its pool slice first (the token attends to itself) and then runs
+        :func:`fmha_decode` against the paged cache.  Returns ``(logits
+        (S, vocab), pools)``; the pools are updated in place."""
+        c = self.config
+        S = tokens.shape[0]
+        page_size = pools["k"].shape[3]
+        positions = positions.to(torch.int32)
+        x = self.embedding(tokens[:, None])
+        pos = positions.clamp(0, c.max_position_embeddings - 1).long()
+        x = (x + self.pos_embedding[pos][:, None, :].to(x.dtype)).to(
+            c.compute_dtype)
+        attend = torch.where(active, positions + 1, 0).to(torch.int32)
+        wp, wo = write_targets(page_table, positions, active, page_size)
+        for li, layer in enumerate(self.layers):
+            pool_l = {"k": pools["k"][li], "v": pools["v"][li]}
+            residual = x
+            y = layer.ln1(x).to(c.compute_dtype)
+            q, k, v = self._qkv_heads(layer, y)          # (S, h, 1, d)
+            write_tokens(pool_l, k[:, :, 0], v[:, :, 0], wp, wo)
+            attn = fmha_decode(q, pool_l["k"], pool_l["v"], page_table,
+                               attend, causal=True)
+            attn = attn.transpose(1, 2).reshape(S, 1, c.hidden_size)
+            x = residual + layer.attn_proj(attn).to(residual.dtype)
+            residual = x
+            y = layer.ln2(x).to(c.compute_dtype)
+            x = residual + self._dense_mlp(layer, y).to(residual.dtype)
+        logits = self.logits(self._final_norm(x))[:, 0]
+        return logits, pools
+
+    def decode_fns(
+        self,
+        cache_config,
+        *,
+        max_prompt_len: int,
+        temperature: float = 0.0,
+        top_k: Optional[int] = None,
+        top_p: Optional[float] = None,
+        eos_id: Optional[int] = None,
+        prefill_chunk: Optional[int] = None,
+        speculate_k: Optional[int] = None,
+        spec_tree: Optional[tuple] = None,
+        draft_model: Optional[Any] = None,
+        weight_dtype: Optional[str] = None,
+        tp: Optional[int] = None,
+    ) -> GPTDecodeFns:
+        """Build the monolithic greedy serving steps
+        :class:`apex_tpu_torch.serving.ContinuousBatcher` drives:
+        ``prefill(pools, tokens (1, max_prompt_len), length, page_row) ->
+        (pools, first_token)`` and ``decode(pools, carry, page_table) ->
+        (pools, carry)``.  Both run without autograd and update the pools
+        in place; neither syncs with the host."""
+        _reject_unported(temperature=temperature, top_k=top_k, top_p=top_p,
+                         prefill_chunk=prefill_chunk,
+                         speculate_k=speculate_k, spec_tree=spec_tree,
+                         draft_model=draft_model, weight_dtype=weight_dtype,
+                         tp=None if tp == 1 else tp)
+        c = self.config
+        cfg = cache_config
+        if (cfg.num_layers != c.num_layers
+                or cfg.num_heads != c.num_attention_heads
+                or cfg.head_dim != c.head_dim):
+            raise ValueError(
+                f"cache config (L={cfg.num_layers}, h={cfg.num_heads}, "
+                f"d={cfg.head_dim}) does not match the model "
+                f"(L={c.num_layers}, h={c.num_attention_heads}, "
+                f"d={c.head_dim})")
+        if cfg.max_len > c.max_position_embeddings:
+            raise ValueError(
+                f"cache holds up to {cfg.max_len} positions but the "
+                f"learned table stops at {c.max_position_embeddings}")
+        if cfg.dtype != c.compute_dtype:
+            raise ValueError(
+                f"cache pages are {cfg.dtype} but the model computes in "
+                f"{c.compute_dtype}: the decode kernel reads pages in the "
+                "query's dtype")
+        if max_prompt_len > FMHA_SHORT_MAX_SEQ:
+            raise NotImplementedError(
+                f"max_prompt_len {max_prompt_len} > {FMHA_SHORT_MAX_SEQ}: "
+                "monolithic prefill of longer prompts needs the mid and "
+                "flash attention kernels (ROADMAP.md queue B items 4-5)")
+
+        @torch.no_grad()
+        def prefill(pools, toks, length: int, page_row):
+            hidden, ks, vs = self.prefill_forward(toks)
+            pos = torch.arange(toks.shape[1], device=toks.device)
+            wp, wo = write_targets(page_row, pos, pos < length,
+                                   cfg.page_size)
+            for li in range(c.num_layers):
+                # (1, h, s, d) -> (s, h, d) token rows
+                write_tokens({"k": pools["k"][li], "v": pools["v"][li]},
+                             ks[li, 0].transpose(0, 1),
+                             vs[li, 0].transpose(0, 1), wp, wo)
+            last = hidden[0, length - 1]
+            tok = sample(self.logits(last)[None], temperature)[0]
+            return pools, tok
+
+        @torch.no_grad()
+        def decode(pools, carry, page_table):
+            active = ~carry["done"]
+            logits, pools = self.decode_step(
+                carry["tokens"], carry["lengths"], active, page_table,
+                pools)
+            sampled = sample(logits, temperature)
+            ai = active.to(torch.int32)
+            tokens = torch.where(active, sampled, carry["tokens"])
+            steps_left = carry["steps_left"] - ai
+            eos_hit = ((tokens == eos_id) if eos_id is not None
+                       else torch.zeros_like(active))
+            done = carry["done"] | (active & (eos_hit | (steps_left <= 0)))
+            return pools, {
+                "tokens": tokens,
+                "lengths": carry["lengths"] + ai,
+                "steps_left": steps_left,
+                "done": done,
+            }
+
+        # the batcher only sees the callables; stamp the freeze id so it
+        # can reject a host truncation id the device disagrees with
+        decode.eos_id = eos_id
+        return GPTDecodeFns(prefill=prefill, decode=decode, eos_id=eos_id)
+
+    def generate(
+        self,
+        prompts,
+        prompt_lengths,
+        max_new_tokens: int,
+        *,
+        page_size: int = 64,
+        harvest_every: int = 8,
+        max_seqs: Optional[int] = None,
+        num_pages: Optional[int] = None,
+        eos_id: Optional[int] = None,
+        kv_dtype: Optional[Any] = None,
+        temperature: float = 0.0,
+        top_k: Optional[int] = None,
+        top_p: Optional[float] = None,
+        prefill_chunk: Optional[int] = None,
+        prefix_cache: bool = False,
+        speculate_k: Optional[int] = None,
+        weight_dtype: Optional[str] = None,
+    ):
+        """Generate from ``prompts (b, s)`` (right-padded; real lengths in
+        ``prompt_lengths``) through the serving stack: paged KV cache,
+        decode kernel, on-device greedy sampling, continuous batching.
+        ``max_seqs`` (default ``b``) bounds concurrent slots.  Returns the
+        per-prompt generated token lists (EOS included when hit)."""
+        _reject_unported(kv_dtype=kv_dtype, prefix_cache=prefix_cache,
+                         weight_dtype=weight_dtype)
+        c = self.config
+        prompts = np.asarray(prompts)
+        prompt_lengths = np.asarray(prompt_lengths)
+        b, s = prompts.shape
+        max_seqs = int(max_seqs or b)
+        pages_per_seq = -(-(s + max_new_tokens) // page_size)
+        ccfg = KVCacheConfig(
+            num_layers=c.num_layers, num_heads=c.num_attention_heads,
+            head_dim=c.head_dim,
+            num_pages=int(num_pages or 1 + max_seqs * pages_per_seq),
+            page_size=page_size, max_seqs=max_seqs,
+            pages_per_seq=pages_per_seq, dtype=c.compute_dtype)
+        fns = self.decode_fns(
+            ccfg, max_prompt_len=s, temperature=temperature, top_k=top_k,
+            top_p=top_p, eos_id=eos_id, prefill_chunk=prefill_chunk,
+            speculate_k=speculate_k)
+        batcher = ContinuousBatcher(
+            fns.prefill, fns.decode, PagedKVCache(ccfg),
+            init_pools(ccfg, self.device), max_prompt_len=s,
+            harvest_every=harvest_every, eos_id=eos_id)
+        reqs = [
+            Request(uid=i,
+                    prompt=[int(t) for t in
+                            prompts[i, : int(prompt_lengths[i])]],
+                    max_new_tokens=max_new_tokens)
+            for i in range(b)
+        ]
+        comps = batcher.run(reqs)
+        return [comps[i].tokens for i in range(b)]
+
+    @torch.no_grad()
+    def generate_reference(self, prompts, prompt_lengths,
+                           max_new_tokens: int) -> np.ndarray:
+        """Naive full-recompute GREEDY reference: every step re-runs the
+        whole forward over the growing padded sequence and argmaxes the
+        last valid position.  Exists to gate the paged path, never to
+        serve.  Needs ``s + max_new_tokens`` within the learned position
+        table and the short attention window.  Returns ``(b, new)``."""
+        c = self.config
+        prompts = np.asarray(prompts)
+        b, s = prompts.shape
+        total = s + max_new_tokens
+        if total > c.max_position_embeddings:
+            raise ValueError(
+                f"reference needs {total} positions but the learned "
+                f"table stops at {c.max_position_embeddings}")
+        dev = self.device
+        buf = torch.zeros((b, total), dtype=torch.int32, device=dev)
+        buf[:, :s] = torch.as_tensor(prompts.astype(np.int32), device=dev)
+        lens = torch.as_tensor(np.asarray(prompt_lengths, np.int64),
+                               device=dev)
+        rows = torch.arange(b, device=dev)
+        outs = []
+        for _ in range(max_new_tokens):
+            logits = self.apply(buf)
+            last = logits[rows, (lens - 1).clamp(0, total - 1)]
+            nxt = torch.argmax(last, dim=-1).to(torch.int32)
+            buf[rows, lens] = nxt
+            lens = lens + 1
+            outs.append(nxt)
+        return torch.stack(outs, dim=1).cpu().numpy()

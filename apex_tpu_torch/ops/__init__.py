@@ -1,0 +1,26 @@
+"""The port's kernels: each module holds a hand-written Hopper kernel, its
+plain PyTorch version and the wrapper that picks by the tensor's device."""
+
+from apex_tpu_torch.ops.attention import flash_attention, mha_reference
+from apex_tpu_torch.ops.attention_decode import (
+    fmha_decode,
+    paged_attention_reference,
+)
+from apex_tpu_torch.ops.attention_short import fmha_short, short_fwd
+from apex_tpu_torch.ops.common import (
+    KernelUnavailable,
+    launch_counts,
+    reset_launch_counts,
+)
+from apex_tpu_torch.ops.layer_norm import (
+    fused_layer_norm_affine,
+    fused_rms_norm_affine,
+    layer_norm_fwd,
+)
+
+__all__ = [
+    "KernelUnavailable", "flash_attention", "fmha_decode", "fmha_short",
+    "fused_layer_norm_affine", "fused_rms_norm_affine", "launch_counts",
+    "layer_norm_fwd", "mha_reference", "paged_attention_reference",
+    "reset_launch_counts", "short_fwd",
+]

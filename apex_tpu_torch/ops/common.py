@@ -1,0 +1,187 @@
+"""Building, loading and counting the port's CUDA kernels.
+
+The JAX package's ``ops/common.py`` dispatches between a Pallas kernel and
+an XLA fallback (``run_kernel``).  The port has no such seam: a kernel
+wrapper given a CUDA tensor launches its kernel or raises
+(:class:`KernelUnavailable` when the kernel cannot be built or loaded, a
+``ValueError`` for a shape it does not take), and the plain PyTorch
+version runs only for CPU tensors.
+
+Build route: each ``csrc/<name>.cu`` is compiled on first use by ``nvcc``
+into a shared library with a plain C interface and loaded with
+``ctypes`` (pointers and the stream passed as ``c_void_p``).  Every C
+entry returns ``cudaGetLastError()`` after its launch, and
+:func:`check` turns a non-zero code into an exception.  The libraries
+land in ``apex_tpu_torch/_build/`` (listed in ``.gitignore``) under a
+name that carries the hash of the source and flags, so a stale build is
+never loaded.  :func:`build` starts one ``nvcc`` per source, all at once.
+
+Launch counters: every wrapper calls :func:`count_launch` where it
+launches its kernel and nowhere else, so a run can show that its main
+path went through the kernels (``chip_smoke.py`` resets them with
+:func:`reset_launch_counts` right before the main path).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, List, Optional
+
+import torch
+
+__all__ = [
+    "KernelUnavailable", "build", "load", "check", "count_launch",
+    "launch_counts", "reset_launch_counts", "stream_of", "check_operands",
+    "KERNEL_SOURCES",
+]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+#: the CUDA sources this package builds (``csrc/<name>.cu``)
+KERNEL_SOURCES = ("attention_short", "attention_decode")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
+)
+
+
+class KernelUnavailable(RuntimeError):
+    """A kernel could not be built, loaded or launched.  Never caught
+    inside the package: a CUDA tensor has no other path."""
+
+
+# ---------------------------------------------------------------- counters
+
+_LAUNCHES: Dict[str, int] = {}
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel ``name`` (called by its wrapper right
+    where it launches the kernel)."""
+    _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
+
+
+def launch_counts() -> Dict[str, int]:
+    """A copy of the launch counts since the last reset."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in list(_LAUNCHES):
+        _LAUNCHES[name] = 0
+
+
+# ------------------------------------------------------------------ build
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [shutil.which("nvcc")]
+    if home:
+        candidates.append(str(Path(home) / "bin" / "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if c and Path(c).is_file():
+            return c
+    raise KernelUnavailable(
+        "nvcc not found (looked on PATH, $CUDA_HOME and /usr/local/cuda): "
+        "the port's CUDA kernels are built from csrc/ at first use")
+
+
+def _lib_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha1(src.read_bytes())
+    for dep in sorted(CSRC.glob("*.cuh")):
+        h.update(dep.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
+    """Compile the named sources (default: all) that have no current
+    build, one ``nvcc`` process per source, all started together.
+    Returns ``name -> nvcc output`` (the ``-Xptxas -v`` register and
+    shared-memory report) for the sources compiled by this call; raises
+    :class:`KernelUnavailable` if any compile fails."""
+    names = list(KERNEL_SOURCES if names is None else names)
+    todo = [n for n in names if not _lib_path(n).is_file()]
+    if not todo:
+        return {}
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs: List = []
+    for n in todo:
+        out = _lib_path(n)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{n}.cu")]
+        procs.append((n, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = {}, []
+    for n, out, tmp, p in procs:
+        text, _ = p.communicate()
+        logs[n] = text
+        if p.returncode != 0:
+            failed.append(f"{n} (nvcc exit {p.returncode}):\n{text}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise KernelUnavailable("kernel build failed: " + "\n".join(failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build([name])
+            try:
+                lib = ctypes.CDLL(str(_lib_path(name)))
+            except OSError as e:
+                raise KernelUnavailable(f"cannot load {name}: {e}") from e
+            lib.error_string.argtypes = [ctypes.c_int]
+            lib.error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, kernel: str, err: int) -> None:
+    """Raise if a C entry reported a CUDA error for its launch."""
+    if err != 0:
+        msg = lib.error_string(err).decode(errors="replace")
+        raise KernelUnavailable(f"{kernel}: CUDA error {err} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``t``'s device, as the C entries take
+    it: kernels launch there and never synchronise."""
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def check_operands(kernel: str, *tensors: torch.Tensor) -> None:
+    """Reject a launch whose operands are not all contiguous tensors on
+    one CUDA device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{kernel}: operands on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: operand of shape {tuple(t.shape)} "
+                             "is not contiguous")

@@ -1,0 +1,182 @@
+"""Fused LayerNorm / RMSNorm forward: a Triton kernel and its plain version.
+
+Replaces ``apex_tpu/ops/layer_norm.py::_ln_fwd_kernel`` (the Pallas TPU
+kernel behind ``fused_layer_norm_affine`` / ``fused_rms_norm_affine``).
+
+Contract, as in the JAX package: statistics in fp32 whatever the input
+dtype, the normalized rows rounded to the input dtype, the affine applied
+in fp32 to those rounded rows, the output in the input dtype, and the
+per-row ``mean`` / ``invvar`` (fp32) kept for the backward a later slice
+adds (ROADMAP.md queue A item 4).
+
+Kernel design (Hopper): one Triton program per row.  A row of the
+flagship (hidden 1024) fits one block, so the program reads the row once
+into registers, reduces mean and variance there, and writes the
+normalized, affine-transformed row once: the JAX package's two passes
+(normalize in Pallas, affine in XLA) become one.  The affine epilogue
+rounds the normalized row to the input dtype first, exactly as the JAX
+path does, so kernel and plain version compute the same function.  The
+work is a few operations per byte moved, far below what the card can do
+per byte: the kernel is bound by bytes (one read of x, one write of y),
+and at the decode shape (4 rows) by launch latency.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+
+from apex_tpu_torch.ops.common import check_operands, count_launch
+
+__all__ = [
+    "fused_layer_norm_affine",
+    "fused_rms_norm_affine",
+    "layer_norm_fwd",
+]
+
+KERNEL = "ln_fwd"
+
+#: ``triton.language``, bound by :func:`_ln_kernel` on first launch so the
+#: module imports without Triton (the CPU tests import it).
+tl = None
+
+
+def _norm_size(normalized_shape: Union[int, Sequence[int]]) -> int:
+    if isinstance(normalized_shape, int):
+        return normalized_shape
+    size = 1
+    for s in normalized_shape:
+        size *= int(s)
+    return size
+
+
+@functools.lru_cache(maxsize=None)
+def _ln_kernel():
+    global tl
+    import triton
+    import triton.language
+
+    tl = triton.language
+
+    @triton.jit
+    def ln_fwd(X, W, B, Y, Mean, Invvar, N, eps,
+               RMS: tl.constexpr, HAS_BIAS: tl.constexpr,
+               BLOCK: tl.constexpr):
+        row = tl.program_id(0).to(tl.int64)
+        cols = tl.arange(0, BLOCK)
+        mask = cols < N
+        x = tl.load(X + row * N + cols, mask=mask, other=0.0)
+        x = x.to(tl.float32)
+        if RMS:
+            mean = tl.sum(x, axis=0) * 0.0
+            xc = x
+        else:
+            mean = tl.sum(x, axis=0) / N
+            xc = tl.where(mask, x - mean, 0.0)
+        var = tl.sum(xc * xc, axis=0) / N
+        invvar = 1.0 / tl.sqrt(var + eps)
+        # round the normalized row to the input dtype before the affine,
+        # where the JAX path rounds it (normalize kernel, then XLA affine)
+        xhat = (xc * invvar).to(Y.dtype.element_ty).to(tl.float32)
+        w = tl.load(W + cols, mask=mask, other=0.0).to(tl.float32)
+        y = xhat * w
+        if HAS_BIAS:
+            b = tl.load(B + cols, mask=mask, other=0.0).to(tl.float32)
+            y = y + b
+        tl.store(Y + row * N + cols, y.to(Y.dtype.element_ty), mask=mask)
+        tl.store(Mean + row, mean)
+        tl.store(Invvar + row, invvar)
+
+    return triton, ln_fwd
+
+
+def _ln_fwd_cuda(x2d, weight, bias, eps, rms):
+    triton, kernel = _ln_kernel()
+    if x2d.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise ValueError(f"{KERNEL}: unsupported dtype {x2d.dtype}")
+    rows, hidden = x2d.shape
+    operands = [x2d, weight] + ([bias] if bias is not None else [])
+    check_operands(KERNEL, *operands)
+    out = torch.empty_like(x2d)
+    mean = torch.empty((rows,), dtype=torch.float32, device=x2d.device)
+    invvar = torch.empty_like(mean)
+    if rows == 0:
+        return out, mean, invvar
+    block = triton.next_power_of_2(hidden)
+    num_warps = min(max(block // 256, 1), 16)
+    count_launch(KERNEL)
+    kernel[(rows,)](
+        x2d, weight, bias if bias is not None else weight, out, mean,
+        invvar, hidden, float(eps), RMS=rms, HAS_BIAS=bias is not None,
+        BLOCK=block, num_warps=num_warps)
+    return out, mean, invvar
+
+
+def _ln_fwd_plain(x2d, weight, bias, eps, rms):
+    """The plain PyTorch version (CPU tests, and the on-card check)."""
+    xf = x2d.float()
+    if rms:
+        mean = torch.zeros(xf.shape[0], dtype=torch.float32,
+                           device=xf.device)
+        var = torch.mean(xf * xf, dim=-1)
+    else:
+        mean = torch.mean(xf, dim=-1)
+        xc = xf - mean[:, None]
+        var = torch.mean(xc * xc, dim=-1)
+    invvar = torch.rsqrt(var + eps)
+    xhat = ((xf - mean[:, None]) * invvar[:, None]).to(x2d.dtype)
+    y = xhat.float() * weight.reshape(-1).float()
+    if bias is not None:
+        y = y + bias.reshape(-1).float()
+    return y.to(x2d.dtype), mean, invvar
+
+
+def layer_norm_fwd(
+    x2d: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    eps: float,
+    rms: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Normalize the rows of ``x2d (rows, hidden)`` and apply the affine:
+    returns ``(y, mean, invvar)``, ``y`` in ``x2d``'s dtype, the
+    statistics fp32 ``(rows,)`` (``mean`` is zero for RMSNorm).  ``bias``
+    is None for RMSNorm.  A CUDA tensor runs the Triton kernel; a CPU
+    tensor the plain version."""
+    if x2d.is_cuda:
+        return _ln_fwd_cuda(x2d.contiguous(), weight.contiguous(),
+                            None if bias is None else bias.contiguous(),
+                            eps, rms)
+    if x2d.device.type == "cpu":
+        return _ln_fwd_plain(x2d, weight, bias, eps, rms)
+    raise ValueError(f"{KERNEL}: unsupported device {x2d.device}")
+
+
+def fused_layer_norm_affine(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    normalized_shape: Union[int, Sequence[int]],
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """Affine fused layer norm.  Output dtype follows the input; the
+    statistics and the affine run in fp32."""
+    hidden = _norm_size(normalized_shape)
+    y, _, _ = layer_norm_fwd(x.reshape(-1, hidden), weight.reshape(-1),
+                             bias.reshape(-1), eps, rms=False)
+    return y.reshape(x.shape)
+
+
+def fused_rms_norm_affine(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    normalized_shape: Union[int, Sequence[int]],
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """Affine fused RMSNorm (scale only), same dtype contract."""
+    hidden = _norm_size(normalized_shape)
+    y, _, _ = layer_norm_fwd(x.reshape(-1, hidden), weight.reshape(-1),
+                             None, eps, rms=True)
+    return y.reshape(x.shape)

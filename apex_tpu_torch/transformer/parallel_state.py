@@ -1,0 +1,16 @@
+"""Model-parallel state at world size 1.
+
+``apex_tpu/transformer/parallel_state.py`` builds a 4-D JAX mesh.  The
+port serves on one GPU so far, so this is the world-size-1 stub the
+layers need: a world-size getter that always answers one.
+Tensor parallelism over ``torch.distributed`` is ROADMAP.md queue A
+item 9.
+"""
+
+from __future__ import annotations
+
+__all__ = ["get_tensor_model_parallel_world_size"]
+
+
+def get_tensor_model_parallel_world_size() -> int:
+    return 1

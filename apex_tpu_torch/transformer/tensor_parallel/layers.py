@@ -1,0 +1,98 @@
+"""Column/row-parallel linear and vocab-parallel embedding at world size 1.
+
+Counterparts of ``apex_tpu/transformer/tensor_parallel/layers.py`` as
+``nn.Module``s.  Weights keep the JAX layout ``(in, out)`` (embedding
+``(vocab, hidden)``), so carrying weights across is a copy
+(``apex_tpu_torch.convert``).  The products go to ``torch.matmul``, as
+the JAX package leaves them to XLA.  At world size 1 the collectives of
+the JAX layers are identities; sharding over ``torch.distributed`` is
+ROADMAP.md queue A item 9.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+from torch import nn
+
+from apex_tpu_torch.transformer import parallel_state
+
+__all__ = ["ColumnParallelLinear", "RowParallelLinear",
+           "VocabParallelEmbedding", "normal_init"]
+
+#: ``init(tensor, generator)`` fills ``tensor`` in place
+InitMethod = Callable[[torch.Tensor, Optional[torch.Generator]], None]
+
+
+def normal_init(std: float = 0.02) -> InitMethod:
+    def init(t: torch.Tensor, generator: Optional[torch.Generator]) -> None:
+        with torch.no_grad():
+            t.normal_(0.0, std, generator=generator)
+
+    return init
+
+
+def _check_world_size(what: str) -> None:
+    world = parallel_state.get_tensor_model_parallel_world_size()
+    if world != 1:
+        raise NotImplementedError(
+            f"{what} at tensor-parallel world size {world}: only world "
+            "size 1 is ported (ROADMAP.md queue A item 9)")
+
+
+class _Linear(nn.Module):
+    def __init__(self, input_size: int, output_size: int, *,
+                 init_method: InitMethod, bias: bool = True,
+                 params_dtype: torch.dtype = torch.float32,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _check_world_size(type(self).__name__)
+        self.input_size = input_size
+        self.output_size = output_size
+        self.weight = nn.Parameter(torch.empty(
+            (input_size, output_size), dtype=params_dtype, device=device))
+        init_method(self.weight, generator)
+        if bias:
+            # zero-init like the reference
+            self.bias = nn.Parameter(torch.zeros(
+                (output_size,), dtype=params_dtype, device=device))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.matmul(x, self.weight.to(x.dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
+
+
+class ColumnParallelLinear(_Linear):
+    """``Y = XA + b`` with ``A`` of shape ``(in, out)``; at world size 1
+    the output is already whole."""
+
+
+class RowParallelLinear(_Linear):
+    """``Y = XA + b`` with ``A`` of shape ``(in, out)``; at world size 1
+    there is no partial sum to reduce."""
+
+
+class VocabParallelEmbedding(nn.Module):
+    """Token embedding table ``(vocab, hidden)``; at world size 1 every id
+    falls in the local vocab range."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int, *,
+                 init_method: InitMethod,
+                 params_dtype: torch.dtype = torch.float32,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _check_world_size("VocabParallelEmbedding")
+        self.num_embeddings = num_embeddings
+        self.embedding_dim = embedding_dim
+        self.weight = nn.Parameter(torch.empty(
+            (num_embeddings, embedding_dim), dtype=params_dtype,
+            device=device))
+        init_method(self.weight, generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.weight[ids.long()]

@@ -1,0 +1,103 @@
+"""The port's fused LayerNorm / RMSNorm forward against the JAX package.
+
+The same numpy inputs go through ``apex_tpu.ops.layer_norm`` with
+``implementation="pallas"`` (the Pallas body of ``_ln_fwd_kernel`` in
+interpret mode on the CPU, plus the JAX affine epilogue) and through
+``apex_tpu_torch.ops.layer_norm`` on CPU tensors (the Triton kernel's
+plain version, which computes the same function).
+
+Tolerances: fp32 statistics and output agree to 1e-5 absolute and
+relative, the rounding of two fp32 reductions taken in different
+orders.  bf16 outputs agree to one bf16 ulp at the output's magnitude
+(rtol 1e-2, atol 2e-2): both round the same fp32 value, but the two
+fp32 values may sit on either side of a rounding boundary.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from apex_tpu.ops import layer_norm as jax_ln
+from apex_tpu_torch.ops import layer_norm as port_ln
+from apex_tpu_torch.ops.common import launch_counts
+
+FP32_TOL = dict(rtol=1e-5, atol=1e-5)
+BF16_TOL = dict(rtol=1e-2, atol=2e-2)
+
+
+def _inputs(shape, hidden, seed):
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(*shape) * 3.0 + 0.5).astype(np.float32)
+    w = (1.0 + 0.1 * rng.randn(hidden)).astype(np.float32)
+    b = (0.1 * rng.randn(hidden)).astype(np.float32)
+    return x, w, b
+
+
+@pytest.mark.parametrize("shape", [(5, 64), (3, 7, 32), (1, 1024)])
+@pytest.mark.parametrize("rms", [False, True])
+def test_affine_output_matches_pallas_fp32(shape, rms):
+    hidden = shape[-1]
+    x, w, b = _inputs(shape, hidden, seed=hidden + rms)
+    if rms:
+        want = jax_ln.fused_rms_norm_affine(
+            jnp.asarray(x), jnp.asarray(w), (hidden,),
+            implementation="pallas")
+        got = port_ln.fused_rms_norm_affine(
+            torch.from_numpy(x), torch.from_numpy(w), (hidden,))
+    else:
+        want = jax_ln.fused_layer_norm_affine(
+            jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), (hidden,),
+            implementation="pallas")
+        got = port_ln.fused_layer_norm_affine(
+            torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b),
+            (hidden,))
+    assert got.shape == tuple(shape) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FP32_TOL)
+
+
+@pytest.mark.parametrize("rms", [False, True])
+def test_row_statistics_match_pallas(rms):
+    """``mean``/``invvar`` per row, fp32, kept for the backward."""
+    x, w, b = _inputs((9, 48), 48, seed=7)
+    want_out, want_mean, want_inv = jax_ln._ln_fwd_pallas(
+        jnp.asarray(x), 1e-5, rms)
+    y, mean, invvar = port_ln.layer_norm_fwd(
+        torch.from_numpy(x), torch.ones(48), None, 1e-5, rms)
+    assert mean.dtype == invvar.dtype == torch.float32
+    assert mean.shape == invvar.shape == (9,)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(want_mean),
+                               **FP32_TOL)
+    np.testing.assert_allclose(invvar.numpy(), np.asarray(want_inv),
+                               **FP32_TOL)
+    # unit scale, no bias: the output is the normalized row itself
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_out), **FP32_TOL)
+
+
+def test_bf16_rounds_like_pallas():
+    x, w, b = _inputs((6, 64), 64, seed=11)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    want = jax_ln.fused_layer_norm_affine(
+        xb, jnp.asarray(w), jnp.asarray(b), 64, implementation="pallas")
+    got = port_ln.fused_layer_norm_affine(
+        torch.from_numpy(x).bfloat16(), torch.from_numpy(w),
+        torch.from_numpy(b), 64)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               **BF16_TOL)
+
+
+def test_cpu_path_launches_no_kernel():
+    before = launch_counts().get(port_ln.KERNEL, 0)
+    x, w, b = _inputs((4, 32), 32, seed=1)
+    port_ln.fused_layer_norm_affine(torch.from_numpy(x), torch.from_numpy(w),
+                                    torch.from_numpy(b), 32)
+    assert launch_counts().get(port_ln.KERNEL, 0) == before
+
+
+def test_other_devices_rejected():
+    x = torch.empty((2, 8), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        port_ln.layer_norm_fwd(x, torch.empty(8, device="meta"), None,
+                               1e-5, rms=True)

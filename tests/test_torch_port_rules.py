@@ -1,0 +1,96 @@
+"""Rules the port keeps, checked on its source.
+
+- ``apex_tpu_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
+  anything of ``apex_tpu``: the port carries its own copy of what it
+  needs.
+- Entry points default to the GPU and raise without one.
+- Kernel wrappers never fall back to their plain versions on a CUDA
+  tensor: no ``try`` in a wrapper module sends the work elsewhere.
+"""
+
+import ctypes
+import importlib
+import re
+import types
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+# the package's sources; its git-ignored build directory is not one
+PORT_FILES = sorted(
+    p for p in (ROOT / "apex_tpu_torch").rglob("*.py")
+    if "_build" not in p.relative_to(ROOT).parts) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|apex_tpu)(?![\w])", re.MULTILINE)
+
+
+def test_port_files_exist():
+    assert (ROOT / "chip_smoke.py").is_file()
+    assert len(PORT_FILES) > 10
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_and_no_reference_imports(path):
+    hits = [m.group(0).strip() for m in FORBIDDEN.finditer(path.read_text())]
+    assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
+
+
+def test_forbidden_pattern_catches_what_it_should():
+    for line in ("import jax", "from jax import numpy", "import apex_tpu",
+                 "  from apex_tpu.ops import common", "import jax.numpy"):
+        assert FORBIDDEN.search(line), line
+    for line in ("import apex_tpu_torch", "from apex_tpu_torch import ops",
+                 "import jaxtyping_like_name_not"):
+        assert not FORBIDDEN.search(line), line
+
+
+@pytest.mark.parametrize("module", ["layer_norm", "attention_short",
+                                    "attention_decode"])
+def test_kernel_wrappers_have_no_fallback(module):
+    src = (ROOT / "apex_tpu_torch" / "ops" / f"{module}.py").read_text()
+    assert not re.search(r"^\s*try\s*:", src, re.MULTILINE)
+    assert "count_launch(KERNEL)" in src
+
+
+@pytest.mark.parametrize("module, symbol", [
+    ("attention_short", "short_fwd"), ("attention_decode", "paged_decode")])
+def test_c_entries_are_typed_as_the_source_declares(monkeypatch, module,
+                                                    symbol):
+    """The ctypes argument types of each C entry match its declaration
+    in ``csrc/<module>.cu`` (a pointer or the stream is ``c_void_p``, an
+    int ``c_int``, a float ``c_float``), set once per process."""
+    mod = importlib.import_module(f"apex_tpu_torch.ops.{module}")
+    src = (ROOT / "apex_tpu_torch" / "csrc" / f"{module}.cu").read_text()
+    params = re.search(rf"^int {symbol}\(([^)]*)\)", src, re.MULTILINE)
+    want = [ctypes.c_void_p if "*" in p else
+            ctypes.c_float if p.split()[0] == "float" else ctypes.c_int
+            for p in params.group(1).split(",")]
+    fake = types.SimpleNamespace(**{symbol: types.SimpleNamespace()})
+    loads = []
+    monkeypatch.setattr(mod, "load", lambda name: loads.append(name) or fake)
+    mod._entry.cache_clear()
+    try:
+        lib, fn = mod._entry()
+        assert mod._entry() == (lib, fn)
+    finally:
+        mod._entry.cache_clear()
+    assert lib is fake and loads == [module]
+    assert fn.argtypes == want and fn.restype is ctypes.c_int
+
+
+def test_entry_points_default_to_the_gpu(monkeypatch):
+    from apex_tpu_torch.serving import KVCacheConfig, init_pools
+    from apex_tpu_torch.serving.serve import init_carry
+    from apex_tpu_torch.utils import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = KVCacheConfig(num_layers=1, num_heads=1, head_dim=8, num_pages=2)
+    for call in (lambda: resolve_device(None),
+                 lambda: resolve_device("cuda"),
+                 lambda: init_pools(cfg), lambda: init_carry(2)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert resolve_device("cpu") == torch.device("cpu")

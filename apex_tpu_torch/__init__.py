@@ -8,9 +8,13 @@ the ported path with a kernel written by hand for the H100 (CUDA C++ under
 passes ``device="cpu"``, where the kernels' plain PyTorch versions run.
 
 Ported so far: greedy serving of the GPT model (``models.gpt``,
-``serving``) through the layer-norm, short-prefill and paged-decode
-kernels.  What is still to come is listed in ``ROADMAP.md``.
+``serving``) and its training step at one GPU (``GPTModel.loss``, the
+backward, ``optimizers.FusedAdam``, the ``amp`` precision policies and
+``examples.gpt_pretrain``), through the layer-norm, short-attention
+(forward and backward), mid-attention (forward and backward) and
+paged-decode kernels.  What is still to come is listed in ``ROADMAP.md``.
 """
 
-__all__ = ["convert", "models", "ops", "serving", "telemetry",
-           "transformer", "utils"]
+__all__ = ["amp", "convert", "examples", "models", "multi_tensor_apply",
+           "ops", "optimizers", "serving", "telemetry", "transformer",
+           "utils"]

@@ -1,4 +1,5 @@
-"""Carry GPT weights between the JAX package and the port.
+"""Carry GPT weights and optimizer state between the JAX package and the
+port.
 
 The JAX ``GPTModel`` keeps its parameters as a nested dict with every
 layer leaf STACKED on a leading ``num_layers`` dim
@@ -12,7 +13,17 @@ bridge only flattens/unstacks the tree: values are copied bit for bit
 and a round trip is exact.
 
 Takes and returns numpy arrays (``jax.tree.map(np.asarray, params)`` on
-the JAX side), so neither package imports the other.
+the JAX side), so neither package imports the other.  bf16 leaves (O5)
+are ``ml_dtypes.bfloat16`` arrays in numpy, which ``torch.from_numpy``
+rejects: they cross as their 16-bit patterns, so they too are copied bit
+for bit (``ml_dtypes``, which JAX installs, is imported only to hand a
+bf16 tensor back).
+
+The optimizer state of ``FusedAdam`` (``{"step", "exp_avg",
+"exp_avg_sq", "master"}``, each moment and master a tree shaped like the
+params) goes both ways with :func:`optimizer_state_from_jax` and
+:func:`optimizer_state_to_jax`, so a JAX step and a port step can start
+from one state.
 """
 
 from __future__ import annotations
@@ -22,7 +33,11 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "params_to_jax"]
+__all__ = ["params_from_jax", "params_to_jax", "optimizer_state_from_jax",
+           "optimizer_state_to_jax"]
+
+#: the per-parameter trees of a FusedAdam state, besides ``step``
+OPT_STATE_TREES = ("exp_avg", "exp_avg_sq", "master")
 
 
 def _flatten(tree: Any, prefix: Tuple[str, ...] = ()):
@@ -31,6 +46,25 @@ def _flatten(tree: Any, prefix: Tuple[str, ...] = ()):
             yield from _flatten(tree[k], prefix + (str(k),))
     else:
         yield prefix, tree
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """A CPU tensor with ``arr``'s values (bf16 through its bit pattern)."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a numpy array (bf16 as ``ml_dtypes.bfloat16``)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        from ml_dtypes import bfloat16
+
+        return t.view(torch.int16).numpy().view(bfloat16)
+    return t.numpy()
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -42,9 +76,9 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         if key[0] == "layers":
             for i in range(arr.shape[0]):
                 state[".".join(("layers", str(i)) + key[1:])] = \
-                    torch.from_numpy(np.array(arr[i]))
+                    _tensor(arr[i])
         else:
-            state[".".join(key)] = torch.from_numpy(np.array(arr))
+            state[".".join(key)] = _tensor(arr)
     return state
 
 
@@ -54,7 +88,7 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
     per_layer: Dict[Tuple[str, ...], Dict[int, np.ndarray]] = {}
     for name, t in state.items():
-        arr = t.detach().cpu().numpy()
+        arr = _array(t)
         parts = name.split(".")
         if parts[0] == "layers":
             per_layer.setdefault(tuple(parts[2:]), {})[int(parts[1])] = arr
@@ -76,3 +110,34 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     if layers:
         tree["layers"] = layers
     return tree
+
+
+def optimizer_state_from_jax(opt_state: Dict[str, Any], model: torch.nn.Module,
+                             optimizer: torch.optim.Optimizer) -> None:
+    """Load a JAX FusedAdam state (numpy leaves) into ``optimizer``'s
+    per-parameter state for ``model``'s parameters, on their devices."""
+    step = int(np.asarray(opt_state["step"]))
+    trees = {key: params_from_jax(opt_state[key])
+             for key in OPT_STATE_TREES if key in opt_state}
+    for name, p in model.named_parameters():
+        state = {"step": step}
+        for key, tensors in trees.items():
+            state[key] = tensors[name].to(p.device)
+        optimizer.state[p] = state
+
+
+def optimizer_state_to_jax(model: torch.nn.Module,
+                           optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    """``optimizer``'s per-parameter state for ``model`` as a JAX
+    FusedAdam state (numpy leaves, layer leaves stacked)."""
+    named = list(model.named_parameters())
+    states = [optimizer.state[p] for _, p in named]
+    steps = {int(s["step"]) for s in states}
+    if len(steps) != 1:
+        raise ValueError(f"parameters are at different steps {sorted(steps)}")
+    out: Dict[str, Any] = {"step": np.int32(steps.pop())}
+    for key in OPT_STATE_TREES:
+        if key in states[0]:
+            out[key] = params_to_jax({name: s[key] for (name, _), s
+                                      in zip(named, states)})
+    return out

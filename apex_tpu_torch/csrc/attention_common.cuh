@@ -1,0 +1,755 @@
+// Exact softmax attention for Hopper (sm_90a): the forward and the
+// backward device code that the short and the mid attention entries share.
+//
+// Replaces, through the C entries that include this header:
+//   apex_tpu/ops/attention_short.py::_short_fwd_kernel, ::_short_bwd_kernel
+//     (csrc/attention_short.cu: short_fwd, short_bwd);
+//   apex_tpu/ops/attention_mid.py::_mid_fwd_kernel, ::_mid_bwd_kernel
+//     (csrc/attention_mid.cu: mid_fwd, mid_bwd).
+// The TPU kernels differ in how they use VMEM (the short ones hold a whole
+// s <= 512 sequence, the mid ones stream k-blocks with a sequential grid
+// axis); here both rungs compute the same function the same way, so they
+// run one set of kernels behind separate entries, counters and checks.
+//
+// Forward (attn_fwd_kernel): one block per (batch*head, 64-row query tile)
+// loops over 64-key K/V tiles with an online softmax (running max m,
+// running sum l, rescaled accumulator): a whole s = 512 K plus V in bf16 at
+// d = 128 is 256 KB, more than the 227 KB of shared memory a block may use.
+// Key tiles wholly above the causal diagonal are skipped, which is the
+// TPU mid kernel's causal block skip.  Outputs: O in the input dtype and the
+// row logsumexp lse (fp32) that the backward replays.
+//
+// Backward: the TPU kernels accumulate dQ over a sequential grid axis in
+// VMEM (attention_mid.py:412); CUDA blocks run in no order, so the
+// backward is three deterministic launches and no atomics:
+//   1. attn_delta_kernel: delta = rowsum(dO * O) - dlse, one warp per row
+//      (the JAX wrapper computes rowsum(dO * O) in XLA; folding the lse
+//      cotangent in here turns dz = p * (dp - delta + dlse) into
+//      dz = p * (dp - delta'), one formula for both entries);
+//   2. attn_bwd_dkv_kernel: one block per (batch*head, 64-key tile).  It
+//      walks the query tiles from the causal diagonal down, recomputes
+//      s = (q . k) * scale and p = exp(s - lse), and accumulates
+//      dV += p^T dO and dK += (dz * scale)^T Q;
+//   3. attn_bwd_dq_kernel: one block per (batch*head, 64-row query tile).
+//      It walks the key tiles up to the diagonal and accumulates
+//      dQ += (dz * scale) K.
+// The forward scales q before the product (as _short_fwd_kernel does at
+// :176); the backward scales the product (as _short_bwd_kernel does at
+// :256): both orders are kept, in the kernels and in their plain versions.
+//
+// Every kernel has 4 warps, and each warp owns 16 rows of its block's tile
+// end to end (its slice of every product and its softmax rows); only tile
+// loads are shared, so the warps synchronise twice per tile.
+//  - bf16: the products run on the tensor cores through WMMA (16x16x16
+//    bf16 fragments, fp32 accumulate), with p and dz * scale rounded to bf16
+//    as their operands, where the TPU's default precision rounds them.
+//  - fp32: full fp32 FMAs from shared memory (no TF32), as the JAX kernels'
+//    Precision.HIGHEST for fp32 inputs asks.
+//  - masking: causal (key > query), the ragged tail of keys (>= sk) and of
+//    queries (>= sq: padded rows, whose lse is meaningless, are kept out of
+//    dK/dV as in the TPU backward); masked probabilities are exactly zero
+//    and the forward fills masked scores with the finite -1e30.
+//
+// What bounds them on the card: at the flagship's training shape (b*h = 64,
+// s = 1024, d = 128, causal, bf16) the forward does 2 * 2 * d * s(s+1)/2
+// flops per (b*h) over 4 * s * d * 2 bytes, ~256 flop/byte, near the
+// H100's ~295 flop/byte bf16 balance point; the backward does 2.5x the
+// flops over 2x the bytes and is bound by operations.  These simple kernels
+// (WMMA through shared memory, scalar tile loads, one or two blocks per SM)
+// are far from either bound; wgmma/TMA pipelines are later work.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+// Everything has internal linkage: the short and the mid libraries both
+// include this header, and a template's static (the shared-memory opt-in
+// flag) must not be unified across the two loaded libraries.
+namespace attn {
+namespace {
+
+using namespace nvcuda;
+using bf16 = __nv_bfloat16;
+
+constexpr int kTile = 64;       // rows of a block's q or k tile
+constexpr int kWarps = 4;       // each warp owns 16 rows of the tile
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = kTile / kWarps;
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// ------------------------------------------------------------ warp products
+// Each works on one warp's 16 rows: A and C point at the warp's first row.
+//   abT: C[16 x N]  = A[16 x D] . B[N x D]^T   (overwrites C)
+//   ab:  C[16 x D] += A[16 x N] . B[N x D]     (accumulates into C)
+// C is fp32 in shared memory.  Tensor-core forms need leading dims that are
+// multiples of 8 (bf16) or 4 (fp32) and 32-byte aligned fragment pointers;
+// the fp32 forms let lane own columns lane + 32 * j, so abT's B needs an odd
+// leading dim (32 lanes read 32 rows at one column: 32 banks).
+
+template <int N, int D>
+__device__ __forceinline__ void abT_tc(const bf16* A, int lda, const bf16* B, int ldb,
+                       float* C, int ldc) {
+  for (int n = 0; n < N / 16; ++n) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::fill_fragment(acc, 0.0f);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+      wmma::load_matrix_sync(a, A + kk * 16, lda);
+      // B^T as a column-major (D x N) operand: element (k, n) is
+      // B[n * ldb + k]
+      wmma::load_matrix_sync(b, B + (n * 16) * ldb + kk * 16, ldb);
+      wmma::mma_sync(acc, a, b, acc);
+    }
+    wmma::store_matrix_sync(C + n * 16, acc, ldc, wmma::mem_row_major);
+  }
+}
+
+template <int N, int D>
+__device__ __forceinline__ void ab_tc(const bf16* A, int lda, const bf16* B, int ldb,
+                      float* C, int ldc) {
+  for (int n = 0; n < D / 16; ++n) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::load_matrix_sync(acc, C + n * 16, ldc, wmma::mem_row_major);
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+      wmma::load_matrix_sync(a, A + kk * 16, lda);
+      wmma::load_matrix_sync(b, B + (kk * 16) * ldb + n * 16, ldb);
+      wmma::mma_sync(acc, a, b, acc);
+    }
+    wmma::store_matrix_sync(C + n * 16, acc, ldc, wmma::mem_row_major);
+  }
+}
+
+template <int N, int D>
+__device__ __forceinline__ void abT_fp32(const float* A, int lda, const float* B, int ldb,
+                         float* C, int ldc, int lane) {
+  constexpr int J = N / 32;
+  float acc[kRows][J];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int j = 0; j < J; ++j) acc[r][j] = 0.0f;
+  for (int k = 0; k < D; ++k) {
+    float b[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) b[j] = B[(lane + 32 * j) * ldb + k];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float a = A[r * lda + k];
+#pragma unroll
+      for (int j = 0; j < J; ++j) acc[r][j] = fmaf(a, b[j], acc[r][j]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int j = 0; j < J; ++j) C[r * ldc + lane + 32 * j] = acc[r][j];
+}
+
+template <int N, int D>
+__device__ __forceinline__ void ab_fp32(const float* A, int lda, const float* B, int ldb,
+                        float* C, int ldc, int lane) {
+  for (int r = 0; r < kRows; ++r) {
+    const float* a = A + r * lda;
+#pragma unroll
+    for (int i = 0; i < D / 32; ++i) {
+      const int col = lane + 32 * i;
+      float acc = C[r * ldc + col];
+      for (int j = 0; j < N; ++j) acc = fmaf(a[j], B[j * ldb + col], acc);
+      C[r * ldc + col] = acc;
+    }
+  }
+}
+
+// Load rows [r0, r0 + rows) of a (n, D) matrix into shared memory with
+// leading dim ld; rows at or past n are zero.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
+                                          int r0, int rows, int n) {
+  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
+    const int r = i / D, c = i % D;
+    dst[r * ld + c] = (r0 + r < n) ? src[(long)(r0 + r) * D + c]
+                                   : from_f<T>(0.0f);
+  }
+}
+
+// The same rows of two (n, D) matrices in one loop (K and V, Q and dO):
+// each thread has two loads in flight per element instead of one.
+template <typename T, int D>
+__device__ __forceinline__ void load_tiles(T* dst_a, int lda, T* dst_b,
+                                           int ldb, const T* src_a,
+                                           const T* src_b, int r0, int rows,
+                                           int n) {
+  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
+    const int r = i / D, c = i % D;
+    const bool in = r0 + r < n;
+    const long at = (long)(r0 + r) * D + c;
+    dst_a[r * lda + c] = in ? src_a[at] : from_f<T>(0.0f);
+    dst_b[r * ldb + c] = in ? src_b[at] : from_f<T>(0.0f);
+  }
+}
+
+__device__ __forceinline__ void zero_f(float* dst, int ld, int rows,
+                                       int cols) {
+  for (int i = threadIdx.x; i < rows * cols; i += kThreads) {
+    dst[(i / cols) * ld + i % cols] = 0.0f;
+  }
+}
+
+// ------------------------------------------------------------------ forward
+
+// Shared-memory layout of a forward block, in bytes.  Tensor-core rows are
+// padded by 8 bf16 / 4 fp32 (WMMA ldm rules); fp32 K rows by one float.
+template <typename T, int D>
+struct FwdLayout {
+  static constexpr bool kTC = sizeof(T) == 2;
+  static constexpr int LDQ = kTC ? D + 8 : D;
+  static constexpr int LDK = kTC ? D + 8 : D + 1;
+  static constexpr int LDV = kTC ? D + 8 : D;
+  static constexpr int LDS = kTC ? kTile + 4 : kTile;  // fp32 scores
+  static constexpr int LDP = kTile + 8;                // bf16 probabilities
+  static constexpr int LDO = kTC ? D + 4 : D;          // fp32 accumulator
+  static constexpr int Q_OFF = 0;
+  static constexpr int K_OFF = round_up(Q_OFF + kTile * LDQ * (int)sizeof(T), 128);
+  static constexpr int V_OFF = round_up(K_OFF + kTile * LDK * (int)sizeof(T), 128);
+  static constexpr int S_OFF = round_up(V_OFF + kTile * LDV * (int)sizeof(T), 128);
+  static constexpr int P_OFF = round_up(S_OFF + kTile * LDS * 4, 128);
+  static constexpr int O_OFF = round_up(P_OFF + (kTC ? kTile * LDP * 2 : 0), 128);
+  static constexpr int BYTES = round_up(O_OFF + kTile * LDO * 4, 128);
+};
+
+// q, out: (bh, sq, D); k, v: (bh, sk, D); lse: (bh, sq) fp32.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, T* __restrict__ out,
+                float* __restrict__ lse, int sq, int sk, int causal,
+                float scale) {
+  using L = FwdLayout<T, D>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem + L::Q_OFF);
+  T* Ks = reinterpret_cast<T*>(smem + L::K_OFF);
+  T* Vs = reinterpret_cast<T*>(smem + L::V_OFF);
+  float* Ss = reinterpret_cast<float*>(smem + L::S_OFF);
+  bf16* Ps = reinterpret_cast<bf16*>(smem + L::P_OFF);
+  float* Os = reinterpret_cast<float*>(smem + L::O_OFF);
+
+  const int lane = threadIdx.x % 32;
+  const int row0 = (threadIdx.x / 32) * kRows;
+  const long bh = blockIdx.y;
+  const int q0 = blockIdx.x * kTile;
+  const T* kb = k + bh * sk * D;
+  const T* vb = v + bh * sk * D;
+
+  load_tile<T, D>(Qs, L::LDQ, q + bh * sq * D, q0, kTile, sq);
+  zero_f(Os, L::LDO, kTile, D);
+  float m[kRows], l[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.0f;
+  }
+
+  // causal: keys past the tile's last query row are masked for every row
+  const int kv_end = causal ? min(sk, q0 + kTile) : sk;
+  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
+    __syncthreads();   // the previous tile's products are done with K/V
+    load_tiles<T, D>(Ks, L::LDK, Vs, L::LDV, kb, vb, k0, kTile, sk);
+    __syncthreads();
+
+    if constexpr (L::kTC) {
+      abT_tc<kTile, D>(Qs + row0 * L::LDQ, L::LDQ, Ks, L::LDK,
+                       Ss + row0 * L::LDS, L::LDS);
+    } else {
+      abT_fp32<kTile, D>(Qs + row0 * L::LDQ, L::LDQ, Ks, L::LDK,
+                         Ss + row0 * L::LDS, L::LDS, lane);
+    }
+    __syncwarp();
+
+    // online softmax over this warp's rows; lane owns columns lane and
+    // lane + 32 of the tile
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int row = row0 + r;
+      const int qi = q0 + row;
+      float s[2];
+      bool ok[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int kj = k0 + lane + 32 * h;
+        ok[h] = kj < sk && (!causal || kj <= qi);
+        s[h] = ok[h] ? Ss[row * L::LDS + lane + 32 * h] * scale : kNegInf;
+      }
+      const float m_new = fmaxf(m[r], warp_max(fmaxf(s[0], s[1])));
+      float p[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) p[h] = ok[h] ? expf(s[h] - m_new) : 0.0f;
+      const float corr = expf(m[r] - m_new);
+      l[r] = l[r] * corr + warp_sum(p[0] + p[1]);
+      m[r] = m_new;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if constexpr (L::kTC) {
+          Ps[row * L::LDP + lane + 32 * h] = __float2bfloat16(p[h]);
+        } else {
+          Ss[row * L::LDS + lane + 32 * h] = p[h];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < D / 32; ++i) Os[row * L::LDO + lane + 32 * i] *= corr;
+    }
+    __syncwarp();
+
+    if constexpr (L::kTC) {
+      ab_tc<kTile, D>(Ps + row0 * L::LDP, L::LDP, Vs, L::LDV,
+                      Os + row0 * L::LDO, L::LDO);
+    } else {
+      ab_fp32<kTile, D>(Ss + row0 * L::LDS, L::LDS, Vs, L::LDV,
+                        Os + row0 * L::LDO, L::LDO, lane);
+    }
+    __syncwarp();
+  }
+
+  // normalise and store this warp's rows
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int row = row0 + r;
+    const int qi = q0 + row;
+    if (qi >= sq) continue;
+    const float ll = fmaxf(l[r], 1e-30f);
+    const float inv = 1.0f / ll;
+    T* o = out + (bh * sq + qi) * D;
+#pragma unroll
+    for (int i = 0; i < D / 32; ++i) {
+      o[lane + 32 * i] = from_f<T>(Os[row * L::LDO + lane + 32 * i] * inv);
+    }
+    if (lane == 0) lse[bh * sq + qi] = m[r] + logf(ll);
+  }
+}
+
+// ----------------------------------------------------------------- backward
+
+// delta[row] = sum_c dO[row, c] * O[row, c] - dlse[row] (dlse may be null).
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+attn_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+                  const float* __restrict__ dlse, float* __restrict__ delta,
+                  long rows) {
+  const long row = (long)blockIdx.x * kWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  float acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < D / 32; ++i) {
+    const long at = row * D + lane + 32 * i;
+    acc = fmaf(to_f(dout[at]), to_f(out[at]), acc);
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) delta[row] = acc - (dlse != nullptr ? dlse[row] : 0.0f);
+}
+
+// dK/dV block: 64 keys x D; query tiles of QT rows.  K and V are the
+// left operands (broadcast reads), Q and dO the right ones (odd leading
+// dim in fp32); the (key, query) score tiles are fp32.
+template <typename T, int D>
+struct DkvLayout {
+  static constexpr bool kTC = sizeof(T) == 2;
+  // fp32 query tiles are 32 rows so that the fp32 block fits 227 KB
+  static constexpr int QT = kTC ? 64 : 32;
+  static constexpr int LDK = kTC ? D + 8 : D;
+  static constexpr int LDQ = kTC ? D + 8 : D + 1;
+  static constexpr int LDS = kTC ? QT + 4 : QT;
+  static constexpr int LDP = QT + 8;
+  static constexpr int LDA = kTC ? D + 4 : D;
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = round_up(K_OFF + kTile * LDK * (int)sizeof(T), 128);
+  static constexpr int Q_OFF = round_up(V_OFF + kTile * LDK * (int)sizeof(T), 128);
+  static constexpr int DO_OFF = round_up(Q_OFF + QT * LDQ * (int)sizeof(T), 128);
+  static constexpr int S_OFF = round_up(DO_OFF + QT * LDQ * (int)sizeof(T), 128);
+  static constexpr int DP_OFF = round_up(S_OFF + kTile * LDS * 4, 128);
+  static constexpr int P_OFF = round_up(DP_OFF + kTile * LDS * 4, 128);
+  static constexpr int Z_OFF = round_up(P_OFF + (kTC ? kTile * LDP * 2 : 0), 128);
+  static constexpr int DK_OFF = round_up(Z_OFF + (kTC ? kTile * LDP * 2 : 0), 128);
+  static constexpr int DV_OFF = round_up(DK_OFF + kTile * LDA * 4, 128);
+  static constexpr int LSE_OFF = round_up(DV_OFF + kTile * LDA * 4, 128);
+  static constexpr int DL_OFF = LSE_OFF + QT * 4;
+  static constexpr int BYTES = round_up(DL_OFF + QT * 4, 128);
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dk,
+                    T* __restrict__ dv, int sq, int sk, int causal,
+                    float scale) {
+  using L = DkvLayout<T, D>;
+  constexpr int QT = L::QT;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem + L::K_OFF);
+  T* Vs = reinterpret_cast<T*>(smem + L::V_OFF);
+  T* Qs = reinterpret_cast<T*>(smem + L::Q_OFF);
+  T* dOs = reinterpret_cast<T*>(smem + L::DO_OFF);
+  float* Ss = reinterpret_cast<float*>(smem + L::S_OFF);
+  float* dPs = reinterpret_cast<float*>(smem + L::DP_OFF);
+  bf16* Ps = reinterpret_cast<bf16*>(smem + L::P_OFF);
+  bf16* Zs = reinterpret_cast<bf16*>(smem + L::Z_OFF);
+  float* dKs = reinterpret_cast<float*>(smem + L::DK_OFF);
+  float* dVs = reinterpret_cast<float*>(smem + L::DV_OFF);
+  float* lse_s = reinterpret_cast<float*>(smem + L::LSE_OFF);
+  float* dl_s = reinterpret_cast<float*>(smem + L::DL_OFF);
+
+  const int lane = threadIdx.x % 32;
+  const int row0 = (threadIdx.x / 32) * kRows;
+  const long bh = blockIdx.y;
+  const int k0 = blockIdx.x * kTile;
+  const T* qb = q + bh * sq * D;
+  const T* dob = dout + bh * sq * D;
+
+  load_tiles<T, D>(Ks, L::LDK, Vs, L::LDK, k + bh * sk * D, v + bh * sk * D,
+                   k0, kTile, sk);
+  zero_f(dKs, L::LDA, kTile, D);
+  zero_f(dVs, L::LDA, kTile, D);
+
+  // causal: query tiles wholly above this key tile see none of its keys
+  const int q_begin = causal ? (k0 / QT) * QT : 0;
+  for (int q0 = q_begin; q0 < sq; q0 += QT) {
+    __syncthreads();   // the previous tile's products are done with Q/dO
+    load_tiles<T, D>(Qs, L::LDQ, dOs, L::LDQ, qb, dob, q0, QT, sq);
+    for (int i = threadIdx.x; i < QT; i += kThreads) {
+      const bool in = q0 + i < sq;
+      lse_s[i] = in ? lse[bh * sq + q0 + i] : 0.0f;
+      dl_s[i] = in ? delta[bh * sq + q0 + i] : 0.0f;
+    }
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys
+    if constexpr (L::kTC) {
+      abT_tc<QT, D>(Ks + row0 * L::LDK, L::LDK, Qs, L::LDQ,
+                    Ss + row0 * L::LDS, L::LDS);
+      abT_tc<QT, D>(Vs + row0 * L::LDK, L::LDK, dOs, L::LDQ,
+                    dPs + row0 * L::LDS, L::LDS);
+    } else {
+      abT_fp32<QT, D>(Ks + row0 * L::LDK, L::LDK, Qs, L::LDQ,
+                      Ss + row0 * L::LDS, L::LDS, lane);
+      abT_fp32<QT, D>(Vs + row0 * L::LDK, L::LDK, dOs, L::LDQ,
+                      dPs + row0 * L::LDS, L::LDS, lane);
+    }
+    __syncwarp();
+
+    // p = exp(s * scale - lse), dz = p * (dp - delta); lane owns the
+    // query columns lane + 32 * j
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int row = row0 + r;
+      const int kj = k0 + row;
+#pragma unroll
+      for (int j = 0; j < QT / 32; ++j) {
+        const int c = lane + 32 * j;
+        const int qi = q0 + c;
+        const bool ok = kj < sk && qi < sq && (!causal || kj <= qi);
+        const float p =
+            ok ? expf(Ss[row * L::LDS + c] * scale - lse_s[c]) : 0.0f;
+        const float dz = p * (dPs[row * L::LDS + c] - dl_s[c]);
+        if constexpr (L::kTC) {
+          Ps[row * L::LDP + c] = __float2bfloat16(p);
+          Zs[row * L::LDP + c] = __float2bfloat16(dz * scale);
+        } else {
+          Ss[row * L::LDS + c] = p;
+          dPs[row * L::LDS + c] = dz * scale;
+        }
+      }
+    }
+    __syncwarp();
+
+    // dV += P^T dO and dK += (dz * scale)^T Q for this warp's 16 keys
+    if constexpr (L::kTC) {
+      ab_tc<QT, D>(Ps + row0 * L::LDP, L::LDP, dOs, L::LDQ,
+                   dVs + row0 * L::LDA, L::LDA);
+      ab_tc<QT, D>(Zs + row0 * L::LDP, L::LDP, Qs, L::LDQ,
+                   dKs + row0 * L::LDA, L::LDA);
+    } else {
+      ab_fp32<QT, D>(Ss + row0 * L::LDS, L::LDS, dOs, L::LDQ,
+                     dVs + row0 * L::LDA, L::LDA, lane);
+      ab_fp32<QT, D>(dPs + row0 * L::LDS, L::LDS, Qs, L::LDQ,
+                     dKs + row0 * L::LDA, L::LDA, lane);
+    }
+    __syncwarp();
+  }
+
+  // store this warp's rows
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int row = row0 + r;
+    const int kj = k0 + row;
+    if (kj >= sk) continue;
+    const long at = (bh * sk + kj) * D;
+#pragma unroll
+    for (int i = 0; i < D / 32; ++i) {
+      const int c = lane + 32 * i;
+      dk[at + c] = from_f<T>(dKs[row * L::LDA + c]);
+      dv[at + c] = from_f<T>(dVs[row * L::LDA + c]);
+    }
+  }
+}
+
+// dQ block: 64 query rows x D; key tiles of 64.  Q and dO are the left
+// operands, K and V the right ones (odd leading dim in fp32).
+template <typename T, int D>
+struct DqLayout {
+  static constexpr bool kTC = sizeof(T) == 2;
+  static constexpr int LDQ = kTC ? D + 8 : D;
+  static constexpr int LDK = kTC ? D + 8 : D + 1;
+  static constexpr int LDS = kTC ? kTile + 4 : kTile;
+  static constexpr int LDP = kTile + 8;
+  static constexpr int LDA = kTC ? D + 4 : D;
+  static constexpr int Q_OFF = 0;
+  static constexpr int DO_OFF = round_up(Q_OFF + kTile * LDQ * (int)sizeof(T), 128);
+  static constexpr int K_OFF = round_up(DO_OFF + kTile * LDQ * (int)sizeof(T), 128);
+  static constexpr int V_OFF = round_up(K_OFF + kTile * LDK * (int)sizeof(T), 128);
+  static constexpr int S_OFF = round_up(V_OFF + kTile * LDK * (int)sizeof(T), 128);
+  static constexpr int DP_OFF = round_up(S_OFF + kTile * LDS * 4, 128);
+  static constexpr int Z_OFF = round_up(DP_OFF + kTile * LDS * 4, 128);
+  static constexpr int DQ_OFF = round_up(Z_OFF + (kTC ? kTile * LDP * 2 : 0), 128);
+  static constexpr int LSE_OFF = round_up(DQ_OFF + kTile * LDA * 4, 128);
+  static constexpr int DL_OFF = LSE_OFF + kTile * 4;
+  static constexpr int BYTES = round_up(DL_OFF + kTile * 4, 128);
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, T* __restrict__ dq,
+                   int sq, int sk, int causal, float scale) {
+  using L = DqLayout<T, D>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem + L::Q_OFF);
+  T* dOs = reinterpret_cast<T*>(smem + L::DO_OFF);
+  T* Ks = reinterpret_cast<T*>(smem + L::K_OFF);
+  T* Vs = reinterpret_cast<T*>(smem + L::V_OFF);
+  float* Ss = reinterpret_cast<float*>(smem + L::S_OFF);
+  float* dPs = reinterpret_cast<float*>(smem + L::DP_OFF);
+  bf16* Zs = reinterpret_cast<bf16*>(smem + L::Z_OFF);
+  float* dQs = reinterpret_cast<float*>(smem + L::DQ_OFF);
+  float* lse_s = reinterpret_cast<float*>(smem + L::LSE_OFF);
+  float* dl_s = reinterpret_cast<float*>(smem + L::DL_OFF);
+
+  const int lane = threadIdx.x % 32;
+  const int row0 = (threadIdx.x / 32) * kRows;
+  const long bh = blockIdx.y;
+  const int q0 = blockIdx.x * kTile;
+  const T* kb = k + bh * sk * D;
+  const T* vb = v + bh * sk * D;
+
+  load_tiles<T, D>(Qs, L::LDQ, dOs, L::LDQ, q + bh * sq * D,
+                   dout + bh * sq * D, q0, kTile, sq);
+  zero_f(dQs, L::LDA, kTile, D);
+  for (int i = threadIdx.x; i < kTile; i += kThreads) {
+    const bool in = q0 + i < sq;
+    lse_s[i] = in ? lse[bh * sq + q0 + i] : 0.0f;
+    dl_s[i] = in ? delta[bh * sq + q0 + i] : 0.0f;
+  }
+
+  const int kv_end = causal ? min(sk, q0 + kTile) : sk;
+  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
+    __syncthreads();
+    load_tiles<T, D>(Ks, L::LDK, Vs, L::LDK, kb, vb, k0, kTile, sk);
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T for this warp's 16 query rows
+    if constexpr (L::kTC) {
+      abT_tc<kTile, D>(Qs + row0 * L::LDQ, L::LDQ, Ks, L::LDK,
+                       Ss + row0 * L::LDS, L::LDS);
+      abT_tc<kTile, D>(dOs + row0 * L::LDQ, L::LDQ, Vs, L::LDK,
+                       dPs + row0 * L::LDS, L::LDS);
+    } else {
+      abT_fp32<kTile, D>(Qs + row0 * L::LDQ, L::LDQ, Ks, L::LDK,
+                         Ss + row0 * L::LDS, L::LDS, lane);
+      abT_fp32<kTile, D>(dOs + row0 * L::LDQ, L::LDQ, Vs, L::LDK,
+                         dPs + row0 * L::LDS, L::LDS, lane);
+    }
+    __syncwarp();
+
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int row = row0 + r;
+      const int qi = q0 + row;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = lane + 32 * h;
+        const int kj = k0 + c;
+        const bool ok = kj < sk && qi < sq && (!causal || kj <= qi);
+        const float p =
+            ok ? expf(Ss[row * L::LDS + c] * scale - lse_s[row]) : 0.0f;
+        const float dz = p * (dPs[row * L::LDS + c] - dl_s[row]) * scale;
+        if constexpr (L::kTC) {
+          Zs[row * L::LDP + c] = __float2bfloat16(dz);
+        } else {
+          Ss[row * L::LDS + c] = dz;
+        }
+      }
+    }
+    __syncwarp();
+
+    // dQ += (dz * scale) K
+    if constexpr (L::kTC) {
+      ab_tc<kTile, D>(Zs + row0 * L::LDP, L::LDP, Ks, L::LDK,
+                      dQs + row0 * L::LDA, L::LDA);
+    } else {
+      ab_fp32<kTile, D>(Ss + row0 * L::LDS, L::LDS, Ks, L::LDK,
+                        dQs + row0 * L::LDA, L::LDA, lane);
+    }
+    __syncwarp();
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int row = row0 + r;
+    const int qi = q0 + row;
+    if (qi >= sq) continue;
+    const long at = (bh * sq + qi) * D;
+#pragma unroll
+    for (int i = 0; i < D / 32; ++i) {
+      dq[at + lane + 32 * i] = from_f<T>(dQs[row * L::LDA + lane + 32 * i]);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ launch
+
+// Above 48 KB of dynamic shared memory a kernel must opt in; once per
+// kernel instantiation and process (single device).
+template <typename K>
+cudaError_t opt_in(K kernel, int bytes, bool* done) {
+  if (*done) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) *done = true;
+  return err;
+}
+
+template <typename T, int D>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v,
+                       void* out, float* lse, int bh, int sq, int sk,
+                       int causal, float scale, cudaStream_t stream) {
+  using L = FwdLayout<T, D>;
+  static bool opted = false;
+  cudaError_t err = opt_in(attn_fwd_kernel<T, D>, L::BYTES, &opted);
+  if (err != cudaSuccess) return err;
+  dim3 grid((sq + kTile - 1) / kTile, bh);
+  attn_fwd_kernel<T, D><<<grid, kThreads, L::BYTES, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), lse, sq, sk, causal,
+      scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* out, const void* dout, const float* lse,
+                       const float* dlse, float* delta, void* dq, void* dk,
+                       void* dv, int bh, int sq, int sk, int causal,
+                       float scale, cudaStream_t stream) {
+  using KV = DkvLayout<T, D>;
+  using QL = DqLayout<T, D>;
+  static bool opted_kv = false, opted_q = false;
+  cudaError_t err = opt_in(attn_bwd_dkv_kernel<T, D>, KV::BYTES, &opted_kv);
+  if (err != cudaSuccess) return err;
+  err = opt_in(attn_bwd_dq_kernel<T, D>, QL::BYTES, &opted_q);
+  if (err != cudaSuccess) return err;
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dot = static_cast<const T*>(dout);
+  const long rows = (long)bh * sq;
+  attn_delta_kernel<T, D><<<(unsigned)((rows + kWarps - 1) / kWarps),
+                            kThreads, 0, stream>>>(
+      static_cast<const T*>(out), dot, dlse, delta, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_bwd_dkv_kernel<T, D>
+      <<<dim3((sk + kTile - 1) / kTile, bh), kThreads, KV::BYTES, stream>>>(
+          qt, kt, vt, dot, lse, delta, static_cast<T*>(dk),
+          static_cast<T*>(dv), sq, sk, causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_bwd_dq_kernel<T, D>
+      <<<dim3((sq + kTile - 1) / kTile, bh), kThreads, QL::BYTES, stream>>>(
+          qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), sq, sk, causal,
+          scale);
+  return cudaGetLastError();
+}
+
+// dtype: 0 = fp32, 1 = bf16; head dims 64 and 128.
+inline cudaError_t fwd(const void* q, const void* k, const void* v,
+                       void* out, float* lse, int bh, int sq, int sk, int d,
+                       int dtype, int causal, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0) return cudaErrorInvalidValue;
+  if (dtype == 0 && d == 128)
+    return launch_fwd<float, 128>(q, k, v, out, lse, bh, sq, sk, causal, scale, s);
+  if (dtype == 0 && d == 64)
+    return launch_fwd<float, 64>(q, k, v, out, lse, bh, sq, sk, causal, scale, s);
+  if (dtype == 1 && d == 128)
+    return launch_fwd<bf16, 128>(q, k, v, out, lse, bh, sq, sk, causal, scale, s);
+  if (dtype == 1 && d == 64)
+    return launch_fwd<bf16, 64>(q, k, v, out, lse, bh, sq, sk, causal, scale, s);
+  return cudaErrorInvalidValue;
+}
+
+inline cudaError_t bwd(const void* q, const void* k, const void* v,
+                       const void* out, const void* dout, const float* lse,
+                       const float* dlse, float* delta, void* dq, void* dk,
+                       void* dv, int bh, int sq, int sk, int d, int dtype,
+                       int causal, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0) return cudaErrorInvalidValue;
+#define ATTN_BWD(T, D)                                                      \
+  return launch_bwd<T, D>(q, k, v, out, dout, lse, dlse, delta, dq, dk, dv, \
+                          bh, sq, sk, causal, scale, s)
+  if (dtype == 0 && d == 128) ATTN_BWD(float, 128);
+  if (dtype == 0 && d == 64) ATTN_BWD(float, 64);
+  if (dtype == 1 && d == 128) ATTN_BWD(bf16, 128);
+  if (dtype == 1 && d == 64) ATTN_BWD(bf16, 64);
+#undef ATTN_BWD
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+}  // namespace attn

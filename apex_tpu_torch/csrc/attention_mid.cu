@@ -1,0 +1,50 @@
+// Mid-sequence attention (512 < s <= 2048) for Hopper (sm_90a): the C
+// entries.
+//
+// Replaces apex_tpu/ops/attention_mid.py::_mid_fwd_kernel, the Pallas TPU
+// kernel that streams 256/128-key blocks through VMEM over a sequential
+// grid axis with an online softmax and a causal block skip, and
+// ::_mid_bwd_kernel, its fused dq/dk/dv backward with the lse cotangent
+// folded in (dz = p * (dp - delta + dlse)).
+//
+// On the H100 the streamed online softmax with a causal tile skip is
+// exactly what the shared forward of attention_common.cuh does (64-key
+// tiles), so the mid entries run that device code: the grid is one block
+// per (batch*head, 64-row query tile), 64 * 16 = 1024 blocks at the
+// flagship's training shape (b = 8, h = 8, s = 1024), enough to fill the
+// 132 SMs several times over.  The backward is the delta pass (which folds
+// dlse in) plus the dK/dV and dQ kernels, no atomics, so its result is the
+// same on every run.
+//
+// What bounds it on the card: at s = 1024 causal, d = 128, bf16, the
+// forward moves 4 * s * d * 2 bytes for 2 * 2 * d * s(s+1)/2 flops per
+// (b*h), ~256 flop/byte, close to the ~295 flop/byte balance point of the
+// H100; the backward is bound by operations.
+
+#include "attention_common.cuh"
+
+extern "C" {
+
+// dtype: 0 = fp32, 1 = bf16.  Returns a cudaError_t code (0 = success).
+int mid_fwd(const void* q, const void* k, const void* v, void* out,
+            float* lse, int bh, int sq, int sk, int d, int dtype, int causal,
+            float scale, void* stream) {
+  return attn::fwd(q, k, v, out, lse, bh, sq, sk, d, dtype, causal, scale,
+                   stream);
+}
+
+// delta: (bh, sq) fp32 scratch; dlse: (bh, sq) fp32 lse cotangent or null.
+int mid_bwd(const void* q, const void* k, const void* v, const void* out,
+            const void* dout, const float* lse, const float* dlse,
+            float* delta, void* dq, void* dk, void* dv, int bh, int sq,
+            int sk, int d, int dtype, int causal, float scale,
+            void* stream) {
+  return attn::bwd(q, k, v, out, dout, lse, dlse, delta, dq, dk, dv, bh, sq,
+                   sk, d, dtype, causal, scale, stream);
+}
+
+const char* error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

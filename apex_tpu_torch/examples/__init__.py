@@ -1,0 +1,1 @@
+"""Training scripts of the port (``python -m apex_tpu_torch.examples.<name>``)."""

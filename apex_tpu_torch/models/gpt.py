@@ -1,4 +1,5 @@
-"""Megatron-style GPT, serving greedily on one GPU through the port's kernels.
+"""Megatron-style GPT: training and greedy serving on one GPU through the
+port's kernels.
 
 Counterpart of ``apex_tpu/models/gpt.py``.  The JAX model is a factory of
 pure functions over a parameter pytree with stacked layers; here it is an
@@ -14,16 +15,19 @@ carries weights across both ways).  The math is kept exactly:
 - decode clips learned positions to the table.
 
 Attention goes through ``ops.attention.flash_attention`` (the short
-kernel: sequences up to 512) in the forward and prefill, and through
+kernel up to 512 tokens, the mid kernel up to 2048, both differentiable)
+in the forward, training and prefill, and through
 ``ops.attention_decode.fmha_decode`` (the paged kernel) in decode; every
 norm through ``ops.layer_norm``'s kernel.  On the CPU the same calls run
 the kernels' plain versions.
 
-Ported so far: ``apply``, ``prefill_forward``, ``decode_step`` and the
-monolithic greedy serving of ``decode_fns`` / ``generate``, plus the
-full-recompute ``generate_reference`` that gates them, at tensor-parallel
-world size 1.  Options that are not ported raise ``NotImplementedError``
-naming their ROADMAP.md item.
+Ported so far, at tensor-parallel world size 1: ``apply``, ``loss`` (the
+two-step LM-head cross entropy) and its backward, ``prefill_forward``,
+``decode_step`` and the monolithic greedy serving of ``decode_fns`` /
+``generate``, plus the full-recompute ``generate_reference`` that gates
+them.  A ``policy`` (``apex_tpu_torch.amp``) sets the dtypes as in JAX:
+under O5 the parameters are bf16 and the norms' fp32.  Options that are
+not ported raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -36,10 +40,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from apex_tpu_torch.amp.policy import Policy, check_ported
 from apex_tpu_torch.ops.attention import flash_attention
 from apex_tpu_torch.ops.attention_decode import fmha_decode
-from apex_tpu_torch.ops.attention_short import FMHA_SHORT_MAX_SEQ
+from apex_tpu_torch.ops.attention_mid import mid_seq_threshold
 from apex_tpu_torch.ops.layer_norm import (
     fused_layer_norm_affine,
     fused_rms_norm_affine,
@@ -57,6 +63,7 @@ from apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear,
     RowParallelLinear,
     VocabParallelEmbedding,
+    lm_head_cross_entropy,
     normal_init,
 )
 from apex_tpu_torch.utils.platform import resolve_device
@@ -102,6 +109,18 @@ class GPTDecodeFns:
 class GPTConfig:
     """Hyperparameters, as in the JAX package's ``GPTConfig``.
 
+    ``policy`` (an ``apex_tpu_torch.amp.Policy``) overrides
+    ``params_dtype``/``compute_dtype`` and keeps norm parameters fp32
+    when it says so (:attr:`norm_dtype`).  ``remat`` runs each layer
+    under ``torch.utils.checkpoint`` when gradients are on: the port
+    saves only each layer's input and recomputes the rest, less than the
+    JAX ``remat_policy`` (``dots_with_no_batch_dims_saveable``) keeps,
+    with the same numbers (the recomputation is deterministic), so
+    ``remat_policy`` is accepted and does not change what is saved.
+    ``fused_ce`` / ``fused_ce_chunk`` pick the LM-head cross entropy as
+    in JAX (None: by logits size).  ``attention_impl`` forces a rung
+    (``"short"``/``"mid"``) or leaves the ladder to choose (None).
+
     Not ported yet: ``position_embedding="rope"`` (ROADMAP.md queue A
     item 3), dropout (item 4) and mixture-of-experts (item 9)."""
 
@@ -120,9 +139,24 @@ class GPTConfig:
     init_method_std: float = 0.02
     params_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
+    policy: Optional[Policy] = None
+    remat: bool = True
+    remat_policy: Optional[str] = "dots_with_no_batch_dims_saveable"
+    fused_ce: Optional[bool] = None
+    fused_ce_chunk: int = 8192
+    attention_impl: Optional[str] = None
     num_experts: Optional[int] = None
 
     def __post_init__(self):
+        if self.policy is not None:
+            check_ported(self.policy)
+            self.params_dtype = self.policy.param_dtype
+            self.compute_dtype = self.policy.compute_dtype
+        if self.attention_impl not in (None, "short", "mid"):
+            raise NotImplementedError(
+                f"attention_impl={self.attention_impl!r}: the port has the "
+                "short and mid rungs; the flash rung is ROADMAP.md queue B "
+                "item 1")
         if self.ffn_hidden_size is None:
             self.ffn_hidden_size = 4 * self.hidden_size
         if self.hidden_size % self.num_attention_heads:
@@ -155,6 +189,13 @@ class GPTConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+    @property
+    def norm_dtype(self) -> torch.dtype:
+        """Norm parameter dtype: fp32 under a keep-norm-fp32 policy."""
+        if self.policy is not None and self.policy.keep_norm_fp32:
+            return torch.float32
+        return self.params_dtype
 
 
 class Norm(nn.Module):
@@ -196,7 +237,7 @@ class GPTLayer(nn.Module):
 
         def norm():
             return Norm(c.hidden_size, c.normalization, c.layernorm_epsilon,
-                        c.params_dtype, device)
+                        c.norm_dtype, device)
 
         self.ln1 = norm()
         self.qkv = ColumnParallelLinear(c.hidden_size, 3 * c.hidden_size,
@@ -241,7 +282,7 @@ class GPTModel(nn.Module):
         self.layers = nn.ModuleList(
             GPTLayer(c, self.device, gen) for _ in range(c.num_layers))
         self.final_ln = Norm(c.hidden_size, c.normalization,
-                             c.layernorm_epsilon, c.params_dtype,
+                             c.layernorm_epsilon, c.norm_dtype,
                              self.device)
 
     # ------------------------------------------------------------ forward
@@ -269,12 +310,16 @@ class GPTModel(nn.Module):
         residual = x
         y = layer.ln1(x).to(c.compute_dtype)
         q, k, v = self._qkv_heads(layer, y)
-        attn = flash_attention(q, k, v, causal=True)
+        attn = flash_attention(q, k, v, causal=True,
+                               implementation=c.attention_impl)
         attn = attn.transpose(1, 2).reshape(b, s, c.hidden_size)
         x = residual + layer.attn_proj(attn).to(residual.dtype)
         residual = x
         y = layer.ln2(x).to(c.compute_dtype)
         return residual + self._dense_mlp(layer, y).to(residual.dtype), k, v
+
+    def _layer_out(self, layer: GPTLayer, x: torch.Tensor) -> torch.Tensor:
+        return self._layer(layer, x)[0]
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         s = tokens.shape[1]
@@ -290,8 +335,12 @@ class GPTModel(nn.Module):
         compute dtype (the JAX version also returns the MoE aux loss,
         which a dense model does not have)."""
         x = self._embed(tokens)
+        remat = self.config.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x, _, _ = self._layer(layer, x)
+            if remat:
+                x = checkpoint(self._layer_out, layer, x, use_reentrant=False)
+            else:
+                x = self._layer_out(layer, x)
         return self._final_norm(x)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
@@ -304,6 +353,22 @@ class GPTModel(nn.Module):
         return self.logits(self.hidden_states(tokens))
 
     forward = apply
+
+    # ----------------------------------------------------------- training
+    def _per_token_ce(self, hidden: torch.Tensor,
+                      targets: torch.Tensor) -> torch.Tensor:
+        """Per-token CE through the tied LM head (the two-step path, or
+        the fused one by ``config.fused_ce``)."""
+        return lm_head_cross_entropy(
+            hidden, self.embedding.weight, targets,
+            fused=self.config.fused_ce, chunk=self.config.fused_ce_chunk)
+
+    def loss(self, tokens: torch.Tensor,
+             targets: torch.Tensor) -> torch.Tensor:
+        """Mean next-token CE (fp32 scalar) over ``tokens``/``targets``
+        ``(b, s)``; differentiable in every parameter."""
+        return torch.mean(self._per_token_ce(self.hidden_states(tokens),
+                                             targets))
 
     # ------------------------------------------------- serving / decode
     def prefill_forward(self, tokens: torch.Tensor):
@@ -406,11 +471,11 @@ class GPTModel(nn.Module):
                 f"cache pages are {cfg.dtype} but the model computes in "
                 f"{c.compute_dtype}: the decode kernel reads pages in the "
                 "query's dtype")
-        if max_prompt_len > FMHA_SHORT_MAX_SEQ:
+        if max_prompt_len > mid_seq_threshold():
             raise NotImplementedError(
-                f"max_prompt_len {max_prompt_len} > {FMHA_SHORT_MAX_SEQ}: "
-                "monolithic prefill of longer prompts needs the mid and "
-                "flash attention kernels (ROADMAP.md queue B items 4-5)")
+                f"max_prompt_len {max_prompt_len} > {mid_seq_threshold()}: "
+                "monolithic prefill of longer prompts needs the flash "
+                "attention kernels (ROADMAP.md queue B item 1)")
 
         @torch.no_grad()
         def prefill(pools, toks, length: int, page_row):
@@ -516,7 +581,7 @@ class GPTModel(nn.Module):
         whole forward over the growing padded sequence and argmaxes the
         last valid position.  Exists to gate the paged path, never to
         serve.  Needs ``s + max_new_tokens`` within the learned position
-        table and the short attention window.  Returns ``(b, new)``."""
+        table and the attention ladder's window.  Returns ``(b, new)``."""
         c = self.config
         prompts = np.asarray(prompts)
         b, s = prompts.shape

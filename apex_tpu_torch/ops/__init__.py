@@ -6,7 +6,8 @@ from apex_tpu_torch.ops.attention_decode import (
     fmha_decode,
     paged_attention_reference,
 )
-from apex_tpu_torch.ops.attention_short import fmha_short, short_fwd
+from apex_tpu_torch.ops.attention_mid import fmha_mid, mid_bwd, mid_fwd
+from apex_tpu_torch.ops.attention_short import fmha_short, short_bwd, short_fwd
 from apex_tpu_torch.ops.common import (
     KernelUnavailable,
     launch_counts,
@@ -19,8 +20,9 @@ from apex_tpu_torch.ops.layer_norm import (
 )
 
 __all__ = [
-    "KernelUnavailable", "flash_attention", "fmha_decode", "fmha_short",
-    "fused_layer_norm_affine", "fused_rms_norm_affine", "launch_counts",
-    "layer_norm_fwd", "mha_reference", "paged_attention_reference",
-    "reset_launch_counts", "short_fwd",
+    "KernelUnavailable", "flash_attention", "fmha_decode", "fmha_mid",
+    "fmha_short", "fused_layer_norm_affine", "fused_rms_norm_affine",
+    "launch_counts", "layer_norm_fwd", "mha_reference", "mid_bwd",
+    "mid_fwd", "paged_attention_reference", "reset_launch_counts",
+    "short_bwd", "short_fwd",
 ]

@@ -88,10 +88,10 @@ def paged_attention_reference(
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
+def _entry(symbol: str = KERNEL):
     """The loaded library and its C entry, typed once."""
     lib = load("attention_decode")
-    fn = lib.paged_decode
+    fn = getattr(lib, symbol)
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int

@@ -1,4 +1,5 @@
-"""Fused LayerNorm / RMSNorm forward: a Triton kernel and its plain version.
+"""Fused LayerNorm / RMSNorm: a Triton forward kernel, its plain version,
+and the backward.
 
 Replaces ``apex_tpu/ops/layer_norm.py::_ln_fwd_kernel`` (the Pallas TPU
 kernel behind ``fused_layer_norm_affine`` / ``fused_rms_norm_affine``).
@@ -6,8 +7,14 @@ kernel behind ``fused_layer_norm_affine`` / ``fused_rms_norm_affine``).
 Contract, as in the JAX package: statistics in fp32 whatever the input
 dtype, the normalized rows rounded to the input dtype, the affine applied
 in fp32 to those rounded rows, the output in the input dtype, and the
-per-row ``mean`` / ``invvar`` (fp32) kept for the backward a later slice
-adds (ROADMAP.md queue A item 4).
+per-row ``mean`` / ``invvar`` (fp32) kept for the backward.
+
+The backward is plain PyTorch, as the JAX package's is plain XLA math
+(``_normalize_bwd`` and the transpose of the affine): it has no TPU
+kernel to port.  The JAX affine runs outside its custom_vjp, so its
+transpose rounds where the forward rounded; :func:`layer_norm_bwd`
+reproduces those roundings by hand because the port fuses the affine into
+the kernel (see its docstring).
 
 Kernel design (Hopper): one Triton program per row.  A row of the
 flagship (hidden 1024) fits one block, so the program reads the row once
@@ -33,6 +40,7 @@ from apex_tpu_torch.ops.common import check_operands, count_launch
 __all__ = [
     "fused_layer_norm_affine",
     "fused_rms_norm_affine",
+    "layer_norm_bwd",
     "layer_norm_fwd",
 ]
 
@@ -154,6 +162,61 @@ def layer_norm_fwd(
     raise ValueError(f"{KERNEL}: unsupported device {x2d.device}")
 
 
+def layer_norm_bwd(
+    dy: torch.Tensor,
+    x2d: torch.Tensor,
+    weight: torch.Tensor,
+    bias_dtype: Optional[torch.dtype],
+    mean: torch.Tensor,
+    invvar: torch.Tensor,
+    rms: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """``(dx, dscale, dbias)`` of :func:`layer_norm_fwd` for the output
+    cotangent ``dy`` (``bias_dtype`` None: no bias, and ``dbias`` None).
+
+    The JAX forward is ``out = (xhat_r.f32 * w.f32 + b.f32).astype(x)``
+    with ``xhat_r`` the normalized row rounded to ``x``'s dtype, and only
+    the normalization inside the custom_vjp.  Its transpose, reproduced
+    here: ``dxhat = (dy.f32 * w.f32)`` rounded to ``x``'s dtype,
+    ``dscale = sum_rows(dy.f32 * xhat_r.f32)``, ``dbias = sum_rows(dy.f32)``
+    (each cast to its parameter's dtype), then ``_normalize_bwd`` on
+    ``dxhat`` with the fp32 ``xhat`` recomputed from the saved statistics,
+    ``dx`` rounded to ``x``'s dtype."""
+    dyf = dy.float()
+    xf = x2d.float()
+    xhat = (xf - mean[:, None]) * invvar[:, None]
+    dscale = (dyf * xhat.to(x2d.dtype).float()).sum(0).to(weight.dtype)
+    dbias = None if bias_dtype is None else dyf.sum(0).to(bias_dtype)
+    dxhat = (dyf * weight.float()).to(x2d.dtype).float()
+    c2 = torch.mean(dxhat * xhat, dim=-1, keepdim=True)
+    if rms:
+        dx = invvar[:, None] * (dxhat - xhat * c2)
+    else:
+        c1 = torch.mean(dxhat, dim=-1, keepdim=True)
+        dx = invvar[:, None] * (dxhat - c1 - xhat * c2)
+    return dx.to(x2d.dtype), dscale, dbias
+
+
+class _LayerNormAffine(torch.autograd.Function):
+    """The kernel's forward with :func:`layer_norm_bwd` as its backward;
+    saves ``x`` and the row statistics, as the JAX custom_vjp does."""
+
+    @staticmethod
+    def forward(ctx, x2d, weight, bias, eps, rms):
+        y, mean, invvar = layer_norm_fwd(x2d, weight, bias, eps, rms)
+        ctx.save_for_backward(x2d, weight, mean, invvar)
+        ctx.rms = rms
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2d, weight, mean, invvar = ctx.saved_tensors
+        dx, dscale, dbias = layer_norm_bwd(dy, x2d, weight, ctx.bias_dtype,
+                                           mean, invvar, ctx.rms)
+        return dx, dscale, dbias, None, None
+
+
 def fused_layer_norm_affine(
     x: torch.Tensor,
     weight: torch.Tensor,
@@ -161,11 +224,12 @@ def fused_layer_norm_affine(
     normalized_shape: Union[int, Sequence[int]],
     eps: float = 1e-5,
 ) -> torch.Tensor:
-    """Affine fused layer norm.  Output dtype follows the input; the
-    statistics and the affine run in fp32."""
+    """Affine fused layer norm, differentiable in ``x``, ``weight`` and
+    ``bias``.  Output dtype follows the input; the statistics and the
+    affine run in fp32."""
     hidden = _norm_size(normalized_shape)
-    y, _, _ = layer_norm_fwd(x.reshape(-1, hidden), weight.reshape(-1),
-                             bias.reshape(-1), eps, rms=False)
+    y = _LayerNormAffine.apply(x.reshape(-1, hidden), weight.reshape(-1),
+                               bias.reshape(-1), eps, False)
     return y.reshape(x.shape)
 
 
@@ -175,8 +239,9 @@ def fused_rms_norm_affine(
     normalized_shape: Union[int, Sequence[int]],
     eps: float = 1e-5,
 ) -> torch.Tensor:
-    """Affine fused RMSNorm (scale only), same dtype contract."""
+    """Affine fused RMSNorm (scale only), same dtype contract, also
+    differentiable."""
     hidden = _norm_size(normalized_shape)
-    y, _, _ = layer_norm_fwd(x.reshape(-1, hidden), weight.reshape(-1),
-                             None, eps, rms=True)
+    y = _LayerNormAffine.apply(x.reshape(-1, hidden), weight.reshape(-1),
+                               None, eps, True)
     return y.reshape(x.shape)

@@ -1,9 +1,16 @@
+from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
+    lm_head_cross_entropy,
+    vocab_parallel_cross_entropy,
+)
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
     ColumnParallelLinear,
     RowParallelLinear,
     VocabParallelEmbedding,
     normal_init,
 )
+from apex_tpu_torch.transformer.tensor_parallel.utils import clip_grad_norm
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
-           "VocabParallelEmbedding", "normal_init"]
+           "VocabParallelEmbedding", "clip_grad_norm",
+           "lm_head_cross_entropy", "normal_init",
+           "vocab_parallel_cross_entropy"]

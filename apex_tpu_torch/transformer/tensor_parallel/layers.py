@@ -4,7 +4,10 @@ Counterparts of ``apex_tpu/transformer/tensor_parallel/layers.py`` as
 ``nn.Module``s.  Weights keep the JAX layout ``(in, out)`` (embedding
 ``(vocab, hidden)``), so carrying weights across is a copy
 (``apex_tpu_torch.convert``).  The products go to ``torch.matmul``, as
-the JAX package leaves them to XLA.  At world size 1 the collectives of
+the JAX package leaves them to XLA.  A weight is used once per call
+(cast to the input's dtype, a no-op when they match), so autograd gives
+each weight one accumulated gradient in its own dtype; the tied LM head
+adds its share to the embedding's.  At world size 1 the collectives of
 the JAX layers are identities; sharding over ``torch.distributed`` is
 ROADMAP.md queue A item 9.
 """
@@ -14,6 +17,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from apex_tpu_torch.transformer import parallel_state
@@ -95,4 +99,6 @@ class VocabParallelEmbedding(nn.Module):
         init_method(self.weight, generator)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.weight[ids.long()]
+        # the lookup's backward sums repeated ids in fp32 before rounding
+        # to the weight's dtype
+        return F.embedding(ids.long(), self.weight)

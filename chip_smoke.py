@@ -8,21 +8,36 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
              (one ``nvcc`` per source, all at once) and print the card's
              name and power limit as ``nvidia-smi`` reports them.
 2. kernels — hold each hand-written kernel against its plain PyTorch
-             version on the card, at the serving path's shapes, in bf16
-             and fp32; print each one's error, time, bound and the time
-             of a PyTorch library call for the same function, if any.
+             version on the card, at the serving and training paths'
+             shapes, in bf16 and fp32; print each one's error, time,
+             bound and the time of a PyTorch library call for the same
+             function, if any; and a first short-vs-mid reading at
+             s in {256, 384, 512}.
 3. parity  — the flagship GPT's width at 2 layers, fp32 compute: the
              paged greedy tokens of ``ContinuousBatcher`` (6 ragged
              requests, 2 slots, 16 new tokens) must equal the port's
-             full-recompute ``generate_reference`` token for token.
+             full-recompute ``generate_reference`` token for token, and
+             so must a 600-token prompt's (prefill on the mid rung).
 4. serve   — the full flagship GPT (12 layers, bf16): 8 requests with
              prompts of 32..512 tokens, 32 greedy tokens each, through
-             ``decode_fns`` + ``ContinuousBatcher``; every request must
-             complete, and every kernel must have launched in this phase;
+             ``decode_fns`` + ``ContinuousBatcher``, then one 900-token
+             prompt (prefill padded to 960); every request must complete,
+             and every serving kernel must have launched in this phase;
              the bf16 logits are printed beside the same weights at fp32.
 5. profile — the same model under ``torch.profiler``: four prefills,
              then one harvest window of decode steps; the device's busy
              share and the kernels that took its time.
+6. train-parity — the flagship's width at 2 layers, fp32: one step of
+             loss, backward and FusedAdam on the GPU (kernels) against a
+             CPU copy of the same model and state (plain versions), at
+             s=384 (short rung) and s=640 (mid rung): loss, every grad and
+             the updated parameters must agree.
+7. train   — the full flagship at O5, 8 x 1024 tokens, remat on, through
+             the port trainer's step: 2 warm-up and 10 timed steps; the
+             loss must be finite and fall, and the mid kernels must have
+             launched.  Prints ms/step, tokens/s, MFU, peak memory, the
+             launches and the step-1 loss at O5 against fp32.
+8. profile — one training step under ``torch.profiler``.
 
 The last two lines are a JSON object with one record per kernel, and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -242,6 +257,8 @@ def phase_kernels(dev) -> dict:
                 nbytes=4 * q.numel() * q.element_size() + heads * s * 4,
                 ops=4.0 * d * pairs, dtype=dtype)]
 
+    records.update(attention_train_kernels(randn))
+
     # -- paged decode: 4 slots, 9 pages of 64, ragged incl. idle --------
     log("[kernels] paged_decode (CUDA), 4 slots h=8 d=128 page 64 x 9")
     page, pps = 64, 9
@@ -284,6 +301,132 @@ def phase_kernels(dev) -> dict:
                 + table.numel() * 4 + lengths.numel() * 4,
                 ops=4.0 * d * heads * toks, dtype=dtype)]
     return records
+
+
+def profiled_ms(fn, iters: int = 10) -> float:
+    """Device ms per call of ``fn``: the kernels' device time summed by
+    ``torch.profiler`` over ``iters`` calls after a warm-up.  For library
+    calls through autograd, which are not captured in a CUDA graph here
+    and whose eager calls the host's launch rate can outlast."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(r[0] for r in device_rows(prof))
+    if busy_us == 0:
+        fail("profiled_ms: the profiler saw no device time")
+    return busy_us / 1e3 / iters
+
+
+def attention_train_kernels(randn) -> dict:
+    """The training path's attention kernels against their plain versions,
+    causal, b=8 h=8 d=128, fp32 and bf16: ``short_bwd`` at s=512,
+    ``mid_fwd``/``mid_bwd`` at the flagship's training length s=1024 and a
+    ragged s=640 (the latter with a real lse cotangent).  The backward
+    kernels get the plain forward's ``out``/``lse``, so each is held alone.
+    Times at bf16 for s=512 (short) and s=1024 (mid); the library calls
+    are SDPA forward and SDPA forward+backward through autograd."""
+    from apex_tpu_torch.ops import attention_mid as mid
+    from apex_tpu_torch.ops import attention_short as short
+    import torch.nn.functional as F
+
+    b, heads, d = 8, FLAGSHIP["num_attention_heads"], 128
+    scale = d ** -0.5
+    records = {}
+    log("[kernels] short_bwd, mid_fwd, mid_bwd (CUDA), b=8 h=8 d=128 causal")
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        for kind, s in (("short", 512), ("mid", 1024), ("mid", 640)):
+            q, k, v, dout = (randn(b, heads, s, d, dtype=dtype)
+                             for _ in range(4))
+            numel = q.numel() * q.element_size()
+            pairs = b * heads * s * (s + 1) / 2      # causal (q, k) pairs
+            fwd_err = None
+            if kind == "mid":
+                got = mid.mid_fwd(q, k, v, causal=True)
+                want = mid._mid_fwd_plain(q, k, v, True, scale)
+                fwd_err = check("mid_fwd", got[0], want[0],
+                                f"{dt} s={s} out")
+                lse_err = max_err(got[1], want[1])
+                if not lse_err <= 1e-3:
+                    fail(f"mid_fwd {dt} s={s} lse: error {lse_err:.3g} "
+                         "> 1e-3")
+                log(f"  mid_fwd {dt} s={s} lse: max_abs_err {lse_err:.3g} "
+                    "(tolerance 1e-3)")
+            out, lse = short._short_fwd_plain(q, k, v, True, scale)
+            dlse = randn(b, heads, s) if s == 640 else None
+            name = f"{kind}_bwd"
+            bwd, plain = ((short.short_bwd, short._short_bwd_plain)
+                          if kind == "short"
+                          else (mid.mid_bwd, mid._mid_bwd_plain))
+            got = bwd(q, k, v, out, dout, lse, dlse, causal=True)
+            want = plain(q, k, v, out, dout, lse, dlse, True, scale)
+            what = f"{dt} s={s}" + (" with dlse" if dlse is not None else "")
+            errs = [check(name, g, w, f"{what} {n}")
+                    for g, w, n in zip(got, want, ("dq", "dk", "dv"))]
+            if dtype != torch.bfloat16 or s == 640:
+                continue
+            shape = f"b={b} h={heads} s={s} d={d} causal bf16"
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+            def sdpa_fwd_bwd():
+                o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+                torch.autograd.grad(o, (qg, kg, vg), dout)
+
+            fb_ms = profiled_ms(sdpa_fwd_bwd)
+            log(f"  SDPA forward+backward through autograd {shape}: "
+                f"{fb_ms:.4f} ms of device time (profiler)")
+            if kind == "mid":
+                records["mid_fwd"] = [measure(
+                    "mid_fwd", shape, fwd_err,
+                    lambda: mid.mid_fwd(q, k, v, causal=True),
+                    lambda: mid._mid_fwd_plain(q, k, v, True, scale),
+                    ("SDPA", lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True)),
+                    nbytes=4 * numel + b * heads * s * 4, ops=4.0 * d * pairs,
+                    dtype=dtype)]
+            # five products per (q, k) pair: s, dp, dv, dk, dq
+            rec = measure(
+                name, shape, max(errs),
+                lambda: bwd(q, k, v, out, dout, lse, causal=True),
+                lambda: plain(q, k, v, out, dout, lse, None, True, scale),
+                None, nbytes=8 * numel + b * heads * s * 4,
+                ops=10.0 * d * pairs, dtype=dtype)
+            rec["library_ms"] = fb_ms
+            log(f"  {name}: library call is SDPA forward+backward "
+                f"({fb_ms:.4f} ms), which includes a forward")
+            records[name] = [rec]
+    crossover(randn)
+    return records
+
+
+def crossover(randn) -> None:
+    """A first short-vs-mid reading at s in {256, 384, 512} (b=8 h=8
+    d=128 causal bf16): device ms of forward and backward on each rung.
+    Recorded only; the ladder's boundary stays the JAX package's 512."""
+    from apex_tpu_torch.ops import attention_mid as mid
+    from apex_tpu_torch.ops import attention_short as short
+
+    b, heads, d = 8, FLAGSHIP["num_attention_heads"], 128
+    log("[kernels] short vs mid crossover, b=8 h=8 d=128 causal bf16")
+    for s in (256, 384, 512):
+        q, k, v, dout = (randn(b, heads, s, d, dtype=torch.bfloat16)
+                         for _ in range(4))
+        out, lse = short.short_fwd(q, k, v, causal=True)
+        row = []
+        for name, fwd, bwd in (("short", short.short_fwd, short.short_bwd),
+                               ("mid", mid.mid_fwd, mid.mid_bwd)):
+            f_ms, _ = time_ms(lambda: fwd(q, k, v, causal=True))
+            b_ms, _ = time_ms(lambda: bwd(q, k, v, out, dout, lse,
+                                          causal=True))
+            row.append(f"{name} fwd {f_ms:.4f} ms bwd {b_ms:.4f} ms")
+        log(f"  s={s}: " + "; ".join(row))
 
 
 # ---------------------------------------------------------------- phase 3
@@ -346,6 +489,18 @@ def phase_parity(dev) -> None:
                  f"reference {ref[i].tolist()}")
     distinct = len({t for r in ref.tolist() for t in r})
     log(f"  6 requests x {new} tokens identical ({distinct} distinct ids)")
+    # one prompt past the short rung: monolithic prefill through mid_fwd
+    long_prompt = rng.randint(1, cfg.vocab_size, (1, 600)).astype(np.int32)
+    ref = model.generate_reference(long_prompt, [600], new)
+    comps, _, _, _ = serve(
+        model, [Request(uid="long", prompt=long_prompt[0].tolist(),
+                        max_new_tokens=new)],
+        max_prompt_len=640, page_size=16, max_seqs=1, pages_per_seq=41)
+    if comps["long"].tokens != ref[0].tolist():
+        fail(f"parity: 600-token prompt paged {comps['long'].tokens} != "
+             f"reference {ref[0].tolist()}")
+    log(f"  a 600-token prompt (prefill padded to 640, mid rung): {new} "
+        "tokens identical")
     del model
     torch.cuda.empty_cache()
 
@@ -372,7 +527,20 @@ def phase_serve(dev) -> dict:
     reset_launch_counts()
     comps, wall, prefill_s, batcher = serve(model, reqs, 512, 64, 4, 9)
     torch.cuda.synchronize()
+    # then one request past the short rung: a 900-token prompt, prefill
+    # padded to 960 through mid_fwd
+    long_req = Request(uid="long",
+                       prompt=rng.randint(1, cfg.vocab_size, 900).tolist(),
+                       max_new_tokens=new)
+    long_comps, long_wall, long_prefill, _ = serve(model, [long_req], 960,
+                                                   64, 1, 16)
     counts = launch_counts()
+    toks = long_comps["long"].tokens
+    if len(toks) != new or not all(0 <= t < cfg.vocab_size for t in toks):
+        fail(f"serve: the 900-token request returned {toks}")
+    log(f"  a 900-token prompt (prefill padded to 960, mid rung): {new} "
+        f"tokens in {long_wall:.3f} s, prefill {1e3 * long_prefill[0]:.2f} "
+        "ms")
     for i in range(len(reqs)):
         toks = comps[i].tokens
         if len(toks) != new or not all(0 <= t < cfg.vocab_size
@@ -395,7 +563,7 @@ def phase_serve(dev) -> dict:
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB")
     log(f"  launches in this phase: {counts}")
-    for name in ("ln_fwd", "short_fwd", "paged_decode"):
+    for name in ("ln_fwd", "short_fwd", "mid_fwd", "paged_decode"):
         if counts.get(name, 0) <= 0:
             fail(f"serve: kernel {name} never launched on the main path")
     # the bf16 path against the same weights at fp32 compute
@@ -415,23 +583,33 @@ def phase_serve(dev) -> dict:
     return counts, model
 
 
-def device_breakdown(prof, wall_s: float, label: str) -> None:
-    """Device busy share and the kernels that took the device's time,
-    from a ``torch.profiler`` run of ``wall_s`` seconds."""
+def device_rows(prof) -> list:
+    """``(device us, calls, name)`` of each kernel and device copy in a
+    ``torch.profiler`` run: an aten op's own entry repeats the device
+    time of the kernels it launched, and a user annotation on the device
+    timeline (``tlm.*`` phases, ``Optimizer.step#...``) spans the
+    kernels inside it, so neither is counted."""
     from apex_tpu_torch.telemetry import PHASE_PREFIX
 
     rows = []
     for e in prof.key_averages():
-        # kernels and device copies only: an aten op's own entry repeats
-        # the device time of the kernels it launched
         if (e.device_type != torch.autograd.DeviceType.CUDA
-                or e.key.startswith(PHASE_PREFIX)):
+                or getattr(e, "is_user_annotation", False)
+                or e.key.startswith(PHASE_PREFIX)
+                or e.key.startswith("Optimizer.")):
             continue
         t = getattr(e, "self_device_time_total", None)
         if t is None:
             t = e.self_cuda_time_total
         if t > 0:
             rows.append((t, e.count, e.key))
+    return rows
+
+
+def device_breakdown(prof, wall_s: float, label: str) -> None:
+    """Device busy share and the kernels that took the device's time,
+    from a ``torch.profiler`` run of ``wall_s`` seconds."""
+    rows = device_rows(prof)
     busy_us = sum(r[0] for r in rows)
     if busy_us == 0:
         log(f"  {label}: device time not measured (the profiler saw none)")
@@ -485,6 +663,179 @@ def phase_profile(model) -> None:
         device_breakdown(prof, wall, label)
 
 
+# ---------------------------------------------------------------- phase 6
+def phase_train_parity(dev) -> dict:
+    """One training step (loss, backward, FusedAdam) of the flagship's
+    width at 2 layers and fp32, on the GPU through the kernels and on a
+    CPU copy of the same model and state through the plain versions
+    (``device="cpu"``, chosen explicitly), at s=384 (short rung) and s=640
+    (mid rung), batch 1.  Returns each length's launch counts."""
+    from apex_tpu_torch.amp import get_policy
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    lr = 1e-3
+    log("[train-parity] flagship width, 2 layers, fp32 (O0): one step on "
+        f"the GPU vs the CPU, FusedAdam lr={lr}")
+    cfg = GPTConfig(**dict(FLAGSHIP, num_layers=2), policy=get_policy("O0"))
+    counts = {}
+    for s in (384, 640):
+        gpu = GPTModel(cfg, device=dev, seed=3)
+        cpu = GPTModel(cfg, device="cpu", seed=3)
+        cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+        before = {k: v.cpu().clone() for k, v in gpu.state_dict().items()}
+        toks = np.random.RandomState(s).randint(0, cfg.vocab_size, (1, s))
+        tgts = np.roll(toks, -1, axis=1)
+        out = []
+        for model in (gpu, cpu):
+            opt = FusedAdam(model.parameters(), lr=lr)
+            t, y = (torch.as_tensor(a, device=model.device)
+                    for a in (toks, tgts))
+            if model is gpu:
+                torch.cuda.synchronize()
+                reset_launch_counts()
+            loss = model.loss(t, y)
+            loss.backward()
+            opt.step()
+            if model is gpu:
+                torch.cuda.synchronize()
+                counts[s] = launch_counts()
+            out.append((loss.item(),
+                        {n: p.grad.cpu() for n, p in model.named_parameters()},
+                        {n: p.detach().cpu() for n, p in
+                         model.named_parameters()}))
+        (lg, gg, pg), (lc, gc, pc) = out
+        if not abs(lg - lc) <= 1e-5 * max(1.0, abs(lc)):
+            fail(f"train-parity s={s}: loss {lg} (GPU) vs {lc} (CPU)")
+        worst_g, worst_p, steps_checked = 0.0, 0.0, 0
+        for n in gc:
+            # fp32 on both sides, sums in another order: 1e-4 of the
+            # tensor's largest gradient
+            tol = 1e-4 * gc[n].abs().max().item() + 1e-9
+            err = (gg[n] - gc[n]).abs().max().item()
+            worst_g = max(worst_g, err / tol)
+            if err > tol:
+                fail(f"train-parity s={s}: grad {n} differs by {err:.3g} > "
+                     f"{tol:.3g}")
+            # the first Adam step moves a weight by lr * g / (|g| + eps):
+            # where |g| is 10x the gradient tolerance and 1e-6 the sign
+            # is sure and the steps agree to 1% of lr; elsewhere (noise,
+            # such as the key bias's exactly-zero gradient) only the
+            # bound |step| <= lr holds
+            sure = gc[n].abs() >= max(10 * tol, 1e-6)
+            dp = (pg[n] - pc[n]).abs()
+            steps_checked += int(sure.sum())
+            if sure.any():
+                worst_p = max(worst_p, dp[sure].max().item() / (1e-2 * lr))
+            if (dp[sure] > 1e-2 * lr).any() or (
+                    (pg[n] - before[n]).abs().max() > 1.001 * lr):
+                fail(f"train-parity s={s}: updated {n} differs by "
+                     f"{dp.max().item():.3g}")
+        c = counts[s]
+        log(f"  s={s}: loss {lg:.6f} (GPU) vs {lc:.6f} (CPU); every grad "
+            f"within 1e-4 of its scale (worst {worst_g:.3f} of the "
+            f"tolerance); updated params within 1% of a step at "
+            f"{steps_checked} sure-sign elements (worst {worst_p:.3f} of "
+            f"it); launches {c}")
+        need = ("short_fwd", "short_bwd") if s <= 512 else ("mid_fwd",
+                                                            "mid_bwd")
+        for name in need + ("ln_fwd",):
+            if c.get(name, 0) <= 0:
+                fail(f"train-parity s={s}: kernel {name} never launched")
+        del gpu, cpu
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------- phase 7
+def phase_train(dev):
+    """The full flagship at O5 (bf16 params and compute, fp32 norms and
+    masters), batch 8 x 1024 tokens, remat on, through the port trainer's
+    step: 2 warm-up steps, then 10 timed steps on a repeated batch."""
+    from apex_tpu_torch.amp import get_policy
+    from apex_tpu_torch.examples import gpt_pretrain
+    from apex_tpu_torch.models import GPTModel
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.telemetry import mfu
+
+    args = gpt_pretrain.parse_args([
+        "--vocab", str(FLAGSHIP["vocab_size"]),
+        "--layers", str(FLAGSHIP["num_layers"]),
+        "--hidden", str(FLAGSHIP["hidden_size"]),
+        "--heads", str(FLAGSHIP["num_attention_heads"]),
+        "--seq", "1024", "--micro-batch", "8", "--num-micro", "1",
+        "--opt-level", "O5", "--lr", "3e-4", "--device", str(dev)])
+    log("[train] flagship GPT, 12 layers, O5, batch 8 x 1024, remat on: "
+        "2 warm-up + 10 timed steps of the port trainer on one batch")
+    tr = gpt_pretrain.Trainer(args)
+    batch = tr.to_device(*gpt_pretrain.batches(
+        np.random.default_rng(0), 1, tr.global_batch, args.seq,
+        args.vocab)[0])
+    # bf16 vs fp32 loss at step 1 from the same weights
+    ref = GPTModel(dataclasses.replace(tr.model.config,
+                                       policy=get_policy("O0")), device=dev)
+    ref.load_state_dict({k: v.float() for k, v in
+                         tr.model.state_dict().items()})
+    with torch.no_grad():
+        loss_fp32 = ref.loss(*batch).item()
+    del ref
+    torch.cuda.empty_cache()
+    warm = [tr.step(*batch) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [tr.step(*batch) for _ in range(10)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    losses = [float(x) for x in torch.stack(warm + losses).cpu()]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[2] < losses[0]:
+        fail(f"train: losses {losses} are not finite and falling")
+    ms = 1e3 * wall / 10
+    tps = tr.tokens_per_step / (ms / 1e3)
+    util = mfu(tps, tr.flops_per_token, PEAK_OPS_PER_S[torch.bfloat16])
+    log(f"  step 1 loss: {losses[0]:.5f} at O5 vs {loss_fp32:.5f} at fp32 "
+        f"from the same weights (|diff| {abs(losses[0] - loss_fp32):.5f})")
+    log(f"  losses: {' '.join(f'{x:.4f}' for x in losses)}")
+    log(f"  {ms:.2f} ms/step, {tps:,.0f} tokens/s, MFU {util:.4f} against "
+        f"the 989 TFLOP/s bf16 dense peak ({tr.n_params:,} params, "
+        f"{tr.flops_per_token:,} model FLOPs per token)")
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        " GiB")
+    log(f"  launches in the 10 timed steps: {counts} (per step: "
+        + ", ".join(f"{k} {v / 10:g}" for k, v in sorted(counts.items()))
+        + ")")
+    for name in ("ln_fwd", "mid_fwd", "mid_bwd"):
+        if counts.get(name, 0) <= 0:
+            fail(f"train: kernel {name} never launched on the main path")
+    return counts, tr, batch
+
+
+def phase_profile_train(tr, batch) -> None:
+    """Where a training step's time goes: one step under
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    log("[profile] one flagship training step (O5, 8 x 1024)")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.step(*batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device_breakdown(prof, wall, "train step")
+    host = [e for e in prof.key_averages()
+            if e.key.startswith("Optimizer.step")
+            and e.device_type == torch.autograd.DeviceType.CPU]
+    if host:
+        log(f"  host time inside {host[0].key}: "
+            f"{host[0].cpu_time_total / 1e3:.2f} ms")
+
+
 SOURCES = {
     "ln_fwd": ("triton", "apex_tpu_torch/ops/layer_norm.py",
                "apex_tpu/ops/layer_norm.py:66"),
@@ -492,6 +843,12 @@ SOURCES = {
                   "apex_tpu/ops/attention_short.py:149"),
     "paged_decode": ("cuda", "apex_tpu_torch/csrc/attention_decode.cu",
                      "apex_tpu/ops/attention_decode.py:210"),
+    "short_bwd": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
+                  "apex_tpu/ops/attention_short.py:215"),
+    "mid_fwd": ("cuda", "apex_tpu_torch/csrc/attention_mid.cu",
+                "apex_tpu/ops/attention_mid.py:213"),
+    "mid_bwd": ("cuda", "apex_tpu_torch/csrc/attention_mid.cu",
+                "apex_tpu/ops/attention_mid.py:308"),
 }
 
 
@@ -506,13 +863,23 @@ def main() -> None:
     card = phase_build()
     records = phase_kernels(dev)
     phase_parity(dev)
-    counts, model = phase_serve(dev)
+    serve_counts, model = phase_serve(dev)
     phase_profile(model)
-    # one record per kernel, at the shape the serving path calls most:
-    # layer norm at the decode step's 4 rows, attention at a 512-token
-    # prefill, decode at one step over the ragged cache
+    del model
+    torch.cuda.empty_cache()
+    parity_counts = phase_train_parity(dev)
+    train_counts, tr, batch = phase_train(dev)
+    phase_profile_train(tr, batch)
+    # one record per kernel at its main path's shape; launches from the
+    # path that carries it: the serving kernels from phase 4, short_bwd
+    # from the s=384 training step of phase 6, the mid kernels from the
+    # flagship training of phase 7
+    main_counts = dict(serve_counts)
+    main_counts["short_bwd"] = parity_counts[384].get("short_bwd", 0)
+    for name in ("mid_fwd", "mid_bwd"):
+        main_counts[name] = train_counts.get(name, 0)
     kernels = [dict(name=name, route=route, source=source,
-                    replaces=replaces, launches=counts.get(name, 0),
+                    replaces=replaces, launches=main_counts.get(name, 0),
                     **records[name][0])
                for name, (route, source, replaces) in SOURCES.items()]
     log(card)

@@ -1,15 +1,19 @@
-"""The port's short-sequence attention forward against the JAX package.
+"""The port's short-sequence attention against the JAX package.
 
-The same numpy q/k/v go through ``apex_tpu.ops.attention_short.fmha_short``
-with ``implementation="pallas"`` (``_short_fwd_kernel`` in interpret mode
-on the CPU) and through ``apex_tpu_torch.ops.attention_short`` on CPU
-tensors (the CUDA kernel's plain version).
+The same numpy q/k/v (and output cotangent) go through
+``apex_tpu.ops.attention_short.fmha_short`` with
+``implementation="pallas"`` (``_short_fwd_kernel`` and, through
+``jax.vjp``, ``_short_bwd_kernel`` in interpret mode on the CPU) and
+through ``apex_tpu_torch.ops.attention_short`` on CPU tensors (the CUDA
+kernels' plain versions, the backward through ``torch.autograd``).
 
 Tolerance: fp32 inputs, fp32 products on both sides (the JAX kernel's
 ``hi_precision`` for fp32), so outputs agree to 1e-5 absolute and
-relative: the rounding of fp32 sums taken in different orders.
+relative, gradients (sums of up to s products) to 5e-5: the rounding of
+fp32 sums taken in different orders.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +24,7 @@ from apex_tpu_torch.ops import attention as port_attention
 from apex_tpu_torch.ops import attention_short as port_short
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_TOL = dict(rtol=5e-5, atol=5e-5)
 
 
 def _qkv(b, h, s, d, seed):
@@ -72,7 +77,7 @@ def test_ladder_routes_short_and_matches_reference():
 
 
 def test_ladder_rejects_what_is_not_ported():
-    q = torch.zeros((1, 1, 513, 32))
+    q = torch.zeros((1, 1, 2049, 32))
     with pytest.raises(NotImplementedError, match="queue B"):
         port_attention.flash_attention(q, q, q, causal=True)
     q = torch.zeros((1, 1, 8, 32))
@@ -80,3 +85,38 @@ def test_ladder_rejects_what_is_not_ported():
         port_attention.flash_attention(q, q, q, bias=torch.zeros(8, 8))
     with pytest.raises(NotImplementedError, match="queue B"):
         port_attention.flash_attention(q, q, q, dropout_rate=0.1)
+
+
+@pytest.mark.parametrize("s, causal", [(37, True), (200, True), (130, False)])
+def test_backward_matches_pallas_vjp_fp32(s, causal):
+    q, k, v = _qkv(1, 2, s, 64, seed=100 + s)
+    dout = np.random.RandomState(s).randn(1, 2, s, 64).astype(np.float32)
+    want, vjp = jax.vjp(
+        lambda q, k, v: jax_fmha_short(q, k, v, causal=causal,
+                                       implementation="pallas"),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want_g = vjp(jnp.asarray(dout))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    got = port_short.fmha_short(tq, tk, tv, causal=causal)
+    got.backward(torch.from_numpy(dout))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    for name, t, w in zip("qkv", (tq, tk, tv), want_g):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w),
+                                   **GRAD_TOL, err_msg=f"d{name}")
+
+
+def test_short_bwd_scales_after_the_product():
+    """``short_bwd`` replays ``s = (q . k) * scale`` (the forward scales q
+    first); with a non-default scale both stay consistent with autograd
+    through the plain math."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 2, 24, 32, seed=8))
+    dout = torch.from_numpy(
+        np.random.RandomState(8).randn(1, 2, 24, 32).astype(np.float32))
+    out, lse = port_short.short_fwd(q, k, v, causal=True, sm_scale=0.3)
+    dq, dk, dv = port_short.short_bwd(q, k, v, out, dout, lse, causal=True,
+                                      sm_scale=0.3)
+    tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+    ref = port_attention.mha_reference(tq, tk, tv, causal=True, sm_scale=0.3)
+    ref.backward(dout)
+    for got, t in zip((dq, dk, dv), (tq, tk, tv)):
+        np.testing.assert_allclose(got.numpy(), t.grad.numpy(), **GRAD_TOL)

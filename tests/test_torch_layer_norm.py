@@ -1,4 +1,4 @@
-"""The port's fused LayerNorm / RMSNorm forward against the JAX package.
+"""The port's fused LayerNorm / RMSNorm against the JAX package.
 
 The same numpy inputs go through ``apex_tpu.ops.layer_norm`` with
 ``implementation="pallas"`` (the Pallas body of ``_ln_fwd_kernel`` in
@@ -11,8 +11,15 @@ relative, the rounding of two fp32 reductions taken in different
 orders.  bf16 outputs agree to one bf16 ulp at the output's magnitude
 (rtol 1e-2, atol 2e-2): both round the same fp32 value, but the two
 fp32 values may sit on either side of a rounding boundary.
+
+Gradients (``jax.vjp`` of the JAX affine functions, the normalization's
+custom_vjp inside): fp32 dx/dscale/dbias to 1e-5 absolute and 1e-4
+relative (the parameter gradients sum over every row); bf16 inputs with
+fp32 parameters (the O5 norms): dx to one bf16 ulp (rtol 1e-2, atol
+2e-2), dscale/dbias, fp32 sums of bf16-rounded terms, to 1e-4 relative.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -101,3 +108,48 @@ def test_other_devices_rejected():
     with pytest.raises(ValueError, match="unsupported device"):
         port_ln.layer_norm_fwd(x, torch.empty(8, device="meta"), None,
                                1e-5, rms=True)
+
+
+def _vjp_jax(x, w, b, dy, rms, x_dtype):
+    args = [jnp.asarray(x, x_dtype), jnp.asarray(w)]
+    if rms:
+        f = lambda x, w: jax_ln.fused_rms_norm_affine(
+            x, w, x.shape[-1], implementation="pallas")
+    else:
+        args.append(jnp.asarray(b))
+        f = lambda x, w, b: jax_ln.fused_layer_norm_affine(
+            x, w, b, x.shape[-1], implementation="pallas")
+    _, vjp = jax.vjp(f, *args)
+    return [np.asarray(g.astype(jnp.float32)) for g in
+            vjp(jnp.asarray(dy, x_dtype))]
+
+
+def _vjp_port(x, w, b, dy, rms, x_dtype):
+    tx = torch.from_numpy(x).to(x_dtype).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    if rms:
+        y = port_ln.fused_rms_norm_affine(tx, tw, x.shape[-1])
+        leaves = (tx, tw)
+    else:
+        tb = torch.from_numpy(b).requires_grad_()
+        y = port_ln.fused_layer_norm_affine(tx, tw, tb, x.shape[-1])
+        leaves = (tx, tw, tb)
+    y.backward(torch.from_numpy(dy).to(x_dtype))
+    assert tw.grad.dtype == torch.float32
+    return [t.grad.float().numpy() for t in leaves]
+
+
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_grads_match_jax_vjp(rms, dtype):
+    x, w, b = _inputs((6, 5, 64), 64, seed=20 + rms)
+    dy = np.random.RandomState(3).randn(6, 5, 64).astype(np.float32)
+    jdt, tdt = {"fp32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    want = _vjp_jax(x, w, b, dy, rms, jdt)
+    got = _vjp_port(x, w, b, dy, rms, tdt)
+    assert len(got) == len(want) == (2 if rms else 3)
+    dx_tol = FP32_TOL if dtype == "fp32" else BF16_TOL
+    np.testing.assert_allclose(got[0], want[0], **dx_tol, err_msg="dx")
+    for name, g, w_ in zip(("dscale", "dbias"), got[1:], want[1:]):
+        np.testing.assert_allclose(g, w_, rtol=1e-4, atol=1e-5, err_msg=name)

@@ -48,15 +48,27 @@ def test_forbidden_pattern_catches_what_it_should():
 
 
 @pytest.mark.parametrize("module", ["layer_norm", "attention_short",
-                                    "attention_decode"])
+                                    "attention_mid", "attention_decode"])
 def test_kernel_wrappers_have_no_fallback(module):
     src = (ROOT / "apex_tpu_torch" / "ops" / f"{module}.py").read_text()
     assert not re.search(r"^\s*try\s*:", src, re.MULTILINE)
     assert "count_launch(KERNEL)" in src
 
 
+@pytest.mark.parametrize("module", ["attention_short", "attention_mid"])
+def test_backward_wrappers_count_their_launches(module):
+    """The backward entries count under their own names, once per
+    launch of the C entry."""
+    mod = importlib.import_module(f"apex_tpu_torch.ops.{module}")
+    src = (ROOT / "apex_tpu_torch" / "ops" / f"{module}.py").read_text()
+    assert src.count("count_launch(KERNEL_BWD)") == 1
+    assert mod.KERNEL_BWD == module.split("_")[1] + "_bwd"
+
+
 @pytest.mark.parametrize("module, symbol", [
-    ("attention_short", "short_fwd"), ("attention_decode", "paged_decode")])
+    ("attention_short", "short_fwd"), ("attention_short", "short_bwd"),
+    ("attention_mid", "mid_fwd"), ("attention_mid", "mid_bwd"),
+    ("attention_decode", "paged_decode")])
 def test_c_entries_are_typed_as_the_source_declares(monkeypatch, module,
                                                     symbol):
     """The ctypes argument types of each C entry match its declaration
@@ -73,8 +85,8 @@ def test_c_entries_are_typed_as_the_source_declares(monkeypatch, module,
     monkeypatch.setattr(mod, "load", lambda name: loads.append(name) or fake)
     mod._entry.cache_clear()
     try:
-        lib, fn = mod._entry()
-        assert mod._entry() == (lib, fn)
+        lib, fn = mod._entry(symbol)
+        assert mod._entry(symbol) == (lib, fn)
     finally:
         mod._entry.cache_clear()
     assert lib is fake and loads == [module]
@@ -82,15 +94,19 @@ def test_c_entries_are_typed_as_the_source_declares(monkeypatch, module,
 
 
 def test_entry_points_default_to_the_gpu(monkeypatch):
+    from apex_tpu_torch.examples.gpt_pretrain import Trainer, parse_args
     from apex_tpu_torch.serving import KVCacheConfig, init_pools
     from apex_tpu_torch.serving.serve import init_carry
     from apex_tpu_torch.utils import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = KVCacheConfig(num_layers=1, num_heads=1, head_dim=8, num_pages=2)
+    args = parse_args(["--layers", "1", "--hidden", "32", "--heads", "1",
+                       "--vocab", "64", "--seq", "16"])
     for call in (lambda: resolve_device(None),
                  lambda: resolve_device("cuda"),
-                 lambda: init_pools(cfg), lambda: init_carry(2)):
+                 lambda: init_pools(cfg), lambda: init_carry(2),
+                 lambda: Trainer(args)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -6,8 +6,11 @@ layer leaf STACKED on a leading ``num_layers`` dim
 (``{"embedding": {"weight"}, "pos_embedding", "final_ln": {"scale",
 "bias"}, "layers": {"ln1": ..., "qkv": {"weight", "bias"}, ...}}``).  The
 port's ``GPTModel`` is an ``nn.Module`` with a ``ModuleList`` of layers,
-so its state dict names ``layers.<i>.qkv.weight`` and so on.  Both keep
-the same per-leaf layouts (linear weights ``(in, out)``, the qkv output
+so its state dict names ``layers.<i>.qkv.weight`` and so on.  The
+Llama-mode tree (rope, RMSNorm, SwiGLU) has no ``pos_embedding``, norms
+with a ``scale`` and no ``bias``, and a ``fc_gate`` per layer; so has
+the port's model in that mode, and the bridge needs nothing else for
+it.  Both keep the same per-leaf layouts (linear weights ``(in, out)``, the qkv output
 grouped per head, the LM head tied to ``embedding.weight``), so the
 bridge only flattens/unstacks the tree: values are copied bit for bit
 and a round trip is exact.

@@ -60,174 +60,10 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "attention_tiles.cuh"
 
-// Everything has internal linkage: the short and the mid libraries both
-// include this header, and a template's static (the shared-memory opt-in
-// flag) must not be unified across the two loaded libraries.
 namespace attn {
 namespace {
-
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
-
-constexpr int kTile = 64;       // rows of a block's q or k tile
-constexpr int kWarps = 4;       // each warp owns 16 rows of the tile
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kTile / kWarps;
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__host__ __device__ constexpr int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// ------------------------------------------------------------ warp products
-// Each works on one warp's 16 rows: A and C point at the warp's first row.
-//   abT: C[16 x N]  = A[16 x D] . B[N x D]^T   (overwrites C)
-//   ab:  C[16 x D] += A[16 x N] . B[N x D]     (accumulates into C)
-// C is fp32 in shared memory.  Tensor-core forms need leading dims that are
-// multiples of 8 (bf16) or 4 (fp32) and 32-byte aligned fragment pointers;
-// the fp32 forms let lane own columns lane + 32 * j, so abT's B needs an odd
-// leading dim (32 lanes read 32 rows at one column: 32 banks).
-
-template <int N, int D>
-__device__ __forceinline__ void abT_tc(const bf16* A, int lda, const bf16* B, int ldb,
-                       float* C, int ldc) {
-  for (int n = 0; n < N / 16; ++n) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(a, A + kk * 16, lda);
-      // B^T as a column-major (D x N) operand: element (k, n) is
-      // B[n * ldb + k]
-      wmma::load_matrix_sync(b, B + (n * 16) * ldb + kk * 16, ldb);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(C + n * 16, acc, ldc, wmma::mem_row_major);
-  }
-}
-
-template <int N, int D>
-__device__ __forceinline__ void ab_tc(const bf16* A, int lda, const bf16* B, int ldb,
-                      float* C, int ldc) {
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::load_matrix_sync(acc, C + n * 16, ldc, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < N / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, A + kk * 16, lda);
-      wmma::load_matrix_sync(b, B + (kk * 16) * ldb + n * 16, ldb);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(C + n * 16, acc, ldc, wmma::mem_row_major);
-  }
-}
-
-template <int N, int D>
-__device__ __forceinline__ void abT_fp32(const float* A, int lda, const float* B, int ldb,
-                         float* C, int ldc, int lane) {
-  constexpr int J = N / 32;
-  float acc[kRows][J];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int j = 0; j < J; ++j) acc[r][j] = 0.0f;
-  for (int k = 0; k < D; ++k) {
-    float b[J];
-#pragma unroll
-    for (int j = 0; j < J; ++j) b[j] = B[(lane + 32 * j) * ldb + k];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float a = A[r * lda + k];
-#pragma unroll
-      for (int j = 0; j < J; ++j) acc[r][j] = fmaf(a, b[j], acc[r][j]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int j = 0; j < J; ++j) C[r * ldc + lane + 32 * j] = acc[r][j];
-}
-
-template <int N, int D>
-__device__ __forceinline__ void ab_fp32(const float* A, int lda, const float* B, int ldb,
-                        float* C, int ldc, int lane) {
-  for (int r = 0; r < kRows; ++r) {
-    const float* a = A + r * lda;
-#pragma unroll
-    for (int i = 0; i < D / 32; ++i) {
-      const int col = lane + 32 * i;
-      float acc = C[r * ldc + col];
-      for (int j = 0; j < N; ++j) acc = fmaf(a[j], B[j * ldb + col], acc);
-      C[r * ldc + col] = acc;
-    }
-  }
-}
-
-// Load rows [r0, r0 + rows) of a (n, D) matrix into shared memory with
-// leading dim ld; rows at or past n are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
-                                          int r0, int rows, int n) {
-  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    dst[r * ld + c] = (r0 + r < n) ? src[(long)(r0 + r) * D + c]
-                                   : from_f<T>(0.0f);
-  }
-}
-
-// The same rows of two (n, D) matrices in one loop (K and V, Q and dO):
-// each thread has two loads in flight per element instead of one.
-template <typename T, int D>
-__device__ __forceinline__ void load_tiles(T* dst_a, int lda, T* dst_b,
-                                           int ldb, const T* src_a,
-                                           const T* src_b, int r0, int rows,
-                                           int n) {
-  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    const bool in = r0 + r < n;
-    const long at = (long)(r0 + r) * D + c;
-    dst_a[r * lda + c] = in ? src_a[at] : from_f<T>(0.0f);
-    dst_b[r * ldb + c] = in ? src_b[at] : from_f<T>(0.0f);
-  }
-}
-
-__device__ __forceinline__ void zero_f(float* dst, int ld, int rows,
-                                       int cols) {
-  for (int i = threadIdx.x; i < rows * cols; i += kThreads) {
-    dst[(i / cols) * ld + i % cols] = 0.0f;
-  }
-}
 
 // ------------------------------------------------------------------ forward
 
@@ -653,16 +489,6 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ------------------------------------------------------------------ launch
 
-// Above 48 KB of dynamic shared memory a kernel must opt in; once per
-// kernel instantiation and process (single device).
-template <typename K>
-cudaError_t opt_in(K kernel, int bytes, bool* done) {
-  if (*done) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) *done = true;
-  return err;
-}
 
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,

@@ -30,6 +30,16 @@
 //  - The running max starts at the finite fill -1e30 (the JAX kernel's
 //    _NEG_INF) and the final divide clamps l at 1e-30, so an idle slot
 //    (length 0) sees no token and writes a finite zero row.
+//  - The fused q-RoPE (rope_cos/rope_sin non-null, (b, sq, D/2) fp32):
+//    each query row is rotated in fp32, q * cos + rotate_half(q) * sin,
+//    then scaled, as the TPU body does (attention_decode.py:243-249), and
+//    never rounded to q's dtype.  The TPU wrapper ships rotate_half(q) as
+//    a companion operand; here lane L holds dims [L*E, L*E + E) of the
+//    row, so the other half of its dims sits in lane L ^ 16 and one
+//    shuffle brings it: no companion tensor is read.  K was rotated once
+//    when it was written to the cache.  The rotation is a template
+//    parameter: the instance without it has no rotation code, so the
+//    learned-position models' decode is what it was before the rotation.
 //
 // What bounds it on the card: every K/V byte it reads is used for 2
 // flops per query row (~1 flop per byte at sq = 1 in bf16), so it is
@@ -83,12 +93,14 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // q, out: (b, h, sq, D); k_pages, v_pages: (num_pages, h, page_size, D);
 // page_table: (b, pages_per_seq) int32; lengths: (b,) int32.
-template <typename T, int D>
+template <typename T, int D, bool kRope>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const T* __restrict__ v_pages,
                     const int* __restrict__ page_table,
-                    const int* __restrict__ lengths, T* __restrict__ out,
+                    const int* __restrict__ lengths,
+                    const float* __restrict__ rope_cos,
+                    const float* __restrict__ rope_sin, T* __restrict__ out,
                     int h, int sq, int page_size, int pages_per_seq,
                     int causal, float scale) {
   constexpr int E = D / 32;    // dims per lane
@@ -114,6 +126,17 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     }
     if (i < sq) {
       load_row<E>(q + (((long)b * h + head) * sq + i) * D + lane * E, qr[i]);
+      if constexpr (kRope) {
+        // lanes 0-15 hold the first half of the row, 16-31 the second:
+        // rotate_half(q) is -q[c + D/2] below D/2 and q[c - D/2] above
+        const long at = ((long)b * sq + i) * (D / 2) + (lane & 15) * E;
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const float other = __shfl_xor_sync(0xffffffffu, qr[i][e], 16);
+          const float rot = lane < 16 ? -other : other;
+          qr[i][e] = qr[i][e] * rope_cos[at + e] + rot * rope_sin[at + e];
+        }
+      }
 #pragma unroll
       for (int e = 0; e < E; ++e) qr[i][e] *= scale;
     }
@@ -178,14 +201,18 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
-                   const int* page_table, const int* lengths, void* out,
+                   const int* page_table, const int* lengths,
+                   const float* rope_cos, const float* rope_sin, void* out,
                    int b, int h, int sq, int page_size, int pages_per_seq,
                    int causal, float scale, cudaStream_t stream) {
   dim3 grid(h, b);
-  paged_decode_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+  auto kernel = rope_cos != nullptr ? paged_decode_kernel<T, D, true>
+                                    : paged_decode_kernel<T, D, false>;
+  kernel<<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), page_table, lengths,
-      static_cast<T*>(out), h, sq, page_size, pages_per_seq, causal, scale);
+      static_cast<const T*>(v_pages), page_table, lengths, rope_cos,
+      rope_sin, static_cast<T*>(out), h, sq, page_size, pages_per_seq,
+      causal, scale);
   return cudaGetLastError();
 }
 
@@ -193,31 +220,28 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
 
 extern "C" {
 
-// dtype: 0 = fp32, 1 = bf16.  Returns a cudaError_t code (0 = success).
+// dtype: 0 = fp32, 1 = bf16; rope_cos/rope_sin: (b, sq, d/2) fp32, or
+// both null for no rotation.  Returns a cudaError_t code (0 = success).
 int paged_decode(const void* q, const void* k_pages, const void* v_pages,
-                 const int* page_table, const int* lengths, void* out, int b,
-                 int h, int sq, int d, int page_size, int pages_per_seq,
-                 int dtype, int causal, float scale, void* stream) {
+                 const int* page_table, const int* lengths,
+                 const float* rope_cos, const float* rope_sin, void* out,
+                 int b, int h, int sq, int d, int page_size,
+                 int pages_per_seq, int dtype, int causal, float scale,
+                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b <= 0 || b > 65535 || h <= 0 || sq < 1 || sq > kMaxSq ||
-      page_size < 1 || pages_per_seq < 1)
+      page_size < 1 || pages_per_seq < 1 ||
+      (rope_cos == nullptr) != (rope_sin == nullptr))
     return cudaErrorInvalidValue;
-  if (dtype == 0 && d == 128)
-    return launch<float, 128>(q, k_pages, v_pages, page_table, lengths, out,
-                              b, h, sq, page_size, pages_per_seq, causal,
-                              scale, s);
-  if (dtype == 0 && d == 64)
-    return launch<float, 64>(q, k_pages, v_pages, page_table, lengths, out,
-                             b, h, sq, page_size, pages_per_seq, causal,
-                             scale, s);
-  if (dtype == 1 && d == 128)
-    return launch<__nv_bfloat16, 128>(q, k_pages, v_pages, page_table,
-                                      lengths, out, b, h, sq, page_size,
-                                      pages_per_seq, causal, scale, s);
-  if (dtype == 1 && d == 64)
-    return launch<__nv_bfloat16, 64>(q, k_pages, v_pages, page_table,
-                                     lengths, out, b, h, sq, page_size,
-                                     pages_per_seq, causal, scale, s);
+#define DECODE(T, D)                                                      \
+  return launch<T, D>(q, k_pages, v_pages, page_table, lengths, rope_cos, \
+                      rope_sin, out, b, h, sq, page_size, pages_per_seq,  \
+                      causal, scale, s)
+  if (dtype == 0 && d == 128) DECODE(float, 128);
+  if (dtype == 0 && d == 64) DECODE(float, 64);
+  if (dtype == 1 && d == 128) DECODE(__nv_bfloat16, 128);
+  if (dtype == 1 && d == 64) DECODE(__nv_bfloat16, 64);
+#undef DECODE
   return cudaErrorInvalidValue;
 }
 

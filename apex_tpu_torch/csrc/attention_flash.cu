@@ -1,0 +1,761 @@
+// Flash attention (the ladder's rung above FMHA_MID_MAX_SEQ) for Hopper
+// (sm_90a): a streamed forward and the FA2-split backward, dK/dV and dQ.
+//
+// Replaces, in apex_tpu/ops/attention.py:
+//   _fa_fwd_kernel     (:213, call :396) -> flash_fwd
+//   _fa_bwd_dkv_kernel (:429, call :673) -> flash_bwd_dkv
+//   _fa_bwd_dq_kernel  (:534, call :722) -> flash_bwd_dq
+// over the flattened (b*h, s, d) layout of the JAX _flash custom_vjp.  The
+// TPU kernels walk a (b*h, q block, k block) grid whose last axis runs in
+// order and carries m/l/acc (or dK/dV, dQ) in VMEM scratch, and the Pallas
+// pipeline fetches the next K/V block while the current one computes.
+// Here a block owns one (b*h, query tile) (or key tile) and loops over the
+// streamed operand itself, with the next tile's copy in flight: cp.async
+// into a second shared-memory buffer, issued before the current tile's
+// products (two buffers, one commit group per tile).  That overlap is what
+// the rung exists for: at s = 4096 a block streams up to 64 tiles.
+//
+// Function, as the TPU kernels compute it:
+//  - forward: q is scaled BEFORE the product (:242) -- the kernel scales
+//    its Q tile in fp32 once it lands and, for bf16, rounds it to bf16 as
+//    the tensor-core operand (as the TPU's default precision rounds the
+//    fp32 operand of its MXU); masked scores are the finite -1e30, masked
+//    probabilities exactly 0, l is clamped at 1e-30, lse = m + log(l).
+//  - backward: scores are replayed from lse with the scale AFTER the
+//    product, s = (q . k) * scale (:464, :580); delta = rowsum(dO * O) is
+//    computed outside the kernels (as JAX computes it in XLA, :647-650);
+//    dz = p * (dp - delta); dV += p^T dO, dK += (dz * scale)^T Q,
+//    dQ += (dz * scale) K.  There is no lse cotangent on this rung.
+//  - masking: causal is top-left aligned (key <= query by index), sq != sk
+//    is allowed, keys at or past sk are masked, and the dK/dV kernel also
+//    masks query rows at or past sq (their lse and delta are meaningless
+//    and would pollute the sums, :513-520).  Rows past an operand's end
+//    are zero-filled by the copy (cp.async with a source size of 0), so no
+//    garbage can reach a sum through 0 * NaN.
+//
+// Tiles, chosen for s >= 4096 (at b*h = 16, the Llama-mode training shape):
+//  - forward: 128-row query tiles in bf16 (8 warps, 16 rows each), so each
+//    K/V tile fetched from L2 serves twice the rows of the mid rung's 64;
+//    64-key tiles, double-buffered.  Shared memory, D = 128: Q 34 KB, two
+//    K and two V buffers 68 KB, fp32 scores 34 KB, bf16 p 18 KB, fp32
+//    accumulator 66 KB = 220 KB of the 227 KB a block may use, one block
+//    per SM; 32 x 16 = 512 blocks at s = 4096.  fp32 takes 64-row tiles
+//    (4 warps) to fit.
+//  - dK/dV: one block per (b*h, 64-key tile), streaming 64-row (fp32: 32)
+//    query tiles from the causal diagonal down, Q/dO/lse/delta
+//    double-buffered; 1,024 blocks at s = 4096, enough for the 132 SMs, so
+//    the shared memory goes to the second buffer rather than to a larger
+//    key tile (a 128-key tile with its fp32 dK/dV accumulators would need
+//    380 KB).
+//  - dQ: one block per (b*h, 64-row query tile), streaming 64-key (fp32:
+//    32) K/V tiles up to the diagonal, double-buffered.
+// Each warp owns 16 rows of its block's tile end to end; the products are
+// attention_tiles.cuh's warp products (WMMA 16x16x16 bf16 with fp32
+// accumulate; full fp32 FMAs for fp32, as Precision.HIGHEST asks).
+//
+// What bounds them on the card: at b*h = 16, s = 4096, d = 128, causal,
+// bf16 the forward does 4 * d flops per causal (q, k) pair, 6.9e10 in all,
+// over 4 * 16 * 4096 * 128 * 2 bytes = 67 MB: ~1,000 flop/byte, above the
+// H100's ~295, so it is bound by operations (0.07 ms at 989 TFLOP/s); the
+// dK/dV kernel does 8 * d and the dQ kernel 6 * d flops per pair over a
+// few more bytes, bound by operations too.  These kernels are far from
+// that bound (WMMA through shared memory, one product at a time per warp);
+// wgmma with TMA and warp specialisation is later work.
+
+#include "attention_tiles.cuh"
+
+namespace flash {
+namespace {
+
+using attn::bf16;
+using attn::from_f;
+using attn::round_up;
+using attn::to_f;
+
+constexpr int kRows = attn::kRows;   // rows of a tile each warp owns (16)
+constexpr float kNegInf = attn::kNegInf;
+
+// ------------------------------------------------------------- cp.async
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Copy 16 (bf16 rows) or 4 (fp32 rows, whose odd leading dim breaks 16-byte
+// alignment) bytes; a source size of 0 writes zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's commit groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Start copying rows [r0, r0 + ROWS) of a (n, D) matrix into shared memory
+// with leading dim LD; rows at or past n are zero-filled (their source
+// address is clamped to row 0 and not read).
+template <typename T, int D, int LD, int ROWS, int THREADS>
+__device__ __forceinline__ void async_tile(T* dst, const T* src, int r0,
+                                           int n) {
+  if constexpr (sizeof(T) == 2) {
+    constexpr int C = D / 8;   // 16-byte chunks per row
+    for (int i = threadIdx.x; i < ROWS * C; i += THREADS) {
+      const int r = i / C, c = (i % C) * 8;
+      const bool in = r0 + r < n;
+      cp_async16(dst + r * LD + c, src + (long)(in ? r0 + r : 0) * D + c,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * D; i += THREADS) {
+      const int r = i / D, c = i % D;
+      const bool in = r0 + r < n;
+      cp_async4(dst + r * LD + c, src + (long)(in ? r0 + r : 0) * D + c,
+                in ? 4 : 0);
+    }
+  }
+}
+
+// The same for ROWS consecutive fp32 values (lse, delta); past n, zeros.
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void async_vec(float* dst, const float* src,
+                                          int r0, int n) {
+  for (int i = threadIdx.x; i < ROWS; i += THREADS) {
+    const bool in = r0 + i < n;
+    cp_async4(dst + i, src + (in ? r0 + i : 0), in ? 4 : 0);
+  }
+}
+
+__device__ __forceinline__ void zero_f(float* dst, int ld, int rows,
+                                       int cols, int threads) {
+  for (int i = threadIdx.x; i < rows * cols; i += threads) {
+    dst[(i / cols) * ld + i % cols] = 0.0f;
+  }
+}
+
+// C[16 x N] = A[16 x D] . B[N x D]^T for one warp's rows (overwrites C).
+template <typename T, int N, int D>
+__device__ __forceinline__ void abT(const T* A, int lda, const T* B, int ldb,
+                                    float* C, int ldc, int lane) {
+  if constexpr (sizeof(T) == 2) {
+    attn::abT_tc<N, D>(A, lda, B, ldb, C, ldc);
+  } else {
+    attn::abT_fp32<N, D>(A, lda, B, ldb, C, ldc, lane);
+  }
+}
+
+// C[16 x D] += A[16 x N] . B[N x D]; A is the bf16 operand in the
+// tensor-core form and fp32 otherwise.
+template <typename T, int N, int D, typename A_t>
+__device__ __forceinline__ void ab(const A_t* A, int lda, const T* B,
+                                   int ldb, float* C, int ldc, int lane) {
+  if constexpr (sizeof(T) == 2) {
+    attn::ab_tc<N, D>(A, lda, B, ldb, C, ldc);
+  } else {
+    attn::ab_fp32<N, D>(A, lda, B, ldb, C, ldc, lane);
+  }
+}
+
+// ------------------------------------------------------------------ forward
+
+template <typename T, int D>
+struct FwdTiles {
+  static constexpr bool kTC = sizeof(T) == 2;
+  static constexpr int QT = kTC ? 128 : 64;   // query rows per block
+  static constexpr int KT = 64;               // keys per streamed tile
+  static constexpr int kThreads = QT / kRows * 32;
+  static constexpr int LDQ = kTC ? D + 8 : D;
+  static constexpr int LDK = kTC ? D + 8 : D + 1;
+  static constexpr int LDV = kTC ? D + 8 : D;
+  static constexpr int LDS = kTC ? KT + 4 : KT;   // fp32 scores
+  static constexpr int LDP = KT + 8;              // bf16 probabilities
+  static constexpr int LDO = kTC ? D + 4 : D;     // fp32 accumulator
+  static constexpr int K_BUF = round_up(KT * LDK * (int)sizeof(T), 128);
+  static constexpr int V_BUF = round_up(KT * LDV * (int)sizeof(T), 128);
+  static constexpr int Q_OFF = 0;
+  static constexpr int K_OFF = round_up(QT * LDQ * (int)sizeof(T), 128);
+  static constexpr int V_OFF = K_OFF + 2 * K_BUF;
+  static constexpr int S_OFF = V_OFF + 2 * V_BUF;
+  static constexpr int P_OFF = round_up(S_OFF + QT * LDS * 4, 128);
+  static constexpr int O_OFF = round_up(P_OFF + (kTC ? QT * LDP * 2 : 0), 128);
+  static constexpr int BYTES = round_up(O_OFF + QT * LDO * 4, 128);
+};
+
+// q, out: (bh, sq, D); k, v: (bh, sk, D); lse: (bh, sq) fp32.
+template <typename T, int D>
+__global__ void __launch_bounds__(FwdTiles<T, D>::kThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, int sq, int sk, int causal,
+                 float scale) {
+  using L = FwdTiles<T, D>;
+  constexpr int QT = L::QT, KT = L::KT, TH = L::kThreads;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem + L::Q_OFF);
+  float* Ss = reinterpret_cast<float*>(smem + L::S_OFF);
+  bf16* Ps = reinterpret_cast<bf16*>(smem + L::P_OFF);
+  float* Os = reinterpret_cast<float*>(smem + L::O_OFF);
+  auto Ks = [&](int buf) {
+    return reinterpret_cast<T*>(smem + L::K_OFF + buf * L::K_BUF);
+  };
+  auto Vs = [&](int buf) {
+    return reinterpret_cast<T*>(smem + L::V_OFF + buf * L::V_BUF);
+  };
+
+  const int lane = threadIdx.x % 32;
+  const int row0 = (threadIdx.x / 32) * kRows;
+  const long bh = blockIdx.y;
+  const int q0 = blockIdx.x * QT;
+  const T* kb = k + bh * sk * D;
+  const T* vb = v + bh * sk * D;
+  // causal: keys past the tile's last query row are masked for every row
+  const int kv_end = causal ? min(sk, q0 + QT) : sk;
+  const int n_tiles = (kv_end + KT - 1) / KT;
+
+  async_tile<T, D, L::LDQ, QT, TH>(Qs, q + bh * sq * D, q0, sq);
+  async_tile<T, D, L::LDK, KT, TH>(Ks(0), kb, 0, sk);
+  async_tile<T, D, L::LDV, KT, TH>(Vs(0), vb, 0, sk);
+  cp_async_commit();
+  zero_f(Os, L::LDO, QT, D, TH);
+  float m[kRows], l[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.0f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * KT;
+    // the next tile's copy goes out before this tile's products; its
+    // buffer was released by the barrier that ended the previous tile
+    if (t + 1 < n_tiles) {
+      async_tile<T, D, L::LDK, KT, TH>(Ks((t + 1) & 1), kb, k0 + KT, sk);
+      async_tile<T, D, L::LDV, KT, TH>(Vs((t + 1) & 1), vb, k0 + KT, sk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (t == 0) {
+      // q * scale in fp32, before the product (bf16: rounded as the
+      // tensor-core operand)
+      for (int i = threadIdx.x; i < QT * D; i += TH) {
+        T* x = Qs + (i / D) * L::LDQ + i % D;
+        *x = from_f<T>(to_f(*x) * scale);
+      }
+      __syncthreads();
+    }
+    const T* Kt = Ks(t & 1);
+    const T* Vt = Vs(t & 1);
+
+    abT<T, KT, D>(Qs + row0 * L::LDQ, L::LDQ, Kt, L::LDK,
+                  Ss + row0 * L::LDS, L::LDS, lane);
+    __syncwarp();
+
+    // online softmax over this warp's rows; lane owns columns lane and
+    // lane + 32 of the tile
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int row = row0 + r;
+      const int qi = q0 + row;
+      float s[2];
+      bool ok[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int kj = k0 + lane + 32 * h;
+        ok[h] = kj < sk && (!causal || kj <= qi);
+        s[h] = ok[h] ? Ss[row * L::LDS + lane + 32 * h] : kNegInf;
+      }
+      const float m_new = fmaxf(m[r], attn::warp_max(fmaxf(s[0], s[1])));
+      float p[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) p[h] = ok[h] ? expf(s[h] - m_new) : 0.0f;
+      const float corr = expf(m[r] - m_new);
+      l[r] = l[r] * corr + attn::warp_sum(p[0] + p[1]);
+      m[r] = m_new;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if constexpr (L::kTC) {
+          Ps[row * L::LDP + lane + 32 * h] = __float2bfloat16(p[h]);
+        } else {
+          Ss[row * L::LDS + lane + 32 * h] = p[h];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < D / 32; ++i) Os[row * L::LDO + lane + 32 * i] *= corr;
+    }
+    __syncwarp();
+
+    if constexpr (L::kTC) {
+      ab<T, KT, D>(Ps + row0 * L::LDP, L::LDP, Vt, L::LDV,
+                   Os + row0 * L::LDO, L::LDO, lane);
+    } else {
+      ab<T, KT, D>(Ss + row0 * L::LDS, L::LDS, Vt, L::LDV,
+                   Os + row0 * L::LDO, L::LDO, lane);
+    }
+    __syncthreads();   // every warp is done with this tile's buffers
+  }
+
+  // normalise and store this warp's rows
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int row = row0 + r;
+    const int qi = q0 + row;
+    if (qi >= sq) continue;
+    const float ll = fmaxf(l[r], 1e-30f);
+    const float inv = 1.0f / ll;
+    T* o = out + (bh * sq + qi) * D;
+#pragma unroll
+    for (int i = 0; i < D / 32; ++i) {
+      o[lane + 32 * i] = from_f<T>(Os[row * L::LDO + lane + 32 * i] * inv);
+    }
+    if (lane == 0) lse[bh * sq + qi] = m[r] + logf(ll);
+  }
+}
+
+// ---------------------------------------------------------------- dK / dV
+
+// A block: 64 keys x D (K and V, the left operands), query tiles of QT rows
+// (Q and dO, the right operands, odd leading dim in fp32) double-buffered
+// with their lse and delta; (key, query) score tiles in fp32.
+template <typename T, int D>
+struct DkvTiles {
+  static constexpr bool kTC = sizeof(T) == 2;
+  static constexpr int KT = 64;
+  static constexpr int QT = kTC ? 64 : 32;
+  static constexpr int kThreads = KT / kRows * 32;
+  static constexpr int LDK = kTC ? D + 8 : D;
+  static constexpr int LDQ = kTC ? D + 8 : D + 1;
+  static constexpr int LDS = kTC ? QT + 4 : QT;
+  static constexpr int LDP = QT + 8;
+  static constexpr int LDA = kTC ? D + 4 : D;
+  static constexpr int KV_BYTES = round_up(KT * LDK * (int)sizeof(T), 128);
+  static constexpr int Q_BUF = round_up(QT * LDQ * (int)sizeof(T), 128);
+  static constexpr int VEC_BUF = round_up(QT * 4, 128);
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = KV_BYTES;
+  static constexpr int Q_OFF = 2 * KV_BYTES;
+  static constexpr int DO_OFF = Q_OFF + 2 * Q_BUF;
+  static constexpr int LSE_OFF = DO_OFF + 2 * Q_BUF;
+  static constexpr int DL_OFF = LSE_OFF + 2 * VEC_BUF;
+  static constexpr int S_OFF = DL_OFF + 2 * VEC_BUF;
+  static constexpr int DP_OFF = round_up(S_OFF + KT * LDS * 4, 128);
+  static constexpr int P_OFF = round_up(DP_OFF + KT * LDS * 4, 128);
+  static constexpr int Z_OFF = round_up(P_OFF + (kTC ? KT * LDP * 2 : 0), 128);
+  static constexpr int DK_OFF = round_up(Z_OFF + (kTC ? KT * LDP * 2 : 0), 128);
+  static constexpr int DV_OFF = round_up(DK_OFF + KT * LDA * 4, 128);
+  static constexpr int BYTES = round_up(DV_OFF + KT * LDA * 4, 128);
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(DkvTiles<T, D>::kThreads)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int sq, int sk, int causal,
+                     float scale) {
+  using L = DkvTiles<T, D>;
+  constexpr int QT = L::QT, KT = L::KT, TH = L::kThreads;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem + L::K_OFF);
+  T* Vs = reinterpret_cast<T*>(smem + L::V_OFF);
+  float* Ss = reinterpret_cast<float*>(smem + L::S_OFF);
+  float* dPs = reinterpret_cast<float*>(smem + L::DP_OFF);
+  bf16* Ps = reinterpret_cast<bf16*>(smem + L::P_OFF);
+  bf16* Zs = reinterpret_cast<bf16*>(smem + L::Z_OFF);
+  float* dKs = reinterpret_cast<float*>(smem + L::DK_OFF);
+  float* dVs = reinterpret_cast<float*>(smem + L::DV_OFF);
+  auto Qs = [&](int b) {
+    return reinterpret_cast<T*>(smem + L::Q_OFF + b * L::Q_BUF);
+  };
+  auto dOs = [&](int b) {
+    return reinterpret_cast<T*>(smem + L::DO_OFF + b * L::Q_BUF);
+  };
+  auto lse_s = [&](int b) {
+    return reinterpret_cast<float*>(smem + L::LSE_OFF + b * L::VEC_BUF);
+  };
+  auto dl_s = [&](int b) {
+    return reinterpret_cast<float*>(smem + L::DL_OFF + b * L::VEC_BUF);
+  };
+
+  const int lane = threadIdx.x % 32;
+  const int row0 = (threadIdx.x / 32) * kRows;
+  const long bh = blockIdx.y;
+  const int k0 = blockIdx.x * KT;
+  const T* qb = q + bh * sq * D;
+  const T* dob = dout + bh * sq * D;
+  const float* lseb = lse + bh * sq;
+  const float* dlb = delta + bh * sq;
+
+  async_tile<T, D, L::LDK, KT, TH>(Ks, k + bh * sk * D, k0, sk);
+  async_tile<T, D, L::LDK, KT, TH>(Vs, v + bh * sk * D, k0, sk);
+  cp_async_commit();
+  // causal: query tiles wholly above this key tile see none of its keys
+  const int q_begin = causal ? (k0 / QT) * QT : 0;
+  const int n_tiles = q_begin < sq ? (sq - q_begin + QT - 1) / QT : 0;
+  auto issue = [&](int it) {
+    const int q0 = q_begin + it * QT;
+    const int b = it & 1;
+    async_tile<T, D, L::LDQ, QT, TH>(Qs(b), qb, q0, sq);
+    async_tile<T, D, L::LDQ, QT, TH>(dOs(b), dob, q0, sq);
+    async_vec<QT, TH>(lse_s(b), lseb, q0, sq);
+    async_vec<QT, TH>(dl_s(b), dlb, q0, sq);
+    cp_async_commit();
+  };
+  if (n_tiles > 0) issue(0);
+  zero_f(dKs, L::LDA, KT, D, TH);
+  zero_f(dVs, L::LDA, KT, D, TH);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = q_begin + it * QT;
+    if (it + 1 < n_tiles) {
+      issue(it + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int b = it & 1;
+    const T* Qt = Qs(b);
+    const T* dOt = dOs(b);
+    const float* lt = lse_s(b);
+    const float* dt = dl_s(b);
+
+    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys
+    abT<T, QT, D>(Ks + row0 * L::LDK, L::LDK, Qt, L::LDQ,
+                  Ss + row0 * L::LDS, L::LDS, lane);
+    abT<T, QT, D>(Vs + row0 * L::LDK, L::LDK, dOt, L::LDQ,
+                  dPs + row0 * L::LDS, L::LDS, lane);
+    __syncwarp();
+
+    // p = exp(s * scale - lse), dz = p * (dp - delta); lane owns the query
+    // columns lane + 32 * j.  Query rows past sq are masked here: their
+    // lse and delta are zero-filled, not real.
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int row = row0 + r;
+      const int kj = k0 + row;
+#pragma unroll
+      for (int j = 0; j < QT / 32; ++j) {
+        const int c = lane + 32 * j;
+        const int qi = q0 + c;
+        const bool ok = kj < sk && qi < sq && (!causal || kj <= qi);
+        const float p = ok ? expf(Ss[row * L::LDS + c] * scale - lt[c]) : 0.0f;
+        const float dz = p * (dPs[row * L::LDS + c] - dt[c]);
+        if constexpr (L::kTC) {
+          Ps[row * L::LDP + c] = __float2bfloat16(p);
+          Zs[row * L::LDP + c] = __float2bfloat16(dz * scale);
+        } else {
+          Ss[row * L::LDS + c] = p;
+          dPs[row * L::LDS + c] = dz * scale;
+        }
+      }
+    }
+    __syncwarp();
+
+    // dV += P^T dO and dK += (dz * scale)^T Q for this warp's 16 keys
+    if constexpr (L::kTC) {
+      ab<T, QT, D>(Ps + row0 * L::LDP, L::LDP, dOt, L::LDQ,
+                   dVs + row0 * L::LDA, L::LDA, lane);
+      ab<T, QT, D>(Zs + row0 * L::LDP, L::LDP, Qt, L::LDQ,
+                   dKs + row0 * L::LDA, L::LDA, lane);
+    } else {
+      ab<T, QT, D>(Ss + row0 * L::LDS, L::LDS, dOt, L::LDQ,
+                   dVs + row0 * L::LDA, L::LDA, lane);
+      ab<T, QT, D>(dPs + row0 * L::LDS, L::LDS, Qt, L::LDQ,
+                   dKs + row0 * L::LDA, L::LDA, lane);
+    }
+    __syncthreads();   // every warp is done with this tile's buffers
+  }
+  // a block with no query tile (keys past sq, causal) still has its K/V
+  // copies in flight and its zeroed accumulators unsynchronised
+  cp_async_wait<0>();
+  __syncthreads();
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int row = row0 + r;
+    const int kj = k0 + row;
+    if (kj >= sk) continue;
+    const long at = (bh * sk + kj) * D;
+#pragma unroll
+    for (int i = 0; i < D / 32; ++i) {
+      const int c = lane + 32 * i;
+      dk[at + c] = from_f<T>(dKs[row * L::LDA + c]);
+      dv[at + c] = from_f<T>(dVs[row * L::LDA + c]);
+    }
+  }
+}
+
+// -------------------------------------------------------------------- dQ
+
+// A block: 64 query rows x D (Q and dO, the left operands, with their lse
+// and delta), key tiles of KT (K and V, the right operands, odd leading
+// dim in fp32) double-buffered.
+template <typename T, int D>
+struct DqTiles {
+  static constexpr bool kTC = sizeof(T) == 2;
+  static constexpr int QT = 64;
+  static constexpr int KT = kTC ? 64 : 32;
+  static constexpr int kThreads = QT / kRows * 32;
+  static constexpr int LDQ = kTC ? D + 8 : D;
+  static constexpr int LDK = kTC ? D + 8 : D + 1;
+  static constexpr int LDS = kTC ? KT + 4 : KT;
+  static constexpr int LDP = KT + 8;
+  static constexpr int LDA = kTC ? D + 4 : D;
+  static constexpr int Q_BYTES = round_up(QT * LDQ * (int)sizeof(T), 128);
+  static constexpr int K_BUF = round_up(KT * LDK * (int)sizeof(T), 128);
+  static constexpr int Q_OFF = 0;
+  static constexpr int DO_OFF = Q_BYTES;
+  static constexpr int LSE_OFF = 2 * Q_BYTES;
+  static constexpr int DL_OFF = LSE_OFF + round_up(QT * 4, 128);
+  static constexpr int K_OFF = DL_OFF + round_up(QT * 4, 128);
+  static constexpr int V_OFF = K_OFF + 2 * K_BUF;
+  static constexpr int S_OFF = V_OFF + 2 * K_BUF;
+  static constexpr int DP_OFF = round_up(S_OFF + QT * LDS * 4, 128);
+  static constexpr int Z_OFF = round_up(DP_OFF + QT * LDS * 4, 128);
+  static constexpr int DQ_OFF = round_up(Z_OFF + (kTC ? QT * LDP * 2 : 0), 128);
+  static constexpr int BYTES = round_up(DQ_OFF + QT * LDA * 4, 128);
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(DqTiles<T, D>::kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int sq, int sk, int causal, float scale) {
+  using L = DqTiles<T, D>;
+  constexpr int QT = L::QT, KT = L::KT, TH = L::kThreads;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem + L::Q_OFF);
+  T* dOs = reinterpret_cast<T*>(smem + L::DO_OFF);
+  float* lse_s = reinterpret_cast<float*>(smem + L::LSE_OFF);
+  float* dl_s = reinterpret_cast<float*>(smem + L::DL_OFF);
+  float* Ss = reinterpret_cast<float*>(smem + L::S_OFF);
+  float* dPs = reinterpret_cast<float*>(smem + L::DP_OFF);
+  bf16* Zs = reinterpret_cast<bf16*>(smem + L::Z_OFF);
+  float* dQs = reinterpret_cast<float*>(smem + L::DQ_OFF);
+  auto Ks = [&](int b) {
+    return reinterpret_cast<T*>(smem + L::K_OFF + b * L::K_BUF);
+  };
+  auto Vs = [&](int b) {
+    return reinterpret_cast<T*>(smem + L::V_OFF + b * L::K_BUF);
+  };
+
+  const int lane = threadIdx.x % 32;
+  const int row0 = (threadIdx.x / 32) * kRows;
+  const long bh = blockIdx.y;
+  const int q0 = blockIdx.x * QT;
+  const T* kb = k + bh * sk * D;
+  const T* vb = v + bh * sk * D;
+  const int kv_end = causal ? min(sk, q0 + QT) : sk;
+  const int n_tiles = (kv_end + KT - 1) / KT;
+
+  async_tile<T, D, L::LDQ, QT, TH>(Qs, q + bh * sq * D, q0, sq);
+  async_tile<T, D, L::LDQ, QT, TH>(dOs, dout + bh * sq * D, q0, sq);
+  async_vec<QT, TH>(lse_s, lse + bh * sq, q0, sq);
+  async_vec<QT, TH>(dl_s, delta + bh * sq, q0, sq);
+  async_tile<T, D, L::LDK, KT, TH>(Ks(0), kb, 0, sk);
+  async_tile<T, D, L::LDK, KT, TH>(Vs(0), vb, 0, sk);
+  cp_async_commit();
+  zero_f(dQs, L::LDA, QT, D, TH);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * KT;
+    if (t + 1 < n_tiles) {
+      async_tile<T, D, L::LDK, KT, TH>(Ks((t + 1) & 1), kb, k0 + KT, sk);
+      async_tile<T, D, L::LDK, KT, TH>(Vs((t + 1) & 1), vb, k0 + KT, sk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* Kt = Ks(t & 1);
+    const T* Vt = Vs(t & 1);
+
+    // S = Q K^T and dP = dO V^T for this warp's 16 query rows
+    abT<T, KT, D>(Qs + row0 * L::LDQ, L::LDQ, Kt, L::LDK,
+                  Ss + row0 * L::LDS, L::LDS, lane);
+    abT<T, KT, D>(dOs + row0 * L::LDQ, L::LDQ, Vt, L::LDK,
+                  dPs + row0 * L::LDS, L::LDS, lane);
+    __syncwarp();
+
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int row = row0 + r;
+      const int qi = q0 + row;
+#pragma unroll
+      for (int h = 0; h < KT / 32; ++h) {
+        const int c = lane + 32 * h;
+        const int kj = k0 + c;
+        const bool ok = kj < sk && qi < sq && (!causal || kj <= qi);
+        const float p =
+            ok ? expf(Ss[row * L::LDS + c] * scale - lse_s[row]) : 0.0f;
+        const float dz = p * (dPs[row * L::LDS + c] - dl_s[row]) * scale;
+        if constexpr (L::kTC) {
+          Zs[row * L::LDP + c] = __float2bfloat16(dz);
+        } else {
+          Ss[row * L::LDS + c] = dz;
+        }
+      }
+    }
+    __syncwarp();
+
+    // dQ += (dz * scale) K
+    if constexpr (L::kTC) {
+      ab<T, KT, D>(Zs + row0 * L::LDP, L::LDP, Kt, L::LDK,
+                   dQs + row0 * L::LDA, L::LDA, lane);
+    } else {
+      ab<T, KT, D>(Ss + row0 * L::LDS, L::LDS, Kt, L::LDK,
+                   dQs + row0 * L::LDA, L::LDA, lane);
+    }
+    __syncthreads();   // every warp is done with this tile's buffers
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int row = row0 + r;
+    const int qi = q0 + row;
+    if (qi >= sq) continue;
+    const long at = (bh * sq + qi) * D;
+#pragma unroll
+    for (int i = 0; i < D / 32; ++i) {
+      dq[at + lane + 32 * i] = from_f<T>(dQs[row * L::LDA + lane + 32 * i]);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ launch
+
+template <typename T, int D>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v,
+                       void* out, float* lse, int bh, int sq, int sk,
+                       int causal, float scale, cudaStream_t stream) {
+  using L = FwdTiles<T, D>;
+  static bool opted = false;
+  cudaError_t err = attn::opt_in(flash_fwd_kernel<T, D>, L::BYTES, &opted);
+  if (err != cudaSuccess) return err;
+  flash_fwd_kernel<T, D>
+      <<<dim3((sq + L::QT - 1) / L::QT, bh), L::kThreads, L::BYTES, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(out), lse, sq, sk,
+          causal, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse,
+                       const float* delta, void* dk, void* dv, int bh,
+                       int sq, int sk, int causal, float scale,
+                       cudaStream_t stream) {
+  using L = DkvTiles<T, D>;
+  static bool opted = false;
+  cudaError_t err =
+      attn::opt_in(flash_bwd_dkv_kernel<T, D>, L::BYTES, &opted);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_kernel<T, D>
+      <<<dim3((sk + L::KT - 1) / L::KT, bh), L::kThreads, L::BYTES, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+          static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, causal, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dq, int bh, int sq, int sk, int causal,
+                      float scale, cudaStream_t stream) {
+  using L = DqTiles<T, D>;
+  static bool opted = false;
+  cudaError_t err = attn::opt_in(flash_bwd_dq_kernel<T, D>, L::BYTES, &opted);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_kernel<T, D>
+      <<<dim3((sq + L::QT - 1) / L::QT, bh), L::kThreads, L::BYTES, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+          static_cast<T*>(dq), sq, sk, causal, scale);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int bh, int sq, int sk) {
+  return bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0;
+}
+
+}  // namespace
+}  // namespace flash
+
+// dtype: 0 = fp32, 1 = bf16; head dims 64 and 128.  Each returns a
+// cudaError_t code (0 = success).
+#define FLASH_DISPATCH(CALL)                                \
+  if (dtype == 0 && d == 128) return CALL(float, 128);      \
+  if (dtype == 0 && d == 64) return CALL(float, 64);        \
+  if (dtype == 1 && d == 128) return CALL(flash::bf16, 128); \
+  if (dtype == 1 && d == 64) return CALL(flash::bf16, 64);  \
+  return cudaErrorInvalidValue
+
+extern "C" {
+
+int flash_fwd(const void* q, const void* k, const void* v, void* out,
+              float* lse, int bh, int sq, int sk, int d, int dtype,
+              int causal, float scale, void* stream) {
+  if (flash::bad_shape(bh, sq, sk)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CALL(T, D) \
+  flash::launch_fwd<T, D>(q, k, v, out, lse, bh, sq, sk, causal, scale, s)
+  FLASH_DISPATCH(CALL);
+#undef CALL
+}
+
+// lse, delta: (bh, sq) fp32, delta = rowsum(dout * out).
+int flash_bwd_dkv(const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* delta,
+                  void* dk, void* dv, int bh, int sq, int sk, int d,
+                  int dtype, int causal, float scale, void* stream) {
+  if (flash::bad_shape(bh, sq, sk)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CALL(T, D)                                                        \
+  flash::launch_dkv<T, D>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, \
+                          causal, scale, s)
+  FLASH_DISPATCH(CALL);
+#undef CALL
+}
+
+int flash_bwd_dq(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 void* dq, int bh, int sq, int sk, int d, int dtype,
+                 int causal, float scale, void* stream) {
+  if (flash::bad_shape(bh, sq, sk)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CALL(T, D)                                                    \
+  flash::launch_dq<T, D>(q, k, v, dout, lse, delta, dq, bh, sq, sk, \
+                         causal, scale, s)
+  FLASH_DISPATCH(CALL);
+#undef CALL
+}
+
+const char* error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

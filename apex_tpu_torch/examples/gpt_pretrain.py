@@ -4,20 +4,28 @@
     python -m apex_tpu_torch.examples.gpt_pretrain --steps 20
     python -m apex_tpu_torch.examples.gpt_pretrain --layers 2 --hidden 64 \\
         --heads 2 --vocab 256 --seq 128 --device cpu --steps 3
+    python -m apex_tpu_torch.examples.gpt_pretrain --position-embedding rope \\
+        --activation swiglu --normalization rmsnorm --seq 4096 \\
+        --micro-batch 2 --num-micro 1
 
 The same step as the JAX trainer's single-device path: a precision
 policy from ``--opt-level`` (O5 by default: bf16 parameters and compute,
 fp32 norms, fp32 masters in the optimizer, no loss scaling), the GPT's
 mean next-token cross entropy, its backward through the port's kernels
-(layer norm, the short and mid attention rungs), an optional global-norm
+(layer norm, the short, mid and flash attention rungs), an optional global-norm
 clip (``--clip-grad``) and a ``FusedAdam`` step.  The global batch is
 ``--micro-batch * --num-micro`` rows of ``--seq`` tokens in one step.
 Synthetic tokens come from a numpy seed as in the JAX trainer: ``--pool``
 batches (8 there) drawn once, cycled.  Every ``--log-every`` steps one
 line gives the loss, ms/step, tokens/s and MFU (the JAX numerator,
-``6·N + 12·L·h·s`` model FLOPs per token, over the card's dense bf16
-peak); the loss is read from the device only then.  ``--device`` defaults
-to the GPU and raises without one.
+``6·N + 12·L·h·s`` model FLOPs per token, N counting every parameter --
+the SwiGLU gate included, a position table only where there is one --
+over the card's dense bf16 peak); the loss is read from the device only
+then.  ``--position-embedding rope`` (with ``--activation swiglu
+--normalization rmsnorm``, the Llama mode) sets
+``max_position_embeddings`` to ``--seq`` as the JAX trainer does; a rope
+model keeps no table, so any ``--seq`` runs, past 2048 through the flash
+kernels.  ``--device`` defaults to the GPU and raises without one.
 
 Flags of the JAX trainer that this slice does not port raise
 ``NotImplementedError`` naming their ROADMAP.md item.
@@ -59,7 +67,6 @@ UNPORTED = {
     "overlap_grad_sync": (False, "queue A item 9 (overlapped grad sync)"),
     "fused_opt_tail": (False, "queue A item 5 (fused optimizer tail)"),
     "num_experts": (None, "queue A item 9 (mixture-of-experts)"),
-    "position_embedding": ("learned", "queue A item 3 (rope)"),
     "data": (None, "queue A item 10 (data)"),
     "checkpoint_dir": (None, "queue A item 10 (checkpointing)"),
     "metrics_jsonl": (None, "queue A item 10 (telemetry)"),
@@ -157,6 +164,7 @@ class Trainer:
             vocab_size=args.vocab, num_layers=args.layers,
             hidden_size=args.hidden, num_attention_heads=args.heads,
             max_position_embeddings=args.seq, policy=self.policy,
+            position_embedding=args.position_embedding,
             activation=args.activation, normalization=args.normalization)
         self.model = GPTModel(cfg, device=self.device, seed=0)
         self.opt = FusedAdam(
@@ -199,6 +207,9 @@ def run(args: argparse.Namespace) -> Dict:
         np.random.default_rng(0), args.pool, tr.global_batch, args.seq,
         args.vocab)]
     peak = device_peak_flops(tr.device)
+    print(f"{tr.n_params:,} parameters, {tr.flops_per_token:,} model FLOPs "
+          "per token (6·N + 12·L·h·s; N counts every parameter, the SwiGLU "
+          "gate included)", flush=True)
     pending: List[torch.Tensor] = []
     losses: List[float] = []
     t0 = None

@@ -12,14 +12,19 @@ carries weights across both ways).  The math is kept exactly:
 - the residual stream runs in the compute dtype, every norm takes its
   input as given and the final norm an fp32 copy of the stream, with the
   normalized output cast to the compute dtype;
-- decode clips learned positions to the table.
+- decode clips learned positions to the table;
+- ``position_embedding="rope"`` (the Llama mode, with ``rmsnorm`` and
+  ``swiglu``) has no position table: q and k are rotated in every layer by
+  tables computed once per forward, prefill returns K already rotated,
+  and decode rotates the new K before it is cached and q inside the
+  paged kernel, with rows gathered from the cached ``rope_table``.
 
 Attention goes through ``ops.attention.flash_attention`` (the short
-kernel up to 512 tokens, the mid kernel up to 2048, both differentiable)
-in the forward, training and prefill, and through
-``ops.attention_decode.fmha_decode`` (the paged kernel) in decode; every
-norm through ``ops.layer_norm``'s kernel.  On the CPU the same calls run
-the kernels' plain versions.
+kernel up to 512 tokens, the mid kernel up to 2048, the flash kernels
+above, all differentiable) in the forward, training and prefill, and
+through ``ops.attention_decode.fmha_decode`` (the paged kernel) in
+decode; every norm through ``ops.layer_norm``'s kernel.  On the CPU the
+same calls run the kernels' plain versions.
 
 Ported so far, at tensor-parallel world size 1: ``apply``, ``loss`` (the
 two-step LM-head cross entropy) and its backward, ``prefill_forward``,
@@ -45,11 +50,11 @@ from torch.utils.checkpoint import checkpoint
 from apex_tpu_torch.amp.policy import Policy, check_ported
 from apex_tpu_torch.ops.attention import flash_attention
 from apex_tpu_torch.ops.attention_decode import fmha_decode
-from apex_tpu_torch.ops.attention_mid import mid_seq_threshold
 from apex_tpu_torch.ops.layer_norm import (
     fused_layer_norm_affine,
     fused_rms_norm_affine,
 )
+from apex_tpu_torch.ops.rope import apply_rope_tables, rope_cos_sin, rope_table
 from apex_tpu_torch.serving.kv_cache import (
     KVCacheConfig,
     PagedKVCache,
@@ -119,10 +124,13 @@ class GPTConfig:
     ``remat_policy`` is accepted and does not change what is saved.
     ``fused_ce`` / ``fused_ce_chunk`` pick the LM-head cross entropy as
     in JAX (None: by logits size).  ``attention_impl`` forces a rung
-    (``"short"``/``"mid"``) or leaves the ladder to choose (None).
+    (``"short"``/``"mid"``/``"pallas"``, the last the flash rung) or
+    leaves the ladder to choose (None).  ``position_embedding="rope"``
+    rotates q and k by ``rope_base``'s frequencies and keeps no position
+    table, so ``max_position_embeddings`` then bounds nothing.
 
-    Not ported yet: ``position_embedding="rope"`` (ROADMAP.md queue A
-    item 3), dropout (item 4) and mixture-of-experts (item 9)."""
+    Not ported yet: dropout (ROADMAP.md queue A item 4) and
+    mixture-of-experts (item 9)."""
 
     vocab_size: int = 32000
     num_layers: int = 4
@@ -130,6 +138,7 @@ class GPTConfig:
     num_attention_heads: int = 8
     max_position_embeddings: int = 1024
     position_embedding: str = "learned"
+    rope_base: float = 10000.0
     activation: str = "gelu"
     normalization: str = "layernorm"
     ffn_hidden_size: Optional[int] = None
@@ -152,24 +161,22 @@ class GPTConfig:
             check_ported(self.policy)
             self.params_dtype = self.policy.param_dtype
             self.compute_dtype = self.policy.compute_dtype
-        if self.attention_impl not in (None, "short", "mid"):
+        if self.attention_impl not in (None, "short", "mid", "pallas"):
             raise NotImplementedError(
                 f"attention_impl={self.attention_impl!r}: the port has the "
-                "short and mid rungs; the flash rung is ROADMAP.md queue B "
-                "item 1")
+                "short, mid and flash ('pallas') rungs; its plain "
+                "attention (the JAX 'xla' path) is an oracle, not a rung")
         if self.ffn_hidden_size is None:
             self.ffn_hidden_size = 4 * self.hidden_size
         if self.hidden_size % self.num_attention_heads:
             raise ValueError(
                 "hidden_size must be divisible by num_attention_heads")
-        if self.position_embedding == "rope":
-            raise NotImplementedError(
-                "rope positions are not ported yet "
-                "(ROADMAP.md queue A item 3)")
-        if self.position_embedding != "learned":
+        if self.position_embedding not in ("learned", "rope"):
             raise ValueError(
                 f"position_embedding must be 'learned' or 'rope', got "
                 f"{self.position_embedding!r}")
+        if self.position_embedding == "rope" and self.head_dim % 2:
+            raise ValueError("rope needs an even head_dim")
         if self.activation not in ("gelu", "swiglu"):
             raise ValueError(
                 f"activation must be 'gelu' or 'swiglu', got "
@@ -275,10 +282,14 @@ class GPTModel(nn.Module):
         self.embedding = VocabParallelEmbedding(
             c.vocab_size, c.hidden_size, init_method=init,
             params_dtype=c.params_dtype, device=self.device, generator=gen)
-        self.pos_embedding = nn.Parameter(torch.empty(
-            (c.max_position_embeddings, c.hidden_size),
-            dtype=c.params_dtype, device=self.device))
-        init(self.pos_embedding, gen)
+        if c.position_embedding == "learned":
+            self.pos_embedding = nn.Parameter(torch.empty(
+                (c.max_position_embeddings, c.hidden_size),
+                dtype=c.params_dtype, device=self.device))
+            init(self.pos_embedding, gen)
+        else:
+            # a rope model has no position table (nor a JAX leaf for one)
+            self.register_parameter("pos_embedding", None)
         self.layers = nn.ModuleList(
             GPTLayer(c, self.device, gen) for _ in range(c.num_layers))
         self.final_ln = Norm(c.hidden_size, c.normalization,
@@ -302,14 +313,19 @@ class GPTModel(nn.Module):
             y = F.gelu(layer.fc1(y), approximate="tanh")
         return layer.fc2(y)
 
-    def _layer(self, layer: GPTLayer, x: torch.Tensor):
+    def _layer(self, layer: GPTLayer, x: torch.Tensor, rope=None):
         """One layer over ``x (b, s, h)``: returns the layer output and
-        the attention-ready ``k``/``v`` ``(b, heads, s, head_dim)``."""
+        the attention-ready ``k``/``v`` ``(b, heads, s, head_dim)``, k
+        rotated by ``rope`` (the ``(cos, sin)`` of :meth:`_rope_tables`,
+        None for learned positions)."""
         c = self.config
         b, s, _ = x.shape
         residual = x
         y = layer.ln1(x).to(c.compute_dtype)
         q, k, v = self._qkv_heads(layer, y)
+        if rope is not None:
+            q = apply_rope_tables(q, *rope)
+            k = apply_rope_tables(k, *rope)
         attn = flash_attention(q, k, v, causal=True,
                                implementation=c.attention_impl)
         attn = attn.transpose(1, 2).reshape(b, s, c.hidden_size)
@@ -318,14 +334,28 @@ class GPTModel(nn.Module):
         y = layer.ln2(x).to(c.compute_dtype)
         return residual + self._dense_mlp(layer, y).to(residual.dtype), k, v
 
-    def _layer_out(self, layer: GPTLayer, x: torch.Tensor) -> torch.Tensor:
-        return self._layer(layer, x)[0]
+    def _layer_out(self, layer: GPTLayer, x: torch.Tensor,
+                   rope=None) -> torch.Tensor:
+        return self._layer(layer, x, rope)[0]
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        s = tokens.shape[1]
+        """Token embedding plus, for learned positions, the table's rows;
+        a rope model adds nothing here."""
         x = self.embedding(tokens)
-        x = x + self.pos_embedding[:s][None].to(x.dtype)
+        if self.pos_embedding is not None:
+            s = tokens.shape[1]
+            x = x + self.pos_embedding[:s][None].to(x.dtype)
         return x.to(self.config.compute_dtype)
+
+    def _rope_tables(self, s: int):
+        """``(cos, sin)`` of positions ``0..s-1`` for a rope model, once
+        per forward (every layer and the remat recompute reuse them);
+        None for learned positions."""
+        c = self.config
+        if c.position_embedding != "rope":
+            return None
+        return rope_cos_sin(torch.arange(s, device=self.device), c.head_dim,
+                            c.rope_base)
 
     def _final_norm(self, x: torch.Tensor) -> torch.Tensor:
         return self.final_ln(x.float()).to(self.config.compute_dtype)
@@ -335,12 +365,14 @@ class GPTModel(nn.Module):
         compute dtype (the JAX version also returns the MoE aux loss,
         which a dense model does not have)."""
         x = self._embed(tokens)
+        rope = self._rope_tables(tokens.shape[1])
         remat = self.config.remat and torch.is_grad_enabled()
         for layer in self.layers:
             if remat:
-                x = checkpoint(self._layer_out, layer, x, use_reentrant=False)
+                x = checkpoint(self._layer_out, layer, x, rope,
+                               use_reentrant=False)
             else:
-                x = self._layer_out(layer, x)
+                x = self._layer_out(layer, x, rope)
         return self._final_norm(x)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
@@ -375,11 +407,13 @@ class GPTModel(nn.Module):
         """Prompt ingestion over ``tokens (b, s)`` through the attention
         ladder, also returning each layer's K/V for the cache write:
         ``(hidden (b, s, h), k, v)`` with k/v ``(num_layers, b, heads, s,
-        head_dim)``."""
+        head_dim)``, K already rotated for a rope model (a cached key is
+        rotated once; decode rotates only q)."""
         x = self._embed(tokens)
+        rope = self._rope_tables(tokens.shape[1])
         ks, vs = [], []
         for layer in self.layers:
-            x, k, v = self._layer(layer, x)
+            x, k, v = self._layer(layer, x, rope)
             ks.append(k)
             vs.append(v)
         return self._final_norm(x), torch.stack(ks), torch.stack(vs)
@@ -397,16 +431,28 @@ class GPTModel(nn.Module):
         ``active (S,)`` masks live slots (idle slots compute garbage and
         write it to the null page).  Every layer writes its new K/V into
         its pool slice first (the token attends to itself) and then runs
-        :func:`fmha_decode` against the paged cache.  Returns ``(logits
+        :func:`fmha_decode` against the paged cache.  A rope model
+        rotates the new K before it is written and hands the kernel this
+        step's ``(S, 1, head_dim/2)`` rows of the cached ``rope_table``
+        (over the cache's whole extent) to rotate q.  Returns ``(logits
         (S, vocab), pools)``; the pools are updated in place."""
         c = self.config
         S = tokens.shape[0]
         page_size = pools["k"].shape[3]
         positions = positions.to(torch.int32)
         x = self.embedding(tokens[:, None])
-        pos = positions.clamp(0, c.max_position_embeddings - 1).long()
-        x = (x + self.pos_embedding[pos][:, None, :].to(x.dtype)).to(
-            c.compute_dtype)
+        rope_cs = None
+        if self.pos_embedding is not None:
+            pos = positions.clamp(0, c.max_position_embeddings - 1).long()
+            x = x + self.pos_embedding[pos][:, None, :].to(x.dtype)
+        else:
+            extent = page_table.shape[1] * page_size
+            cos_t, sin_t = rope_table(extent, c.head_dim, base=c.rope_base,
+                                      device=x.device)
+            # idle slots may sit anywhere: clip, as JAX's take does
+            pos = positions.clamp(0, extent - 1).long()
+            rope_cs = (cos_t[pos][:, None], sin_t[pos][:, None])
+        x = x.to(c.compute_dtype)
         attend = torch.where(active, positions + 1, 0).to(torch.int32)
         wp, wo = write_targets(page_table, positions, active, page_size)
         for li, layer in enumerate(self.layers):
@@ -414,9 +460,12 @@ class GPTModel(nn.Module):
             residual = x
             y = layer.ln1(x).to(c.compute_dtype)
             q, k, v = self._qkv_heads(layer, y)          # (S, h, 1, d)
+            if rope_cs is not None:
+                k = apply_rope_tables(k, rope_cs[0][:, None],
+                                      rope_cs[1][:, None])
             write_tokens(pool_l, k[:, :, 0], v[:, :, 0], wp, wo)
             attn = fmha_decode(q, pool_l["k"], pool_l["v"], page_table,
-                               attend, causal=True)
+                               attend, causal=True, rope=rope_cs)
             attn = attn.transpose(1, 2).reshape(S, 1, c.hidden_size)
             x = residual + layer.attn_proj(attn).to(residual.dtype)
             residual = x
@@ -462,20 +511,18 @@ class GPTModel(nn.Module):
                 f"d={cfg.head_dim}) does not match the model "
                 f"(L={c.num_layers}, h={c.num_attention_heads}, "
                 f"d={c.head_dim})")
-        if cfg.max_len > c.max_position_embeddings:
+        if c.position_embedding == "learned" and (
+                max(cfg.max_len, max_prompt_len)
+                > c.max_position_embeddings):
             raise ValueError(
-                f"cache holds up to {cfg.max_len} positions but the "
-                f"learned table stops at {c.max_position_embeddings}")
+                f"cache holds up to {cfg.max_len} positions and prompts up "
+                f"to {max_prompt_len} tokens but the learned table stops at "
+                f"{c.max_position_embeddings}")
         if cfg.dtype != c.compute_dtype:
             raise ValueError(
                 f"cache pages are {cfg.dtype} but the model computes in "
                 f"{c.compute_dtype}: the decode kernel reads pages in the "
                 "query's dtype")
-        if max_prompt_len > mid_seq_threshold():
-            raise NotImplementedError(
-                f"max_prompt_len {max_prompt_len} > {mid_seq_threshold()}: "
-                "monolithic prefill of longer prompts needs the flash "
-                "attention kernels (ROADMAP.md queue B item 1)")
 
         @torch.no_grad()
         def prefill(pools, toks, length: int, page_row):
@@ -580,13 +627,15 @@ class GPTModel(nn.Module):
         """Naive full-recompute GREEDY reference: every step re-runs the
         whole forward over the growing padded sequence and argmaxes the
         last valid position.  Exists to gate the paged path, never to
-        serve.  Needs ``s + max_new_tokens`` within the learned position
-        table and the attention ladder's window.  Returns ``(b, new)``."""
+        serve.  A learned-position model needs ``s + max_new_tokens``
+        within its table; a rope model runs any length.  Returns ``(b,
+        new)``."""
         c = self.config
         prompts = np.asarray(prompts)
         b, s = prompts.shape
         total = s + max_new_tokens
-        if total > c.max_position_embeddings:
+        if c.position_embedding == "learned" and \
+                total > c.max_position_embeddings:
             raise ValueError(
                 f"reference needs {total} positions but the learned "
                 f"table stops at {c.max_position_embeddings}")

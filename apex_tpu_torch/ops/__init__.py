@@ -6,6 +6,11 @@ from apex_tpu_torch.ops.attention_decode import (
     fmha_decode,
     paged_attention_reference,
 )
+from apex_tpu_torch.ops.attention_flash import (
+    flash_bwd_dkv,
+    flash_bwd_dq,
+    flash_fwd,
+)
 from apex_tpu_torch.ops.attention_mid import fmha_mid, mid_bwd, mid_fwd
 from apex_tpu_torch.ops.attention_short import fmha_short, short_bwd, short_fwd
 from apex_tpu_torch.ops.common import (
@@ -18,11 +23,20 @@ from apex_tpu_torch.ops.layer_norm import (
     fused_rms_norm_affine,
     layer_norm_fwd,
 )
+from apex_tpu_torch.ops.rope import (
+    apply_rope,
+    apply_rope_at,
+    apply_rope_tables,
+    rope_cos_sin,
+    rope_table,
+)
 
 __all__ = [
-    "KernelUnavailable", "flash_attention", "fmha_decode", "fmha_mid",
-    "fmha_short", "fused_layer_norm_affine", "fused_rms_norm_affine",
-    "launch_counts", "layer_norm_fwd", "mha_reference", "mid_bwd",
-    "mid_fwd", "paged_attention_reference", "reset_launch_counts",
-    "short_bwd", "short_fwd",
+    "KernelUnavailable", "apply_rope", "apply_rope_at", "apply_rope_tables",
+    "flash_attention", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd",
+    "fmha_decode", "fmha_mid", "fmha_short", "fused_layer_norm_affine",
+    "fused_rms_norm_affine", "launch_counts", "layer_norm_fwd",
+    "mha_reference", "mid_bwd", "mid_fwd", "paged_attention_reference",
+    "reset_launch_counts", "rope_cos_sin", "rope_table", "short_bwd",
+    "short_fwd",
 ]

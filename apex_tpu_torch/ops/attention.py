@@ -2,14 +2,19 @@
 
 Counterpart of ``apex_tpu/ops/attention.py``.  ``mha_reference`` is the
 plain attention the JAX package checks its kernels against.
-``flash_attention`` is the entry the model calls; its ladder has two
-rungs so far, both differentiable: the short kernel
-(``ops/attention_short.py``) up to ``FMHA_SHORT_MAX_SEQ`` and the mid
-kernel (``ops/attention_mid.py``) up to ``mid_seq_threshold()``.  Longer
-sequences raise: the flash rung is ROADMAP.md queue B item 1.  The
-boundaries 512 and 2048 are the JAX package's; they were measured on a
-TPU, not on the H100 (PERF.md records a first short-vs-mid reading), and
-its fp32-to-XLA window (``FLASH_FP32_XLA_MAX_SEQ``) is not copied.
+``flash_attention`` is the entry the model calls; its ladder has three
+rungs, all differentiable: the short kernel (``ops/attention_short.py``)
+while both lengths are at most ``short_seq_threshold()``, the mid kernel
+(``ops/attention_mid.py``) up to ``mid_seq_threshold()``, and the flash
+kernels (``ops/attention_flash.py``) above it.  The boundaries 512 and
+2048 (env-overridable, as in JAX) are the JAX package's; they were
+measured on a TPU, not on the H100 (PERF.md records the H100's readings),
+and its fp32-to-XLA window (``FLASH_FP32_XLA_MAX_SEQ``) is not copied.
+
+``_Flash`` is the counterpart of the JAX ``_flash`` custom_vjp and
+``_flash_attention_kernels`` of ``_flash_attention_pallas``: both work on
+the flattened ``(b*h, s, d)`` layout.  The port needs no padding to block
+multiples, since its kernels mask the ragged ends themselves.
 """
 
 from __future__ import annotations
@@ -18,12 +23,22 @@ from typing import Optional
 
 import torch
 
+from apex_tpu_torch.ops.attention_flash import (
+    flash_bwd_dkv,
+    flash_bwd_dq,
+    flash_delta,
+    flash_fwd,
+)
 from apex_tpu_torch.ops.attention_mid import fmha_mid, mid_seq_threshold
-from apex_tpu_torch.ops.attention_short import FMHA_SHORT_MAX_SEQ, fmha_short
+from apex_tpu_torch.ops.attention_short import fmha_short, short_seq_threshold
 
 __all__ = ["flash_attention", "mha_reference"]
 
 _NEG_INF = -1e30
+
+#: rung names ``implementation`` takes; "pallas" is the JAX name of the
+#: flash rung
+_RUNGS = ("short", "mid", "pallas")
 
 
 def mha_reference(
@@ -49,6 +64,39 @@ def mha_reference(
     return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
+class _Flash(torch.autograd.Function):
+    """``out = attention(q, k, v)`` over ``(b*h, s, d)`` through the flash
+    kernels; saves ``(q, k, v, out, lse)`` as the JAX ``_flash_fwd``
+    does.  The backward takes ``delta = rowsum(dout * out)`` once and runs
+    the dK/dV and the dQ kernel on it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        out, lse = flash_fwd(q, k, v, causal=causal, sm_scale=sm_scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        delta = flash_delta(out, dout)
+        kw = dict(causal=ctx.causal, sm_scale=ctx.sm_scale)
+        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+        dq = flash_bwd_dq(q, k, v, dout, lse, delta, **kw)
+        return dq, dk, dv, None, None
+
+
+def _flash_attention_kernels(q, k, v, causal, sm_scale):
+    """The flash rung over ``(b, h, s, d)``: flatten to ``(b*h, s, d)``,
+    run ``_Flash``, restore the heads."""
+    b, h, sq, d = q.shape
+    flat = lambda x: x.reshape(b * h, x.shape[2], d)
+    out = _Flash.apply(flat(q), flat(k), flat(v), causal, sm_scale)
+    return out.reshape(b, h, sq, d)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -59,17 +107,27 @@ def flash_attention(
     q_segment_ids: Optional[torch.Tensor] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
     implementation: Optional[str] = None,
 ) -> torch.Tensor:
     """Attention over ``(batch, heads, seq, head_dim)``, differentiable in
     q, k and v.
 
     fp32 or bf16 inputs with both sequence lengths at most
-    ``FMHA_SHORT_MAX_SEQ`` run the short kernel, up to
-    ``mid_seq_threshold()`` the mid kernel (512 and 2048, the JAX
-    package's boundaries, not crossovers measured on the H100).  Bias,
-    segment ids and dropout are not ported yet.  ``implementation``
-    forces a rung (``"short"`` or ``"mid"``), as the JAX entry does."""
+    ``short_seq_threshold()`` run the short kernel, with the longer one at
+    most ``mid_seq_threshold()`` the mid kernel, and longer ones the flash
+    kernels (512 and 2048 unless ``APEX_TPU_FMHA_SHORT_MAX_SEQ`` /
+    ``APEX_TPU_FMHA_MID_MAX_SEQ`` say otherwise; ``0`` turns a rung off).
+    ``implementation`` forces a rung: ``"short"``, ``"mid"`` or
+    ``"pallas"`` (the JAX name of the flash rung).
+
+    ``block_q``/``block_k`` are accepted for the JAX signature and not
+    used: in JAX they are the flash kernel's TPU tiles (512 x 1024 by
+    default, clamped for fp32 by a VMEM budget), which say nothing about
+    the H100; the CUDA kernels choose their own tiles
+    (``csrc/attention_flash.cu``).  Bias, segment ids and dropout are not
+    ported yet."""
     if bias is not None or q_segment_ids is not None \
             or kv_segment_ids is not None or dropout_rate > 0.0:
         raise NotImplementedError(
@@ -77,17 +135,19 @@ def flash_attention(
             "(ROADMAP.md queue B item 2)")
     rung = implementation
     if rung is None:
-        s = max(q.shape[2], k.shape[2])
-        if s > mid_seq_threshold():
-            raise NotImplementedError(
-                f"sequence length {s} > {mid_seq_threshold()}: the flash "
-                "attention kernels are not ported yet (ROADMAP.md queue B "
-                "item 1)")
-        rung = "short" if s <= FMHA_SHORT_MAX_SEQ else "mid"
+        sq, sk = q.shape[2], k.shape[2]
+        thr = short_seq_threshold()
+        if sq <= thr and sk <= thr:
+            rung = "short"
+        elif max(sq, sk) <= mid_seq_threshold():
+            rung = "mid"
+        else:
+            rung = "pallas"
     if rung == "short":
         return fmha_short(q, k, v, causal=causal, sm_scale=sm_scale)
     if rung == "mid":
         return fmha_mid(q, k, v, causal=causal, sm_scale=sm_scale)
-    raise NotImplementedError(
-        f"implementation={implementation!r}: the port has the short and mid "
-        "rungs; the flash rung is ROADMAP.md queue B item 1")
+    if rung == "pallas":
+        return _flash_attention_kernels(q, k, v, causal, sm_scale)
+    raise ValueError(f"implementation={implementation!r}: expected None or "
+                     f"one of {_RUNGS}")

@@ -12,10 +12,13 @@ tokens INCLUDING the query rows (write-before-attend), and query row
 masked positions never read.
 
 Ported: fp32 and bf16 pages, ``1 <= sq <= 8`` on the GPU (any ``sq`` on
-the CPU), causal or not.  Not ported yet (ROADMAP.md queue B item 3):
-int8 pages with scales, the fused q-RoPE, the tree ``ancestor`` mask.
-No single PyTorch call computes attention over this paged layout, so the
-kernel has no library yardstick.
+the CPU), causal or not, and the fused q-RoPE (``rope=(cos, sin)``, each
+``(b, sq, d/2)``): the kernel rotates q in fp32 and scales it without
+rounding it to q's dtype, as the Pallas body does (the JAX XLA path
+rounds the rotated q; the port follows the kernel).  Not ported yet
+(ROADMAP.md queue B item 3): int8 pages with scales, the tree
+``ancestor`` mask.  No single PyTorch call computes attention over this
+paged layout, so the kernel has no library yardstick.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 from apex_tpu_torch.ops.common import (
     check, check_operands, count_launch, load, stream_of,
 )
+from apex_tpu_torch.ops.rope import apply_rope_tables
 
 __all__ = ["fmha_decode", "paged_attention_reference", "FMHA_DECODE_MAX_SQ"]
 
@@ -92,13 +96,29 @@ def _entry(symbol: str = KERNEL):
     """The loaded library and its C entry, typed once."""
     lib = load("attention_decode")
     fn = getattr(lib, symbol)
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
 
-def _decode_cuda(q, k_pages, v_pages, page_table, lengths, causal, scale):
+def _decode_plain(q, k_pages, v_pages, page_table, lengths, causal, scale,
+                  rope):
+    """The plain version: q rotated in fp32 (not rounded) when ``rope``
+    is given, then :func:`paged_attention_reference`."""
+    if rope is None:
+        return paged_attention_reference(q, k_pages, v_pages, page_table,
+                                         lengths, causal=causal,
+                                         sm_scale=scale)
+    cos, sin = (t.float()[:, None] for t in rope)
+    qr = apply_rope_tables(q.float(), cos, sin)
+    return paged_attention_reference(qr, k_pages, v_pages, page_table,
+                                     lengths, causal=causal,
+                                     sm_scale=scale).to(q.dtype)
+
+
+def _decode_cuda(q, k_pages, v_pages, page_table, lengths, causal, scale,
+                 rope):
     b, h, sq, d = q.shape
     if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
             or v_pages.dtype != q.dtype:
@@ -114,16 +134,19 @@ def _decode_cuda(q, k_pages, v_pages, page_table, lengths, causal, scale):
     q = q.contiguous()
     page_table = page_table.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
-    check_operands(KERNEL, q, k_pages, v_pages, page_table, lengths)
+    tables = [] if rope is None else [t.float().contiguous() for t in rope]
+    check_operands(KERNEL, q, k_pages, v_pages, page_table, lengths, *tables)
     for t in (q, k_pages, v_pages):
         if t.data_ptr() % 16:
             raise ValueError(f"{KERNEL}: operand not 16-byte aligned")
     lib, fn = _entry()
     out = torch.empty_like(q)
     count_launch(KERNEL)
+    cos, sin = (t.data_ptr() for t in tables) if tables else (None, None)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             b, h, sq, d, k_pages.shape[2], page_table.shape[1],
+             page_table.data_ptr(), lengths.data_ptr(), cos, sin,
+             out.data_ptr(), b, h, sq, d, k_pages.shape[2],
+             page_table.shape[1],
              _DTYPES[q.dtype], int(causal), float(scale), stream_of(q))
     check(lib, KERNEL, err)
     return out
@@ -146,14 +169,13 @@ def fmha_decode(
     ``k_pages``/``v_pages (num_pages, h, page_size, d)`` through
     ``page_table (b, pages_per_seq)`` (int32; unallocated entries hold
     the null page 0) with ``lengths (b,)`` valid tokens per sequence.
-    A CUDA tensor runs the kernel, a CPU tensor the plain version."""
+    ``rope=(cos, sin)``, each ``(b, sq, d/2)``, rotates q at its
+    positions in the kernel (K is rotated when it is written).  A CUDA
+    tensor runs the kernel, a CPU tensor the plain version."""
     if k_scales is not None or v_scales is not None \
             or k_pages.dtype == torch.int8:
         raise NotImplementedError(
             "int8 KV pages are not ported yet (ROADMAP.md queue B item 3)")
-    if rope is not None:
-        raise NotImplementedError(
-            "the fused q-RoPE is not ported yet (ROADMAP.md queue B item 3)")
     if ancestor is not None:
         raise NotImplementedError(
             "the tree ancestor mask is not ported yet "
@@ -171,13 +193,17 @@ def fmha_decode(
         raise ValueError(
             f"{KERNEL}: page_table {tuple(page_table.shape)} / lengths "
             f"{tuple(lengths.shape)} do not match batch {q.shape[0]}")
-    d = q.shape[3]
+    b, _, sq, d = q.shape
+    if rope is not None and (len(rope) != 2 or any(
+            tuple(t.shape) != (b, sq, d // 2) for t in rope)):
+        raise ValueError(
+            f"{KERNEL}: rope tables must be (b, sq, d/2) = ({b}, {sq}, "
+            f"{d // 2}), got {[tuple(t.shape) for t in rope]}")
     scale = (1.0 / d ** 0.5) if sm_scale is None else float(sm_scale)
     if q.is_cuda:
         return _decode_cuda(q, k_pages, v_pages, page_table, lengths,
-                            causal, scale)
+                            causal, scale, rope)
     if q.device.type == "cpu":
-        return paged_attention_reference(q, k_pages, v_pages, page_table,
-                                         lengths, causal=causal,
-                                         sm_scale=scale)
+        return _decode_plain(q, k_pages, v_pages, page_table, lengths,
+                             causal, scale, rope)
     raise ValueError(f"{KERNEL}: unsupported device {q.device}")

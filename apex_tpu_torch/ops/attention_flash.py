@@ -1,0 +1,236 @@
+"""Flash attention, the ladder's rung for long sequences: CUDA kernels for
+the forward, dK/dV and dQ, and their plain versions.
+
+Replaces ``apex_tpu/ops/attention.py::_fa_fwd_kernel``,
+``::_fa_bwd_dkv_kernel`` and ``::_fa_bwd_dq_kernel``, the kernels behind
+the JAX ``_flash`` custom_vjp, which ``flash_attention`` takes for
+``max(sq, sk) > mid_seq_threshold()``.  All three work on the flattened
+``(b*h, s, d)`` layout of that custom_vjp; ``ops/attention.py`` flattens
+and differentiates them.  The kernels (``csrc/attention_flash.cu``) note
+their design: the forward streams 64-key K/V tiles past 128-row query
+tiles (64 in fp32) with the next tile's copy in flight; the backward is
+the FA2 split, one dK/dV kernel per 64-key tile and one dQ kernel per
+64-row query tile, deterministic, no atomics, each with its next tile in
+flight.
+
+Function, as the TPU kernels compute it: the forward scales q before the
+product (rounded to bf16 as the operand for bf16 inputs, where the TPU's
+default precision rounds it), fills masked scores with -1e30, zeroes
+masked probabilities and clamps ``l`` at 1e-30; the backward replays
+``p = exp((q . k) * scale - lse)`` with the scale after the product,
+takes ``delta = rowsum(dout * out)`` from outside the kernels (JAX
+computes it in XLA) and has no lse cotangent.  Causal masking is top-left
+aligned, ``k <= q`` by index, and ``sq != sk`` is allowed.
+
+A CUDA tensor runs the kernel or raises; a CPU tensor runs the plain
+version.  Not ported yet (ROADMAP.md queue B item 2): bias, segment ids
+and dropout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from apex_tpu_torch.ops.attention_short import (
+    DTYPES,
+    FWD_ARGTYPES,
+    _NEG_INF,
+    causal_mask,
+    check_kernel_inputs,
+    softmax_scale,
+)
+from apex_tpu_torch.ops.common import (
+    check, check_operands, count_launch, load, stream_of,
+)
+
+__all__ = ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_delta"]
+
+KERNEL = "flash_fwd"
+KERNEL_DKV = "flash_bwd_dkv"
+KERNEL_DQ = "flash_bwd_dq"
+
+_ARGTYPES = {
+    KERNEL: FWD_ARGTYPES,
+    KERNEL_DKV: [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_void_p],
+    KERNEL_DQ: [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_void_p],
+}
+
+
+def _operand(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` (fp32) as a product operand of inputs of ``dtype``: rounded
+    to bf16 for bf16 inputs, as the tensor cores and the TPU's default
+    precision take it."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
+def _flash_fwd_plain(q, k, v, causal, scale):
+    """The plain forward over ``(bh, s, d)``, the kernel's arithmetic:
+    ``q * scale`` in fp32 before the product, fp32 scores, -1e30 fill,
+    masked probabilities zero, ``l`` (from the fp32 probabilities)
+    clamped at 1e-30, ``p`` rounded to bf16 for the bf16 ``p . v``."""
+    qs = _operand(q.float() * scale, q.dtype)
+    s = torch.matmul(qs, k.float().transpose(-1, -2))
+    mask = None
+    if causal:
+        mask = causal_mask(q.shape[-2], k.shape[-2], q.device)
+        s = s.masked_fill(~mask, _NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    if mask is not None:
+        p = p.masked_fill(~mask, 0.0)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    acc = torch.matmul(_operand(p, q.dtype), v.float())
+    return (acc / l).to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def flash_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(dout * out)`` in fp32, ``(bh, sq)``: plain
+    PyTorch on either device, as the JAX wrapper computes it in XLA
+    between its two backward kernels."""
+    return (dout.float() * out.float()).sum(-1)
+
+
+def _flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale):
+    """``(dq, dk, dv)`` with the kernels' arithmetic: ``s = (q . k) *
+    scale``, ``p = exp(s - lse)`` with masked entries zero, ``dz = p *
+    (dp - delta)``, and for bf16 inputs ``p`` and ``dz * scale`` rounded
+    to bf16 as the operands of their products."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        p = p.masked_fill(~causal_mask(q.shape[-2], k.shape[-2], q.device),
+                          0.0)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    dz = p * (dp - delta[..., None])
+    p_op, z_op = _operand(p, q.dtype), _operand(dz * scale, q.dtype)
+    dv = torch.matmul(p_op.transpose(-1, -2), dof)
+    dk = torch.matmul(z_op.transpose(-1, -2), qf)
+    dq = torch.matmul(z_op, kf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(symbol: str):
+    """The loaded library and one of its C entries, typed once."""
+    lib = load("attention_flash")
+    fn = getattr(lib, symbol)
+    fn.argtypes = _ARGTYPES[symbol]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _check_flat(kernel: str, q, k, v) -> None:
+    if q.ndim != 3 or k.shape != v.shape or k.ndim != 3 \
+            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+        raise ValueError(f"{kernel}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} are not (b*h, s, d) alike")
+
+
+def _check_cuda(kernel: str, q, k, v, *rest) -> None:
+    """Dtype, head dim, grid and alignment checks of a launch (the
+    16-byte copies need 16-byte aligned operands)."""
+    check_kernel_inputs(kernel, q, k, v)
+    for t in rest:
+        if t.dtype != q.dtype:
+            raise ValueError(f"{kernel}: operand {t.dtype} differs from q's "
+                             f"{q.dtype}")
+    check_operands(kernel, q, k, v, *rest)
+    for t in (q, k, v) + rest:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: operand not 16-byte aligned")
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = False, sm_scale: Optional[float] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)`` over ``q (bh, sq, d)``, ``k, v (bh, sk, d)``:
+    ``out`` in q's dtype, ``lse (bh, sq)`` fp32."""
+    _check_flat(KERNEL, q, k, v)
+    scale = softmax_scale(q, sm_scale)
+    if q.device.type == "cpu":
+        return _flash_fwd_plain(q, k, v, causal, scale)
+    if not q.is_cuda:
+        raise ValueError(f"{KERNEL}: unsupported device {q.device}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check_cuda(KERNEL, q, k, v)
+    bh, sq, d = q.shape
+    lib, fn = _entry(KERNEL)
+    out = torch.empty_like(q)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    count_launch(KERNEL)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), bh, sq, k.shape[1], d, DTYPES[q.dtype],
+             int(causal), float(scale), stream_of(q))
+    check(lib, KERNEL, err)
+    return out, lse
+
+
+def _bwd_operands(kernel, q, k, v, dout, lse, delta):
+    q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
+    lse, delta = lse.float().contiguous(), delta.float().contiguous()
+    if lse.shape != q.shape[:2] or delta.shape != q.shape[:2] \
+            or dout.shape != q.shape:
+        raise ValueError(f"{kernel}: dout {tuple(dout.shape)}, lse "
+                         f"{tuple(lse.shape)}, delta {tuple(delta.shape)} do "
+                         f"not match q {tuple(q.shape)}")
+    _check_cuda(kernel, q, k, v, dout)
+    check_operands(kernel, q, lse, delta)
+    return q, k, v, dout, lse, delta
+
+
+def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                  causal: bool = False, sm_scale: Optional[float] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dk, dv)`` of :func:`flash_fwd` from its ``lse``, the cotangent
+    ``dout`` and ``delta = flash_delta(out, dout)``."""
+    _check_flat(KERNEL_DKV, q, k, v)
+    scale = softmax_scale(q, sm_scale)
+    if q.device.type == "cpu":
+        return _flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale)[1:]
+    if not q.is_cuda:
+        raise ValueError(f"{KERNEL_DKV}: unsupported device {q.device}")
+    q, k, v, dout, lse, delta = _bwd_operands(KERNEL_DKV, q, k, v, dout,
+                                              lse, delta)
+    bh, sq, d = q.shape
+    lib, fn = _entry(KERNEL_DKV)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    count_launch(KERNEL_DKV)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             bh, sq, k.shape[1], d, DTYPES[q.dtype], int(causal),
+             float(scale), stream_of(q))
+    check(lib, KERNEL_DKV, err)
+    return dk, dv
+
+
+def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                 causal: bool = False, sm_scale: Optional[float] = None
+                 ) -> torch.Tensor:
+    """``dq`` of :func:`flash_fwd`, as :func:`flash_bwd_dkv` takes it."""
+    _check_flat(KERNEL_DQ, q, k, v)
+    scale = softmax_scale(q, sm_scale)
+    if q.device.type == "cpu":
+        return _flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale)[0]
+    if not q.is_cuda:
+        raise ValueError(f"{KERNEL_DQ}: unsupported device {q.device}")
+    q, k, v, dout, lse, delta = _bwd_operands(KERNEL_DQ, q, k, v, dout, lse,
+                                              delta)
+    bh, sq, d = q.shape
+    lib, fn = _entry(KERNEL_DQ)
+    dq = torch.empty_like(q)
+    count_launch(KERNEL_DQ)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, sq,
+             k.shape[1], d, DTYPES[q.dtype], int(causal), float(scale),
+             stream_of(q))
+    check(lib, KERNEL_DQ, err)
+    return dq

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -29,7 +31,8 @@ from apex_tpu_torch.ops.common import (
     check, check_operands, count_launch, load, stream_of,
 )
 
-__all__ = ["fmha_short", "short_fwd", "short_bwd", "FMHA_SHORT_MAX_SEQ"]
+__all__ = ["fmha_short", "short_fwd", "short_bwd", "FMHA_SHORT_MAX_SEQ",
+           "short_seq_threshold"]
 
 KERNEL = "short_fwd"
 KERNEL_BWD = "short_bwd"
@@ -38,6 +41,14 @@ KERNEL_BWD = "short_bwd"
 #: window; it is NOT a crossover measured on the H100 (PERF.md records a
 #: first short-vs-mid reading; the constant does not move on it yet).
 FMHA_SHORT_MAX_SEQ = 512
+
+
+def short_seq_threshold() -> int:
+    """The ladder's short-rung bound, overridable with
+    ``APEX_TPU_FMHA_SHORT_MAX_SEQ`` as in the JAX package (``0`` turns
+    the rung off)."""
+    v = os.environ.get("APEX_TPU_FMHA_SHORT_MAX_SEQ")
+    return int(v) if v else FMHA_SHORT_MAX_SEQ
 
 _NEG_INF = -1e30
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -123,15 +134,16 @@ def _entry(symbol: str):
 def check_kernel_inputs(kernel: str, q, k, v) -> None:
     """Reject what the attention kernels do not take: a dtype other than
     fp32/bf16 shared by q/k/v, a head dim other than 64/128, more than
-    65535 (batch*heads) rows of the grid."""
-    b, h, _, d = q.shape
+    65535 (batch*heads) rows of the grid.  ``q`` is ``(b, h, s, d)`` or
+    the flattened ``(b*h, s, d)``."""
+    bh, d = math.prod(q.shape[:-2]), q.shape[-1]
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{kernel}: q/k/v must share one dtype of "
                          f"{list(DTYPES)}, got {q.dtype}/{k.dtype}/{v.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"{kernel}: head_dim {d} not in {HEAD_DIMS}")
-    if b * h > 65535:
-        raise ValueError(f"{kernel}: batch*heads {b * h} > 65535")
+    if bh > 65535:
+        raise ValueError(f"{kernel}: batch*heads {bh} > 65535")
 
 
 def check_shapes(kernel: str, q, k, v) -> None:
@@ -183,14 +195,15 @@ def _short_bwd_cuda(q, k, v, out, dout, lse, dlse, causal, scale):
 
 
 def _check_window(kernel: str, q, k) -> None:
-    if max(q.shape[2], k.shape[2]) > FMHA_SHORT_MAX_SEQ:
+    window = max(FMHA_SHORT_MAX_SEQ, short_seq_threshold())
+    if max(q.shape[2], k.shape[2]) > window:
         raise ValueError(f"{kernel}: sequence {max(q.shape[2], k.shape[2])}"
-                         f" > FMHA_SHORT_MAX_SEQ={FMHA_SHORT_MAX_SEQ}")
+                         f" > the short window {window}")
 
 
 def softmax_scale(q, sm_scale) -> float:
     """``sm_scale``, or ``1/sqrt(head_dim)`` when it is None."""
-    return (1.0 / q.shape[3] ** 0.5) if sm_scale is None else float(sm_scale)
+    return (1.0 / q.shape[-1] ** 0.5) if sm_scale is None else float(sm_scale)
 
 
 def short_fwd(

@@ -27,7 +27,10 @@ PEAK_BF16_FLOPS = (
 def transformer_flops_per_token(n_params: int, num_layers: int,
                                 hidden_size: int, seq_len: int) -> int:
     """Model FLOPs per trained token: ``6·N`` (forward and backward
-    matmuls) plus ``12·L·h·s`` (attention scores and context)."""
+    matmuls) plus ``12·L·h·s`` (attention scores and context).  ``N`` is
+    the model's parameter count as it stands: a SwiGLU model's gate
+    (``fc_gate``, the third FFN matrix) is in it, and so is a learned
+    position table, which a rope model does not have."""
     return 6 * n_params + 12 * num_layers * hidden_size * seq_len
 
 

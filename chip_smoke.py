@@ -11,13 +11,18 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
              version on the card, at the serving and training paths'
              shapes, in bf16 and fp32; print each one's error, time,
              bound and the time of a PyTorch library call for the same
-             function, if any; and a first short-vs-mid reading at
-             s in {256, 384, 512}.
+             function, if any; a short-vs-mid reading at s in {256, 384,
+             512}, the flash kernels at b=2 h=8 s=4096 (and a reading at
+             s=8192), the decode kernel's fused q-RoPE, and a mid-vs-flash
+             reading at s in {1024, 2048, 4096}.
 3. parity  — the flagship GPT's width at 2 layers, fp32 compute: the
              paged greedy tokens of ``ContinuousBatcher`` (6 ragged
              requests, 2 slots, 16 new tokens) must equal the port's
              full-recompute ``generate_reference`` token for token, and
-             so must a 600-token prompt's (prefill on the mid rung).
+             so must a 600-token prompt's (prefill on the mid rung); then
+             the same for the Llama-mode GPT (rope, RMSNorm, SwiGLU) with
+             prompts up to 2500 tokens (prefill on the flash rung, decode
+             through the fused q-RoPE).
 4. serve   — the full flagship GPT (12 layers, bf16): 8 requests with
              prompts of 32..512 tokens, 32 greedy tokens each, through
              ``decode_fns`` + ``ContinuousBatcher``, then one 900-token
@@ -27,17 +32,27 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
 5. profile — the same model under ``torch.profiler``: four prefills,
              then one harvest window of decode steps; the device's busy
              share and the kernels that took its time.
-6. train-parity — the flagship's width at 2 layers, fp32: one step of
-             loss, backward and FusedAdam on the GPU (kernels) against a
-             CPU copy of the same model and state (plain versions), at
-             s=384 (short rung) and s=640 (mid rung): loss, every grad and
-             the updated parameters must agree.
+   serve-long — the 12-layer Llama-mode GPT in bf16: four requests of
+             64..2300 prompt tokens (prefill padded to 2304, the flash
+             rung), 32 greedy tokens each, decode with the fused q-RoPE;
+             then phase 5's profile of it (prompts of 2300 tokens).
+6. train-parity — one step of loss, backward and FusedAdam on the GPU
+             (kernels) against a CPU copy of the same model and state
+             (plain versions), fp32, 2 layers at the flagship's width:
+             the flagship at s=384 (short rung) and s=640 (mid rung), the
+             Llama mode at s=2560 (flash rung): loss, every grad and the
+             updated parameters must agree.
 7. train   — the full flagship at O5, 8 x 1024 tokens, remat on, through
              the port trainer's step: 2 warm-up and 10 timed steps; the
              loss must be finite and fall, and the mid kernels must have
              launched.  Prints ms/step, tokens/s, MFU, peak memory, the
              launches and the step-1 loss at O5 against fp32.
 8. profile — one training step under ``torch.profiler``.
+9. train-long — the 12-layer Llama-mode GPT at O5, 2 x 4096 tokens, as
+             ``gpt_pretrain --position-embedding rope --activation swiglu
+             --normalization rmsnorm --seq 4096 --micro-batch 2
+             --num-micro 1`` trains it, the same measurements as phase 7,
+             the flash kernels required; then one step profiled.
 
 The last two lines are a JSON object with one record per kernel, and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -48,6 +63,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -65,6 +81,14 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 FLAGSHIP = dict(vocab_size=32768, num_layers=12, hidden_size=1024,
                 num_attention_heads=8, ffn_hidden_size=4096,
                 max_position_embeddings=1024)
+# the Llama-mode GPT at the same widths (the JAX trainer's defaults with
+# --position-embedding rope --activation swiglu --normalization rmsnorm):
+# no position table, three SwiGLU matrices of 4096
+LLAMA = dict(vocab_size=32768, num_layers=12, hidden_size=1024,
+             num_attention_heads=8, ffn_hidden_size=4096,
+             position_embedding="rope", activation="swiglu",
+             normalization="rmsnorm")
+LONG_SEQ = 4096         # its training length, past the mid rung's 2048
 
 
 def log(*args) -> None:
@@ -148,13 +172,13 @@ def check(name: str, got, want, what: str) -> float:
 
 
 def measure(name, shape, err, kernel, plain, library, *, nbytes, ops,
-            dtype) -> dict:
-    """Time a kernel, its plain version and (``(label, fn)`` or None) the
-    PyTorch call that computes the same function; the bound is the
-    larger of ``nbytes`` over the memory rate and ``ops`` over the peak
-    rate of ``dtype``."""
+            dtype, plain_iters: int = 50) -> dict:
+    """Time a kernel, its plain version (over ``plain_iters`` calls) and
+    (``(label, fn)`` or None) the PyTorch call that computes the same
+    function; the bound is the larger of ``nbytes`` over the memory rate
+    and ``ops`` over the peak rate of ``dtype``."""
     ms, eager = time_ms(kernel)
-    plain_ms, _ = time_ms(plain)
+    plain_ms, _ = time_ms(plain, plain_iters)
     lib_ms = time_ms(library[1])[0] if library else None
     bnd, by = bound_ms(nbytes, ops, dtype)
     lib_txt = f"{library[0]} {lib_ms:.4f} ms" if library else "no library call"
@@ -174,10 +198,15 @@ def phase_build() -> str:
     logs = common.build()
     log(f"[build] {len(logs)} CUDA sources compiled in "
         f"{time.perf_counter() - t0:.1f} s: {sorted(logs)}")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    # the -Xptxas -v report, summed per source: a kernel that spills or
+    # needs more registers than its launch bounds allow shows here
+    for name, text in sorted(logs.items()):
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
+        spills = sum(int(m) for m in
+                     re.findall(r"(\d+) bytes spill stores", text))
+        log(f"  {name}: {len(regs)} kernels, {min(regs, default=0)}-"
+            f"{max(regs, default=0)} registers a thread, {spills} bytes "
+            "of spill stores")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -300,7 +329,185 @@ def phase_kernels(dev) -> dict:
                 + 2 * toks * heads * d * kp.element_size()
                 + table.numel() * 4 + lengths.numel() * 4,
                 ops=4.0 * d * heads * toks, dtype=dtype)]
+
+    # -- the fused q-RoPE: the rope table's rows at each query position,
+    #    as the Llama-mode decode step hands them to the kernel
+    log("[kernels] paged_decode with the fused q-RoPE, same layout")
+    from apex_tpu_torch.ops.rope import rope_table
+
+    cos_t, sin_t = rope_table(pps * page, d, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        kp = randn(num_pages, heads, page, d, dtype=dtype)
+        vp = randn(num_pages, heads, page, d, dtype=dtype)
+        for sq in (1, 4):
+            q = randn(4, heads, sq, d, dtype=dtype)
+            pos = (lengths[:, None].long() - sq
+                   + torch.arange(sq, device=dev)).clamp_min(0)
+            rope = (cos_t[pos], sin_t[pos])
+            got = dec.fmha_decode(q, kp, vp, table, lengths, rope=rope)
+            want = dec._decode_plain(q, kp, vp, table, lengths, True,
+                                     d ** -0.5, rope)
+            check("paged_decode", got, want,
+                  f"{str(dtype)[6:]} sq={sq} with rope out")
+            if dtype == torch.bfloat16 and sq == 1:
+                with_rope, _ = time_ms(lambda: dec.fmha_decode(
+                    q, kp, vp, table, lengths, rope=rope))
+                without, _ = time_ms(lambda: dec.fmha_decode(
+                    q, kp, vp, table, lengths))
+                log(f"  paged_decode bf16 sq=1: {with_rope:.4f} ms with the "
+                    f"fused q-RoPE, {without:.4f} ms without")
+    records.update(flash_kernels(randn))
+    crossover_long(randn)
     return records
+
+
+def flash_kernels(randn) -> dict:
+    """The flash rung's kernels against their plain versions on the
+    flattened ``(b*h, s, d)`` layout: at the long-context training shape
+    (b=2 h=8 s=4096 d=128 causal) and on ragged lengths (2500 causal, 700
+    queries x 900 keys full), fp32 and bf16.  The backward kernels get
+    the plain forward's ``lse`` and ``delta``, so each is held alone.
+    Times at bf16 and s=4096; library calls SDPA forward, and SDPA
+    forward+backward through autograd for both backward kernels.  Then a
+    reading at the JAX bench's probe shape, b=2 h=8 s=8192."""
+    from apex_tpu_torch.ops import attention_flash as fl
+    import torch.nn.functional as F
+
+    b, heads, d = 2, LLAMA["num_attention_heads"], 128
+    scale = d ** -0.5
+    records = {}
+    log("[kernels] flash_fwd, flash_bwd_dkv, flash_bwd_dq (CUDA), d=128")
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        for bh, sq, sk, causal in ((b * heads, LONG_SEQ, LONG_SEQ, True),
+                                   (4, 2500, 2500, True),
+                                   (4, 700, 900, False)):
+            q, dout = (randn(bh, sq, d, dtype=dtype) for _ in range(2))
+            k, v = (randn(bh, sk, d, dtype=dtype) for _ in range(2))
+            what = f"{dt} bh={bh} sq={sq} sk={sk} causal={causal}"
+            got = fl.flash_fwd(q, k, v, causal=causal)
+            out, lse = fl._flash_fwd_plain(q, k, v, causal, scale)
+            fwd_err = check("flash_fwd", got[0], out, f"{what} out")
+            lse_err = max_err(got[1], lse)
+            if not lse_err <= 1e-3:
+                fail(f"flash_fwd {what} lse: error {lse_err:.3g} > 1e-3")
+            delta = fl.flash_delta(out, dout)
+            want = fl._flash_bwd_plain(q, k, v, dout, lse, delta, causal,
+                                       scale)
+            dk, dv = fl.flash_bwd_dkv(q, k, v, dout, lse, delta,
+                                      causal=causal)
+            dq = fl.flash_bwd_dq(q, k, v, dout, lse, delta, causal=causal)
+            dq_err = check("flash_bwd_dq", dq, want[0], f"{what} dq")
+            dkv_err = max(check("flash_bwd_dkv", dk, want[1], f"{what} dk"),
+                          check("flash_bwd_dkv", dv, want[2], f"{what} dv"))
+            if dtype != torch.bfloat16 or sq != LONG_SEQ:
+                continue
+            s = LONG_SEQ
+            shape = f"b={b} h={heads} s={s} d={d} causal bf16"
+            numel = q.numel() * q.element_size()
+            rows = b * heads * s * 4                  # an fp32 (b*h, s) row
+            pairs = b * heads * s * (s + 1) / 2       # causal (q, k) pairs
+            q4, k4, v4, do4 = (t.view(b, heads, s, d)
+                               for t in (q, k, v, dout))
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
+
+            def sdpa_fwd_bwd():
+                o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+                torch.autograd.grad(o, (qg, kg, vg), do4)
+
+            fb_ms = profiled_ms(sdpa_fwd_bwd)
+            log(f"  SDPA forward+backward through autograd {shape}: "
+                f"{fb_ms:.4f} ms of device time (profiler)")
+            records["flash_fwd"] = [measure(
+                "flash_fwd", shape, fwd_err,
+                lambda: fl.flash_fwd(q, k, v, causal=True),
+                lambda: fl._flash_fwd_plain(q, k, v, True, scale),
+                ("SDPA", lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True)),
+                nbytes=4 * numel + rows, ops=4.0 * d * pairs, dtype=dtype,
+                plain_iters=10)]
+            plain_bwd = lambda: fl._flash_bwd_plain(q, k, v, dout, lse, delta,
+                                                    True, scale)
+            # dK/dV: four products per (q, k) pair (s, dp, dv, dk); dQ:
+            # three (s, dp, dq); each reads q, k, v, dout, lse and delta
+            for name, fn, n_out, n_prod, err in (
+                    ("flash_bwd_dkv", lambda: fl.flash_bwd_dkv(
+                        q, k, v, dout, lse, delta, causal=True), 2, 4,
+                     dkv_err),
+                    ("flash_bwd_dq", lambda: fl.flash_bwd_dq(
+                        q, k, v, dout, lse, delta, causal=True), 1, 3,
+                     dq_err)):
+                rec = measure(name, shape, err, fn, plain_bwd, None,
+                              nbytes=(4 + n_out) * numel + 2 * rows,
+                              ops=2.0 * n_prod * d * pairs, dtype=dtype,
+                              plain_iters=10)
+                rec["library_ms"] = fb_ms
+                log(f"  {name}: library call is SDPA forward+backward "
+                    f"({fb_ms:.4f} ms), which includes a forward and the "
+                    "other backward kernel's work")
+                records[name] = [rec]
+
+    # one reading at the JAX bench's probe shape
+    s = 2 * LONG_SEQ
+    q, k, v, dout = (randn(b * heads, s, d, dtype=torch.bfloat16)
+                     for _ in range(4))
+    out, lse = fl.flash_fwd(q, k, v, causal=True)
+    delta = fl.flash_delta(out, dout)
+    if not torch.isfinite(out).all():
+        fail(f"flash_fwd s={s}: non-finite output")
+    pairs = b * heads * s * (s + 1) / 2
+    reading = []
+    for name, fn, ops in (
+            ("flash_fwd", lambda: fl.flash_fwd(q, k, v, causal=True), 4),
+            ("flash_bwd_dkv", lambda: fl.flash_bwd_dkv(
+                q, k, v, dout, lse, delta, causal=True), 8),
+            ("flash_bwd_dq", lambda: fl.flash_bwd_dq(
+                q, k, v, dout, lse, delta, causal=True), 6),
+            ("SDPA forward", lambda: F.scaled_dot_product_attention(
+                q.view(b, heads, s, d), k.view(b, heads, s, d),
+                v.view(b, heads, s, d), is_causal=True), 4)):
+        ms, _ = time_ms(fn, 10)
+        bnd, _ = bound_ms(0, ops * d * pairs, torch.bfloat16)
+        reading.append(f"{name} {ms:.4f} ms (bound {bnd:.4f})")
+    log(f"  b={b} h={heads} s={s} d={d} causal bf16: " + ", ".join(reading))
+    return records
+
+
+def crossover_long(randn) -> None:
+    """A mid-vs-flash reading at s in {1024, 2048, 4096} with 8192 tokens
+    (b = 8192 / s, h=8, d=128, causal, bf16): device ms of each rung's
+    forward and backward (the flash backward is delta, dK/dV and dQ, as
+    its autograd function runs them).  Recorded only; the ladder keeps
+    the JAX package's 2048."""
+    from apex_tpu_torch.ops import attention_flash as fl
+    from apex_tpu_torch.ops import attention_mid as mid
+
+    heads, d = 8, 128
+    log("[kernels] mid vs flash crossover, 8192 tokens, h=8 d=128 causal "
+        "bf16")
+    for s in (1024, 2048, LONG_SEQ):
+        b = 8192 // s
+        q, k, v, dout = (randn(b, heads, s, d, dtype=torch.bfloat16)
+                         for _ in range(4))
+        flat = [t.view(b * heads, s, d) for t in (q, k, v, dout)]
+        out, lse = mid.mid_fwd(q, k, v, causal=True)
+        fout, flse = fl.flash_fwd(*flat[:3], causal=True)
+
+        def flash_bwd():
+            delta = fl.flash_delta(fout, flat[3])
+            fl.flash_bwd_dkv(*flat, flse, delta, causal=True)
+            fl.flash_bwd_dq(*flat, flse, delta, causal=True)
+
+        row = []
+        for name, fwd, bwd in (
+                ("mid", lambda: mid.mid_fwd(q, k, v, causal=True),
+                 lambda: mid.mid_bwd(q, k, v, out, dout, lse, causal=True)),
+                ("flash", lambda: fl.flash_fwd(*flat[:3], causal=True),
+                 flash_bwd)):
+            f_ms, _ = time_ms(fwd, 20)
+            b_ms, _ = time_ms(bwd, 20)
+            row.append(f"{name} fwd {f_ms:.4f} ms bwd {b_ms:.4f} ms")
+        log(f"  s={s} b={b}: " + "; ".join(row))
 
 
 def profiled_ms(fn, iters: int = 10) -> float:
@@ -505,6 +712,49 @@ def phase_parity(dev) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_rope_parity(dev) -> dict:
+    """The Llama-mode GPT at the flagship's width, 2 layers, fp32: four
+    requests of 2500, 300, 1200 and 50 tokens through 2 slots (prefill
+    padded to 2560, the flash rung; decode through the fused q-RoPE) must
+    give ``generate_reference``'s tokens.  Returns the launches."""
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.serving import Request
+
+    log("[rope-parity] Llama-mode width, 2 layers, fp32: paged greedy vs "
+        "full recompute, prompts up to 2500 tokens")
+    cfg = GPTConfig(**dict(LLAMA, num_layers=2), compute_dtype=torch.float32)
+    model = GPTModel(cfg, device=dev, seed=4)
+    rng = np.random.RandomState(5)
+    plens = np.array([2500, 300, 1200, 50])
+    prompts = rng.randint(1, cfg.vocab_size, (4, 2500)).astype(np.int32)
+    for i, n in enumerate(plens):
+        prompts[i, n:] = 0
+    new = 16
+    ref = model.generate_reference(prompts, plens, new)
+    reqs = [Request(uid=i, prompt=prompts[i, :n].tolist(),
+                    max_new_tokens=new) for i, n in enumerate(plens)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    comps, _, _, _ = serve(model, reqs, max_prompt_len=2560, page_size=64,
+                           max_seqs=2, pages_per_seq=41, harvest_every=4)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for i in range(4):
+        if comps[i].tokens != ref[i].tolist():
+            fail(f"rope-parity: request {i} ({plens[i]} tokens) paged "
+                 f"{comps[i].tokens} != reference {ref[i].tolist()}")
+    distinct = len({t for r in ref.tolist() for t in r})
+    log(f"  4 requests x {new} tokens identical ({distinct} distinct ids); "
+        f"launches {counts}")
+    for name in ("flash_fwd", "paged_decode"):
+        if counts.get(name, 0) <= 0:
+            fail(f"rope-parity: kernel {name} never launched")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
 # ---------------------------------------------------------------- phase 4
 def phase_serve(dev) -> dict:
     from apex_tpu_torch.models import GPTConfig, GPTModel
@@ -583,6 +833,52 @@ def phase_serve(dev) -> dict:
     return counts, model
 
 
+def phase_serve_long(dev) -> dict:
+    """The 12-layer Llama-mode GPT in bf16 serves four requests of 2300,
+    1500, 700 and 64 prompt tokens, 32 greedy tokens each, 4 slots, pages
+    of 64: every prefill is padded to 2304 tokens (the flash rung) and
+    every decode step rotates q in the paged kernel."""
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.serving import Request
+
+    log("[serve-long] Llama-mode GPT, 12 layers, bf16: 4 requests of "
+        "64..2300 prompt tokens x 32 tokens, 4 slots, pages 64 x 37")
+    cfg = GPTConfig(**LLAMA, compute_dtype=torch.bfloat16)
+    model = GPTModel(cfg, device=dev, seed=0)
+    rng = np.random.RandomState(6)
+    plens, new, width, pps = [2300, 1500, 700, 64], 32, 2304, 37
+    reqs = [Request(uid=i, prompt=rng.randint(1, cfg.vocab_size, n).tolist(),
+                    max_new_tokens=new) for i, n in enumerate(plens)]
+    serve(model, [Request(uid="warm", prompt=[1, 2, 3], max_new_tokens=2)],
+          width, 64, 4, pps)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    comps, wall, prefill_s, batcher = serve(model, reqs, width, 64, 4, pps)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for i in range(len(reqs)):
+        toks = comps[i].tokens
+        if len(toks) != new or not all(0 <= t < cfg.vocab_size
+                                       for t in toks):
+            fail(f"serve-long: request {i} returned {toks}")
+    decode_s = wall - sum(prefill_s)
+    log(f"  {len(reqs)} requests complete, {batcher.steps} decode steps, "
+        f"wall {wall:.3f} s; prefill of {width} tokens "
+        f"{1e3 * np.mean(prefill_s):.2f} ms each; decode "
+        f"{1e3 * decode_s / batcher.steps:.2f} ms per step (4 slots)")
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB; launches in this phase: {counts}")
+    for name in ("ln_fwd", "flash_fwd", "paged_decode"):
+        if counts.get(name, 0) <= 0:
+            fail(f"serve-long: kernel {name} never launched on the main path")
+    phase_profile(model, prompt=2300, width=width, pps=pps,
+                  what="Llama-mode GPT")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
 def device_rows(prof) -> list:
     """``(device us, calls, name)`` of each kernel and device copy in a
     ``torch.profiler`` run: an aten op's own entry repeats the device
@@ -624,10 +920,11 @@ def device_breakdown(prof, wall_s: float, label: str) -> None:
 
 
 # ---------------------------------------------------------------- phase 5
-def phase_profile(model) -> None:
-    """Where the serving time goes: 4 prefills of 256-token prompts, then
-    one harvest window of 8 decode steps over 4 slots, each under
-    ``torch.profiler``."""
+def phase_profile(model, prompt=256, width=512, pps=9,
+                  what="flagship GPT") -> None:
+    """Where the serving time goes: 4 prefills of ``prompt``-token
+    prompts (padded to ``width``), then one harvest window of 8 decode
+    steps over 4 slots, each under ``torch.profiler``."""
     import collections
 
     from torch.profiler import ProfilerActivity, profile
@@ -636,20 +933,21 @@ def phase_profile(model) -> None:
         ContinuousBatcher, KVCacheConfig, PagedKVCache, Request,
         init_pools)
 
-    log("[profile] flagship GPT, bf16: 4 prefills (256 tokens), then 8 "
-        "decode steps x 4 slots")
+    log(f"[profile] {what}, bf16: 4 prefills ({prompt} tokens, padded to "
+        f"{width}), then 8 decode steps x 4 slots")
     c = model.config
     ccfg = KVCacheConfig(
         num_layers=c.num_layers, num_heads=c.num_attention_heads,
-        head_dim=c.head_dim, num_pages=37, page_size=64, max_seqs=4,
-        pages_per_seq=9, dtype=c.compute_dtype)
-    fns = model.decode_fns(ccfg, max_prompt_len=512)
+        head_dim=c.head_dim, num_pages=1 + 4 * pps, page_size=64, max_seqs=4,
+        pages_per_seq=pps, dtype=c.compute_dtype)
+    fns = model.decode_fns(ccfg, max_prompt_len=width)
     batcher = ContinuousBatcher(
         fns.prefill, fns.decode, PagedKVCache(ccfg),
-        init_pools(ccfg, model.device), max_prompt_len=512, harvest_every=8)
+        init_pools(ccfg, model.device), max_prompt_len=width,
+        harvest_every=8)
     rng = np.random.RandomState(1)
     queue = collections.deque(
-        Request(uid=i, prompt=rng.randint(1, c.vocab_size, 256).tolist(),
+        Request(uid=i, prompt=rng.randint(1, c.vocab_size, prompt).tolist(),
                 max_new_tokens=17) for i in range(4))
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     for label, step in (("prefill x4", lambda: batcher._admit(queue)),
@@ -665,11 +963,12 @@ def phase_profile(model) -> None:
 
 # ---------------------------------------------------------------- phase 6
 def phase_train_parity(dev) -> dict:
-    """One training step (loss, backward, FusedAdam) of the flagship's
-    width at 2 layers and fp32, on the GPU through the kernels and on a
+    """One training step (loss, backward, FusedAdam) at the flagship's
+    width, 2 layers and fp32, on the GPU through the kernels and on a
     CPU copy of the same model and state through the plain versions
-    (``device="cpu"``, chosen explicitly), at s=384 (short rung) and s=640
-    (mid rung), batch 1.  Returns each length's launch counts."""
+    (``device="cpu"``, chosen explicitly), batch 1: the flagship at s=384
+    (short rung) and s=640 (mid rung), the Llama mode at s=2560 (flash
+    rung).  Returns each case's launch counts."""
     from apex_tpu_torch.amp import get_policy
     from apex_tpu_torch.models import GPTConfig, GPTModel
     from apex_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -678,9 +977,14 @@ def phase_train_parity(dev) -> dict:
     lr = 1e-3
     log("[train-parity] flagship width, 2 layers, fp32 (O0): one step on "
         f"the GPU vs the CPU, FusedAdam lr={lr}")
-    cfg = GPTConfig(**dict(FLAGSHIP, num_layers=2), policy=get_policy("O0"))
+    flagship = GPTConfig(**dict(FLAGSHIP, num_layers=2),
+                         policy=get_policy("O0"))
+    llama = GPTConfig(**dict(LLAMA, num_layers=2), policy=get_policy("O0"))
     counts = {}
-    for s in (384, 640):
+    for s, cfg, need in ((384, flagship, ("short_fwd", "short_bwd")),
+                         (640, flagship, ("mid_fwd", "mid_bwd")),
+                         (2560, llama, ("flash_fwd", "flash_bwd_dkv",
+                                        "flash_bwd_dq"))):
         gpu = GPTModel(cfg, device=dev, seed=3)
         cpu = GPTModel(cfg, device="cpu", seed=3)
         cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
@@ -733,13 +1037,12 @@ def phase_train_parity(dev) -> dict:
                 fail(f"train-parity s={s}: updated {n} differs by "
                      f"{dp.max().item():.3g}")
         c = counts[s]
-        log(f"  s={s}: loss {lg:.6f} (GPU) vs {lc:.6f} (CPU); every grad "
+        log(f"  s={s} ({cfg.position_embedding}, {cfg.activation}): loss "
+            f"{lg:.6f} (GPU) vs {lc:.6f} (CPU); every grad "
             f"within 1e-4 of its scale (worst {worst_g:.3f} of the "
             f"tolerance); updated params within 1% of a step at "
             f"{steps_checked} sure-sign elements (worst {worst_p:.3f} of "
             f"it); launches {c}")
-        need = ("short_fwd", "short_bwd") if s <= 512 else ("mid_fwd",
-                                                            "mid_bwd")
         for name in need + ("ln_fwd",):
             if c.get(name, 0) <= 0:
                 fail(f"train-parity s={s}: kernel {name} never launched")
@@ -749,25 +1052,31 @@ def phase_train_parity(dev) -> dict:
 
 
 # ---------------------------------------------------------------- phase 7
-def phase_train(dev):
-    """The full flagship at O5 (bf16 params and compute, fp32 norms and
-    masters), batch 8 x 1024 tokens, remat on, through the port trainer's
-    step: 2 warm-up steps, then 10 timed steps on a repeated batch."""
+#: the trainer flags of the two training cells (the JAX trainer's defaults
+#: are vocab 32768, 12 layers, hidden 1024, 8 heads)
+TRAIN_FLAGSHIP = ["--seq", "1024", "--micro-batch", "8", "--num-micro", "1"]
+TRAIN_LONG = ["--position-embedding", "rope", "--activation", "swiglu",
+              "--normalization", "rmsnorm", "--seq", str(LONG_SEQ),
+              "--micro-batch", "2", "--num-micro", "1"]
+
+
+def phase_train(dev, flags=TRAIN_FLAGSHIP, label="train",
+                need=("ln_fwd", "mid_fwd", "mid_bwd")):
+    """A 12-layer GPT at O5 (bf16 params and compute, fp32 norms and
+    masters), remat on, through the port trainer's step as ``gpt_pretrain
+    <flags>`` builds it (the flagship, 8 x 1024 tokens, by default): 2
+    warm-up steps, then 10 timed steps on a repeated batch; the kernels
+    in ``need`` must have launched."""
     from apex_tpu_torch.amp import get_policy
     from apex_tpu_torch.examples import gpt_pretrain
     from apex_tpu_torch.models import GPTModel
     from apex_tpu_torch.ops import launch_counts, reset_launch_counts
     from apex_tpu_torch.telemetry import mfu
 
-    args = gpt_pretrain.parse_args([
-        "--vocab", str(FLAGSHIP["vocab_size"]),
-        "--layers", str(FLAGSHIP["num_layers"]),
-        "--hidden", str(FLAGSHIP["hidden_size"]),
-        "--heads", str(FLAGSHIP["num_attention_heads"]),
-        "--seq", "1024", "--micro-batch", "8", "--num-micro", "1",
+    args = gpt_pretrain.parse_args(flags + [
         "--opt-level", "O5", "--lr", "3e-4", "--device", str(dev)])
-    log("[train] flagship GPT, 12 layers, O5, batch 8 x 1024, remat on: "
-        "2 warm-up + 10 timed steps of the port trainer on one batch")
+    log(f"[{label}] gpt_pretrain {' '.join(flags)}: 12 layers, O5, remat "
+        "on, 2 warm-up + 10 timed steps of the port trainer on one batch")
     tr = gpt_pretrain.Trainer(args)
     batch = tr.to_device(*gpt_pretrain.batches(
         np.random.default_rng(0), 1, tr.global_batch, args.seq,
@@ -793,7 +1102,7 @@ def phase_train(dev):
     losses = [float(x) for x in torch.stack(warm + losses).cpu()]
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[2] < losses[0]:
-        fail(f"train: losses {losses} are not finite and falling")
+        fail(f"{label}: losses {losses} are not finite and falling")
     ms = 1e3 * wall / 10
     tps = tr.tokens_per_step / (ms / 1e3)
     util = mfu(tps, tr.flops_per_token, PEAK_OPS_PER_S[torch.bfloat16])
@@ -801,25 +1110,26 @@ def phase_train(dev):
         f"from the same weights (|diff| {abs(losses[0] - loss_fp32):.5f})")
     log(f"  losses: {' '.join(f'{x:.4f}' for x in losses)}")
     log(f"  {ms:.2f} ms/step, {tps:,.0f} tokens/s, MFU {util:.4f} against "
-        f"the 989 TFLOP/s bf16 dense peak ({tr.n_params:,} params, "
-        f"{tr.flops_per_token:,} model FLOPs per token)")
+        f"the 989 TFLOP/s bf16 dense peak ({tr.n_params:,} params, the "
+        f"SwiGLU gate included where there is one; {tr.flops_per_token:,} "
+        f"model FLOPs per token, 6·N + 12·L·h·s at s={args.seq})")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         " GiB")
     log(f"  launches in the 10 timed steps: {counts} (per step: "
         + ", ".join(f"{k} {v / 10:g}" for k, v in sorted(counts.items()))
         + ")")
-    for name in ("ln_fwd", "mid_fwd", "mid_bwd"):
+    for name in need:
         if counts.get(name, 0) <= 0:
-            fail(f"train: kernel {name} never launched on the main path")
+            fail(f"{label}: kernel {name} never launched on the main path")
     return counts, tr, batch
 
 
-def phase_profile_train(tr, batch) -> None:
+def phase_profile_train(tr, batch, what="flagship (O5, 8 x 1024)") -> None:
     """Where a training step's time goes: one step under
     ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
-    log("[profile] one flagship training step (O5, 8 x 1024)")
+    log(f"[profile] one training step, {what}")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -849,7 +1159,23 @@ SOURCES = {
                 "apex_tpu/ops/attention_mid.py:213"),
     "mid_bwd": ("cuda", "apex_tpu_torch/csrc/attention_mid.cu",
                 "apex_tpu/ops/attention_mid.py:308"),
+    "flash_fwd": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
+                  "apex_tpu/ops/attention.py:213"),
+    "flash_bwd_dkv": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
+                      "apex_tpu/ops/attention.py:429"),
+    "flash_bwd_dq": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
+                     "apex_tpu/ops/attention.py:534"),
 }
+
+FLASH = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+
+
+def timed(label, fn, *args):
+    """Run one phase and log its wall time (the script has 1200 s)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"({label}: {time.perf_counter() - t0:.1f} s)")
+    return out
 
 
 def main() -> None:
@@ -860,24 +1186,36 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
-    card = phase_build()
-    records = phase_kernels(dev)
-    phase_parity(dev)
-    serve_counts, model = phase_serve(dev)
-    phase_profile(model)
+    card = timed("build", phase_build)
+    records = timed("kernels", phase_kernels, dev)
+    timed("parity", phase_parity, dev)
+    timed("rope-parity", phase_rope_parity, dev)
+    serve_counts, model = timed("serve", phase_serve, dev)
+    timed("profile", phase_profile, model)
     del model
     torch.cuda.empty_cache()
-    parity_counts = phase_train_parity(dev)
-    train_counts, tr, batch = phase_train(dev)
-    phase_profile_train(tr, batch)
+    timed("serve-long", phase_serve_long, dev)
+    parity_counts = timed("train-parity", phase_train_parity, dev)
+    train_counts, tr, batch = timed("train", phase_train, dev)
+    timed("profile", phase_profile_train, tr, batch)
+    del tr, batch
+    torch.cuda.empty_cache()
+    long_counts, tr, batch = timed(
+        "train-long", phase_train, dev, TRAIN_LONG, "train-long",
+        ("ln_fwd",) + FLASH)
+    timed("profile", phase_profile_train, tr, batch,
+          f"Llama mode (O5, 2 x {LONG_SEQ})")
     # one record per kernel at its main path's shape; launches from the
     # path that carries it: the serving kernels from phase 4, short_bwd
     # from the s=384 training step of phase 6, the mid kernels from the
-    # flagship training of phase 7
+    # flagship training of phase 7, the flash kernels from the
+    # long-context training of phase 9
     main_counts = dict(serve_counts)
     main_counts["short_bwd"] = parity_counts[384].get("short_bwd", 0)
     for name in ("mid_fwd", "mid_bwd"):
         main_counts[name] = train_counts.get(name, 0)
+    for name in FLASH:
+        main_counts[name] = long_counts.get(name, 0)
     kernels = [dict(name=name, route=route, source=source,
                     replaces=replaces, launches=main_counts.get(name, 0),
                     **records[name][0])

@@ -80,9 +80,49 @@ def test_unported_options_raise():
     q, k, v, table, lengths = _layout(1, seed=4)
     args = [torch.from_numpy(a) for a in (q, k, v, table, lengths)]
     with pytest.raises(NotImplementedError, match="queue B"):
-        port_decode.fmha_decode(*args, rope=(None, None))
-    with pytest.raises(NotImplementedError, match="queue B"):
         port_decode.fmha_decode(*args, ancestor=((True,),))
     with pytest.raises(NotImplementedError, match="queue B"):
         port_decode.fmha_decode(*args[:1], args[1].to(torch.int8),
                                 args[2].to(torch.int8), *args[3:])
+
+
+@pytest.mark.parametrize("sq", [1, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_q_rope_matches_pallas(sq, dtype):
+    """``rope=(cos, sin)``, each ``(b, sq, d/2)``: q rotated in fp32 at
+    its positions and not rounded to q's dtype, as the Pallas body does
+    (fp32 pages: 1e-5; bf16 pages: the same unrounded rotation on both
+    sides, so the outputs differ by their final rounding, one bf16 ulp
+    at the output's magnitude)."""
+    q, k, v, table, lengths = _layout(sq, seed=20 + sq)
+    pos = lengths[:, None] - sq + np.arange(sq)[None]
+    ang = np.clip(pos, 0, None)[..., None] * (
+        10000.0 ** (-np.arange(D // 2) / (D // 2)))[None, None]
+    cos, sin = (f(ang).astype(np.float32) for f in (np.cos, np.sin))
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    want = jax_fmha_decode(
+        *(jnp.asarray(a, jdt) for a in (q, k, v)), jnp.asarray(table),
+        jnp.asarray(lengths), rope=(jnp.asarray(cos), jnp.asarray(sin)),
+        implementation="pallas")
+    got = port_decode.fmha_decode(
+        *(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+        torch.from_numpy(table), torch.from_numpy(lengths),
+        rope=(torch.from_numpy(cos), torch.from_numpy(sin)))
+    want = np.asarray(want.astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+    else:
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+        assert np.abs(got.float().numpy() - want).max() <= ulp
+    # the rotation does change the answer
+    plain = _port(q, k, v, table, lengths).numpy()
+    assert np.abs(plain[1:] - want[1:]).max() > 1e-3
+
+
+def test_rope_tables_must_be_b_sq_half_d():
+    q, k, v, table, lengths = _layout(1, seed=5)
+    args = [torch.from_numpy(a) for a in (q, k, v, table, lengths)]
+    bad = torch.zeros(4, 1, D)
+    with pytest.raises(ValueError, match="rope tables"):
+        port_decode.fmha_decode(*args, rope=(bad, bad))

@@ -132,17 +132,21 @@ def test_ladder_routes_by_length(monkeypatch):
         q = torch.zeros((1, 1, s, 8))
         port_attention.flash_attention(q, q, q, causal=True)
     assert calls == ["fmha_short", "fmha_mid", "fmha_mid", "fmha_mid"]
+    # past the mid window the flash rung takes over
     q = torch.zeros((1, 1, 2049, 8))
-    with pytest.raises(NotImplementedError, match="queue B item 1"):
-        port_attention.flash_attention(q, q, q, causal=True)
+    port_attention.flash_attention(q, q, q, causal=True)
+    assert calls == ["fmha_short", "fmha_mid", "fmha_mid", "fmha_mid"]
 
 
 def test_mid_window_env_override(monkeypatch):
     monkeypatch.setenv("APEX_TPU_FMHA_MID_MAX_SEQ", "0")
     assert port_mid.mid_seq_threshold() == 0
     q = torch.zeros((1, 1, 600, 8))
-    with pytest.raises(NotImplementedError, match="flash"):
-        port_attention.flash_attention(q, q, q, causal=True)
+    seen = []
+    monkeypatch.setattr(port_attention, "fmha_mid",
+                        lambda *a, **kw: seen.append("mid"))
+    out = port_attention.flash_attention(q, q, q, causal=True)
+    assert seen == [] and out.shape == q.shape      # the flash rung
     monkeypatch.setenv("APEX_TPU_FMHA_MID_MAX_SEQ", "4096")
     assert port_mid.mid_seq_threshold() == 4096
 
@@ -151,9 +155,9 @@ def test_forced_rungs_and_unported_features():
     q = torch.randn((1, 1, 40, 8), generator=torch.Generator().manual_seed(0))
     short = port_attention.flash_attention(q, q, q, implementation="short")
     mid = port_attention.flash_attention(q, q, q, implementation="mid")
+    flash = port_attention.flash_attention(q, q, q, implementation="pallas")
     np.testing.assert_allclose(mid.numpy(), short.numpy(), **FWD_TOL)
-    with pytest.raises(NotImplementedError, match="queue B item 1"):
-        port_attention.flash_attention(q, q, q, implementation="pallas")
+    np.testing.assert_allclose(flash.numpy(), short.numpy(), **FWD_TOL)
     for kw in (dict(bias=torch.zeros(40, 40)), dict(dropout_rate=0.1)):
         with pytest.raises(NotImplementedError, match="queue B item 2"):
             port_mid.fmha_mid(q, q, q, **kw)

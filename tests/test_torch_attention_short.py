@@ -77,10 +77,11 @@ def test_ladder_routes_short_and_matches_reference():
 
 
 def test_ladder_rejects_what_is_not_ported():
-    q = torch.zeros((1, 1, 2049, 32))
-    with pytest.raises(NotImplementedError, match="queue B"):
-        port_attention.flash_attention(q, q, q, causal=True)
     q = torch.zeros((1, 1, 8, 32))
+    ids = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="queue B"):
+        port_attention.flash_attention(q, q, q, q_segment_ids=ids,
+                                       kv_segment_ids=ids)
     with pytest.raises(NotImplementedError, match="queue B"):
         port_attention.flash_attention(q, q, q, bias=torch.zeros(8, 8))
     with pytest.raises(NotImplementedError, match="queue B"):

@@ -25,6 +25,7 @@ from apex_tpu.models import GPTConfig as JaxGPTConfig
 from apex_tpu.models import GPTModel as JaxGPTModel
 from apex_tpu.transformer import parallel_state
 from apex_tpu_torch import convert
+from apex_tpu_torch.amp import get_policy
 from apex_tpu_torch.models import GPTConfig, GPTModel
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -152,7 +153,7 @@ def test_no_device_means_the_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    dict(position_embedding="rope"), dict(hidden_dropout=0.1),
+    dict(policy=get_policy("O1")), dict(hidden_dropout=0.1),
     dict(attention_dropout=0.1), dict(num_experts=4)])
 def test_unported_config_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

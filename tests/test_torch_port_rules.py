@@ -48,7 +48,8 @@ def test_forbidden_pattern_catches_what_it_should():
 
 
 @pytest.mark.parametrize("module", ["layer_norm", "attention_short",
-                                    "attention_mid", "attention_decode"])
+                                    "attention_mid", "attention_flash",
+                                    "attention_decode"])
 def test_kernel_wrappers_have_no_fallback(module):
     src = (ROOT / "apex_tpu_torch" / "ops" / f"{module}.py").read_text()
     assert not re.search(r"^\s*try\s*:", src, re.MULTILINE)
@@ -65,9 +66,23 @@ def test_backward_wrappers_count_their_launches(module):
     assert mod.KERNEL_BWD == module.split("_")[1] + "_bwd"
 
 
+def test_flash_backward_wrappers_count_their_launches():
+    """The flash rung's dK/dV and dQ entries count under their own names,
+    once each per launch of their C entry."""
+    from apex_tpu_torch.ops import attention_flash as mod
+
+    src = (ROOT / "apex_tpu_torch" / "ops" / "attention_flash.py").read_text()
+    assert src.count("count_launch(KERNEL_DKV)") == 1
+    assert src.count("count_launch(KERNEL_DQ)") == 1
+    assert (mod.KERNEL, mod.KERNEL_DKV, mod.KERNEL_DQ) == (
+        "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+
+
 @pytest.mark.parametrize("module, symbol", [
     ("attention_short", "short_fwd"), ("attention_short", "short_bwd"),
     ("attention_mid", "mid_fwd"), ("attention_mid", "mid_bwd"),
+    ("attention_flash", "flash_fwd"), ("attention_flash", "flash_bwd_dkv"),
+    ("attention_flash", "flash_bwd_dq"),
     ("attention_decode", "paged_decode")])
 def test_c_entries_are_typed_as_the_source_declares(monkeypatch, module,
                                                     symbol):

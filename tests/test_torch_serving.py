@@ -156,7 +156,7 @@ def test_unported_serving_options_raise(setup):
                dict(tp=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tm.decode_fns(ccfg, max_prompt_len=10, **kw)
-    with pytest.raises(NotImplementedError, match="queue B"):
+    with pytest.raises(ValueError, match="learned table"):
         tm.decode_fns(ccfg, max_prompt_len=2049)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         KVCacheConfig(num_layers=2, num_heads=4, head_dim=8, num_pages=8,

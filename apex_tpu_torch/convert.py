@@ -15,6 +15,14 @@ grouped per head, the LM head tied to ``embedding.weight``), so the
 bridge only flattens/unstacks the tree: values are copied bit for bit
 and a round trip is exact.
 
+A quantized serving tree (JAX ``quantize_gpt_weights``: each projection
+leaf ``{"q8" | "q4", "scales", "bias"}``, int8 values or packed int4
+bytes beside fp32 scales) crosses the same way, to and from the buffers
+of the port's ``QuantizedLinear`` (``layers.<i>.qkv.q8``,
+``layers.<i>.qkv.scales``, ...): load it into a model that
+``apex_tpu_torch.models.gpt.quantize_gpt_weights`` converted with the same
+width and block, strictly.
+
 Takes and returns numpy arrays (``jax.tree.map(np.asarray, params)`` on
 the JAX side), so neither package imports the other.  bf16 leaves (O5)
 are ``ml_dtypes.bfloat16`` arrays in numpy, which ``torch.from_numpy``

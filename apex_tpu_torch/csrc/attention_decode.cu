@@ -40,6 +40,13 @@
 //    when it was written to the cache.  The rotation is a template
 //    parameter: the instance without it has no rotation code, so the
 //    learned-position models' decode is what it was before the rotation.
+//  - int8 pages (the TPU body's has_scales branch, :254-258): K and V
+//    are int8 with one fp32 scale per (page, head, token, kv_block of
+//    dims), (num_pages, h, page_size, nb).  A lane reads its D / 32
+//    bytes of a row and the scales of their blocks and dequantizes them
+//    in fp32 before the products, as the TPU body does.  The page type
+//    is a template parameter too: the fp32 and bf16 instances have no
+//    dequantization code.  Entry point paged_decode_int8.
 //
 // What bounds it on the card: every K/V byte it reads is used for 2
 // flops per query row (~1 flop per byte at sq = 1 in bf16), so it is
@@ -51,6 +58,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -80,6 +89,18 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* p, float* out) {
   }
 }
 
+template <int E>
+__device__ __forceinline__ void load_row(const int8_t* p, float* out) {
+  if constexpr (E == 4) {
+    const char4 x = *reinterpret_cast<const char4*>(p);
+    out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
+  } else {
+    static_assert(E == 2, "int8 rows of 64 or 128 dims");
+    const char2 x = *reinterpret_cast<const char2*>(p);
+    out[0] = x.x; out[1] = x.y;
+  }
+}
+
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
@@ -91,18 +112,23 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// q, out: (b, h, sq, D); k_pages, v_pages: (num_pages, h, page_size, D);
-// page_table: (b, pages_per_seq) int32; lengths: (b,) int32.
-template <typename T, int D, bool kRope>
+// q, out: (b, h, sq, D); k_pages, v_pages: (num_pages, h, page_size, D)
+// of P (T, or int8_t with k_scales/v_scales (num_pages, h, page_size, nb)
+// fp32, one per kv_block dims); page_table: (b, pages_per_seq) int32;
+// lengths: (b,) int32.
+template <typename T, typename P, int D, bool kRope>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                    const T* __restrict__ v_pages,
+paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
+                    const P* __restrict__ v_pages,
+                    const float* __restrict__ k_scales,
+                    const float* __restrict__ v_scales,
                     const int* __restrict__ page_table,
                     const int* __restrict__ lengths,
                     const float* __restrict__ rope_cos,
                     const float* __restrict__ rope_sin, T* __restrict__ out,
-                    int h, int sq, int page_size, int pages_per_seq,
-                    int causal, float scale) {
+                    int h, int sq, int page_size, int pages_per_seq, int nb,
+                    int kv_block, int causal, float scale) {
+  constexpr bool kInt8 = std::is_same_v<P, int8_t>;
   constexpr int E = D / 32;    // dims per lane
   __shared__ float sm_m[kWarps][kMaxSq];
   __shared__ float sm_l[kWarps][kMaxSq];
@@ -152,6 +178,27 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       float kv[E], vv[E];
       load_row<E>(k_pages + base + (long)t * D + lane * E, kv);
       load_row<E>(v_pages + base + (long)t * D + lane * E, vv);
+      if constexpr (kInt8) {
+        const long srow = ((long)row[p] * h + head) * page_size * nb +
+                          (long)t * nb;
+        const int blk = lane * E / kv_block;
+        if ((lane * E + E - 1) / kv_block == blk) {
+          // the lane's dims lie in one scale block (kv_block % E == 0,
+          // as for every kv_block the cache uses): one scale each
+          const float ks = k_scales[srow + blk], vs = v_scales[srow + blk];
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            kv[e] *= ks;
+            vv[e] *= vs;
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            kv[e] *= k_scales[srow + (lane * E + e) / kv_block];
+            vv[e] *= v_scales[srow + (lane * E + e) / kv_block];
+          }
+        }
+      }
 #pragma unroll
       for (int i = 0; i < kMaxSq; ++i) {
         if (i >= sq) break;
@@ -199,21 +246,30 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
-template <typename T, int D>
+template <typename T, typename P, int D>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
+                   const float* k_scales, const float* v_scales,
                    const int* page_table, const int* lengths,
                    const float* rope_cos, const float* rope_sin, void* out,
                    int b, int h, int sq, int page_size, int pages_per_seq,
-                   int causal, float scale, cudaStream_t stream) {
+                   int nb, int kv_block, int causal, float scale,
+                   cudaStream_t stream) {
   dim3 grid(h, b);
-  auto kernel = rope_cos != nullptr ? paged_decode_kernel<T, D, true>
-                                    : paged_decode_kernel<T, D, false>;
+  auto kernel = rope_cos != nullptr ? paged_decode_kernel<T, P, D, true>
+                                    : paged_decode_kernel<T, P, D, false>;
   kernel<<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), page_table, lengths, rope_cos,
-      rope_sin, static_cast<T*>(out), h, sq, page_size, pages_per_seq,
-      causal, scale);
+      static_cast<const T*>(q), static_cast<const P*>(k_pages),
+      static_cast<const P*>(v_pages), k_scales, v_scales, page_table,
+      lengths, rope_cos, rope_sin, static_cast<T*>(out), h, sq, page_size,
+      pages_per_seq, nb, kv_block, causal, scale);
   return cudaGetLastError();
+}
+
+bool bad_shape(int b, int h, int sq, int page_size, int pages_per_seq,
+               const float* rope_cos, const float* rope_sin) {
+  return b <= 0 || b > 65535 || h <= 0 || sq < 1 || sq > kMaxSq ||
+         page_size < 1 || pages_per_seq < 1 ||
+         (rope_cos == nullptr) != (rope_sin == nullptr);
 }
 
 }  // namespace
@@ -229,14 +285,40 @@ int paged_decode(const void* q, const void* k_pages, const void* v_pages,
                  int pages_per_seq, int dtype, int causal, float scale,
                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b <= 0 || b > 65535 || h <= 0 || sq < 1 || sq > kMaxSq ||
-      page_size < 1 || pages_per_seq < 1 ||
-      (rope_cos == nullptr) != (rope_sin == nullptr))
+  if (bad_shape(b, h, sq, page_size, pages_per_seq, rope_cos, rope_sin))
     return cudaErrorInvalidValue;
-#define DECODE(T, D)                                                      \
-  return launch<T, D>(q, k_pages, v_pages, page_table, lengths, rope_cos, \
-                      rope_sin, out, b, h, sq, page_size, pages_per_seq,  \
-                      causal, scale, s)
+#define DECODE(T, D)                                                       \
+  return launch<T, T, D>(q, k_pages, v_pages, nullptr, nullptr, page_table, \
+                         lengths, rope_cos, rope_sin, out, b, h, sq,        \
+                         page_size, pages_per_seq, 0, 1, causal, scale, s)
+  if (dtype == 0 && d == 128) DECODE(float, 128);
+  if (dtype == 0 && d == 64) DECODE(float, 64);
+  if (dtype == 1 && d == 128) DECODE(__nv_bfloat16, 128);
+  if (dtype == 1 && d == 64) DECODE(__nv_bfloat16, 64);
+#undef DECODE
+  return cudaErrorInvalidValue;
+}
+
+// int8 pages: k_pages/v_pages int8, k_scales/v_scales (num_pages, h,
+// page_size, nb) fp32 with nb = ceil(d / kv_block); q and out in dtype
+// (0 = fp32, 1 = bf16).  Otherwise as paged_decode.
+int paged_decode_int8(const void* q, const void* k_pages, const void* v_pages,
+                      const float* k_scales, const float* v_scales,
+                      const int* page_table, const int* lengths,
+                      const float* rope_cos, const float* rope_sin, void* out,
+                      int b, int h, int sq, int d, int page_size,
+                      int pages_per_seq, int nb, int kv_block, int dtype,
+                      int causal, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bad_shape(b, h, sq, page_size, pages_per_seq, rope_cos, rope_sin) ||
+      kv_block < 1 || nb != (d + kv_block - 1) / kv_block ||
+      k_scales == nullptr || v_scales == nullptr)
+    return cudaErrorInvalidValue;
+#define DECODE(T, D)                                                       \
+  return launch<T, int8_t, D>(q, k_pages, v_pages, k_scales, v_scales,     \
+                              page_table, lengths, rope_cos, rope_sin, out, \
+                              b, h, sq, page_size, pages_per_seq, nb,       \
+                              kv_block, causal, scale, s)
   if (dtype == 0 && d == 128) DECODE(float, 128);
   if (dtype == 0 && d == 64) DECODE(float, 64);
   if (dtype == 1 && d == 128) DECODE(__nv_bfloat16, 128);

@@ -31,15 +31,20 @@ two-step LM-head cross entropy) and its backward, ``prefill_forward``,
 ``decode_step`` and the monolithic greedy serving of ``decode_fns`` /
 ``generate``, plus the full-recompute ``generate_reference`` that gates
 them.  A ``policy`` (``apex_tpu_torch.amp``) sets the dtypes as in JAX:
-under O5 the parameters are bf16 and the norms' fp32.  Options that are
-not ported raise ``NotImplementedError`` naming their ROADMAP.md item.
+under O5 the parameters are bf16 and the norms' fp32.  Serving also runs
+from quantized weight pools (:func:`quantize_gpt_weights`: the five
+projections become ``QuantizedLinear``s over the dequant-matmul kernel,
+bit-identical pools to the JAX package's) and from int8 KV pages
+(``KVCacheConfig(kv_dtype=torch.int8)``).  Options that are not ported
+raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -50,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 from apex_tpu_torch.amp.policy import Policy, check_ported
 from apex_tpu_torch.ops.attention import flash_attention
 from apex_tpu_torch.ops.attention_decode import fmha_decode
+from apex_tpu_torch.ops.dequant_matmul import quantize_weight
 from apex_tpu_torch.ops.layer_norm import (
     fused_layer_norm_affine,
     fused_rms_norm_affine,
@@ -66,6 +72,7 @@ from apex_tpu_torch.serving.sampling import sample
 from apex_tpu_torch.serving.serve import ContinuousBatcher, Request
 from apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear,
+    QuantizedLinear,
     RowParallelLinear,
     VocabParallelEmbedding,
     lm_head_cross_entropy,
@@ -73,7 +80,8 @@ from apex_tpu_torch.transformer.tensor_parallel import (
 )
 from apex_tpu_torch.utils.platform import resolve_device
 
-__all__ = ["GPTConfig", "GPTModel", "GPTDecodeFns"]
+__all__ = ["GPTConfig", "GPTModel", "GPTDecodeFns", "QUANTIZED_WEIGHT_LEAVES",
+           "quantize_gpt_weights"]
 
 #: options of the JAX serving entry points that the port does not take
 #: yet, with the ROADMAP.md item that brings each
@@ -81,8 +89,6 @@ _UNPORTED = {
     "temperature": "queue A item 3 (temperature sampling)",
     "top_k": "queue A item 3 (temperature sampling)",
     "top_p": "queue A item 3 (temperature sampling)",
-    "kv_dtype": "queue A item 3 (int8 KV pages)",
-    "weight_dtype": "queue A item 6 (quantized weight pools)",
     "prefill_chunk": "queue A item 7 (chunked prefill)",
     "prefix_cache": "queue A item 7 (prefix cache)",
     "speculate_k": "queue A item 7 (speculative decoding)",
@@ -108,6 +114,97 @@ class GPTDecodeFns:
     prefill: Any
     decode: Any
     eos_id: Any = None
+    #: the active width of the projections every step streams:
+    #: "float32"/"bf16" for plain weights, "int8"/"int4" for quantized
+    #: pools; mirrored as ``decode.weight_dtype``
+    weight_dtype: Any = None
+    #: bytes of every parameter and buffer one decode step reads (the
+    #: JAX ``_per_chip_param_bytes`` at tp=1); mirrored as
+    #: ``decode.weight_stream_bytes``
+    weight_stream_bytes: Any = None
+
+
+#: the projection weights :func:`quantize_gpt_weights` converts — the
+#: wide matrices decode streams every token.  Embedding (tied LM head),
+#: position table, norms and biases stay full precision.
+QUANTIZED_WEIGHT_LEAVES = ("qkv", "attn_proj", "fc1", "fc_gate", "fc2")
+
+
+def _shallow_copy(module: nn.Module) -> nn.Module:
+    """A new module object over the same parameters, buffers and
+    submodules, whose registries can be changed without touching
+    ``module``'s."""
+    new = copy.copy(module)
+    for key in ("_parameters", "_buffers", "_modules"):
+        new.__dict__[key] = dict(module.__dict__[key])
+    return new
+
+
+def _swap_projections(model: "GPTModel",
+                      make: Callable[[str, nn.Module], nn.Module]):
+    """A serving copy of ``model`` whose projection modules (the names of
+    :data:`QUANTIZED_WEIGHT_LEAVES`) ``make(leaf_name, module)``
+    replaces.  Every other parameter (embedding, position table, norms)
+    is shared with ``model``, not copied."""
+    out = _shallow_copy(model)
+    layers = []
+    for layer in model.layers:
+        new = _shallow_copy(layer)
+        for name in QUANTIZED_WEIGHT_LEAVES:
+            mod = layer._modules.get(name)
+            if mod is not None:
+                new._modules[name] = make(name, mod)
+        layers.append(new)
+    out._modules["layers"] = nn.ModuleList(layers)
+    return out
+
+
+def quantize_gpt_weights(model: "GPTModel", weight_dtype: str,
+                         block_size: int = 128) -> "GPTModel":
+    """A serving model whose projections are quantized weight pools —
+    converted ONCE, at load.
+
+    Each projection of :data:`QUANTIZED_WEIGHT_LEAVES` becomes a
+    :class:`~apex_tpu_torch.transformer.tensor_parallel.QuantizedLinear`
+    over ``{"q8": int8, "scales": fp32}`` (``weight_dtype="int8"``) or
+    ``{"q4": packed int8, "scales": fp32}`` (``"int4"``, the halves
+    layout), block-quantized along the output features with
+    ``block_size``-wide fp32 scales.  Rows are independent, so quantizing
+    each layer's ``(k, n)`` matrix gives the JAX package's stacked
+    ``(L*k, n)`` pools bit for bit.  Embedding, norms and biases are
+    shared with ``model`` unchanged.  The pools serve at tensor-parallel
+    degree 1 (``decode_fns`` rejects ``tp > 1``)."""
+    if weight_dtype not in ("int8", "int4"):
+        raise ValueError(
+            f"weight_dtype must be 'int8' or 'int4', got "
+            f"{weight_dtype!r}")
+
+    def make(name: str, mod: nn.Module) -> QuantizedLinear:
+        if isinstance(mod, QuantizedLinear):
+            raise ValueError(
+                f"layers/{name} is already a {mod.weight_dtype} pool")
+        wq = quantize_weight(mod.weight.detach(), weight_dtype, block_size,
+                             leaf=f"layers/{name}.weight")
+        qkey = "q8" if weight_dtype == "int8" else "q4"
+        bias = None if mod.bias is None else mod.bias.detach()
+        return QuantizedLinear(weight_dtype, wq[qkey], wq["scales"], bias)
+
+    return _swap_projections(model, make)
+
+
+def _bf16_projections(model: "GPTModel") -> "GPTModel":
+    """A serving model whose projection weights are bf16 copies made once
+    (``decode_fns(weight_dtype="bf16")``), so a bf16 step casts no
+    weight; the biases stay as they are and are cast per call, as in
+    JAX."""
+
+    def make(name: str, mod: nn.Module) -> nn.Module:
+        new = _shallow_copy(mod)
+        new._parameters["weight"] = nn.Parameter(
+            mod.weight.detach().to(torch.bfloat16), requires_grad=False)
+        return new
+
+    return _swap_projections(model, make)
 
 
 @dataclasses.dataclass
@@ -403,6 +500,46 @@ class GPTModel(nn.Module):
                                              targets))
 
     # ------------------------------------------------- serving / decode
+    def _weight_pool_dtype(self) -> str:
+        """The active weight width the projections imply: ``"int8"`` /
+        ``"int4"`` for quantized pools, the storage dtype name
+        (``"float32"``/``"bf16"``) otherwise."""
+        for layer in self.layers[:1]:
+            for name in QUANTIZED_WEIGHT_LEAVES:
+                mod = layer._modules.get(name)
+                if mod is None:
+                    continue
+                if isinstance(mod, QuantizedLinear):
+                    return mod.weight_dtype
+                d = mod.weight.dtype
+                return ("bf16" if d == torch.bfloat16
+                        else str(d).replace("torch.", ""))
+        return "float32"
+
+    def _check_weight_dtype(self, weight_dtype: Optional[str]) -> None:
+        """A step invoked with a ``weight_dtype=`` claim that disagrees
+        with the projections raises instead of serving the wrong
+        numerics contract."""
+        if weight_dtype is None:
+            return
+        want = {"fp32": "float32", "bfloat16": "bf16"}.get(
+            weight_dtype, weight_dtype)
+        have = self._weight_pool_dtype()
+        if want != have:
+            raise ValueError(
+                f"weight_dtype={weight_dtype!r} declared but the "
+                f"params carry {have} weights — quantize with "
+                f"quantize_gpt_weights (or drop the declaration)")
+
+    def weight_stream_bytes(self) -> int:
+        """Bytes of every parameter and buffer one decode step reads: the
+        JAX package's ``_per_chip_param_bytes`` at tp=1 (each shared
+        tensor once)."""
+        tensors = {id(t): t for t in list(self.parameters())
+                   + list(self.buffers())}
+        return int(sum(t.numel() * t.element_size()
+                       for t in tensors.values()))
+
     def prefill_forward(self, tokens: torch.Tensor):
         """Prompt ingestion over ``tokens (b, s)`` through the attention
         ladder, also returning each layer's K/V for the cache write:
@@ -425,6 +562,10 @@ class GPTModel(nn.Module):
         active: torch.Tensor,
         page_table: torch.Tensor,
         pools: Dict[str, torch.Tensor],
+        *,
+        quantized: bool = False,
+        kv_block: int = 128,
+        weight_dtype: Optional[str] = None,
     ):
         """ONE decode step for a fixed batch of serving slots.  ``tokens
         (S,)`` are the current tokens, each at 0-based ``positions[s]``;
@@ -434,9 +575,13 @@ class GPTModel(nn.Module):
         :func:`fmha_decode` against the paged cache.  A rope model
         rotates the new K before it is written and hands the kernel this
         step's ``(S, 1, head_dim/2)`` rows of the cached ``rope_table``
-        (over the cache's whole extent) to rotate q.  Returns ``(logits
-        (S, vocab), pools)``; the pools are updated in place."""
+        (over the cache's whole extent) to rotate q.  ``quantized`` pools
+        are int8 pages with their scales (``kv_block`` dims a scale);
+        ``weight_dtype`` declares the projections' width and raises if it
+        disagrees.  Returns ``(logits (S, vocab), pools)``; the pools are
+        updated in place."""
         c = self.config
+        self._check_weight_dtype(weight_dtype)
         S = tokens.shape[0]
         page_size = pools["k"].shape[3]
         positions = positions.to(torch.int32)
@@ -456,16 +601,20 @@ class GPTModel(nn.Module):
         attend = torch.where(active, positions + 1, 0).to(torch.int32)
         wp, wo = write_targets(page_table, positions, active, page_size)
         for li, layer in enumerate(self.layers):
-            pool_l = {"k": pools["k"][li], "v": pools["v"][li]}
+            pool_l = {name: pool[li] for name, pool in pools.items()}
             residual = x
             y = layer.ln1(x).to(c.compute_dtype)
             q, k, v = self._qkv_heads(layer, y)          # (S, h, 1, d)
             if rope_cs is not None:
                 k = apply_rope_tables(k, rope_cs[0][:, None],
                                       rope_cs[1][:, None])
-            write_tokens(pool_l, k[:, :, 0], v[:, :, 0], wp, wo)
+            write_tokens(pool_l, k[:, :, 0], v[:, :, 0], wp, wo,
+                         quantized=quantized, kv_block=kv_block)
             attn = fmha_decode(q, pool_l["k"], pool_l["v"], page_table,
-                               attend, causal=True, rope=rope_cs)
+                               attend, causal=True,
+                               k_scales=pool_l.get("k_scales"),
+                               v_scales=pool_l.get("v_scales"),
+                               kv_block=kv_block, rope=rope_cs)
             attn = attn.transpose(1, 2).reshape(S, 1, c.hidden_size)
             x = residual + layer.attn_proj(attn).to(residual.dtype)
             residual = x
@@ -488,6 +637,7 @@ class GPTModel(nn.Module):
         spec_tree: Optional[tuple] = None,
         draft_model: Optional[Any] = None,
         weight_dtype: Optional[str] = None,
+        weight_block: int = 128,
         tp: Optional[int] = None,
     ) -> GPTDecodeFns:
         """Build the monolithic greedy serving steps
@@ -495,11 +645,23 @@ class GPTModel(nn.Module):
         ``prefill(pools, tokens (1, max_prompt_len), length, page_row) ->
         (pools, first_token)`` and ``decode(pools, carry, page_table) ->
         (pools, carry)``.  Both run without autograd and update the pools
-        in place; neither syncs with the host."""
+        in place; neither syncs with the host.  Int8 KV pages
+        (``cache_config.quantized``) are written quantized by both steps;
+        prefill attends over its fresh K/V and never reads them.
+
+        ``weight_dtype`` sets the width of the weights every step streams,
+        converted ONCE here: ``"int8"``/``"int4"`` quantize the
+        projections (:func:`quantize_gpt_weights`, block size
+        ``weight_block``) and the steps run the dequant-matmul kernel;
+        ``"bf16"`` makes bf16 copies of fp32 projection weights, so no step
+        casts a weight; ``None`` serves the model as given, including a
+        model :func:`quantize_gpt_weights` already converted (a declared
+        width must match it).  The active width and the weight-stream
+        bytes are stamped on the result and on ``decode``."""
         _reject_unported(temperature=temperature, top_k=top_k, top_p=top_p,
                          prefill_chunk=prefill_chunk,
                          speculate_k=speculate_k, spec_tree=spec_tree,
-                         draft_model=draft_model, weight_dtype=weight_dtype,
+                         draft_model=draft_model,
                          tp=None if tp == 1 else tp)
         c = self.config
         cfg = cache_config
@@ -523,28 +685,48 @@ class GPTModel(nn.Module):
                 f"cache pages are {cfg.dtype} but the model computes in "
                 f"{c.compute_dtype}: the decode kernel reads pages in the "
                 "query's dtype")
+        if weight_dtype is not None and weight_dtype not in (
+                "bf16", "int8", "int4"):
+            raise ValueError(
+                f"weight_dtype must be None, 'bf16', 'int8' or "
+                f"'int4', got {weight_dtype!r}")
+        model = self
+        wd_in = self._weight_pool_dtype()
+        if weight_dtype in ("int8", "int4"):
+            if wd_in in ("int8", "int4"):
+                if wd_in != weight_dtype:
+                    raise ValueError(
+                        f"weight_dtype={weight_dtype!r} requested but "
+                        f"the params already carry a {wd_in} pool")
+            else:
+                model = quantize_gpt_weights(self, weight_dtype,
+                                             weight_block)
+        elif weight_dtype == "bf16" and wd_in == "float32":
+            model = _bf16_projections(self)
+        wd_active = model._weight_pool_dtype()
+        kv = dict(quantized=cfg.quantized, kv_block=cfg.kv_block)
 
         @torch.no_grad()
         def prefill(pools, toks, length: int, page_row):
-            hidden, ks, vs = self.prefill_forward(toks)
+            hidden, ks, vs = model.prefill_forward(toks)
             pos = torch.arange(toks.shape[1], device=toks.device)
             wp, wo = write_targets(page_row, pos, pos < length,
                                    cfg.page_size)
             for li in range(c.num_layers):
                 # (1, h, s, d) -> (s, h, d) token rows
-                write_tokens({"k": pools["k"][li], "v": pools["v"][li]},
+                write_tokens({name: pool[li] for name, pool in pools.items()},
                              ks[li, 0].transpose(0, 1),
-                             vs[li, 0].transpose(0, 1), wp, wo)
+                             vs[li, 0].transpose(0, 1), wp, wo, **kv)
             last = hidden[0, length - 1]
-            tok = sample(self.logits(last)[None], temperature)[0]
+            tok = sample(model.logits(last)[None], temperature)[0]
             return pools, tok
 
         @torch.no_grad()
         def decode(pools, carry, page_table):
             active = ~carry["done"]
-            logits, pools = self.decode_step(
+            logits, pools = model.decode_step(
                 carry["tokens"], carry["lengths"], active, page_table,
-                pools)
+                pools, **kv)
             sampled = sample(logits, temperature)
             ai = active.to(torch.int32)
             tokens = torch.where(active, sampled, carry["tokens"])
@@ -560,9 +742,15 @@ class GPTModel(nn.Module):
             }
 
         # the batcher only sees the callables; stamp the freeze id so it
-        # can reject a host truncation id the device disagrees with
+        # can reject a host truncation id the device disagrees with, and
+        # the width with the bytes one step streams for its telemetry
+        wbytes = model.weight_stream_bytes()
         decode.eos_id = eos_id
-        return GPTDecodeFns(prefill=prefill, decode=decode, eos_id=eos_id)
+        decode.weight_dtype = wd_active
+        decode.weight_stream_bytes = wbytes
+        return GPTDecodeFns(prefill=prefill, decode=decode, eos_id=eos_id,
+                            weight_dtype=wd_active,
+                            weight_stream_bytes=wbytes)
 
     def generate(
         self,
@@ -576,6 +764,7 @@ class GPTModel(nn.Module):
         num_pages: Optional[int] = None,
         eos_id: Optional[int] = None,
         kv_dtype: Optional[Any] = None,
+        kv_block: int = 128,
         temperature: float = 0.0,
         top_k: Optional[int] = None,
         top_p: Optional[float] = None,
@@ -583,14 +772,17 @@ class GPTModel(nn.Module):
         prefix_cache: bool = False,
         speculate_k: Optional[int] = None,
         weight_dtype: Optional[str] = None,
+        weight_block: int = 128,
     ):
         """Generate from ``prompts (b, s)`` (right-padded; real lengths in
         ``prompt_lengths``) through the serving stack: paged KV cache,
         decode kernel, on-device greedy sampling, continuous batching.
-        ``max_seqs`` (default ``b``) bounds concurrent slots.  Returns the
-        per-prompt generated token lists (EOS included when hit)."""
-        _reject_unported(kv_dtype=kv_dtype, prefix_cache=prefix_cache,
-                         weight_dtype=weight_dtype)
+        ``max_seqs`` (default ``b``) bounds concurrent slots.
+        ``kv_dtype=torch.int8`` stores the cache quantized;
+        ``weight_dtype="bf16"/"int8"/"int4"`` serves from a reduced-width
+        weight pool (:meth:`decode_fns`).  Returns the per-prompt generated
+        token lists (EOS included when hit)."""
+        _reject_unported(prefix_cache=prefix_cache)
         c = self.config
         prompts = np.asarray(prompts)
         prompt_lengths = np.asarray(prompt_lengths)
@@ -602,11 +794,13 @@ class GPTModel(nn.Module):
             head_dim=c.head_dim,
             num_pages=int(num_pages or 1 + max_seqs * pages_per_seq),
             page_size=page_size, max_seqs=max_seqs,
-            pages_per_seq=pages_per_seq, dtype=c.compute_dtype)
+            pages_per_seq=pages_per_seq, dtype=c.compute_dtype,
+            kv_dtype=kv_dtype, kv_block=kv_block)
         fns = self.decode_fns(
             ccfg, max_prompt_len=s, temperature=temperature, top_k=top_k,
             top_p=top_p, eos_id=eos_id, prefill_chunk=prefill_chunk,
-            speculate_k=speculate_k)
+            speculate_k=speculate_k, weight_dtype=weight_dtype,
+            weight_block=weight_block)
         batcher = ContinuousBatcher(
             fns.prefill, fns.decode, PagedKVCache(ccfg),
             init_pools(ccfg, self.device), max_prompt_len=s,

@@ -18,6 +18,10 @@ from apex_tpu_torch.ops.common import (
     launch_counts,
     reset_launch_counts,
 )
+from apex_tpu_torch.ops.dequant_matmul import (
+    dequant_matmul,
+    dequant_matmul_reference,
+)
 from apex_tpu_torch.ops.layer_norm import (
     fused_layer_norm_affine,
     fused_rms_norm_affine,
@@ -33,7 +37,8 @@ from apex_tpu_torch.ops.rope import (
 
 __all__ = [
     "KernelUnavailable", "apply_rope", "apply_rope_at", "apply_rope_tables",
-    "flash_attention", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd",
+    "dequant_matmul", "dequant_matmul_reference", "flash_attention",
+    "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd",
     "fmha_decode", "fmha_mid", "fmha_short", "fused_layer_norm_affine",
     "fused_rms_norm_affine", "launch_counts", "layer_norm_fwd",
     "mha_reference", "mid_bwd", "mid_fwd", "paged_attention_reference",

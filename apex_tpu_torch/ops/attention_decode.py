@@ -11,14 +11,17 @@ tokens INCLUDING the query rows (write-before-attend), and query row
 (sequence, head) walking the sequence's pages, online softmax per warp,
 masked positions never read.
 
-Ported: fp32 and bf16 pages, ``1 <= sq <= 8`` on the GPU (any ``sq`` on
-the CPU), causal or not, and the fused q-RoPE (``rope=(cos, sin)``, each
-``(b, sq, d/2)``): the kernel rotates q in fp32 and scales it without
-rounding it to q's dtype, as the Pallas body does (the JAX XLA path
-rounds the rotated q; the port follows the kernel).  Not ported yet
-(ROADMAP.md queue B item 3): int8 pages with scales, the tree
-``ancestor`` mask.  No single PyTorch call computes attention over this
-paged layout, so the kernel has no library yardstick.
+Ported: fp32 and bf16 pages, and int8 pages with per-(token, kv_block)
+fp32 scales ``(num_pages, h, page_size, ceil(d / kv_block))``
+dequantized in fp32 before the products (the ``paged_decode_int8``
+entry, counted under its own name), ``1 <= sq <= 8`` on the GPU (any
+``sq`` on the CPU), causal or not, and the fused q-RoPE (``rope=(cos,
+sin)``, each ``(b, sq, d/2)``): the kernel rotates q in fp32 and scales
+it without rounding it to q's dtype, as the Pallas body does (the JAX
+XLA path rounds the rotated q; the port follows the kernel).  Not ported
+yet (ROADMAP.md queue B item 3): the tree ``ancestor`` mask and more
+query rows.  No single PyTorch call computes attention over this paged
+layout, so the kernel has no library yardstick.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from apex_tpu_torch.ops.rope import apply_rope_tables
 __all__ = ["fmha_decode", "paged_attention_reference", "FMHA_DECODE_MAX_SQ"]
 
 KERNEL = "paged_decode"
+KERNEL_INT8 = "paged_decode_int8"
 
 #: query rows per sequence the kernel takes (its per-warp register state)
 FMHA_DECODE_MAX_SQ = 8
@@ -44,6 +48,14 @@ FMHA_DECODE_MAX_SQ = 8
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
+
+
+def _dequant_pages(pages, scales, kv_block):
+    """(..., page_size, d) int8 + (..., page_size, nb) fp32 scales ->
+    fp32, per-(token, kv_block) dequantization."""
+    d = pages.shape[-1]
+    expand = torch.repeat_interleave(scales, kv_block, dim=-1)[..., :d]
+    return pages.to(torch.float32) * expand
 
 
 def paged_attention_reference(
@@ -54,12 +66,15 @@ def paged_attention_reference(
     lengths: torch.Tensor,
     causal: bool = True,
     sm_scale: Optional[float] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+    kv_block: int = 128,
 ) -> torch.Tensor:
-    """Plain paged attention: gather each sequence's pages, masked fp32
-    softmax.  K/V rows at or past ``lengths[b]`` are zeroed before use,
-    so whatever garbage the null page holds (even NaN) never reaches a
-    row through ``0 * NaN``: the same function the kernel computes by
-    never reading them."""
+    """Plain paged attention: gather each sequence's pages (int8 pages
+    dequantized with their scales), masked fp32 softmax.  K/V rows at or
+    past ``lengths[b]`` are zeroed before use, so whatever garbage the
+    null page holds (even NaN) never reaches a row through ``0 * NaN``:
+    the same function the kernel computes by never reading them."""
     b, h, sq, d = q.shape
     num_pages = page_table.shape[1]
     page_size = k_pages.shape[2]
@@ -70,13 +85,15 @@ def paged_attention_reference(
     k_pos = torch.arange(num_pages * page_size, device=q.device)
     live = (k_pos[None, :] < lengths[:, None])[:, None, :, None]
 
-    def gather(pages):
+    def gather(pages, scales):
         x = pages[table]                          # (b, np, h, ps, d)
+        if scales is not None:
+            x = _dequant_pages(x, scales[table], kv_block)
         x = x.transpose(1, 2).reshape(b, h, num_pages * page_size, d)
         return torch.where(live, x.float(), 0.0)
 
-    k = gather(k_pages)
-    v = gather(v_pages)
+    k = gather(k_pages, k_scales)
+    v = gather(v_pages, v_scales)
     s = torch.matmul(q.float(), k.transpose(-1, -2)) * scale
     if causal:
         q_pos = (lengths[:, None] - sq
@@ -91,64 +108,95 @@ def paged_attention_reference(
     return torch.matmul(p, v).to(q.dtype)
 
 
+#: the C entries' argument types: pointers (and the stream), ints, the
+#: softmax scale
+_ARGTYPES = {
+    KERNEL: [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_void_p],
+    KERNEL_INT8: [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [
+        ctypes.c_float, ctypes.c_void_p],
+}
+
+
 @functools.lru_cache(maxsize=None)
 def _entry(symbol: str = KERNEL):
     """The loaded library and its C entry, typed once."""
     lib = load("attention_decode")
     fn = getattr(lib, symbol)
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = _ARGTYPES[symbol]
     fn.restype = ctypes.c_int
     return lib, fn
 
 
 def _decode_plain(q, k_pages, v_pages, page_table, lengths, causal, scale,
-                  rope):
+                  rope, k_scales=None, v_scales=None, kv_block=128):
     """The plain version: q rotated in fp32 (not rounded) when ``rope``
     is given, then :func:`paged_attention_reference`."""
-    if rope is None:
-        return paged_attention_reference(q, k_pages, v_pages, page_table,
-                                         lengths, causal=causal,
-                                         sm_scale=scale)
-    cos, sin = (t.float()[:, None] for t in rope)
-    qr = apply_rope_tables(q.float(), cos, sin)
-    return paged_attention_reference(qr, k_pages, v_pages, page_table,
-                                     lengths, causal=causal,
-                                     sm_scale=scale).to(q.dtype)
+    qr = q
+    if rope is not None:
+        cos, sin = (t.float()[:, None] for t in rope)
+        qr = apply_rope_tables(q.float(), cos, sin)
+    return paged_attention_reference(
+        qr, k_pages, v_pages, page_table, lengths, causal=causal,
+        sm_scale=scale, k_scales=k_scales, v_scales=v_scales,
+        kv_block=kv_block).to(q.dtype)
 
 
 def _decode_cuda(q, k_pages, v_pages, page_table, lengths, causal, scale,
-                 rope):
+                 rope, k_scales=None, v_scales=None, kv_block=128):
     b, h, sq, d = q.shape
-    if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
-            or v_pages.dtype != q.dtype:
+    int8 = k_scales is not None
+    kernel = KERNEL_INT8 if int8 else KERNEL
+    page_dtype = torch.int8 if int8 else q.dtype
+    if q.dtype not in _DTYPES or k_pages.dtype != page_dtype \
+            or v_pages.dtype != page_dtype:
         raise ValueError(
-            f"{KERNEL}: q and pages must share one dtype of {list(_DTYPES)}, "
-            f"got {q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+            f"{kernel}: q must be one of {list(_DTYPES)} and the pages "
+            f"{page_dtype}, got {q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
     if d not in _HEAD_DIMS:
-        raise ValueError(f"{KERNEL}: head_dim {d} not in {_HEAD_DIMS}")
+        raise ValueError(f"{kernel}: head_dim {d} not in {_HEAD_DIMS}")
     if not 1 <= sq <= FMHA_DECODE_MAX_SQ:
-        raise ValueError(f"{KERNEL}: sq {sq} outside 1..{FMHA_DECODE_MAX_SQ}")
+        raise ValueError(f"{kernel}: sq {sq} outside 1..{FMHA_DECODE_MAX_SQ}")
     if b > 65535:
-        raise ValueError(f"{KERNEL}: batch {b} > 65535")
+        raise ValueError(f"{kernel}: batch {b} > 65535")
     q = q.contiguous()
     page_table = page_table.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     tables = [] if rope is None else [t.float().contiguous() for t in rope]
-    check_operands(KERNEL, q, k_pages, v_pages, page_table, lengths, *tables)
+    scales = [] if not int8 else [k_scales, v_scales]
+    check_operands(kernel, q, k_pages, v_pages, page_table, lengths,
+                   *tables, *scales)
     for t in (q, k_pages, v_pages):
         if t.data_ptr() % 16:
-            raise ValueError(f"{KERNEL}: operand not 16-byte aligned")
-    lib, fn = _entry()
+            raise ValueError(f"{kernel}: operand not 16-byte aligned")
+    if int8 and (k_scales.dtype != torch.float32
+                 or k_scales.shape != v_scales.shape
+                 or tuple(k_scales.shape) != tuple(k_pages.shape[:3]) + (
+                     -(-d // kv_block),)):
+        raise ValueError(
+            f"{kernel}: scales must be fp32 (num_pages, h, page_size, "
+            f"ceil(d / kv_block)) = {tuple(k_pages.shape[:3])} + "
+            f"({-(-d // kv_block)},), got {tuple(k_scales.shape)} "
+            f"{k_scales.dtype}")
+    lib, fn = _entry(kernel)
     out = torch.empty_like(q)
-    count_launch(KERNEL)
+    if int8:
+        count_launch(KERNEL_INT8)
+    else:
+        count_launch(KERNEL)
     cos, sin = (t.data_ptr() for t in tables) if tables else (None, None)
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             page_table.data_ptr(), lengths.data_ptr(), cos, sin,
-             out.data_ptr(), b, h, sq, d, k_pages.shape[2],
-             page_table.shape[1],
-             _DTYPES[q.dtype], int(causal), float(scale), stream_of(q))
-    check(lib, KERNEL, err)
+    pages = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
+    tail = (page_table.data_ptr(), lengths.data_ptr(), cos, sin,
+            out.data_ptr(), b, h, sq, d, k_pages.shape[2],
+            page_table.shape[1])
+    if int8:
+        err = fn(*pages, k_scales.data_ptr(), v_scales.data_ptr(), *tail,
+                 k_scales.shape[-1], int(kv_block), _DTYPES[q.dtype],
+                 int(causal), float(scale), stream_of(q))
+    else:
+        err = fn(*pages, *tail, _DTYPES[q.dtype], int(causal), float(scale),
+                 stream_of(q))
+    check(lib, kernel, err)
     return out
 
 
@@ -162,6 +210,7 @@ def fmha_decode(
     sm_scale: Optional[float] = None,
     k_scales: Optional[torch.Tensor] = None,
     v_scales: Optional[torch.Tensor] = None,
+    kv_block: int = 128,
     rope=None,
     ancestor=None,
 ) -> torch.Tensor:
@@ -169,13 +218,20 @@ def fmha_decode(
     ``k_pages``/``v_pages (num_pages, h, page_size, d)`` through
     ``page_table (b, pages_per_seq)`` (int32; unallocated entries hold
     the null page 0) with ``lengths (b,)`` valid tokens per sequence.
-    ``rope=(cos, sin)``, each ``(b, sq, d/2)``, rotates q at its
-    positions in the kernel (K is rotated when it is written).  A CUDA
-    tensor runs the kernel, a CPU tensor the plain version."""
-    if k_scales is not None or v_scales is not None \
-            or k_pages.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 KV pages are not ported yet (ROADMAP.md queue B item 3)")
+    int8 pages take ``k_scales``/``v_scales`` ``(num_pages, h, page_size,
+    ceil(d / kv_block))`` fp32.  ``rope=(cos, sin)``, each ``(b, sq,
+    d/2)``, rotates q at its positions in the kernel (K is rotated when
+    it is written).  A CUDA tensor runs the kernel, a CPU tensor the
+    plain version."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("int8 pages need BOTH k_scales and v_scales")
+    if k_pages.dtype == torch.int8 and k_scales is None:
+        raise ValueError("int8 pages require k_scales/v_scales")
+    if k_pages.dtype != torch.int8 and k_scales is not None:
+        raise ValueError(
+            f"scales passed with {k_pages.dtype} pages — scales belong "
+            "to int8 pools only (stale scales would silently rescale "
+            "full-precision K/V)")
     if ancestor is not None:
         raise NotImplementedError(
             "the tree ancestor mask is not ported yet "
@@ -202,8 +258,10 @@ def fmha_decode(
     scale = (1.0 / d ** 0.5) if sm_scale is None else float(sm_scale)
     if q.is_cuda:
         return _decode_cuda(q, k_pages, v_pages, page_table, lengths,
-                            causal, scale, rope)
+                            causal, scale, rope, k_scales, v_scales,
+                            kv_block)
     if q.device.type == "cpu":
         return _decode_plain(q, k_pages, v_pages, page_table, lengths,
-                             causal, scale, rope)
+                             causal, scale, rope, k_scales, v_scales,
+                             kv_block)
     raise ValueError(f"{KERNEL}: unsupported device {q.device}")

@@ -19,9 +19,14 @@ retirement; nothing is copied or compacted.
 Physical page 0 is RESERVED as the null page: unallocated page-table
 entries and the write targets of idle slots and padding point at it.
 
-Not ported yet: int8 pages (``kv_dtype``, ROADMAP.md queue A item 3) and
-the prefix cache with its refcounted sharing, copy-on-write and host
-offload tier (queue A item 7).
+``kv_dtype=torch.int8`` stores the pages quantized, with one fp32 scale
+per (token, ``kv_block`` dims) beside them, written through the same
+:func:`~apex_tpu_torch.ops.quantization.quantize_rows` as the JAX
+package's (bit-identical) and read by the paged decode kernel's int8
+instance.
+
+Not ported yet: the prefix cache with its refcounted sharing,
+copy-on-write and host offload tier (ROADMAP.md queue A item 7).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from apex_tpu_torch.ops.quantization import quantize_rows
 from apex_tpu_torch.utils.platform import resolve_device
 
 __all__ = [
@@ -58,8 +64,9 @@ class KVCacheConfig:
     ``num_pages`` counts PHYSICAL pool pages (page 0 is the reserved null
     page, so ``num_pages - 1`` are allocatable).  ``max_seqs`` is the
     fixed slot count of the serving batch; ``pages_per_seq`` bounds one
-    sequence at ``pages_per_seq * page_size`` tokens.  Pages are stored
-    in ``dtype``."""
+    sequence at ``pages_per_seq * page_size`` tokens.  ``kv_dtype=None``
+    stores pages in ``dtype``; ``torch.int8`` stores quantized pages with
+    per-``(token, kv_block)`` fp32 scales."""
 
     num_layers: int
     num_heads: int
@@ -70,6 +77,7 @@ class KVCacheConfig:
     pages_per_seq: int = 16
     dtype: torch.dtype = torch.bfloat16
     kv_dtype: Optional[torch.dtype] = None
+    kv_block: int = 128
 
     def __post_init__(self):
         if self.num_pages < 2:
@@ -78,10 +86,17 @@ class KVCacheConfig:
                 "page)")
         if self.page_size < 1 or self.pages_per_seq < 1:
             raise ValueError("page_size and pages_per_seq must be >= 1")
-        if self.kv_dtype is not None:
-            raise NotImplementedError(
-                "quantized KV pages (kv_dtype) are not ported yet "
-                "(ROADMAP.md queue A item 3)")
+        if self.kv_dtype is not None and self.kv_dtype != torch.int8:
+            raise ValueError(
+                f"kv_dtype must be None or int8, got {self.kv_dtype!r}")
+
+    @property
+    def quantized(self) -> bool:
+        return self.kv_dtype is not None
+
+    @property
+    def scale_blocks(self) -> int:
+        return -(-self.head_dim // self.kv_block)
 
     @property
     def max_len(self) -> int:
@@ -197,15 +212,25 @@ def init_pools(config: KVCacheConfig,
                device=None) -> Dict[str, torch.Tensor]:
     """Zeroed pools ``k``/``v`` of shape ``(num_layers, num_pages,
     num_heads, page_size, head_dim)`` on ``device`` (default: the GPU,
-    see :func:`apex_tpu_torch.utils.resolve_device`)."""
+    see :func:`apex_tpu_torch.utils.resolve_device`), plus fp32
+    ``k_scales``/``v_scales`` ``(..., page_size, scale_blocks)`` filled
+    with ones when quantized."""
     cfg = config
     shape = (cfg.num_layers, cfg.num_pages, cfg.num_heads,
              cfg.page_size, cfg.head_dim)
     dev = resolve_device(device)
-    return {
-        "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-        "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+    dt = cfg.kv_dtype if cfg.quantized else cfg.dtype
+    pools = {
+        "k": torch.zeros(shape, dtype=dt, device=dev),
+        "v": torch.zeros(shape, dtype=dt, device=dev),
     }
+    if cfg.quantized:
+        sshape = shape[:-1] + (cfg.scale_blocks,)
+        pools["k_scales"] = torch.ones(sshape, dtype=torch.float32,
+                                       device=dev)
+        pools["v_scales"] = torch.ones(sshape, dtype=torch.float32,
+                                       device=dev)
+    return pools
 
 
 def write_targets(
@@ -243,21 +268,37 @@ def write_tokens(
     offsets: torch.Tensor,
     *,
     quantized: bool = False,
+    kv_block: int = 128,
 ) -> Dict[str, torch.Tensor]:
     """Scatter ``n`` new tokens into ONE layer's pools, in place.
 
-    ``layer_pools``: ``{"k", "v"}`` with the layer axis sliced off
-    (``(num_pages, h, page_size, d)`` views into the full pools).
-    ``k_new``/``v_new``: ``(n, h, d)`` token rows.  ``pages``/``offsets``:
-    ``(n,)`` physical targets (idle or padded entries point at the null
-    page 0).  Duplicate targets (only ever the null page) land in an
-    unspecified order, which a garbage page does not mind.  Returns
-    ``layer_pools``."""
-    if quantized:
-        raise NotImplementedError(
-            "quantized KV pages are not ported yet "
-            "(ROADMAP.md queue A item 3)")
+    ``layer_pools``: ``{"k", "v"[, "k_scales", "v_scales"]}`` with the
+    layer axis sliced off (``(num_pages, h, page_size, d)`` views into
+    the full pools).  ``k_new``/``v_new``: ``(n, h, d)`` token rows,
+    quantized per ``(token, head, kv_block dims)`` when ``quantized``.
+    ``pages``/``offsets``: ``(n,)`` physical targets (idle or padded
+    entries point at the null page 0).  Duplicate targets (only ever the
+    null page) land in an unspecified order, which a garbage page does
+    not mind.  Returns ``layer_pools``."""
+    # the flag must agree with the pools' own layout: truncating float
+    # K/V into int8 pages while the decode kernel keeps dequantizing with
+    # stale scales would be silent garbage attention
+    if quantized != ("k_scales" in layer_pools):
+        raise ValueError(
+            f"quantized={quantized} but the pools "
+            f"{'carry' if 'k_scales' in layer_pools else 'lack'} "
+            "k_scales/v_scales — pass quantized=config.quantized "
+            "for the config that built these pools")
     k, v = layer_pools["k"], layer_pools["v"]
+    if quantized:
+        n, h, d = k_new.shape
+        for name, x in (("k", k_new), ("v", v_new)):
+            vals, scales = quantize_rows(
+                x.reshape(n * h, d).to(torch.float32), kv_block)
+            layer_pools[name][pages, :, offsets] = vals.reshape(n, h, d)
+            layer_pools[f"{name}_scales"][pages, :, offsets] = \
+                scales.reshape(n, h, -1)
+        return layer_pools
     k[pages, :, offsets] = k_new.to(k.dtype)
     v[pages, :, offsets] = v_new.to(v.dtype)
     return layer_pools

@@ -4,13 +4,14 @@ from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
 )
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
     ColumnParallelLinear,
+    QuantizedLinear,
     RowParallelLinear,
     VocabParallelEmbedding,
     normal_init,
 )
 from apex_tpu_torch.transformer.tensor_parallel.utils import clip_grad_norm
 
-__all__ = ["ColumnParallelLinear", "RowParallelLinear",
+__all__ = ["ColumnParallelLinear", "QuantizedLinear", "RowParallelLinear",
            "VocabParallelEmbedding", "clip_grad_norm",
            "lm_head_cross_entropy", "normal_init",
            "vocab_parallel_cross_entropy"]

@@ -10,6 +10,10 @@ each weight one accumulated gradient in its own dtype; the tied LM head
 adds its share to the embedding's.  At world size 1 the collectives of
 the JAX layers are identities; sharding over ``torch.distributed`` is
 ROADMAP.md queue A item 9.
+
+:class:`QuantizedLinear` is a serving projection from a quantized weight
+pool (the JAX ``{"q8"|"q4", "scales", "bias"}`` leaf of
+``quantize_gpt_weights``): its product goes to the dequant-matmul kernel.
 """
 
 from __future__ import annotations
@@ -20,9 +24,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from apex_tpu_torch.ops.dequant_matmul import dequant_matmul
 from apex_tpu_torch.transformer import parallel_state
 
-__all__ = ["ColumnParallelLinear", "RowParallelLinear",
+__all__ = ["ColumnParallelLinear", "RowParallelLinear", "QuantizedLinear",
            "VocabParallelEmbedding", "normal_init"]
 
 #: ``init(tensor, generator)`` fills ``tensor`` in place
@@ -79,6 +84,38 @@ class ColumnParallelLinear(_Linear):
 class RowParallelLinear(_Linear):
     """``Y = XA + b`` with ``A`` of shape ``(in, out)``; at world size 1
     there is no partial sum to reduce."""
+
+
+class QuantizedLinear(nn.Module):
+    """``Y = x @ dequant(W) + b`` from a quantized weight pool, for
+    serving (no gradients).  Buffers ``q8`` (int8 ``(in, out)``) or
+    ``q4`` (packed int4 ``(in, out / 2)``), fp32 ``scales (in, out /
+    block)`` and, where the full-width layer had one, ``bias``: the state
+    dict of a quantized layer reads ``<name>.q8``, ``<name>.scales``,
+    ``<name>.bias``, the keys the weight bridge makes of a JAX quantized
+    leaf.  The product and the bias add follow the JAX order: the
+    dequant product comes back in x's dtype, then the bias is cast to it
+    and added."""
+
+    def __init__(self, weight_dtype: str, qweight: torch.Tensor,
+                 scales: torch.Tensor, bias: Optional[torch.Tensor] = None):
+        super().__init__()
+        if weight_dtype not in ("int8", "int4"):
+            raise ValueError(
+                f"weight_dtype must be 'int8' or 'int4', got "
+                f"{weight_dtype!r}")
+        self.weight_dtype = weight_dtype
+        self.qkey = "q8" if weight_dtype == "int8" else "q4"
+        self.register_buffer(self.qkey, qweight)
+        self.register_buffer("scales", scales)
+        self.register_buffer("bias", bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = dequant_matmul(x, getattr(self, self.qkey), self.scales,
+                           weight_dtype=self.weight_dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
 
 
 class VocabParallelEmbedding(nn.Module):

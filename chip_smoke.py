@@ -14,7 +14,13 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
              function, if any; a short-vs-mid reading at s in {256, 384,
              512}, the flash kernels at b=2 h=8 s=4096 (and a reading at
              s=8192), the decode kernel's fused q-RoPE, and a mid-vs-flash
-             reading at s in {1024, 2048, 4096}.
+             reading at s in {1024, 2048, 4096}; the dequant-matmul
+             kernels (int8 and int4 weights, block 128) at the decode
+             shape (m=4) of each flagship projection, fc1 at m=512 and
+             qkv and fc2 at m=2304 (with one k split and with several,
+             in both kernels), beside torch.matmul on the dense bf16
+             weight; the decode kernel over int8 pages at
+             877 and 4 x 2300 cached tokens, beside bf16 pages.
 3. parity  — the flagship GPT's width at 2 layers, fp32 compute: the
              paged greedy tokens of ``ContinuousBatcher`` (6 ragged
              requests, 2 slots, 16 new tokens) must equal the port's
@@ -23,6 +29,13 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
              the same for the Llama-mode GPT (rope, RMSNorm, SwiGLU) with
              prompts up to 2500 tokens (prefill on the flash rung, decode
              through the fused q-RoPE).
+   quant-parity — the same 2-layer fp32 flagship served from int8 and
+             int4 weight pools, and the Llama mode from int4: paged
+             greedy == ``generate_reference`` on the same pools, both
+             through the dequant kernels; then int8 KV pages (fp32
+             weights): every request completes, and their decode logits
+             must stay within 2% of the logit scale of full-precision
+             pages, with argmax agreeing at 98% of positions or more.
 4. serve   — the full flagship GPT (12 layers, bf16): 8 requests with
              prompts of 32..512 tokens, 32 greedy tokens each, through
              ``decode_fns`` + ``ContinuousBatcher``, then one 900-token
@@ -32,10 +45,20 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
 5. profile — the same model under ``torch.profiler``: four prefills,
              then one harvest window of decode steps; the device's busy
              share and the kernels that took its time.
+   serve-quant — the same model and requests served from weights
+             {bf16 copies made once, int8, int4} x KV pages {bf16, int8}:
+             decode ms/step, ms per prefill, the weight bytes a step
+             streams and the rate that implies, the KV pool's bytes, and
+             the int8/int4 logits against bf16 weights; every request
+             must complete and the three new kernels must launch; a
+             decode window profiled with the bf16 copies and at int4
+             weights with int8 KV.
    serve-long — the 12-layer Llama-mode GPT in bf16: four requests of
              64..2300 prompt tokens (prefill padded to 2304, the flash
              rung), 32 greedy tokens each, decode with the fused q-RoPE;
-             then phase 5's profile of it (prompts of 2300 tokens).
+             then phase 5's profile of it (prompts of 2300 tokens), and
+             the same four requests from int8 weights and int8 KV pages
+             (the dequant kernels at m=2304 in prefill).
 6. train-parity — one step of loss, backward and FusedAdam on the GPU
              (kernels) against a CPU copy of the same model and state
              (plain versions), fp32, 2 layers at the flagship's width:
@@ -358,6 +381,143 @@ def phase_kernels(dev) -> dict:
                     f"fused q-RoPE, {without:.4f} ms without")
     records.update(flash_kernels(randn))
     crossover_long(randn)
+    records.update(dequant_kernels(randn))
+    records.update(decode_int8_kernels(randn, dev))
+    return records
+
+
+#: the flagship's projections (k, n) at the decode shape (m = 4 slots),
+#: fc1 at a 512-token prefill, and qkv and fc2 at serve-quant-long's
+#: 2304-token prefill
+DEQUANT_SHAPES = (("qkv", 4, 1024, 3072), ("attn_proj", 4, 1024, 1024),
+                  ("fc1", 4, 1024, 4096), ("fc2", 4, 4096, 1024),
+                  ("fc1", 512, 1024, 4096), ("qkv", 2304, 1024, 3072),
+                  ("fc2", 2304, 4096, 1024))
+
+
+def dequant_kernels(randn) -> dict:
+    """``dequant_int8`` and ``dequant_int4`` against their plain versions,
+    block 128, bf16 and fp32 x, at :data:`DEQUANT_SHAPES`.  The bound is
+    the bytes moved (x, the quantized weights and scales, the output) or
+    the fp32 arithmetic (2mkn plus one dequantizing multiply per weight at
+    67 TFLOP/s); no PyTorch call takes block-scaled int8/int4 weights, so
+    there is no library time.  A separate reading: ``torch.matmul`` on the
+    dense bf16 weight at each shape, the time the quantized pool has to
+    beat.
+
+    Each kernel (decode, m <= 8; tiled, above) stores straight to the
+    output when k is not split and through the fixed-order sum when it
+    is; the shapes must reach all four, or the phase fails.  No flagship
+    projection leaves the decode kernel one split, so a probe as wide as
+    two column tiles an SM (k = 256) reaches its direct store."""
+    from apex_tpu_torch.ops.dequant_matmul import (
+        SKINNY_MAX_M, dequant_matmul, dequant_matmul_reference,
+        quantize_weight, split_plan)
+
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    shapes = DEQUANT_SHAPES + (("direct-store probe", 4, 256, 512 * sms),)
+    splits = {shape: split_plan(*shape[1:], sms)[1] for shape in shapes}
+    reached = {(m <= SKINNY_MAX_M, splits[(name, m, k, n)] == 1)
+               for name, m, k, n in shapes}
+    if len(reached) != 4:
+        fail(f"dequant: the shapes reach only (decode kernel, one split) "
+             f"= {sorted(reached)} of the four store paths")
+    records = {}
+    log("[kernels] dequant_int8, dequant_int4 (CUDA), block 128")
+    for name, m, k, n in shapes:
+        w = randn(k, n, scale=0.02)
+        for wd in ("int8", "int4"):
+            kernel = f"dequant_{wd}"
+            pool = quantize_weight(w, wd, 128)
+            q, s = pool["q8" if wd == "int8" else "q4"], pool["scales"]
+            for dtype in (torch.bfloat16, torch.float32):
+                x = randn(m, k, dtype=dtype)
+                shape = (f"{name} m={m} k={k} n={n} "
+                         f"({splits[(name, m, k, n)]} k splits) x "
+                         f"{str(dtype)[6:]}")
+                run = lambda: dequant_matmul(x, q, s, weight_dtype=wd)
+                plain = lambda: dequant_matmul_reference(
+                    x, q, s, weight_dtype=wd, block_size=128)
+                err = check(kernel, run(), plain(), shape)
+                records.setdefault(kernel, []).append(measure(
+                    kernel, shape, err, run, plain, None,
+                    nbytes=x.numel() * x.element_size() + q.numel()
+                    + s.numel() * 4 + m * n * x.element_size(),
+                    ops=2.0 * m * k * n + k * n, dtype=torch.float32))
+        xb, wb = randn(m, k, dtype=torch.bfloat16), w.to(torch.bfloat16)
+        ms, _ = time_ms(lambda: torch.matmul(xb, wb))
+        log(f"  dense bf16 torch.matmul {name} m={m} k={k} n={n}: "
+            f"{ms:.4f} ms on the device")
+    return records
+
+
+def paged_layout(lengths, page: int, pps: int, dev):
+    """A page table for ``lengths`` cached tokens a slot, its pages
+    scattered through the pool (page 0, the null page, unused): returns
+    ``(table, lengths, num_pages)`` on ``dev``."""
+    num_pages = 1 + sum(-(-n // page) for n in lengths)
+    perm = torch.randperm(num_pages - 1, generator=torch.Generator()
+                          .manual_seed(1)) + 1
+    table = torch.zeros((len(lengths), pps), dtype=torch.int32)
+    at = 0
+    for i, n in enumerate(lengths):
+        used = -(-n // page)
+        table[i, :used] = perm[at:at + used]
+        at += used
+    return (table.to(dev), torch.tensor(lengths, dtype=torch.int32,
+                                        device=dev), num_pages)
+
+
+def decode_int8_kernels(randn, dev) -> dict:
+    """``paged_decode_int8`` against its plain version (bf16 and fp32 q,
+    sq 1 and 4) over pages the cache's quantizer made from random rows, at
+    phase 2's 4-slot layout (877 cached tokens) and at serve-long's 2300
+    tokens a slot; timed at bf16 q, sq=1, beside the bf16 pages' kernel
+    over the same values dequantized."""
+    from apex_tpu_torch.ops import attention_decode as dec
+    from apex_tpu_torch.ops.quantization import quantize_rows
+
+    heads, d, page = FLAGSHIP["num_attention_heads"], 128, 64
+    records = {}
+    log(f"[kernels] paged_decode_int8 (CUDA), 4 slots h={heads} d={d} page "
+        f"{page}, kv_block 128")
+    for lengths, pps in (([0, 1, 300, 576], 9), ([2300] * 4, 37)):
+        table, lens, num_pages = paged_layout(lengths, page, pps, dev)
+        pages = []
+        for _ in range(2):
+            vals, sc = quantize_rows(
+                randn(num_pages * heads * page, d), 128)
+            pages.append((vals.view(num_pages, heads, page, d),
+                          sc.view(num_pages, heads, page, 1)))
+        (kp, ks), (vp, vs) = pages
+        toks = sum(lengths)
+        for dtype in (torch.bfloat16, torch.float32):
+            for sq in (1, 4):
+                q = randn(4, heads, sq, d, dtype=dtype)
+                run = lambda: dec.fmha_decode(q, kp, vp, table, lens,
+                                              k_scales=ks, v_scales=vs)
+                plain = lambda: dec.paged_attention_reference(
+                    q, kp, vp, table, lens, k_scales=ks, v_scales=vs)
+                what = f"{str(dtype)[6:]} sq={sq} {toks} cached tokens"
+                err = check("paged_decode_int8", run(), plain(), what)
+                if dtype != torch.bfloat16 or sq != 1:
+                    continue
+                records.setdefault("paged_decode_int8", []).append(measure(
+                    "paged_decode_int8",
+                    f"4 slots, lengths {'/'.join(map(str, lengths))}, "
+                    f"h={heads} d={d} page={page} int8 pages, bf16 q", err,
+                    run, plain,
+                    None,
+                    nbytes=2 * q.numel() * q.element_size()
+                    + 2 * toks * heads * (d + 4) + table.numel() * 4
+                    + lens.numel() * 4,
+                    ops=4.0 * d * heads * toks, dtype=dtype))
+                kb, vb = ((p.float() * sc).to(dtype) for p, sc in pages)
+                bf16_ms, _ = time_ms(lambda: dec.fmha_decode(
+                    q, kb, vb, table, lens))
+                log(f"  paged_decode over bf16 pages, same layout: "
+                    f"{bf16_ms:.4f} ms on the device")
     return records
 
 
@@ -638,7 +798,10 @@ def crossover(randn) -> None:
 
 # ---------------------------------------------------------------- phase 3
 def serve(model, requests, max_prompt_len, page_size, max_seqs,
-          pages_per_seq, harvest_every=8):
+          pages_per_seq, harvest_every=8, weight_dtype=None, kv_dtype=None):
+    """Serve ``requests`` through ``decode_fns`` (``weight_dtype``) over a
+    fresh paged cache (``kv_dtype``) and ``ContinuousBatcher``.  Returns
+    ``(completions, wall s, [prefill s], batcher)``."""
     from apex_tpu_torch.serving import (
         ContinuousBatcher, KVCacheConfig, PagedKVCache, init_pools)
 
@@ -647,8 +810,10 @@ def serve(model, requests, max_prompt_len, page_size, max_seqs,
         num_layers=c.num_layers, num_heads=c.num_attention_heads,
         head_dim=c.head_dim, num_pages=1 + max_seqs * pages_per_seq,
         page_size=page_size, max_seqs=max_seqs,
-        pages_per_seq=pages_per_seq, dtype=c.compute_dtype)
-    fns = model.decode_fns(ccfg, max_prompt_len=max_prompt_len)
+        pages_per_seq=pages_per_seq, dtype=c.compute_dtype,
+        kv_dtype=kv_dtype)
+    fns = model.decode_fns(ccfg, max_prompt_len=max_prompt_len,
+                           weight_dtype=weight_dtype)
     prefill_s = []
 
     def timed_prefill(*args):
@@ -755,6 +920,143 @@ def phase_rope_parity(dev) -> dict:
     return counts
 
 
+def kv_logit_band(model, prompts, plens, steps: int, page_size: int = 16):
+    """Decode logits from int8 KV pages against the same model's
+    full-precision pages: both caches take the same prompts, then the
+    same tokens (the full-precision path's greedy picks) for ``steps``
+    decode steps.  Returns ``(max |diff|, share of positions whose argmax
+    agrees, largest |logit|)``."""
+    from apex_tpu_torch.serving import KVCacheConfig, PagedKVCache, init_pools
+
+    c, dev = model.config, model.device
+    S, width = prompts.shape
+    pps = -(-(width + steps) // page_size)
+    runs = []
+    for kv_dtype in (None, torch.int8):
+        ccfg = KVCacheConfig(
+            num_layers=c.num_layers, num_heads=c.num_attention_heads,
+            head_dim=c.head_dim, num_pages=1 + S * pps, page_size=page_size,
+            max_seqs=S, pages_per_seq=pps, dtype=c.compute_dtype,
+            kv_dtype=kv_dtype)
+        cache, pools = PagedKVCache(ccfg), init_pools(ccfg, dev)
+        fns = model.decode_fns(ccfg, max_prompt_len=width)
+        firsts = []
+        for i in range(S):
+            cache.admit(i, int(plens[i]) + steps)
+            pools, first = fns.prefill(
+                pools, torch.as_tensor(prompts[i:i + 1], device=dev),
+                int(plens[i]), torch.as_tensor(cache.page_table[i],
+                                               device=dev))
+            firsts.append(first)
+        table = torch.as_tensor(cache.page_table, device=dev)
+        runs.append((ccfg, table, pools, torch.stack(firsts)))
+    tokens = runs[0][3].to(torch.int32)
+    positions = torch.as_tensor(np.asarray(plens), dtype=torch.int32,
+                                device=dev)
+    active = torch.ones(S, dtype=torch.bool, device=dev)
+    band, scale, agree = 0.0, 0.0, []
+    with torch.no_grad():
+        for _ in range(steps):
+            hi, lo = (model.decode_step(
+                tokens, positions, active, table, pools,
+                quantized=ccfg.quantized, kv_block=ccfg.kv_block)[0].float()
+                for ccfg, table, pools, _ in runs)
+            band = max(band, (lo - hi).abs().max().item())
+            scale = max(scale, hi.abs().max().item())
+            agree.append((lo.argmax(-1) == hi.argmax(-1)).float().mean()
+                         .item())
+            tokens = hi.argmax(-1).to(torch.int32)
+            positions = positions + 1
+    return band, float(np.mean(agree)), scale
+
+
+#: int8 KV pages against fp32 pages in quant-parity: the decode logits'
+#: band as a share of the largest |logit|, and the least share of
+#: positions whose argmax agrees.  An int8 row keeps each value to half
+#: of 1/127 of its block's largest; the readings were 0.4% of the logit
+#: scale and 100% agreement, so 2% leaves room while a wrong scale slice
+#: or block (errors on the logit scale itself) fails, and 98% lets one
+#: of the 96 positions flip on a near-tie.
+KV_BAND_MAX = 0.02
+KV_AGREE_MIN = 0.98
+
+
+def phase_quant_parity(dev) -> None:
+    """Quantized serving at the flagship's width, 2 layers, fp32 compute,
+    phase 3's 6 ragged requests through 2 slots, 16 new tokens: from int8
+    and int4 weight pools (the flagship) and int4 (the Llama mode, with
+    its ``fc_gate``), the paged greedy tokens must equal
+    ``generate_reference`` on the same quantized model, both through the
+    dequant kernels; from int8 KV pages (fp32 weights) every request must
+    complete, and the decode logits are held against fp32 pages."""
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+    from apex_tpu_torch.models.gpt import quantize_gpt_weights
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.serving import Request
+
+    log("[quant-parity] 2 layers at the flagship's width, fp32: paged "
+        "greedy from quantized pools vs full recompute on the same pools")
+    new = 16
+    plens = np.array([48, 17, 64, 5, 33, 60])
+    rng = np.random.RandomState(2)
+    for label, sizes, widths in (("flagship", FLAGSHIP, ("int8", "int4")),
+                                 ("Llama mode", LLAMA, ("int4",))):
+        cfg = GPTConfig(**dict(sizes, num_layers=2),
+                        compute_dtype=torch.float32)
+        model = GPTModel(cfg, device=dev, seed=1)
+        prompts = rng.randint(1, cfg.vocab_size, (6, 64)).astype(np.int32)
+        for i, n in enumerate(plens):
+            prompts[i, n:] = 0
+        reqs = [Request(uid=i, prompt=prompts[i, :n].tolist(),
+                        max_new_tokens=new) for i, n in enumerate(plens)]
+        for wd in widths:
+            qm = quantize_gpt_weights(model, wd)
+            ref = qm.generate_reference(prompts, plens, new)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            comps, _, _, _ = serve(qm, reqs, max_prompt_len=64, page_size=16,
+                                   max_seqs=2, pages_per_seq=5,
+                                   harvest_every=4)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            for i in range(6):
+                if comps[i].tokens != ref[i].tolist():
+                    fail(f"quant-parity: {label} {wd} request {i} paged "
+                         f"{comps[i].tokens} != reference "
+                         f"{ref[i].tolist()}")
+            if counts.get(f"dequant_{wd}", 0) <= 0:
+                fail(f"quant-parity: dequant_{wd} never launched")
+            distinct = len({t for r in ref.tolist() for t in r})
+            log(f"  {label}, {wd} weights: 6 requests x {new} tokens "
+                f"identical ({distinct} distinct ids); launches {counts}")
+        if label != "flagship":
+            continue
+        reset_launch_counts()
+        comps, _, _, _ = serve(model, reqs, max_prompt_len=64, page_size=16,
+                               max_seqs=2, pages_per_seq=5, harvest_every=4,
+                               kv_dtype=torch.int8)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        for i in range(6):
+            toks = comps[i].tokens
+            if len(toks) != new or not all(0 <= t < cfg.vocab_size
+                                           for t in toks):
+                fail(f"quant-parity: int8 KV request {i} returned {toks}")
+        if counts.get("paged_decode_int8", 0) <= 0:
+            fail("quant-parity: paged_decode_int8 never launched")
+        band, agree, scale = kv_logit_band(model, prompts, plens, new)
+        log(f"  {label}, int8 KV pages (fp32 weights): 6 requests x {new} "
+            f"tokens complete; decode logits vs fp32 pages over {new} "
+            f"steps: max |diff| {band:.5f} (logit scale {scale:.3f}), "
+            f"argmax agrees at {100 * agree:.1f}% of positions")
+        if not band <= KV_BAND_MAX * scale or agree < KV_AGREE_MIN:
+            fail(f"quant-parity: int8 KV logits off fp32 pages by {band:.5f}"
+                 f" (limit {KV_BAND_MAX * scale:.5f}) or argmax agreeing at "
+                 f"{100 * agree:.1f}% (limit {100 * KV_AGREE_MIN:.0f}%)")
+        del model
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- phase 4
 def phase_serve(dev) -> dict:
     from apex_tpu_torch.models import GPTConfig, GPTModel
@@ -833,11 +1135,12 @@ def phase_serve(dev) -> dict:
     return counts, model
 
 
-def phase_serve_long(dev) -> dict:
+def phase_serve_long(dev):
     """The 12-layer Llama-mode GPT in bf16 serves four requests of 2300,
     1500, 700 and 64 prompt tokens, 32 greedy tokens each, 4 slots, pages
     of 64: every prefill is padded to 2304 tokens (the flash rung) and
-    every decode step rotates q in the paged kernel."""
+    every decode step rotates q in the paged kernel.  Returns the
+    model."""
     from apex_tpu_torch.models import GPTConfig, GPTModel
     from apex_tpu_torch.ops import launch_counts, reset_launch_counts
     from apex_tpu_torch.serving import Request
@@ -874,9 +1177,119 @@ def phase_serve_long(dev) -> dict:
             fail(f"serve-long: kernel {name} never launched on the main path")
     phase_profile(model, prompt=2300, width=width, pps=pps,
                   what="Llama-mode GPT")
-    del model
-    torch.cuda.empty_cache()
+    return model
+
+
+def phase_serve_quant(model) -> dict:
+    """Phase 4's model and requests (12-layer flagship, bf16 compute, 8
+    requests of 32..512 tokens x 32 new tokens, 4 slots, pages 64 x 9)
+    served from weights {bf16 copies made once, int8, int4} x KV pages
+    {bf16, int8}.  Every request must complete, and the dequant kernels
+    and the int8-page decode kernel must launch.  Then one decode window
+    profiled with the bf16 copies (phase 5's ran without them) and one at
+    int4 weights with int8 KV.  Returns the launches of the six runs."""
+    from apex_tpu_torch.models.gpt import quantize_gpt_weights
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.serving import Request
+
+    log("[serve-quant] flagship GPT, 12 layers, bf16: weights {bf16, int8, "
+        "int4} x KV {bf16, int8}, 8 requests x 32 tokens, 4 slots, pages "
+        "64 x 9")
+    c, dev = model.config, model.device
+    plens = np.linspace(32, 512, 8).astype(int)
+    rng = np.random.RandomState(0)
+    new = 32
+    reqs = [Request(uid=i, prompt=rng.randint(1, c.vocab_size, n).tolist(),
+                    max_new_tokens=new) for i, n in enumerate(plens)]
+    served = {"bf16": model}
+    for wd in ("int8", "int4"):
+        served[wd] = quantize_gpt_weights(model, wd)
+    # the quantized logits against bf16 weights on one fixed prompt
+    toks = torch.as_tensor([reqs[3].prompt], device=dev)
+    with torch.no_grad():
+        ref = model.apply(toks)[0].float()
+        for wd in ("int8", "int4"):
+            lo = served[wd].apply(toks)[0].float()
+            agree = (lo.argmax(-1) == ref.argmax(-1)).float().mean().item()
+            log(f"  {wd} vs bf16 weights, logits over a {toks.shape[1]}-token "
+                f"prompt: max |diff| {(lo - ref).abs().max().item():.4f} "
+                f"(logit scale {ref.abs().max().item():.3f}), argmax agrees "
+                f"at {100 * agree:.1f}% of positions")
+    serve(served["int4"], [Request(uid="warm", prompt=[1, 2, 3],
+                                   max_new_tokens=2)], 512, 64, 4, 9,
+          weight_dtype="int4", kv_dtype=torch.int8)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for wd in ("bf16", "int8", "int4"):
+        for kv_dtype in (None, torch.int8):
+            comps, wall, prefill_s, b = serve(
+                served[wd], reqs, 512, 64, 4, 9, weight_dtype=wd,
+                kv_dtype=kv_dtype)
+            for i in range(len(reqs)):
+                got = comps[i].tokens
+                if len(got) != new or not all(0 <= t < c.vocab_size
+                                              for t in got):
+                    fail(f"serve-quant: {wd} weights request {i} returned "
+                         f"{got}")
+            step_s = (wall - sum(prefill_s)) / b.steps
+            wbytes = b.decode_fn.weight_stream_bytes
+            kv_bytes = sum(p.numel() * p.element_size()
+                           for p in b.pools.values())
+            log(f"  weights {wd} ({b.decode_fn.weight_dtype}), KV "
+                f"{'int8' if kv_dtype else 'bf16'}: decode "
+                f"{1e3 * step_s:.2f} ms/step, prefill "
+                f"{1e3 * np.mean(prefill_s):.2f} ms each; a decode step "
+                f"streams {wbytes / 1e6:.1f} MB of weights = "
+                f"{wbytes / step_s / 1e9:.1f} GB/s; KV pool "
+                f"{kv_bytes / 1e6:.1f} MB")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"  launches in the six runs: {counts}")
+    for name in ("dequant_int8", "dequant_int4", "paged_decode_int8",
+                 "paged_decode", "short_fwd", "ln_fwd"):
+        if counts.get(name, 0) <= 0:
+            fail(f"serve-quant: kernel {name} never launched")
+    phase_profile(model, what="flagship GPT, bf16 weight copies made once",
+                  weight_dtype="bf16")
+    phase_profile(served["int4"], what="flagship GPT, int4 weights, int8 KV",
+                  kv_dtype=torch.int8)
     return counts
+
+
+def phase_serve_quant_long(model) -> None:
+    """Serve-long's model and four requests (64..2300 prompt tokens,
+    prefill padded to 2304 on the flash rung) from int8 weights and int8
+    KV pages: the dequant kernels take m=2304 in prefill."""
+    from apex_tpu_torch.models.gpt import quantize_gpt_weights
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.serving import Request
+
+    log("[serve-quant-long] Llama-mode GPT, 12 layers, bf16, int8 weights "
+        "and int8 KV: 4 requests of 64..2300 prompt tokens x 32 tokens")
+    c = model.config
+    rng = np.random.RandomState(6)
+    plens, new, width, pps = [2300, 1500, 700, 64], 32, 2304, 37
+    reqs = [Request(uid=i, prompt=rng.randint(1, c.vocab_size, n).tolist(),
+                    max_new_tokens=new) for i, n in enumerate(plens)]
+    qm = quantize_gpt_weights(model, "int8")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    comps, wall, prefill_s, b = serve(qm, reqs, width, 64, 4, pps,
+                                      weight_dtype="int8",
+                                      kv_dtype=torch.int8)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for i in range(len(reqs)):
+        got = comps[i].tokens
+        if len(got) != new or not all(0 <= t < c.vocab_size for t in got):
+            fail(f"serve-quant-long: request {i} returned {got}")
+    for name in ("dequant_int8", "paged_decode_int8", "flash_fwd"):
+        if counts.get(name, 0) <= 0:
+            fail(f"serve-quant-long: kernel {name} never launched")
+    log(f"  {len(reqs)} requests complete, {b.steps} decode steps; prefill "
+        f"of {width} tokens {1e3 * np.mean(prefill_s):.2f} ms each; decode "
+        f"{1e3 * (wall - sum(prefill_s)) / b.steps:.2f} ms per step; "
+        f"launches {counts}")
 
 
 def device_rows(prof) -> list:
@@ -921,10 +1334,12 @@ def device_breakdown(prof, wall_s: float, label: str) -> None:
 
 # ---------------------------------------------------------------- phase 5
 def phase_profile(model, prompt=256, width=512, pps=9,
-                  what="flagship GPT") -> None:
+                  what="flagship GPT", weight_dtype=None,
+                  kv_dtype=None) -> None:
     """Where the serving time goes: 4 prefills of ``prompt``-token
     prompts (padded to ``width``), then one harvest window of 8 decode
-    steps over 4 slots, each under ``torch.profiler``."""
+    steps over 4 slots, each under ``torch.profiler``, with the weights
+    of ``decode_fns(weight_dtype=)`` and the pages of ``kv_dtype``."""
     import collections
 
     from torch.profiler import ProfilerActivity, profile
@@ -939,8 +1354,9 @@ def phase_profile(model, prompt=256, width=512, pps=9,
     ccfg = KVCacheConfig(
         num_layers=c.num_layers, num_heads=c.num_attention_heads,
         head_dim=c.head_dim, num_pages=1 + 4 * pps, page_size=64, max_seqs=4,
-        pages_per_seq=pps, dtype=c.compute_dtype)
-    fns = model.decode_fns(ccfg, max_prompt_len=width)
+        pages_per_seq=pps, dtype=c.compute_dtype, kv_dtype=kv_dtype)
+    fns = model.decode_fns(ccfg, max_prompt_len=width,
+                           weight_dtype=weight_dtype)
     batcher = ContinuousBatcher(
         fns.prefill, fns.decode, PagedKVCache(ccfg),
         init_pools(ccfg, model.device), max_prompt_len=width,
@@ -1165,6 +1581,12 @@ SOURCES = {
                       "apex_tpu/ops/attention.py:429"),
     "flash_bwd_dq": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
                      "apex_tpu/ops/attention.py:534"),
+    "dequant_int8": ("cuda", "apex_tpu_torch/csrc/dequant_matmul.cu",
+                     "apex_tpu/ops/dequant_matmul.py:97"),
+    "dequant_int4": ("cuda", "apex_tpu_torch/csrc/dequant_matmul.cu",
+                     "apex_tpu/ops/dequant_matmul.py:107"),
+    "paged_decode_int8": ("cuda", "apex_tpu_torch/csrc/attention_decode.cu",
+                          "apex_tpu/ops/attention_decode.py:210"),
 }
 
 FLASH = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
@@ -1190,11 +1612,16 @@ def main() -> None:
     records = timed("kernels", phase_kernels, dev)
     timed("parity", phase_parity, dev)
     timed("rope-parity", phase_rope_parity, dev)
+    timed("quant-parity", phase_quant_parity, dev)
     serve_counts, model = timed("serve", phase_serve, dev)
     timed("profile", phase_profile, model)
+    quant_counts = timed("serve-quant", phase_serve_quant, model)
     del model
     torch.cuda.empty_cache()
-    timed("serve-long", phase_serve_long, dev)
+    model = timed("serve-long", phase_serve_long, dev)
+    timed("serve-quant-long", phase_serve_quant_long, model)
+    del model
+    torch.cuda.empty_cache()
     parity_counts = timed("train-parity", phase_train_parity, dev)
     train_counts, tr, batch = timed("train", phase_train, dev)
     timed("profile", phase_profile_train, tr, batch)
@@ -1206,11 +1633,14 @@ def main() -> None:
     timed("profile", phase_profile_train, tr, batch,
           f"Llama mode (O5, 2 x {LONG_SEQ})")
     # one record per kernel at its main path's shape; launches from the
-    # path that carries it: the serving kernels from phase 4, short_bwd
-    # from the s=384 training step of phase 6, the mid kernels from the
-    # flagship training of phase 7, the flash kernels from the
-    # long-context training of phase 9
+    # path that carries it: the serving kernels from phase 4, the dequant
+    # kernels and int8 pages from serve-quant, short_bwd from the s=384
+    # training step of phase 6, the mid kernels from the flagship training
+    # of phase 7, the flash kernels from the long-context training of
+    # phase 9
     main_counts = dict(serve_counts)
+    for name in ("dequant_int8", "dequant_int4", "paged_decode_int8"):
+        main_counts[name] = quant_counts.get(name, 0)
     main_counts["short_bwd"] = parity_counts[384].get("short_bwd", 0)
     for name in ("mid_fwd", "mid_bwd"):
         main_counts[name] = train_counts.get(name, 0)

@@ -81,7 +81,8 @@ def test_unported_options_raise():
     args = [torch.from_numpy(a) for a in (q, k, v, table, lengths)]
     with pytest.raises(NotImplementedError, match="queue B"):
         port_decode.fmha_decode(*args, ancestor=((True,),))
-    with pytest.raises(NotImplementedError, match="queue B"):
+    # int8 pages are ported: without their scales they raise JAX's error
+    with pytest.raises(ValueError, match="require k_scales"):
         port_decode.fmha_decode(*args[:1], args[1].to(torch.int8),
                                 args[2].to(torch.int8), *args[3:])
 

@@ -83,7 +83,9 @@ def test_flash_backward_wrappers_count_their_launches():
     ("attention_mid", "mid_fwd"), ("attention_mid", "mid_bwd"),
     ("attention_flash", "flash_fwd"), ("attention_flash", "flash_bwd_dkv"),
     ("attention_flash", "flash_bwd_dq"),
-    ("attention_decode", "paged_decode")])
+    ("attention_decode", "paged_decode"),
+    ("attention_decode", "paged_decode_int8"),
+    ("dequant_matmul", "dequant_matmul")])
 def test_c_entries_are_typed_as_the_source_declares(monkeypatch, module,
                                                     symbol):
     """The ctypes argument types of each C entry match its declaration
@@ -106,6 +108,23 @@ def test_c_entries_are_typed_as_the_source_declares(monkeypatch, module,
         mod._entry.cache_clear()
     assert lib is fake and loads == [module]
     assert fn.argtypes == want and fn.restype is ctypes.c_int
+
+
+def test_dequant_and_int8_decode_wrappers_count_their_launches():
+    """The dequant wrapper launches under ``dequant_int8`` or
+    ``dequant_int4`` from one place, with no fallback; the decode wrapper
+    counts int8 pages under ``paged_decode_int8``; both sources are
+    built."""
+    from apex_tpu_torch.ops import attention_decode as dec
+    from apex_tpu_torch.ops.common import KERNEL_SOURCES
+
+    mod = importlib.import_module("apex_tpu_torch.ops.dequant_matmul")
+    src = (ROOT / "apex_tpu_torch" / "ops" / "dequant_matmul.py").read_text()
+    assert not re.search(r"^\s*try\s*:", src, re.MULTILINE)
+    assert src.count("count_launch(") == 1
+    assert mod.KERNELS == {"int8": "dequant_int8", "int4": "dequant_int4"}
+    assert dec.KERNEL_INT8 == "paged_decode_int8"
+    assert {"dequant_matmul", "attention_decode"} <= set(KERNEL_SOURCES)
 
 
 def test_entry_points_default_to_the_gpu(monkeypatch):

@@ -152,15 +152,17 @@ def test_unported_serving_options_raise(setup):
                          num_pages=8, page_size=PAGE, max_seqs=2,
                          pages_per_seq=4, dtype=torch.float32)
     for kw in (dict(temperature=0.7), dict(prefill_chunk=4),
-               dict(speculate_k=2), dict(weight_dtype="int8"),
-               dict(tp=2)):
+               dict(speculate_k=2), dict(tp=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tm.decode_fns(ccfg, max_prompt_len=10, **kw)
     with pytest.raises(ValueError, match="learned table"):
         tm.decode_fns(ccfg, max_prompt_len=2049)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # int8 KV pages are ported; another kv_dtype raises as in JAX
+    assert KVCacheConfig(num_layers=2, num_heads=4, head_dim=8, num_pages=8,
+                         kv_dtype=torch.int8).quantized
+    with pytest.raises(ValueError, match="kv_dtype"):
         KVCacheConfig(num_layers=2, num_heads=4, head_dim=8, num_pages=8,
-                      kv_dtype=torch.int8)
+                      kv_dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         sample(torch.zeros(2, 8), temperature=1.0)
 

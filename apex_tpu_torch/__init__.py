@@ -15,9 +15,12 @@ training step at one GPU (``GPTModel.loss``, the backward,
 ``examples.gpt_pretrain``), for the learned-position model and its Llama
 mode, and ``transformer.functional.FusedScaleMaskSoftmax``: a
 hand-written kernel for each of the JAX package's Pallas kernels.  What
-is still to come is listed in ``ROADMAP.md``.
+is still to come is listed in ``ROADMAP.md``.  BERT (``models.bert``)
+trains and fine-tunes through the attention kernels' segment-id instances
+(``examples.bert_finetune``), which also carry the packed-varlen
+``contrib.fmha``.
 """
 
-__all__ = ["amp", "convert", "examples", "models", "multi_tensor_apply",
-           "ops", "optimizers", "serving", "telemetry", "transformer",
-           "utils"]
+__all__ = ["amp", "contrib", "convert", "examples", "models",
+           "multi_tensor_apply", "ops", "optimizers", "serving", "telemetry",
+           "transformer", "utils"]

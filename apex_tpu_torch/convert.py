@@ -1,5 +1,5 @@
-"""Carry GPT weights and optimizer state between the JAX package and the
-port.
+"""Carry GPT and BERT weights and optimizer state between the JAX package
+and the port.
 
 The JAX ``GPTModel`` keeps its parameters as a nested dict with every
 layer leaf STACKED on a leading ``num_layers`` dim
@@ -10,7 +10,10 @@ so its state dict names ``layers.<i>.qkv.weight`` and so on.  The
 Llama-mode tree (rope, RMSNorm, SwiGLU) has no ``pos_embedding``, norms
 with a ``scale`` and no ``bias``, and a ``fc_gate`` per layer; so has
 the port's model in that mode, and the bridge needs nothing else for
-it.  Both keep the same per-leaf layouts (linear weights ``(in, out)``, the qkv output
+it.  Nor for BERT: its tree adds ``tokentype_embedding``,
+``lm_head.{dense.{weight, bias}, ln.{scale, bias}, bias}``, ``pooler`` and
+``binary_head``, which the port's ``BertModel`` names alike.  Both keep
+the same per-leaf layouts (linear weights ``(in, out)``, the qkv output
 grouped per head, the LM head tied to ``embedding.weight``), so the
 bridge only flattens/unstacks the tree: values are copied bit for bit
 and a round trip is exact.
@@ -79,8 +82,8 @@ def _array(t: torch.Tensor) -> np.ndarray:
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX GPT parameter tree (numpy leaves) -> the port's state dict
-    (CPU tensors; ``GPTModel.load_state_dict`` moves them)."""
+    """JAX GPT or BERT parameter tree (numpy leaves) -> the port's state
+    dict (CPU tensors; ``load_state_dict`` moves them)."""
     state: Dict[str, torch.Tensor] = {}
     for key, leaf in _flatten(tree):
         arr = np.asarray(leaf)
@@ -94,7 +97,7 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """The port's state dict -> the JAX GPT parameter tree (numpy
+    """The port's state dict -> the JAX GPT or BERT parameter tree (numpy
     leaves, layer leaves stacked on a leading ``num_layers`` dim)."""
     tree: Dict[str, Any] = {}
     per_layer: Dict[Tuple[str, ...], Dict[int, np.ndarray]] = {}

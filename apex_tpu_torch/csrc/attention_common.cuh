@@ -49,6 +49,15 @@
 //    queries (>= sq: padded rows, whose lse is meaningless, are kept out of
 //    dK/dV as in the TPU backward); masked probabilities are exactly zero
 //    and the forward fills masked scores with the finite -1e30.
+//  - segment ids (SEGS, the Pallas bodies' has_segs): the same predicate in
+//    all three kernels also asks q_ids[i] == kv_ids[j], with each tile's
+//    ids staged beside it in shared memory.  A query row that sees no key
+//    (fmha's padding, id -1 against key padding -2) ends with l = 0, so its
+//    output is 0 and its lse about -1e30, as in the Pallas bodies; the
+//    backward's predicate then keeps p = 0 for that row instead of
+//    exp(s - lse), so no garbage reaches dK/dV or dQ.  The causal tile
+//    skips stay as they are; no tile is skipped on its ids (the JAX kernels
+//    run every segment block masked, apex_tpu/ops/attention.py:364-377).
 //
 // What bounds them on the card: at the flagship's training shape (b*h = 64,
 // s = 1024, d = 128, causal, bf16) the forward does 2 * 2 * d * s(s+1)/2
@@ -87,13 +96,15 @@ struct FwdLayout {
   static constexpr int BYTES = round_up(O_OFF + kTile * LDO * 4, 128);
 };
 
-// q, out: (bh, sq, D); k, v: (bh, sk, D); lse: (bh, sq) fp32.
-template <typename T, int D>
+// q, out: (bh, sq, D); k, v: (bh, sk, D); lse: (bh, sq) fp32; with SEGS,
+// q_ids (bh / heads, sq) and kv_ids (bh / heads, sk) int32.
+template <typename T, int D, bool SEGS>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, T* __restrict__ out,
-                float* __restrict__ lse, int sq, int sk, int causal,
-                float scale) {
+                const T* __restrict__ v, const int* __restrict__ q_ids,
+                const int* __restrict__ kv_ids, T* __restrict__ out,
+                float* __restrict__ lse, int heads, int sq, int sk,
+                int causal, float scale) {
   using L = FwdLayout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem + L::Q_OFF);
@@ -102,6 +113,9 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Ss = reinterpret_cast<float*>(smem + L::S_OFF);
   bf16* Ps = reinterpret_cast<bf16*>(smem + L::P_OFF);
   float* Os = reinterpret_cast<float*>(smem + L::O_OFF);
+  // the block's query ids and the current key tile's, after the layout
+  int* qid = reinterpret_cast<int*>(smem + L::BYTES);
+  int* kid = reinterpret_cast<int*>(smem + L::BYTES + id_bytes<SEGS>(kTile));
 
   const int lane = threadIdx.x % 32;
   const int row0 = (threadIdx.x / 32) * kRows;
@@ -109,8 +123,10 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kTile;
   const T* kb = k + bh * sk * D;
   const T* vb = v + bh * sk * D;
+  const long brow = SEGS ? bh / heads : 0;
 
   load_tile<T, D>(Qs, L::LDQ, q + bh * sq * D, q0, kTile, sq);
+  if constexpr (SEGS) load_ids(qid, q_ids + brow * sq, q0, kTile, sq);
   zero_f(Os, L::LDO, kTile, D);
   float m[kRows], l[kRows];
 #pragma unroll
@@ -124,6 +140,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = 0; k0 < kv_end; k0 += kTile) {
     __syncthreads();   // the previous tile's products are done with K/V
     load_tiles<T, D>(Ks, L::LDK, Vs, L::LDV, kb, vb, k0, kTile, sk);
+    if constexpr (SEGS) load_ids(kid, kv_ids + brow * sk, k0, kTile, sk);
     __syncthreads();
 
     if constexpr (L::kTC) {
@@ -146,7 +163,8 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int kj = k0 + lane + 32 * h;
-        ok[h] = kj < sk && (!causal || kj <= qi);
+        ok[h] = kj < sk && (!causal || kj <= qi) &&
+                (!SEGS || qid[row] == kid[lane + 32 * h]);
         s[h] = ok[h] ? Ss[row * L::LDS + lane + 32 * h] * scale : kNegInf;
       }
       const float m_new = fmaxf(m[r], warp_max(fmaxf(s[0], s[1])));
@@ -245,14 +263,16 @@ struct DkvLayout {
   static constexpr int BYTES = round_up(DL_OFF + QT * 4, 128);
 };
 
-template <typename T, int D>
+template <typename T, int D, bool SEGS>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const T* __restrict__ v, const int* __restrict__ q_ids,
+                    const int* __restrict__ kv_ids,
+                    const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dk,
-                    T* __restrict__ dv, int sq, int sk, int causal,
-                    float scale) {
+                    T* __restrict__ dv, int heads, int sq, int sk,
+                    int causal, float scale) {
   using L = DkvLayout<T, D>;
   constexpr int QT = L::QT;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -268,6 +288,9 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* dVs = reinterpret_cast<float*>(smem + L::DV_OFF);
   float* lse_s = reinterpret_cast<float*>(smem + L::LSE_OFF);
   float* dl_s = reinterpret_cast<float*>(smem + L::DL_OFF);
+  // the block's key ids and the current query tile's, after the layout
+  int* kid = reinterpret_cast<int*>(smem + L::BYTES);
+  int* qid = reinterpret_cast<int*>(smem + L::BYTES + id_bytes<SEGS>(kTile));
 
   const int lane = threadIdx.x % 32;
   const int row0 = (threadIdx.x / 32) * kRows;
@@ -275,9 +298,11 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.x * kTile;
   const T* qb = q + bh * sq * D;
   const T* dob = dout + bh * sq * D;
+  const long brow = SEGS ? bh / heads : 0;
 
   load_tiles<T, D>(Ks, L::LDK, Vs, L::LDK, k + bh * sk * D, v + bh * sk * D,
                    k0, kTile, sk);
+  if constexpr (SEGS) load_ids(kid, kv_ids + brow * sk, k0, kTile, sk);
   zero_f(dKs, L::LDA, kTile, D);
   zero_f(dVs, L::LDA, kTile, D);
 
@@ -286,6 +311,7 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int q0 = q_begin; q0 < sq; q0 += QT) {
     __syncthreads();   // the previous tile's products are done with Q/dO
     load_tiles<T, D>(Qs, L::LDQ, dOs, L::LDQ, qb, dob, q0, QT, sq);
+    if constexpr (SEGS) load_ids(qid, q_ids + brow * sq, q0, QT, sq);
     for (int i = threadIdx.x; i < QT; i += kThreads) {
       const bool in = q0 + i < sq;
       lse_s[i] = in ? lse[bh * sq + q0 + i] : 0.0f;
@@ -317,7 +343,8 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < QT / 32; ++j) {
         const int c = lane + 32 * j;
         const int qi = q0 + c;
-        const bool ok = kj < sk && qi < sq && (!causal || kj <= qi);
+        const bool ok = kj < sk && qi < sq && (!causal || kj <= qi) &&
+                        (!SEGS || kid[row] == qid[c]);
         const float p =
             ok ? expf(Ss[row * L::LDS + c] * scale - lse_s[c]) : 0.0f;
         const float dz = p * (dPs[row * L::LDS + c] - dl_s[c]);
@@ -386,13 +413,14 @@ struct DqLayout {
   static constexpr int BYTES = round_up(DL_OFF + kTile * 4, 128);
 };
 
-template <typename T, int D>
+template <typename T, int D, bool SEGS>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ dout,
+                   const T* __restrict__ v, const int* __restrict__ q_ids,
+                   const int* __restrict__ kv_ids, const T* __restrict__ dout,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, T* __restrict__ dq,
-                   int sq, int sk, int causal, float scale) {
+                   int heads, int sq, int sk, int causal, float scale) {
   using L = DqLayout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem + L::Q_OFF);
@@ -405,6 +433,9 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* dQs = reinterpret_cast<float*>(smem + L::DQ_OFF);
   float* lse_s = reinterpret_cast<float*>(smem + L::LSE_OFF);
   float* dl_s = reinterpret_cast<float*>(smem + L::DL_OFF);
+  // the block's query ids and the current key tile's, after the layout
+  int* qid = reinterpret_cast<int*>(smem + L::BYTES);
+  int* kid = reinterpret_cast<int*>(smem + L::BYTES + id_bytes<SEGS>(kTile));
 
   const int lane = threadIdx.x % 32;
   const int row0 = (threadIdx.x / 32) * kRows;
@@ -412,9 +443,11 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kTile;
   const T* kb = k + bh * sk * D;
   const T* vb = v + bh * sk * D;
+  const long brow = SEGS ? bh / heads : 0;
 
   load_tiles<T, D>(Qs, L::LDQ, dOs, L::LDQ, q + bh * sq * D,
                    dout + bh * sq * D, q0, kTile, sq);
+  if constexpr (SEGS) load_ids(qid, q_ids + brow * sq, q0, kTile, sq);
   zero_f(dQs, L::LDA, kTile, D);
   for (int i = threadIdx.x; i < kTile; i += kThreads) {
     const bool in = q0 + i < sq;
@@ -426,6 +459,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = 0; k0 < kv_end; k0 += kTile) {
     __syncthreads();
     load_tiles<T, D>(Ks, L::LDK, Vs, L::LDK, kb, vb, k0, kTile, sk);
+    if constexpr (SEGS) load_ids(kid, kv_ids + brow * sk, k0, kTile, sk);
     __syncthreads();
 
     // S = Q K^T and dP = dO V^T for this warp's 16 query rows
@@ -450,7 +484,8 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int h = 0; h < 2; ++h) {
         const int c = lane + 32 * h;
         const int kj = k0 + c;
-        const bool ok = kj < sk && qi < sq && (!causal || kj <= qi);
+        const bool ok = kj < sk && qi < sq && (!causal || kj <= qi) &&
+                        (!SEGS || qid[row] == kid[c]);
         const float p =
             ok ? expf(Ss[row * L::LDS + c] * scale - lse_s[row]) : 0.0f;
         const float dz = p * (dPs[row * L::LDS + c] - dl_s[row]) * scale;
@@ -489,35 +524,41 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ------------------------------------------------------------------ launch
 
-
-template <typename T, int D>
+template <typename T, int D, bool SEGS>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
-                       void* out, float* lse, int bh, int sq, int sk,
+                       const int* q_ids, const int* kv_ids, void* out,
+                       float* lse, int bh, int heads, int sq, int sk,
                        int causal, float scale, cudaStream_t stream) {
   using L = FwdLayout<T, D>;
+  constexpr int kBytes = L::BYTES + 2 * id_bytes<SEGS>(kTile);
   static bool opted = false;
-  cudaError_t err = opt_in(attn_fwd_kernel<T, D>, L::BYTES, &opted);
+  cudaError_t err = opt_in(attn_fwd_kernel<T, D, SEGS>, kBytes, &opted);
   if (err != cudaSuccess) return err;
   dim3 grid((sq + kTile - 1) / kTile, bh);
-  attn_fwd_kernel<T, D><<<grid, kThreads, L::BYTES, stream>>>(
+  attn_fwd_kernel<T, D, SEGS><<<grid, kThreads, kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, sq, sk, causal,
-      scale);
+      static_cast<const T*>(v), q_ids, kv_ids, static_cast<T*>(out), lse,
+      heads, sq, sk, causal, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SEGS>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
-                       const void* out, const void* dout, const float* lse,
-                       const float* dlse, float* delta, void* dq, void* dk,
-                       void* dv, int bh, int sq, int sk, int causal,
-                       float scale, cudaStream_t stream) {
+                       const int* q_ids, const int* kv_ids, const void* out,
+                       const void* dout, const float* lse, const float* dlse,
+                       float* delta, void* dq, void* dk, void* dv, int bh,
+                       int heads, int sq, int sk, int causal, float scale,
+                       cudaStream_t stream) {
   using KV = DkvLayout<T, D>;
   using QL = DqLayout<T, D>;
+  constexpr int kKvBytes =
+      KV::BYTES + id_bytes<SEGS>(kTile) + id_bytes<SEGS>(KV::QT);
+  constexpr int kQBytes = QL::BYTES + 2 * id_bytes<SEGS>(kTile);
   static bool opted_kv = false, opted_q = false;
-  cudaError_t err = opt_in(attn_bwd_dkv_kernel<T, D>, KV::BYTES, &opted_kv);
+  cudaError_t err =
+      opt_in(attn_bwd_dkv_kernel<T, D, SEGS>, kKvBytes, &opted_kv);
   if (err != cudaSuccess) return err;
-  err = opt_in(attn_bwd_dq_kernel<T, D>, QL::BYTES, &opted_q);
+  err = opt_in(attn_bwd_dq_kernel<T, D, SEGS>, kQBytes, &opted_q);
   if (err != cudaSuccess) return err;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
@@ -529,53 +570,66 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
       static_cast<const T*>(out), dot, dlse, delta, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_dkv_kernel<T, D>
-      <<<dim3((sk + kTile - 1) / kTile, bh), kThreads, KV::BYTES, stream>>>(
-          qt, kt, vt, dot, lse, delta, static_cast<T*>(dk),
-          static_cast<T*>(dv), sq, sk, causal, scale);
+  attn_bwd_dkv_kernel<T, D, SEGS>
+      <<<dim3((sk + kTile - 1) / kTile, bh), kThreads, kKvBytes, stream>>>(
+          qt, kt, vt, q_ids, kv_ids, dot, lse, delta, static_cast<T*>(dk),
+          static_cast<T*>(dv), heads, sq, sk, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_dq_kernel<T, D>
-      <<<dim3((sq + kTile - 1) / kTile, bh), kThreads, QL::BYTES, stream>>>(
-          qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), sq, sk, causal,
-          scale);
+  attn_bwd_dq_kernel<T, D, SEGS>
+      <<<dim3((sq + kTile - 1) / kTile, bh), kThreads, kQBytes, stream>>>(
+          qt, kt, vt, q_ids, kv_ids, dot, lse, delta, static_cast<T*>(dq),
+          heads, sq, sk, causal, scale);
   return cudaGetLastError();
 }
 
-// dtype: 0 = fp32, 1 = bf16; head dims 64 and 128.
+// dtype: 0 = fp32, 1 = bf16; head dims 64 and 128.  q_ids/kv_ids: both
+// null (no segment ids) or (bh / heads, sq) and (bh / heads, sk) int32.
+#define ATTN_DISPATCH(CALL)                                         \
+  if (dtype == 0 && d == 128) return segs ? CALL(float, 128, true)  \
+                                          : CALL(float, 128, false); \
+  if (dtype == 0 && d == 64) return segs ? CALL(float, 64, true)    \
+                                         : CALL(float, 64, false);   \
+  if (dtype == 1 && d == 128) return segs ? CALL(bf16, 128, true)   \
+                                          : CALL(bf16, 128, false);  \
+  if (dtype == 1 && d == 64) return segs ? CALL(bf16, 64, true)     \
+                                         : CALL(bf16, 64, false);    \
+  return cudaErrorInvalidValue
+
 inline cudaError_t fwd(const void* q, const void* k, const void* v,
-                       void* out, float* lse, int bh, int sq, int sk, int d,
+                       const int* q_ids, const int* kv_ids, void* out,
+                       float* lse, int bh, int heads, int sq, int sk, int d,
                        int dtype, int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0) return cudaErrorInvalidValue;
-  if (dtype == 0 && d == 128)
-    return launch_fwd<float, 128>(q, k, v, out, lse, bh, sq, sk, causal, scale, s);
-  if (dtype == 0 && d == 64)
-    return launch_fwd<float, 64>(q, k, v, out, lse, bh, sq, sk, causal, scale, s);
-  if (dtype == 1 && d == 128)
-    return launch_fwd<bf16, 128>(q, k, v, out, lse, bh, sq, sk, causal, scale, s);
-  if (dtype == 1 && d == 64)
-    return launch_fwd<bf16, 64>(q, k, v, out, lse, bh, sq, sk, causal, scale, s);
-  return cudaErrorInvalidValue;
+  if (bad_ids(q_ids, kv_ids, bh, heads)) return cudaErrorInvalidValue;
+  const bool segs = q_ids != nullptr;
+#define CALL(T, D, SEGS)                                                    \
+  launch_fwd<T, D, SEGS>(q, k, v, q_ids, kv_ids, out, lse, bh, heads, sq,  \
+                         sk, causal, scale, s)
+  ATTN_DISPATCH(CALL);
+#undef CALL
 }
 
 inline cudaError_t bwd(const void* q, const void* k, const void* v,
-                       const void* out, const void* dout, const float* lse,
-                       const float* dlse, float* delta, void* dq, void* dk,
-                       void* dv, int bh, int sq, int sk, int d, int dtype,
+                       const int* q_ids, const int* kv_ids, const void* out,
+                       const void* dout, const float* lse, const float* dlse,
+                       float* delta, void* dq, void* dk, void* dv, int bh,
+                       int heads, int sq, int sk, int d, int dtype,
                        int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0) return cudaErrorInvalidValue;
-#define ATTN_BWD(T, D)                                                      \
-  return launch_bwd<T, D>(q, k, v, out, dout, lse, dlse, delta, dq, dk, dv, \
-                          bh, sq, sk, causal, scale, s)
-  if (dtype == 0 && d == 128) ATTN_BWD(float, 128);
-  if (dtype == 0 && d == 64) ATTN_BWD(float, 64);
-  if (dtype == 1 && d == 128) ATTN_BWD(bf16, 128);
-  if (dtype == 1 && d == 64) ATTN_BWD(bf16, 64);
-#undef ATTN_BWD
-  return cudaErrorInvalidValue;
+  if (bad_ids(q_ids, kv_ids, bh, heads)) return cudaErrorInvalidValue;
+  const bool segs = q_ids != nullptr;
+#define CALL(T, D, SEGS)                                                  \
+  launch_bwd<T, D, SEGS>(q, k, v, q_ids, kv_ids, out, dout, lse, dlse,   \
+                         delta, dq, dk, dv, bh, heads, sq, sk, causal,   \
+                         scale, s)
+  ATTN_DISPATCH(CALL);
+#undef CALL
 }
+
+#undef ATTN_DISPATCH
 
 }  // namespace
 }  // namespace attn

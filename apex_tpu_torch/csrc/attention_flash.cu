@@ -32,6 +32,14 @@
 //    and would pollute the sums, :513-520).  Rows past an operand's end
 //    are zero-filled by the copy (cp.async with a source size of 0), so no
 //    garbage can reach a sum through 0 * NaN.
+//  - segment ids (SEGS, the Pallas bodies' has_segs): the predicate of all
+//    three kernels also asks q_ids[i] == kv_ids[j], the ids (bh / heads, s)
+//    int32 of attention_tiles.cuh, each tile's ids copied with it in the
+//    same commit group.  A query row that sees no key has l = 0: out 0 and
+//    lse about -1e30, and the backward's predicate keeps its p at 0 (never
+//    exp(s - lse)).  The causal tile skips stay; none is taken on the ids.
+//    The wrappers count these launches as flash_fwd_seg, flash_bwd_dkv_seg
+//    and flash_bwd_dq_seg.
 //
 // Tiles, chosen for s >= 4096 (at b*h = 16, the Llama-mode training shape):
 //  - forward: 128-row query tiles in bf16 (8 warps, 16 rows each), so each
@@ -141,6 +149,16 @@ __device__ __forceinline__ void async_vec(float* dst, const float* src,
   }
 }
 
+// The same for ROWS int32 segment ids; past n, zeros (masked anyway).
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void async_ids(int* dst, const int* src, int r0,
+                                          int n) {
+  for (int i = threadIdx.x; i < ROWS; i += THREADS) {
+    const bool in = r0 + i < n;
+    cp_async4(dst + i, src + (in ? r0 + i : 0), in ? 4 : 0);
+  }
+}
+
 __device__ __forceinline__ void zero_f(float* dst, int ld, int rows,
                                        int cols, int threads) {
   for (int i = threadIdx.x; i < rows * cols; i += threads) {
@@ -196,15 +214,18 @@ struct FwdTiles {
   static constexpr int BYTES = round_up(O_OFF + QT * LDO * 4, 128);
 };
 
-// q, out: (bh, sq, D); k, v: (bh, sk, D); lse: (bh, sq) fp32.
-template <typename T, int D>
+// q, out: (bh, sq, D); k, v: (bh, sk, D); lse: (bh, sq) fp32; with SEGS,
+// q_ids (bh / heads, sq) and kv_ids (bh / heads, sk) int32.
+template <typename T, int D, bool SEGS>
 __global__ void __launch_bounds__(FwdTiles<T, D>::kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int sq, int sk, int causal,
-                 float scale) {
+                 const T* __restrict__ v, const int* __restrict__ q_ids,
+                 const int* __restrict__ kv_ids, T* __restrict__ out,
+                 float* __restrict__ lse, int heads, int sq, int sk,
+                 int causal, float scale) {
   using L = FwdTiles<T, D>;
   constexpr int QT = L::QT, KT = L::KT, TH = L::kThreads;
+  constexpr int KID = attn::id_bytes<SEGS>(KT);
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem + L::Q_OFF);
   float* Ss = reinterpret_cast<float*>(smem + L::S_OFF);
@@ -216,6 +237,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   auto Vs = [&](int buf) {
     return reinterpret_cast<T*>(smem + L::V_OFF + buf * L::V_BUF);
   };
+  // after the layout: the block's query ids, then two key-id buffers
+  int* qid = reinterpret_cast<int*>(smem + L::BYTES);
+  auto kid = [&](int buf) {
+    return reinterpret_cast<int*>(smem + L::BYTES +
+                                  attn::id_bytes<SEGS>(QT) + buf * KID);
+  };
 
   const int lane = threadIdx.x % 32;
   const int row0 = (threadIdx.x / 32) * kRows;
@@ -223,6 +250,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * QT;
   const T* kb = k + bh * sk * D;
   const T* vb = v + bh * sk * D;
+  const int* kidb = SEGS ? kv_ids + (bh / heads) * sk : nullptr;
   // causal: keys past the tile's last query row are masked for every row
   const int kv_end = causal ? min(sk, q0 + QT) : sk;
   const int n_tiles = (kv_end + KT - 1) / KT;
@@ -230,6 +258,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   async_tile<T, D, L::LDQ, QT, TH>(Qs, q + bh * sq * D, q0, sq);
   async_tile<T, D, L::LDK, KT, TH>(Ks(0), kb, 0, sk);
   async_tile<T, D, L::LDV, KT, TH>(Vs(0), vb, 0, sk);
+  if constexpr (SEGS) {
+    async_ids<QT, TH>(qid, q_ids + (bh / heads) * sq, q0, sq);
+    async_ids<KT, TH>(kid(0), kidb, 0, sk);
+  }
   cp_async_commit();
   zero_f(Os, L::LDO, QT, D, TH);
   float m[kRows], l[kRows];
@@ -246,6 +278,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (t + 1 < n_tiles) {
       async_tile<T, D, L::LDK, KT, TH>(Ks((t + 1) & 1), kb, k0 + KT, sk);
       async_tile<T, D, L::LDV, KT, TH>(Vs((t + 1) & 1), vb, k0 + KT, sk);
+      if constexpr (SEGS) async_ids<KT, TH>(kid((t + 1) & 1), kidb, k0 + KT, sk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -263,6 +296,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     const T* Kt = Ks(t & 1);
     const T* Vt = Vs(t & 1);
+    const int* kt_ids = kid(t & 1);
 
     abT<T, KT, D>(Qs + row0 * L::LDQ, L::LDQ, Kt, L::LDK,
                   Ss + row0 * L::LDS, L::LDS, lane);
@@ -279,7 +313,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int kj = k0 + lane + 32 * h;
-        ok[h] = kj < sk && (!causal || kj <= qi);
+        ok[h] = kj < sk && (!causal || kj <= qi) &&
+                (!SEGS || qid[row] == kt_ids[lane + 32 * h]);
         s[h] = ok[h] ? Ss[row * L::LDS + lane + 32 * h] : kNegInf;
       }
       const float m_new = fmaxf(m[r], attn::warp_max(fmaxf(s[0], s[1])));
@@ -363,16 +398,19 @@ struct DkvTiles {
   static constexpr int BYTES = round_up(DV_OFF + KT * LDA * 4, 128);
 };
 
-template <typename T, int D>
+template <typename T, int D, bool SEGS>
 __global__ void __launch_bounds__(DkvTiles<T, D>::kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const T* __restrict__ v, const int* __restrict__ q_ids,
+                     const int* __restrict__ kv_ids,
+                     const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int sq, int sk, int causal,
-                     float scale) {
+                     T* __restrict__ dv, int heads, int sq, int sk,
+                     int causal, float scale) {
   using L = DkvTiles<T, D>;
   constexpr int QT = L::QT, KT = L::KT, TH = L::kThreads;
+  constexpr int QID = attn::id_bytes<SEGS>(QT);
   extern __shared__ __align__(128) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem + L::K_OFF);
   T* Vs = reinterpret_cast<T*>(smem + L::V_OFF);
@@ -394,6 +432,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   auto dl_s = [&](int b) {
     return reinterpret_cast<float*>(smem + L::DL_OFF + b * L::VEC_BUF);
   };
+  // after the layout: the block's key ids, then two query-id buffers
+  int* kid = reinterpret_cast<int*>(smem + L::BYTES);
+  auto qid = [&](int b) {
+    return reinterpret_cast<int*>(smem + L::BYTES +
+                                  attn::id_bytes<SEGS>(KT) + b * QID);
+  };
 
   const int lane = threadIdx.x % 32;
   const int row0 = (threadIdx.x / 32) * kRows;
@@ -403,9 +447,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* dob = dout + bh * sq * D;
   const float* lseb = lse + bh * sq;
   const float* dlb = delta + bh * sq;
+  const int* qidb = SEGS ? q_ids + (bh / heads) * sq : nullptr;
 
   async_tile<T, D, L::LDK, KT, TH>(Ks, k + bh * sk * D, k0, sk);
   async_tile<T, D, L::LDK, KT, TH>(Vs, v + bh * sk * D, k0, sk);
+  if constexpr (SEGS) async_ids<KT, TH>(kid, kv_ids + (bh / heads) * sk, k0, sk);
   cp_async_commit();
   // causal: query tiles wholly above this key tile see none of its keys
   const int q_begin = causal ? (k0 / QT) * QT : 0;
@@ -417,6 +463,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     async_tile<T, D, L::LDQ, QT, TH>(dOs(b), dob, q0, sq);
     async_vec<QT, TH>(lse_s(b), lseb, q0, sq);
     async_vec<QT, TH>(dl_s(b), dlb, q0, sq);
+    if constexpr (SEGS) async_ids<QT, TH>(qid(b), qidb, q0, sq);
     cp_async_commit();
   };
   if (n_tiles > 0) issue(0);
@@ -437,6 +484,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* dOt = dOs(b);
     const float* lt = lse_s(b);
     const float* dt = dl_s(b);
+    const int* qt_ids = qid(b);
 
     // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys
     abT<T, QT, D>(Ks + row0 * L::LDK, L::LDK, Qt, L::LDQ,
@@ -456,7 +504,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < QT / 32; ++j) {
         const int c = lane + 32 * j;
         const int qi = q0 + c;
-        const bool ok = kj < sk && qi < sq && (!causal || kj <= qi);
+        const bool ok = kj < sk && qi < sq && (!causal || kj <= qi) &&
+                        (!SEGS || kid[row] == qt_ids[c]);
         const float p = ok ? expf(Ss[row * L::LDS + c] * scale - lt[c]) : 0.0f;
         const float dz = p * (dPs[row * L::LDS + c] - dt[c]);
         if constexpr (L::kTC) {
@@ -535,15 +584,17 @@ struct DqTiles {
   static constexpr int BYTES = round_up(DQ_OFF + QT * LDA * 4, 128);
 };
 
-template <typename T, int D>
+template <typename T, int D, bool SEGS>
 __global__ void __launch_bounds__(DqTiles<T, D>::kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const T* __restrict__ v, const int* __restrict__ q_ids,
+                    const int* __restrict__ kv_ids, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    int sq, int sk, int causal, float scale) {
+                    int heads, int sq, int sk, int causal, float scale) {
   using L = DqTiles<T, D>;
   constexpr int QT = L::QT, KT = L::KT, TH = L::kThreads;
+  constexpr int KID = attn::id_bytes<SEGS>(KT);
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem + L::Q_OFF);
   T* dOs = reinterpret_cast<T*>(smem + L::DO_OFF);
@@ -559,6 +610,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   auto Vs = [&](int b) {
     return reinterpret_cast<T*>(smem + L::V_OFF + b * L::K_BUF);
   };
+  // after the layout: the block's query ids, then two key-id buffers
+  int* qid = reinterpret_cast<int*>(smem + L::BYTES);
+  auto kid = [&](int b) {
+    return reinterpret_cast<int*>(smem + L::BYTES +
+                                  attn::id_bytes<SEGS>(QT) + b * KID);
+  };
 
   const int lane = threadIdx.x % 32;
   const int row0 = (threadIdx.x / 32) * kRows;
@@ -566,6 +623,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * QT;
   const T* kb = k + bh * sk * D;
   const T* vb = v + bh * sk * D;
+  const int* kidb = SEGS ? kv_ids + (bh / heads) * sk : nullptr;
   const int kv_end = causal ? min(sk, q0 + QT) : sk;
   const int n_tiles = (kv_end + KT - 1) / KT;
 
@@ -575,6 +633,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   async_vec<QT, TH>(dl_s, delta + bh * sq, q0, sq);
   async_tile<T, D, L::LDK, KT, TH>(Ks(0), kb, 0, sk);
   async_tile<T, D, L::LDK, KT, TH>(Vs(0), vb, 0, sk);
+  if constexpr (SEGS) {
+    async_ids<QT, TH>(qid, q_ids + (bh / heads) * sq, q0, sq);
+    async_ids<KT, TH>(kid(0), kidb, 0, sk);
+  }
   cp_async_commit();
   zero_f(dQs, L::LDA, QT, D, TH);
 
@@ -583,6 +645,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (t + 1 < n_tiles) {
       async_tile<T, D, L::LDK, KT, TH>(Ks((t + 1) & 1), kb, k0 + KT, sk);
       async_tile<T, D, L::LDK, KT, TH>(Vs((t + 1) & 1), vb, k0 + KT, sk);
+      if constexpr (SEGS) async_ids<KT, TH>(kid((t + 1) & 1), kidb, k0 + KT, sk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -591,6 +654,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     const T* Kt = Ks(t & 1);
     const T* Vt = Vs(t & 1);
+    const int* kt_ids = kid(t & 1);
 
     // S = Q K^T and dP = dO V^T for this warp's 16 query rows
     abT<T, KT, D>(Qs + row0 * L::LDQ, L::LDQ, Kt, L::LDK,
@@ -607,7 +671,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int h = 0; h < KT / 32; ++h) {
         const int c = lane + 32 * h;
         const int kj = k0 + c;
-        const bool ok = kj < sk && qi < sq && (!causal || kj <= qi);
+        const bool ok = kj < sk && qi < sq && (!causal || kj <= qi) &&
+                        (!SEGS || qid[row] == kt_ids[c]);
         const float p =
             ok ? expf(Ss[row * L::LDS + c] * scale - lse_s[row]) : 0.0f;
         const float dz = p * (dPs[row * L::LDS + c] - dl_s[row]) * scale;
@@ -646,55 +711,67 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ------------------------------------------------------------------ launch
 
-template <typename T, int D>
+template <typename T, int D, bool SEGS>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
-                       void* out, float* lse, int bh, int sq, int sk,
+                       const int* q_ids, const int* kv_ids, void* out,
+                       float* lse, int bh, int heads, int sq, int sk,
                        int causal, float scale, cudaStream_t stream) {
   using L = FwdTiles<T, D>;
-  static bool opted = false;
-  cudaError_t err = attn::opt_in(flash_fwd_kernel<T, D>, L::BYTES, &opted);
-  if (err != cudaSuccess) return err;
-  flash_fwd_kernel<T, D>
-      <<<dim3((sq + L::QT - 1) / L::QT, bh), L::kThreads, L::BYTES, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<T*>(out), lse, sq, sk,
-          causal, scale);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse,
-                       const float* delta, void* dk, void* dv, int bh,
-                       int sq, int sk, int causal, float scale,
-                       cudaStream_t stream) {
-  using L = DkvTiles<T, D>;
+  constexpr int kBytes = L::BYTES + attn::id_bytes<SEGS>(L::QT) +
+                         2 * attn::id_bytes<SEGS>(L::KT);
   static bool opted = false;
   cudaError_t err =
-      attn::opt_in(flash_bwd_dkv_kernel<T, D>, L::BYTES, &opted);
+      attn::opt_in(flash_fwd_kernel<T, D, SEGS>, kBytes, &opted);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<T, D>
-      <<<dim3((sk + L::KT - 1) / L::KT, bh), L::kThreads, L::BYTES, stream>>>(
+  flash_fwd_kernel<T, D, SEGS>
+      <<<dim3((sq + L::QT - 1) / L::QT, bh), L::kThreads, kBytes, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-          static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, causal, scale);
+          static_cast<const T*>(v), q_ids, kv_ids, static_cast<T*>(out), lse,
+          heads, sq, sk, causal, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* delta,
-                      void* dq, int bh, int sq, int sk, int causal,
-                      float scale, cudaStream_t stream) {
-  using L = DqTiles<T, D>;
+template <typename T, int D, bool SEGS>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const int* q_ids, const int* kv_ids, const void* dout,
+                       const float* lse, const float* delta, void* dk,
+                       void* dv, int bh, int heads, int sq, int sk,
+                       int causal, float scale, cudaStream_t stream) {
+  using L = DkvTiles<T, D>;
+  constexpr int kBytes = L::BYTES + attn::id_bytes<SEGS>(L::KT) +
+                         2 * attn::id_bytes<SEGS>(L::QT);
   static bool opted = false;
-  cudaError_t err = attn::opt_in(flash_bwd_dq_kernel<T, D>, L::BYTES, &opted);
+  cudaError_t err =
+      attn::opt_in(flash_bwd_dkv_kernel<T, D, SEGS>, kBytes, &opted);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<T, D>
-      <<<dim3((sq + L::QT - 1) / L::QT, bh), L::kThreads, L::BYTES, stream>>>(
+  flash_bwd_dkv_kernel<T, D, SEGS>
+      <<<dim3((sk + L::KT - 1) / L::KT, bh), L::kThreads, kBytes, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-          static_cast<T*>(dq), sq, sk, causal, scale);
+          static_cast<const T*>(v), q_ids, kv_ids,
+          static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
+          static_cast<T*>(dv), heads, sq, sk, causal, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int D, bool SEGS>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const int* q_ids, const int* kv_ids, const void* dout,
+                      const float* lse, const float* delta, void* dq, int bh,
+                      int heads, int sq, int sk, int causal, float scale,
+                      cudaStream_t stream) {
+  using L = DqTiles<T, D>;
+  constexpr int kBytes = L::BYTES + attn::id_bytes<SEGS>(L::QT) +
+                         2 * attn::id_bytes<SEGS>(L::KT);
+  static bool opted = false;
+  cudaError_t err =
+      attn::opt_in(flash_bwd_dq_kernel<T, D, SEGS>, kBytes, &opted);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_kernel<T, D, SEGS>
+      <<<dim3((sq + L::QT - 1) / L::QT, bh), L::kThreads, kBytes, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), q_ids, kv_ids,
+          static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), heads,
+          sq, sk, causal, scale);
   return cudaGetLastError();
 }
 
@@ -705,51 +782,60 @@ bool bad_shape(int bh, int sq, int sk) {
 }  // namespace
 }  // namespace flash
 
-// dtype: 0 = fp32, 1 = bf16; head dims 64 and 128.  Each returns a
-// cudaError_t code (0 = success).
-#define FLASH_DISPATCH(CALL)                                \
-  if (dtype == 0 && d == 128) return CALL(float, 128);      \
-  if (dtype == 0 && d == 64) return CALL(float, 64);        \
-  if (dtype == 1 && d == 128) return CALL(flash::bf16, 128); \
-  if (dtype == 1 && d == 64) return CALL(flash::bf16, 64);  \
+// dtype: 0 = fp32, 1 = bf16; head dims 64 and 128; q_ids/kv_ids both null
+// or (bh / heads, sq) and (bh / heads, sk) int32 segment ids.  Each returns
+// a cudaError_t code (0 = success).
+#define FLASH_DISPATCH(CALL)                                               \
+  if (flash::bad_shape(bh, sq, sk) ||                                      \
+      attn::bad_ids(q_ids, kv_ids, bh, heads))                             \
+    return cudaErrorInvalidValue;                                          \
+  cudaStream_t s = static_cast<cudaStream_t>(stream);                      \
+  const bool segs = q_ids != nullptr;                                      \
+  if (dtype == 0 && d == 128)                                              \
+    return segs ? CALL(float, 128, true) : CALL(float, 128, false);        \
+  if (dtype == 0 && d == 64)                                               \
+    return segs ? CALL(float, 64, true) : CALL(float, 64, false);          \
+  if (dtype == 1 && d == 128)                                              \
+    return segs ? CALL(flash::bf16, 128, true)                             \
+                : CALL(flash::bf16, 128, false);                           \
+  if (dtype == 1 && d == 64)                                               \
+    return segs ? CALL(flash::bf16, 64, true) : CALL(flash::bf16, 64, false); \
   return cudaErrorInvalidValue
 
 extern "C" {
 
-int flash_fwd(const void* q, const void* k, const void* v, void* out,
-              float* lse, int bh, int sq, int sk, int d, int dtype,
-              int causal, float scale, void* stream) {
-  if (flash::bad_shape(bh, sq, sk)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CALL(T, D) \
-  flash::launch_fwd<T, D>(q, k, v, out, lse, bh, sq, sk, causal, scale, s)
+int flash_fwd(const void* q, const void* k, const void* v, const int* q_ids,
+              const int* kv_ids, void* out, float* lse, int bh, int heads,
+              int sq, int sk, int d, int dtype, int causal, float scale,
+              void* stream) {
+#define CALL(T, D, SEGS)                                                   \
+  flash::launch_fwd<T, D, SEGS>(q, k, v, q_ids, kv_ids, out, lse, bh,     \
+                                heads, sq, sk, causal, scale, s)
   FLASH_DISPATCH(CALL);
 #undef CALL
 }
 
 // lse, delta: (bh, sq) fp32, delta = rowsum(dout * out).
 int flash_bwd_dkv(const void* q, const void* k, const void* v,
-                  const void* dout, const float* lse, const float* delta,
-                  void* dk, void* dv, int bh, int sq, int sk, int d,
-                  int dtype, int causal, float scale, void* stream) {
-  if (flash::bad_shape(bh, sq, sk)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CALL(T, D)                                                        \
-  flash::launch_dkv<T, D>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, \
-                          causal, scale, s)
+                  const int* q_ids, const int* kv_ids, const void* dout,
+                  const float* lse, const float* delta, void* dk, void* dv,
+                  int bh, int heads, int sq, int sk, int d, int dtype,
+                  int causal, float scale, void* stream) {
+#define CALL(T, D, SEGS)                                                   \
+  flash::launch_dkv<T, D, SEGS>(q, k, v, q_ids, kv_ids, dout, lse, delta, \
+                                dk, dv, bh, heads, sq, sk, causal, scale, s)
   FLASH_DISPATCH(CALL);
 #undef CALL
 }
 
 int flash_bwd_dq(const void* q, const void* k, const void* v,
-                 const void* dout, const float* lse, const float* delta,
-                 void* dq, int bh, int sq, int sk, int d, int dtype,
-                 int causal, float scale, void* stream) {
-  if (flash::bad_shape(bh, sq, sk)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CALL(T, D)                                                    \
-  flash::launch_dq<T, D>(q, k, v, dout, lse, delta, dq, bh, sq, sk, \
-                         causal, scale, s)
+                 const int* q_ids, const int* kv_ids, const void* dout,
+                 const float* lse, const float* delta, void* dq, int bh,
+                 int heads, int sq, int sk, int d, int dtype, int causal,
+                 float scale, void* stream) {
+#define CALL(T, D, SEGS)                                                   \
+  flash::launch_dq<T, D, SEGS>(q, k, v, q_ids, kv_ids, dout, lse, delta,  \
+                               dq, bh, heads, sq, sk, causal, scale, s)
   FLASH_DISPATCH(CALL);
 #undef CALL
 }

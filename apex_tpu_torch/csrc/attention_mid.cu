@@ -19,28 +19,35 @@
 // What bounds it on the card: at s = 1024 causal, d = 128, bf16, the
 // forward moves 4 * s * d * 2 bytes for 2 * 2 * d * s(s+1)/2 flops per
 // (b*h), ~256 flop/byte, close to the ~295 flop/byte balance point of the
-// H100; the backward is bound by operations.
+// H100; the backward is bound by operations.  With segment ids (fmha's
+// packed varlen batches at 512 < max_s <= 2048) the entries launch the
+// SEGS instances, counted as mid_fwd_seg and mid_bwd_seg.
 
 #include "attention_common.cuh"
 
 extern "C" {
 
-// dtype: 0 = fp32, 1 = bf16.  Returns a cudaError_t code (0 = success).
-int mid_fwd(const void* q, const void* k, const void* v, void* out,
-            float* lse, int bh, int sq, int sk, int d, int dtype, int causal,
-            float scale, void* stream) {
-  return attn::fwd(q, k, v, out, lse, bh, sq, sk, d, dtype, causal, scale,
-                   stream);
+// dtype: 0 = fp32, 1 = bf16.  q_ids/kv_ids: both null, or (bh / heads, sq)
+// and (bh / heads, sk) int32 segment ids.  Returns a cudaError_t code
+// (0 = success).
+int mid_fwd(const void* q, const void* k, const void* v, const int* q_ids,
+            const int* kv_ids, void* out, float* lse, int bh, int heads,
+            int sq, int sk, int d, int dtype, int causal, float scale,
+            void* stream) {
+  return attn::fwd(q, k, v, q_ids, kv_ids, out, lse, bh, heads, sq, sk, d,
+                   dtype, causal, scale, stream);
 }
 
-// delta: (bh, sq) fp32 scratch; dlse: (bh, sq) fp32 lse cotangent or null.
-int mid_bwd(const void* q, const void* k, const void* v, const void* out,
-            const void* dout, const float* lse, const float* dlse,
-            float* delta, void* dq, void* dk, void* dv, int bh, int sq,
-            int sk, int d, int dtype, int causal, float scale,
-            void* stream) {
-  return attn::bwd(q, k, v, out, dout, lse, dlse, delta, dq, dk, dv, bh, sq,
-                   sk, d, dtype, causal, scale, stream);
+// delta: (bh, sq) fp32 scratch; dlse: (bh, sq) fp32 lse cotangent or null;
+// q_ids/kv_ids as for mid_fwd.
+int mid_bwd(const void* q, const void* k, const void* v, const int* q_ids,
+            const int* kv_ids, const void* out, const void* dout,
+            const float* lse, const float* dlse, float* delta, void* dq,
+            void* dk, void* dv, int bh, int heads, int sq, int sk, int d,
+            int dtype, int causal, float scale, void* stream) {
+  return attn::bwd(q, k, v, q_ids, kv_ids, out, dout, lse, dlse, delta, dq,
+                   dk, dv, bh, heads, sq, sk, d, dtype, causal, scale,
+                   stream);
 }
 
 const char* error_string(int err) {

@@ -14,27 +14,40 @@
 // 2 * 2 * d * s(s+1)/2 flops over 4 * s * d * 2 bytes, ~130 flop/byte,
 // under the H100's ~295 flop/byte bf16 balance point, so the least time is
 // set by the bytes moved; these simple kernels are far from either bound.
+//
+// With segment ids (BERT's padding, fmha's packed varlen batches) the same
+// entries launch the SEGS instances of attention_common.cuh; the wrappers
+// count them as short_fwd_seg and short_bwd_seg.  At BERT-large's training
+// shape (b = 16, h = 16, s = 512, d = 64, not causal) a (b*h) slice does
+// 4 * d * s^2 flops over 4 * s * d * 2 bytes, ~256 flop/byte, still under
+// the balance point; nothing is skipped on the ids, so the work is that of
+// a full mask whatever the padding.
 
 #include "attention_common.cuh"
 
 extern "C" {
 
-// dtype: 0 = fp32, 1 = bf16.  Returns a cudaError_t code (0 = success).
-int short_fwd(const void* q, const void* k, const void* v, void* out,
-              float* lse, int bh, int sq, int sk, int d, int dtype,
-              int causal, float scale, void* stream) {
-  return attn::fwd(q, k, v, out, lse, bh, sq, sk, d, dtype, causal, scale,
-                   stream);
+// dtype: 0 = fp32, 1 = bf16.  q_ids/kv_ids: both null, or (bh / heads, sq)
+// and (bh / heads, sk) int32 segment ids.  Returns a cudaError_t code
+// (0 = success).
+int short_fwd(const void* q, const void* k, const void* v, const int* q_ids,
+              const int* kv_ids, void* out, float* lse, int bh, int heads,
+              int sq, int sk, int d, int dtype, int causal, float scale,
+              void* stream) {
+  return attn::fwd(q, k, v, q_ids, kv_ids, out, lse, bh, heads, sq, sk, d,
+                   dtype, causal, scale, stream);
 }
 
-// delta: (bh, sq) fp32 scratch; dlse: (bh, sq) fp32 lse cotangent or null.
-int short_bwd(const void* q, const void* k, const void* v, const void* out,
-              const void* dout, const float* lse, const float* dlse,
-              float* delta, void* dq, void* dk, void* dv, int bh, int sq,
-              int sk, int d, int dtype, int causal, float scale,
-              void* stream) {
-  return attn::bwd(q, k, v, out, dout, lse, dlse, delta, dq, dk, dv, bh, sq,
-                   sk, d, dtype, causal, scale, stream);
+// delta: (bh, sq) fp32 scratch; dlse: (bh, sq) fp32 lse cotangent or null;
+// q_ids/kv_ids as for short_fwd.
+int short_bwd(const void* q, const void* k, const void* v, const int* q_ids,
+              const int* kv_ids, const void* out, const void* dout,
+              const float* lse, const float* dlse, float* delta, void* dq,
+              void* dk, void* dv, int bh, int heads, int sq, int sk, int d,
+              int dtype, int causal, float scale, void* stream) {
+  return attn::bwd(q, k, v, q_ids, kv_ids, out, dout, lse, dlse, delta, dq,
+                   dk, dv, bh, heads, sq, sk, d, dtype, causal, scale,
+                   stream);
 }
 
 const char* error_string(int err) {

@@ -187,5 +187,37 @@ cudaError_t opt_in(K kernel, int bytes, bool* done) {
   return err;
 }
 
+// ------------------------------------------------------------ segment ids
+//
+// The segment-id variants (the Pallas bodies' has_segs): key j is visible
+// to query i only where q_ids[i] == kv_ids[j], on top of the causal and
+// ragged-end masks.  The ids are (batch, s) int32, one row per batch entry;
+// a block of (batch*head) row bh reads row bh / heads, so they are never
+// expanded per head.  A block stages its query and key ids in shared memory
+// beside the tiles they belong to; a launch without ids (SEGS = false)
+// reserves no bytes and compiles to the kernel without them.
+
+// Shared-memory bytes of the staged ids: ROWS int32 values (0 without ids).
+template <bool SEGS>
+__host__ __device__ constexpr int id_bytes(int rows) {
+  return SEGS ? round_up(rows * 4, 128) : 0;
+}
+
+// Stage ids [r0, r0 + rows) of one batch row; past n, 0 (such tokens are
+// masked by the ragged-end test whatever their id).
+__device__ __forceinline__ void load_ids(int* dst, const int* src, int r0,
+                                         int rows, int n) {
+  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+    dst[i] = r0 + i < n ? src[r0 + i] : 0;
+  }
+}
+
+// The C entries' check of the id arguments: both pointers or neither, and
+// whole batch rows of `heads` (batch*head) rows each.
+inline bool bad_ids(const int* q_ids, const int* kv_ids, int bh, int heads) {
+  if ((q_ids == nullptr) != (kv_ids == nullptr)) return true;
+  return q_ids != nullptr && (heads <= 0 || bh % heads != 0);
+}
+
 }  // namespace
 }  // namespace attn

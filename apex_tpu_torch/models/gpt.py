@@ -123,13 +123,21 @@ class GPTDecodeFns:
     """The serving steps :meth:`GPTModel.decode_fns` returns, with the
     call contract of :class:`apex_tpu_torch.serving.ContinuousBatcher`:
     ``chunk`` when built with ``prefill_chunk``, ``spec`` when built with
-    ``speculate_k``."""
+    ``speculate_k``.  The JAX fields ``prefill_chunk``, ``speculate_k``,
+    ``spec_tree`` and ``draft_source`` are also stamped on the callables
+    (``chunk.prefill_chunk``, ``spec.speculate_k``, ...), which is where
+    the batcher reads them; the JAX ``*_jit`` and ``tp`` fields have no
+    counterpart (eager steps, tensor-parallel degree 1)."""
 
     prefill: Any
     decode: Any
     eos_id: Any = None
     chunk: Any = None
+    prefill_chunk: Any = None
     spec: Any = None
+    speculate_k: Any = None
+    spec_tree: Any = None
+    draft_source: Any = None
     #: the active width of the projections every step streams:
     #: "float32"/"bf16" for plain weights, "int8"/"int4" for quantized
     #: pools; mirrored as ``decode.weight_dtype``
@@ -223,6 +231,16 @@ def _bf16_projections(model: "GPTModel") -> "GPTModel":
     return _swap_projections(model, make)
 
 
+#: the JAX ``GPTConfig`` fields of the multi-GPU surface (ring attention's
+#: context parallelism, mixture-of-experts) with the defaults that leave
+#: them off; any other value raises
+_MULTI_GPU_FIELDS = {
+    "context_parallel": False, "num_experts": None, "moe_top_k": 1,
+    "moe_capacity_factor": 1.25, "moe_aux_weight": 0.01,
+    "moe_router_z_loss_weight": 0.0,
+}
+
+
 @dataclasses.dataclass
 class GPTConfig:
     """Hyperparameters, as in the JAX package's ``GPTConfig``.
@@ -242,8 +260,10 @@ class GPTConfig:
     rotates q and k by ``rope_base``'s frequencies and keeps no position
     table, so ``max_position_embeddings`` then bounds nothing.
 
-    Not ported yet: dropout (ROADMAP.md queue A item 4) and
-    mixture-of-experts (item 9)."""
+    Not ported yet: dropout (ROADMAP.md queue A item 2), and the context
+    parallelism and mixture-of-experts fields (``context_parallel``,
+    ``num_experts`` and the ``moe_*`` knobs, item 10 (A9)): a value other
+    than the default raises ``NotImplementedError``."""
 
     vocab_size: int = 32000
     num_layers: int = 4
@@ -267,7 +287,12 @@ class GPTConfig:
     fused_ce: Optional[bool] = None
     fused_ce_chunk: int = 8192
     attention_impl: Optional[str] = None
+    context_parallel: bool = False
     num_experts: Optional[int] = None
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+    moe_router_z_loss_weight: float = 0.0
 
     def __post_init__(self):
         if self.policy is not None:
@@ -300,11 +325,13 @@ class GPTConfig:
                 f"{self.normalization!r}")
         if self.hidden_dropout > 0.0 or self.attention_dropout > 0.0:
             raise NotImplementedError(
-                "dropout is not ported yet (ROADMAP.md queue A item 4)")
-        if self.num_experts is not None:
-            raise NotImplementedError(
-                "mixture-of-experts is not ported yet "
-                "(ROADMAP.md queue A item 9)")
+                "dropout is not ported yet (ROADMAP.md queue A item 2)")
+        for name, default in _MULTI_GPU_FIELDS.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)!r}: context parallelism "
+                    "and mixture-of-experts are not ported yet (ROADMAP.md "
+                    "queue A item 10, A9)")
 
     @property
     def head_dim(self) -> int:
@@ -960,7 +987,7 @@ class GPTModel(nn.Module):
                              ks[li, 0].transpose(0, 1),
                              vs[li, 0].transpose(0, 1), wp, wo, **kv)
             last = hidden[0, length - 1]
-            tok = sample(model.logits(last)[None], temperature)[0]
+            tok = sample(model.logits(last)[None], None, temperature)[0]
             return pools, tok
 
         def freeze(carry, active, tokens, n_c, is_eos):
@@ -982,7 +1009,7 @@ class GPTModel(nn.Module):
             logits, pools = model.decode_step(
                 carry["tokens"], carry["lengths"], active, page_table,
                 pools, **kv)
-            sampled = sample(logits, temperature)
+            sampled = sample(logits, None, temperature)
             eos_hit = ((sampled == eos_id) if eos_id is not None
                        else torch.zeros_like(active))
             return pools, freeze(carry, active, sampled,
@@ -998,7 +1025,7 @@ class GPTModel(nn.Module):
                                        device=row.device).reshape(1, C)
                 logits, pools = model.prefill_chunk(
                     toks, start, plen, write_from, row, pools, **kv)
-                tok = sample(logits[None], temperature)[0]
+                tok = sample(logits[None], None, temperature)[0]
                 return pools, tok, logits
 
             # the batcher schedules chunks of ITS size and must reject a
@@ -1113,7 +1140,11 @@ class GPTModel(nn.Module):
         decode.weight_stream_bytes = wbytes
         return GPTDecodeFns(
             prefill=prefill, decode=decode, eos_id=eos_id, chunk=chunk,
-            spec=spec, weight_dtype=wd_active, weight_stream_bytes=wbytes)
+            prefill_chunk=getattr(chunk, "prefill_chunk", None), spec=spec,
+            speculate_k=getattr(spec, "speculate_k", None),
+            spec_tree=getattr(spec, "spec_tree", None),
+            draft_source=getattr(spec, "draft_source", None),
+            weight_dtype=wd_active, weight_stream_bytes=wbytes)
 
     def generate(
         self,
@@ -1131,6 +1162,7 @@ class GPTModel(nn.Module):
         temperature: float = 0.0,
         top_k: Optional[int] = None,
         top_p: Optional[float] = None,
+        key: Optional[Any] = None,
         prefill_chunk: Optional[int] = None,
         prefix_cache: bool = False,
         speculate_k: Optional[int] = None,
@@ -1152,8 +1184,10 @@ class GPTModel(nn.Module):
         ``draft_source`` (default: n-gram self-speculation); a draft source
         built for a candidate tree (``ModelDraftSource(tree=...)``) makes
         the verify a tree verify of that shape.  The tokens stay those of
-        greedy decoding.  Returns the per-prompt generated token lists (EOS
-        included when hit)."""
+        greedy decoding.  ``key`` is the JAX argument that seeds sampled
+        streams; greedy decoding (``temperature=0``, the only mode ported)
+        does not read it.  Returns the per-prompt generated token lists
+        (EOS included when hit)."""
         c = self.config
         prompts = np.asarray(prompts)
         prompt_lengths = np.asarray(prompt_lengths)

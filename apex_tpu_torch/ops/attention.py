@@ -14,7 +14,12 @@ and its fp32-to-XLA window (``FLASH_FP32_XLA_MAX_SEQ``) is not copied.
 ``_Flash`` is the counterpart of the JAX ``_flash`` custom_vjp and
 ``_flash_attention_kernels`` of ``_flash_attention_pallas``: both work on
 the flattened ``(b*h, s, d)`` layout.  The port needs no padding to block
-multiples, since its kernels mask the ragged ends themselves.
+multiples, since its kernels mask the ragged ends themselves (so the JAX
+wrappers' pad segment ids have no counterpart either).
+
+Segment ids ``(b, sq)``/``(b, sk)`` go down every rung to its kernels'
+segment instances.  An additive bias and dropout raise
+``NotImplementedError`` (ROADMAP.md queue B items 2b-2d).
 """
 
 from __future__ import annotations
@@ -30,7 +35,14 @@ from apex_tpu_torch.ops.attention_flash import (
     flash_fwd,
 )
 from apex_tpu_torch.ops.attention_mid import fmha_mid, mid_seq_threshold
-from apex_tpu_torch.ops.attention_short import fmha_short, short_seq_threshold
+from apex_tpu_torch.ops.attention_short import (
+    fmha_short,
+    pad_head_dim,
+    reject_unported,
+    segment_ids,
+    short_seq_threshold,
+    visible,
+)
 
 __all__ = ["flash_attention", "mha_reference"]
 
@@ -47,16 +59,30 @@ def mha_reference(
     v: torch.Tensor,
     causal: bool = False,
     sm_scale: Optional[float] = None,
+    bias: Optional[torch.Tensor] = None,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
 ) -> torch.Tensor:
-    """Plain attention with an fp32 softmax over ``(b, h, s, d)``; the
-    probabilities are cast to ``v``'s dtype before the second product, as
-    in the JAX reference."""
+    """Plain attention with an fp32 softmax over ``(b, h, s, d)``, as the
+    JAX reference: an fp32 ``bias`` broadcastable to ``(b, h, sq, sk)``
+    added to the scaled scores, causal and segment-id masks (masked
+    scores -1e30, masked probabilities 0, so a row that sees no key gives
+    0), and the probabilities cast to ``v``'s dtype before the second
+    product.  Dropout raises ``NotImplementedError`` (ROADMAP.md queue B
+    item 2b)."""
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError("segment ids must be given for both q and kv")
+    reject_unported("mha_reference", None, dropout_rate, dropout_seed)
     sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
     scale = (1.0 / d ** 0.5) if sm_scale is None else sm_scale
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if causal:
-        mask = (torch.arange(sk, device=q.device)[None, :]
-                <= torch.arange(sq, device=q.device)[:, None])
+    if bias is not None:
+        s = s + bias.float()
+    mask = visible(sq, sk, causal, q_segment_ids, kv_segment_ids,
+                   device=q.device)
+    if mask is not None:
         s = s.masked_fill(~mask, _NEG_INF)
         p = torch.softmax(s, dim=-1).masked_fill(~mask, 0.0)
     else:
@@ -67,14 +93,17 @@ def mha_reference(
 class _Flash(torch.autograd.Function):
     """``out = attention(q, k, v)`` over ``(b*h, s, d)`` through the flash
     kernels; saves ``(q, k, v, out, lse)`` as the JAX ``_flash_fwd``
-    does.  The backward takes ``delta = rowsum(dout * out)`` once and runs
-    the dK/dV and the dQ kernel on it."""
+    does, and the segment ids with their ``heads``.  The backward takes
+    ``delta = rowsum(dout * out)`` once and runs the dK/dV and the dQ
+    kernel on it."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale):
-        out, lse = flash_fwd(q, k, v, causal=causal, sm_scale=sm_scale)
+    def forward(ctx, q, k, v, causal, sm_scale, q_ids, kv_ids, heads):
+        kw = dict(causal=causal, sm_scale=sm_scale, q_segment_ids=q_ids,
+                  kv_segment_ids=kv_ids, heads=heads)
+        out, lse = flash_fwd(q, k, v, **kw)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.kw = kw
         return out
 
     @staticmethod
@@ -82,19 +111,23 @@ class _Flash(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dout = dout.contiguous()
         delta = flash_delta(out, dout)
-        kw = dict(causal=ctx.causal, sm_scale=ctx.sm_scale)
-        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, **kw)
-        dq = flash_bwd_dq(q, k, v, dout, lse, delta, **kw)
-        return dq, dk, dv, None, None
+        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, **ctx.kw)
+        dq = flash_bwd_dq(q, k, v, dout, lse, delta, **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None
 
 
-def _flash_attention_kernels(q, k, v, causal, sm_scale):
-    """The flash rung over ``(b, h, s, d)``: flatten to ``(b*h, s, d)``,
-    run ``_Flash``, restore the heads."""
+def _flash_attention_kernels(q, k, v, causal, sm_scale, q_ids=None,
+                             kv_ids=None):
+    """The flash rung over ``(b, h, s, d)``: pad a head dim the kernels do
+    not take (as the short rung does), flatten to ``(b*h, s, d)``, run
+    ``_Flash`` (segment ids stay ``(b, s)``), restore the heads."""
     b, h, sq, d = q.shape
-    flat = lambda x: x.reshape(b * h, x.shape[2], d)
-    out = _Flash.apply(flat(q), flat(k), flat(v), causal, sm_scale)
-    return out.reshape(b, h, sq, d)
+    q, k, v, scale = pad_head_dim(q, k, v, sm_scale)
+    dp = q.shape[-1]
+    flat = lambda x: x.reshape(b * h, x.shape[2], dp)
+    out = _Flash.apply(flat(q), flat(k), flat(v), causal, scale, q_ids,
+                       kv_ids, h)
+    return out.reshape(b, h, sq, dp)[..., :d]
 
 
 def flash_attention(
@@ -107,6 +140,8 @@ def flash_attention(
     q_segment_ids: Optional[torch.Tensor] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
+    dropout_seed=None,
+    bias_requires_grad: bool = True,
     block_q: Optional[int] = None,
     block_k: Optional[int] = None,
     implementation: Optional[str] = None,
@@ -126,13 +161,17 @@ def flash_attention(
     used: in JAX they are the flash kernel's TPU tiles (512 x 1024 by
     default, clamped for fp32 by a VMEM budget), which say nothing about
     the H100; the CUDA kernels choose their own tiles
-    (``csrc/attention_flash.cu``).  Bias, segment ids and dropout are not
-    ported yet."""
-    if bias is not None or q_segment_ids is not None \
-            or kv_segment_ids is not None or dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention bias, segment ids and dropout are not ported yet "
-            "(ROADMAP.md queue B item 2)")
+    (``csrc/attention_flash.cu``).
+
+    ``q_segment_ids``/``kv_segment_ids`` ``(b, sq)``/``(b, sk)`` integers
+    let query i see key j only where their ids are equal (BERT's padding
+    and ``contrib.fmha``'s packed varlen batches); every rung takes them.
+    A bias or dropout raises ``NotImplementedError`` naming its ROADMAP.md
+    item; ``bias_requires_grad`` without a bias changes nothing (the T5
+    and contrib callers pass ``False``)."""
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError("segment ids must be given for both q and kv")
+    reject_unported("flash_attention", bias, dropout_rate, dropout_seed)
     rung = implementation
     if rung is None:
         sq, sk = q.shape[2], k.shape[2]
@@ -143,11 +182,15 @@ def flash_attention(
             rung = "mid"
         else:
             rung = "pallas"
+    ids = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids)
     if rung == "short":
-        return fmha_short(q, k, v, causal=causal, sm_scale=sm_scale)
+        return fmha_short(q, k, v, causal=causal, sm_scale=sm_scale, **ids)
     if rung == "mid":
-        return fmha_mid(q, k, v, causal=causal, sm_scale=sm_scale)
+        return fmha_mid(q, k, v, causal=causal, sm_scale=sm_scale, **ids)
     if rung == "pallas":
-        return _flash_attention_kernels(q, k, v, causal, sm_scale)
+        segment_ids("flash_attention", q_segment_ids, kv_segment_ids,
+                    q.shape[0], q.shape[2], k.shape[2])
+        return _flash_attention_kernels(q, k, v, causal, sm_scale,
+                                        q_segment_ids, kv_segment_ids)
     raise ValueError(f"implementation={implementation!r}: expected None or "
                      f"one of {_RUNGS}")

@@ -40,7 +40,8 @@ from typing import Optional
 import torch
 
 from apex_tpu_torch.ops.common import (
-    check, check_operands, count_launch, load, stream_of,
+    check, check_implementation, check_operands, count_launch, load,
+    stream_of,
 )
 from apex_tpu_torch.ops.rope import apply_rope_tables
 
@@ -289,6 +290,8 @@ def fmha_decode(
     v_scales: Optional[torch.Tensor] = None,
     kv_block: int = 128,
     rope=None,
+    block_h: Optional[int] = None,
+    implementation: Optional[str] = None,
     ancestor=None,
 ) -> torch.Tensor:
     """Decode attention: ``q (b, h, sq, d)`` against the paged cache
@@ -302,7 +305,10 @@ def fmha_decode(
     lower-triangular with a unit diagonal, ``sq <= 31``, causal only)
     switches the in-window causal triangle to tree visibility, as in the
     JAX package.  ``1 <= sq <= FMHA_DECODE_MAX_ROWS`` on every device.  A
-    CUDA tensor runs a kernel, a CPU tensor the plain version."""
+    CUDA tensor runs a kernel, a CPU tensor the plain version.
+    ``block_h`` (the heads a TPU grid step takes) is accepted and not
+    used; ``implementation`` None or ``"pallas"`` runs the kernel."""
+    check_implementation(KERNEL, implementation)
     if (k_scales is None) != (v_scales is None):
         raise ValueError("int8 pages need BOTH k_scales and v_scales")
     if k_pages.dtype == torch.int8 and k_scales is None:

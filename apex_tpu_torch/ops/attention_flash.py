@@ -22,9 +22,18 @@ takes ``delta = rowsum(dout * out)`` from outside the kernels (JAX
 computes it in XLA) and has no lse cotangent.  Causal masking is top-left
 aligned, ``k <= q`` by index, and ``sq != sk`` is allowed.
 
+Segment ids (the Pallas bodies' ``has_segs``): every entry takes
+``q_segment_ids``/``kv_segment_ids`` ``(b, sq)``/``(b, sk)`` with
+``heads``, the heads a batch row spans in ``b*h``; key j is visible to
+query i only where their ids are equal.  The C entries take the ids as two
+int32 pointers (null without them) plus ``heads``, and launch the
+segment instances, counted as ``flash_fwd_seg``, ``flash_bwd_dkv_seg``
+and ``flash_bwd_dq_seg``.  A query row that sees no key gives out 0 and
+zero gradients, as the Pallas bodies do.
+
 A CUDA tensor runs the kernel or raises; a CPU tensor runs the plain
-version.  Not ported yet (ROADMAP.md queue B item 2): bias, segment ids
-and dropout.
+version.  Not ported yet: the additive bias (ROADMAP.md queue B item 2c)
+and dropout (item 2b).
 """
 
 from __future__ import annotations
@@ -39,9 +48,12 @@ from apex_tpu_torch.ops.attention_short import (
     DTYPES,
     FWD_ARGTYPES,
     _NEG_INF,
-    causal_mask,
     check_kernel_inputs,
+    data_ptr,
+    id_operands,
+    segment_ids,
     softmax_scale,
+    visible,
 )
 from apex_tpu_torch.ops.common import (
     check, check_operands, count_launch, load, stream_of,
@@ -52,12 +64,18 @@ __all__ = ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_delta"]
 KERNEL = "flash_fwd"
 KERNEL_DKV = "flash_bwd_dkv"
 KERNEL_DQ = "flash_bwd_dq"
+#: the launch counters of the segment-id instances (the same C entries)
+SEG = {KERNEL: "flash_fwd_seg", KERNEL_DKV: "flash_bwd_dkv_seg",
+       KERNEL_DQ: "flash_bwd_dq_seg"}
 
-_ARGTYPES = {
+#: ctypes argument types of the C entries, as ``csrc/attention_flash.cu``
+#: declares them: pointers (q, k, v, q_ids, kv_ids, then each entry's
+#: own), the ints bh, heads, sq, sk, d, dtype, causal, then scale, stream
+ARGTYPES = {
     KERNEL: FWD_ARGTYPES,
-    KERNEL_DKV: [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+    KERNEL_DKV: [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_void_p],
-    KERNEL_DQ: [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+    KERNEL_DQ: [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_void_p],
 }
 
@@ -69,16 +87,17 @@ def _operand(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x if dtype == torch.float32 else x.to(dtype).float()
 
 
-def _flash_fwd_plain(q, k, v, causal, scale):
+def _flash_fwd_plain(q, k, v, causal, scale, q_ids=None, kv_ids=None,
+                     heads=None):
     """The plain forward over ``(bh, s, d)``, the kernel's arithmetic:
     ``q * scale`` in fp32 before the product, fp32 scores, -1e30 fill,
     masked probabilities zero, ``l`` (from the fp32 probabilities)
     clamped at 1e-30, ``p`` rounded to bf16 for the bf16 ``p . v``."""
     qs = _operand(q.float() * scale, q.dtype)
     s = torch.matmul(qs, k.float().transpose(-1, -2))
-    mask = None
-    if causal:
-        mask = causal_mask(q.shape[-2], k.shape[-2], q.device)
+    mask = visible(q.shape[-2], k.shape[-2], causal, q_ids, kv_ids, heads,
+                   q.device)
+    if mask is not None:
         s = s.masked_fill(~mask, _NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -96,7 +115,8 @@ def flash_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     return (dout.float() * out.float()).sum(-1)
 
 
-def _flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale):
+def _flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale, q_ids=None,
+                     kv_ids=None, heads=None):
     """``(dq, dk, dv)`` with the kernels' arithmetic: ``s = (q . k) *
     scale``, ``p = exp(s - lse)`` with masked entries zero, ``dz = p *
     (dp - delta)``, and for bf16 inputs ``p`` and ``dz * scale`` rounded
@@ -104,9 +124,10 @@ def _flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale):
     qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     p = torch.exp(s - lse[..., None])
-    if causal:
-        p = p.masked_fill(~causal_mask(q.shape[-2], k.shape[-2], q.device),
-                          0.0)
+    mask = visible(q.shape[-2], k.shape[-2], causal, q_ids, kv_ids, heads,
+                   q.device)
+    if mask is not None:
+        p = p.masked_fill(~mask, 0.0)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     dz = p * (dp - delta[..., None])
     p_op, z_op = _operand(p, q.dtype), _operand(dz * scale, q.dtype)
@@ -121,16 +142,27 @@ def _entry(symbol: str):
     """The loaded library and one of its C entries, typed once."""
     lib = load("attention_flash")
     fn = getattr(lib, symbol)
-    fn.argtypes = _ARGTYPES[symbol]
+    fn.argtypes = ARGTYPES[symbol]
     fn.restype = ctypes.c_int
     return lib, fn
 
 
-def _check_flat(kernel: str, q, k, v) -> None:
+def _check_flat(kernel: str, q, k, v, q_ids=None, kv_ids=None,
+                heads=None):
+    """Check the flattened operands and the segment ids of ``bh /
+    heads`` batch rows; returns the ids as given (or Nones)."""
     if q.ndim != 3 or k.shape != v.shape or k.ndim != 3 \
             or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
         raise ValueError(f"{kernel}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} are not (b*h, s, d) alike")
+    if q_ids is None and kv_ids is None:
+        return None, None
+    bh = q.shape[0]
+    if heads is None or heads <= 0 or bh % heads:
+        raise ValueError(f"{kernel}: segment ids need heads dividing "
+                         f"b*h = {bh}, got heads={heads}")
+    return segment_ids(kernel, q_ids, kv_ids, bh // heads, q.shape[1],
+                       k.shape[1])
 
 
 def _check_cuda(kernel: str, q, k, v, *rest) -> None:
@@ -147,28 +179,44 @@ def _check_cuda(kernel: str, q, k, v, *rest) -> None:
             raise ValueError(f"{kernel}: operand not 16-byte aligned")
 
 
+def _launch(kernel, q, k, v, ids, heads, rest, outs, causal, scale):
+    """Launch the C entry ``kernel``: pointers q, k, v, the ids, then
+    ``rest`` (inputs) and ``outs`` (outputs), then the sizes.  Counts the
+    launch under the kernel's name, or its segment counter with ids."""
+    q_ids, kv_ids = id_operands(*ids)
+    if q_ids is not None:
+        check_operands(kernel, q, q_ids, kv_ids)
+    bh, sq, d = q.shape
+    lib, fn = _entry(kernel)
+    name = kernel if q_ids is None else SEG[kernel]
+    count_launch(name)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), data_ptr(q_ids),
+             data_ptr(kv_ids), *(t.data_ptr() for t in rest + outs), bh,
+             heads or 1, sq, k.shape[1], d, DTYPES[q.dtype], int(causal),
+             float(scale), stream_of(q))
+    check(lib, name, err)
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool = False, sm_scale: Optional[float] = None
+              causal: bool = False, sm_scale: Optional[float] = None,
+              q_segment_ids: Optional[torch.Tensor] = None,
+              kv_segment_ids: Optional[torch.Tensor] = None,
+              heads: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, lse)`` over ``q (bh, sq, d)``, ``k, v (bh, sk, d)``:
-    ``out`` in q's dtype, ``lse (bh, sq)`` fp32."""
-    _check_flat(KERNEL, q, k, v)
+    ``out`` in q's dtype, ``lse (bh, sq)`` fp32.  Segment ids are ``(bh
+    / heads, sq)`` and ``(bh / heads, sk)``."""
+    ids = _check_flat(KERNEL, q, k, v, q_segment_ids, kv_segment_ids, heads)
     scale = softmax_scale(q, sm_scale)
     if q.device.type == "cpu":
-        return _flash_fwd_plain(q, k, v, causal, scale)
+        return _flash_fwd_plain(q, k, v, causal, scale, *ids, heads)
     if not q.is_cuda:
         raise ValueError(f"{KERNEL}: unsupported device {q.device}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _check_cuda(KERNEL, q, k, v)
-    bh, sq, d = q.shape
-    lib, fn = _entry(KERNEL)
     out = torch.empty_like(q)
-    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    count_launch(KERNEL)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), bh, sq, k.shape[1], d, DTYPES[q.dtype],
-             int(causal), float(scale), stream_of(q))
-    check(lib, KERNEL, err)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    _launch(KERNEL, q, k, v, ids, heads, (), (out, lse), causal, scale)
     return out, lse
 
 
@@ -187,50 +235,48 @@ def _bwd_operands(kernel, q, k, v, dout, lse, delta):
 
 def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
-                  causal: bool = False, sm_scale: Optional[float] = None
+                  causal: bool = False, sm_scale: Optional[float] = None,
+                  q_segment_ids: Optional[torch.Tensor] = None,
+                  kv_segment_ids: Optional[torch.Tensor] = None,
+                  heads: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dk, dv)`` of :func:`flash_fwd` from its ``lse``, the cotangent
-    ``dout`` and ``delta = flash_delta(out, dout)``."""
-    _check_flat(KERNEL_DKV, q, k, v)
+    ``dout`` and ``delta = flash_delta(out, dout)``, with the forward's
+    mask."""
+    ids = _check_flat(KERNEL_DKV, q, k, v, q_segment_ids, kv_segment_ids,
+                      heads)
     scale = softmax_scale(q, sm_scale)
     if q.device.type == "cpu":
-        return _flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale)[1:]
+        return _flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale,
+                                *ids, heads)[1:]
     if not q.is_cuda:
         raise ValueError(f"{KERNEL_DKV}: unsupported device {q.device}")
     q, k, v, dout, lse, delta = _bwd_operands(KERNEL_DKV, q, k, v, dout,
                                               lse, delta)
-    bh, sq, d = q.shape
-    lib, fn = _entry(KERNEL_DKV)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    count_launch(KERNEL_DKV)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             bh, sq, k.shape[1], d, DTYPES[q.dtype], int(causal),
-             float(scale), stream_of(q))
-    check(lib, KERNEL_DKV, err)
+    _launch(KERNEL_DKV, q, k, v, ids, heads, (dout, lse, delta), (dk, dv),
+            causal, scale)
     return dk, dv
 
 
 def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
-                 causal: bool = False, sm_scale: Optional[float] = None
-                 ) -> torch.Tensor:
+                 causal: bool = False, sm_scale: Optional[float] = None,
+                 q_segment_ids: Optional[torch.Tensor] = None,
+                 kv_segment_ids: Optional[torch.Tensor] = None,
+                 heads: Optional[int] = None) -> torch.Tensor:
     """``dq`` of :func:`flash_fwd`, as :func:`flash_bwd_dkv` takes it."""
-    _check_flat(KERNEL_DQ, q, k, v)
+    ids = _check_flat(KERNEL_DQ, q, k, v, q_segment_ids, kv_segment_ids,
+                      heads)
     scale = softmax_scale(q, sm_scale)
     if q.device.type == "cpu":
-        return _flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale)[0]
+        return _flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale,
+                                *ids, heads)[0]
     if not q.is_cuda:
         raise ValueError(f"{KERNEL_DQ}: unsupported device {q.device}")
     q, k, v, dout, lse, delta = _bwd_operands(KERNEL_DQ, q, k, v, dout, lse,
                                               delta)
-    bh, sq, d = q.shape
-    lib, fn = _entry(KERNEL_DQ)
     dq = torch.empty_like(q)
-    count_launch(KERNEL_DQ)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, sq,
-             k.shape[1], d, DTYPES[q.dtype], int(causal), float(scale),
-             stream_of(q))
-    check(lib, KERNEL_DQ, err)
+    _launch(KERNEL_DQ, q, k, v, ids, heads, (dout, lse, delta), (dq,),
+            causal, scale)
     return dq

@@ -19,8 +19,11 @@ differentiable: the lse cotangent enters the backward as ``dz = p * (dp -
 delta + dlse)``.  ``_xla_with_lse`` is the plain lse reference, as in the
 JAX package.
 
-Not ported yet (ROADMAP.md queue B item 2): additive bias, segment ids
-and dropout.
+Segment ids ``(b, sq)``/``(b, sk)`` go to the same C entries, which then
+launch the kernels' segment instances (counted as ``mid_fwd_seg`` and
+``mid_bwd_seg``); they are what ``contrib.fmha`` sends at 512 < max_s <=
+2048.  Not ported yet: the additive bias (ROADMAP.md queue B item 2c) and
+dropout (item 2b).
 """
 
 from __future__ import annotations
@@ -34,25 +37,31 @@ import torch
 
 from apex_tpu_torch.ops.attention_short import (
     BWD_ARGTYPES,
-    DTYPES,
     FWD_ARGTYPES,
     _NEG_INF,
     _short_bwd_plain,
     _short_fwd_plain,
-    causal_mask,
-    check_kernel_inputs,
     check_shapes,
+    launch_bwd,
+    launch_fwd,
+    pad_head_dim,
+    reject_unported,
+    segment_ids,
     softmax_scale,
+    visible,
 )
-from apex_tpu_torch.ops.common import (
-    check, check_operands, count_launch, load, stream_of,
-)
+from apex_tpu_torch.ops.common import check_implementation, load
 
 __all__ = ["fmha_mid", "mid_fwd", "mid_bwd", "FMHA_MID_MAX_SEQ",
            "mid_seq_threshold"]
 
 KERNEL = "mid_fwd"
 KERNEL_BWD = "mid_bwd"
+#: the launch counters of the segment-id instances (the same C entries)
+KERNEL_SEG = "mid_fwd_seg"
+KERNEL_BWD_SEG = "mid_bwd_seg"
+#: ctypes argument types of the C entries (the short entries')
+ARGTYPES = {KERNEL: FWD_ARGTYPES, KERNEL_BWD: BWD_ARGTYPES}
 
 #: The longest sequence the ladder sends to the mid rung.  2048 is the JAX
 #: package's window; it is NOT a crossover measured on the H100 (the flash
@@ -68,32 +77,39 @@ def mid_seq_threshold() -> int:
     return int(v) if v is not None and v != "" else FMHA_MID_MAX_SEQ
 
 
-def _mid_fwd_plain(q, k, v, causal, scale):
+def _mid_fwd_plain(q, k, v, causal, scale, q_ids=None, kv_ids=None):
     """The plain version.  The JAX mid kernel computes the short kernel's
     function (scaled q, -1e30 fill, masked p zero, ``l`` clamped at
     1e-30) over streamed blocks, so this is the short kernel's plain
     version."""
-    return _short_fwd_plain(q, k, v, causal, scale)
+    return _short_fwd_plain(q, k, v, causal, scale, q_ids, kv_ids)
 
 
-def _mid_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale):
+def _mid_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale,
+                   q_ids=None, kv_ids=None):
     """The plain backward, the short kernel's with the lse cotangent:
     ``dz = p * (dp - delta + dlse)``."""
-    return _short_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale)
+    return _short_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale,
+                            q_ids, kv_ids)
 
 
-def _xla_with_lse(q, k, v, causal, sm_scale=None):
+def _xla_with_lse(q, k, v, causal, sm_scale=None, q_segment_ids=None,
+                  kv_segment_ids=None):
     """``mha_reference`` plus the per-row log-sum-exp, from the same
     masked-score formula the kernels use (the JAX package's plain
     reference for ``return_lse`` callers); differentiable by autograd."""
     from apex_tpu_torch.ops.attention import mha_reference
 
-    out = mha_reference(q, k, v, causal=causal, sm_scale=sm_scale)
+    out = mha_reference(q, k, v, causal=causal, sm_scale=sm_scale,
+                        q_segment_ids=q_segment_ids,
+                        kv_segment_ids=kv_segment_ids)
     sq, sk = q.shape[2], k.shape[2]
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * softmax_scale(
         q, sm_scale)
-    mask = (causal_mask(sq, sk, q.device) if causal
-            else torch.ones((sq, sk), dtype=torch.bool, device=q.device))
+    mask = visible(sq, sk, causal, q_segment_ids, kv_segment_ids,
+                   device=q.device)
+    if mask is None:
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     s = s.masked_fill(~mask, _NEG_INF)
     m = s.amax(dim=-1, keepdim=True).detach()
     p = torch.where(mask, torch.exp(s - m), 0.0)
@@ -106,50 +122,9 @@ def _entry(symbol: str):
     """The loaded library and one of its C entries, typed once."""
     lib = load("attention_mid")
     fn = getattr(lib, symbol)
-    fn.argtypes = {"mid_fwd": FWD_ARGTYPES, "mid_bwd": BWD_ARGTYPES}[symbol]
+    fn.argtypes = ARGTYPES[symbol]
     fn.restype = ctypes.c_int
     return lib, fn
-
-
-def _mid_fwd_cuda(q, k, v, causal, scale):
-    check_kernel_inputs(KERNEL, q, k, v)
-    b, h, sq, d = q.shape
-    sk = k.shape[2]
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    check_operands(KERNEL, q, k, v)
-    lib, fn = _entry(KERNEL)
-    out = torch.empty_like(q)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    count_launch(KERNEL)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), b * h, sq, sk, d, DTYPES[q.dtype],
-             int(causal), float(scale), stream_of(q))
-    check(lib, KERNEL, err)
-    return out, lse
-
-
-def _mid_bwd_cuda(q, k, v, out, dout, lse, dlse, causal, scale):
-    check_kernel_inputs(KERNEL_BWD, q, k, v)
-    b, h, sq, d = q.shape
-    sk = k.shape[2]
-    q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
-    lse = lse.float().contiguous()
-    extra = [] if dlse is None else [dlse.float().contiguous()]
-    if out.dtype != q.dtype or dout.dtype != q.dtype:
-        raise ValueError(f"{KERNEL_BWD}: out/dout {out.dtype}/{dout.dtype} "
-                         f"differ from q's {q.dtype}")
-    check_operands(KERNEL_BWD, q, k, v, out, dout, lse, *extra)
-    lib, fn = _entry(KERNEL_BWD)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    count_launch(KERNEL_BWD)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             dout.data_ptr(), lse.data_ptr(),
-             extra[0].data_ptr() if extra else None, delta.data_ptr(),
-             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, sq, sk, d,
-             DTYPES[q.dtype], int(causal), float(scale), stream_of(q))
-    check(lib, KERNEL_BWD, err)
-    return dq, dk, dv
 
 
 def mid_fwd(
@@ -158,16 +133,22 @@ def mid_fwd(
     v: torch.Tensor,
     causal: bool = False,
     sm_scale: Optional[float] = None,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, lse)`` of softmax attention over ``(b, h, s, d)``, any
-    sequence length (the ladder sends it 512 < s <= 2048).  A CUDA tensor
-    runs the kernel, a CPU tensor the plain version."""
+    sequence length (the ladder sends it 512 < s <= 2048), with optional
+    segment ids ``(b, sq)``/``(b, sk)``.  A CUDA tensor runs the kernel, a
+    CPU tensor the plain version."""
     check_shapes(KERNEL, q, k, v)
+    ids = segment_ids(KERNEL, q_segment_ids, kv_segment_ids, q.shape[0],
+                      q.shape[2], k.shape[2])
     scale = softmax_scale(q, sm_scale)
     if q.is_cuda:
-        return _mid_fwd_cuda(q, k, v, causal, scale)
+        return launch_fwd(_entry, (KERNEL, KERNEL_SEG), q, k, v, causal,
+                          scale, *ids)
     if q.device.type == "cpu":
-        return _mid_fwd_plain(q, k, v, causal, scale)
+        return _mid_fwd_plain(q, k, v, causal, scale, *ids)
     raise ValueError(f"{KERNEL}: unsupported device {q.device}")
 
 
@@ -181,16 +162,23 @@ def mid_bwd(
     dlse: Optional[torch.Tensor] = None,
     causal: bool = False,
     sm_scale: Optional[float] = None,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of :func:`mid_fwd` from its ``out``/``lse``, the
-    output cotangent ``dout`` and the optional lse cotangent ``dlse``.  A
-    CUDA tensor runs the kernel, a CPU tensor the plain version."""
+    output cotangent ``dout`` and the optional lse cotangent ``dlse``,
+    with the forward's mask.  A CUDA tensor runs the kernel, a CPU tensor
+    the plain version."""
     check_shapes(KERNEL_BWD, q, k, v)
+    ids = segment_ids(KERNEL_BWD, q_segment_ids, kv_segment_ids,
+                      q.shape[0], q.shape[2], k.shape[2])
     scale = softmax_scale(q, sm_scale)
     if q.is_cuda:
-        return _mid_bwd_cuda(q, k, v, out, dout, lse, dlse, causal, scale)
+        return launch_bwd(_entry, (KERNEL_BWD, KERNEL_BWD_SEG), q, k, v, out,
+                          dout, lse, dlse, causal, scale, *ids)
     if q.device.type == "cpu":
-        return _mid_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale)
+        return _mid_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale,
+                              *ids)
     raise ValueError(f"{KERNEL_BWD}: unsupported device {q.device}")
 
 
@@ -199,10 +187,10 @@ class _MidAttention(torch.autograd.Function):
     takes a real lse cotangent."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale):
-        out, lse = mid_fwd(q, k, v, causal=causal, sm_scale=sm_scale)
+    def forward(ctx, q, k, v, causal, sm_scale, q_ids, kv_ids):
+        out, lse = mid_fwd(q, k, v, causal, sm_scale, q_ids, kv_ids)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.causal, ctx.sm_scale, ctx.ids = causal, sm_scale, (q_ids, kv_ids)
         return out, lse
 
     @staticmethod
@@ -210,9 +198,9 @@ class _MidAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         if dout is None:
             dout = torch.zeros_like(out)
-        dq, dk, dv = mid_bwd(q, k, v, out, dout, lse, dlse,
-                             causal=ctx.causal, sm_scale=ctx.sm_scale)
-        return dq, dk, dv, None, None
+        dq, dk, dv = mid_bwd(q, k, v, out, dout, lse, dlse, ctx.causal,
+                             ctx.sm_scale, *ctx.ids)
+        return dq, dk, dv, None, None, None, None
 
 
 def fmha_mid(
@@ -225,16 +213,32 @@ def fmha_mid(
     q_segment_ids: Optional[torch.Tensor] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
+    dropout_seed=None,
+    bias_requires_grad: bool = True,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
+    block_bh: Optional[int] = None,
+    implementation: Optional[str] = None,
     return_lse: bool = False,
 ):
     """Mid-sequence attention over ``(b, h, s, d)``, differentiable in q,
-    k and v.  ``return_lse=True`` returns ``(out, lse)`` with ``lse`` of
-    shape ``(b, h, sq)``, differentiable too.  Most callers go through
-    :func:`apex_tpu_torch.ops.attention.flash_attention`."""
-    if bias is not None or q_segment_ids is not None \
-            or kv_segment_ids is not None or dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention bias, segment ids and dropout are not ported yet "
-            "(ROADMAP.md queue B item 2)")
-    out, lse = _MidAttention.apply(q, k, v, causal, sm_scale)
+    k and v, with optional segment ids ``(b, sq)``/``(b, sk)``.
+    ``return_lse=True`` returns ``(out, lse)`` with ``lse`` of shape ``(b,
+    h, sq)``, differentiable too.  Most callers go through
+    :func:`apex_tpu_torch.ops.attention.flash_attention`.
+
+    The JAX signature: the TPU tiles ``block_q``/``block_k``/``block_bh``
+    are accepted and not used (the CUDA kernels choose their own);
+    ``implementation`` None, ``"pallas"`` or ``"mid"`` runs the kernel.  A
+    bias or dropout raises ``NotImplementedError`` (ROADMAP.md queue B
+    items 2b-2d); ``bias_requires_grad`` without a bias changes nothing.
+    A head dim the kernels do not take is zero-padded as for
+    :func:`~apex_tpu_torch.ops.attention_short.fmha_short`."""
+    check_implementation(KERNEL, implementation, ("pallas", "mid"))
+    reject_unported(KERNEL, bias, dropout_rate, dropout_seed)
+    d = q.shape[-1]
+    q, k, v, scale = pad_head_dim(q, k, v, sm_scale)
+    out, lse = _MidAttention.apply(q, k, v, causal, scale, q_segment_ids,
+                                   kv_segment_ids)
+    out = out[..., :d]
     return (out, lse) if return_lse else out

@@ -13,8 +13,17 @@ WMMA tensor-core products in bf16, full fp32 products for fp32.
 ``fmha_short`` is differentiable through a ``torch.autograd.Function``
 that saves ``(q, k, v, out, lse)``, as the JAX custom_vjp does.
 
-Not ported yet (ROADMAP.md queue B item 2): additive bias, segment ids
-and dropout.
+Segment ids (the Pallas bodies' ``has_segs``): ``q_segment_ids``/
+``kv_segment_ids`` ``(b, sq)``/``(b, sk)`` integers let query i see key j
+only where their ids are equal, on top of the causal mask.  The same C
+entries take them as two int32 pointers (null without them) and launch
+the kernels' segment instances, counted as ``short_fwd_seg`` and
+``short_bwd_seg``.  A query row that sees no key gives out 0, and 0 in
+every gradient, as the Pallas bodies do.  No padding to a block multiple
+is needed, so the JAX wrapper's pad ids have no counterpart.
+
+Not ported yet: the additive bias (ROADMAP.md queue B item 2c) and
+dropout (item 2b); both raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,7 +37,8 @@ from typing import Optional, Tuple
 import torch
 
 from apex_tpu_torch.ops.common import (
-    check, check_operands, count_launch, load, stream_of,
+    check, check_implementation, check_operands, count_launch, load,
+    stream_of,
 )
 
 __all__ = ["fmha_short", "short_fwd", "short_bwd", "FMHA_SHORT_MAX_SEQ",
@@ -36,6 +46,9 @@ __all__ = ["fmha_short", "short_fwd", "short_bwd", "FMHA_SHORT_MAX_SEQ",
 
 KERNEL = "short_fwd"
 KERNEL_BWD = "short_bwd"
+#: the launch counters of the segment-id instances (the same C entries)
+KERNEL_SEG = "short_fwd_seg"
+KERNEL_BWD_SEG = "short_bwd_seg"
 
 #: The longest sequence the short rung takes.  512 is the JAX package's
 #: window; it is NOT a crossover measured on the H100 (PERF.md records a
@@ -56,11 +69,15 @@ HEAD_DIMS = (64, 128)
 
 #: ctypes argument types of the C entries, as ``csrc/attention_short.cu``
 #: declares them (the mid entries of ``csrc/attention_mid.cu`` take the
-#: same arguments)
-FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+#: same arguments): q, k, v, q_ids, kv_ids, out, lse | bh, heads, sq, sk,
+#: d, dtype, causal | scale, stream
+FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_void_p]
-BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+#: q, k, v, q_ids, kv_ids, out, dout, lse, dlse, delta, dq, dk, dv | bh,
+#: heads, sq, sk, d, dtype, causal | scale, stream
+BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_void_p]
+ARGTYPES = {KERNEL: FWD_ARGTYPES, KERNEL_BWD: BWD_ARGTYPES}
 
 
 def causal_mask(sq: int, sk: int, device) -> torch.Tensor:
@@ -70,15 +87,84 @@ def causal_mask(sq: int, sk: int, device) -> torch.Tensor:
             <= torch.arange(sq, device=device)[:, None])
 
 
-def _short_fwd_plain(q, k, v, causal, scale):
+def visible(sq: int, sk: int, causal: bool, q_ids=None, kv_ids=None,
+            heads: Optional[int] = None, device=None):
+    """True where key ``j`` is visible to query ``i``: ``j <= i`` when
+    causal, and ``q_ids[b, i] == kv_ids[b, j]`` with segment ids ``(b,
+    s)``.  The mask is ``(sq, sk)``, or with ids ``(b, 1, sq, sk)`` over a
+    ``(b, h, sq, sk)`` score, or, given ``heads``, ``(b*h, sq, sk)`` over
+    the flattened layout.  None when every key is visible."""
+    mask = causal_mask(sq, sk, device) if causal else None
+    if q_ids is not None:
+        if heads is None:
+            seg = q_ids[:, None, :, None] == kv_ids[:, None, None, :]
+        else:
+            qe = q_ids.repeat_interleave(heads, dim=0)
+            ke = kv_ids.repeat_interleave(heads, dim=0)
+            seg = qe[:, :, None] == ke[:, None, :]
+        mask = seg if mask is None else seg & mask
+    return mask
+
+
+def segment_ids(kernel: str, q_ids, kv_ids, b: int, sq: int, sk: int):
+    """Check segment ids against a batch of ``b`` rows of ``sq`` queries
+    and ``sk`` keys: both or neither, integer, ``(b, sq)`` and ``(b,
+    sk)``.  Returns them as given."""
+    if (q_ids is None) != (kv_ids is None):
+        raise ValueError("segment ids must be given for both q and kv")
+    if q_ids is None:
+        return None, None
+    for name, ids, s in (("q", q_ids, sq), ("kv", kv_ids, sk)):
+        if tuple(ids.shape) != (b, s):
+            raise ValueError(f"{kernel}: {name}_segment_ids of shape "
+                             f"{tuple(ids.shape)}, expected {(b, s)}")
+        if ids.is_floating_point() or ids.is_complex() \
+                or ids.dtype == torch.bool:
+            raise ValueError(f"{kernel}: {name}_segment_ids must be "
+                             f"integers, got {ids.dtype}")
+    return q_ids, kv_ids
+
+
+def id_operands(q_ids, kv_ids):
+    """The ids as the C entries take them: contiguous int32 (or None)."""
+    if q_ids is None:
+        return None, None
+    return (q_ids.to(torch.int32).contiguous(),
+            kv_ids.to(torch.int32).contiguous())
+
+
+def data_ptr(t: Optional[torch.Tensor]):
+    """``t``'s device pointer, or None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
+def reject_unported(kernel: str, bias, dropout_rate: float,
+                    dropout_seed) -> None:
+    """The JAX attention options the port does not run yet: a bias and
+    dropout (whatever ``dropout_seed`` says) raise ``NotImplementedError``
+    naming their ROADMAP.md items."""
+    if bias is not None:
+        raise NotImplementedError(
+            f"{kernel}: an additive attention bias is not ported yet "
+            "(ROADMAP.md queue B item 2c, and 2d for its gradient; they come "
+            "with queue A item 3, contrib attention)")
+    if dropout_rate > 0.0:
+        raise NotImplementedError(
+            f"{kernel}: attention dropout (seed {dropout_seed!r}) is not "
+            "ported yet (ROADMAP.md queue B item 2b; it comes with queue A "
+            "item 2, the JAX PRNG)")
+
+
+def _short_fwd_plain(q, k, v, causal, scale, q_ids=None, kv_ids=None):
     """The plain PyTorch version, mirroring the TPU kernel's arithmetic:
     fp32 scores of the scaled query, finite -1e30 fill, exact softmax
-    with masked probabilities zeroed, ``l`` clamped at 1e-30."""
+    with masked probabilities zeroed, ``l`` clamped at 1e-30 (so a row
+    that sees no key gives 0 and an lse of about -1e30)."""
     qf = q.float() * scale
     s = torch.matmul(qf, k.float().transpose(-1, -2))
-    mask = None
-    if causal:
-        mask = causal_mask(q.shape[-2], k.shape[-2], q.device)
+    mask = visible(q.shape[-2], k.shape[-2], causal, q_ids, kv_ids,
+                   device=q.device)
+    if mask is not None:
         s = s.masked_fill(~mask, _NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -90,7 +176,8 @@ def _short_fwd_plain(q, k, v, causal, scale):
     return (acc / l).to(q.dtype), (m + torch.log(l))[..., 0]
 
 
-def _short_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale):
+def _short_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale,
+                     q_ids=None, kv_ids=None):
     """The plain PyTorch version of the fused backward, mirroring the TPU
     kernel's arithmetic: the scores are scaled AFTER the product (the
     forward scales q before it), ``p = exp(s - lse)`` with masked entries
@@ -101,9 +188,10 @@ def _short_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale):
     qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     p = torch.exp(s - lse[..., None])
-    if causal:
-        p = p.masked_fill(~causal_mask(q.shape[-2], k.shape[-2], q.device),
-                          0.0)
+    mask = visible(q.shape[-2], k.shape[-2], causal, q_ids, kv_ids,
+                   device=q.device)
+    if mask is not None:
+        p = p.masked_fill(~mask, 0.0)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     resid = dp - (dof * out.float()).sum(-1, keepdim=True)
     if dlse is not None:
@@ -125,10 +213,24 @@ def _entry(symbol: str):
     """The loaded library and one of its C entries, typed once."""
     lib = load("attention_short")
     fn = getattr(lib, symbol)
-    fn.argtypes = {"short_fwd": FWD_ARGTYPES,
-                   "short_bwd": BWD_ARGTYPES}[symbol]
+    fn.argtypes = ARGTYPES[symbol]
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+def pad_head_dim(q, k, v, sm_scale):
+    """A head dim the kernels do not take, below 128, zero-padded to the
+    next of :data:`HEAD_DIMS` (as the JAX flash wrapper pads to its 128
+    lanes): zero columns change no score, and the caller cuts the padded
+    output columns off.  Returns ``(q, k, v, scale)`` with the scale of
+    the original head dim."""
+    scale = softmax_scale(q, sm_scale)
+    d = q.shape[-1]
+    if d in HEAD_DIMS or d > HEAD_DIMS[-1]:
+        return q, k, v, scale
+    pad = min(h for h in HEAD_DIMS if h > d) - d
+    return (*(torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v)),
+            scale)
 
 
 def check_kernel_inputs(kernel: str, q, k, v) -> None:
@@ -153,44 +255,55 @@ def check_shapes(kernel: str, q, k, v) -> None:
                          f"v {tuple(v.shape)} are not (b, h, s, d) alike")
 
 
-def _short_fwd_cuda(q, k, v, causal, scale):
-    check_kernel_inputs(KERNEL, q, k, v)
+def launch_fwd(entry, names, q, k, v, causal, scale, q_ids, kv_ids):
+    """Launch a short or mid forward C entry (``entry(symbol)`` gives the
+    library and the function) over ``(b, h, s, d)``; ``names`` are the
+    plain and segment launch counters."""
+    kernel = names[q_ids is not None]
+    check_kernel_inputs(kernel, q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    check_operands(KERNEL, q, k, v)
-    lib, fn = _entry(KERNEL)
+    q_ids, kv_ids = id_operands(q_ids, kv_ids)
+    check_operands(kernel, q, k, v,
+                   *(() if q_ids is None else (q_ids, kv_ids)))
+    lib, fn = entry(names[0])
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    count_launch(KERNEL)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), b * h, sq, sk, d, DTYPES[q.dtype],
-             int(causal), float(scale), stream_of(q))
-    check(lib, KERNEL, err)
+    count_launch(kernel)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), data_ptr(q_ids),
+             data_ptr(kv_ids), out.data_ptr(), lse.data_ptr(), b * h, h, sq,
+             sk, d, DTYPES[q.dtype], int(causal), float(scale), stream_of(q))
+    check(lib, kernel, err)
     return out, lse
 
 
-def _short_bwd_cuda(q, k, v, out, dout, lse, dlse, causal, scale):
-    check_kernel_inputs(KERNEL_BWD, q, k, v)
+def launch_bwd(entry, names, q, k, v, out, dout, lse, dlse, causal, scale,
+               q_ids, kv_ids):
+    """Launch a short or mid backward C entry, as :func:`launch_fwd`."""
+    kernel = names[q_ids is not None]
+    check_kernel_inputs(kernel, q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
     lse = lse.float().contiguous()
-    extra = [] if dlse is None else [dlse.float().contiguous()]
+    dlse = None if dlse is None else dlse.float().contiguous()
+    q_ids, kv_ids = id_operands(q_ids, kv_ids)
     if out.dtype != q.dtype or dout.dtype != q.dtype:
-        raise ValueError(f"{KERNEL_BWD}: out/dout {out.dtype}/{dout.dtype} "
+        raise ValueError(f"{kernel}: out/dout {out.dtype}/{dout.dtype} "
                          f"differ from q's {q.dtype}")
-    check_operands(KERNEL_BWD, q, k, v, out, dout, lse, *extra)
-    lib, fn = _entry(KERNEL_BWD)
+    check_operands(kernel, q, k, v, out, dout, lse, *(
+        t for t in (dlse, q_ids, kv_ids) if t is not None))
+    lib, fn = entry(names[0])
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    count_launch(KERNEL_BWD)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             dout.data_ptr(), lse.data_ptr(),
-             extra[0].data_ptr() if extra else None, delta.data_ptr(),
-             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, sq, sk, d,
-             DTYPES[q.dtype], int(causal), float(scale), stream_of(q))
-    check(lib, KERNEL_BWD, err)
+    count_launch(kernel)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), data_ptr(q_ids),
+             data_ptr(kv_ids), out.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), data_ptr(dlse), delta.data_ptr(),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, h, sq, sk,
+             d, DTYPES[q.dtype], int(causal), float(scale), stream_of(q))
+    check(lib, kernel, err)
     return dq, dk, dv
 
 
@@ -212,17 +325,23 @@ def short_fwd(
     v: torch.Tensor,
     causal: bool = False,
     sm_scale: Optional[float] = None,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, lse)`` of softmax attention over ``(b, h, s, d)`` with
-    ``sq, sk <= FMHA_SHORT_MAX_SEQ``; causal masks ``k_idx > q_idx``.
-    A CUDA tensor runs the kernel, a CPU tensor the plain version."""
+    ``sq, sk <= FMHA_SHORT_MAX_SEQ``; causal masks ``k_idx > q_idx``, and
+    segment ids ``(b, sq)``/``(b, sk)`` mask unequal ids.  A CUDA tensor
+    runs the kernel, a CPU tensor the plain version."""
     check_shapes(KERNEL, q, k, v)
     _check_window(KERNEL, q, k)
+    ids = segment_ids(KERNEL, q_segment_ids, kv_segment_ids, q.shape[0],
+                      q.shape[2], k.shape[2])
     scale = softmax_scale(q, sm_scale)
     if q.is_cuda:
-        return _short_fwd_cuda(q, k, v, causal, scale)
+        return launch_fwd(_entry, (KERNEL, KERNEL_SEG), q, k, v, causal,
+                          scale, *ids)
     if q.device.type == "cpu":
-        return _short_fwd_plain(q, k, v, causal, scale)
+        return _short_fwd_plain(q, k, v, causal, scale, *ids)
     raise ValueError(f"{KERNEL}: unsupported device {q.device}")
 
 
@@ -236,38 +355,45 @@ def short_bwd(
     dlse: Optional[torch.Tensor] = None,
     causal: bool = False,
     sm_scale: Optional[float] = None,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of :func:`short_fwd` given the forward's ``out``
     and ``lse`` and the cotangent ``dout`` (and optionally ``dlse``, the
-    lse's).  A CUDA tensor runs the kernel, a CPU tensor the plain
-    version."""
+    lse's), with the forward's mask.  A CUDA tensor runs the kernel, a
+    CPU tensor the plain version."""
     check_shapes(KERNEL_BWD, q, k, v)
     _check_window(KERNEL_BWD, q, k)
+    ids = segment_ids(KERNEL_BWD, q_segment_ids, kv_segment_ids,
+                      q.shape[0], q.shape[2], k.shape[2])
     scale = softmax_scale(q, sm_scale)
     if q.is_cuda:
-        return _short_bwd_cuda(q, k, v, out, dout, lse, dlse, causal, scale)
+        return launch_bwd(_entry, (KERNEL_BWD, KERNEL_BWD_SEG), q, k, v, out,
+                          dout, lse, dlse, causal, scale, *ids)
     if q.device.type == "cpu":
-        return _short_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale)
+        return _short_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale,
+                                *ids)
     raise ValueError(f"{KERNEL_BWD}: unsupported device {q.device}")
 
 
 class _ShortAttention(torch.autograd.Function):
     """``out = attention(q, k, v)`` with the fused backward; saves
-    ``(q, k, v, out, lse)`` as the JAX ``_short_fwd`` does."""
+    ``(q, k, v, out, lse)`` as the JAX ``_short_fwd`` does, and the
+    segment ids (no gradient)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale):
-        out, lse = short_fwd(q, k, v, causal=causal, sm_scale=sm_scale)
+    def forward(ctx, q, k, v, causal, sm_scale, q_ids, kv_ids):
+        out, lse = short_fwd(q, k, v, causal, sm_scale, q_ids, kv_ids)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.causal, ctx.sm_scale, ctx.ids = causal, sm_scale, (q_ids, kv_ids)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = short_bwd(q, k, v, out, dout, lse, causal=ctx.causal,
-                               sm_scale=ctx.sm_scale)
-        return dq, dk, dv, None, None
+        dq, dk, dv = short_bwd(q, k, v, out, dout, lse, None, ctx.causal,
+                               ctx.sm_scale, *ctx.ids)
+        return dq, dk, dv, None, None, None, None
 
 
 def fmha_short(
@@ -276,8 +402,30 @@ def fmha_short(
     v: torch.Tensor,
     causal: bool = False,
     sm_scale: Optional[float] = None,
+    bias: Optional[torch.Tensor] = None,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
+    bias_requires_grad: bool = True,
+    block_bh: Optional[int] = None,
+    implementation: Optional[str] = None,
 ) -> torch.Tensor:
     """Short-sequence attention over ``(b, h, s, d)``, differentiable in
-    q, k and v.  Most callers go through
-    :func:`apex_tpu_torch.ops.attention.flash_attention`."""
-    return _ShortAttention.apply(q, k, v, causal, sm_scale)
+    q, k and v, with optional segment ids ``(b, sq)``/``(b, sk)``.  Most
+    callers go through :func:`apex_tpu_torch.ops.attention.flash_attention`.
+
+    The JAX signature: ``block_bh`` (how many (batch*head) programs a TPU
+    grid step packs) is accepted and not used, the CUDA kernels choose
+    their own grid; ``implementation`` None, ``"pallas"`` or ``"short"``
+    runs the kernel.  A head dim under 128 other than 64 is zero-padded
+    to the next the kernels take (:func:`pad_head_dim`).  A bias or dropout raises ``NotImplementedError``
+    (ROADMAP.md queue B items 2b-2d); ``bias_requires_grad`` without a
+    bias changes nothing."""
+    check_implementation(KERNEL, implementation, ("pallas", "short"))
+    reject_unported(KERNEL, bias, dropout_rate, dropout_seed)
+    d = q.shape[-1]
+    q, k, v, scale = pad_head_dim(q, k, v, sm_scale)
+    out = _ShortAttention.apply(q, k, v, causal, scale, q_segment_ids,
+                                kv_segment_ids)
+    return out[..., :d]

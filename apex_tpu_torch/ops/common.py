@@ -38,7 +38,7 @@ import torch
 __all__ = [
     "KernelUnavailable", "build", "load", "check", "count_launch",
     "launch_counts", "reset_launch_counts", "stream_of", "check_operands",
-    "KERNEL_SOURCES",
+    "check_implementation", "KERNEL_SOURCES",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -186,3 +186,18 @@ def check_operands(kernel: str, *tensors: torch.Tensor) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: operand of shape {tuple(t.shape)} "
                              "is not contiguous")
+
+
+def check_implementation(kernel: str, implementation: Optional[str],
+                         names: Iterable[str] = ("pallas",)) -> None:
+    """The JAX ``implementation=`` argument of an ops entry point: None or
+    one of ``names`` (the JAX names of the kernel) runs the kernel, which
+    on a CPU tensor is its plain version.  Anything else raises: the JAX
+    ``"xla"`` path has no counterpart here, since a plain version is the
+    CPU path and the kernel's oracle, never a path on the card."""
+    names = tuple(names)
+    if implementation is not None and implementation not in names:
+        raise ValueError(
+            f"{kernel}: implementation={implementation!r}: the port runs "
+            f"its kernel (None or one of {names}); its plain version is the "
+            "CPU path and the oracle, not a path on the GPU")

@@ -32,7 +32,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from apex_tpu_torch.ops.common import (
-    check, check_operands, count_launch, load, stream_of,
+    check, check_implementation, check_operands, count_launch, load,
+    stream_of,
 )
 from apex_tpu_torch.ops.quantization import (
     dequantize_rows,
@@ -152,6 +153,7 @@ def dequant_matmul(
     *,
     weight_dtype: str,
     block_size: Optional[int] = None,
+    implementation: Optional[str] = None,
 ) -> torch.Tensor:
     """``x @ W`` where ``W`` lives as block-quantized int8 or packed
     int4.  ``x (..., k)`` activations (fp32/bf16); ``qweight`` int8 —
@@ -159,7 +161,9 @@ def dequant_matmul(
     ``"int4"``; ``scales (k, n / block_size)`` fp32.  ``block_size``
     defaults to the value the scale shape implies.  Returns ``(..., n)``
     in ``x``'s dtype.  A CUDA tensor runs the kernel, a CPU tensor the
-    plain version."""
+    plain version; ``implementation`` None or ``"pallas"`` (the JAX
+    argument) runs the kernel."""
+    check_implementation("dequant_matmul", implementation)
     if weight_dtype not in ("int8", "int4"):
         raise ValueError(
             f"weight_dtype must be 'int8' or 'int4', got "

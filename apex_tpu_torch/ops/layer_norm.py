@@ -35,7 +35,9 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-from apex_tpu_torch.ops.common import check_operands, count_launch
+from apex_tpu_torch.ops.common import (
+    check_implementation, check_operands, count_launch,
+)
 
 __all__ = [
     "fused_layer_norm_affine",
@@ -223,10 +225,13 @@ def fused_layer_norm_affine(
     bias: torch.Tensor,
     normalized_shape: Union[int, Sequence[int]],
     eps: float = 1e-5,
+    implementation: Optional[str] = None,
 ) -> torch.Tensor:
     """Affine fused layer norm, differentiable in ``x``, ``weight`` and
     ``bias``.  Output dtype follows the input; the statistics and the
-    affine run in fp32."""
+    affine run in fp32.  ``implementation`` None or ``"pallas"`` (the JAX
+    argument) runs the kernel."""
+    check_implementation(KERNEL, implementation)
     hidden = _norm_size(normalized_shape)
     y = _LayerNormAffine.apply(x.reshape(-1, hidden), weight.reshape(-1),
                                bias.reshape(-1), eps, False)
@@ -238,9 +243,12 @@ def fused_rms_norm_affine(
     weight: torch.Tensor,
     normalized_shape: Union[int, Sequence[int]],
     eps: float = 1e-5,
+    implementation: Optional[str] = None,
 ) -> torch.Tensor:
     """Affine fused RMSNorm (scale only), same dtype contract, also
-    differentiable."""
+    differentiable; ``implementation`` as for
+    :func:`fused_layer_norm_affine`."""
+    check_implementation(KERNEL, implementation)
     hidden = _norm_size(normalized_shape)
     y = _LayerNormAffine.apply(x.reshape(-1, hidden), weight.reshape(-1),
                                None, eps, True)

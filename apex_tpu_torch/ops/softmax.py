@@ -39,7 +39,7 @@ from typing import Optional
 
 import torch
 
-from apex_tpu_torch.ops.common import count_launch
+from apex_tpu_torch.ops.common import check_implementation, count_launch
 
 __all__ = [
     "scaled_softmax",
@@ -188,8 +188,12 @@ class _FusedSoftmax(torch.autograd.Function):
         return dx, None, None, None
 
 
-def scaled_softmax(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
-    """``softmax(scale * x)`` over the last dim, fp32 statistics."""
+def scaled_softmax(x: torch.Tensor, scale: float = 1.0,
+                   implementation: Optional[str] = None) -> torch.Tensor:
+    """``softmax(scale * x)`` over the last dim, fp32 statistics.
+    ``implementation`` None or ``"pallas"`` (the JAX argument) runs the
+    kernel."""
+    check_implementation(KERNEL, implementation)
     return _FusedSoftmax.apply(x, None, float(scale), False)
 
 
@@ -198,11 +202,13 @@ def scaled_masked_softmax(
     mask: Optional[torch.Tensor],
     scale: float = 1.0,
     causal: bool = False,
+    implementation: Optional[str] = None,
 ) -> torch.Tensor:
     """``softmax(scale * x)`` with the -10000 fill where ``mask`` is True
     (``mask`` broadcasts against x, ``(b, 1, sq, sk)`` against ``(b, np,
     sq, sk)`` as in the reference); ``causal=True`` also masks the strict
-    upper triangle."""
+    upper triangle.  ``implementation`` as for :func:`scaled_softmax`."""
+    check_implementation(KERNEL, implementation)
     if mask is None:
         if causal:
             return scaled_upper_triang_masked_softmax(x, scale)
@@ -213,6 +219,9 @@ def scaled_masked_softmax(
 
 def scaled_upper_triang_masked_softmax(
     x: torch.Tensor, scale: float = 1.0,
+    implementation: Optional[str] = None,
 ) -> torch.Tensor:
-    """Causal ``softmax(scale * x)``: the strict upper triangle filled."""
+    """Causal ``softmax(scale * x)``: the strict upper triangle filled;
+    ``implementation`` as for :func:`scaled_softmax`."""
+    check_implementation(KERNEL, implementation)
     return _FusedSoftmax.apply(x, None, float(scale), True)

@@ -27,13 +27,15 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
 
 def sample(
     logits: torch.Tensor,
+    key=None,
     temperature: float = 0.0,
     top_k: Optional[int] = None,
     top_p: Optional[float] = None,
 ) -> torch.Tensor:
     """One token id per row of ``logits (..., vocab)``, int32, on the
     logits' device.  Only ``temperature == 0`` (greedy, which ignores
-    ``top_k``/``top_p``) is ported."""
+    ``key``/``top_k``/``top_p``, as in JAX) is ported; ``key`` is the JAX
+    signature's PRNG key, in its second place."""
     if temperature < 0.0:
         raise ValueError(f"temperature must be >= 0, got {temperature}")
     if top_k is not None and top_k < 1:

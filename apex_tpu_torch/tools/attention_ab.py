@@ -1,0 +1,81 @@
+"""Time the short and mid attention kernels of one source tree, so two
+trees (a parent commit and its change) can be compared on one card.
+
+    python -m apex_tpu_torch.tools.attention_ab <tree> [<tree> ...]
+
+Each tree is a checkout of the repository (``git archive <commit> | tar
+-x -C <dir>``); each is timed in a process of its own, in the order
+given (parent, change, change, parent reads the card's drift), with its
+own build of the kernels.  The shapes are the flagship's training ones
+without segment ids (b=8 h=8 d=128, causal, bf16): the short forward and
+backward at s=512 and the mid ones at s=1024.  Device ms per call from a
+CUDA graph of 50 launches after a warm-up.  One line per tree, then the
+card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+
+_TIMER = r"""
+import sys
+sys.path.insert(0, ".")
+import torch
+from apex_tpu_torch.ops import attention_mid as mid
+from apex_tpu_torch.ops import attention_short as short
+from apex_tpu_torch.ops import common
+
+common.build(["attention_short", "attention_mid"])
+dev = torch.device("cuda", 0)
+gen = torch.Generator(device=dev).manual_seed(0)
+
+
+def device_ms(fn, iters=50):
+    for _ in range(3):
+        fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+row = []
+for name, s, fwd, bwd in (("short", 512, short.short_fwd, short.short_bwd),
+                          ("mid", 1024, mid.mid_fwd, mid.mid_bwd)):
+    q, k, v, do = (torch.randn(8, 8, s, 128, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    out, lse = fwd(q, k, v, causal=True)
+    f = device_ms(lambda: fwd(q, k, v, causal=True))
+    b = device_ms(lambda: bwd(q, k, v, out, do, lse, causal=True))
+    row.append(f"{name} fwd {f:.4f} ms bwd {b:.4f} ms")
+print("; ".join(row), flush=True)
+"""
+
+
+def main(argv=None) -> None:
+    trees = sys.argv[1:] if argv is None else argv
+    if not trees:
+        sys.exit("usage: python -m apex_tpu_torch.tools.attention_ab <tree>...")
+    for tree in trees:
+        out = subprocess.run([sys.executable, "-c", _TIMER], cwd=tree,
+                             capture_output=True, text=True)
+        if out.returncode:
+            sys.exit(f"{tree}: exit {out.returncode}\n{out.stderr[-2000:]}")
+        print(f"{tree}: {out.stdout.strip()}", flush=True)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip())
+
+
+if __name__ == "__main__":
+    main()

@@ -27,7 +27,12 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
              over 4 slots of 877 tokens, bf16, fp32, int8 pages and rope,
              and the many-row instance at the decode step's 1 and 4 rows
              beside the small kernel that serves them; the softmax kernel at (8, 8, 1024, 1024), causal and with a
-             padding mask, beside torch.softmax on the pre-scaled input.
+             padding mask, beside torch.softmax on the pre-scaled input;
+             the seven segment-id variants (BERT's key padding, packed
+             documents, and fmha's padding, whose fully masked query rows
+             must give out 0 and dq 0) at h=16 d=64: the short rung at
+             b=16 s=512, the mid rung at b=8 s=1024, the flash rung at b=2
+             s=4096, fp32 and bf16, beside SDPA with the boolean mask.
 3. parity  — the flagship GPT's width at 2 layers, fp32 compute: the
              paged greedy tokens of ``ContinuousBatcher`` (6 ragged
              requests, 2 slots, 16 new tokens) must equal the port's
@@ -105,6 +110,23 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
              --normalization rmsnorm --seq 4096 --micro-batch 2
              --num-micro 1`` trains it, the same measurements as phase 7,
              the flash kernels required; then one step profiled.
+10. bert-parity — BERT at BERT-large's widths, 2 layers, fp32, b=4 x 512
+             ragged: one step (loss, backward, FusedAdam) on the GPU
+             against a CPU copy; attention_impl short/mid/pallas agree on
+             the card; ``contrib.fmha`` on the GPU equals its CPU path.
+11. bert-train — BERT-large (24 layers) at O4, b=16 x 512 with lengths in
+             128..512, 15% MLM and binary labels: 2 warm-up and 10 timed
+             steps; the loss must be finite and fall and the short rung's
+             segment kernels must launch; ms/step, real and padded
+             tokens/s, MFU, peak memory, then one step profiled by kernel.
+12. bert-finetune — ``examples/bert_finetune`` at its default model size,
+             200 steps at batch 16: the held-out accuracy must rise from
+             chance to 0.8 or more.
+13. fmha-varlen — ``FMHA`` at BERT-large's head widths, 8 packed
+             sequences of 64..512 tokens, forward and backward at max_s
+             512, 1024 and 4096 (the short, mid and flash segment
+             instances, all of which must launch), held in fp32 against
+             each sequence's plain attention alone.
 
 The last two lines are a JSON object with one record per kernel, and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -120,6 +142,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -428,6 +451,7 @@ def phase_kernels(dev) -> dict:
     records.update(decode_int8_kernels(randn, dev))
     records.update(decode_rows_kernels(randn, dev))
     records.update(softmax_kernels(randn))
+    records.update(segment_kernels(randn))
     return records
 
 
@@ -1020,6 +1044,215 @@ def crossover(randn) -> None:
                                           causal=True))
             row.append(f"{name} fwd {f_ms:.4f} ms bwd {b_ms:.4f} ms")
         log(f"  s={s}: " + "; ".join(row))
+
+
+#: the segment-id variants' shapes: BERT-large's training shape on the
+#: short rung (b=16 h=16 s=512 d=64), packed documents at the mid rung's
+#: s=1024 (b=8, the same 8192 tokens) and the flash rung's s=4096 (b=2)
+SEG_SHAPES = (("short", 16, 512), ("mid", 8, 1024), ("flash", 2, 4096))
+SEG_HEADS, SEG_D = 16, 64
+
+
+def segment_ids(kind: str, b: int, s: int, dev, seed: int = 0):
+    """``(q_ids, kv_ids)`` ``(b, s)`` int32 on ``dev``.  ``"bert"``:
+    BERT's padding, every query 0 and keys past a length drawn in
+    128..s -2; ``"docs"``: each row packed with documents of 64..s/2
+    tokens, equal ids on both sides; ``"fmha"``: documents up to a
+    length drawn in s/4..3s/4, then fmha's padding, queries -1 and keys
+    -2, so the padded query rows see no key."""
+    rng = np.random.default_rng(seed)
+    pos = np.arange(s)
+    if kind == "bert":
+        lens = rng.integers(128, s + 1, b)
+        kv = np.where(pos[None] < lens[:, None], 0, -2)
+        return (torch.zeros((b, s), dtype=torch.int32, device=dev),
+                torch.as_tensor(kv, dtype=torch.int32, device=dev))
+    ids = np.empty((b, s), np.int64)
+    for r in range(b):
+        cuts = np.cumsum(rng.integers(64, s // 2 + 1, s // 64))
+        ids[r] = np.searchsorted(cuts, pos, side="right")
+    q, kv = ids, ids.copy()
+    if kind == "fmha":
+        lens = rng.integers(s // 4, 3 * s // 4 + 1, b)
+        q = np.where(pos[None] < lens[:, None], ids, -1)
+        kv = np.where(pos[None] < lens[:, None], ids, -2)
+    return (torch.as_tensor(q, dtype=torch.int32, device=dev),
+            torch.as_tensor(kv, dtype=torch.int32, device=dev))
+
+
+def seg_pairs(q_ids, kv_ids) -> int:
+    """(query, key) pairs with equal ids, over the batch: the pairs whose
+    scores the function needs (one head)."""
+    return int((q_ids[:, :, None] == kv_ids[:, None, :]).sum())
+
+
+def segment_kernels(randn) -> dict:
+    """The seven segment-id variants against their plain versions, fp32
+    and bf16, at :data:`SEG_SHAPES`: BERT's key padding (-2), packed
+    documents, and fmha's padding with fully masked query rows (-1),
+    whose outputs and dq must be exactly 0 and whose dK/dV share no
+    garbage.  The backward kernels get the plain forward's ``out`` and
+    ``lse``.  Times at bf16 on the masks without dead rows (BERT's on the
+    short rung, packed documents on the mid and flash rungs), with the
+    bound counted over the pairs that mask leaves visible; the library
+    call is SDPA with the equivalent boolean mask (forward, and forward
+    plus backward through autograd for the backward kernels)."""
+    from apex_tpu_torch.ops import attention_flash as fl
+    from apex_tpu_torch.ops import attention_mid as mid
+    from apex_tpu_torch.ops import attention_short as short
+
+    heads, d = SEG_HEADS, SEG_D
+    scale = d ** -0.5
+    records = {}
+    log(f"[kernels] segment-id variants (CUDA), h={heads} d={d}, not causal")
+    for rung, b, s in SEG_SHAPES:
+        timed_kind = "bert" if rung == "short" else "docs"
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype)[6:]
+            for kind in (timed_kind, "fmha"):
+                q, k, v, dout = (randn(b, heads, s, d, dtype=dtype)
+                                 for _ in range(4))
+                qi, ki = segment_ids(kind, b, s, q.device, seed=s + b)
+                ids = dict(q_segment_ids=qi, kv_segment_ids=ki)
+                dead = ~(qi[:, :, None] == ki[:, None, :]).any(-1)
+                rows = dead[:, None, :].expand(b, heads, s)
+                what = f"{dt} b={b} s={s} {kind}"
+                out, lse = short._short_fwd_plain(q, k, v, False, scale,
+                                                  qi, ki)
+                if rung == "flash":
+                    flat = [t.reshape(b * heads, s, d) for t in
+                            (q, k, v, dout)]
+                    fids = dict(ids, heads=heads)
+                    got, got_lse = fl.flash_fwd(*flat[:3], **fids)
+                    got, got_lse = (got.view(b, heads, s, d),
+                                    got_lse.view(b, heads, s))
+                    want, want_lse = fl._flash_fwd_plain(
+                        *flat[:3], False, scale, qi, ki, heads)
+                    want, want_lse = want.view_as(q), want_lse.view_as(lse)
+                    fo, fl_lse = out.reshape(b * heads, s, d), \
+                        lse.reshape(b * heads, s)
+                    delta = fl.flash_delta(fo, flat[3])
+                    wq, wk, wv = (t.view_as(q) for t in fl._flash_bwd_plain(
+                        *flat, fl_lse, delta, False, scale, qi, ki, heads))
+                    gk, gv = (t.view_as(q) for t in fl.flash_bwd_dkv(
+                        *flat, fl_lse, delta, **fids))
+                    gq = fl.flash_bwd_dq(*flat, fl_lse, delta,
+                                         **fids).view_as(q)
+                    names = ("flash_fwd_seg", "flash_bwd_dq_seg",
+                             "flash_bwd_dkv_seg")
+                else:
+                    fwd, bwd = ((short.short_fwd, short.short_bwd)
+                                if rung == "short"
+                                else (mid.mid_fwd, mid.mid_bwd))
+                    got, got_lse = fwd(q, k, v, **ids)
+                    want = out
+                    wq, wk, wv = short._short_bwd_plain(
+                        q, k, v, out, dout, lse, None, False, scale, qi, ki)
+                    gq, gk, gv = bwd(q, k, v, out, dout, lse, **ids)
+                    names = (f"{rung}_fwd_seg",) + (f"{rung}_bwd_seg",) * 2
+                    want_lse = lse
+                fwd_err = check(names[0], got, want, f"{what} out")
+                live = ~rows
+                lse_err = max_err(got_lse[live], want_lse[live])
+                if not lse_err <= 1e-3:
+                    fail(f"{names[0]} {what} lse: error {lse_err:.3g} > 1e-3")
+                dq_err = check(names[1], gq, wq, f"{what} dq")
+                dkv_err = max(check(names[2], gk, wk, f"{what} dk"),
+                              check(names[2], gv, wv, f"{what} dv"))
+                if rows.any():
+                    if got[rows].abs().max() != 0 or gq[rows].abs().max() != 0:
+                        fail(f"{names[0]} {what}: a fully masked query row "
+                             "has a non-zero output or dq")
+                    if not (got_lse[rows] < -1e29).all():
+                        fail(f"{names[0]} {what}: a fully masked row's lse "
+                             "is not about -1e30")
+                    log(f"  {what}: {int(dead.sum())} fully masked query "
+                        "rows give out 0 and dq 0 exactly")
+                if dtype != torch.bfloat16 or kind != timed_kind:
+                    continue
+                records.update(seg_records(
+                    rung, b, s, q, k, v, dout, out, lse, qi, ki, names,
+                    (fwd_err, dq_err, dkv_err)))
+    return records
+
+
+def seg_records(rung, b, s, q, k, v, dout, out, lse, qi, ki, names, errs):
+    """Time one rung's segment variants (bf16) beside their plain
+    versions and SDPA under the equivalent boolean mask."""
+    from apex_tpu_torch.ops import attention_flash as fl
+    from apex_tpu_torch.ops import attention_mid as mid
+    from apex_tpu_torch.ops import attention_short as short
+    import torch.nn.functional as F
+
+    heads, d = SEG_HEADS, SEG_D
+    scale = d ** -0.5
+    ids = dict(q_segment_ids=qi, kv_segment_ids=ki)
+    mask = (qi[:, :, None] == ki[:, None, :])[:, None]        # (b, 1, s, s)
+    pairs = heads * seg_pairs(qi, ki)
+    shape = (f"b={b} h={heads} s={s} d={d} bf16, "
+             f"{pairs / (b * heads * s * s):.3f} of the pairs visible")
+    numel = q.numel() * q.element_size()
+    rows = b * heads * s * 4                  # an fp32 (b*h, s) row
+    id_bytes = 2 * qi.numel() * 4
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+        torch.autograd.grad(o, (qg, kg, vg), dout)
+
+    fb_ms = profiled_ms(sdpa_fwd_bwd)
+    sdpa = ("SDPA (boolean mask)", lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask))
+    iters = 10 if rung == "flash" else 50
+    recs = {}
+    if rung == "flash":
+        flat = [t.reshape(b * heads, s, d) for t in (q, k, v, dout)]
+        fo, flse = out.reshape(b * heads, s, d), lse.reshape(b * heads, s)
+        delta = fl.flash_delta(fo, flat[3])
+        fids = dict(ids, heads=heads)
+        recs[names[0]] = measure(
+            names[0], shape, errs[0],
+            lambda: fl.flash_fwd(*flat[:3], **fids),
+            lambda: fl._flash_fwd_plain(*flat[:3], False, scale, qi, ki,
+                                        heads),
+            sdpa, nbytes=4 * numel + rows + id_bytes, ops=4.0 * d * pairs,
+            dtype=q.dtype, plain_iters=iters)
+        plain_bwd = lambda: fl._flash_bwd_plain(*flat, flse, delta, False,
+                                                scale, qi, ki, heads)
+        # dK/dV: four products per visible pair, dQ three; each reads q,
+        # k, v, dout, lse, delta and the ids
+        for name, fn, n_out, n_prod, err in (
+                (names[2], lambda: fl.flash_bwd_dkv(*flat, flse, delta,
+                                                    **fids), 2, 4, errs[2]),
+                (names[1], lambda: fl.flash_bwd_dq(*flat, flse, delta,
+                                                   **fids), 1, 3, errs[1])):
+            recs[name] = measure(
+                name, shape, err, fn, plain_bwd, None,
+                nbytes=(4 + n_out) * numel + 2 * rows + id_bytes,
+                ops=2.0 * n_prod * d * pairs, dtype=q.dtype,
+                plain_iters=iters)
+    else:
+        fwd, bwd = ((short.short_fwd, short.short_bwd) if rung == "short"
+                    else (mid.mid_fwd, mid.mid_bwd))
+        recs[names[0]] = measure(
+            names[0], shape, errs[0], lambda: fwd(q, k, v, **ids),
+            lambda: short._short_fwd_plain(q, k, v, False, scale, qi, ki),
+            sdpa, nbytes=4 * numel + rows + id_bytes, ops=4.0 * d * pairs,
+            dtype=q.dtype, plain_iters=iters)
+        # five products per visible pair: s, dp, dv, dk, dq
+        recs[names[1]] = measure(
+            names[1], shape, max(errs[1:]),
+            lambda: bwd(q, k, v, out, dout, lse, **ids),
+            lambda: short._short_bwd_plain(q, k, v, out, dout, lse, None,
+                                           False, scale, qi, ki),
+            None, nbytes=8 * numel + rows + id_bytes, ops=10.0 * d * pairs,
+            dtype=q.dtype, plain_iters=iters)
+    for name in names[1:]:
+        recs[name]["library_ms"] = fb_ms
+    log(f"  {rung} backward: library call is SDPA forward+backward with the "
+        f"boolean mask ({fb_ms:.4f} ms of device time), which includes a "
+        "forward")
+    return {name: [rec] for name, rec in recs.items()}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -2085,6 +2318,55 @@ def phase_profile(model, prompt=256, width=512, pps=9,
 
 
 # ---------------------------------------------------------------- phase 6
+def step_of(model, opt, batch):
+    """One step, loss -> backward -> FusedAdam: ``(loss, {name: grad},
+    {name: param after})`` on the CPU."""
+    opt.zero_grad(set_to_none=True)
+    loss = model.loss(*batch)
+    loss.backward()
+    grads = {n: p.grad.detach().cpu().clone()
+             for n, p in model.named_parameters()}
+    opt.step()
+    return (loss.item(), grads,
+            {n: p.detach().cpu().clone() for n, p in model.named_parameters()})
+
+
+def check_step(label, gpu, cpu, before, lr) -> tuple:
+    """Hold one training step on the GPU against the same step on a CPU
+    copy (fp32 both): ``gpu``/``cpu`` are ``(loss, {name: grad}, {name:
+    param after the step})``.  The loss to 1e-5, every gradient to 1e-4
+    of its tensor's largest, the updated parameters to 1% of a step where
+    the gradient's sign is sure and within a step of where they were
+    elsewhere.  Returns ``(worst grad error, worst step error, elements
+    checked)``, each error as a share of its tolerance."""
+    (lg, gg, pg), (lc, gc, pc) = gpu, cpu
+    if not abs(lg - lc) <= 1e-5 * max(1.0, abs(lc)):
+        fail(f"{label}: loss {lg} (GPU) vs {lc} (CPU)")
+    worst_g, worst_p, steps_checked = 0.0, 0.0, 0
+    for n in gc:
+        # fp32 on both sides, sums in another order: 1e-4 of the
+        # tensor's largest gradient
+        tol = 1e-4 * gc[n].abs().max().item() + 1e-9
+        err = (gg[n] - gc[n]).abs().max().item()
+        worst_g = max(worst_g, err / tol)
+        if err > tol:
+            fail(f"{label}: grad {n} differs by {err:.3g} > {tol:.3g}")
+        # the first Adam step moves a weight by lr * g / (|g| + eps):
+        # where |g| is 10x the gradient tolerance and 1e-6 the sign
+        # is sure and the steps agree to 1% of lr; elsewhere (noise,
+        # such as the key bias's exactly-zero gradient) only the
+        # bound |step| <= lr holds
+        sure = gc[n].abs() >= max(10 * tol, 1e-6)
+        dp = (pg[n] - pc[n]).abs()
+        steps_checked += int(sure.sum())
+        if sure.any():
+            worst_p = max(worst_p, dp[sure].max().item() / (1e-2 * lr))
+        if (dp[sure] > 1e-2 * lr).any() or (
+                (pg[n] - before[n]).abs().max() > 1.001 * lr):
+            fail(f"{label}: updated {n} differs by {dp.max().item():.3g}")
+    return worst_g, worst_p, steps_checked
+
+
 def phase_train_parity(dev) -> dict:
     """One training step (loss, backward, FusedAdam) at the flagship's
     width, 2 layers and fp32, on the GPU through the kernels and on a
@@ -2117,51 +2399,20 @@ def phase_train_parity(dev) -> dict:
         out = []
         for model in (gpu, cpu):
             opt = FusedAdam(model.parameters(), lr=lr)
-            t, y = (torch.as_tensor(a, device=model.device)
-                    for a in (toks, tgts))
+            batch = [torch.as_tensor(a, device=model.device)
+                     for a in (toks, tgts)]
             if model is gpu:
                 torch.cuda.synchronize()
                 reset_launch_counts()
-            loss = model.loss(t, y)
-            loss.backward()
-            opt.step()
+            out.append(step_of(model, opt, batch))
             if model is gpu:
                 torch.cuda.synchronize()
                 counts[s] = launch_counts()
-            out.append((loss.item(),
-                        {n: p.grad.cpu() for n, p in model.named_parameters()},
-                        {n: p.detach().cpu() for n, p in
-                         model.named_parameters()}))
-        (lg, gg, pg), (lc, gc, pc) = out
-        if not abs(lg - lc) <= 1e-5 * max(1.0, abs(lc)):
-            fail(f"train-parity s={s}: loss {lg} (GPU) vs {lc} (CPU)")
-        worst_g, worst_p, steps_checked = 0.0, 0.0, 0
-        for n in gc:
-            # fp32 on both sides, sums in another order: 1e-4 of the
-            # tensor's largest gradient
-            tol = 1e-4 * gc[n].abs().max().item() + 1e-9
-            err = (gg[n] - gc[n]).abs().max().item()
-            worst_g = max(worst_g, err / tol)
-            if err > tol:
-                fail(f"train-parity s={s}: grad {n} differs by {err:.3g} > "
-                     f"{tol:.3g}")
-            # the first Adam step moves a weight by lr * g / (|g| + eps):
-            # where |g| is 10x the gradient tolerance and 1e-6 the sign
-            # is sure and the steps agree to 1% of lr; elsewhere (noise,
-            # such as the key bias's exactly-zero gradient) only the
-            # bound |step| <= lr holds
-            sure = gc[n].abs() >= max(10 * tol, 1e-6)
-            dp = (pg[n] - pc[n]).abs()
-            steps_checked += int(sure.sum())
-            if sure.any():
-                worst_p = max(worst_p, dp[sure].max().item() / (1e-2 * lr))
-            if (dp[sure] > 1e-2 * lr).any() or (
-                    (pg[n] - before[n]).abs().max() > 1.001 * lr):
-                fail(f"train-parity s={s}: updated {n} differs by "
-                     f"{dp.max().item():.3g}")
+        worst_g, worst_p, steps_checked = check_step(
+            f"train-parity s={s}", *out, before, lr)
         c = counts[s]
         log(f"  s={s} ({cfg.position_embedding}, {cfg.activation}): loss "
-            f"{lg:.6f} (GPU) vs {lc:.6f} (CPU); every grad "
+            f"{out[0][0]:.6f} (GPU) vs {out[1][0]:.6f} (CPU); every grad "
             f"within 1e-4 of its scale (worst {worst_g:.3f} of the "
             f"tolerance); updated params within 1% of a step at "
             f"{steps_checked} sure-sign elements (worst {worst_p:.3f} of "
@@ -2261,12 +2512,336 @@ def phase_profile_train(tr, batch, what="flagship (O5, 8 x 1024)") -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     device_breakdown(prof, wall, "train step")
+    log(f"  by kind: {attention_share(prof)}")
     host = [e for e in prof.key_averages()
             if e.key.startswith("Optimizer.step")
             and e.device_type == torch.autograd.DeviceType.CPU]
     if host:
         log(f"  host time inside {host[0].key}: "
             f"{host[0].cpu_time_total / 1e3:.2f} ms")
+
+
+# ------------------------------------------------------------ BERT phases
+#: BERT-large as bench.py:516-518 shapes it and Google's bert_config.json
+#: for BERT-Large publishes it: vocab 30522, 24 layers, hidden 1024, 16
+#: heads of 64, ffn 4096, 512 positions, 2 token types
+BERT_LARGE = dict(vocab_size=30522, num_layers=24, hidden_size=1024,
+                  num_attention_heads=16, ffn_hidden_size=4096,
+                  max_position_embeddings=512, num_tokentypes=2)
+BERT_BATCH, BERT_SEQ = 16, 512
+
+
+def bert_batch(rng, b: int, s: int, vocab: int, lo: int = 128) -> tuple:
+    """A BERT pretraining batch: lengths drawn in ``lo..s`` (padding past
+    them), token types 1 on the second half of each sequence, 15% of the
+    real positions masked-LM targets, binary labels.  ``(tokens, lm
+    labels, loss mask, attention mask, binary labels, token types)`` as
+    numpy arrays, the order ``BertModel.loss`` takes them."""
+    lengths = rng.integers(lo, s + 1, b)
+    pos = np.arange(s)[None]
+    mask = pos < lengths[:, None]
+    tokens = (rng.integers(0, vocab, (b, s)) * mask).astype(np.int32)
+    types = (mask & (pos >= lengths[:, None] // 2)).astype(np.int32)
+    loss_mask = ((rng.random((b, s)) < 0.15) & mask).astype(np.float32)
+    labels = rng.integers(0, vocab, (b, s)).astype(np.int32)
+    binary = rng.integers(0, 2, b).astype(np.int32)
+    return tokens, labels, loss_mask, mask, binary, types
+
+
+def phase_bert_parity(dev) -> dict:
+    """BERT at BERT-large's widths, 2 layers, fp32 (O0), b=4 x 512 with
+    ragged lengths: one step (loss, backward, FusedAdam) on the GPU
+    through the kernels against a CPU copy through the plain versions;
+    then ``attention_impl`` short, mid and pallas on the card agree on
+    the loss and every gradient; then ``contrib.fmha`` at BERT-large's
+    head widths (8 packed sequences, max_s 512) equals its plain path on
+    the CPU, forward and backward.  Returns the GPU step's launches."""
+    from apex_tpu_torch.amp import get_policy
+    from apex_tpu_torch.contrib.fmha import fmha
+    from apex_tpu_torch.models import BertConfig, BertModel
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    lr = 1e-3
+    log("[bert-parity] BERT-large widths, 2 layers, fp32 (O0), b=4 x 512 "
+        f"ragged: one step on the GPU vs the CPU, FusedAdam lr={lr}")
+    cfg = BertConfig(**dict(BERT_LARGE, num_layers=2),
+                     policy=get_policy("O0"))
+    data = bert_batch(np.random.default_rng(1), 4, BERT_SEQ,
+                      cfg.vocab_size)
+    gpu = BertModel(cfg, device=dev, seed=5)
+    cpu = BertModel(cfg, device="cpu", seed=5)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    before = {k: v.cpu().clone() for k, v in gpu.state_dict().items()}
+    out = []
+    for model in (gpu, cpu):
+        batch = [torch.as_tensor(a, device=model.device) for a in data]
+        opt = FusedAdam(model.parameters(), lr=lr)
+        if model is gpu:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+        out.append(step_of(model, opt, batch))
+        if model is gpu:
+            torch.cuda.synchronize()
+            counts = launch_counts()
+    worst_g, worst_p, n_sure = check_step("bert-parity", *out, before, lr)
+    log(f"  loss {out[0][0]:.6f} (GPU) vs {out[1][0]:.6f} (CPU); every grad "
+        f"within 1e-4 of its scale (worst {worst_g:.3f} of the tolerance); "
+        f"updated params within 1% of a step at {n_sure} sure-sign elements "
+        f"(worst {worst_p:.3f} of it); launches {counts}")
+    for name in ("short_fwd_seg", "short_bwd_seg", "ln_fwd"):
+        if counts.get(name, 0) <= 0:
+            fail(f"bert-parity: kernel {name} never launched")
+    del cpu, out
+    # the three rungs on the card, from the same weights
+    state = {k: v.clone() for k, v in before.items()}
+    batch = [torch.as_tensor(a, device=dev) for a in data]
+    rungs = {}
+    for impl in ("short", "mid", "pallas"):
+        model = BertModel(dataclasses.replace(cfg, attention_impl=impl),
+                          device=dev)
+        model.load_state_dict(state)
+        loss = model.loss(*batch)
+        loss.backward()
+        rungs[impl] = (loss.item(), {n: p.grad.cpu() for n, p in
+                                     model.named_parameters()})
+        del model
+    (ls, gs) = rungs["short"]
+    for impl in ("mid", "pallas"):
+        li, gi = rungs[impl]
+        if not abs(li - ls) <= 1e-5 * max(1.0, abs(ls)):
+            fail(f"bert-parity: loss {li} ({impl}) vs {ls} (short)")
+        for n, g in gs.items():
+            tol = 1e-4 * g.abs().max().item() + 1e-9
+            if (gi[n] - g).abs().max().item() > tol:
+                fail(f"bert-parity: {impl} grad {n} differs from the short "
+                     f"rung's by more than {tol:.3g}")
+    log(f"  attention_impl short/mid/pallas on the GPU: losses "
+        f"{ls:.6f}/{rungs['mid'][0]:.6f}/{rungs['pallas'][0]:.6f}, every "
+        "grad within 1e-4 of its scale of the short rung's")
+    del gpu, rungs
+    torch.cuda.empty_cache()
+    # fmha on the card against its plain path on the CPU
+    heads, d = BERT_LARGE["num_attention_heads"], 64
+    lens = np.random.default_rng(2).integers(64, BERT_SEQ + 1, 8)
+    cu = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    gen = torch.Generator().manual_seed(3)
+    qkv = torch.randn((int(cu[-1]), 3, heads, d), generator=gen)
+    dout = torch.randn((int(cu[-1]), heads, d), generator=gen)
+    res = []
+    for device in (dev, torch.device("cpu")):
+        x = qkv.to(device).requires_grad_()
+        o = fmha(x, torch.as_tensor(cu), BERT_SEQ)
+        o.backward(dout.to(device))
+        res.append((o.detach().cpu(), x.grad.cpu()))
+    for what, got, want in (("out", res[0][0], res[1][0]),
+                            ("dqkv", res[0][1], res[1][1])):
+        err = max_err(got, want)
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        if not err <= tol:
+            fail(f"bert-parity: fmha {what} on the GPU differs from the CPU "
+                 f"by {err:.3g} > {tol:.3g}")
+        log(f"  fmha (8 sequences of {lens.min()}..{lens.max()} tokens, "
+            f"max_s {BERT_SEQ}, h={heads} d={d}) {what}: GPU vs CPU "
+            f"max_abs_err {err:.3g} (tolerance {tol:.3g})")
+    return counts
+
+
+def attention_share(prof) -> str:
+    """The device time of one profiled run by kind of kernel: the
+    attention kernels (``attn_``/``flash_`` entries of the CUDA
+    sources), layer norm, matrix products (cuBLAS's ``nvjet``/``sm90``
+    and CUTLASS kernels) and the rest (elementwise, copies, reductions)."""
+    kinds = {"attention": 0.0, "layer norm": 0.0, "matmul": 0.0,
+             "other": 0.0}
+    for t, _, key in device_rows(prof):
+        k = key.lower()
+        if "attn_" in k or "flash_" in k:
+            kinds["attention"] += t
+        elif "ln_fwd" in k or "layer_norm" in k:
+            kinds["layer norm"] += t
+        elif any(w in k for w in ("gemm", "xmma", "cutlass", "matmul",
+                                  "nvjet", "sm90_")):
+            kinds["matmul"] += t
+        else:
+            kinds["other"] += t
+    busy = sum(kinds.values())
+    if not busy:
+        return "not measured (the profiler saw no device time)"
+    return ", ".join(f"{name} {t / 1e3:.2f} ms ({100 * t / busy:.1f}%)"
+                     for name, t in kinds.items())
+
+
+def phase_bert_train(dev) -> dict:
+    """BERT-large (24 layers) at O4 (bf16 compute, fp32 parameters and
+    Adam state), remat on, b=16 x 512 with lengths drawn in 128..512, 15%
+    MLM positions and binary labels: 2 warm-up and 10 timed steps of loss
+    -> backward -> FusedAdam (lr 1e-4) on one batch; the loss must be
+    finite and fall, and the short rung's segment kernels must launch.
+    Prints ms/step, real and padded tokens/s, MFU, peak memory and the
+    launches; then one step profiled, broken down by kernel."""
+    from apex_tpu_torch.amp import get_policy
+    from apex_tpu_torch.models import BertConfig, BertModel
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.telemetry import mfu, transformer_flops_per_token
+
+    b, s = BERT_BATCH, BERT_SEQ
+    log(f"[bert-train] BERT-large, 24 layers, O4, remat on, b={b} x {s} "
+        "(lengths 128..512, 15% MLM), FusedAdam lr 1e-4: 2 warm-up + 10 "
+        "timed steps on one batch")
+    policy = get_policy("O4")
+    model = BertModel(BertConfig(**BERT_LARGE, policy=policy), device=dev,
+                      seed=0)
+    opt = FusedAdam(model.parameters(), lr=1e-4,
+                    master_weights=policy.master_weights)
+    data = bert_batch(np.random.default_rng(0), b, s,
+                      BERT_LARGE["vocab_size"])
+    batch = [torch.as_tensor(a, device=dev) for a in data]
+    n_params = sum(p.numel() for p in model.parameters())
+    real = int(data[3].sum())
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = model.loss(*batch)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    warm = [step() for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(10)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    losses = [float(x) for x in torch.stack(warm + losses).cpu()]
+    # Adam without warm-up lifts a fresh BERT-large's loss for a step or
+    # two (every weight moves by about lr at once) before it falls: held
+    # to end below where it started and below its middle
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < min(losses[0], losses[len(losses) // 2]):
+        fail(f"bert-train: losses {losses} are not finite and falling")
+    ms = 1e3 * wall / 10
+    padded_tps, real_tps = b * s / (ms / 1e3), real / (ms / 1e3)
+    fpt = transformer_flops_per_token(n_params, BERT_LARGE["num_layers"],
+                                      BERT_LARGE["hidden_size"], s)
+    peak = PEAK_OPS_PER_S[torch.bfloat16]
+    log(f"  losses: {' '.join(f'{x:.4f}' for x in losses)}")
+    log(f"  {ms:.2f} ms/step, {padded_tps:,.0f} padded tokens/s, "
+        f"{real_tps:,.0f} real tokens/s ({real} of {b * s} tokens real), "
+        f"MFU {mfu(padded_tps, fpt, peak):.4f} on padded tokens "
+        f"({mfu(real_tps, fpt, peak):.4f} on real ones) against the 989 "
+        f"TFLOP/s bf16 dense peak ({n_params:,} params; {fpt:,} model FLOPs "
+        f"per token, 6·N + 12·L·h·s at s={s})")
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        " GiB")
+    log(f"  launches in the 10 timed steps: {counts} (per step: "
+        + ", ".join(f"{k} {v / 10:g}" for k, v in sorted(counts.items()))
+        + ")")
+    for name in ("ln_fwd", "short_fwd_seg", "short_bwd_seg"):
+        if counts.get(name, 0) <= 0:
+            fail(f"bert-train: kernel {name} never launched on the main path")
+    phase_profile_train(types.SimpleNamespace(step=step), (),
+                        f"BERT-large (O4, {b} x {s})")
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_bert_finetune(dev) -> dict:
+    """``examples/bert_finetune.main`` at its default model size (2
+    layers, hidden 64, 4 heads, vocab 128, 32 tokens; head dim 16, padded
+    to 64 for the kernels) and O4, 200 steps at batch 16 on the GPU: the
+    held-out accuracy must rise from chance to 0.8 or more (at the JAX
+    example's batch of 4 neither package's run rises in 200 steps)."""
+    from apex_tpu_torch.examples import bert_finetune
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    flags = ["--steps", "200", "--batch", "16", "--log-every", "50",
+             "--device", str(dev)]
+    log(f"[bert-finetune] bert_finetune {' '.join(flags)}")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = bert_finetune.main(flags)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"  held-out accuracy {out['initial_eval_accuracy']:.3f} -> "
+        f"{out['eval_accuracy']:.3f}; {out['ms_per_step']:.2f} ms/step; "
+        f"launches {counts}")
+    if not out["eval_accuracy"] >= 0.8 or \
+            not out["eval_accuracy"] > out["initial_eval_accuracy"]:
+        fail("bert-finetune: the held-out accuracy did not rise from chance")
+    for name in ("ln_fwd", "short_fwd_seg", "short_bwd_seg"):
+        if counts.get(name, 0) <= 0:
+            fail(f"bert-finetune: kernel {name} never launched")
+    return counts
+
+
+FMHA_MAX_S = (512, 1024, 4096)
+
+
+def phase_fmha_varlen(dev) -> dict:
+    """``FMHA()(qkv, cu_seqlens, max_s)`` at BERT-large's head widths (16
+    heads of 64), 8 packed sequences of 64..512 tokens, forward and
+    backward in bf16 at max_s 512, 1024 and 4096: the short, mid and flash
+    rungs' segment instances, all of which must launch.  Then, in fp32,
+    each max_s's output and gradient against the plain attention of each
+    sequence alone (``mha_reference`` through autograd, on the card)."""
+    from apex_tpu_torch.contrib.fmha import FMHA
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.ops.attention import mha_reference
+
+    heads, d = BERT_LARGE["num_attention_heads"], 64
+    lens = np.random.default_rng(4).integers(64, 513, 8)
+    cu = torch.as_tensor(np.concatenate([[0], np.cumsum(lens)]),
+                         dtype=torch.int32, device=dev)
+    total = int(cu[-1])
+    gen = torch.Generator(device=dev).manual_seed(4)
+    qkv32 = torch.randn((total, 3, heads, d), generator=gen, device=dev)
+    dout32 = torch.randn((total, heads, d), generator=gen, device=dev)
+    fm = FMHA()
+    log(f"[fmha-varlen] FMHA at h={heads} d={d}, 8 sequences of "
+        f"{lens.min()}..{lens.max()} tokens ({total} in all), bf16 forward "
+        f"and backward at max_s {FMHA_MAX_S}")
+    qkv = qkv32.to(torch.bfloat16).requires_grad_()
+    dout = dout32.to(torch.bfloat16)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    times = []
+    for max_s in FMHA_MAX_S:
+        t0 = time.perf_counter()
+        fm(qkv, cu, max_s).backward(dout)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    counts = launch_counts()
+    log(f"  launches {counts}; wall ms per forward+backward (first call): "
+        + ", ".join(f"max_s {m} {t:.2f}" for m, t in zip(FMHA_MAX_S, times)))
+    for name in ("short_fwd_seg", "short_bwd_seg", "mid_fwd_seg",
+                 "mid_bwd_seg", "flash_fwd_seg", "flash_bwd_dkv_seg",
+                 "flash_bwd_dq_seg"):
+        if counts.get(name, 0) <= 0:
+            fail(f"fmha-varlen: kernel {name} never launched")
+    for max_s in FMHA_MAX_S:
+        x = qkv32.detach().requires_grad_()
+        # eager: fmha reads cu_seqlens on the host, so no graph capture
+        ms = _events_ms(lambda: [fm(qkv.detach(), cu, max_s)
+                                 for _ in range(10)], 10)
+        out = fm(x, cu, max_s)
+        out.backward(dout32)
+        ref = qkv32.detach().requires_grad_()
+        want = torch.cat([
+            mha_reference(*(ref[a:e, i].transpose(0, 1)[None]
+                            for i in range(3)))[0].transpose(0, 1)
+            for a, e in zip(cu[:-1].tolist(), cu[1:].tolist())])
+        want.backward(dout32)
+        err = max(check("fmha", out, want, f"fp32 max_s={max_s} out"),
+                  check("fmha", x.grad, ref.grad, f"fp32 max_s={max_s} dqkv"))
+        log(f"  max_s {max_s}: bf16 forward {ms:.4f} ms per eager call; fp32 "
+            f"against each sequence alone, max_abs_err {err:.3g}")
+    return counts
 
 
 SOURCES = {
@@ -2300,6 +2875,20 @@ SOURCES = {
                           "apex_tpu/ops/attention_decode.py:210"),
     "softmax_fwd": ("triton", "apex_tpu_torch/ops/softmax.py",
                     "apex_tpu/ops/softmax.py:47"),
+    "short_fwd_seg": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
+                      "apex_tpu/ops/attention_short.py:149"),
+    "short_bwd_seg": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
+                      "apex_tpu/ops/attention_short.py:215"),
+    "mid_fwd_seg": ("cuda", "apex_tpu_torch/csrc/attention_mid.cu",
+                    "apex_tpu/ops/attention_mid.py:213"),
+    "mid_bwd_seg": ("cuda", "apex_tpu_torch/csrc/attention_mid.cu",
+                    "apex_tpu/ops/attention_mid.py:308"),
+    "flash_fwd_seg": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
+                      "apex_tpu/ops/attention.py:213"),
+    "flash_bwd_dkv_seg": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
+                          "apex_tpu/ops/attention.py:429"),
+    "flash_bwd_dq_seg": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
+                         "apex_tpu/ops/attention.py:534"),
 }
 
 FLASH = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
@@ -2350,6 +2939,12 @@ def main() -> None:
         ("ln_fwd",) + FLASH)
     timed("profile", phase_profile_train, tr, batch,
           f"Llama mode (O5, 2 x {LONG_SEQ})")
+    del tr, batch
+    torch.cuda.empty_cache()
+    timed("bert-parity", phase_bert_parity, dev)
+    bert_counts = timed("bert-train", phase_bert_train, dev)
+    timed("bert-finetune", phase_bert_finetune, dev)
+    fmha_counts = timed("fmha-varlen", phase_fmha_varlen, dev)
     # one record per kernel at its main path's shape; launches from the
     # path that carries it: the serving kernels from phase 4, the dequant
     # kernels and int8 pages from serve-quant, short_bwd from the s=384
@@ -2357,7 +2952,8 @@ def main() -> None:
     # of phase 7, the flash kernels from the long-context training of
     # phase 9, the many-row instance from serve-chunked's prefix-cached
     # run, the tree instance from serve-spec's tree run, the softmax from
-    # fused-softmax
+    # fused-softmax, the short rung's segment instances from bert-train and
+    # the mid and flash rungs' from fmha-varlen
     main_counts = dict(serve_counts)
     for name in ("dequant_int8", "dequant_int4", "paged_decode_int8"):
         main_counts[name] = quant_counts.get(name, 0)
@@ -2371,6 +2967,11 @@ def main() -> None:
     main_counts["paged_decode_tree"] = spec_counts.get(
         "paged_decode_tree", 0)
     main_counts["softmax_fwd"] = softmax_counts.get("softmax_fwd", 0)
+    for name in ("short_fwd_seg", "short_bwd_seg"):
+        main_counts[name] = bert_counts.get(name, 0)
+    for name in ("mid_fwd_seg", "mid_bwd_seg", "flash_fwd_seg",
+                 "flash_bwd_dkv_seg", "flash_bwd_dq_seg"):
+        main_counts[name] = fmha_counts.get(name, 0)
     kernels = [dict(name=name, route=route, source=source,
                     replaces=replaces, launches=main_counts.get(name, 0),
                     **records[name][0])

@@ -77,11 +77,15 @@ def test_ladder_routes_short_and_matches_reference():
 
 
 def test_ladder_rejects_what_is_not_ported():
-    q = torch.zeros((1, 1, 8, 32))
-    ids = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="queue B"):
-        port_attention.flash_attention(q, q, q, q_segment_ids=ids,
-                                       kv_segment_ids=ids)
+    """Bias and dropout raise naming queue B; segment ids, ported since,
+    run and mask as the plain reference does."""
+    q = torch.randn((1, 1, 8, 32), generator=torch.Generator().manual_seed(1))
+    ids = torch.tensor([[0, 0, 0, 1, 1, 1, 1, 2]], dtype=torch.int32)
+    got = port_attention.flash_attention(q, q, q, q_segment_ids=ids,
+                                         kv_segment_ids=ids)
+    want = port_attention.mha_reference(q, q, q, q_segment_ids=ids,
+                                        kv_segment_ids=ids)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
     with pytest.raises(NotImplementedError, match="queue B"):
         port_attention.flash_attention(q, q, q, bias=torch.zeros(8, 8))
     with pytest.raises(NotImplementedError, match="queue B"):

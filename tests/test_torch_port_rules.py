@@ -14,6 +14,7 @@ import re
 import types
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -51,31 +52,101 @@ def test_forbidden_pattern_catches_what_it_should():
                                     "attention_mid", "attention_flash",
                                     "attention_decode", "softmax"])
 def test_kernel_wrappers_have_no_fallback(module):
+    """No ``try`` in a wrapper module, and each counts its launches (the
+    mid rung through the short rung's launchers, with its own names)."""
     src = (ROOT / "apex_tpu_torch" / "ops" / f"{module}.py").read_text()
     assert not re.search(r"^\s*try\s*:", src, re.MULTILINE)
-    assert "count_launch(KERNEL)" in src
+    if module == "attention_mid":
+        assert "launch_fwd(_entry, (KERNEL, KERNEL_SEG)" in src
+        assert "launch_bwd(_entry, (KERNEL_BWD, KERNEL_BWD_SEG)" in src
+    else:
+        assert "count_launch(" in src
+
+
+def _fake_launch(monkeypatch, mod, symbol):
+    """A stand-in for the C entry ``symbol`` that records its arguments
+    and reports success, so a launcher runs on CPU tensors (nothing is
+    launched): ``(calls, entry)``, ``entry`` in place of ``mod._entry``."""
+    from apex_tpu_torch.ops import attention_short
+
+    calls = []
+
+    def entry(name):
+        assert name == symbol
+        return None, lambda *args: calls.append(args) or 0
+
+    monkeypatch.setattr(attention_short, "stream_of", lambda t: None)
+    monkeypatch.setattr(mod, "stream_of", lambda t: None, raising=False)
+    return calls, entry
 
 
 @pytest.mark.parametrize("module", ["attention_short", "attention_mid"])
-def test_backward_wrappers_count_their_launches(module):
-    """The backward entries count under their own names, once per
-    launch of the C entry."""
+@pytest.mark.parametrize("segs", [False, True])
+def test_backward_wrappers_count_their_launches(monkeypatch, module, segs):
+    """The forward and backward entries count under their own names (the
+    segment instances under ``<name>_seg``), once per call of the C
+    entry, which gets as many arguments as its ctypes types."""
+    from apex_tpu_torch.ops import attention_short as short
+    from apex_tpu_torch.ops.common import launch_counts, reset_launch_counts
+
     mod = importlib.import_module(f"apex_tpu_torch.ops.{module}")
-    src = (ROOT / "apex_tpu_torch" / "ops" / f"{module}.py").read_text()
-    assert src.count("count_launch(KERNEL_BWD)") == 1
-    assert mod.KERNEL_BWD == module.split("_")[1] + "_bwd"
+    rung = module.split("_")[1]
+    assert (mod.KERNEL, mod.KERNEL_BWD) == (f"{rung}_fwd", f"{rung}_bwd")
+    assert (mod.KERNEL_SEG, mod.KERNEL_BWD_SEG) == (f"{rung}_fwd_seg",
+                                                   f"{rung}_bwd_seg")
+    q = torch.zeros((2, 3, 16, 64))
+    ids = (torch.zeros((2, 16), dtype=torch.int64),) * 2 if segs else (
+        None, None)
+    reset_launch_counts()
+    for symbol, call in (
+            (mod.KERNEL,
+             lambda entry: short.launch_fwd(
+                 entry, (mod.KERNEL, mod.KERNEL_SEG), q, q, q, True, 0.1,
+                 *ids)),
+            (mod.KERNEL_BWD,
+             lambda entry: short.launch_bwd(
+                 entry, (mod.KERNEL_BWD, mod.KERNEL_BWD_SEG), q, q, q, q, q,
+                 torch.zeros((2, 3, 16)), None, True, 0.1, *ids))):
+        calls, entry = _fake_launch(monkeypatch, mod, symbol)
+        call(entry)
+        (args,) = calls
+        assert len(args) == len(mod.ARGTYPES[symbol])
+        # the ids pointers are null without ids, and heads follows bh
+        assert (args[3] is None) == (not segs)
+        assert args[args.index(6) + 1] == 3
+    want = ({mod.KERNEL_SEG: 1, mod.KERNEL_BWD_SEG: 1} if segs
+            else {mod.KERNEL: 1, mod.KERNEL_BWD: 1})
+    assert {k: v for k, v in launch_counts().items() if v} == want
 
 
-def test_flash_backward_wrappers_count_their_launches():
-    """The flash rung's dK/dV and dQ entries count under their own names,
-    once each per launch of their C entry."""
+@pytest.mark.parametrize("segs", [False, True])
+def test_flash_backward_wrappers_count_their_launches(monkeypatch, segs):
+    """The flash rung's forward, dK/dV and dQ entries count under their
+    own names (``_seg`` with ids), once each per call of their C entry."""
     from apex_tpu_torch.ops import attention_flash as mod
+    from apex_tpu_torch.ops.common import launch_counts, reset_launch_counts
 
-    src = (ROOT / "apex_tpu_torch" / "ops" / "attention_flash.py").read_text()
-    assert src.count("count_launch(KERNEL_DKV)") == 1
-    assert src.count("count_launch(KERNEL_DQ)") == 1
     assert (mod.KERNEL, mod.KERNEL_DKV, mod.KERNEL_DQ) == (
         "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+    q = torch.zeros((6, 16, 64))
+    row = torch.zeros((6, 16))
+    ids = (torch.zeros((2, 16), dtype=torch.int32),) * 2 if segs else (
+        None, None)
+    reset_launch_counts()
+    for symbol, rest, outs in ((mod.KERNEL, (), (q, row)),
+                               (mod.KERNEL_DKV, (q, row, row), (q, q)),
+                               (mod.KERNEL_DQ, (q, row, row), (q,))):
+        calls, entry = _fake_launch(monkeypatch, mod, symbol)
+        monkeypatch.setattr(mod, "_entry", entry)
+        mod._launch(symbol, q, q, q, ids, 3 if segs else None, rest, outs,
+                    True, 0.1)
+        (args,) = calls
+        assert len(args) == len(mod.ARGTYPES[symbol])
+        assert (args[3] is None) == (not segs)
+    names = [mod.SEG[k] if segs else k
+             for k in (mod.KERNEL, mod.KERNEL_DKV, mod.KERNEL_DQ)]
+    assert {k: v for k, v in launch_counts().items() if v} == dict.fromkeys(
+        names, 1)
 
 
 @pytest.mark.parametrize("module, symbol", [
@@ -184,3 +255,189 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+# ------------------------------------------------ signatures against JAX
+#: the ops modules whose public entry points keep the JAX signatures
+SIGNATURE_MODULES = ("attention", "attention_short", "attention_mid",
+                     "layer_norm", "softmax", "attention_decode",
+                     "dequant_matmul")
+#: JAX parameters the port leaves out: the parameter tree (the port's
+#: modules own their weights), the mesh and its axis, the PRNG key
+LEFT_OUT = {"params", "mesh", "axis_name", "key"}
+
+
+def _twins():
+    """``(module, name)`` of every public name of the modules above that
+    the JAX package's module of the same name also has."""
+    out = []
+    for module in SIGNATURE_MODULES:
+        port = importlib.import_module(f"apex_tpu_torch.ops.{module}")
+        ref = importlib.import_module(f"apex_tpu.ops.{module}")
+        out += [(module, name) for name in port.__all__
+                if callable(getattr(ref, name, None))]
+    return out
+
+
+def _params(fn):
+    import inspect
+
+    return [p for p in inspect.signature(fn).parameters if p not in LEFT_OUT]
+
+
+@pytest.mark.parametrize("module, name", _twins(),
+                         ids=lambda x: x if isinstance(x, str) else None)
+def test_ops_entry_points_keep_the_jax_signatures(module, name):
+    """The port's parameters are the JAX function's, in its order, less
+    ``params``/``mesh``/``axis_name``/``key``."""
+    port = getattr(importlib.import_module(f"apex_tpu_torch.ops.{module}"),
+                   name)
+    ref = getattr(importlib.import_module(f"apex_tpu.ops.{module}"), name)
+    assert _params(port) == _params(ref)
+
+
+def test_signature_twins_cover_the_entry_points():
+    names = {name for _, name in _twins()}
+    assert {"flash_attention", "mha_reference", "fmha_short", "fmha_mid",
+            "fmha_decode", "fused_layer_norm_affine", "fused_rms_norm_affine",
+            "scaled_softmax", "scaled_masked_softmax",
+            "scaled_upper_triang_masked_softmax", "dequant_matmul"} <= names
+
+
+def test_attention_takes_the_jax_arguments_it_does_not_use():
+    """``bias_requires_grad=False`` with no bias (the T5 and contrib
+    callers), a dropout seed without dropout and the TPU tiles run; a
+    bias or dropout raises naming queue B; ``"xla"`` is no rung."""
+    from apex_tpu_torch.ops import attention, attention_mid, attention_short
+
+    q = torch.randn((1, 2, 16, 64), generator=torch.Generator().manual_seed(0))
+    want = attention.mha_reference(q, q, q)
+    entries = (
+        (attention.flash_attention, dict(block_q=16, block_k=16,
+                                         implementation="pallas")),
+        (attention_short.fmha_short, dict(block_bh=4, implementation="short")),
+        (attention_mid.fmha_mid, dict(block_q=16, block_k=16, block_bh=2,
+                                      implementation="mid")))
+    for fn, kw in entries:
+        got = fn(q, q, q, bias_requires_grad=False, dropout_seed=3, **kw)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        with pytest.raises(NotImplementedError, match="queue B item 2c"):
+            fn(q, q, q, bias=torch.zeros(16, 16), bias_requires_grad=False)
+        with pytest.raises(NotImplementedError, match="queue B item 2b"):
+            fn(q, q, q, dropout_rate=0.1, dropout_seed=1)
+        with pytest.raises(ValueError, match="implementation"):
+            fn(q, q, q, implementation="xla")
+
+
+def test_every_c_entry_is_typed():
+    """Each C entry of every source (``int <name>(`` at the start of a
+    line) is one ``test_c_entries_are_typed_as_the_source_declares``
+    checks, so no prototype can grow past its ctypes types unseen."""
+    from apex_tpu_torch.ops.common import KERNEL_SOURCES
+
+    checked = {
+        ("attention_short", "short_fwd"), ("attention_short", "short_bwd"),
+        ("attention_mid", "mid_fwd"), ("attention_mid", "mid_bwd"),
+        ("attention_flash", "flash_fwd"), ("attention_flash", "flash_bwd_dkv"),
+        ("attention_flash", "flash_bwd_dq"),
+        ("attention_decode", "paged_decode"),
+        ("attention_decode", "paged_decode_int8"),
+        ("attention_decode", "paged_decode_rows"),
+        ("dequant_matmul", "dequant_matmul")}
+    found = set()
+    for source in KERNEL_SOURCES:
+        src = (ROOT / "apex_tpu_torch" / "csrc" / f"{source}.cu").read_text()
+        found |= {(source, name) for name in
+                  re.findall(r"^int (\w+)\(", src, re.MULTILINE)}
+    assert found == checked
+
+
+# ----------------------------------------- faults C2, C3, C5 (ROADMAP C)
+def test_sample_takes_the_jax_key_second():
+    """C2: ``sample(logits, key, temperature, ...)`` as in JAX; the key is
+    unused at temperature 0, and ``generate(key=)`` is accepted."""
+    import inspect
+
+    from apex_tpu.serving import sampling as jsampling
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+    from apex_tpu_torch.serving import sampling
+
+    assert list(inspect.signature(sampling.sample).parameters) == list(
+        inspect.signature(jsampling.sample).parameters)
+    logits = torch.randn((3, 11), generator=torch.Generator().manual_seed(2))
+    want = sampling.greedy(logits)
+    assert torch.equal(sampling.sample(logits, None, 0.0), want)
+    assert torch.equal(sampling.sample(logits, object(), 0.0), want)
+    with pytest.raises(NotImplementedError, match="queue A item 3"):
+        sampling.sample(logits, None, 0.7)
+    model = GPTModel(GPTConfig(vocab_size=32, num_layers=1, hidden_size=16,
+                               num_attention_heads=2,
+                               max_position_embeddings=32),
+                     device="cpu", seed=1)
+    prompts = np.array([[3, 4, 5, 6], [7, 8, 0, 0]])
+    assert model.generate(prompts, [4, 2], 4, page_size=4, key=object()) == \
+        model.generate(prompts, [4, 2], 4, page_size=4)
+
+
+def test_decode_fns_carry_the_jax_fields():
+    """C3: ``GPTDecodeFns`` has the JAX ``prefill_chunk``, ``speculate_k``,
+    ``spec_tree`` and ``draft_source`` fields, filled as the callables
+    are stamped."""
+    import dataclasses
+
+    from apex_tpu.models.gpt import GPTDecodeFns as JaxFns
+    from apex_tpu_torch.models import GPTConfig, GPTDecodeFns, GPTModel
+    from apex_tpu_torch.serving import KVCacheConfig
+    from apex_tpu_torch.serving.speculate import offramp_tree
+
+    port = {f.name for f in dataclasses.fields(GPTDecodeFns)}
+    jax_only = {f.name for f in dataclasses.fields(JaxFns)} - port
+    assert {"prefill_chunk", "speculate_k", "spec_tree",
+            "draft_source"} <= port
+    assert all(n.endswith("_jit") or n == "tp" for n in jax_only)
+    model = GPTModel(GPTConfig(vocab_size=32, num_layers=1, hidden_size=16,
+                               num_attention_heads=2,
+                               max_position_embeddings=64,
+                               compute_dtype=torch.float32),
+                     device="cpu", seed=1)
+    ccfg = KVCacheConfig(num_layers=1, num_heads=2, head_dim=8,
+                         num_pages=17, page_size=4, max_seqs=2,
+                         pages_per_seq=8, dtype=torch.float32)
+    tree = offramp_tree(2)
+    fns = model.decode_fns(ccfg, max_prompt_len=8, prefill_chunk=4,
+                           speculate_k=2, spec_tree=tree)
+    assert (fns.prefill_chunk, fns.speculate_k, fns.spec_tree) == (
+        4, 2, tree)
+    assert fns.prefill_chunk == fns.chunk.prefill_chunk
+    assert (fns.speculate_k, fns.spec_tree, fns.draft_source) == (
+        fns.spec.speculate_k, fns.spec.spec_tree, fns.spec.draft_source)
+    plain = model.decode_fns(ccfg, max_prompt_len=8)
+    assert (plain.prefill_chunk, plain.speculate_k, plain.spec_tree,
+            plain.draft_source) == (None, None, None, None)
+
+
+def test_gpt_config_takes_the_jax_fields():
+    """C5: every JAX ``GPTConfig`` field is a port field; the context
+    parallelism and MoE fields run at their defaults and raise naming
+    A9 otherwise."""
+    import dataclasses
+
+    from apex_tpu.models import GPTConfig as JaxConfig
+    from apex_tpu_torch.models import GPTConfig
+
+    port = {f.name: f.default for f in dataclasses.fields(GPTConfig)}
+    ref = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
+    assert set(ref) <= set(port)
+    for name in ("context_parallel", "num_experts", "moe_top_k",
+                 "moe_capacity_factor", "moe_aux_weight",
+                 "moe_router_z_loss_weight"):
+        assert port[name] == ref[name]
+    kw = dict(num_layers=1, hidden_size=16, num_attention_heads=2)
+    GPTConfig(**kw, **{n: ref[n] for n in ("context_parallel", "moe_top_k",
+                                           "moe_capacity_factor",
+                                           "moe_aux_weight")})
+    for bad in (dict(context_parallel=True), dict(num_experts=4),
+                dict(moe_top_k=2), dict(moe_capacity_factor=2.0),
+                dict(moe_aux_weight=0.1), dict(moe_router_z_loss_weight=1.0)):
+        with pytest.raises(NotImplementedError, match="A9"):
+            GPTConfig(**kw, **bad)

@@ -18,9 +18,11 @@ hand-written kernel for each of the JAX package's Pallas kernels.  What
 is still to come is listed in ``ROADMAP.md``.  BERT (``models.bert``)
 trains and fine-tunes through the attention kernels' segment-id instances
 (``examples.bert_finetune``), which also carry the packed-varlen
-``contrib.fmha``.
+``contrib.fmha``.  The GPT trains with dropout through ``random`` (JAX's
+threefry2x32 PRNG, bit for bit), the hidden-dropout kernel
+(``ops.dropout``) and the attention kernels' dropout instances.
 """
 
 __all__ = ["amp", "contrib", "convert", "examples", "models",
-           "multi_tensor_apply", "ops", "optimizers", "serving", "telemetry",
-           "transformer", "utils"]
+           "multi_tensor_apply", "ops", "optimizers", "random", "serving",
+           "telemetry", "transformer", "utils"]

@@ -58,6 +58,15 @@
 //    exp(s - lse), so no garbage reaches dK/dV or dQ.  The causal tile
 //    skips stay as they are; no tile is skipped on its ids (the JAX kernels
 //    run every segment block masked, apex_tpu/ops/attention.py:364-377).
+//  - dropout (DROP, the Pallas bodies' has_dropout; attention_tiles.cuh's
+//    hash): the forward sums l over the undropped p and multiplies the
+//    kept p by 1 / (1 - rate) only where it enters P . V
+//    (attention_short.py:190-196); the dK/dV kernel replays the mask on p
+//    for dV and on dp before dz = p * (dp - delta), the dQ kernel on dp
+//    (attention_short.py:268-276).  The hash's bh is the block's
+//    blockIdx.y and its positions the absolute q0 + row and k0 + column,
+//    so the mask does not depend on the tiles.  DROP and SEGS combine
+//    (contrib attention needs both).
 //
 // What bounds them on the card: at the flagship's training shape (b*h = 64,
 // s = 1024, d = 128, causal, bf16) the forward does 2 * 2 * d * s(s+1)/2
@@ -98,13 +107,13 @@ struct FwdLayout {
 
 // q, out: (bh, sq, D); k, v: (bh, sk, D); lse: (bh, sq) fp32; with SEGS,
 // q_ids (bh / heads, sq) and kv_ids (bh / heads, sk) int32.
-template <typename T, int D, bool SEGS>
+template <typename T, int D, bool SEGS, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const int* __restrict__ q_ids,
                 const int* __restrict__ kv_ids, T* __restrict__ out,
                 float* __restrict__ lse, int heads, int sq, int sk,
-                int causal, float scale) {
+                int causal, float scale, Dropout dr) {
   using L = FwdLayout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem + L::Q_OFF);
@@ -124,6 +133,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + bh * sk * D;
   const T* vb = v + bh * sk * D;
   const long brow = SEGS ? bh / heads : 0;
+  const unsigned hrow = DROP ? drop_row(dr, bh) : 0u;
 
   load_tile<T, D>(Qs, L::LDQ, q + bh * sq * D, q0, kTile, sq);
   if constexpr (SEGS) load_ids(qid, q_ids + brow * sq, q0, kTile, sq);
@@ -176,10 +186,16 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       m[r] = m_new;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
+        // l has the undropped p; only what enters P . V is dropped
+        float pv = p[h];
+        if constexpr (DROP) {
+          pv = drop_keep(dr, hrow, qi, k0 + lane + 32 * h) ? pv * dr.inv_keep
+                                                           : 0.0f;
+        }
         if constexpr (L::kTC) {
-          Ps[row * L::LDP + lane + 32 * h] = __float2bfloat16(p[h]);
+          Ps[row * L::LDP + lane + 32 * h] = __float2bfloat16(pv);
         } else {
-          Ss[row * L::LDS + lane + 32 * h] = p[h];
+          Ss[row * L::LDS + lane + 32 * h] = pv;
         }
       }
 #pragma unroll
@@ -263,7 +279,7 @@ struct DkvLayout {
   static constexpr int BYTES = round_up(DL_OFF + QT * 4, 128);
 };
 
-template <typename T, int D, bool SEGS>
+template <typename T, int D, bool SEGS, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ q_ids,
@@ -272,7 +288,7 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dk,
                     T* __restrict__ dv, int heads, int sq, int sk,
-                    int causal, float scale) {
+                    int causal, float scale, Dropout dr) {
   using L = DkvLayout<T, D>;
   constexpr int QT = L::QT;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -299,6 +315,7 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qb = q + bh * sq * D;
   const T* dob = dout + bh * sq * D;
   const long brow = SEGS ? bh / heads : 0;
+  const unsigned hrow = DROP ? drop_row(dr, bh) : 0u;
 
   load_tiles<T, D>(Ks, L::LDK, Vs, L::LDK, k + bh * sk * D, v + bh * sk * D,
                    k0, kTile, sk);
@@ -334,7 +351,8 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncwarp();
 
     // p = exp(s * scale - lse), dz = p * (dp - delta); lane owns the
-    // query columns lane + 32 * j
+    // query columns lane + 32 * j.  With dropout, dV takes the dropped p
+    // and dz the dropped dp.
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int row = row0 + r;
@@ -347,12 +365,19 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         (!SEGS || kid[row] == qid[c]);
         const float p =
             ok ? expf(Ss[row * L::LDS + c] * scale - lse_s[c]) : 0.0f;
-        const float dz = p * (dPs[row * L::LDS + c] - dl_s[c]);
+        float dp = dPs[row * L::LDS + c];
+        float pv = p;
+        if constexpr (DROP) {
+          const bool kept = drop_keep(dr, hrow, qi, kj);
+          pv = kept ? p * dr.inv_keep : 0.0f;
+          dp = kept ? dp * dr.inv_keep : 0.0f;
+        }
+        const float dz = p * (dp - dl_s[c]);
         if constexpr (L::kTC) {
-          Ps[row * L::LDP + c] = __float2bfloat16(p);
+          Ps[row * L::LDP + c] = __float2bfloat16(pv);
           Zs[row * L::LDP + c] = __float2bfloat16(dz * scale);
         } else {
-          Ss[row * L::LDS + c] = p;
+          Ss[row * L::LDS + c] = pv;
           dPs[row * L::LDS + c] = dz * scale;
         }
       }
@@ -413,14 +438,15 @@ struct DqLayout {
   static constexpr int BYTES = round_up(DL_OFF + kTile * 4, 128);
 };
 
-template <typename T, int D, bool SEGS>
+template <typename T, int D, bool SEGS, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const int* __restrict__ q_ids,
                    const int* __restrict__ kv_ids, const T* __restrict__ dout,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, T* __restrict__ dq,
-                   int heads, int sq, int sk, int causal, float scale) {
+                   int heads, int sq, int sk, int causal, float scale,
+                   Dropout dr) {
   using L = DqLayout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem + L::Q_OFF);
@@ -444,6 +470,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + bh * sk * D;
   const T* vb = v + bh * sk * D;
   const long brow = SEGS ? bh / heads : 0;
+  const unsigned hrow = DROP ? drop_row(dr, bh) : 0u;
 
   load_tiles<T, D>(Qs, L::LDQ, dOs, L::LDQ, q + bh * sq * D,
                    dout + bh * sq * D, q0, kTile, sq);
@@ -488,7 +515,11 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         (!SEGS || qid[row] == kid[c]);
         const float p =
             ok ? expf(Ss[row * L::LDS + c] * scale - lse_s[row]) : 0.0f;
-        const float dz = p * (dPs[row * L::LDS + c] - dl_s[row]) * scale;
+        float dp = dPs[row * L::LDS + c];
+        if constexpr (DROP) {
+          dp = drop_keep(dr, hrow, qi, kj) ? dp * dr.inv_keep : 0.0f;
+        }
+        const float dz = p * (dp - dl_s[row]) * scale;
         if constexpr (L::kTC) {
           Zs[row * L::LDP + c] = __float2bfloat16(dz);
         } else {
@@ -524,31 +555,33 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ------------------------------------------------------------------ launch
 
-template <typename T, int D, bool SEGS>
+template <typename T, int D, bool SEGS, bool DROP>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const int* q_ids, const int* kv_ids, void* out,
                        float* lse, int bh, int heads, int sq, int sk,
-                       int causal, float scale, cudaStream_t stream) {
+                       int causal, float scale, Dropout dr,
+                       cudaStream_t stream) {
   using L = FwdLayout<T, D>;
   constexpr int kBytes = L::BYTES + 2 * id_bytes<SEGS>(kTile);
   static bool opted = false;
-  cudaError_t err = opt_in(attn_fwd_kernel<T, D, SEGS>, kBytes, &opted);
+  cudaError_t err =
+      opt_in(attn_fwd_kernel<T, D, SEGS, DROP>, kBytes, &opted);
   if (err != cudaSuccess) return err;
   dim3 grid((sq + kTile - 1) / kTile, bh);
-  attn_fwd_kernel<T, D, SEGS><<<grid, kThreads, kBytes, stream>>>(
+  attn_fwd_kernel<T, D, SEGS, DROP><<<grid, kThreads, kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), q_ids, kv_ids, static_cast<T*>(out), lse,
-      heads, sq, sk, causal, scale);
+      heads, sq, sk, causal, scale, dr);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool SEGS>
+template <typename T, int D, bool SEGS, bool DROP>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const int* q_ids, const int* kv_ids, const void* out,
                        const void* dout, const float* lse, const float* dlse,
                        float* delta, void* dq, void* dk, void* dv, int bh,
                        int heads, int sq, int sk, int causal, float scale,
-                       cudaStream_t stream) {
+                       Dropout dr, cudaStream_t stream) {
   using KV = DkvLayout<T, D>;
   using QL = DqLayout<T, D>;
   constexpr int kKvBytes =
@@ -556,9 +589,9 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   constexpr int kQBytes = QL::BYTES + 2 * id_bytes<SEGS>(kTile);
   static bool opted_kv = false, opted_q = false;
   cudaError_t err =
-      opt_in(attn_bwd_dkv_kernel<T, D, SEGS>, kKvBytes, &opted_kv);
+      opt_in(attn_bwd_dkv_kernel<T, D, SEGS, DROP>, kKvBytes, &opted_kv);
   if (err != cudaSuccess) return err;
-  err = opt_in(attn_bwd_dq_kernel<T, D, SEGS>, kQBytes, &opted_q);
+  err = opt_in(attn_bwd_dq_kernel<T, D, SEGS, DROP>, kQBytes, &opted_q);
   if (err != cudaSuccess) return err;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
@@ -570,43 +603,47 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
       static_cast<const T*>(out), dot, dlse, delta, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_dkv_kernel<T, D, SEGS>
+  attn_bwd_dkv_kernel<T, D, SEGS, DROP>
       <<<dim3((sk + kTile - 1) / kTile, bh), kThreads, kKvBytes, stream>>>(
           qt, kt, vt, q_ids, kv_ids, dot, lse, delta, static_cast<T*>(dk),
-          static_cast<T*>(dv), heads, sq, sk, causal, scale);
+          static_cast<T*>(dv), heads, sq, sk, causal, scale, dr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_dq_kernel<T, D, SEGS>
+  attn_bwd_dq_kernel<T, D, SEGS, DROP>
       <<<dim3((sq + kTile - 1) / kTile, bh), kThreads, kQBytes, stream>>>(
           qt, kt, vt, q_ids, kv_ids, dot, lse, delta, static_cast<T*>(dq),
-          heads, sq, sk, causal, scale);
+          heads, sq, sk, causal, scale, dr);
   return cudaGetLastError();
 }
 
 // dtype: 0 = fp32, 1 = bf16; head dims 64 and 128.  q_ids/kv_ids: both
 // null (no segment ids) or (bh / heads, sq) and (bh / heads, sk) int32.
+// dr.inv_keep == 0: no dropout.  Each (dtype, d) has four instances:
+// with and without SEGS, with and without DROP.
+#define ATTN_DISPATCH_TD(CALL, T, D)                                \
+  if (segs) return drop ? CALL(T, D, true, true)                    \
+                        : CALL(T, D, true, false);                  \
+  return drop ? CALL(T, D, false, true) : CALL(T, D, false, false)
 #define ATTN_DISPATCH(CALL)                                         \
-  if (dtype == 0 && d == 128) return segs ? CALL(float, 128, true)  \
-                                          : CALL(float, 128, false); \
-  if (dtype == 0 && d == 64) return segs ? CALL(float, 64, true)    \
-                                         : CALL(float, 64, false);   \
-  if (dtype == 1 && d == 128) return segs ? CALL(bf16, 128, true)   \
-                                          : CALL(bf16, 128, false);  \
-  if (dtype == 1 && d == 64) return segs ? CALL(bf16, 64, true)     \
-                                         : CALL(bf16, 64, false);    \
+  if (dtype == 0 && d == 128) { ATTN_DISPATCH_TD(CALL, float, 128); } \
+  if (dtype == 0 && d == 64) { ATTN_DISPATCH_TD(CALL, float, 64); }   \
+  if (dtype == 1 && d == 128) { ATTN_DISPATCH_TD(CALL, bf16, 128); }  \
+  if (dtype == 1 && d == 64) { ATTN_DISPATCH_TD(CALL, bf16, 64); }    \
   return cudaErrorInvalidValue
 
 inline cudaError_t fwd(const void* q, const void* k, const void* v,
                        const int* q_ids, const int* kv_ids, void* out,
                        float* lse, int bh, int heads, int sq, int sk, int d,
-                       int dtype, int causal, float scale, void* stream) {
+                       int dtype, int causal, float scale, Dropout dr,
+                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0) return cudaErrorInvalidValue;
   if (bad_ids(q_ids, kv_ids, bh, heads)) return cudaErrorInvalidValue;
   const bool segs = q_ids != nullptr;
-#define CALL(T, D, SEGS)                                                    \
-  launch_fwd<T, D, SEGS>(q, k, v, q_ids, kv_ids, out, lse, bh, heads, sq,  \
-                         sk, causal, scale, s)
+  const bool drop = dr.inv_keep != 0.0f;
+#define CALL(T, D, SEGS, DROP)                                              \
+  launch_fwd<T, D, SEGS, DROP>(q, k, v, q_ids, kv_ids, out, lse, bh, heads, \
+                               sq, sk, causal, scale, dr, s)
   ATTN_DISPATCH(CALL);
 #undef CALL
 }
@@ -616,20 +653,22 @@ inline cudaError_t bwd(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* dlse,
                        float* delta, void* dq, void* dk, void* dv, int bh,
                        int heads, int sq, int sk, int d, int dtype,
-                       int causal, float scale, void* stream) {
+                       int causal, float scale, Dropout dr, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0) return cudaErrorInvalidValue;
   if (bad_ids(q_ids, kv_ids, bh, heads)) return cudaErrorInvalidValue;
   const bool segs = q_ids != nullptr;
-#define CALL(T, D, SEGS)                                                  \
-  launch_bwd<T, D, SEGS>(q, k, v, q_ids, kv_ids, out, dout, lse, dlse,   \
-                         delta, dq, dk, dv, bh, heads, sq, sk, causal,   \
-                         scale, s)
+  const bool drop = dr.inv_keep != 0.0f;
+#define CALL(T, D, SEGS, DROP)                                            \
+  launch_bwd<T, D, SEGS, DROP>(q, k, v, q_ids, kv_ids, out, dout, lse,   \
+                               dlse, delta, dq, dk, dv, bh, heads, sq,   \
+                               sk, causal, scale, dr, s)
   ATTN_DISPATCH(CALL);
 #undef CALL
 }
 
 #undef ATTN_DISPATCH
+#undef ATTN_DISPATCH_TD
 
 }  // namespace
 }  // namespace attn

@@ -40,6 +40,13 @@
 //    exp(s - lse)).  The causal tile skips stay; none is taken on the ids.
 //    The wrappers count these launches as flash_fwd_seg, flash_bwd_dkv_seg
 //    and flash_bwd_dq_seg.
+//  - dropout (DROP, the Pallas bodies' has_dropout; the hash of
+//    attention_tiles.cuh over the global bh = blockIdx.y and the absolute
+//    positions): the forward keeps l and the lse undropped and drops and
+//    scales only the p that enters P . V (:276-281); the dK/dV kernel
+//    replays the mask on p for dV and on dp before dz (:491-498), the dQ
+//    kernel on dp (:605-611).  Counted as flash_fwd_drop,
+//    flash_bwd_dkv_drop and flash_bwd_dq_drop (_seg_drop beside ids).
 //
 // Tiles, chosen for s >= 4096 (at b*h = 16, the Llama-mode training shape):
 //  - forward: 128-row query tiles in bf16 (8 warps, 16 rows each), so each
@@ -216,13 +223,13 @@ struct FwdTiles {
 
 // q, out: (bh, sq, D); k, v: (bh, sk, D); lse: (bh, sq) fp32; with SEGS,
 // q_ids (bh / heads, sq) and kv_ids (bh / heads, sk) int32.
-template <typename T, int D, bool SEGS>
+template <typename T, int D, bool SEGS, bool DROP>
 __global__ void __launch_bounds__(FwdTiles<T, D>::kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ q_ids,
                  const int* __restrict__ kv_ids, T* __restrict__ out,
                  float* __restrict__ lse, int heads, int sq, int sk,
-                 int causal, float scale) {
+                 int causal, float scale, attn::Dropout dr) {
   using L = FwdTiles<T, D>;
   constexpr int QT = L::QT, KT = L::KT, TH = L::kThreads;
   constexpr int KID = attn::id_bytes<SEGS>(KT);
@@ -251,6 +258,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + bh * sk * D;
   const T* vb = v + bh * sk * D;
   const int* kidb = SEGS ? kv_ids + (bh / heads) * sk : nullptr;
+  const unsigned hrow = DROP ? attn::drop_row(dr, bh) : 0u;
   // causal: keys past the tile's last query row are masked for every row
   const int kv_end = causal ? min(sk, q0 + QT) : sk;
   const int n_tiles = (kv_end + KT - 1) / KT;
@@ -326,10 +334,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       m[r] = m_new;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
+        // l has the undropped p; only what enters P . V is dropped
+        float pv = p[h];
+        if constexpr (DROP) {
+          pv = attn::drop_keep(dr, hrow, qi, k0 + lane + 32 * h)
+                   ? pv * dr.inv_keep
+                   : 0.0f;
+        }
         if constexpr (L::kTC) {
-          Ps[row * L::LDP + lane + 32 * h] = __float2bfloat16(p[h]);
+          Ps[row * L::LDP + lane + 32 * h] = __float2bfloat16(pv);
         } else {
-          Ss[row * L::LDS + lane + 32 * h] = p[h];
+          Ss[row * L::LDS + lane + 32 * h] = pv;
         }
       }
 #pragma unroll
@@ -398,7 +413,7 @@ struct DkvTiles {
   static constexpr int BYTES = round_up(DV_OFF + KT * LDA * 4, 128);
 };
 
-template <typename T, int D, bool SEGS>
+template <typename T, int D, bool SEGS, bool DROP>
 __global__ void __launch_bounds__(DkvTiles<T, D>::kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ q_ids,
@@ -407,7 +422,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int heads, int sq, int sk,
-                     int causal, float scale) {
+                     int causal, float scale, attn::Dropout dr) {
   using L = DkvTiles<T, D>;
   constexpr int QT = L::QT, KT = L::KT, TH = L::kThreads;
   constexpr int QID = attn::id_bytes<SEGS>(QT);
@@ -448,6 +463,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* lseb = lse + bh * sq;
   const float* dlb = delta + bh * sq;
   const int* qidb = SEGS ? q_ids + (bh / heads) * sq : nullptr;
+  const unsigned hrow = DROP ? attn::drop_row(dr, bh) : 0u;
 
   async_tile<T, D, L::LDK, KT, TH>(Ks, k + bh * sk * D, k0, sk);
   async_tile<T, D, L::LDK, KT, TH>(Vs, v + bh * sk * D, k0, sk);
@@ -495,7 +511,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // p = exp(s * scale - lse), dz = p * (dp - delta); lane owns the query
     // columns lane + 32 * j.  Query rows past sq are masked here: their
-    // lse and delta are zero-filled, not real.
+    // lse and delta are zero-filled, not real.  With dropout, dV takes the
+    // dropped p and dz the dropped dp.
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int row = row0 + r;
@@ -507,12 +524,19 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const bool ok = kj < sk && qi < sq && (!causal || kj <= qi) &&
                         (!SEGS || kid[row] == qt_ids[c]);
         const float p = ok ? expf(Ss[row * L::LDS + c] * scale - lt[c]) : 0.0f;
-        const float dz = p * (dPs[row * L::LDS + c] - dt[c]);
+        float dp = dPs[row * L::LDS + c];
+        float pv = p;
+        if constexpr (DROP) {
+          const bool kept = attn::drop_keep(dr, hrow, qi, kj);
+          pv = kept ? p * dr.inv_keep : 0.0f;
+          dp = kept ? dp * dr.inv_keep : 0.0f;
+        }
+        const float dz = p * (dp - dt[c]);
         if constexpr (L::kTC) {
-          Ps[row * L::LDP + c] = __float2bfloat16(p);
+          Ps[row * L::LDP + c] = __float2bfloat16(pv);
           Zs[row * L::LDP + c] = __float2bfloat16(dz * scale);
         } else {
-          Ss[row * L::LDS + c] = p;
+          Ss[row * L::LDS + c] = pv;
           dPs[row * L::LDS + c] = dz * scale;
         }
       }
@@ -584,14 +608,15 @@ struct DqTiles {
   static constexpr int BYTES = round_up(DQ_OFF + QT * LDA * 4, 128);
 };
 
-template <typename T, int D, bool SEGS>
+template <typename T, int D, bool SEGS, bool DROP>
 __global__ void __launch_bounds__(DqTiles<T, D>::kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ q_ids,
                     const int* __restrict__ kv_ids, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    int heads, int sq, int sk, int causal, float scale) {
+                    int heads, int sq, int sk, int causal, float scale,
+                    attn::Dropout dr) {
   using L = DqTiles<T, D>;
   constexpr int QT = L::QT, KT = L::KT, TH = L::kThreads;
   constexpr int KID = attn::id_bytes<SEGS>(KT);
@@ -624,6 +649,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + bh * sk * D;
   const T* vb = v + bh * sk * D;
   const int* kidb = SEGS ? kv_ids + (bh / heads) * sk : nullptr;
+  const unsigned hrow = DROP ? attn::drop_row(dr, bh) : 0u;
   const int kv_end = causal ? min(sk, q0 + QT) : sk;
   const int n_tiles = (kv_end + KT - 1) / KT;
 
@@ -675,7 +701,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         (!SEGS || qid[row] == kt_ids[c]);
         const float p =
             ok ? expf(Ss[row * L::LDS + c] * scale - lse_s[row]) : 0.0f;
-        const float dz = p * (dPs[row * L::LDS + c] - dl_s[row]) * scale;
+        float dp = dPs[row * L::LDS + c];
+        if constexpr (DROP) {
+          dp = attn::drop_keep(dr, hrow, qi, kj) ? dp * dr.inv_keep : 0.0f;
+        }
+        const float dz = p * (dp - dl_s[row]) * scale;
         if constexpr (L::kTC) {
           Zs[row * L::LDP + c] = __float2bfloat16(dz);
         } else {
@@ -711,67 +741,69 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ------------------------------------------------------------------ launch
 
-template <typename T, int D, bool SEGS>
+template <typename T, int D, bool SEGS, bool DROP>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const int* q_ids, const int* kv_ids, void* out,
                        float* lse, int bh, int heads, int sq, int sk,
-                       int causal, float scale, cudaStream_t stream) {
+                       int causal, float scale, attn::Dropout dr,
+                       cudaStream_t stream) {
   using L = FwdTiles<T, D>;
   constexpr int kBytes = L::BYTES + attn::id_bytes<SEGS>(L::QT) +
                          2 * attn::id_bytes<SEGS>(L::KT);
   static bool opted = false;
   cudaError_t err =
-      attn::opt_in(flash_fwd_kernel<T, D, SEGS>, kBytes, &opted);
+      attn::opt_in(flash_fwd_kernel<T, D, SEGS, DROP>, kBytes, &opted);
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<T, D, SEGS>
+  flash_fwd_kernel<T, D, SEGS, DROP>
       <<<dim3((sq + L::QT - 1) / L::QT, bh), L::kThreads, kBytes, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), q_ids, kv_ids, static_cast<T*>(out), lse,
-          heads, sq, sk, causal, scale);
+          heads, sq, sk, causal, scale, dr);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool SEGS>
+template <typename T, int D, bool SEGS, bool DROP>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const int* q_ids, const int* kv_ids, const void* dout,
                        const float* lse, const float* delta, void* dk,
                        void* dv, int bh, int heads, int sq, int sk,
-                       int causal, float scale, cudaStream_t stream) {
+                       int causal, float scale, attn::Dropout dr,
+                       cudaStream_t stream) {
   using L = DkvTiles<T, D>;
   constexpr int kBytes = L::BYTES + attn::id_bytes<SEGS>(L::KT) +
                          2 * attn::id_bytes<SEGS>(L::QT);
   static bool opted = false;
   cudaError_t err =
-      attn::opt_in(flash_bwd_dkv_kernel<T, D, SEGS>, kBytes, &opted);
+      attn::opt_in(flash_bwd_dkv_kernel<T, D, SEGS, DROP>, kBytes, &opted);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<T, D, SEGS>
+  flash_bwd_dkv_kernel<T, D, SEGS, DROP>
       <<<dim3((sk + L::KT - 1) / L::KT, bh), L::kThreads, kBytes, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), q_ids, kv_ids,
           static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
-          static_cast<T*>(dv), heads, sq, sk, causal, scale);
+          static_cast<T*>(dv), heads, sq, sk, causal, scale, dr);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool SEGS>
+template <typename T, int D, bool SEGS, bool DROP>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const int* q_ids, const int* kv_ids, const void* dout,
                       const float* lse, const float* delta, void* dq, int bh,
                       int heads, int sq, int sk, int causal, float scale,
-                      cudaStream_t stream) {
+                      attn::Dropout dr, cudaStream_t stream) {
   using L = DqTiles<T, D>;
   constexpr int kBytes = L::BYTES + attn::id_bytes<SEGS>(L::QT) +
                          2 * attn::id_bytes<SEGS>(L::KT);
   static bool opted = false;
   cudaError_t err =
-      attn::opt_in(flash_bwd_dq_kernel<T, D, SEGS>, kBytes, &opted);
+      attn::opt_in(flash_bwd_dq_kernel<T, D, SEGS, DROP>, kBytes, &opted);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<T, D, SEGS>
+  flash_bwd_dq_kernel<T, D, SEGS, DROP>
       <<<dim3((sq + L::QT - 1) / L::QT, bh), L::kThreads, kBytes, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), q_ids, kv_ids,
           static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), heads,
-          sq, sk, causal, scale);
+          sq, sk, causal, scale, dr);
   return cudaGetLastError();
 }
 
@@ -783,23 +815,26 @@ bool bad_shape(int bh, int sq, int sk) {
 }  // namespace flash
 
 // dtype: 0 = fp32, 1 = bf16; head dims 64 and 128; q_ids/kv_ids both null
-// or (bh / heads, sq) and (bh / heads, sk) int32 segment ids.  Each returns
-// a cudaError_t code (0 = success).
+// or (bh / heads, sq) and (bh / heads, sk) int32 segment ids; seed,
+// keep_threshold, inv_keep the dropout hash's uint32 seed and threshold and
+// the fp32 1 / (1 - rate), inv_keep = 0 for no dropout.  Each (dtype, d)
+// has four instances: with and without SEGS, with and without DROP.  Each
+// entry returns a cudaError_t code (0 = success).
+#define FLASH_DISPATCH_TD(CALL, T, D)                                      \
+  if (segs) return drop ? CALL(T, D, true, true) : CALL(T, D, true, false); \
+  return drop ? CALL(T, D, false, true) : CALL(T, D, false, false)
 #define FLASH_DISPATCH(CALL)                                               \
   if (flash::bad_shape(bh, sq, sk) ||                                      \
       attn::bad_ids(q_ids, kv_ids, bh, heads))                             \
     return cudaErrorInvalidValue;                                          \
   cudaStream_t s = static_cast<cudaStream_t>(stream);                      \
   const bool segs = q_ids != nullptr;                                      \
-  if (dtype == 0 && d == 128)                                              \
-    return segs ? CALL(float, 128, true) : CALL(float, 128, false);        \
-  if (dtype == 0 && d == 64)                                               \
-    return segs ? CALL(float, 64, true) : CALL(float, 64, false);          \
-  if (dtype == 1 && d == 128)                                              \
-    return segs ? CALL(flash::bf16, 128, true)                             \
-                : CALL(flash::bf16, 128, false);                           \
-  if (dtype == 1 && d == 64)                                               \
-    return segs ? CALL(flash::bf16, 64, true) : CALL(flash::bf16, 64, false); \
+  const bool drop = inv_keep != 0.0f;                                      \
+  const attn::Dropout dr{seed, keep_threshold, inv_keep};                  \
+  if (dtype == 0 && d == 128) { FLASH_DISPATCH_TD(CALL, float, 128); }     \
+  if (dtype == 0 && d == 64) { FLASH_DISPATCH_TD(CALL, float, 64); }       \
+  if (dtype == 1 && d == 128) { FLASH_DISPATCH_TD(CALL, flash::bf16, 128); } \
+  if (dtype == 1 && d == 64) { FLASH_DISPATCH_TD(CALL, flash::bf16, 64); } \
   return cudaErrorInvalidValue
 
 extern "C" {
@@ -807,10 +842,11 @@ extern "C" {
 int flash_fwd(const void* q, const void* k, const void* v, const int* q_ids,
               const int* kv_ids, void* out, float* lse, int bh, int heads,
               int sq, int sk, int d, int dtype, int causal, float scale,
+              unsigned seed, unsigned keep_threshold, float inv_keep,
               void* stream) {
-#define CALL(T, D, SEGS)                                                   \
-  flash::launch_fwd<T, D, SEGS>(q, k, v, q_ids, kv_ids, out, lse, bh,     \
-                                heads, sq, sk, causal, scale, s)
+#define CALL(T, D, SEGS, DROP)                                             \
+  flash::launch_fwd<T, D, SEGS, DROP>(q, k, v, q_ids, kv_ids, out, lse,   \
+                                      bh, heads, sq, sk, causal, scale, dr, s)
   FLASH_DISPATCH(CALL);
 #undef CALL
 }
@@ -820,10 +856,12 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
                   const int* q_ids, const int* kv_ids, const void* dout,
                   const float* lse, const float* delta, void* dk, void* dv,
                   int bh, int heads, int sq, int sk, int d, int dtype,
-                  int causal, float scale, void* stream) {
-#define CALL(T, D, SEGS)                                                   \
-  flash::launch_dkv<T, D, SEGS>(q, k, v, q_ids, kv_ids, dout, lse, delta, \
-                                dk, dv, bh, heads, sq, sk, causal, scale, s)
+                  int causal, float scale, unsigned seed,
+                  unsigned keep_threshold, float inv_keep, void* stream) {
+#define CALL(T, D, SEGS, DROP)                                             \
+  flash::launch_dkv<T, D, SEGS, DROP>(q, k, v, q_ids, kv_ids, dout, lse,  \
+                                      delta, dk, dv, bh, heads, sq, sk,    \
+                                      causal, scale, dr, s)
   FLASH_DISPATCH(CALL);
 #undef CALL
 }
@@ -832,10 +870,12 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
                  const int* q_ids, const int* kv_ids, const void* dout,
                  const float* lse, const float* delta, void* dq, int bh,
                  int heads, int sq, int sk, int d, int dtype, int causal,
-                 float scale, void* stream) {
-#define CALL(T, D, SEGS)                                                   \
-  flash::launch_dq<T, D, SEGS>(q, k, v, q_ids, kv_ids, dout, lse, delta,  \
-                               dq, bh, heads, sq, sk, causal, scale, s)
+                 float scale, unsigned seed, unsigned keep_threshold,
+                 float inv_keep, void* stream) {
+#define CALL(T, D, SEGS, DROP)                                             \
+  flash::launch_dq<T, D, SEGS, DROP>(q, k, v, q_ids, kv_ids, dout, lse,   \
+                                     delta, dq, bh, heads, sq, sk, causal, \
+                                     scale, dr, s)
   FLASH_DISPATCH(CALL);
 #undef CALL
 }

@@ -21,21 +21,27 @@
 // (b*h), ~256 flop/byte, close to the ~295 flop/byte balance point of the
 // H100; the backward is bound by operations.  With segment ids (fmha's
 // packed varlen batches at 512 < max_s <= 2048) the entries launch the
-// SEGS instances, counted as mid_fwd_seg and mid_bwd_seg.
+// SEGS instances, counted as mid_fwd_seg and mid_bwd_seg; with dropout (the
+// flagship trains at s = 1024 with attention dropout 0.1) the DROP
+// instances, counted as mid_fwd_drop and mid_bwd_drop.
 
 #include "attention_common.cuh"
 
 extern "C" {
 
 // dtype: 0 = fp32, 1 = bf16.  q_ids/kv_ids: both null, or (bh / heads, sq)
-// and (bh / heads, sk) int32 segment ids.  Returns a cudaError_t code
-// (0 = success).
+// and (bh / heads, sk) int32 segment ids.  seed, keep_threshold, inv_keep:
+// the dropout hash's uint32 seed and threshold and the fp32 1 / (1 - rate);
+// inv_keep = 0 launches the instance without dropout.  Returns a
+// cudaError_t code (0 = success).
 int mid_fwd(const void* q, const void* k, const void* v, const int* q_ids,
             const int* kv_ids, void* out, float* lse, int bh, int heads,
             int sq, int sk, int d, int dtype, int causal, float scale,
+            unsigned seed, unsigned keep_threshold, float inv_keep,
             void* stream) {
   return attn::fwd(q, k, v, q_ids, kv_ids, out, lse, bh, heads, sq, sk, d,
-                   dtype, causal, scale, stream);
+                   dtype, causal, scale,
+                   attn::Dropout{seed, keep_threshold, inv_keep}, stream);
 }
 
 // delta: (bh, sq) fp32 scratch; dlse: (bh, sq) fp32 lse cotangent or null;
@@ -44,10 +50,11 @@ int mid_bwd(const void* q, const void* k, const void* v, const int* q_ids,
             const int* kv_ids, const void* out, const void* dout,
             const float* lse, const float* dlse, float* delta, void* dq,
             void* dk, void* dv, int bh, int heads, int sq, int sk, int d,
-            int dtype, int causal, float scale, void* stream) {
+            int dtype, int causal, float scale, unsigned seed,
+            unsigned keep_threshold, float inv_keep, void* stream) {
   return attn::bwd(q, k, v, q_ids, kv_ids, out, dout, lse, dlse, delta, dq,
                    dk, dv, bh, heads, sq, sk, d, dtype, causal, scale,
-                   stream);
+                   attn::Dropout{seed, keep_threshold, inv_keep}, stream);
 }
 
 const char* error_string(int err) {

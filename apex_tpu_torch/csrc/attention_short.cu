@@ -21,21 +21,27 @@
 // shape (b = 16, h = 16, s = 512, d = 64, not causal) a (b*h) slice does
 // 4 * d * s^2 flops over 4 * s * d * 2 bytes, ~256 flop/byte, still under
 // the balance point; nothing is skipped on the ids, so the work is that of
-// a full mask whatever the padding.
+// a full mask whatever the padding.  With dropout the entries launch the
+// DROP instances (short_fwd_drop, short_bwd_drop; with ids as well,
+// short_fwd_seg_drop, short_bwd_seg_drop).
 
 #include "attention_common.cuh"
 
 extern "C" {
 
 // dtype: 0 = fp32, 1 = bf16.  q_ids/kv_ids: both null, or (bh / heads, sq)
-// and (bh / heads, sk) int32 segment ids.  Returns a cudaError_t code
-// (0 = success).
+// and (bh / heads, sk) int32 segment ids.  seed, keep_threshold, inv_keep:
+// the dropout hash's uint32 seed and threshold and the fp32 1 / (1 - rate);
+// inv_keep = 0 launches the instance without dropout.  Returns a
+// cudaError_t code (0 = success).
 int short_fwd(const void* q, const void* k, const void* v, const int* q_ids,
               const int* kv_ids, void* out, float* lse, int bh, int heads,
               int sq, int sk, int d, int dtype, int causal, float scale,
+              unsigned seed, unsigned keep_threshold, float inv_keep,
               void* stream) {
   return attn::fwd(q, k, v, q_ids, kv_ids, out, lse, bh, heads, sq, sk, d,
-                   dtype, causal, scale, stream);
+                   dtype, causal, scale,
+                   attn::Dropout{seed, keep_threshold, inv_keep}, stream);
 }
 
 // delta: (bh, sq) fp32 scratch; dlse: (bh, sq) fp32 lse cotangent or null;
@@ -44,10 +50,11 @@ int short_bwd(const void* q, const void* k, const void* v, const int* q_ids,
               const int* kv_ids, const void* out, const void* dout,
               const float* lse, const float* dlse, float* delta, void* dq,
               void* dk, void* dv, int bh, int heads, int sq, int sk, int d,
-              int dtype, int causal, float scale, void* stream) {
+              int dtype, int causal, float scale, unsigned seed,
+              unsigned keep_threshold, float inv_keep, void* stream) {
   return attn::bwd(q, k, v, q_ids, kv_ids, out, dout, lse, dlse, delta, dq,
                    dk, dv, bh, heads, sq, sk, d, dtype, causal, scale,
-                   stream);
+                   attn::Dropout{seed, keep_threshold, inv_keep}, stream);
 }
 
 const char* error_string(int err) {

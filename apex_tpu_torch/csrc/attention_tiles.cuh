@@ -219,5 +219,48 @@ inline bool bad_ids(const int* q_ids, const int* kv_ids, int bh, int heads) {
   return q_ids != nullptr && (heads <= 0 || bh % heads != 0);
 }
 
+// ---------------------------------------------------------------- dropout
+//
+// The dropout variants (the Pallas bodies' has_dropout): the probabilities
+// multiplied into V are dropped where the counter hash of
+// apex_tpu/ops/attention.py:71-95 (_mix32, _keep_mask) says so and the kept
+// ones are scaled by the fp32 1 / (1 - rate); the row sum l and the lse are
+// taken before dropout.  The backward replays the mask on p for dV and on
+// dp before dz = p * (dp - delta).  The hash takes the GLOBAL flattened
+// batch*head index bh (blockIdx.y here) and the ABSOLUTE query and key
+// positions, never tile-local ones, so every rung, every tile and the plain
+// versions draw the same mask for a seed: per row, h = mix32(seed ^ (bh *
+// 0x9E3779B1)) once, then per pair r = mix32((h + q * 0x85EBCA6B) ^ (k *
+// 0xC2B2AE3D)), kept iff (r >> 8) < keep_threshold = round(keep * 2^24).
+// About 15 integer operations a pair, beside the tile products.  A launch
+// without dropout (DROP = false) compiles to the kernel without it.
+
+struct Dropout {
+  unsigned seed;        // uint32 seed (the JAX dropout_seed)
+  unsigned threshold;   // keep iff (hash >> 8) < threshold
+  float inv_keep;       // fp32 1 / (1 - rate); 0 turns dropout off
+};
+
+__device__ __forceinline__ unsigned mix32(unsigned x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+// The per-(batch*head) part of the hash, hoisted out of the pair loops.
+__device__ __forceinline__ unsigned drop_row(const Dropout& dr, long bh) {
+  return mix32(dr.seed ^ (static_cast<unsigned>(bh) * 0x9E3779B1u));
+}
+
+__device__ __forceinline__ bool drop_keep(const Dropout& dr, unsigned h,
+                                          int qi, int kj) {
+  const unsigned r = mix32((h + static_cast<unsigned>(qi) * 0x85EBCA6Bu) ^
+                           (static_cast<unsigned>(kj) * 0xC2B2AE3Du));
+  return (r >> 8) < dr.threshold;
+}
+
 }  // namespace
 }  // namespace attn

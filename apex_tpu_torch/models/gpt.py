@@ -19,6 +19,18 @@ carries weights across both ways).  The math is kept exactly:
   and decode rotates the new K before it is cached and q inside the
   paged kernel, with rows gathered from the cached ``rope_table``.
 
+Training draws JAX's dropout masks when ``loss``/``apply``/
+``hidden_states`` get a key (``rng``, a host key of
+``apex_tpu_torch.random``): it is split into one key a layer, as the JAX
+layer scan does, and each layer folds in 0 for the attention-dropout seed
+(through ``model_parallel_key(data_parallel_key(...))``, rank 0 each at
+world size 1), 1 and 2 for the hidden dropout after the attention
+projection and after the MLP.  The masks are bit-identical to JAX's
+(``ops.dropout`` for hidden dropout, the attention kernels' dropout
+instances for attention); remat recomputes a layer from its key, so it
+replays the same masks.  Without a key dropout does nothing, as in JAX,
+so serving a dropout config is serving the same weights without it.
+
 Attention goes through ``ops.attention.flash_attention`` (the short
 kernel up to 512 tokens, the mid kernel up to 2048, the flash kernels
 above, all differentiable) in the forward, training and prefill, and
@@ -63,11 +75,13 @@ from apex_tpu_torch.ops.attention_decode import (
     fmha_decode,
 )
 from apex_tpu_torch.ops.dequant_matmul import quantize_weight
+from apex_tpu_torch.ops.dropout import dropout
 from apex_tpu_torch.ops.layer_norm import (
     fused_layer_norm_affine,
     fused_rms_norm_affine,
 )
 from apex_tpu_torch.ops.rope import apply_rope_tables, rope_cos_sin, rope_table
+from apex_tpu_torch.random import fold_in, seed_of, split
 from apex_tpu_torch.serving.kv_cache import (
     KVCacheConfig,
     PagedKVCache,
@@ -95,10 +109,14 @@ from apex_tpu_torch.transformer.tensor_parallel import (
     lm_head_cross_entropy,
     normal_init,
 )
+from apex_tpu_torch.transformer.tensor_parallel.random import (
+    data_parallel_key,
+    model_parallel_key,
+)
 from apex_tpu_torch.utils.platform import resolve_device
 
 __all__ = ["GPTConfig", "GPTModel", "GPTDecodeFns", "QUANTIZED_WEIGHT_LEAVES",
-           "quantize_gpt_weights"]
+           "dropout_keys", "quantize_gpt_weights"]
 
 #: options of the JAX serving entry points that the port does not take
 #: yet, with the ROADMAP.md item that brings each
@@ -116,6 +134,18 @@ def _reject_unported(**options) -> None:
             raise NotImplementedError(
                 f"{name}={value!r} is not ported yet "
                 f"(ROADMAP.md {_UNPORTED[name]})")
+
+
+def dropout_keys(key):
+    """A layer's dropout draws from its key, as the JAX layer makes them
+    (``apex_tpu/models/gpt.py:770-821``): ``(attention seed, hidden key
+    after the attention projection, hidden key after the MLP)``, the seed
+    ``bits(model_parallel_key(data_parallel_key(fold_in(key, 0))))`` and
+    the keys ``data_parallel_key(fold_in(key, 1 or 2))``; each helper
+    folds in this process's rank, 0 at world size 1."""
+    attn = model_parallel_key(data_parallel_key(fold_in(key, 0)))
+    return (seed_of(attn), data_parallel_key(fold_in(key, 1)),
+            data_parallel_key(fold_in(key, 2)))
 
 
 @dataclasses.dataclass
@@ -259,11 +289,13 @@ class GPTConfig:
     leaves the ladder to choose (None).  ``position_embedding="rope"``
     rotates q and k by ``rope_base``'s frequencies and keeps no position
     table, so ``max_position_embeddings`` then bounds nothing.
+    ``hidden_dropout``/``attention_dropout`` apply only when ``loss``,
+    ``apply`` or ``hidden_states`` get a key, as in JAX.
 
-    Not ported yet: dropout (ROADMAP.md queue A item 2), and the context
-    parallelism and mixture-of-experts fields (``context_parallel``,
-    ``num_experts`` and the ``moe_*`` knobs, item 10 (A9)): a value other
-    than the default raises ``NotImplementedError``."""
+    Not ported yet: the context parallelism and mixture-of-experts fields
+    (``context_parallel``, ``num_experts`` and the ``moe_*`` knobs,
+    ROADMAP.md queue A item 10 (A9)): a value other than the default
+    raises ``NotImplementedError``."""
 
     vocab_size: int = 32000
     num_layers: int = 4
@@ -323,9 +355,10 @@ class GPTConfig:
             raise ValueError(
                 f"normalization must be 'layernorm' or 'rmsnorm', got "
                 f"{self.normalization!r}")
-        if self.hidden_dropout > 0.0 or self.attention_dropout > 0.0:
-            raise NotImplementedError(
-                "dropout is not ported yet (ROADMAP.md queue A item 2)")
+        for name in ("hidden_dropout", "attention_dropout"):
+            if not 0.0 <= getattr(self, name) < 1.0:
+                raise ValueError(f"{name} must be in [0, 1), got "
+                                 f"{getattr(self, name)!r}")
         for name, default in _MULTI_GPU_FIELDS.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(
@@ -453,11 +486,14 @@ class GPTModel(nn.Module):
             y = F.gelu(layer.fc1(y), approximate="tanh")
         return layer.fc2(y)
 
-    def _layer(self, layer: GPTLayer, x: torch.Tensor, rope=None):
+    def _layer(self, layer: GPTLayer, x: torch.Tensor, rope=None,
+               key=None):
         """One layer over ``x (b, s, h)``: returns the layer output and
         the attention-ready ``k``/``v`` ``(b, heads, s, head_dim)``, k
         rotated by ``rope`` (the ``(cos, sin)`` of :meth:`_rope_tables`,
-        None for learned positions)."""
+        None for learned positions).  ``key`` (this layer's, or None)
+        turns on the config's dropout, with the JAX layer's key schedule
+        (``apex_tpu/models/gpt.py:763-822``)."""
         c = self.config
         b, s, _ = x.shape
         residual = x
@@ -466,17 +502,26 @@ class GPTModel(nn.Module):
         if rope is not None:
             q = apply_rope_tables(q, *rope)
             k = apply_rope_tables(k, *rope)
+        if key is None:       # no key, no dropout (rate 0 is the identity)
+            attn_rate = hidden_rate = 0.0
+            seed = key1 = key2 = None
+        else:
+            attn_rate, hidden_rate = c.attention_dropout, c.hidden_dropout
+            seed, key1, key2 = dropout_keys(key)
         attn = flash_attention(q, k, v, causal=True,
+                               dropout_rate=attn_rate, dropout_seed=seed,
                                implementation=c.attention_impl)
         attn = attn.transpose(1, 2).reshape(b, s, c.hidden_size)
-        x = residual + layer.attn_proj(attn).to(residual.dtype)
+        out = dropout(layer.attn_proj(attn), key1, hidden_rate)
+        x = residual + out.to(residual.dtype)
         residual = x
-        y = layer.ln2(x).to(c.compute_dtype)
-        return residual + self._dense_mlp(layer, y).to(residual.dtype), k, v
+        y = self._dense_mlp(layer, layer.ln2(x).to(c.compute_dtype))
+        y = dropout(y, key2, hidden_rate)
+        return residual + y.to(residual.dtype), k, v
 
-    def _layer_out(self, layer: GPTLayer, x: torch.Tensor,
-                   rope=None) -> torch.Tensor:
-        return self._layer(layer, x, rope)[0]
+    def _layer_out(self, layer: GPTLayer, x: torch.Tensor, rope=None,
+                   key=None) -> torch.Tensor:
+        return self._layer(layer, x, rope, key)[0]
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         """Token embedding plus, for learned positions, the table's rows;
@@ -500,19 +545,24 @@ class GPTModel(nn.Module):
     def _final_norm(self, x: torch.Tensor) -> torch.Tensor:
         return self.final_ln(x.float()).to(self.config.compute_dtype)
 
-    def hidden_states(self, tokens: torch.Tensor) -> torch.Tensor:
+    def hidden_states(self, tokens: torch.Tensor,
+                      rng=None) -> torch.Tensor:
         """Embed, run all layers, final norm: ``(b, s, h)`` hidden in the
         compute dtype (the JAX version also returns the MoE aux loss,
-        which a dense model does not have)."""
+        which a dense model does not have).  ``rng``, a key of
+        :mod:`apex_tpu_torch.random` (or None), is split into one key a
+        layer for dropout; the remat recompute gets the same key."""
         x = self._embed(tokens)
         rope = self._rope_tables(tokens.shape[1])
         remat = self.config.remat and torch.is_grad_enabled()
-        for layer in self.layers:
+        keys = ([None] * len(self.layers) if rng is None
+                else list(split(rng, len(self.layers))))
+        for layer, key in zip(self.layers, keys):
             if remat:
-                x = checkpoint(self._layer_out, layer, x, rope,
+                x = checkpoint(self._layer_out, layer, x, rope, key,
                                use_reentrant=False)
             else:
-                x = self._layer_out(layer, x, rope)
+                x = self._layer_out(layer, x, rope, key)
         return self._final_norm(x)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
@@ -520,9 +570,9 @@ class GPTModel(nn.Module):
         w = self.embedding.weight.to(hidden.dtype)
         return torch.matmul(hidden, w.t())
 
-    def apply(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Forward to logits ``(b, s, vocab)``."""
-        return self.logits(self.hidden_states(tokens))
+    def apply(self, tokens: torch.Tensor, rng=None) -> torch.Tensor:
+        """Forward to logits ``(b, s, vocab)``; ``rng`` turns dropout on."""
+        return self.logits(self.hidden_states(tokens, rng))
 
     forward = apply
 
@@ -535,12 +585,13 @@ class GPTModel(nn.Module):
             hidden, self.embedding.weight, targets,
             fused=self.config.fused_ce, chunk=self.config.fused_ce_chunk)
 
-    def loss(self, tokens: torch.Tensor,
-             targets: torch.Tensor) -> torch.Tensor:
+    def loss(self, tokens: torch.Tensor, targets: torch.Tensor,
+             rng=None) -> torch.Tensor:
         """Mean next-token CE (fp32 scalar) over ``tokens``/``targets``
-        ``(b, s)``; differentiable in every parameter."""
-        return torch.mean(self._per_token_ce(self.hidden_states(tokens),
-                                             targets))
+        ``(b, s)``; differentiable in every parameter.  ``rng`` (a key of
+        :mod:`apex_tpu_torch.random`, or None) turns dropout on."""
+        return torch.mean(self._per_token_ce(
+            self.hidden_states(tokens, rng), targets))
 
     # ------------------------------------------------- serving / decode
     def _weight_pool_dtype(self) -> str:

@@ -18,8 +18,13 @@ multiples, since its kernels mask the ragged ends themselves (so the JAX
 wrappers' pad segment ids have no counterpart either).
 
 Segment ids ``(b, sq)``/``(b, sk)`` go down every rung to its kernels'
-segment instances.  An additive bias and dropout raise
-``NotImplementedError`` (ROADMAP.md queue B items 2b-2d).
+segment instances, and dropout (``dropout_rate`` with a uint32
+``dropout_seed``) to their dropout instances.  Every rung and
+``mha_reference`` draw the same mask for a seed: :func:`keep_mask` (a
+copy of the JAX ``_keep_mask``, with ``mix32`` and ``keep_threshold``)
+over the global flattened batch*head index and the absolute query and
+key positions.  An additive bias raises ``NotImplementedError``
+(ROADMAP.md queue B items 2c-2d).
 """
 
 from __future__ import annotations
@@ -36,7 +41,12 @@ from apex_tpu_torch.ops.attention_flash import (
 )
 from apex_tpu_torch.ops.attention_mid import fmha_mid, mid_seq_threshold
 from apex_tpu_torch.ops.attention_short import (
+    dropout_spec,
     fmha_short,
+    keep_mask,
+    keep_rows,
+    keep_threshold,
+    mix32,
     pad_head_dim,
     reject_unported,
     segment_ids,
@@ -44,7 +54,8 @@ from apex_tpu_torch.ops.attention_short import (
     visible,
 )
 
-__all__ = ["flash_attention", "mha_reference"]
+__all__ = ["flash_attention", "mha_reference", "keep_mask", "keep_threshold",
+           "mix32"]
 
 _NEG_INF = -1e30
 
@@ -70,11 +81,12 @@ def mha_reference(
     added to the scaled scores, causal and segment-id masks (masked
     scores -1e30, masked probabilities 0, so a row that sees no key gives
     0), and the probabilities cast to ``v``'s dtype before the second
-    product.  Dropout raises ``NotImplementedError`` (ROADMAP.md queue B
-    item 2b)."""
+    product.  With ``dropout_rate`` and a uint32 ``dropout_seed`` the
+    probabilities are dropped by :func:`keep_mask` and the kept ones
+    divided by ``1 - rate``, as in JAX."""
     if (q_segment_ids is None) != (kv_segment_ids is None):
         raise ValueError("segment ids must be given for both q and kv")
-    reject_unported("mha_reference", None, dropout_rate, dropout_seed)
+    drop = dropout_spec("mha_reference", dropout_rate, dropout_seed)
     sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
     scale = (1.0 / d ** 0.5) if sm_scale is None else sm_scale
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
@@ -87,20 +99,28 @@ def mha_reference(
         p = torch.softmax(s, dim=-1).masked_fill(~mask, 0.0)
     else:
         p = torch.softmax(s, dim=-1)
+    if drop is not None:
+        keep = keep_rows(drop, q.shape[:2], sq, sk, q.device)
+        # a divisor tensor, not a Python float: CUDA divides by a scalar
+        # as a multiply by its reciprocal
+        p = torch.where(keep, p / torch.full((), 1.0 - drop[0],
+                                             device=p.device), 0.0)
     return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
 class _Flash(torch.autograd.Function):
     """``out = attention(q, k, v)`` over ``(b*h, s, d)`` through the flash
     kernels; saves ``(q, k, v, out, lse)`` as the JAX ``_flash_fwd``
-    does, and the segment ids with their ``heads``.  The backward takes
-    ``delta = rowsum(dout * out)`` once and runs the dK/dV and the dQ
-    kernel on it."""
+    does, and the segment ids with their ``heads`` and the dropout rate
+    and seed.  The backward takes ``delta = rowsum(dout * out)`` once and
+    runs the dK/dV and the dQ kernel on it, each replaying the mask."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, q_ids, kv_ids, heads):
+    def forward(ctx, q, k, v, causal, sm_scale, q_ids, kv_ids, heads, rate,
+                seed):
         kw = dict(causal=causal, sm_scale=sm_scale, q_segment_ids=q_ids,
-                  kv_segment_ids=kv_ids, heads=heads)
+                  kv_segment_ids=kv_ids, heads=heads, dropout_rate=rate,
+                  dropout_seed=seed)
         out, lse = flash_fwd(q, k, v, **kw)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = kw
@@ -113,20 +133,22 @@ class _Flash(torch.autograd.Function):
         delta = flash_delta(out, dout)
         dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, **ctx.kw)
         dq = flash_bwd_dq(q, k, v, dout, lse, delta, **ctx.kw)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def _flash_attention_kernels(q, k, v, causal, sm_scale, q_ids=None,
-                             kv_ids=None):
+                             kv_ids=None, dropout_rate=0.0,
+                             dropout_seed=None):
     """The flash rung over ``(b, h, s, d)``: pad a head dim the kernels do
-    not take (as the short rung does), flatten to ``(b*h, s, d)``, run
-    ``_Flash`` (segment ids stay ``(b, s)``), restore the heads."""
+    not take (as the short rung does), flatten to ``(b*h, s, d)`` (row
+    ``b_i * h + h_i``, the dropout hash's ``bh``), run ``_Flash``
+    (segment ids stay ``(b, s)``), restore the heads."""
     b, h, sq, d = q.shape
     q, k, v, scale = pad_head_dim(q, k, v, sm_scale)
     dp = q.shape[-1]
     flat = lambda x: x.reshape(b * h, x.shape[2], dp)
     out = _Flash.apply(flat(q), flat(k), flat(v), causal, scale, q_ids,
-                       kv_ids, h)
+                       kv_ids, h, dropout_rate, dropout_seed)
     return out.reshape(b, h, sq, dp)[..., :d]
 
 
@@ -166,12 +188,15 @@ def flash_attention(
     ``q_segment_ids``/``kv_segment_ids`` ``(b, sq)``/``(b, sk)`` integers
     let query i see key j only where their ids are equal (BERT's padding
     and ``contrib.fmha``'s packed varlen batches); every rung takes them.
-    A bias or dropout raises ``NotImplementedError`` naming its ROADMAP.md
-    item; ``bias_requires_grad`` without a bias changes nothing (the T5
-    and contrib callers pass ``False``)."""
+    ``dropout_rate`` > 0 with a uint32 ``dropout_seed`` (int, numpy or 0-d
+    tensor; ``ValueError`` without one) drops probabilities on every rung
+    with the same mask.  A bias raises ``NotImplementedError`` naming its
+    ROADMAP.md item; ``bias_requires_grad`` without a bias changes nothing
+    (the T5 and contrib callers pass ``False``)."""
     if (q_segment_ids is None) != (kv_segment_ids is None):
         raise ValueError("segment ids must be given for both q and kv")
-    reject_unported("flash_attention", bias, dropout_rate, dropout_seed)
+    reject_unported("flash_attention", bias)
+    dropout_spec("flash_attention", dropout_rate, dropout_seed)
     rung = implementation
     if rung is None:
         sq, sk = q.shape[2], k.shape[2]
@@ -182,7 +207,8 @@ def flash_attention(
             rung = "mid"
         else:
             rung = "pallas"
-    ids = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids)
+    ids = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+               dropout_rate=dropout_rate, dropout_seed=dropout_seed)
     if rung == "short":
         return fmha_short(q, k, v, causal=causal, sm_scale=sm_scale, **ids)
     if rung == "mid":
@@ -191,6 +217,7 @@ def flash_attention(
         segment_ids("flash_attention", q_segment_ids, kv_segment_ids,
                     q.shape[0], q.shape[2], k.shape[2])
         return _flash_attention_kernels(q, k, v, causal, sm_scale,
-                                        q_segment_ids, kv_segment_ids)
+                                        q_segment_ids, kv_segment_ids,
+                                        dropout_rate, dropout_seed)
     raise ValueError(f"implementation={implementation!r}: expected None or "
                      f"one of {_RUNGS}")

@@ -31,9 +31,19 @@ segment instances, counted as ``flash_fwd_seg``, ``flash_bwd_dkv_seg``
 and ``flash_bwd_dq_seg``.  A query row that sees no key gives out 0 and
 zero gradients, as the Pallas bodies do.
 
+Dropout (the Pallas bodies' ``has_dropout``): every entry takes
+``dropout_rate`` and a uint32 ``dropout_seed``; the forward drops and
+scales the probabilities multiplied into V by the short rung's
+``keep_mask`` over the global flattened ``bh`` and the absolute query and
+key positions (``l`` and the lse undropped), and both backward kernels
+replay the mask, on ``p`` for dV and on ``dp`` before ``dz``.  The C
+entries take the seed, the keep threshold and the fp32 ``1 / (1 - rate)``
+by value; the dropout instances count as ``flash_fwd_drop``,
+``flash_bwd_dkv_drop`` and ``flash_bwd_dq_drop`` (``_seg_drop`` beside
+segment ids).
+
 A CUDA tensor runs the kernel or raises; a CPU tensor runs the plain
-version.  Not ported yet: the additive bias (ROADMAP.md queue B item 2c)
-and dropout (item 2b).
+version.  Not ported yet: the additive bias (ROADMAP.md queue B item 2c).
 """
 
 from __future__ import annotations
@@ -45,12 +55,18 @@ from typing import Optional, Tuple
 import torch
 
 from apex_tpu_torch.ops.attention_short import (
+    DROP_ARGTYPES,
     DTYPES,
     FWD_ARGTYPES,
     _NEG_INF,
+    apply_keep,
     check_kernel_inputs,
+    counter,
     data_ptr,
+    drop_operands,
+    dropout_spec,
     id_operands,
+    keep_rows,
     segment_ids,
     softmax_scale,
     visible,
@@ -70,13 +86,14 @@ SEG = {KERNEL: "flash_fwd_seg", KERNEL_DKV: "flash_bwd_dkv_seg",
 
 #: ctypes argument types of the C entries, as ``csrc/attention_flash.cu``
 #: declares them: pointers (q, k, v, q_ids, kv_ids, then each entry's
-#: own), the ints bh, heads, sq, sk, d, dtype, causal, then scale, stream
+#: own), the ints bh, heads, sq, sk, d, dtype, causal, then scale, the
+#: dropout seed, keep threshold and scale, and the stream
 ARGTYPES = {
     KERNEL: FWD_ARGTYPES,
     KERNEL_DKV: [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_void_p],
+        ctypes.c_float] + DROP_ARGTYPES + [ctypes.c_void_p],
     KERNEL_DQ: [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_void_p],
+        ctypes.c_float] + DROP_ARGTYPES + [ctypes.c_void_p],
 }
 
 
@@ -88,11 +105,12 @@ def _operand(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _flash_fwd_plain(q, k, v, causal, scale, q_ids=None, kv_ids=None,
-                     heads=None):
+                     heads=None, drop=None):
     """The plain forward over ``(bh, s, d)``, the kernel's arithmetic:
     ``q * scale`` in fp32 before the product, fp32 scores, -1e30 fill,
     masked probabilities zero, ``l`` (from the fp32 probabilities)
-    clamped at 1e-30, ``p`` rounded to bf16 for the bf16 ``p . v``."""
+    clamped at 1e-30, ``p`` (dropped and scaled with ``drop = (rate,
+    seed)``) rounded to bf16 for the bf16 ``p . v``."""
     qs = _operand(q.float() * scale, q.dtype)
     s = torch.matmul(qs, k.float().transpose(-1, -2))
     mask = visible(q.shape[-2], k.shape[-2], causal, q_ids, kv_ids, heads,
@@ -104,6 +122,9 @@ def _flash_fwd_plain(q, k, v, causal, scale, q_ids=None, kv_ids=None,
     if mask is not None:
         p = p.masked_fill(~mask, 0.0)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    if drop is not None:
+        p = apply_keep(p, keep_rows(drop, q.shape[:1], q.shape[1],
+                                    k.shape[1], q.device), drop[0])
     acc = torch.matmul(_operand(p, q.dtype), v.float())
     return (acc / l).to(q.dtype), (m + torch.log(l))[..., 0]
 
@@ -116,11 +137,13 @@ def flash_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
 
 
 def _flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale, q_ids=None,
-                     kv_ids=None, heads=None):
+                     kv_ids=None, heads=None, drop=None):
     """``(dq, dk, dv)`` with the kernels' arithmetic: ``s = (q . k) *
     scale``, ``p = exp(s - lse)`` with masked entries zero, ``dz = p *
     (dp - delta)``, and for bf16 inputs ``p`` and ``dz * scale`` rounded
-    to bf16 as the operands of their products."""
+    to bf16 as the operands of their products.  With ``drop`` the mask is
+    replayed: dV takes the dropped ``p``, ``dp`` is dropped before
+    ``dz``."""
     qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     p = torch.exp(s - lse[..., None])
@@ -129,8 +152,12 @@ def _flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale, q_ids=None,
     if mask is not None:
         p = p.masked_fill(~mask, 0.0)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
+    p_v = p
+    if drop is not None:
+        keep = keep_rows(drop, q.shape[:1], q.shape[1], k.shape[1], q.device)
+        p_v, dp = apply_keep(p, keep, drop[0]), apply_keep(dp, keep, drop[0])
     dz = p * (dp - delta[..., None])
-    p_op, z_op = _operand(p, q.dtype), _operand(dz * scale, q.dtype)
+    p_op, z_op = _operand(p_v, q.dtype), _operand(dz * scale, q.dtype)
     dv = torch.matmul(p_op.transpose(-1, -2), dof)
     dk = torch.matmul(z_op.transpose(-1, -2), qf)
     dq = torch.matmul(z_op, kf)
@@ -179,21 +206,24 @@ def _check_cuda(kernel: str, q, k, v, *rest) -> None:
             raise ValueError(f"{kernel}: operand not 16-byte aligned")
 
 
-def _launch(kernel, q, k, v, ids, heads, rest, outs, causal, scale):
+def _launch(kernel, q, k, v, ids, heads, rest, outs, causal, scale,
+            drop=None):
     """Launch the C entry ``kernel``: pointers q, k, v, the ids, then
-    ``rest`` (inputs) and ``outs`` (outputs), then the sizes.  Counts the
-    launch under the kernel's name, or its segment counter with ids."""
+    ``rest`` (inputs) and ``outs`` (outputs), then the sizes and the
+    dropout arguments.  Counts the launch under the kernel's name, or its
+    segment counter with ids, with ``_drop`` for ``drop = (rate,
+    seed)``."""
     q_ids, kv_ids = id_operands(*ids)
     if q_ids is not None:
         check_operands(kernel, q, q_ids, kv_ids)
     bh, sq, d = q.shape
     lib, fn = _entry(kernel)
-    name = kernel if q_ids is None else SEG[kernel]
+    name = counter((kernel, SEG[kernel]), q_ids is not None, drop)
     count_launch(name)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), data_ptr(q_ids),
              data_ptr(kv_ids), *(t.data_ptr() for t in rest + outs), bh,
              heads or 1, sq, k.shape[1], d, DTYPES[q.dtype], int(causal),
-             float(scale), stream_of(q))
+             float(scale), *drop_operands(drop), stream_of(q))
     check(lib, name, err)
 
 
@@ -201,22 +231,25 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = False, sm_scale: Optional[float] = None,
               q_segment_ids: Optional[torch.Tensor] = None,
               kv_segment_ids: Optional[torch.Tensor] = None,
-              heads: Optional[int] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+              heads: Optional[int] = None, dropout_rate: float = 0.0,
+              dropout_seed=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, lse)`` over ``q (bh, sq, d)``, ``k, v (bh, sk, d)``:
     ``out`` in q's dtype, ``lse (bh, sq)`` fp32.  Segment ids are ``(bh
-    / heads, sq)`` and ``(bh / heads, sk)``."""
+    / heads, sq)`` and ``(bh / heads, sk)``; dropout hashes the row of
+    ``bh``."""
     ids = _check_flat(KERNEL, q, k, v, q_segment_ids, kv_segment_ids, heads)
+    drop = dropout_spec(KERNEL, dropout_rate, dropout_seed)
     scale = softmax_scale(q, sm_scale)
     if q.device.type == "cpu":
-        return _flash_fwd_plain(q, k, v, causal, scale, *ids, heads)
+        return _flash_fwd_plain(q, k, v, causal, scale, *ids, heads, drop)
     if not q.is_cuda:
         raise ValueError(f"{KERNEL}: unsupported device {q.device}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _check_cuda(KERNEL, q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    _launch(KERNEL, q, k, v, ids, heads, (), (out, lse), causal, scale)
+    _launch(KERNEL, q, k, v, ids, heads, (), (out, lse), causal, scale,
+            drop)
     return out, lse
 
 
@@ -238,24 +271,25 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = False, sm_scale: Optional[float] = None,
                   q_segment_ids: Optional[torch.Tensor] = None,
                   kv_segment_ids: Optional[torch.Tensor] = None,
-                  heads: Optional[int] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  heads: Optional[int] = None, dropout_rate: float = 0.0,
+                  dropout_seed=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dk, dv)`` of :func:`flash_fwd` from its ``lse``, the cotangent
     ``dout`` and ``delta = flash_delta(out, dout)``, with the forward's
-    mask."""
+    mask and dropout."""
     ids = _check_flat(KERNEL_DKV, q, k, v, q_segment_ids, kv_segment_ids,
                       heads)
+    drop = dropout_spec(KERNEL_DKV, dropout_rate, dropout_seed)
     scale = softmax_scale(q, sm_scale)
     if q.device.type == "cpu":
         return _flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale,
-                                *ids, heads)[1:]
+                                *ids, heads, drop)[1:]
     if not q.is_cuda:
         raise ValueError(f"{KERNEL_DKV}: unsupported device {q.device}")
     q, k, v, dout, lse, delta = _bwd_operands(KERNEL_DKV, q, k, v, dout,
                                               lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch(KERNEL_DKV, q, k, v, ids, heads, (dout, lse, delta), (dk, dv),
-            causal, scale)
+            causal, scale, drop)
     return dk, dv
 
 
@@ -264,19 +298,21 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  causal: bool = False, sm_scale: Optional[float] = None,
                  q_segment_ids: Optional[torch.Tensor] = None,
                  kv_segment_ids: Optional[torch.Tensor] = None,
-                 heads: Optional[int] = None) -> torch.Tensor:
+                 heads: Optional[int] = None, dropout_rate: float = 0.0,
+                 dropout_seed=None) -> torch.Tensor:
     """``dq`` of :func:`flash_fwd`, as :func:`flash_bwd_dkv` takes it."""
     ids = _check_flat(KERNEL_DQ, q, k, v, q_segment_ids, kv_segment_ids,
                       heads)
+    drop = dropout_spec(KERNEL_DQ, dropout_rate, dropout_seed)
     scale = softmax_scale(q, sm_scale)
     if q.device.type == "cpu":
         return _flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale,
-                                *ids, heads)[0]
+                                *ids, heads, drop)[0]
     if not q.is_cuda:
         raise ValueError(f"{KERNEL_DQ}: unsupported device {q.device}")
     q, k, v, dout, lse, delta = _bwd_operands(KERNEL_DQ, q, k, v, dout, lse,
                                               delta)
     dq = torch.empty_like(q)
     _launch(KERNEL_DQ, q, k, v, ids, heads, (dout, lse, delta), (dq,),
-            causal, scale)
+            causal, scale, drop)
     return dq

@@ -22,8 +22,12 @@ JAX package.
 Segment ids ``(b, sq)``/``(b, sk)`` go to the same C entries, which then
 launch the kernels' segment instances (counted as ``mid_fwd_seg`` and
 ``mid_bwd_seg``); they are what ``contrib.fmha`` sends at 512 < max_s <=
-2048.  Not ported yet: the additive bias (ROADMAP.md queue B item 2c) and
-dropout (item 2b).
+2048.  Dropout (``dropout_rate`` with a uint32 ``dropout_seed``) runs the
+kernels' dropout instances with the short rung's counter hash, the same
+global (bh, query, key) indexing, so every rung draws the same mask for
+a seed (counted as ``mid_fwd_drop``/``mid_bwd_drop``, with ``_seg_drop``
+beside segment ids); the flagship trains through them at s = 1024.  Not
+ported yet: the additive bias (ROADMAP.md queue B item 2c).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from apex_tpu_torch.ops.attention_short import (
     _short_bwd_plain,
     _short_fwd_plain,
     check_shapes,
+    dropout_spec,
     launch_bwd,
     launch_fwd,
     pad_head_dim,
@@ -77,32 +82,35 @@ def mid_seq_threshold() -> int:
     return int(v) if v is not None and v != "" else FMHA_MID_MAX_SEQ
 
 
-def _mid_fwd_plain(q, k, v, causal, scale, q_ids=None, kv_ids=None):
+def _mid_fwd_plain(q, k, v, causal, scale, q_ids=None, kv_ids=None,
+                   drop=None):
     """The plain version.  The JAX mid kernel computes the short kernel's
     function (scaled q, -1e30 fill, masked p zero, ``l`` clamped at
-    1e-30) over streamed blocks, so this is the short kernel's plain
-    version."""
-    return _short_fwd_plain(q, k, v, causal, scale, q_ids, kv_ids)
+    1e-30, the same dropout) over streamed blocks, so this is the short
+    kernel's plain version."""
+    return _short_fwd_plain(q, k, v, causal, scale, q_ids, kv_ids, drop)
 
 
 def _mid_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale,
-                   q_ids=None, kv_ids=None):
+                   q_ids=None, kv_ids=None, drop=None):
     """The plain backward, the short kernel's with the lse cotangent:
     ``dz = p * (dp - delta + dlse)``."""
     return _short_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale,
-                            q_ids, kv_ids)
+                            q_ids, kv_ids, drop)
 
 
 def _xla_with_lse(q, k, v, causal, sm_scale=None, q_segment_ids=None,
-                  kv_segment_ids=None):
-    """``mha_reference`` plus the per-row log-sum-exp, from the same
-    masked-score formula the kernels use (the JAX package's plain
-    reference for ``return_lse`` callers); differentiable by autograd."""
+                  kv_segment_ids=None, dropout_rate=0.0, dropout_seed=None):
+    """``mha_reference`` plus the per-row log-sum-exp (taken before
+    dropout), from the same masked-score formula the kernels use (the JAX
+    package's plain reference for ``return_lse`` callers);
+    differentiable by autograd."""
     from apex_tpu_torch.ops.attention import mha_reference
 
     out = mha_reference(q, k, v, causal=causal, sm_scale=sm_scale,
                         q_segment_ids=q_segment_ids,
-                        kv_segment_ids=kv_segment_ids)
+                        kv_segment_ids=kv_segment_ids,
+                        dropout_rate=dropout_rate, dropout_seed=dropout_seed)
     sq, sk = q.shape[2], k.shape[2]
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * softmax_scale(
         q, sm_scale)
@@ -135,20 +143,23 @@ def mid_fwd(
     sm_scale: Optional[float] = None,
     q_segment_ids: Optional[torch.Tensor] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, lse)`` of softmax attention over ``(b, h, s, d)``, any
     sequence length (the ladder sends it 512 < s <= 2048), with optional
-    segment ids ``(b, sq)``/``(b, sk)``.  A CUDA tensor runs the kernel, a
-    CPU tensor the plain version."""
+    segment ids ``(b, sq)``/``(b, sk)`` and dropout.  A CUDA tensor runs
+    the kernel, a CPU tensor the plain version."""
     check_shapes(KERNEL, q, k, v)
     ids = segment_ids(KERNEL, q_segment_ids, kv_segment_ids, q.shape[0],
                       q.shape[2], k.shape[2])
+    drop = dropout_spec(KERNEL, dropout_rate, dropout_seed)
     scale = softmax_scale(q, sm_scale)
     if q.is_cuda:
         return launch_fwd(_entry, (KERNEL, KERNEL_SEG), q, k, v, causal,
-                          scale, *ids)
+                          scale, *ids, drop)
     if q.device.type == "cpu":
-        return _mid_fwd_plain(q, k, v, causal, scale, *ids)
+        return _mid_fwd_plain(q, k, v, causal, scale, *ids, drop)
     raise ValueError(f"{KERNEL}: unsupported device {q.device}")
 
 
@@ -164,21 +175,24 @@ def mid_bwd(
     sm_scale: Optional[float] = None,
     q_segment_ids: Optional[torch.Tensor] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of :func:`mid_fwd` from its ``out``/``lse``, the
     output cotangent ``dout`` and the optional lse cotangent ``dlse``,
-    with the forward's mask.  A CUDA tensor runs the kernel, a CPU tensor
-    the plain version."""
+    with the forward's mask and dropout.  A CUDA tensor runs the kernel, a
+    CPU tensor the plain version."""
     check_shapes(KERNEL_BWD, q, k, v)
     ids = segment_ids(KERNEL_BWD, q_segment_ids, kv_segment_ids,
                       q.shape[0], q.shape[2], k.shape[2])
+    drop = dropout_spec(KERNEL_BWD, dropout_rate, dropout_seed)
     scale = softmax_scale(q, sm_scale)
     if q.is_cuda:
         return launch_bwd(_entry, (KERNEL_BWD, KERNEL_BWD_SEG), q, k, v, out,
-                          dout, lse, dlse, causal, scale, *ids)
+                          dout, lse, dlse, causal, scale, *ids, drop)
     if q.device.type == "cpu":
         return _mid_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale,
-                              *ids)
+                              *ids, drop)
     raise ValueError(f"{KERNEL_BWD}: unsupported device {q.device}")
 
 
@@ -187,10 +201,12 @@ class _MidAttention(torch.autograd.Function):
     takes a real lse cotangent."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, q_ids, kv_ids):
-        out, lse = mid_fwd(q, k, v, causal, sm_scale, q_ids, kv_ids)
+    def forward(ctx, q, k, v, causal, sm_scale, q_ids, kv_ids, rate, seed):
+        out, lse = mid_fwd(q, k, v, causal, sm_scale, q_ids, kv_ids, rate,
+                           seed)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.sm_scale, ctx.ids = causal, sm_scale, (q_ids, kv_ids)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.rest = (q_ids, kv_ids, rate, seed)
         return out, lse
 
     @staticmethod
@@ -199,8 +215,8 @@ class _MidAttention(torch.autograd.Function):
         if dout is None:
             dout = torch.zeros_like(out)
         dq, dk, dv = mid_bwd(q, k, v, out, dout, lse, dlse, ctx.causal,
-                             ctx.sm_scale, *ctx.ids)
-        return dq, dk, dv, None, None, None, None
+                             ctx.sm_scale, *ctx.rest)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def fmha_mid(
@@ -229,16 +245,19 @@ def fmha_mid(
 
     The JAX signature: the TPU tiles ``block_q``/``block_k``/``block_bh``
     are accepted and not used (the CUDA kernels choose their own);
-    ``implementation`` None, ``"pallas"`` or ``"mid"`` runs the kernel.  A
-    bias or dropout raises ``NotImplementedError`` (ROADMAP.md queue B
-    items 2b-2d); ``bias_requires_grad`` without a bias changes nothing.
+    ``implementation`` None, ``"pallas"`` or ``"mid"`` runs the kernel.
+    ``dropout_rate`` > 0 needs a uint32 ``dropout_seed`` (``ValueError``
+    without one).  A bias raises ``NotImplementedError`` (ROADMAP.md queue
+    B items 2c-2d); ``bias_requires_grad`` without a bias changes nothing.
     A head dim the kernels do not take is zero-padded as for
     :func:`~apex_tpu_torch.ops.attention_short.fmha_short`."""
     check_implementation(KERNEL, implementation, ("pallas", "mid"))
-    reject_unported(KERNEL, bias, dropout_rate, dropout_seed)
+    reject_unported(KERNEL, bias)
+    dropout_spec(KERNEL, dropout_rate, dropout_seed)
     d = q.shape[-1]
     q, k, v, scale = pad_head_dim(q, k, v, sm_scale)
     out, lse = _MidAttention.apply(q, k, v, causal, scale, q_segment_ids,
-                                   kv_segment_ids)
+                                   kv_segment_ids, dropout_rate,
+                                   dropout_seed)
     out = out[..., :d]
     return (out, lse) if return_lse else out

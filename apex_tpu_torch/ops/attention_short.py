@@ -22,8 +22,20 @@ the kernels' segment instances, counted as ``short_fwd_seg`` and
 every gradient, as the Pallas bodies do.  No padding to a block multiple
 is needed, so the JAX wrapper's pad ids have no counterpart.
 
-Not ported yet: the additive bias (ROADMAP.md queue B item 2c) and
-dropout (item 2b); both raise ``NotImplementedError``.
+Dropout (the Pallas bodies' ``has_dropout``): ``dropout_rate`` and a
+uint32 ``dropout_seed`` drop the probabilities multiplied into V where
+:func:`keep_mask` (a copy of the JAX ``_keep_mask`` counter hash over the
+global flattened batch*head index and the absolute query and key
+positions) says so, and scale the kept ones by ``float32(1 / (1 -
+rate))``; the row sum ``l`` and the lse are taken before dropout.  The
+backward replays the mask on ``p`` for dV and on ``dp`` before ``dz = p *
+(dp - delta)``.  The C entries take the seed, the keep threshold and the
+scale by value and launch the kernels' dropout instances, counted as
+``short_fwd_drop``/``short_bwd_drop`` (``..._seg_drop`` with segment
+ids).
+
+Not ported yet: the additive bias (ROADMAP.md queue B item 2c, and 2d
+for its gradient); it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,11 +46,12 @@ import math
 import os
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from apex_tpu_torch.ops.common import (
-    check, check_implementation, check_operands, count_launch, load,
-    stream_of,
+    as_int32, check, check_implementation, check_operands, count_launch,
+    load, stream_of,
 )
 
 __all__ = ["fmha_short", "short_fwd", "short_bwd", "FMHA_SHORT_MAX_SEQ",
@@ -67,16 +80,20 @@ _NEG_INF = -1e30
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
 
+#: the dropout arguments every attention C entry takes after ``scale``:
+#: the uint32 seed and keep threshold (as ints with their bits) and the
+#: fp32 ``1 / (1 - rate)``, 0 without dropout
+DROP_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_float]
 #: ctypes argument types of the C entries, as ``csrc/attention_short.cu``
 #: declares them (the mid entries of ``csrc/attention_mid.cu`` take the
 #: same arguments): q, k, v, q_ids, kv_ids, out, lse | bh, heads, sq, sk,
-#: d, dtype, causal | scale, stream
+#: d, dtype, causal | scale | seed, keep_threshold, inv_keep | stream
 FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
-    ctypes.c_float, ctypes.c_void_p]
+    ctypes.c_float] + DROP_ARGTYPES + [ctypes.c_void_p]
 #: q, k, v, q_ids, kv_ids, out, dout, lse, dlse, delta, dq, dk, dv | bh,
-#: heads, sq, sk, d, dtype, causal | scale, stream
+#: heads, sq, sk, d, dtype, causal | scale | the dropout three | stream
 BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [
-    ctypes.c_float, ctypes.c_void_p]
+    ctypes.c_float] + DROP_ARGTYPES + [ctypes.c_void_p]
 ARGTYPES = {KERNEL: FWD_ARGTYPES, KERNEL_BWD: BWD_ARGTYPES}
 
 
@@ -138,28 +155,130 @@ def data_ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def reject_unported(kernel: str, bias, dropout_rate: float,
-                    dropout_seed) -> None:
-    """The JAX attention options the port does not run yet: a bias and
-    dropout (whatever ``dropout_seed`` says) raise ``NotImplementedError``
-    naming their ROADMAP.md items."""
+def reject_unported(kernel: str, bias) -> None:
+    """The JAX attention option the port does not run yet: a bias raises
+    ``NotImplementedError`` naming its ROADMAP.md items."""
     if bias is not None:
         raise NotImplementedError(
             f"{kernel}: an additive attention bias is not ported yet "
             "(ROADMAP.md queue B item 2c, and 2d for its gradient; they come "
             "with queue A item 3, contrib attention)")
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            f"{kernel}: attention dropout (seed {dropout_seed!r}) is not "
-            "ported yet (ROADMAP.md queue B item 2b; it comes with queue A "
-            "item 2, the JAX PRNG)")
 
 
-def _short_fwd_plain(q, k, v, causal, scale, q_ids=None, kv_ids=None):
+# ------------------------------------------------------------- dropout
+
+MASK32 = 0xFFFFFFFF
+#: elements of one int64 temporary of :func:`keep_rows` (chunked by
+#: batch*head rows so the plain mask at s = 4096 stays small)
+_KEEP_CHUNK = 1 << 24
+
+
+def mix32(x: torch.Tensor) -> torch.Tensor:
+    """The JAX ``_mix32`` 32-bit finalizer over int64 tensors holding
+    uint32 values: every product is cut back to 32 bits (its low bits
+    survive int64's wrap-around)."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & MASK32
+    x = x ^ (x >> 15)
+    x = (x * 0x846CA68B) & MASK32
+    return x ^ (x >> 16)
+
+
+def keep_mask(seed, bh, q_idx, k_idx, threshold: int) -> torch.Tensor:
+    """The JAX ``_keep_mask``: True where the probability of query
+    ``q_idx`` and key ``k_idx`` of flattened batch*head row ``bh`` is
+    kept.  ``bh``/``q_idx``/``k_idx`` broadcast (int tensors, absolute
+    indices); ``seed`` and ``threshold`` (:func:`keep_threshold`) are
+    uint32 values."""
+    bh = torch.as_tensor(bh, dtype=torch.int64)
+    h = mix32((int(seed) & MASK32) ^ ((bh * 0x9E3779B1) & MASK32))
+    q_idx = q_idx.to(torch.int64, copy=False)
+    k_idx = k_idx.to(torch.int64, copy=False)
+    r = mix32(((h + ((q_idx * 0x85EBCA6B) & MASK32)) & MASK32)
+              ^ ((k_idx * 0xC2B2AE3D) & MASK32))
+    return (r >> 8) < int(threshold)
+
+
+def keep_threshold(dropout_rate: float) -> int:
+    """The JAX ``_keep_threshold``: ``keep_prob * 2**24``, rounded."""
+    return int(round((1.0 - dropout_rate) * (1 << 24)))
+
+
+def inv_keep(dropout_rate: float) -> float:
+    """``1 / (1 - rate)`` as the kernels multiply by it: the Python double
+    rounded to fp32, as the Pallas bodies' weakly typed scalar is."""
+    return float(np.float32(1.0 / (1.0 - dropout_rate)))
+
+
+def dropout_spec(kernel: str, dropout_rate: float, dropout_seed):
+    """``None`` without dropout, else ``(rate, seed)`` with the seed as a
+    uint32 Python int (from an int, a numpy value or a 0-d tensor, whose
+    bits are taken as the JAX ``asarray(seed, uint32)`` does).  A rate
+    without a seed raises ``ValueError``, as in JAX."""
+    rate = float(dropout_rate)
+    if rate == 0.0:
+        return None
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"{kernel}: dropout_rate {rate} not in [0, 1)")
+    if dropout_seed is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seed")
+    if isinstance(dropout_seed, torch.Tensor):
+        if dropout_seed.numel() != 1:
+            raise ValueError(f"{kernel}: dropout_seed must be a scalar")
+        dropout_seed = dropout_seed.item()
+    return rate, int(np.asarray(dropout_seed).astype(np.int64)) & MASK32
+
+
+def drop_operands(drop):
+    """The C entries' dropout arguments: ``(seed, keep_threshold,
+    inv_keep)`` as int32-typed bits and fp32; ``(0, 0, 0.0)`` (no
+    dropout instance) for ``drop`` None."""
+    if drop is None:
+        return 0, 0, 0.0
+    rate, seed = drop
+    return as_int32(seed), as_int32(keep_threshold(rate)), inv_keep(rate)
+
+
+def counter(names, segs: bool, drop) -> str:
+    """A launch counter: the plain or segment name of ``names``, with
+    ``_drop`` for a dropout instance."""
+    return names[segs] + ("" if drop is None else "_drop")
+
+
+def keep_rows(drop, lead, sq: int, sk: int, device) -> torch.Tensor:
+    """The keep mask of every (batch*head) row of an operand whose
+    leading dims are ``lead`` (``(b, h)`` or ``(b*h,)``; rows numbered
+    row-major, as the kernels' global ``bh``), ``lead + (sq, sk)`` bool.
+    Built a chunk of rows at a time, so the int64 hash temporaries stay
+    at :data:`_KEEP_CHUNK` elements."""
+    rate, seed = drop
+    nbh = math.prod(lead)
+    thr = keep_threshold(rate)
+    q_idx = torch.arange(sq, device=device)[:, None]
+    k_idx = torch.arange(sk, device=device)[None, :]
+    step = max(1, _KEEP_CHUNK // max(1, sq * sk))
+    out = torch.empty((nbh, sq, sk), dtype=torch.bool, device=device)
+    for b0 in range(0, nbh, step):
+        bh = torch.arange(b0, min(nbh, b0 + step), device=device)
+        out[b0:b0 + step] = keep_mask(seed, bh[:, None, None], q_idx, k_idx,
+                                      thr)
+    return out.reshape(*lead, sq, sk)
+
+
+def apply_keep(x: torch.Tensor, keep: torch.Tensor, rate: float):
+    """``where(keep, x, 0) * float32(1 / (1 - rate))``, as the Pallas
+    bodies drop ``p`` and ``dp``."""
+    return torch.where(keep, x, 0.0) * inv_keep(rate)
+
+
+def _short_fwd_plain(q, k, v, causal, scale, q_ids=None, kv_ids=None,
+                     drop=None):
     """The plain PyTorch version, mirroring the TPU kernel's arithmetic:
     fp32 scores of the scaled query, finite -1e30 fill, exact softmax
     with masked probabilities zeroed, ``l`` clamped at 1e-30 (so a row
-    that sees no key gives 0 and an lse of about -1e30)."""
+    that sees no key gives 0 and an lse of about -1e30).  With ``drop =
+    (rate, seed)`` the probabilities multiplied into V are dropped and
+    scaled; ``l`` and the lse are not."""
     qf = q.float() * scale
     s = torch.matmul(qf, k.float().transpose(-1, -2))
     mask = visible(q.shape[-2], k.shape[-2], causal, q_ids, kv_ids,
@@ -171,20 +290,25 @@ def _short_fwd_plain(q, k, v, causal, scale, q_ids=None, kv_ids=None):
     if mask is not None:
         p = p.masked_fill(~mask, 0.0)
     l = p.sum(dim=-1, keepdim=True)
+    if drop is not None:
+        p = apply_keep(p, keep_rows(drop, q.shape[:-2], q.shape[-2],
+                                    k.shape[-2], q.device), drop[0])
     acc = torch.matmul(p, v.float())
     l = l.clamp_min(1e-30)
     return (acc / l).to(q.dtype), (m + torch.log(l))[..., 0]
 
 
 def _short_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale,
-                     q_ids=None, kv_ids=None):
+                     q_ids=None, kv_ids=None, drop=None):
     """The plain PyTorch version of the fused backward, mirroring the TPU
     kernel's arithmetic: the scores are scaled AFTER the product (the
     forward scales q before it), ``p = exp(s - lse)`` with masked entries
     exactly zero, ``delta = rowsum(dout * out)`` in fp32, ``dz = p * (dp -
     delta + dlse)``.  For bf16 inputs the operands ``p`` and ``dz *
     scale`` are rounded to bf16 before their products, where the TPU's
-    default precision (and the kernel's tensor cores) round them."""
+    default precision (and the kernel's tensor cores) round them.  With
+    ``drop`` the forward's mask is replayed: dV takes the dropped and
+    scaled ``p``, and ``dp`` is dropped and scaled before ``dz``."""
     qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     p = torch.exp(s - lse[..., None])
@@ -193,6 +317,11 @@ def _short_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale,
     if mask is not None:
         p = p.masked_fill(~mask, 0.0)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
+    p_v = p
+    if drop is not None:
+        keep = keep_rows(drop, q.shape[:-2], q.shape[-2], k.shape[-2],
+                         q.device)
+        p_v, dp = apply_keep(p, keep, drop[0]), apply_keep(dp, keep, drop[0])
     resid = dp - (dof * out.float()).sum(-1, keepdim=True)
     if dlse is not None:
         resid = resid + dlse.float()[..., None]
@@ -201,7 +330,7 @@ def _short_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale,
     def operand(x):
         return x if q.dtype == torch.float32 else x.to(q.dtype).float()
 
-    p_op, z_op = operand(p), operand(dz * scale)
+    p_op, z_op = operand(p_v), operand(dz * scale)
     dv = torch.matmul(p_op.transpose(-1, -2), dof)
     dk = torch.matmul(z_op.transpose(-1, -2), qf)
     dq = torch.matmul(z_op, kf)
@@ -255,11 +384,13 @@ def check_shapes(kernel: str, q, k, v) -> None:
                          f"v {tuple(v.shape)} are not (b, h, s, d) alike")
 
 
-def launch_fwd(entry, names, q, k, v, causal, scale, q_ids, kv_ids):
+def launch_fwd(entry, names, q, k, v, causal, scale, q_ids, kv_ids,
+               drop=None):
     """Launch a short or mid forward C entry (``entry(symbol)`` gives the
     library and the function) over ``(b, h, s, d)``; ``names`` are the
-    plain and segment launch counters."""
-    kernel = names[q_ids is not None]
+    plain and segment launch counters (:func:`counter` adds ``_drop``
+    for ``drop = (rate, seed)``)."""
+    kernel = counter(names, q_ids is not None, drop)
     check_kernel_inputs(kernel, q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -273,15 +404,16 @@ def launch_fwd(entry, names, q, k, v, causal, scale, q_ids, kv_ids):
     count_launch(kernel)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), data_ptr(q_ids),
              data_ptr(kv_ids), out.data_ptr(), lse.data_ptr(), b * h, h, sq,
-             sk, d, DTYPES[q.dtype], int(causal), float(scale), stream_of(q))
+             sk, d, DTYPES[q.dtype], int(causal), float(scale),
+             *drop_operands(drop), stream_of(q))
     check(lib, kernel, err)
     return out, lse
 
 
 def launch_bwd(entry, names, q, k, v, out, dout, lse, dlse, causal, scale,
-               q_ids, kv_ids):
+               q_ids, kv_ids, drop=None):
     """Launch a short or mid backward C entry, as :func:`launch_fwd`."""
-    kernel = names[q_ids is not None]
+    kernel = counter(names, q_ids is not None, drop)
     check_kernel_inputs(kernel, q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -302,7 +434,8 @@ def launch_bwd(entry, names, q, k, v, out, dout, lse, dlse, causal, scale,
              data_ptr(kv_ids), out.data_ptr(), dout.data_ptr(),
              lse.data_ptr(), data_ptr(dlse), delta.data_ptr(),
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, h, sq, sk,
-             d, DTYPES[q.dtype], int(causal), float(scale), stream_of(q))
+             d, DTYPES[q.dtype], int(causal), float(scale),
+             *drop_operands(drop), stream_of(q))
     check(lib, kernel, err)
     return dq, dk, dv
 
@@ -327,21 +460,26 @@ def short_fwd(
     sm_scale: Optional[float] = None,
     q_segment_ids: Optional[torch.Tensor] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, lse)`` of softmax attention over ``(b, h, s, d)`` with
-    ``sq, sk <= FMHA_SHORT_MAX_SEQ``; causal masks ``k_idx > q_idx``, and
-    segment ids ``(b, sq)``/``(b, sk)`` mask unequal ids.  A CUDA tensor
-    runs the kernel, a CPU tensor the plain version."""
+    ``sq, sk <= FMHA_SHORT_MAX_SEQ``; causal masks ``k_idx > q_idx``,
+    segment ids ``(b, sq)``/``(b, sk)`` mask unequal ids, and
+    ``dropout_rate`` with a uint32 ``dropout_seed`` drops probabilities
+    by :func:`keep_mask`.  A CUDA tensor runs the kernel, a CPU tensor
+    the plain version."""
     check_shapes(KERNEL, q, k, v)
     _check_window(KERNEL, q, k)
     ids = segment_ids(KERNEL, q_segment_ids, kv_segment_ids, q.shape[0],
                       q.shape[2], k.shape[2])
+    drop = dropout_spec(KERNEL, dropout_rate, dropout_seed)
     scale = softmax_scale(q, sm_scale)
     if q.is_cuda:
         return launch_fwd(_entry, (KERNEL, KERNEL_SEG), q, k, v, causal,
-                          scale, *ids)
+                          scale, *ids, drop)
     if q.device.type == "cpu":
-        return _short_fwd_plain(q, k, v, causal, scale, *ids)
+        return _short_fwd_plain(q, k, v, causal, scale, *ids, drop)
     raise ValueError(f"{KERNEL}: unsupported device {q.device}")
 
 
@@ -357,43 +495,48 @@ def short_bwd(
     sm_scale: Optional[float] = None,
     q_segment_ids: Optional[torch.Tensor] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of :func:`short_fwd` given the forward's ``out``
     and ``lse`` and the cotangent ``dout`` (and optionally ``dlse``, the
-    lse's), with the forward's mask.  A CUDA tensor runs the kernel, a
-    CPU tensor the plain version."""
+    lse's), with the forward's mask and dropout.  A CUDA tensor runs the
+    kernel, a CPU tensor the plain version."""
     check_shapes(KERNEL_BWD, q, k, v)
     _check_window(KERNEL_BWD, q, k)
     ids = segment_ids(KERNEL_BWD, q_segment_ids, kv_segment_ids,
                       q.shape[0], q.shape[2], k.shape[2])
+    drop = dropout_spec(KERNEL_BWD, dropout_rate, dropout_seed)
     scale = softmax_scale(q, sm_scale)
     if q.is_cuda:
         return launch_bwd(_entry, (KERNEL_BWD, KERNEL_BWD_SEG), q, k, v, out,
-                          dout, lse, dlse, causal, scale, *ids)
+                          dout, lse, dlse, causal, scale, *ids, drop)
     if q.device.type == "cpu":
         return _short_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale,
-                                *ids)
+                                *ids, drop)
     raise ValueError(f"{KERNEL_BWD}: unsupported device {q.device}")
 
 
 class _ShortAttention(torch.autograd.Function):
     """``out = attention(q, k, v)`` with the fused backward; saves
     ``(q, k, v, out, lse)`` as the JAX ``_short_fwd`` does, and the
-    segment ids (no gradient)."""
+    segment ids and the dropout rate and seed (no gradient)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, q_ids, kv_ids):
-        out, lse = short_fwd(q, k, v, causal, sm_scale, q_ids, kv_ids)
+    def forward(ctx, q, k, v, causal, sm_scale, q_ids, kv_ids, rate, seed):
+        out, lse = short_fwd(q, k, v, causal, sm_scale, q_ids, kv_ids, rate,
+                             seed)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.sm_scale, ctx.ids = causal, sm_scale, (q_ids, kv_ids)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.rest = (q_ids, kv_ids, rate, seed)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = short_bwd(q, k, v, out, dout, lse, None, ctx.causal,
-                               ctx.sm_scale, *ctx.ids)
-        return dq, dk, dv, None, None, None, None
+                               ctx.sm_scale, *ctx.rest)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def fmha_short(
@@ -419,13 +562,16 @@ def fmha_short(
     grid step packs) is accepted and not used, the CUDA kernels choose
     their own grid; ``implementation`` None, ``"pallas"`` or ``"short"``
     runs the kernel.  A head dim under 128 other than 64 is zero-padded
-    to the next the kernels take (:func:`pad_head_dim`).  A bias or dropout raises ``NotImplementedError``
-    (ROADMAP.md queue B items 2b-2d); ``bias_requires_grad`` without a
+    to the next the kernels take (:func:`pad_head_dim`).
+    ``dropout_rate`` > 0 needs a uint32 ``dropout_seed`` (``ValueError``
+    without one, as in JAX).  A bias raises ``NotImplementedError``
+    (ROADMAP.md queue B items 2c-2d); ``bias_requires_grad`` without a
     bias changes nothing."""
     check_implementation(KERNEL, implementation, ("pallas", "short"))
-    reject_unported(KERNEL, bias, dropout_rate, dropout_seed)
+    reject_unported(KERNEL, bias)
+    dropout_spec(KERNEL, dropout_rate, dropout_seed)
     d = q.shape[-1]
     q, k, v, scale = pad_head_dim(q, k, v, sm_scale)
     out = _ShortAttention.apply(q, k, v, causal, scale, q_segment_ids,
-                                kv_segment_ids)
+                                kv_segment_ids, dropout_rate, dropout_seed)
     return out[..., :d]

@@ -38,7 +38,7 @@ import torch
 __all__ = [
     "KernelUnavailable", "build", "load", "check", "count_launch",
     "launch_counts", "reset_launch_counts", "stream_of", "check_operands",
-    "check_implementation", "KERNEL_SOURCES",
+    "check_implementation", "KERNEL_SOURCES", "as_int32",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -174,6 +174,14 @@ def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
     """PyTorch's current stream on ``t``'s device, as the C entries take
     it: kernels launch there and never synchronise."""
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def as_int32(word: int) -> int:
+    """A uint32 value as the int32 with its bits: how a C entry's
+    ``unsigned`` argument (typed ``c_int``) and a Triton kernel's key words
+    take it."""
+    word = int(word) & 0xFFFFFFFF
+    return word - (1 << 32) if word >= (1 << 31) else word
 
 
 def check_operands(kernel: str, *tensors: torch.Tensor) -> None:

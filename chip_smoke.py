@@ -128,6 +128,25 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
              instances, all of which must launch), held in fp32 against
              each sequence's plain attention alone.
 
+Dropout (after phase 9; phase 2 also holds the hidden-dropout kernel at
+8 x 1024 x 1024, bit for bit, and the dropout instances of all seven
+attention kernels and the short pair's segment instances at their rows'
+shapes, then reads each rung's mask exactly with q = 0 and V = I):
+   train-dropout-parity — phase 6 at s=384 and 640 with hidden and
+             attention dropout 0.1 and one key on both devices: loss,
+             grads and updated parameters must agree, the dropout
+             instances and the dropout kernel must launch.
+   train-dropout — the 12-layer flagship at O5, 8 x 1024, dropout
+             0.1/0.1, ``GPTModel.loss(rng=fold_in(base, step))`` ->
+             backward -> FusedAdam: 2 warm-up and 10 timed steps, then
+             one profiled; the loss must be finite and end below its
+             start, the step-1 loss within 0.02 of fp32's.
+   train-long-dropout — the same for the Llama mode at 2 x 4096, 3
+             timed steps: the flash dropout instances must launch.
+   seg-dropout — ``flash_attention`` with segment ids and dropout at
+             BERT-large's shape, forward and backward: the short rung's
+             segment dropout instances must launch.
+
 The last two lines are a JSON object with one record per kernel, and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
 """
@@ -452,6 +471,7 @@ def phase_kernels(dev) -> dict:
     records.update(decode_rows_kernels(randn, dev))
     records.update(softmax_kernels(randn))
     records.update(segment_kernels(randn))
+    records.update(dropout_kernels(randn))
     return records
 
 
@@ -1253,6 +1273,277 @@ def seg_records(rung, b, s, q, k, v, dout, out, lse, qi, ki, names, errs):
         f"boolean mask ({fb_ms:.4f} ms of device time), which includes a "
         "forward")
     return {name: [rec] for name, rec in recs.items()}
+
+
+# ------------------------------------------------------------- dropout
+#: the attention dropout of phase 2's checks: the flagship's rate and a
+#: seed with its top bit set
+DROP_RATE = 0.1
+DROP_SEED = 0x9E3779B9
+#: the dropout instances' shapes, each its row's without dropout: (rung,
+#: b, h, s, d, causal, segment ids, the kernels timed at this shape)
+DROP_SHAPES = (
+    ("short", 1, 8, 512, 128, True, None, ("short_fwd_drop",)),
+    ("short", 8, 8, 512, 128, True, None, ("short_bwd_drop",)),
+    ("mid", 8, 8, 1024, 128, True, None, ("mid_fwd_drop", "mid_bwd_drop")),
+    ("flash", 2, 8, LONG_SEQ, 128, True, None,
+     ("flash_fwd_drop", "flash_bwd_dkv_drop", "flash_bwd_dq_drop")),
+    ("short", 16, SEG_HEADS, 512, SEG_D, False, "bert",
+     ("short_fwd_seg_drop", "short_bwd_seg_drop")),
+)
+
+
+def dropout_kernels(randn) -> dict:
+    """The hidden-dropout kernel (Triton) at the flagship's activation (8
+    x 1024 x 1024), held bit for bit against its plain version, fp32 and
+    bf16; then the dropout instances of the seven attention kernels (and
+    the short rung's beside segment ids) at :data:`DROP_SHAPES`, fp32 and
+    bf16, each against its plain version with the same seed (the backward
+    kernels get the plain forward's ``out`` and ``lse``), timed at bf16
+    beside the instance without dropout and SDPA with ``dropout_p=0.1``
+    (the same work, another mask); then each rung's mask read exactly:
+    with q = 0, sk = d and V = I every probability is equal, so out[i, j]
+    is non-zero exactly where key j is kept, bit for bit the plain
+    hash's."""
+    from apex_tpu_torch.ops import attention_short as short
+    from apex_tpu_torch.ops import dropout as dr
+    from apex_tpu_torch.random import PRNGKey, fold_in
+    import torch.nn.functional as F
+
+    records = {}
+    key = fold_in(PRNGKey(7), 1)
+    log("[kernels] dropout (Triton): the flagship's hidden activation, "
+        f"8 x 1024 x 1024, rate {DROP_RATE}")
+    for dtype in (torch.float32, torch.bfloat16):
+        x = randn(8, 1024, 1024, dtype=dtype)
+        got = dr.dropout_fwd(x, key, DROP_RATE)
+        want = dr._dropout_plain(x, key, DROP_RATE)
+        if not torch.equal(got, want):
+            fail(f"dropout {dtype}: {int((got != want).sum())} elements "
+                 "differ from the plain version")
+        kept = (got != 0).float().mean().item()
+        log(f"  dropout {str(dtype)[6:]}: bit-identical to the plain "
+            f"version; {kept:.4f} of the elements kept")
+        if dtype == torch.bfloat16:
+            # bound: x read once, y written once; the hash's integer
+            # operations have no rate in the table, the division and the
+            # compare are fp32
+            records["dropout"] = [measure(
+                "dropout", "8 x 1024 x 1024 bf16", 0.0,
+                lambda: dr.dropout_fwd(x, key, DROP_RATE),
+                lambda: dr._dropout_plain(x, key, DROP_RATE),
+                ("F.dropout", lambda: F.dropout(x, DROP_RATE, training=True)),
+                nbytes=2 * x.numel() * x.element_size(),
+                ops=2.0 * x.numel(), dtype=torch.float32, plain_iters=10)]
+    drop = (DROP_RATE, DROP_SEED)
+    log(f"[kernels] attention dropout instances (CUDA), rate {DROP_RATE}, "
+        f"seed {DROP_SEED:#x}")
+    for rung, b, heads, s, d, causal, kind, timed_names in DROP_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, dout = (randn(b, heads, s, d, dtype=dtype)
+                             for _ in range(4))
+            ids = (segment_ids(kind, b, s, q.device, seed=s + b) if kind
+                   else (None, None))
+            run = drop_run(rung, q, k, v, dout, causal, ids, drop)
+            errs = {}
+            for name, label, got, want in run["checks"]:
+                errs[name] = max(errs.get(name, 0.0),
+                                 check(name, got, want,
+                                       f"{str(dtype)[6:]} b={b} h={heads} "
+                                       f"s={s} d={d} {label}"))
+            if dtype == torch.bfloat16:
+                records.update(drop_records(rung, b, heads, s, d, causal,
+                                            kind, q, k, v, dout, ids, run,
+                                            errs, timed_names))
+    drop_masks(randn)
+    return records
+
+
+def drop_run(rung, q, k, v, dout, causal, ids, drop):
+    """One rung's dropout instances on ``(b, h, s, d)`` inputs against
+    the plain versions: ``{"checks": [(counter, output, kernel's, plain's)],
+    "calls": {counter: (with dropout, without)}, "plain": {counter: plain
+    version}}`` (the backward calls take the plain forward's ``out`` and
+    ``lse``)."""
+    from apex_tpu_torch.ops import attention_flash as fl
+    from apex_tpu_torch.ops import attention_mid as mid
+    from apex_tpu_torch.ops import attention_short as short
+
+    b, heads, s, d = q.shape
+    scale = d ** -0.5
+    qi, ki = ids
+    kw = dict(dropout_rate=drop[0], dropout_seed=drop[1])
+    tag = "_seg_drop" if qi is not None else "_drop"
+    run = {}
+    if rung == "flash":
+        flat = [t.reshape(b * heads, s, d) for t in (q, k, v, dout)]
+        fids = (dict(q_segment_ids=qi, kv_segment_ids=ki, heads=heads)
+                if qi is not None else {})
+        out, lse = fl._flash_fwd_plain(*flat[:3], causal, scale, qi, ki,
+                                       heads if qi is not None else None,
+                                       drop)
+        got, got_lse = fl.flash_fwd(*flat[:3], causal, **fids, **kw)
+        delta = fl.flash_delta(out, flat[3])
+        wq, wk, wv = fl._flash_bwd_plain(
+            *flat, lse, delta, causal, scale, qi, ki,
+            heads if qi is not None else None, drop)
+        gk, gv = fl.flash_bwd_dkv(*flat, lse, delta, causal, **fids, **kw)
+        gq = fl.flash_bwd_dq(*flat, lse, delta, causal, **fids, **kw)
+        names = ("flash_fwd" + tag, "flash_bwd_dkv" + tag,
+                 "flash_bwd_dq" + tag)
+        run["checks"] = [(names[0], "out", got, out),
+                         (names[0], "lse", got_lse, lse),
+                         (names[2], "dq", gq, wq), (names[1], "dk", gk, wk),
+                         (names[1], "dv", gv, wv)]
+        run["calls"] = {
+            names[0]: (lambda: fl.flash_fwd(*flat[:3], causal, **fids, **kw),
+                       lambda: fl.flash_fwd(*flat[:3], causal, **fids)),
+            names[1]: (lambda: fl.flash_bwd_dkv(*flat, lse, delta, causal,
+                                                **fids, **kw),
+                       lambda: fl.flash_bwd_dkv(*flat, lse, delta, causal,
+                                                **fids)),
+            names[2]: (lambda: fl.flash_bwd_dq(*flat, lse, delta, causal,
+                                               **fids, **kw),
+                       lambda: fl.flash_bwd_dq(*flat, lse, delta, causal,
+                                               **fids))}
+        plain_bwd = lambda: fl._flash_bwd_plain(
+            *flat, lse, delta, causal, scale, qi, ki,
+            heads if qi is not None else None, drop)
+        run["plain"] = {
+            names[0]: lambda: fl._flash_fwd_plain(
+                *flat[:3], causal, scale, qi, ki,
+                heads if qi is not None else None, drop),
+            names[1]: plain_bwd, names[2]: plain_bwd}
+    else:
+        fwd, bwd = ((short.short_fwd, short.short_bwd) if rung == "short"
+                    else (mid.mid_fwd, mid.mid_bwd))
+        sids = (dict(q_segment_ids=qi, kv_segment_ids=ki)
+                if qi is not None else {})
+        out, lse = short._short_fwd_plain(q, k, v, causal, scale, qi, ki,
+                                          drop)
+        got, got_lse = fwd(q, k, v, causal, **sids, **kw)
+        wq, wk, wv = short._short_bwd_plain(q, k, v, out, dout, lse, None,
+                                            causal, scale, qi, ki, drop)
+        gq, gk, gv = bwd(q, k, v, out, dout, lse, None, causal, **sids, **kw)
+        names = (f"{rung}_fwd" + tag, f"{rung}_bwd" + tag)
+        run["checks"] = [(names[0], "out", got, out),
+                         (names[0], "lse", got_lse, lse),
+                         (names[1], "dq", gq, wq), (names[1], "dk", gk, wk),
+                         (names[1], "dv", gv, wv)]
+        run["calls"] = {
+            names[0]: (lambda: fwd(q, k, v, causal, **sids, **kw),
+                       lambda: fwd(q, k, v, causal, **sids)),
+            names[1]: (lambda: bwd(q, k, v, out, dout, lse, None, causal,
+                                   **sids, **kw),
+                       lambda: bwd(q, k, v, out, dout, lse, None, causal,
+                                   **sids))}
+        run["plain"] = {
+            names[0]: lambda: short._short_fwd_plain(q, k, v, causal, scale,
+                                                     qi, ki, drop),
+            names[1]: lambda: short._short_bwd_plain(
+                q, k, v, out, dout, lse, None, causal, scale, qi, ki, drop)}
+    return run
+
+
+def drop_records(rung, b, heads, s, d, causal, kind, q, k, v, dout, ids,
+                 run, errs, timed_names) -> dict:
+    """Time the dropout instances named ``timed_names`` (bf16) beside the
+    same kernel without dropout, the plain version and SDPA with
+    ``dropout_p`` (forward; forward and backward through autograd for a
+    backward kernel).  The bound is the instance's row's without dropout:
+    the bytes and tensor-core products are the same, and the hash's
+    integer operations have no rate in the table."""
+    import torch.nn.functional as F
+
+    qi, ki = ids
+    mask = None if qi is None else (qi[:, :, None] == ki[:, None, :])[:, None]
+    pairs = (heads * seg_pairs(qi, ki) if qi is not None
+             else b * heads * s * (s + 1) / 2 if causal
+             else b * heads * s * s)
+    numel = q.numel() * q.element_size()
+    rows = b * heads * s * 4
+    id_bytes = 0 if qi is None else 2 * qi.numel() * 4
+    shape = (f"b={b} h={heads} s={s} d={d} "
+             + ("causal" if causal else f"{kind} ids") + " bf16")
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa_kw = dict(is_causal=True) if causal else dict(attn_mask=mask)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=DROP_RATE,
+                                           **sdpa_kw)
+        torch.autograd.grad(o, (qg, kg, vg), dout)
+
+    fb_ms = None
+    iters = 10 if rung == "flash" else 50
+    recs = {}
+    for name in timed_names:
+        kernel, without = run["calls"][name]
+        fwd = "_fwd" in name
+        if fwd:
+            library = ("SDPA dropout_p=0.1", lambda: F.scaled_dot_product_attention(
+                q, k, v, dropout_p=DROP_RATE, **sdpa_kw))
+            nbytes, ops = 4 * numel + rows + id_bytes, 4.0 * d * pairs
+        else:
+            library = None
+            if rung == "flash":
+                n_out, n_prod = (2, 4) if "dkv" in name else (1, 3)
+                nbytes = (4 + n_out) * numel + 2 * rows + id_bytes
+                ops = 2.0 * n_prod * d * pairs
+            else:
+                nbytes, ops = 8 * numel + rows + id_bytes, 10.0 * d * pairs
+        rec = measure(name, shape, errs[name], kernel, run["plain"][name],
+                      library, nbytes=nbytes, ops=ops, dtype=q.dtype,
+                      plain_iters=iters)
+        if not fwd:
+            if fb_ms is None:
+                fb_ms = profiled_ms(sdpa_fwd_bwd)
+            rec["library_ms"] = fb_ms
+            log(f"  {name}: library call is SDPA forward+backward with "
+                f"dropout_p={DROP_RATE} ({fb_ms:.4f} ms of device time, "
+                "profiler), which includes a forward")
+        base, _ = time_ms(without, iters)
+        log(f"  {name}: {rec['ms'] / base:.3f}x the same kernel without "
+            f"dropout ({base:.4f} ms) at this shape")
+        rec["ms_without_dropout"] = base
+        recs[name] = [rec]
+    return recs
+
+
+def drop_masks(randn) -> None:
+    """Each rung's keep mask read from the kernel, bit for bit: q = 0
+    makes every score 0 (every p equal), sk = d keys and V = I make
+    out[i, j] = keep(i, j) / (1 - rate) / sk, so the output is non-zero
+    exactly where the kernel kept key j for query i.  b=2 h=4 (eight
+    global batch*head rows), 300 queries (five 64-row tiles), not
+    causal, fp32 and bf16, d=128."""
+    from apex_tpu_torch.ops import attention_flash as fl
+    from apex_tpu_torch.ops import attention_mid as mid
+    from apex_tpu_torch.ops import attention_short as short
+
+    b, heads, sq, d = 2, 4, 300, 128
+    kw = dict(dropout_rate=DROP_RATE, dropout_seed=DROP_SEED)
+    want = short.keep_rows((DROP_RATE, DROP_SEED), (b, heads), sq, d,
+                           torch.device("cuda", 0))
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros(b, heads, sq, d, dtype=dtype, device=want.device)
+        k = randn(b, heads, d, d, dtype=dtype)
+        v = torch.eye(d, dtype=dtype, device=want.device).expand(
+            b, heads, d, d).contiguous()
+        outs = {
+            "short": short.short_fwd(q, k, v, False, 1.0, **kw)[0],
+            "mid": mid.mid_fwd(q, k, v, False, 1.0, **kw)[0],
+            "flash": fl.flash_fwd(*(t.reshape(b * heads, -1, d)
+                                    for t in (q, k, v)), False, 1.0,
+                                  **kw)[0].view(b, heads, sq, d)}
+        for rung, out in outs.items():
+            seen = out != 0
+            if not torch.equal(seen, want):
+                fail(f"{rung} dropout mask ({dtype}): "
+                     f"{int((seen != want).sum())} of {want.numel()} keep "
+                     "decisions differ from the plain hash")
+        log(f"  V = I, {str(dtype)[6:]}: the short, mid and flash kernels' "
+            f"masks equal the plain hash bit for bit ({want.numel()} "
+            f"decisions, {want.float().mean().item():.4f} kept)")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -2318,11 +2609,12 @@ def phase_profile(model, prompt=256, width=512, pps=9,
 
 
 # ---------------------------------------------------------------- phase 6
-def step_of(model, opt, batch):
-    """One step, loss -> backward -> FusedAdam: ``(loss, {name: grad},
-    {name: param after})`` on the CPU."""
+def step_of(model, opt, batch, rng=None):
+    """One step, loss -> backward -> FusedAdam (``rng``: the dropout key
+    ``GPTModel.loss`` takes): ``(loss, {name: grad}, {name: param after})``
+    on the CPU."""
     opt.zero_grad(set_to_none=True)
-    loss = model.loss(*batch)
+    loss = model.loss(*batch) if rng is None else model.loss(*batch, rng=rng)
     loss.backward()
     grads = {n: p.grad.detach().cpu().clone()
              for n, p in model.named_parameters()}
@@ -2367,29 +2659,43 @@ def check_step(label, gpu, cpu, before, lr) -> tuple:
     return worst_g, worst_p, steps_checked
 
 
-def phase_train_parity(dev) -> dict:
+def phase_train_parity(dev, drop: float = 0.0,
+                       seqs=(384, 640, 2560)) -> dict:
     """One training step (loss, backward, FusedAdam) at the flagship's
     width, 2 layers and fp32, on the GPU through the kernels and on a
     CPU copy of the same model and state through the plain versions
     (``device="cpu"``, chosen explicitly), batch 1: the flagship at s=384
     (short rung) and s=640 (mid rung), the Llama mode at s=2560 (flash
-    rung).  Returns each case's launch counts."""
+    rung).  With ``drop`` (train-dropout-parity) both copies take hidden
+    and attention dropout at that rate and the same key, so the same
+    masks, through the kernels' dropout instances and the hidden-dropout
+    kernel on the GPU.  Returns each case's launch counts."""
     from apex_tpu_torch.amp import get_policy
     from apex_tpu_torch.models import GPTConfig, GPTModel
     from apex_tpu_torch.ops import launch_counts, reset_launch_counts
     from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.random import PRNGKey, fold_in
 
     lr = 1e-3
-    log("[train-parity] flagship width, 2 layers, fp32 (O0): one step on "
-        f"the GPU vs the CPU, FusedAdam lr={lr}")
+    label = "train-dropout-parity" if drop else "train-parity"
+    log(f"[{label}] flagship width, 2 layers, fp32 (O0): one step on "
+        f"the GPU vs the CPU, FusedAdam lr={lr}"
+        + (f", hidden and attention dropout {drop}" if drop else ""))
+    rates = dict(hidden_dropout=drop, attention_dropout=drop)
     flagship = GPTConfig(**dict(FLAGSHIP, num_layers=2),
-                         policy=get_policy("O0"))
-    llama = GPTConfig(**dict(LLAMA, num_layers=2), policy=get_policy("O0"))
+                         policy=get_policy("O0"), **rates)
+    llama = GPTConfig(**dict(LLAMA, num_layers=2), policy=get_policy("O0"),
+                      **rates)
+    tag = "_drop" if drop else ""
     counts = {}
     for s, cfg, need in ((384, flagship, ("short_fwd", "short_bwd")),
                          (640, flagship, ("mid_fwd", "mid_bwd")),
                          (2560, llama, ("flash_fwd", "flash_bwd_dkv",
                                         "flash_bwd_dq"))):
+        if s not in seqs:
+            continue
+        need = tuple(n + tag for n in need) + (("dropout",) if drop else ())
+        rng = fold_in(PRNGKey(11), s) if drop else None
         gpu = GPTModel(cfg, device=dev, seed=3)
         cpu = GPTModel(cfg, device="cpu", seed=3)
         cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
@@ -2404,22 +2710,22 @@ def phase_train_parity(dev) -> dict:
             if model is gpu:
                 torch.cuda.synchronize()
                 reset_launch_counts()
-            out.append(step_of(model, opt, batch))
+            out.append(step_of(model, opt, batch, rng))
             if model is gpu:
                 torch.cuda.synchronize()
                 counts[s] = launch_counts()
         worst_g, worst_p, steps_checked = check_step(
-            f"train-parity s={s}", *out, before, lr)
+            f"{label} s={s}", *out, before, lr)
         c = counts[s]
         log(f"  s={s} ({cfg.position_embedding}, {cfg.activation}): loss "
             f"{out[0][0]:.6f} (GPU) vs {out[1][0]:.6f} (CPU); every grad "
             f"within 1e-4 of its scale (worst {worst_g:.3f} of the "
             f"tolerance); updated params within 1% of a step at "
             f"{steps_checked} sure-sign elements (worst {worst_p:.3f} of "
-            f"it); launches {c}")
+            f"it); launches {({k: v for k, v in c.items() if v})}")
         for name in need + ("ln_fwd",):
             if c.get(name, 0) <= 0:
-                fail(f"train-parity s={s}: kernel {name} never launched")
+                fail(f"{label} s={s}: kernel {name} never launched")
         del gpu, cpu
     torch.cuda.empty_cache()
     return counts
@@ -2519,6 +2825,139 @@ def phase_profile_train(tr, batch, what="flagship (O5, 8 x 1024)") -> None:
     if host:
         log(f"  host time inside {host[0].key}: "
             f"{host[0].cpu_time_total / 1e3:.2f} ms")
+
+
+def phase_train_dropout(dev, base=FLAGSHIP, seq=1024, micro=8, steps=10,
+                        label="train-dropout",
+                        need=("mid_fwd_drop", "mid_bwd_drop")):
+    """A 12-layer GPT at O5, remat on, with ``hidden_dropout =
+    attention_dropout = DROP_RATE`` (Megatron-LM's and GPT-2's 0.1),
+    built as the port trainer builds it (``gpt_pretrain``'s seed-0
+    weights, ``FusedAdam`` with fp32 masters, lr 3e-4), stepped as
+    ``GPTModel.loss(tokens, targets, rng=fold_in(base, step))`` ->
+    backward -> ``FusedAdam`` (the JAX trainer has no dropout flag, so
+    neither has the port's): 2 warm-up and ``steps`` timed steps on one
+    batch.  The loss must be finite and end below its start; the step-1
+    loss at O5 must sit within 0.02 of fp32's from the same weights and
+    key (the same masks); the dropout kernel and the kernels in ``need``
+    must launch.  Returns ``(counts, step, batch)``."""
+    from apex_tpu_torch.amp import get_policy
+    from apex_tpu_torch.examples import gpt_pretrain
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.random import PRNGKey, fold_in
+    from apex_tpu_torch.telemetry import mfu
+    from apex_tpu_torch.telemetry.metrics import transformer_flops_per_token
+
+    cfg = GPTConfig(**dict(base, max_position_embeddings=seq),
+                    policy=get_policy("O5"), hidden_dropout=DROP_RATE,
+                    attention_dropout=DROP_RATE)
+    log(f"[{label}] {cfg.num_layers} layers, O5, remat on, {micro} x {seq} "
+        f"tokens, hidden and attention dropout {DROP_RATE}, a key "
+        f"fold_in(base, step) a step: 2 warm-up + {steps} timed steps of "
+        "GPTModel.loss(rng=) -> backward -> FusedAdam on one batch")
+    model = GPTModel(cfg, device=dev, seed=0)
+    opt = FusedAdam(model.parameters(), lr=3e-4, master_weights=True)
+    batch = [torch.as_tensor(a, device=dev) for a in gpt_pretrain.batches(
+        np.random.default_rng(0), 1, micro, seq, cfg.vocab_size)[0]]
+    base_key = PRNGKey(2024)
+    # bf16 vs fp32 loss at step 1: the same weights, key and masks
+    ref = GPTModel(dataclasses.replace(cfg, policy=get_policy("O0")),
+                   device=dev)
+    ref.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        loss_fp32 = ref.loss(*batch, rng=fold_in(base_key, 0)).item()
+    del ref
+    torch.cuda.empty_cache()
+
+    def step(i):
+        opt.zero_grad(set_to_none=True)
+        loss = model.loss(*batch, rng=fold_in(base_key, i))
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    warm = [step(i) for i in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [step(i) for i in range(2, 2 + steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    losses = [float(x) for x in torch.stack(warm + losses).cpu()]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"{label}: losses {losses} are not finite or do not end below "
+             "their start")
+    if not abs(losses[0] - loss_fp32) <= 0.02:
+        fail(f"{label}: step-1 loss {losses[0]} at O5 vs {loss_fp32} at fp32")
+    n_params = sum(p.numel() for p in model.parameters())
+    flops = transformer_flops_per_token(n_params, cfg.num_layers,
+                                        cfg.hidden_size, seq)
+    ms = 1e3 * wall / steps
+    tps = micro * seq / (ms / 1e3)
+    util = mfu(tps, flops, PEAK_OPS_PER_S[torch.bfloat16])
+    log(f"  step 1 loss: {losses[0]:.5f} at O5 vs {loss_fp32:.5f} at fp32 "
+        f"from the same weights and masks (|diff| "
+        f"{abs(losses[0] - loss_fp32):.5f}, limit 0.02)")
+    log(f"  losses: {' '.join(f'{x:.4f}' for x in losses)}")
+    log(f"  {ms:.2f} ms/step, {tps:,.0f} tokens/s, MFU {util:.4f} against "
+        f"the 989 TFLOP/s bf16 dense peak ({n_params:,} params; {flops:,} "
+        "model FLOPs per token, the numerator without dropout)")
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        " GiB")
+    log(f"  launches in the {steps} timed steps: "
+        + ", ".join(f"{k} {v / steps:g}" for k, v in sorted(counts.items())
+                    if v) + " a step")
+    for name in need + ("ln_fwd", "dropout"):
+        if counts.get(name, 0) <= 0:
+            fail(f"{label}: kernel {name} never launched on the main path")
+    return counts, types.SimpleNamespace(step=lambda: step(2 + steps)), ()
+
+
+def phase_seg_dropout(dev) -> dict:
+    """``flash_attention`` with segment ids and dropout, forward and
+    backward through autograd, at BERT-large's training shape (b=16 h=16
+    s=512 d=64, BERT's key padding, bf16): the entry point contrib
+    attention (ROADMAP.md queue A item 3) will call, on the short rung's
+    ``_seg_drop`` instances, which must launch.  The output must be
+    finite, and equal the plain path's to two bf16 ulps."""
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.ops.attention import flash_attention
+
+    b, heads, s, d = 16, SEG_HEADS, 512, SEG_D
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, dout = (torch.randn(b, heads, s, d, generator=gen, device=dev)
+                     .to(torch.bfloat16).requires_grad_() for _ in range(4))
+    qi, ki = segment_ids("bert", b, s, dev, seed=9)
+    kw = dict(q_segment_ids=qi, kv_segment_ids=ki, dropout_rate=DROP_RATE,
+              dropout_seed=DROP_SEED)
+    log(f"[seg-dropout] flash_attention with segment ids and dropout "
+        f"{DROP_RATE}, b={b} h={heads} s={s} d={d} bf16, forward and "
+        "backward")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = flash_attention(q, k, v, **kw)
+    out.backward(dout.detach())
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    with torch.no_grad():
+        from apex_tpu_torch.ops import attention_short as short
+
+        want, _ = short._short_fwd_plain(
+            q.detach(), k.detach(), v.detach(), False, d ** -0.5, qi, ki,
+            (DROP_RATE, DROP_SEED))
+    check("short_fwd_seg_drop", out.detach(), want, "entry point out")
+    if not all(torch.isfinite(t.grad).all() for t in (q, k, v)):
+        fail("seg-dropout: non-finite gradients")
+    log(f"  launches: {({n: c for n, c in counts.items() if c})}")
+    for name in ("short_fwd_seg_drop", "short_bwd_seg_drop"):
+        if counts.get(name, 0) <= 0:
+            fail(f"seg-dropout: kernel {name} never launched")
+    return counts
 
 
 # ------------------------------------------------------------ BERT phases
@@ -2889,6 +3328,27 @@ SOURCES = {
                           "apex_tpu/ops/attention.py:429"),
     "flash_bwd_dq_seg": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
                          "apex_tpu/ops/attention.py:534"),
+    # the hidden dropout replaces XLA code, not a Pallas kernel
+    "dropout": ("triton", "apex_tpu_torch/ops/dropout.py",
+                "apex_tpu/models/gpt.py:806"),
+    "short_fwd_drop": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
+                       "apex_tpu/ops/attention_short.py:149"),
+    "short_bwd_drop": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
+                       "apex_tpu/ops/attention_short.py:215"),
+    "mid_fwd_drop": ("cuda", "apex_tpu_torch/csrc/attention_mid.cu",
+                     "apex_tpu/ops/attention_mid.py:213"),
+    "mid_bwd_drop": ("cuda", "apex_tpu_torch/csrc/attention_mid.cu",
+                     "apex_tpu/ops/attention_mid.py:308"),
+    "flash_fwd_drop": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
+                       "apex_tpu/ops/attention.py:213"),
+    "flash_bwd_dkv_drop": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
+                           "apex_tpu/ops/attention.py:429"),
+    "flash_bwd_dq_drop": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
+                          "apex_tpu/ops/attention.py:534"),
+    "short_fwd_seg_drop": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
+                           "apex_tpu/ops/attention_short.py:149"),
+    "short_bwd_seg_drop": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
+                           "apex_tpu/ops/attention_short.py:215"),
 }
 
 FLASH = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
@@ -2941,6 +3401,18 @@ def main() -> None:
           f"Llama mode (O5, 2 x {LONG_SEQ})")
     del tr, batch
     torch.cuda.empty_cache()
+    drop_parity_counts = timed("train-dropout-parity", phase_train_parity,
+                               dev, DROP_RATE, (384, 640))
+    drop_counts, tr, batch = timed("train-dropout", phase_train_dropout, dev)
+    timed("profile", phase_profile_train, tr, batch,
+          f"flagship with dropout {DROP_RATE} (O5, 8 x 1024)")
+    del tr, batch
+    torch.cuda.empty_cache()
+    long_drop_counts, _, _ = timed(
+        "train-long-dropout", phase_train_dropout, dev, LLAMA, LONG_SEQ, 2,
+        3, "train-long-dropout", tuple(n + "_drop" for n in FLASH))
+    torch.cuda.empty_cache()
+    seg_drop_counts = timed("seg-dropout", phase_seg_dropout, dev)
     timed("bert-parity", phase_bert_parity, dev)
     bert_counts = timed("bert-train", phase_bert_train, dev)
     timed("bert-finetune", phase_bert_finetune, dev)
@@ -2972,6 +3444,18 @@ def main() -> None:
     for name in ("mid_fwd_seg", "mid_bwd_seg", "flash_fwd_seg",
                  "flash_bwd_dkv_seg", "flash_bwd_dq_seg"):
         main_counts[name] = fmha_counts.get(name, 0)
+    # dropout: the hidden-dropout kernel and the mid instances from the
+    # flagship's dropout training, the flash instances from the Llama
+    # mode's, the short pair from the s=384 dropout step of
+    # train-dropout-parity, the short segment pair from seg-dropout
+    for name in ("dropout", "mid_fwd_drop", "mid_bwd_drop"):
+        main_counts[name] = drop_counts.get(name, 0)
+    for name in FLASH:
+        main_counts[name + "_drop"] = long_drop_counts.get(name + "_drop", 0)
+    for name in ("short_fwd_drop", "short_bwd_drop"):
+        main_counts[name] = drop_parity_counts[384].get(name, 0)
+    for name in ("short_fwd_seg_drop", "short_bwd_seg_drop"):
+        main_counts[name] = seg_drop_counts.get(name, 0)
     kernels = [dict(name=name, route=route, source=source,
                     replaces=replaces, launches=main_counts.get(name, 0),
                     **records[name][0])

@@ -158,6 +158,15 @@ def test_forced_rungs_and_unported_features():
     flash = port_attention.flash_attention(q, q, q, implementation="pallas")
     np.testing.assert_allclose(mid.numpy(), short.numpy(), **FWD_TOL)
     np.testing.assert_allclose(flash.numpy(), short.numpy(), **FWD_TOL)
-    for kw in (dict(bias=torch.zeros(40, 40)), dict(dropout_rate=0.1)):
-        with pytest.raises(NotImplementedError, match="queue B item 2"):
-            port_mid.fmha_mid(q, q, q, **kw)
+    with pytest.raises(NotImplementedError, match="queue B item 2c"):
+        port_mid.fmha_mid(q, q, q, bias=torch.zeros(40, 40))
+    # dropout, ported since: a seed is required, and every rung draws the
+    # reference's mask
+    with pytest.raises(ValueError, match="requires dropout_seed"):
+        port_mid.fmha_mid(q, q, q, dropout_rate=0.1)
+    drop = dict(dropout_rate=0.1, dropout_seed=12345)
+    want = port_attention.mha_reference(q, q, q, **drop)
+    for rung in ("short", "mid", "pallas"):
+        got = port_attention.flash_attention(q, q, q, implementation=rung,
+                                             **drop)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **FWD_TOL)

@@ -77,8 +77,9 @@ def test_ladder_routes_short_and_matches_reference():
 
 
 def test_ladder_rejects_what_is_not_ported():
-    """Bias and dropout raise naming queue B; segment ids, ported since,
-    run and mask as the plain reference does."""
+    """A bias raises naming queue B; segment ids and dropout, ported
+    since, run and mask as the plain reference does (dropout without a
+    seed is a ``ValueError``, as in JAX)."""
     q = torch.randn((1, 1, 8, 32), generator=torch.Generator().manual_seed(1))
     ids = torch.tensor([[0, 0, 0, 1, 1, 1, 1, 2]], dtype=torch.int32)
     got = port_attention.flash_attention(q, q, q, q_segment_ids=ids,
@@ -88,8 +89,15 @@ def test_ladder_rejects_what_is_not_ported():
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
     with pytest.raises(NotImplementedError, match="queue B"):
         port_attention.flash_attention(q, q, q, bias=torch.zeros(8, 8))
-    with pytest.raises(NotImplementedError, match="queue B"):
+    with pytest.raises(ValueError, match="requires dropout_seed"):
         port_attention.flash_attention(q, q, q, dropout_rate=0.1)
+    got = port_attention.flash_attention(q, q, q, dropout_rate=0.1,
+                                         dropout_seed=0x80000003)
+    want = port_attention.mha_reference(q, q, q, dropout_rate=0.1,
+                                        dropout_seed=0x80000003)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    assert not np.allclose(got.numpy(), port_attention.mha_reference(
+        q, q, q).numpy())
 
 
 @pytest.mark.parametrize("s, causal", [(37, True), (200, True), (130, False)])

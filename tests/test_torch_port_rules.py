@@ -50,7 +50,8 @@ def test_forbidden_pattern_catches_what_it_should():
 
 @pytest.mark.parametrize("module", ["layer_norm", "attention_short",
                                     "attention_mid", "attention_flash",
-                                    "attention_decode", "softmax"])
+                                    "attention_decode", "softmax",
+                                    "dropout"])
 def test_kernel_wrappers_have_no_fallback(module):
     """No ``try`` in a wrapper module, and each counts its launches (the
     mid rung through the short rung's launchers, with its own names)."""
@@ -149,6 +150,60 @@ def test_flash_backward_wrappers_count_their_launches(monkeypatch, segs):
         names, 1)
 
 
+@pytest.mark.parametrize("module", ["attention_short", "attention_mid",
+                                    "attention_flash"])
+@pytest.mark.parametrize("segs", [False, True])
+def test_dropout_instances_count_under_their_own_names(monkeypatch, module,
+                                                      segs):
+    """A launch with dropout counts as ``<name>_drop`` (``<name>_seg_drop``
+    with ids) and hands the C entry the seed's bits, the keep threshold
+    and the fp32 ``1 / (1 - rate)`` just before the stream; without
+    dropout the three are 0 (the instance without dropout)."""
+    from apex_tpu_torch.ops import attention_short as short
+    from apex_tpu_torch.ops.common import launch_counts, reset_launch_counts
+
+    mod = importlib.import_module(f"apex_tpu_torch.ops.{module}")
+    drop = (0.1, 0xF0000001)
+    want_args = (0xF0000001 - (1 << 32), 15099494, float(np.float32(1 / 0.9)))
+    assert short.drop_operands(drop) == want_args
+    assert short.drop_operands(None) == (0, 0, 0.0)
+    ids = (torch.zeros((2, 16), dtype=torch.int32),) * 2 if segs else (
+        None, None)
+    reset_launch_counts()
+    if module == "attention_flash":
+        q, row = torch.zeros((6, 16, 64)), torch.zeros((6, 16))
+        launches = [(sym, lambda e, sym=sym, rest=rest, outs=outs:
+                     mod._launch(sym, q, q, q, ids, 3 if segs else None,
+                                 rest, outs, True, 0.1, drop))
+                    for sym, rest, outs in (
+                        (mod.KERNEL, (), (q, row)),
+                        (mod.KERNEL_DKV, (q, row, row), (q, q)),
+                        (mod.KERNEL_DQ, (q, row, row), (q,)))]
+        names = [(mod.SEG[k] if segs else k) + "_drop"
+                 for k in (mod.KERNEL, mod.KERNEL_DKV, mod.KERNEL_DQ)]
+    else:
+        q = torch.zeros((2, 3, 16, 64))
+        launches = [
+            (mod.KERNEL, lambda e: short.launch_fwd(
+                e, (mod.KERNEL, mod.KERNEL_SEG), q, q, q, True, 0.1, *ids,
+                drop)),
+            (mod.KERNEL_BWD, lambda e: short.launch_bwd(
+                e, (mod.KERNEL_BWD, mod.KERNEL_BWD_SEG), q, q, q, q, q,
+                torch.zeros((2, 3, 16)), None, True, 0.1, *ids, drop))]
+        names = [(mod.KERNEL_SEG if segs else mod.KERNEL) + "_drop",
+                 (mod.KERNEL_BWD_SEG if segs else mod.KERNEL_BWD) + "_drop"]
+    for symbol, call in launches:
+        calls, entry = _fake_launch(monkeypatch, mod, symbol)
+        if module == "attention_flash":
+            monkeypatch.setattr(mod, "_entry", entry)
+        call(entry)
+        (args,) = calls
+        assert len(args) == len(mod.ARGTYPES[symbol])
+        assert args[-4:-1] == want_args
+    assert {k: v for k, v in launch_counts().items() if v} == dict.fromkeys(
+        names, 1)
+
+
 @pytest.mark.parametrize("module, symbol", [
     ("attention_short", "short_fwd"), ("attention_short", "short_bwd"),
     ("attention_mid", "mid_fwd"), ("attention_mid", "mid_bwd"),
@@ -222,17 +277,21 @@ def test_decode_rows_and_tree_count_under_their_own_names():
 @pytest.mark.parametrize("module", [
     "serving.speculate", "serving.kv_cache", "serving.sampling",
     "serving.serve", "ops.softmax", "transformer.enums",
-    "transformer.functional.fused_softmax"])
+    "transformer.functional.fused_softmax", "random", "ops.dropout",
+    "transformer.tensor_parallel.random"])
 def test_new_modules_are_port_files(module):
-    """The modules of the serving slice and the softmax entry point are
-    in the package (so the import rule above covers them)."""
+    """The modules of the serving slice, the softmax entry point, the
+    PRNG and dropout are in the package (so the import rule above covers
+    them)."""
     path = ROOT / "apex_tpu_torch" / (module.replace(".", "/") + ".py")
     assert path in PORT_FILES
     importlib.import_module(f"apex_tpu_torch.{module}")
 
 
 def test_entry_points_default_to_the_gpu(monkeypatch):
+    from apex_tpu_torch import random as prng
     from apex_tpu_torch.examples.gpt_pretrain import Trainer, parse_args
+    from apex_tpu_torch.ops.dropout import dropout_mask
     from apex_tpu_torch.serving import KVCacheConfig, init_pools
     from apex_tpu_torch.models import GPTConfig, GPTModel
     from apex_tpu_torch.serving.serve import init_carry
@@ -248,6 +307,8 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
     for call in (lambda: resolve_device(None),
                  lambda: resolve_device("cuda"),
                  lambda: init_pools(cfg), lambda: init_carry(2),
+                 lambda: prng.uniform_tensor(prng.PRNGKey(0), (4,)),
+                 lambda: dropout_mask(prng.PRNGKey(0), (4,), 0.1),
                  lambda: Trainer(args),
                  lambda: GPTModel(GPTConfig(num_layers=1, hidden_size=32,
                                             num_attention_heads=1,
@@ -307,7 +368,8 @@ def test_signature_twins_cover_the_entry_points():
 def test_attention_takes_the_jax_arguments_it_does_not_use():
     """``bias_requires_grad=False`` with no bias (the T5 and contrib
     callers), a dropout seed without dropout and the TPU tiles run; a
-    bias or dropout raises naming queue B; ``"xla"`` is no rung."""
+    bias raises naming queue B; dropout with a seed runs; ``"xla"`` is
+    no rung."""
     from apex_tpu_torch.ops import attention, attention_mid, attention_short
 
     q = torch.randn((1, 2, 16, 64), generator=torch.Generator().manual_seed(0))
@@ -323,8 +385,11 @@ def test_attention_takes_the_jax_arguments_it_does_not_use():
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
         with pytest.raises(NotImplementedError, match="queue B item 2c"):
             fn(q, q, q, bias=torch.zeros(16, 16), bias_requires_grad=False)
-        with pytest.raises(NotImplementedError, match="queue B item 2b"):
-            fn(q, q, q, dropout_rate=0.1, dropout_seed=1)
+        # dropout is ported: with a seed it runs (the reference's mask)
+        got = fn(q, q, q, dropout_rate=0.1, dropout_seed=1, **kw)
+        torch.testing.assert_close(got, attention.mha_reference(
+            q, q, q, dropout_rate=0.1, dropout_seed=1), rtol=1e-5,
+            atol=1e-5)
         with pytest.raises(ValueError, match="implementation"):
             fn(q, q, q, implementation="xla")
 

@@ -1,8 +1,10 @@
 """Contrib tier of the port: the counterparts of ``apex_tpu.contrib``.
 
 Ported so far: ``fmha``, the packed-varlen attention entry (over the
-attention kernels' segment-id instances).  The rest of ``apex_tpu.contrib``
-is ROADMAP.md queue A items 3 (``multihead_attn``) and 9.
+attention kernels' segment-id instances), and ``multihead_attn``, the
+self- and encoder-decoder attention modules (over their additive-bias,
+segment-id and dropout instances).  The rest of ``apex_tpu.contrib`` is
+ROADMAP.md queue A item 9.
 """
 
-__all__ = ["fmha"]
+__all__ = ["fmha", "multihead_attn"]

@@ -12,7 +12,10 @@ with a ``scale`` and no ``bias``, and a ``fc_gate`` per layer; so has
 the port's model in that mode, and the bridge needs nothing else for
 it.  Nor for BERT: its tree adds ``tokentype_embedding``,
 ``lm_head.{dense.{weight, bias}, ln.{scale, bias}, bias}``, ``pooler`` and
-``binary_head``, which the port's ``BertModel`` names alike.  Both keep
+``binary_head``, which the port's ``BertModel`` names alike.  Nor for
+contrib attention: a ``SelfMultiheadAttn``/``EncdecMultiheadAttn`` tree is
+flat (``qkv_weight``, ``out_bias``, ``lyr_nrm.scale``, ...), and the port's
+modules name their parameters alike.  Both keep
 the same per-leaf layouts (linear weights ``(in, out)``, the qkv output
 grouped per head, the LM head tied to ``embedding.weight``), so the
 bridge only flattens/unstacks the tree: values are copied bit for bit

@@ -67,6 +67,16 @@
 //    blockIdx.y and its positions the absolute q0 + row and k0 + column,
 //    so the mask does not depend on the tiles.  DROP and SEGS combine
 //    (contrib attention needs both).
+//  - bias (BIAS, the Pallas bodies' has_bias; attention_tiles.cuh's Bias,
+//    read into registers before each tile's products): the forward adds it
+//    to s * scale before the predicate, and the dK/dV and dQ kernels add
+//    the same value the same way before p = exp(s - lse)
+//    (attention_short.py:179-184,
+//    :257-260; attention_mid.py:251-253, :369-371).  The causal tile skips
+//    stay: without the bias gradient (queue B item 2d) the skipped tiles
+//    contribute nothing.  A row the bias alone masks (-1e30 everywhere)
+//    keeps its predicate true, so its output is the uniform mean of V, as
+//    JAX's softmax gives; only the predicate zeroes p.
 //
 // What bounds them on the card: at the flagship's training shape (b*h = 64,
 // s = 1024, d = 128, causal, bf16) the forward does 2 * 2 * d * s(s+1)/2
@@ -107,13 +117,13 @@ struct FwdLayout {
 
 // q, out: (bh, sq, D); k, v: (bh, sk, D); lse: (bh, sq) fp32; with SEGS,
 // q_ids (bh / heads, sq) and kv_ids (bh / heads, sk) int32.
-template <typename T, int D, bool SEGS, bool DROP>
+template <typename T, int D, bool SEGS, bool DROP, bool BIAS>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const int* __restrict__ q_ids,
                 const int* __restrict__ kv_ids, T* __restrict__ out,
                 float* __restrict__ lse, int heads, int sq, int sk,
-                int causal, float scale, Dropout dr) {
+                int causal, float scale, Dropout dr, Bias bias) {
   using L = FwdLayout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem + L::Q_OFF);
@@ -134,6 +144,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + bh * sk * D;
   const long brow = SEGS ? bh / heads : 0;
   const unsigned hrow = DROP ? drop_row(dr, bh) : 0u;
+  const float* bslab = BIAS ? bias_slab(bias, bh, heads) : nullptr;
 
   load_tile<T, D>(Qs, L::LDQ, q + bh * sq * D, q0, kTile, sq);
   if constexpr (SEGS) load_ids(qid, q_ids + brow * sq, q0, kTile, sq);
@@ -153,6 +164,8 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if constexpr (SEGS) load_ids(kid, kv_ids + brow * sk, k0, kTile, sk);
     __syncthreads();
 
+    [[maybe_unused]] float bv[kRows][2];
+    if constexpr (BIAS) load_bias<2, false>(bv, bslab, sq, sk, q0 + row0, k0, lane);
     if constexpr (L::kTC) {
       abT_tc<kTile, D>(Qs + row0 * L::LDQ, L::LDQ, Ks, L::LDK,
                        Ss + row0 * L::LDS, L::LDS);
@@ -175,7 +188,9 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int kj = k0 + lane + 32 * h;
         ok[h] = kj < sk && (!causal || kj <= qi) &&
                 (!SEGS || qid[row] == kid[lane + 32 * h]);
-        s[h] = ok[h] ? Ss[row * L::LDS + lane + 32 * h] * scale : kNegInf;
+        s[h] = ok[h] ? biased<BIAS>(Ss[row * L::LDS + lane + 32 * h] * scale,
+                                    bv[r][h])
+                     : kNegInf;
       }
       const float m_new = fmaxf(m[r], warp_max(fmaxf(s[0], s[1])));
       float p[2];
@@ -279,7 +294,7 @@ struct DkvLayout {
   static constexpr int BYTES = round_up(DL_OFF + QT * 4, 128);
 };
 
-template <typename T, int D, bool SEGS, bool DROP>
+template <typename T, int D, bool SEGS, bool DROP, bool BIAS>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ q_ids,
@@ -288,7 +303,7 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dk,
                     T* __restrict__ dv, int heads, int sq, int sk,
-                    int causal, float scale, Dropout dr) {
+                    int causal, float scale, Dropout dr, Bias bias) {
   using L = DkvLayout<T, D>;
   constexpr int QT = L::QT;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -316,6 +331,7 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* dob = dout + bh * sq * D;
   const long brow = SEGS ? bh / heads : 0;
   const unsigned hrow = DROP ? drop_row(dr, bh) : 0u;
+  const float* bslab = BIAS ? bias_slab(bias, bh, heads) : nullptr;
 
   load_tiles<T, D>(Ks, L::LDK, Vs, L::LDK, k + bh * sk * D, v + bh * sk * D,
                    k0, kTile, sk);
@@ -336,6 +352,10 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
+    [[maybe_unused]] float bv[kRows][QT / 32];
+    if constexpr (BIAS) {
+      load_bias<QT / 32, true>(bv, bslab, sq, sk, k0 + row0, q0, lane);
+    }
     // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys
     if constexpr (L::kTC) {
       abT_tc<QT, D>(Ks + row0 * L::LDK, L::LDK, Qs, L::LDQ,
@@ -350,8 +370,9 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncwarp();
 
-    // p = exp(s * scale - lse), dz = p * (dp - delta); lane owns the
-    // query columns lane + 32 * j.  With dropout, dV takes the dropped p
+    // p = exp(s * scale (+ bias) - lse), dz = p * (dp - delta); lane owns
+    // the query columns lane + 32 * j (the bias of key kj read down a
+    // column, one query row a lane).  With dropout, dV takes the dropped p
     // and dz the dropped dp.
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
@@ -364,7 +385,9 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const bool ok = kj < sk && qi < sq && (!causal || kj <= qi) &&
                         (!SEGS || kid[row] == qid[c]);
         const float p =
-            ok ? expf(Ss[row * L::LDS + c] * scale - lse_s[c]) : 0.0f;
+            ok ? expf(biased<BIAS>(Ss[row * L::LDS + c] * scale, bv[r][j]) -
+                      lse_s[c])
+               : 0.0f;
         float dp = dPs[row * L::LDS + c];
         float pv = p;
         if constexpr (DROP) {
@@ -398,6 +421,9 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncwarp();
   }
+  // a block with no query tile (causal, keys at or past sq) has run no
+  // barrier since its accumulators were zeroed, each row by other threads
+  __syncthreads();
 
   // store this warp's rows
 #pragma unroll
@@ -438,7 +464,7 @@ struct DqLayout {
   static constexpr int BYTES = round_up(DL_OFF + kTile * 4, 128);
 };
 
-template <typename T, int D, bool SEGS, bool DROP>
+template <typename T, int D, bool SEGS, bool DROP, bool BIAS>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const int* __restrict__ q_ids,
@@ -446,7 +472,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, T* __restrict__ dq,
                    int heads, int sq, int sk, int causal, float scale,
-                   Dropout dr) {
+                   Dropout dr, Bias bias) {
   using L = DqLayout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem + L::Q_OFF);
@@ -471,6 +497,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + bh * sk * D;
   const long brow = SEGS ? bh / heads : 0;
   const unsigned hrow = DROP ? drop_row(dr, bh) : 0u;
+  const float* bslab = BIAS ? bias_slab(bias, bh, heads) : nullptr;
 
   load_tiles<T, D>(Qs, L::LDQ, dOs, L::LDQ, q + bh * sq * D,
                    dout + bh * sq * D, q0, kTile, sq);
@@ -489,6 +516,8 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if constexpr (SEGS) load_ids(kid, kv_ids + brow * sk, k0, kTile, sk);
     __syncthreads();
 
+    [[maybe_unused]] float bv[kRows][2];
+    if constexpr (BIAS) load_bias<2, false>(bv, bslab, sq, sk, q0 + row0, k0, lane);
     // S = Q K^T and dP = dO V^T for this warp's 16 query rows
     if constexpr (L::kTC) {
       abT_tc<kTile, D>(Qs + row0 * L::LDQ, L::LDQ, Ks, L::LDK,
@@ -514,7 +543,9 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const bool ok = kj < sk && qi < sq && (!causal || kj <= qi) &&
                         (!SEGS || qid[row] == kid[c]);
         const float p =
-            ok ? expf(Ss[row * L::LDS + c] * scale - lse_s[row]) : 0.0f;
+            ok ? expf(biased<BIAS>(Ss[row * L::LDS + c] * scale, bv[r][h]) -
+                      lse_s[row])
+               : 0.0f;
         float dp = dPs[row * L::LDS + c];
         if constexpr (DROP) {
           dp = drop_keep(dr, hrow, qi, kj) ? dp * dr.inv_keep : 0.0f;
@@ -555,33 +586,33 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ------------------------------------------------------------------ launch
 
-template <typename T, int D, bool SEGS, bool DROP>
+template <typename T, int D, bool SEGS, bool DROP, bool BIAS>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const int* q_ids, const int* kv_ids, void* out,
                        float* lse, int bh, int heads, int sq, int sk,
-                       int causal, float scale, Dropout dr,
+                       int causal, float scale, Dropout dr, Bias bias,
                        cudaStream_t stream) {
   using L = FwdLayout<T, D>;
   constexpr int kBytes = L::BYTES + 2 * id_bytes<SEGS>(kTile);
   static bool opted = false;
   cudaError_t err =
-      opt_in(attn_fwd_kernel<T, D, SEGS, DROP>, kBytes, &opted);
+      opt_in(attn_fwd_kernel<T, D, SEGS, DROP, BIAS>, kBytes, &opted);
   if (err != cudaSuccess) return err;
   dim3 grid((sq + kTile - 1) / kTile, bh);
-  attn_fwd_kernel<T, D, SEGS, DROP><<<grid, kThreads, kBytes, stream>>>(
+  attn_fwd_kernel<T, D, SEGS, DROP, BIAS><<<grid, kThreads, kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), q_ids, kv_ids, static_cast<T*>(out), lse,
-      heads, sq, sk, causal, scale, dr);
+      heads, sq, sk, causal, scale, dr, bias);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool SEGS, bool DROP>
+template <typename T, int D, bool SEGS, bool DROP, bool BIAS>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const int* q_ids, const int* kv_ids, const void* out,
                        const void* dout, const float* lse, const float* dlse,
                        float* delta, void* dq, void* dk, void* dv, int bh,
                        int heads, int sq, int sk, int causal, float scale,
-                       Dropout dr, cudaStream_t stream) {
+                       Dropout dr, Bias bias, cudaStream_t stream) {
   using KV = DkvLayout<T, D>;
   using QL = DqLayout<T, D>;
   constexpr int kKvBytes =
@@ -589,9 +620,9 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   constexpr int kQBytes = QL::BYTES + 2 * id_bytes<SEGS>(kTile);
   static bool opted_kv = false, opted_q = false;
   cudaError_t err =
-      opt_in(attn_bwd_dkv_kernel<T, D, SEGS, DROP>, kKvBytes, &opted_kv);
+      opt_in(attn_bwd_dkv_kernel<T, D, SEGS, DROP, BIAS>, kKvBytes, &opted_kv);
   if (err != cudaSuccess) return err;
-  err = opt_in(attn_bwd_dq_kernel<T, D, SEGS, DROP>, kQBytes, &opted_q);
+  err = opt_in(attn_bwd_dq_kernel<T, D, SEGS, DROP, BIAS>, kQBytes, &opted_q);
   if (err != cudaSuccess) return err;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
@@ -603,27 +634,34 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
       static_cast<const T*>(out), dot, dlse, delta, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_dkv_kernel<T, D, SEGS, DROP>
+  attn_bwd_dkv_kernel<T, D, SEGS, DROP, BIAS>
       <<<dim3((sk + kTile - 1) / kTile, bh), kThreads, kKvBytes, stream>>>(
           qt, kt, vt, q_ids, kv_ids, dot, lse, delta, static_cast<T*>(dk),
-          static_cast<T*>(dv), heads, sq, sk, causal, scale, dr);
+          static_cast<T*>(dv), heads, sq, sk, causal, scale, dr, bias);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_dq_kernel<T, D, SEGS, DROP>
+  attn_bwd_dq_kernel<T, D, SEGS, DROP, BIAS>
       <<<dim3((sq + kTile - 1) / kTile, bh), kThreads, kQBytes, stream>>>(
           qt, kt, vt, q_ids, kv_ids, dot, lse, delta, static_cast<T*>(dq),
-          heads, sq, sk, causal, scale, dr);
+          heads, sq, sk, causal, scale, dr, bias);
   return cudaGetLastError();
 }
 
 // dtype: 0 = fp32, 1 = bf16; head dims 64 and 128.  q_ids/kv_ids: both
 // null (no segment ids) or (bh / heads, sq) and (bh / heads, sk) int32.
-// dr.inv_keep == 0: no dropout.  Each (dtype, d) has four instances:
-// with and without SEGS, with and without DROP.
-#define ATTN_DISPATCH_TD(CALL, T, D)                                \
-  if (segs) return drop ? CALL(T, D, true, true)                    \
-                        : CALL(T, D, true, false);                  \
-  return drop ? CALL(T, D, false, true) : CALL(T, D, false, false)
+// dr.inv_keep == 0: no dropout.  bias.ptr null: no bias.  Each (dtype, d)
+// has eight instances: with and without SEGS, DROP and BIAS.
+#define ATTN_DISPATCH_TD(CALL, T, D)                                  \
+  if (segs) {                                                         \
+    if (drop) return biased ? CALL(T, D, true, true, true)            \
+                            : CALL(T, D, true, true, false);          \
+    return biased ? CALL(T, D, true, false, true)                     \
+                  : CALL(T, D, true, false, false);                   \
+  }                                                                   \
+  if (drop) return biased ? CALL(T, D, false, true, true)             \
+                          : CALL(T, D, false, true, false);           \
+  return biased ? CALL(T, D, false, false, true)                      \
+                : CALL(T, D, false, false, false)
 #define ATTN_DISPATCH(CALL)                                         \
   if (dtype == 0 && d == 128) { ATTN_DISPATCH_TD(CALL, float, 128); } \
   if (dtype == 0 && d == 64) { ATTN_DISPATCH_TD(CALL, float, 64); }   \
@@ -635,15 +673,18 @@ inline cudaError_t fwd(const void* q, const void* k, const void* v,
                        const int* q_ids, const int* kv_ids, void* out,
                        float* lse, int bh, int heads, int sq, int sk, int d,
                        int dtype, int causal, float scale, Dropout dr,
-                       void* stream) {
+                       Bias bias, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0) return cudaErrorInvalidValue;
   if (bad_ids(q_ids, kv_ids, bh, heads)) return cudaErrorInvalidValue;
+  if (bad_bias(bias.ptr, bias.stride_b, bias.stride_h, bh, heads))
+    return cudaErrorInvalidValue;
   const bool segs = q_ids != nullptr;
   const bool drop = dr.inv_keep != 0.0f;
-#define CALL(T, D, SEGS, DROP)                                              \
-  launch_fwd<T, D, SEGS, DROP>(q, k, v, q_ids, kv_ids, out, lse, bh, heads, \
-                               sq, sk, causal, scale, dr, s)
+  const bool biased = bias.ptr != nullptr;
+#define CALL(T, D, SEGS, DROP, BIAS)                                        \
+  launch_fwd<T, D, SEGS, DROP, BIAS>(q, k, v, q_ids, kv_ids, out, lse, bh, heads, \
+                               sq, sk, causal, scale, dr, bias, s)
   ATTN_DISPATCH(CALL);
 #undef CALL
 }
@@ -653,16 +694,20 @@ inline cudaError_t bwd(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* dlse,
                        float* delta, void* dq, void* dk, void* dv, int bh,
                        int heads, int sq, int sk, int d, int dtype,
-                       int causal, float scale, Dropout dr, void* stream) {
+                       int causal, float scale, Dropout dr, Bias bias,
+                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0) return cudaErrorInvalidValue;
   if (bad_ids(q_ids, kv_ids, bh, heads)) return cudaErrorInvalidValue;
+  if (bad_bias(bias.ptr, bias.stride_b, bias.stride_h, bh, heads))
+    return cudaErrorInvalidValue;
   const bool segs = q_ids != nullptr;
   const bool drop = dr.inv_keep != 0.0f;
-#define CALL(T, D, SEGS, DROP)                                            \
-  launch_bwd<T, D, SEGS, DROP>(q, k, v, q_ids, kv_ids, out, dout, lse,   \
+  const bool biased = bias.ptr != nullptr;
+#define CALL(T, D, SEGS, DROP, BIAS)                                      \
+  launch_bwd<T, D, SEGS, DROP, BIAS>(q, k, v, q_ids, kv_ids, out, dout, lse,   \
                                dlse, delta, dq, dk, dv, bh, heads, sq,   \
-                               sk, causal, scale, dr, s)
+                               sk, causal, scale, dr, bias, s)
   ATTN_DISPATCH(CALL);
 #undef CALL
 }

@@ -47,6 +47,13 @@
 //    replays the mask on p for dV and on dp before dz (:491-498), the dQ
 //    kernel on dp (:605-611).  Counted as flash_fwd_drop,
 //    flash_bwd_dkv_drop and flash_bwd_dq_drop (_seg_drop beside ids).
+//  - bias (BIAS, the Pallas bodies' has_bias, :250-251, :465-466,
+//    :581-582; the Bias operand of attention_tiles.cuh, each lane's pairs
+//    read into registers before each tile's products): the forward adds it
+//    to its already scaled score, the backward kernels to (q . k) * scale,
+//    before the predicate.  Without the bias gradient (queue B item 2d) no
+//    new output exists and the causal tile skips stay.  Counted with _bias
+//    appended (flash_fwd_bias, ...).
 //
 // Tiles, chosen for s >= 4096 (at b*h = 16, the Llama-mode training shape):
 //  - forward: 128-row query tiles in bf16 (8 warps, 16 rows each), so each
@@ -223,13 +230,13 @@ struct FwdTiles {
 
 // q, out: (bh, sq, D); k, v: (bh, sk, D); lse: (bh, sq) fp32; with SEGS,
 // q_ids (bh / heads, sq) and kv_ids (bh / heads, sk) int32.
-template <typename T, int D, bool SEGS, bool DROP>
+template <typename T, int D, bool SEGS, bool DROP, bool BIAS>
 __global__ void __launch_bounds__(FwdTiles<T, D>::kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ q_ids,
                  const int* __restrict__ kv_ids, T* __restrict__ out,
                  float* __restrict__ lse, int heads, int sq, int sk,
-                 int causal, float scale, attn::Dropout dr) {
+                 int causal, float scale, attn::Dropout dr, attn::Bias bias) {
   using L = FwdTiles<T, D>;
   constexpr int QT = L::QT, KT = L::KT, TH = L::kThreads;
   constexpr int KID = attn::id_bytes<SEGS>(KT);
@@ -259,6 +266,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + bh * sk * D;
   const int* kidb = SEGS ? kv_ids + (bh / heads) * sk : nullptr;
   const unsigned hrow = DROP ? attn::drop_row(dr, bh) : 0u;
+  const float* bslab =
+      BIAS ? attn::bias_slab(bias, bh, heads) : nullptr;
   // causal: keys past the tile's last query row are masked for every row
   const int kv_end = causal ? min(sk, q0 + QT) : sk;
   const int n_tiles = (kv_end + KT - 1) / KT;
@@ -306,6 +315,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* Vt = Vs(t & 1);
     const int* kt_ids = kid(t & 1);
 
+    [[maybe_unused]] float bv[kRows][KT / 32];
+    if constexpr (BIAS) {
+      attn::load_bias<KT / 32, false>(bv, bslab, sq, sk, q0 + row0, k0, lane);
+    }
     abT<T, KT, D>(Qs + row0 * L::LDQ, L::LDQ, Kt, L::LDK,
                   Ss + row0 * L::LDS, L::LDS, lane);
     __syncwarp();
@@ -323,7 +336,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int kj = k0 + lane + 32 * h;
         ok[h] = kj < sk && (!causal || kj <= qi) &&
                 (!SEGS || qid[row] == kt_ids[lane + 32 * h]);
-        s[h] = ok[h] ? Ss[row * L::LDS + lane + 32 * h] : kNegInf;
+        s[h] = ok[h] ? attn::biased<BIAS>(Ss[row * L::LDS + lane + 32 * h],
+                                          bv[r][h])
+                     : kNegInf;
       }
       const float m_new = fmaxf(m[r], attn::warp_max(fmaxf(s[0], s[1])));
       float p[2];
@@ -413,7 +428,7 @@ struct DkvTiles {
   static constexpr int BYTES = round_up(DV_OFF + KT * LDA * 4, 128);
 };
 
-template <typename T, int D, bool SEGS, bool DROP>
+template <typename T, int D, bool SEGS, bool DROP, bool BIAS>
 __global__ void __launch_bounds__(DkvTiles<T, D>::kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ q_ids,
@@ -422,7 +437,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int heads, int sq, int sk,
-                     int causal, float scale, attn::Dropout dr) {
+                     int causal, float scale, attn::Dropout dr,
+                     attn::Bias bias) {
   using L = DkvTiles<T, D>;
   constexpr int QT = L::QT, KT = L::KT, TH = L::kThreads;
   constexpr int QID = attn::id_bytes<SEGS>(QT);
@@ -464,6 +480,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* dlb = delta + bh * sq;
   const int* qidb = SEGS ? q_ids + (bh / heads) * sq : nullptr;
   const unsigned hrow = DROP ? attn::drop_row(dr, bh) : 0u;
+  const float* bslab =
+      BIAS ? attn::bias_slab(bias, bh, heads) : nullptr;
 
   async_tile<T, D, L::LDK, KT, TH>(Ks, k + bh * sk * D, k0, sk);
   async_tile<T, D, L::LDK, KT, TH>(Vs, v + bh * sk * D, k0, sk);
@@ -502,6 +520,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float* dt = dl_s(b);
     const int* qt_ids = qid(b);
 
+    [[maybe_unused]] float bv[kRows][QT / 32];
+    if constexpr (BIAS) {
+      attn::load_bias<QT / 32, true>(bv, bslab, sq, sk, k0 + row0, q0, lane);
+    }
     // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys
     abT<T, QT, D>(Ks + row0 * L::LDK, L::LDK, Qt, L::LDQ,
                   Ss + row0 * L::LDS, L::LDS, lane);
@@ -523,7 +545,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int qi = q0 + c;
         const bool ok = kj < sk && qi < sq && (!causal || kj <= qi) &&
                         (!SEGS || kid[row] == qt_ids[c]);
-        const float p = ok ? expf(Ss[row * L::LDS + c] * scale - lt[c]) : 0.0f;
+        const float p =
+            ok ? expf(attn::biased<BIAS>(Ss[row * L::LDS + c] * scale,
+                                         bv[r][j]) - lt[c])
+               : 0.0f;
         float dp = dPs[row * L::LDS + c];
         float pv = p;
         if constexpr (DROP) {
@@ -608,7 +633,7 @@ struct DqTiles {
   static constexpr int BYTES = round_up(DQ_OFF + QT * LDA * 4, 128);
 };
 
-template <typename T, int D, bool SEGS, bool DROP>
+template <typename T, int D, bool SEGS, bool DROP, bool BIAS>
 __global__ void __launch_bounds__(DqTiles<T, D>::kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ q_ids,
@@ -616,7 +641,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int heads, int sq, int sk, int causal, float scale,
-                    attn::Dropout dr) {
+                    attn::Dropout dr, attn::Bias bias) {
   using L = DqTiles<T, D>;
   constexpr int QT = L::QT, KT = L::KT, TH = L::kThreads;
   constexpr int KID = attn::id_bytes<SEGS>(KT);
@@ -650,6 +675,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + bh * sk * D;
   const int* kidb = SEGS ? kv_ids + (bh / heads) * sk : nullptr;
   const unsigned hrow = DROP ? attn::drop_row(dr, bh) : 0u;
+  const float* bslab =
+      BIAS ? attn::bias_slab(bias, bh, heads) : nullptr;
   const int kv_end = causal ? min(sk, q0 + QT) : sk;
   const int n_tiles = (kv_end + KT - 1) / KT;
 
@@ -682,6 +709,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* Vt = Vs(t & 1);
     const int* kt_ids = kid(t & 1);
 
+    [[maybe_unused]] float bv[kRows][KT / 32];
+    if constexpr (BIAS) {
+      attn::load_bias<KT / 32, false>(bv, bslab, sq, sk, q0 + row0, k0, lane);
+    }
     // S = Q K^T and dP = dO V^T for this warp's 16 query rows
     abT<T, KT, D>(Qs + row0 * L::LDQ, L::LDQ, Kt, L::LDK,
                   Ss + row0 * L::LDS, L::LDS, lane);
@@ -700,7 +731,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const bool ok = kj < sk && qi < sq && (!causal || kj <= qi) &&
                         (!SEGS || qid[row] == kt_ids[c]);
         const float p =
-            ok ? expf(Ss[row * L::LDS + c] * scale - lse_s[row]) : 0.0f;
+            ok ? expf(attn::biased<BIAS>(Ss[row * L::LDS + c] * scale,
+                                         bv[r][h]) - lse_s[row])
+               : 0.0f;
         float dp = dPs[row * L::LDS + c];
         if constexpr (DROP) {
           dp = attn::drop_keep(dr, hrow, qi, kj) ? dp * dr.inv_keep : 0.0f;
@@ -741,69 +774,69 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ------------------------------------------------------------------ launch
 
-template <typename T, int D, bool SEGS, bool DROP>
+template <typename T, int D, bool SEGS, bool DROP, bool BIAS>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const int* q_ids, const int* kv_ids, void* out,
                        float* lse, int bh, int heads, int sq, int sk,
                        int causal, float scale, attn::Dropout dr,
-                       cudaStream_t stream) {
+                       attn::Bias bias, cudaStream_t stream) {
   using L = FwdTiles<T, D>;
   constexpr int kBytes = L::BYTES + attn::id_bytes<SEGS>(L::QT) +
                          2 * attn::id_bytes<SEGS>(L::KT);
   static bool opted = false;
   cudaError_t err =
-      attn::opt_in(flash_fwd_kernel<T, D, SEGS, DROP>, kBytes, &opted);
+      attn::opt_in(flash_fwd_kernel<T, D, SEGS, DROP, BIAS>, kBytes, &opted);
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<T, D, SEGS, DROP>
+  flash_fwd_kernel<T, D, SEGS, DROP, BIAS>
       <<<dim3((sq + L::QT - 1) / L::QT, bh), L::kThreads, kBytes, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), q_ids, kv_ids, static_cast<T*>(out), lse,
-          heads, sq, sk, causal, scale, dr);
+          heads, sq, sk, causal, scale, dr, bias);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool SEGS, bool DROP>
+template <typename T, int D, bool SEGS, bool DROP, bool BIAS>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const int* q_ids, const int* kv_ids, const void* dout,
                        const float* lse, const float* delta, void* dk,
                        void* dv, int bh, int heads, int sq, int sk,
                        int causal, float scale, attn::Dropout dr,
-                       cudaStream_t stream) {
+                       attn::Bias bias, cudaStream_t stream) {
   using L = DkvTiles<T, D>;
   constexpr int kBytes = L::BYTES + attn::id_bytes<SEGS>(L::KT) +
                          2 * attn::id_bytes<SEGS>(L::QT);
   static bool opted = false;
   cudaError_t err =
-      attn::opt_in(flash_bwd_dkv_kernel<T, D, SEGS, DROP>, kBytes, &opted);
+      attn::opt_in(flash_bwd_dkv_kernel<T, D, SEGS, DROP, BIAS>, kBytes, &opted);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<T, D, SEGS, DROP>
+  flash_bwd_dkv_kernel<T, D, SEGS, DROP, BIAS>
       <<<dim3((sk + L::KT - 1) / L::KT, bh), L::kThreads, kBytes, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), q_ids, kv_ids,
           static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
-          static_cast<T*>(dv), heads, sq, sk, causal, scale, dr);
+          static_cast<T*>(dv), heads, sq, sk, causal, scale, dr, bias);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool SEGS, bool DROP>
+template <typename T, int D, bool SEGS, bool DROP, bool BIAS>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const int* q_ids, const int* kv_ids, const void* dout,
                       const float* lse, const float* delta, void* dq, int bh,
                       int heads, int sq, int sk, int causal, float scale,
-                      attn::Dropout dr, cudaStream_t stream) {
+                      attn::Dropout dr, attn::Bias bias, cudaStream_t stream) {
   using L = DqTiles<T, D>;
   constexpr int kBytes = L::BYTES + attn::id_bytes<SEGS>(L::QT) +
                          2 * attn::id_bytes<SEGS>(L::KT);
   static bool opted = false;
   cudaError_t err =
-      attn::opt_in(flash_bwd_dq_kernel<T, D, SEGS, DROP>, kBytes, &opted);
+      attn::opt_in(flash_bwd_dq_kernel<T, D, SEGS, DROP, BIAS>, kBytes, &opted);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<T, D, SEGS, DROP>
+  flash_bwd_dq_kernel<T, D, SEGS, DROP, BIAS>
       <<<dim3((sq + L::QT - 1) / L::QT, bh), L::kThreads, kBytes, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), q_ids, kv_ids,
           static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), heads,
-          sq, sk, causal, scale, dr);
+          sq, sk, causal, scale, dr, bias);
   return cudaGetLastError();
 }
 
@@ -815,22 +848,35 @@ bool bad_shape(int bh, int sq, int sk) {
 }  // namespace flash
 
 // dtype: 0 = fp32, 1 = bf16; head dims 64 and 128; q_ids/kv_ids both null
-// or (bh / heads, sq) and (bh / heads, sk) int32 segment ids; seed,
+// or (bh / heads, sq) and (bh / heads, sk) int32 segment ids; bias null or
+// fp32, the (sq, sk) slab of row bh = b_i * heads + h_i at b_i *
+// bias_stride_b + h_i * bias_stride_h (0 on a broadcast dim); seed,
 // keep_threshold, inv_keep the dropout hash's uint32 seed and threshold and
 // the fp32 1 / (1 - rate), inv_keep = 0 for no dropout.  Each (dtype, d)
-// has four instances: with and without SEGS, with and without DROP.  Each
-// entry returns a cudaError_t code (0 = success).
+// has eight instances: with and without SEGS, DROP and BIAS.  Each entry
+// returns a cudaError_t code (0 = success).
 #define FLASH_DISPATCH_TD(CALL, T, D)                                      \
-  if (segs) return drop ? CALL(T, D, true, true) : CALL(T, D, true, false); \
-  return drop ? CALL(T, D, false, true) : CALL(T, D, false, false)
+  if (segs) {                                                              \
+    if (drop) return biased ? CALL(T, D, true, true, true)                 \
+                            : CALL(T, D, true, true, false);               \
+    return biased ? CALL(T, D, true, false, true)                          \
+                  : CALL(T, D, true, false, false);                        \
+  }                                                                        \
+  if (drop) return biased ? CALL(T, D, false, true, true)                  \
+                          : CALL(T, D, false, true, false);                \
+  return biased ? CALL(T, D, false, false, true)                           \
+                : CALL(T, D, false, false, false)
 #define FLASH_DISPATCH(CALL)                                               \
   if (flash::bad_shape(bh, sq, sk) ||                                      \
-      attn::bad_ids(q_ids, kv_ids, bh, heads))                             \
+      attn::bad_ids(q_ids, kv_ids, bh, heads) ||                           \
+      attn::bad_bias(bias, bias_stride_b, bias_stride_h, bh, heads))       \
     return cudaErrorInvalidValue;                                          \
   cudaStream_t s = static_cast<cudaStream_t>(stream);                      \
   const bool segs = q_ids != nullptr;                                      \
   const bool drop = inv_keep != 0.0f;                                      \
+  const bool biased = bias != nullptr;                                     \
   const attn::Dropout dr{seed, keep_threshold, inv_keep};                  \
+  const attn::Bias bs{bias, bias_stride_b, bias_stride_h};                 \
   if (dtype == 0 && d == 128) { FLASH_DISPATCH_TD(CALL, float, 128); }     \
   if (dtype == 0 && d == 64) { FLASH_DISPATCH_TD(CALL, float, 64); }       \
   if (dtype == 1 && d == 128) { FLASH_DISPATCH_TD(CALL, flash::bf16, 128); } \
@@ -840,42 +886,45 @@ bool bad_shape(int bh, int sq, int sk) {
 extern "C" {
 
 int flash_fwd(const void* q, const void* k, const void* v, const int* q_ids,
-              const int* kv_ids, void* out, float* lse, int bh, int heads,
-              int sq, int sk, int d, int dtype, int causal, float scale,
-              unsigned seed, unsigned keep_threshold, float inv_keep,
-              void* stream) {
-#define CALL(T, D, SEGS, DROP)                                             \
-  flash::launch_fwd<T, D, SEGS, DROP>(q, k, v, q_ids, kv_ids, out, lse,   \
-                                      bh, heads, sq, sk, causal, scale, dr, s)
+              const int* kv_ids, const float* bias, void* out, float* lse,
+              int bh, int heads, int sq, int sk, int d, int dtype, int causal,
+              int bias_stride_b, int bias_stride_h, float scale, unsigned seed,
+              unsigned keep_threshold, float inv_keep, void* stream) {
+#define CALL(T, D, SEGS, DROP, BIAS)                                       \
+  flash::launch_fwd<T, D, SEGS, DROP, BIAS>(q, k, v, q_ids, kv_ids, out, lse,   \
+                                      bh, heads, sq, sk, causal, scale, dr, \
+                                      bs, s)
   FLASH_DISPATCH(CALL);
 #undef CALL
 }
 
 // lse, delta: (bh, sq) fp32, delta = rowsum(dout * out).
 int flash_bwd_dkv(const void* q, const void* k, const void* v,
-                  const int* q_ids, const int* kv_ids, const void* dout,
-                  const float* lse, const float* delta, void* dk, void* dv,
-                  int bh, int heads, int sq, int sk, int d, int dtype,
-                  int causal, float scale, unsigned seed,
-                  unsigned keep_threshold, float inv_keep, void* stream) {
-#define CALL(T, D, SEGS, DROP)                                             \
-  flash::launch_dkv<T, D, SEGS, DROP>(q, k, v, q_ids, kv_ids, dout, lse,  \
+                  const int* q_ids, const int* kv_ids, const float* bias,
+                  const void* dout, const float* lse, const float* delta,
+                  void* dk, void* dv, int bh, int heads, int sq, int sk, int d,
+                  int dtype, int causal, int bias_stride_b, int bias_stride_h,
+                  float scale, unsigned seed, unsigned keep_threshold,
+                  float inv_keep, void* stream) {
+#define CALL(T, D, SEGS, DROP, BIAS)                                       \
+  flash::launch_dkv<T, D, SEGS, DROP, BIAS>(q, k, v, q_ids, kv_ids, dout, lse,  \
                                       delta, dk, dv, bh, heads, sq, sk,    \
-                                      causal, scale, dr, s)
+                                      causal, scale, dr, bs, s)
   FLASH_DISPATCH(CALL);
 #undef CALL
 }
 
 int flash_bwd_dq(const void* q, const void* k, const void* v,
-                 const int* q_ids, const int* kv_ids, const void* dout,
-                 const float* lse, const float* delta, void* dq, int bh,
-                 int heads, int sq, int sk, int d, int dtype, int causal,
-                 float scale, unsigned seed, unsigned keep_threshold,
-                 float inv_keep, void* stream) {
-#define CALL(T, D, SEGS, DROP)                                             \
-  flash::launch_dq<T, D, SEGS, DROP>(q, k, v, q_ids, kv_ids, dout, lse,   \
+                 const int* q_ids, const int* kv_ids, const float* bias,
+                 const void* dout, const float* lse, const float* delta,
+                 void* dq, int bh, int heads, int sq, int sk, int d, int dtype,
+                 int causal, int bias_stride_b, int bias_stride_h, float scale,
+                 unsigned seed, unsigned keep_threshold, float inv_keep,
+                 void* stream) {
+#define CALL(T, D, SEGS, DROP, BIAS)                                       \
+  flash::launch_dq<T, D, SEGS, DROP, BIAS>(q, k, v, q_ids, kv_ids, dout, lse,   \
                                      delta, dq, bh, heads, sq, sk, causal, \
-                                     scale, dr, s)
+                                     scale, dr, bs, s)
   FLASH_DISPATCH(CALL);
 #undef CALL
 }

@@ -23,38 +23,45 @@
 // packed varlen batches at 512 < max_s <= 2048) the entries launch the
 // SEGS instances, counted as mid_fwd_seg and mid_bwd_seg; with dropout (the
 // flagship trains at s = 1024 with attention dropout 0.1) the DROP
-// instances, counted as mid_fwd_drop and mid_bwd_drop.
+// instances, counted as mid_fwd_drop and mid_bwd_drop; with a bias the
+// BIAS instances, with _bias appended.
 
 #include "attention_common.cuh"
 
 extern "C" {
 
 // dtype: 0 = fp32, 1 = bf16.  q_ids/kv_ids: both null, or (bh / heads, sq)
-// and (bh / heads, sk) int32 segment ids.  seed, keep_threshold, inv_keep:
-// the dropout hash's uint32 seed and threshold and the fp32 1 / (1 - rate);
-// inv_keep = 0 launches the instance without dropout.  Returns a
-// cudaError_t code (0 = success).
+// and (bh / heads, sk) int32 segment ids.  bias: null, or an fp32 additive
+// score bias whose (sq, sk) slab for row bh = b_i * heads + h_i starts
+// b_i * bias_stride_b + h_i * bias_stride_h elements in (a stride of 0 on a
+// broadcast dim).  seed, keep_threshold, inv_keep: the dropout hash's
+// uint32 seed and threshold and the fp32 1 / (1 - rate); inv_keep = 0
+// launches the instance without dropout.  Returns a cudaError_t code (0 =
+// success).
 int mid_fwd(const void* q, const void* k, const void* v, const int* q_ids,
-            const int* kv_ids, void* out, float* lse, int bh, int heads,
-            int sq, int sk, int d, int dtype, int causal, float scale,
-            unsigned seed, unsigned keep_threshold, float inv_keep,
-            void* stream) {
+            const int* kv_ids, const float* bias, void* out, float* lse, int bh,
+            int heads, int sq, int sk, int d, int dtype, int causal,
+            int bias_stride_b, int bias_stride_h, float scale, unsigned seed,
+            unsigned keep_threshold, float inv_keep, void* stream) {
   return attn::fwd(q, k, v, q_ids, kv_ids, out, lse, bh, heads, sq, sk, d,
                    dtype, causal, scale,
-                   attn::Dropout{seed, keep_threshold, inv_keep}, stream);
+                   attn::Dropout{seed, keep_threshold, inv_keep},
+                   attn::Bias{bias, bias_stride_b, bias_stride_h}, stream);
 }
 
 // delta: (bh, sq) fp32 scratch; dlse: (bh, sq) fp32 lse cotangent or null;
-// q_ids/kv_ids as for mid_fwd.
+// q_ids/kv_ids and the bias as for mid_fwd.
 int mid_bwd(const void* q, const void* k, const void* v, const int* q_ids,
-            const int* kv_ids, const void* out, const void* dout,
-            const float* lse, const float* dlse, float* delta, void* dq,
-            void* dk, void* dv, int bh, int heads, int sq, int sk, int d,
-            int dtype, int causal, float scale, unsigned seed,
-            unsigned keep_threshold, float inv_keep, void* stream) {
+            const int* kv_ids, const float* bias, const void* out,
+            const void* dout, const float* lse, const float* dlse, float* delta,
+            void* dq, void* dk, void* dv, int bh, int heads, int sq, int sk,
+            int d, int dtype, int causal, int bias_stride_b, int bias_stride_h,
+            float scale, unsigned seed, unsigned keep_threshold, float inv_keep,
+            void* stream) {
   return attn::bwd(q, k, v, q_ids, kv_ids, out, dout, lse, dlse, delta, dq,
                    dk, dv, bh, heads, sq, sk, d, dtype, causal, scale,
-                   attn::Dropout{seed, keep_threshold, inv_keep}, stream);
+                   attn::Dropout{seed, keep_threshold, inv_keep},
+                   attn::Bias{bias, bias_stride_b, bias_stride_h}, stream);
 }
 
 const char* error_string(int err) {

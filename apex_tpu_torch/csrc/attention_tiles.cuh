@@ -262,5 +262,89 @@ __device__ __forceinline__ bool drop_keep(const Dropout& dr, unsigned h,
   return (r >> 8) < dr.threshold;
 }
 
+// ------------------------------------------------------------------- bias
+//
+// The additive bias (the Pallas bodies' has_bias): an fp32 score bias added
+// after the scale and before the mask (apex_tpu/ops/attention_short.py:179-
+// 184, :257-260; attention_mid.py:251-253, :369-371; attention.py:250-251,
+// :465-466, :581-582).  The wrappers hand it over as an fp32 (nb, nh, sq,
+// sk) tensor, nb in {1, batch} and nh in {1, heads}, with the element
+// strides between batch rows and between heads (0 on a broadcast dim), so
+// a shared or per-batch bias is never expanded per head.  Every instance
+// takes the pointer and strides (null without a bias); a BIAS template
+// flag, beside SEGS and DROP, decides whether an instance reads them.  A
+// null test alone, uniform over the grid, kept the instance count down but
+// slowed the instances without a bias by up to 17% on an H100 (the
+// alternated A/B of apex_tpu_torch/tools/attention_ab.py, the test inside
+// or hoisted out of the pair loop alike), while the flag cost no build time
+// that showed (one nvcc a source, all at once).  Each lane reads the bias of
+// the (query, key) pairs it owns straight from global memory into
+// registers before the tile's products, so the loads' latency hides behind
+// them (4-byte loads through the read-only path, no alignment asked of a
+// row of sk values; pairs past (sq, sk) read nothing); nothing is staged in
+// shared memory (the d = 128 tiles are near the 227 KB a block may use).
+// The predicate alone decides what is masked: a pair the bias pushes to
+// -1e30 stays visible, so a row the bias masks entirely is a uniform mean,
+// as in JAX, not the "no visible key" row of segment ids.  The backward
+// kernels add the same values to recompute p = exp(s - lse); the gradient
+// of the bias itself (queue B item 2d) is not emitted here.
+
+struct Bias {
+  const float* ptr;   // (nb, nh, sq, sk) fp32, or null: no bias
+  int stride_b;       // elements between batch rows' slabs (0: shared)
+  int stride_h;       // elements between heads' slabs (0: shared)
+};
+
+// The (sq, sk) slab of flattened row bh = b_i * heads + h_i, or null.
+__device__ __forceinline__ const float* bias_slab(const Bias& b, long bh,
+                                                  int heads) {
+  if (b.ptr == nullptr) return nullptr;
+  return b.ptr + (bh / heads) * (long)b.stride_b +
+         (bh % heads) * (long)b.stride_h;
+}
+
+// The bias of the pairs one warp owns, read into registers before a tile's
+// products so that the loads' latency hides behind them (a block runs 4 or
+// 8 warps): rows row0 + r (r < kRows) and columns col0 + lane + 32 j (j <
+// J) are queries and keys, or with KEY_ROWS (the dK/dV kernels, whose warps
+// own keys) keys and queries.  A pair past (sq, sk) reads nothing.
+template <int J, bool KEY_ROWS>
+__device__ __forceinline__ void load_bias(float (&bv)[kRows][J],
+                                          const float* slab, int sq, int sk,
+                                          int row0, int col0, int lane) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int qi = KEY_ROWS ? col0 + lane + 32 * j : row0 + r;
+      const int kj = KEY_ROWS ? row0 + r : col0 + lane + 32 * j;
+      bv[r][j] = qi < sq && kj < sk ? __ldg(slab + (long)qi * sk + kj) : 0.0f;
+    }
+  }
+}
+
+// s + b for a score s that is already scaled, in an instance that reads a
+// bias (B), rounded once as the Pallas bodies' fp32 add is; s itself
+// otherwise.  The forward and the backward add the same value to the same
+// scaled score, so p = exp(s - lse) replays the forward's s.  b is taken
+// by reference: an instance without a bias never reads its unset
+// registers.
+template <bool B>
+__device__ __forceinline__ float biased(float s, const float& b) {
+  if constexpr (B) {
+    return __fadd_rn(s, b);
+  } else {
+    return s;
+  }
+}
+
+// The C entries' check of the bias arguments: whole batch rows of `heads`
+// rows each, and strides that are not negative.
+inline bool bad_bias(const float* bias, int stride_b, int stride_h, int bh,
+                     int heads) {
+  return bias != nullptr &&
+         (heads <= 0 || bh % heads != 0 || stride_b < 0 || stride_h < 0);
+}
+
 }  // namespace
 }  // namespace attn

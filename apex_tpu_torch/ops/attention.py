@@ -23,8 +23,11 @@ segment instances, and dropout (``dropout_rate`` with a uint32
 ``mha_reference`` draw the same mask for a seed: :func:`keep_mask` (a
 copy of the JAX ``_keep_mask``, with ``mix32`` and ``keep_threshold``)
 over the global flattened batch*head index and the absolute query and
-key positions.  An additive bias raises ``NotImplementedError``
-(ROADMAP.md queue B items 2c-2d).
+key positions.  An additive ``bias`` broadcastable from ``(1|b, 1|h, sq,
+sk)`` goes down every rung to its kernels, which add it in fp32 to the
+scaled scores before the mask (``_bias`` launch counters); its gradient is
+a hard zero, and a bias that requires grad raises ``NotImplementedError``
+unless ``bias_requires_grad=False`` (dBias is ROADMAP.md queue B item 2d).
 """
 
 from __future__ import annotations
@@ -33,16 +36,15 @@ from typing import Optional
 
 import torch
 
-from apex_tpu_torch.ops.attention_flash import (
-    flash_bwd_dkv,
-    flash_bwd_dq,
-    flash_delta,
-    flash_fwd,
-)
+from apex_tpu_torch.ops.attention_flash import checked as flash_checked
+from apex_tpu_torch.ops.attention_flash import flash_delta
+from apex_tpu_torch.ops.attention_flash import run_bwd as flash_run_bwd
+from apex_tpu_torch.ops.attention_flash import run_fwd as flash_run_fwd
 from apex_tpu_torch.ops.attention_mid import fmha_mid, mid_seq_threshold
 from apex_tpu_torch.ops.attention_short import (
     dropout_spec,
     fmha_short,
+    keep_bias_like,
     keep_mask,
     keep_rows,
     keep_threshold,
@@ -52,6 +54,7 @@ from apex_tpu_torch.ops.attention_short import (
     segment_ids,
     short_seq_threshold,
     visible,
+    zero_bias_grad,
 )
 
 __all__ = ["flash_attention", "mha_reference", "keep_mask", "keep_threshold",
@@ -111,44 +114,50 @@ def mha_reference(
 class _Flash(torch.autograd.Function):
     """``out = attention(q, k, v)`` over ``(b*h, s, d)`` through the flash
     kernels; saves ``(q, k, v, out, lse)`` as the JAX ``_flash_fwd``
-    does, and the segment ids with their ``heads`` and the dropout rate
-    and seed.  The backward takes ``delta = rowsum(dout * out)`` once and
-    runs the dK/dV and the dQ kernel on it, each replaying the mask."""
+    does, the bias as the kernels read it, and the segment ids with their
+    ``heads`` and the dropout rate and seed.  The backward takes ``delta =
+    rowsum(dout * out)`` once and runs the dK/dV and the dQ kernel on it,
+    each replaying the mask and the bias; the bias gets a zero
+    gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, q_ids, kv_ids, heads, rate,
-                seed):
-        kw = dict(causal=causal, sm_scale=sm_scale, q_segment_ids=q_ids,
-                  kv_segment_ids=kv_ids, heads=heads, dropout_rate=rate,
-                  dropout_seed=seed)
-        out, lse = flash_fwd(q, k, v, **kw)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.kw = kw
+                seed, bias):
+        ops = flash_checked("flash_fwd", q, k, v, sm_scale, q_ids, kv_ids,
+                            heads, rate, seed, bias)
+        out, lse = flash_run_fwd(q, k, v, causal, **ops)
+        ctx.save_for_backward(q, k, v, out, lse, ops.pop("slab"))
+        ctx.causal, ctx.ops = causal, ops
+        keep_bias_like(ctx, bias)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, slab = ctx.saved_tensors
         dout = dout.contiguous()
         delta = flash_delta(out, dout)
-        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, **ctx.kw)
-        dq = flash_bwd_dq(q, k, v, dout, lse, delta, **ctx.kw)
-        return dq, dk, dv, None, None, None, None, None, None, None
+        dk, dv = flash_run_bwd("flash_bwd_dkv", q, k, v, dout, lse, delta,
+                               ctx.causal, **ctx.ops, slab=slab)
+        dq = flash_run_bwd("flash_bwd_dq", q, k, v, dout, lse, delta,
+                           ctx.causal, **ctx.ops, slab=slab)
+        return (dq, dk, dv, None, None, None, None, None, None, None,
+                zero_bias_grad(ctx))
 
 
 def _flash_attention_kernels(q, k, v, causal, sm_scale, q_ids=None,
                              kv_ids=None, dropout_rate=0.0,
-                             dropout_seed=None):
+                             dropout_seed=None, bias=None):
     """The flash rung over ``(b, h, s, d)``: pad a head dim the kernels do
     not take (as the short rung does), flatten to ``(b*h, s, d)`` (row
     ``b_i * h + h_i``, the dropout hash's ``bh``), run ``_Flash``
-    (segment ids stay ``(b, s)``), restore the heads."""
+    (segment ids stay ``(b, s)``, the bias its ``(1|b, 1|h, sq, sk)``),
+    restore the heads."""
     b, h, sq, d = q.shape
     q, k, v, scale = pad_head_dim(q, k, v, sm_scale)
     dp = q.shape[-1]
     flat = lambda x: x.reshape(b * h, x.shape[2], dp)
     out = _Flash.apply(flat(q), flat(k), flat(v), causal, scale, q_ids,
-                       kv_ids, h, dropout_rate, dropout_seed)
+                       kv_ids, h, dropout_rate, dropout_seed, bias)
     return out.reshape(b, h, sq, dp)[..., :d]
 
 
@@ -190,12 +199,20 @@ def flash_attention(
     and ``contrib.fmha``'s packed varlen batches); every rung takes them.
     ``dropout_rate`` > 0 with a uint32 ``dropout_seed`` (int, numpy or 0-d
     tensor; ``ValueError`` without one) drops probabilities on every rung
-    with the same mask.  A bias raises ``NotImplementedError`` naming its
-    ROADMAP.md item; ``bias_requires_grad`` without a bias changes nothing
-    (the T5 and contrib callers pass ``False``)."""
+    with the same mask.
+
+    ``bias`` is an additive fp32 score bias broadcastable from ``(1|b,
+    1|h, sq, sk)`` (fewer dims are leading ones, as in JAX), added to the
+    scaled scores before the mask on every rung; a broadcast batch or head
+    dim stays broadcast (never expanded per head).  Its gradient is a
+    hard zero: the T5 and contrib callers pass ``bias_requires_grad=False``
+    for their constant masks, and a bias that requires grad with
+    ``bias_requires_grad=True`` raises ``NotImplementedError`` (dBias,
+    ROADMAP.md queue B item 2d).  A row the bias alone masks (-1e30 on
+    every key) is a uniform mean of V, as JAX's softmax gives."""
     if (q_segment_ids is None) != (kv_segment_ids is None):
         raise ValueError("segment ids must be given for both q and kv")
-    reject_unported("flash_attention", bias)
+    reject_unported("flash_attention", bias, bias_requires_grad)
     dropout_spec("flash_attention", dropout_rate, dropout_seed)
     rung = implementation
     if rung is None:
@@ -210,14 +227,17 @@ def flash_attention(
     ids = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
                dropout_rate=dropout_rate, dropout_seed=dropout_seed)
     if rung == "short":
-        return fmha_short(q, k, v, causal=causal, sm_scale=sm_scale, **ids)
+        return fmha_short(q, k, v, causal=causal, sm_scale=sm_scale,
+                          bias=bias, bias_requires_grad=bias_requires_grad,
+                          **ids)
     if rung == "mid":
-        return fmha_mid(q, k, v, causal=causal, sm_scale=sm_scale, **ids)
+        return fmha_mid(q, k, v, causal=causal, sm_scale=sm_scale, bias=bias,
+                        bias_requires_grad=bias_requires_grad, **ids)
     if rung == "pallas":
         segment_ids("flash_attention", q_segment_ids, kv_segment_ids,
                     q.shape[0], q.shape[2], k.shape[2])
         return _flash_attention_kernels(q, k, v, causal, sm_scale,
                                         q_segment_ids, kv_segment_ids,
-                                        dropout_rate, dropout_seed)
+                                        dropout_rate, dropout_seed, bias)
     raise ValueError(f"implementation={implementation!r}: expected None or "
                      f"one of {_RUNGS}")

@@ -42,8 +42,18 @@ by value; the dropout instances count as ``flash_fwd_drop``,
 ``flash_bwd_dkv_drop`` and ``flash_bwd_dq_drop`` (``_seg_drop`` beside
 segment ids).
 
+The additive bias (the Pallas bodies' ``has_bias``): every entry takes
+``bias`` broadcastable to ``(bh / heads, heads, sq, sk)``, turned into the
+short rung's :func:`~apex_tpu_torch.ops.attention_short.bias_slab` (fp32,
+``(nb, nh, sq, sk)``, never expanded over a broadcast dim) and handed to
+the C entries as a pointer with its batch and head strides.  The forward
+adds it to its scaled scores, both backward kernels to ``(q . k) *
+scale`` before ``p = exp(s - lse)``; launches count with ``_bias``
+appended.  No kernel emits the bias's gradient (dBias, ROADMAP.md queue B
+item 2d).
+
 A CUDA tensor runs the kernel or raises; a CPU tensor runs the plain
-version.  Not ported yet: the additive bias (ROADMAP.md queue B item 2c).
+version.
 """
 
 from __future__ import annotations
@@ -59,7 +69,10 @@ from apex_tpu_torch.ops.attention_short import (
     DTYPES,
     FWD_ARGTYPES,
     _NEG_INF,
+    add_bias,
     apply_keep,
+    bias_operands,
+    bias_slab,
     check_kernel_inputs,
     counter,
     data_ptr,
@@ -85,14 +98,15 @@ SEG = {KERNEL: "flash_fwd_seg", KERNEL_DKV: "flash_bwd_dkv_seg",
        KERNEL_DQ: "flash_bwd_dq_seg"}
 
 #: ctypes argument types of the C entries, as ``csrc/attention_flash.cu``
-#: declares them: pointers (q, k, v, q_ids, kv_ids, then each entry's
-#: own), the ints bh, heads, sq, sk, d, dtype, causal, then scale, the
-#: dropout seed, keep threshold and scale, and the stream
+#: declares them: pointers (q, k, v, q_ids, kv_ids, bias, then each
+#: entry's own), the ints bh, heads, sq, sk, d, dtype, causal and the two
+#: bias strides, then scale, the dropout seed, keep threshold and scale,
+#: and the stream
 ARGTYPES = {
     KERNEL: FWD_ARGTYPES,
-    KERNEL_DKV: [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+    KERNEL_DKV: [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [
         ctypes.c_float] + DROP_ARGTYPES + [ctypes.c_void_p],
-    KERNEL_DQ: [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+    KERNEL_DQ: [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
         ctypes.c_float] + DROP_ARGTYPES + [ctypes.c_void_p],
 }
 
@@ -105,14 +119,15 @@ def _operand(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _flash_fwd_plain(q, k, v, causal, scale, q_ids=None, kv_ids=None,
-                     heads=None, drop=None):
+                     heads=None, drop=None, bias=None):
     """The plain forward over ``(bh, s, d)``, the kernel's arithmetic:
-    ``q * scale`` in fp32 before the product, fp32 scores, -1e30 fill,
-    masked probabilities zero, ``l`` (from the fp32 probabilities)
-    clamped at 1e-30, ``p`` (dropped and scaled with ``drop = (rate,
-    seed)``) rounded to bf16 for the bf16 ``p . v``."""
+    ``q * scale`` in fp32 before the product, fp32 scores, the
+    :func:`bias_slab` ``bias`` added, -1e30 fill, masked probabilities
+    zero, ``l`` (from the fp32 probabilities) clamped at 1e-30, ``p``
+    (dropped and scaled with ``drop = (rate, seed)``) rounded to bf16 for
+    the bf16 ``p . v``."""
     qs = _operand(q.float() * scale, q.dtype)
-    s = torch.matmul(qs, k.float().transpose(-1, -2))
+    s = add_bias(torch.matmul(qs, k.float().transpose(-1, -2)), bias)
     mask = visible(q.shape[-2], k.shape[-2], causal, q_ids, kv_ids, heads,
                    q.device)
     if mask is not None:
@@ -137,15 +152,15 @@ def flash_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
 
 
 def _flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale, q_ids=None,
-                     kv_ids=None, heads=None, drop=None):
+                     kv_ids=None, heads=None, drop=None, bias=None):
     """``(dq, dk, dv)`` with the kernels' arithmetic: ``s = (q . k) *
-    scale``, ``p = exp(s - lse)`` with masked entries zero, ``dz = p *
-    (dp - delta)``, and for bf16 inputs ``p`` and ``dz * scale`` rounded
-    to bf16 as the operands of their products.  With ``drop`` the mask is
-    replayed: dV takes the dropped ``p``, ``dp`` is dropped before
-    ``dz``."""
+    scale`` plus the ``bias``, ``p = exp(s - lse)`` with masked entries
+    zero, ``dz = p * (dp - delta)``, and for bf16 inputs ``p`` and ``dz *
+    scale`` rounded to bf16 as the operands of their products.  With
+    ``drop`` the mask is replayed: dV takes the dropped ``p``, ``dp`` is
+    dropped before ``dz``."""
     qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    s = add_bias(torch.matmul(qf, kf.transpose(-1, -2)) * scale, bias)
     p = torch.exp(s - lse[..., None])
     mask = visible(q.shape[-2], k.shape[-2], causal, q_ids, kv_ids, heads,
                    q.device)
@@ -175,21 +190,24 @@ def _entry(symbol: str):
 
 
 def _check_flat(kernel: str, q, k, v, q_ids=None, kv_ids=None,
-                heads=None):
-    """Check the flattened operands and the segment ids of ``bh /
-    heads`` batch rows; returns the ids as given (or Nones)."""
+                heads=None, bias=None):
+    """Check the flattened operands, the segment ids of ``bh / heads``
+    batch rows and the bias; returns ``(ids, slab)``: the ids as given (or
+    Nones) and the bias as :func:`bias_slab` makes it (or None)."""
     if q.ndim != 3 or k.shape != v.shape or k.ndim != 3 \
             or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
         raise ValueError(f"{kernel}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} are not (b*h, s, d) alike")
-    if q_ids is None and kv_ids is None:
-        return None, None
+    if q_ids is None and kv_ids is None and bias is None:
+        return (None, None), None
     bh = q.shape[0]
     if heads is None or heads <= 0 or bh % heads:
-        raise ValueError(f"{kernel}: segment ids need heads dividing "
-                         f"b*h = {bh}, got heads={heads}")
-    return segment_ids(kernel, q_ids, kv_ids, bh // heads, q.shape[1],
-                       k.shape[1])
+        raise ValueError(f"{kernel}: segment ids and a bias need heads "
+                         f"dividing b*h = {bh}, got heads={heads}")
+    ids = segment_ids(kernel, q_ids, kv_ids, bh // heads, q.shape[1],
+                      k.shape[1])
+    return ids, bias_slab(kernel, bias, bh // heads, heads, q.shape[1],
+                          k.shape[1])
 
 
 def _check_cuda(kernel: str, q, k, v, *rest) -> None:
@@ -207,23 +225,26 @@ def _check_cuda(kernel: str, q, k, v, *rest) -> None:
 
 
 def _launch(kernel, q, k, v, ids, heads, rest, outs, causal, scale,
-            drop=None):
-    """Launch the C entry ``kernel``: pointers q, k, v, the ids, then
-    ``rest`` (inputs) and ``outs`` (outputs), then the sizes and the
-    dropout arguments.  Counts the launch under the kernel's name, or its
-    segment counter with ids, with ``_drop`` for ``drop = (rate,
-    seed)``."""
+            drop=None, bias=None):
+    """Launch the C entry ``kernel``: pointers q, k, v, the ids, the bias
+    (a :func:`bias_slab` tensor or None), then ``rest`` (inputs) and
+    ``outs`` (outputs), then the sizes, the bias strides and the dropout
+    arguments.  Counts the launch under the kernel's name, or its segment
+    counter with ids, with ``_drop`` for ``drop = (rate, seed)`` and
+    ``_bias`` with a bias."""
     q_ids, kv_ids = id_operands(*ids)
-    if q_ids is not None:
-        check_operands(kernel, q, q_ids, kv_ids)
+    check_operands(kernel, q, *(t for t in (q_ids, kv_ids, bias)
+                                if t is not None))
+    bias_ptr, bias_b, bias_h = bias_operands(kernel, bias)
     bh, sq, d = q.shape
     lib, fn = _entry(kernel)
-    name = counter((kernel, SEG[kernel]), q_ids is not None, drop)
+    name = counter((kernel, SEG[kernel]), q_ids is not None, drop, bias)
     count_launch(name)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), data_ptr(q_ids),
-             data_ptr(kv_ids), *(t.data_ptr() for t in rest + outs), bh,
-             heads or 1, sq, k.shape[1], d, DTYPES[q.dtype], int(causal),
-             float(scale), *drop_operands(drop), stream_of(q))
+             data_ptr(kv_ids), bias_ptr, *(t.data_ptr() for t in rest + outs),
+             bh, heads or 1, sq, k.shape[1], d, DTYPES[q.dtype], int(causal),
+             bias_b, bias_h, float(scale), *drop_operands(drop),
+             stream_of(q))
     check(lib, name, err)
 
 
@@ -232,16 +253,36 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               q_segment_ids: Optional[torch.Tensor] = None,
               kv_segment_ids: Optional[torch.Tensor] = None,
               heads: Optional[int] = None, dropout_rate: float = 0.0,
-              dropout_seed=None) -> Tuple[torch.Tensor, torch.Tensor]:
+              dropout_seed=None, bias: Optional[torch.Tensor] = None,
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, lse)`` over ``q (bh, sq, d)``, ``k, v (bh, sk, d)``:
     ``out`` in q's dtype, ``lse (bh, sq)`` fp32.  Segment ids are ``(bh
     / heads, sq)`` and ``(bh / heads, sk)``; dropout hashes the row of
-    ``bh``."""
-    ids = _check_flat(KERNEL, q, k, v, q_segment_ids, kv_segment_ids, heads)
-    drop = dropout_spec(KERNEL, dropout_rate, dropout_seed)
-    scale = softmax_scale(q, sm_scale)
+    ``bh``; ``bias`` is broadcastable to ``(bh / heads, heads, sq,
+    sk)``."""
+    return run_fwd(q, k, v, causal, **checked(
+        KERNEL, q, k, v, sm_scale, q_segment_ids, kv_segment_ids, heads,
+        dropout_rate, dropout_seed, bias))
+
+
+def checked(kernel, q, k, v, sm_scale, q_segment_ids, kv_segment_ids,
+            heads, dropout_rate, dropout_seed, bias) -> dict:
+    """An entry's operands, checked once: the keywords of :func:`run_fwd`
+    and :func:`run_bwd` (the scale, the ids and their ``heads``, the
+    dropout spec and the :func:`bias_slab` tensor)."""
+    ids, slab = _check_flat(kernel, q, k, v, q_segment_ids, kv_segment_ids,
+                            heads, bias)
+    return dict(drop=dropout_spec(kernel, dropout_rate, dropout_seed),
+                scale=softmax_scale(q, sm_scale), ids=ids, heads=heads,
+                slab=slab)
+
+
+def run_fwd(q, k, v, causal, *, scale, ids, heads, drop, slab):
+    """:func:`flash_fwd` on :func:`checked` operands: the kernel on a CUDA
+    tensor, the plain version on a CPU one."""
     if q.device.type == "cpu":
-        return _flash_fwd_plain(q, k, v, causal, scale, *ids, heads, drop)
+        return _flash_fwd_plain(q, k, v, causal, scale, *ids, heads, drop,
+                                slab)
     if not q.is_cuda:
         raise ValueError(f"{KERNEL}: unsupported device {q.device}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -249,8 +290,28 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     _launch(KERNEL, q, k, v, ids, heads, (), (out, lse), causal, scale,
-            drop)
+            drop, slab)
     return out, lse
+
+
+def run_bwd(kernel, q, k, v, dout, lse, delta, causal, *, scale, ids, heads,
+            drop, slab):
+    """:func:`flash_bwd_dkv` (``kernel`` :data:`KERNEL_DKV`: ``(dk, dv)``)
+    or :func:`flash_bwd_dq` (:data:`KERNEL_DQ`: ``dq``) on :func:`checked`
+    operands."""
+    if q.device.type == "cpu":
+        dq, dk, dv = _flash_bwd_plain(q, k, v, dout, lse, delta, causal,
+                                      scale, *ids, heads, drop, slab)
+        return (dk, dv) if kernel == KERNEL_DKV else dq
+    if not q.is_cuda:
+        raise ValueError(f"{kernel}: unsupported device {q.device}")
+    q, k, v, dout, lse, delta = _bwd_operands(kernel, q, k, v, dout, lse,
+                                              delta)
+    outs = ((torch.empty_like(k), torch.empty_like(v)) if kernel == KERNEL_DKV
+            else (torch.empty_like(q),))
+    _launch(kernel, q, k, v, ids, heads, (dout, lse, delta), outs, causal,
+            scale, drop, slab)
+    return outs if kernel == KERNEL_DKV else outs[0]
 
 
 def _bwd_operands(kernel, q, k, v, dout, lse, delta):
@@ -272,25 +333,14 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   q_segment_ids: Optional[torch.Tensor] = None,
                   kv_segment_ids: Optional[torch.Tensor] = None,
                   heads: Optional[int] = None, dropout_rate: float = 0.0,
-                  dropout_seed=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                  dropout_seed=None, bias: Optional[torch.Tensor] = None,
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dk, dv)`` of :func:`flash_fwd` from its ``lse``, the cotangent
     ``dout`` and ``delta = flash_delta(out, dout)``, with the forward's
-    mask and dropout."""
-    ids = _check_flat(KERNEL_DKV, q, k, v, q_segment_ids, kv_segment_ids,
-                      heads)
-    drop = dropout_spec(KERNEL_DKV, dropout_rate, dropout_seed)
-    scale = softmax_scale(q, sm_scale)
-    if q.device.type == "cpu":
-        return _flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale,
-                                *ids, heads, drop)[1:]
-    if not q.is_cuda:
-        raise ValueError(f"{KERNEL_DKV}: unsupported device {q.device}")
-    q, k, v, dout, lse, delta = _bwd_operands(KERNEL_DKV, q, k, v, dout,
-                                              lse, delta)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch(KERNEL_DKV, q, k, v, ids, heads, (dout, lse, delta), (dk, dv),
-            causal, scale, drop)
-    return dk, dv
+    mask, dropout and bias."""
+    return run_bwd(KERNEL_DKV, q, k, v, dout, lse, delta, causal, **checked(
+        KERNEL_DKV, q, k, v, sm_scale, q_segment_ids, kv_segment_ids, heads,
+        dropout_rate, dropout_seed, bias))
 
 
 def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -299,20 +349,9 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  q_segment_ids: Optional[torch.Tensor] = None,
                  kv_segment_ids: Optional[torch.Tensor] = None,
                  heads: Optional[int] = None, dropout_rate: float = 0.0,
-                 dropout_seed=None) -> torch.Tensor:
+                 dropout_seed=None, bias: Optional[torch.Tensor] = None,
+                 ) -> torch.Tensor:
     """``dq`` of :func:`flash_fwd`, as :func:`flash_bwd_dkv` takes it."""
-    ids = _check_flat(KERNEL_DQ, q, k, v, q_segment_ids, kv_segment_ids,
-                      heads)
-    drop = dropout_spec(KERNEL_DQ, dropout_rate, dropout_seed)
-    scale = softmax_scale(q, sm_scale)
-    if q.device.type == "cpu":
-        return _flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale,
-                                *ids, heads, drop)[0]
-    if not q.is_cuda:
-        raise ValueError(f"{KERNEL_DQ}: unsupported device {q.device}")
-    q, k, v, dout, lse, delta = _bwd_operands(KERNEL_DQ, q, k, v, dout, lse,
-                                              delta)
-    dq = torch.empty_like(q)
-    _launch(KERNEL_DQ, q, k, v, ids, heads, (dout, lse, delta), (dq,),
-            causal, scale, drop)
-    return dq
+    return run_bwd(KERNEL_DQ, q, k, v, dout, lse, delta, causal, **checked(
+        KERNEL_DQ, q, k, v, sm_scale, q_segment_ids, kv_segment_ids, heads,
+        dropout_rate, dropout_seed, bias))

@@ -26,8 +26,11 @@ launch the kernels' segment instances (counted as ``mid_fwd_seg`` and
 kernels' dropout instances with the short rung's counter hash, the same
 global (bh, query, key) indexing, so every rung draws the same mask for
 a seed (counted as ``mid_fwd_drop``/``mid_bwd_drop``, with ``_seg_drop``
-beside segment ids); the flagship trains through them at s = 1024.  Not
-ported yet: the additive bias (ROADMAP.md queue B item 2c).
+beside segment ids); the flagship trains through them at s = 1024.  The
+additive bias goes to the same C entries as the short rung's does (its
+:func:`~apex_tpu_torch.ops.attention_short.bias_slab` and strides; counted
+with ``_bias`` appended); its own gradient (dBias, ROADMAP.md queue B item
+2d) is not ported, so a trainable bias needs ``bias_requires_grad=False``.
 """
 
 from __future__ import annotations
@@ -45,7 +48,9 @@ from apex_tpu_torch.ops.attention_short import (
     _NEG_INF,
     _short_bwd_plain,
     _short_fwd_plain,
+    bias_slab,
     check_shapes,
+    keep_bias_like,
     dropout_spec,
     launch_bwd,
     launch_fwd,
@@ -54,6 +59,7 @@ from apex_tpu_torch.ops.attention_short import (
     segment_ids,
     softmax_scale,
     visible,
+    zero_bias_grad,
 )
 from apex_tpu_torch.ops.common import check_implementation, load
 
@@ -69,8 +75,9 @@ KERNEL_BWD_SEG = "mid_bwd_seg"
 ARGTYPES = {KERNEL: FWD_ARGTYPES, KERNEL_BWD: BWD_ARGTYPES}
 
 #: The longest sequence the ladder sends to the mid rung.  2048 is the JAX
-#: package's window; it is NOT a crossover measured on the H100 (the flash
-#: rung it would cross over to is not ported yet).
+#: package's window; it is NOT a crossover measured on the H100, where the
+#: flash rung ran 1.41-1.58x faster than this one at s = 1024-4096
+#: (PERF.md); the constant has not moved on that reading yet.
 FMHA_MID_MAX_SEQ = 2048
 
 
@@ -83,24 +90,26 @@ def mid_seq_threshold() -> int:
 
 
 def _mid_fwd_plain(q, k, v, causal, scale, q_ids=None, kv_ids=None,
-                   drop=None):
+                   drop=None, bias=None):
     """The plain version.  The JAX mid kernel computes the short kernel's
-    function (scaled q, -1e30 fill, masked p zero, ``l`` clamped at
-    1e-30, the same dropout) over streamed blocks, so this is the short
-    kernel's plain version."""
-    return _short_fwd_plain(q, k, v, causal, scale, q_ids, kv_ids, drop)
+    function (scaled q, the bias added, -1e30 fill, masked p zero, ``l``
+    clamped at 1e-30, the same dropout) over streamed blocks, so this is
+    the short kernel's plain version."""
+    return _short_fwd_plain(q, k, v, causal, scale, q_ids, kv_ids, drop,
+                            bias)
 
 
 def _mid_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale,
-                   q_ids=None, kv_ids=None, drop=None):
+                   q_ids=None, kv_ids=None, drop=None, bias=None):
     """The plain backward, the short kernel's with the lse cotangent:
     ``dz = p * (dp - delta + dlse)``."""
     return _short_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale,
-                            q_ids, kv_ids, drop)
+                            q_ids, kv_ids, drop, bias)
 
 
 def _xla_with_lse(q, k, v, causal, sm_scale=None, q_segment_ids=None,
-                  kv_segment_ids=None, dropout_rate=0.0, dropout_seed=None):
+                  kv_segment_ids=None, dropout_rate=0.0, dropout_seed=None,
+                  bias=None):
     """``mha_reference`` plus the per-row log-sum-exp (taken before
     dropout), from the same masked-score formula the kernels use (the JAX
     package's plain reference for ``return_lse`` callers);
@@ -108,12 +117,14 @@ def _xla_with_lse(q, k, v, causal, sm_scale=None, q_segment_ids=None,
     from apex_tpu_torch.ops.attention import mha_reference
 
     out = mha_reference(q, k, v, causal=causal, sm_scale=sm_scale,
-                        q_segment_ids=q_segment_ids,
+                        bias=bias, q_segment_ids=q_segment_ids,
                         kv_segment_ids=kv_segment_ids,
                         dropout_rate=dropout_rate, dropout_seed=dropout_seed)
     sq, sk = q.shape[2], k.shape[2]
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * softmax_scale(
         q, sm_scale)
+    if bias is not None:
+        s = s + bias.float()
     mask = visible(sq, sk, causal, q_segment_ids, kv_segment_ids,
                    device=q.device)
     if mask is None:
@@ -145,22 +156,16 @@ def mid_fwd(
     kv_segment_ids: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
     dropout_seed=None,
+    bias: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, lse)`` of softmax attention over ``(b, h, s, d)``, any
     sequence length (the ladder sends it 512 < s <= 2048), with optional
-    segment ids ``(b, sq)``/``(b, sk)`` and dropout.  A CUDA tensor runs
-    the kernel, a CPU tensor the plain version."""
-    check_shapes(KERNEL, q, k, v)
-    ids = segment_ids(KERNEL, q_segment_ids, kv_segment_ids, q.shape[0],
-                      q.shape[2], k.shape[2])
-    drop = dropout_spec(KERNEL, dropout_rate, dropout_seed)
-    scale = softmax_scale(q, sm_scale)
-    if q.is_cuda:
-        return launch_fwd(_entry, (KERNEL, KERNEL_SEG), q, k, v, causal,
-                          scale, *ids, drop)
-    if q.device.type == "cpu":
-        return _mid_fwd_plain(q, k, v, causal, scale, *ids, drop)
-    raise ValueError(f"{KERNEL}: unsupported device {q.device}")
+    segment ids ``(b, sq)``/``(b, sk)``, dropout and a bias broadcastable
+    to ``(b, h, sq, sk)``.  A CUDA tensor runs the kernel, a CPU tensor
+    the plain version."""
+    return _run_fwd(q, k, v, causal, **_checked(
+        KERNEL, q, k, v, sm_scale, q_segment_ids, kv_segment_ids,
+        dropout_rate, dropout_seed, bias))
 
 
 def mid_bwd(
@@ -177,46 +182,78 @@ def mid_bwd(
     kv_segment_ids: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
     dropout_seed=None,
+    bias: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of :func:`mid_fwd` from its ``out``/``lse``, the
     output cotangent ``dout`` and the optional lse cotangent ``dlse``,
-    with the forward's mask and dropout.  A CUDA tensor runs the kernel, a
-    CPU tensor the plain version."""
-    check_shapes(KERNEL_BWD, q, k, v)
-    ids = segment_ids(KERNEL_BWD, q_segment_ids, kv_segment_ids,
-                      q.shape[0], q.shape[2], k.shape[2])
-    drop = dropout_spec(KERNEL_BWD, dropout_rate, dropout_seed)
-    scale = softmax_scale(q, sm_scale)
+    with the forward's mask, dropout and bias (no gradient of the bias).
+    A CUDA tensor runs the kernel, a CPU tensor the plain version."""
+    return _run_bwd(q, k, v, out, dout, lse, dlse, causal, **_checked(
+        KERNEL_BWD, q, k, v, sm_scale, q_segment_ids, kv_segment_ids,
+        dropout_rate, dropout_seed, bias))
+
+
+def _checked(kernel, q, k, v, sm_scale, q_segment_ids, kv_segment_ids,
+             dropout_rate, dropout_seed, bias) -> dict:
+    """An entry's operands, checked once: the keywords of
+    :func:`_run_fwd` and :func:`_run_bwd` (the scale, the ids, the
+    dropout spec and the :func:`bias_slab` tensor)."""
+    check_shapes(kernel, q, k, v)
+    ids = segment_ids(kernel, q_segment_ids, kv_segment_ids, q.shape[0],
+                      q.shape[2], k.shape[2])
+    return dict(drop=dropout_spec(kernel, dropout_rate, dropout_seed),
+                scale=softmax_scale(q, sm_scale), ids=ids,
+                slab=bias_slab(kernel, bias, *q.shape[:3], k.shape[2]))
+
+
+def _run_fwd(q, k, v, causal, *, scale, ids, drop, slab):
+    """:func:`mid_fwd` on :func:`_checked` operands: the kernel on a CUDA
+    tensor, the plain version on a CPU one."""
+    if q.is_cuda:
+        return launch_fwd(_entry, (KERNEL, KERNEL_SEG), q, k, v, causal,
+                          scale, *ids, drop, slab)
+    if q.device.type == "cpu":
+        return _mid_fwd_plain(q, k, v, causal, scale, *ids, drop, slab)
+    raise ValueError(f"{KERNEL}: unsupported device {q.device}")
+
+
+def _run_bwd(q, k, v, out, dout, lse, dlse, causal, *, scale, ids, drop,
+             slab):
+    """:func:`mid_bwd` on :func:`_checked` operands."""
     if q.is_cuda:
         return launch_bwd(_entry, (KERNEL_BWD, KERNEL_BWD_SEG), q, k, v, out,
-                          dout, lse, dlse, causal, scale, *ids, drop)
+                          dout, lse, dlse, causal, scale, *ids, drop, slab)
     if q.device.type == "cpu":
         return _mid_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale,
-                              *ids, drop)
+                              *ids, drop, slab)
     raise ValueError(f"{KERNEL_BWD}: unsupported device {q.device}")
 
 
 class _MidAttention(torch.autograd.Function):
     """``(out, lse) = attention(q, k, v)`` with the fused backward, which
-    takes a real lse cotangent."""
+    takes a real lse cotangent; the bias, saved as the kernels read it,
+    gets a zero gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, q_ids, kv_ids, rate, seed):
-        out, lse = mid_fwd(q, k, v, causal, sm_scale, q_ids, kv_ids, rate,
-                           seed)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
-        ctx.rest = (q_ids, kv_ids, rate, seed)
+    def forward(ctx, q, k, v, causal, sm_scale, q_ids, kv_ids, rate, seed,
+                bias):
+        ops = _checked(KERNEL, q, k, v, sm_scale, q_ids, kv_ids, rate, seed,
+                       bias)
+        out, lse = _run_fwd(q, k, v, causal, **ops)
+        ctx.save_for_backward(q, k, v, out, lse, ops.pop("slab"))
+        ctx.causal, ctx.ops = causal, ops
+        keep_bias_like(ctx, bias)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, dlse):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, slab = ctx.saved_tensors
         if dout is None:
             dout = torch.zeros_like(out)
-        dq, dk, dv = mid_bwd(q, k, v, out, dout, lse, dlse, ctx.causal,
-                             ctx.sm_scale, *ctx.rest)
-        return dq, dk, dv, None, None, None, None, None, None
+        dq, dk, dv = _run_bwd(q, k, v, out, dout, lse, dlse, ctx.causal,
+                              **ctx.ops, slab=slab)
+        return (dq, dk, dv, None, None, None, None, None, None,
+                zero_bias_grad(ctx))
 
 
 def fmha_mid(
@@ -247,17 +284,19 @@ def fmha_mid(
     are accepted and not used (the CUDA kernels choose their own);
     ``implementation`` None, ``"pallas"`` or ``"mid"`` runs the kernel.
     ``dropout_rate`` > 0 needs a uint32 ``dropout_seed`` (``ValueError``
-    without one).  A bias raises ``NotImplementedError`` (ROADMAP.md queue
-    B items 2c-2d); ``bias_requires_grad`` without a bias changes nothing.
-    A head dim the kernels do not take is zero-padded as for
+    without one).  ``bias`` (broadcastable from ``(1|b, 1|h, sq, sk)``)
+    is added to the scaled scores, with a zero gradient; a bias that
+    requires grad with ``bias_requires_grad=True`` raises
+    ``NotImplementedError`` (dBias, ROADMAP.md queue B item 2d).  A head
+    dim the kernels do not take is zero-padded as for
     :func:`~apex_tpu_torch.ops.attention_short.fmha_short`."""
     check_implementation(KERNEL, implementation, ("pallas", "mid"))
-    reject_unported(KERNEL, bias)
+    reject_unported(KERNEL, bias, bias_requires_grad)
     dropout_spec(KERNEL, dropout_rate, dropout_seed)
     d = q.shape[-1]
     q, k, v, scale = pad_head_dim(q, k, v, sm_scale)
     out, lse = _MidAttention.apply(q, k, v, causal, scale, q_segment_ids,
                                    kv_segment_ids, dropout_rate,
-                                   dropout_seed)
+                                   dropout_seed, bias)
     out = out[..., :d]
     return (out, lse) if return_lse else out

@@ -34,8 +34,19 @@ scale by value and launch the kernels' dropout instances, counted as
 ``short_fwd_drop``/``short_bwd_drop`` (``..._seg_drop`` with segment
 ids).
 
-Not ported yet: the additive bias (ROADMAP.md queue B item 2c, and 2d
-for its gradient); it raises ``NotImplementedError``.
+The additive bias (the Pallas bodies' ``has_bias``): ``bias``
+broadcastable from ``(1|b, 1|h, sq, sk)`` is added in fp32 to the scaled
+scores before the mask, in the forward and where the backward recomputes
+``p``.  :func:`bias_slab` casts it to a contiguous fp32 ``(nb, nh, sq,
+sk)`` tensor (``nb``/``nh`` 1 on a broadcast dim, also one broadcast by a
+stride of 0) and the C entries take it as a pointer with its batch and head
+strides, 0 on a broadcast dim, so a shared or per-batch bias is never
+expanded per head; they launch the kernels' bias instances, counted as
+``<name>_bias`` (``short_fwd_seg_drop_bias`` beside ids and dropout).  The
+bias's own gradient (dBias, ROADMAP.md queue B item 2d) is not ported: a
+bias that requires grad raises ``NotImplementedError`` unless the caller
+passes ``bias_requires_grad=False``, whose gradient is a hard zero, as
+JAX's.
 """
 
 from __future__ import annotations
@@ -86,13 +97,15 @@ HEAD_DIMS = (64, 128)
 DROP_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_float]
 #: ctypes argument types of the C entries, as ``csrc/attention_short.cu``
 #: declares them (the mid entries of ``csrc/attention_mid.cu`` take the
-#: same arguments): q, k, v, q_ids, kv_ids, out, lse | bh, heads, sq, sk,
-#: d, dtype, causal | scale | seed, keep_threshold, inv_keep | stream
-FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+#: same arguments): q, k, v, q_ids, kv_ids, bias, out, lse | bh, heads, sq,
+#: sk, d, dtype, causal, bias_stride_b, bias_stride_h | scale | seed,
+#: keep_threshold, inv_keep | stream
+FWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
     ctypes.c_float] + DROP_ARGTYPES + [ctypes.c_void_p]
-#: q, k, v, q_ids, kv_ids, out, dout, lse, dlse, delta, dq, dk, dv | bh,
-#: heads, sq, sk, d, dtype, causal | scale | the dropout three | stream
-BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [
+#: q, k, v, q_ids, kv_ids, bias, out, dout, lse, dlse, delta, dq, dk, dv |
+#: bh, heads, sq, sk, d, dtype, causal, the two bias strides | scale | the
+#: dropout three | stream
+BWD_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 + [
     ctypes.c_float] + DROP_ARGTYPES + [ctypes.c_void_p]
 ARGTYPES = {KERNEL: FWD_ARGTYPES, KERNEL_BWD: BWD_ARGTYPES}
 
@@ -155,14 +168,73 @@ def data_ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def reject_unported(kernel: str, bias) -> None:
-    """The JAX attention option the port does not run yet: a bias raises
-    ``NotImplementedError`` naming its ROADMAP.md items."""
-    if bias is not None:
+def reject_unported(kernel: str, bias, bias_requires_grad: bool) -> None:
+    """The JAX attention option the port does not run yet: the gradient of
+    a trainable bias (dBias).  A bias that requires grad with
+    ``bias_requires_grad=True`` raises ``NotImplementedError`` naming its
+    ROADMAP.md item; a constant bias, or ``bias_requires_grad=False``
+    (whose bias gradient is a hard zero), runs."""
+    if bias is not None and bias_requires_grad and bias.requires_grad:
         raise NotImplementedError(
-            f"{kernel}: an additive attention bias is not ported yet "
-            "(ROADMAP.md queue B item 2c, and 2d for its gradient; they come "
-            "with queue A item 3, contrib attention)")
+            f"{kernel}: the gradient of a trainable attention bias (dBias) "
+            "is not ported yet (ROADMAP.md queue B item 2d); pass "
+            "bias_requires_grad=False for a constant bias, whose gradient is "
+            "then zero as in JAX")
+
+
+# ---------------------------------------------------------------- bias
+
+def bias_slab(kernel: str, bias, b: int, h: int, sq: int, sk: int):
+    """The additive bias as the kernels read it, or None: ``bias``
+    broadcastable to ``(b, h, sq, sk)`` (fewer dims are leading ones, as
+    JAX reshapes them) as a contiguous fp32 ``(nb, nh, sq, sk)`` tensor,
+    ``nb`` 1 or ``b`` and ``nh`` 1 or ``h``.  A batch or head dim of size 1,
+    or broadcast by a stride of 0 (``expand``), stays 1, so a shared or
+    per-batch bias is never expanded per head; the (sq, sk) dims are
+    materialised."""
+    if bias is None:
+        return None
+    if bias.ndim < 4:
+        bias = bias.reshape((1,) * (4 - bias.ndim) + tuple(bias.shape))
+    want = (b, h, sq, sk)
+    if bias.ndim != 4 or not bias.is_floating_point() or any(
+            n not in (1, m) for n, m in zip(bias.shape, want)):
+        raise ValueError(f"{kernel}: bias of shape {tuple(bias.shape)} and "
+                         f"dtype {bias.dtype} is not a float tensor "
+                         f"broadcastable to {want}")
+    nb = 1 if bias.shape[0] == 1 or bias.stride(0) == 0 else b
+    nh = 1 if bias.shape[1] == 1 or bias.stride(1) == 0 else h
+    slab = bias[:nb, :nh].expand(nb, nh, sq, sk)
+    return slab.to(torch.float32).contiguous()
+
+
+def bias_operands(kernel: str, slab):
+    """The C entries' bias arguments for a :func:`bias_slab` tensor: its
+    pointer (None: no bias), the element stride between batch rows' slabs
+    and between heads' slabs (0 on a broadcast dim).  The strides are C
+    ints, so the slab must have fewer than 2**31 elements."""
+    if slab is None:
+        return None, 0, 0
+    nb, nh, sq, sk = slab.shape
+    if slab.numel() >= 1 << 31:
+        raise ValueError(f"{kernel}: bias of {slab.numel()} elements; the "
+                         "kernels index it with 32-bit strides")
+    return (slab.data_ptr(), nh * sq * sk if nb > 1 else 0,
+            sq * sk if nh > 1 else 0)
+
+
+def add_bias(s: torch.Tensor, slab) -> torch.Tensor:
+    """``s`` (fp32 scores, ``(b, h, sq, sk)`` or, flattened, ``(b*h, sq,
+    sk)``) plus a :func:`bias_slab` tensor, as the kernels add it."""
+    if slab is None:
+        return s
+    if s.ndim == 3:
+        nbh = s.shape[0]
+        nb, nh = slab.shape[:2]
+        heads = nbh // nb if nh == 1 else nh
+        return (s.view(nbh // heads, heads, *s.shape[1:]) + slab).view(
+            s.shape)
+    return s + slab
 
 
 # ------------------------------------------------------------- dropout
@@ -239,10 +311,12 @@ def drop_operands(drop):
     return as_int32(seed), as_int32(keep_threshold(rate)), inv_keep(rate)
 
 
-def counter(names, segs: bool, drop) -> str:
+def counter(names, segs: bool, drop, bias=None) -> str:
     """A launch counter: the plain or segment name of ``names``, with
-    ``_drop`` for a dropout instance."""
-    return names[segs] + ("" if drop is None else "_drop")
+    ``_drop`` for a dropout instance and ``_bias`` for a launch with a
+    bias."""
+    return (names[segs] + ("" if drop is None else "_drop")
+            + ("" if bias is None else "_bias"))
 
 
 def keep_rows(drop, lead, sq: int, sk: int, device) -> torch.Tensor:
@@ -272,15 +346,17 @@ def apply_keep(x: torch.Tensor, keep: torch.Tensor, rate: float):
 
 
 def _short_fwd_plain(q, k, v, causal, scale, q_ids=None, kv_ids=None,
-                     drop=None):
+                     drop=None, bias=None):
     """The plain PyTorch version, mirroring the TPU kernel's arithmetic:
-    fp32 scores of the scaled query, finite -1e30 fill, exact softmax
-    with masked probabilities zeroed, ``l`` clamped at 1e-30 (so a row
-    that sees no key gives 0 and an lse of about -1e30).  With ``drop =
-    (rate, seed)`` the probabilities multiplied into V are dropped and
-    scaled; ``l`` and the lse are not."""
+    fp32 scores of the scaled query, the :func:`bias_slab` ``bias`` added,
+    finite -1e30 fill, exact softmax with masked probabilities zeroed,
+    ``l`` clamped at 1e-30 (so a row that sees no key gives 0 and an lse of
+    about -1e30; a row the bias alone pushes to -1e30 is visible, a
+    uniform mean).  With ``drop = (rate, seed)`` the probabilities
+    multiplied into V are dropped and scaled; ``l`` and the lse are
+    not."""
     qf = q.float() * scale
-    s = torch.matmul(qf, k.float().transpose(-1, -2))
+    s = add_bias(torch.matmul(qf, k.float().transpose(-1, -2)), bias)
     mask = visible(q.shape[-2], k.shape[-2], causal, q_ids, kv_ids,
                    device=q.device)
     if mask is not None:
@@ -299,7 +375,7 @@ def _short_fwd_plain(q, k, v, causal, scale, q_ids=None, kv_ids=None,
 
 
 def _short_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale,
-                     q_ids=None, kv_ids=None, drop=None):
+                     q_ids=None, kv_ids=None, drop=None, bias=None):
     """The plain PyTorch version of the fused backward, mirroring the TPU
     kernel's arithmetic: the scores are scaled AFTER the product (the
     forward scales q before it), ``p = exp(s - lse)`` with masked entries
@@ -308,9 +384,10 @@ def _short_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale,
     scale`` are rounded to bf16 before their products, where the TPU's
     default precision (and the kernel's tensor cores) round them.  With
     ``drop`` the forward's mask is replayed: dV takes the dropped and
-    scaled ``p``, and ``dp`` is dropped and scaled before ``dz``."""
+    scaled ``p``, and ``dp`` is dropped and scaled before ``dz``; the
+    ``bias`` is added to the scaled scores as in the forward."""
     qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    s = add_bias(torch.matmul(qf, kf.transpose(-1, -2)) * scale, bias)
     p = torch.exp(s - lse[..., None])
     mask = visible(q.shape[-2], k.shape[-2], causal, q_ids, kv_ids,
                    device=q.device)
@@ -385,35 +462,37 @@ def check_shapes(kernel: str, q, k, v) -> None:
 
 
 def launch_fwd(entry, names, q, k, v, causal, scale, q_ids, kv_ids,
-               drop=None):
+               drop=None, bias=None):
     """Launch a short or mid forward C entry (``entry(symbol)`` gives the
     library and the function) over ``(b, h, s, d)``; ``names`` are the
     plain and segment launch counters (:func:`counter` adds ``_drop``
-    for ``drop = (rate, seed)``)."""
-    kernel = counter(names, q_ids is not None, drop)
+    for ``drop = (rate, seed)`` and ``_bias`` for a :func:`bias_slab`
+    ``bias``)."""
+    kernel = counter(names, q_ids is not None, drop, bias)
     check_kernel_inputs(kernel, q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     q_ids, kv_ids = id_operands(q_ids, kv_ids)
-    check_operands(kernel, q, k, v,
-                   *(() if q_ids is None else (q_ids, kv_ids)))
+    check_operands(kernel, q, k, v, *(
+        t for t in (q_ids, kv_ids, bias) if t is not None))
+    bias_ptr, bias_b, bias_h = bias_operands(kernel, bias)
     lib, fn = entry(names[0])
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     count_launch(kernel)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), data_ptr(q_ids),
-             data_ptr(kv_ids), out.data_ptr(), lse.data_ptr(), b * h, h, sq,
-             sk, d, DTYPES[q.dtype], int(causal), float(scale),
-             *drop_operands(drop), stream_of(q))
+             data_ptr(kv_ids), bias_ptr, out.data_ptr(), lse.data_ptr(),
+             b * h, h, sq, sk, d, DTYPES[q.dtype], int(causal), bias_b,
+             bias_h, float(scale), *drop_operands(drop), stream_of(q))
     check(lib, kernel, err)
     return out, lse
 
 
 def launch_bwd(entry, names, q, k, v, out, dout, lse, dlse, causal, scale,
-               q_ids, kv_ids, drop=None):
+               q_ids, kv_ids, drop=None, bias=None):
     """Launch a short or mid backward C entry, as :func:`launch_fwd`."""
-    kernel = counter(names, q_ids is not None, drop)
+    kernel = counter(names, q_ids is not None, drop, bias)
     check_kernel_inputs(kernel, q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -425,16 +504,17 @@ def launch_bwd(entry, names, q, k, v, out, dout, lse, dlse, causal, scale,
         raise ValueError(f"{kernel}: out/dout {out.dtype}/{dout.dtype} "
                          f"differ from q's {q.dtype}")
     check_operands(kernel, q, k, v, out, dout, lse, *(
-        t for t in (dlse, q_ids, kv_ids) if t is not None))
+        t for t in (dlse, q_ids, kv_ids, bias) if t is not None))
+    bias_ptr, bias_b, bias_h = bias_operands(kernel, bias)
     lib, fn = entry(names[0])
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     count_launch(kernel)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), data_ptr(q_ids),
-             data_ptr(kv_ids), out.data_ptr(), dout.data_ptr(),
+             data_ptr(kv_ids), bias_ptr, out.data_ptr(), dout.data_ptr(),
              lse.data_ptr(), data_ptr(dlse), delta.data_ptr(),
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, h, sq, sk,
-             d, DTYPES[q.dtype], int(causal), float(scale),
+             d, DTYPES[q.dtype], int(causal), bias_b, bias_h, float(scale),
              *drop_operands(drop), stream_of(q))
     check(lib, kernel, err)
     return dq, dk, dv
@@ -462,25 +542,18 @@ def short_fwd(
     kv_segment_ids: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
     dropout_seed=None,
+    bias: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, lse)`` of softmax attention over ``(b, h, s, d)`` with
     ``sq, sk <= FMHA_SHORT_MAX_SEQ``; causal masks ``k_idx > q_idx``,
-    segment ids ``(b, sq)``/``(b, sk)`` mask unequal ids, and
+    segment ids ``(b, sq)``/``(b, sk)`` mask unequal ids,
     ``dropout_rate`` with a uint32 ``dropout_seed`` drops probabilities
-    by :func:`keep_mask`.  A CUDA tensor runs the kernel, a CPU tensor
-    the plain version."""
-    check_shapes(KERNEL, q, k, v)
-    _check_window(KERNEL, q, k)
-    ids = segment_ids(KERNEL, q_segment_ids, kv_segment_ids, q.shape[0],
-                      q.shape[2], k.shape[2])
-    drop = dropout_spec(KERNEL, dropout_rate, dropout_seed)
-    scale = softmax_scale(q, sm_scale)
-    if q.is_cuda:
-        return launch_fwd(_entry, (KERNEL, KERNEL_SEG), q, k, v, causal,
-                          scale, *ids, drop)
-    if q.device.type == "cpu":
-        return _short_fwd_plain(q, k, v, causal, scale, *ids, drop)
-    raise ValueError(f"{KERNEL}: unsupported device {q.device}")
+    by :func:`keep_mask`, and ``bias`` (broadcastable to ``(b, h, sq,
+    sk)``) is added to the scaled scores.  A CUDA tensor runs the kernel,
+    a CPU tensor the plain version."""
+    return _run_fwd(q, k, v, causal, **_checked(
+        KERNEL, q, k, v, sm_scale, q_segment_ids, kv_segment_ids,
+        dropout_rate, dropout_seed, bias))
 
 
 def short_bwd(
@@ -497,46 +570,97 @@ def short_bwd(
     kv_segment_ids: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
     dropout_seed=None,
+    bias: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of :func:`short_fwd` given the forward's ``out``
     and ``lse`` and the cotangent ``dout`` (and optionally ``dlse``, the
-    lse's), with the forward's mask and dropout.  A CUDA tensor runs the
-    kernel, a CPU tensor the plain version."""
-    check_shapes(KERNEL_BWD, q, k, v)
-    _check_window(KERNEL_BWD, q, k)
-    ids = segment_ids(KERNEL_BWD, q_segment_ids, kv_segment_ids,
-                      q.shape[0], q.shape[2], k.shape[2])
-    drop = dropout_spec(KERNEL_BWD, dropout_rate, dropout_seed)
-    scale = softmax_scale(q, sm_scale)
+    lse's), with the forward's mask, dropout and bias (no gradient of the
+    bias).  A CUDA tensor runs the kernel, a CPU tensor the plain
+    version."""
+    return _run_bwd(q, k, v, out, dout, lse, dlse, causal, **_checked(
+        KERNEL_BWD, q, k, v, sm_scale, q_segment_ids, kv_segment_ids,
+        dropout_rate, dropout_seed, bias))
+
+
+def _checked(kernel, q, k, v, sm_scale, q_segment_ids, kv_segment_ids,
+             dropout_rate, dropout_seed, bias) -> dict:
+    """An entry's operands, checked once: the keywords of
+    :func:`_run_fwd` and :func:`_run_bwd` (the scale, the ids, the
+    dropout spec and the :func:`bias_slab` tensor)."""
+    check_shapes(kernel, q, k, v)
+    _check_window(kernel, q, k)
+    ids = segment_ids(kernel, q_segment_ids, kv_segment_ids, q.shape[0],
+                      q.shape[2], k.shape[2])
+    return dict(drop=dropout_spec(kernel, dropout_rate, dropout_seed),
+                scale=softmax_scale(q, sm_scale), ids=ids,
+                slab=bias_slab(kernel, bias, *q.shape[:3], k.shape[2]))
+
+
+def _run_fwd(q, k, v, causal, *, scale, ids, drop, slab):
+    """:func:`short_fwd` on :func:`_checked` operands: the kernel on a CUDA
+    tensor, the plain version on a CPU one."""
+    if q.is_cuda:
+        return launch_fwd(_entry, (KERNEL, KERNEL_SEG), q, k, v, causal,
+                          scale, *ids, drop, slab)
+    if q.device.type == "cpu":
+        return _short_fwd_plain(q, k, v, causal, scale, *ids, drop, slab)
+    raise ValueError(f"{KERNEL}: unsupported device {q.device}")
+
+
+def _run_bwd(q, k, v, out, dout, lse, dlse, causal, *, scale, ids, drop,
+             slab):
+    """:func:`short_bwd` on :func:`_checked` operands."""
     if q.is_cuda:
         return launch_bwd(_entry, (KERNEL_BWD, KERNEL_BWD_SEG), q, k, v, out,
-                          dout, lse, dlse, causal, scale, *ids, drop)
+                          dout, lse, dlse, causal, scale, *ids, drop, slab)
     if q.device.type == "cpu":
         return _short_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale,
-                                *ids, drop)
+                                *ids, drop, slab)
     raise ValueError(f"{KERNEL_BWD}: unsupported device {q.device}")
+
+
+def keep_bias_like(ctx, bias) -> None:
+    """Remember the shape, dtype and device of an autograd function's
+    ``bias`` input (its last) for :func:`zero_bias_grad`."""
+    ctx.bias_like = None if bias is None else (bias.shape, bias.dtype,
+                                               bias.device)
+
+
+def zero_bias_grad(ctx):
+    """The bias's gradient: a hard zero of its shape and dtype, as the JAX
+    vjps return under ``bias_requires_grad=False`` (the only way a bias
+    that requires grad gets here), or None when autograd asks for none."""
+    if ctx.bias_like is None or not ctx.needs_input_grad[-1]:
+        return None
+    shape, dtype, device = ctx.bias_like
+    return torch.zeros(shape, dtype=dtype, device=device)
 
 
 class _ShortAttention(torch.autograd.Function):
     """``out = attention(q, k, v)`` with the fused backward; saves
-    ``(q, k, v, out, lse)`` as the JAX ``_short_fwd`` does, and the
-    segment ids and the dropout rate and seed (no gradient)."""
+    ``(q, k, v, out, lse)`` as the JAX ``_short_fwd`` does, the bias as
+    the kernels read it (:func:`bias_slab`), and the segment ids and the
+    dropout rate and seed.  The bias gets a zero gradient (the callers
+    reject a trainable bias unless ``bias_requires_grad=False``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, q_ids, kv_ids, rate, seed):
-        out, lse = short_fwd(q, k, v, causal, sm_scale, q_ids, kv_ids, rate,
-                             seed)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
-        ctx.rest = (q_ids, kv_ids, rate, seed)
+    def forward(ctx, q, k, v, causal, sm_scale, q_ids, kv_ids, rate, seed,
+                bias):
+        ops = _checked(KERNEL, q, k, v, sm_scale, q_ids, kv_ids, rate, seed,
+                       bias)
+        out, lse = _run_fwd(q, k, v, causal, **ops)
+        ctx.save_for_backward(q, k, v, out, lse, ops.pop("slab"))
+        ctx.causal, ctx.ops = causal, ops
+        keep_bias_like(ctx, bias)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = short_bwd(q, k, v, out, dout, lse, None, ctx.causal,
-                               ctx.sm_scale, *ctx.rest)
-        return dq, dk, dv, None, None, None, None, None, None
+        q, k, v, out, lse, slab = ctx.saved_tensors
+        dq, dk, dv = _run_bwd(q, k, v, out, dout, lse, None, ctx.causal,
+                              **ctx.ops, slab=slab)
+        return (dq, dk, dv, None, None, None, None, None, None,
+                zero_bias_grad(ctx))
 
 
 def fmha_short(
@@ -564,14 +688,17 @@ def fmha_short(
     runs the kernel.  A head dim under 128 other than 64 is zero-padded
     to the next the kernels take (:func:`pad_head_dim`).
     ``dropout_rate`` > 0 needs a uint32 ``dropout_seed`` (``ValueError``
-    without one, as in JAX).  A bias raises ``NotImplementedError``
-    (ROADMAP.md queue B items 2c-2d); ``bias_requires_grad`` without a
-    bias changes nothing."""
+    without one, as in JAX).  ``bias`` (broadcastable from ``(1|b, 1|h,
+    sq, sk)``; fewer dims are leading ones) is added to the scaled scores;
+    its gradient is zero, and a bias that requires grad with
+    ``bias_requires_grad=True`` raises ``NotImplementedError`` (dBias,
+    ROADMAP.md queue B item 2d)."""
     check_implementation(KERNEL, implementation, ("pallas", "short"))
-    reject_unported(KERNEL, bias)
+    reject_unported(KERNEL, bias, bias_requires_grad)
     dropout_spec(KERNEL, dropout_rate, dropout_seed)
     d = q.shape[-1]
     q, k, v, scale = pad_head_dim(q, k, v, sm_scale)
     out = _ShortAttention.apply(q, k, v, causal, scale, q_segment_ids,
-                                kv_segment_ids, dropout_rate, dropout_seed)
+                                kv_segment_ids, dropout_rate, dropout_seed,
+                                bias)
     return out[..., :d]

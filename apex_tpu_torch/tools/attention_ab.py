@@ -1,16 +1,18 @@
-"""Time the short and mid attention kernels of one source tree, so two
-trees (a parent commit and its change) can be compared on one card.
+"""Time the attention kernels of one source tree, so two trees (a parent
+commit and its change) can be compared on one card.
 
     python -m apex_tpu_torch.tools.attention_ab <tree> [<tree> ...]
 
 Each tree is a checkout of the repository (``git archive <commit> | tar
 -x -C <dir>``); each is timed in a process of its own, in the order
 given (parent, change, change, parent reads the card's drift), with its
-own build of the kernels.  The shapes are the flagship's training ones
-without segment ids (b=8 h=8 d=128, causal, bf16): the short forward and
-backward at s=512 and the mid ones at s=1024.  Device ms per call from a
-CUDA graph of 50 launches after a warm-up.  One line per tree, then the
-card's name and power limit.
+own build of the kernels.  The shapes are the training ones without
+segment ids, dropout or a bias (h=8 d=128, causal, bf16): the short
+forward and backward at b=8 s=512, the mid ones at b=8 s=1024 (the
+flagship's) and the flash forward, dK/dV and dQ at b=2 s=4096 (the Llama
+mode's).  Device ms per call from a CUDA graph of 50 launches (10 for the
+flash rung) after a warm-up.  One line per tree, then the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -22,11 +24,12 @@ _TIMER = r"""
 import sys
 sys.path.insert(0, ".")
 import torch
+from apex_tpu_torch.ops import attention_flash as fl
 from apex_tpu_torch.ops import attention_mid as mid
 from apex_tpu_torch.ops import attention_short as short
 from apex_tpu_torch.ops import common
 
-common.build(["attention_short", "attention_mid"])
+common.build(["attention_short", "attention_mid", "attention_flash"])
 dev = torch.device("cuda", 0)
 gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -57,6 +60,16 @@ for name, s, fwd, bwd in (("short", 512, short.short_fwd, short.short_bwd),
     f = device_ms(lambda: fwd(q, k, v, causal=True))
     b = device_ms(lambda: bwd(q, k, v, out, do, lse, causal=True))
     row.append(f"{name} fwd {f:.4f} ms bwd {b:.4f} ms")
+q, k, v, do = (torch.randn(16, 4096, 128, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(4))
+out, lse = fl.flash_fwd(q, k, v, causal=True)
+delta = fl.flash_delta(out, do)
+f = device_ms(lambda: fl.flash_fwd(q, k, v, causal=True), 10)
+dkv = device_ms(lambda: fl.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                         causal=True), 10)
+dq = device_ms(lambda: fl.flash_bwd_dq(q, k, v, do, lse, delta,
+                                       causal=True), 10)
+row.append(f"flash fwd {f:.4f} ms dkv {dkv:.4f} ms dq {dq:.4f} ms")
 print("; ".join(row), flush=True)
 """
 

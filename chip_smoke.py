@@ -147,6 +147,26 @@ shapes, then reads each rung's mask exactly with q = 0 and V = I):
              BERT-large's shape, forward and backward: the short rung's
              segment dropout instances must launch.
 
+Contrib attention (after seg-dropout; phase 2 also holds the additive-bias
+instances of all seven attention kernels, per-head, per-batch and shared,
+fp32 and bf16, the short ones at the decoder's shape of mha-train, against
+their plain versions; rows the bias alone hides must read as the uniform
+mean of V):
+   mha-parity — ``SelfMultiheadAttn`` and ``EncdecMultiheadAttn`` at embed
+             128, fp32, with every option (bias, norm-add, boolean and
+             float masks, padding, causal, dropout with a key): GPU ==
+             CPU, output and every gradient, and fast == default.
+   mha-train — Transformer-big's widths (embed 1024, 16 heads) at O4,
+             bias, norm-add, dropout 0.1, 32 x 256 padded tokens: the
+             encoder's and the decoder's (future mask) self-attention,
+             encoder-decoder attention over 320 source tokens, and the
+             decoder's without padding or dropout; ms per
+             forward+backward, tokens/s, peak memory, launches; each
+             attention context within two bf16 ulps of impl='default''s.
+   mha-rungs — the module on the mid rung (8 x 1024, per-head bias) and
+             the flash rung (2 x 4096, per-batch bias), fp32, against its
+             plain attention on the card.
+
 The last two lines are a JSON object with one record per kernel, and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
 """
@@ -472,6 +492,7 @@ def phase_kernels(dev) -> dict:
     records.update(softmax_kernels(randn))
     records.update(segment_kernels(randn))
     records.update(dropout_kernels(randn))
+    records.update(bias_kernels(randn))
     return records
 
 
@@ -1344,7 +1365,7 @@ def dropout_kernels(randn) -> dict:
                              for _ in range(4))
             ids = (segment_ids(kind, b, s, q.device, seed=s + b) if kind
                    else (None, None))
-            run = drop_run(rung, q, k, v, dout, causal, ids, drop)
+            run = variant_run(rung, q, k, v, dout, causal, ids, drop)
             errs = {}
             for name, label, got, want in run["checks"]:
                 errs[name] = max(errs.get(name, 0.0),
@@ -1352,124 +1373,176 @@ def dropout_kernels(randn) -> dict:
                                        f"{str(dtype)[6:]} b={b} h={heads} "
                                        f"s={s} d={d} {label}"))
             if dtype == torch.bfloat16:
-                records.update(drop_records(rung, b, heads, s, d, causal,
-                                            kind, q, k, v, dout, ids, run,
-                                            errs, timed_names))
+                records.update(variant_records(
+                    rung, b, heads, s, d, causal, kind, q, k, v, dout, ids,
+                    drop, run, errs, timed_names))
     drop_masks(randn)
     return records
 
 
-def drop_run(rung, q, k, v, dout, causal, ids, drop):
-    """One rung's dropout instances on ``(b, h, s, d)`` inputs against
-    the plain versions: ``{"checks": [(counter, output, kernel's, plain's)],
-    "calls": {counter: (with dropout, without)}, "plain": {counter: plain
-    version}}`` (the backward calls take the plain forward's ``out`` and
-    ``lse``)."""
+def variant_run(rung, q, k, v, dout, causal, ids, drop, bias=None):
+    """One rung's dropout or bias instances on ``(b, h, sq, d)`` inputs
+    against the plain versions: ``{"checks": [(counter, output, kernel's,
+    plain's)], "calls": {counter: (the instance, the same call without the
+    bias, or without the dropout when there is no bias)}, "plain":
+    {counter: plain version}}`` (the backward calls take the plain
+    forward's ``out`` and ``lse``).  With a bias the lse is checked on the
+    rows it leaves alone: a row it hides (:data:`BIAS_MASKED_ROWS`) has an
+    lse of about -1e30 + log n."""
     from apex_tpu_torch.ops import attention_flash as fl
     from apex_tpu_torch.ops import attention_mid as mid
     from apex_tpu_torch.ops import attention_short as short
 
-    b, heads, s, d = q.shape
+    b, heads, sq, d = q.shape
+    sk = k.shape[2]
     scale = d ** -0.5
     qi, ki = ids
-    kw = dict(dropout_rate=drop[0], dropout_seed=drop[1])
-    tag = "_seg_drop" if qi is not None else "_drop"
+    slab = short.bias_slab("bias", bias, b, heads, sq, sk)
+    kw = dict(q_segment_ids=qi, kv_segment_ids=ki)
+    if drop:
+        kw.update(dropout_rate=drop[0], dropout_seed=drop[1])
+    # the call the instance is timed against: without the bias, or
+    # without the dropout
+    base = dict(kw) if bias is not None else dict(
+        q_segment_ids=qi, kv_segment_ids=ki)
+    tag = short.counter(("", "_seg"), qi is not None, drop, slab)
     run = {}
     if rung == "flash":
-        flat = [t.reshape(b * heads, s, d) for t in (q, k, v, dout)]
-        fids = (dict(q_segment_ids=qi, kv_segment_ids=ki, heads=heads)
-                if qi is not None else {})
+        flat = [t.reshape(b * heads, -1, d) for t in (q, k, v, dout)]
+        kw["heads"] = base["heads"] = heads
         out, lse = fl._flash_fwd_plain(*flat[:3], causal, scale, qi, ki,
-                                       heads if qi is not None else None,
-                                       drop)
-        got, got_lse = fl.flash_fwd(*flat[:3], causal, **fids, **kw)
+                                       heads, drop, slab)
         delta = fl.flash_delta(out, flat[3])
-        wq, wk, wv = fl._flash_bwd_plain(
-            *flat, lse, delta, causal, scale, qi, ki,
-            heads if qi is not None else None, drop)
-        gk, gv = fl.flash_bwd_dkv(*flat, lse, delta, causal, **fids, **kw)
-        gq = fl.flash_bwd_dq(*flat, lse, delta, causal, **fids, **kw)
+        entries = (
+            lambda bb, a: fl.flash_fwd(*flat[:3], causal, **a, bias=bb),
+            lambda bb, a: fl.flash_bwd_dkv(*flat, lse, delta, causal, **a,
+                                           bias=bb),
+            lambda bb, a: fl.flash_bwd_dq(*flat, lse, delta, causal, **a,
+                                          bias=bb))
+        got, got_lse = entries[0](bias, kw)
+        gk, gv = entries[1](bias, kw)
+        gq = entries[2](bias, kw)
+        wq, wk, wv = fl._flash_bwd_plain(*flat, lse, delta, causal, scale,
+                                         qi, ki, heads, drop, slab)
         names = ("flash_fwd" + tag, "flash_bwd_dkv" + tag,
                  "flash_bwd_dq" + tag)
-        run["checks"] = [(names[0], "out", got, out),
+        run["checks"] = [(names[0], "out", got.view_as(q), out.view_as(q)),
                          (names[0], "lse", got_lse, lse),
                          (names[2], "dq", gq, wq), (names[1], "dk", gk, wk),
                          (names[1], "dv", gv, wv)]
-        run["calls"] = {
-            names[0]: (lambda: fl.flash_fwd(*flat[:3], causal, **fids, **kw),
-                       lambda: fl.flash_fwd(*flat[:3], causal, **fids)),
-            names[1]: (lambda: fl.flash_bwd_dkv(*flat, lse, delta, causal,
-                                                **fids, **kw),
-                       lambda: fl.flash_bwd_dkv(*flat, lse, delta, causal,
-                                                **fids)),
-            names[2]: (lambda: fl.flash_bwd_dq(*flat, lse, delta, causal,
-                                               **fids, **kw),
-                       lambda: fl.flash_bwd_dq(*flat, lse, delta, causal,
-                                               **fids))}
+        run["calls"] = {n: (lambda f=f: f(bias, kw), lambda f=f: f(None, base))
+                        for n, f in zip(names, entries)}
         plain_bwd = lambda: fl._flash_bwd_plain(
-            *flat, lse, delta, causal, scale, qi, ki,
-            heads if qi is not None else None, drop)
+            *flat, lse, delta, causal, scale, qi, ki, heads, drop, slab)
         run["plain"] = {
             names[0]: lambda: fl._flash_fwd_plain(
-                *flat[:3], causal, scale, qi, ki,
-                heads if qi is not None else None, drop),
+                *flat[:3], causal, scale, qi, ki, heads, drop, slab),
             names[1]: plain_bwd, names[2]: plain_bwd}
     else:
         fwd, bwd = ((short.short_fwd, short.short_bwd) if rung == "short"
                     else (mid.mid_fwd, mid.mid_bwd))
-        sids = (dict(q_segment_ids=qi, kv_segment_ids=ki)
-                if qi is not None else {})
         out, lse = short._short_fwd_plain(q, k, v, causal, scale, qi, ki,
-                                          drop)
-        got, got_lse = fwd(q, k, v, causal, **sids, **kw)
+                                          drop, slab)
+        got, got_lse = fwd(q, k, v, causal, **kw, bias=bias)
         wq, wk, wv = short._short_bwd_plain(q, k, v, out, dout, lse, None,
-                                            causal, scale, qi, ki, drop)
-        gq, gk, gv = bwd(q, k, v, out, dout, lse, None, causal, **sids, **kw)
+                                            causal, scale, qi, ki, drop,
+                                            slab)
+        gq, gk, gv = bwd(q, k, v, out, dout, lse, None, causal, **kw,
+                         bias=bias)
         names = (f"{rung}_fwd" + tag, f"{rung}_bwd" + tag)
         run["checks"] = [(names[0], "out", got, out),
                          (names[0], "lse", got_lse, lse),
                          (names[1], "dq", gq, wq), (names[1], "dk", gk, wk),
                          (names[1], "dv", gv, wv)]
         run["calls"] = {
-            names[0]: (lambda: fwd(q, k, v, causal, **sids, **kw),
-                       lambda: fwd(q, k, v, causal, **sids)),
+            names[0]: (lambda: fwd(q, k, v, causal, **kw, bias=bias),
+                       lambda: fwd(q, k, v, causal, **base)),
             names[1]: (lambda: bwd(q, k, v, out, dout, lse, None, causal,
-                                   **sids, **kw),
+                                   **kw, bias=bias),
                        lambda: bwd(q, k, v, out, dout, lse, None, causal,
-                                   **sids))}
+                                   **base))}
         run["plain"] = {
-            names[0]: lambda: short._short_fwd_plain(q, k, v, causal, scale,
-                                                     qi, ki, drop),
+            names[0]: lambda: short._short_fwd_plain(
+                q, k, v, causal, scale, qi, ki, drop, slab),
             names[1]: lambda: short._short_bwd_plain(
-                q, k, v, out, dout, lse, None, causal, scale, qi, ki, drop)}
+                q, k, v, out, dout, lse, None, causal, scale, qi, ki, drop,
+                slab)}
+    if bias is not None:
+        keep = torch.ones(sq, dtype=torch.bool, device=q.device)
+        keep[list(BIAS_MASKED_ROWS)] = False
+        name, _, got_lse, want_lse = run["checks"][1]
+        run["checks"][1] = (name, "lse (rows not hidden)",
+                            got_lse.view(b, heads, sq)[..., keep],
+                            want_lse.view(b, heads, sq)[..., keep])
     return run
 
 
-def drop_records(rung, b, heads, s, d, causal, kind, q, k, v, dout, ids,
-                 run, errs, timed_names) -> dict:
-    """Time the dropout instances named ``timed_names`` (bf16) beside the
-    same kernel without dropout, the plain version and SDPA with
-    ``dropout_p`` (forward; forward and backward through autograd for a
-    backward kernel).  The bound is the instance's row's without dropout:
-    the bytes and tensor-core products are the same, and the hash's
-    integer operations have no rate in the table."""
+def bias_read_bytes(slab: torch.Tensor, visible) -> int:
+    """The bytes of a :func:`bias_slab` tensor ``(nb, nh, sq, sk)`` fp32
+    that the function must read: an element once if some (query, key)
+    pair it is added to is visible (``visible`` broadcastable to ``(b, h,
+    sq, sk)``, None: every pair).  A causal row needs only the lower
+    triangle; ids that hide a pair in every batch row hide its element of
+    a shared bias."""
+    if visible is None:
+        return slab.numel() * 4
+    nb, nh, sq, sk = slab.shape
+    vis = visible.reshape((1,) * (4 - visible.ndim) + tuple(visible.shape))
+    for dim, n in ((0, nb), (1, nh)):
+        if vis.shape[dim] > n:      # pairs a broadcast element serves
+            vis = vis.any(dim, keepdim=True)
+    return int(vis.expand(nb, nh, sq, sk).sum().item()) * 4
+
+
+def variant_records(rung, b, heads, s, d, causal, kind, q, k, v, dout, ids,
+                    drop, run, errs, timed_names, bias=None) -> dict:
+    """Time the dropout or bias instances named ``timed_names`` (bf16)
+    beside the same kernel without the bias (without the dropout when
+    there is no bias), the plain version and SDPA with the same mask: a
+    float ``attn_mask`` for a bias, ``dropout_p`` for dropout (the same
+    work, another mask); forward, or forward and backward through
+    autograd, profiled, for a backward kernel.  The bound is the
+    instance's row's without dropout or bias (the hash's integer
+    operations have no rate in the table) plus the bias elements the
+    function must read, each once (:func:`bias_read_bytes`)."""
     import torch.nn.functional as F
+    from apex_tpu_torch.ops import attention_short as short
 
     qi, ki = ids
-    mask = None if qi is None else (qi[:, :, None] == ki[:, None, :])[:, None]
+    p = 0.0 if drop is None else drop[0]
+    visible = None if qi is None else (qi[:, :, None] == ki[:, None, :])[:,
+                                                                         None]
+    if bias is not None:
+        if causal:
+            tril = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+            visible = tril if visible is None else visible & tril
+        mask = bias if visible is None else bias.masked_fill(
+            ~visible, float("-inf"))
+        sdpa_kw = dict(attn_mask=mask.to(q.dtype))
+        bias_bytes = bias_read_bytes(
+            short.bias_slab("bias", bias, b, heads, s, s), visible)
+    else:
+        sdpa_kw = dict(is_causal=True) if causal else dict(attn_mask=visible)
+        bias_bytes = 0
     pairs = (heads * seg_pairs(qi, ki) if qi is not None
              else b * heads * s * (s + 1) / 2 if causal
              else b * heads * s * s)
     numel = q.numel() * q.element_size()
     rows = b * heads * s * 4
     id_bytes = 0 if qi is None else 2 * qi.numel() * 4
-    shape = (f"b={b} h={heads} s={s} d={d} "
-             + ("causal" if causal else f"{kind} ids") + " bf16")
+    shape = (f"b={b} h={heads} s={s} d={d}"
+             + (f" {kind} bias" if bias is not None else "")
+             + (" causal" if causal else "")
+             + (f" {kind} ids" if qi is not None and bias is None else "")
+             + (" ids" if qi is not None and bias is not None else "")
+             + (" dropout" if drop and bias is not None else "") + " bf16")
+    without = "bias" if bias is not None else "dropout"
+    label = ("SDPA" + (" (float mask)" if bias is not None else "")
+             + (f" dropout_p={p}" if p else ""))
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    sdpa_kw = dict(is_causal=True) if causal else dict(attn_mask=mask)
 
     def sdpa_fwd_bwd():
-        o = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=DROP_RATE,
+        o = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=p,
                                            **sdpa_kw)
         torch.autograd.grad(o, (qg, kg, vg), dout)
 
@@ -1477,11 +1550,11 @@ def drop_records(rung, b, heads, s, d, causal, kind, q, k, v, dout, ids,
     iters = 10 if rung == "flash" else 50
     recs = {}
     for name in timed_names:
-        kernel, without = run["calls"][name]
+        kernel, base = run["calls"][name]
         fwd = "_fwd" in name
         if fwd:
-            library = ("SDPA dropout_p=0.1", lambda: F.scaled_dot_product_attention(
-                q, k, v, dropout_p=DROP_RATE, **sdpa_kw))
+            library = (label, lambda: F.scaled_dot_product_attention(
+                q, k, v, dropout_p=p, **sdpa_kw))
             nbytes, ops = 4 * numel + rows + id_bytes, 4.0 * d * pairs
         else:
             library = None
@@ -1492,19 +1565,19 @@ def drop_records(rung, b, heads, s, d, causal, kind, q, k, v, dout, ids,
             else:
                 nbytes, ops = 8 * numel + rows + id_bytes, 10.0 * d * pairs
         rec = measure(name, shape, errs[name], kernel, run["plain"][name],
-                      library, nbytes=nbytes, ops=ops, dtype=q.dtype,
-                      plain_iters=iters)
+                      library, nbytes=nbytes + bias_bytes, ops=ops,
+                      dtype=q.dtype, plain_iters=iters)
         if not fwd:
             if fb_ms is None:
                 fb_ms = profiled_ms(sdpa_fwd_bwd)
             rec["library_ms"] = fb_ms
-            log(f"  {name}: library call is SDPA forward+backward with "
-                f"dropout_p={DROP_RATE} ({fb_ms:.4f} ms of device time, "
-                "profiler), which includes a forward")
-        base, _ = time_ms(without, iters)
-        log(f"  {name}: {rec['ms'] / base:.3f}x the same kernel without "
-            f"dropout ({base:.4f} ms) at this shape")
-        rec["ms_without_dropout"] = base
+            log(f"  {name}: library call is {label} forward+backward "
+                f"({fb_ms:.4f} ms of device time, profiler), which includes "
+                "a forward")
+        base_ms, _ = time_ms(base, iters)
+        log(f"  {name}: {rec['ms'] / base_ms:.3f}x the same kernel without "
+            f"the {without} ({base_ms:.4f} ms) at this shape")
+        rec[f"ms_without_{without}"] = base_ms
         recs[name] = [rec]
     return recs
 
@@ -2960,6 +3033,421 @@ def phase_seg_dropout(dev) -> dict:
     return counts
 
 
+# ------------------------------------------------------------------ bias
+#: the additive-bias instances' shapes: (rung, b, h, sq, sk, d, causal,
+#: the bias's broadcast, segment ids, dropout, the kernels timed at this
+#: shape).  The short rung's are mha-train's decoder self-attention
+#: (Transformer-big's 16 heads of 64 at 32 x 256, the future mask as a
+#: shared bias): its pass without padding or dropout, and its training
+#: pass with the key padding as ids and attention dropout 0.1; the mid and
+#: flash ones are mha-rungs' widths with a per-batch and a shared bias.
+#: The untimed ones hold the per-head broadcast on the short rung and have
+#: ragged query and key tiles and sq < sk, causal: no bias may be read
+#: past its (sq, sk) slab, and the dK/dV blocks of keys past every query
+#: run no query tile.
+BIAS_SHAPES = (
+    ("short", 32, 16, 256, 256, 64, False, "shared", None, False,
+     ("short_fwd_bias", "short_bwd_bias")),
+    ("short", 8, 8, 512, 512, 128, True, "per_head", None, False, ()),
+    ("mid", 8, 8, 1024, 1024, 128, True, "per_batch", None, False,
+     ("mid_fwd_bias", "mid_bwd_bias")),
+    ("flash", 2, 8, LONG_SEQ, LONG_SEQ, 128, True, "shared", None, False,
+     tuple(n + "_bias" for n in ("flash_fwd", "flash_bwd_dkv",
+                                 "flash_bwd_dq"))),
+    ("short", 32, 16, 256, 256, 64, False, "shared", "bert", True,
+     ("short_fwd_seg_drop_bias", "short_bwd_seg_drop_bias")),
+    ("short", 3, 16, 250, 330, 64, True, "per_batch", None, False, ()),
+    ("mid", 2, 4, 700, 900, 64, True, "per_head", None, True, ()),
+    ("flash", 2, 4, 2100, 2470, 128, True, "shared", None, False, ()),
+)
+#: query rows the bias alone hides (every key at -1e30), in every case
+BIAS_MASKED_ROWS = (5, 200)
+
+
+def make_bias(kind: str, b: int, heads: int, sq: int, sk: int,
+              causal: bool, randn, dev) -> torch.Tensor:
+    """An fp32 bias of ``kind``'s broadcast: normal values when causal,
+    the future mask as -1e30 otherwise (a boolean ``attn_mask`` made a
+    bias, as contrib attention makes it), and the rows of
+    :data:`BIAS_MASKED_ROWS` at -1e30 on every key."""
+    lead = {"shared": (1, 1), "per_batch": (b, 1), "per_head": (b, heads)}
+    shape = lead[kind] + (sq, sk)
+    if causal:
+        bias = randn(*shape)
+    else:
+        future = torch.ones(sq, sk, dtype=torch.bool, device=dev).triu(1)
+        bias = torch.where(future, -1e30, 0.0).expand(shape).contiguous()
+    bias[..., list(BIAS_MASKED_ROWS), :] = -1e30
+    return bias
+
+
+def bias_kernels(randn) -> dict:
+    """The bias instances of the seven attention kernels (the Pallas
+    bodies' ``has_bias``) at :data:`BIAS_SHAPES`, fp32 and bf16, each
+    against its plain version with the same bias (the backward kernels
+    get the plain forward's ``out`` and ``lse``); the rows the bias alone
+    hides must read as the uniform mean of V over their visible keys (the
+    cases without dropout).  Timed at bf16 beside the same kernel without
+    the bias, the plain version and SDPA with the same float
+    ``attn_mask``; the bound counts the bias read once per stored
+    element."""
+    records = {}
+    log("[kernels] bias instances (CUDA): per-head, per-batch and shared "
+        f"fp32 biases, rows {BIAS_MASKED_ROWS} hidden by the bias alone")
+    for (rung, b, heads, sq, sk, d, causal, kind, ids_kind, dropped,
+         timed_names) in BIAS_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, dout = (randn(b, heads, sq, d, dtype=dtype) for _ in range(2))
+            k, v = (randn(b, heads, sk, d, dtype=dtype) for _ in range(2))
+            ids = (segment_ids(ids_kind, b, sq, q.device, seed=sq + b)
+                   if ids_kind else (None, None))
+            drop = (DROP_RATE, DROP_SEED) if dropped else None
+            bias = make_bias(kind, b, heads, sq, sk, causal, randn, q.device)
+            run = variant_run(rung, q, k, v, dout, causal, ids, drop, bias)
+            what = (f"{str(dtype)[6:]} b={b} h={heads} sq={sq} sk={sk} d={d} "
+                    f"{kind}"
+                    + (" ids" if ids_kind else "")
+                    + (" dropout" if dropped else ""))
+            errs = {}
+            for name, label, got, want in run["checks"]:
+                errs[name] = max(errs.get(name, 0.0),
+                                 check(name, got, want, f"{what} {label}"))
+            if not dropped and ids_kind is None:
+                # a hidden row's p is exp(0) = 1 on each key the predicate
+                # shows it: the mean of V over keys 0..i when causal, over
+                # every key when not
+                out = run["checks"][0][2]
+                rows = list(BIAS_MASKED_ROWS)
+                mean = (v.float().cumsum(2) / torch.arange(
+                    1, sk + 1, device=v.device)[:, None])[:, :, rows] \
+                    if causal else v.float().mean(2, keepdim=True)
+                err = max_err(out[:, :, rows], mean)
+                tol = tolerance(out[:, :, rows])
+                if not err <= tol:
+                    fail(f"{run['checks'][0][0]} {what}: a row the bias "
+                         f"hides differs from the uniform mean by {err:.3g}"
+                         f" > {tol:.3g}")
+                log(f"  {what}: rows {rows} the bias hides read as the "
+                    f"uniform mean of V (max_abs_err {err:.3g})")
+            if dtype == torch.bfloat16 and timed_names:
+                records.update(variant_records(
+                    rung, b, heads, sq, d, causal, kind, q, k, v, dout, ids,
+                    drop, run, errs, timed_names, bias))
+            del q, k, v, dout, bias, run
+    return records
+
+
+# ------------------------------------------------- contrib attention phases
+#: Transformer-big (Vaswani et al. 2017, Table 3): d_model 1024, 16 heads
+#: of 64, attention dropout 0.1; the widths the reference's own
+#: multihead_attn tests run.  A batch of 32 x 256 target tokens (8192) and
+#: 320 source tokens a row
+MHA_EMBED, MHA_HEADS, MHA_DROPOUT = 1024, 16, 0.1
+MHA_BATCH, MHA_SEQ, MHA_SRC = 32, 256, 320
+#: timed forward+backward passes a module in mha-train (after 3 warm-up)
+MHA_PASSES = 20
+
+
+def mha_grads(m, inputs, dout, **kw):
+    """``(out, {name: grad}, [input grads])`` of one forward and backward
+    of module ``m``, on the CPU."""
+    xs = [x.detach().clone().requires_grad_() for x in inputs]
+    m.zero_grad(set_to_none=True)
+    out = m(*xs, **kw)
+    out.backward(dout)
+    return (out.detach().cpu(),
+            {n: p.grad.detach().cpu() for n, p in m.named_parameters()},
+            [x.grad.detach().cpu() for x in xs])
+
+
+def check_mha(label, got, want) -> float:
+    """Hold one module's forward and backward against another's run of
+    the same weights and key, with phase 6's tolerances: the output to
+    1e-4 of its scale, every gradient (parameters and inputs) to 1e-4 of
+    its tensor's largest.  Returns the worst error as a share of its
+    tolerance."""
+    worst = max_err(got[0], want[0]) / tolerance(want[0])
+    pairs = [(n, got[1][n], want[1][n]) for n in want[1]] + [
+        (f"input {i}", g, w) for i, (g, w) in enumerate(zip(got[2], want[2]))]
+    for name, g, w in pairs:
+        tol = 1e-4 * w.abs().max().item() + 1e-9
+        err = max_err(g, w)
+        worst = max(worst, err / tol)
+        if not err <= tol:
+            fail(f"{label}: grad of {name} differs by {err:.3g} > {tol:.3g}")
+    if worst > 1.0:
+        fail(f"{label}: output differs by {worst:.3g} of its tolerance")
+    return worst
+
+
+def phase_mha_parity(dev) -> dict:
+    """``SelfMultiheadAttn`` and ``EncdecMultiheadAttn`` at small widths
+    (embed 128, 2 heads of 64), fp32, with every option: ``bias``,
+    ``include_norm_add``, a boolean and a float ``attn_mask``,
+    ``key_padding_mask``, ``causal`` and dropout 0.2 with a key.  Each
+    module's forward and backward on the GPU (``impl="fast"``, the
+    kernels) must equal its CPU copy's (the plain versions) with the same
+    weights and key, output and the gradients of every parameter and
+    input; on the GPU ``impl="fast"`` must equal ``impl="default"``, the
+    reference's own cross-check.  Returns the launches of the GPU runs."""
+    from apex_tpu_torch.contrib.multihead_attn import (
+        EncdecMultiheadAttn, SelfMultiheadAttn)
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.random import PRNGKey
+
+    e, heads, s, b, src = 128, 2, 96, 3, 80
+    log(f"[mha-parity] embed {e}, {heads} heads, b={b}, s={s} (source "
+        f"{src}), fp32: GPU vs CPU, and fast vs default on the GPU")
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(s, b, e, generator=gen)
+    mem = torch.randn(src, b, e, generator=gen)
+    future = torch.ones(s, s, dtype=torch.bool).triu(1)
+    float_mask = 0.5 * torch.randn(b, 1, s, s, generator=gen)
+    head_mask = 0.5 * torch.randn(b, heads, s, s, generator=gen)
+    pad = torch.zeros(b, s, dtype=torch.bool)
+    pad[1, 2 * s // 3:] = True
+    src_pad = torch.zeros(b, src, dtype=torch.bool)
+    src_pad[2, src // 2:] = True
+    key = PRNGKey(21)
+    cases = (  # (label, module class, options, inputs, forward keywords)
+        ("self, bias, norm-add, boolean future mask", SelfMultiheadAttn,
+         dict(bias=True, include_norm_add=True), (x,),
+         dict(attn_mask=future)),
+        ("self, float mask (b, 1, s, s), padding, dropout",
+         SelfMultiheadAttn, dict(dropout=0.2), (x,),
+         dict(attn_mask=float_mask, key_padding_mask=pad, rng=key)),
+        ("self, per-head float mask, dropout", SelfMultiheadAttn,
+         dict(dropout=0.2, bias=True), (x,),
+         dict(attn_mask=head_mask, rng=key)),
+        ("self, causal, padding, dropout, norm-add", SelfMultiheadAttn,
+         dict(dropout=0.2, include_norm_add=True), (x,),
+         dict(causal=True, key_padding_mask=pad, rng=key)),
+        ("encdec, bias, norm-add, padding, dropout", EncdecMultiheadAttn,
+         dict(dropout=0.2, bias=True, include_norm_add=True), (x, mem),
+         dict(key_padding_mask=src_pad, rng=key)),
+    )
+    counts = {}
+    for label, cls, opts, inputs, kw in cases:
+        gpu = cls(e, heads, device=dev, key=PRNGKey(3), **opts)
+        cpu = cls(e, heads, device="cpu", **opts)
+        cpu.load_state_dict({n: t.cpu() for n, t in gpu.state_dict().items()})
+        dout = torch.randn(s, b, e, generator=gen)
+        on = lambda t: t.to(dev) if isinstance(t, torch.Tensor) else t
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = mha_grads(gpu, [on(t) for t in inputs], on(dout),
+                        **{n: on(t) for n, t in kw.items()})
+        torch.cuda.synchronize()
+        for name, c in launch_counts().items():
+            counts[name] = counts.get(name, 0) + c
+        want = mha_grads(cpu, list(inputs), dout, **kw)
+        worst = check_mha(f"mha-parity {label}", got, want)
+        default = cls(e, heads, device=dev, impl="default", **opts)
+        default.load_state_dict(gpu.state_dict())
+        twin = mha_grads(default, [on(t) for t in inputs], on(dout),
+                         **{n: on(t) for n, t in kw.items()})
+        worst_twin = check_mha(f"mha-parity {label} fast vs default", got,
+                               twin)
+        log(f"  {label}: GPU == CPU within {worst:.3f} of the tolerances, "
+            f"fast == default within {worst_twin:.3f}")
+    log(f"  launches: {({n: c for n, c in counts.items() if c})}")
+    for name in ("short_fwd_bias", "short_bwd_bias", "short_fwd_seg_drop_bias",
+                 "short_bwd_seg_drop_bias", "short_fwd_drop_bias",
+                 "short_fwd_seg_drop", "ln_fwd"):
+        if counts.get(name, 0) <= 0:
+            fail(f"mha-parity: kernel {name} never launched")
+    return counts
+
+
+def attention_context(m, inputs, **kw) -> torch.Tensor:
+    """The attention context ``(b, h, s, d)`` that module ``m`` hands its
+    output projection in one forward without autograd: what the attention
+    kernels computed, before the projection and the residual add."""
+    seen = []
+    project = m._project_out
+    m._project_out = lambda ctx, query: (seen.append(ctx)
+                                         or project(ctx, query))
+    try:
+        with torch.no_grad():
+            m(*inputs, **kw)
+    finally:
+        del m._project_out
+    return seen[0]
+
+
+def phase_mha_train(dev) -> dict:
+    """Contrib attention at Transformer-big's widths at O4 (fp32
+    parameters, bf16 activations), ``bias=True``, ``include_norm_add=True``,
+    attention dropout 0.1 with a key ``fold_in(base, step)`` a step, SBH
+    batches of 32 x 256 target tokens (8192) with lengths drawn in
+    128..256 as a ``key_padding_mask``: the encoder's self-attention, the
+    decoder's with the future mask as a boolean ``attn_mask`` (the bias
+    instances with ids and dropout), ``EncdecMultiheadAttn`` over 320
+    source tokens (lengths in 160..320), and the decoder's again on a
+    batch without padding and ``is_training=False`` (no dropout: the bias
+    instances alone).  Each module: 3 warm-up and :data:`MHA_PASSES` timed
+    forward+backward passes; ms each, tokens/s, peak memory, launches, one
+    pass profiled by kernel (device ms, idle share); the output and the
+    gradients must be finite, and the attention context of the last timed
+    pass's key within two bf16 ulps of the same module's
+    ``impl="default"`` one (same weights and key; the context, not the
+    output, whose residual add would hide an attention error under the
+    input's rounding)."""
+    from apex_tpu_torch.amp import get_policy
+    from apex_tpu_torch.contrib.multihead_attn import (
+        EncdecMultiheadAttn, SelfMultiheadAttn)
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.random import PRNGKey, fold_in
+    from torch.profiler import ProfilerActivity, profile
+
+    e, heads, b, s, src = MHA_EMBED, MHA_HEADS, MHA_BATCH, MHA_SEQ, MHA_SRC
+    log(f"[mha-train] embed {e}, {heads} heads of {e // heads}, O4, bias, "
+        f"norm-add, dropout {MHA_DROPOUT}, b={b} x s={s} (source {src}), "
+        f"padded: 3 warm-up + {MHA_PASSES} timed forward+backward passes a "
+        "module")
+    policy = get_policy("O4")
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(s, b, e, generator=gen, device=dev).to(torch.bfloat16)
+    mem = torch.randn(src, b, e, generator=gen, device=dev).to(
+        torch.bfloat16)
+    dout = torch.randn(s, b, e, generator=gen, device=dev).to(torch.bfloat16)
+    pad = torch.as_tensor(np.arange(s)[None] >= rng.integers(
+        s // 2, s + 1, b)[:, None], device=dev)
+    src_pad = torch.as_tensor(np.arange(src)[None] >= rng.integers(
+        src // 2, src + 1, b)[:, None], device=dev)
+    future = torch.ones(s, s, dtype=torch.bool, device=dev).triu(1)
+    opts = dict(dropout=MHA_DROPOUT, bias=True, include_norm_add=True,
+                policy=policy, device=dev)
+    base = PRNGKey(5)
+    counts = {}
+    for label, cls, inputs, kw, need in (
+            ("encoder self-attention", SelfMultiheadAttn, (x,),
+             dict(key_padding_mask=pad),
+             ("short_fwd_seg_drop", "short_bwd_seg_drop")),
+            ("decoder self-attention, future mask", SelfMultiheadAttn, (x,),
+             dict(key_padding_mask=pad, attn_mask=future),
+             ("short_fwd_seg_drop_bias", "short_bwd_seg_drop_bias")),
+            ("encoder-decoder attention", EncdecMultiheadAttn, (x, mem),
+             dict(key_padding_mask=src_pad),
+             ("short_fwd_seg_drop", "short_bwd_seg_drop")),
+            ("decoder self-attention, future mask, no padding, "
+             "is_training=False", SelfMultiheadAttn, (x,),
+             dict(attn_mask=future, is_training=False),
+             ("short_fwd_bias", "short_bwd_bias"))):
+        m = cls(e, heads, key=PRNGKey(len(label)), **opts)
+        xs = [t.detach().requires_grad_() for t in inputs]
+
+        def step(i):
+            m.zero_grad(set_to_none=True)
+            out = m(*xs, rng=fold_in(base, i), **kw)
+            out.backward(dout)
+            return out
+
+        for i in range(3):
+            step(i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        for i in range(MHA_PASSES):
+            out = step(3 + i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / MHA_PASSES
+        c = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(3 + MHA_PASSES)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        grads = [p.grad for p in m.parameters()] + [t.grad for t in xs]
+        if not torch.isfinite(out).all() or not all(
+                torch.isfinite(g).all() for g in grads):
+            fail(f"mha-train {label}: non-finite output or gradients")
+        default = cls(e, heads, impl="default", **opts)
+        default.load_state_dict(m.state_dict())
+        key = fold_in(base, 2 + MHA_PASSES)     # the last timed pass's
+        got = attention_context(m, inputs, rng=key, **kw)
+        want = attention_context(default, inputs, rng=key, **kw)
+        err, tol = max_err(got, want), tolerance(want)
+        if not err <= tol:
+            fail(f"mha-train {label}: attention context differs from "
+                 f"impl='default' by {err:.3g} > {tol:.3g}")
+        log(f"  {label}: {ms:.3f} ms per forward+backward, "
+            f"{b * s / (ms / 1e3):,.0f} tokens/s, peak device memory "
+            f"{peak:.2f} GiB, attention context within {err:.3g} of "
+            f"impl='default' (two bf16 ulps: {tol:.3g}); launches in "
+            f"{MHA_PASSES} passes {({n: v for n, v in c.items() if v})}")
+        device_breakdown(prof, wall, "one pass profiled")
+        log(f"  by kind: {attention_share(prof)}")
+        for name in need + ("ln_fwd",):
+            if c.get(name, 0) <= 0:
+                fail(f"mha-train {label}: kernel {name} never launched")
+        for name, v in c.items():
+            counts[name] = counts.get(name, 0) + v
+        del m, default, xs, grads, out, got, want
+    log("  *_bias launches: " + str({n: v for n, v in counts.items()
+                                      if n.endswith("_bias")}))
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_mha_rungs(dev) -> dict:
+    """``SelfMultiheadAttn`` on the ladder's other two rungs at
+    Transformer-big's widths, fp32: ``attention_impl="mid"`` at b=8 x
+    1024 with a per-head float ``attn_mask`` (8, 16, 1024, 1024), and
+    ``attention_impl="pallas"`` at b=2 x 4096 with a per-batch one (2, 1,
+    4096, 4096); forward and backward held against the same module's
+    ``impl="default"`` (the plain attention) on the card with phase 6's
+    tolerances.  The mid and flash bias instances' only path.  Returns
+    the launches of the kernel runs."""
+    from apex_tpu_torch.contrib.multihead_attn import SelfMultiheadAttn
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.random import PRNGKey
+
+    e, heads = MHA_EMBED, MHA_HEADS
+    log(f"[mha-rungs] embed {e}, {heads} heads, fp32: the mid rung at "
+        f"8 x 1024 (per-head bias) and the flash rung at 2 x {LONG_SEQ} "
+        "(per-batch bias) against impl='default' on the card")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    counts = {}
+    for rung, b, s, lead, need in (
+            ("mid", 8, 1024, (8, heads), ("mid_fwd_bias", "mid_bwd_bias")),
+            ("pallas", 2, LONG_SEQ, (2, 1),
+             tuple(n + "_bias" for n in FLASH))):
+        x = torch.randn(s, b, e, generator=gen, device=dev)
+        dout = torch.randn(s, b, e, generator=gen, device=dev)
+        mask = torch.randn(*lead, s, s, generator=gen, device=dev)
+        m = SelfMultiheadAttn(e, heads, bias=True, attention_impl=rung,
+                              device=dev, key=PRNGKey(9))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got = mha_grads(m, [x], dout, attn_mask=mask)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        c = launch_counts()
+        default = SelfMultiheadAttn(e, heads, bias=True, impl="default",
+                                    device=dev)
+        default.load_state_dict(m.state_dict())
+        want = mha_grads(default, [x], dout, attn_mask=mask)
+        worst = check_mha(f"mha-rungs {rung}", got, want)
+        log(f"  {rung} b={b} s={s} bias {tuple(mask.shape)}: kernels == "
+            f"plain attention within {worst:.3f} of the tolerances; one "
+            f"forward+backward {ms:.1f} ms (first call); launches "
+            f"{({n: v for n, v in c.items() if v})}")
+        for name in need:
+            if c.get(name, 0) <= 0:
+                fail(f"mha-rungs {rung}: kernel {name} never launched")
+        for name, n in c.items():
+            counts[name] = counts.get(name, 0) + n
+        del m, default, got, want, mask
+        torch.cuda.empty_cache()
+    return counts
+
+
 # ------------------------------------------------------------ BERT phases
 #: BERT-large as bench.py:516-518 shapes it and Google's bert_config.json
 #: for BERT-Large publishes it: vocab 30522, 24 layers, hidden 1024, 16
@@ -3349,6 +3837,27 @@ SOURCES = {
                            "apex_tpu/ops/attention_short.py:149"),
     "short_bwd_seg_drop": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
                            "apex_tpu/ops/attention_short.py:215"),
+    # the additive bias: a runtime operand of the same kernels
+    "short_fwd_bias": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
+                       "apex_tpu/ops/attention_short.py:149"),
+    "short_bwd_bias": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
+                       "apex_tpu/ops/attention_short.py:215"),
+    "mid_fwd_bias": ("cuda", "apex_tpu_torch/csrc/attention_mid.cu",
+                     "apex_tpu/ops/attention_mid.py:213"),
+    "mid_bwd_bias": ("cuda", "apex_tpu_torch/csrc/attention_mid.cu",
+                     "apex_tpu/ops/attention_mid.py:308"),
+    "flash_fwd_bias": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
+                       "apex_tpu/ops/attention.py:213"),
+    "flash_bwd_dkv_bias": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
+                           "apex_tpu/ops/attention.py:429"),
+    "flash_bwd_dq_bias": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
+                          "apex_tpu/ops/attention.py:534"),
+    "short_fwd_seg_drop_bias": ("cuda",
+                                "apex_tpu_torch/csrc/attention_short.cu",
+                                "apex_tpu/ops/attention_short.py:149"),
+    "short_bwd_seg_drop_bias": ("cuda",
+                                "apex_tpu_torch/csrc/attention_short.cu",
+                                "apex_tpu/ops/attention_short.py:215"),
 }
 
 FLASH = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
@@ -3413,6 +3922,9 @@ def main() -> None:
         3, "train-long-dropout", tuple(n + "_drop" for n in FLASH))
     torch.cuda.empty_cache()
     seg_drop_counts = timed("seg-dropout", phase_seg_dropout, dev)
+    timed("mha-parity", phase_mha_parity, dev)
+    mha_counts = timed("mha-train", phase_mha_train, dev)
+    mha_rung_counts = timed("mha-rungs", phase_mha_rungs, dev)
     timed("bert-parity", phase_bert_parity, dev)
     bert_counts = timed("bert-train", phase_bert_train, dev)
     timed("bert-finetune", phase_bert_finetune, dev)
@@ -3456,8 +3968,20 @@ def main() -> None:
         main_counts[name] = drop_parity_counts[384].get(name, 0)
     for name in ("short_fwd_seg_drop", "short_bwd_seg_drop"):
         main_counts[name] = seg_drop_counts.get(name, 0)
+    # the bias instances: the short ones from mha-train (the decoder
+    # without padding or dropout, and with both), the mid and flash ones
+    # from mha-rungs
+    for name in ("short_fwd_bias", "short_bwd_bias",
+                 "short_fwd_seg_drop_bias", "short_bwd_seg_drop_bias"):
+        main_counts[name] = mha_counts.get(name, 0)
+    for name in ("mid_fwd_bias", "mid_bwd_bias") + tuple(
+            n + "_bias" for n in FLASH):
+        main_counts[name] = mha_rung_counts.get(name, 0)
+    idle = [name for name in SOURCES if main_counts.get(name, 0) <= 0]
+    if idle:
+        fail(f"kernels never launched on their main path: {idle}")
     kernels = [dict(name=name, route=route, source=source,
-                    replaces=replaces, launches=main_counts.get(name, 0),
+                    replaces=replaces, launches=main_counts[name],
                     **records[name][0])
                for name, (route, source, replaces) in SOURCES.items()]
     log(card)

@@ -158,8 +158,14 @@ def test_forced_rungs_and_unported_features():
     flash = port_attention.flash_attention(q, q, q, implementation="pallas")
     np.testing.assert_allclose(mid.numpy(), short.numpy(), **FWD_TOL)
     np.testing.assert_allclose(flash.numpy(), short.numpy(), **FWD_TOL)
-    with pytest.raises(NotImplementedError, match="queue B item 2c"):
-        port_mid.fmha_mid(q, q, q, bias=torch.zeros(40, 40))
+    # a constant bias is ported; a trainable one (dBias) raises
+    with pytest.raises(NotImplementedError, match="queue B item 2d"):
+        port_mid.fmha_mid(q, q, q, bias=torch.zeros(40, 40,
+                                                    requires_grad=True))
+    bias = torch.randn((40, 40), generator=torch.Generator().manual_seed(1))
+    np.testing.assert_allclose(
+        port_mid.fmha_mid(q, q, q, bias=bias).numpy(),
+        port_attention.mha_reference(q, q, q, bias=bias).numpy(), **FWD_TOL)
     # dropout, ported since: a seed is required, and every rung draws the
     # reference's mask
     with pytest.raises(ValueError, match="requires dropout_seed"):

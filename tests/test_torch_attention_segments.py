@@ -258,8 +258,9 @@ def test_head_dims_the_kernels_do_not_take_are_padded(monkeypatch, rung, d):
     the original dim's scale; outputs and gradients are the plain
     reference's (the fine-tuning example's BERT has head dim 16)."""
     seen = []
-    entry = {"short": (port_short, "short_fwd"), "mid": (port_mid, "mid_fwd"),
-             "pallas": (port_attention, "flash_fwd")}[rung]
+    # the forward runner each rung's autograd function calls
+    entry = {"short": (port_short, "_run_fwd"), "mid": (port_mid, "_run_fwd"),
+             "pallas": (port_attention, "flash_run_fwd")}[rung]
     real = getattr(*entry)
     monkeypatch.setattr(*entry, lambda q, *a, **kw: seen.append(q.shape[-1])
                         or real(q, *a, **kw))

@@ -77,9 +77,9 @@ def test_ladder_routes_short_and_matches_reference():
 
 
 def test_ladder_rejects_what_is_not_ported():
-    """A bias raises naming queue B; segment ids and dropout, ported
-    since, run and mask as the plain reference does (dropout without a
-    seed is a ``ValueError``, as in JAX)."""
+    """A trainable bias (dBias) raises naming queue B; segment ids,
+    dropout and a constant bias, ported since, run as the plain reference
+    does (dropout without a seed is a ``ValueError``, as in JAX)."""
     q = torch.randn((1, 1, 8, 32), generator=torch.Generator().manual_seed(1))
     ids = torch.tensor([[0, 0, 0, 1, 1, 1, 1, 2]], dtype=torch.int32)
     got = port_attention.flash_attention(q, q, q, q_segment_ids=ids,
@@ -88,7 +88,12 @@ def test_ladder_rejects_what_is_not_ported():
                                         kv_segment_ids=ids)
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
     with pytest.raises(NotImplementedError, match="queue B"):
-        port_attention.flash_attention(q, q, q, bias=torch.zeros(8, 8))
+        port_attention.flash_attention(
+            q, q, q, bias=torch.zeros(8, 8, requires_grad=True))
+    bias = torch.randn((8, 8), generator=torch.Generator().manual_seed(2))
+    np.testing.assert_allclose(
+        port_attention.flash_attention(q, q, q, bias=bias).numpy(),
+        port_attention.mha_reference(q, q, q, bias=bias).numpy(), **TOL)
     with pytest.raises(ValueError, match="requires dropout_seed"):
         port_attention.flash_attention(q, q, q, dropout_rate=0.1)
     got = port_attention.flash_attention(q, q, q, dropout_rate=0.1,

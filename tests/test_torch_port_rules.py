@@ -204,6 +204,121 @@ def test_dropout_instances_count_under_their_own_names(monkeypatch, module,
         names, 1)
 
 
+@pytest.mark.parametrize("module", ["attention_short", "attention_mid",
+                                    "attention_flash"])
+@pytest.mark.parametrize("segs, drop", [(False, False), (True, True)])
+def test_bias_launches_count_under_their_own_names(monkeypatch, module, segs,
+                                                   drop):
+    """A launch with a bias counts as ``<name>_bias`` (after ``_seg`` and
+    ``_drop``) and hands the C entry the fp32 bias's pointer right after
+    the ids and its batch and head strides right after ``causal``, 0 on a
+    broadcast dim; without a bias the pointer is null and the strides 0
+    (the launches above)."""
+    from apex_tpu_torch.ops import attention_short as short
+    from apex_tpu_torch.ops.common import launch_counts, reset_launch_counts
+
+    mod = importlib.import_module(f"apex_tpu_torch.ops.{module}")
+    ids = (torch.zeros((2, 16), dtype=torch.int32),) * 2 if segs else (
+        None, None)
+    dr = (0.1, 7) if drop else None
+    # a per-batch bias: (b, 1, sq, sk), its head dim broadcast
+    bias = short.bias_slab("k", torch.randn(2, 1, 16, 16), 2, 3, 16, 16)
+    tag = ("_seg" if segs else "") + ("_drop" if drop else "") + "_bias"
+    reset_launch_counts()
+    if module == "attention_flash":
+        q, row = torch.zeros((6, 16, 64)), torch.zeros((6, 16))
+        launches = [(sym, lambda e, sym=sym, rest=rest, outs=outs:
+                     mod._launch(sym, q, q, q, ids, 3, rest, outs, True, 0.1,
+                                 dr, bias))
+                    for sym, rest, outs in (
+                        (mod.KERNEL, (), (q, row)),
+                        (mod.KERNEL_DKV, (q, row, row), (q, q)),
+                        (mod.KERNEL_DQ, (q, row, row), (q,)))]
+        names = [k + tag for k in (mod.KERNEL, mod.KERNEL_DKV, mod.KERNEL_DQ)]
+    else:
+        q = torch.zeros((2, 3, 16, 64))
+        launches = [
+            (mod.KERNEL, lambda e: short.launch_fwd(
+                e, (mod.KERNEL, mod.KERNEL_SEG), q, q, q, True, 0.1, *ids,
+                dr, bias)),
+            (mod.KERNEL_BWD, lambda e: short.launch_bwd(
+                e, (mod.KERNEL_BWD, mod.KERNEL_BWD_SEG), q, q, q, q, q,
+                torch.zeros((2, 3, 16)), None, True, 0.1, *ids, dr, bias))]
+        names = [mod.KERNEL + tag, mod.KERNEL_BWD + tag]
+    for symbol, call in launches:
+        calls, entry = _fake_launch(monkeypatch, mod, symbol)
+        if module == "attention_flash":
+            monkeypatch.setattr(mod, "_entry", entry)
+        call(entry)
+        (args,) = calls
+        assert len(args) == len(mod.ARGTYPES[symbol])
+        assert args[5] == bias.data_ptr()
+        at = args.index(6)          # bh = 2 * 3, then heads, sq, sk, ...
+        assert args[at + 1] == 3
+        assert args[at + 7:at + 9] == (16 * 16, 0)
+    assert {k: v for k, v in launch_counts().items() if v} == dict.fromkeys(
+        names, 1)
+
+
+def test_contrib_attention_never_falls_back():
+    """``impl="fast"`` goes through ``flash_attention`` (the kernels, their
+    plain versions only on CPU tensors), never through the plain
+    ``mha_reference``, whatever the options; no module of the slice has a
+    ``try``."""
+    from apex_tpu_torch.contrib import multihead_attn as mha
+
+    for path in ("contrib/multihead_attn/__init__.py", "ops/attention.py"):
+        # a port file, so the import rule above covers it
+        assert ROOT / "apex_tpu_torch" / path in PORT_FILES
+        src = (ROOT / "apex_tpu_torch" / path).read_text()
+        assert not re.search(r"^\s*try\s*:", src, re.MULTILINE), path
+    seen = []
+    real = mha.flash_attention
+
+    def spy(*args, **kw):
+        seen.append(kw["bias_requires_grad"])
+        return real(*args, **kw)
+
+    def oracle(*args, **kw):
+        raise AssertionError("impl='fast' ran the plain attention")
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(mha, "flash_attention", spy)
+    mp.setattr(mha, "mha_reference", oracle)
+    try:
+        x = torch.randn((8, 2, 32), generator=torch.Generator().manual_seed(0))
+        pad = torch.zeros((2, 8), dtype=torch.bool)
+        pad[1, 5:] = True
+        mask = torch.ones((8, 8), dtype=torch.bool).triu(1)
+        m = mha.SelfMultiheadAttn(32, 4, dropout=0.1, bias=True,
+                                  include_norm_add=True, device="cpu")
+        m(x, key_padding_mask=pad, attn_mask=mask, rng=np.array(
+            [0, 1], np.uint32)).sum().backward()
+        mha.EncdecMultiheadAttn(32, 4, device="cpu")(x, x, pad)
+    finally:
+        mp.undo()
+    assert seen == [False, False]
+
+
+@pytest.mark.parametrize("name", ["SelfMultiheadAttn", "EncdecMultiheadAttn"])
+def test_contrib_modules_keep_the_jax_signatures(name):
+    """``forward`` takes the JAX ``apply``'s parameters less ``params``, in
+    its order; the constructor the JAX one's, in its order, then only
+    keyword-only parameters of its own (``device``, ``key``)."""
+    import inspect
+
+    port = getattr(importlib.import_module(
+        "apex_tpu_torch.contrib.multihead_attn"), name)
+    ref = getattr(importlib.import_module("apex_tpu.contrib.multihead_attn"),
+                  name)
+    assert _params(port.forward) == _params(ref.apply)
+    ref_init = list(inspect.signature(ref.__init__).parameters)
+    init = inspect.signature(port.__init__).parameters
+    assert list(init)[:len(ref_init)] == ref_init
+    assert [p for p in list(init)[len(ref_init):]
+            if init[p].kind is not inspect.Parameter.KEYWORD_ONLY] == []
+
+
 @pytest.mark.parametrize("module, symbol", [
     ("attention_short", "short_fwd"), ("attention_short", "short_bwd"),
     ("attention_mid", "mid_fwd"), ("attention_mid", "mid_bwd"),
@@ -368,8 +483,9 @@ def test_signature_twins_cover_the_entry_points():
 def test_attention_takes_the_jax_arguments_it_does_not_use():
     """``bias_requires_grad=False`` with no bias (the T5 and contrib
     callers), a dropout seed without dropout and the TPU tiles run; a
-    bias raises naming queue B; dropout with a seed runs; ``"xla"`` is
-    no rung."""
+    constant bias runs, and a trainable one raises naming queue B item 2d
+    unless ``bias_requires_grad=False``; dropout with a seed runs;
+    ``"xla"`` is no rung."""
     from apex_tpu_torch.ops import attention, attention_mid, attention_short
 
     q = torch.randn((1, 2, 16, 64), generator=torch.Generator().manual_seed(0))
@@ -383,8 +499,13 @@ def test_attention_takes_the_jax_arguments_it_does_not_use():
     for fn, kw in entries:
         got = fn(q, q, q, bias_requires_grad=False, dropout_seed=3, **kw)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-        with pytest.raises(NotImplementedError, match="queue B item 2c"):
-            fn(q, q, q, bias=torch.zeros(16, 16), bias_requires_grad=False)
+        bias = torch.randn((16, 16), generator=torch.Generator().manual_seed(1))
+        got = fn(q, q, q, bias=bias.requires_grad_(), bias_requires_grad=False,
+                 **kw)
+        torch.testing.assert_close(got, attention.mha_reference(
+            q, q, q, bias=bias), rtol=1e-5, atol=1e-5)
+        with pytest.raises(NotImplementedError, match="queue B item 2d"):
+            fn(q, q, q, bias=bias, **kw)
         # dropout is ported: with a seed it runs (the reference's mask)
         got = fn(q, q, q, dropout_rate=0.1, dropout_seed=1, **kw)
         torch.testing.assert_close(got, attention.mha_reference(

@@ -72,11 +72,21 @@
 //    to s * scale before the predicate, and the dK/dV and dQ kernels add
 //    the same value the same way before p = exp(s - lse)
 //    (attention_short.py:179-184,
-//    :257-260; attention_mid.py:251-253, :369-371).  The causal tile skips
-//    stay: without the bias gradient (queue B item 2d) the skipped tiles
-//    contribute nothing.  A row the bias alone masks (-1e30 everywhere)
-//    keeps its predicate true, so its output is the uniform mean of V, as
-//    JAX's softmax gives; only the predicate zeroes p.
+//    :257-260; attention_mid.py:251-253, :369-371).  A row the bias alone
+//    masks (-1e30 everywhere) keeps its predicate true, so its output is
+//    the uniform mean of V, as JAX's softmax gives; only the predicate
+//    zeroes p.
+//  - dBias (DBIAS, the Pallas bodies' dbias output under bias_grad,
+//    attention_short.py:281-294, attention_mid.py:326-342, :403-410): an
+//    instance of the dQ kernel only, and only beside BIAS, that also
+//    stores each pair's dz = p * (dp - delta) unscaled in fp32 to a (bh,
+//    sq, sk) output (attention_tiles.cuh's store_dbias), before dz is
+//    scaled and rounded for dQ.  delta already holds the lse cotangent, so
+//    the mid rung's dz = p * (dp - delta + dlse) needs no new term.  The
+//    causal tile skip stays (JAX runs every block once dBias is emitted):
+//    the wrapper zero-fills the output, and a skipped pair's dz is 0.  The
+//    wrappers sum it over the bias's broadcast dims outside the kernel, as
+//    JAX sums it in XLA (attention_short.py:495-504).
 //
 // What bounds them on the card: at the flagship's training shape (b*h = 64,
 // s = 1024, d = 128, causal, bf16) the forward does 2 * 2 * d * s(s+1)/2
@@ -464,15 +474,18 @@ struct DqLayout {
   static constexpr int BYTES = round_up(DL_OFF + kTile * 4, 128);
 };
 
-template <typename T, int D, bool SEGS, bool DROP, bool BIAS>
+// With DBIAS (only beside BIAS) dbias is the (bh, sq, sk) fp32 gradient of
+// the biased scores, zero-filled by the caller.
+template <typename T, int D, bool SEGS, bool DROP, bool BIAS, bool DBIAS>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const int* __restrict__ q_ids,
                    const int* __restrict__ kv_ids, const T* __restrict__ dout,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, T* __restrict__ dq,
-                   int heads, int sq, int sk, int causal, float scale,
-                   Dropout dr, Bias bias) {
+                   float* __restrict__ dbias, int heads, int sq, int sk,
+                   int causal, float scale, Dropout dr, Bias bias) {
+  static_assert(BIAS || !DBIAS, "dBias needs a bias");
   using L = DqLayout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem + L::Q_OFF);
@@ -550,11 +563,12 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if constexpr (DROP) {
           dp = drop_keep(dr, hrow, qi, kj) ? dp * dr.inv_keep : 0.0f;
         }
-        const float dz = p * (dp - dl_s[row]) * scale;
+        const float dz = p * (dp - dl_s[row]);
+        store_dbias<DBIAS>(dbias, bh, sq, sk, qi, kj, dz);
         if constexpr (L::kTC) {
-          Zs[row * L::LDP + c] = __float2bfloat16(dz);
+          Zs[row * L::LDP + c] = __float2bfloat16(dz * scale);
         } else {
-          Ss[row * L::LDS + c] = dz;
+          Ss[row * L::LDS + c] = dz * scale;
         }
       }
     }
@@ -606,13 +620,14 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool SEGS, bool DROP, bool BIAS>
+template <typename T, int D, bool SEGS, bool DROP, bool BIAS, bool DBIAS>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const int* q_ids, const int* kv_ids, const void* out,
                        const void* dout, const float* lse, const float* dlse,
-                       float* delta, void* dq, void* dk, void* dv, int bh,
-                       int heads, int sq, int sk, int causal, float scale,
-                       Dropout dr, Bias bias, cudaStream_t stream) {
+                       float* delta, void* dq, void* dk, void* dv,
+                       float* dbias, int bh, int heads, int sq, int sk,
+                       int causal, float scale, Dropout dr, Bias bias,
+                       cudaStream_t stream) {
   using KV = DkvLayout<T, D>;
   using QL = DqLayout<T, D>;
   constexpr int kKvBytes =
@@ -622,7 +637,8 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   cudaError_t err =
       opt_in(attn_bwd_dkv_kernel<T, D, SEGS, DROP, BIAS>, kKvBytes, &opted_kv);
   if (err != cudaSuccess) return err;
-  err = opt_in(attn_bwd_dq_kernel<T, D, SEGS, DROP, BIAS>, kQBytes, &opted_q);
+  err = opt_in(attn_bwd_dq_kernel<T, D, SEGS, DROP, BIAS, DBIAS>, kQBytes,
+               &opted_q);
   if (err != cudaSuccess) return err;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
@@ -640,28 +656,30 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
           static_cast<T*>(dv), heads, sq, sk, causal, scale, dr, bias);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_dq_kernel<T, D, SEGS, DROP, BIAS>
+  attn_bwd_dq_kernel<T, D, SEGS, DROP, BIAS, DBIAS>
       <<<dim3((sq + kTile - 1) / kTile, bh), kThreads, kQBytes, stream>>>(
           qt, kt, vt, q_ids, kv_ids, dot, lse, delta, static_cast<T*>(dq),
-          heads, sq, sk, causal, scale, dr, bias);
+          dbias, heads, sq, sk, causal, scale, dr, bias);
   return cudaGetLastError();
 }
 
 // dtype: 0 = fp32, 1 = bf16; head dims 64 and 128.  q_ids/kv_ids: both
 // null (no segment ids) or (bh / heads, sq) and (bh / heads, sk) int32.
-// dr.inv_keep == 0: no dropout.  bias.ptr null: no bias.  Each (dtype, d)
-// has eight instances: with and without SEGS, DROP and BIAS.
+// dr.inv_keep == 0: no dropout.  bias.ptr null: no bias; dbias null (the
+// backward): no dBias.  Each (dtype, d) has eight instances, with and
+// without SEGS, DROP and BIAS, and the backward's dQ kernel four more,
+// the BIAS ones with DBIAS.
+#define ATTN_BIAS(CALL, T, D, SEGS, DROP)                             \
+  (biased ? (emit ? CALL(T, D, SEGS, DROP, true, true)                \
+                  : CALL(T, D, SEGS, DROP, true, false))              \
+          : CALL(T, D, SEGS, DROP, false, false))
 #define ATTN_DISPATCH_TD(CALL, T, D)                                  \
   if (segs) {                                                         \
-    if (drop) return biased ? CALL(T, D, true, true, true)            \
-                            : CALL(T, D, true, true, false);          \
-    return biased ? CALL(T, D, true, false, true)                     \
-                  : CALL(T, D, true, false, false);                   \
+    if (drop) return ATTN_BIAS(CALL, T, D, true, true);               \
+    return ATTN_BIAS(CALL, T, D, true, false);                        \
   }                                                                   \
-  if (drop) return biased ? CALL(T, D, false, true, true)             \
-                          : CALL(T, D, false, true, false);           \
-  return biased ? CALL(T, D, false, false, true)                      \
-                : CALL(T, D, false, false, false)
+  if (drop) return ATTN_BIAS(CALL, T, D, false, true);                \
+  return ATTN_BIAS(CALL, T, D, false, false)
 #define ATTN_DISPATCH(CALL)                                         \
   if (dtype == 0 && d == 128) { ATTN_DISPATCH_TD(CALL, float, 128); } \
   if (dtype == 0 && d == 64) { ATTN_DISPATCH_TD(CALL, float, 64); }   \
@@ -682,38 +700,43 @@ inline cudaError_t fwd(const void* q, const void* k, const void* v,
   const bool segs = q_ids != nullptr;
   const bool drop = dr.inv_keep != 0.0f;
   const bool biased = bias.ptr != nullptr;
-#define CALL(T, D, SEGS, DROP, BIAS)                                        \
+  constexpr bool emit = false;   // the forward has no dBias
+#define CALL(T, D, SEGS, DROP, BIAS, DBIAS)                                 \
   launch_fwd<T, D, SEGS, DROP, BIAS>(q, k, v, q_ids, kv_ids, out, lse, bh, heads, \
                                sq, sk, causal, scale, dr, bias, s)
   ATTN_DISPATCH(CALL);
 #undef CALL
 }
 
+// dbias: null, or (bh, sq, sk) fp32, zero-filled, for the dQ kernel's
+// DBIAS instance (only with a bias).
 inline cudaError_t bwd(const void* q, const void* k, const void* v,
                        const int* q_ids, const int* kv_ids, const void* out,
                        const void* dout, const float* lse, const float* dlse,
-                       float* delta, void* dq, void* dk, void* dv, int bh,
-                       int heads, int sq, int sk, int d, int dtype,
-                       int causal, float scale, Dropout dr, Bias bias,
-                       void* stream) {
+                       float* delta, void* dq, void* dk, void* dv,
+                       float* dbias, int bh, int heads, int sq, int sk, int d,
+                       int dtype, int causal, float scale, Dropout dr,
+                       Bias bias, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0) return cudaErrorInvalidValue;
   if (bad_ids(q_ids, kv_ids, bh, heads)) return cudaErrorInvalidValue;
-  if (bad_bias(bias.ptr, bias.stride_b, bias.stride_h, bh, heads))
+  if (bad_bias(bias.ptr, bias.stride_b, bias.stride_h, bh, heads, dbias))
     return cudaErrorInvalidValue;
   const bool segs = q_ids != nullptr;
   const bool drop = dr.inv_keep != 0.0f;
   const bool biased = bias.ptr != nullptr;
-#define CALL(T, D, SEGS, DROP, BIAS)                                      \
-  launch_bwd<T, D, SEGS, DROP, BIAS>(q, k, v, q_ids, kv_ids, out, dout, lse,   \
-                               dlse, delta, dq, dk, dv, bh, heads, sq,   \
-                               sk, causal, scale, dr, bias, s)
+  const bool emit = dbias != nullptr;
+#define CALL(T, D, SEGS, DROP, BIAS, DBIAS)                               \
+  launch_bwd<T, D, SEGS, DROP, BIAS, DBIAS>(q, k, v, q_ids, kv_ids, out, dout, \
+                               lse, dlse, delta, dq, dk, dv, dbias, bh,  \
+                               heads, sq, sk, causal, scale, dr, bias, s)
   ATTN_DISPATCH(CALL);
 #undef CALL
 }
 
 #undef ATTN_DISPATCH
 #undef ATTN_DISPATCH_TD
+#undef ATTN_BIAS
 
 }  // namespace
 }  // namespace attn

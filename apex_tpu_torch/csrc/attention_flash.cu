@@ -51,9 +51,19 @@
 //    :581-582; the Bias operand of attention_tiles.cuh, each lane's pairs
 //    read into registers before each tile's products): the forward adds it
 //    to its already scaled score, the backward kernels to (q . k) * scale,
-//    before the predicate.  Without the bias gradient (queue B item 2d) no
-//    new output exists and the causal tile skips stay.  Counted with _bias
-//    appended (flash_fwd_bias, ...).
+//    before the predicate.  Counted with _bias appended (flash_fwd_bias,
+//    ...).
+//  - dBias (DBIAS, the dQ kernel's dbias output under bias_grad, :545-567,
+//    :612-630, out spec :704-713): an instance of the dQ kernel only, and
+//    only beside BIAS, that also stores each pair's dz = p * (dp - delta)
+//    unscaled in fp32 to a (bh, sq, sk) output (attention_tiles.cuh's
+//    store_dbias), before dz is scaled and rounded for dQ.  The causal tile
+//    skip stays (JAX runs every block once dBias is emitted, :563-567): the
+//    wrapper zero-fills the output, and a skipped pair's dz is 0.  The
+//    wrapper sums it over the bias's broadcast dims, as JAX does in XLA
+//    (:767-783).  It adds 4 bytes a pair of writes (1.07 GB at b*h = 16,
+//    s = 4096) to a kernel bound by operations.  Counted as
+//    flash_bwd_dq_dbias (_seg, _drop before it).
 //
 // Tiles, chosen for s >= 4096 (at b*h = 16, the Llama-mode training shape):
 //  - forward: 128-row query tiles in bf16 (8 warps, 16 rows each), so each
@@ -633,15 +643,19 @@ struct DqTiles {
   static constexpr int BYTES = round_up(DQ_OFF + QT * LDA * 4, 128);
 };
 
-template <typename T, int D, bool SEGS, bool DROP, bool BIAS>
+// With DBIAS (only beside BIAS) dbias is the (bh, sq, sk) fp32 gradient of
+// the biased scores, zero-filled by the caller.
+template <typename T, int D, bool SEGS, bool DROP, bool BIAS, bool DBIAS>
 __global__ void __launch_bounds__(DqTiles<T, D>::kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ q_ids,
                     const int* __restrict__ kv_ids, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    int heads, int sq, int sk, int causal, float scale,
-                    attn::Dropout dr, attn::Bias bias) {
+                    float* __restrict__ dbias, int heads, int sq, int sk,
+                    int causal, float scale, attn::Dropout dr,
+                    attn::Bias bias) {
+  static_assert(BIAS || !DBIAS, "dBias needs a bias");
   using L = DqTiles<T, D>;
   constexpr int QT = L::QT, KT = L::KT, TH = L::kThreads;
   constexpr int KID = attn::id_bytes<SEGS>(KT);
@@ -738,11 +752,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if constexpr (DROP) {
           dp = attn::drop_keep(dr, hrow, qi, kj) ? dp * dr.inv_keep : 0.0f;
         }
-        const float dz = p * (dp - dl_s[row]) * scale;
+        const float dz = p * (dp - dl_s[row]);
+        attn::store_dbias<DBIAS>(dbias, bh, sq, sk, qi, kj, dz);
         if constexpr (L::kTC) {
-          Zs[row * L::LDP + c] = __float2bfloat16(dz);
+          Zs[row * L::LDP + c] = __float2bfloat16(dz * scale);
         } else {
-          Ss[row * L::LDS + c] = dz;
+          Ss[row * L::LDS + c] = dz * scale;
         }
       }
     }
@@ -818,25 +833,26 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool SEGS, bool DROP, bool BIAS>
+template <typename T, int D, bool SEGS, bool DROP, bool BIAS, bool DBIAS>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const int* q_ids, const int* kv_ids, const void* dout,
-                      const float* lse, const float* delta, void* dq, int bh,
-                      int heads, int sq, int sk, int causal, float scale,
-                      attn::Dropout dr, attn::Bias bias, cudaStream_t stream) {
+                      const float* lse, const float* delta, void* dq,
+                      float* dbias, int bh, int heads, int sq, int sk,
+                      int causal, float scale, attn::Dropout dr,
+                      attn::Bias bias, cudaStream_t stream) {
   using L = DqTiles<T, D>;
   constexpr int kBytes = L::BYTES + attn::id_bytes<SEGS>(L::QT) +
                          2 * attn::id_bytes<SEGS>(L::KT);
   static bool opted = false;
-  cudaError_t err =
-      attn::opt_in(flash_bwd_dq_kernel<T, D, SEGS, DROP, BIAS>, kBytes, &opted);
+  cudaError_t err = attn::opt_in(
+      flash_bwd_dq_kernel<T, D, SEGS, DROP, BIAS, DBIAS>, kBytes, &opted);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<T, D, SEGS, DROP, BIAS>
+  flash_bwd_dq_kernel<T, D, SEGS, DROP, BIAS, DBIAS>
       <<<dim3((sq + L::QT - 1) / L::QT, bh), L::kThreads, kBytes, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), q_ids, kv_ids,
-          static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), heads,
-          sq, sk, causal, scale, dr, bias);
+          static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), dbias,
+          heads, sq, sk, causal, scale, dr, bias);
   return cudaGetLastError();
 }
 
@@ -852,29 +868,32 @@ bool bad_shape(int bh, int sq, int sk) {
 // fp32, the (sq, sk) slab of row bh = b_i * heads + h_i at b_i *
 // bias_stride_b + h_i * bias_stride_h (0 on a broadcast dim); seed,
 // keep_threshold, inv_keep the dropout hash's uint32 seed and threshold and
-// the fp32 1 / (1 - rate), inv_keep = 0 for no dropout.  Each (dtype, d)
-// has eight instances: with and without SEGS, DROP and BIAS.  Each entry
-// returns a cudaError_t code (0 = success).
+// the fp32 1 / (1 - rate), inv_keep = 0 for no dropout; DBIAS, the dQ
+// entry's non-null dbias (only with a bias).  Each (dtype, d) has eight
+// instances, with and without SEGS, DROP and BIAS, and the dQ kernel four
+// more, the BIAS ones with DBIAS.  Each entry returns a cudaError_t code
+// (0 = success).
+#define FLASH_BIAS(CALL, T, D, SEGS, DROP)                                 \
+  (biased ? (emit ? CALL(T, D, SEGS, DROP, true, true)                     \
+                  : CALL(T, D, SEGS, DROP, true, false))                   \
+          : CALL(T, D, SEGS, DROP, false, false))
 #define FLASH_DISPATCH_TD(CALL, T, D)                                      \
   if (segs) {                                                              \
-    if (drop) return biased ? CALL(T, D, true, true, true)                 \
-                            : CALL(T, D, true, true, false);               \
-    return biased ? CALL(T, D, true, false, true)                          \
-                  : CALL(T, D, true, false, false);                        \
+    if (drop) return FLASH_BIAS(CALL, T, D, true, true);                   \
+    return FLASH_BIAS(CALL, T, D, true, false);                            \
   }                                                                        \
-  if (drop) return biased ? CALL(T, D, false, true, true)                  \
-                          : CALL(T, D, false, true, false);                \
-  return biased ? CALL(T, D, false, false, true)                           \
-                : CALL(T, D, false, false, false)
-#define FLASH_DISPATCH(CALL)                                               \
+  if (drop) return FLASH_BIAS(CALL, T, D, false, true);                    \
+  return FLASH_BIAS(CALL, T, D, false, false)
+#define FLASH_DISPATCH(CALL, DBIAS)                                        \
   if (flash::bad_shape(bh, sq, sk) ||                                      \
       attn::bad_ids(q_ids, kv_ids, bh, heads) ||                           \
-      attn::bad_bias(bias, bias_stride_b, bias_stride_h, bh, heads))       \
+      attn::bad_bias(bias, bias_stride_b, bias_stride_h, bh, heads, DBIAS)) \
     return cudaErrorInvalidValue;                                          \
   cudaStream_t s = static_cast<cudaStream_t>(stream);                      \
   const bool segs = q_ids != nullptr;                                      \
   const bool drop = inv_keep != 0.0f;                                      \
   const bool biased = bias != nullptr;                                     \
+  const bool emit = (DBIAS) != nullptr;                                    \
   const attn::Dropout dr{seed, keep_threshold, inv_keep};                  \
   const attn::Bias bs{bias, bias_stride_b, bias_stride_h};                 \
   if (dtype == 0 && d == 128) { FLASH_DISPATCH_TD(CALL, float, 128); }     \
@@ -890,11 +909,11 @@ int flash_fwd(const void* q, const void* k, const void* v, const int* q_ids,
               int bh, int heads, int sq, int sk, int d, int dtype, int causal,
               int bias_stride_b, int bias_stride_h, float scale, unsigned seed,
               unsigned keep_threshold, float inv_keep, void* stream) {
-#define CALL(T, D, SEGS, DROP, BIAS)                                       \
+#define CALL(T, D, SEGS, DROP, BIAS, DBIAS)                                \
   flash::launch_fwd<T, D, SEGS, DROP, BIAS>(q, k, v, q_ids, kv_ids, out, lse,   \
                                       bh, heads, sq, sk, causal, scale, dr, \
                                       bs, s)
-  FLASH_DISPATCH(CALL);
+  FLASH_DISPATCH(CALL, static_cast<float*>(nullptr));
 #undef CALL
 }
 
@@ -906,26 +925,28 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
                   int dtype, int causal, int bias_stride_b, int bias_stride_h,
                   float scale, unsigned seed, unsigned keep_threshold,
                   float inv_keep, void* stream) {
-#define CALL(T, D, SEGS, DROP, BIAS)                                       \
+#define CALL(T, D, SEGS, DROP, BIAS, DBIAS)                                \
   flash::launch_dkv<T, D, SEGS, DROP, BIAS>(q, k, v, q_ids, kv_ids, dout, lse,  \
                                       delta, dk, dv, bh, heads, sq, sk,    \
                                       causal, scale, dr, bs, s)
-  FLASH_DISPATCH(CALL);
+  FLASH_DISPATCH(CALL, static_cast<float*>(nullptr));
 #undef CALL
 }
 
+// dbias: null, or with a bias the (bh, sq, sk) fp32 gradient of the biased
+// scores, zero-filled by the caller: the DBIAS instance stores it.
 int flash_bwd_dq(const void* q, const void* k, const void* v,
                  const int* q_ids, const int* kv_ids, const float* bias,
                  const void* dout, const float* lse, const float* delta,
-                 void* dq, int bh, int heads, int sq, int sk, int d, int dtype,
-                 int causal, int bias_stride_b, int bias_stride_h, float scale,
-                 unsigned seed, unsigned keep_threshold, float inv_keep,
-                 void* stream) {
-#define CALL(T, D, SEGS, DROP, BIAS)                                       \
-  flash::launch_dq<T, D, SEGS, DROP, BIAS>(q, k, v, q_ids, kv_ids, dout, lse,   \
-                                     delta, dq, bh, heads, sq, sk, causal, \
-                                     scale, dr, bs, s)
-  FLASH_DISPATCH(CALL);
+                 void* dq, float* dbias, int bh, int heads, int sq, int sk,
+                 int d, int dtype, int causal, int bias_stride_b,
+                 int bias_stride_h, float scale, unsigned seed,
+                 unsigned keep_threshold, float inv_keep, void* stream) {
+#define CALL(T, D, SEGS, DROP, BIAS, DBIAS)                                \
+  flash::launch_dq<T, D, SEGS, DROP, BIAS, DBIAS>(q, k, v, q_ids, kv_ids, dout, \
+                                     lse, delta, dq, dbias, bh, heads, sq, \
+                                     sk, causal, scale, dr, bs, s)
+  FLASH_DISPATCH(CALL, dbias);
 #undef CALL
 }
 

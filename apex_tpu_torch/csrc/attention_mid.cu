@@ -24,7 +24,11 @@
 // SEGS instances, counted as mid_fwd_seg and mid_bwd_seg; with dropout (the
 // flagship trains at s = 1024 with attention dropout 0.1) the DROP
 // instances, counted as mid_fwd_drop and mid_bwd_drop; with a bias the
-// BIAS instances, with _bias appended.
+// BIAS instances, with _bias appended.  A bias that is trained (the Pallas
+// body's dbias output with the lse cotangent, :326-342, :403-410) adds the
+// dQ kernel's DBIAS instance, which writes each pair's fp32 dz (4 bytes a
+// pair: 268 MB at the flagship's b = 8, h = 8, s = 1024), counted with
+// _dbias in place of _bias.
 
 #include "attention_common.cuh"
 
@@ -50,16 +54,18 @@ int mid_fwd(const void* q, const void* k, const void* v, const int* q_ids,
 }
 
 // delta: (bh, sq) fp32 scratch; dlse: (bh, sq) fp32 lse cotangent or null;
-// q_ids/kv_ids and the bias as for mid_fwd.
+// q_ids/kv_ids and the bias as for mid_fwd.  dbias: null, or with a bias
+// the (bh, sq, sk) fp32 gradient of the biased scores, zero-filled by the
+// caller: the dQ kernel's DBIAS instance stores it.
 int mid_bwd(const void* q, const void* k, const void* v, const int* q_ids,
             const int* kv_ids, const float* bias, const void* out,
             const void* dout, const float* lse, const float* dlse, float* delta,
-            void* dq, void* dk, void* dv, int bh, int heads, int sq, int sk,
-            int d, int dtype, int causal, int bias_stride_b, int bias_stride_h,
-            float scale, unsigned seed, unsigned keep_threshold, float inv_keep,
-            void* stream) {
+            void* dq, void* dk, void* dv, float* dbias, int bh, int heads,
+            int sq, int sk, int d, int dtype, int causal, int bias_stride_b,
+            int bias_stride_h, float scale, unsigned seed,
+            unsigned keep_threshold, float inv_keep, void* stream) {
   return attn::bwd(q, k, v, q_ids, kv_ids, out, dout, lse, dlse, delta, dq,
-                   dk, dv, bh, heads, sq, sk, d, dtype, causal, scale,
+                   dk, dv, dbias, bh, heads, sq, sk, d, dtype, causal, scale,
                    attn::Dropout{seed, keep_threshold, inv_keep},
                    attn::Bias{bias, bias_stride_b, bias_stride_h}, stream);
 }

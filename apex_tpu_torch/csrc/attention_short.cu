@@ -26,7 +26,13 @@
 // short_fwd_seg_drop, short_bwd_seg_drop).  With an additive bias
 // (contrib attention's attn_mask) they launch the BIAS instances, which
 // read it once per pair and so add 4 bytes a stored element to the bytes
-// moved; the wrappers count those launches with _bias appended.
+// moved; the wrappers count those launches with _bias appended.  For a bias
+// that is trained (the Pallas body's dbias output, :227-294) the backward
+// launches the dQ kernel's DBIAS instance, which also writes each pair's
+// fp32 dz, 4 bytes a pair of every row (b*h*sq*sk*4 bytes, 134 MB at
+// Transformer-big's decoder, b = 32, h = 16, s = 256), summed by the
+// wrapper over the bias's broadcast dims; counted with _dbias in place of
+// _bias.
 
 #include "attention_common.cuh"
 
@@ -52,16 +58,18 @@ int short_fwd(const void* q, const void* k, const void* v, const int* q_ids,
 }
 
 // delta: (bh, sq) fp32 scratch; dlse: (bh, sq) fp32 lse cotangent or null;
-// q_ids/kv_ids and the bias as for short_fwd.
+// q_ids/kv_ids and the bias as for short_fwd.  dbias: null, or with a bias
+// the (bh, sq, sk) fp32 gradient of the biased scores, zero-filled by the
+// caller: the dQ kernel's DBIAS instance stores it.
 int short_bwd(const void* q, const void* k, const void* v, const int* q_ids,
               const int* kv_ids, const float* bias, const void* out,
               const void* dout, const float* lse, const float* dlse, float* delta,
-              void* dq, void* dk, void* dv, int bh, int heads, int sq, int sk,
-              int d, int dtype, int causal, int bias_stride_b, int bias_stride_h,
-              float scale, unsigned seed, unsigned keep_threshold, float inv_keep,
-              void* stream) {
+              void* dq, void* dk, void* dv, float* dbias, int bh, int heads,
+              int sq, int sk, int d, int dtype, int causal, int bias_stride_b,
+              int bias_stride_h, float scale, unsigned seed,
+              unsigned keep_threshold, float inv_keep, void* stream) {
   return attn::bwd(q, k, v, q_ids, kv_ids, out, dout, lse, dlse, delta, dq,
-                   dk, dv, bh, heads, sq, sk, d, dtype, causal, scale,
+                   dk, dv, dbias, bh, heads, sq, sk, d, dtype, causal, scale,
                    attn::Dropout{seed, keep_threshold, inv_keep},
                    attn::Bias{bias, bias_stride_b, bias_stride_h}, stream);
 }

@@ -286,8 +286,8 @@ __device__ __forceinline__ bool drop_keep(const Dropout& dr, unsigned h,
 // The predicate alone decides what is masked: a pair the bias pushes to
 // -1e30 stays visible, so a row the bias masks entirely is a uniform mean,
 // as in JAX, not the "no visible key" row of segment ids.  The backward
-// kernels add the same values to recompute p = exp(s - lse); the gradient
-// of the bias itself (queue B item 2d) is not emitted here.
+// kernels add the same values to recompute p = exp(s - lse).  The gradient
+// of the bias (the dQ kernels' DBIAS instances) is store_dbias below.
 
 struct Bias {
   const float* ptr;   // (nb, nh, sq, sk) fp32, or null: no bias
@@ -338,12 +338,30 @@ __device__ __forceinline__ float biased(float s, const float& b) {
   }
 }
 
+// dBias (the Pallas bodies' dbias output under bias_grad): the gradient
+// with respect to s * scale + bias of pair (qi, kj) of row bh, dz = p * (dp
+// - delta), stored unscaled in fp32 to the (bh, sq, sk) output of an
+// instance that emits it (DB), taken before dz is scaled and rounded to
+// bf16 for dQ.  A lane owns columns lane + 32 j of its rows, so each store
+// is 32 consecutive floats; ragged rows and columns store nothing.  The
+// walk's causal skip stays: the wrapper zero-fills the output, so a
+// skipped tile reads 0, as the Pallas bodies write there.
+template <bool DB>
+__device__ __forceinline__ void store_dbias(float* dbias, long bh, int sq,
+                                            int sk, int qi, int kj,
+                                            float dz) {
+  if constexpr (DB) {
+    if (qi < sq && kj < sk) dbias[(bh * sq + qi) * sk + kj] = dz;
+  }
+}
+
 // The C entries' check of the bias arguments: whole batch rows of `heads`
-// rows each, and strides that are not negative.
+// rows each, strides that are not negative, and no dBias output without
+// a bias.
 inline bool bad_bias(const float* bias, int stride_b, int stride_h, int bh,
-                     int heads) {
-  return bias != nullptr &&
-         (heads <= 0 || bh % heads != 0 || stride_b < 0 || stride_h < 0);
+                     int heads, const float* dbias = nullptr) {
+  if (bias == nullptr) return dbias != nullptr;
+  return heads <= 0 || bh % heads != 0 || stride_b < 0 || stride_h < 0;
 }
 
 }  // namespace

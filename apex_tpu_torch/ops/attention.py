@@ -25,9 +25,12 @@ copy of the JAX ``_keep_mask``, with ``mix32`` and ``keep_threshold``)
 over the global flattened batch*head index and the absolute query and
 key positions.  An additive ``bias`` broadcastable from ``(1|b, 1|h, sq,
 sk)`` goes down every rung to its kernels, which add it in fp32 to the
-scaled scores before the mask (``_bias`` launch counters); its gradient is
-a hard zero, and a bias that requires grad raises ``NotImplementedError``
-unless ``bias_requires_grad=False`` (dBias is ROADMAP.md queue B item 2d).
+scaled scores before the mask (``_bias`` launch counters).  It is
+differentiable by default, as in JAX: a bias whose gradient autograd asks
+for runs the dQ kernel's dBias instance on every rung (``_dbias``
+counters), its gradient summed into the bias's shape and dtype; with
+``bias_requires_grad=False`` (the T5 and contrib callers' constant masks)
+its gradient is a hard zero.
 """
 
 from __future__ import annotations
@@ -44,17 +47,16 @@ from apex_tpu_torch.ops.attention_mid import fmha_mid, mid_seq_threshold
 from apex_tpu_torch.ops.attention_short import (
     dropout_spec,
     fmha_short,
+    grad_of_bias,
     keep_bias_like,
     keep_mask,
     keep_rows,
     keep_threshold,
     mix32,
     pad_head_dim,
-    reject_unported,
     segment_ids,
     short_seq_threshold,
     visible,
-    zero_bias_grad,
 )
 
 __all__ = ["flash_attention", "mha_reference", "keep_mask", "keep_threshold",
@@ -117,18 +119,20 @@ class _Flash(torch.autograd.Function):
     does, the bias as the kernels read it, and the segment ids with their
     ``heads`` and the dropout rate and seed.  The backward takes ``delta =
     rowsum(dout * out)`` once and runs the dK/dV and the dQ kernel on it,
-    each replaying the mask and the bias; the bias gets a zero
-    gradient."""
+    each replaying the mask and the bias; the bias's gradient comes from
+    the dQ kernel's dBias instance under ``bias_requires_grad`` (folded
+    from ``(bh, sq, sk)`` into the bias's shape and dtype, as the JAX
+    ``_flash_bwd`` folds it) and is a hard zero otherwise."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, q_ids, kv_ids, heads, rate,
-                seed, bias):
+                seed, bias_requires_grad, bias):
         ops = flash_checked("flash_fwd", q, k, v, sm_scale, q_ids, kv_ids,
                             heads, rate, seed, bias)
         out, lse = flash_run_fwd(q, k, v, causal, **ops)
         ctx.save_for_backward(q, k, v, out, lse, ops.pop("slab"))
         ctx.causal, ctx.ops = causal, ops
-        keep_bias_like(ctx, bias)
+        keep_bias_like(ctx, bias, bias_requires_grad)
         return out
 
     @staticmethod
@@ -138,15 +142,16 @@ class _Flash(torch.autograd.Function):
         delta = flash_delta(out, dout)
         dk, dv = flash_run_bwd("flash_bwd_dkv", q, k, v, dout, lse, delta,
                                ctx.causal, **ctx.ops, slab=slab)
-        dq = flash_run_bwd("flash_bwd_dq", q, k, v, dout, lse, delta,
-                           ctx.causal, **ctx.ops, slab=slab)
-        return (dq, dk, dv, None, None, None, None, None, None, None,
-                zero_bias_grad(ctx))
+        dq, g = flash_run_bwd("flash_bwd_dq", q, k, v, dout, lse, delta,
+                              ctx.causal, **ctx.ops, slab=slab,
+                              dbias=ctx.dbias)
+        return (dq, dk, dv) + (None,) * 8 + (grad_of_bias(ctx, g),)
 
 
 def _flash_attention_kernels(q, k, v, causal, sm_scale, q_ids=None,
                              kv_ids=None, dropout_rate=0.0,
-                             dropout_seed=None, bias=None):
+                             dropout_seed=None, bias=None,
+                             bias_requires_grad=True):
     """The flash rung over ``(b, h, s, d)``: pad a head dim the kernels do
     not take (as the short rung does), flatten to ``(b*h, s, d)`` (row
     ``b_i * h + h_i``, the dropout hash's ``bh``), run ``_Flash``
@@ -157,7 +162,8 @@ def _flash_attention_kernels(q, k, v, causal, sm_scale, q_ids=None,
     dp = q.shape[-1]
     flat = lambda x: x.reshape(b * h, x.shape[2], dp)
     out = _Flash.apply(flat(q), flat(k), flat(v), causal, scale, q_ids,
-                       kv_ids, h, dropout_rate, dropout_seed, bias)
+                       kv_ids, h, dropout_rate, dropout_seed,
+                       bias_requires_grad, bias)
     return out.reshape(b, h, sq, dp)[..., :d]
 
 
@@ -204,15 +210,20 @@ def flash_attention(
     ``bias`` is an additive fp32 score bias broadcastable from ``(1|b,
     1|h, sq, sk)`` (fewer dims are leading ones, as in JAX), added to the
     scaled scores before the mask on every rung; a broadcast batch or head
-    dim stays broadcast (never expanded per head).  Its gradient is a
-    hard zero: the T5 and contrib callers pass ``bias_requires_grad=False``
-    for their constant masks, and a bias that requires grad with
-    ``bias_requires_grad=True`` raises ``NotImplementedError`` (dBias,
-    ROADMAP.md queue B item 2d).  A row the bias alone masks (-1e30 on
-    every key) is a uniform mean of V, as JAX's softmax gives."""
+    dim stays broadcast (never expanded per head).  It is differentiable
+    by default, as in JAX: when autograd asks for its gradient, every
+    rung's backward runs the dQ kernel's dBias instance (the gradient of
+    each pair's biased score, ``p * (dp - delta)``, an fp32 ``(b*h, sq,
+    sk)`` tensor, 1.07 GB at b=2 h=8 s=4096), summed over the bias's
+    broadcast dims into its shape and dtype.  Pass
+    ``bias_requires_grad=False`` for a constant mask, as the T5 and
+    contrib callers do: its gradient is then a hard zero and the backward
+    keeps the instances without dBias.  A row the bias alone masks (-1e30
+    on every key) is a uniform mean of V, as JAX's softmax gives, and its
+    bias gradient is ``dp - delta`` on every key it sees, as the Pallas
+    bodies replay ``exp(s - lse) = 1`` there."""
     if (q_segment_ids is None) != (kv_segment_ids is None):
         raise ValueError("segment ids must be given for both q and kv")
-    reject_unported("flash_attention", bias, bias_requires_grad)
     dropout_spec("flash_attention", dropout_rate, dropout_seed)
     rung = implementation
     if rung is None:
@@ -238,6 +249,7 @@ def flash_attention(
                     q.shape[0], q.shape[2], k.shape[2])
         return _flash_attention_kernels(q, k, v, causal, sm_scale,
                                         q_segment_ids, kv_segment_ids,
-                                        dropout_rate, dropout_seed, bias)
+                                        dropout_rate, dropout_seed, bias,
+                                        bias_requires_grad)
     raise ValueError(f"implementation={implementation!r}: expected None or "
                      f"one of {_RUNGS}")

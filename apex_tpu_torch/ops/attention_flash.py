@@ -49,8 +49,11 @@ short rung's :func:`~apex_tpu_torch.ops.attention_short.bias_slab` (fp32,
 the C entries as a pointer with its batch and head strides.  The forward
 adds it to its scaled scores, both backward kernels to ``(q . k) *
 scale`` before ``p = exp(s - lse)``; launches count with ``_bias``
-appended.  No kernel emits the bias's gradient (dBias, ROADMAP.md queue B
-item 2d).
+appended.  The bias is differentiable, as JAX's: the dQ entry's dBias
+instance (``flash_bwd_dq(bias_grad=True)``, counted as
+``flash_bwd_dq_dbias``) also stores each pair's ``dz = p * (dp - delta)``
+in fp32 to a zero-filled ``(bh, sq, sk)`` tensor, which the wrapper folds
+into the bias's shape and dtype (the dK/dV kernel is unchanged).
 
 A CUDA tensor runs the kernel or raises; a CPU tensor runs the plain
 version.
@@ -78,6 +81,7 @@ from apex_tpu_torch.ops.attention_short import (
     data_ptr,
     drop_operands,
     dropout_spec,
+    fold_bias_grad,
     id_operands,
     keep_rows,
     segment_ids,
@@ -99,14 +103,15 @@ SEG = {KERNEL: "flash_fwd_seg", KERNEL_DKV: "flash_bwd_dkv_seg",
 
 #: ctypes argument types of the C entries, as ``csrc/attention_flash.cu``
 #: declares them: pointers (q, k, v, q_ids, kv_ids, bias, then each
-#: entry's own), the ints bh, heads, sq, sk, d, dtype, causal and the two
+#: entry's own, the dQ entry's ending in dbias), the ints bh, heads, sq,
+#: sk, d, dtype, causal and the two
 #: bias strides, then scale, the dropout seed, keep threshold and scale,
 #: and the stream
 ARGTYPES = {
     KERNEL: FWD_ARGTYPES,
     KERNEL_DKV: [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [
         ctypes.c_float] + DROP_ARGTYPES + [ctypes.c_void_p],
-    KERNEL_DQ: [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
+    KERNEL_DQ: [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [
         ctypes.c_float] + DROP_ARGTYPES + [ctypes.c_void_p],
 }
 
@@ -152,13 +157,15 @@ def flash_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
 
 
 def _flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale, q_ids=None,
-                     kv_ids=None, heads=None, drop=None, bias=None):
+                     kv_ids=None, heads=None, drop=None, bias=None,
+                     dbias=False):
     """``(dq, dk, dv)`` with the kernels' arithmetic: ``s = (q . k) *
     scale`` plus the ``bias``, ``p = exp(s - lse)`` with masked entries
     zero, ``dz = p * (dp - delta)``, and for bf16 inputs ``p`` and ``dz *
     scale`` rounded to bf16 as the operands of their products.  With
     ``drop`` the mask is replayed: dV takes the dropped ``p``, ``dp`` is
-    dropped before ``dz``."""
+    dropped before ``dz``.  With ``dbias`` also ``dz`` (fp32 ``(bh, sq,
+    sk)``, unscaled), as the dBias instance stores it."""
     qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
     s = add_bias(torch.matmul(qf, kf.transpose(-1, -2)) * scale, bias)
     p = torch.exp(s - lse[..., None])
@@ -176,7 +183,8 @@ def _flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale, q_ids=None,
     dv = torch.matmul(p_op.transpose(-1, -2), dof)
     dk = torch.matmul(z_op.transpose(-1, -2), qf)
     dq = torch.matmul(z_op, kf)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    grads = dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return grads + (dz,) if dbias else grads
 
 
 @functools.lru_cache(maxsize=None)
@@ -225,23 +233,28 @@ def _check_cuda(kernel: str, q, k, v, *rest) -> None:
 
 
 def _launch(kernel, q, k, v, ids, heads, rest, outs, causal, scale,
-            drop=None, bias=None):
+            drop=None, bias=None, dbias=None):
     """Launch the C entry ``kernel``: pointers q, k, v, the ids, the bias
     (a :func:`bias_slab` tensor or None), then ``rest`` (inputs) and
-    ``outs`` (outputs), then the sizes, the bias strides and the dropout
-    arguments.  Counts the launch under the kernel's name, or its segment
-    counter with ids, with ``_drop`` for ``drop = (rate, seed)`` and
-    ``_bias`` with a bias."""
+    ``outs`` (outputs), for the dQ entry ``dbias`` (a zero-filled fp32
+    ``(bh, sq, sk)`` tensor, or None), then the sizes, the bias strides
+    and the dropout arguments.  Counts the launch under the kernel's name,
+    or its segment counter with ids, with ``_drop`` for ``drop = (rate,
+    seed)`` and ``_bias`` with a bias (``_dbias`` with ``dbias``)."""
     q_ids, kv_ids = id_operands(*ids)
-    check_operands(kernel, q, *(t for t in (q_ids, kv_ids, bias)
+    check_operands(kernel, q, *(t for t in (q_ids, kv_ids, bias, dbias)
                                 if t is not None))
     bias_ptr, bias_b, bias_h = bias_operands(kernel, bias)
     bh, sq, d = q.shape
     lib, fn = _entry(kernel)
-    name = counter((kernel, SEG[kernel]), q_ids is not None, drop, bias)
+    name = counter((kernel, SEG[kernel]), q_ids is not None, drop, bias,
+                   dbias is not None)
+    ptrs = [t.data_ptr() for t in rest + outs]
+    if kernel == KERNEL_DQ:
+        ptrs.append(data_ptr(dbias))
     count_launch(name)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), data_ptr(q_ids),
-             data_ptr(kv_ids), bias_ptr, *(t.data_ptr() for t in rest + outs),
+             data_ptr(kv_ids), bias_ptr, *ptrs,
              bh, heads or 1, sq, k.shape[1], d, DTYPES[q.dtype], int(causal),
              bias_b, bias_h, float(scale), *drop_operands(drop),
              stream_of(q))
@@ -295,23 +308,34 @@ def run_fwd(q, k, v, causal, *, scale, ids, heads, drop, slab):
 
 
 def run_bwd(kernel, q, k, v, dout, lse, delta, causal, *, scale, ids, heads,
-            drop, slab):
+            drop, slab, dbias=False):
     """:func:`flash_bwd_dkv` (``kernel`` :data:`KERNEL_DKV`: ``(dk, dv)``)
-    or :func:`flash_bwd_dq` (:data:`KERNEL_DQ`: ``dq``) on :func:`checked`
-    operands."""
+    or :func:`flash_bwd_dq` (:data:`KERNEL_DQ`: ``(dq, g)``, ``g`` with
+    ``dbias`` the fp32 gradient of the biased scores viewed as ``(bh /
+    heads, heads, sq, sk)``, else None) on :func:`checked` operands."""
+    if dbias and (kernel != KERNEL_DQ or slab is None):
+        raise ValueError(f"{kernel}: dBias is the dQ entry's, with a bias")
     if q.device.type == "cpu":
-        dq, dk, dv = _flash_bwd_plain(q, k, v, dout, lse, delta, causal,
-                                      scale, *ids, heads, drop, slab)
-        return (dk, dv) if kernel == KERNEL_DKV else dq
-    if not q.is_cuda:
+        grads = _flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale,
+                                 *ids, heads, drop, slab, dbias)
+        if kernel == KERNEL_DKV:
+            return grads[1:3]
+        dq, g = grads[0], grads[3] if dbias else None
+    elif q.is_cuda:
+        q, k, v, dout, lse, delta = _bwd_operands(kernel, q, k, v, dout, lse,
+                                                  delta)
+        outs = ((torch.empty_like(k), torch.empty_like(v))
+                if kernel == KERNEL_DKV else (torch.empty_like(q),))
+        g = (torch.zeros((*q.shape[:2], k.shape[1]), dtype=torch.float32,
+                         device=q.device) if dbias else None)
+        _launch(kernel, q, k, v, ids, heads, (dout, lse, delta), outs,
+                causal, scale, drop, slab, g)
+        if kernel == KERNEL_DKV:
+            return outs
+        dq = outs[0]
+    else:
         raise ValueError(f"{kernel}: unsupported device {q.device}")
-    q, k, v, dout, lse, delta = _bwd_operands(kernel, q, k, v, dout, lse,
-                                              delta)
-    outs = ((torch.empty_like(k), torch.empty_like(v)) if kernel == KERNEL_DKV
-            else (torch.empty_like(q),))
-    _launch(kernel, q, k, v, ids, heads, (dout, lse, delta), outs, causal,
-            scale, drop, slab)
-    return outs if kernel == KERNEL_DKV else outs[0]
+    return dq, (g.view(-1, heads, *g.shape[1:]) if dbias else None)
 
 
 def _bwd_operands(kernel, q, k, v, dout, lse, delta):
@@ -350,8 +374,13 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  kv_segment_ids: Optional[torch.Tensor] = None,
                  heads: Optional[int] = None, dropout_rate: float = 0.0,
                  dropout_seed=None, bias: Optional[torch.Tensor] = None,
-                 ) -> torch.Tensor:
-    """``dq`` of :func:`flash_fwd`, as :func:`flash_bwd_dkv` takes it."""
-    return run_bwd(KERNEL_DQ, q, k, v, dout, lse, delta, causal, **checked(
-        KERNEL_DQ, q, k, v, sm_scale, q_segment_ids, kv_segment_ids, heads,
-        dropout_rate, dropout_seed, bias))
+                 bias_grad: bool = False):
+    """``dq`` of :func:`flash_fwd`, as :func:`flash_bwd_dkv` takes it; with
+    ``bias_grad`` ``(dq, dbias)``, the bias's gradient in its shape and
+    dtype (the dBias instance, folded as ``_Flash`` folds it)."""
+    dq, g = run_bwd(KERNEL_DQ, q, k, v, dout, lse, delta, causal,
+                    dbias=bias_grad, **checked(
+                        KERNEL_DQ, q, k, v, sm_scale, q_segment_ids,
+                        kv_segment_ids, heads, dropout_rate, dropout_seed,
+                        bias))
+    return (dq, fold_bias_grad(g, bias.shape, bias.dtype)) if bias_grad else dq

@@ -29,8 +29,12 @@ a seed (counted as ``mid_fwd_drop``/``mid_bwd_drop``, with ``_seg_drop``
 beside segment ids); the flagship trains through them at s = 1024.  The
 additive bias goes to the same C entries as the short rung's does (its
 :func:`~apex_tpu_torch.ops.attention_short.bias_slab` and strides; counted
-with ``_bias`` appended); its own gradient (dBias, ROADMAP.md queue B item
-2d) is not ported, so a trainable bias needs ``bias_requires_grad=False``.
+with ``_bias`` appended), and is differentiable as the short rung's is:
+the dQ kernel's dBias instance stores ``dz = p * (dp - delta + dlse)``
+(the lse cotangent reaches it through the delta pass) and the wrapper
+folds it into the bias's shape (counted as ``mid_bwd_dbias``, with
+``_seg``/``_drop`` before it); ``bias_requires_grad=False`` gives a hard
+zero.
 """
 
 from __future__ import annotations
@@ -50,16 +54,16 @@ from apex_tpu_torch.ops.attention_short import (
     _short_fwd_plain,
     bias_slab,
     check_shapes,
-    keep_bias_like,
     dropout_spec,
+    fold_bias_grad,
+    grad_of_bias,
+    keep_bias_like,
     launch_bwd,
     launch_fwd,
     pad_head_dim,
-    reject_unported,
     segment_ids,
     softmax_scale,
     visible,
-    zero_bias_grad,
 )
 from apex_tpu_torch.ops.common import check_implementation, load
 
@@ -100,11 +104,12 @@ def _mid_fwd_plain(q, k, v, causal, scale, q_ids=None, kv_ids=None,
 
 
 def _mid_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale,
-                   q_ids=None, kv_ids=None, drop=None, bias=None):
+                   q_ids=None, kv_ids=None, drop=None, bias=None,
+                   dbias=False):
     """The plain backward, the short kernel's with the lse cotangent:
-    ``dz = p * (dp - delta + dlse)``."""
+    ``dz = p * (dp - delta + dlse)`` (returned too with ``dbias``)."""
     return _short_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale,
-                            q_ids, kv_ids, drop, bias)
+                            q_ids, kv_ids, drop, bias, dbias)
 
 
 def _xla_with_lse(q, k, v, causal, sm_scale=None, q_segment_ids=None,
@@ -183,14 +188,22 @@ def mid_bwd(
     dropout_rate: float = 0.0,
     dropout_seed=None,
     bias: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    bias_grad: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """``(dq, dk, dv)`` of :func:`mid_fwd` from its ``out``/``lse``, the
     output cotangent ``dout`` and the optional lse cotangent ``dlse``,
-    with the forward's mask, dropout and bias (no gradient of the bias).
+    with the forward's mask, dropout and bias; with ``bias_grad``
+    ``(dq, dk, dv, dbias)``, the bias's gradient in its shape and dtype.
     A CUDA tensor runs the kernel, a CPU tensor the plain version."""
-    return _run_bwd(q, k, v, out, dout, lse, dlse, causal, **_checked(
-        KERNEL_BWD, q, k, v, sm_scale, q_segment_ids, kv_segment_ids,
-        dropout_rate, dropout_seed, bias))
+    if bias_grad and bias is None:
+        raise ValueError(f"{KERNEL_BWD}: bias_grad=True needs a bias")
+    grads = _run_bwd(q, k, v, out, dout, lse, dlse, causal, dbias=bias_grad,
+                     **_checked(KERNEL_BWD, q, k, v, sm_scale, q_segment_ids,
+                                kv_segment_ids, dropout_rate, dropout_seed,
+                                bias))
+    if not bias_grad:
+        return grads
+    return grads[:3] + (fold_bias_grad(grads[3], bias.shape, bias.dtype),)
 
 
 def _checked(kernel, q, k, v, sm_scale, q_segment_ids, kv_segment_ids,
@@ -218,31 +231,34 @@ def _run_fwd(q, k, v, causal, *, scale, ids, drop, slab):
 
 
 def _run_bwd(q, k, v, out, dout, lse, dlse, causal, *, scale, ids, drop,
-             slab):
-    """:func:`mid_bwd` on :func:`_checked` operands."""
+             slab, dbias=False):
+    """:func:`mid_bwd` on :func:`_checked` operands; with ``dbias`` also
+    the fp32 ``(b, h, sq, sk)`` gradient of the biased scores."""
     if q.is_cuda:
         return launch_bwd(_entry, (KERNEL_BWD, KERNEL_BWD_SEG), q, k, v, out,
-                          dout, lse, dlse, causal, scale, *ids, drop, slab)
+                          dout, lse, dlse, causal, scale, *ids, drop, slab,
+                          dbias)
     if q.device.type == "cpu":
         return _mid_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale,
-                              *ids, drop, slab)
+                              *ids, drop, slab, dbias)
     raise ValueError(f"{KERNEL_BWD}: unsupported device {q.device}")
 
 
 class _MidAttention(torch.autograd.Function):
     """``(out, lse) = attention(q, k, v)`` with the fused backward, which
     takes a real lse cotangent; the bias, saved as the kernels read it,
-    gets a zero gradient."""
+    gets its gradient from the dBias instance under
+    ``bias_requires_grad`` and a hard zero otherwise."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, q_ids, kv_ids, rate, seed,
-                bias):
+                bias_requires_grad, bias):
         ops = _checked(KERNEL, q, k, v, sm_scale, q_ids, kv_ids, rate, seed,
                        bias)
         out, lse = _run_fwd(q, k, v, causal, **ops)
         ctx.save_for_backward(q, k, v, out, lse, ops.pop("slab"))
         ctx.causal, ctx.ops = causal, ops
-        keep_bias_like(ctx, bias)
+        keep_bias_like(ctx, bias, bias_requires_grad)
         return out, lse
 
     @staticmethod
@@ -250,10 +266,9 @@ class _MidAttention(torch.autograd.Function):
         q, k, v, out, lse, slab = ctx.saved_tensors
         if dout is None:
             dout = torch.zeros_like(out)
-        dq, dk, dv = _run_bwd(q, k, v, out, dout, lse, dlse, ctx.causal,
-                              **ctx.ops, slab=slab)
-        return (dq, dk, dv, None, None, None, None, None, None,
-                zero_bias_grad(ctx))
+        grads = _run_bwd(q, k, v, out, dout, lse, dlse, ctx.causal,
+                         **ctx.ops, slab=slab, dbias=ctx.dbias)
+        return grads[:3] + (None,) * 7 + (grad_of_bias(ctx, grads[-1]),)
 
 
 def fmha_mid(
@@ -285,18 +300,17 @@ def fmha_mid(
     ``implementation`` None, ``"pallas"`` or ``"mid"`` runs the kernel.
     ``dropout_rate`` > 0 needs a uint32 ``dropout_seed`` (``ValueError``
     without one).  ``bias`` (broadcastable from ``(1|b, 1|h, sq, sk)``)
-    is added to the scaled scores, with a zero gradient; a bias that
-    requires grad with ``bias_requires_grad=True`` raises
-    ``NotImplementedError`` (dBias, ROADMAP.md queue B item 2d).  A head
-    dim the kernels do not take is zero-padded as for
+    is added to the scaled scores; it is differentiable by default (the
+    dBias instance, through ``out`` and ``lse``), and its gradient is a
+    hard zero with ``bias_requires_grad=False``, as in JAX.  A head dim
+    the kernels do not take is zero-padded as for
     :func:`~apex_tpu_torch.ops.attention_short.fmha_short`."""
     check_implementation(KERNEL, implementation, ("pallas", "mid"))
-    reject_unported(KERNEL, bias, bias_requires_grad)
     dropout_spec(KERNEL, dropout_rate, dropout_seed)
     d = q.shape[-1]
     q, k, v, scale = pad_head_dim(q, k, v, sm_scale)
     out, lse = _MidAttention.apply(q, k, v, causal, scale, q_segment_ids,
                                    kv_segment_ids, dropout_rate,
-                                   dropout_seed, bias)
+                                   dropout_seed, bias_requires_grad, bias)
     out = out[..., :d]
     return (out, lse) if return_lse else out

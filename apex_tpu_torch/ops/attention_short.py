@@ -42,11 +42,18 @@ sk)`` tensor (``nb``/``nh`` 1 on a broadcast dim, also one broadcast by a
 stride of 0) and the C entries take it as a pointer with its batch and head
 strides, 0 on a broadcast dim, so a shared or per-batch bias is never
 expanded per head; they launch the kernels' bias instances, counted as
-``<name>_bias`` (``short_fwd_seg_drop_bias`` beside ids and dropout).  The
-bias's own gradient (dBias, ROADMAP.md queue B item 2d) is not ported: a
-bias that requires grad raises ``NotImplementedError`` unless the caller
-passes ``bias_requires_grad=False``, whose gradient is a hard zero, as
-JAX's.
+``<name>_bias`` (``short_fwd_seg_drop_bias`` beside ids and dropout).
+
+The bias is differentiable, as JAX's (the Pallas bodies' dbias output):
+when autograd asks for the gradient of a bias with the default
+``bias_requires_grad=True``, the backward launches the dQ kernel's dBias
+instance, which stores each pair's ``dz = p * (dp - delta)`` (the
+gradient with respect to ``s * scale + bias``, unscaled, fp32) to a
+zero-filled ``(b, h, sq, sk)`` tensor; :func:`fold_bias_grad` sums it over
+the bias's broadcast dims into the bias's own shape and dtype, as JAX
+sums it in XLA.  Counted as ``<name>_dbias`` in place of ``_bias``.  With
+``bias_requires_grad=False`` (contrib attention's and T5's constant
+masks) the gradient is a hard zero, as JAX's, and the bias instance runs.
 """
 
 from __future__ import annotations
@@ -102,10 +109,10 @@ DROP_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_float]
 #: keep_threshold, inv_keep | stream
 FWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
     ctypes.c_float] + DROP_ARGTYPES + [ctypes.c_void_p]
-#: q, k, v, q_ids, kv_ids, bias, out, dout, lse, dlse, delta, dq, dk, dv |
-#: bh, heads, sq, sk, d, dtype, causal, the two bias strides | scale | the
-#: dropout three | stream
-BWD_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 + [
+#: q, k, v, q_ids, kv_ids, bias, out, dout, lse, dlse, delta, dq, dk, dv,
+#: dbias | bh, heads, sq, sk, d, dtype, causal, the two bias strides | scale
+#: | the dropout three | stream
+BWD_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9 + [
     ctypes.c_float] + DROP_ARGTYPES + [ctypes.c_void_p]
 ARGTYPES = {KERNEL: FWD_ARGTYPES, KERNEL_BWD: BWD_ARGTYPES}
 
@@ -168,20 +175,6 @@ def data_ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def reject_unported(kernel: str, bias, bias_requires_grad: bool) -> None:
-    """The JAX attention option the port does not run yet: the gradient of
-    a trainable bias (dBias).  A bias that requires grad with
-    ``bias_requires_grad=True`` raises ``NotImplementedError`` naming its
-    ROADMAP.md item; a constant bias, or ``bias_requires_grad=False``
-    (whose bias gradient is a hard zero), runs."""
-    if bias is not None and bias_requires_grad and bias.requires_grad:
-        raise NotImplementedError(
-            f"{kernel}: the gradient of a trainable attention bias (dBias) "
-            "is not ported yet (ROADMAP.md queue B item 2d); pass "
-            "bias_requires_grad=False for a constant bias, whose gradient is "
-            "then zero as in JAX")
-
-
 # ---------------------------------------------------------------- bias
 
 def bias_slab(kernel: str, bias, b: int, h: int, sq: int, sk: int):
@@ -221,6 +214,22 @@ def bias_operands(kernel: str, slab):
                          "kernels index it with 32-bit strides")
     return (slab.data_ptr(), nh * sq * sk if nb > 1 else 0,
             sq * sk if nh > 1 else 0)
+
+
+def fold_bias_grad(g: torch.Tensor, shape, dtype) -> torch.Tensor:
+    """The bias's gradient from the kernels' ``g``, fp32 ``(b, h, sq, sk)``
+    (the gradient of every pair's biased score): summed over the dims a
+    bias of ``shape`` broadcasts (fewer dims are leading ones; a dim of
+    size 1 where ``g``'s is larger, also sq or sk), then reshaped to
+    ``shape`` and cast to ``dtype``, as JAX folds it (``jnp.sum``,
+    ``.astype(bias.dtype)``).  A per-head fp32 bias gets ``g`` itself.  A
+    bias expanded by a stride of 0 gets each element its own sum, as a
+    tensor of that shape would."""
+    lead = (1,) * (4 - len(shape)) + tuple(shape)
+    dims = tuple(i for i, n in enumerate(lead) if n == 1 and g.shape[i] > 1)
+    if dims:
+        g = g.sum(dims, keepdim=True)
+    return g.reshape(shape).to(dtype)
 
 
 def add_bias(s: torch.Tensor, slab) -> torch.Tensor:
@@ -311,12 +320,13 @@ def drop_operands(drop):
     return as_int32(seed), as_int32(keep_threshold(rate)), inv_keep(rate)
 
 
-def counter(names, segs: bool, drop, bias=None) -> str:
+def counter(names, segs: bool, drop, bias=None, dbias: bool = False) -> str:
     """A launch counter: the plain or segment name of ``names``, with
-    ``_drop`` for a dropout instance and ``_bias`` for a launch with a
-    bias."""
+    ``_drop`` for a dropout instance, ``_bias`` for a launch with a bias
+    and ``_dbias`` in its place for one that also emits the bias's
+    gradient."""
     return (names[segs] + ("" if drop is None else "_drop")
-            + ("" if bias is None else "_bias"))
+            + ("_dbias" if dbias else "" if bias is None else "_bias"))
 
 
 def keep_rows(drop, lead, sq: int, sk: int, device) -> torch.Tensor:
@@ -375,7 +385,8 @@ def _short_fwd_plain(q, k, v, causal, scale, q_ids=None, kv_ids=None,
 
 
 def _short_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale,
-                     q_ids=None, kv_ids=None, drop=None, bias=None):
+                     q_ids=None, kv_ids=None, drop=None, bias=None,
+                     dbias: bool = False):
     """The plain PyTorch version of the fused backward, mirroring the TPU
     kernel's arithmetic: the scores are scaled AFTER the product (the
     forward scales q before it), ``p = exp(s - lse)`` with masked entries
@@ -385,7 +396,10 @@ def _short_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale,
     default precision (and the kernel's tensor cores) round them.  With
     ``drop`` the forward's mask is replayed: dV takes the dropped and
     scaled ``p``, and ``dp`` is dropped and scaled before ``dz``; the
-    ``bias`` is added to the scaled scores as in the forward."""
+    ``bias`` is added to the scaled scores as in the forward.  With
+    ``dbias`` it also returns ``dz`` (fp32, unscaled, 0 where masked), the
+    gradient of every pair's biased score, as the dBias instance stores
+    it."""
     qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
     s = add_bias(torch.matmul(qf, kf.transpose(-1, -2)) * scale, bias)
     p = torch.exp(s - lse[..., None])
@@ -411,7 +425,8 @@ def _short_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale,
     dv = torch.matmul(p_op.transpose(-1, -2), dof)
     dk = torch.matmul(z_op.transpose(-1, -2), qf)
     dq = torch.matmul(z_op, kf)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    grads = dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return grads + (dz,) if dbias else grads
 
 
 @functools.lru_cache(maxsize=None)
@@ -490,9 +505,15 @@ def launch_fwd(entry, names, q, k, v, causal, scale, q_ids, kv_ids,
 
 
 def launch_bwd(entry, names, q, k, v, out, dout, lse, dlse, causal, scale,
-               q_ids, kv_ids, drop=None, bias=None):
-    """Launch a short or mid backward C entry, as :func:`launch_fwd`."""
-    kernel = counter(names, q_ids is not None, drop, bias)
+               q_ids, kv_ids, drop=None, bias=None, dbias: bool = False):
+    """Launch a short or mid backward C entry, as :func:`launch_fwd`.
+    With ``dbias`` (and a ``bias``) the dQ kernel's dBias instance runs,
+    counted with ``_dbias``, and the gradient of every pair's biased score
+    comes back too: ``(dq, dk, dv, g)``, ``g`` fp32 ``(b, h, sq, sk)``,
+    zero where a causal tile is skipped."""
+    if dbias and bias is None:
+        raise ValueError(f"{names[0]}: dBias needs a bias")
+    kernel = counter(names, q_ids is not None, drop, bias, dbias)
     check_kernel_inputs(kernel, q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -509,15 +530,17 @@ def launch_bwd(entry, names, q, k, v, out, dout, lse, dlse, causal, scale,
     lib, fn = entry(names[0])
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    g = (torch.zeros((b, h, sq, sk), dtype=torch.float32, device=q.device)
+         if dbias else None)
     count_launch(kernel)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), data_ptr(q_ids),
              data_ptr(kv_ids), bias_ptr, out.data_ptr(), dout.data_ptr(),
              lse.data_ptr(), data_ptr(dlse), delta.data_ptr(),
-             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, h, sq, sk,
-             d, DTYPES[q.dtype], int(causal), bias_b, bias_h, float(scale),
-             *drop_operands(drop), stream_of(q))
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), data_ptr(g), b * h,
+             h, sq, sk, d, DTYPES[q.dtype], int(causal), bias_b, bias_h,
+             float(scale), *drop_operands(drop), stream_of(q))
     check(lib, kernel, err)
-    return dq, dk, dv
+    return (dq, dk, dv, g) if dbias else (dq, dk, dv)
 
 
 def _check_window(kernel: str, q, k) -> None:
@@ -571,15 +594,23 @@ def short_bwd(
     dropout_rate: float = 0.0,
     dropout_seed=None,
     bias: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    bias_grad: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """``(dq, dk, dv)`` of :func:`short_fwd` given the forward's ``out``
     and ``lse`` and the cotangent ``dout`` (and optionally ``dlse``, the
-    lse's), with the forward's mask, dropout and bias (no gradient of the
-    bias).  A CUDA tensor runs the kernel, a CPU tensor the plain
-    version."""
-    return _run_bwd(q, k, v, out, dout, lse, dlse, causal, **_checked(
-        KERNEL_BWD, q, k, v, sm_scale, q_segment_ids, kv_segment_ids,
-        dropout_rate, dropout_seed, bias))
+    lse's), with the forward's mask, dropout and bias; with ``bias_grad``
+    ``(dq, dk, dv, dbias)``, ``dbias`` the bias's gradient in its shape
+    and dtype (:func:`fold_bias_grad`).  A CUDA tensor runs the kernel, a
+    CPU tensor the plain version."""
+    if bias_grad and bias is None:
+        raise ValueError(f"{KERNEL_BWD}: bias_grad=True needs a bias")
+    grads = _run_bwd(q, k, v, out, dout, lse, dlse, causal, dbias=bias_grad,
+                     **_checked(KERNEL_BWD, q, k, v, sm_scale, q_segment_ids,
+                                kv_segment_ids, dropout_rate, dropout_seed,
+                                bias))
+    if not bias_grad:
+        return grads
+    return grads[:3] + (fold_bias_grad(grads[3], bias.shape, bias.dtype),)
 
 
 def _checked(kernel, q, k, v, sm_scale, q_segment_ids, kv_segment_ids,
@@ -608,31 +639,41 @@ def _run_fwd(q, k, v, causal, *, scale, ids, drop, slab):
 
 
 def _run_bwd(q, k, v, out, dout, lse, dlse, causal, *, scale, ids, drop,
-             slab):
-    """:func:`short_bwd` on :func:`_checked` operands."""
+             slab, dbias: bool = False):
+    """:func:`short_bwd` on :func:`_checked` operands; with ``dbias`` also
+    the fp32 ``(b, h, sq, sk)`` gradient of the biased scores."""
     if q.is_cuda:
         return launch_bwd(_entry, (KERNEL_BWD, KERNEL_BWD_SEG), q, k, v, out,
-                          dout, lse, dlse, causal, scale, *ids, drop, slab)
+                          dout, lse, dlse, causal, scale, *ids, drop, slab,
+                          dbias)
     if q.device.type == "cpu":
         return _short_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale,
-                                *ids, drop, slab)
+                                *ids, drop, slab, dbias)
     raise ValueError(f"{KERNEL_BWD}: unsupported device {q.device}")
 
 
-def keep_bias_like(ctx, bias) -> None:
+def keep_bias_like(ctx, bias, bias_requires_grad: bool) -> None:
     """Remember the shape, dtype and device of an autograd function's
-    ``bias`` input (its last) for :func:`zero_bias_grad`."""
+    ``bias`` input (its last) for :func:`grad_of_bias`, and in ``ctx.dbias``
+    whether the backward emits its gradient: autograd asks for it and the
+    caller left ``bias_requires_grad`` True."""
     ctx.bias_like = None if bias is None else (bias.shape, bias.dtype,
                                                bias.device)
+    ctx.dbias = (bias is not None and bias_requires_grad
+                 and ctx.needs_input_grad[-1])
 
 
-def zero_bias_grad(ctx):
-    """The bias's gradient: a hard zero of its shape and dtype, as the JAX
-    vjps return under ``bias_requires_grad=False`` (the only way a bias
-    that requires grad gets here), or None when autograd asks for none."""
+def grad_of_bias(ctx, g):
+    """The bias's gradient: None when autograd asks for none; with
+    ``ctx.dbias`` ``g``, the kernels' fp32 ``(b, h, sq, sk)`` gradient of
+    the biased scores, folded into the bias's shape and dtype
+    (:func:`fold_bias_grad`); else (``g`` unread) a hard zero of its shape
+    and dtype, as the JAX vjps return under ``bias_requires_grad=False``."""
     if ctx.bias_like is None or not ctx.needs_input_grad[-1]:
         return None
     shape, dtype, device = ctx.bias_like
+    if ctx.dbias:
+        return fold_bias_grad(g, shape, dtype)
     return torch.zeros(shape, dtype=dtype, device=device)
 
 
@@ -640,27 +681,27 @@ class _ShortAttention(torch.autograd.Function):
     """``out = attention(q, k, v)`` with the fused backward; saves
     ``(q, k, v, out, lse)`` as the JAX ``_short_fwd`` does, the bias as
     the kernels read it (:func:`bias_slab`), and the segment ids and the
-    dropout rate and seed.  The bias gets a zero gradient (the callers
-    reject a trainable bias unless ``bias_requires_grad=False``)."""
+    dropout rate and seed.  The bias's gradient comes from the dBias
+    instance when autograd asks for it under ``bias_requires_grad``, and
+    is a hard zero under ``bias_requires_grad=False``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, q_ids, kv_ids, rate, seed,
-                bias):
+                bias_requires_grad, bias):
         ops = _checked(KERNEL, q, k, v, sm_scale, q_ids, kv_ids, rate, seed,
                        bias)
         out, lse = _run_fwd(q, k, v, causal, **ops)
         ctx.save_for_backward(q, k, v, out, lse, ops.pop("slab"))
         ctx.causal, ctx.ops = causal, ops
-        keep_bias_like(ctx, bias)
+        keep_bias_like(ctx, bias, bias_requires_grad)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse, slab = ctx.saved_tensors
-        dq, dk, dv = _run_bwd(q, k, v, out, dout, lse, None, ctx.causal,
-                              **ctx.ops, slab=slab)
-        return (dq, dk, dv, None, None, None, None, None, None,
-                zero_bias_grad(ctx))
+        grads = _run_bwd(q, k, v, out, dout, lse, None, ctx.causal,
+                         **ctx.ops, slab=slab, dbias=ctx.dbias)
+        return grads[:3] + (None,) * 7 + (grad_of_bias(ctx, grads[-1]),)
 
 
 def fmha_short(
@@ -690,15 +731,13 @@ def fmha_short(
     ``dropout_rate`` > 0 needs a uint32 ``dropout_seed`` (``ValueError``
     without one, as in JAX).  ``bias`` (broadcastable from ``(1|b, 1|h,
     sq, sk)``; fewer dims are leading ones) is added to the scaled scores;
-    its gradient is zero, and a bias that requires grad with
-    ``bias_requires_grad=True`` raises ``NotImplementedError`` (dBias,
-    ROADMAP.md queue B item 2d)."""
+    it is differentiable by default (the dBias instance), and its gradient
+    is a hard zero with ``bias_requires_grad=False``, as in JAX."""
     check_implementation(KERNEL, implementation, ("pallas", "short"))
-    reject_unported(KERNEL, bias, bias_requires_grad)
     dropout_spec(KERNEL, dropout_rate, dropout_seed)
     d = q.shape[-1]
     q, k, v, scale = pad_head_dim(q, k, v, sm_scale)
     out = _ShortAttention.apply(q, k, v, causal, scale, q_segment_ids,
                                 kv_segment_ids, dropout_rate, dropout_seed,
-                                bias)
+                                bias_requires_grad, bias)
     return out[..., :d]

@@ -10,9 +10,12 @@ own build of the kernels.  The shapes are the training ones without
 segment ids, dropout or a bias (h=8 d=128, causal, bf16): the short
 forward and backward at b=8 s=512, the mid ones at b=8 s=1024 (the
 flagship's) and the flash forward, dK/dV and dQ at b=2 s=4096 (the Llama
-mode's).  Device ms per call from a CUDA graph of 50 launches (10 for the
-flash rung) after a warm-up.  One line per tree, then the card's name and
-power limit.
+mode's); then, with a per-batch fp32 bias and no gradient of it, the
+short and mid backward and the flash dQ at the same shapes (the bias
+instances of the kernels that have a dBias instance beside them).
+Device ms per call from a CUDA graph of 50 launches (10 for the flash
+rung) after a warm-up.  One line per tree, then the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -56,12 +59,17 @@ for name, s, fwd, bwd in (("short", 512, short.short_fwd, short.short_bwd),
                           ("mid", 1024, mid.mid_fwd, mid.mid_bwd)):
     q, k, v, do = (torch.randn(8, 8, s, 128, generator=gen, device=dev)
                    .to(torch.bfloat16) for _ in range(4))
+    bias = torch.randn(8, 1, s, s, generator=gen, device=dev)
     out, lse = fwd(q, k, v, causal=True)
     f = device_ms(lambda: fwd(q, k, v, causal=True))
     b = device_ms(lambda: bwd(q, k, v, out, do, lse, causal=True))
-    row.append(f"{name} fwd {f:.4f} ms bwd {b:.4f} ms")
+    out, lse = fwd(q, k, v, causal=True, bias=bias)
+    bb = device_ms(lambda: bwd(q, k, v, out, do, lse, causal=True,
+                               bias=bias))
+    row.append(f"{name} fwd {f:.4f} ms bwd {b:.4f} ms bwd+bias {bb:.4f} ms")
 q, k, v, do = (torch.randn(16, 4096, 128, generator=gen, device=dev)
                .to(torch.bfloat16) for _ in range(4))
+bias = torch.randn(2, 1, 4096, 4096, generator=gen, device=dev)
 out, lse = fl.flash_fwd(q, k, v, causal=True)
 delta = fl.flash_delta(out, do)
 f = device_ms(lambda: fl.flash_fwd(q, k, v, causal=True), 10)
@@ -69,7 +77,12 @@ dkv = device_ms(lambda: fl.flash_bwd_dkv(q, k, v, do, lse, delta,
                                          causal=True), 10)
 dq = device_ms(lambda: fl.flash_bwd_dq(q, k, v, do, lse, delta,
                                        causal=True), 10)
-row.append(f"flash fwd {f:.4f} ms dkv {dkv:.4f} ms dq {dq:.4f} ms")
+out, lse = fl.flash_fwd(q, k, v, causal=True, heads=8, bias=bias)
+delta = fl.flash_delta(out, do)
+dqb = device_ms(lambda: fl.flash_bwd_dq(q, k, v, do, lse, delta, causal=True,
+                                        heads=8, bias=bias), 10)
+row.append(f"flash fwd {f:.4f} ms dkv {dkv:.4f} ms dq {dq:.4f} ms "
+           f"dq+bias {dqb:.4f} ms")
 print("; ".join(row), flush=True)
 """
 

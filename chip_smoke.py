@@ -167,6 +167,24 @@ mean of V):
              the flash rung (2 x 4096, per-batch bias), fp32, against its
              plain attention on the card.
 
+A trainable bias (after mha-rungs; phase 2 also holds the dBias instances
+of the short/mid and flash dQ kernels against their plain versions, fp32
+and bf16, causal, with (1, h, sq, sk), per-batch, per-head and shared
+biases, a causal sq < sk case a rung and rows the bias alone hides, and
+times dbias-train's four beside the bias instance without dBias and SDPA
+with a float mask that requires grad):
+   dbias-train — q, k, v and an ``nn.Parameter`` bias trained through
+             ``flash_attention`` for 5 FusedAdam steps against a random
+             target, O4, causal: Transformer-big's decoder (b=32 h=16
+             s=256 d=64, a (1, h, s, s) bias; alone and with mha-train's
+             padding ids and dropout 0.1), the flagship's attention (b=8
+             h=8 s=1024 d=128, a shared (s, s) bias), the Llama mode's
+             (b=2 h=8 s=4096 d=128, (1, h, s, s)): ms per
+             forward+backward, peak memory, a falling loss, step 1's dBias
+             against the plain backward on the card; then one
+             forward+backward a rung at b=2 h=4 s=300, fp32, GPU == CPU
+             (output, dq, dk, dv, dBias).
+
 The last two lines are a JSON object with one record per kernel, and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
 """
@@ -493,6 +511,7 @@ def phase_kernels(dev) -> dict:
     records.update(segment_kernels(randn))
     records.update(dropout_kernels(randn))
     records.update(bias_kernels(randn))
+    records.update(dbias_kernels(randn))
     return records
 
 
@@ -3070,7 +3089,8 @@ def make_bias(kind: str, b: int, heads: int, sq: int, sk: int,
     the future mask as -1e30 otherwise (a boolean ``attn_mask`` made a
     bias, as contrib attention makes it), and the rows of
     :data:`BIAS_MASKED_ROWS` at -1e30 on every key."""
-    lead = {"shared": (1, 1), "per_batch": (b, 1), "per_head": (b, heads)}
+    lead = {"shared": (1, 1), "per_batch": (b, 1), "heads": (1, heads),
+            "per_head": (b, heads)}
     shape = lead[kind] + (sq, sk)
     if causal:
         bias = randn(*shape)
@@ -3135,6 +3155,234 @@ def bias_kernels(randn) -> dict:
                     drop, run, errs, timed_names, bias))
             del q, k, v, dout, bias, run
     return records
+
+
+# ------------------------------------------------------------- dBias
+#: the dBias instances held in phase 2 (rung, b, heads, sq, sk, d, bias
+#: kind, ids kind, dropout, the record timed at bf16 or None), every one
+#: causal, the rows of :data:`BIAS_MASKED_ROWS` hidden by the bias alone:
+#: dbias-train's four passes, then a causal sq < sk case a rung
+DBIAS_SHAPES = (
+    ("short", 32, 16, 256, 256, 64, "heads", None, False, "short_bwd_dbias"),
+    ("short", 32, 16, 256, 256, 64, "heads", "bert", True,
+     "short_bwd_seg_drop_dbias"),
+    ("mid", 8, 8, 1024, 1024, 128, "shared", None, False, "mid_bwd_dbias"),
+    ("flash", 2, 8, LONG_SEQ, LONG_SEQ, 128, "heads", None, False,
+     "flash_bwd_dq_dbias"),
+    ("short", 3, 16, 250, 330, 64, "per_batch", None, False, None),
+    ("mid", 2, 4, 700, 900, 64, "per_batch", None, True, None),
+    ("flash", 2, 4, 2100, 2470, 128, "per_head", None, False, None),
+)
+#: dBias kernel vs plain, with fp32 and bf16 inputs alike: both compute dz
+#: = p * (dp - delta) in fp32 from the same inputs and fold it with the
+#: same torch.sum; only the order of the products' sums differs, so each
+#: element is held to 5e-5 of its row's scale (:func:`dbias_band`)
+DBIAS_TOL = 5e-5
+
+
+def dbias_band(want: torch.Tensor) -> torch.Tensor:
+    """Each dBias element's tolerance: :data:`DBIAS_TOL` of its row's
+    scale, the largest |dBias| of that row (the bias's last dim) or of the
+    next row, and at least the median row's.  A row the bias alone hides
+    (p = 1 on every key, so |dBias| = |dp - delta| runs to the hundreds)
+    so sets the band of two rows, not the whole tensor's.  A row with one
+    visible key (the first causal row) has dBias = dp - delta = 0 but for
+    rounding, whose size is that of dp, not of its own |dBias|; the next
+    row, two keys of the same magnitudes, gives that scale."""
+    rows = want.float().abs().amax(-1, keepdim=True)
+    after = torch.cat([rows[..., 1:, :], rows[..., -1:, :]], dim=-2)
+    return DBIAS_TOL * torch.maximum(rows, after).clamp(
+        min=rows.median().item())
+
+
+def dbias_check(label: str, got, want) -> tuple:
+    """Hold a dBias against its plain version element by element (each
+    within its :func:`dbias_band`); ``(max_abs_err, the largest error as
+    a share of its band, the median and the largest row scale)``."""
+    band = dbias_band(want)
+    err = (got.float() - want.float()).abs()
+    share = (err / band).max().item()
+    rows = want.float().abs().amax(-1)
+    if not share <= 1.0:
+        fail(f"{label}: dbias differs from the plain version by "
+             f"{err.max().item():.3g}, {share:.3g} of its band ("
+             f"{DBIAS_TOL:g} of each row's scale)")
+    return (err.max().item(), share, rows.median().item(),
+            rows.max().item())
+
+
+def dbias_visible(b, heads, sq, sk, ids, dev):
+    """``(visible, pairs)``: the causal pairs (and those of equal ids) as a
+    bool mask broadcastable to ``(b, h, sq, sk)``, and their number over
+    the batch and heads."""
+    vis = torch.ones(sq, sk, dtype=torch.bool, device=dev).tril()
+    if ids[0] is not None:
+        vis = vis & (ids[0][:, :, None] == ids[1][:, None, :])[:, None]
+        return vis, heads * int(vis.sum())
+    return vis, b * heads * int(vis.sum())
+
+
+def dbias_run(rung, q, k, v, dout, ids, drop, bias) -> dict:
+    """One rung's dBias instance on ``(b, h, sq, d)`` inputs, causal:
+    ``kernel``, the backward entry with ``bias_grad=True`` (the short and
+    mid ones give ``(dq, dk, dv, dbias)``, the flash dQ entry ``(dq,
+    dbias)``, the bias's gradient folded into its shape); ``base``, the
+    same call without it (the bias instance); ``plain``, the plain
+    backward and the same fold.  The backward calls take the plain
+    forward's ``out`` and ``lse``."""
+    from apex_tpu_torch.ops import attention_flash as fl
+    from apex_tpu_torch.ops import attention_mid as mid
+    from apex_tpu_torch.ops import attention_short as short
+
+    b, heads, sq, d = q.shape
+    sk = k.shape[2]
+    scale = d ** -0.5
+    qi, ki = ids
+    slab = short.bias_slab("bias", bias, b, heads, sq, sk)
+    kw = dict(q_segment_ids=qi, kv_segment_ids=ki, bias=bias)
+    if drop:
+        kw.update(dropout_rate=drop[0], dropout_seed=drop[1])
+    fold = lambda g: short.fold_bias_grad(g.view(b, heads, sq, sk),
+                                          bias.shape, bias.dtype)
+    if rung == "flash":
+        flat = [t.reshape(b * heads, -1, d) for t in (q, k, v, dout)]
+        out, lse = fl._flash_fwd_plain(*flat[:3], True, scale, qi, ki,
+                                       heads, drop, slab)
+        delta = fl.flash_delta(out, flat[3])
+        call = lambda **x: fl.flash_bwd_dq(*flat, lse, delta, True,
+                                           heads=heads, **kw, **x)
+
+        def plain():
+            dq, _, _, dz = fl._flash_bwd_plain(*flat, lse, delta, True, scale,
+                                               qi, ki, heads, drop, slab, True)
+            return dq, fold(dz)
+
+        names = ("dq", "dbias")
+    else:
+        bwd = short.short_bwd if rung == "short" else mid.mid_bwd
+        out, lse = short._short_fwd_plain(q, k, v, True, scale, qi, ki, drop,
+                                          slab)
+        call = lambda **x: bwd(q, k, v, out, dout, lse, None, True, **kw, **x)
+
+        def plain():
+            *grads, dz = short._short_bwd_plain(q, k, v, out, dout, lse, None,
+                                                True, scale, qi, ki, drop,
+                                                slab, True)
+            return (*grads, fold(dz))
+
+        names = ("dq", "dk", "dv", "dbias")
+    return dict(kernel=lambda: call(bias_grad=True), base=lambda: call(),
+                plain=plain, names=names)
+
+
+def dbias_kernels(randn) -> dict:
+    """The dBias instances of the short/mid and flash dQ kernels (the
+    Pallas bodies' dbias output) at :data:`DBIAS_SHAPES`, fp32 and bf16,
+    each held against its plain version with the same bias: dq (dk, dv)
+    as phase 2 holds them, the bias's gradient in its own shape element
+    by element to :data:`DBIAS_TOL` of its row's scale (:func:`dbias_band`)
+    for fp32 and bf16 inputs alike, and bit for bit from one call to the
+    next (no atomics).  The timed ones at bf16 beside the bias
+    instance without dBias, the plain version and SDPA forward+backward
+    with a float ``attn_mask`` that requires grad; the bound is the
+    backward's (phase 2's bias rows) plus each bias element a visible
+    pair reads, once, and each dBias element of the bias's own shape
+    written once, 4 bytes each."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import attention_short as short
+
+    records = {}
+    log("[kernels] dBias instances (CUDA): the short/mid and flash dQ "
+        "kernels' DBIAS instances, causal, (1, h), per-batch, per-head and "
+        f"shared fp32 biases, rows {BIAS_MASKED_ROWS} hidden by the bias")
+    for (rung, b, heads, sq, sk, d, kind, ids_kind, dropped,
+         timed_name) in DBIAS_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, dout = (randn(b, heads, sq, d, dtype=dtype) for _ in range(2))
+            k, v = (randn(b, heads, sk, d, dtype=dtype) for _ in range(2))
+            ids = (segment_ids(ids_kind, b, sq, q.device, seed=sq + b)
+                   if ids_kind else (None, None))
+            drop = (DROP_RATE, DROP_SEED) if dropped else None
+            bias = make_bias(kind, b, heads, sq, sk, True, randn, q.device)
+            run = dbias_run(rung, q, k, v, dout, ids, drop, bias)
+            what = (f"{str(dtype)[6:]} b={b} h={heads} sq={sq} sk={sk} d={d} "
+                    f"{kind} {tuple(bias.shape)}"
+                    + (" ids" if ids_kind else "")
+                    + (" dropout" if dropped else ""))
+            name = ("flash_bwd_dq" if rung == "flash" else f"{rung}_bwd") + \
+                short.counter(("", "_seg"), ids_kind is not None, drop, bias,
+                              True)
+            got, again, want = run["kernel"](), run["kernel"](), run["plain"]()
+            err = 0.0
+            for label, g, w in zip(run["names"][:-1], got, want):
+                err = max(err, check(name, g, w, f"{what} {label}"))
+            db_err, share, median, top = dbias_check(
+                f"{name} {what}", got[-1], want[-1])
+            if not torch.equal(got[-1], again[-1]):
+                fail(f"{name} {what}: dbias differs between two calls")
+            log(f"  {name} {what} dbias: max_abs_err {db_err:.3g}, "
+                f"{share:.3g} of its band ({DBIAS_TOL:g} of each row's "
+                f"largest |dbias|: {median:.3g} the median row's, {top:.3g} "
+                "the largest), the same bits on a second call")
+            if dtype == torch.bfloat16 and timed_name:
+                assert name == timed_name, (name, timed_name)
+                records[name] = [dbias_record(
+                    rung, name, q, k, v, dout, ids, bias, run, max(err, db_err),
+                    what, F)]
+            del q, k, v, dout, bias, run, got, again, want
+    torch.cuda.empty_cache()
+    return records
+
+
+def dbias_record(rung, name, q, k, v, dout, ids, bias, run, err, what,
+                 F) -> dict:
+    """Time one dBias instance (bf16): the entry with ``bias_grad=True``
+    (the backward kernels and the fold) beside the bias instance without
+    dBias, the plain version and SDPA forward+backward with the same float
+    mask requiring grad (profiled; None, with the reason, if SDPA will not
+    take it)."""
+    from apex_tpu_torch.ops import attention_short as short
+
+    b, heads, sq, d = q.shape
+    sk = k.shape[2]
+    vis, pairs = dbias_visible(b, heads, sq, sk, ids, q.device)
+    numel = q.numel() * q.element_size()
+    rows = b * heads * sq * 4
+    id_bytes = 0 if ids[0] is None else 2 * ids[0].numel() * 4
+    if rung == "flash":
+        nbytes, ops = 5 * numel + 2 * rows + id_bytes, 6.0 * d * pairs
+    else:
+        nbytes, ops = 8 * numel + rows + id_bytes, 10.0 * d * pairs
+    nbytes += bias_read_bytes(short.bias_slab("bias", bias, b, heads, sq, sk),
+                              vis) + 4 * bias.numel()
+    rec = measure(name, what + " causal", err, run["kernel"], run["plain"],
+                  None, nbytes=nbytes, ops=ops, dtype=q.dtype,
+                  plain_iters=10 if rung == "flash" else 50)
+    base_ms, _ = time_ms(run["base"], 10 if rung == "flash" else 50)
+    rec["ms_without_dbias"] = base_ms
+    log(f"  {name}: {rec['ms'] / base_ms:.3f}x the bias instance without "
+        f"dBias ({base_ms:.4f} ms) at this shape")
+    p = 0.0 if "drop" not in name else DROP_RATE
+    mask = bias.masked_fill(~vis, float("-inf")).to(q.dtype).requires_grad_()
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                           dropout_p=p)
+        torch.autograd.grad(o, (qg, kg, vg, mask), dout)
+
+    try:
+        rec["library_ms"] = profiled_ms(sdpa_fwd_bwd)
+        log(f"  {name}: library call is SDPA (float mask {tuple(mask.shape)}"
+            f" that requires grad) forward+backward, "
+            f"{rec['library_ms']:.4f} ms of device time (profiler), which "
+            "includes a forward")
+    except RuntimeError as exc:
+        rec["library_ms"] = None
+        log(f"  {name}: no library time: SDPA refused a float mask that "
+            f"requires grad at this shape ({str(exc).splitlines()[0]})")
+    del mask, qg, kg, vg
+    return rec
 
 
 # ------------------------------------------------- contrib attention phases
@@ -3446,6 +3694,211 @@ def phase_mha_rungs(dev) -> dict:
         del m, default, got, want, mask
         torch.cuda.empty_cache()
     return counts
+
+
+# ------------------------------------------------------- dbias-train
+#: dbias-train's passes: (label, rung, b, heads, s, d, a (1, h, s, s) bias
+#: (else a shared (s, s) one), mha-train's padding ids and dropout, the
+#: dBias counter that must launch); every one causal
+DBIAS_TRAIN = (
+    ("Transformer-big's decoder", "short", MHA_BATCH, MHA_HEADS, MHA_SEQ, 64,
+     True, False, "short_bwd_dbias"),
+    ("Transformer-big's decoder, padding ids, dropout 0.1", "short",
+     MHA_BATCH, MHA_HEADS, MHA_SEQ, 64, True, True,
+     "short_bwd_seg_drop_dbias"),
+    ("the flagship's attention, a shared (s, s) bias", "mid", 8,
+     FLAGSHIP["num_attention_heads"], 1024, 128, False, False,
+     "mid_bwd_dbias"),
+    ("the Llama mode's attention", "flash", 2, LLAMA["num_attention_heads"],
+     LONG_SEQ, 128, True, False, "flash_bwd_dq_dbias"),
+)
+DBIAS_STEPS = 5
+RUNG_IMPL = {"short": "short", "mid": "mid", "flash": "pallas"}
+
+
+def dbias_plain(rung, q, k, v, dout, bias, kw):
+    """The bias's gradient of one forward+backward from the plain backward
+    on the card (``dz``, folded into the bias's shape), fed with the
+    kernel forward's ``out`` and ``lse``: what the step's backward took."""
+    from apex_tpu_torch.ops import attention_flash as fl
+    from apex_tpu_torch.ops import attention_mid as mid
+    from apex_tpu_torch.ops import attention_short as short
+
+    b, heads, s, d = q.shape
+    ids = (kw.get("q_segment_ids"), kw.get("kv_segment_ids"))
+    rate, seed = kw.get("dropout_rate", 0.0), kw.get("dropout_seed")
+    drop = (rate, seed) if rate else None
+    fwd_kw = dict(q_segment_ids=ids[0], kv_segment_ids=ids[1], bias=bias,
+                  dropout_rate=rate, dropout_seed=seed)
+    slab = short.bias_slab("bias", bias, b, heads, s, k.shape[2])
+    if rung == "flash":
+        flat = [t.reshape(b * heads, -1, d) for t in (q, k, v, dout)]
+        out, lse = fl.flash_fwd(*flat[:3], True, heads=heads, **fwd_kw)
+        dz = fl._flash_bwd_plain(*flat, lse, fl.flash_delta(out, flat[3]),
+                                 True, d ** -0.5, *ids, heads, drop, slab,
+                                 True)[3]
+    else:
+        fwd = short.short_fwd if rung == "short" else mid.mid_fwd
+        out, lse = fwd(q, k, v, True, **fwd_kw)
+        dz = short._short_bwd_plain(q, k, v, out, dout, lse, None, True,
+                                    d ** -0.5, *ids, drop, slab, True)[3]
+    return short.fold_bias_grad(dz.view(b, heads, s, -1), bias.shape,
+                                bias.dtype)
+
+
+def phase_dbias_train(dev) -> dict:
+    """A trainable attention bias (dBias) at the widths of models the repo
+    runs, O4 (fp32 parameters, bf16 q/k/v into the kernels, the bias
+    fp32): q, k, v and an ``nn.Parameter`` bias, ``(1, h, s, s)`` or a
+    shared ``(s, s)``, trained through ``flash_attention`` with the
+    default ``bias_requires_grad=True`` for :data:`DBIAS_STEPS` steps of
+    the port's ``FusedAdam`` against a fixed random target (the mean
+    squared error of the output), at :data:`DBIAS_TRAIN`'s shapes: ms per
+    forward+backward (the mean of steps 2 on, and their spread), peak
+    device memory, the loss (finite and falling); the dBias instance of
+    the pass must launch.  The first step's bias gradient is then held
+    against the plain backward on the card, element by element
+    (:func:`dbias_check`).  Last, at one small shape per rung (b=2 h=4
+    s=300, fp32), a forward+backward on the GPU equals the CPU's: output,
+    dq, dk and dv to 1e-4 of each tensor's largest, as phase 6 holds a
+    step, and dBias by :func:`dbias_check`.  Returns the launches of the
+    passes."""
+    from apex_tpu_torch.ops import attention as att
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    log(f"[dbias-train] a trainable bias with q, k, v, O4, {DBIAS_STEPS} "
+        "FusedAdam steps against a random target, causal")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    counts = {}
+    for label, rung, b, heads, s, d, per_head, padded, need in DBIAS_TRAIN:
+        q, k, v, target = (torch.randn((b, heads, s, d), generator=gen,
+                                       device=dev) for _ in range(4))
+        lead = (1, heads) if per_head else ()
+        params = [torch.nn.Parameter(t) for t in (q, k, v)] + [
+            torch.nn.Parameter(0.5 * torch.randn(lead + (s, s), generator=gen,
+                                                 device=dev))]
+        kw = dict(causal=True, implementation=RUNG_IMPL[rung])
+        if padded:
+            pad = np.arange(s)[None] >= np.random.default_rng(0).integers(
+                s // 2, s + 1, b)[:, None]
+            kw.update(q_segment_ids=torch.zeros((b, s), dtype=torch.int32,
+                                                device=dev),
+                      kv_segment_ids=torch.as_tensor(
+                          np.where(pad, -2, 0), dtype=torch.int32,
+                          device=dev),
+                      dropout_rate=MHA_DROPOUT)
+        opt = FusedAdam(params, lr=1e-2)
+        first = {}
+
+        def step(i):
+            opt.zero_grad(set_to_none=True)
+            seed = dict(dropout_seed=1000 + i) if padded else {}
+            x = [t.to(torch.bfloat16) for t in params[:3]]
+            out = att.flash_attention(*x, bias=params[3], **kw, **seed)
+            if i == 0:
+                first.update(inputs=[t.detach() for t in x],
+                             bias=params[3].detach().clone(), kw=dict(
+                                 kw, **seed))
+                out.register_hook(lambda g: first.update(dout=g.detach()))
+            loss = (out.float() - target).square().mean()
+            loss.backward()
+            if i == 0:
+                first["dbias"] = params[3].grad.detach().clone()
+            return loss.detach()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        losses, spent = [], []
+        for i in range(DBIAS_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step(i))
+            torch.cuda.synchronize()
+            spent.append(time.perf_counter() - t0)
+            opt.step()
+        torch.cuda.synchronize()
+        c = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = [x.item() for x in losses]
+        ms = 1e3 * sum(spent[1:]) / (DBIAS_STEPS - 1)
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            fail(f"dbias-train {label}: loss not finite and falling: {losses}")
+        if c.get(need, 0) <= 0:
+            fail(f"dbias-train {label}: kernel {need} never launched")
+        for name, n in c.items():
+            counts[name] = counts.get(name, 0) + n
+        qb, kb, vb = first["inputs"]
+        fkw = {n: x for n, x in first["kw"].items()
+               if n not in ("causal", "implementation")}
+        want = dbias_plain(rung, qb, kb, vb, first["dout"], first["bias"],
+                           fkw)
+        err, share, median, top = dbias_check(
+            f"dbias-train {label}: step 1", first["dbias"], want)
+        log(f"  {label} ({rung}, b={b} h={heads} s={s} d={d}, bias "
+            f"{tuple(params[3].shape)}): {ms:.3f} ms per forward+backward "
+            f"(steps 2-{DBIAS_STEPS}: {1e3 * min(spent[1:]):.3f}-"
+            f"{1e3 * max(spent[1:]):.3f}), peak device memory {peak:.2f} "
+            f"GiB, loss {losses[0]:.5f} -> {losses[-1]:.5f}; step 1's dBias "
+            f"within {err:.3g} of the plain backward, {share:.3g} of its "
+            f"band ({DBIAS_TOL:g} of each row's largest |dbias|: "
+            f"{median:.3g} the median row's, {top:.3g} the largest); "
+            f"launches {({n: x for n, x in c.items() if x})}")
+        del params, opt, first, q, k, v, target, want
+        torch.cuda.empty_cache()
+    dbias_cpu_parity(dev)
+    return counts
+
+
+def dbias_cpu_parity(dev) -> None:
+    """One forward+backward with a trainable bias on the GPU (the dBias
+    instances) and on the CPU (the plain versions), fp32, b=2 h=4 s=300
+    d=64, causal, each rung forced: the short one with padding ids and
+    dropout and a (1, h, s, s) bias, mid with a shared (s, s) one, flash
+    with a per-batch (b, 1, s, s) one.  Output, dq, dk and dv to 1e-4 of
+    each tensor's largest, as phase 6 holds a training step; dBias
+    element by element (:func:`dbias_check`)."""
+    from apex_tpu_torch.ops import attention as att
+
+    b, heads, s, d = 2, 4, 300, 64
+    rng = np.random.default_rng(11)
+    pad = np.arange(s)[None] >= np.array([[s], [2 * s // 3]])
+    for rung, lead, padded in (("short", (1, heads), True), ("mid", (), False),
+                               ("flash", (b, 1), False)):
+        arrays = [rng.standard_normal((b, heads, s, d), np.float32)
+                  for _ in range(4)] + [
+            rng.standard_normal(lead + (s, s), np.float32)]
+        kw = dict(causal=True, implementation=RUNG_IMPL[rung])
+        if padded:
+            kw.update(q_segment_ids=np.zeros((b, s), np.int32),
+                      kv_segment_ids=np.where(pad, -2, 0).astype(np.int32),
+                      dropout_rate=0.1, dropout_seed=77)
+        results = []
+        for device in (dev, torch.device("cpu")):
+            q, k, v, dout, bias = (torch.tensor(x, device=device,
+                                                requires_grad=i != 3)
+                                   for i, x in enumerate(arrays))
+            on = {n: torch.as_tensor(x, device=device)
+                  if isinstance(x, np.ndarray) else x for n, x in kw.items()}
+            out = att.flash_attention(q, k, v, bias=bias, **on)
+            out.backward(dout)
+            results.append([t.detach().cpu() for t in (
+                out, q.grad, k.grad, v.grad, bias.grad)])
+        worst = 0.0
+        for name, g, c in zip(("out", "dq", "dk", "dv"), *results):
+            tol = 1e-4 * c.abs().max().item() + 1e-9
+            err = max_err(g, c)
+            worst = max(worst, err / tol)
+            if not err <= tol:
+                fail(f"dbias-train {rung} GPU vs CPU: {name} differs by "
+                     f"{err:.3g} > {tol:.3g}")
+        _, share, _, _ = dbias_check(f"dbias-train {rung} GPU vs CPU",
+                                     *(r[-1] for r in results))
+        log(f"  {rung} b={b} h={heads} s={s}, bias {lead + (s, s)}"
+            + (", ids, dropout" if padded else "")
+            + f", fp32: GPU == CPU (out, dq, dk, dv) within {worst:.3f} of "
+            f"the tolerances, dbias within {share:.3f} of its band")
 
 
 # ------------------------------------------------------------ BERT phases
@@ -3858,6 +4311,16 @@ SOURCES = {
     "short_bwd_seg_drop_bias": ("cuda",
                                 "apex_tpu_torch/csrc/attention_short.cu",
                                 "apex_tpu/ops/attention_short.py:215"),
+    # dBias: the DBIAS instances of the short/mid and flash dQ kernels
+    "short_bwd_dbias": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
+                        "apex_tpu/ops/attention_short.py:215"),
+    "short_bwd_seg_drop_dbias": ("cuda",
+                                 "apex_tpu_torch/csrc/attention_short.cu",
+                                 "apex_tpu/ops/attention_short.py:215"),
+    "mid_bwd_dbias": ("cuda", "apex_tpu_torch/csrc/attention_mid.cu",
+                      "apex_tpu/ops/attention_mid.py:308"),
+    "flash_bwd_dq_dbias": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
+                           "apex_tpu/ops/attention.py:534"),
 }
 
 FLASH = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
@@ -3925,6 +4388,7 @@ def main() -> None:
     timed("mha-parity", phase_mha_parity, dev)
     mha_counts = timed("mha-train", phase_mha_train, dev)
     mha_rung_counts = timed("mha-rungs", phase_mha_rungs, dev)
+    dbias_counts = timed("dbias-train", phase_dbias_train, dev)
     timed("bert-parity", phase_bert_parity, dev)
     bert_counts = timed("bert-train", phase_bert_train, dev)
     timed("bert-finetune", phase_bert_finetune, dev)
@@ -3977,6 +4441,10 @@ def main() -> None:
     for name in ("mid_fwd_bias", "mid_bwd_bias") + tuple(
             n + "_bias" for n in FLASH):
         main_counts[name] = mha_rung_counts.get(name, 0)
+    # the dBias instances from dbias-train
+    for name in ("short_bwd_dbias", "short_bwd_seg_drop_dbias",
+                 "mid_bwd_dbias", "flash_bwd_dq_dbias"):
+        main_counts[name] = dbias_counts.get(name, 0)
     idle = [name for name in SOURCES if main_counts.get(name, 0) <= 0]
     if idle:
         fail(f"kernels never launched on their main path: {idle}")

@@ -179,20 +179,25 @@ def test_a_row_the_bias_masks_is_a_uniform_mean(rung):
 
 @pytest.mark.parametrize("rung", ["short", "mid", "pallas"])
 def test_trainable_bias_raises_naming_dbias(rung):
-    """dBias is not ported: a bias that requires grad raises naming queue
-    B item 2d unless ``bias_requires_grad=False``; a constant bias runs
-    with the default ``bias_requires_grad=True``, as its gradient is never
-    asked for."""
+    """Named from when dBias raised naming queue B item 2d; it is ported
+    since: a bias that requires grad runs with the default
+    ``bias_requires_grad=True`` and gets the plain reference's autograd
+    gradient (``tests/test_torch_attention_dbias.py`` holds it against the
+    Pallas bodies); a constant bias runs; ``bias_requires_grad=False``
+    gives a hard zero, as in JAX."""
     q = torch.randn((1, 2, 24, 64), generator=torch.Generator().manual_seed(3))
     bias = torch.randn((24, 24), generator=torch.Generator().manual_seed(4))
     want = port_attention.mha_reference(q, q, q, bias=bias)
     got = port_attention.flash_attention(q, q, q, bias=bias,
                                          implementation=rung)
     torch.testing.assert_close(got, want, **FWD_TOL)
-    with pytest.raises(NotImplementedError, match="queue B item 2d"):
-        port_attention.flash_attention(q, q, q, bias=bias.requires_grad_(),
-                                       implementation=rung)
-    got = port_attention.flash_attention(q, q, q, bias=bias,
+    trained, ref = (bias.clone().requires_grad_() for _ in range(2))
+    port_attention.flash_attention(q, q, q, bias=trained,
+                                   implementation=rung).sum().backward()
+    port_attention.mha_reference(q, q, q, bias=ref).sum().backward()
+    torch.testing.assert_close(trained.grad, ref.grad, **GRAD_TOL)
+    assert trained.grad.abs().max() > 0
+    got = port_attention.flash_attention(q, q, q, bias=bias.requires_grad_(),
                                          bias_requires_grad=False,
                                          implementation=rung)
     got.sum().backward()

@@ -158,10 +158,13 @@ def test_forced_rungs_and_unported_features():
     flash = port_attention.flash_attention(q, q, q, implementation="pallas")
     np.testing.assert_allclose(mid.numpy(), short.numpy(), **FWD_TOL)
     np.testing.assert_allclose(flash.numpy(), short.numpy(), **FWD_TOL)
-    # a constant bias is ported; a trainable one (dBias) raises
-    with pytest.raises(NotImplementedError, match="queue B item 2d"):
-        port_mid.fmha_mid(q, q, q, bias=torch.zeros(40, 40,
-                                                    requires_grad=True))
+    # a constant bias is ported, and a trainable one (dBias) since: its
+    # gradient is the plain reference's
+    trained, ref = (torch.zeros(40, 40, requires_grad=True) for _ in range(2))
+    port_mid.fmha_mid(q, q, q, bias=trained).sum().backward()
+    port_attention.mha_reference(q, q, q, bias=ref).sum().backward()
+    np.testing.assert_allclose(trained.grad.numpy(), ref.grad.numpy(),
+                               **GRAD_TOL)
     bias = torch.randn((40, 40), generator=torch.Generator().manual_seed(1))
     np.testing.assert_allclose(
         port_mid.fmha_mid(q, q, q, bias=bias).numpy(),

@@ -77,9 +77,10 @@ def test_ladder_routes_short_and_matches_reference():
 
 
 def test_ladder_rejects_what_is_not_ported():
-    """A trainable bias (dBias) raises naming queue B; segment ids,
-    dropout and a constant bias, ported since, run as the plain reference
-    does (dropout without a seed is a ``ValueError``, as in JAX)."""
+    """Named from when a trainable bias (dBias) raised naming queue B;
+    segment ids, dropout, a constant bias and a trainable one, ported
+    since, run as the plain reference does (dropout without a seed is a
+    ``ValueError``, as in JAX)."""
     q = torch.randn((1, 1, 8, 32), generator=torch.Generator().manual_seed(1))
     ids = torch.tensor([[0, 0, 0, 1, 1, 1, 1, 2]], dtype=torch.int32)
     got = port_attention.flash_attention(q, q, q, q_segment_ids=ids,
@@ -87,9 +88,11 @@ def test_ladder_rejects_what_is_not_ported():
     want = port_attention.mha_reference(q, q, q, q_segment_ids=ids,
                                         kv_segment_ids=ids)
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
-    with pytest.raises(NotImplementedError, match="queue B"):
-        port_attention.flash_attention(
-            q, q, q, bias=torch.zeros(8, 8, requires_grad=True))
+    trained, ref = (torch.zeros(8, 8, requires_grad=True) for _ in range(2))
+    port_attention.flash_attention(q, q, q, bias=trained).sum().backward()
+    port_attention.mha_reference(q, q, q, bias=ref).sum().backward()
+    np.testing.assert_allclose(trained.grad.numpy(), ref.grad.numpy(),
+                               **GRAD_TOL)
     bias = torch.randn((8, 8), generator=torch.Generator().manual_seed(2))
     np.testing.assert_allclose(
         port_attention.flash_attention(q, q, q, bias=bias).numpy(),

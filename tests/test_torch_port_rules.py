@@ -260,6 +260,60 @@ def test_bias_launches_count_under_their_own_names(monkeypatch, module, segs,
         names, 1)
 
 
+@pytest.mark.parametrize("module", ["attention_short", "attention_mid",
+                                    "attention_flash"])
+@pytest.mark.parametrize("segs, drop", [(False, False), (True, True)])
+def test_dbias_launches_count_under_their_own_names(monkeypatch, module, segs,
+                                                    drop):
+    """A backward launch that emits the bias's gradient counts as
+    ``<name>_dbias`` in place of ``_bias`` (after ``_seg`` and ``_drop``)
+    and hands the C entry a zero-filled fp32 ``(b*h, sq, sk)`` output right
+    after its own outputs (the short and mid entries' dv, the flash dQ
+    entry's dq); the forward and the flash dK/dV entry have none.  A dBias
+    without a bias raises."""
+    from apex_tpu_torch.ops import attention_short as short
+    from apex_tpu_torch.ops.common import launch_counts, reset_launch_counts
+
+    mod = importlib.import_module(f"apex_tpu_torch.ops.{module}")
+    ids = (torch.zeros((2, 16), dtype=torch.int32),) * 2 if segs else (
+        None, None)
+    dr = (0.1, 7) if drop else None
+    bias = short.bias_slab("k", torch.randn(2, 1, 16, 16), 2, 3, 16, 16)
+    tag = ("_seg" if segs else "") + ("_drop" if drop else "") + "_dbias"
+    reset_launch_counts()
+    if module == "attention_flash":
+        q, row = torch.zeros((6, 16, 64)), torch.zeros((6, 16))
+        g = torch.zeros((6, 16, 16))
+        symbol, at = mod.KERNEL_DQ, 10
+        calls, entry = _fake_launch(monkeypatch, mod, symbol)
+        monkeypatch.setattr(mod, "_entry", entry)
+        mod._launch(symbol, q, q, q, ids, 3, (q, row, row), (q,), True, 0.1,
+                    dr, bias, g)
+        name, ptr = mod.KERNEL_DQ + tag, g.data_ptr()
+        with pytest.raises(ValueError, match="dBias"):
+            mod.run_bwd(mod.KERNEL_DKV, q, q, q, q, row, row, True,
+                        scale=0.1, ids=ids, heads=3, drop=dr, slab=bias,
+                        dbias=True)
+    else:
+        q = torch.zeros((2, 3, 16, 64))
+        symbol, at = mod.KERNEL_BWD, 14
+        calls, entry = _fake_launch(monkeypatch, mod, symbol)
+        *grads, g = short.launch_bwd(
+            entry, (mod.KERNEL_BWD, mod.KERNEL_BWD_SEG), q, q, q, q, q,
+            torch.zeros((2, 3, 16)), None, True, 0.1, *ids, dr, bias, True)
+        assert len(grads) == 3 and g.shape == (2, 3, 16, 16)
+        assert g.dtype == torch.float32 and not g.any()
+        name, ptr = mod.KERNEL_BWD + tag, g.data_ptr()
+        with pytest.raises(ValueError, match="dBias needs a bias"):
+            short.launch_bwd(entry, (mod.KERNEL_BWD, mod.KERNEL_BWD_SEG), q,
+                             q, q, q, q, torch.zeros((2, 3, 16)), None, True,
+                             0.1, *ids, dr, None, True)
+    (args,) = calls
+    assert len(args) == len(mod.ARGTYPES[symbol])
+    assert args[5] == bias.data_ptr() and args[at] == ptr
+    assert {k: v for k, v in launch_counts().items() if v} == {name: 1}
+
+
 def test_contrib_attention_never_falls_back():
     """``impl="fast"`` goes through ``flash_attention`` (the kernels, their
     plain versions only on CPU tensors), never through the plain
@@ -483,9 +537,9 @@ def test_signature_twins_cover_the_entry_points():
 def test_attention_takes_the_jax_arguments_it_does_not_use():
     """``bias_requires_grad=False`` with no bias (the T5 and contrib
     callers), a dropout seed without dropout and the TPU tiles run; a
-    constant bias runs, and a trainable one raises naming queue B item 2d
-    unless ``bias_requires_grad=False``; dropout with a seed runs;
-    ``"xla"`` is no rung."""
+    constant bias runs, and a trainable one with
+    ``bias_requires_grad=True`` too (dBias), with the plain reference's
+    gradient; dropout with a seed runs; ``"xla"`` is no rung."""
     from apex_tpu_torch.ops import attention, attention_mid, attention_short
 
     q = torch.randn((1, 2, 16, 64), generator=torch.Generator().manual_seed(0))
@@ -504,8 +558,12 @@ def test_attention_takes_the_jax_arguments_it_does_not_use():
                  **kw)
         torch.testing.assert_close(got, attention.mha_reference(
             q, q, q, bias=bias), rtol=1e-5, atol=1e-5)
-        with pytest.raises(NotImplementedError, match="queue B item 2d"):
-            fn(q, q, q, bias=bias, **kw)
+        trained, ref = (bias.detach().clone().requires_grad_()
+                        for _ in range(2))
+        fn(q, q, q, bias=trained, **kw).sum().backward()
+        attention.mha_reference(q, q, q, bias=ref).sum().backward()
+        torch.testing.assert_close(trained.grad, ref.grad, rtol=5e-5,
+                                   atol=5e-5)
         # dropout is ported: with a seed it runs (the reference's mask)
         got = fn(q, q, q, dropout_rate=0.1, dropout_seed=1, **kw)
         torch.testing.assert_close(got, attention.mha_reference(

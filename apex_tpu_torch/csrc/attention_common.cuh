@@ -11,12 +11,14 @@
 // axis); here both rungs compute the same function the same way, so they
 // run one set of kernels behind separate entries, counters and checks.
 //
-// Forward (attn_fwd_kernel): one block per (batch*head, 64-row query tile)
-// loops over 64-key K/V tiles with an online softmax (running max m,
-// running sum l, rescaled accumulator): a whole s = 512 K plus V in bf16 at
-// d = 128 is 256 KB, more than the 227 KB of shared memory a block may use.
-// Key tiles wholly above the causal diagonal are skipped, which is the
-// TPU mid kernel's causal block skip.  Outputs: O in the input dtype and the
+// Forward: bf16 inputs run the Hopper kernel of attention_fwd_sm90.cuh
+// (TMA, a producer warp and consumer warpgroups, wgmma with the scores and
+// the output in registers), in this rung's rounding order, s = (q . k) *
+// scale.  fp32 inputs run attn_fwd_kernel below: one block per
+// (batch*head, 64-row query tile) loops over 64-key K/V tiles with an
+// online softmax (running max m, running sum l, rescaled accumulator).
+// Both skip key tiles wholly above the causal diagonal, which is the TPU
+// mid kernel's causal block skip.  Outputs: O in the input dtype and the
 // row logsumexp lse (fp32) that the backward replays.
 //
 // Backward: the TPU kernels accumulate dQ over a sequential grid axis in
@@ -33,16 +35,17 @@
 //   3. attn_bwd_dq_kernel: one block per (batch*head, 64-row query tile).
 //      It walks the key tiles up to the diagonal and accumulates
 //      dQ += (dz * scale) K.
-// The forward scales q before the product (as _short_fwd_kernel does at
-// :176); the backward scales the product (as _short_bwd_kernel does at
-// :256): both orders are kept, in the kernels and in their plain versions.
+// Both the forward and the backward scale the product, s = (q . k) *
+// scale, as _short_fwd_kernel (:176) and _short_bwd_kernel (:256) do.
 //
-// Every kernel has 4 warps, and each warp owns 16 rows of its block's tile
-// end to end (its slice of every product and its softmax rows); only tile
-// loads are shared, so the warps synchronise twice per tile.
-//  - bf16: the products run on the tensor cores through WMMA (16x16x16
-//    bf16 fragments, fp32 accumulate), with p and dz * scale rounded to bf16
-//    as their operands, where the TPU's default precision rounds them.
+// The fp32 forward and the backward kernels have 4 warps, and each warp
+// owns 16 rows of its block's tile end to end (its slice of every product
+// and its softmax rows); only tile loads are shared, so the warps
+// synchronise twice per tile.
+//  - bf16 (the backward): the products run on the tensor cores through
+//    WMMA (16x16x16 bf16 fragments, fp32 accumulate), with p and dz *
+//    scale rounded to bf16 as their operands, where the TPU's default
+//    precision rounds them.
 //  - fp32: full fp32 FMAs from shared memory (no TF32), as the JAX kernels'
 //    Precision.HIGHEST for fp32 inputs asks.
 //  - masking: causal (key > query), the ragged tail of keys (>= sk) and of
@@ -64,8 +67,9 @@
 //    (attention_short.py:190-196); the dK/dV kernel replays the mask on p
 //    for dV and on dp before dz = p * (dp - delta), the dQ kernel on dp
 //    (attention_short.py:268-276).  The hash's bh is the block's
-//    blockIdx.y and its positions the absolute q0 + row and k0 + column,
-//    so the mask does not depend on the tiles.  DROP and SEGS combine
+//    blockIdx.y (blockIdx.x in the bf16 forward) and its positions the
+//    absolute q0 + row and k0 + column, so the mask does not depend on the
+//    tiles.  DROP and SEGS combine
 //    (contrib attention needs both).
 //  - bias (BIAS, the Pallas bodies' has_bias; attention_tiles.cuh's Bias,
 //    read into registers before each tile's products): the forward adds it
@@ -92,55 +96,60 @@
 // s = 1024, d = 128, causal, bf16) the forward does 2 * 2 * d * s(s+1)/2
 // flops per (b*h) over 4 * s * d * 2 bytes, ~256 flop/byte, near the
 // H100's ~295 flop/byte bf16 balance point; the backward does 2.5x the
-// flops over 2x the bytes and is bound by operations.  These simple kernels
-// (WMMA through shared memory, scalar tile loads, one or two blocks per SM)
-// are far from either bound; wgmma/TMA pipelines are later work.
+// flops over 2x the bytes and is bound by operations.  The backward (WMMA
+// through shared memory, scalar tile loads, one or two blocks per SM) is
+// far from its bound; the forward's wgmma/TMA design is in
+// attention_fwd_sm90.cuh.
 
 #pragma once
 
+#include "attention_fwd_sm90.cuh"
 #include "attention_tiles.cuh"
+
+// Consumer warpgroups of the bf16 forward (64 query rows each): the mid
+// rung's 2; attention_short.cu may set its own before the include.
+#ifndef ATTN_FWD_WARPGROUPS
+#define ATTN_FWD_WARPGROUPS 2
+#endif
 
 namespace attn {
 namespace {
 
 // ------------------------------------------------------------------ forward
 
-// Shared-memory layout of a forward block, in bytes.  Tensor-core rows are
-// padded by 8 bf16 / 4 fp32 (WMMA ldm rules); fp32 K rows by one float.
-template <typename T, int D>
+// Shared-memory layout of an fp32 forward block, in bytes (K rows padded by
+// one float: 32 lanes read 32 rows at one column).
+template <int D>
 struct FwdLayout {
-  static constexpr bool kTC = sizeof(T) == 2;
-  static constexpr int LDQ = kTC ? D + 8 : D;
-  static constexpr int LDK = kTC ? D + 8 : D + 1;
-  static constexpr int LDV = kTC ? D + 8 : D;
-  static constexpr int LDS = kTC ? kTile + 4 : kTile;  // fp32 scores
-  static constexpr int LDP = kTile + 8;                // bf16 probabilities
-  static constexpr int LDO = kTC ? D + 4 : D;          // fp32 accumulator
+  static constexpr int LDQ = D;
+  static constexpr int LDK = D + 1;
+  static constexpr int LDV = D;
+  static constexpr int LDS = kTile;   // scores, then probabilities
+  static constexpr int LDO = D;       // accumulator
   static constexpr int Q_OFF = 0;
-  static constexpr int K_OFF = round_up(Q_OFF + kTile * LDQ * (int)sizeof(T), 128);
-  static constexpr int V_OFF = round_up(K_OFF + kTile * LDK * (int)sizeof(T), 128);
-  static constexpr int S_OFF = round_up(V_OFF + kTile * LDV * (int)sizeof(T), 128);
-  static constexpr int P_OFF = round_up(S_OFF + kTile * LDS * 4, 128);
-  static constexpr int O_OFF = round_up(P_OFF + (kTC ? kTile * LDP * 2 : 0), 128);
+  static constexpr int K_OFF = round_up(Q_OFF + kTile * LDQ * 4, 128);
+  static constexpr int V_OFF = round_up(K_OFF + kTile * LDK * 4, 128);
+  static constexpr int S_OFF = round_up(V_OFF + kTile * LDV * 4, 128);
+  static constexpr int O_OFF = round_up(S_OFF + kTile * LDS * 4, 128);
   static constexpr int BYTES = round_up(O_OFF + kTile * LDO * 4, 128);
 };
 
+// The fp32 forward (bf16 runs sm90::fwd_kernel, attention_fwd_sm90.cuh).
 // q, out: (bh, sq, D); k, v: (bh, sk, D); lse: (bh, sq) fp32; with SEGS,
 // q_ids (bh / heads, sq) and kv_ids (bh / heads, sk) int32.
-template <typename T, int D, bool SEGS, bool DROP, bool BIAS>
+template <int D, bool SEGS, bool DROP, bool BIAS>
 __global__ void __launch_bounds__(kThreads)
-attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const int* __restrict__ q_ids,
-                const int* __restrict__ kv_ids, T* __restrict__ out,
+attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const int* __restrict__ q_ids,
+                const int* __restrict__ kv_ids, float* __restrict__ out,
                 float* __restrict__ lse, int heads, int sq, int sk,
                 int causal, float scale, Dropout dr, Bias bias) {
-  using L = FwdLayout<T, D>;
+  using L = FwdLayout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + L::Q_OFF);
-  T* Ks = reinterpret_cast<T*>(smem + L::K_OFF);
-  T* Vs = reinterpret_cast<T*>(smem + L::V_OFF);
+  float* Qs = reinterpret_cast<float*>(smem + L::Q_OFF);
+  float* Ks = reinterpret_cast<float*>(smem + L::K_OFF);
+  float* Vs = reinterpret_cast<float*>(smem + L::V_OFF);
   float* Ss = reinterpret_cast<float*>(smem + L::S_OFF);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::P_OFF);
   float* Os = reinterpret_cast<float*>(smem + L::O_OFF);
   // the block's query ids and the current key tile's, after the layout
   int* qid = reinterpret_cast<int*>(smem + L::BYTES);
@@ -150,13 +159,13 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row0 = (threadIdx.x / 32) * kRows;
   const long bh = blockIdx.y;
   const int q0 = blockIdx.x * kTile;
-  const T* kb = k + bh * sk * D;
-  const T* vb = v + bh * sk * D;
+  const float* kb = k + bh * sk * D;
+  const float* vb = v + bh * sk * D;
   const long brow = SEGS ? bh / heads : 0;
   const unsigned hrow = DROP ? drop_row(dr, bh) : 0u;
   const float* bslab = BIAS ? bias_slab(bias, bh, heads) : nullptr;
 
-  load_tile<T, D>(Qs, L::LDQ, q + bh * sq * D, q0, kTile, sq);
+  load_tile<float, D>(Qs, L::LDQ, q + bh * sq * D, q0, kTile, sq);
   if constexpr (SEGS) load_ids(qid, q_ids + brow * sq, q0, kTile, sq);
   zero_f(Os, L::LDO, kTile, D);
   float m[kRows], l[kRows];
@@ -170,19 +179,14 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_end = causal ? min(sk, q0 + kTile) : sk;
   for (int k0 = 0; k0 < kv_end; k0 += kTile) {
     __syncthreads();   // the previous tile's products are done with K/V
-    load_tiles<T, D>(Ks, L::LDK, Vs, L::LDV, kb, vb, k0, kTile, sk);
+    load_tiles<float, D>(Ks, L::LDK, Vs, L::LDV, kb, vb, k0, kTile, sk);
     if constexpr (SEGS) load_ids(kid, kv_ids + brow * sk, k0, kTile, sk);
     __syncthreads();
 
     [[maybe_unused]] float bv[kRows][2];
     if constexpr (BIAS) load_bias<2, false>(bv, bslab, sq, sk, q0 + row0, k0, lane);
-    if constexpr (L::kTC) {
-      abT_tc<kTile, D>(Qs + row0 * L::LDQ, L::LDQ, Ks, L::LDK,
-                       Ss + row0 * L::LDS, L::LDS);
-    } else {
-      abT_fp32<kTile, D>(Qs + row0 * L::LDQ, L::LDQ, Ks, L::LDK,
-                         Ss + row0 * L::LDS, L::LDS, lane);
-    }
+    abT_fp32<kTile, D>(Qs + row0 * L::LDQ, L::LDQ, Ks, L::LDK,
+                       Ss + row0 * L::LDS, L::LDS, lane);
     __syncwarp();
 
     // online softmax over this warp's rows; lane owns columns lane and
@@ -217,24 +221,15 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           pv = drop_keep(dr, hrow, qi, k0 + lane + 32 * h) ? pv * dr.inv_keep
                                                            : 0.0f;
         }
-        if constexpr (L::kTC) {
-          Ps[row * L::LDP + lane + 32 * h] = __float2bfloat16(pv);
-        } else {
-          Ss[row * L::LDS + lane + 32 * h] = pv;
-        }
+        Ss[row * L::LDS + lane + 32 * h] = pv;
       }
 #pragma unroll
       for (int i = 0; i < D / 32; ++i) Os[row * L::LDO + lane + 32 * i] *= corr;
     }
     __syncwarp();
 
-    if constexpr (L::kTC) {
-      ab_tc<kTile, D>(Ps + row0 * L::LDP, L::LDP, Vs, L::LDV,
-                      Os + row0 * L::LDO, L::LDO);
-    } else {
-      ab_fp32<kTile, D>(Ss + row0 * L::LDS, L::LDS, Vs, L::LDV,
-                        Os + row0 * L::LDO, L::LDO, lane);
-    }
+    ab_fp32<kTile, D>(Ss + row0 * L::LDS, L::LDS, Vs, L::LDV,
+                      Os + row0 * L::LDO, L::LDO, lane);
     __syncwarp();
   }
 
@@ -246,10 +241,10 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (qi >= sq) continue;
     const float ll = fmaxf(l[r], 1e-30f);
     const float inv = 1.0f / ll;
-    T* o = out + (bh * sq + qi) * D;
+    float* o = out + (bh * sq + qi) * D;
 #pragma unroll
     for (int i = 0; i < D / 32; ++i) {
-      o[lane + 32 * i] = from_f<T>(Os[row * L::LDO + lane + 32 * i] * inv);
+      o[lane + 32 * i] = Os[row * L::LDO + lane + 32 * i] * inv;
     }
     if (lane == 0) lse[bh * sq + qi] = m[r] + logf(ll);
   }
@@ -600,24 +595,33 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ------------------------------------------------------------------ launch
 
+// bf16: the Hopper forward of attention_fwd_sm90.cuh, with ATTN_FWD_WARPGROUPS
+// consumer warpgroups (64 query rows each) and the short/mid rounding order
+// ((q . k) * scale); fp32: attn_fwd_kernel.
 template <typename T, int D, bool SEGS, bool DROP, bool BIAS>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const int* q_ids, const int* kv_ids, void* out,
                        float* lse, int bh, int heads, int sq, int sk,
                        int causal, float scale, Dropout dr, Bias bias,
                        cudaStream_t stream) {
-  using L = FwdLayout<T, D>;
-  constexpr int kBytes = L::BYTES + 2 * id_bytes<SEGS>(kTile);
-  static bool opted = false;
-  cudaError_t err =
-      opt_in(attn_fwd_kernel<T, D, SEGS, DROP, BIAS>, kBytes, &opted);
-  if (err != cudaSuccess) return err;
-  dim3 grid((sq + kTile - 1) / kTile, bh);
-  attn_fwd_kernel<T, D, SEGS, DROP, BIAS><<<grid, kThreads, kBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), q_ids, kv_ids, static_cast<T*>(out), lse,
-      heads, sq, sk, causal, scale, dr, bias);
-  return cudaGetLastError();
+  if constexpr (sizeof(T) == 2) {
+    return sm90::launch<D, ATTN_FWD_WARPGROUPS, SEGS, DROP, BIAS, false>(
+        q, k, v, q_ids, kv_ids, out, lse, bh, heads, sq, sk, causal, scale,
+        dr, bias, stream);
+  } else {
+    using L = FwdLayout<D>;
+    constexpr int kBytes = L::BYTES + 2 * id_bytes<SEGS>(kTile);
+    static bool opted = false;
+    cudaError_t err =
+        opt_in(attn_fwd_kernel<D, SEGS, DROP, BIAS>, kBytes, &opted);
+    if (err != cudaSuccess) return err;
+    dim3 grid((sq + kTile - 1) / kTile, bh);
+    attn_fwd_kernel<D, SEGS, DROP, BIAS><<<grid, kThreads, kBytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), q_ids, kv_ids, static_cast<float*>(out),
+        lse, heads, sq, sk, causal, scale, dr, bias);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D, bool SEGS, bool DROP, bool BIAS, bool DBIAS>

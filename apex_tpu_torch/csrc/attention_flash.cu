@@ -10,17 +10,21 @@
 // order and carries m/l/acc (or dK/dV, dQ) in VMEM scratch, and the Pallas
 // pipeline fetches the next K/V block while the current one computes.
 // Here a block owns one (b*h, query tile) (or key tile) and loops over the
-// streamed operand itself, with the next tile's copy in flight: cp.async
-// into a second shared-memory buffer, issued before the current tile's
-// products (two buffers, one commit group per tile).  That overlap is what
-// the rung exists for: at s = 4096 a block streams up to 64 tiles.
+// streamed operand itself, with the next tile's copy in flight.  The bf16
+// forward is the wgmma/TMA kernel of attention_fwd_sm90.cuh (a producer
+// warp's TMA loads through a two-stage ring, completed on mbarriers); the
+// fp32 forward and the backward kernels copy with cp.async into a second
+// shared-memory buffer, issued before the current tile's products (two
+// buffers, one commit group per tile).  That overlap is what the rung
+// exists for: at s = 4096 a block streams up to 64 tiles.
 //
 // Function, as the TPU kernels compute it:
-//  - forward: q is scaled BEFORE the product (:242) -- the kernel scales
-//    its Q tile in fp32 once it lands and, for bf16, rounds it to bf16 as
+//  - forward: q is scaled BEFORE the product (:242) -- the kernels scale
+//    the Q tile in fp32 once it lands and, for bf16, round it to bf16 as
 //    the tensor-core operand (as the TPU's default precision rounds the
-//    fp32 operand of its MXU); masked scores are the finite -1e30, masked
-//    probabilities exactly 0, l is clamped at 1e-30, lse = m + log(l).
+//    fp32 operand of its MXU; attention_fwd_sm90.cuh's QSCALE); masked
+//    scores are the finite -1e30, masked probabilities exactly 0, l is
+//    clamped at 1e-30, lse = m + log(l).
 //  - backward: scores are replayed from lse with the scale AFTER the
 //    product, s = (q . k) * scale (:464, :580); delta = rowsum(dO * O) is
 //    computed outside the kernels (as JAX computes it in XLA, :647-650);
@@ -41,8 +45,9 @@
 //    The wrappers count these launches as flash_fwd_seg, flash_bwd_dkv_seg
 //    and flash_bwd_dq_seg.
 //  - dropout (DROP, the Pallas bodies' has_dropout; the hash of
-//    attention_tiles.cuh over the global bh = blockIdx.y and the absolute
-//    positions): the forward keeps l and the lse undropped and drops and
+//    attention_tiles.cuh over the global bh, blockIdx.y here and
+//    blockIdx.x in the bf16 forward, and the absolute positions): the
+//    forward keeps l and the lse undropped and drops and
 //    scales only the p that enters P . V (:276-281); the dK/dV kernel
 //    replays the mask on p for dV and on dp before dz (:491-498), the dQ
 //    kernel on dp (:605-611).  Counted as flash_fwd_drop,
@@ -66,13 +71,11 @@
 //    flash_bwd_dq_dbias (_seg, _drop before it).
 //
 // Tiles, chosen for s >= 4096 (at b*h = 16, the Llama-mode training shape):
-//  - forward: 128-row query tiles in bf16 (8 warps, 16 rows each), so each
-//    K/V tile fetched from L2 serves twice the rows of the mid rung's 64;
-//    64-key tiles, double-buffered.  Shared memory, D = 128: Q 34 KB, two
-//    K and two V buffers 68 KB, fp32 scores 34 KB, bf16 p 18 KB, fp32
-//    accumulator 66 KB = 220 KB of the 227 KB a block may use, one block
-//    per SM; 32 x 16 = 512 blocks at s = 4096.  fp32 takes 64-row tiles
-//    (4 warps) to fit.
+//  - forward: in bf16 128-row query tiles (two consumer warpgroups of 64
+//    rows) and 128-key tiles in two stages (attention_fwd_sm90.cuh: 160 KB
+//    of shared memory at D = 128, one block per SM; 32 x 16 = 512 blocks
+//    at s = 4096, heaviest causal tiles first); in fp32 64-row tiles (4
+//    warps) and 64-key tiles, double-buffered.
 //  - dK/dV: one block per (b*h, 64-key tile), streaming 64-row (fp32: 32)
 //    query tiles from the causal diagonal down, Q/dO/lse/delta
 //    double-buffered; 1,024 blocks at s = 4096, enough for the 132 SMs, so
@@ -81,19 +84,21 @@
 //    380 KB).
 //  - dQ: one block per (b*h, 64-row query tile), streaming 64-key (fp32:
 //    32) K/V tiles up to the diagonal, double-buffered.
-// Each warp owns 16 rows of its block's tile end to end; the products are
-// attention_tiles.cuh's warp products (WMMA 16x16x16 bf16 with fp32
-// accumulate; full fp32 FMAs for fp32, as Precision.HIGHEST asks).
+// In the fp32 forward and the backward each warp owns 16 rows of its
+// block's tile end to end; the products are attention_tiles.cuh's warp
+// products (WMMA 16x16x16 bf16 with fp32 accumulate; full fp32 FMAs for
+// fp32, as Precision.HIGHEST asks).
 //
 // What bounds them on the card: at b*h = 16, s = 4096, d = 128, causal,
 // bf16 the forward does 4 * d flops per causal (q, k) pair, 6.9e10 in all,
 // over 4 * 16 * 4096 * 128 * 2 bytes = 67 MB: ~1,000 flop/byte, above the
 // H100's ~295, so it is bound by operations (0.07 ms at 989 TFLOP/s); the
 // dK/dV kernel does 8 * d and the dQ kernel 6 * d flops per pair over a
-// few more bytes, bound by operations too.  These kernels are far from
-// that bound (WMMA through shared memory, one product at a time per warp);
-// wgmma with TMA and warp specialisation is later work.
+// few more bytes, bound by operations too.  The backward kernels are far
+// from that bound (WMMA through shared memory, one product at a time per
+// warp); a wgmma/TMA backward is later work.
 
+#include "attention_fwd_sm90.cuh"
 #include "attention_tiles.cuh"
 
 namespace flash {
@@ -215,51 +220,49 @@ __device__ __forceinline__ void ab(const A_t* A, int lda, const T* B,
 
 // ------------------------------------------------------------------ forward
 
-template <typename T, int D>
+// The fp32 forward (bf16 runs sm90::fwd_kernel, attention_fwd_sm90.cuh):
+// 64-row query tiles (4 warps), 64-key tiles double-buffered.
+template <int D>
 struct FwdTiles {
-  static constexpr bool kTC = sizeof(T) == 2;
-  static constexpr int QT = kTC ? 128 : 64;   // query rows per block
-  static constexpr int KT = 64;               // keys per streamed tile
+  static constexpr int QT = 64;   // query rows per block
+  static constexpr int KT = 64;   // keys per streamed tile
   static constexpr int kThreads = QT / kRows * 32;
-  static constexpr int LDQ = kTC ? D + 8 : D;
-  static constexpr int LDK = kTC ? D + 8 : D + 1;
-  static constexpr int LDV = kTC ? D + 8 : D;
-  static constexpr int LDS = kTC ? KT + 4 : KT;   // fp32 scores
-  static constexpr int LDP = KT + 8;              // bf16 probabilities
-  static constexpr int LDO = kTC ? D + 4 : D;     // fp32 accumulator
-  static constexpr int K_BUF = round_up(KT * LDK * (int)sizeof(T), 128);
-  static constexpr int V_BUF = round_up(KT * LDV * (int)sizeof(T), 128);
+  static constexpr int LDQ = D;
+  static constexpr int LDK = D + 1;
+  static constexpr int LDV = D;
+  static constexpr int LDS = KT;   // scores, then probabilities
+  static constexpr int LDO = D;    // accumulator
+  static constexpr int K_BUF = round_up(KT * LDK * 4, 128);
+  static constexpr int V_BUF = round_up(KT * LDV * 4, 128);
   static constexpr int Q_OFF = 0;
-  static constexpr int K_OFF = round_up(QT * LDQ * (int)sizeof(T), 128);
+  static constexpr int K_OFF = round_up(QT * LDQ * 4, 128);
   static constexpr int V_OFF = K_OFF + 2 * K_BUF;
   static constexpr int S_OFF = V_OFF + 2 * V_BUF;
-  static constexpr int P_OFF = round_up(S_OFF + QT * LDS * 4, 128);
-  static constexpr int O_OFF = round_up(P_OFF + (kTC ? QT * LDP * 2 : 0), 128);
+  static constexpr int O_OFF = round_up(S_OFF + QT * LDS * 4, 128);
   static constexpr int BYTES = round_up(O_OFF + QT * LDO * 4, 128);
 };
 
 // q, out: (bh, sq, D); k, v: (bh, sk, D); lse: (bh, sq) fp32; with SEGS,
 // q_ids (bh / heads, sq) and kv_ids (bh / heads, sk) int32.
-template <typename T, int D, bool SEGS, bool DROP, bool BIAS>
-__global__ void __launch_bounds__(FwdTiles<T, D>::kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ q_ids,
-                 const int* __restrict__ kv_ids, T* __restrict__ out,
+template <int D, bool SEGS, bool DROP, bool BIAS>
+__global__ void __launch_bounds__(FwdTiles<D>::kThreads)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const int* __restrict__ q_ids,
+                 const int* __restrict__ kv_ids, float* __restrict__ out,
                  float* __restrict__ lse, int heads, int sq, int sk,
                  int causal, float scale, attn::Dropout dr, attn::Bias bias) {
-  using L = FwdTiles<T, D>;
+  using L = FwdTiles<D>;
   constexpr int QT = L::QT, KT = L::KT, TH = L::kThreads;
   constexpr int KID = attn::id_bytes<SEGS>(KT);
   extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + L::Q_OFF);
+  float* Qs = reinterpret_cast<float*>(smem + L::Q_OFF);
   float* Ss = reinterpret_cast<float*>(smem + L::S_OFF);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::P_OFF);
   float* Os = reinterpret_cast<float*>(smem + L::O_OFF);
   auto Ks = [&](int buf) {
-    return reinterpret_cast<T*>(smem + L::K_OFF + buf * L::K_BUF);
+    return reinterpret_cast<float*>(smem + L::K_OFF + buf * L::K_BUF);
   };
   auto Vs = [&](int buf) {
-    return reinterpret_cast<T*>(smem + L::V_OFF + buf * L::V_BUF);
+    return reinterpret_cast<float*>(smem + L::V_OFF + buf * L::V_BUF);
   };
   // after the layout: the block's query ids, then two key-id buffers
   int* qid = reinterpret_cast<int*>(smem + L::BYTES);
@@ -272,8 +275,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row0 = (threadIdx.x / 32) * kRows;
   const long bh = blockIdx.y;
   const int q0 = blockIdx.x * QT;
-  const T* kb = k + bh * sk * D;
-  const T* vb = v + bh * sk * D;
+  const float* kb = k + bh * sk * D;
+  const float* vb = v + bh * sk * D;
   const int* kidb = SEGS ? kv_ids + (bh / heads) * sk : nullptr;
   const unsigned hrow = DROP ? attn::drop_row(dr, bh) : 0u;
   const float* bslab =
@@ -282,9 +285,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_end = causal ? min(sk, q0 + QT) : sk;
   const int n_tiles = (kv_end + KT - 1) / KT;
 
-  async_tile<T, D, L::LDQ, QT, TH>(Qs, q + bh * sq * D, q0, sq);
-  async_tile<T, D, L::LDK, KT, TH>(Ks(0), kb, 0, sk);
-  async_tile<T, D, L::LDV, KT, TH>(Vs(0), vb, 0, sk);
+  async_tile<float, D, L::LDQ, QT, TH>(Qs, q + bh * sq * D, q0, sq);
+  async_tile<float, D, L::LDK, KT, TH>(Ks(0), kb, 0, sk);
+  async_tile<float, D, L::LDV, KT, TH>(Vs(0), vb, 0, sk);
   if constexpr (SEGS) {
     async_ids<QT, TH>(qid, q_ids + (bh / heads) * sq, q0, sq);
     async_ids<KT, TH>(kid(0), kidb, 0, sk);
@@ -303,8 +306,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // the next tile's copy goes out before this tile's products; its
     // buffer was released by the barrier that ended the previous tile
     if (t + 1 < n_tiles) {
-      async_tile<T, D, L::LDK, KT, TH>(Ks((t + 1) & 1), kb, k0 + KT, sk);
-      async_tile<T, D, L::LDV, KT, TH>(Vs((t + 1) & 1), vb, k0 + KT, sk);
+      async_tile<float, D, L::LDK, KT, TH>(Ks((t + 1) & 1), kb, k0 + KT, sk);
+      async_tile<float, D, L::LDV, KT, TH>(Vs((t + 1) & 1), vb, k0 + KT, sk);
       if constexpr (SEGS) async_ids<KT, TH>(kid((t + 1) & 1), kidb, k0 + KT, sk);
       cp_async_commit();
       cp_async_wait<1>();
@@ -313,24 +316,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     if (t == 0) {
-      // q * scale in fp32, before the product (bf16: rounded as the
-      // tensor-core operand)
+      // q * scale in fp32, before the product
       for (int i = threadIdx.x; i < QT * D; i += TH) {
-        T* x = Qs + (i / D) * L::LDQ + i % D;
-        *x = from_f<T>(to_f(*x) * scale);
+        Qs[(i / D) * L::LDQ + i % D] *= scale;
       }
       __syncthreads();
     }
-    const T* Kt = Ks(t & 1);
-    const T* Vt = Vs(t & 1);
+    const float* Kt = Ks(t & 1);
+    const float* Vt = Vs(t & 1);
     const int* kt_ids = kid(t & 1);
 
     [[maybe_unused]] float bv[kRows][KT / 32];
     if constexpr (BIAS) {
       attn::load_bias<KT / 32, false>(bv, bslab, sq, sk, q0 + row0, k0, lane);
     }
-    abT<T, KT, D>(Qs + row0 * L::LDQ, L::LDQ, Kt, L::LDK,
-                  Ss + row0 * L::LDS, L::LDS, lane);
+    attn::abT_fp32<KT, D>(Qs + row0 * L::LDQ, L::LDQ, Kt, L::LDK,
+                          Ss + row0 * L::LDS, L::LDS, lane);
     __syncwarp();
 
     // online softmax over this warp's rows; lane owns columns lane and
@@ -366,24 +367,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    ? pv * dr.inv_keep
                    : 0.0f;
         }
-        if constexpr (L::kTC) {
-          Ps[row * L::LDP + lane + 32 * h] = __float2bfloat16(pv);
-        } else {
-          Ss[row * L::LDS + lane + 32 * h] = pv;
-        }
+        Ss[row * L::LDS + lane + 32 * h] = pv;
       }
 #pragma unroll
       for (int i = 0; i < D / 32; ++i) Os[row * L::LDO + lane + 32 * i] *= corr;
     }
     __syncwarp();
 
-    if constexpr (L::kTC) {
-      ab<T, KT, D>(Ps + row0 * L::LDP, L::LDP, Vt, L::LDV,
-                   Os + row0 * L::LDO, L::LDO, lane);
-    } else {
-      ab<T, KT, D>(Ss + row0 * L::LDS, L::LDS, Vt, L::LDV,
-                   Os + row0 * L::LDO, L::LDO, lane);
-    }
+    attn::ab_fp32<KT, D>(Ss + row0 * L::LDS, L::LDS, Vt, L::LDV,
+                         Os + row0 * L::LDO, L::LDO, lane);
     __syncthreads();   // every warp is done with this tile's buffers
   }
 
@@ -395,10 +387,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (qi >= sq) continue;
     const float ll = fmaxf(l[r], 1e-30f);
     const float inv = 1.0f / ll;
-    T* o = out + (bh * sq + qi) * D;
+    float* o = out + (bh * sq + qi) * D;
 #pragma unroll
     for (int i = 0; i < D / 32; ++i) {
-      o[lane + 32 * i] = from_f<T>(Os[row * L::LDO + lane + 32 * i] * inv);
+      o[lane + 32 * i] = Os[row * L::LDO + lane + 32 * i] * inv;
     }
     if (lane == 0) lse[bh * sq + qi] = m[r] + logf(ll);
   }
@@ -789,25 +781,35 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ------------------------------------------------------------------ launch
 
+// bf16: the Hopper forward of attention_fwd_sm90.cuh, 128 query rows a
+// block (two consumer warpgroups), q scaled and rounded before the product
+// (QSCALE); fp32: flash_fwd_kernel.
 template <typename T, int D, bool SEGS, bool DROP, bool BIAS>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const int* q_ids, const int* kv_ids, void* out,
                        float* lse, int bh, int heads, int sq, int sk,
                        int causal, float scale, attn::Dropout dr,
                        attn::Bias bias, cudaStream_t stream) {
-  using L = FwdTiles<T, D>;
-  constexpr int kBytes = L::BYTES + attn::id_bytes<SEGS>(L::QT) +
-                         2 * attn::id_bytes<SEGS>(L::KT);
-  static bool opted = false;
-  cudaError_t err =
-      attn::opt_in(flash_fwd_kernel<T, D, SEGS, DROP, BIAS>, kBytes, &opted);
-  if (err != cudaSuccess) return err;
-  flash_fwd_kernel<T, D, SEGS, DROP, BIAS>
-      <<<dim3((sq + L::QT - 1) / L::QT, bh), L::kThreads, kBytes, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), q_ids, kv_ids, static_cast<T*>(out), lse,
-          heads, sq, sk, causal, scale, dr, bias);
-  return cudaGetLastError();
+  if constexpr (sizeof(T) == 2) {
+    return attn::sm90::launch<D, 2, SEGS, DROP, BIAS, true>(
+        q, k, v, q_ids, kv_ids, out, lse, bh, heads, sq, sk, causal, scale,
+        dr, bias, stream);
+  } else {
+    using L = FwdTiles<D>;
+    constexpr int kBytes = L::BYTES + attn::id_bytes<SEGS>(L::QT) +
+                           2 * attn::id_bytes<SEGS>(L::KT);
+    static bool opted = false;
+    cudaError_t err =
+        attn::opt_in(flash_fwd_kernel<D, SEGS, DROP, BIAS>, kBytes, &opted);
+    if (err != cudaSuccess) return err;
+    flash_fwd_kernel<D, SEGS, DROP, BIAS>
+        <<<dim3((sq + L::QT - 1) / L::QT, bh), L::kThreads, kBytes, stream>>>(
+            static_cast<const float*>(q), static_cast<const float*>(k),
+            static_cast<const float*>(v), q_ids, kv_ids,
+            static_cast<float*>(out), lse, heads, sq, sk, causal, scale, dr,
+            bias);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D, bool SEGS, bool DROP, bool BIAS>

@@ -8,11 +8,12 @@
 // folded in (dz = p * (dp - delta + dlse)).
 //
 // On the H100 the streamed online softmax with a causal tile skip is
-// exactly what the shared forward of attention_common.cuh does (64-key
-// tiles), so the mid entries run that device code: the grid is one block
-// per (batch*head, 64-row query tile), 64 * 16 = 1024 blocks at the
-// flagship's training shape (b = 8, h = 8, s = 1024), enough to fill the
-// 132 SMs several times over.  The backward is the delta pass (which folds
+// exactly what the shared forward of attention_common.cuh does, so the mid
+// entries run that device code: in bf16 the wgmma/TMA kernel of
+// attention_fwd_sm90.cuh with 128-row query tiles (two consumer
+// warpgroups) and 128-key tiles, 64 * 8 = 512 blocks at the flagship's
+// training shape (b = 8, h = 8, s = 1024), heaviest causal tiles first; in
+// fp32 one block per (batch*head, 64-row query tile).  The backward is the delta pass (which folds
 // dlse in) plus the dK/dV and dQ kernels, no atomics, so its result is the
 // same on every run.
 //

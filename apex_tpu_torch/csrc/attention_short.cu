@@ -3,17 +3,19 @@
 // Replaces apex_tpu/ops/attention_short.py::_short_fwd_kernel, the
 // single-pass Pallas TPU kernel that holds a whole (s <= 512) K/V sequence
 // in VMEM, and ::_short_bwd_kernel, its fused dq/dk/dv backward.  The
-// device code (a 64-key tiled online softmax forward, and a delta pass plus
-// separate dK/dV and dQ kernels for the backward) is shared with the mid
-// rung and described in attention_common.cuh: the whole-sequence pass of
-// the TPU kernel does not fit 227 KB of shared memory at s = 512, d = 128,
-// and the TPU backward's sequential accumulation does not carry over to
-// blocks that run in no order.
+// device code (a forward that streams 128-key tiles with an online softmax,
+// bf16 through the wgmma/TMA kernel of attention_fwd_sm90.cuh and fp32
+// through 64-key SIMT tiles, and a delta pass plus separate dK/dV and dQ
+// kernels for the backward) is shared with the mid rung and described in
+// attention_common.cuh: the whole-sequence pass of the TPU kernel does not
+// fit 227 KB of shared memory at s = 512, d = 128, and the TPU backward's
+// sequential accumulation does not carry over to blocks that run in no
+// order.
 //
 // What bounds it on the card: at s = 512 causal, one (b*h) slice does
 // 2 * 2 * d * s(s+1)/2 flops over 4 * s * d * 2 bytes, ~130 flop/byte,
 // under the H100's ~295 flop/byte bf16 balance point, so the least time is
-// set by the bytes moved; these simple kernels are far from either bound.
+// set by the bytes moved.
 //
 // With segment ids (BERT's padding, fmha's packed varlen batches) the same
 // entries launch the SEGS instances of attention_common.cuh; the wrappers
@@ -33,6 +35,12 @@
 // Transformer-big's decoder, b = 32, h = 16, s = 256), summed by the
 // wrapper over the bias's broadcast dims; counted with _dbias in place of
 // _bias.
+
+// The bf16 forward's query tile: one consumer warpgroup (64 rows).  At the
+// serving prefill (b = 1, h = 8, s = 512) 128-row tiles give 32 blocks for
+// 132 SMs; 64-row tiles ran faster there and at BERT-large's b = 16,
+// h = 16, d = 64 (python -m apex_tpu_torch.tools.fwd_rows, PERF.md).
+#define ATTN_FWD_WARPGROUPS 1
 
 #include "attention_common.cuh"
 

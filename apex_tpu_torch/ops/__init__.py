@@ -21,11 +21,15 @@ from apex_tpu_torch.ops.common import (
 from apex_tpu_torch.ops.dequant_matmul import (
     dequant_matmul,
     dequant_matmul_reference,
+    quantize_weight,
 )
 from apex_tpu_torch.ops.layer_norm import (
+    fused_layer_norm,
     fused_layer_norm_affine,
+    fused_rms_norm,
     fused_rms_norm_affine,
     layer_norm_fwd,
+    mixed_dtype_fused_layer_norm_affine,
 )
 from apex_tpu_torch.ops.softmax import (
     scaled_masked_softmax,
@@ -44,10 +48,12 @@ __all__ = [
     "KernelUnavailable", "apply_rope", "apply_rope_at", "apply_rope_tables",
     "dequant_matmul", "dequant_matmul_reference", "flash_attention",
     "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd",
-    "fmha_decode", "fmha_mid", "fmha_short", "fused_layer_norm_affine",
-    "fused_rms_norm_affine", "launch_counts", "layer_norm_fwd",
-    "mha_reference", "mid_bwd", "mid_fwd", "paged_attention_reference",
-    "reset_launch_counts", "rope_cos_sin", "rope_table",
+    "fmha_decode", "fmha_mid", "fmha_short", "fused_layer_norm",
+    "fused_layer_norm_affine", "fused_rms_norm", "fused_rms_norm_affine",
+    "launch_counts", "layer_norm_fwd", "mha_reference", "mid_bwd",
+    "mid_fwd", "mixed_dtype_fused_layer_norm_affine",
+    "paged_attention_reference", "quantize_weight", "reset_launch_counts",
+    "rope_cos_sin", "rope_table",
     "scaled_masked_softmax", "scaled_softmax",
     "scaled_upper_triang_masked_softmax", "short_bwd", "short_fwd",
 ]

@@ -39,6 +39,7 @@ from typing import Optional
 
 import torch
 
+from apex_tpu_torch.ops.attention_decode import decode_contiguous
 from apex_tpu_torch.ops.attention_flash import checked as flash_checked
 from apex_tpu_torch.ops.attention_flash import flash_delta
 from apex_tpu_torch.ops.attention_flash import run_bwd as flash_run_bwd
@@ -65,8 +66,8 @@ __all__ = ["flash_attention", "mha_reference", "keep_mask", "keep_threshold",
 _NEG_INF = -1e30
 
 #: rung names ``implementation`` takes; "pallas" is the JAX name of the
-#: flash rung
-_RUNGS = ("short", "mid", "pallas")
+#: flash rung, and "decode" the paged decode kernel over contiguous K/V
+_RUNGS = ("short", "mid", "pallas", "decode")
 
 
 def mha_reference(
@@ -192,7 +193,11 @@ def flash_attention(
     kernels (512 and 2048 unless ``APEX_TPU_FMHA_SHORT_MAX_SEQ`` /
     ``APEX_TPU_FMHA_MID_MAX_SEQ`` say otherwise; ``0`` turns a rung off).
     ``implementation`` forces a rung: ``"short"``, ``"mid"`` or
-    ``"pallas"`` (the JAX name of the flash rung).
+    ``"pallas"`` (the JAX name of the flash rung), or ``"decode"``: the
+    paged decode kernel over contiguous K/V
+    (:func:`~apex_tpu_torch.ops.attention_decode.decode_contiguous`, a few
+    query rows at the cache's tail; plain or causal attention only, not
+    differentiable, as in JAX).
 
     ``block_q``/``block_k`` are accepted for the JAX signature and not
     used: in JAX they are the flash kernel's TPU tiles (512 x 1024 by
@@ -235,6 +240,15 @@ def flash_attention(
             rung = "mid"
         else:
             rung = "pallas"
+    if rung == "decode":
+        # explicit only, as in JAX: decode callers hold no trainable bias
+        # or segments and never differentiate through the cache
+        if (bias is not None or q_segment_ids is not None
+                or dropout_rate > 0.0):
+            raise ValueError(
+                "implementation='decode' supports plain (optionally "
+                "causal) attention only — no bias/segments/dropout")
+        return decode_contiguous(q, k, v, causal=causal, sm_scale=sm_scale)
     ids = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
                dropout_rate=dropout_rate, dropout_seed=dropout_seed)
     if rung == "short":

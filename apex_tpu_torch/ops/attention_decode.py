@@ -29,6 +29,11 @@ which also takes every ``ancestor`` call as ``paged_decode_tree``
 (speculative verify, up to 31 rows).  No single PyTorch call computes
 attention over this paged layout, so the kernels have no library
 yardstick.
+
+:func:`decode_contiguous` runs the op over contiguous ``(b, h, s_k, d)``
+K/V viewed as trivially paged storage (sequence ``b``'s logical page
+``p`` is physical page ``b * pages + p``): the
+``flash_attention(implementation="decode")`` rung, as in JAX.
 """
 
 from __future__ import annotations
@@ -45,13 +50,18 @@ from apex_tpu_torch.ops.common import (
 )
 from apex_tpu_torch.ops.rope import apply_rope_tables
 
-__all__ = ["fmha_decode", "paged_attention_reference", "FMHA_DECODE_MAX_SQ",
-           "FMHA_DECODE_MAX_ROWS"]
+__all__ = ["fmha_decode", "paged_attention_reference", "decode_contiguous",
+           "FMHA_DECODE_BLOCK_H", "FMHA_DECODE_MAX_SQ", "FMHA_DECODE_MAX_ROWS"]
 
 KERNEL = "paged_decode"
 KERNEL_INT8 = "paged_decode_int8"
 KERNEL_ROWS = "paged_decode_rows"
 KERNEL_TREE = "paged_decode_tree"
+
+#: the heads one TPU grid program packs in the JAX kernel; ``fmha_decode``
+#: takes ``block_h`` for the JAX signature and the CUDA kernels run one
+#: block per (sequence, head), so it is kept only as JAX's default
+FMHA_DECODE_BLOCK_H = 16
 
 #: query rows per sequence the small kernel takes (its per-warp register
 #: state); more rows, or an ancestor mask, go to the many-row instance
@@ -307,8 +317,9 @@ def fmha_decode(
     JAX package.  ``1 <= sq <= FMHA_DECODE_MAX_ROWS`` on every device.  A
     CUDA tensor runs a kernel, a CPU tensor the plain version.
     ``block_h`` (the heads a TPU grid step takes) is accepted and not
-    used; ``implementation`` None or ``"pallas"`` runs the kernel."""
-    check_implementation(KERNEL, implementation)
+    used; ``implementation`` None, ``"pallas"`` or ``"decode"`` (the JAX
+    names of the kernel) runs it."""
+    check_implementation(KERNEL, implementation, ("pallas", "decode"))
     if (k_scales is None) != (v_scales is None):
         raise ValueError("int8 pages need BOTH k_scales and v_scales")
     if k_pages.dtype == torch.int8 and k_scales is None:
@@ -352,3 +363,46 @@ def fmha_decode(
     if q.device.type == "cpu":
         return _decode_plain(*args)
     raise ValueError(f"{KERNEL}: unsupported device {q.device}")
+
+
+def decode_contiguous(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    sm_scale: Optional[float] = None,
+    page_size: int = 128,
+    implementation: Optional[str] = None,
+) -> torch.Tensor:
+    """:func:`fmha_decode` over contiguous ``(b, h, s_k, d)`` K/V, viewed
+    as trivially paged storage: the ``flash_attention(implementation=
+    "decode")`` rung, as in JAX.  ``causal=True`` needs ``sq <= sk`` and
+    places query row ``i`` at position ``sk - sq + i`` (the decode
+    convention: the cache's tail is the query window; at ``sq == sk`` the
+    training ladder's causal mask).  K/V are zero-padded to whole pages of
+    ``min(page_size, sk)`` tokens; ``lengths`` keeps the padding out."""
+    b, h, sk, d = k.shape
+    sq = q.shape[2]
+    if causal and sq > sk:
+        raise ValueError(
+            f"decode causal needs sq <= sk (query positions are the "
+            f"cache tail), got sq={sq} sk={sk}")
+    ps = min(int(page_size), sk)
+    pad = (-sk) % ps
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    pages = (sk + pad) // ps
+
+    def pagify(x):
+        # (b, h, pages * ps, d) -> (b * pages, h, ps, d)
+        return x.reshape(b, h, pages, ps, d).transpose(1, 2).reshape(
+            b * pages, h, ps, d).contiguous()
+
+    table = (torch.arange(b, dtype=torch.int32, device=q.device)[:, None]
+             * pages + torch.arange(pages, dtype=torch.int32,
+                                    device=q.device)[None, :])
+    lengths = torch.full((b,), sk, dtype=torch.int32, device=q.device)
+    return fmha_decode(q, pagify(k), pagify(v), table, lengths,
+                       causal=causal, sm_scale=sm_scale,
+                       implementation=implementation)

@@ -2,7 +2,13 @@
 and the backward.
 
 Replaces ``apex_tpu/ops/layer_norm.py::_ln_fwd_kernel`` (the Pallas TPU
-kernel behind ``fused_layer_norm_affine`` / ``fused_rms_norm_affine``).
+kernel behind all five entries: ``fused_layer_norm`` / ``fused_rms_norm``,
+their ``_affine`` forms, and ``mixed_dtype_fused_layer_norm_affine``).
+The entries without an affine run the kernel with a unit scale and no
+shift, which writes the normalized rows rounded to the input dtype, as
+JAX's ``_normalize`` returns them; the mixed-dtype entry applies its
+affine to those rows in fp32 outside the kernel and casts to the
+weight's dtype, as JAX does in XLA.
 
 Contract, as in the JAX package: statistics in fp32 whatever the input
 dtype, the normalized rows rounded to the input dtype, the affine applied
@@ -40,10 +46,13 @@ from apex_tpu_torch.ops.common import (
 )
 
 __all__ = [
+    "fused_layer_norm",
     "fused_layer_norm_affine",
+    "fused_rms_norm",
     "fused_rms_norm_affine",
     "layer_norm_bwd",
     "layer_norm_fwd",
+    "mixed_dtype_fused_layer_norm_affine",
 ]
 
 KERNEL = "ln_fwd"
@@ -253,3 +262,57 @@ def fused_rms_norm_affine(
     y = _LayerNormAffine.apply(x.reshape(-1, hidden), weight.reshape(-1),
                                None, eps, True)
     return y.reshape(x.shape)
+
+
+def _normalize(x: torch.Tensor, normalized_shape, eps: float,
+               rms: bool) -> torch.Tensor:
+    """The normalized rows of ``x`` in its dtype (JAX's ``_normalize``):
+    the kernel with a unit scale and no shift, differentiable in ``x``."""
+    hidden = _norm_size(normalized_shape)
+    ones = torch.ones(hidden, dtype=x.dtype, device=x.device)
+    y = _LayerNormAffine.apply(x.reshape(-1, hidden), ones, None, eps, rms)
+    return y.reshape(x.shape)
+
+
+def fused_layer_norm(
+    x: torch.Tensor,
+    normalized_shape: Union[int, Sequence[int]],
+    eps: float = 1e-5,
+    implementation: Optional[str] = None,
+) -> torch.Tensor:
+    """Layer norm without an affine, differentiable; fp32 statistics, the
+    output in ``x``'s dtype.  ``implementation`` as for
+    :func:`fused_layer_norm_affine`."""
+    check_implementation(KERNEL, implementation)
+    return _normalize(x, normalized_shape, eps, False)
+
+
+def fused_rms_norm(
+    x: torch.Tensor,
+    normalized_shape: Union[int, Sequence[int]],
+    eps: float = 1e-5,
+    implementation: Optional[str] = None,
+) -> torch.Tensor:
+    """RMSNorm without a scale, differentiable; the dtype contract of
+    :func:`fused_layer_norm`."""
+    check_implementation(KERNEL, implementation)
+    return _normalize(x, normalized_shape, eps, True)
+
+
+def mixed_dtype_fused_layer_norm_affine(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    normalized_shape: Union[int, Sequence[int]],
+    eps: float = 1e-5,
+    implementation: Optional[str] = None,
+) -> torch.Tensor:
+    """Megatron's mixed-dtype layer norm: ``x`` may differ in dtype from
+    the parameters, and the output follows the weight's.  The rows are
+    normalized by the kernel (rounded to ``x``'s dtype), then ``xhat * w +
+    b`` in fp32 and cast to ``weight.dtype``, as in JAX."""
+    check_implementation(KERNEL, implementation)
+    xhat = _normalize(x, normalized_shape, eps, False)
+    out = (xhat.float() * weight.reshape(-1).float()
+           + bias.reshape(-1).float())
+    return out.to(weight.dtype)

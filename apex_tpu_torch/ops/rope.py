@@ -68,25 +68,30 @@ def apply_rope(x: torch.Tensor, positions: Optional[torch.Tensor] = None, *,
     return apply_rope_tables(x, cos, sin)
 
 
-#: ``(max_len, head_dim, base, device) -> (cos, sin)``: decode rotates
-#: one position per sequence and step, so the whole table is built once
-#: and each step gathers rows
+#: ``(max_len, head_dim, dtype, base, device) -> (cos, sin)``: decode
+#: rotates one position per sequence and step, so the whole table is built
+#: once and each step gathers rows
 _TABLE_CACHE: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def rope_table(max_len: int, head_dim: int, base: float = 10000.0,
+def rope_table(max_len: int, head_dim: int, dtype=torch.float32,
+               base: float = 10000.0,
                device=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Cached fp32 ``(cos, sin)`` tables of shape ``(max_len,
-    head_dim//2)`` on ``device`` (default the CPU), rows bit-identical to
-    :func:`rope_cos_sin` at the same positions.  (The JAX function also
-    takes a narrower table dtype, which no caller uses.)"""
+    """Cached ``(cos, sin)`` tables of shape ``(max_len, head_dim//2)``
+    in ``dtype`` on ``device`` (default the CPU), keyed by ``(max_len,
+    head_dim, dtype, base, device)``: the JAX signature, with the device
+    last.  The rows are computed in fp32 by the very expression
+    :func:`rope_cos_sin` evaluates and then cast, so at fp32 gathering row
+    ``p`` is bit-identical to computing position ``p`` directly; a
+    narrower ``dtype`` trades table bytes for that identity, as in JAX."""
     device = torch.device("cpu" if device is None else device)
-    key = (int(max_len), int(head_dim), float(base), device)
+    key = (int(max_len), int(head_dim), dtype, float(base), device)
     hit = _TABLE_CACHE.get(key)
     if hit is None:
-        hit = rope_cos_sin(
+        cos, sin = rope_cos_sin(
             torch.arange(max_len, dtype=torch.int32, device=device),
             head_dim, base)
+        hit = (cos.to(dtype), sin.to(dtype))
         _TABLE_CACHE[key] = hit
     return hit
 

@@ -12,10 +12,12 @@ forward and backward at b=8 s=512, the mid ones at b=8 s=1024 (the
 flagship's) and the flash forward, dK/dV and dQ at b=2 s=4096 (the Llama
 mode's); then, with a per-batch fp32 bias and no gradient of it, the
 short and mid backward and the flash dQ at the same shapes (the bias
-instances of the kernels that have a dBias instance beside them).
-Device ms per call from a CUDA graph of 50 launches (10 for the flash
-rung) after a warm-up.  One line per tree, then the card's name and power
-limit.
+instances of the kernels that have a dBias instance beside them); then the
+three forwards' variant instances at the same shapes: with segment ids
+(blocks of 150 positions), with dropout 0.1, with the per-batch bias, and
+with all three.  Device ms per call from a CUDA graph of 50 launches (10
+for the flash rung) after a warm-up.  One line per tree, then the card's
+name and power limit.
 """
 
 from __future__ import annotations
@@ -83,6 +85,30 @@ dqb = device_ms(lambda: fl.flash_bwd_dq(q, k, v, do, lse, delta, causal=True,
                                         heads=8, bias=bias), 10)
 row.append(f"flash fwd {f:.4f} ms dkv {dkv:.4f} ms dq {dq:.4f} ms "
            f"dq+bias {dqb:.4f} ms")
+
+
+def variants(b, s):
+    ids = (torch.arange(s, device=dev) // 150).int().expand(b, s).contiguous()
+    seg = dict(q_segment_ids=ids, kv_segment_ids=ids)
+    drop = dict(dropout_rate=0.1, dropout_seed=7)
+    bias = dict(bias=torch.randn(b, 1, s, s, generator=gen, device=dev))
+    return (("seg", seg), ("drop", drop), ("bias", bias),
+            ("seg+drop+bias", {**seg, **drop, **bias}))
+
+
+for name, b, s, fwd in (("short", 8, 512, short.short_fwd),
+                        ("mid", 8, 1024, mid.mid_fwd)):
+    q, k, v = (torch.randn(b, 8, s, 128, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    times = [f"+{tag} {device_ms(lambda: fwd(q, k, v, causal=True, **kw)):.4f}"
+             for tag, kw in variants(b, s)]
+    row.append(f"{name} fwd {' '.join(times)} ms")
+q, k, v = (torch.randn(16, 4096, 128, generator=gen, device=dev)
+           .to(torch.bfloat16) for _ in range(3))
+flash_fwd = lambda kw: fl.flash_fwd(q, k, v, causal=True, heads=8, **kw)
+times = [f"+{tag} {device_ms(lambda: flash_fwd(kw), 10):.4f}"
+         for tag, kw in variants(2, 4096)]
+row.append(f"flash fwd {' '.join(times)} ms")
 print("; ".join(row), flush=True)
 """
 

@@ -32,7 +32,14 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
              documents, and fmha's padding, whose fully masked query rows
              must give out 0 and dq 0) at h=16 d=64: the short rung at
              b=16 s=512, the mid rung at b=8 s=1024, the flash rung at b=2
-             s=4096, fp32 and bf16, beside SDPA with the boolean mask.
+             s=4096, fp32 and bf16, beside SDPA with the boolean mask;
+             last, every bf16 instance of the three forwards (the
+             wgmma/TMA kernel of attention_fwd_sm90.cuh, d=64 and 128,
+             ids x dropout x bias) at ragged shapes (sq = sk = 1000,
+             causal 700 x 1100; 500 and 300 x 470 on the short rung)
+             with a row that sees no key and rows the bias hides,
+             against the plain versions and for the same bits twice.
+             Phase 1 prints each such instance's registers and spills.
 3. parity  — the flagship GPT's width at 2 layers, fp32 compute: the
              paged greedy tokens of ``ContinuousBatcher`` (6 ragged
              requests, 2 slots, 16 new tokens) must equal the port's
@@ -324,6 +331,36 @@ def measure(name, shape, err, kernel, plain, library, *, nbytes, ops,
 
 
 # ---------------------------------------------------------------- phase 1
+def sm90_instances(text: str) -> dict:
+    """``{instance: (registers, spill-store bytes)}`` of the bf16 forward
+    (``attention_fwd_sm90.cuh``'s ``fwd_kernel<D, NC, SEGS, DROP, BIAS,
+    QSCALE>``) from ``nvcc -Xptxas -v`` output."""
+    found, current = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(r"fwd_kernelILi(\d+)ELi(\d)ELb(\d)ELb(\d)ELb(\d)"
+                          r"ELb(\d)E", m.group(1))
+            current = None
+            if t and "sm90" in m.group(1):
+                d, nc, segs, drop, bias, qs = (int(x) for x in t.groups())
+                flags = "".join(f for f, on in (
+                    ("+seg", segs), ("+drop", drop), ("+bias", bias)) if on)
+                current = (f"d={d} rows={64 * nc}{flags or ' plain'}"
+                           f"{' q*scale first' if qs else ''}")
+                found[current] = (0, 0)
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            found[current] = (found[current][0], int(m.group(1)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found[current] = (int(m.group(1)), found[current][1])
+    return found
+
+
 def phase_build() -> str:
     from apex_tpu_torch.ops import common
 
@@ -340,6 +377,9 @@ def phase_build() -> str:
         log(f"  {name}: {len(regs)} kernels, {min(regs, default=0)}-"
             f"{max(regs, default=0)} registers a thread, {spills} bytes "
             "of spill stores")
+        for inst, (nregs, nspill) in sm90_instances(text).items():
+            log(f"    {name} bf16 forward {inst}: {nregs} registers, "
+                f"{nspill} bytes of spill stores")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -512,6 +552,7 @@ def phase_kernels(dev) -> dict:
     records.update(dropout_kernels(randn))
     records.update(bias_kernels(randn))
     records.update(dbias_kernels(randn))
+    fwd_sm90_kernels(randn, dev)
     return records
 
 
@@ -1599,6 +1640,104 @@ def variant_records(rung, b, heads, s, d, causal, kind, q, k, v, dout, ids,
         rec[f"ms_without_{without}"] = base_ms
         recs[name] = [rec]
     return recs
+
+
+#: the ragged cases of the bf16 forward (attention_fwd_sm90.cuh), each at
+#: d = 64 and 128 and with all eight combinations of segment ids, dropout
+#: and a bias: (rung, b, h, sq, sk, causal); the short rung's window is
+#: 512 tokens, so its cases are the same raggedness below it
+FWD_SM90_CASES = (("short", 2, 2, 500, 500, False),
+                  ("short", 2, 2, 300, 470, True),
+                  ("mid", 2, 2, 1000, 1000, False),
+                  ("mid", 2, 2, 700, 1100, True),
+                  ("flash", 2, 2, 1000, 1000, False),
+                  ("flash", 2, 2, 700, 1100, True))
+#: a query row whose id no key has (it sees no key: out 0, lse ~-1e30)
+FWD_SM90_LONELY_ROW = 3
+
+
+def fwd_sm90_kernels(randn, dev) -> None:
+    """Every bf16 instance of the short, mid and flash forwards (the
+    wgmma/TMA kernel: d = 64 and 128, segment ids x dropout x bias) at
+    ragged shapes, against its plain version on the same inputs and for
+    the same bits on a second call: out within two bf16 ulps, lse within
+    1e-3 where the row sees a key and about -1e30 where it sees none.
+    The ids are blocks of 150 positions, with query row
+    :data:`FWD_SM90_LONELY_ROW` at an id no key has; the bias is per
+    (batch, head) with the rows of :data:`BIAS_MASKED_ROWS` hidden, whose
+    output is the uniform mean of V over the keys they see."""
+    from apex_tpu_torch.ops import attention_flash as fl
+    from apex_tpu_torch.ops import attention_mid as mid
+    from apex_tpu_torch.ops import attention_short as short
+
+    log("[kernels] bf16 forwards (attention_fwd_sm90.cuh): every instance "
+        "at ragged shapes")
+    entries = {"short": short.short_fwd, "mid": mid.mid_fwd}
+    worst, n = {}, 0
+    for rung, b, heads, sq, sk, causal in FWD_SM90_CASES:
+        for d in (64, 128):
+            q = randn(b, heads, sq, d, dtype=torch.bfloat16)
+            k = randn(b, heads, sk, d, dtype=torch.bfloat16)
+            v = randn(b, heads, sk, d, dtype=torch.bfloat16)
+            ki = (torch.arange(sk, device=dev) // 150).int().expand(b, sk)
+            qi = (torch.arange(sq, device=dev) // 150).int().expand(
+                b, sq).contiguous()
+            qi[:, FWD_SM90_LONELY_ROW] = -1
+            ki = ki.contiguous()
+            bias = randn(b, heads, sq, sk)
+            bias[..., list(BIAS_MASKED_ROWS), :] = -1e30
+            for segs in (False, True):
+                for drop in (None, (DROP_RATE, DROP_SEED)):
+                    for biased in (False, True):
+                        ids = (qi, ki) if segs else (None, None)
+                        bb = bias if biased else None
+                        slab = short.bias_slab("bias", bb, b, heads, sq, sk)
+                        kw = dict(q_segment_ids=ids[0], kv_segment_ids=ids[1])
+                        if drop:
+                            kw.update(dropout_rate=drop[0],
+                                      dropout_seed=drop[1])
+                        scale = d ** -0.5
+                        if rung == "flash":
+                            flat = [t.reshape(b * heads, -1, d)
+                                    for t in (q, k, v)]
+                            call = lambda: fl.flash_fwd(
+                                *flat, causal, **kw, heads=heads, bias=bb)
+                            want, want_lse = fl._flash_fwd_plain(
+                                *flat, causal, scale, *ids, heads, drop,
+                                slab)
+                        else:
+                            call = lambda: entries[rung](q, k, v, causal,
+                                                         **kw, bias=bb)
+                            want, want_lse = short._short_fwd_plain(
+                                q, k, v, causal, scale, *ids, drop, slab)
+                        got, got_lse = call()
+                        again, again_lse = call()
+                        name = (f"{rung}_fwd" + short.counter(
+                            ("", "_seg"), segs, drop, slab))
+                        what = (f"bf16 d={d} b={b} h={heads} sq={sq} sk={sk}"
+                                f"{' causal' if causal else ''}")
+                        if not (torch.equal(got, again)
+                                and torch.equal(got_lse, again_lse)):
+                            fail(f"{name} {what}: a second call gave other "
+                                 "bits")
+                        err = max_err(got.view_as(want), want)
+                        tol = tolerance(want)
+                        seen = want_lse > -1e29
+                        lse_err = max_err(got_lse.view_as(want_lse)[seen],
+                                          want_lse[seen])
+                        unseen = got_lse.view_as(want_lse)[~seen]
+                        top = unseen.max().item() if unseen.numel() else -1e30
+                        if not (err <= tol and lse_err <= 1e-3
+                                and top <= -1e29):
+                            fail(f"{name} {what}: out error {err:.3g} "
+                                 f"(tolerance {tol:.3g}), lse error "
+                                 f"{lse_err:.3g} (1e-3), rows that see no "
+                                 f"key: lse up to {top:.3g}")
+                        worst[name] = max(worst.get(name, 0.0), err / tol)
+                        n += 1
+    log(f"  {n} instance cases held, the same bits twice; the worst out "
+        "error a counter, as a share of its tolerance: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(worst.items())))
 
 
 def drop_masks(randn) -> None:
@@ -4224,20 +4363,23 @@ def phase_fmha_varlen(dev) -> dict:
     return counts
 
 
+#: name -> (route, source, the TPU kernel it replaces); the forwards'
+#: records are bf16, whose kernel is attention_fwd_sm90.cuh (the entries'
+#: fp32 instances stay in their .cu files)
 SOURCES = {
     "ln_fwd": ("triton", "apex_tpu_torch/ops/layer_norm.py",
                "apex_tpu/ops/layer_norm.py:66"),
-    "short_fwd": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
+    "short_fwd": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                   "apex_tpu/ops/attention_short.py:149"),
     "paged_decode": ("cuda", "apex_tpu_torch/csrc/attention_decode.cu",
                      "apex_tpu/ops/attention_decode.py:210"),
     "short_bwd": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
                   "apex_tpu/ops/attention_short.py:215"),
-    "mid_fwd": ("cuda", "apex_tpu_torch/csrc/attention_mid.cu",
+    "mid_fwd": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                 "apex_tpu/ops/attention_mid.py:213"),
     "mid_bwd": ("cuda", "apex_tpu_torch/csrc/attention_mid.cu",
                 "apex_tpu/ops/attention_mid.py:308"),
-    "flash_fwd": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
+    "flash_fwd": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                   "apex_tpu/ops/attention.py:213"),
     "flash_bwd_dkv": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
                       "apex_tpu/ops/attention.py:429"),
@@ -4255,15 +4397,15 @@ SOURCES = {
                           "apex_tpu/ops/attention_decode.py:210"),
     "softmax_fwd": ("triton", "apex_tpu_torch/ops/softmax.py",
                     "apex_tpu/ops/softmax.py:47"),
-    "short_fwd_seg": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
+    "short_fwd_seg": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                       "apex_tpu/ops/attention_short.py:149"),
     "short_bwd_seg": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
                       "apex_tpu/ops/attention_short.py:215"),
-    "mid_fwd_seg": ("cuda", "apex_tpu_torch/csrc/attention_mid.cu",
+    "mid_fwd_seg": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                     "apex_tpu/ops/attention_mid.py:213"),
     "mid_bwd_seg": ("cuda", "apex_tpu_torch/csrc/attention_mid.cu",
                     "apex_tpu/ops/attention_mid.py:308"),
-    "flash_fwd_seg": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
+    "flash_fwd_seg": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                       "apex_tpu/ops/attention.py:213"),
     "flash_bwd_dkv_seg": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
                           "apex_tpu/ops/attention.py:429"),
@@ -4272,41 +4414,42 @@ SOURCES = {
     # the hidden dropout replaces XLA code, not a Pallas kernel
     "dropout": ("triton", "apex_tpu_torch/ops/dropout.py",
                 "apex_tpu/models/gpt.py:806"),
-    "short_fwd_drop": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
+    "short_fwd_drop": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                        "apex_tpu/ops/attention_short.py:149"),
     "short_bwd_drop": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
                        "apex_tpu/ops/attention_short.py:215"),
-    "mid_fwd_drop": ("cuda", "apex_tpu_torch/csrc/attention_mid.cu",
+    "mid_fwd_drop": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                      "apex_tpu/ops/attention_mid.py:213"),
     "mid_bwd_drop": ("cuda", "apex_tpu_torch/csrc/attention_mid.cu",
                      "apex_tpu/ops/attention_mid.py:308"),
-    "flash_fwd_drop": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
+    "flash_fwd_drop": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                        "apex_tpu/ops/attention.py:213"),
     "flash_bwd_dkv_drop": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
                            "apex_tpu/ops/attention.py:429"),
     "flash_bwd_dq_drop": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
                           "apex_tpu/ops/attention.py:534"),
-    "short_fwd_seg_drop": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
+    "short_fwd_seg_drop": ("cuda",
+                           "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                            "apex_tpu/ops/attention_short.py:149"),
     "short_bwd_seg_drop": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
                            "apex_tpu/ops/attention_short.py:215"),
     # the additive bias: a runtime operand of the same kernels
-    "short_fwd_bias": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
+    "short_fwd_bias": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                        "apex_tpu/ops/attention_short.py:149"),
     "short_bwd_bias": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
                        "apex_tpu/ops/attention_short.py:215"),
-    "mid_fwd_bias": ("cuda", "apex_tpu_torch/csrc/attention_mid.cu",
+    "mid_fwd_bias": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                      "apex_tpu/ops/attention_mid.py:213"),
     "mid_bwd_bias": ("cuda", "apex_tpu_torch/csrc/attention_mid.cu",
                      "apex_tpu/ops/attention_mid.py:308"),
-    "flash_fwd_bias": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
+    "flash_fwd_bias": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                        "apex_tpu/ops/attention.py:213"),
     "flash_bwd_dkv_bias": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
                            "apex_tpu/ops/attention.py:429"),
     "flash_bwd_dq_bias": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
                           "apex_tpu/ops/attention.py:534"),
     "short_fwd_seg_drop_bias": ("cuda",
-                                "apex_tpu_torch/csrc/attention_short.cu",
+                                "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                                 "apex_tpu/ops/attention_short.py:149"),
     "short_bwd_seg_drop_bias": ("cuda",
                                 "apex_tpu_torch/csrc/attention_short.cu",

@@ -28,26 +28,26 @@
 //      (the JAX wrapper computes rowsum(dO * O) in XLA; folding the lse
 //      cotangent in here turns dz = p * (dp - delta + dlse) into
 //      dz = p * (dp - delta'), one formula for both entries);
-//   2. attn_bwd_dkv_kernel: one block per (batch*head, 64-key tile).  It
-//      walks the query tiles from the causal diagonal down, recomputes
+//   2. a dK/dV kernel: one block per (batch*head, key tile).  It walks the
+//      query tiles from the causal diagonal down, recomputes
 //      s = (q . k) * scale and p = exp(s - lse), and accumulates
 //      dV += p^T dO and dK += (dz * scale)^T Q;
-//   3. attn_bwd_dq_kernel: one block per (batch*head, 64-row query tile).
-//      It walks the key tiles up to the diagonal and accumulates
-//      dQ += (dz * scale) K.
-// Both the forward and the backward scale the product, s = (q . k) *
-// scale, as _short_fwd_kernel (:176) and _short_bwd_kernel (:256) do.
+//   3. a dQ kernel: one block per (batch*head, query tile).  It walks the
+//      key tiles up to the diagonal and accumulates dQ += (dz * scale) K.
+// bf16 inputs run the Hopper kernels of attention_bwd_sm90.cuh
+// (sm90::bwd_dkv_kernel, sm90::bwd_dq_kernel: TMA, a producer warpgroup
+// and consumer warpgroups, wgmma with every tile product in registers,
+// p and dz * scale rounded to bf16 as their operands, where the TPU's
+// default precision rounds them); fp32 inputs run attn_bwd_dkv_kernel and
+// attn_bwd_dq_kernel below.  Both the forward and the backward scale the
+// product, s = (q . k) * scale, as _short_fwd_kernel (:176) and
+// _short_bwd_kernel (:256) do.
 //
-// The fp32 forward and the backward kernels have 4 warps, and each warp
-// owns 16 rows of its block's tile end to end (its slice of every product
-// and its softmax rows); only tile loads are shared, so the warps
-// synchronise twice per tile.
-//  - bf16 (the backward): the products run on the tensor cores through
-//    WMMA (16x16x16 bf16 fragments, fp32 accumulate), with p and dz *
-//    scale rounded to bf16 as their operands, where the TPU's default
-//    precision rounds them.
-//  - fp32: full fp32 FMAs from shared memory (no TF32), as the JAX kernels'
-//    Precision.HIGHEST for fp32 inputs asks.
+// The fp32 kernels have 4 warps, and each warp owns 16 rows of its block's
+// tile end to end (its slice of every product and its softmax rows); only
+// tile loads are shared, so the warps synchronise twice per tile.  They
+// run full fp32 FMAs from shared memory (no TF32), as the JAX kernels'
+// Precision.HIGHEST for fp32 inputs asks.  In both designs:
 //  - masking: causal (key > query), the ragged tail of keys (>= sk) and of
 //    queries (>= sq: padded rows, whose lse is meaningless, are kept out of
 //    dK/dV as in the TPU backward); masked probabilities are exactly zero
@@ -96,13 +96,12 @@
 // s = 1024, d = 128, causal, bf16) the forward does 2 * 2 * d * s(s+1)/2
 // flops per (b*h) over 4 * s * d * 2 bytes, ~256 flop/byte, near the
 // H100's ~295 flop/byte bf16 balance point; the backward does 2.5x the
-// flops over 2x the bytes and is bound by operations.  The backward (WMMA
-// through shared memory, scalar tile loads, one or two blocks per SM) is
-// far from its bound; the forward's wgmma/TMA design is in
-// attention_fwd_sm90.cuh.
+// flops over 2x the bytes and is bound by operations.  The bf16 designs
+// are in attention_fwd_sm90.cuh and attention_bwd_sm90.cuh.
 
 #pragma once
 
+#include "attention_bwd_sm90.cuh"
 #include "attention_fwd_sm90.cuh"
 #include "attention_tiles.cuh"
 
@@ -110,6 +109,12 @@
 // rung's 2; attention_short.cu may set its own before the include.
 #ifndef ATTN_FWD_WARPGROUPS
 #define ATTN_FWD_WARPGROUPS 2
+#endif
+
+// Consumer warpgroups of the bf16 backward's two kernels (64 keys of a
+// dK/dV block or 64 query rows of a dQ block each).
+#ifndef ATTN_BWD_WARPGROUPS
+#define ATTN_BWD_WARPGROUPS 2
 #endif
 
 namespace attn {
@@ -271,55 +276,49 @@ attn_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
   if (lane == 0) delta[row] = acc - (dlse != nullptr ? dlse[row] : 0.0f);
 }
 
-// dK/dV block: 64 keys x D; query tiles of QT rows.  K and V are the
-// left operands (broadcast reads), Q and dO the right ones (odd leading
-// dim in fp32); the (key, query) score tiles are fp32.
-template <typename T, int D>
+// dK/dV block (fp32; bf16 runs sm90::bwd_dkv_kernel): 64 keys x D; query
+// tiles of 32 rows, so that the block fits 227 KB.  K and V are the left
+// operands (broadcast reads), Q and dO the right ones (odd leading dim);
+// the (key, query) score tiles are fp32.
+template <int D>
 struct DkvLayout {
-  static constexpr bool kTC = sizeof(T) == 2;
-  // fp32 query tiles are 32 rows so that the fp32 block fits 227 KB
-  static constexpr int QT = kTC ? 64 : 32;
-  static constexpr int LDK = kTC ? D + 8 : D;
-  static constexpr int LDQ = kTC ? D + 8 : D + 1;
-  static constexpr int LDS = kTC ? QT + 4 : QT;
-  static constexpr int LDP = QT + 8;
-  static constexpr int LDA = kTC ? D + 4 : D;
+  static constexpr int QT = 32;
+  static constexpr int LDK = D;
+  static constexpr int LDQ = D + 1;
+  static constexpr int LDS = QT;
+  static constexpr int LDA = D;
   static constexpr int K_OFF = 0;
-  static constexpr int V_OFF = round_up(K_OFF + kTile * LDK * (int)sizeof(T), 128);
-  static constexpr int Q_OFF = round_up(V_OFF + kTile * LDK * (int)sizeof(T), 128);
-  static constexpr int DO_OFF = round_up(Q_OFF + QT * LDQ * (int)sizeof(T), 128);
-  static constexpr int S_OFF = round_up(DO_OFF + QT * LDQ * (int)sizeof(T), 128);
+  static constexpr int V_OFF = round_up(K_OFF + kTile * LDK * 4, 128);
+  static constexpr int Q_OFF = round_up(V_OFF + kTile * LDK * 4, 128);
+  static constexpr int DO_OFF = round_up(Q_OFF + QT * LDQ * 4, 128);
+  static constexpr int S_OFF = round_up(DO_OFF + QT * LDQ * 4, 128);
   static constexpr int DP_OFF = round_up(S_OFF + kTile * LDS * 4, 128);
-  static constexpr int P_OFF = round_up(DP_OFF + kTile * LDS * 4, 128);
-  static constexpr int Z_OFF = round_up(P_OFF + (kTC ? kTile * LDP * 2 : 0), 128);
-  static constexpr int DK_OFF = round_up(Z_OFF + (kTC ? kTile * LDP * 2 : 0), 128);
+  static constexpr int DK_OFF = round_up(DP_OFF + kTile * LDS * 4, 128);
   static constexpr int DV_OFF = round_up(DK_OFF + kTile * LDA * 4, 128);
   static constexpr int LSE_OFF = round_up(DV_OFF + kTile * LDA * 4, 128);
   static constexpr int DL_OFF = LSE_OFF + QT * 4;
   static constexpr int BYTES = round_up(DL_OFF + QT * 4, 128);
 };
 
-template <typename T, int D, bool SEGS, bool DROP, bool BIAS>
+template <int D, bool SEGS, bool DROP, bool BIAS>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ q_ids,
+attn_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const int* __restrict__ q_ids,
                     const int* __restrict__ kv_ids,
-                    const T* __restrict__ dout,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dk,
-                    T* __restrict__ dv, int heads, int sq, int sk,
+                    const float* __restrict__ delta, float* __restrict__ dk,
+                    float* __restrict__ dv, int heads, int sq, int sk,
                     int causal, float scale, Dropout dr, Bias bias) {
-  using L = DkvLayout<T, D>;
+  using L = DkvLayout<D>;
   constexpr int QT = L::QT;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem + L::K_OFF);
-  T* Vs = reinterpret_cast<T*>(smem + L::V_OFF);
-  T* Qs = reinterpret_cast<T*>(smem + L::Q_OFF);
-  T* dOs = reinterpret_cast<T*>(smem + L::DO_OFF);
+  float* Ks = reinterpret_cast<float*>(smem + L::K_OFF);
+  float* Vs = reinterpret_cast<float*>(smem + L::V_OFF);
+  float* Qs = reinterpret_cast<float*>(smem + L::Q_OFF);
+  float* dOs = reinterpret_cast<float*>(smem + L::DO_OFF);
   float* Ss = reinterpret_cast<float*>(smem + L::S_OFF);
   float* dPs = reinterpret_cast<float*>(smem + L::DP_OFF);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::P_OFF);
-  bf16* Zs = reinterpret_cast<bf16*>(smem + L::Z_OFF);
   float* dKs = reinterpret_cast<float*>(smem + L::DK_OFF);
   float* dVs = reinterpret_cast<float*>(smem + L::DV_OFF);
   float* lse_s = reinterpret_cast<float*>(smem + L::LSE_OFF);
@@ -332,14 +331,14 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row0 = (threadIdx.x / 32) * kRows;
   const long bh = blockIdx.y;
   const int k0 = blockIdx.x * kTile;
-  const T* qb = q + bh * sq * D;
-  const T* dob = dout + bh * sq * D;
+  const float* qb = q + bh * sq * D;
+  const float* dob = dout + bh * sq * D;
   const long brow = SEGS ? bh / heads : 0;
   const unsigned hrow = DROP ? drop_row(dr, bh) : 0u;
   const float* bslab = BIAS ? bias_slab(bias, bh, heads) : nullptr;
 
-  load_tiles<T, D>(Ks, L::LDK, Vs, L::LDK, k + bh * sk * D, v + bh * sk * D,
-                   k0, kTile, sk);
+  load_tiles<float, D>(Ks, L::LDK, Vs, L::LDK, k + bh * sk * D,
+                       v + bh * sk * D, k0, kTile, sk);
   if constexpr (SEGS) load_ids(kid, kv_ids + brow * sk, k0, kTile, sk);
   zero_f(dKs, L::LDA, kTile, D);
   zero_f(dVs, L::LDA, kTile, D);
@@ -348,7 +347,7 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_begin = causal ? (k0 / QT) * QT : 0;
   for (int q0 = q_begin; q0 < sq; q0 += QT) {
     __syncthreads();   // the previous tile's products are done with Q/dO
-    load_tiles<T, D>(Qs, L::LDQ, dOs, L::LDQ, qb, dob, q0, QT, sq);
+    load_tiles<float, D>(Qs, L::LDQ, dOs, L::LDQ, qb, dob, q0, QT, sq);
     if constexpr (SEGS) load_ids(qid, q_ids + brow * sq, q0, QT, sq);
     for (int i = threadIdx.x; i < QT; i += kThreads) {
       const bool in = q0 + i < sq;
@@ -362,17 +361,10 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       load_bias<QT / 32, true>(bv, bslab, sq, sk, k0 + row0, q0, lane);
     }
     // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys
-    if constexpr (L::kTC) {
-      abT_tc<QT, D>(Ks + row0 * L::LDK, L::LDK, Qs, L::LDQ,
-                    Ss + row0 * L::LDS, L::LDS);
-      abT_tc<QT, D>(Vs + row0 * L::LDK, L::LDK, dOs, L::LDQ,
-                    dPs + row0 * L::LDS, L::LDS);
-    } else {
-      abT_fp32<QT, D>(Ks + row0 * L::LDK, L::LDK, Qs, L::LDQ,
-                      Ss + row0 * L::LDS, L::LDS, lane);
-      abT_fp32<QT, D>(Vs + row0 * L::LDK, L::LDK, dOs, L::LDQ,
-                      dPs + row0 * L::LDS, L::LDS, lane);
-    }
+    abT_fp32<QT, D>(Ks + row0 * L::LDK, L::LDK, Qs, L::LDQ,
+                    Ss + row0 * L::LDS, L::LDS, lane);
+    abT_fp32<QT, D>(Vs + row0 * L::LDK, L::LDK, dOs, L::LDQ,
+                    dPs + row0 * L::LDS, L::LDS, lane);
     __syncwarp();
 
     // p = exp(s * scale (+ bias) - lse), dz = p * (dp - delta); lane owns
@@ -401,29 +393,17 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           dp = kept ? dp * dr.inv_keep : 0.0f;
         }
         const float dz = p * (dp - dl_s[c]);
-        if constexpr (L::kTC) {
-          Ps[row * L::LDP + c] = __float2bfloat16(pv);
-          Zs[row * L::LDP + c] = __float2bfloat16(dz * scale);
-        } else {
-          Ss[row * L::LDS + c] = pv;
-          dPs[row * L::LDS + c] = dz * scale;
-        }
+        Ss[row * L::LDS + c] = pv;
+        dPs[row * L::LDS + c] = dz * scale;
       }
     }
     __syncwarp();
 
     // dV += P^T dO and dK += (dz * scale)^T Q for this warp's 16 keys
-    if constexpr (L::kTC) {
-      ab_tc<QT, D>(Ps + row0 * L::LDP, L::LDP, dOs, L::LDQ,
-                   dVs + row0 * L::LDA, L::LDA);
-      ab_tc<QT, D>(Zs + row0 * L::LDP, L::LDP, Qs, L::LDQ,
-                   dKs + row0 * L::LDA, L::LDA);
-    } else {
-      ab_fp32<QT, D>(Ss + row0 * L::LDS, L::LDS, dOs, L::LDQ,
-                     dVs + row0 * L::LDA, L::LDA, lane);
-      ab_fp32<QT, D>(dPs + row0 * L::LDS, L::LDS, Qs, L::LDQ,
-                     dKs + row0 * L::LDA, L::LDA, lane);
-    }
+    ab_fp32<QT, D>(Ss + row0 * L::LDS, L::LDS, dOs, L::LDQ,
+                   dVs + row0 * L::LDA, L::LDA, lane);
+    ab_fp32<QT, D>(dPs + row0 * L::LDS, L::LDS, Qs, L::LDQ,
+                   dKs + row0 * L::LDA, L::LDA, lane);
     __syncwarp();
   }
   // a block with no query tile (causal, keys at or past sq) has run no
@@ -440,30 +420,28 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < D / 32; ++i) {
       const int c = lane + 32 * i;
-      dk[at + c] = from_f<T>(dKs[row * L::LDA + c]);
-      dv[at + c] = from_f<T>(dVs[row * L::LDA + c]);
+      dk[at + c] = dKs[row * L::LDA + c];
+      dv[at + c] = dVs[row * L::LDA + c];
     }
   }
 }
 
-// dQ block: 64 query rows x D; key tiles of 64.  Q and dO are the left
-// operands, K and V the right ones (odd leading dim in fp32).
-template <typename T, int D>
+// dQ block (fp32; bf16 runs sm90::bwd_dq_kernel): 64 query rows x D; key
+// tiles of 64.  Q and dO are the left operands, K and V the right ones
+// (odd leading dim).
+template <int D>
 struct DqLayout {
-  static constexpr bool kTC = sizeof(T) == 2;
-  static constexpr int LDQ = kTC ? D + 8 : D;
-  static constexpr int LDK = kTC ? D + 8 : D + 1;
-  static constexpr int LDS = kTC ? kTile + 4 : kTile;
-  static constexpr int LDP = kTile + 8;
-  static constexpr int LDA = kTC ? D + 4 : D;
+  static constexpr int LDQ = D;
+  static constexpr int LDK = D + 1;
+  static constexpr int LDS = kTile;
+  static constexpr int LDA = D;
   static constexpr int Q_OFF = 0;
-  static constexpr int DO_OFF = round_up(Q_OFF + kTile * LDQ * (int)sizeof(T), 128);
-  static constexpr int K_OFF = round_up(DO_OFF + kTile * LDQ * (int)sizeof(T), 128);
-  static constexpr int V_OFF = round_up(K_OFF + kTile * LDK * (int)sizeof(T), 128);
-  static constexpr int S_OFF = round_up(V_OFF + kTile * LDK * (int)sizeof(T), 128);
+  static constexpr int DO_OFF = round_up(Q_OFF + kTile * LDQ * 4, 128);
+  static constexpr int K_OFF = round_up(DO_OFF + kTile * LDQ * 4, 128);
+  static constexpr int V_OFF = round_up(K_OFF + kTile * LDK * 4, 128);
+  static constexpr int S_OFF = round_up(V_OFF + kTile * LDK * 4, 128);
   static constexpr int DP_OFF = round_up(S_OFF + kTile * LDS * 4, 128);
-  static constexpr int Z_OFF = round_up(DP_OFF + kTile * LDS * 4, 128);
-  static constexpr int DQ_OFF = round_up(Z_OFF + (kTC ? kTile * LDP * 2 : 0), 128);
+  static constexpr int DQ_OFF = round_up(DP_OFF + kTile * LDS * 4, 128);
   static constexpr int LSE_OFF = round_up(DQ_OFF + kTile * LDA * 4, 128);
   static constexpr int DL_OFF = LSE_OFF + kTile * 4;
   static constexpr int BYTES = round_up(DL_OFF + kTile * 4, 128);
@@ -471,25 +449,25 @@ struct DqLayout {
 
 // With DBIAS (only beside BIAS) dbias is the (bh, sq, sk) fp32 gradient of
 // the biased scores, zero-filled by the caller.
-template <typename T, int D, bool SEGS, bool DROP, bool BIAS, bool DBIAS>
+template <int D, bool SEGS, bool DROP, bool BIAS, bool DBIAS>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const int* __restrict__ q_ids,
-                   const int* __restrict__ kv_ids, const T* __restrict__ dout,
+attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const int* __restrict__ q_ids,
+                   const int* __restrict__ kv_ids,
+                   const float* __restrict__ dout,
                    const float* __restrict__ lse,
-                   const float* __restrict__ delta, T* __restrict__ dq,
+                   const float* __restrict__ delta, float* __restrict__ dq,
                    float* __restrict__ dbias, int heads, int sq, int sk,
                    int causal, float scale, Dropout dr, Bias bias) {
   static_assert(BIAS || !DBIAS, "dBias needs a bias");
-  using L = DqLayout<T, D>;
+  using L = DqLayout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + L::Q_OFF);
-  T* dOs = reinterpret_cast<T*>(smem + L::DO_OFF);
-  T* Ks = reinterpret_cast<T*>(smem + L::K_OFF);
-  T* Vs = reinterpret_cast<T*>(smem + L::V_OFF);
+  float* Qs = reinterpret_cast<float*>(smem + L::Q_OFF);
+  float* dOs = reinterpret_cast<float*>(smem + L::DO_OFF);
+  float* Ks = reinterpret_cast<float*>(smem + L::K_OFF);
+  float* Vs = reinterpret_cast<float*>(smem + L::V_OFF);
   float* Ss = reinterpret_cast<float*>(smem + L::S_OFF);
   float* dPs = reinterpret_cast<float*>(smem + L::DP_OFF);
-  bf16* Zs = reinterpret_cast<bf16*>(smem + L::Z_OFF);
   float* dQs = reinterpret_cast<float*>(smem + L::DQ_OFF);
   float* lse_s = reinterpret_cast<float*>(smem + L::LSE_OFF);
   float* dl_s = reinterpret_cast<float*>(smem + L::DL_OFF);
@@ -501,14 +479,14 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row0 = (threadIdx.x / 32) * kRows;
   const long bh = blockIdx.y;
   const int q0 = blockIdx.x * kTile;
-  const T* kb = k + bh * sk * D;
-  const T* vb = v + bh * sk * D;
+  const float* kb = k + bh * sk * D;
+  const float* vb = v + bh * sk * D;
   const long brow = SEGS ? bh / heads : 0;
   const unsigned hrow = DROP ? drop_row(dr, bh) : 0u;
   const float* bslab = BIAS ? bias_slab(bias, bh, heads) : nullptr;
 
-  load_tiles<T, D>(Qs, L::LDQ, dOs, L::LDQ, q + bh * sq * D,
-                   dout + bh * sq * D, q0, kTile, sq);
+  load_tiles<float, D>(Qs, L::LDQ, dOs, L::LDQ, q + bh * sq * D,
+                       dout + bh * sq * D, q0, kTile, sq);
   if constexpr (SEGS) load_ids(qid, q_ids + brow * sq, q0, kTile, sq);
   zero_f(dQs, L::LDA, kTile, D);
   for (int i = threadIdx.x; i < kTile; i += kThreads) {
@@ -520,24 +498,17 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_end = causal ? min(sk, q0 + kTile) : sk;
   for (int k0 = 0; k0 < kv_end; k0 += kTile) {
     __syncthreads();
-    load_tiles<T, D>(Ks, L::LDK, Vs, L::LDK, kb, vb, k0, kTile, sk);
+    load_tiles<float, D>(Ks, L::LDK, Vs, L::LDK, kb, vb, k0, kTile, sk);
     if constexpr (SEGS) load_ids(kid, kv_ids + brow * sk, k0, kTile, sk);
     __syncthreads();
 
     [[maybe_unused]] float bv[kRows][2];
     if constexpr (BIAS) load_bias<2, false>(bv, bslab, sq, sk, q0 + row0, k0, lane);
     // S = Q K^T and dP = dO V^T for this warp's 16 query rows
-    if constexpr (L::kTC) {
-      abT_tc<kTile, D>(Qs + row0 * L::LDQ, L::LDQ, Ks, L::LDK,
-                       Ss + row0 * L::LDS, L::LDS);
-      abT_tc<kTile, D>(dOs + row0 * L::LDQ, L::LDQ, Vs, L::LDK,
-                       dPs + row0 * L::LDS, L::LDS);
-    } else {
-      abT_fp32<kTile, D>(Qs + row0 * L::LDQ, L::LDQ, Ks, L::LDK,
-                         Ss + row0 * L::LDS, L::LDS, lane);
-      abT_fp32<kTile, D>(dOs + row0 * L::LDQ, L::LDQ, Vs, L::LDK,
-                         dPs + row0 * L::LDS, L::LDS, lane);
-    }
+    abT_fp32<kTile, D>(Qs + row0 * L::LDQ, L::LDQ, Ks, L::LDK,
+                       Ss + row0 * L::LDS, L::LDS, lane);
+    abT_fp32<kTile, D>(dOs + row0 * L::LDQ, L::LDQ, Vs, L::LDK,
+                       dPs + row0 * L::LDS, L::LDS, lane);
     __syncwarp();
 
 #pragma unroll
@@ -560,23 +531,14 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
         const float dz = p * (dp - dl_s[row]);
         store_dbias<DBIAS>(dbias, bh, sq, sk, qi, kj, dz);
-        if constexpr (L::kTC) {
-          Zs[row * L::LDP + c] = __float2bfloat16(dz * scale);
-        } else {
-          Ss[row * L::LDS + c] = dz * scale;
-        }
+        Ss[row * L::LDS + c] = dz * scale;
       }
     }
     __syncwarp();
 
     // dQ += (dz * scale) K
-    if constexpr (L::kTC) {
-      ab_tc<kTile, D>(Zs + row0 * L::LDP, L::LDP, Ks, L::LDK,
-                      dQs + row0 * L::LDA, L::LDA);
-    } else {
-      ab_fp32<kTile, D>(Ss + row0 * L::LDS, L::LDS, Ks, L::LDK,
-                        dQs + row0 * L::LDA, L::LDA, lane);
-    }
+    ab_fp32<kTile, D>(Ss + row0 * L::LDS, L::LDS, Ks, L::LDK,
+                      dQs + row0 * L::LDA, L::LDA, lane);
     __syncwarp();
   }
 
@@ -588,7 +550,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long at = (bh * sq + qi) * D;
 #pragma unroll
     for (int i = 0; i < D / 32; ++i) {
-      dq[at + lane + 32 * i] = from_f<T>(dQs[row * L::LDA + lane + 32 * i]);
+      dq[at + lane + 32 * i] = dQs[row * L::LDA + lane + 32 * i];
     }
   }
 }
@@ -624,6 +586,9 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   }
 }
 
+// The delta pass, then bf16: the dK/dV and dQ kernels of
+// attention_bwd_sm90.cuh with ATTN_BWD_WARPGROUPS consumer warpgroups (64
+// keys or query rows each); fp32: attn_bwd_dkv_kernel, attn_bwd_dq_kernel.
 template <typename T, int D, bool SEGS, bool DROP, bool BIAS, bool DBIAS>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const int* q_ids, const int* kv_ids, const void* out,
@@ -632,39 +597,48 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        float* dbias, int bh, int heads, int sq, int sk,
                        int causal, float scale, Dropout dr, Bias bias,
                        cudaStream_t stream) {
-  using KV = DkvLayout<T, D>;
-  using QL = DqLayout<T, D>;
-  constexpr int kKvBytes =
-      KV::BYTES + id_bytes<SEGS>(kTile) + id_bytes<SEGS>(KV::QT);
-  constexpr int kQBytes = QL::BYTES + 2 * id_bytes<SEGS>(kTile);
-  static bool opted_kv = false, opted_q = false;
-  cudaError_t err =
-      opt_in(attn_bwd_dkv_kernel<T, D, SEGS, DROP, BIAS>, kKvBytes, &opted_kv);
-  if (err != cudaSuccess) return err;
-  err = opt_in(attn_bwd_dq_kernel<T, D, SEGS, DROP, BIAS, DBIAS>, kQBytes,
-               &opted_q);
-  if (err != cudaSuccess) return err;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
   const long rows = (long)bh * sq;
   attn_delta_kernel<T, D><<<(unsigned)((rows + kWarps - 1) / kWarps),
                             kThreads, 0, stream>>>(
-      static_cast<const T*>(out), dot, dlse, delta, rows);
-  err = cudaGetLastError();
+      static_cast<const T*>(out), static_cast<const T*>(dout), dlse, delta,
+      rows);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_dkv_kernel<T, D, SEGS, DROP, BIAS>
-      <<<dim3((sk + kTile - 1) / kTile, bh), kThreads, kKvBytes, stream>>>(
-          qt, kt, vt, q_ids, kv_ids, dot, lse, delta, static_cast<T*>(dk),
-          static_cast<T*>(dv), heads, sq, sk, causal, scale, dr, bias);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  attn_bwd_dq_kernel<T, D, SEGS, DROP, BIAS, DBIAS>
-      <<<dim3((sq + kTile - 1) / kTile, bh), kThreads, kQBytes, stream>>>(
-          qt, kt, vt, q_ids, kv_ids, dot, lse, delta, static_cast<T*>(dq),
-          dbias, heads, sq, sk, causal, scale, dr, bias);
-  return cudaGetLastError();
+  if constexpr (sizeof(T) == 2) {
+    return sm90::launch_bwd<D, ATTN_BWD_WARPGROUPS, SEGS, DROP, BIAS, DBIAS>(
+        q, k, v, dout, q_ids, kv_ids, lse, delta, dq, dk, dv, dbias, bh,
+        heads, sq, sk, causal, scale, dr, bias, stream);
+  } else {
+    using KV = DkvLayout<D>;
+    using QL = DqLayout<D>;
+    constexpr int kKvBytes =
+        KV::BYTES + id_bytes<SEGS>(kTile) + id_bytes<SEGS>(KV::QT);
+    constexpr int kQBytes = QL::BYTES + 2 * id_bytes<SEGS>(kTile);
+    static bool opted_kv = false, opted_q = false;
+    err = opt_in(attn_bwd_dkv_kernel<D, SEGS, DROP, BIAS>, kKvBytes,
+                 &opted_kv);
+    if (err != cudaSuccess) return err;
+    err = opt_in(attn_bwd_dq_kernel<D, SEGS, DROP, BIAS, DBIAS>, kQBytes,
+                 &opted_q);
+    if (err != cudaSuccess) return err;
+    const float* qt = static_cast<const float*>(q);
+    const float* kt = static_cast<const float*>(k);
+    const float* vt = static_cast<const float*>(v);
+    const float* dot = static_cast<const float*>(dout);
+    attn_bwd_dkv_kernel<D, SEGS, DROP, BIAS>
+        <<<dim3((sk + kTile - 1) / kTile, bh), kThreads, kKvBytes, stream>>>(
+            qt, kt, vt, q_ids, kv_ids, dot, lse, delta,
+            static_cast<float*>(dk), static_cast<float*>(dv), heads, sq, sk,
+            causal, scale, dr, bias);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    attn_bwd_dq_kernel<D, SEGS, DROP, BIAS, DBIAS>
+        <<<dim3((sq + kTile - 1) / kTile, bh), kThreads, kQBytes, stream>>>(
+            qt, kt, vt, q_ids, kv_ids, dot, lse, delta,
+            static_cast<float*>(dq), dbias, heads, sq, sk, causal, scale, dr,
+            bias);
+    return cudaGetLastError();
+  }
 }
 
 // dtype: 0 = fp32, 1 = bf16; head dims 64 and 128.  q_ids/kv_ids: both

@@ -41,6 +41,12 @@
 // 132 SMs; 64-row tiles ran faster there and at BERT-large's b = 16,
 // h = 16, d = 64 (python -m apex_tpu_torch.tools.fwd_rows, PERF.md).
 #define ATTN_FWD_WARPGROUPS 1
+// The bf16 backward's blocks: one consumer warpgroup (64 keys of a dK/dV
+// block, 64 query rows of a dQ block).  At BERT-large's b = 16, h = 16,
+// d = 64 they ran 0.1116 / 0.0906 ms against 0.1228 / 0.0964 with two, and
+// within 5% of two at b = 8, h = 8, s = 512, d = 128 (python -m
+// apex_tpu_torch.tools.bwd_rows, PERF.md).
+#define ATTN_BWD_WARPGROUPS 1
 
 #include "attention_common.cuh"
 

@@ -15,9 +15,16 @@ short and mid backward and the flash dQ at the same shapes (the bias
 instances of the kernels that have a dBias instance beside them); then the
 three forwards' variant instances at the same shapes: with segment ids
 (blocks of 150 positions), with dropout 0.1, with the per-batch bias, and
-with all three.  Device ms per call from a CUDA graph of 50 launches (10
-for the flash rung) after a warm-up.  One line per tree, then the card's
-name and power limit.
+with all three; last, the short and mid backwards' variant instances at
+the shapes of PERF.md's variants table: segment ids at h=16 d=64, not
+causal (BERT's padding on the short rung at b=16 s=512, packed documents
+on the mid rung at b=8 s=1024, ``chip_smoke.segment_ids``), dropout 0.1
+at h=8 d=128 causal (b=8, s=512 and 1024), and a trained bias, the entry
+with ``bias_grad=True`` (its zero-fill and fold included), causal: a (1,
+h, s, s) bias at b=32 h=16 s=256 d=64 (short) and a shared (s, s) one at
+b=8 h=8 s=1024 d=128 (mid).  Device ms per call from a CUDA graph of 50
+launches (10 for the flash rung) after a warm-up.  One line per tree, then
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -109,6 +116,37 @@ flash_fwd = lambda kw: fl.flash_fwd(q, k, v, causal=True, heads=8, **kw)
 times = [f"+{tag} {device_ms(lambda: flash_fwd(kw), 10):.4f}"
          for tag, kw in variants(2, 4096)]
 row.append(f"flash fwd {' '.join(times)} ms")
+
+import chip_smoke
+
+
+def randn(*shape):
+    return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+
+for name, b, s, kind, fwd, bwd in (
+        ("short", 16, 512, "bert", short.short_fwd, short.short_bwd),
+        ("mid", 8, 1024, "docs", mid.mid_fwd, mid.mid_bwd)):
+    q, k, v, do = (randn(b, 16, s, 64) for _ in range(4))
+    qi, ki = chip_smoke.segment_ids(kind, b, s, dev)
+    kw = dict(q_segment_ids=qi, kv_segment_ids=ki)
+    out, lse = fwd(q, k, v, **kw)
+    seg = device_ms(lambda: bwd(q, k, v, out, do, lse, **kw))
+    b, h, d = 8, 8, 128
+    s = 512 if name == "short" else 1024
+    q, k, v, do = (randn(b, h, s, d) for _ in range(4))
+    kw = dict(dropout_rate=0.1, dropout_seed=7)
+    out, lse = fwd(q, k, v, causal=True, **kw)
+    drop = device_ms(lambda: bwd(q, k, v, out, do, lse, causal=True, **kw))
+    b, h, s, d, lead = ((32, 16, 256, 64, (1, 16)) if name == "short"
+                        else (8, 8, 1024, 128, ()))
+    q, k, v, do = (randn(b, h, s, d) for _ in range(4))
+    bias = torch.randn(*lead, s, s, generator=gen, device=dev)
+    out, lse = fwd(q, k, v, causal=True, bias=bias)
+    dbias = device_ms(lambda: bwd(q, k, v, out, do, lse, causal=True,
+                                  bias=bias, bias_grad=True))
+    row.append(f"{name} bwd +seg {seg:.4f} +drop {drop:.4f} +dbias "
+               f"{dbias:.4f} ms")
 print("; ".join(row), flush=True)
 """
 

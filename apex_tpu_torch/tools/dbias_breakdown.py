@@ -33,6 +33,10 @@ _SPILL = re.compile(r"(\d+) bytes spill stores")
 # a bf16 dQ instance's template arguments: <bf16, D, SEGS, DROP, BIAS, DBIAS>
 _DQ = re.compile(r"(attn_bwd_dq_kernel|flash_bwd_dq_kernel)"
                  r"I13__nv_bfloat16Li(\d+)E" + r"Lb([01])E" * 4)
+# the Hopper dQ kernel of attention_bwd_sm90.cuh (bf16 only): <D, NC, SEGS,
+# DROP, BIAS, DBIAS>
+_DQ_SM90 = re.compile(r"sm90\w*?(bwd_dq_kernel)ILi(\d+)ELi\d+E"
+                      + r"Lb([01])E" * 4)
 
 
 def dq_registers(logs: dict) -> list:
@@ -44,7 +48,9 @@ def dq_registers(logs: dict) -> list:
         for line in text.splitlines():
             m = _ENTRY.search(line)
             if m:
-                entry, regs, spill = _DQ.search(m.group(1)), None, None
+                entry = _DQ.search(m.group(1)) or _DQ_SM90.search(
+                    m.group(1))
+                regs, spill = None, None
             elif entry is not None:
                 m, n = _REGS.search(line), _SPILL.search(line)
                 regs = int(m.group(1)) if m else regs

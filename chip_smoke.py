@@ -38,8 +38,15 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
              ids x dropout x bias) at ragged shapes (sq = sk = 1000,
              causal 700 x 1100; 500 and 300 x 470 on the short rung)
              with a row that sees no key and rows the bias hides,
-             against the plain versions and for the same bits twice.
-             Phase 1 prints each such instance's registers and spills.
+             against the plain versions and for the same bits twice;
+             then every bf16 instance of the short and mid backwards
+             (the wgmma/TMA kernels of attention_bwd_sm90.cuh, d=64 and
+             128, ids x dropout x bias, and the dBias instances) at the
+             short and mid ones of those shapes, with a real lse
+             cotangent on the mid rung, fed the plain forward's out and
+             lse: dq, dk, dv within two bf16 ulps of the plain backward,
+             dBias within its band, the same bits twice.  Phase 1 prints
+             each such instance's registers and spills.
 3. parity  — the flagship GPT's width at 2 layers, fp32 compute: the
              paged greedy tokens of ``ContinuousBatcher`` (6 ragged
              requests, 2 slots, 16 new tokens) must equal the port's
@@ -331,24 +338,44 @@ def measure(name, shape, err, kernel, plain, library, *, nbytes, ops,
 
 
 # ---------------------------------------------------------------- phase 1
+#: the Hopper kernels' template arguments in a mangled name: the forward
+#: (attention_fwd_sm90.cuh) <D, NC, SEGS, DROP, BIAS, QSCALE>, the
+#: backward's (attention_bwd_sm90.cuh) dK/dV <D, NC, SEGS, DROP, BIAS> and
+#: dQ <D, NC, SEGS, DROP, BIAS, DBIAS>
+_SM90_KERNELS = (
+    ("bf16 forward",
+     re.compile(r"fwd_kernelILi(\d+)ELi(\d)E" + r"Lb(\d)E" * 4),
+     ("+seg", "+drop", "+bias", " q*scale first"), "rows"),
+    ("bf16 dK/dV",
+     re.compile(r"bwd_dkv_kernelILi(\d+)ELi(\d)E" + r"Lb(\d)E" * 3),
+     ("+seg", "+drop", "+bias"), "keys"),
+    ("bf16 dQ",
+     re.compile(r"bwd_dq_kernelILi(\d+)ELi(\d)E" + r"Lb(\d)E" * 4),
+     ("+seg", "+drop", "+bias", "+dbias"), "rows"),
+)
+
+
 def sm90_instances(text: str) -> dict:
-    """``{instance: (registers, spill-store bytes)}`` of the bf16 forward
-    (``attention_fwd_sm90.cuh``'s ``fwd_kernel<D, NC, SEGS, DROP, BIAS,
-    QSCALE>``) from ``nvcc -Xptxas -v`` output."""
+    """``{instance: (registers, spill-store bytes)}`` of the Hopper
+    kernels (the bf16 forward's ``fwd_kernel<D, NC, SEGS, DROP, BIAS,
+    QSCALE>``, the bf16 backward's ``bwd_dkv_kernel<D, NC, SEGS, DROP,
+    BIAS>`` and ``bwd_dq_kernel<D, NC, SEGS, DROP, BIAS, DBIAS>``) from
+    ``nvcc -Xptxas -v`` output."""
     found, current = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r"fwd_kernelILi(\d+)ELi(\d)ELb(\d)ELb(\d)ELb(\d)"
-                          r"ELb(\d)E", m.group(1))
             current = None
-            if t and "sm90" in m.group(1):
-                d, nc, segs, drop, bias, qs = (int(x) for x in t.groups())
-                flags = "".join(f for f, on in (
-                    ("+seg", segs), ("+drop", drop), ("+bias", bias)) if on)
-                current = (f"d={d} rows={64 * nc}{flags or ' plain'}"
-                           f"{' q*scale first' if qs else ''}")
+            for kind, pattern, names, tile in _SM90_KERNELS:
+                t = pattern.search(m.group(1))
+                if not (t and "sm90" in m.group(1)):
+                    continue
+                d, nc, *on = (int(x) for x in t.groups())
+                flags = "".join(f for f, x in zip(names, on) if x)
+                plain = "" if any(on[:3]) else " plain"
+                current = f"{kind} d={d} {tile}={64 * nc}{plain}{flags}"
                 found[current] = (0, 0)
+                break
             continue
         if current is None:
             continue
@@ -378,7 +405,7 @@ def phase_build() -> str:
             f"{max(regs, default=0)} registers a thread, {spills} bytes "
             "of spill stores")
         for inst, (nregs, nspill) in sm90_instances(text).items():
-            log(f"    {name} bf16 forward {inst}: {nregs} registers, "
+            log(f"    {name} {inst}: {nregs} registers, "
                 f"{nspill} bytes of spill stores")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -553,6 +580,7 @@ def phase_kernels(dev) -> dict:
     records.update(bias_kernels(randn))
     records.update(dbias_kernels(randn))
     fwd_sm90_kernels(randn, dev)
+    bwd_sm90_kernels(randn, dev)
     return records
 
 
@@ -927,8 +955,11 @@ def flash_kernels(randn) -> dict:
                 torch.autograd.grad(o, (qg, kg, vg), do4)
 
             fb_ms = profiled_ms(sdpa_fwd_bwd)
+            f_ms = profiled_ms(lambda: F.scaled_dot_product_attention(
+                qg, kg, vg, is_causal=True))
             log(f"  SDPA forward+backward through autograd {shape}: "
-                f"{fb_ms:.4f} ms of device time (profiler)")
+                f"{fb_ms:.4f} ms of device time (profiler), the forward "
+                f"alone {f_ms:.4f}, so the backward {fb_ms - f_ms:.4f}")
             records["flash_fwd"] = [measure(
                 "flash_fwd", shape, fwd_err,
                 lambda: fl.flash_fwd(q, k, v, causal=True),
@@ -953,9 +984,11 @@ def flash_kernels(randn) -> dict:
                               ops=2.0 * n_prod * d * pairs, dtype=dtype,
                               plain_iters=10)
                 rec["library_ms"] = fb_ms
+                rec["library_bwd_ms"] = fb_ms - f_ms
                 log(f"  {name}: library call is SDPA forward+backward "
                     f"({fb_ms:.4f} ms), which includes a forward and the "
-                    "other backward kernel's work")
+                    "other backward kernel's work; its backward alone "
+                    f"(library_bwd_ms) {fb_ms - f_ms:.4f} ms")
                 records[name] = [rec]
 
     # one reading at the JAX bench's probe shape
@@ -1049,7 +1082,9 @@ def attention_train_kernels(randn) -> dict:
     ragged s=640 (the latter with a real lse cotangent).  The backward
     kernels get the plain forward's ``out``/``lse``, so each is held alone.
     Times at bf16 for s=512 (short) and s=1024 (mid); the library calls
-    are SDPA forward and SDPA forward+backward through autograd."""
+    are SDPA forward and SDPA forward+backward through autograd, and for
+    a backward also SDPA's backward alone (``library_bwd_ms``: the
+    profiled forward+backward less a profiled forward in the same run)."""
     from apex_tpu_torch.ops import attention_mid as mid
     from apex_tpu_torch.ops import attention_short as short
     import torch.nn.functional as F
@@ -1098,8 +1133,11 @@ def attention_train_kernels(randn) -> dict:
                 torch.autograd.grad(o, (qg, kg, vg), dout)
 
             fb_ms = profiled_ms(sdpa_fwd_bwd)
+            f_ms = profiled_ms(lambda: F.scaled_dot_product_attention(
+                qg, kg, vg, is_causal=True))
             log(f"  SDPA forward+backward through autograd {shape}: "
-                f"{fb_ms:.4f} ms of device time (profiler)")
+                f"{fb_ms:.4f} ms of device time (profiler), the forward "
+                f"alone {f_ms:.4f}, so the backward {fb_ms - f_ms:.4f}")
             if kind == "mid":
                 records["mid_fwd"] = [measure(
                     "mid_fwd", shape, fwd_err,
@@ -1117,8 +1155,10 @@ def attention_train_kernels(randn) -> dict:
                 None, nbytes=8 * numel + b * heads * s * 4,
                 ops=10.0 * d * pairs, dtype=dtype)
             rec["library_ms"] = fb_ms
+            rec["library_bwd_ms"] = fb_ms - f_ms
             log(f"  {name}: library call is SDPA forward+backward "
-                f"({fb_ms:.4f} ms), which includes a forward")
+                f"({fb_ms:.4f} ms), which includes a forward; its backward "
+                f"alone (library_bwd_ms) {fb_ms - f_ms:.4f} ms")
             records[name] = [rec]
     crossover(randn)
     return records
@@ -1738,6 +1778,102 @@ def fwd_sm90_kernels(randn, dev) -> None:
     log(f"  {n} instance cases held, the same bits twice; the worst out "
         "error a counter, as a share of its tolerance: " + ", ".join(
             f"{k} {v:.3f}" for k, v in sorted(worst.items())))
+
+
+#: the ragged cases of the bf16 backward (attention_bwd_sm90.cuh): the
+#: forward's short and mid cases, and one a rung whose sq is no multiple
+#: of 4 (a (bh, sq) row of lse then starts off a 16-byte boundary) and sk
+#: odd (no bias or dBias row is 8-byte aligned); the mid ones take a real
+#: lse cotangent
+BWD_SM90_CASES = tuple(c for c in FWD_SM90_CASES if c[0] != "flash") + (
+    ("short", 2, 2, 250, 331, True), ("mid", 2, 2, 777, 1001, False))
+
+
+def bwd_sm90_kernels(randn, dev) -> None:
+    """Every bf16 instance of the short and mid backwards (the wgmma/TMA
+    kernels of attention_bwd_sm90.cuh: d = 64 and 128, segment ids x
+    dropout x bias, and beside each bias the dQ kernel's dBias instance)
+    at :data:`BWD_SM90_CASES`, fed the plain forward's ``out`` and
+    ``lse`` and held against ``_short_bwd_plain`` on the same inputs and
+    for the same bits on a second call: dq, dk and dv within two bf16 ulps
+    of their largest magnitude (:func:`tolerance`, as every backward check
+    of phase 2), a dBias element by element within :func:`dbias_band`.
+    The ids, the lonely query row (:data:`FWD_SM90_LONELY_ROW`, which sees
+    no key) and the bias with its hidden rows are those of
+    :func:`fwd_sm90_kernels`; the mid cases take a real ``dlse``."""
+    from apex_tpu_torch.ops import attention_mid as mid
+    from apex_tpu_torch.ops import attention_short as short
+
+    log("[kernels] bf16 backwards (attention_bwd_sm90.cuh): every instance "
+        "at ragged shapes")
+    entries = {"short": short.short_bwd, "mid": mid.mid_bwd}
+    worst, band, n = {}, 0.0, 0
+    for rung, b, heads, sq, sk, causal in BWD_SM90_CASES:
+        for d in (64, 128):
+            q, dout = (randn(b, heads, sq, d, dtype=torch.bfloat16)
+                       for _ in range(2))
+            k, v = (randn(b, heads, sk, d, dtype=torch.bfloat16)
+                    for _ in range(2))
+            ki = (torch.arange(sk, device=dev) // 150).int().expand(
+                b, sk).contiguous()
+            qi = (torch.arange(sq, device=dev) // 150).int().expand(
+                b, sq).contiguous()
+            qi[:, FWD_SM90_LONELY_ROW] = -1
+            bias = randn(b, heads, sq, sk)
+            bias[..., list(BIAS_MASKED_ROWS), :] = -1e30
+            dlse = randn(b, heads, sq) if rung == "mid" else None
+            scale = d ** -0.5
+            for segs in (False, True):
+                for drop in (None, (DROP_RATE, DROP_SEED)):
+                    for biased in (False, True):
+                        ids = (qi, ki) if segs else (None, None)
+                        bb = bias if biased else None
+                        slab = short.bias_slab("bias", bb, b, heads, sq, sk)
+                        out, lse = short._short_fwd_plain(
+                            q, k, v, causal, scale, *ids, drop, slab)
+                        kw = dict(q_segment_ids=ids[0], kv_segment_ids=ids[1],
+                                  bias=bb)
+                        if drop:
+                            kw.update(dropout_rate=drop[0],
+                                      dropout_seed=drop[1])
+                        for grad in (False, True) if biased else (False,):
+                            call = lambda: entries[rung](
+                                q, k, v, out, dout, lse, dlse, causal, **kw,
+                                bias_grad=grad)
+                            got, again = call(), call()
+                            want = short._short_bwd_plain(
+                                q, k, v, out, dout, lse, dlse, causal, scale,
+                                *ids, drop, slab, grad)
+                            if grad:
+                                want = want[:3] + (short.fold_bias_grad(
+                                    want[3], bias.shape, bias.dtype),)
+                            name = f"{rung}_bwd" + short.counter(
+                                ("", "_seg"), segs, drop, slab, grad)
+                            what = (f"bf16 d={d} b={b} h={heads} sq={sq} "
+                                    f"sk={sk}{' causal' if causal else ''}"
+                                    f"{' dlse' if dlse is not None else ''}")
+                            if not all(torch.equal(g, a)
+                                       for g, a in zip(got, again)):
+                                fail(f"{name} {what}: a second call gave "
+                                     "other bits")
+                            for label, g, w in zip(("dq", "dk", "dv"), got,
+                                                   want):
+                                err, tol = max_err(g, w), tolerance(w)
+                                if not err <= tol:
+                                    fail(f"{name} {what} {label}: max |kernel"
+                                         f" - plain| = {err:.3g} > tolerance "
+                                         f"{tol:.3g}")
+                                worst[name] = max(worst.get(name, 0.0),
+                                                  err / tol)
+                            if grad:
+                                band = max(band, dbias_check(
+                                    f"{name} {what}", got[3], want[3])[1])
+                            n += 1
+            del q, k, v, dout, bias
+    log(f"  {n} instance cases held, the same bits twice; the worst dq/dk/dv"
+        " error a counter, as a share of its tolerance: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(worst.items()))
+        + f"; dBias at most {band:.3f} of its band")
 
 
 def drop_masks(randn) -> None:
@@ -4168,14 +4304,16 @@ def phase_bert_parity(dev) -> dict:
 
 def attention_share(prof) -> str:
     """The device time of one profiled run by kind of kernel: the
-    attention kernels (``attn_``/``flash_`` entries of the CUDA
-    sources), layer norm, matrix products (cuBLAS's ``nvjet``/``sm90``
-    and CUTLASS kernels) and the rest (elementwise, copies, reductions)."""
+    attention kernels (``attn_``/``flash_`` entries of the CUDA sources
+    and the Hopper kernels of the ``attn::sm90`` namespace, whose names
+    carry neither), layer norm, matrix products (cuBLAS's
+    ``nvjet``/``sm90`` and CUTLASS kernels) and the rest (elementwise,
+    copies, reductions)."""
     kinds = {"attention": 0.0, "layer norm": 0.0, "matmul": 0.0,
              "other": 0.0}
     for t, _, key in device_rows(prof):
         k = key.lower()
-        if "attn_" in k or "flash_" in k:
+        if "attn_" in k or "attn::" in k or "flash_" in k:
             kinds["attention"] += t
         elif "ln_fwd" in k or "layer_norm" in k:
             kinds["layer norm"] += t
@@ -4373,11 +4511,11 @@ SOURCES = {
                   "apex_tpu/ops/attention_short.py:149"),
     "paged_decode": ("cuda", "apex_tpu_torch/csrc/attention_decode.cu",
                      "apex_tpu/ops/attention_decode.py:210"),
-    "short_bwd": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
+    "short_bwd": ("cuda", "apex_tpu_torch/csrc/attention_bwd_sm90.cuh",
                   "apex_tpu/ops/attention_short.py:215"),
     "mid_fwd": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                 "apex_tpu/ops/attention_mid.py:213"),
-    "mid_bwd": ("cuda", "apex_tpu_torch/csrc/attention_mid.cu",
+    "mid_bwd": ("cuda", "apex_tpu_torch/csrc/attention_bwd_sm90.cuh",
                 "apex_tpu/ops/attention_mid.py:308"),
     "flash_fwd": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                   "apex_tpu/ops/attention.py:213"),
@@ -4399,11 +4537,11 @@ SOURCES = {
                     "apex_tpu/ops/softmax.py:47"),
     "short_fwd_seg": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                       "apex_tpu/ops/attention_short.py:149"),
-    "short_bwd_seg": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
+    "short_bwd_seg": ("cuda", "apex_tpu_torch/csrc/attention_bwd_sm90.cuh",
                       "apex_tpu/ops/attention_short.py:215"),
     "mid_fwd_seg": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                     "apex_tpu/ops/attention_mid.py:213"),
-    "mid_bwd_seg": ("cuda", "apex_tpu_torch/csrc/attention_mid.cu",
+    "mid_bwd_seg": ("cuda", "apex_tpu_torch/csrc/attention_bwd_sm90.cuh",
                     "apex_tpu/ops/attention_mid.py:308"),
     "flash_fwd_seg": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                       "apex_tpu/ops/attention.py:213"),
@@ -4416,11 +4554,11 @@ SOURCES = {
                 "apex_tpu/models/gpt.py:806"),
     "short_fwd_drop": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                        "apex_tpu/ops/attention_short.py:149"),
-    "short_bwd_drop": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
+    "short_bwd_drop": ("cuda", "apex_tpu_torch/csrc/attention_bwd_sm90.cuh",
                        "apex_tpu/ops/attention_short.py:215"),
     "mid_fwd_drop": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                      "apex_tpu/ops/attention_mid.py:213"),
-    "mid_bwd_drop": ("cuda", "apex_tpu_torch/csrc/attention_mid.cu",
+    "mid_bwd_drop": ("cuda", "apex_tpu_torch/csrc/attention_bwd_sm90.cuh",
                      "apex_tpu/ops/attention_mid.py:308"),
     "flash_fwd_drop": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                        "apex_tpu/ops/attention.py:213"),
@@ -4431,16 +4569,17 @@ SOURCES = {
     "short_fwd_seg_drop": ("cuda",
                            "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                            "apex_tpu/ops/attention_short.py:149"),
-    "short_bwd_seg_drop": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
+    "short_bwd_seg_drop": ("cuda",
+                           "apex_tpu_torch/csrc/attention_bwd_sm90.cuh",
                            "apex_tpu/ops/attention_short.py:215"),
     # the additive bias: a runtime operand of the same kernels
     "short_fwd_bias": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                        "apex_tpu/ops/attention_short.py:149"),
-    "short_bwd_bias": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
+    "short_bwd_bias": ("cuda", "apex_tpu_torch/csrc/attention_bwd_sm90.cuh",
                        "apex_tpu/ops/attention_short.py:215"),
     "mid_fwd_bias": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                      "apex_tpu/ops/attention_mid.py:213"),
-    "mid_bwd_bias": ("cuda", "apex_tpu_torch/csrc/attention_mid.cu",
+    "mid_bwd_bias": ("cuda", "apex_tpu_torch/csrc/attention_bwd_sm90.cuh",
                      "apex_tpu/ops/attention_mid.py:308"),
     "flash_fwd_bias": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                        "apex_tpu/ops/attention.py:213"),
@@ -4452,15 +4591,15 @@ SOURCES = {
                                 "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                                 "apex_tpu/ops/attention_short.py:149"),
     "short_bwd_seg_drop_bias": ("cuda",
-                                "apex_tpu_torch/csrc/attention_short.cu",
+                                "apex_tpu_torch/csrc/attention_bwd_sm90.cuh",
                                 "apex_tpu/ops/attention_short.py:215"),
     # dBias: the DBIAS instances of the short/mid and flash dQ kernels
-    "short_bwd_dbias": ("cuda", "apex_tpu_torch/csrc/attention_short.cu",
+    "short_bwd_dbias": ("cuda", "apex_tpu_torch/csrc/attention_bwd_sm90.cuh",
                         "apex_tpu/ops/attention_short.py:215"),
     "short_bwd_seg_drop_dbias": ("cuda",
-                                 "apex_tpu_torch/csrc/attention_short.cu",
+                                 "apex_tpu_torch/csrc/attention_bwd_sm90.cuh",
                                  "apex_tpu/ops/attention_short.py:215"),
-    "mid_bwd_dbias": ("cuda", "apex_tpu_torch/csrc/attention_mid.cu",
+    "mid_bwd_dbias": ("cuda", "apex_tpu_torch/csrc/attention_bwd_sm90.cuh",
                       "apex_tpu/ops/attention_mid.py:308"),
     "flash_bwd_dq_dbias": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
                            "apex_tpu/ops/attention.py:534"),

@@ -384,3 +384,27 @@ def test_breakdown_tool_reads_the_dq_instances_registers():
         ("attention_mid", "attn_bwd_dq_kernel", 128, "BIAS", 128, 0),
         ("attention_mid", "attn_bwd_dq_kernel", 128, "SEGS+DROP+BIAS+DBIAS",
          255, 8)]
+
+
+def test_breakdown_tool_reads_the_hopper_dq_instances():
+    """The short/mid bf16 dQ kernel is ``attn::sm90::bwd_dq_kernel<D, NC,
+    SEGS, DROP, BIAS, DBIAS>`` (``csrc/attention_bwd_sm90.cuh``): the
+    tool reads its instances with a bias, and not its dK/dV kernel."""
+    from apex_tpu_torch.tools.dbias_breakdown import dq_registers
+
+    def entry(symbol, spill, regs):
+        return (f"ptxas info    : Compiling entry function '{symbol}' for "
+                f"'sm_90a'\nptxas info    : Function properties for "
+                f"{symbol}\n    0 bytes stack frame, {spill} bytes spill "
+                f"stores, 0 bytes spill loads\nptxas info    : Used {regs} "
+                "registers, used 1 barriers, 656 bytes cmem[0]\n")
+
+    sm90 = "_ZN4attn4sm9012_GLOBAL__N_1"
+    text = (entry(sm90 + "13bwd_dq_kernelILi128ELi2ELb0ELb0ELb1ELb1EEEv14"
+                  "CUtensorMap_stS2_S2_S2_NS1_9BwdParamsE", 0, 168)
+            + entry(sm90 + "13bwd_dq_kernelILi64ELi2ELb1ELb0ELb0ELb0EEEv14"
+                    "CUtensorMap_stS2_S2_S2_NS1_9BwdParamsE", 0, 168)
+            + entry(sm90 + "14bwd_dkv_kernelILi128ELi2ELb0ELb0ELb1EEEv14"
+                    "CUtensorMap_stS2_S2_S2_S2_S2_NS1_9BwdParamsE", 120, 168))
+    assert dq_registers({"attention_short": text}) == [
+        ("attention_short", "bwd_dq_kernel", 128, "BIAS+DBIAS", 168, 0)]

@@ -733,3 +733,39 @@ def test_gpt_config_takes_the_jax_fields():
                 dict(moe_aux_weight=0.1), dict(moe_router_z_loss_weight=1.0)):
         with pytest.raises(NotImplementedError, match="A9"):
             GPTConfig(**kw, **bad)
+
+
+def _cuda_function(src: str, signature: str) -> str:
+    """The text of the CUDA function whose definition starts with
+    ``signature``, to its closing brace at the start of a line."""
+    start = src.index(signature)
+    return src[start:src.index("\n}\n", start) + 2]
+
+
+def test_bf16_backward_runs_the_hopper_kernels():
+    """The short/mid entries' bf16 backward launches the wgmma/TMA kernels
+    of ``csrc/attention_bwd_sm90.cuh`` after the delta pass, and no bf16
+    (tensor-core ``kTC``, WMMA) path is left in the SIMT dK/dV and dQ
+    kernels of ``attention_common.cuh``, which keep the fp32 instances."""
+    csrc = ROOT / "apex_tpu_torch" / "csrc"
+    common = (csrc / "attention_common.cuh").read_text()
+    assert '#include "attention_bwd_sm90.cuh"' in common
+    launch = _cuda_function(common, "cudaError_t launch_bwd(")
+    bf16 = launch[launch.index("if constexpr (sizeof(T) == 2) {"):
+                  launch.index("} else {")]
+    assert "sm90::launch_bwd<D, ATTN_BWD_WARPGROUPS," in bf16
+    assert "attn_bwd_" not in bf16
+    header = (csrc / "attention_bwd_sm90.cuh").read_text()
+    both = _cuda_function(header, "cudaError_t launch_bwd(")
+    assert "launch_dkv<D, NC, SEGS, DROP, BIAS>" in both
+    assert "launch_dq<D, NC, SEGS, DROP, BIAS, DBIAS>" in both
+    assert "bwd_dkv_kernel<D, NC, SEGS, DROP, BIAS>\n      <<<" in header
+    assert "bwd_dq_kernel<D, NC, SEGS, DROP, BIAS, DBIAS>\n      <<<" in header
+    # no atomics (atomicAdd, PTX red/atom): the same bits on every call
+    assert not re.search(r"atomic\w*\s*\(|\b(red|atom)\.", header)
+    for kernel in ("attn_bwd_dkv_kernel(", "attn_bwd_dq_kernel("):
+        body = _cuda_function(common, kernel)
+        for word in ("kTC", "abT_tc", "ab_tc", "bf16", "wmma"):
+            assert word not in body, (kernel, word)
+    for layout in ("struct DkvLayout {", "struct DqLayout {"):
+        assert "kTC" not in _cuda_function(common, layout)

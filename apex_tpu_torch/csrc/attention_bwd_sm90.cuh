@@ -1,23 +1,29 @@
 // The bf16 attention backward for Hopper (sm_90a): TMA loads, a producer
 // warpgroup and consumer warpgroups, wgmma products with the scores, the
 // score gradients and the accumulated gradients in registers.  The short
-// and mid entries (attention_common.cuh's attn::bwd) launch it for bf16
-// inputs, after the delta pass; their fp32 instances keep the SIMT FMA
-// kernels of that file (wgmma has no fp32 form, and TF32 would break the
-// fp32 parity that Precision.HIGHEST asks for).
+// and mid entries (attention_common.cuh's attn::bwd) launch both kernels
+// for bf16 inputs, after the delta pass, and the flash entries
+// (attention_flash.cu's flash_bwd_dkv and flash_bwd_dq) one each, with the
+// caller's delta; their fp32 instances keep SIMT FMA kernels in those
+// files (wgmma has no fp32 form, and TF32 would break the fp32 parity
+// that Precision.HIGHEST asks for).
 //
 // Replaces, for bf16 inputs:
 //   apex_tpu/ops/attention_short.py::_short_bwd_kernel (:215, call :444)
 //   apex_tpu/ops/attention_mid.py::_mid_bwd_kernel     (:308, call :639)
+//   apex_tpu/ops/attention.py::_fa_bwd_dkv_kernel      (:429, call :673)
+//   apex_tpu/ops/attention.py::_fa_bwd_dq_kernel       (:534, call :722)
 //
 // Function: exactly what _short_bwd_plain (ops/attention_short.py)
-// computes, which _mid_bwd_plain reuses.  s = (q . k) * scale (+ bias) in
-// fp32, p = exp(s - lse) with masked pairs exactly 0, dz = p * (dp -
-// delta), where delta = rowsum(dO * O) - dlse comes from the delta pass;
-// with dropout dV takes the dropped, scaled p and dz the dropped, scaled
-// dp; p and dz * scale are rounded to bf16 as the operands of dV, dK and
-// dQ.  Causal is top-left aligned (key <= query by index); sq and sk need
-// not be multiples of a tile; query rows at or past sq stay out of dK/dV.
+// computes, which _mid_bwd_plain reuses and _flash_bwd_plain
+// (ops/attention_flash.py) repeats without an lse cotangent.  s = (q . k) *
+// scale (+ bias) in fp32, p = exp(s - lse) with masked pairs exactly 0, dz
+// = p * (dp - delta), where delta = rowsum(dO * O) - dlse comes from the
+// delta pass; with dropout dV takes the dropped, scaled p and dz the
+// dropped, scaled dp; p and dz * scale are rounded to bf16 as the
+// operands of dV, dK and dQ.  Causal is top-left aligned (key <= query
+// by index); sq and sk need not be multiples of a tile; query rows at or
+// past sq stay out of dK/dV.
 // The variants are template flags with the predicates of
 // attention_tiles.cuh: SEGS (a row that sees no key has an lse of about
 // -1e30 and contributes p = 0), DROP (JAX's hash over the global bh and
@@ -30,16 +36,16 @@
 // as the JAX kernels' sequential accumulation gives.  The dQ kernel
 // recomputes S and dP (7 products a pair instead of FA3's 5 with dQ
 // accumulated by fp32 atomics across key tiles).  Each has its own
-// launcher (launch_dkv, launch_dq): the flash rung's backward
-// (_flash_bwd_plain) is the same function on the same (bh, s, D) layout
-// behind two entries, with its delta from its own pass.
+// launcher (launch_dkv, launch_dq): the flash rung's backward is the same
+// function on the same (bh, s, D) layout behind two entries, with its
+// delta from flash_delta.
 //
 // Design:
 //  - dK/dV kernel: one block per (bh, key tile of 64 * NC keys), NC
 //    consumer warpgroups of 64 keys each.  K and V land once; 64-row query
 //    tiles of Q and dO, with their 64 lse and delta values, stream through
-//    a ring of kBwdStages stages from the causal diagonal down.  S^T = K .
-//    Q^T and dP^T = V . dO^T by wgmma, both operands K-major in shared
+//    a ring of ATTN_BWD_STAGES stages from the causal diagonal down.  S^T =
+//    K . Q^T and dP^T = V . dO^T by wgmma, both operands K-major in shared
 //    memory, each its own commit group, so the replay of p runs on S^T
 //    while dP^T is still in the tensor cores.  The accumulators are (key,
 //    query): a thread's rows are keys and its columns queries, so lse and
@@ -65,8 +71,9 @@
 //    producer warpgroup whose first thread issues every TMA load, and
 //    setmaxnreg moving registers to the consumers (24 and 240 with two
 //    consumer warpgroups, 24 and 232 with one; the short entry builds one,
-//    the mid entry two, ATTN_BWD_WARPGROUPS).  With 64-row tiles a dK/dV
-//    thread holds S^T, dP^T, dK and dV: 32 + 32 + D / 2 + D / 2 fp32
+//    the mid entry two, ATTN_BWD_WARPGROUPS; the flash entries two for
+//    each kernel, chosen in attention_flash.cu).  With 64-row tiles a
+//    dK/dV thread holds S^T, dP^T, dK and dV: 32 + 32 + D / 2 + D / 2 fp32
 //    registers (192 at d = 128); a dQ thread 32 + 32 + D / 2.
 //  - lse and delta of a query tile are stored into its stage by the 32
 //    lanes of the producer's second warp (0 past sq), each of which
@@ -110,14 +117,25 @@
 // time (q, k, v, out, dout read, dq, dk, dv written once); the seven this
 // design runs take at least 0.061 ms.  On an H100 (700 W, chip_smoke.py
 // phase 2) it runs 0.18 ms there, and 0.072 ms at the short rung's b*h =
-// 64, s = 512, about SDPA's backward.  What the design leaves undone
-// (PERF.md): no overlap of one tile's elementwise work with the next
-// tile's products inside a warpgroup, and no ping-pong of two warpgroups,
-// as FA3 does; the epilogues store from registers rather than through TMA.
+// 64, s = 512, about SDPA's backward.  At the Llama mode's b*h = 16, s =
+// 4096 (the flash rung, four times the flagship's pairs) the dK/dV kernel's
+// four products a pair take at least 0.139 ms and the dQ kernel's three
+// 0.104 ms; they run 0.25 and 0.18 ms (tools/bwd_rows.py), together about
+// SDPA's backward.  What the design leaves undone (PERF.md): no overlap
+// of one tile's elementwise work with the next tile's products inside a
+// warpgroup, and no ping-pong of two warpgroups, as FA3 does; the
+// epilogues store from registers rather than through TMA.
 
 #pragma once
 
 #include "attention_fwd_sm90.cuh"
+
+// Stages in the ring of streamed tiles: 2 on every rung (a third gave the
+// flash rung nothing, attention_flash.cu); a source may set its own before
+// the include, as tools/bwd_rows.py builds 2 and 3.
+#ifndef ATTN_BWD_STAGES
+#define ATTN_BWD_STAGES 2
+#endif
 
 namespace attn {
 namespace sm90 {
@@ -125,7 +143,7 @@ namespace {
 
 // rows of a streamed tile: queries (dK/dV kernel), keys (dQ kernel)
 constexpr int kBT = 64;
-constexpr int kBwdStages = 2;   // stages in the ring
+constexpr int kBwdStages = ATTN_BWD_STAGES;   // stages in the ring
 
 __device__ __forceinline__ void wgmma_wait_one() {
   asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");

@@ -10,13 +10,19 @@
 // order and carries m/l/acc (or dK/dV, dQ) in VMEM scratch, and the Pallas
 // pipeline fetches the next K/V block while the current one computes.
 // Here a block owns one (b*h, query tile) (or key tile) and loops over the
-// streamed operand itself, with the next tile's copy in flight.  The bf16
-// forward is the wgmma/TMA kernel of attention_fwd_sm90.cuh (a producer
-// warp's TMA loads through a two-stage ring, completed on mbarriers); the
-// fp32 forward and the backward kernels copy with cp.async into a second
-// shared-memory buffer, issued before the current tile's products (two
-// buffers, one commit group per tile).  That overlap is what the rung
-// exists for: at s = 4096 a block streams up to 64 tiles.
+// streamed operand itself, with the next tiles' copies in flight.  For bf16
+// inputs all three entries run the Hopper kernels (TMA loads issued by a
+// producer warpgroup through a ring of stages completed on mbarriers,
+// consumer warpgroups running wgmma with the scores and the accumulators
+// in registers): the forward attention_fwd_sm90.cuh's fwd_kernel, the
+// backward attention_bwd_sm90.cuh's bwd_dkv_kernel and bwd_dq_kernel, the
+// kernels of the short and mid rungs' backward, launched one per entry.
+// The fp32 instances keep SIMT kernels here (wgmma has no fp32 form, and
+// TF32 would break the fp32 parity Precision.HIGHEST asks for), which copy
+// with cp.async into a second shared-memory buffer issued before the
+// current tile's products (two buffers, one commit group per tile).  That
+// overlap is what the rung exists for: at s = 4096 a block streams up to
+// 64 tiles.
 //
 // Function, as the TPU kernels compute it:
 //  - forward: q is scaled BEFORE the product (:242) -- the kernels scale
@@ -29,46 +35,48 @@
 //    product, s = (q . k) * scale (:464, :580); delta = rowsum(dO * O) is
 //    computed outside the kernels (as JAX computes it in XLA, :647-650);
 //    dz = p * (dp - delta); dV += p^T dO, dK += (dz * scale)^T Q,
-//    dQ += (dz * scale) K.  There is no lse cotangent on this rung.
+//    dQ += (dz * scale) K, with p and dz * scale rounded to bf16 as the
+//    products' operands for bf16.  There is no lse cotangent on this rung,
+//    so this is exactly the short/mid backward's function
+//    (_flash_bwd_plain computes what _short_bwd_plain does) and the bf16
+//    entries pass the caller's delta straight to sm90::launch_dkv and
+//    sm90::launch_dq, each with the other entry's outputs null.
 //  - masking: causal is top-left aligned (key <= query by index), sq != sk
-//    is allowed, keys at or past sk are masked, and the dK/dV kernel also
-//    masks query rows at or past sq (their lse and delta are meaningless
+//    is allowed, keys at or past sk are masked, and the dK/dV kernels also
+//    mask query rows at or past sq (their lse and delta are meaningless
 //    and would pollute the sums, :513-520).  Rows past an operand's end
-//    are zero-filled by the copy (cp.async with a source size of 0), so no
-//    garbage can reach a sum through 0 * NaN.
+//    are zero-filled by the copy (TMA's out-of-bounds fill, or cp.async
+//    with a source size of 0), so no garbage can reach a sum through 0 *
+//    NaN.
 //  - segment ids (SEGS, the Pallas bodies' has_segs): the predicate of all
 //    three kernels also asks q_ids[i] == kv_ids[j], the ids (bh / heads, s)
-//    int32 of attention_tiles.cuh, each tile's ids copied with it in the
-//    same commit group.  A query row that sees no key has l = 0: out 0 and
-//    lse about -1e30, and the backward's predicate keeps its p at 0 (never
-//    exp(s - lse)).  The causal tile skips stay; none is taken on the ids.
-//    The wrappers count these launches as flash_fwd_seg, flash_bwd_dkv_seg
-//    and flash_bwd_dq_seg.
+//    int32 of attention_tiles.cuh.  A query row that sees no key has l = 0:
+//    out 0 and lse about -1e30, and the backward's predicate keeps its p at
+//    0 (never exp(s - lse)).  The causal tile skips stay; none is taken on
+//    the ids.  The wrappers count these launches as flash_fwd_seg,
+//    flash_bwd_dkv_seg and flash_bwd_dq_seg.
 //  - dropout (DROP, the Pallas bodies' has_dropout; the hash of
-//    attention_tiles.cuh over the global bh, blockIdx.y here and
-//    blockIdx.x in the bf16 forward, and the absolute positions): the
-//    forward keeps l and the lse undropped and drops and
-//    scales only the p that enters P . V (:276-281); the dK/dV kernel
-//    replays the mask on p for dV and on dp before dz (:491-498), the dQ
-//    kernel on dp (:605-611).  Counted as flash_fwd_drop,
-//    flash_bwd_dkv_drop and flash_bwd_dq_drop (_seg_drop beside ids).
+//    attention_tiles.cuh over the global bh and the absolute positions):
+//    the forward keeps l and the lse undropped and drops and scales only
+//    the p that enters P . V (:276-281); the dK/dV kernel replays the mask
+//    on p for dV and on dp before dz (:491-498), the dQ kernel on dp
+//    (:605-611).  Counted as flash_fwd_drop, flash_bwd_dkv_drop and
+//    flash_bwd_dq_drop (_seg_drop beside ids).
 //  - bias (BIAS, the Pallas bodies' has_bias, :250-251, :465-466,
-//    :581-582; the Bias operand of attention_tiles.cuh, each lane's pairs
-//    read into registers before each tile's products): the forward adds it
-//    to its already scaled score, the backward kernels to (q . k) * scale,
-//    before the predicate.  Counted with _bias appended (flash_fwd_bias,
-//    ...).
+//    :581-582; the Bias operand of attention_tiles.cuh): the forward adds
+//    it to its already scaled score, the backward kernels to (q . k) *
+//    scale, before the predicate.  Counted with _bias appended
+//    (flash_fwd_bias, ...).
 //  - dBias (DBIAS, the dQ kernel's dbias output under bias_grad, :545-567,
 //    :612-630, out spec :704-713): an instance of the dQ kernel only, and
 //    only beside BIAS, that also stores each pair's dz = p * (dp - delta)
-//    unscaled in fp32 to a (bh, sq, sk) output (attention_tiles.cuh's
-//    store_dbias), before dz is scaled and rounded for dQ.  The causal tile
-//    skip stays (JAX runs every block once dBias is emitted, :563-567): the
-//    wrapper zero-fills the output, and a skipped pair's dz is 0.  The
-//    wrapper sums it over the bias's broadcast dims, as JAX does in XLA
-//    (:767-783).  It adds 4 bytes a pair of writes (1.07 GB at b*h = 16,
-//    s = 4096) to a kernel bound by operations.  Counted as
-//    flash_bwd_dq_dbias (_seg, _drop before it).
+//    unscaled in fp32 to a (bh, sq, sk) output, before dz is scaled and
+//    rounded for dQ.  The causal tile skip stays (JAX runs every block once
+//    dBias is emitted, :563-567): the wrapper zero-fills the output, and a
+//    skipped pair's dz is 0.  The wrapper sums it over the bias's
+//    broadcast dims, as JAX does in XLA (:767-783).  It adds 4 bytes a pair
+//    of writes (1.07 GB at b*h = 16, s = 4096) to a kernel bound by
+//    operations.  Counted as flash_bwd_dq_dbias (_seg, _drop before it).
 //
 // Tiles, chosen for s >= 4096 (at b*h = 16, the Llama-mode training shape):
 //  - forward: in bf16 128-row query tiles (two consumer warpgroups of 64
@@ -76,28 +84,60 @@
 //    of shared memory at D = 128, one block per SM; 32 x 16 = 512 blocks
 //    at s = 4096, heaviest causal tiles first); in fp32 64-row tiles (4
 //    warps) and 64-key tiles, double-buffered.
-//  - dK/dV: one block per (b*h, 64-key tile), streaming 64-row (fp32: 32)
-//    query tiles from the causal diagonal down, Q/dO/lse/delta
-//    double-buffered; 1,024 blocks at s = 4096, enough for the 132 SMs, so
-//    the shared memory goes to the second buffer rather than to a larger
-//    key tile (a 128-key tile with its fp32 dK/dV accumulators would need
-//    380 KB).
-//  - dQ: one block per (b*h, 64-row query tile), streaming 64-key (fp32:
-//    32) K/V tiles up to the diagonal, double-buffered.
-// In the fp32 forward and the backward each warp owns 16 rows of its
-// block's tile end to end; the products are attention_tiles.cuh's warp
-// products (WMMA 16x16x16 bf16 with fp32 accumulate; full fp32 FMAs for
-// fp32, as Precision.HIGHEST asks).
+//  - bf16 backward: attention_bwd_sm90.cuh's blocks of 64 * NC keys (dK/dV)
+//    or query rows (dQ), streaming 64-row query tiles from the causal
+//    diagonal down or 64-key tiles up to it through a ring of
+//    ATTN_BWD_STAGES stages, heaviest blocks first.  NC is chosen here
+//    (kBwdWarpgroups), apart from the short and mid sources'
+//    ATTN_BWD_WARPGROUPS; the ring keeps the header's two stages.  At the
+//    Llama mode's b*h = 16, s = 4096, d = 128, causal (python -m
+//    apex_tpu_torch.tools.bwd_rows; NVIDIA H100 80GB HBM3 at 700 W,
+//    PERF.md) two warpgroups ran the dK/dV kernel in
+//    0.2463 ms (512 blocks of 128 keys on 132 SMs, one an SM) against
+//    0.2923 with one (1,024 blocks of 64 keys, two an SM), and the dQ
+//    kernel in 0.1849 against 0.1884.  A third stage gave nothing: 0.2572
+//    and 0.1840 ms with two warpgroups, and with one 0.4712 and 0.2647
+//    (32 KB of K and V and three 32 KB stages leave room for one block an
+//    SM, where two stages fit two).
+//  - fp32 dK/dV: one block per (b*h, 64-key tile), streaming 32-row query
+//    tiles, Q/dO/lse/delta double-buffered; fp32 dQ: one block per (b*h,
+//    64-row query tile), streaming 32-key K/V tiles.  Each warp owns 16
+//    rows of its block's tile end to end, with attention_tiles.cuh's full
+//    fp32 FMA warp products, as Precision.HIGHEST asks.
 //
 // What bounds them on the card: at b*h = 16, s = 4096, d = 128, causal,
 // bf16 the forward does 4 * d flops per causal (q, k) pair, 6.9e10 in all,
 // over 4 * 16 * 4096 * 128 * 2 bytes = 67 MB: ~1,000 flop/byte, above the
 // H100's ~295, so it is bound by operations (0.07 ms at 989 TFLOP/s); the
 // dK/dV kernel does 8 * d and the dQ kernel 6 * d flops per pair over a
-// few more bytes, bound by operations too.  The backward kernels are far
-// from that bound (WMMA through shared memory, one product at a time per
-// warp); a wgmma/TMA backward is later work.
+// few more bytes, bound by operations too (0.139 and 0.104 ms).  The bf16
+// backward's kernels keep the scores, the score gradients and the
+// accumulators in registers and read every operand through TMA into
+// swizzled shared memory, so the products run at the tensor cores' rate
+// and the elementwise work between them (the replay of p, dz, the
+// variants' hash, id and bias reads) is what keeps them from the bound:
+// 0.2455 and 0.1851 ms at that shape, 1.8x (PERF.md).
+//
+// What the long walk asked of those kernels, beside the short and mid
+// rungs' (PERF.md):
+//  - the ring's phases: a block wraps the two stages up to 32 times, and a
+//    warpgroup whose tile lies wholly above the diagonal still waits for
+//    and releases each stage.  chip_smoke.py holds every instance at a
+//    causal 4098 x 4131 case (sq no multiple of 4, sk odd), the same bits
+//    on a second call, and bwd_rows each block size and ring there.
+//  - load balance: the dK/dV grid's first key tiles walk the most query
+//    tiles and are issued first, the dQ grid's heaviest query tiles too,
+//    so the last wave is the lightest; 512 blocks of two warpgroups beat
+//    1,024 of one (above).
+//  - two entries: flash_bwd_dkv and flash_bwd_dq each build their own
+//    BwdParams with the other's outputs null and launch one kernel, so the
+//    wrappers' counters count one launch each, as before.
+//  - build time: the 40 bf16 backward instances of this source and its 16
+//    forward ones build in about 105 s alone; ptxas spills only in the
+//    d = 128 dK/dV bias instances (120-172 bytes) and the forward's bias
+//    instances, as on the short and mid rungs (chip_smoke.py phase 1).
 
+#include "attention_bwd_sm90.cuh"
 #include "attention_fwd_sm90.cuh"
 #include "attention_tiles.cuh"
 
@@ -105,12 +145,15 @@ namespace flash {
 namespace {
 
 using attn::bf16;
-using attn::from_f;
 using attn::round_up;
-using attn::to_f;
 
 constexpr int kRows = attn::kRows;   // rows of a tile each warp owns (16)
 constexpr float kNegInf = attn::kNegInf;
+
+// Consumer warpgroups of the bf16 backward's blocks: 64 keys each in the
+// dK/dV kernel, 64 query rows each in the dQ kernel (two for both: the
+// note).
+constexpr int kBwdWarpgroups = 2;
 
 // ------------------------------------------------------------- cp.async
 
@@ -118,15 +161,8 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// Copy 16 (bf16 rows) or 4 (fp32 rows, whose odd leading dim breaks 16-byte
-// alignment) bytes; a source size of 0 writes zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
+// Copy 4 bytes (an fp32 element: a padded row's odd leading dim breaks
+// 16-byte alignment); a source size of 0 writes zeros.
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
@@ -144,27 +180,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Start copying rows [r0, r0 + ROWS) of a (n, D) matrix into shared memory
-// with leading dim LD; rows at or past n are zero-filled (their source
-// address is clamped to row 0 and not read).
-template <typename T, int D, int LD, int ROWS, int THREADS>
-__device__ __forceinline__ void async_tile(T* dst, const T* src, int r0,
-                                           int n) {
-  if constexpr (sizeof(T) == 2) {
-    constexpr int C = D / 8;   // 16-byte chunks per row
-    for (int i = threadIdx.x; i < ROWS * C; i += THREADS) {
-      const int r = i / C, c = (i % C) * 8;
-      const bool in = r0 + r < n;
-      cp_async16(dst + r * LD + c, src + (long)(in ? r0 + r : 0) * D + c,
-                 in ? 16 : 0);
-    }
-  } else {
-    for (int i = threadIdx.x; i < ROWS * D; i += THREADS) {
-      const int r = i / D, c = i % D;
-      const bool in = r0 + r < n;
-      cp_async4(dst + r * LD + c, src + (long)(in ? r0 + r : 0) * D + c,
-                in ? 4 : 0);
-    }
+// Start copying rows [r0, r0 + ROWS) of an fp32 (n, D) matrix into shared
+// memory with leading dim LD; rows at or past n are zero-filled (their
+// source address is clamped to row 0 and not read).
+template <int D, int LD, int ROWS, int THREADS>
+__device__ __forceinline__ void async_tile(float* dst, const float* src,
+                                           int r0, int n) {
+  for (int i = threadIdx.x; i < ROWS * D; i += THREADS) {
+    const int r = i / D, c = i % D;
+    const bool in = r0 + r < n;
+    cp_async4(dst + r * LD + c, src + (long)(in ? r0 + r : 0) * D + c,
+              in ? 4 : 0);
   }
 }
 
@@ -192,29 +218,6 @@ __device__ __forceinline__ void zero_f(float* dst, int ld, int rows,
                                        int cols, int threads) {
   for (int i = threadIdx.x; i < rows * cols; i += threads) {
     dst[(i / cols) * ld + i % cols] = 0.0f;
-  }
-}
-
-// C[16 x N] = A[16 x D] . B[N x D]^T for one warp's rows (overwrites C).
-template <typename T, int N, int D>
-__device__ __forceinline__ void abT(const T* A, int lda, const T* B, int ldb,
-                                    float* C, int ldc, int lane) {
-  if constexpr (sizeof(T) == 2) {
-    attn::abT_tc<N, D>(A, lda, B, ldb, C, ldc);
-  } else {
-    attn::abT_fp32<N, D>(A, lda, B, ldb, C, ldc, lane);
-  }
-}
-
-// C[16 x D] += A[16 x N] . B[N x D]; A is the bf16 operand in the
-// tensor-core form and fp32 otherwise.
-template <typename T, int N, int D, typename A_t>
-__device__ __forceinline__ void ab(const A_t* A, int lda, const T* B,
-                                   int ldb, float* C, int ldc, int lane) {
-  if constexpr (sizeof(T) == 2) {
-    attn::ab_tc<N, D>(A, lda, B, ldb, C, ldc);
-  } else {
-    attn::ab_fp32<N, D>(A, lda, B, ldb, C, ldc, lane);
   }
 }
 
@@ -285,9 +288,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kv_end = causal ? min(sk, q0 + QT) : sk;
   const int n_tiles = (kv_end + KT - 1) / KT;
 
-  async_tile<float, D, L::LDQ, QT, TH>(Qs, q + bh * sq * D, q0, sq);
-  async_tile<float, D, L::LDK, KT, TH>(Ks(0), kb, 0, sk);
-  async_tile<float, D, L::LDV, KT, TH>(Vs(0), vb, 0, sk);
+  async_tile<D, L::LDQ, QT, TH>(Qs, q + bh * sq * D, q0, sq);
+  async_tile<D, L::LDK, KT, TH>(Ks(0), kb, 0, sk);
+  async_tile<D, L::LDV, KT, TH>(Vs(0), vb, 0, sk);
   if constexpr (SEGS) {
     async_ids<QT, TH>(qid, q_ids + (bh / heads) * sq, q0, sq);
     async_ids<KT, TH>(kid(0), kidb, 0, sk);
@@ -306,8 +309,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // the next tile's copy goes out before this tile's products; its
     // buffer was released by the barrier that ended the previous tile
     if (t + 1 < n_tiles) {
-      async_tile<float, D, L::LDK, KT, TH>(Ks((t + 1) & 1), kb, k0 + KT, sk);
-      async_tile<float, D, L::LDV, KT, TH>(Vs((t + 1) & 1), vb, k0 + KT, sk);
+      async_tile<D, L::LDK, KT, TH>(Ks((t + 1) & 1), kb, k0 + KT, sk);
+      async_tile<D, L::LDV, KT, TH>(Vs((t + 1) & 1), vb, k0 + KT, sk);
       if constexpr (SEGS) async_ids<KT, TH>(kid((t + 1) & 1), kidb, k0 + KT, sk);
       cp_async_commit();
       cp_async_wait<1>();
@@ -398,22 +401,21 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ---------------------------------------------------------------- dK / dV
 
-// A block: 64 keys x D (K and V, the left operands), query tiles of QT rows
-// (Q and dO, the right operands, odd leading dim in fp32) double-buffered
-// with their lse and delta; (key, query) score tiles in fp32.
-template <typename T, int D>
+// The fp32 dK/dV block (bf16 runs sm90::bwd_dkv_kernel,
+// attention_bwd_sm90.cuh): 64 keys x D (K and V, the left operands), query
+// tiles of 32 rows (Q and dO, the right operands, odd leading dim)
+// double-buffered with their lse and delta; (key, query) score tiles.
+template <int D>
 struct DkvTiles {
-  static constexpr bool kTC = sizeof(T) == 2;
   static constexpr int KT = 64;
-  static constexpr int QT = kTC ? 64 : 32;
+  static constexpr int QT = 32;
   static constexpr int kThreads = KT / kRows * 32;
-  static constexpr int LDK = kTC ? D + 8 : D;
-  static constexpr int LDQ = kTC ? D + 8 : D + 1;
-  static constexpr int LDS = kTC ? QT + 4 : QT;
-  static constexpr int LDP = QT + 8;
-  static constexpr int LDA = kTC ? D + 4 : D;
-  static constexpr int KV_BYTES = round_up(KT * LDK * (int)sizeof(T), 128);
-  static constexpr int Q_BUF = round_up(QT * LDQ * (int)sizeof(T), 128);
+  static constexpr int LDK = D;
+  static constexpr int LDQ = D + 1;
+  static constexpr int LDS = QT;
+  static constexpr int LDA = D;
+  static constexpr int KV_BYTES = round_up(KT * LDK * 4, 128);
+  static constexpr int Q_BUF = round_up(QT * LDQ * 4, 128);
   static constexpr int VEC_BUF = round_up(QT * 4, 128);
   static constexpr int K_OFF = 0;
   static constexpr int V_OFF = KV_BYTES;
@@ -423,41 +425,38 @@ struct DkvTiles {
   static constexpr int DL_OFF = LSE_OFF + 2 * VEC_BUF;
   static constexpr int S_OFF = DL_OFF + 2 * VEC_BUF;
   static constexpr int DP_OFF = round_up(S_OFF + KT * LDS * 4, 128);
-  static constexpr int P_OFF = round_up(DP_OFF + KT * LDS * 4, 128);
-  static constexpr int Z_OFF = round_up(P_OFF + (kTC ? KT * LDP * 2 : 0), 128);
-  static constexpr int DK_OFF = round_up(Z_OFF + (kTC ? KT * LDP * 2 : 0), 128);
+  static constexpr int DK_OFF = round_up(DP_OFF + KT * LDS * 4, 128);
   static constexpr int DV_OFF = round_up(DK_OFF + KT * LDA * 4, 128);
   static constexpr int BYTES = round_up(DV_OFF + KT * LDA * 4, 128);
 };
 
-template <typename T, int D, bool SEGS, bool DROP, bool BIAS>
-__global__ void __launch_bounds__(DkvTiles<T, D>::kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const int* __restrict__ q_ids,
+template <int D, bool SEGS, bool DROP, bool BIAS>
+__global__ void __launch_bounds__(DkvTiles<D>::kThreads)
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const int* __restrict__ q_ids,
                      const int* __restrict__ kv_ids,
-                     const T* __restrict__ dout,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int heads, int sq, int sk,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int heads, int sq, int sk,
                      int causal, float scale, attn::Dropout dr,
                      attn::Bias bias) {
-  using L = DkvTiles<T, D>;
+  using L = DkvTiles<D>;
   constexpr int QT = L::QT, KT = L::KT, TH = L::kThreads;
   constexpr int QID = attn::id_bytes<SEGS>(QT);
   extern __shared__ __align__(128) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem + L::K_OFF);
-  T* Vs = reinterpret_cast<T*>(smem + L::V_OFF);
+  float* Ks = reinterpret_cast<float*>(smem + L::K_OFF);
+  float* Vs = reinterpret_cast<float*>(smem + L::V_OFF);
   float* Ss = reinterpret_cast<float*>(smem + L::S_OFF);
   float* dPs = reinterpret_cast<float*>(smem + L::DP_OFF);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::P_OFF);
-  bf16* Zs = reinterpret_cast<bf16*>(smem + L::Z_OFF);
   float* dKs = reinterpret_cast<float*>(smem + L::DK_OFF);
   float* dVs = reinterpret_cast<float*>(smem + L::DV_OFF);
   auto Qs = [&](int b) {
-    return reinterpret_cast<T*>(smem + L::Q_OFF + b * L::Q_BUF);
+    return reinterpret_cast<float*>(smem + L::Q_OFF + b * L::Q_BUF);
   };
   auto dOs = [&](int b) {
-    return reinterpret_cast<T*>(smem + L::DO_OFF + b * L::Q_BUF);
+    return reinterpret_cast<float*>(smem + L::DO_OFF + b * L::Q_BUF);
   };
   auto lse_s = [&](int b) {
     return reinterpret_cast<float*>(smem + L::LSE_OFF + b * L::VEC_BUF);
@@ -476,8 +475,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row0 = (threadIdx.x / 32) * kRows;
   const long bh = blockIdx.y;
   const int k0 = blockIdx.x * KT;
-  const T* qb = q + bh * sq * D;
-  const T* dob = dout + bh * sq * D;
+  const float* qb = q + bh * sq * D;
+  const float* dob = dout + bh * sq * D;
   const float* lseb = lse + bh * sq;
   const float* dlb = delta + bh * sq;
   const int* qidb = SEGS ? q_ids + (bh / heads) * sq : nullptr;
@@ -485,8 +484,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* bslab =
       BIAS ? attn::bias_slab(bias, bh, heads) : nullptr;
 
-  async_tile<T, D, L::LDK, KT, TH>(Ks, k + bh * sk * D, k0, sk);
-  async_tile<T, D, L::LDK, KT, TH>(Vs, v + bh * sk * D, k0, sk);
+  async_tile<D, L::LDK, KT, TH>(Ks, k + bh * sk * D, k0, sk);
+  async_tile<D, L::LDK, KT, TH>(Vs, v + bh * sk * D, k0, sk);
   if constexpr (SEGS) async_ids<KT, TH>(kid, kv_ids + (bh / heads) * sk, k0, sk);
   cp_async_commit();
   // causal: query tiles wholly above this key tile see none of its keys
@@ -495,8 +494,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   auto issue = [&](int it) {
     const int q0 = q_begin + it * QT;
     const int b = it & 1;
-    async_tile<T, D, L::LDQ, QT, TH>(Qs(b), qb, q0, sq);
-    async_tile<T, D, L::LDQ, QT, TH>(dOs(b), dob, q0, sq);
+    async_tile<D, L::LDQ, QT, TH>(Qs(b), qb, q0, sq);
+    async_tile<D, L::LDQ, QT, TH>(dOs(b), dob, q0, sq);
     async_vec<QT, TH>(lse_s(b), lseb, q0, sq);
     async_vec<QT, TH>(dl_s(b), dlb, q0, sq);
     if constexpr (SEGS) async_ids<QT, TH>(qid(b), qidb, q0, sq);
@@ -516,8 +515,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     const int b = it & 1;
-    const T* Qt = Qs(b);
-    const T* dOt = dOs(b);
+    const float* Qt = Qs(b);
+    const float* dOt = dOs(b);
     const float* lt = lse_s(b);
     const float* dt = dl_s(b);
     const int* qt_ids = qid(b);
@@ -527,10 +526,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       attn::load_bias<QT / 32, true>(bv, bslab, sq, sk, k0 + row0, q0, lane);
     }
     // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys
-    abT<T, QT, D>(Ks + row0 * L::LDK, L::LDK, Qt, L::LDQ,
-                  Ss + row0 * L::LDS, L::LDS, lane);
-    abT<T, QT, D>(Vs + row0 * L::LDK, L::LDK, dOt, L::LDQ,
-                  dPs + row0 * L::LDS, L::LDS, lane);
+    attn::abT_fp32<QT, D>(Ks + row0 * L::LDK, L::LDK, Qt, L::LDQ,
+                          Ss + row0 * L::LDS, L::LDS, lane);
+    attn::abT_fp32<QT, D>(Vs + row0 * L::LDK, L::LDK, dOt, L::LDQ,
+                          dPs + row0 * L::LDS, L::LDS, lane);
     __syncwarp();
 
     // p = exp(s * scale - lse), dz = p * (dp - delta); lane owns the query
@@ -559,29 +558,17 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           dp = kept ? dp * dr.inv_keep : 0.0f;
         }
         const float dz = p * (dp - dt[c]);
-        if constexpr (L::kTC) {
-          Ps[row * L::LDP + c] = __float2bfloat16(pv);
-          Zs[row * L::LDP + c] = __float2bfloat16(dz * scale);
-        } else {
-          Ss[row * L::LDS + c] = pv;
-          dPs[row * L::LDS + c] = dz * scale;
-        }
+        Ss[row * L::LDS + c] = pv;
+        dPs[row * L::LDS + c] = dz * scale;
       }
     }
     __syncwarp();
 
     // dV += P^T dO and dK += (dz * scale)^T Q for this warp's 16 keys
-    if constexpr (L::kTC) {
-      ab<T, QT, D>(Ps + row0 * L::LDP, L::LDP, dOt, L::LDQ,
-                   dVs + row0 * L::LDA, L::LDA, lane);
-      ab<T, QT, D>(Zs + row0 * L::LDP, L::LDP, Qt, L::LDQ,
-                   dKs + row0 * L::LDA, L::LDA, lane);
-    } else {
-      ab<T, QT, D>(Ss + row0 * L::LDS, L::LDS, dOt, L::LDQ,
-                   dVs + row0 * L::LDA, L::LDA, lane);
-      ab<T, QT, D>(dPs + row0 * L::LDS, L::LDS, Qt, L::LDQ,
-                   dKs + row0 * L::LDA, L::LDA, lane);
-    }
+    attn::ab_fp32<QT, D>(Ss + row0 * L::LDS, L::LDS, dOt, L::LDQ,
+                         dVs + row0 * L::LDA, L::LDA, lane);
+    attn::ab_fp32<QT, D>(dPs + row0 * L::LDS, L::LDS, Qt, L::LDQ,
+                         dKs + row0 * L::LDA, L::LDA, lane);
     __syncthreads();   // every warp is done with this tile's buffers
   }
   // a block with no query tile (keys past sq, causal) still has its K/V
@@ -598,30 +585,28 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < D / 32; ++i) {
       const int c = lane + 32 * i;
-      dk[at + c] = from_f<T>(dKs[row * L::LDA + c]);
-      dv[at + c] = from_f<T>(dVs[row * L::LDA + c]);
+      dk[at + c] = dKs[row * L::LDA + c];
+      dv[at + c] = dVs[row * L::LDA + c];
     }
   }
 }
 
 // -------------------------------------------------------------------- dQ
 
-// A block: 64 query rows x D (Q and dO, the left operands, with their lse
-// and delta), key tiles of KT (K and V, the right operands, odd leading
-// dim in fp32) double-buffered.
-template <typename T, int D>
+// The fp32 dQ block (bf16 runs sm90::bwd_dq_kernel): 64 query rows x D (Q
+// and dO, the left operands, with their lse and delta), key tiles of 32
+// (K and V, the right operands, odd leading dim) double-buffered.
+template <int D>
 struct DqTiles {
-  static constexpr bool kTC = sizeof(T) == 2;
   static constexpr int QT = 64;
-  static constexpr int KT = kTC ? 64 : 32;
+  static constexpr int KT = 32;
   static constexpr int kThreads = QT / kRows * 32;
-  static constexpr int LDQ = kTC ? D + 8 : D;
-  static constexpr int LDK = kTC ? D + 8 : D + 1;
-  static constexpr int LDS = kTC ? KT + 4 : KT;
-  static constexpr int LDP = KT + 8;
-  static constexpr int LDA = kTC ? D + 4 : D;
-  static constexpr int Q_BYTES = round_up(QT * LDQ * (int)sizeof(T), 128);
-  static constexpr int K_BUF = round_up(KT * LDK * (int)sizeof(T), 128);
+  static constexpr int LDQ = D;
+  static constexpr int LDK = D + 1;
+  static constexpr int LDS = KT;
+  static constexpr int LDA = D;
+  static constexpr int Q_BYTES = round_up(QT * LDQ * 4, 128);
+  static constexpr int K_BUF = round_up(KT * LDK * 4, 128);
   static constexpr int Q_OFF = 0;
   static constexpr int DO_OFF = Q_BYTES;
   static constexpr int LSE_OFF = 2 * Q_BYTES;
@@ -630,41 +615,41 @@ struct DqTiles {
   static constexpr int V_OFF = K_OFF + 2 * K_BUF;
   static constexpr int S_OFF = V_OFF + 2 * K_BUF;
   static constexpr int DP_OFF = round_up(S_OFF + QT * LDS * 4, 128);
-  static constexpr int Z_OFF = round_up(DP_OFF + QT * LDS * 4, 128);
-  static constexpr int DQ_OFF = round_up(Z_OFF + (kTC ? QT * LDP * 2 : 0), 128);
+  static constexpr int DQ_OFF = round_up(DP_OFF + QT * LDS * 4, 128);
   static constexpr int BYTES = round_up(DQ_OFF + QT * LDA * 4, 128);
 };
 
 // With DBIAS (only beside BIAS) dbias is the (bh, sq, sk) fp32 gradient of
 // the biased scores, zero-filled by the caller.
-template <typename T, int D, bool SEGS, bool DROP, bool BIAS, bool DBIAS>
-__global__ void __launch_bounds__(DqTiles<T, D>::kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ q_ids,
-                    const int* __restrict__ kv_ids, const T* __restrict__ dout,
+template <int D, bool SEGS, bool DROP, bool BIAS, bool DBIAS>
+__global__ void __launch_bounds__(DqTiles<D>::kThreads)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const int* __restrict__ q_ids,
+                    const int* __restrict__ kv_ids,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     float* __restrict__ dbias, int heads, int sq, int sk,
                     int causal, float scale, attn::Dropout dr,
                     attn::Bias bias) {
   static_assert(BIAS || !DBIAS, "dBias needs a bias");
-  using L = DqTiles<T, D>;
+  using L = DqTiles<D>;
   constexpr int QT = L::QT, KT = L::KT, TH = L::kThreads;
   constexpr int KID = attn::id_bytes<SEGS>(KT);
   extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + L::Q_OFF);
-  T* dOs = reinterpret_cast<T*>(smem + L::DO_OFF);
+  float* Qs = reinterpret_cast<float*>(smem + L::Q_OFF);
+  float* dOs = reinterpret_cast<float*>(smem + L::DO_OFF);
   float* lse_s = reinterpret_cast<float*>(smem + L::LSE_OFF);
   float* dl_s = reinterpret_cast<float*>(smem + L::DL_OFF);
   float* Ss = reinterpret_cast<float*>(smem + L::S_OFF);
   float* dPs = reinterpret_cast<float*>(smem + L::DP_OFF);
-  bf16* Zs = reinterpret_cast<bf16*>(smem + L::Z_OFF);
   float* dQs = reinterpret_cast<float*>(smem + L::DQ_OFF);
   auto Ks = [&](int b) {
-    return reinterpret_cast<T*>(smem + L::K_OFF + b * L::K_BUF);
+    return reinterpret_cast<float*>(smem + L::K_OFF + b * L::K_BUF);
   };
   auto Vs = [&](int b) {
-    return reinterpret_cast<T*>(smem + L::V_OFF + b * L::K_BUF);
+    return reinterpret_cast<float*>(smem + L::V_OFF + b * L::K_BUF);
   };
   // after the layout: the block's query ids, then two key-id buffers
   int* qid = reinterpret_cast<int*>(smem + L::BYTES);
@@ -677,8 +662,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row0 = (threadIdx.x / 32) * kRows;
   const long bh = blockIdx.y;
   const int q0 = blockIdx.x * QT;
-  const T* kb = k + bh * sk * D;
-  const T* vb = v + bh * sk * D;
+  const float* kb = k + bh * sk * D;
+  const float* vb = v + bh * sk * D;
   const int* kidb = SEGS ? kv_ids + (bh / heads) * sk : nullptr;
   const unsigned hrow = DROP ? attn::drop_row(dr, bh) : 0u;
   const float* bslab =
@@ -686,12 +671,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_end = causal ? min(sk, q0 + QT) : sk;
   const int n_tiles = (kv_end + KT - 1) / KT;
 
-  async_tile<T, D, L::LDQ, QT, TH>(Qs, q + bh * sq * D, q0, sq);
-  async_tile<T, D, L::LDQ, QT, TH>(dOs, dout + bh * sq * D, q0, sq);
+  async_tile<D, L::LDQ, QT, TH>(Qs, q + bh * sq * D, q0, sq);
+  async_tile<D, L::LDQ, QT, TH>(dOs, dout + bh * sq * D, q0, sq);
   async_vec<QT, TH>(lse_s, lse + bh * sq, q0, sq);
   async_vec<QT, TH>(dl_s, delta + bh * sq, q0, sq);
-  async_tile<T, D, L::LDK, KT, TH>(Ks(0), kb, 0, sk);
-  async_tile<T, D, L::LDK, KT, TH>(Vs(0), vb, 0, sk);
+  async_tile<D, L::LDK, KT, TH>(Ks(0), kb, 0, sk);
+  async_tile<D, L::LDK, KT, TH>(Vs(0), vb, 0, sk);
   if constexpr (SEGS) {
     async_ids<QT, TH>(qid, q_ids + (bh / heads) * sq, q0, sq);
     async_ids<KT, TH>(kid(0), kidb, 0, sk);
@@ -702,8 +687,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * KT;
     if (t + 1 < n_tiles) {
-      async_tile<T, D, L::LDK, KT, TH>(Ks((t + 1) & 1), kb, k0 + KT, sk);
-      async_tile<T, D, L::LDK, KT, TH>(Vs((t + 1) & 1), vb, k0 + KT, sk);
+      async_tile<D, L::LDK, KT, TH>(Ks((t + 1) & 1), kb, k0 + KT, sk);
+      async_tile<D, L::LDK, KT, TH>(Vs((t + 1) & 1), vb, k0 + KT, sk);
       if constexpr (SEGS) async_ids<KT, TH>(kid((t + 1) & 1), kidb, k0 + KT, sk);
       cp_async_commit();
       cp_async_wait<1>();
@@ -711,8 +696,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* Kt = Ks(t & 1);
-    const T* Vt = Vs(t & 1);
+    const float* Kt = Ks(t & 1);
+    const float* Vt = Vs(t & 1);
     const int* kt_ids = kid(t & 1);
 
     [[maybe_unused]] float bv[kRows][KT / 32];
@@ -720,10 +705,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       attn::load_bias<KT / 32, false>(bv, bslab, sq, sk, q0 + row0, k0, lane);
     }
     // S = Q K^T and dP = dO V^T for this warp's 16 query rows
-    abT<T, KT, D>(Qs + row0 * L::LDQ, L::LDQ, Kt, L::LDK,
-                  Ss + row0 * L::LDS, L::LDS, lane);
-    abT<T, KT, D>(dOs + row0 * L::LDQ, L::LDQ, Vt, L::LDK,
-                  dPs + row0 * L::LDS, L::LDS, lane);
+    attn::abT_fp32<KT, D>(Qs + row0 * L::LDQ, L::LDQ, Kt, L::LDK,
+                          Ss + row0 * L::LDS, L::LDS, lane);
+    attn::abT_fp32<KT, D>(dOs + row0 * L::LDQ, L::LDQ, Vt, L::LDK,
+                          dPs + row0 * L::LDS, L::LDS, lane);
     __syncwarp();
 
 #pragma unroll
@@ -746,23 +731,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
         const float dz = p * (dp - dl_s[row]);
         attn::store_dbias<DBIAS>(dbias, bh, sq, sk, qi, kj, dz);
-        if constexpr (L::kTC) {
-          Zs[row * L::LDP + c] = __float2bfloat16(dz * scale);
-        } else {
-          Ss[row * L::LDS + c] = dz * scale;
-        }
+        Ss[row * L::LDS + c] = dz * scale;
       }
     }
     __syncwarp();
 
     // dQ += (dz * scale) K
-    if constexpr (L::kTC) {
-      ab<T, KT, D>(Zs + row0 * L::LDP, L::LDP, Kt, L::LDK,
-                   dQs + row0 * L::LDA, L::LDA, lane);
-    } else {
-      ab<T, KT, D>(Ss + row0 * L::LDS, L::LDS, Kt, L::LDK,
-                   dQs + row0 * L::LDA, L::LDA, lane);
-    }
+    attn::ab_fp32<KT, D>(Ss + row0 * L::LDS, L::LDS, Kt, L::LDK,
+                         dQs + row0 * L::LDA, L::LDA, lane);
     __syncthreads();   // every warp is done with this tile's buffers
   }
 
@@ -774,7 +750,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long at = (bh * sq + qi) * D;
 #pragma unroll
     for (int i = 0; i < D / 32; ++i) {
-      dq[at + lane + 32 * i] = from_f<T>(dQs[row * L::LDA + lane + 32 * i]);
+      dq[at + lane + 32 * i] = dQs[row * L::LDA + lane + 32 * i];
     }
   }
 }
@@ -812,6 +788,9 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   }
 }
 
+// bf16: the dK/dV kernel of attention_bwd_sm90.cuh, kBwdWarpgroups
+// consumer warpgroups (64 keys each) a block, with the caller's delta and
+// no dQ; fp32: flash_bwd_dkv_kernel.
 template <typename T, int D, bool SEGS, bool DROP, bool BIAS>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const int* q_ids, const int* kv_ids, const void* dout,
@@ -819,22 +798,35 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        void* dv, int bh, int heads, int sq, int sk,
                        int causal, float scale, attn::Dropout dr,
                        attn::Bias bias, cudaStream_t stream) {
-  using L = DkvTiles<T, D>;
-  constexpr int kBytes = L::BYTES + attn::id_bytes<SEGS>(L::KT) +
-                         2 * attn::id_bytes<SEGS>(L::QT);
-  static bool opted = false;
-  cudaError_t err =
-      attn::opt_in(flash_bwd_dkv_kernel<T, D, SEGS, DROP, BIAS>, kBytes, &opted);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<T, D, SEGS, DROP, BIAS>
-      <<<dim3((sk + L::KT - 1) / L::KT, bh), L::kThreads, kBytes, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), q_ids, kv_ids,
-          static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
-          static_cast<T*>(dv), heads, sq, sk, causal, scale, dr, bias);
-  return cudaGetLastError();
+  if constexpr (sizeof(T) == 2) {
+    const attn::sm90::BwdParams prm{
+        q_ids, kv_ids, lse, delta, nullptr, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), nullptr, heads, sq, sk, causal, scale, dr,
+        bias};
+    return attn::sm90::launch_dkv<D, kBwdWarpgroups, SEGS, DROP, BIAS>(
+        q, k, v, dout, prm, bh, stream);
+  } else {
+    using L = DkvTiles<D>;
+    constexpr int kBytes = L::BYTES + attn::id_bytes<SEGS>(L::KT) +
+                           2 * attn::id_bytes<SEGS>(L::QT);
+    static bool opted = false;
+    cudaError_t err = attn::opt_in(flash_bwd_dkv_kernel<D, SEGS, DROP, BIAS>,
+                                   kBytes, &opted);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_kernel<D, SEGS, DROP, BIAS>
+        <<<dim3((sk + L::KT - 1) / L::KT, bh), L::kThreads, kBytes, stream>>>(
+            static_cast<const float*>(q), static_cast<const float*>(k),
+            static_cast<const float*>(v), q_ids, kv_ids,
+            static_cast<const float*>(dout), lse, delta,
+            static_cast<float*>(dk), static_cast<float*>(dv), heads, sq, sk,
+            causal, scale, dr, bias);
+    return cudaGetLastError();
+  }
 }
 
+// bf16: the dQ kernel of attention_bwd_sm90.cuh, kBwdWarpgroups consumer
+// warpgroups (64 query rows each) a block, with DBIAS storing into the
+// caller's zero-filled dbias; fp32: flash_bwd_dq_kernel.
 template <typename T, int D, bool SEGS, bool DROP, bool BIAS, bool DBIAS>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const int* q_ids, const int* kv_ids, const void* dout,
@@ -842,20 +834,29 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       float* dbias, int bh, int heads, int sq, int sk,
                       int causal, float scale, attn::Dropout dr,
                       attn::Bias bias, cudaStream_t stream) {
-  using L = DqTiles<T, D>;
-  constexpr int kBytes = L::BYTES + attn::id_bytes<SEGS>(L::QT) +
-                         2 * attn::id_bytes<SEGS>(L::KT);
-  static bool opted = false;
-  cudaError_t err = attn::opt_in(
-      flash_bwd_dq_kernel<T, D, SEGS, DROP, BIAS, DBIAS>, kBytes, &opted);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<T, D, SEGS, DROP, BIAS, DBIAS>
-      <<<dim3((sq + L::QT - 1) / L::QT, bh), L::kThreads, kBytes, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), q_ids, kv_ids,
-          static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), dbias,
-          heads, sq, sk, causal, scale, dr, bias);
-  return cudaGetLastError();
+  if constexpr (sizeof(T) == 2) {
+    const attn::sm90::BwdParams prm{
+        q_ids, kv_ids, lse, delta, static_cast<bf16*>(dq), nullptr, nullptr,
+        dbias, heads, sq, sk, causal, scale, dr, bias};
+    return attn::sm90::launch_dq<D, kBwdWarpgroups, SEGS, DROP, BIAS, DBIAS>(
+        q, k, v, dout, prm, bh, stream);
+  } else {
+    using L = DqTiles<D>;
+    constexpr int kBytes = L::BYTES + attn::id_bytes<SEGS>(L::QT) +
+                           2 * attn::id_bytes<SEGS>(L::KT);
+    static bool opted = false;
+    cudaError_t err = attn::opt_in(
+        flash_bwd_dq_kernel<D, SEGS, DROP, BIAS, DBIAS>, kBytes, &opted);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_kernel<D, SEGS, DROP, BIAS, DBIAS>
+        <<<dim3((sq + L::QT - 1) / L::QT, bh), L::kThreads, kBytes, stream>>>(
+            static_cast<const float*>(q), static_cast<const float*>(k),
+            static_cast<const float*>(v), q_ids, kv_ids,
+            static_cast<const float*>(dout), lse, delta,
+            static_cast<float*>(dq), dbias, heads, sq, sk, causal, scale, dr,
+            bias);
+    return cudaGetLastError();
+  }
 }
 
 bool bad_shape(int bh, int sq, int sk) {

@@ -1,8 +1,10 @@
 // Device helpers of the attention kernels for Hopper (sm_90a): tile
-// constants, fp32/bf16 conversions, warp reductions, the per-warp products
-// (WMMA for bf16, full fp32 FMAs for fp32), tile loads and the dynamic
-// shared-memory opt-in.  attention_common.cuh (the short and mid rungs)
-// and attention_flash.cu (the flash rung) build their kernels from them.
+// constants, fp32/bf16 conversions, warp reductions, the per-warp fp32
+// products of the SIMT kernels (full fp32 FMAs; the bf16 kernels run wgmma
+// in attention_fwd_sm90.cuh and attention_bwd_sm90.cuh), tile loads and
+// the dynamic shared-memory opt-in.  attention_common.cuh (the short and
+// mid rungs) and attention_flash.cu (the flash rung) build their kernels
+// from them.
 //
 // Everything has internal linkage: several loaded libraries include this
 // header, and a template's static (the shared-memory opt-in flag) must not
@@ -12,13 +14,11 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace attn {
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 constexpr int kTile = 64;       // rows of a block's q or k tile
@@ -57,48 +57,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Each works on one warp's 16 rows: A and C point at the warp's first row.
 //   abT: C[16 x N]  = A[16 x D] . B[N x D]^T   (overwrites C)
 //   ab:  C[16 x D] += A[16 x N] . B[N x D]     (accumulates into C)
-// C is fp32 in shared memory.  Tensor-core forms need leading dims that are
-// multiples of 8 (bf16) or 4 (fp32) and 32-byte aligned fragment pointers;
-// the fp32 forms let lane own columns lane + 32 * j, so abT's B needs an odd
-// leading dim (32 lanes read 32 rows at one column: 32 banks).
-
-template <int N, int D>
-__device__ __forceinline__ void abT_tc(const bf16* A, int lda, const bf16* B, int ldb,
-                       float* C, int ldc) {
-  for (int n = 0; n < N / 16; ++n) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(a, A + kk * 16, lda);
-      // B^T as a column-major (D x N) operand: element (k, n) is
-      // B[n * ldb + k]
-      wmma::load_matrix_sync(b, B + (n * 16) * ldb + kk * 16, ldb);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(C + n * 16, acc, ldc, wmma::mem_row_major);
-  }
-}
-
-template <int N, int D>
-__device__ __forceinline__ void ab_tc(const bf16* A, int lda, const bf16* B, int ldb,
-                      float* C, int ldc) {
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::load_matrix_sync(acc, C + n * 16, ldc, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < N / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, A + kk * 16, lda);
-      wmma::load_matrix_sync(b, B + (kk * 16) * ldb + n * 16, ldb);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(C + n * 16, acc, ldc, wmma::mem_row_major);
-  }
-}
+// C is fp32 in shared memory.  Lane owns columns lane + 32 * j, so abT's B
+// needs an odd leading dim (32 lanes read 32 rows at one column: 32 banks).
 
 template <int N, int D>
 __device__ __forceinline__ void abT_fp32(const float* A, int lda, const float* B, int ldb,

@@ -22,7 +22,11 @@ on the mid rung at b=8 s=1024, ``chip_smoke.segment_ids``), dropout 0.1
 at h=8 d=128 causal (b=8, s=512 and 1024), and a trained bias, the entry
 with ``bias_grad=True`` (its zero-fill and fold included), causal: a (1,
 h, s, s) bias at b=32 h=16 s=256 d=64 (short) and a shared (s, s) one at
-b=8 h=8 s=1024 d=128 (mid).  Device ms per call from a CUDA graph of 50
+b=8 h=8 s=1024 d=128 (mid); and the flash backward's two entries,
+``flash_bwd_dkv`` and ``flash_bwd_dq``, with packed documents at b=2 h=16
+s=4096 d=64, not causal, dropout 0.1 and a per-batch bias at b=2 h=8
+s=4096 d=128, causal, and the ``flash_bwd_dq`` entry with a trained (1,
+h, s, s) bias at that shape.  Device ms per call from a CUDA graph of 50
 launches (10 for the flash rung) after a warm-up.  One line per tree, then
 the card's name and power limit.
 """
@@ -147,6 +151,33 @@ for name, b, s, kind, fwd, bwd in (
                                   bias=bias, bias_grad=True))
     row.append(f"{name} bwd +seg {seg:.4f} +drop {drop:.4f} +dbias "
                f"{dbias:.4f} ms")
+
+
+def flash_bwd(b, h, s, d, causal, **kw):
+    q, k, v, do = (randn(b * h, s, d) for _ in range(4))
+    out, lse = fl.flash_fwd(q, k, v, causal=causal, heads=h, **kw)
+    delta = fl.flash_delta(out, do)
+    return [device_ms(lambda: entry(q, k, v, do, lse, delta, causal=causal,
+                                    heads=h, **kw), 10)
+            for entry in (fl.flash_bwd_dkv, fl.flash_bwd_dq)]
+
+
+qi, ki = chip_smoke.segment_ids("docs", 2, 4096, dev)
+seg = flash_bwd(2, 16, 4096, 64, False, q_segment_ids=qi, kv_segment_ids=ki)
+drop = flash_bwd(2, 8, 4096, 128, True, dropout_rate=0.1, dropout_seed=7)
+bias_t = flash_bwd(2, 8, 4096, 128, True, bias=torch.randn(
+    2, 1, 4096, 4096, generator=gen, device=dev))
+q, k, v, do = (randn(16, 4096, 128) for _ in range(4))
+bias = torch.randn(1, 8, 4096, 4096, generator=gen, device=dev)
+out, lse = fl.flash_fwd(q, k, v, causal=True, heads=8, bias=bias)
+delta = fl.flash_delta(out, do)
+dbias = device_ms(lambda: fl.flash_bwd_dq(q, k, v, do, lse, delta,
+                                          causal=True, heads=8, bias=bias,
+                                          bias_grad=True), 10)
+row.append("flash bwd " + " ".join(
+    f"+{tag} dkv {t[0]:.4f} dq {t[1]:.4f}"
+    for tag, t in (("seg", seg), ("drop", drop), ("bias", bias_t)))
+    + f" +dbias dq {dbias:.4f} ms")
 print("; ".join(row), flush=True)
 """
 

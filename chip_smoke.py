@@ -1372,6 +1372,15 @@ def seg_records(rung, b, s, q, k, v, dout, out, lse, qi, ki, names, errs):
                 nbytes=(4 + n_out) * numel + 2 * rows + id_bytes,
                 ops=2.0 * n_prod * d * pairs, dtype=q.dtype,
                 plain_iters=iters)
+        # the instances without ids at this shape, every pair visible:
+        # what the predicate costs where no tile is skipped on the ids
+        for name, fn in (
+                (names[2], lambda: fl.flash_bwd_dkv(*flat, flse, delta)),
+                (names[1], lambda: fl.flash_bwd_dq(*flat, flse, delta))):
+            base_ms, _ = time_ms(fn, iters)
+            log(f"  {name}: {recs[name]['ms'] / base_ms:.3f}x the same "
+                f"kernel without the ids ({base_ms:.4f} ms) at this shape")
+            recs[name]["ms_without_ids"] = base_ms
     else:
         fwd, bwd = ((short.short_fwd, short.short_bwd) if rung == "short"
                     else (mid.mid_fwd, mid.mid_bwd))
@@ -1781,32 +1790,81 @@ def fwd_sm90_kernels(randn, dev) -> None:
 
 
 #: the ragged cases of the bf16 backward (attention_bwd_sm90.cuh): the
-#: forward's short and mid cases, and one a rung whose sq is no multiple
-#: of 4 (a (bh, sq) row of lse then starts off a 16-byte boundary) and sk
-#: odd (no bias or dBias row is 8-byte aligned); the mid ones take a real
-#: lse cotangent
-BWD_SM90_CASES = tuple(c for c in FWD_SM90_CASES if c[0] != "flash") + (
-    ("short", 2, 2, 250, 331, True), ("mid", 2, 2, 777, 1001, False))
+#: forward's cases, and one a rung whose sq is no multiple of 4 (a (bh, sq)
+#: row of lse then starts off a 16-byte boundary) and sk odd (no bias or
+#: dBias row is 8-byte aligned), the flash one causal past 4096 tokens (a
+#: block walks 64 tiles, wrapping the ring of stages 21-32 times); the mid
+#: ones take a real lse cotangent
+BWD_SM90_CASES = FWD_SM90_CASES + (
+    ("short", 2, 2, 250, 331, True), ("mid", 2, 2, 777, 1001, False),
+    ("flash", 1, 2, 4098, 4131, True))
+
+
+def bwd_sm90_calls(rung, b, heads, q, k, v, dout, dlse, causal, ids, drop,
+                   slab, bias, grad):
+    """``(call, want)`` of one bf16 backward instance case: ``call()``
+    runs the rung's entries on the card (short/mid: one call; flash:
+    ``flash_bwd_dkv`` and ``flash_bwd_dq`` on the flattened ``(b*h, s,
+    d)`` operands with ``heads=`` and ``delta = flash_delta(out, dout)``)
+    and gives ``(dq, dk, dv[, dbias])``; ``want`` is its plain version's,
+    fed the plain forward's ``out`` and ``lse``, dBias folded into the
+    bias's shape."""
+    from apex_tpu_torch.ops import attention_flash as fl
+    from apex_tpu_torch.ops import attention_mid as mid
+    from apex_tpu_torch.ops import attention_short as short
+
+    scale = q.shape[-1] ** -0.5
+    kw = dict(q_segment_ids=ids[0], kv_segment_ids=ids[1], bias=bias)
+    if drop:
+        kw.update(dropout_rate=drop[0], dropout_seed=drop[1])
+    if rung == "flash":
+        flat = [t.reshape(b * heads, -1, t.shape[-1])
+                for t in (q, k, v, dout)]
+        out, lse = fl._flash_fwd_plain(*flat[:3], causal, scale, *ids, heads,
+                                       drop, slab)
+        delta = fl.flash_delta(out, flat[3])
+
+        def call():
+            dk, dv = fl.flash_bwd_dkv(*flat, lse, delta, causal, **kw,
+                                      heads=heads)
+            dq = fl.flash_bwd_dq(*flat, lse, delta, causal, **kw,
+                                 heads=heads, bias_grad=grad)
+            return (dq[0], dk, dv, dq[1]) if grad else (dq, dk, dv)
+        want = fl._flash_bwd_plain(*flat, lse, delta, causal, scale, *ids,
+                                   heads, drop, slab, grad)
+        dz = want[3].view(b, heads, *want[3].shape[1:]) if grad else None
+    else:
+        entry = {"short": short.short_bwd, "mid": mid.mid_bwd}[rung]
+        out, lse = short._short_fwd_plain(q, k, v, causal, scale, *ids, drop,
+                                          slab)
+        call = lambda: entry(q, k, v, out, dout, lse, dlse, causal, **kw,
+                             bias_grad=grad)
+        want = short._short_bwd_plain(q, k, v, out, dout, lse, dlse, causal,
+                                      scale, *ids, drop, slab, grad)
+        dz = want[3] if grad else None
+    if grad:
+        want = want[:3] + (short.fold_bias_grad(dz, bias.shape,
+                                                bias.dtype),)
+    return call, want
 
 
 def bwd_sm90_kernels(randn, dev) -> None:
-    """Every bf16 instance of the short and mid backwards (the wgmma/TMA
-    kernels of attention_bwd_sm90.cuh: d = 64 and 128, segment ids x
-    dropout x bias, and beside each bias the dQ kernel's dBias instance)
-    at :data:`BWD_SM90_CASES`, fed the plain forward's ``out`` and
-    ``lse`` and held against ``_short_bwd_plain`` on the same inputs and
+    """Every bf16 instance of the short, mid and flash backwards (the
+    wgmma/TMA kernels of attention_bwd_sm90.cuh: d = 64 and 128, segment
+    ids x dropout x bias, and beside each bias the dQ kernel's dBias
+    instance) at :data:`BWD_SM90_CASES`, fed the plain forward's ``out``
+    and ``lse`` and held against ``_short_bwd_plain`` (flash:
+    ``_flash_bwd_plain``, :func:`bwd_sm90_calls`) on the same inputs and
     for the same bits on a second call: dq, dk and dv within two bf16 ulps
     of their largest magnitude (:func:`tolerance`, as every backward check
     of phase 2), a dBias element by element within :func:`dbias_band`.
     The ids, the lonely query row (:data:`FWD_SM90_LONELY_ROW`, which sees
     no key) and the bias with its hidden rows are those of
     :func:`fwd_sm90_kernels`; the mid cases take a real ``dlse``."""
-    from apex_tpu_torch.ops import attention_mid as mid
     from apex_tpu_torch.ops import attention_short as short
 
     log("[kernels] bf16 backwards (attention_bwd_sm90.cuh): every instance "
         "at ragged shapes")
-    entries = {"short": short.short_bwd, "mid": mid.mid_bwd}
     worst, band, n = {}, 0.0, 0
     for rung, b, heads, sq, sk, causal in BWD_SM90_CASES:
         for d in (64, 128):
@@ -1822,42 +1880,34 @@ def bwd_sm90_kernels(randn, dev) -> None:
             bias = randn(b, heads, sq, sk)
             bias[..., list(BIAS_MASKED_ROWS), :] = -1e30
             dlse = randn(b, heads, sq) if rung == "mid" else None
-            scale = d ** -0.5
             for segs in (False, True):
                 for drop in (None, (DROP_RATE, DROP_SEED)):
                     for biased in (False, True):
                         ids = (qi, ki) if segs else (None, None)
                         bb = bias if biased else None
                         slab = short.bias_slab("bias", bb, b, heads, sq, sk)
-                        out, lse = short._short_fwd_plain(
-                            q, k, v, causal, scale, *ids, drop, slab)
-                        kw = dict(q_segment_ids=ids[0], kv_segment_ids=ids[1],
-                                  bias=bb)
-                        if drop:
-                            kw.update(dropout_rate=drop[0],
-                                      dropout_seed=drop[1])
                         for grad in (False, True) if biased else (False,):
-                            call = lambda: entries[rung](
-                                q, k, v, out, dout, lse, dlse, causal, **kw,
-                                bias_grad=grad)
+                            call, want = bwd_sm90_calls(
+                                rung, b, heads, q, k, v, dout, dlse, causal,
+                                ids, drop, slab, bb, grad)
                             got, again = call(), call()
-                            want = short._short_bwd_plain(
-                                q, k, v, out, dout, lse, dlse, causal, scale,
-                                *ids, drop, slab, grad)
-                            if grad:
-                                want = want[:3] + (short.fold_bias_grad(
-                                    want[3], bias.shape, bias.dtype),)
-                            name = f"{rung}_bwd" + short.counter(
-                                ("", "_seg"), segs, drop, slab, grad)
+                            suffix = short.counter(("", "_seg"), segs, drop,
+                                                   slab, grad)
+                            names = ((f"{rung}_bwd{suffix}",) * 3
+                                     if rung != "flash" else
+                                     (f"flash_bwd_dq{suffix}",) + (
+                                         "flash_bwd_dkv" + short.counter(
+                                             ("", "_seg"), segs, drop,
+                                             slab),) * 2)
                             what = (f"bf16 d={d} b={b} h={heads} sq={sq} "
                                     f"sk={sk}{' causal' if causal else ''}"
                                     f"{' dlse' if dlse is not None else ''}")
                             if not all(torch.equal(g, a)
                                        for g, a in zip(got, again)):
-                                fail(f"{name} {what}: a second call gave "
-                                     "other bits")
-                            for label, g, w in zip(("dq", "dk", "dv"), got,
-                                                   want):
+                                fail(f"{names[0]} {what}: a second call gave"
+                                     " other bits")
+                            for name, label, g, w in zip(
+                                    names, ("dq", "dk", "dv"), got, want):
                                 err, tol = max_err(g, w), tolerance(w)
                                 if not err <= tol:
                                     fail(f"{name} {what} {label}: max |kernel"
@@ -1867,7 +1917,7 @@ def bwd_sm90_kernels(randn, dev) -> None:
                                                   err / tol)
                             if grad:
                                 band = max(band, dbias_check(
-                                    f"{name} {what}", got[3], want[3])[1])
+                                    f"{names[0]} {what}", got[3], want[3])[1])
                             n += 1
             del q, k, v, dout, bias
     log(f"  {n} instance cases held, the same bits twice; the worst dq/dk/dv"
@@ -4519,9 +4569,9 @@ SOURCES = {
                 "apex_tpu/ops/attention_mid.py:308"),
     "flash_fwd": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                   "apex_tpu/ops/attention.py:213"),
-    "flash_bwd_dkv": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
+    "flash_bwd_dkv": ("cuda", "apex_tpu_torch/csrc/attention_bwd_sm90.cuh",
                       "apex_tpu/ops/attention.py:429"),
-    "flash_bwd_dq": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
+    "flash_bwd_dq": ("cuda", "apex_tpu_torch/csrc/attention_bwd_sm90.cuh",
                      "apex_tpu/ops/attention.py:534"),
     "dequant_int8": ("cuda", "apex_tpu_torch/csrc/dequant_matmul.cu",
                      "apex_tpu/ops/dequant_matmul.py:97"),
@@ -4545,9 +4595,9 @@ SOURCES = {
                     "apex_tpu/ops/attention_mid.py:308"),
     "flash_fwd_seg": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                       "apex_tpu/ops/attention.py:213"),
-    "flash_bwd_dkv_seg": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
+    "flash_bwd_dkv_seg": ("cuda", "apex_tpu_torch/csrc/attention_bwd_sm90.cuh",
                           "apex_tpu/ops/attention.py:429"),
-    "flash_bwd_dq_seg": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
+    "flash_bwd_dq_seg": ("cuda", "apex_tpu_torch/csrc/attention_bwd_sm90.cuh",
                          "apex_tpu/ops/attention.py:534"),
     # the hidden dropout replaces XLA code, not a Pallas kernel
     "dropout": ("triton", "apex_tpu_torch/ops/dropout.py",
@@ -4562,9 +4612,10 @@ SOURCES = {
                      "apex_tpu/ops/attention_mid.py:308"),
     "flash_fwd_drop": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                        "apex_tpu/ops/attention.py:213"),
-    "flash_bwd_dkv_drop": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
+    "flash_bwd_dkv_drop": ("cuda",
+                           "apex_tpu_torch/csrc/attention_bwd_sm90.cuh",
                            "apex_tpu/ops/attention.py:429"),
-    "flash_bwd_dq_drop": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
+    "flash_bwd_dq_drop": ("cuda", "apex_tpu_torch/csrc/attention_bwd_sm90.cuh",
                           "apex_tpu/ops/attention.py:534"),
     "short_fwd_seg_drop": ("cuda",
                            "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
@@ -4583,9 +4634,10 @@ SOURCES = {
                      "apex_tpu/ops/attention_mid.py:308"),
     "flash_fwd_bias": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                        "apex_tpu/ops/attention.py:213"),
-    "flash_bwd_dkv_bias": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
+    "flash_bwd_dkv_bias": ("cuda",
+                           "apex_tpu_torch/csrc/attention_bwd_sm90.cuh",
                            "apex_tpu/ops/attention.py:429"),
-    "flash_bwd_dq_bias": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
+    "flash_bwd_dq_bias": ("cuda", "apex_tpu_torch/csrc/attention_bwd_sm90.cuh",
                           "apex_tpu/ops/attention.py:534"),
     "short_fwd_seg_drop_bias": ("cuda",
                                 "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
@@ -4601,7 +4653,8 @@ SOURCES = {
                                  "apex_tpu/ops/attention_short.py:215"),
     "mid_bwd_dbias": ("cuda", "apex_tpu_torch/csrc/attention_bwd_sm90.cuh",
                       "apex_tpu/ops/attention_mid.py:308"),
-    "flash_bwd_dq_dbias": ("cuda", "apex_tpu_torch/csrc/attention_flash.cu",
+    "flash_bwd_dq_dbias": ("cuda",
+                           "apex_tpu_torch/csrc/attention_bwd_sm90.cuh",
                            "apex_tpu/ops/attention.py:534"),
 }
 

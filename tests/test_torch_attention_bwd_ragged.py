@@ -1,18 +1,20 @@
-"""The plain short/mid backward against the JAX Pallas backward at the
-raggedness of ``chip_smoke.py``'s check of the bf16 backward kernels.
+"""The plain short/mid/flash backward against the JAX Pallas backward at
+the raggedness of ``chip_smoke.py``'s check of the bf16 backward kernels.
 
 ``chip_smoke.py``'s ``bwd_sm90_kernels`` holds every bf16 instance of the
-short and mid backward kernels (``csrc/attention_bwd_sm90.cuh``) on the
-card against ``_short_bwd_plain``, which ``_mid_bwd_plain`` reuses, at
-ragged shapes: causal with sq < sk and neither a multiple of a tile, packed
-segment ids with one query row whose id no key has (the lonely row), a bias
-with rows it alone hides (-1e30 on every key), dropout and, on the mid rung,
-a real lse cotangent.  Here that plain version is held to the JAX package
+short, mid and flash backward kernels (``csrc/attention_bwd_sm90.cuh``) on
+the card against ``_short_bwd_plain``, which ``_mid_bwd_plain`` reuses,
+and ``_flash_bwd_plain``, at ragged shapes: causal with sq < sk and neither
+a multiple of a tile, packed segment ids with one query row whose id no key
+has (the lonely row), a bias with rows it alone hides (-1e30 on every key),
+dropout and, on the mid rung, a real lse cotangent.  Here that plain version is held to the JAX package
 at those combinations, scaled to CPU size: the same numpy q/k/v, output
 cotangent (and lse cotangent) go through ``apex_tpu.ops.attention.
 flash_attention(implementation="short")`` or ``apex_tpu.ops.attention_mid.
-fmha_mid(return_lse=True)`` with ``jax.vjp`` (``_short_bwd_kernel`` /
-``_mid_bwd_kernel`` in interpret mode on the CPU) and through the port's
+fmha_mid(return_lse=True)`` or ``apex_tpu.ops.attention.flash_attention(
+implementation="pallas", block_q=64, block_k=64)`` with ``jax.vjp``
+(``_short_bwd_kernel`` / ``_mid_bwd_kernel`` / ``_fa_bwd_dkv_kernel`` and
+``_fa_bwd_dq_kernel`` in interpret mode on the CPU) and through the port's
 same entries on CPU tensors with ``torch.autograd`` (the plain versions).
 The files that test each variant alone (``test_torch_attention_{short,
 mid,segments,bias,dbias}.py``) have no causal case with sq < sk, no lonely
@@ -47,7 +49,7 @@ LONELY_ROW = 3
 #: query rows the bias alone hides
 HIDDEN_ROWS = (5, 20)
 #: (sq, sk) a rung: causal with sq < sk, neither a multiple of 64
-SHAPES = {"short": (45, 70), "mid": (150, 230)}
+SHAPES = {"short": (45, 70), "mid": (150, 230), "flash": (150, 230)}
 
 
 def inputs(rung, d, seed):
@@ -83,8 +85,11 @@ def jax_run(rung, q, k, v, dout, dlse, ids, bias, drop):
         (out, lse), vjp = jax.vjp(f, *args)
         grads = vjp((jnp.asarray(dout), jnp.asarray(dlse)))
     else:
-        f = lambda q, k, v: jax_flash_attention(q, k, v, causal=True,
-                                                implementation="short", **kw)
+        if rung == "flash":
+            kw.update(implementation="pallas", block_q=64, block_k=64)
+        else:
+            kw.update(implementation="short")
+        f = lambda q, k, v: jax_flash_attention(q, k, v, causal=True, **kw)
         out, vjp = jax.vjp(f, *args)
         grads = vjp(jnp.asarray(dout))
     return np.asarray(out), [np.asarray(g) for g in grads]
@@ -106,8 +111,9 @@ def port_run(rung, q, k, v, dout, dlse, ids, bias, drop):
         torch.autograd.backward((out, lse), (torch.from_numpy(dout),
                                              torch.from_numpy(dlse)))
     else:
+        impl = "pallas" if rung == "flash" else "short"
         out = port_attention.flash_attention(tq, tk, tv, causal=True,
-                                             implementation="short", **kw)
+                                             implementation=impl, **kw)
         out.backward(torch.from_numpy(dout))
     return (out.detach().numpy(),
             [t.grad.numpy() for t in (tq, tk, tv)])
@@ -123,12 +129,13 @@ VARIANTS = {  # (ids, bias, dropout)
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
-@pytest.mark.parametrize("rung, d", [("short", 64), ("mid", 128)])
+@pytest.mark.parametrize("rung, d", [("short", 64), ("mid", 128),
+                                     ("flash", 64)])
 def test_plain_backward_matches_pallas_at_the_chip_checks_raggedness(
         rung, d, variant):
     """Causal, sq < sk, both ragged; ``variant`` adds the lonely row under
     packed ids, the bias-hidden rows, dropout, or all three; the mid rung
-    takes a real lse cotangent throughout."""
+    takes a real lse cotangent throughout (the flash rung has none)."""
     with_ids, with_bias, drop = VARIANTS[variant]
     q, k, v, dout, dlse, bias, ids = inputs(rung, d, seed=d + len(variant))
     ids = ids if with_ids else None
@@ -198,6 +205,34 @@ def test_chip_check_of_the_bf16_backward_runs_on_the_cpu(monkeypatch):
     chip_smoke.bwd_sm90_kernels(randn, torch.device("cpu"))
     assert lines[-1][0].startswith("  48 instance cases held")
     assert "short_bwd_seg_drop_dbias 0.000" in lines[-1][0]
+
+
+def test_chip_check_of_the_flash_bf16_backward_runs_on_the_cpu(monkeypatch):
+    """``chip_smoke.bwd_sm90_kernels`` at CPU size on one causal ragged
+    flash case: the two entries ``flash_bwd_dkv`` and ``flash_bwd_dq`` on
+    the flattened operands, with ``flash_delta`` and the plain forward's
+    lse, hold against ``_flash_bwd_plain`` at every instance (d = 64 and
+    128, 8 combinations and 4 dBias instances each), and each entry's
+    counter is reported under its own name."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "BWD_SM90_CASES", (
+        ("flash", 2, 2, 70, 111, True),))
+    monkeypatch.setattr(chip_smoke, "BIAS_MASKED_ROWS", (5, 20))
+    lines = []
+    monkeypatch.setattr(chip_smoke, "log", lambda *a: lines.append(a))
+    gen = torch.Generator().manual_seed(0)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen).to(dtype)
+
+    chip_smoke.bwd_sm90_kernels(randn, torch.device("cpu"))
+    assert lines[-1][0].startswith("  24 instance cases held")
+    for name in ("flash_bwd_dkv_seg_drop_bias 0.000",
+                 "flash_bwd_dq_seg_drop_dbias 0.000", "flash_bwd_dkv 0.000",
+                 "flash_bwd_dq_bias 0.000"):
+        assert name in lines[-1][0]
+    assert "flash_bwd_dkv_dbias" not in lines[-1][0]
 
 
 def test_profile_counts_the_hopper_kernels_as_attention(monkeypatch):

@@ -769,3 +769,32 @@ def test_bf16_backward_runs_the_hopper_kernels():
             assert word not in body, (kernel, word)
     for layout in ("struct DkvLayout {", "struct DqLayout {"):
         assert "kTC" not in _cuda_function(common, layout)
+
+
+def test_flash_bf16_backward_runs_the_hopper_kernels():
+    """The flash entries' bf16 backward launches the wgmma/TMA kernels of
+    ``csrc/attention_bwd_sm90.cuh``, each entry its own (``launch_dkv``
+    the dK/dV kernel, ``launch_dq`` the dQ kernel), and keeps the SIMT
+    kernels for fp32; no WMMA (tensor-core ``kTC``) path is left in
+    ``attention_flash.cu`` or ``attention_tiles.cuh``, and neither has
+    atomics: the same bits on every call."""
+    csrc = ROOT / "apex_tpu_torch" / "csrc"
+    flash = (csrc / "attention_flash.cu").read_text()
+    tiles = (csrc / "attention_tiles.cuh").read_text()
+    assert '#include "attention_bwd_sm90.cuh"' in flash
+    for launcher, mine, other, simt in (
+            ("cudaError_t launch_dkv(", "sm90::launch_dkv<", "launch_dq",
+             "flash_bwd_dkv_kernel<D, SEGS, DROP, BIAS>\n"),
+            ("cudaError_t launch_dq(", "sm90::launch_dq<", "launch_dkv",
+             "flash_bwd_dq_kernel<D, SEGS, DROP, BIAS, DBIAS>\n")):
+        body = _cuda_function(flash, launcher)
+        split = body.index("} else {")
+        bf16 = body[body.index("if constexpr (sizeof(T) == 2) {"):split]
+        assert mine in bf16 and other not in bf16, launcher
+        assert "_kernel" not in bf16, launcher
+        assert simt in body[split:], launcher
+    for name, src in (("attention_flash.cu", flash),
+                      ("attention_tiles.cuh", tiles)):
+        for word in ("kTC", "abT_tc", "ab_tc", "wmma", "nvcuda", "mma.h"):
+            assert word not in src, (name, word)
+        assert not re.search(r"atomic\w*\s*\(|\b(red|atom)\.", src), name

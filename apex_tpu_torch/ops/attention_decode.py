@@ -7,9 +7,14 @@ the reserved null page that unallocated page-table entries (and idle
 slots' writes) point at; ``lengths[b]`` counts the sequence's valid
 tokens INCLUDING the query rows (write-before-attend), and query row
 ``i`` sits at position ``lengths[b] - sq + i``.  The kernel
-(``csrc/attention_decode.cu``) notes its design: one block per
-(sequence, head) walking the sequence's pages, online softmax per warp,
-masked positions never read.
+(``csrc/attention_decode.cu``) notes its design: each sequence's walk
+split into spans of fixed absolute positions (:data:`DECODE_SPAN`,
+:data:`DECODE_ROWS_SPAN`), one block per (span, head, sequence[, row
+tile]), K/V streamed through shared memory, each block's unnormalised
+softmax state merged in span order by the last block of its group (an
+atomic ticket), masked positions never weighted.  The grid comes from
+the shapes alone (:func:`_split_plan`): the host reads neither the
+lengths nor the page table.
 
 Ported: fp32 and bf16 pages, and int8 pages with per-(token, kv_block)
 fp32 scales ``(num_pages, h, page_size, ceil(d / kv_block))``
@@ -22,9 +27,10 @@ path rounds the rotated q; the port follows the kernel).
 
 On the card four entries share the op, each counted under its own name:
 ``paged_decode`` / ``paged_decode_int8`` (up to ``FMHA_DECODE_MAX_SQ``
-rows, each warp's online softmax in registers, the decode step) and the
-many-row instance ``paged_decode_rows`` (up to 512 rows in tiles of 64, a
-block staging the cached K/V through shared memory: chunked prefill),
+rows, each warp's softmax state in registers, the decode step) and the
+many-row instance ``paged_decode_rows`` (up to 512 rows in tiles of at
+most :data:`DECODE_ROWS_TILE`, each row adding its visible tokens in
+position order: chunked prefill),
 which also takes every ``ancestor`` call as ``paged_decode_tree``
 (speculative verify, up to 31 rows).  No single PyTorch call computes
 attention over this paged layout, so the kernels have no library
@@ -40,7 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -73,6 +79,21 @@ FMHA_DECODE_MAX_ROWS = 512
 
 #: rows of a tree verify: each row's visibility is one int32 bitmask
 FMHA_DECODE_MAX_TREE_ROWS = 31
+
+#: positions of a sequence one block of the small kernel takes: block
+#: ``j`` takes ``[j * DECODE_SPAN, (j + 1) * DECODE_SPAN)``.  A constant
+#: (a multiple of 64, at most 512), never derived from the batch, the
+#: lengths or the card, so a row's result depends only on its positions
+DECODE_SPAN = 128
+
+#: the same for the many-row and tree instance
+DECODE_ROWS_SPAN = 128
+
+#: the most query rows a block of the many-row instance owns: a call of
+#: ``sq`` rows takes tiles of the least of 8, 16, 32 and 64 rows that
+#: holds them, at most this many; a narrower tile spreads its tokens over
+#: more of the block's warps (``csrc/attention_decode.cu``)
+DECODE_ROWS_TILE = 32
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -110,10 +131,26 @@ def paged_attention_reference(
     causal triangle: query row ``i`` sees the committed prefix (positions
     below ``lengths[b] - sq``) plus fresh row ``j`` iff
     ``ancestor[i][j]``, as the JAX reference does."""
+    scale = (1.0 / q.shape[-1] ** 0.5) if sm_scale is None else float(
+        sm_scale)
+    k, v, mask = _gather_masked(q, k_pages, v_pages, page_table, lengths,
+                                causal, k_scales, v_scales, kv_block,
+                                ancestor)
+    s = torch.matmul(q.float(), k.transpose(-1, -2)) * scale
+    s = s.masked_fill(~mask, _NEG_INF)
+    p = torch.softmax(s, dim=-1).masked_fill(~mask, 0.0)
+    return torch.matmul(p, v).to(q.dtype)
+
+
+def _gather_masked(q, k_pages, v_pages, page_table, lengths, causal,
+                   k_scales, v_scales, kv_block, ancestor):
+    """Each sequence's K and V, ``(b, h, pages_per_seq * page_size, d)``
+    fp32 (int8 pages dequantized; rows at or past ``lengths[b]`` zeroed),
+    and the mask ``(b, 1, sq, pages_per_seq * page_size)`` of the
+    positions each query row sees."""
     b, h, sq, d = q.shape
     num_pages = page_table.shape[1]
     page_size = k_pages.shape[2]
-    scale = (1.0 / d ** 0.5) if sm_scale is None else float(sm_scale)
     table = page_table.long()
     lengths = lengths.long()
 
@@ -127,9 +164,6 @@ def paged_attention_reference(
         x = x.transpose(1, 2).reshape(b, h, num_pages * page_size, d)
         return torch.where(live, x.float(), 0.0)
 
-    k = gather(k_pages, k_scales)
-    v = gather(v_pages, v_scales)
-    s = torch.matmul(q.float(), k.transpose(-1, -2)) * scale
     if ancestor is not None:
         amat = torch.as_tensor(ancestor, dtype=torch.bool, device=q.device)
         fresh = k_pos[None, None, :] - (lengths[:, None, None] - sq)
@@ -144,22 +178,144 @@ def paged_attention_reference(
     else:
         mask = (k_pos[None, :] < lengths[:, None])[:, None, :].expand(
             b, sq, -1)
-    mask = mask[:, None]                                      # (b,1,sq,K)
-    s = s.masked_fill(~mask, _NEG_INF)
-    p = torch.softmax(s, dim=-1).masked_fill(~mask, 0.0)
-    return torch.matmul(p, v).to(q.dtype)
+    return (gather(k_pages, k_scales), gather(v_pages, v_scales),
+            mask[:, None])                                    # (b,1,sq,K)
+
+
+class SplitPlan(NamedTuple):
+    """How a call splits over blocks, from its shapes alone: ``span``
+    positions a block, ``n_split`` spans a sequence, ``row_tile`` query
+    rows a block and ``tiles`` row tiles (the many-row instance; the small
+    kernel takes all ``sq`` rows in one), the launch ``grid`` (x, y, z),
+    the fp32 ``workspace`` elements of the blocks' partials and the int32
+    ``counters`` of the merge tickets (both 0 at one span)."""
+
+    span: int
+    n_split: int
+    row_tile: int
+    tiles: int
+    grid: tuple
+    workspace: int
+    counters: int
+
+
+def _split_plan(b: int, h: int, sq: int, d: int, page_size: int,
+                pages_per_seq: int, rows: bool) -> SplitPlan:
+    """The kernels' split of a call: ``n_split = ceil(pages_per_seq *
+    page_size / span)`` spans of ``span`` absolute positions (the small
+    kernel :data:`DECODE_SPAN`, the many-row instance
+    :data:`DECODE_ROWS_SPAN`), blocks (span, head, sequence), the
+    many-row instance's span axis times its ``ceil(sq / row_tile)`` row
+    tiles (``blockIdx.x = span + n_split * tile``).  Partials: ``(b, h, sq,
+    n_split)`` entries of ``d + 2`` floats (acc, then m and l); one
+    counter per (sequence, head[, tile]).  Takes no lengths: the launch
+    is the same whatever the sequences hold."""
+    return _plan(b, h, sq, d, page_size, pages_per_seq, rows,
+                 DECODE_ROWS_SPAN if rows else DECODE_SPAN, DECODE_ROWS_TILE)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(b, h, sq, d, page_size, pages_per_seq, rows, span,
+          max_tile) -> SplitPlan:
+    n_split = -(-page_size * pages_per_seq // span)
+    row_tile = sq
+    if rows:
+        row_tile = min([t for t in (8, 16, 32, 64) if t >= sq] + [max_tile])
+    tiles = -(-sq // row_tile)
+    split = n_split > 1
+    return SplitPlan(span, n_split, row_tile, tiles,
+                     (n_split * tiles, h, b),
+                     b * h * sq * n_split * (d + 2) if split else 0,
+                     b * h * tiles if split else 0)
+
+
+def _decode_split_plain(q, k_pages, v_pages, page_table, lengths, causal,
+                        scale, rope, k_scales=None, v_scales=None,
+                        kv_block=128, ancestor=None, *, span: int):
+    """A plain model of the kernels' span arithmetic: q rotated in fp32
+    (not rounded) and scaled first, as the kernels do, then for each span
+    ``j`` of ``span`` absolute positions its partial ``m_j`` (max of the
+    visible scores, -1e30 if none), ``l_j`` and ``acc_j`` (sums of
+    ``exp(s - m_j)`` and of its products with V over the visible tokens,
+    masked tokens selected away), merged in span order: ``M = max m_j``,
+    ``sum acc_j e^(m_j - M) / max(sum l_j e^(m_j - M), 1e-30)``.  Every
+    sum runs in a fixed order over elementwise operations, so a row's
+    output depends only on its own inputs, bit for bit.  Used by the tests
+    and ``chip_smoke.py``; nothing on the card's path runs it."""
+    b, h, sq, d = q.shape
+    qf = q.float()
+    if rope is not None:
+        cos, sin = (t.float()[:, None] for t in rope)
+        qf = apply_rope_tables(qf, cos, sin)
+    qf = qf * scale
+    k, v, mask = _gather_masked(q, k_pages, v_pages, page_table, lengths,
+                                causal, k_scales, v_scales, kv_block,
+                                ancestor)
+    n = -(-k.shape[2] // span)
+    pad = n * span - k.shape[2]
+    k, v = (torch.nn.functional.pad(x, (0, 0, 0, pad)).view(
+        b, h, n, span, d) for x in (k, v))
+    mask = torch.nn.functional.pad(mask, (0, pad)).view(b, 1, sq, n, span)
+    s = torch.zeros(b, h, sq, n, span, device=q.device)
+    for e in range(d):
+        s = s + qf[:, :, :, e, None, None] * k[:, :, None, :, :, e]
+    m = torch.where(mask, s, _NEG_INF).amax(-1)                # (b,h,sq,n)
+    # exp in fp64, rounded once: the same bits for an element whatever
+    # the tensor's shape
+    p = torch.where(mask, torch.exp((s - m[..., None]).double()).float(),
+                    0.0)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(b, h, sq, n, d, device=q.device)
+    for t in range(span):
+        l = l + p[..., t]
+        acc = acc + torch.where(mask[..., t, None],
+                                p[..., t, None] * v[:, :, None, :, t], 0.0)
+    top = m.amax(-1)                                           # (b,h,sq)
+    big_l = torch.zeros_like(top)
+    out = torch.zeros(b, h, sq, d, device=q.device)
+    for j in range(n):
+        f = torch.exp((m[..., j] - top).double()).float()
+        big_l = big_l + l[..., j] * f
+        out = out + acc[..., j, :] * f[..., None]
+    return (out / big_l.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
 #: the C entries' argument types: pointers (and the stream), ints, the
 #: softmax scale
 _ARGTYPES = {
-    KERNEL: [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+    KERNEL: [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [
         ctypes.c_float, ctypes.c_void_p],
-    KERNEL_INT8: [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [
+    KERNEL_INT8: [ctypes.c_void_p] * 12 + [ctypes.c_int] * 12 + [
         ctypes.c_float, ctypes.c_void_p],
-    KERNEL_ROWS: [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [
+    KERNEL_ROWS: [ctypes.c_void_p] * 13 + [ctypes.c_int] * 15 + [
         ctypes.c_float, ctypes.c_void_p],
 }
+
+#: the split's scratch, per (device, stream): the blocks' partials (fp32)
+#: and the merge tickets' int32 counters, one zeroed buffer the kernels
+#: leave at 0, so a call needs no memset.  Calls on one stream run in
+#: order and never share them.  A buffer outgrown is kept, not freed: a
+#: captured CUDA graph may still launch on it.
+_SCRATCH: dict = {}
+_RETIRED: list = []
+
+
+def _scratch(device: torch.device, stream, floats: int, counters: int):
+    """Pointers to ``floats`` fp32 of workspace and ``counters`` zeroed
+    int32 counters on ``device`` for kernels on ``stream``."""
+    key = (device.index, stream)
+    ws, cnt = _SCRATCH.get(key, (None, None))
+    if ws is None or ws.numel() < floats:
+        _RETIRED.append(ws)
+        ws = torch.empty(max(floats, 2 * (0 if ws is None else ws.numel())),
+                         dtype=torch.float32, device=device)
+    if cnt is None or cnt.numel() < counters:
+        _RETIRED.append(cnt)
+        cnt = torch.zeros(max(counters, 4096,
+                              2 * (0 if cnt is None else cnt.numel())),
+                          dtype=torch.int32, device=device)
+    _SCRATCH[key] = (ws, cnt)
+    return ws.data_ptr(), cnt.data_ptr()
 
 
 @functools.lru_cache(maxsize=None)
@@ -230,8 +386,16 @@ def _decode_cuda(q, k_pages, v_pages, page_table, lengths, causal, scale,
     pages = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
     sc = ((k_scales.data_ptr(), v_scales.data_ptr()) if int8
           else (None, None))
+    plan = _split_plan(b, h, sq, d, k_pages.shape[2], page_table.shape[1],
+                       rows)
+    stream = stream_of(q)
+    ws = cnt = None
+    if plan.n_split > 1:
+        ws, cnt = _scratch(q.device, stream.value, plan.workspace,
+                           plan.counters)
     geometry = (b, h, sq, d, k_pages.shape[2], page_table.shape[1])
     nb = k_scales.shape[-1] if int8 else 0
+    split = (plan.span, plan.n_split)
     if rows:
         # the tree's rows as int32 bitmasks (bit j of row i: row i sees
         # fresh row j), read by the C entry from host memory and passed
@@ -241,19 +405,20 @@ def _decode_cuda(q, k_pages, v_pages, page_table, lengths, causal, scale,
              for r in ancestor] if ancestor is not None else []))
         count_launch(kernel)
         err = fn(*pages, *sc, page_table.data_ptr(), lengths.data_ptr(),
-                 cos, sin, ctypes.addressof(bits), out.data_ptr(), *geometry,
-                 nb, int(kv_block), _DTYPES[q.dtype], int(int8), int(causal),
-                 0 if ancestor is None else sq, float(scale), stream_of(q))
+                 cos, sin, ctypes.addressof(bits), out.data_ptr(), ws, cnt,
+                 *geometry, nb, int(kv_block), _DTYPES[q.dtype], int(int8),
+                 int(causal), 0 if ancestor is None else sq, *split,
+                 plan.row_tile, float(scale), stream)
     elif int8:
         count_launch(KERNEL_INT8)
         err = fn(*pages, *sc, page_table.data_ptr(), lengths.data_ptr(), cos,
-                 sin, out.data_ptr(), *geometry, nb, int(kv_block),
-                 _DTYPES[q.dtype], int(causal), float(scale), stream_of(q))
+                 sin, out.data_ptr(), ws, cnt, *geometry, nb, int(kv_block),
+                 _DTYPES[q.dtype], int(causal), *split, float(scale), stream)
     else:
         count_launch(KERNEL)
         err = fn(*pages, page_table.data_ptr(), lengths.data_ptr(), cos, sin,
-                 out.data_ptr(), *geometry, _DTYPES[q.dtype], int(causal),
-                 float(scale), stream_of(q))
+                 out.data_ptr(), ws, cnt, *geometry, _DTYPES[q.dtype],
+                 int(causal), *split, float(scale), stream)
     check(lib, kernel, err)
     return out
 

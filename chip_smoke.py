@@ -26,7 +26,18 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
              instance at offramp_tree(4) (R=9) and chain_tree(4) (R=5)
              over 4 slots of 877 tokens, bf16, fp32, int8 pages and rope,
              and the many-row instance at the decode step's 1 and 4 rows
-             beside the small kernel that serves them; the softmax kernel at (8, 8, 1024, 1024), causal and with a
+             beside the small kernel that serves them; the decode
+             kernels' span split (each sequence's positions in spans of
+             fixed absolute positions, one block each, merged in span
+             order by the last block: span, spans, grid and workspace
+             bytes logged, a 512-row chunk's among them): every entry at
+             lengths on the span edges beside an idle slot in a pool
+             whose pages_per_seq runs far past them, bf16/fp32, int8
+             pages, rope, causal or not, the tree mask, d = 64 and 128,
+             pages of 16 and 64, NaN on the null page, held against the
+             plain version and the plain model of the spans, the same
+             bits twice; and serve-long's decode layout (4 x 2300) with
+             and without rope, held and timed; the softmax kernel at (8, 8, 1024, 1024), causal and with a
              padding mask, beside torch.softmax on the pre-scaled input;
              the seven segment-id variants (BERT's key padding, packed
              documents, and fmha's padding, whose fully masked query rows
@@ -418,7 +429,6 @@ def phase_build() -> str:
 
 # ---------------------------------------------------------------- phase 2
 def phase_kernels(dev) -> dict:
-    from apex_tpu_torch.ops import attention_decode as dec
     from apex_tpu_torch.ops import attention_short as short
     from apex_tpu_torch.ops import layer_norm as ln
     import torch.nn.functional as F
@@ -488,6 +498,34 @@ def phase_kernels(dev) -> dict:
 
     records.update(attention_train_kernels(randn))
 
+    records.update(decode_kernels(randn, dev))
+    records.update(flash_kernels(randn))
+    crossover_long(randn)
+    records.update(dequant_kernels(randn))
+    records.update(decode_int8_kernels(randn, dev))
+    records.update(decode_rows_kernels(randn, dev))
+    for name, recs in decode_split_kernels(randn, dev).items():
+        records[name].extend(recs)
+    records.update(softmax_kernels(randn))
+    records.update(segment_kernels(randn))
+    records.update(dropout_kernels(randn))
+    records.update(bias_kernels(randn))
+    records.update(dbias_kernels(randn))
+    fwd_sm90_kernels(randn, dev)
+    bwd_sm90_kernels(randn, dev)
+    return records
+
+
+def decode_kernels(randn, dev) -> dict:
+    """``paged_decode`` against its plain version at the decode step's
+    4-slot layout (lengths 0/1/300/576, pages of 64, NaN on the null
+    page), fp32 and bf16, sq 1 and 4, beside the many-row instance at the
+    same layout, then with the fused q-RoPE."""
+    from apex_tpu_torch.ops import attention_decode as dec
+
+    records = {}
+    heads = FLAGSHIP["num_attention_heads"]
+    d = FLAGSHIP["hidden_size"] // heads
     # -- paged decode: 4 slots, 9 pages of 64, ragged incl. idle --------
     log("[kernels] paged_decode (CUDA), 4 slots h=8 d=128 page 64 x 9")
     page, pps = 64, 9
@@ -569,18 +607,6 @@ def phase_kernels(dev) -> dict:
                     q, kp, vp, table, lengths))
                 log(f"  paged_decode bf16 sq=1: {with_rope:.4f} ms with the "
                     f"fused q-RoPE, {without:.4f} ms without")
-    records.update(flash_kernels(randn))
-    crossover_long(randn)
-    records.update(dequant_kernels(randn))
-    records.update(decode_int8_kernels(randn, dev))
-    records.update(decode_rows_kernels(randn, dev))
-    records.update(softmax_kernels(randn))
-    records.update(segment_kernels(randn))
-    records.update(dropout_kernels(randn))
-    records.update(bias_kernels(randn))
-    records.update(dbias_kernels(randn))
-    fwd_sm90_kernels(randn, dev)
-    bwd_sm90_kernels(randn, dev)
     return records
 
 
@@ -729,6 +755,164 @@ def decode_int8_kernels(randn, dev) -> dict:
                     q, kb, vb, table, lens))
                 log(f"  paged_decode over bf16 pages, same layout: "
                     f"{bf16_ms:.4f} ms on the device")
+    return records
+
+
+#: the split decode kernels' span-edge cases in phase 2: (label, entry,
+#: lengths, page size, pages a slot, query rows, head dim, causal, tree);
+#: lengths sit at a span's last position, the next span's first two and
+#: two spans on, beside an idle slot, in a pool whose pages_per_seq runs
+#: far past them (most spans empty)
+def split_cases(span: int, rows_span: int) -> tuple:
+    edges = [span - 1, span, span + 1, 2 * span + 1]
+    rows_edges = [rows_span - 1, rows_span, rows_span + 1, 2 * rows_span + 1]
+    return (
+        ("small, pages of 64", "paged_decode", [0] + edges, 64, 40, 1, 128,
+         True, None),
+        ("small, 4 rows", "paged_decode", [0] + edges, 64, 40, 4, 128, True,
+         None),
+        ("small, not causal, d=64", "paged_decode", [0] + edges, 64, 40, 4,
+         64, False, None),
+        ("small, pages of 16", "paged_decode", [0] + edges, 16, 160, 1, 128,
+         True, None),
+        ("many rows (2 tiles)", "paged_decode_rows", rows_edges, 64, 40, 72,
+         128, True, None),
+        ("many rows, not causal, d=64", "paged_decode_rows", rows_edges, 16,
+         160, 9, 64, False, None),
+        ("tree, offramp_tree(4)", "paged_decode_tree", [0] + rows_edges, 16,
+         160, 9, 128, True, "offramp"),
+    )
+
+
+#: serve-long's decode layout: 4 slots of 2300 cached tokens, pages 64 x 37
+SERVE_LONG_DECODE = ([2300] * 4, 64, 37)
+
+
+def decode_split_kernels(randn, dev) -> dict:
+    """The span split of the decode kernels (``csrc/attention_decode.cu``):
+    the split of each entry at phase 2's shapes and at a 512-row chunk
+    (span, spans, grid, workspace bytes); every entry at :func:`split_cases`
+    (bf16 and fp32 pages, int8 pages, the fused q-RoPE, causal or not,
+    the tree mask, d = 64 and 128, pages of 16 and 64, an idle slot, NaN
+    on the null page) against its plain version and against the plain
+    model of the spans (``_decode_split_plain``), at :func:`tolerance`,
+    and the same bits twice; then serve-long's decode layout
+    (:data:`SERVE_LONG_DECODE`) with and without the rope, held and
+    timed."""
+    from apex_tpu_torch.ops import attention_decode as dec
+    from apex_tpu_torch.ops.quantization import quantize_rows
+    from apex_tpu_torch.ops.rope import rope_table
+    from apex_tpu_torch.serving.speculate import offramp_tree, tree_ancestors
+
+    heads = FLAGSHIP["num_attention_heads"]
+    span, rows_span = dec.DECODE_SPAN, dec.DECODE_ROWS_SPAN
+    log(f"[kernels] the decode split: spans of {span} positions (small "
+        f"kernel), {rows_span} (many-row instance)")
+    for what, b, sq, page, pps, rows in (
+            ("paged_decode, 4 slots x 877", 4, 1, 64, 9, False),
+            ("paged_decode, serve-long 4 x 2300", 4, 1, 64, 37, False),
+            ("paged_decode_rows, C=256 over 512", 1, 256, 64, 8, True),
+            ("paged_decode_tree, 4 x 877, R=9", 4, 9, 64, 14, True),
+            ("paged_decode_rows, C=512, pages 64 x 37", 1, 512, 64, 37,
+             True)):
+        plan = dec._split_plan(b, heads, sq, 128, page, pps, rows)
+        log(f"  {what}: span {plan.span}, n_split {plan.n_split}, grid "
+            f"{plan.grid}, workspace {4 * plan.workspace} bytes, "
+            f"{plan.counters} counters")
+
+    def held(name, what, run, plain, model):
+        got = run()
+        if not torch.isfinite(got).all():
+            fail(f"{name} {what}: non-finite output")
+        err = check(name, got, plain(), what)
+        check(name, got, model(), what + " vs the span model")
+        if not torch.equal(got, run()):
+            fail(f"{name} {what}: two calls gave different bits")
+        return got, err
+
+    for label, name, lengths, page, pps, sq, d, causal, tree in split_cases(
+            span, rows_span):
+        table, lens, num_pages = paged_layout(lengths, page, pps, dev)
+        anc = None if tree is None else tree_ancestors(offramp_tree(4))
+        anc_dev = None if anc is None else torch.tensor(
+            anc, dtype=torch.bool, device=dev)
+        cos_t, sin_t = rope_table(pps * page, d, device=dev)
+        pos = (lens[:, None].long() - sq
+               + torch.arange(sq, device=dev)).clamp_min(0)
+        rope = (cos_t[pos], sin_t[pos])
+        int8 = []
+        for _ in range(2):
+            vals, sc = quantize_rows(randn(num_pages * heads * page, d), 64)
+            int8.append((vals.view(num_pages, heads, page, d),
+                         sc.view(num_pages, heads, page, -1)))
+        (k8, ks), (v8, vs) = int8
+        every = "/".join(map(str, lengths))
+        for dtype in (torch.bfloat16, torch.float32):
+            kp = randn(num_pages, heads, page, d, dtype=dtype)
+            vp = randn(num_pages, heads, page, d, dtype=dtype)
+            kp[0] = float("nan")        # garbage on the null page stays out
+            vp[0] = float("nan")
+            q = randn(len(lengths), heads, sq, d, dtype=dtype)
+            scale = d ** -0.5
+            for extra, kw in (("", {}), (", rope", dict(rope=rope)),
+                              (", int8 pages (kv_block 64)", dict(
+                                  k_pages=k8, v_pages=v8, k_scales=ks,
+                                  v_scales=vs, kv_block=64))):
+                args = dict(dict(k_pages=kp, v_pages=vp), **kw)
+                entry = ("paged_decode_int8" if name == "paged_decode"
+                         and "k_scales" in kw else name)
+                call = (q, args["k_pages"], args["v_pages"], table, lens,
+                        causal, scale, args.get("rope"),
+                        args.get("k_scales"), args.get("v_scales"),
+                        args.get("kv_block", 128))
+                got, _ = held(
+                    entry, f"{label}, lengths {every}, page {page} x {pps}, "
+                    f"sq={sq} d={d} {str(dtype)[6:]}{extra}",
+                    lambda: dec.fmha_decode(
+                        *call[:5], causal=causal, rope=call[7],
+                        k_scales=call[8], v_scales=call[9],
+                        kv_block=call[10], ancestor=anc),
+                    lambda: dec._decode_plain(*call, anc_dev),
+                    lambda: dec._decode_split_plain(
+                        *call, anc_dev, span=rows_span if name != \
+                        "paged_decode" else span))
+                if lengths[0] == 0 and got[0].abs().max().item() != 0.0:
+                    fail(f"{entry} {label}: the idle slot's row is not 0")
+
+    log(f"[kernels] paged_decode at serve-long's decode layout, 4 x 2300, "
+        f"h={heads} d=128 page 64 x 37")
+    records = {}
+    lengths, page, pps = SERVE_LONG_DECODE
+    table, lens, num_pages = paged_layout(lengths, page, pps, dev)
+    cos_t, sin_t = rope_table(pps * page, 128, device=dev)
+    toks = sum(lengths)
+    for dtype in (torch.bfloat16, torch.float32):
+        kp = randn(num_pages, heads, page, 128, dtype=dtype)
+        vp = randn(num_pages, heads, page, 128, dtype=dtype)
+        for sq in (1, 4):
+            q = randn(4, heads, sq, 128, dtype=dtype)
+            pos = lens[:, None].long() - sq + torch.arange(sq, device=dev)
+            for extra, rope in (("", None), (" with rope",
+                                             (cos_t[pos], sin_t[pos]))):
+                call = (q, kp, vp, table, lens, True, 128 ** -0.5, rope)
+                run = (lambda call=call: dec.fmha_decode(
+                    *call[:5], rope=call[7]))
+                plain = (lambda call=call: dec._decode_plain(*call))
+                _, err = held("paged_decode", f"4 x 2300 sq={sq} "
+                              f"{str(dtype)[6:]}{extra}", run, plain,
+                              lambda call=call: dec._decode_split_plain(
+                                  *call, span=span))
+                if dtype != torch.bfloat16 or sq != 1:
+                    continue
+                records.setdefault("paged_decode", []).append(measure(
+                    "paged_decode",
+                    f"4 slots x 2300, h={heads} d=128 page=64 bf16{extra}",
+                    err, run, plain, None,
+                    nbytes=2 * q.numel() * q.element_size()
+                    + 2 * toks * heads * 128 * kp.element_size()
+                    + table.numel() * 4 + lens.numel() * 4
+                    + (0 if rope is None else 2 * 4 * rope[0].numel()),
+                    ops=4.0 * 128 * heads * toks, dtype=dtype))
     return records
 
 

@@ -52,7 +52,7 @@ import torch
 
 from apex_tpu_torch.ops.common import (
     check, check_implementation, check_operands, count_launch, load,
-    stream_of,
+    split_scratch, stream_of,
 )
 from apex_tpu_torch.ops.rope import apply_rope_tables
 
@@ -291,33 +291,6 @@ _ARGTYPES = {
         ctypes.c_float, ctypes.c_void_p],
 }
 
-#: the split's scratch, per (device, stream): the blocks' partials (fp32)
-#: and the merge tickets' int32 counters, one zeroed buffer the kernels
-#: leave at 0, so a call needs no memset.  Calls on one stream run in
-#: order and never share them.  A buffer outgrown is kept, not freed: a
-#: captured CUDA graph may still launch on it.
-_SCRATCH: dict = {}
-_RETIRED: list = []
-
-
-def _scratch(device: torch.device, stream, floats: int, counters: int):
-    """Pointers to ``floats`` fp32 of workspace and ``counters`` zeroed
-    int32 counters on ``device`` for kernels on ``stream``."""
-    key = (device.index, stream)
-    ws, cnt = _SCRATCH.get(key, (None, None))
-    if ws is None or ws.numel() < floats:
-        _RETIRED.append(ws)
-        ws = torch.empty(max(floats, 2 * (0 if ws is None else ws.numel())),
-                         dtype=torch.float32, device=device)
-    if cnt is None or cnt.numel() < counters:
-        _RETIRED.append(cnt)
-        cnt = torch.zeros(max(counters, 4096,
-                              2 * (0 if cnt is None else cnt.numel())),
-                          dtype=torch.int32, device=device)
-    _SCRATCH[key] = (ws, cnt)
-    return ws.data_ptr(), cnt.data_ptr()
-
-
 @functools.lru_cache(maxsize=None)
 def _entry(symbol: str = KERNEL):
     """The loaded library and its C entry, typed once."""
@@ -391,7 +364,7 @@ def _decode_cuda(q, k_pages, v_pages, page_table, lengths, causal, scale,
     stream = stream_of(q)
     ws = cnt = None
     if plan.n_split > 1:
-        ws, cnt = _scratch(q.device, stream.value, plan.workspace,
+        ws, cnt = split_scratch(q.device, stream.value, plan.workspace,
                            plan.counters)
     geometry = (b, h, sq, d, k_pages.shape[2], page_table.shape[1])
     nb = k_scales.shape[-1] if int8 else 0

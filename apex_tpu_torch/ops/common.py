@@ -38,7 +38,7 @@ import torch
 __all__ = [
     "KernelUnavailable", "build", "load", "check", "count_launch",
     "launch_counts", "reset_launch_counts", "stream_of", "check_operands",
-    "check_implementation", "KERNEL_SOURCES", "as_int32",
+    "check_implementation", "KERNEL_SOURCES", "as_int32", "split_scratch",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -182,6 +182,35 @@ def as_int32(word: int) -> int:
     take it."""
     word = int(word) & 0xFFFFFFFF
     return word - (1 << 32) if word >= (1 << 31) else word
+
+
+#: the split kernels' scratch, per (device, stream): fp32 partials and the
+#: merge tickets' int32 counters, one zeroed buffer the kernels leave at 0,
+#: so a call needs no memset.  Calls on one stream run in order and never
+#: share them.  A buffer outgrown is kept, not freed: a captured CUDA graph
+#: may still launch on it.
+_SCRATCH: Dict = {}
+_RETIRED: List = []
+
+
+def split_scratch(device: torch.device, stream, floats: int,
+                  counters: int):
+    """Pointers to ``floats`` fp32 of workspace and ``counters`` zeroed
+    int32 counters on ``device`` for kernels on ``stream`` (the paged
+    decode's and the dequant matmul's k split)."""
+    key = (device.index, stream)
+    ws, cnt = _SCRATCH.get(key, (None, None))
+    if ws is None or ws.numel() < floats:
+        _RETIRED.append(ws)
+        ws = torch.empty(max(floats, 2 * (0 if ws is None else ws.numel())),
+                         dtype=torch.float32, device=device)
+    if cnt is None or cnt.numel() < counters:
+        _RETIRED.append(cnt)
+        cnt = torch.zeros(max(counters, 4096,
+                              2 * (0 if cnt is None else cnt.numel())),
+                          dtype=torch.int32, device=device)
+    _SCRATCH[key] = (ws, cnt)
+    return ws.data_ptr(), cnt.data_ptr()
 
 
 def check_operands(kernel: str, *tensors: torch.Tensor) -> None:

@@ -1,5 +1,5 @@
 """Weight-dequantizing matmul: ``x @ dequant(W)`` from int8 or packed int4
-weight pools — a CUDA kernel and its plain version.
+weight pools — CUDA kernels and their plain version.
 
 Replaces ``apex_tpu/ops/dequant_matmul.py::_int8_kernel`` and
 ``_int4_kernel``.  Layout as in the JAX package:
@@ -11,29 +11,41 @@ Replaces ``apex_tpu/ops/dequant_matmul.py::_int8_kernel`` and
   ``c + n/2``), ``scales (k, n / block) fp32``, ``n`` a multiple of
   ``2 * block`` so each half holds whole scale blocks.
 
-The kernel (``csrc/dequant_matmul.cu``, which notes its design) upcasts x
-to fp32, dequantizes each weight element in fp32 with its own (row,
-block) scale, sums in fp32 and rounds once to x's dtype, as the Pallas
-bodies do; it never writes the wide matrix to device memory.  Up to
-:data:`SKINNY_MAX_M` rows (decode) it streams the weights with k split
-across blocks and the splits added in a fixed order by a second launch;
-above that (prefill) it tiles rows and columns.  The plain version,
-:func:`dequant_matmul_reference`, materializes the wide fp32 matrix and
-runs one product.  No single PyTorch call takes block-scaled int8/int4
-weights, so the kernel has no library yardstick.
+The kernels (``csrc/dequant_matmul.cu``, which notes their design)
+dequantize each weight element in fp32 with its own (row, block) scale,
+sum the products in fp32 and round once to x's dtype, as the Pallas
+bodies do; none writes the wide matrix to device memory.
+:func:`dequant_plan` picks one from the shapes and x's dtype alone:
+
+- ``decode`` (up to :data:`SKINNY_MAX_M` rows): fp32 FMAs on the CUDA
+  cores over a ``cp.async`` ring of weight rows, k split to fill the SMs;
+- ``wgmma`` (more rows, bf16 x): the tensor cores, each dequantized
+  weight split into ``bf16(w)`` and ``bf16(w - bf16(w))`` and both
+  products accumulated in fp32, so the result is the fp32 sum to far
+  less than a bf16 ulp;
+- ``tiled`` (more rows, fp32 x, or bf16 x over int4 weights whose
+  ``n / 2`` is not a multiple of 16): fp32 FMAs on the CUDA cores.
+
+A k split is merged inside the same launch: the last block of an output
+tile adds the partials in split order (an ``atomicAdd`` ticket on a
+counter the kernel leaves at 0), so every call is one launch and repeats
+bit for bit.  The plain version, :func:`dequant_matmul_reference`,
+materializes the wide fp32 matrix and runs one product.  No single
+PyTorch call takes block-scaled int8/int4 weights, so the kernels have no
+library yardstick.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
 from apex_tpu_torch.ops.common import (
     check, check_implementation, check_operands, count_launch, load,
-    stream_of,
+    split_scratch, stream_of,
 )
 from apex_tpu_torch.ops.quantization import (
     dequantize_rows,
@@ -55,31 +67,123 @@ __all__ = [
 #: launch counters, one per weight width
 KERNELS = {"int8": "dequant_int8", "int4": "dequant_int4"}
 
-#: rows the decode kernel takes; more rows go to the tiled kernel
+#: rows the decode kernel takes; more rows go to a prefill kernel
 SKINNY_MAX_M = 8
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_REGIMES = {"decode": 0, "wgmma": 1, "tiled": 2}
+
+#: the wgmma kernel's token tiles (its instances), the k rows of a slab
+WGMMA_TILES = (32, 64, 128, 144, 256)
+_WG_K = 64
+#: the decode kernel's largest k slice (its x slice sits in shared memory)
+_DECODE_MAX_KC = 1024
+#: the wgmma plan's cost model, fitted on an H100: a wave of blocks takes
+#: 6.34e-5 us per k row per (token of the tile + 217), the 217 being the
+#: A fragments' dequantization (``tools/dequant_ab.py --tiles``, qkv and
+#: fc2 at 2304 tokens, every tile); a k split adds the ticket (3 us) and
+#: the last block's read of every split's fp32 tile, about 20 GB/s for one
+#: block (fc1 at 256 tokens: 128-token tiles split in two took 34.6 us
+#: against 21.0 for 64-token tiles whole)
+_US_PER_ROW_TOKEN = 6.34e-5
+_ROW_OVERHEAD = 217
+_SPLIT_US = 3.0
+_MERGE_US_PER_BYTE = 1 / 2.0e4
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def _round_up(x: int, to: int) -> int:
-    return -(-x // to) * to
+    return _cdiv(x, to) * to
 
 
-def split_plan(m: int, k: int, n: int, sms: int):
-    """``(kc, splits)``: the k rows of one block and the number of k
-    splits, so that the column (and row) tiles times the splits give the
-    ``sms`` multiprocessors work.  Decode blocks own 256 output columns
-    and at most 256 k rows (their x slice sits in shared memory), about
-    two blocks per SM; prefill blocks own 128 x 128 outputs and split k
-    only when the tiles alone leave SMs idle."""
+class DequantPlan(NamedTuple):
+    """How a call runs, from its shapes and x's dtype alone: the
+    ``regime`` (``"decode"``, ``"wgmma"`` or ``"tiled"``), the wgmma
+    kernel's token ``tile`` (0 otherwise), ``kc`` k rows a split and
+    ``splits`` of them, the launch ``grid`` (x: feature tiles of 128;
+    y: token tiles, absent in decode; last: the splits), the fp32
+    ``workspace`` elements of the partials ``(splits, m, n)`` and the int32
+    ``counters`` of the merge tickets, one per output tile (both 0 at one
+    split)."""
+
+    regime: str
+    tile: int
+    kc: int
+    splits: int
+    grid: tuple
+    workspace: int
+    counters: int
+
+
+def _wgmma_cost(m, k, tile, splits, feature_tiles, sms):
+    """``(us, kc, splits)`` of the cost model below."""
+    kc = _round_up(_cdiv(k, splits), _WG_K)
+    splits = _cdiv(k, kc)
+    units = feature_tiles * _cdiv(m, tile) * splits
+    us = (_cdiv(units, sms) * kc * (tile + _ROW_OVERHEAD)
+          * _US_PER_ROW_TOKEN)
+    if splits > 1:
+        us += _SPLIT_US + splits * tile * 128 * 4 * _MERGE_US_PER_BYTE
+    return us, kc, splits
+
+
+@functools.lru_cache(maxsize=4096)
+def dequant_plan(m: int, k: int, n: int, weight_dtype: str,
+                 x_dtype: torch.dtype, sms: int) -> DequantPlan:
+    """The kernels' plan of a call.  Every block owns 128 output features
+    (int8 columns, or 64 packed int4 columns and their high nibbles).
+
+    - ``decode`` (m <= :data:`SKINNY_MAX_M`): blocks (feature tile, split);
+      ``floor(sms / tiles)`` splits wanted (one block an SM), ``kc``
+      rounded up to 16 and at most 1024 rows.
+    - ``wgmma`` (bf16 x; int4 needs ``n / 2 % 16 == 0``, TMA's 16-byte
+      row stride): blocks (feature tile, token tile, split); the token
+      tile from :data:`WGMMA_TILES` and the splits (``kc`` a multiple of
+      64) that minimise a cost model: waves over ``sms`` times ``kc *
+      (tile + 217)``, plus the merge when k is split (the last block of a
+      tile reads every split's fp32 tile).
+    - ``tiled``: blocks (feature tile, 128-row tile, split); k split only
+      when the tiles alone leave SMs idle (``kc`` a multiple of 32, at
+      least 256).
+
+    Neither the data nor the lengths enter: a launch can be captured in a
+    CUDA graph."""
+    int4 = weight_dtype == "int4"
+    nq = n // 2 if int4 else n
+    ftiles = _cdiv(nq, 64 if int4 else 128)
     if m <= SKINNY_MAX_M:
-        tiles = -(-n // 256)
-        kc = -(-k // max(1, -(-2 * sms // tiles)))
-        kc = min(256, max(32, _round_up(kc, 16)))
+        regime, tile = "decode", 0
+        want = max(1, sms // ftiles)
+        kc = min(_DECODE_MAX_KC, _round_up(_cdiv(k, want), 16))
+        splits = _cdiv(k, kc)
+        grid = (ftiles, splits)
+    elif x_dtype == torch.bfloat16 and not (int4 and nq % 16):
+        regime = "wgmma"
+        best = None
+        for tile in WGMMA_TILES:
+            for s in range(1, min(16, _cdiv(k, _WG_K)) + 1):
+                us, kc, splits = _wgmma_cost(m, k, tile, s, ftiles, sms)
+                key = (us, splits, -tile)
+                if best is None or key < best[0]:
+                    best = (key, tile, kc, splits)
+        _, tile, kc, splits = best
+        grid = (ftiles, _cdiv(m, tile), splits)
     else:
-        want = -(-sms // (-(-n // 128) * -(-m // 128)))
+        regime, tile = "tiled", 0
+        tiles = ftiles * _cdiv(m, 128)
+        want = _cdiv(sms, tiles)
         kc = (_round_up(k, 32) if want <= 1
-              else max(256, _round_up(-(-k // want), 32)))
-    return kc, -(-k // kc)
+              else max(256, _round_up(_cdiv(k, want), 32)))
+        splits = _cdiv(k, kc)
+        grid = (ftiles, _cdiv(m, 128), splits)
+    tiles = 1
+    for g in grid[:-1]:
+        tiles *= g
+    split = splits > 1
+    return DequantPlan(regime, tile, kc, splits, grid,
+                       splits * m * n if split else 0, tiles if split else 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -92,7 +196,7 @@ def _entry(symbol: str = "dequant_matmul"):
     """The loaded library and its C entry, typed once."""
     lib = load("dequant_matmul")
     fn = getattr(lib, symbol)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
@@ -102,11 +206,15 @@ def dequant_matmul_reference(x, qweight, scales, *, weight_dtype,
                              block_size):
     """The plain version: dequantize the wide fp32 matrix, one fp32
     product, the result in ``x``'s dtype."""
+    return torch.matmul(x.to(torch.float32),
+                        _dequantized(qweight, scales, weight_dtype,
+                                     block_size)).to(x.dtype)
+
+
+def _dequantized(qweight, scales, weight_dtype, block_size):
     if weight_dtype == "int8":
-        w = dequantize_rows(qweight, scales, block_size)
-    else:
-        w = dequantize_rows(unpack_int4(qweight), scales, block_size)
-    return torch.matmul(x.to(torch.float32), w).to(x.dtype)
+        return dequantize_rows(qweight, scales, block_size)
+    return dequantize_rows(unpack_int4(qweight), scales, block_size)
 
 
 def _dequant_cuda(x, qweight, scales, weight_dtype, bs):
@@ -132,16 +240,20 @@ def _dequant_cuda(x, qweight, scales, weight_dtype, bs):
     for t in (x, qweight):
         if t.data_ptr() % 16:
             raise ValueError(f"{kernel}: operand not 16-byte aligned")
-    kc, splits = split_plan(m, k, n, _sm_count(x.device.index))
+    plan = dequant_plan(m, k, n, weight_dtype, x.dtype,
+                        _sm_count(x.device.index))
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    work = (torch.empty((splits, m, n), dtype=torch.float32,
-                        device=x.device) if splits > 1 else None)
+    stream = stream_of(x)
+    ws = cnt = None
+    if plan.splits > 1:
+        ws, cnt = split_scratch(x.device, stream.value, plan.workspace,
+                           plan.counters)
     lib, fn = _entry()
     count_launch(kernel)
     err = fn(x.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
-             out.data_ptr(), None if work is None else work.data_ptr(),
-             m, k, n, bs, int(int4), _DTYPES[x.dtype], kc, splits,
-             stream_of(x))
+             out.data_ptr(), ws, cnt, m, k, n, bs, int(int4),
+             _DTYPES[x.dtype], _REGIMES[plan.regime], plan.tile, plan.kc,
+             plan.splits, stream)
     check(lib, kernel, err)
     return out
 

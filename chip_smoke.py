@@ -399,6 +399,44 @@ def sm90_instances(text: str) -> dict:
     return found
 
 
+#: the dequant kernels' template arguments in a mangled name: the decode
+#: kernel <T, MT, INT4>, the wgmma kernel <N, INT4>, the tiled one <T, INT4>
+_DEQUANT_KERNELS = re.compile(
+    r"dequant_(decode|wgmma|tiled)I(?:(13__nv_bfloat16|f)|Li(\d+)E)"
+    r"(?:Li(\d+)E)?Lb(\d)E")
+
+
+def dequant_instances(text: str) -> dict:
+    """``{instance: (registers, spill-store bytes)}`` of the dequant
+    kernels (``dequant_decode<T, MT, INT4>``, ``dequant_wgmma<N, INT4>``,
+    ``dequant_tiled<T, INT4>``) from ``nvcc -Xptxas -v`` output."""
+    found, current = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = None
+            t = _DEQUANT_KERNELS.search(m.group(1))
+            if t:
+                kind, dtype, tile, rows, int4 = t.groups()
+                x = "" if dtype is None else (
+                    " bf16 x" if dtype.endswith("bfloat16") else " fp32 x")
+                current = (f"dequant_{kind}{x}"
+                           + (f" {tile}-token tiles" if tile else "")
+                           + (f" {rows} rows" if rows else "")
+                           + (" int4" if int4 == "1" else " int8"))
+                found[current] = (0, 0)
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            found[current] = (found[current][0], int(m.group(1)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found[current] = (int(m.group(1)), found[current][1])
+    return found
+
+
 def phase_build() -> str:
     from apex_tpu_torch.ops import common
 
@@ -416,6 +454,9 @@ def phase_build() -> str:
             f"{max(regs, default=0)} registers a thread, {spills} bytes "
             "of spill stores")
         for inst, (nregs, nspill) in sm90_instances(text).items():
+            log(f"    {name} {inst}: {nregs} registers, "
+                f"{nspill} bytes of spill stores")
+        for inst, (nregs, nspill) in dequant_instances(text).items():
             log(f"    {name} {inst}: {nregs} registers, "
                 f"{nspill} bytes of spill stores")
     smi = subprocess.run(
@@ -611,64 +652,142 @@ def decode_kernels(randn, dev) -> dict:
 
 
 #: the flagship's projections (k, n) at the decode shape (m = 4 slots),
-#: fc1 at a 512-token prefill, and qkv and fc2 at serve-quant-long's
-#: 2304-token prefill
+#: qkv at a tree verify (4 slots of offramp_tree(4)'s 9 rows), fc1 at a
+#: 256-token chunk and a 512-token prefill, and qkv and fc2 at
+#: serve-quant-long's 2304-token prefill
 DEQUANT_SHAPES = (("qkv", 4, 1024, 3072), ("attn_proj", 4, 1024, 1024),
                   ("fc1", 4, 1024, 4096), ("fc2", 4, 4096, 1024),
+                  ("qkv", 36, 1024, 3072), ("fc1", 256, 1024, 4096),
                   ("fc1", 512, 1024, 4096), ("qkv", 2304, 1024, 3072),
                   ("fc2", 2304, 4096, 1024))
+
+#: the store paths phase 2 must reach, by the plan's regime, x's dtype
+#: (the tiled kernel has both) and whether k is split
+DEQUANT_REQUIRED = ("decode, one split, direct store", "decode, ticket merge",
+                    "wgmma bf16, direct store", "wgmma bf16, ticket merge",
+                    "fp32 tiled, direct store", "fp32 tiled, ticket merge",
+                    "bf16 tiled, direct store")
+
+#: the share of bf16 outputs that may differ from the plain version's: a
+#: kernel that sums the fp32 products and rounds once differs only where
+#: the two orders of summation fall on either side of a rounding boundary
+#: (about 0.3% of the outputs); one bf16 pass over the weights (each w
+#: rounded to 8 bits) moves about 40% of them
+DEQUANT_FLIP_LIMIT = 0.01
+
+
+def dequant_path(plan, dtype) -> str:
+    """The store path of a call: its kernel and whether k is split."""
+    kernel = {"decode": "decode", "wgmma": "wgmma bf16"}.get(
+        plan.regime,
+        "bf16 tiled" if dtype == torch.bfloat16 else "fp32 tiled")
+    if plan.splits > 1:
+        return f"{kernel}, ticket merge"
+    return f"{kernel}, one split, direct store" if plan.regime == "decode" \
+        else f"{kernel}, direct store"
+
+
+def bf16_flips(got, want) -> float:
+    """The share of the elements of two bf16 results that differ."""
+    return (got != want).float().mean().item()
+
+
+def check_rounded_once(kernel: str, got, plain, one_pass, what: str) -> None:
+    """A bf16 result must be the fp32 sum rounded once: no more than
+    :data:`DEQUANT_FLIP_LIMIT` of its elements off the plain version's.
+    ``one_pass``, the same product from weights rounded to bf16, must
+    miss that limit, or the check could not tell the two apart."""
+    flips, alone = bf16_flips(got, plain), bf16_flips(one_pass, plain)
+    if alone < DEQUANT_FLIP_LIMIT:
+        fail(f"{kernel} {what}: a one-pass bf16 product differs from the "
+             f"plain version in only {alone:.2%} of the outputs: the check "
+             f"cannot tell it from the fp32 function")
+    if flips >= DEQUANT_FLIP_LIMIT:
+        fail(f"{kernel} {what}: {flips:.3%} of the outputs differ from the "
+             f"plain version (limit {DEQUANT_FLIP_LIMIT:.0%}; a one-pass "
+             f"bf16 product: {alone:.2%})")
+    log(f"  {kernel} {what}: {flips:.3%} of the outputs off the plain "
+        f"version (limit {DEQUANT_FLIP_LIMIT:.0%}; a one-pass bf16 "
+        f"product: {alone:.2%})")
 
 
 def dequant_kernels(randn) -> dict:
     """``dequant_int8`` and ``dequant_int4`` against their plain versions,
-    block 128, bf16 and fp32 x, at :data:`DEQUANT_SHAPES`.  The bound is
+    block 128, bf16 and fp32 x, at :data:`DEQUANT_SHAPES`, each called twice
+    (the same bits: the k split is merged in a fixed order).  A bf16 result
+    is held to :func:`tolerance` and, elementwise, to
+    :func:`check_rounded_once`.  The bound is
     the bytes moved (x, the quantized weights and scales, the output) or
-    the fp32 arithmetic (2mkn plus one dequantizing multiply per weight at
-    67 TFLOP/s); no PyTorch call takes block-scaled int8/int4 weights, so
-    there is no library time.  A separate reading: ``torch.matmul`` on the
-    dense bf16 weight at each shape, the time the quantized pool has to
-    beat.
+    the arithmetic: 2mkn at the tensor cores' bf16 rate for the bf16-x
+    prefill rows (the wgmma kernel), and 2mkn plus one dequantizing
+    multiply per weight at the fp32 rate for the others.  No PyTorch call
+    takes block-scaled int8/int4 weights, so there is no library time.  A
+    separate reading: ``torch.matmul`` on the dense bf16 weight at each
+    shape, the time the quantized pool has to beat.
 
-    Each kernel (decode, m <= 8; tiled, above) stores straight to the
-    output when k is not split and through the fixed-order sum when it
-    is; the shapes must reach all four, or the phase fails.  No flagship
-    projection leaves the decode kernel one split, so a probe as wide as
-    two column tiles an SM (k = 256) reaches its direct store."""
+    The plan (``dequant_plan``) sends each call to a kernel and a k split;
+    the shapes must reach every store path of :data:`DEQUANT_REQUIRED`, or
+    the phase fails.  No flagship projection leaves the decode kernel one
+    split, so a probe as wide as two feature tiles an SM (k = 256) reaches
+    its direct store; none sends bf16 x to the tiled kernel, which takes
+    it over int4 weights whose n / 2 is an odd multiple of 8, so a probe
+    of block 8 reaches that."""
     from apex_tpu_torch.ops.dequant_matmul import (
-        SKINNY_MAX_M, dequant_matmul, dequant_matmul_reference,
-        quantize_weight, split_plan)
+        dequant_matmul, dequant_matmul_reference, dequant_plan,
+        dequantize_weight, quantize_weight)
 
     sms = torch.cuda.get_device_properties(
         torch.cuda.current_device()).multi_processor_count
-    shapes = DEQUANT_SHAPES + (("direct-store probe", 4, 256, 512 * sms),)
-    splits = {shape: split_plan(*shape[1:], sms)[1] for shape in shapes}
-    reached = {(m <= SKINNY_MAX_M, splits[(name, m, k, n)] == 1)
-               for name, m, k, n in shapes}
-    if len(reached) != 4:
-        fail(f"dequant: the shapes reach only (decode kernel, one split) "
-             f"= {sorted(reached)} of the four store paths")
+    both = ("int8", "int4")
+    shapes = tuple(shape + (both, 128) for shape in DEQUANT_SHAPES) + (
+        ("direct-store probe", 4, 256, 256 * sms, both, 128),
+        ("bf16-tiled probe", 64, 256, 2064, ("int4",), 8))
+    plans = {(shape, wd, dtype): dequant_plan(*shape[1:4], wd, dtype, sms)
+             for shape in shapes for wd in shape[4]
+             for dtype in (torch.bfloat16, torch.float32)}
+    reached = {dequant_path(p, key[2]) for key, p in plans.items()}
+    missing = [path for path in DEQUANT_REQUIRED if path not in reached]
+    if missing:
+        fail(f"dequant: the shapes reach {sorted(reached)}, not {missing}")
+    log(f"[kernels] dequant_int8, dequant_int4 (CUDA); store paths "
+        f"reached: {sorted(reached)}")
     records = {}
-    log("[kernels] dequant_int8, dequant_int4 (CUDA), block 128")
-    for name, m, k, n in shapes:
+    for shape in shapes:
+        name, m, k, n, wds, block = shape
         w = randn(k, n, scale=0.02)
-        for wd in ("int8", "int4"):
+        for wd in wds:
             kernel = f"dequant_{wd}"
-            pool = quantize_weight(w, wd, 128)
+            pool = quantize_weight(w, wd, block)
             q, s = pool["q8" if wd == "int8" else "q4"], pool["scales"]
+            wbf = dequantize_weight(pool).to(torch.bfloat16).float()
             for dtype in (torch.bfloat16, torch.float32):
                 x = randn(m, k, dtype=dtype)
-                shape = (f"{name} m={m} k={k} n={n} "
-                         f"({splits[(name, m, k, n)]} k splits) x "
-                         f"{str(dtype)[6:]}")
+                plan = plans[(shape, wd, dtype)]
+                what = (f"{name} m={m} k={k} n={n} block {block} x "
+                        f"{str(dtype)[6:]} ({plan.regime}"
+                        + (f", {plan.tile}-token tiles" if plan.tile else "")
+                        + (f", k in {plan.splits} splits)" if plan.splits > 1
+                           else ", k whole)"))
                 run = lambda: dequant_matmul(x, q, s, weight_dtype=wd)
                 plain = lambda: dequant_matmul_reference(
-                    x, q, s, weight_dtype=wd, block_size=128)
-                err = check(kernel, run(), plain(), shape)
+                    x, q, s, weight_dtype=wd, block_size=block)
+                got, want = run(), plain()
+                err = check(kernel, got, want, what)
+                if dtype == torch.bfloat16:
+                    check_rounded_once(
+                        kernel, got, want,
+                        torch.matmul(x.float(), wbf).to(dtype), what)
+                if not torch.equal(got, run()):
+                    fail(f"{kernel} {what}: a second call gave other bits")
+                rate = (torch.bfloat16 if plan.regime == "wgmma"
+                        else torch.float32)
+                ops = 2.0 * m * k * n + (k * n if rate == torch.float32
+                                         else 0)
                 records.setdefault(kernel, []).append(measure(
-                    kernel, shape, err, run, plain, None,
+                    kernel, what, err, run, plain, None,
                     nbytes=x.numel() * x.element_size() + q.numel()
                     + s.numel() * 4 + m * n * x.element_size(),
-                    ops=2.0 * m * k * n + k * n, dtype=torch.float32))
+                    ops=ops, dtype=rate))
         xb, wb = randn(m, k, dtype=torch.bfloat16), w.to(torch.bfloat16)
         ms, _ = time_ms(lambda: torch.matmul(xb, wb))
         log(f"  dense bf16 torch.matmul {name} m={m} k={k} n={n}: "

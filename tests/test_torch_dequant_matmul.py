@@ -15,6 +15,7 @@ the fp32 result once and may fall on either side of a rounding boundary.
 """
 
 import importlib
+import inspect
 import math
 
 import jax.numpy as jnp
@@ -174,21 +175,126 @@ def test_quantized_linear_matches_jax_apply_linear(weight_dtype, with_bias):
     _close(lin(torch.from_numpy(x)), want, "float32")
 
 
+SMS = 132
+
+
+def _units(plan):
+    units = 1
+    for g in plan.grid:
+        units *= g
+    return units
+
+
+@pytest.mark.parametrize("weight_dtype", ["int8", "int4"])
 @pytest.mark.parametrize("m", [1, 4, 8, 9, 512, 2304])
 @pytest.mark.parametrize("k, n", [(1024, 3072), (1024, 1024), (1024, 4096),
                                   (4096, 1024), (40, 96)])
-def test_split_plan_covers_k(m, k, n):
-    """What the wrapper hands the kernel: the decode kernel (m <= 8) at
-    most 256 k rows a block in steps of 16, the tiled one whole 32-row
-    steps; every split non-empty and k covered."""
-    kc, splits = td.split_plan(m, k, n, sms=132)
-    assert (splits - 1) * kc < k <= splits * kc
-    if m <= td.SKINNY_MAX_M:
-        assert kc <= 256 and kc % 16 == 0
-        tiles = -(-n // 256)
-    else:
-        assert kc % 32 == 0
-        tiles = -(-n // 128) * -(-m // 128)
-    # the column tiles alone fill fewer than the SMs: k is split
-    if tiles < 66 and k >= 256:
-        assert splits > 1
+def test_split_plan_covers_k(m, k, n, weight_dtype):
+    """What the wrapper hands the kernels, for bf16 and fp32 x: the regime
+    from m and x's dtype, every k row in exactly one split (whole 16-,
+    64- or 32-row steps), the grid from the shapes (128 features a
+    block), and the scratch:
+    (splits, m, n) fp32 partials and one ticket counter per output tile,
+    none at one split."""
+    assert list(inspect.signature(td.dequant_plan).parameters) == [
+        "m", "k", "n", "weight_dtype", "x_dtype", "sms"]
+    nq = n // 2 if weight_dtype == "int4" else n
+    features = -(-nq // (64 if weight_dtype == "int4" else 128))
+    for x_dtype in (torch.bfloat16, torch.float32):
+        plan = td.dequant_plan(m, k, n, weight_dtype, x_dtype, SMS)
+        assert (plan.splits - 1) * plan.kc < k <= plan.splits * plan.kc
+        assert plan.grid[-1] == plan.splits
+        if m <= td.SKINNY_MAX_M:
+            # decode: one block an SM at most, x's slice up to 1024 rows
+            assert plan.regime == "decode" and plan.tile == 0
+            assert len(plan.grid) == 2 and plan.grid[0] == features
+            assert plan.kc % 16 == 0 and plan.kc <= 1024
+            assert _units(plan) <= SMS or plan.splits == 1 or k > 1024
+            # the feature tiles alone fill fewer than half the SMs: split
+            if 2 * features <= SMS and k >= 256:
+                assert plan.splits > 1
+        elif x_dtype == torch.bfloat16 and nq % 16 == 0:
+            assert plan.regime == "wgmma" and plan.grid[0] == features
+            assert plan.tile in td.WGMMA_TILES and plan.kc % 64 == 0
+            assert plan.grid[1] == -(-m // plan.tile)
+        else:
+            assert plan.regime == "tiled" and plan.tile == 0
+            assert plan.grid[0] == features
+            assert plan.kc % 32 == 0 and plan.grid[1] == -(-m // 128)
+            # the output tiles alone fill fewer than half the SMs: split
+            if _units(plan) // plan.splits < 66 and k >= 256:
+                assert plan.splits > 1
+        tiles = _units(plan) // plan.splits
+        if plan.splits > 1:
+            assert plan.workspace == plan.splits * m * n
+            assert plan.counters == tiles
+        else:
+            assert plan.workspace == 0 and plan.counters == 0
+
+
+@pytest.mark.parametrize("m, k, n, tile, waves", [(2304, 4096, 1024, 144, 1),
+                                                  (2304, 1024, 3072, 256, 2),
+                                                  (512, 1024, 4096, 128, 1)])
+def test_wgmma_plan_fills_the_card(m, k, n, tile, waves):
+    """The flagship's prefill shapes, none split: fc2 at 2304 tokens in one
+    wave of 8 x 16 tiles of 144 tokens (not 144 tiles of 128 in two
+    waves), qkv in two waves of 256-token tiles (fewer dequantizations of
+    each weight than three of 144), fc1 at 512 tokens in one wave."""
+    for wd in ("int8", "int4"):
+        plan = td.dequant_plan(m, k, n, wd, torch.bfloat16, SMS)
+        assert (plan.regime, plan.tile, plan.splits) == ("wgmma", tile, 1)
+        assert -(-_units(plan) // SMS) == waves
+        if waves == 1:
+            assert _units(plan) / SMS > 0.95
+
+
+def _hi_lo(x, w):
+    """The wgmma kernel's arithmetic in plain torch: each fp32 weight split
+    into hi = bf16(w) and lo = bf16(w - hi); bf16 x times either is exact
+    in fp32; both products summed in fp32; not yet rounded."""
+    hi = w.to(torch.bfloat16).float()
+    lo = (w - hi).to(torch.bfloat16).float()
+    xf = x.float()
+    return torch.matmul(xf, hi) + torch.matmul(xf, lo)
+
+
+@pytest.mark.parametrize("weight_dtype", ["int8", "int4"])
+@pytest.mark.parametrize("block", [128, 16])
+@pytest.mark.parametrize("k", [64, 1024, 4096])
+def test_hi_lo_split_is_the_fp32_function(weight_dtype, block, k):
+    """Two bf16 passes over w_hi and w_lo hold the plain fp32 version:
+    before the rounding within 2^-12 of the output's scale, after it
+    within one bf16 ulp, and under 1% of the rounded outputs differ from
+    the plain version's.  A single bf16 pass (w rounded to 8 bits) is
+    shown to miss the first bound and the last, so the test can tell them
+    apart."""
+    m, n = 16, 256
+    rng = np.random.RandomState(k + block)
+    w = torch.from_numpy(rng.randn(k, n).astype(np.float32))
+    pool = td.quantize_weight(w, weight_dtype, block)
+    q = pool["q8" if weight_dtype == "int8" else "q4"]
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(
+        torch.bfloat16)
+    wf = td.dequantize_weight(pool)
+    exact = torch.matmul(x.double(), wf.double())
+    plain32 = torch.matmul(x.float(), wf)
+    top = float(exact.abs().max())
+    emu = _hi_lo(x, wf)
+    assert float((emu.double() - exact).abs().max()) < 2.0 ** -12 * top
+    assert float((emu - plain32).abs().max()) < 2.0 ** -12 * top
+    one_pass = torch.matmul(x.float(), wf.to(torch.bfloat16).float())
+    if k >= 1024:
+        assert float((one_pass.double() - exact).abs().max()) \
+            > 2.0 ** -12 * top
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+    plain = td.dequant_matmul_reference(x, q, pool["scales"],
+                                        weight_dtype=weight_dtype,
+                                        block_size=block)
+    assert float((emu.to(torch.bfloat16).float() - plain.float())
+                 .abs().max()) <= ulp
+    # elementwise, as the chip's phase 2 holds the kernel: under 1% of the
+    # rounded outputs off the plain version's, where one pass moves ~40%
+    flips = (emu.to(torch.bfloat16) != plain).float().mean().item()
+    assert flips < 0.01
+    assert (one_pass.to(torch.bfloat16) != plain).float().mean().item() \
+        > 0.01

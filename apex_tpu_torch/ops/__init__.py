@@ -28,6 +28,7 @@ from apex_tpu_torch.ops.layer_norm import (
     fused_layer_norm_affine,
     fused_rms_norm,
     fused_rms_norm_affine,
+    layer_norm_bwd,
     layer_norm_fwd,
     mixed_dtype_fused_layer_norm_affine,
 )
@@ -50,8 +51,8 @@ __all__ = [
     "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd",
     "fmha_decode", "fmha_mid", "fmha_short", "fused_layer_norm",
     "fused_layer_norm_affine", "fused_rms_norm", "fused_rms_norm_affine",
-    "launch_counts", "layer_norm_fwd", "mha_reference", "mid_bwd",
-    "mid_fwd", "mixed_dtype_fused_layer_norm_affine",
+    "launch_counts", "layer_norm_bwd", "layer_norm_fwd", "mha_reference",
+    "mid_bwd", "mid_fwd", "mixed_dtype_fused_layer_norm_affine",
     "paged_attention_reference", "quantize_weight", "reset_launch_counts",
     "rope_cos_sin", "rope_table",
     "scaled_masked_softmax", "scaled_softmax",

@@ -11,7 +11,13 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
              version on the card, at the serving and training paths'
              shapes, in bf16 and fp32; print each one's error, time,
              bound and the time of a PyTorch library call for the same
-             function, if any; a short-vs-mid reading at s in {256, 384,
+             function, if any; the layer norm (csrc/layer_norm.cu) at
+             hidden 1024: the forward at 4, 512, 2304 and 8192 rows, the
+             backward and its fold at 2304 and 8192 (bf16 layer norm and
+             RMSNorm, fp32 input), dscale and dbias equal to the plain
+             version's, under 0.1% of a bf16 dx more than one ulp off, the
+             same bits twice, and ragged and wide hiddens beside; a
+             short-vs-mid reading at s in {256, 384,
              512}, the flash kernels at b=2 h=8 s=4096 (and a reading at
              s=8192), the decode kernel's fused q-RoPE, and a mid-vs-flash
              reading at s in {1024, 2048, 4096}; the dequant-matmul
@@ -247,6 +253,9 @@ LLAMA = dict(vocab_size=32768, num_layers=12, hidden_size=1024,
              position_embedding="rope", activation="swiglu",
              normalization="rmsnorm")
 LONG_SEQ = 4096         # its training length, past the mid rung's 2048
+#: the layer norm's kernels on every training path: the forward, the
+#: backward and its column-sum fold
+LN_TRAIN = ("ln_fwd", "ln_bwd", "ln_bwd_fold")
 
 
 def log(*args) -> None:
@@ -471,7 +480,6 @@ def phase_build() -> str:
 # ---------------------------------------------------------------- phase 2
 def phase_kernels(dev) -> dict:
     from apex_tpu_torch.ops import attention_short as short
-    from apex_tpu_torch.ops import layer_norm as ln
     import torch.nn.functional as F
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -485,30 +493,7 @@ def phase_kernels(dev) -> dict:
     heads = FLAGSHIP["num_attention_heads"]
     d = hidden // heads
 
-    # -- layer norm: decode rows (4 slots) and prefill rows (512) -------
-    log("[kernels] ln_fwd (Triton), hidden 1024")
-    w = randn(hidden, scale=0.1, shift=1.0)
-    b = randn(hidden, scale=0.1)
-    for dtype in (torch.float32, torch.bfloat16):
-        for rows in (4, 512):
-            x = randn(rows, hidden, dtype=dtype, scale=3.0, shift=0.5)
-            got = ln.layer_norm_fwd(x, w, b, 1e-5, rms=False)
-            want = ln._ln_fwd_plain(x, w, b, 1e-5, rms=False)
-            err = check("ln_fwd", got[0], want[0],
-                        f"{str(dtype)[6:]} rows={rows} y")
-            check("ln_fwd", got[1], want[1], f"{str(dtype)[6:]} mean")
-            check("ln_fwd", got[2], want[2], f"{str(dtype)[6:]} invvar")
-            if dtype != torch.bfloat16:
-                continue
-            wl, bl = w.to(dtype), b.to(dtype)
-            records.setdefault("ln_fwd", []).append(measure(
-                "ln_fwd", f"rows={rows} hidden={hidden} bf16", err,
-                lambda: ln.layer_norm_fwd(x, w, b, 1e-5, False),
-                lambda: ln._ln_fwd_plain(x, w, b, 1e-5, False),
-                ("F.layer_norm",
-                 lambda: F.layer_norm(x, (hidden,), wl, bl, 1e-5)),
-                nbytes=2 * x.numel() * x.element_size() + 2 * hidden * 4
-                + 2 * rows * 4, ops=8.0 * x.numel(), dtype=dtype))
+    records.update(layer_norm_kernels(randn, dev))
 
     # -- short prefill attention: b=1, h=8, causal ----------------------
     log("[kernels] short_fwd (CUDA), b=1 h=8 d=128 causal")
@@ -554,6 +539,201 @@ def phase_kernels(dev) -> dict:
     records.update(dbias_kernels(randn))
     fwd_sm90_kernels(randn, dev)
     bwd_sm90_kernels(randn, dev)
+    return records
+
+
+#: the layer norm's rows at hidden 1024: a decode step's 4 slots, a
+#: 512-token prefill, serve-long's 2304-token prefill, a training step's
+#: 8 x 1024 tokens; the backward at the last two
+LN_ROWS = (4, 512, 2304, 8192)
+LN_BWD_ROWS = (2304, 8192)
+#: (label, x dtype, rms): the O5 norms (bf16 x, fp32 parameters) and the
+#: final norm's fp32 input (``_final_norm``)
+LN_CASES = (("layer norm bf16", torch.bfloat16, False),
+            ("RMSNorm bf16", torch.bfloat16, True),
+            ("layer norm fp32 x", torch.float32, False))
+#: other instances, held but not timed: (rows, hidden, x dtype, parameter
+#: dtype, rms): ragged hiddens (the scalar instances), rows past one
+#: register chunk (read again each pass), bf16 and fp16 parameters
+LN_PROBES = ((37, 72, torch.bfloat16, torch.bfloat16, False),
+             (301, 1000, torch.float32, torch.bfloat16, False),
+             (9, 3000, torch.bfloat16, torch.float32, True),
+             (66, 4100, torch.float16, torch.float16, False),
+             (5, 1024, torch.float16, torch.float32, True),
+             (3, 8192, torch.bfloat16, torch.bfloat16, False))
+#: the share of a bf16 dx's elements that may lie more than one bf16 ulp
+#: (at the element's own magnitude) off the plain version: the kernel's
+#: fp32 row sums c1, c2 are added in another order, which moves dx by
+#: ~1e-7 of the row's scale, over one ulp only where dx nearly cancels
+LN_FLIP_LIMIT = 1e-3
+
+
+def ulp_flips(got, want) -> float:
+    """The share of elements of a bf16 (or fp16) result more than one ulp
+    of the plain version's value off it."""
+    w = want.float()
+    bits = 8 if want.dtype == torch.bfloat16 else 11
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126)))
+                     - (bits - 1))
+    return ((got.float() - w).abs() > ulp).float().mean().item()
+
+
+def ln_bwd_check(name, got, want, what) -> float:
+    """Hold ``(dx, dscale, dbias)`` of the backward kernels against the
+    plain version: dx to the tolerance (and a 16-bit dx to the ulp share),
+    the column sums to the same values, since the plain version adds them
+    in the kernels' order."""
+    err = check(name, got[0], want[0], f"{what} dx")
+    if want[0].dtype != torch.float32:
+        flips = ulp_flips(got[0], want[0])
+        if not flips <= LN_FLIP_LIMIT:
+            fail(f"{name} {what}: {flips:.3%} of dx more than one ulp off "
+                 f"the plain version (limit {LN_FLIP_LIMIT:.1%})")
+        log(f"  {name} {what}: {flips:.4%} of dx more than one ulp off "
+            f"(limit {LN_FLIP_LIMIT:.1%})")
+    for label, g, w in (("dscale", got[1], want[1]),
+                        ("dbias", got[2], want[2])):
+        if w is None:
+            continue
+        if not torch.equal(g, w):
+            off = (g != w).sum().item()
+            fail(f"{name} {what} {label}: {off} of {w.numel()} column sums "
+                 f"differ from the plain version's (max "
+                 f"{max_err(g, w):.3g}), which adds in the kernels' order")
+        log(f"  {name} {what} {label}: equal to the plain version's")
+    return err
+
+
+def same_bits(name, a, b, what) -> None:
+    for x, y in zip(a, b):
+        if x is not None and not torch.equal(x, y):
+            fail(f"{name} {what}: two runs on the same inputs differ")
+
+
+def layer_norm_kernels(randn, dev) -> dict:
+    """``ln_fwd`` at ``LN_ROWS`` x ``LN_CASES`` and ``ln_bwd`` with
+    ``ln_bwd_fold`` at ``LN_BWD_ROWS`` x ``LN_CASES``, hidden 1024, against
+    their plain versions, the same bits on two runs; then ``LN_PROBES``.
+    Times every case: the forward beside ``F.layer_norm`` / ``F.rms_norm``
+    on the input (parameters in its dtype), the backward beside the same
+    call forward+backward through autograd (profiled) and its backward
+    alone, the fold alone beside ``torch.sum`` over the partials."""
+    from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.ops.common import stream_of
+    import torch.nn.functional as F
+
+    hidden = FLAGSHIP["hidden_size"]
+    log(f"[kernels] ln_fwd, ln_bwd, ln_bwd_fold (CUDA), hidden {hidden}")
+    w = randn(hidden, scale=0.1, shift=1.0)
+    b = randn(hidden, scale=0.1)
+    records = {"ln_fwd": [], "ln_bwd": [], "ln_bwd_fold": []}
+
+    def library(x, rms, wl, bl):
+        if rms:
+            return lambda: F.rms_norm(x, (hidden,), wl, 1e-5)
+        return lambda: F.layer_norm(x, (hidden,), wl, bl, 1e-5)
+
+    for rows in LN_ROWS:
+        for label, dtype, rms in LN_CASES:
+            bias = None if rms else b
+            what = f"{label} rows={rows}"
+            x = randn(rows, hidden, dtype=dtype, scale=3.0, shift=0.5)
+            got = ln.layer_norm_fwd(x, w, bias, 1e-5, rms)
+            want = ln._ln_fwd_plain(x, w, bias, 1e-5, rms)
+            err = check("ln_fwd", got[0], want[0], f"{what} y")
+            check("ln_fwd", got[1], want[1], f"{what} mean")
+            check("ln_fwd", got[2], want[2], f"{what} invvar")
+            same_bits("ln_fwd", got, ln.layer_norm_fwd(x, w, bias, 1e-5, rms),
+                      what)
+            wl, bl = w.to(dtype), b.to(dtype)
+            numel = x.numel() * x.element_size()
+            records["ln_fwd"].append(measure(
+                "ln_fwd", f"rows={rows} hidden={hidden} {label}", err,
+                lambda: ln.layer_norm_fwd(x, w, bias, 1e-5, rms),
+                lambda: ln._ln_fwd_plain(x, w, bias, 1e-5, rms),
+                ("F.rms_norm" if rms else "F.layer_norm",
+                 library(x, rms, wl, bl)),
+                nbytes=2 * numel + (1 if rms else 2) * hidden * 4
+                + 2 * rows * 4, ops=8.0 * x.numel(), dtype=torch.float32))
+            if rows not in LN_BWD_ROWS:
+                continue
+            dy = randn(rows, hidden, dtype=dtype)
+            _, mean, invvar = want
+            bdt = None if rms else b.dtype
+            got = ln.layer_norm_bwd(dy, x, w, bdt, mean, invvar, rms)
+            want = ln._ln_bwd_plain(dy, x, w, bdt, mean, invvar, rms)
+            err = ln_bwd_check("ln_bwd", got, want, what)
+            same_bits("ln_bwd", got,
+                      ln.layer_norm_bwd(dy, x, w, bdt, mean, invvar, rms),
+                      what)
+            xg, wg, bg = (t.detach().clone().requires_grad_()
+                          for t in (x, wl, bl))
+            leaves = (xg, wg) if rms else (xg, wg, bg)
+            call = library(xg, rms, wg, bg)
+
+            def lib_fwd_bwd():
+                torch.autograd.grad(call(), leaves, dy)
+
+            fb_ms = profiled_ms(lib_fwd_bwd)
+            with torch.no_grad():
+                f_ms = profiled_ms(call)
+            rec = measure(
+                "ln_bwd", f"rows={rows} hidden={hidden} {label}", err,
+                lambda: ln.layer_norm_bwd(dy, x, w, bdt, mean, invvar, rms),
+                lambda: ln._ln_bwd_plain(dy, x, w, bdt, mean, invvar, rms),
+                None, nbytes=3 * numel + hidden * 4 * (2 if rms else 4)
+                + 2 * rows * 4, ops=20.0 * x.numel(), dtype=torch.float32)
+            rec["library_ms"] = fb_ms
+            rec["library_bwd_ms"] = fb_ms - f_ms
+            log(f"  ln_bwd: library call is "
+                f"{'F.rms_norm' if rms else 'F.layer_norm'} forward+backward "
+                f"({fb_ms:.4f} ms), its backward alone (library_bwd_ms) "
+                f"{fb_ms - f_ms:.4f} ms")
+            # the result line takes a kernel's first record: the backward's
+            # and the fold's at the training step's rows, bf16 layer norm
+            main = rows == LN_BWD_ROWS[-1] and dtype == torch.bfloat16
+            records["ln_bwd"].insert(0 if main and not rms else
+                                     len(records["ln_bwd"]), rec)
+            if dtype != torch.bfloat16 or rms:
+                continue
+            # the fold alone, on this shape's partials
+            plan = ln.layer_norm_plan(rows, hidden, dtype, w.dtype)
+            partials = randn(2, plan.blocks, hidden)
+            out = [torch.empty(hidden, device=dev) for _ in range(2)]
+            fold = lambda: ln._fold_cuda(partials, *out, plan.blocks, hidden,
+                                         stream_of(partials))
+            fold()
+            want = ln._fold_plain(partials)
+            if not (torch.equal(out[0], want[0])
+                    and torch.equal(out[1], want[1])):
+                fail(f"ln_bwd_fold {what}: the sums differ from the plain "
+                     "version's (the same adds in the same order)")
+            log(f"  ln_bwd_fold {what} ({plan.blocks} partials a column): "
+                "equal to the plain version's")
+            records["ln_bwd_fold"].insert(
+                0 if main else len(records["ln_bwd_fold"]), measure(
+                "ln_bwd_fold", f"blocks={plan.blocks} hidden={hidden} "
+                "fp32", 0.0, fold, lambda: ln._fold_plain(partials),
+                ("torch.sum", lambda: partials.sum(1)),
+                nbytes=partials.numel() * 4 + 2 * hidden * 4,
+                ops=float(partials.numel()), dtype=torch.float32))
+    for rows, hid, dtype, wdt, rms in LN_PROBES:
+        what = (f"{str(dtype)[6:]} x, {str(wdt)[6:]} parameters, "
+                f"{'RMSNorm' if rms else 'layer norm'} rows={rows} "
+                f"hidden={hid}")
+        x = randn(rows, hid, dtype=dtype, scale=3.0, shift=0.5)
+        wp = randn(hid, dtype=wdt, scale=0.1, shift=1.0)
+        bp = None if rms else randn(hid, dtype=wdt, scale=0.1)
+        got = ln.layer_norm_fwd(x, wp, bp, 1e-5, rms)
+        want = ln._ln_fwd_plain(x, wp, bp, 1e-5, rms)
+        check("ln_fwd", got[0], want[0], f"{what} y")
+        check("ln_fwd", got[2], want[2], f"{what} invvar")
+        dy = randn(rows, hid, dtype=dtype)
+        bdt = None if rms else wdt
+        args = (dy, x, wp, bdt, want[1], want[2], rms)
+        got = ln.layer_norm_bwd(*args)
+        ln_bwd_check("ln_bwd", got, ln._ln_bwd_plain(*args), what)
+        same_bits("ln_bwd", got, ln.layer_norm_bwd(*args), what)
     return records
 
 
@@ -3443,7 +3623,7 @@ def phase_train_parity(dev, drop: float = 0.0,
             f"tolerance); updated params within 1% of a step at "
             f"{steps_checked} sure-sign elements (worst {worst_p:.3f} of "
             f"it); launches {({k: v for k, v in c.items() if v})}")
-        for name in need + ("ln_fwd",):
+        for name in need + LN_TRAIN:
             if c.get(name, 0) <= 0:
                 fail(f"{label} s={s}: kernel {name} never launched")
         del gpu, cpu
@@ -3461,7 +3641,7 @@ TRAIN_LONG = ["--position-embedding", "rope", "--activation", "swiglu",
 
 
 def phase_train(dev, flags=TRAIN_FLAGSHIP, label="train",
-                need=("ln_fwd", "mid_fwd", "mid_bwd")):
+                need=LN_TRAIN + ("mid_fwd", "mid_bwd")):
     """A 12-layer GPT at O5 (bf16 params and compute, fp32 norms and
     masters), remat on, through the port trainer's step as ``gpt_pretrain
     <flags>`` builds it (the flagship, 8 x 1024 tokens, by default): 2
@@ -3632,7 +3812,7 @@ def phase_train_dropout(dev, base=FLAGSHIP, seq=1024, micro=8, steps=10,
     log(f"  launches in the {steps} timed steps: "
         + ", ".join(f"{k} {v / steps:g}" for k, v in sorted(counts.items())
                     if v) + " a step")
-    for name in need + ("ln_fwd", "dropout"):
+    for name in need + LN_TRAIN + ("dropout",):
         if counts.get(name, 0) <= 0:
             fail(f"{label}: kernel {name} never launched on the main path")
     return counts, types.SimpleNamespace(step=lambda: step(2 + steps)), ()
@@ -4129,7 +4309,7 @@ def phase_mha_parity(dev) -> dict:
     log(f"  launches: {({n: c for n, c in counts.items() if c})}")
     for name in ("short_fwd_bias", "short_bwd_bias", "short_fwd_seg_drop_bias",
                  "short_bwd_seg_drop_bias", "short_fwd_drop_bias",
-                 "short_fwd_seg_drop", "ln_fwd"):
+                 "short_fwd_seg_drop") + LN_TRAIN:
         if counts.get(name, 0) <= 0:
             fail(f"mha-parity: kernel {name} never launched")
     return counts
@@ -4258,7 +4438,7 @@ def phase_mha_train(dev) -> dict:
             f"{MHA_PASSES} passes {({n: v for n, v in c.items() if v})}")
         device_breakdown(prof, wall, "one pass profiled")
         log(f"  by kind: {attention_share(prof)}")
-        for name in need + ("ln_fwd",):
+        for name in need + LN_TRAIN:
             if c.get(name, 0) <= 0:
                 fail(f"mha-train {label}: kernel {name} never launched")
         for name, v in c.items():
@@ -4597,7 +4777,7 @@ def phase_bert_parity(dev) -> dict:
         f"within 1e-4 of its scale (worst {worst_g:.3f} of the tolerance); "
         f"updated params within 1% of a step at {n_sure} sure-sign elements "
         f"(worst {worst_p:.3f} of it); launches {counts}")
-    for name in ("short_fwd_seg", "short_bwd_seg", "ln_fwd"):
+    for name in ("short_fwd_seg", "short_bwd_seg") + LN_TRAIN:
         if counts.get(name, 0) <= 0:
             fail(f"bert-parity: kernel {name} never launched")
     del cpu, out
@@ -4659,7 +4839,8 @@ def attention_share(prof) -> str:
     """The device time of one profiled run by kind of kernel: the
     attention kernels (``attn_``/``flash_`` entries of the CUDA sources
     and the Hopper kernels of the ``attn::sm90`` namespace, whose names
-    carry neither), layer norm, matrix products (cuBLAS's
+    carry neither), layer norm (``ln_fwd``, ``ln_bwd``, ``ln_bwd_fold``),
+    matrix products (cuBLAS's
     ``nvjet``/``sm90`` and CUTLASS kernels) and the rest (elementwise,
     copies, reductions)."""
     kinds = {"attention": 0.0, "layer norm": 0.0, "matmul": 0.0,
@@ -4668,7 +4849,7 @@ def attention_share(prof) -> str:
         k = key.lower()
         if "attn_" in k or "attn::" in k or "flash_" in k:
             kinds["attention"] += t
-        elif "ln_fwd" in k or "layer_norm" in k:
+        elif "ln_fwd" in k or "ln_bwd" in k or "layer_norm" in k:
             kinds["layer norm"] += t
         elif any(w in k for w in ("gemm", "xmma", "cutlass", "matmul",
                                   "nvjet", "sm90_")):
@@ -4751,7 +4932,7 @@ def phase_bert_train(dev) -> dict:
     log(f"  launches in the 10 timed steps: {counts} (per step: "
         + ", ".join(f"{k} {v / 10:g}" for k, v in sorted(counts.items()))
         + ")")
-    for name in ("ln_fwd", "short_fwd_seg", "short_bwd_seg"):
+    for name in LN_TRAIN + ("short_fwd_seg", "short_bwd_seg"):
         if counts.get(name, 0) <= 0:
             fail(f"bert-train: kernel {name} never launched on the main path")
     phase_profile_train(types.SimpleNamespace(step=step), (),
@@ -4784,7 +4965,7 @@ def phase_bert_finetune(dev) -> dict:
     if not out["eval_accuracy"] >= 0.8 or \
             not out["eval_accuracy"] > out["initial_eval_accuracy"]:
         fail("bert-finetune: the held-out accuracy did not rise from chance")
-    for name in ("ln_fwd", "short_fwd_seg", "short_bwd_seg"):
+    for name in LN_TRAIN + ("short_fwd_seg", "short_bwd_seg"):
         if counts.get(name, 0) <= 0:
             fail(f"bert-finetune: kernel {name} never launched")
     return counts
@@ -4858,8 +5039,13 @@ def phase_fmha_varlen(dev) -> dict:
 #: records are bf16, whose kernel is attention_fwd_sm90.cuh (the entries'
 #: fp32 instances stay in their .cu files)
 SOURCES = {
-    "ln_fwd": ("triton", "apex_tpu_torch/ops/layer_norm.py",
+    "ln_fwd": ("cuda", "apex_tpu_torch/csrc/layer_norm.cu",
                "apex_tpu/ops/layer_norm.py:66"),
+    # the backward replaces XLA code (_normalize_bwd), not a Pallas kernel
+    "ln_bwd": ("cuda", "apex_tpu_torch/csrc/layer_norm.cu",
+               "apex_tpu/ops/layer_norm.py:168"),
+    "ln_bwd_fold": ("cuda", "apex_tpu_torch/csrc/layer_norm.cu",
+                    "apex_tpu/ops/layer_norm.py:168"),
     "short_fwd": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                   "apex_tpu/ops/attention_short.py:149"),
     "paged_decode": ("cuda", "apex_tpu_torch/csrc/attention_decode.cu",
@@ -5006,7 +5192,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     long_counts, tr, batch = timed(
         "train-long", phase_train, dev, TRAIN_LONG, "train-long",
-        ("ln_fwd",) + FLASH)
+        LN_TRAIN + FLASH)
     timed("profile", phase_profile_train, tr, batch,
           f"Llama mode (O5, 2 x {LONG_SEQ})")
     del tr, batch
@@ -5034,8 +5220,8 @@ def main() -> None:
     # one record per kernel at its main path's shape; launches from the
     # path that carries it: the serving kernels from phase 4, the dequant
     # kernels and int8 pages from serve-quant, short_bwd from the s=384
-    # training step of phase 6, the mid kernels from the flagship training
-    # of phase 7, the flash kernels from the long-context training of
+    # training step of phase 6, the mid kernels and the layer norm's
+    # backward from the flagship training of phase 7, the flash kernels from the long-context training of
     # phase 9, the many-row instance from serve-chunked's prefix-cached
     # run, the tree instance from serve-spec's tree run, the softmax from
     # fused-softmax, the short rung's segment instances from bert-train and
@@ -5044,7 +5230,7 @@ def main() -> None:
     for name in ("dequant_int8", "dequant_int4", "paged_decode_int8"):
         main_counts[name] = quant_counts.get(name, 0)
     main_counts["short_bwd"] = parity_counts[384].get("short_bwd", 0)
-    for name in ("mid_fwd", "mid_bwd"):
+    for name in ("mid_fwd", "mid_bwd", "ln_bwd", "ln_bwd_fold"):
         main_counts[name] = train_counts.get(name, 0)
     for name in FLASH:
         main_counts[name] = long_counts.get(name, 0)

@@ -3,8 +3,8 @@
 The same numpy inputs go through ``apex_tpu.ops.layer_norm`` with
 ``implementation="pallas"`` (the Pallas body of ``_ln_fwd_kernel`` in
 interpret mode on the CPU, plus the JAX affine epilogue) and through
-``apex_tpu_torch.ops.layer_norm`` on CPU tensors (the Triton kernel's
-plain version, which computes the same function).
+``apex_tpu_torch.ops.layer_norm`` on CPU tensors (the CUDA kernels' plain
+versions, which compute the same function).
 
 Tolerances: fp32 statistics and output agree to 1e-5 absolute and
 relative, the rounding of two fp32 reductions taken in different

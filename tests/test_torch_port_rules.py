@@ -381,7 +381,8 @@ def test_contrib_modules_keep_the_jax_signatures(name):
     ("attention_decode", "paged_decode"),
     ("attention_decode", "paged_decode_int8"),
     ("attention_decode", "paged_decode_rows"),
-    ("dequant_matmul", "dequant_matmul")])
+    ("dequant_matmul", "dequant_matmul"), ("layer_norm", "ln_fwd"),
+    ("layer_norm", "ln_bwd"), ("layer_norm", "ln_bwd_fold")])
 def test_c_entries_are_typed_as_the_source_declares(monkeypatch, module,
                                                     symbol):
     """The ctypes argument types of each C entry match its declaration
@@ -635,7 +636,8 @@ def test_every_c_entry_is_typed():
         ("attention_decode", "paged_decode"),
         ("attention_decode", "paged_decode_int8"),
         ("attention_decode", "paged_decode_rows"),
-        ("dequant_matmul", "dequant_matmul")}
+        ("dequant_matmul", "dequant_matmul"), ("layer_norm", "ln_fwd"),
+        ("layer_norm", "ln_bwd"), ("layer_norm", "ln_bwd_fold")}
     found = set()
     for source in KERNEL_SOURCES:
         src = (ROOT / "apex_tpu_torch" / "csrc" / f"{source}.cu").read_text()

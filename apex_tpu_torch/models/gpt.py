@@ -1,5 +1,5 @@
-"""Megatron-style GPT: training and greedy serving on one GPU through the
-port's kernels.
+"""Megatron-style GPT: training and serving on one GPU through the port's
+kernels.
 
 Counterpart of ``apex_tpu/models/gpt.py``.  The JAX model is a factory of
 pure functions over a parameter pytree with stacked layers; here it is an
@@ -42,10 +42,12 @@ Ported so far, at tensor-parallel world size 1: ``apply``, ``loss`` (the
 two-step LM-head cross entropy) and its backward, ``prefill_forward``,
 ``prefill_chunk`` (chunked prefill through the paged kernel's many-row
 instance), ``decode_step``, ``verify_step`` (speculative verify of a
-chain, or of a tree under the kernel's ancestor mask) and the greedy
-serving of ``decode_fns`` / ``generate``: monolithic or chunked prefill,
-the prefix cache, chain and tree speculation with n-gram or model drafts,
-plus the full-recompute ``generate_reference`` that gates them.  A
+chain, or of a tree under the kernel's ancestor mask) and the serving of
+``decode_fns`` / ``generate``, greedy or sampled (temperature, top-k,
+top-p, per-slot keys): monolithic or chunked prefill, the prefix cache,
+chain and tree speculation with n-gram or model drafts, the decode and
+verify steps replayed as one CUDA graph per shape on the card, plus the
+full-recompute ``generate_reference`` that gates greedy serving.  A
 ``policy`` (``apex_tpu_torch.amp``) sets the dtypes as in JAX: under O5
 the parameters are bf16 and the norms' fp32.  Serving also runs
 from quantized weight pools (:func:`quantize_gpt_weights`: the five
@@ -81,7 +83,7 @@ from apex_tpu_torch.ops.layer_norm import (
     fused_rms_norm_affine,
 )
 from apex_tpu_torch.ops.rope import apply_rope_tables, rope_cos_sin, rope_table
-from apex_tpu_torch.random import fold_in, seed_of, split
+from apex_tpu_torch.random import fold_in, keys_tensor, seed_of, split
 from apex_tpu_torch.serving.kv_cache import (
     KVCacheConfig,
     PagedKVCache,
@@ -89,8 +91,11 @@ from apex_tpu_torch.serving.kv_cache import (
     write_targets,
     write_tokens,
 )
+from apex_tpu_torch.serving.graphs import StepGraph
 from apex_tpu_torch.serving.sampling import (
-    sample,
+    _check_options,
+    greedy,
+    sample_rows,
     spec_accept,
     spec_accept_tree,
 )
@@ -121,9 +126,6 @@ __all__ = ["GPTConfig", "GPTModel", "GPTDecodeFns", "QUANTIZED_WEIGHT_LEAVES",
 #: options of the JAX serving entry points that the port does not take
 #: yet, with the ROADMAP.md item that brings each
 _UNPORTED = {
-    "temperature": "queue A item 3 (temperature sampling)",
-    "top_k": "queue A item 3 (temperature sampling)",
-    "top_p": "queue A item 3 (temperature sampling)",
     "tp": "queue A item 9 (tensor parallelism)",
 }
 
@@ -148,6 +150,36 @@ def dropout_keys(key):
             data_parallel_key(fold_in(key, 2)))
 
 
+def _graphed(step: Callable) -> Callable:
+    """``step`` eagerly on the CPU; on a CUDA device one CUDA graph a
+    step shape (:class:`~apex_tpu_torch.serving.graphs.StepGraph`, kept as
+    the result's ``graph``)."""
+    graph = StepGraph(step)
+
+    def run(pools, *args):
+        if pools["k"].is_cuda:
+            return graph(pools, *args)
+        return step(pools, *args)
+
+    run.graph = graph
+    return run
+
+
+#: ``(tree, device) -> (1, R)`` int32 node depths: a constant a verify
+#: step reads each call, made once (a CUDA graph cannot copy from the
+#: host while it captures)
+_DEPTHS: Dict[tuple, torch.Tensor] = {}
+
+
+def _tree_depths(tree: tuple, device) -> torch.Tensor:
+    key = (tree, torch.device(device))
+    t = _DEPTHS.get(key)
+    if t is None:
+        t = _DEPTHS[key] = torch.as_tensor(
+            tree_depths(tree), dtype=torch.int32, device=device)[None]
+    return t
+
+
 @dataclasses.dataclass
 class GPTDecodeFns:
     """The serving steps :meth:`GPTModel.decode_fns` returns, with the
@@ -157,7 +189,11 @@ class GPTDecodeFns:
     ``spec_tree`` and ``draft_source`` are also stamped on the callables
     (``chunk.prefill_chunk``, ``spec.speculate_k``, ...), which is where
     the batcher reads them; the JAX ``*_jit`` and ``tp`` fields have no
-    counterpart (eager steps, tensor-parallel degree 1)."""
+    counterpart (tensor-parallel degree 1).  On the card ``decode`` and
+    ``spec`` replay one CUDA graph per step shape
+    (:class:`~apex_tpu_torch.serving.graphs.StepGraph`); ``decode_eager``
+    and ``spec_eager`` are the same steps run eagerly, the counterpart of
+    the JAX ``decode_jit`` seam, and on the CPU the only steps."""
 
     prefill: Any
     decode: Any
@@ -176,6 +212,8 @@ class GPTDecodeFns:
     #: JAX ``_per_chip_param_bytes`` at tp=1); mirrored as
     #: ``decode.weight_stream_bytes``
     weight_stream_bytes: Any = None
+    decode_eager: Any = None
+    spec_eager: Any = None
 
 
 #: the projection weights :func:`quantize_gpt_weights` converts — the
@@ -855,9 +893,7 @@ class GPTModel(nn.Module):
                     f"tree has {len(tree)} rows but tokens carry {R} — "
                     "the parents tuple must cover every verify row")
             ancestor = tree_ancestors(tree)
-            depths = torch.as_tensor(tree_depths(tree), dtype=torch.int32,
-                                     device=tokens.device)
-            logical = lengths[:, None] + depths[None]
+            logical = lengths[:, None] + _tree_depths(tree, tokens.device)
         x = self._embed_at(tokens, logical)
         rope_cs = self._rope_rows(logical, max_len)
         attend = torch.where(active, lengths + R, 0).to(torch.int32)
@@ -887,17 +923,17 @@ class GPTModel(nn.Module):
         weight_block: int = 128,
         tp: Optional[int] = None,
     ) -> GPTDecodeFns:
-        """Build the greedy serving steps
+        """Build the serving steps
         :class:`apex_tpu_torch.serving.ContinuousBatcher` drives:
-        ``prefill(pools, tokens (1, max_prompt_len), length, page_row) ->
-        (pools, first_token)`` and ``decode(pools, carry, page_table) ->
-        (pools, carry)``; with ``prefill_chunk=C`` also ``chunk(pools,
-        tokens (C,), start, prompt_len, write_from, page_row) -> (pools,
-        first_token, logits)`` (:meth:`prefill_chunk`, the stall-free
-        scheduler's step); with ``speculate_k=K`` also ``spec(pools,
-        carry, page_table, drafts (S, K), draft_len (S,)) -> (pools,
-        carry, targets (S, K+1), n_commit (S,))``: :meth:`verify_step`
-        at ``K + 1`` rows, :func:`~apex_tpu_torch.serving.sampling
+        ``prefill(pools, tokens (1, max_prompt_len), length, page_row,
+        key) -> (pools, first_token)`` and ``decode(pools, carry,
+        page_table) -> (pools, carry)``; with ``prefill_chunk=C`` also
+        ``chunk(pools, tokens (C,), start, prompt_len, write_from,
+        page_row, key) -> (pools, first_token, logits)``
+        (:meth:`prefill_chunk`, the stall-free scheduler's step); with
+        ``speculate_k=K`` also ``spec(pools, carry, page_table, drafts (S,
+        K), draft_len (S,)) -> (pools, carry, targets (S, K+1), n_commit
+        (S,))``: :meth:`verify_step` at ``K + 1`` rows, :func:`~apex_tpu_torch.serving.sampling
         .spec_accept` and a multi-token commit of the carry.
         ``spec_tree`` (a static ``parents`` tuple, e.g.
         :func:`~apex_tpu_torch.serving.speculate.offramp_tree`) makes
@@ -921,9 +957,24 @@ class GPTModel(nn.Module):
         casts a weight; ``None`` serves the model as given, including a
         model :func:`quantize_gpt_weights` already converted (a declared
         width must match it).  The active width and the weight-stream
-        bytes are stamped on the result and on ``decode``."""
-        _reject_unported(temperature=temperature, top_k=top_k, top_p=top_p,
-                         tp=None if tp == 1 else tp)
+        bytes are stamped on the result and on ``decode``.
+
+        ``temperature > 0`` samples (:func:`~apex_tpu_torch.serving
+        .sampling.sample`'s chain, floored by ``top_k``/``top_p``) with
+        JAX's key schedule: each draw folds a context length into the
+        slot's key, the prefill and the chunk ``length``/``prompt_len``
+        into the ``key`` they are given, the decode step ``lengths + 1``
+        into the carry's ``sample_keys`` row, a chain verify row ``j``
+        ``lengths + 1 + j`` and a tree node ``lengths + 1 + depth``, so
+        every path commits the plain sampled stream.
+
+        On a CUDA device ``decode`` and ``spec`` replay one CUDA graph per
+        step shape (:class:`~apex_tpu_torch.serving.graphs.StepGraph`:
+        the first call runs eagerly and captures); a replay's outputs are
+        static buffers that the next replay overwrites.  ``decode_eager``
+        and ``spec_eager`` on the result are the eager steps."""
+        _check_options(temperature, top_k, top_p)
+        _reject_unported(tp=None if tp == 1 else tp)
         c = self.config
         if draft_model is not None:
             if speculate_k is None:
@@ -1025,9 +1076,22 @@ class GPTModel(nn.Module):
             model = _bf16_projections(self)
         wd_active = model._weight_pool_dtype()
         kv = dict(quantized=cfg.quantized, kv_block=cfg.kv_block)
+        sampled = temperature > 0.0
+
+        def first_token(logits, key, ctx: int):
+            """The draw after ``ctx`` context tokens from one row of
+            logits: ``fold_in(key, ctx)`` when sampling."""
+            if not sampled:
+                return greedy(logits)
+            if key is None:
+                raise ValueError("temperature > 0 requires a PRNG key")
+            ctx_t = torch.full((1,), int(ctx), dtype=torch.int32,
+                               device=logits.device)
+            return sample_rows(logits[None], keys_tensor(key, logits.device),
+                               ctx_t, temperature, top_k, top_p)[0]
 
         @torch.no_grad()
-        def prefill(pools, toks, length: int, page_row):
+        def prefill(pools, toks, length: int, page_row, key=None):
             hidden, ks, vs = model.prefill_forward(toks)
             pos = torch.arange(toks.shape[1], device=toks.device)
             wp, wo = write_targets(page_row, pos, pos < length,
@@ -1038,8 +1102,7 @@ class GPTModel(nn.Module):
                              ks[li, 0].transpose(0, 1),
                              vs[li, 0].transpose(0, 1), wp, wo, **kv)
             last = hidden[0, length - 1]
-            tok = sample(model.logits(last)[None], None, temperature)[0]
-            return pools, tok
+            return pools, first_token(model.logits(last), key, length)
 
         def freeze(carry, active, tokens, n_c, is_eos):
             """The carry after a step that commits ``n_c (S,)`` tokens a
@@ -1052,32 +1115,39 @@ class GPTModel(nn.Module):
                 "lengths": carry["lengths"] + n_c,
                 "steps_left": steps_left,
                 "done": done,
+                "sample_keys": carry["sample_keys"],
             }
 
         @torch.no_grad()
-        def decode(pools, carry, page_table):
+        def decode_eager(pools, carry, page_table):
             active = ~carry["done"]
             logits, pools = model.decode_step(
                 carry["tokens"], carry["lengths"], active, page_table,
                 pools, **kv)
-            sampled = sample(logits, None, temperature)
-            eos_hit = ((sampled == eos_id) if eos_id is not None
+            if sampled:
+                ctx = torch.where(active, carry["lengths"] + 1, 0)
+                tokens = sample_rows(logits, carry["sample_keys"], ctx,
+                                     temperature, top_k, top_p)
+            else:
+                tokens = greedy(logits)
+            eos_hit = ((tokens == eos_id) if eos_id is not None
                        else torch.zeros_like(active))
-            return pools, freeze(carry, active, sampled,
+            return pools, freeze(carry, active, tokens,
                                  active.to(torch.int32), eos_hit)
+
+        decode = _graphed(decode_eager)
 
         chunk = None
         if prefill_chunk is not None:
             C = int(prefill_chunk)
 
             @torch.no_grad()
-            def chunk(pools, toks, start, plen, write_from, row):
+            def chunk(pools, toks, start, plen, write_from, row, key=None):
                 toks = torch.as_tensor(np.asarray(toks, np.int32),
                                        device=row.device).reshape(1, C)
                 logits, pools = model.prefill_chunk(
                     toks, start, plen, write_from, row, pools, **kv)
-                tok = sample(logits[None], None, temperature)[0]
-                return pools, tok, logits
+                return pools, first_token(logits, key, plen), logits
 
             # the batcher schedules chunks of ITS size and must reject a
             # step built for another
@@ -1101,47 +1171,50 @@ class GPTModel(nn.Module):
             eos_committed = (is_eos & (jrow < n_c[:, None])).any(dim=1)
             return freeze(carry, active, last, n_c, eos_committed), n_c
 
-        spec = None
+        spec = spec_eager = None
         if speculate_k is not None:
             K = int(speculate_k)
+            R = K + 1 if tree is None else len(tree)
 
-            def step_inputs(carry, drafts, draft_len, n_cols):
-                dev = carry["tokens"].device
-                drafts = torch.as_tensor(np.asarray(drafts, np.int32),
-                                         device=dev).reshape(-1, n_cols)
-                draft_len = torch.as_tensor(np.asarray(draft_len, np.int32),
-                                            device=dev).reshape(-1)
-                rows = torch.cat([carry["tokens"][:, None], drafts], dim=1)
-                return drafts, draft_len, rows, ~carry["done"]
+            def step_keys(carry, active, offsets):
+                """Each verify row's key and context: the slot key, folded
+                in the kernel with ``lengths + 1 + offsets`` (the row's
+                position in a chain, the node's depth in a tree)."""
+                if not sampled:
+                    return None, None
+                ctx = torch.where(active[:, None],
+                                  carry["lengths"][:, None] + 1 + offsets, 0)
+                return carry["sample_keys"][:, None, :], ctx
 
             if tree is None:
                 @torch.no_grad()
-                def spec(pools, carry, page_table, drafts, draft_len):
-                    drafts, draft_len, rows, active = step_inputs(
-                        carry, drafts, draft_len, K)
-                    jrow = torch.arange(K + 1, device=rows.device)[None]
+                def spec_body(pools, carry, page_table, drafts, draft_len):
+                    active = ~carry["done"]
+                    rows = torch.cat([carry["tokens"][:, None], drafts],
+                                     dim=1)
+                    jrow = torch.arange(K + 1, dtype=torch.int32,
+                                        device=rows.device)[None]
                     valid = jrow <= draft_len[:, None]
                     logits, pools = model.verify_step(
                         rows, carry["lengths"], active, valid, page_table,
                         pools, **kv)
-                    targets, n_acc = spec_accept(logits, drafts, draft_len,
-                                                 None, temperature)
+                    keys, ctx = step_keys(carry, active, jrow)
+                    targets, n_acc = spec_accept(
+                        logits, drafts, draft_len, keys, temperature, top_k,
+                        top_p, ctx=ctx)
                     carry, n_c = commit(carry, active, targets, n_acc)
                     return pools, carry, targets, n_c
             else:
-                R = len(tree)
-                depths = tree_depths(tree)
-
                 @torch.no_grad()
-                def spec(pools, carry, page_table, drafts, draft_len):
-                    drafts, draft_len, rows, active = step_inputs(
-                        carry, drafts, draft_len, R - 1)
+                def spec_body(pools, carry, page_table, drafts, draft_len):
+                    active = ~carry["done"]
+                    rows = torch.cat([carry["tokens"][:, None], drafts],
+                                     dim=1)
                     dev = rows.device
                     lengths = carry["lengths"]
                     jrow = torch.arange(R, dtype=torch.int32,
                                         device=dev)[None]
-                    jd = torch.as_tensor(depths, dtype=torch.int32,
-                                         device=dev)[None]
+                    jd = _tree_depths(tree, dev)
                     max_len = page_table.shape[1] * cfg.page_size
                     # a node is live when its depth fits the drafted length
                     # AND its physical row fits the slot's page extent
@@ -1150,9 +1223,10 @@ class GPTModel(nn.Module):
                     logits, pools, (ks, vs) = model.verify_step(
                         rows, lengths, active, valid, page_table, pools,
                         tree=tree, **kv)
+                    keys, ctx = step_keys(carry, active, jd)
                     outs, n_acc, path = spec_accept_tree(
-                        logits, drafts, tree, valid[:, 1:], None,
-                        temperature)
+                        logits, drafts, tree, valid[:, 1:], keys,
+                        temperature, top_k, top_p, ctx=ctx)
                     new_carry, n_c = commit(carry, active, outs, n_acc)
                     # pass 2: depth d's committed node (row path[d]) moves
                     # to position lengths + d, from the full-width K/V
@@ -1174,23 +1248,46 @@ class GPTModel(nn.Module):
                             wp2.reshape(-1), wo2.reshape(-1), **kv)
                     return pools, new_carry, outs, n_c, path
 
+            spec_graph = _graphed(spec_body)
+
+            def host_drafts(drafts, draft_len):
+                return (torch.as_tensor(np.asarray(drafts, np.int32))
+                        .reshape(-1, R - 1),
+                        torch.as_tensor(np.asarray(draft_len, np.int32))
+                        .reshape(-1))
+
+            def spec_eager(pools, carry, page_table, drafts, draft_len):
+                dev = carry["tokens"].device
+                drafts, draft_len = host_drafts(drafts, draft_len)
+                return spec_body(pools, carry, page_table, drafts.to(dev),
+                                 draft_len.to(dev))
+
+            def spec(pools, carry, page_table, drafts, draft_len):
+                return spec_graph(pools, carry, page_table,
+                                  *host_drafts(drafts, draft_len))
+
+            spec.graph = spec_graph.graph
+
             # stamped like decode.eos_id / chunk.prefill_chunk: the batcher
             # drafts at ITS k and must reject a step built for another k,
             # freeze id or tree shape
-            spec.eos_id = eos_id
-            spec.speculate_k = K
-            spec.spec_tree = tree
-            spec.draft_source = draft_model
+            for fn in (spec, spec_eager):
+                fn.eos_id = eos_id
+                fn.speculate_k = K
+                fn.spec_tree = tree
+                fn.draft_source = draft_model
 
         # the batcher only sees the callables; stamp the freeze id so it
         # can reject a host truncation id the device disagrees with, and
         # the width with the bytes one step streams for its telemetry
         wbytes = model.weight_stream_bytes()
-        decode.eos_id = eos_id
-        decode.weight_dtype = wd_active
-        decode.weight_stream_bytes = wbytes
+        for fn in (decode, decode_eager):
+            fn.eos_id = eos_id
+            fn.weight_dtype = wd_active
+            fn.weight_stream_bytes = wbytes
         return GPTDecodeFns(
-            prefill=prefill, decode=decode, eos_id=eos_id, chunk=chunk,
+            prefill=prefill, decode=decode, decode_eager=decode_eager,
+            spec_eager=spec_eager, eos_id=eos_id, chunk=chunk,
             prefill_chunk=getattr(chunk, "prefill_chunk", None), spec=spec,
             speculate_k=getattr(spec, "speculate_k", None),
             spec_tree=getattr(spec, "spec_tree", None),
@@ -1223,7 +1320,7 @@ class GPTModel(nn.Module):
     ):
         """Generate from ``prompts (b, s)`` (right-padded; real lengths in
         ``prompt_lengths``) through the serving stack: paged KV cache,
-        decode kernel, on-device greedy sampling, continuous batching.
+        decode kernel, on-device sampling, continuous batching.
         ``max_seqs`` (default ``b``) bounds concurrent slots.
         ``kv_dtype=torch.int8`` stores the cache quantized;
         ``weight_dtype="bf16"/"int8"/"int4"`` serves from a reduced-width
@@ -1234,11 +1331,13 @@ class GPTModel(nn.Module):
         draft-and-verify speculative decoding, drafting from
         ``draft_source`` (default: n-gram self-speculation); a draft source
         built for a candidate tree (``ModelDraftSource(tree=...)``) makes
-        the verify a tree verify of that shape.  The tokens stay those of
-        greedy decoding.  ``key`` is the JAX argument that seeds sampled
-        streams; greedy decoding (``temperature=0``, the only mode ported)
-        does not read it.  Returns the per-prompt generated token lists
-        (EOS included when hit)."""
+        the verify a tree verify of that shape; the tokens stay those of
+        plain decoding.  ``temperature``/``top_k``/``top_p`` sample
+        (:meth:`decode_fns`) and ``key`` (a host key of
+        :mod:`apex_tpu_torch.random`, default ``PRNGKey(0)``) seeds the
+        batcher, request ``i`` drawing under ``fold_in(key, i)``, as in
+        JAX.  Returns the per-prompt generated token lists (EOS included
+        when hit)."""
         c = self.config
         prompts = np.asarray(prompts)
         prompt_lengths = np.asarray(prompt_lengths)
@@ -1264,7 +1363,7 @@ class GPTModel(nn.Module):
             harvest_every=harvest_every, eos_id=eos_id,
             chunk_fn=fns.chunk, prefill_chunk=prefill_chunk,
             prefix_cache=prefix_cache, spec_fn=fns.spec,
-            speculate_k=speculate_k, draft_source=draft_source)
+            speculate_k=speculate_k, draft_source=draft_source, key=key)
         reqs = [
             Request(uid=i,
                     prompt=[int(t) for t in

@@ -39,6 +39,7 @@ __all__ = [
     "KernelUnavailable", "build", "load", "check", "count_launch",
     "launch_counts", "reset_launch_counts", "stream_of", "check_operands",
     "check_implementation", "KERNEL_SOURCES", "as_int32", "split_scratch",
+    "split_scratch_tensors", "add_launch_counts",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -79,6 +80,15 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for name in list(_LAUNCHES):
         _LAUNCHES[name] = 0
+
+
+def add_launch_counts(counts: Dict[str, int], sign: int = 1) -> None:
+    """Add ``sign`` times ``counts`` to the launch counts: a CUDA graph's
+    replay launches what its capture counted, without calling the
+    wrappers, and its capture launched nothing
+    (``serving/graphs.py``)."""
+    for name, n in counts.items():
+        _LAUNCHES[name] = _LAUNCHES.get(name, 0) + sign * int(n)
 
 
 # ------------------------------------------------------------------ build
@@ -193,11 +203,28 @@ _SCRATCH: Dict = {}
 _RETIRED: List = []
 
 
+def split_scratch_tensors(device: torch.device, stream, floats: int,
+                          counters: int):
+    """``(values, indices, counters)``: the first ``floats / 2`` fp32 of
+    the (device, stream) workspace, the next ``floats / 2`` as int32, and
+    the zeroed int32 counters: a split reduction's (value, index)
+    partials and its merge tickets (the Gumbel-max sampler's)."""
+    _scratch(device, stream, floats, counters)
+    ws, cnt = _SCRATCH[(device.index, stream)]
+    half = floats // 2
+    return ws[:half], ws[half:2 * half].view(torch.int32), cnt
+
+
 def split_scratch(device: torch.device, stream, floats: int,
                   counters: int):
     """Pointers to ``floats`` fp32 of workspace and ``counters`` zeroed
     int32 counters on ``device`` for kernels on ``stream`` (the paged
     decode's and the dequant matmul's k split)."""
+    ws, cnt = _scratch(device, stream, floats, counters)
+    return ws.data_ptr(), cnt.data_ptr()
+
+
+def _scratch(device: torch.device, stream, floats: int, counters: int):
     key = (device.index, stream)
     ws, cnt = _SCRATCH.get(key, (None, None))
     if ws is None or ws.numel() < floats:
@@ -210,7 +237,7 @@ def split_scratch(device: torch.device, stream, floats: int,
                               2 * (0 if cnt is None else cnt.numel())),
                           dtype=torch.int32, device=device)
     _SCRATCH[key] = (ws, cnt)
-    return ws.data_ptr(), cnt.data_ptr()
+    return ws, cnt
 
 
 def check_operands(kernel: str, *tensors: torch.Tensor) -> None:

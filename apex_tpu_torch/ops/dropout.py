@@ -85,18 +85,23 @@ def _dropout_plain(x: torch.Tensor, key, rate: float) -> torch.Tensor:
                                             device=x.device))
 
 
-#: ``triton.language`` and the 4-round helper, bound by
-#: :func:`_dropout_kernel` on first launch so the module imports without
-#: Triton (the CPU tests import it); the kernel finds them as globals.
+#: ``triton.language`` and the threefry helpers, bound by
+#: :func:`threefry_jit` on first launch so the module imports without
+#: Triton (the CPU tests import it); the kernels find them as globals.
 tl = None
 _four_rounds = None
+_threefry2x32 = None
 
 
 @functools.lru_cache(maxsize=None)
-def _dropout_kernel():
-    """Build the Triton kernel.  Its constants are threefry's
-    (:data:`apex_tpu_torch.random.ROTATIONS`, ``PARITY``) written out."""
-    global tl, _four_rounds
+def threefry_jit():
+    """The Triton ``threefry2x32(a, b, x0, x1) -> (y0, y1)`` of uint32
+    key words ``a``/``b`` and counters, for any kernel that draws JAX's
+    bits (this module's and ``ops/sampling.py``'s).  Its constants are
+    threefry's (:data:`apex_tpu_torch.random.ROTATIONS`, ``PARITY``)
+    written out: five groups of four rounds, a key injection after
+    each."""
+    global tl, _four_rounds, _threefry2x32
     import triton
     import triton.language
 
@@ -121,19 +126,11 @@ def _dropout_kernel():
 
     _four_rounds = four_rounds
 
-    @triton.jit(do_not_specialize=["n", "k0", "k1"])
-    def dropout_kernel(X, Y, n, k0, k1, keep_p, div, BLOCK: tl.constexpr):
-        pid = tl.program_id(0).to(tl.int64)
-        offs = pid * BLOCK + tl.arange(0, BLOCK)
-        inb = offs < n
-        x = tl.load(X + offs, mask=inb, other=0.0)
-        # threefry2x32 of the counter (offs >> 32, offs & 0xffffffff): five
-        # groups of four rounds, a key injection after each
-        a = k0.to(tl.uint32, bitcast=True)
-        b = k1.to(tl.uint32, bitcast=True)
+    @triton.jit
+    def threefry2x32(a, b, x0, x1):
         c = a ^ b ^ 0x1BD11BDA
-        x0 = (offs >> 32).to(tl.uint32) + a
-        x1 = (offs & 0xFFFFFFFF).to(tl.uint32) + b
+        x0 = x0 + a
+        x1 = x1 + b
         x0, x1 = _four_rounds(x0, x1, 13, 15, 26, 6)
         x0 = x0 + b
         x1 = x1 + c + 1
@@ -149,6 +146,30 @@ def _dropout_kernel():
         x0, x1 = _four_rounds(x0, x1, 13, 15, 26, 6)
         x0 = x0 + c
         x1 = x1 + a + 5
+        return x0, x1
+
+    _threefry2x32 = threefry2x32
+    return threefry2x32
+
+
+@functools.lru_cache(maxsize=None)
+def _dropout_kernel():
+    """Build the Triton kernel over :func:`threefry_jit`'s hash."""
+    import triton
+
+    threefry_jit()
+
+    @triton.jit(do_not_specialize=["n", "k0", "k1"])
+    def dropout_kernel(X, Y, n, k0, k1, keep_p, div, BLOCK: tl.constexpr):
+        pid = tl.program_id(0).to(tl.int64)
+        offs = pid * BLOCK + tl.arange(0, BLOCK)
+        inb = offs < n
+        x = tl.load(X + offs, mask=inb, other=0.0)
+        # threefry2x32 of the counter (offs >> 32, offs & 0xffffffff)
+        x0, x1 = _threefry2x32(k0.to(tl.uint32, bitcast=True),
+                               k1.to(tl.uint32, bitcast=True),
+                               (offs >> 32).to(tl.uint32),
+                               (offs & 0xFFFFFFFF).to(tl.uint32))
         bits = x0 ^ x1
         # JAX's float32 uniform: 23 random mantissa bits of [1, 2), minus 1
         u = ((bits >> 9) | 0x3F800000).to(tl.float32, bitcast=True) - 1.0

@@ -33,6 +33,11 @@ The bulk draws over tensors (:func:`bits_tensor`, :func:`uniform_tensor`)
 are plain PyTorch in int64 arithmetic masked to 32 bits: the CPU path and
 the on-card oracle of the hidden-dropout kernel (``ops/dropout.py``),
 which computes the same hash in one fused pass.
+
+Serving keeps its keys on the device instead: one key a slot, a row of
+the two words held in int64 (:func:`keys_tensor`), folded row by row with
+a device value (the slot's context length) by :func:`fold_in_tensor`, so
+a decode step that samples never reads a key back to the host.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ from apex_tpu_torch.utils.platform import resolve_device
 
 __all__ = ["PRNGKey", "key_from_jax", "fold_in", "split", "bits", "uniform",
            "bernoulli", "threefry2x32", "bits_tensor", "uniform_tensor",
-           "seed_of"]
+           "seed_of", "fold_in_tensor", "keys_tensor", "threefry2x32_rows"]
 
 MASK32 = 0xFFFFFFFF
 #: the two rotation schedules of threefry2x32's five groups of 4 rounds
@@ -72,7 +77,12 @@ def threefry2x32(key, x0, x1):
     ``key``: 20 rounds in five groups with a key injection after each.
     ``x0``/``x1`` are Python ints or int64 tensors below 2**32; every
     add and shift is masked back to 32 bits."""
-    k0, k1 = _key_words(key)
+    return _rounds(*_key_words(key), x0, x1)
+
+
+def _rounds(k0, k1, x0, x1):
+    """threefry2x32 under the key words ``k0``/``k1`` (Python ints, or
+    int64 tensors that broadcast against the counters)."""
     ks = (k0, k1, k0 ^ k1 ^ PARITY)
     x0 = (x0 + ks[0]) & MASK32
     x1 = (x1 + ks[1]) & MASK32
@@ -182,3 +192,47 @@ def uniform_tensor(key, shape: Shape, device=None) -> torch.Tensor:
     as the mantissa of a number in [1, 2), minus 1 (exact in fp32)."""
     b = bits_tensor(key, shape, device)
     return (b >> 9).to(torch.float32) * np.float32(2.0 ** -23)
+
+
+def _key_rows(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    if keys.ndim != 2 or keys.shape[1] != 2:
+        raise ValueError(f"device keys are (rows, 2), got "
+                         f"{tuple(keys.shape)}")
+    keys = keys.to(torch.int64) & MASK32
+    return keys[:, 0], keys[:, 1]
+
+
+def threefry2x32_rows(keys: torch.Tensor, x0: torch.Tensor,
+                      x1: torch.Tensor):
+    """:func:`threefry2x32` with one key a row: ``keys (R, 2)`` int64
+    words, counters ``x0``/``x1`` of shape ``(R,)`` or ``(R, n)``; plain
+    PyTorch in int64 masked to 32 bits."""
+    k0, k1 = _key_rows(keys)
+    if x0.ndim == 2:
+        k0, k1 = k0[:, None], k1[:, None]
+    return _rounds(k0, k1, x0, x1)
+
+
+def keys_tensor(keys, device=None) -> torch.Tensor:
+    """Host keys (one ``(2,)`` uint32 key or ``(R, 2)`` of them) as the
+    device's ``(R, 2)`` int64 rows on ``device`` (the GPU unless it says
+    otherwise)."""
+    k = np.asarray(keys)
+    if k.ndim == 1:
+        k = k[None]
+    if k.ndim != 2 or k.shape[1] != 2:
+        raise ValueError(f"keys are (2,) or (rows, 2), got {k.shape}")
+    return torch.as_tensor(k.astype(np.uint32).astype(np.int64),
+                           device=resolve_device(device))
+
+
+def fold_in_tensor(keys: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """:func:`fold_in` row by row on the device: row ``r`` of the result
+    is ``fold_in(keys[r], data[r])`` (``keys (R, 2)`` int64 words,
+    ``data (R,)`` integers below 2**32), as int64 ``(R, 2)``."""
+    data = data.to(torch.int64) & MASK32
+    if data.shape != keys.shape[:1]:
+        raise ValueError(f"data {tuple(data.shape)} does not match keys "
+                         f"{tuple(keys.shape)}")
+    y0, y1 = threefry2x32_rows(keys, torch.zeros_like(data), data)
+    return torch.stack([y0, y1], dim=1)

@@ -1,4 +1,4 @@
-"""Serving: paged KV cache with the prefix cache, greedy sampling and
+"""Serving: paged KV cache with the prefix cache, sampling and
 speculative acceptance, draft sources, continuous batching (monolithic
 or chunked prefill, speculative decoding)."""
 

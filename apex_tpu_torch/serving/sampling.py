@@ -1,28 +1,117 @@
-"""On-device token sampling and speculative acceptance, greedy so far.
+"""On-device token sampling and speculative acceptance.
 
 Counterpart of ``apex_tpu/serving/sampling.py``.  The sampled ids stay on
 the device and feed the next decode step directly; they reach the host
 only at the serving driver's harvest.  ``temperature=0`` is greedy:
-argmax with the FIRST maximum on ties, as ``jnp.argmax`` does.
-:func:`spec_accept` and :func:`spec_accept_tree` are the JAX package's
-accept rules for a chain and a tree verify at ``temperature=0``: accept
-while the draft equals the argmax, then commit the argmax row.
-Temperature sampling with top-k / top-p (and the JAX PRNG reproduced
-for seeded streams) is ROADMAP.md queue A item 3.
+argmax with the FIRST maximum on ties, as ``jnp.argmax`` does.  Above it
+the chain is JAX's: the logits scaled by ``1/T`` in fp32, floored by
+top-k, then by top-p on the floored row (a value equal to a threshold
+survives), and drawn by Gumbel-max with ``jax.random.gumbel``'s noise, so
+a key gives JAX's token.  The floors are plain PyTorch (XLA in JAX:
+``topk``, ``sort``, ``softmax``, ``cumsum``) and come down to ONE
+threshold a row; the draw is the Triton kernel of ``ops/sampling.py``
+(:func:`~apex_tpu_torch.ops.sampling.gumbel_argmax`), which also folds a
+slot's key with its context length on the device.
+
+Keys: :func:`sample` takes a host key of :mod:`apex_tpu_torch.random`
+and draws the whole ``(..., V)`` block under it, as JAX does;
+:func:`spec_accept` and :func:`spec_accept_tree` take per-row keys
+``(..., R, 2)`` (int64 words), JAX's per-row keys, or, with ``ctx``, the
+slot keys unfolded and the rows' context lengths, which the kernel folds
+(what the serving steps pass).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
-__all__ = ["greedy", "sample", "spec_accept", "spec_accept_tree"]
+from apex_tpu_torch.ops.sampling import NEG_INF, _scaled, gumbel_argmax
+from apex_tpu_torch.random import keys_tensor
+
+__all__ = ["greedy", "sample", "sample_rows", "spec_accept",
+           "spec_accept_tree"]
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
     """Argmax over the last axis, int32, first maximum on ties."""
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def _top_k_threshold(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """The k-th largest logit of each row, ``(..., 1)``."""
+    return torch.topk(logits, k, dim=-1).values[..., -1:]
+
+
+def _top_k_floor(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """Mask everything below the k-th largest logit of each row to
+    ``-1e30``; ties at the threshold all survive."""
+    return torch.where(logits >= _top_k_threshold(logits, k), logits,
+                       NEG_INF)
+
+
+def _top_p_threshold(logits: torch.Tensor, p: float) -> torch.Tensor:
+    """The nucleus threshold ``(..., 1)``: the least logit of the
+    shortest prefix of the descending order whose mass reaches ``p`` (the
+    crossing token included, so the argmax always survives)."""
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits.float(), dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = (cum - probs) < p
+    return torch.where(keep, sorted_logits, torch.inf).amin(
+        dim=-1, keepdim=True).to(logits.dtype)
+
+
+def _top_p_floor(logits: torch.Tensor, p: float) -> torch.Tensor:
+    """JAX's nucleus floor: values below the threshold become -1e30."""
+    return torch.where(logits >= _top_p_threshold(logits, p), logits,
+                       NEG_INF)
+
+
+def _check_options(temperature, top_k, top_p) -> None:
+    if temperature < 0.0:
+        raise ValueError(f"temperature must be >= 0, got {temperature}")
+    if top_k is not None and top_k < 1:
+        raise ValueError(f"top_k must be >= 1, got {top_k}")
+    if top_p is not None and not (0.0 < top_p <= 1.0):
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+
+
+def _floor(x: torch.Tensor, temperature: float, top_k, top_p):
+    """Each row's threshold ``(R,)`` on the scaled logits ``x / T``, or
+    None when neither floor applies: the top-k value, then the top-p
+    threshold of the top-k-floored row; an entry survives both floors
+    iff it is at least the larger of the two."""
+    use_k = top_k is not None and top_k < x.shape[-1]
+    use_p = top_p is not None and top_p < 1.0
+    if not (use_k or use_p):
+        return None
+    y = _scaled(x, temperature)
+    floor = None
+    if use_k:
+        kth = _top_k_threshold(y, int(top_k))
+        y = torch.where(y >= kth, y, NEG_INF)
+        floor = kth[:, 0]
+    if use_p:
+        thresh = _top_p_threshold(y, float(top_p))[:, 0]
+        floor = thresh if floor is None else torch.maximum(floor, thresh)
+    return floor
+
+
+def sample_rows(logits: torch.Tensor, keys: torch.Tensor,
+                ctx: Optional[torch.Tensor], temperature: float,
+                top_k: Optional[int] = None, top_p: Optional[float] = None,
+                row_stride: int = 0) -> torch.Tensor:
+    """One token a row of ``logits (R, V)`` at ``temperature > 0``, row
+    ``r`` drawn under ``keys[r]`` (int64 words) folded with ``ctx[r]``
+    when ``ctx`` is given: the serving steps' draw."""
+    x = logits.float()
+    floor = _floor(x, temperature, top_k, top_p)
+    if ctx is not None:
+        ctx = ctx.to(torch.int32)
+    return gumbel_argmax(x, keys, ctx, temperature, floor, row_stride)
 
 
 def sample(
@@ -33,29 +122,43 @@ def sample(
     top_p: Optional[float] = None,
 ) -> torch.Tensor:
     """One token id per row of ``logits (..., vocab)``, int32, on the
-    logits' device.  Only ``temperature == 0`` (greedy, which ignores
-    ``key``/``top_k``/``top_p``, as in JAX) is ported; ``key`` is the JAX
-    signature's PRNG key, in its second place."""
-    if temperature < 0.0:
-        raise ValueError(f"temperature must be >= 0, got {temperature}")
-    if top_k is not None and top_k < 1:
-        raise ValueError(f"top_k must be >= 1, got {top_k}")
-    if top_p is not None and not (0.0 < top_p <= 1.0):
-        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    logits' device.
+
+    ``temperature=0`` (the default) is greedy and ignores
+    ``key``/``top_k``/``top_p``.  Otherwise the logits are scaled by
+    ``1/temperature``, floored by ``top_k`` and/or ``top_p`` and drawn by
+    Gumbel-max under ``key`` (a host key of :mod:`apex_tpu_torch.random`)
+    over the whole ``(..., vocab)`` block, numbered as
+    ``jax.random.gumbel(key, logits.shape)`` numbers it."""
+    _check_options(temperature, top_k, top_p)
     if temperature == 0.0:
         return greedy(logits)
-    raise NotImplementedError(
-        "temperature > 0 sampling is not ported yet "
-        "(ROADMAP.md queue A item 3)")
+    if key is None:
+        raise ValueError("temperature > 0 requires a PRNG key")
+    lead, vocab = tuple(logits.shape[:-1]), logits.shape[-1]
+    x = logits.reshape(-1, vocab)
+    keys = keys_tensor(np.asarray(key, dtype=np.uint32),
+                       logits.device).expand(x.shape[0], 2).contiguous()
+    return sample_rows(x, keys, None, temperature, top_k, top_p,
+                       row_stride=vocab).reshape(lead)
 
 
-def _greedy_only(temperature: float) -> None:
-    if temperature < 0.0:
-        raise ValueError(f"temperature must be >= 0, got {temperature}")
-    if temperature != 0.0:
-        raise NotImplementedError(
-            "temperature > 0 speculative acceptance is not ported yet "
-            "(ROADMAP.md queue A item 3)")
+def _targets(logits, keys, ctx, temperature, top_k, top_p, what: str):
+    """Each row's draw: the argmax at ``temperature=0``, else one draw a
+    row under its key (``keys (..., R, 2)``, folded with ``ctx (..., R)``
+    when given)."""
+    _check_options(temperature, top_k, top_p)
+    if temperature == 0.0:
+        return greedy(logits)
+    if keys is None:
+        raise ValueError(f"temperature > 0 requires per-{what} PRNG keys")
+    lead, vocab = tuple(logits.shape[:-1]), logits.shape[-1]
+    keys = torch.as_tensor(keys, device=logits.device).to(torch.int64)
+    keys = keys.expand(lead + (2,)).reshape(-1, 2)
+    if ctx is not None:
+        ctx = ctx.expand(lead).reshape(-1)
+    return sample_rows(logits.reshape(-1, vocab), keys, ctx, temperature,
+                       top_k, top_p).reshape(lead)
 
 
 def spec_accept(
@@ -66,18 +169,23 @@ def spec_accept(
     temperature: float = 0.0,
     top_k: Optional[int] = None,
     top_p: Optional[float] = None,
+    *,
+    ctx: Optional[torch.Tensor] = None,
 ):
-    """Speculative accept/commit for a chain verify step, greedy.
+    """Speculative accept/commit for a chain verify step.
 
     ``logits (..., R, vocab)`` are the verify step's R = k+1 rows (row j
     predicts the token after j committed drafts), ``drafts (..., R-1)``
     the proposed tokens and ``draft_len (...)`` how many are real (the
     JAX function is one slot, no leading dims; here any leading dims are
     slots).  Returns ``(targets (..., R) int32, n_accept (...) int32)``:
-    the per-row argmax and the length of the accepted draft prefix; the
-    caller commits ``targets[..., :n_accept + 1]``.  ``keys`` is the JAX
-    signature's per-row PRNG keys, unused at ``temperature=0``."""
-    _greedy_only(temperature)
+    each row's draw and the length of the accepted draft prefix; the
+    caller commits ``targets[..., :n_accept + 1]``.  At ``temperature >
+    0`` row j draws under ``keys[..., j, :]``, the slot key folded with
+    the row's absolute context length (or, with ``ctx``, the slot key
+    that the kernel folds with ``ctx[..., j]``): the plain one-token
+    sampler's key for that position, so the committed stream is the
+    plain sampled stream, token for token."""
     if logits.ndim < 2:
         raise ValueError(
             f"logits must be (rows, vocab), got {tuple(logits.shape)}")
@@ -86,7 +194,7 @@ def spec_accept(
         raise ValueError(
             f"drafts must be ({rows - 1},) for {rows} logit rows, got "
             f"{tuple(drafts.shape)}")
-    targets = greedy(logits)
+    targets = _targets(logits, keys, ctx, temperature, top_k, top_p, "row")
     j = torch.arange(rows - 1, device=logits.device)
     match = (drafts.to(torch.int32) == targets[..., :-1]) & (
         j < torch.as_tensor(draft_len, device=logits.device)[..., None])
@@ -104,20 +212,24 @@ def spec_accept_tree(
     temperature: float = 0.0,
     top_k: Optional[int] = None,
     top_p: Optional[float] = None,
+    *,
+    ctx: Optional[torch.Tensor] = None,
 ):
-    """Accept/commit over a candidate TREE for a verify step, greedy.
+    """Accept/commit over a candidate TREE for a verify step.
 
     ``logits (..., R, vocab)`` are the rows of R tree nodes in
     topological order (node 0 the root, node ``r >= 1`` carries
     ``drafts[..., r-1]`` and hangs off the STATIC ``parents[r] < r``);
-    ``valid (..., R-1)`` masks the real draft nodes.  The root-to-leaf
-    walk accepts, at each depth, the first valid child whose draft equals
-    its parent's argmax.  Returns ``(out (..., R), n_accept (...), path
-    (..., R))``, int32: ``out[t]`` is the token committed at new position
-    ``t``, ``n_accept`` the depth of the deepest accepted node, ``path[t]``
-    the row of the committed node at depth ``t``.  A chain-shaped
-    ``parents`` reduces to :func:`spec_accept`."""
-    _greedy_only(temperature)
+    ``valid (..., R-1)`` masks the real draft nodes.  Each node draws ONE
+    target (its argmax at ``temperature=0``; else under ``keys[..., r,
+    :]``, keyed by the node's DEPTH, or folded with ``ctx[..., r]`` in the
+    kernel), and the root-to-leaf walk accepts, at each depth, the first
+    valid child whose draft equals its parent's target.  Returns ``(out
+    (..., R), n_accept (...), path (..., R))``, int32: ``out[t]`` is the
+    token committed at new position ``t``, ``n_accept`` the depth of the
+    deepest accepted node, ``path[t]`` the row of the committed node at
+    depth ``t``.  A chain-shaped ``parents`` reduces to
+    :func:`spec_accept`."""
     if logits.ndim < 2:
         raise ValueError(
             f"logits must be (rows, vocab), got {tuple(logits.shape)}")
@@ -145,7 +257,8 @@ def spec_accept_tree(
     depth = [0] * rows
     for r in range(1, rows):
         depth[r] = depth[parents[r]] + 1
-    targets = greedy(logits).long()
+    targets = _targets(logits, keys, ctx, temperature, top_k, top_p,
+                       "node").long()
     drafts = drafts.long()
     ok = torch.cat([torch.ones(lead + (1,), dtype=torch.bool,
                                device=logits.device),
@@ -154,7 +267,7 @@ def spec_accept_tree(
     n_acc = torch.zeros(lead, dtype=torch.int32, device=logits.device)
     out_rows, path_rows = [], []
     # the walk, unrolled per depth level: at the current path node, the
-    # first valid child whose draft equals the node's argmax extends the
+    # first valid child whose draft equals the node's target extends the
     # path; no match ends it (level t+1 hangs off depth-t nodes only)
     for t in range(rows):
         tgt_cur = torch.gather(targets, -1, cur[..., None])[..., 0]

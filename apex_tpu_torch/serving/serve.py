@@ -56,8 +56,17 @@ harvest cadence.  ``measure_stall=True`` synchronises around each prefill
 dispatch to measure the decode stall it caused (``decode_stall_s``,
 ``max_prefill_stall_s``).
 
-Not ported yet: seeded sampling (a seeded request runs greedy; ROADMAP.md
-queue A item 3), the metrics logger, and the host offload tier and the
+Sampling keys are per slot: the carry holds a ``sample_keys`` row a
+slot, written at admission (``PRNGKey(Request.seed)`` for a seeded
+request, else ``fold_in(server key, admissions so far)``), and every draw
+folds the slot's context length into it, so a seeded request samples the
+same stream in any slot at any admission order.
+
+On the card the decode and verify steps of ``decode_fns`` replay one CUDA
+graph per step shape (``serving/graphs.py``): a step's outputs are the
+graph's static buffers, so the window keeps a copy of each step's tokens.
+
+Not ported yet: the metrics logger, and the host offload tier and the
 fleet seams (item 8).
 """
 
@@ -71,6 +80,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from apex_tpu_torch.random import PRNGKey, fold_in, keys_tensor
 from apex_tpu_torch.serving.kv_cache import (
     CacheOutOfPages,
     PagedKVCache,
@@ -87,10 +97,8 @@ __all__ = ["Request", "Completion", "ContinuousBatcher", "init_carry"]
 class Request:
     """One generation request.  ``prompt`` is token ids; generation stops
     after ``max_new_tokens`` or at the server's ``eos_id``.  ``seed`` pins
-    a sampled request's stream in the JAX package; the port serves
-    greedily only (ROADMAP.md queue A item 3: a server at temperature > 0
-    raises), and a greedy stream draws nothing, so a seeded request gets
-    the tokens it would get from the JAX package at temperature 0."""
+    a sampled request's stream: its draws use ``PRNGKey(seed)`` folded
+    with each position, whatever its slot or admission order."""
 
     uid: Any
     prompt: Sequence[int]
@@ -116,15 +124,21 @@ class Completion:
     duration_s: Optional[float] = None
 
 
-def init_carry(max_seqs: int, device=None) -> Dict[str, torch.Tensor]:
-    """The decode step's per-slot device state: all slots idle."""
+def init_carry(max_seqs: int, key=None,
+               device=None) -> Dict[str, torch.Tensor]:
+    """The decode step's per-slot device state: all slots idle.
+    ``sample_keys`` holds one PRNG key a slot, ``(max_seqs, 2)`` int64
+    words, every row ``key`` (default ``PRNGKey(0)``) until admission
+    overwrites it."""
     dev = resolve_device(device)
     s = max_seqs
+    base = keys_tensor(PRNGKey(0) if key is None else key, dev)
     return {
         "tokens": torch.zeros((s,), dtype=torch.int32, device=dev),
         "lengths": torch.zeros((s,), dtype=torch.int32, device=dev),
         "steps_left": torch.zeros((s,), dtype=torch.int32, device=dev),
         "done": torch.ones((s,), dtype=torch.bool, device=dev),
+        "sample_keys": base.expand(s, 2).contiguous(),
     }
 
 
@@ -132,8 +146,9 @@ class ContinuousBatcher:
     """Drive the serving step functions over a paged cache.
 
     ``prefill_fn(pools, tokens (1, max_prompt_len) int32, length: int,
-    page_row (pages_per_seq,) int32) -> (pools, first_token)`` writes the
-    prompt's K/V and samples the first token (a 0-d device tensor).
+    page_row (pages_per_seq,) int32, key) -> (pools, first_token)`` writes
+    the prompt's K/V and samples the first token (a 0-d device tensor)
+    under the slot's key (a host key of :mod:`apex_tpu_torch.random`).
 
     ``decode_fn(pools, carry, page_table (max_seqs, pages_per_seq) int32)
     -> (pools, carry)`` produces one token for every live slot; it must
@@ -142,7 +157,7 @@ class ContinuousBatcher:
     budget exhausted``.
 
     ``chunk_fn(pools, tokens (C,) int32, start, prompt_len, write_from,
-    page_row) -> (pools, first_token, logits)`` is one
+    page_row, key) -> (pools, first_token, logits)`` is one
     ``prefill_chunk``-token ingestion step (chunked mode); the first
     token and logits mean something on the chunk holding the last prompt
     token.
@@ -154,7 +169,9 @@ class ContinuousBatcher:
     returns each slot's accepted ``path``.
 
     :meth:`apex_tpu_torch.models.gpt.GPTModel.decode_fns` builds them
-    all.  The pools' device is the serving device.
+    all.  The pools' device is the serving device.  ``key`` (a host key
+    of :mod:`apex_tpu_torch.random`, default ``PRNGKey(0)``) seeds the
+    streams of requests without a ``seed``.
     """
 
     def __init__(
@@ -176,6 +193,7 @@ class ContinuousBatcher:
         speculate_k: Optional[int] = None,
         draft_source: Optional[Any] = None,
         offload: Optional[Any] = None,
+        key: Optional[Any] = None,
     ):
         if logger is not None:
             raise NotImplementedError(
@@ -290,7 +308,11 @@ class ContinuousBatcher:
         self.max_prompt_len = int(max_prompt_len)
         self.harvest_every = int(harvest_every)
         self.eos_id = eos_id
-        self.carry = init_carry(cache.config.max_seqs, self.device)
+        self._base_key = PRNGKey(0) if key is None else np.asarray(
+            key, dtype=np.uint32)
+        self._n_admits = 0
+        self.carry = init_carry(cache.config.max_seqs, self._base_key,
+                                self.device)
         self._meta: Dict[int, dict] = {}      # slot -> request meta
         self._prefilling: "collections.OrderedDict[int, dict]" = \
             collections.OrderedDict()         # slot -> chunk progress
@@ -355,8 +377,15 @@ class ContinuousBatcher:
         return out
 
     # ------------------------------------------------------------- admit
+    def _slot_key(self, req: Request) -> np.ndarray:
+        """The request's sampling key: its own seed when given, else a
+        fold of the server key by admission index."""
+        if req.seed is not None:
+            return PRNGKey(int(req.seed))
+        return fold_in(self._base_key, self._n_admits)
+
     def _slot_live(self, slot: int, first: torch.Tensor, req: Request,
-                   plen: int, t_admit: float) -> None:
+                   plen: int, t_admit: float, skey) -> None:
         """Prefill finished: flip the slot into the decoding set (device
         carry updated in place, no host sync)."""
         budget_left = req.max_new_tokens - 1
@@ -365,6 +394,7 @@ class ContinuousBatcher:
         c["lengths"][slot] = plen
         c["steps_left"][slot] = budget_left
         c["done"][slot] = budget_left <= 0
+        c["sample_keys"][slot] = keys_tensor(skey, self.device)[0]
         self._first_tok[slot] = first
         self._meta[slot] = {
             "req": req, "tokens": [], "t_admit": t_admit,
@@ -394,22 +424,26 @@ class ContinuousBatcher:
             except CacheOutOfPages:
                 break                       # backpressure: wait for pages
             queue.popleft()
+            skey = self._slot_key(req)
+            self._n_admits += 1
             t_admit = time.perf_counter()
             page_row = torch.as_tensor(self.cache.page_table[slot],
                                        device=self.device)
             if self.prefill_chunk is not None:
-                self._admit_chunked(slot, req, res, t_admit, page_row)
+                self._admit_chunked(slot, req, res, skey, t_admit,
+                                    page_row)
                 continue
             toks = torch.zeros((1, self.max_prompt_len), dtype=torch.int32)
             toks[0, :plen] = torch.as_tensor(list(req.prompt),
                                              dtype=torch.int32)
             self.pools, first = self._timed_prefill(
                 self.prefill_fn, self.pools, toks.to(self.device), plen,
-                page_row)
+                page_row, skey)
             self.cache.lengths[slot] = plen
-            self._slot_live(slot, first, req, plen, t_admit)
+            self._slot_live(slot, first, req, plen, t_admit, skey)
 
-    def _admit_chunked(self, slot, req, res, t_admit, page_row) -> None:
+    def _admit_chunked(self, slot, req, res, skey, t_admit,
+                       page_row) -> None:
         C = self.prefill_chunk
         plen = len(req.prompt)
         if res.copied_page is not None:
@@ -424,7 +458,7 @@ class ContinuousBatcher:
         self._prefilling[slot] = {
             "req": req, "toks": toks, "plen": plen,
             "next_chunk": first_chunk, "write_from": res.matched_tokens,
-            "hashes": res.page_hashes, "t_admit": t_admit,
+            "hashes": res.page_hashes, "key": skey, "t_admit": t_admit,
             "page_row": page_row,
         }
         if self.prefix_cache:
@@ -448,7 +482,7 @@ class ContinuousBatcher:
         c0 = st["next_chunk"] * C
         self.pools, tok, logits = self._timed_prefill(
             self.chunk_fn, self.pools, st["toks"][c0:c0 + C], c0,
-            st["plen"], st["write_from"], st["page_row"])
+            st["plen"], st["write_from"], st["page_row"], st["key"])
         st["next_chunk"] += 1
         self.prefill_chunks += 1
         if st["next_chunk"] * C < st["plen"]:
@@ -461,7 +495,8 @@ class ContinuousBatcher:
             self.cache.register_prefix(slot, req.prompt,
                                        hashes=st["hashes"])
         self.last_prefill_logits = logits
-        self._slot_live(slot, tok, req, st["plen"], st["t_admit"])
+        self._slot_live(slot, tok, req, st["plen"], st["t_admit"],
+                        st["key"])
 
     # ------------------------------------------------------------ decode
     def _window_budget(self, base: int) -> int:
@@ -656,7 +691,9 @@ class ContinuousBatcher:
                 with phase("decode"):
                     self.pools, self.carry = self.decode_fn(
                         self.pools, self.carry, page_table)
-                window.append(self.carry["tokens"])
+                # a replayed step's carry is the graph's buffer, which
+                # the next step overwrites
+                window.append(self.carry["tokens"].clone())
                 self.steps += 1
             elif not did_chunk:
                 break

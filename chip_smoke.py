@@ -63,7 +63,12 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
              cotangent on the mid rung, fed the plain forward's out and
              lse: dq, dk, dv within two bf16 ulps of the plain backward,
              dBias within its band, the same bits twice.  Phase 1 prints
-             each such instance's registers and spills.
+             each such instance's registers and spills.  The Gumbel-max
+             sampler (Triton) at 4 x 32768 and 20 x 32768, T 0.7 and 1,
+             without a floor and with top-k 40 + top-p 0.9, 256 ctx
+             values: tokens equal to the plain version's wherever its top
+             two ``y + g`` differ by more than 8 ulps (the rest counted,
+             at most 0.1%), the same bits twice.
 3. parity  — the flagship GPT's width at 2 layers, fp32 compute: the
              paged greedy tokens of ``ContinuousBatcher`` (6 ragged
              requests, 2 slots, 16 new tokens) must equal the port's
@@ -86,20 +91,35 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
              (offramp_tree(4), an int4 ``ModelDraftSource``) speculation
              == plain greedy; int8 KV chunked completes, its logits
              within quant-parity's band of fp32 pages.
+   sample-parity — the 2-layer fp32 flagship and Llama mode sampling at
+             T=0.8, top-k 40, top-p 0.95 on seeded requests: two
+             admission orders on 2 and 3 slots, chunked + prefix-cached
+             prefill, chain (n-gram drafts, and drafts of the stream
+             itself) and tree (offramp_tree(4)) speculation all commit
+             the plain sampled stream; the GPU's stream equals the
+             port's CPU stream (a first divergence only where the CPU's
+             top-two margin is under 1e-4 of the logit scale); the
+             replayed decode and verify steps give the eager steps'
+             tokens, greedy and sampled, with equal launch counts.
 4. serve   — the full flagship GPT (12 layers, bf16): 8 requests with
              prompts of 32..512 tokens, 32 greedy tokens each, through
-             ``decode_fns`` + ``ContinuousBatcher``, then one 900-token
-             prompt (prefill padded to 960); every request must complete,
-             and every serving kernel must have launched in this phase;
-             the bf16 logits are printed beside the same weights at fp32.
+             ``decode_fns`` + ``ContinuousBatcher`` (the decode step
+             replayed as a CUDA graph), then one 900-token prompt
+             (prefill padded to 960), then the 8 requests again through
+             the eager decode step and sampled (replayed and eager);
+             every request must complete, and every serving kernel must
+             have launched in this phase; the bf16 logits are printed
+             beside the same weights at fp32.
 5. profile — the same model under ``torch.profiler``: four prefills,
-             then one harvest window of decode steps; the device's busy
-             share and the kernels that took its time.
+             then one harvest window of decode steps, replayed and
+             eager; the device's busy share and the kernels that took its
+             time.
    serve-quant — the same model and requests served from weights
              {bf16 copies made once, int8, int4} x KV pages {bf16, int8}:
-             decode ms/step, ms per prefill, the weight bytes a step
-             streams and the rate that implies, the KV pool's bytes, and
-             the int8/int4 logits against bf16 weights; every request
+             decode ms/step replayed and eager, ms per prefill, the
+             weight bytes a step streams and the rate that implies, the
+             KV pool's bytes, and the int8/int4 logits against bf16
+             weights, and the int4 / int8-KV run sampled; every request
              must complete and the three new kernels must launch; a
              decode window profiled with the bf16 copies and at int4
              weights with int8 KV.
@@ -111,8 +131,9 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
              hits; the many-row instance must launch.
    serve-spec — the same model, 4 slots of 32-token repetitive prompts,
              24 new tokens, k=4: plain vs n-gram chain vs offramp_tree(4)
-             from the int4 ``ModelDraftSource``: tokens committed per
-             verify step, ms per committed token, share equal to plain.
+             from the int4 ``ModelDraftSource``, each greedy replayed,
+             greedy eager and sampled: tokens committed per verify step,
+             ms per committed token, share equal to plain.
    fused-softmax — ``FusedScaleMaskSoftmax`` (padding mask and causal)
              forward and backward at (8, 8, 1024, 1024) bf16 through the
              softmax kernel, against its plain version.
@@ -535,6 +556,7 @@ def phase_kernels(dev) -> dict:
     records.update(softmax_kernels(randn))
     records.update(segment_kernels(randn))
     records.update(dropout_kernels(randn))
+    records.update(gumbel_kernels(randn, dev))
     records.update(bias_kernels(randn))
     records.update(dbias_kernels(randn))
     fwd_sm90_kernels(randn, dev)
@@ -1906,6 +1928,108 @@ DROP_SHAPES = (
 )
 
 
+#: phase 2's draws: a decode step's 4 slots and a k=4 chain verify of 4
+#: slots (20 rows), over the flagship's vocabulary
+GUMBEL_ROWS = (4, 20)
+GUMBEL_CTX = 256
+#: a row may go either way when the plain version's top two ``y + g``
+#: lie within this many fp32 ulps of the larger; such rows are counted,
+#: and may be at most this share of the rows
+GUMBEL_MARGIN_ULPS = 8
+GUMBEL_CLOSE_LIMIT = 1e-3
+
+
+def fp32_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of fp32 values at each magnitude of ``x`` (float64)."""
+    e = torch.floor(torch.log2(x.double().abs().clamp_min(2.0 ** -126)))
+    return torch.pow(2.0, e - 23)
+
+
+def gumbel_plain_z(x, keys, ctx, temperature, floor):
+    """The plain version's ``y + g`` (``ops/sampling.py``), whose argmax
+    is its token."""
+    from apex_tpu_torch.ops import sampling as smp
+
+    y = smp._scaled(x, temperature)
+    if floor is not None:
+        y = torch.where(y < floor[:, None], smp.NEG_INF, y)
+    return y + smp.gumbel_noise(keys, ctx, x.shape[1])
+
+
+def gumbel_kernels(randn, dev) -> dict:
+    """The Gumbel-max sampler (Triton) at a decode step's 4 x 32768 and a
+    4-slot k=4 verify's 20 x 32768, fp32, T in {0.7, 1.0}, without a
+    floor and with top-k 40 + top-p 0.9, over 256 values of ``ctx``: the
+    kernel's token equals the plain version's on every row whose top two
+    ``y + g`` differ by more than 8 ulps of the larger; the other rows are
+    counted (at most 0.1%); the same bits twice.  Timed at T=1 without a
+    floor; bound: the logits read once, and the threefry's integer
+    operations at the fp32 rate; no PyTorch call draws JAX's Gumbel
+    stream."""
+    from apex_tpu_torch.ops import sampling as smp
+    from apex_tpu_torch.random import PRNGKey, fold_in, keys_tensor
+    from apex_tpu_torch.serving.sampling import _floor
+
+    vocab = FLAGSHIP["vocab_size"]
+    records = {"gumbel_argmax": []}
+    log(f"[kernels] gumbel_argmax (Triton): rows {GUMBEL_ROWS} x {vocab}, "
+        f"fp32, {GUMBEL_CTX} ctx values a case")
+    for rows in GUMBEL_ROWS:
+        x = randn(rows, vocab, scale=3.0)
+        keys = keys_tensor(np.stack([fold_in(PRNGKey(11), r)
+                                     for r in range(rows)]), dev)
+        base = torch.arange(rows, dtype=torch.int32, device=dev)
+        plan = smp.sample_plan(rows, vocab)
+        for temperature in (0.7, 1.0):
+            for floored in (False, True):
+                floor = _floor(x, temperature, 40, 0.9) if floored else None
+                close, gap = 0, 0.0
+                for j in range(GUMBEL_CTX):
+                    ctx = base + 1000 + 37 * j
+                    got = smp.gumbel_argmax(x, keys, ctx, temperature, floor)
+                    z = gumbel_plain_z(x, keys, ctx, temperature, floor)
+                    top2 = z.topk(2, dim=-1).values
+                    decisive = (top2[:, 0] - top2[:, 1]).double() > \
+                        GUMBEL_MARGIN_ULPS * fp32_ulp(top2[:, 0])
+                    want = z.argmax(-1).to(torch.int32)
+                    bad = (got != want) & decisive
+                    if bool(bad.any()):
+                        fail(f"gumbel_argmax rows={rows} T={temperature} "
+                             f"floored={floored} ctx+{37 * j}: tokens "
+                             f"{got[bad].tolist()} != plain "
+                             f"{want[bad].tolist()} on decisive rows")
+                    close += int((~decisive).sum())
+                    rows_i = torch.arange(rows, device=dev)
+                    gap = max(gap, (z[rows_i, want.long()]
+                                    - z[rows_i, got.long()]).max().item())
+                again = smp.gumbel_argmax(x, keys, ctx, temperature, floor)
+                if not torch.equal(again, got):
+                    fail(f"gumbel_argmax rows={rows}: two runs differ")
+                share = close / (rows * GUMBEL_CTX)
+                if share > GUMBEL_CLOSE_LIMIT:
+                    fail(f"gumbel_argmax rows={rows} T={temperature}: "
+                         f"{close} rows within {GUMBEL_MARGIN_ULPS} ulps "
+                         f"({100 * share:.3f}% > "
+                         f"{100 * GUMBEL_CLOSE_LIMIT}%)")
+                log(f"  rows={rows} (split {plan.split} x {plan.chunk}) "
+                    f"T={temperature} "
+                    f"{'top-k 40 + top-p 0.9' if floored else 'no floor'}: "
+                    f"tokens equal on every decisive row; {close} close "
+                    f"rows of {rows * GUMBEL_CTX}; max y+g gap of the "
+                    f"kernel's token {gap:.3g}; the same bits twice")
+                if temperature != 1.0 or floored:
+                    continue
+                records["gumbel_argmax"].append(measure(
+                    "gumbel_argmax", f"{rows} x {vocab} fp32, T=1",
+                    gap, lambda: smp.gumbel_argmax(x, keys, ctx, 1.0),
+                    lambda: smp._gumbel_argmax_plain(x, keys, ctx, 1.0,
+                                                     None, 0),
+                    None, nbytes=rows * vocab * 4 + rows * 16,
+                    ops=float(rows * vocab * smp.THREEFRY_OPS),
+                    dtype=torch.float32, plain_iters=10))
+    return records
+
+
 def dropout_kernels(randn) -> dict:
     """The hidden-dropout kernel (Triton) at the flagship's activation (8
     x 1024 x 1024), held bit for bit against its plain version, fp32 and
@@ -2448,12 +2572,18 @@ def drop_masks(randn) -> None:
 
 # ---------------------------------------------------------------- phase 3
 def serve(model, requests, max_prompt_len, page_size, max_seqs,
-          pages_per_seq, harvest_every=8, weight_dtype=None, kv_dtype=None):
-    """Serve ``requests`` through ``decode_fns`` (``weight_dtype``) over a
-    fresh paged cache (``kv_dtype``) and ``ContinuousBatcher``.  Returns
+          pages_per_seq, harvest_every=8, weight_dtype=None, kv_dtype=None,
+          eager=False, sampling=None):
+    """Serve ``requests`` through ``decode_fns`` (``weight_dtype``,
+    ``sampling``: its temperature/top-k/top-p, server key ``PRNGKey(0)``)
+    over a fresh paged cache (``kv_dtype``) and ``ContinuousBatcher``,
+    after one untimed 3-token request on the same batcher (the decode
+    step's warm-up and graph capture at its shape); ``eager`` drives
+    ``decode_eager`` in place of the replayed step.  Returns
     ``(completions, wall s, [prefill s], batcher)``."""
+    from apex_tpu_torch.random import PRNGKey
     from apex_tpu_torch.serving import (
-        ContinuousBatcher, KVCacheConfig, PagedKVCache, init_pools)
+        ContinuousBatcher, KVCacheConfig, PagedKVCache, Request, init_pools)
 
     c = model.config
     ccfg = KVCacheConfig(
@@ -2463,7 +2593,7 @@ def serve(model, requests, max_prompt_len, page_size, max_seqs,
         pages_per_seq=pages_per_seq, dtype=c.compute_dtype,
         kv_dtype=kv_dtype)
     fns = model.decode_fns(ccfg, max_prompt_len=max_prompt_len,
-                           weight_dtype=weight_dtype)
+                           weight_dtype=weight_dtype, **(sampling or {}))
     prefill_s = []
 
     def timed_prefill(*args):
@@ -2475,9 +2605,14 @@ def serve(model, requests, max_prompt_len, page_size, max_seqs,
         return out
 
     batcher = ContinuousBatcher(
-        timed_prefill, fns.decode, PagedKVCache(ccfg),
-        init_pools(ccfg, model.device), max_prompt_len=max_prompt_len,
-        harvest_every=harvest_every)
+        timed_prefill, fns.decode_eager if eager else fns.decode,
+        PagedKVCache(ccfg), init_pools(ccfg, model.device),
+        max_prompt_len=max_prompt_len, harvest_every=harvest_every,
+        key=PRNGKey(0))
+    batcher.run([Request(uid="warm", prompt=[1, 2, 3], max_new_tokens=3)])
+    batcher.completions.clear()
+    batcher.steps = batcher.windows = 0
+    prefill_s.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     comps = batcher.run(requests)
@@ -2903,6 +3038,228 @@ def phase_chunked_parity(dev) -> dict:
 
 
 # ---------------------------------------------------------------- phase 4
+#: sample-parity's sampling and its slot keys: seeded requests
+SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.95)
+#: a first GPU/CPU divergence may fall only where the CPU's top two
+#: ``y + g`` lie within this share of the row's logit scale
+SAMPLE_MARGIN_SHARE = 1e-4
+
+
+class OracleDrafts:
+    """Drafts a request's own plain stream (``streams``: prompt ->
+    tokens), wrong at every third position it proposes: accepted prefixes
+    of every length, and rejections whose correction must be the plain
+    draw."""
+
+    def __init__(self, streams, vocab: int, k: int = 4):
+        self.streams, self.vocab, self.k = streams, vocab, k
+
+    def draft(self, context, prompt_len):
+        ref = self.streams[tuple(context[:prompt_len])]
+        done = len(context) - prompt_len
+        toks = list(ref[done:done + self.k])
+        for j in range(len(toks)):
+            if (done + j) % 3 == 2:
+                toks[j] = (toks[j] + 1) % self.vocab
+        return toks, "oracle"
+
+
+def sampled_batcher(model, width, pps, slots=2, chunk=None, k=None,
+                    tree=None, eager=False, key=None, sampling=SAMPLED,
+                    page_size=16):
+    """A ``ContinuousBatcher`` over a fresh cache serving ``sampling``:
+    monolithic or chunked (prefix-cached) prefill, a chain or ``tree``
+    verify of ``k`` drafts; ``eager`` drives ``decode_eager`` /
+    ``spec_eager`` in place of the replayed steps."""
+    from apex_tpu_torch.serving import (
+        ContinuousBatcher, KVCacheConfig, PagedKVCache, init_pools)
+
+    c = model.config
+    ccfg = KVCacheConfig(
+        num_layers=c.num_layers, num_heads=c.num_attention_heads,
+        head_dim=c.head_dim, num_pages=1 + (slots + 4) * pps,
+        page_size=page_size, max_seqs=slots, pages_per_seq=pps,
+        dtype=c.compute_dtype)
+    fns = model.decode_fns(ccfg, max_prompt_len=width, prefill_chunk=chunk,
+                           speculate_k=k, spec_tree=tree, **sampling)
+    spec = None if k is None else (fns.spec_eager if eager else fns.spec)
+    return ContinuousBatcher(
+        fns.prefill, fns.decode_eager if eager else fns.decode,
+        PagedKVCache(ccfg), init_pools(ccfg, model.device),
+        max_prompt_len=width, harvest_every=4, chunk_fn=fns.chunk,
+        prefill_chunk=chunk, prefix_cache=chunk is not None, spec_fn=spec,
+        speculate_k=k, key=key), fns
+
+
+def first_divergence_margin(cpu_model, prompt, toks, seed, sampling):
+    """The CPU's top-two margin of ``y + g`` (and the row's logit scale)
+    at the draw of ``toks[-1]``, by full recompute."""
+    from apex_tpu_torch.random import PRNGKey, keys_tensor
+    from apex_tpu_torch.serving.sampling import _floor
+
+    ctx = torch.tensor([prompt + toks[:-1]], dtype=torch.int32)
+    with torch.no_grad():
+        logits = cpu_model.apply(ctx)[0, -1].float()[None]
+    t = sampling["temperature"]
+    floor = _floor(logits, t, sampling.get("top_k"), sampling.get("top_p"))
+    keys = keys_tensor(PRNGKey(seed), "cpu")
+    n = torch.tensor([len(prompt) + len(toks) - 1], dtype=torch.int32)
+    top2 = gumbel_plain_z(logits, keys, n, t, floor).topk(2).values[0]
+    return (top2[0] - top2[1]).item(), logits.abs().max().item()
+
+
+def phase_sample_parity(dev) -> dict:
+    """Sampled serving at T=0.8, top-k 40, top-p 0.95 on seeded requests,
+    the 2-layer fp32 flagship and Llama mode: the same tokens in two
+    admission orders on 2 and 3 slots; chunked prefill with the prefix
+    cache, chain speculation (n-gram drafts, and drafts of the stream
+    itself, wrong at every third position) and tree speculation
+    (offramp_tree(4)) commit the plain sampled stream; the GPU's stream
+    equals the port's CPU stream on the same weights, a first divergence
+    allowed only where the CPU's top-two margin is under 1e-4 of the logit
+    scale; the replayed decode and verify steps give the eager steps'
+    tokens, greedy and sampled, with equal launch counts; gumbel_argmax
+    launches.  Returns the launches of the flagship's plain sampled
+    run."""
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.random import PRNGKey
+    from apex_tpu_torch.serving import Request, offramp_tree
+
+    log(f"[sample-parity] 2 layers, fp32, {SAMPLED}, seeded requests")
+    new, width, page, k = 16, 64, 16, 4
+    pps = -(-(width + new + 2 * k) // page)
+    out = {}
+    for label, sizes, seed in (("flagship", FLAGSHIP, 5),
+                               ("Llama mode", LLAMA, 6)):
+        cfg = GPTConfig(**dict(sizes, num_layers=2),
+                        compute_dtype=torch.float32)
+        model = GPTModel(cfg, device=dev, seed=seed)
+        rng = np.random.RandomState(seed)
+        prompts = [rng.randint(1, cfg.vocab_size, n).tolist()
+                   for n in (60, 17, 33, 8)]
+        # two that share the first one's first 48 and 32 tokens
+        prompts += [prompts[0][:48] + prompts[1][:9], prompts[0][:32]]
+
+        def reqs(order=range(6)):
+            return [Request(uid=i, prompt=prompts[i], max_new_tokens=new,
+                            seed=100 + i) for i in order]
+
+        def run(b, order=range(6)):
+            comps = b.run(reqs(order))
+            toks = {i: comps[i].tokens for i in range(6)}
+            for i, t in toks.items():
+                if len(t) != new or not all(0 <= x < cfg.vocab_size
+                                            for x in t):
+                    fail(f"sample-parity {label}: request {i} returned {t}")
+            return toks
+
+        def same(name, got, want):
+            for i in range(6):
+                if got[i] != want[i]:
+                    fail(f"sample-parity {label} {name}: request {i} "
+                         f"{got[i]} != plain sampled {want[i]}")
+
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        b, fns = sampled_batcher(model, width, pps, key=PRNGKey(0))
+        ref = run(b)
+        graphed = launch_counts()
+        if graphed.get("gumbel_argmax", 0) <= 0:
+            fail(f"sample-parity {label}: gumbel_argmax never launched")
+        if fns.decode.graph.replays <= 0:
+            fail(f"sample-parity {label}: the decode step never replayed")
+        if label == "flagship":
+            out = graphed
+        # order and slots
+        b3, _ = sampled_batcher(model, width, pps, slots=3, key=PRNGKey(9))
+        same("3 slots, shuffled order", run(b3, [4, 2, 0, 5, 1, 3]), ref)
+        same("2 slots, reversed order",
+             run(sampled_batcher(model, width, pps, key=PRNGKey(3))[0],
+                 [5, 4, 3, 2, 1, 0]), ref)
+        # chunked prefill with the prefix cache
+        bc, _ = sampled_batcher(model, width, pps, chunk=16)
+        same("chunked (C=16), prefix-cached", run(bc), ref)
+        if bc.prefix_stats["hits"] < 1:
+            fail(f"sample-parity {label}: no prefix hit")
+        notes = [f"prefix hits {bc.prefix_stats['hits']}"]
+        # speculation
+        oracle = OracleDrafts({tuple(prompts[i]): ref[i] for i in range(6)},
+                              cfg.vocab_size, k)
+        for name, tree, source in (
+                ("chain, n-gram drafts", None, None),
+                ("chain, drafts of the stream", None, oracle),
+                ("offramp_tree(4), drafts of the stream", offramp_tree(k),
+                 oracle)):
+            bs, sfns = sampled_batcher(model, width, pps, k=k, tree=tree)
+            if source is not None:
+                bs.draft_source = source
+            same(name, run(bs), ref)
+            st = bs.spec_stats
+            if source is not None and not 0 < st["accepted"] < st["drafted"]:
+                fail(f"sample-parity {label} {name}: {st['accepted']} of "
+                     f"{st['drafted']} drafts accepted")
+            if sfns.spec.graph.replays <= 0:
+                fail(f"sample-parity {label} {name}: no verify replay")
+            notes.append(f"{name}: {st['accepted']}/{st['drafted']} "
+                         f"accepted, {st['committed'] / st['slot_steps']:.2f}"
+                         " committed a slot step")
+        # replayed steps against eager ones: tokens and launches
+        for sampling in (SAMPLED, {}):
+            for k_ in (None, k):
+                counts = []
+                toks = []
+                for eager in (False, True):
+                    torch.cuda.synchronize()
+                    reset_launch_counts()
+                    bb, _ = sampled_batcher(model, width, pps, k=k_,
+                                            eager=eager, key=PRNGKey(0),
+                                            sampling=sampling)
+                    toks.append(run(bb))
+                    torch.cuda.synchronize()
+                    counts.append(launch_counts())
+                what = (f"{'sampled' if sampling else 'greedy'} "
+                        f"{'verify' if k_ else 'decode'}")
+                if toks[0] != toks[1]:
+                    fail(f"sample-parity {label}: replayed {what} tokens "
+                         "differ from the eager step's")
+                if counts[0] != counts[1]:
+                    fail(f"sample-parity {label}: replayed {what} launches "
+                         f"{counts[0]} != eager {counts[1]}")
+                if sampling and k_ is None and toks[0] != ref:
+                    fail(f"sample-parity {label}: eager sampled run differs")
+        notes.append("replayed == eager (greedy and sampled, decode and "
+                     "verify), launches equal")
+        # the GPU's stream against the port's CPU stream
+        cpu = GPTModel(cfg, device="cpu")
+        cpu.load_state_dict({n: t.cpu() for n, t in
+                             model.state_dict().items()})
+        bcpu, _ = sampled_batcher(cpu, width, pps, key=PRNGKey(0))
+        cref = run(bcpu)
+        diverged = []
+        for i in range(6):
+            if cref[i] == ref[i]:
+                continue
+            t = next(j for j in range(new) if cref[i][j] != ref[i][j])
+            margin, scale = first_divergence_margin(
+                cpu, prompts[i], cref[i][:t + 1], 100 + i, SAMPLED)
+            diverged.append((i, t, margin, scale))
+            log(f"  {label}: request {i} diverges from the CPU at token {t}"
+                f": CPU top-two margin {margin:.3g} (logit scale "
+                f"{scale:.3g})")
+            if not margin < SAMPLE_MARGIN_SHARE * scale:
+                fail(f"sample-parity {label}: request {i} GPU != CPU at "
+                     f"token {t} with a margin of {margin:.3g}")
+        log(f"  {label}: 6 seeded requests x {new} tokens: 2 and 3 slots, "
+            f"two orders, chunked + prefix cache, chain and tree "
+            f"speculation all equal the plain sampled stream; "
+            f"{'; '.join(notes)}; GPU == CPU on "
+            f"{6 - len(diverged)} of 6 streams")
+        del model, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_serve(dev) -> dict:
     from apex_tpu_torch.models import GPTConfig, GPTModel
     from apex_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -2931,6 +3288,19 @@ def phase_serve(dev) -> dict:
                        max_new_tokens=new)
     long_comps, long_wall, long_prefill, _ = serve(model, [long_req], 960,
                                                    64, 1, 16)
+    # the same requests through the eager decode step, and sampled
+    others = {}
+    for name, kw in (("eager", dict(eager=True)),
+                     ("sampled, replayed", dict(sampling=SAMPLED)),
+                     ("sampled, eager", dict(sampling=SAMPLED, eager=True))):
+        o_comps, o_wall, o_prefill, o_b = serve(model, reqs, 512, 64, 4, 9,
+                                                **kw)
+        for i in range(len(reqs)):
+            toks = o_comps[i].tokens
+            if len(toks) != new or not all(0 <= t < cfg.vocab_size
+                                           for t in toks):
+                fail(f"serve {name}: request {i} returned {toks}")
+        others[name] = (o_wall - sum(o_prefill)) / o_b.steps
     counts = launch_counts()
     toks = long_comps["long"].tokens
     if len(toks) != new or not all(0 <= t < cfg.vocab_size for t in toks):
@@ -2954,13 +3324,19 @@ def phase_serve(dev) -> dict:
         f"{1e3 * np.mean(prefill_s):.2f} ms per prefill")
     log(f"  decode: {decode_tokens} tokens in {decode_s:.3f} s = "
         f"{decode_tokens / decode_s:.1f} tokens/s, "
-        f"{1e3 * decode_s / batcher.steps:.2f} ms per step (4 slots)")
+        f"{1e3 * decode_s / batcher.steps:.2f} ms per step (4 slots), "
+        "replayed")
+    for name, step_s in others.items():
+        log(f"  decode {name} ({SAMPLED if 'sampled' in name else 'greedy'}"
+            f"): {1e3 * step_s:.2f} ms per step, {1e3 * step_s / 4:.2f} ms "
+            "per token (4 slots)")
     log(f"  TTFT p50 {1e3 * ttft[len(ttft) // 2]:.1f} ms, max "
         f"{1e3 * ttft[-1]:.1f} ms (quantized to the harvest window)")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB")
     log(f"  launches in this phase: {counts}")
-    for name in ("ln_fwd", "short_fwd", "mid_fwd", "paged_decode"):
+    for name in ("ln_fwd", "short_fwd", "mid_fwd", "paged_decode",
+                 "gumbel_argmax"):
         if counts.get(name, 0) <= 0:
             fail(f"serve: kernel {name} never launched on the main path")
     # the bf16 path against the same weights at fp32 compute
@@ -2977,7 +3353,8 @@ def phase_serve(dev) -> dict:
         f"|diff| {band:.4f} (logit scale {hi.abs().max().item():.3f}), "
         f"argmax agrees at {100 * agree:.1f}% of positions")
     del ref
-    return counts, model
+    others["replayed"] = decode_s / batcher.steps
+    return counts, model, others
 
 
 def timed_steps(fns):
@@ -3101,12 +3478,15 @@ def phase_serve_spec(model) -> dict:
     repetitive prompts (a 4-token pattern tiled), 24 new tokens, k=4,
     pages of 64: plain decode, a chain verify with n-gram drafts, and an
     ``offramp_tree(4)`` verify fed by the int4 ``ModelDraftSource`` of the
-    same weights.  One priming request each first.  Prints tokens
-    committed per verify step, ms per committed token and the share of
-    tokens equal to the plain run's (bf16: the verify and decode steps
-    round differently, so identity is gated at fp32 in chunked-parity).
-    Returns the tree run's launches."""
+    same weights; each greedy with the steps replayed, greedy eager, and
+    sampled (:data:`SAMPLED`, replayed).  One priming request each first.
+    Prints tokens committed per verify step, ms per committed token and
+    the share of tokens equal to the plain run's (bf16: the verify and
+    decode steps round differently, so identity is gated at fp32 in
+    chunked-parity and sample-parity).  Returns the greedy replayed tree
+    run's launches."""
     from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.random import PRNGKey
     from apex_tpu_torch.serving import (
         ContinuousBatcher, KVCacheConfig, PagedKVCache, Request, init_pools,
         NGramDraftSource, offramp_tree)
@@ -3115,12 +3495,13 @@ def phase_serve_spec(model) -> dict:
     c = model.config
     log(f"[serve-spec] flagship GPT, 12 layers, bf16: {slots} slots of "
         f"{plen}-token repetitive prompts x {new} tokens, k={k}: plain vs "
-        "n-gram chain vs offramp_tree(4) with the int4 draft model")
+        "n-gram chain vs offramp_tree(4) with the int4 draft model; greedy "
+        f"replayed, greedy eager, sampled {SAMPLED} replayed")
     rng = np.random.RandomState(17)
     prompts = [np.tile(rng.randint(1, c.vocab_size, 4), plen // 4).tolist()
                for _ in range(slots)]
     pps = -(-(plen + new + 2 * k) // 64)
-    plain_toks, out = None, {}
+    plain_toks, out = {}, {}
     for name, spec, tree in (("plain", False, None),
                              ("n-gram chain", True, None),
                              ("int4 draft model, offramp_tree(4)", True,
@@ -3131,55 +3512,68 @@ def phase_serve_spec(model) -> dict:
             max_seqs=slots, pages_per_seq=pps, dtype=c.compute_dtype)
         draft = None if tree is None else draft_source(
             model, pps, tree, slots=slots, page_size=64, k=k)
-        fns = model.decode_fns(ccfg, max_prompt_len=plen,
-                               speculate_k=k if spec else None,
-                               spec_tree=tree, draft_model=draft)
-        kw = {}
-        if spec:
-            kw = dict(spec_fn=fns.spec, speculate_k=k)
-            if tree is None:
-                kw["draft_source"] = NGramDraftSource(k)
-        b = ContinuousBatcher(
-            fns.prefill, fns.decode, PagedKVCache(ccfg),
-            init_pools(ccfg, model.device), max_prompt_len=plen,
-            harvest_every=4, **kw)
-        b.run([Request(uid="prime", prompt=prompts[0], max_new_tokens=4)])
-        for key in b.spec_stats:
-            b.spec_stats[key] = {} if key == "by_source" else 0
-        reqs = [Request(uid=i, prompt=p, max_new_tokens=new)
-                for i, p in enumerate(prompts)]
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        comps = b.run(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = launch_counts()
-        toks = [comps[i].tokens for i in range(slots)]
-        for i, t in enumerate(toks):
-            if len(t) != new or not all(0 <= x < c.vocab_size for x in t):
-                fail(f"serve-spec {name}: request {i} returned {t}")
-        if plain_toks is None:
-            plain_toks = toks
-        same = np.mean([a == b_ for x, y in zip(toks, plain_toks)
-                        for a, b_ in zip(x, y)])
-        st = b.spec_stats
-        per_step = (st["committed"] / st["slot_steps"] if spec else 1.0)
-        log(f"  {name}: {1e3 * wall:.1f} ms for {slots * new} tokens = "
-            f"{1e3 * wall / (slots * new):.2f} ms per committed token; "
-            f"{per_step:.3f} tokens committed per slot per verify step"
-            + (f" ({st['steps']} verify steps, {st['accepted']} of "
-               f"{st['drafted']} drafts accepted, {st['offramp']} off-ramp "
-               f"commits, draft {1e3 * st['draft_s']:.1f} ms)"
-               if spec else "")
-            + f"; {100 * same:.1f}% of tokens equal to plain greedy")
-        log(f"  launches: {counts}")
-        if tree is not None:
-            for need in ("paged_decode_tree", "dequant_int4",
-                         "paged_decode_rows"):
-                if counts.get(need, 0) <= 0:
-                    fail(f"serve-spec {name}: {need} never launched")
-            out = counts
+        for mode in ("greedy, replayed", "greedy, eager",
+                     "sampled, replayed"):
+            sampling = SAMPLED if mode.startswith("sampled") else {}
+            eager = mode.endswith("eager")
+            fns = model.decode_fns(ccfg, max_prompt_len=plen,
+                                   speculate_k=k if spec else None,
+                                   spec_tree=tree, draft_model=draft,
+                                   **sampling)
+            kw = {}
+            if spec:
+                kw = dict(spec_fn=fns.spec_eager if eager else fns.spec,
+                          speculate_k=k)
+                if tree is None:
+                    kw["draft_source"] = NGramDraftSource(k)
+            b = ContinuousBatcher(
+                fns.prefill, fns.decode_eager if eager else fns.decode,
+                PagedKVCache(ccfg), init_pools(ccfg, model.device),
+                max_prompt_len=plen, harvest_every=4, key=PRNGKey(0), **kw)
+            b.run([Request(uid="prime", prompt=prompts[0],
+                           max_new_tokens=4)])
+            for key in b.spec_stats:
+                b.spec_stats[key] = {} if key == "by_source" else 0
+            reqs = [Request(uid=i, prompt=p, max_new_tokens=new,
+                            seed=200 + i) for i, p in enumerate(prompts)]
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            comps = b.run(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            toks = [comps[i].tokens for i in range(slots)]
+            for i, t in enumerate(toks):
+                if len(t) != new or not all(0 <= x < c.vocab_size
+                                            for x in t):
+                    fail(f"serve-spec {name} {mode}: request {i} returned "
+                         f"{t}")
+            base = plain_toks.setdefault(bool(sampling), toks)
+            same = np.mean([a == b_ for x, y in zip(toks, base)
+                            for a, b_ in zip(x, y)])
+            st = b.spec_stats
+            per_step = (st["committed"] / st["slot_steps"] if spec else 1.0)
+            log(f"  {name}, {mode}: {1e3 * wall:.1f} ms for {slots * new} "
+                f"tokens = {1e3 * wall / (slots * new):.2f} ms per committed"
+                f" token; {per_step:.3f} tokens committed per slot per "
+                "verify step"
+                + (f" ({st['steps']} verify steps, {st['accepted']} of "
+                   f"{st['drafted']} drafts accepted, {st['offramp']} "
+                   f"off-ramp commits, draft {1e3 * st['draft_s']:.1f} ms)"
+                   if spec else "")
+                + f"; {100 * same:.1f}% of tokens equal to plain "
+                f"{'sampled' if sampling else 'greedy'}")
+            log(f"  launches: {counts}")
+            if sampling and counts.get("gumbel_argmax", 0) <= 0:
+                fail(f"serve-spec {name} {mode}: gumbel_argmax never "
+                     "launched")
+            if tree is not None and mode == "greedy, replayed":
+                for need in ("paged_decode_tree", "dequant_int4",
+                             "paged_decode_rows"):
+                    if counts.get(need, 0) <= 0:
+                        fail(f"serve-spec {name}: {need} never launched")
+                out = counts
     return out
 
 
@@ -3318,7 +3712,9 @@ def phase_serve_quant(model) -> dict:
     {bf16, int8}.  Every request must complete, and the dequant kernels
     and the int8-page decode kernel must launch.  Then one decode window
     profiled with the bf16 copies (phase 5's ran without them) and one at
-    int4 weights with int8 KV.  Returns the launches of the six runs."""
+    int4 weights with int8 KV.  Each run is timed with the decode step
+    replayed and eager, and a seventh samples at int4 weights and int8 KV.
+    Returns the launches of the fourteen runs."""
     from apex_tpu_torch.models.gpt import quantize_gpt_weights
     from apex_tpu_torch.ops import launch_counts, reset_launch_counts
     from apex_tpu_torch.serving import Request
@@ -3351,31 +3747,38 @@ def phase_serve_quant(model) -> dict:
           weight_dtype="int4", kv_dtype=torch.int8)
     torch.cuda.synchronize()
     reset_launch_counts()
-    for wd in ("bf16", "int8", "int4"):
-        for kv_dtype in (None, torch.int8):
+    runs = [(wd, kv_dtype, None) for wd in ("bf16", "int8", "int4")
+            for kv_dtype in (None, torch.int8)]
+    runs.append(("int4", torch.int8, SAMPLED))
+    for wd, kv_dtype, sampling in runs:
+        step_s = {}
+        for eager in (False, True):
             comps, wall, prefill_s, b = serve(
                 served[wd], reqs, 512, 64, 4, 9, weight_dtype=wd,
-                kv_dtype=kv_dtype)
+                kv_dtype=kv_dtype, eager=eager, sampling=sampling)
             for i in range(len(reqs)):
                 got = comps[i].tokens
                 if len(got) != new or not all(0 <= t < c.vocab_size
                                               for t in got):
                     fail(f"serve-quant: {wd} weights request {i} returned "
                          f"{got}")
-            step_s = (wall - sum(prefill_s)) / b.steps
-            wbytes = b.decode_fn.weight_stream_bytes
-            kv_bytes = sum(p.numel() * p.element_size()
-                           for p in b.pools.values())
-            log(f"  weights {wd} ({b.decode_fn.weight_dtype}), KV "
-                f"{'int8' if kv_dtype else 'bf16'}: decode "
-                f"{1e3 * step_s:.2f} ms/step, prefill "
-                f"{1e3 * np.mean(prefill_s):.2f} ms each; a decode step "
-                f"streams {wbytes / 1e6:.1f} MB of weights = "
-                f"{wbytes / step_s / 1e9:.1f} GB/s; KV pool "
-                f"{kv_bytes / 1e6:.1f} MB")
+            step_s[eager] = (wall - sum(prefill_s)) / b.steps
+        wbytes = b.decode_fn.weight_stream_bytes
+        kv_bytes = sum(p.numel() * p.element_size()
+                       for p in b.pools.values())
+        log(f"  weights {wd} ({b.decode_fn.weight_dtype}), KV "
+            f"{'int8' if kv_dtype else 'bf16'}"
+            f"{', sampled ' + str(sampling) if sampling else ''}: decode "
+            f"{1e3 * step_s[False]:.2f} ms/step replayed "
+            f"({1e3 * step_s[False] / 4:.2f} ms a token; eager "
+            f"{1e3 * step_s[True]:.2f}), prefill "
+            f"{1e3 * np.mean(prefill_s):.2f} ms each; a replayed decode "
+            f"step streams {wbytes / 1e6:.1f} MB of weights = "
+            f"{wbytes / step_s[False] / 1e9:.1f} GB/s; KV pool "
+            f"{kv_bytes / 1e6:.1f} MB")
     torch.cuda.synchronize()
     counts = launch_counts()
-    log(f"  launches in the six runs: {counts}")
+    log(f"  launches in the fourteen runs: {counts}")
     for name in ("dequant_int8", "dequant_int4", "paged_decode_int8",
                  "paged_decode", "short_fwd", "ln_fwd"):
         if counts.get(name, 0) <= 0:
@@ -3453,7 +3856,7 @@ def device_breakdown(prof, wall_s: float, label: str) -> None:
     busy_us = sum(r[0] for r in rows)
     if busy_us == 0:
         log(f"  {label}: device time not measured (the profiler saw none)")
-        return
+        return None
     log(f"  {label}: wall {1e3 * wall_s:.2f} ms under the profiler, "
         f"device busy {busy_us / 1e3:.2f} ms = "
         f"{100 * busy_us / (1e6 * wall_s):.1f}% (idle "
@@ -3461,16 +3864,19 @@ def device_breakdown(prof, wall_s: float, label: str) -> None:
     for t, n, key in sorted(rows, reverse=True)[:8]:
         log(f"    {100 * t / busy_us:5.1f}% {t / 1e3:8.3f} ms {n:6d} calls "
             f"{key[:90]}")
+    return busy_us / (1e6 * wall_s)
 
 
 # ---------------------------------------------------------------- phase 5
 def phase_profile(model, prompt=256, width=512, pps=9,
                   what="flagship GPT", weight_dtype=None,
-                  kv_dtype=None) -> None:
+                  kv_dtype=None) -> dict:
     """Where the serving time goes: 4 prefills of ``prompt``-token
     prompts (padded to ``width``), then one harvest window of 8 decode
-    steps over 4 slots, each under ``torch.profiler``, with the weights
-    of ``decode_fns(weight_dtype=)`` and the pages of ``kv_dtype``."""
+    steps over 4 slots, replayed (after a 3-token request on the same
+    batcher captured the step) and eager, each under ``torch.profiler``,
+    with the weights of ``decode_fns(weight_dtype=)`` and the pages of
+    ``kv_dtype``.  Returns each decode window's device busy share."""
     import collections
 
     from torch.profiler import ProfilerActivity, profile
@@ -3480,7 +3886,7 @@ def phase_profile(model, prompt=256, width=512, pps=9,
         init_pools)
 
     log(f"[profile] {what}, bf16: 4 prefills ({prompt} tokens, padded to "
-        f"{width}), then 8 decode steps x 4 slots")
+        f"{width}), then 8 decode steps x 4 slots, replayed and eager")
     c = model.config
     ccfg = KVCacheConfig(
         num_layers=c.num_layers, num_heads=c.num_attention_heads,
@@ -3488,24 +3894,36 @@ def phase_profile(model, prompt=256, width=512, pps=9,
         pages_per_seq=pps, dtype=c.compute_dtype, kv_dtype=kv_dtype)
     fns = model.decode_fns(ccfg, max_prompt_len=width,
                            weight_dtype=weight_dtype)
-    batcher = ContinuousBatcher(
-        fns.prefill, fns.decode, PagedKVCache(ccfg),
-        init_pools(ccfg, model.device), max_prompt_len=width,
-        harvest_every=8)
-    rng = np.random.RandomState(1)
-    queue = collections.deque(
-        Request(uid=i, prompt=rng.randint(1, c.vocab_size, prompt).tolist(),
-                max_new_tokens=17) for i in range(4))
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    for label, step in (("prefill x4", lambda: batcher._admit(queue)),
-                        ("decode x8", batcher._decode_window)):
-        torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            step()
+    busy = {}
+    for mode in ("replayed", "eager"):
+        batcher = ContinuousBatcher(
+            fns.prefill, fns.decode if mode == "replayed" else
+            fns.decode_eager, PagedKVCache(ccfg),
+            init_pools(ccfg, model.device), max_prompt_len=width,
+            harvest_every=8)
+        batcher.run([Request(uid="warm", prompt=[1, 2, 3],
+                             max_new_tokens=3)])
+        rng = np.random.RandomState(1)
+        queue = collections.deque(
+            Request(uid=i,
+                    prompt=rng.randint(1, c.vocab_size, prompt).tolist(),
+                    max_new_tokens=17) for i in range(4))
+        for label, step in (("prefill x4", lambda: batcher._admit(queue)),
+                            (f"decode x8, {mode}", batcher._decode_window)):
+            if mode == "eager" and label == "prefill x4":
+                step()              # profiled once, with the replayed run
+                continue
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        device_breakdown(prof, wall, label)
+            with profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            share = device_breakdown(prof, wall, label)
+            if label.startswith("decode"):
+                busy[mode] = (share, wall / 8)
+    return busy
 
 
 # ---------------------------------------------------------------- phase 6
@@ -5091,6 +5509,9 @@ SOURCES = {
     # the hidden dropout replaces XLA code, not a Pallas kernel
     "dropout": ("triton", "apex_tpu_torch/ops/dropout.py",
                 "apex_tpu/models/gpt.py:806"),
+    # the sampler's Gumbel-max draw replaces XLA code, not a Pallas kernel
+    "gumbel_argmax": ("triton", "apex_tpu_torch/ops/sampling.py",
+                      "apex_tpu/serving/sampling.py:93"),
     "short_fwd_drop": ("cuda", "apex_tpu_torch/csrc/attention_fwd_sm90.cuh",
                        "apex_tpu/ops/attention_short.py:149"),
     "short_bwd_drop": ("cuda", "apex_tpu_torch/csrc/attention_bwd_sm90.cuh",
@@ -5172,8 +5593,17 @@ def main() -> None:
     timed("rope-parity", phase_rope_parity, dev)
     timed("quant-parity", phase_quant_parity, dev)
     timed("chunked-parity", phase_chunked_parity, dev)
-    serve_counts, model = timed("serve", phase_serve, dev)
-    timed("profile", phase_profile, model)
+    timed("sample-parity", phase_sample_parity, dev)
+    serve_counts, model, step_s = timed("serve", phase_serve, dev)
+    busy = timed("profile", phase_profile, model)
+    log("[serve summary] flagship decode, 4 slots (phase 4; busy share "
+        "from phase 5's profiled window): "
+        + "; ".join(f"{mode} {1e3 * step_s[mode]:.2f} ms/step, device busy "
+                    + ("not measured" if busy[mode][0] is None
+                       else f"{100 * busy[mode][0]:.1f}%")
+                    for mode in ("replayed", "eager"))
+        + f"; sampled replayed {1e3 * step_s['sampled, replayed']:.2f}, "
+        f"sampled eager {1e3 * step_s['sampled, eager']:.2f} ms/step")
     quant_counts = timed("serve-quant", phase_serve_quant, model)
     chunked_counts = timed("serve-chunked", phase_serve_chunked, model)
     spec_counts = timed("serve-spec", phase_serve_spec, model)

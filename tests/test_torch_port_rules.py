@@ -649,11 +649,16 @@ def test_every_c_entry_is_typed():
 # ----------------------------------------- faults C2, C3, C5 (ROADMAP C)
 def test_sample_takes_the_jax_key_second():
     """C2: ``sample(logits, key, temperature, ...)`` as in JAX; the key is
-    unused at temperature 0, and ``generate(key=)`` is accepted."""
+    unused at temperature 0 and required above it (JAX's ValueError), a
+    key gives JAX's draw, and ``generate(key=)`` does not move a greedy
+    stream."""
     import inspect
+
+    import jax
 
     from apex_tpu.serving import sampling as jsampling
     from apex_tpu_torch.models import GPTConfig, GPTModel
+    from apex_tpu_torch.random import PRNGKey
     from apex_tpu_torch.serving import sampling
 
     assert list(inspect.signature(sampling.sample).parameters) == list(
@@ -662,14 +667,21 @@ def test_sample_takes_the_jax_key_second():
     want = sampling.greedy(logits)
     assert torch.equal(sampling.sample(logits, None, 0.0), want)
     assert torch.equal(sampling.sample(logits, object(), 0.0), want)
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
+    with pytest.raises(ValueError, match="PRNG key"):
         sampling.sample(logits, None, 0.7)
+    with pytest.raises(ValueError, match="PRNG key"):
+        jsampling.sample(logits.numpy(), None, 0.7)
+    np.testing.assert_array_equal(
+        sampling.sample(logits, PRNGKey(4), 0.7).numpy(),
+        np.asarray(jsampling.sample(logits.numpy(), jax.random.PRNGKey(4),
+                                    0.7)))
     model = GPTModel(GPTConfig(vocab_size=32, num_layers=1, hidden_size=16,
                                num_attention_heads=2,
                                max_position_embeddings=32),
                      device="cpu", seed=1)
     prompts = np.array([[3, 4, 5, 6], [7, 8, 0, 0]])
-    assert model.generate(prompts, [4, 2], 4, page_size=4, key=object()) == \
+    assert model.generate(prompts, [4, 2], 4, page_size=4,
+                          key=PRNGKey(9)) == \
         model.generate(prompts, [4, 2], 4, page_size=4)
 
 

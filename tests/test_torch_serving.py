@@ -25,6 +25,7 @@ import torch
 import apex_tpu._compat
 from apex_tpu.models import GPTConfig as JaxGPTConfig
 from apex_tpu.models import GPTModel as JaxGPTModel
+from apex_tpu.serving.sampling import sample as jsample
 from apex_tpu.transformer import parallel_state
 from apex_tpu_torch import convert
 from apex_tpu_torch.models import GPTConfig, GPTModel
@@ -54,7 +55,8 @@ def unchecked_shard_map():
 
 
 @pytest.fixture(scope="module")
-def setup(unchecked_shard_map):
+def jax_setup(unchecked_shard_map):
+    """The JAX model, its redrawn leaves, the mesh and the prompts."""
     if parallel_state.model_parallel_is_initialized():
         parallel_state.destroy_model_parallel()
     mesh = parallel_state.initialize_model_parallel(
@@ -69,12 +71,18 @@ def setup(unchecked_shard_map):
     plens = np.array([10, 8, 6, 4, 9, 5], np.int32)
     for i in range(6):
         prompts[i, plens[i]:] = 0
+    yield jm, params, mesh, prompts, plens
+    parallel_state.destroy_model_parallel()
+
+
+@pytest.fixture(scope="module")
+def setup(jax_setup):
+    jm, params, mesh, prompts, plens = jax_setup
     ref = jm.generate_reference(params, prompts, plens, NEW, mesh=mesh)
     tm = GPTModel(GPTConfig(**SIZES, compute_dtype=torch.float32),
                   device="cpu")
     tm.load_state_dict(convert.params_from_jax(params))
     yield tm, prompts, plens, np.asarray(ref)
-    parallel_state.destroy_model_parallel()
 
 
 def _batcher(tm, max_seqs, harvest_every, eos_id=None):
@@ -146,19 +154,23 @@ def test_generate_matches_jax_reference(setup):
     assert out == [list(map(int, r)) for r in ref]
 
 
-def test_unported_serving_options_raise(setup):
-    """Sampling at temperature > 0 (queue A item 3), tensor parallelism
-    (item 9), the metrics logger and the host offload tier raise naming
-    their ROADMAP.md item; chunked prefill, the prefix cache and
-    speculation are ported and build."""
-    tm, prompts, plens, _ = setup
+def test_unported_serving_options_raise(setup, jax_setup):
+    """Tensor parallelism (queue A item 9), the metrics logger and the host
+    offload tier raise naming their ROADMAP.md item; chunked prefill, the
+    prefix cache and speculation are ported and build, and so is sampling
+    (item 3): temperature, top-k and top-p build, ``generate`` at
+    temperature > 0 gives JAX's tokens for the same key, and ``sample``
+    raises JAX's ValueError without a key and draws JAX's token with
+    one."""
+    tm, prompts, plens, ref = setup
+    jm, params, mesh, _, _ = jax_setup
     ccfg = KVCacheConfig(num_layers=2, num_heads=4, head_dim=8,
                          num_pages=8, page_size=PAGE, max_seqs=2,
                          pages_per_seq=4, dtype=torch.float32)
-    for kw in (dict(temperature=0.7), dict(top_k=5), dict(top_p=0.9),
-               dict(tp=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tm.decode_fns(ccfg, max_prompt_len=10, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tm.decode_fns(ccfg, max_prompt_len=10, tp=2)
+    for kw in (dict(temperature=0.7), dict(top_k=5), dict(top_p=0.9)):
+        assert tm.decode_fns(ccfg, max_prompt_len=10, **kw).decode
     fns = tm.decode_fns(ccfg, max_prompt_len=10, prefill_chunk=4,
                         speculate_k=2)
     assert fns.chunk.prefill_chunk == 4 and fns.spec.speculate_k == 2
@@ -167,8 +179,13 @@ def test_unported_serving_options_raise(setup):
     for kw in (dict(logger=object()), dict(offload=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ContinuousBatcher(*args, max_prompt_len=10, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tm.generate(prompts, plens, 2, page_size=PAGE, temperature=0.5)
+    kw = dict(temperature=0.5, top_k=20, top_p=0.9)
+    got = tm.generate(prompts, plens, 6, page_size=PAGE,
+                      key=np.asarray(jax.random.PRNGKey(11)), **kw)
+    want = jm.generate(params, prompts, plens, 6, mesh=mesh, page_size=PAGE,
+                       key=jax.random.PRNGKey(11), **kw)
+    assert got == [list(map(int, w)) for w in want]
+    assert got != [list(map(int, r[:6])) for r in ref]
     with pytest.raises(ValueError, match="learned table"):
         tm.decode_fns(ccfg, max_prompt_len=2049)
     # int8 KV pages are ported; another kv_dtype raises as in JAX
@@ -177,8 +194,14 @@ def test_unported_serving_options_raise(setup):
     with pytest.raises(ValueError, match="kv_dtype"):
         KVCacheConfig(num_layers=2, num_heads=4, head_dim=8, num_pages=8,
                       kv_dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="PRNG key"):
         sample(torch.zeros(2, 8), temperature=1.0)
+    logits = np.random.RandomState(4).randn(2, 8).astype(np.float32)
+    np.testing.assert_array_equal(
+        sample(torch.from_numpy(logits), np.asarray(jax.random.PRNGKey(2)),
+               1.0).numpy(),
+        np.asarray(jsample(jnp.asarray(logits), jax.random.PRNGKey(2),
+                           1.0)))
 
 
 def test_allocator_reserves_null_page_and_reuses():

@@ -106,7 +106,22 @@ def test_spec_accept_matches_jax():
         np.testing.assert_array_equal(t[s].numpy(), np.asarray(jt))
         assert int(n[s]) == int(jn)
     assert t.dtype == torch.int32 and sorted(set(n.tolist())) != [0]
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
+    # sampled: per-row keys, JAX's draws and prefix (tests of every
+    # temperature/top-k/top-p in tests/test_torch_sampling.py)
+    keys = np.stack([np.stack([np.asarray(jax.random.fold_in(
+        jax.random.PRNGKey(7 + s), 20 + j)) for j in range(K + 1)])
+        for s in range(5)])
+    t, n = tsampling.spec_accept(
+        torch.from_numpy(logits), torch.from_numpy(drafts),
+        torch.from_numpy(dlen), torch.from_numpy(keys.astype(np.int64)),
+        temperature=0.5, top_k=8)
+    for s in range(5):
+        jt, jn = jsampling.spec_accept(
+            jnp.asarray(logits[s]), jnp.asarray(drafts[s]),
+            jnp.int32(dlen[s]), jnp.asarray(keys[s]), 0.5, 8)
+        np.testing.assert_array_equal(t[s].numpy(), np.asarray(jt))
+        assert int(n[s]) == int(jn)
+    with pytest.raises(ValueError, match="PRNG keys"):
         tsampling.spec_accept(torch.from_numpy(logits),
                               torch.from_numpy(drafts),
                               torch.from_numpy(dlen), temperature=0.5)

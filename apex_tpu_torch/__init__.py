@@ -13,7 +13,10 @@ tree speculative decoding, int8/int4 weight pools, int8 KV pages) and its
 training step at one GPU (``GPTModel.loss``, the backward,
 ``optimizers.FusedAdam``, the ``amp`` precision policies and
 ``examples.gpt_pretrain``), for the learned-position model and its Llama
-mode, and ``transformer.functional.FusedScaleMaskSoftmax``: a
+mode, with the whole optimizer tail on multi-tensor kernels (the loss
+scaler and its skip-step, ``amp.initialize``, the fused optimizers and
+the packed fused tail, ``resilience.StepGuard``), and
+``transformer.functional.FusedScaleMaskSoftmax``: a
 hand-written kernel for each of the JAX package's Pallas kernels.  What
 is still to come is listed in ``ROADMAP.md``.  BERT (``models.bert``)
 trains and fine-tunes through the attention kernels' segment-id instances
@@ -24,5 +27,5 @@ threefry2x32 PRNG, bit for bit), the hidden-dropout kernel
 """
 
 __all__ = ["amp", "contrib", "convert", "examples", "models",
-           "multi_tensor_apply", "ops", "optimizers", "random", "serving",
-           "telemetry", "transformer", "utils"]
+           "multi_tensor_apply", "ops", "optimizers", "random", "resilience",
+           "serving", "telemetry", "transformer", "utils"]

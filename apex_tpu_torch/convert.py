@@ -36,11 +36,16 @@ rejects: they cross as their 16-bit patterns, so they too are copied bit
 for bit (``ml_dtypes``, which JAX installs, is imported only to hand a
 bf16 tensor back).
 
-The optimizer state of ``FusedAdam`` (``{"step", "exp_avg",
+The optimizer state of the fused optimizers (``{"step", "exp_avg",
 "exp_avg_sq", "master"}``, each moment and master a tree shaped like the
-params) goes both ways with :func:`optimizer_state_from_jax` and
-:func:`optimizer_state_to_jax`, so a JAX step and a port step can start
-from one state.
+params, or with ``fused_tail=True`` a dict of packed buckets
+``bucket_000``, ...) goes both ways with :func:`optimizer_state_from_jax`
+and :func:`optimizer_state_to_jax`: the JAX step becomes the port's one
+device counter, and a packed JAX state is unpacked with the plan of the
+JAX tree (rebuilt from the model's own parameters) and packed again in
+the port optimizer's layout, so a JAX step and a port step can start from
+one state.  The loss scaler's state crosses with
+:func:`scaler_state_from_jax` and :func:`scaler_state_to_jax`.
 """
 
 from __future__ import annotations
@@ -51,7 +56,8 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_jax", "params_to_jax", "optimizer_state_from_jax",
-           "optimizer_state_to_jax"]
+           "optimizer_state_to_jax", "scaler_state_from_jax",
+           "scaler_state_to_jax"]
 
 #: the per-parameter trees of a FusedAdam state, besides ``step``
 OPT_STATE_TREES = ("exp_avg", "exp_avg_sq", "master")
@@ -129,32 +135,126 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     return tree
 
 
+def _is_packed(tree: Any) -> bool:
+    return isinstance(tree, dict) and bool(tree) and all(
+        str(k).startswith("bucket_") for k in tree)
+
+
+def _jax_plan(model: torch.nn.Module, bucket_bytes: int):
+    """The fused tail's plan over the JAX tree of ``model``'s parameters
+    (leaves in JAX's sorted flatten order, layers stacked), and those
+    leaves as ``(key, array)``."""
+    from apex_tpu_torch.optimizers.fused_tail import tail_plan
+
+    leaves = list(_flatten(params_to_jax(model.state_dict())))
+    return tail_plan([np.shape(a) for _, a in leaves], bucket_bytes), leaves
+
+
+def _bucket_bytes(optimizer) -> int:
+    from apex_tpu_torch.optimizers.fused_tail import DEFAULT_BUCKET_BYTES
+
+    return getattr(optimizer, "bucket_bytes", None) or DEFAULT_BUCKET_BYTES
+
+
+def _unpack_jax(packed: Dict[str, Any], model, optimizer) -> Dict[str, Any]:
+    """A packed JAX state tree (``{bucket_000: flat, ...}``) as the
+    per-leaf JAX tree of the model's parameters."""
+    plan, leaves = _jax_plan(model, _bucket_bytes(optimizer))
+    if sorted(packed) != plan.names or any(
+            np.asarray(packed[n]).size != b.size
+            for n, b in zip(plan.names, plan.buckets)):
+        raise ValueError(
+            "the packed state's buckets are not the plan of this model at "
+            f"bucket_bytes={_bucket_bytes(optimizer)}: got "
+            f"{[(n, np.asarray(packed[n]).size) for n in sorted(packed)]}")
+    tree: Dict[str, Any] = {}
+    for b, name in zip(plan.buckets, plan.names):
+        buf, off = np.asarray(packed[name]), 0
+        for i, size in zip(b.leaf_ids, b.sizes):
+            key, like = leaves[i]
+            node = tree
+            for part in key[:-1]:
+                node = node.setdefault(part, {})
+            node[key[-1]] = buf[off:off + size].reshape(np.shape(like))
+            off += size
+    return tree
+
+
 def optimizer_state_from_jax(opt_state: Dict[str, Any], model: torch.nn.Module,
                              optimizer: torch.optim.Optimizer) -> None:
-    """Load a JAX FusedAdam state (numpy leaves) into ``optimizer``'s
-    per-parameter state for ``model``'s parameters, on their devices."""
+    """Load a JAX fused-optimizer state (numpy leaves; per-leaf trees or
+    the fused tail's packed buckets) into ``optimizer``'s state for
+    ``model``'s parameters, on their devices, in the optimizer's own
+    layout (per-leaf, or packed with ``fused_tail``)."""
     step = int(np.asarray(opt_state["step"]))
-    trees = {key: params_from_jax(opt_state[key])
-             for key in OPT_STATE_TREES if key in opt_state}
+    trees = {}
+    for key in OPT_STATE_TREES:
+        if key not in opt_state:
+            continue
+        tree = opt_state[key]
+        if _is_packed(tree):
+            tree = _unpack_jax(tree, model, optimizer)
+        trees[key] = params_from_jax(tree)
     for name, p in model.named_parameters():
-        state = {"step": step}
+        state = {"step": torch.tensor(step, dtype=torch.int32)}
         for key, tensors in trees.items():
             state[key] = tensors[name].to(p.device)
         optimizer.state[p] = state
+    relink = getattr(optimizer, "_relink", None)
+    if relink is not None:
+        relink()
 
 
 def optimizer_state_to_jax(model: torch.nn.Module,
                            optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
-    """``optimizer``'s per-parameter state for ``model`` as a JAX
-    FusedAdam state (numpy leaves, layer leaves stacked)."""
+    """``optimizer``'s state for ``model`` as a JAX fused-optimizer state
+    (numpy leaves, layer leaves stacked; with ``fused_tail`` the packed
+    buckets of the JAX tree's plan)."""
     named = list(model.named_parameters())
     states = [optimizer.state[p] for _, p in named]
     steps = {int(s["step"]) for s in states}
     if len(steps) != 1:
         raise ValueError(f"parameters are at different steps {sorted(steps)}")
     out: Dict[str, Any] = {"step": np.int32(steps.pop())}
+    packed = bool(getattr(optimizer, "fused_tail", False))
+    if packed:
+        plan, leaves = _jax_plan(model, _bucket_bytes(optimizer))
     for key in OPT_STATE_TREES:
-        if key in states[0]:
-            out[key] = params_to_jax({name: s[key] for (name, _), s
-                                      in zip(named, states)})
+        if key not in states[0]:
+            continue
+        tree = params_to_jax({name: s[key] for (name, _), s
+                              in zip(named, states)})
+        if packed:
+            flat = dict(_flatten(tree))
+            tree = {name: np.concatenate(
+                        [np.asarray(flat[leaves[i][0]]).reshape(-1)
+                         for i in b.leaf_ids])
+                    for b, name in zip(plan.buckets, plan.names)}
+        out[key] = tree
     return out
+
+
+def scaler_state_from_jax(state: Any, device=None):
+    """A JAX ``ScalerState`` (or its numpy fields) as the port's
+    :class:`~apex_tpu_torch.amp.scaler.ScalerState` on ``device`` (the GPU
+    by default)."""
+    from apex_tpu_torch.amp.scaler import ScalerState
+    from apex_tpu_torch.utils.platform import resolve_device
+
+    dev = resolve_device(device)
+    fields = state._asdict() if hasattr(state, "_asdict") else dict(state)
+    return ScalerState(
+        torch.tensor(np.asarray(fields["loss_scale"]), dtype=torch.float32,
+                     device=dev).reshape(()),
+        torch.tensor(np.asarray(fields["growth_tracker"]),
+                     dtype=torch.int32, device=dev).reshape(()),
+        torch.tensor(np.asarray(fields["unskipped"]), dtype=torch.int32,
+                     device=dev).reshape(()))
+
+
+def scaler_state_to_jax(state: Any) -> Dict[str, np.ndarray]:
+    """The port's scaler state as numpy fields of a JAX ``ScalerState``
+    (``ScalerState(**fields)`` on the JAX side)."""
+    return {"loss_scale": np.float32(state.loss_scale.item()),
+            "growth_tracker": np.int32(state.growth_tracker.item()),
+            "unskipped": np.int32(state.unskipped.item())}

@@ -33,7 +33,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from apex_tpu_torch.amp.policy import check_ported, get_policy
+from apex_tpu_torch import amp
+from apex_tpu_torch.amp.policy import check_ported
 from apex_tpu_torch.examples.gpt_pretrain import UNPORTED as _TRAINER
 from apex_tpu_torch.models.bert import BertConfig, BertModel
 from apex_tpu_torch.optimizers import FusedAdam
@@ -47,8 +48,7 @@ __all__ = ["UNPORTED", "check_flags", "classification_loss", "main",
 #: entries for the same flags
 UNPORTED = {dest: _TRAINER[dest] for dest in (
     "tp", "zero3", "dp_ici_size", "grad_compression", "compress_ici_legs",
-    "no_error_feedback", "overlap_grad_sync", "fused_opt_tail",
-    "metrics_jsonl")}
+    "no_error_feedback", "overlap_grad_sync", "metrics_jsonl")}
 
 
 def synthetic_task(rng: np.random.Generator, n_batches: int,
@@ -107,7 +107,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--no-error-feedback", action="store_true")
     ap.add_argument("--zero3", "--param-shard", action="store_true",
                     dest="zero3")
-    ap.add_argument("--fused-opt-tail", action="store_true")
+    ap.add_argument("--fused-opt-tail", action="store_true",
+                    help="keep the optimizer's state in packed buckets")
     ap.add_argument("--overlap-grad-sync", action="store_true")
     ap.add_argument("--bucket-mb", type=float, default=4.0)
     ap.add_argument("--metrics-jsonl", default=None)
@@ -141,7 +142,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     builds the kernels), and the held-out accuracy before and after."""
     args = parse_args(argv)
     check_flags(args)
-    policy = get_policy(args.opt_level)
+    policy = amp.initialize(opt_level=args.opt_level).policy
     check_ported(policy)
     device = resolve_device(args.device)
     cfg = BertConfig(
@@ -151,7 +152,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         add_binary_head=True)
     model = BertModel(cfg, device=device, seed=0)
     opt = FusedAdam(model.parameters(), lr=args.lr,
-                    master_weights=policy.master_weights)
+                    master_weights=policy.master_weights,
+                    fused_tail=args.fused_opt_tail)
     on_device = lambda pool: [tuple(torch.as_tensor(x, device=device)
                                     for x in b) for b in pool]
     # a pool large enough that most of the vocab appears in position 0,

@@ -9,25 +9,31 @@
         --micro-batch 2 --num-micro 1
 
 The same step as the JAX trainer's single-device path: a precision
-policy from ``--opt-level`` (O5 by default: bf16 parameters and compute,
-fp32 norms, fp32 masters in the optimizer, no loss scaling), the GPT's
-mean next-token cross entropy, its backward through the port's kernels
-(layer norm, the short, mid and flash attention rungs), an optional global-norm
-clip (``--clip-grad``) and a ``FusedAdam`` step.  The global batch is
-``--micro-batch * --num-micro`` rows of ``--seq`` tokens in one step.
-Synthetic tokens come from a numpy seed as in the JAX trainer: ``--pool``
-batches (8 there) drawn once, cycled.  Every ``--log-every`` steps one
-line gives the loss, ms/step, tokens/s and MFU (the JAX numerator,
-``6·N + 12·L·h·s`` model FLOPs per token, N counting every parameter --
-the SwiGLU gate included, a position table only where there is one --
-over the card's dense bf16 peak); the loss is read from the device only
-then.  ``--position-embedding rope`` (with ``--activation swiglu
---normalization rmsnorm``, the Llama mode) sets
+policy from ``--opt-level`` through ``amp.initialize`` (O5 by default:
+bf16 parameters and compute, fp32 norms, fp32 masters in the optimizer,
+no loss scaling), the GPT's mean next-token cross entropy, its backward
+through the port's kernels (layer norm, the short, mid and flash
+attention rungs), then the tail: where the policy has a loss scale (O0's
+static 1.0) the loss is scaled before the backward and the gradients
+unscaled after it, with the overflow check (``unscale_and_adjust``), an
+optional global-norm clip (``--clip-grad``) and a ``FusedAdam`` step
+that is skipped where the gradients were not finite; the whole tail runs
+on the multi-tensor kernels with no host synchronisation.
+``--fused-opt-tail`` keeps the optimizer's moments and masters in packed
+buckets.  The global batch is ``--micro-batch * --num-micro`` rows of
+``--seq`` tokens in one step.  Synthetic tokens come from a numpy seed
+as in the JAX trainer: ``--pool`` batches (8 there) drawn once, cycled.
+Every ``--log-every`` steps one line gives the loss, ms/step, tokens/s
+and MFU (the JAX numerator, ``6·N + 12·L·h·s`` model FLOPs per token, N
+counting every parameter -- the SwiGLU gate included, a position table
+only where there is one -- over the card's dense bf16 peak); the loss is
+read from the device only then.  ``--position-embedding rope`` (with
+``--activation swiglu --normalization rmsnorm``, the Llama mode) sets
 ``max_position_embeddings`` to ``--seq`` as the JAX trainer does; a rope
 model keeps no table, so any ``--seq`` runs, past 2048 through the flash
 kernels.  ``--device`` defaults to the GPU and raises without one.
 
-Flags of the JAX trainer that this slice does not port raise
+Flags of the JAX trainer that the port does not have yet raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
@@ -40,7 +46,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from apex_tpu_torch.amp.policy import check_ported, get_policy
+from apex_tpu_torch import amp
+from apex_tpu_torch.amp.policy import check_ported
 from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
 from apex_tpu_torch.optimizers import FusedAdam
 from apex_tpu_torch.telemetry.metrics import (
@@ -65,7 +72,6 @@ UNPORTED = {
     "compress_ici_legs": (False, "queue A item 9 (quantized collectives)"),
     "no_error_feedback": (False, "queue A item 9 (quantized collectives)"),
     "overlap_grad_sync": (False, "queue A item 9 (overlapped grad sync)"),
-    "fused_opt_tail": (False, "queue A item 5 (fused optimizer tail)"),
     "num_experts": (None, "queue A item 9 (mixture-of-experts)"),
     "data": (None, "queue A item 10 (data)"),
     "checkpoint_dir": (None, "queue A item 10 (checkpointing)"),
@@ -99,7 +105,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--opt-level", default="O5",
-                    help="O0, O4 or O5 (the fp16 levels are not ported)")
+                    help="O0, O4 or O5 (the fp16 levels O1-O3 are not "
+                         "ported yet: ROADMAP.md queue A item 5's remainder)")
     ap.add_argument("--exp-avg-sq-dtype", default="float32",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--activation", default="gelu",
@@ -128,7 +135,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--compress-ici-legs", action="store_true")
     ap.add_argument("--no-error-feedback", action="store_true")
     ap.add_argument("--overlap-grad-sync", action="store_true")
-    ap.add_argument("--fused-opt-tail", action="store_true")
+    ap.add_argument("--fused-opt-tail", action="store_true",
+                    help="keep the optimizer's moments and masters in "
+                         "packed buckets (the fused tail)")
     ap.add_argument("--num-experts", type=int, default=None)
     ap.add_argument("--position-embedding", default="learned",
                     choices=["learned", "rope"])
@@ -151,13 +160,18 @@ def check_flags(args: argparse.Namespace) -> None:
 
 
 class Trainer:
-    """The model, the optimizer and one training step, built from the
-    trainer's flags.  Parameters are drawn from seed 0."""
+    """The model, the optimizer, the amp state and one training step,
+    built from the trainer's flags.  Parameters are drawn from seed 0.
+    ``amp_overrides`` go to ``amp.initialize`` beside ``--opt-level``
+    (``loss_scale="dynamic"`` puts the dynamic scaler on O5)."""
 
-    def __init__(self, args: argparse.Namespace):
+    def __init__(self, args: argparse.Namespace,
+                 amp_overrides: Optional[Dict] = None):
         check_flags(args)
         self.args = args
-        self.policy = get_policy(args.opt_level)
+        self.mp = amp.initialize(opt_level=args.opt_level,
+                                 **(amp_overrides or {}))
+        self.policy = self.mp.policy
         check_ported(self.policy)
         self.device = resolve_device(args.device)
         cfg = GPTConfig(
@@ -170,7 +184,13 @@ class Trainer:
         self.opt = FusedAdam(
             self.model.parameters(), lr=args.lr,
             master_weights=self.policy.master_weights,
+            fused_tail=args.fused_opt_tail,
             exp_avg_sq_dtype=getattr(torch, args.exp_avg_sq_dtype))
+        self.use_scaler = self.policy.loss_scale is not None
+        self.amp_state = self.mp.init(device=self.device)
+        #: the last step's finite flag (a device bool; None without a
+        #: loss scale)
+        self.finite: Optional[torch.Tensor] = None
         self.n_params = sum(p.numel() for p in self.model.parameters())
         self.global_batch = args.micro_batch * args.num_micro
         self.tokens_per_step = self.global_batch * args.seq
@@ -181,17 +201,40 @@ class Trainer:
         return (torch.as_tensor(tokens, device=self.device),
                 torch.as_tensor(targets, device=self.device))
 
-    def step(self, tokens: torch.Tensor,
-             targets: torch.Tensor) -> torch.Tensor:
-        """One step: loss, backward, optional clip, FusedAdam.  Returns
-        the loss as a device scalar (no host synchronisation)."""
+    def backward(self, tokens: torch.Tensor,
+                 targets: torch.Tensor) -> torch.Tensor:
+        """The loss and its backward (scaled where the policy has a loss
+        scale); returns the unscaled loss as a device scalar."""
         self.opt.zero_grad(set_to_none=True)
         loss = self.model.loss(tokens, targets)
-        loss.backward()
+        if self.use_scaler:
+            self.mp.scale_loss(self.amp_state, loss).backward()
+        else:
+            loss.backward()
+        return loss.detach()
+
+    def tail(self) -> None:
+        """From the gradients to the updated parameters, as JAX's
+        ``train_step``: unscale and adjust the scaler (with a loss scale),
+        the optional clip, the step with the finite flag.  No host
+        synchronisation."""
+        self.finite = None
+        if self.use_scaler:
+            grads = [p.grad for p in self.model.parameters()
+                     if p.grad is not None]
+            _, self.finite, self.amp_state = self.mp.unscale_and_adjust(
+                self.amp_state, grads)
         if self.args.clip_grad is not None:
             clip_grad_norm(self.model.parameters(), self.args.clip_grad)
-        self.opt.step()
-        return loss.detach()
+        self.opt.step(grads_finite=self.finite)
+
+    def step(self, tokens: torch.Tensor,
+             targets: torch.Tensor) -> torch.Tensor:
+        """One step, :meth:`backward` then :meth:`tail`.  Returns the loss
+        as a device scalar (no host synchronisation)."""
+        loss = self.backward(tokens, targets)
+        self.tail()
+        return loss
 
 
 def _sync(device: torch.device) -> None:

@@ -48,7 +48,8 @@ BUILD_DIR = _PKG / "_build"
 
 #: the CUDA sources this package builds (``csrc/<name>.cu``)
 KERNEL_SOURCES = ("attention_short", "attention_mid", "attention_flash",
-                  "attention_decode", "dequant_matmul", "layer_norm")
+                  "attention_decode", "dequant_matmul", "layer_norm",
+                  "multi_tensor")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

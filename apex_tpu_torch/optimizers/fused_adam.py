@@ -1,34 +1,34 @@
-"""FusedAdam: Adam/AdamW with fp32 math, optional fp32 masters and a
-global-norm gradient clip.
+"""FusedAdam: Adam/AdamW with fp32 math, optional fp32 masters, a
+global-norm gradient clip and the packed fused tail.
 
-Counterpart of ``apex_tpu/optimizers/fused_adam.py``, plain PyTorch as the
-JAX optimizer is plain XLA (no TPU kernel).  The math is the same, with
-the coefficients rounded to fp32 as JAX computes them:
+Counterpart of ``apex_tpu/optimizers/fused_adam.py``.  The update of a
+whole dtype group is one launch of the ``multi_tensor_adam`` kernel
+(``ops/multi_tensor.py``; its plain version on CPU tensors), with the
+coefficients rounded to fp32 as JAX computes them:
 
-- the step counter increments before the bias corrections
-  ``bc1 = 1 - b1**step``, ``bc2 = 1 - b2**step`` (1 without
-  ``bias_correction``);
+- the bias corrections ``bc1 = 1 - b1**step``, ``bc2 = 1 - b2**step``
+  (1 without ``bias_correction``) are device scalars computed once a step
+  from the counter plus one;
 - ``adam_w_mode=True`` adds ``weight_decay * p`` to the update (AdamW),
   ``False`` adds it to the gradient (L2);
 - ``m = b1 m + (1 - b1) g``, ``v = b2 v + (1 - b2) g^2``,
   ``p -= lr * (m / bc1) / (sqrt(v / bc2) + eps)``;
 - ``exp_avg_sq_dtype`` stores the second moment in another dtype (the
-  math stays fp32);
-- ``max_grad_norm`` scales every gradient by ``max_grad_norm / norm``
-  when the global norm (fp32, :func:`global_l2norm`) exceeds it.
-
-``fused_tail=True`` raises: ROADMAP.md queue A item 5.
+  math stays fp32; the kernel takes fp32 and bf16);
+- ``max_grad_norm`` multiplies every gradient by ``max_grad_norm / norm``
+  when the global norm (``multi_tensor_l2norm``) exceeds it;
+- ``fused_tail=True`` keeps the moments and masters in packed buckets
+  (``bucket_bytes``, :mod:`~apex_tpu_torch.optimizers.fused_tail`).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
-from apex_tpu_torch.multi_tensor_apply import global_l2norm
-from apex_tpu_torch.optimizers.base import FusedOptimizer, f32
+from apex_tpu_torch.ops import multi_tensor as mt
+from apex_tpu_torch.optimizers.base import FusedOptimizer
 
 __all__ = ["FusedAdam"]
 
@@ -47,6 +47,7 @@ class FusedAdam(FusedOptimizer):
         master_weights: bool = False,
         max_grad_norm: Optional[float] = None,
         fused_tail: bool = False,
+        bucket_bytes: Optional[int] = None,
         exp_avg_sq_dtype: torch.dtype = torch.float32,
     ):
         if amsgrad:
@@ -57,10 +58,10 @@ class FusedAdam(FusedOptimizer):
         defaults = dict(lr=lr, bias_correction=bias_correction, betas=betas,
                         eps=eps, adam_w_mode=adam_w_mode,
                         weight_decay=weight_decay)
-        super().__init__(params, defaults, master_weights=master_weights,
-                         fused_tail=fused_tail)
         self.max_grad_norm = max_grad_norm
         self.exp_avg_sq_dtype = exp_avg_sq_dtype
+        super().__init__(params, defaults, master_weights=master_weights,
+                         fused_tail=fused_tail, bucket_bytes=bucket_bytes)
 
     def _init_extra(self, p: torch.Tensor) -> dict:
         return {
@@ -70,35 +71,30 @@ class FusedAdam(FusedOptimizer):
                                       device=p.device),
         }
 
-    def _prepare(self, grads):
-        """The clip factor (a 0-d fp32 tensor on the device), or None."""
-        if self.max_grad_norm is None or self.max_grad_norm <= 0:
-            return None
-        gnorm = global_l2norm(grads)
-        return torch.where(gnorm > self.max_grad_norm,
-                           self.max_grad_norm / gnorm,
-                           torch.ones_like(gnorm))
+    def _tail_state_dtypes(self) -> dict:
+        return {"exp_avg": torch.float32,
+                "exp_avg_sq": self.exp_avg_sq_dtype}
 
-    def _update(self, group, state, g, p, clip):
-        b1, b2 = np.float32(group["betas"][0]), np.float32(group["betas"][1])
-        one = np.float32(1.0)
-        if group["bias_correction"]:
-            stepf = np.float32(state["step"])
-            bc1, bc2 = float(one - b1 ** stepf), float(one - b2 ** stepf)
-        else:
-            bc1 = bc2 = 1.0
-        wd = f32(group["weight_decay"])
-        if clip is not None:
-            g = g * clip
-        if not group["adam_w_mode"] and wd != 0.0:
-            g = g + wd * p
-        m = state["exp_avg"] * float(b1) + g * float(one - b1)
-        v = (state["exp_avg_sq"].float() * float(b2)
-             + torch.square(g) * float(one - b2))
-        denom = torch.sqrt(v / bc2) + group["eps"]
-        update = (m / bc1) / denom
-        if group["adam_w_mode"] and wd != 0.0:
-            update = update + wd * p
-        state["exp_avg"] = m
-        state["exp_avg_sq"] = v.to(self.exp_avg_sq_dtype)
-        return p - f32(group["lr"]) * update
+    def _prepare(self, grads, inv_scale):
+        """The clip factor (a 0-d fp32 device tensor) from the global norm
+        of the (unscaled) gradients, and that pass's finite flag; ``(None,
+        None)`` without a clip."""
+        if self.max_grad_norm is None or self.max_grad_norm <= 0:
+            return None, None
+        norms = mt.l2norm(grads, inv_scale=inv_scale)
+        gnorm = norms.total
+        clip = torch.where(gnorm > self.max_grad_norm,
+                           gnorm.new_full((), self.max_grad_norm) / gnorm,
+                           torch.ones_like(gnorm))
+        return clip, norms.finite
+
+    def _apply(self, entries, grads, new_step, finite, inv_scale, clip):
+        for group, items in self._groups(entries):
+            bc1, bc2 = self._bias_corrections(group, new_step)
+            b1, b2 = group["betas"]
+            mt.adam([p.grad for _, p, _ in items],
+                    self._step_rows(mt.KERNEL_ADAM, items), lr=group["lr"],
+                    beta1=b1, beta2=b2, eps=group["eps"],
+                    weight_decay=group["weight_decay"],
+                    adam_w_mode=group["adam_w_mode"], bc1=bc1, bc2=bc2,
+                    clip=clip, inv_scale=inv_scale, finite=finite)

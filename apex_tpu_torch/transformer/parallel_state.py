@@ -11,7 +11,14 @@ item 9.
 from __future__ import annotations
 
 __all__ = ["get_tensor_model_parallel_world_size",
-           "get_tensor_model_parallel_rank", "get_data_parallel_rank"]
+           "get_tensor_model_parallel_rank", "get_data_parallel_rank",
+           "DATA_PARALLEL_AXIS", "PIPELINE_PARALLEL_AXIS",
+           "TENSOR_PARALLEL_AXIS"]
+
+#: the JAX mesh's axis names, which the model-parallel scaler takes
+DATA_PARALLEL_AXIS = "dp"
+PIPELINE_PARALLEL_AXIS = "pp"
+TENSOR_PARALLEL_AXIS = "tp"
 
 
 def get_tensor_model_parallel_world_size() -> int:

@@ -68,7 +68,19 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
              without a floor and with top-k 40 + top-p 0.9, 256 ctx
              values: tokens equal to the plain version's wherever its top
              two ``y + g`` differ by more than 8 ulps (the rest counted,
-             at most 0.1%), the same bits twice.
+             at most 0.1%), the same bits twice.  The optimizer tail's
+             four multi-tensor kernels (csrc/multi_tensor.cu) at the
+             flagship's 148 tensors at O5 and on edge lists (a zero-size
+             tensor, odd lengths, mixed dtypes, a tensor off the 16-byte
+             grid, 600 tensors, one tensor of 4,101 chunks): scale and its
+             axpby instance and Adam (with the unscale folded in, a bf16
+             second moment, without masters) equal to the plain version
+             bit for bit, Adam with a clip and LAMB within 2 ulps plus
+             1e-5 of each value's step, the norms within 1e-5 and the same
+             bits twice; an inf at the first or the last element skips
+             Adam and LAMB bit for bit; each timed beside its plain
+             version, its bound and torch._fused_adamw_ /
+             torch._foreach_norm / torch._foreach_mul_.
 3. parity  — the flagship GPT's width at 2 layers, fp32 compute: the
              paged greedy tokens of ``ContinuousBatcher`` (6 ragged
              requests, 2 slots, 16 new tokens) must equal the port's
@@ -153,10 +165,24 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
              updated parameters must agree.
 7. train   — the full flagship at O5, 8 x 1024 tokens, remat on, through
              the port trainer's step: 2 warm-up and 10 timed steps; the
-             loss must be finite and fall, and the mid kernels must have
-             launched.  Prints ms/step, tokens/s, MFU, peak memory, the
-             launches and the step-1 loss at O5 against fp32.
-8. profile — one training step under ``torch.profiler``.
+             loss must be finite and fall, and the mid kernels and
+             multi_tensor_adam must have launched.  Prints ms/step,
+             tokens/s, MFU, peak memory, the launches and the step-1 loss
+             at O5 against fp32; then the same with ``--fused-opt-tail``
+             (train-fused-tail).
+8. profile — one training step under ``torch.profiler`` (after each run
+             of phase 7), with the host ms inside the optimizer step and
+             the device ms of the multi-tensor kernels.
+   train-amp — the flagship trainer with ``amp.initialize("O5",
+             loss_scale="dynamic")``, per-leaf and fused tail fed the same
+             gradients: 3 steps equal bit for bit; an inf injected in the
+             backward leaves parameters, masters, moments and the step
+             counter unchanged bit for bit and halves the scale, the next
+             step proceeds, a StepGuard sees both; both tails under
+             ``torch.cuda.set_sync_debug_mode("error")``; step_scaled (the
+             unscale folded into the kernel) equal to the per-leaf tail;
+             then FusedMixedPrecisionLamb through step_scaled for 3 steps
+             (the norm and LAMB kernels' path).
 9. train-long — the 12-layer Llama-mode GPT at O5, 2 x 4096 tokens, as
              ``gpt_pretrain --position-embedding rope --activation swiglu
              --normalization rmsnorm --seq 4096 --micro-batch 2
@@ -559,6 +585,7 @@ def phase_kernels(dev) -> dict:
     records.update(gumbel_kernels(randn, dev))
     records.update(bias_kernels(randn))
     records.update(dbias_kernels(randn))
+    records.update(optimizer_kernels(randn, dev))
     fwd_sm90_kernels(randn, dev)
     bwd_sm90_kernels(randn, dev)
     return records
@@ -4059,7 +4086,7 @@ TRAIN_LONG = ["--position-embedding", "rope", "--activation", "swiglu",
 
 
 def phase_train(dev, flags=TRAIN_FLAGSHIP, label="train",
-                need=LN_TRAIN + ("mid_fwd", "mid_bwd")):
+                need=LN_TRAIN + ("mid_fwd", "mid_bwd", "multi_tensor_adam")):
     """A 12-layer GPT at O5 (bf16 params and compute, fp32 norms and
     masters), remat on, through the port trainer's step as ``gpt_pretrain
     <flags>`` builds it (the flagship, 8 x 1024 tokens, by default): 2
@@ -4143,6 +4170,16 @@ def phase_profile_train(tr, batch, what="flagship (O5, 8 x 1024)") -> None:
     if host:
         log(f"  host time inside {host[0].key}: "
             f"{host[0].cpu_time_total / 1e3:.2f} ms")
+    else:
+        log("  host time inside the optimizer step: not measured (no "
+            "Optimizer.step record)")
+    tail = [(t, n, key) for t, n, key in device_rows(prof)
+            if is_tail_kernel(key)]
+    log(f"  device time of the multi-tensor kernels: "
+        f"{sum(t for t, _, _ in tail) / 1e3:.3f} ms in "
+        f"{sum(n for _, n, _ in tail)} launches"
+        + "".join(f"; {t / 1e3:.3f} ms {n} x {key[:60]}"
+                  for t, n, key in sorted(tail, reverse=True)[:4]))
 
 
 def phase_train_dropout(dev, base=FLAGSHIP, seq=1024, micro=8, steps=10,
@@ -5253,6 +5290,14 @@ def phase_bert_parity(dev) -> dict:
     return counts
 
 
+def is_tail_kernel(key: str) -> bool:
+    """A kernel of ``csrc/multi_tensor.cu`` (the optimizer tail) by its
+    profiler name."""
+    return any(f"::{w}<" in key or f"::{w}(" in key
+               for w in ("step_kernel", "scale_kernel", "l2norm_kernel",
+                         "l2norm_total_kernel", "fold_kernel"))
+
+
 def attention_share(prof) -> str:
     """The device time of one profiled run by kind of kernel: the
     attention kernels (``attn_``/``flash_`` entries of the CUDA sources
@@ -5262,10 +5307,12 @@ def attention_share(prof) -> str:
     ``nvjet``/``sm90`` and CUTLASS kernels) and the rest (elementwise,
     copies, reductions)."""
     kinds = {"attention": 0.0, "layer norm": 0.0, "matmul": 0.0,
-             "other": 0.0}
+             "optimizer tail": 0.0, "other": 0.0}
     for t, _, key in device_rows(prof):
         k = key.lower()
-        if "attn_" in k or "attn::" in k or "flash_" in k:
+        if is_tail_kernel(key):
+            kinds["optimizer tail"] += t
+        elif "attn_" in k or "attn::" in k or "flash_" in k:
             kinds["attention"] += t
         elif "ln_fwd" in k or "ln_bwd" in k or "layer_norm" in k:
             kinds["layer norm"] += t
@@ -5453,6 +5500,572 @@ def phase_fmha_varlen(dev) -> dict:
     return counts
 
 
+# ------------------------------------------------ optimizer tail kernels
+#: the optimizer's coefficients in phase 2's checks (the trainer's lr and
+#: JAX FusedAdam's defaults, AdamW with decay; LAMB's defaults)
+OPT_HYPER = dict(lr=3e-4, beta1=0.9, beta2=0.999, eps=1e-8,
+                 weight_decay=0.01, adam_w_mode=True)
+LAMB_HYPER = dict(lr=1e-3, beta1=0.9, beta2=0.999, beta3=0.1, eps=1e-6,
+                  weight_decay=0.01, adam_w_mode=True, use_trust=True)
+#: the norms' band: fp32 sums of squares in two orders (the kernel's
+#: chunks of 65,536, torch.sum's tree), relative to the norm
+NORM_REL_TOL = 1e-5
+#: a clip factor or a trust ratio from such a norm moves a step's update
+#: by a few 1e-7 of itself: each value within MASTER_ULPS ulps of its
+#: dtype plus STEP_REL of the step it took
+MASTER_ULPS = 2
+STEP_REL = 1e-5
+
+
+def flagship_list(dev):
+    """The flagship's parameter tensors at O5 (bf16 weights, fp32 norm
+    parameters): ``(shapes, dtypes)`` in ``model.parameters()`` order."""
+    from apex_tpu_torch.amp import get_policy
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+
+    model = GPTModel(GPTConfig(**FLAGSHIP, policy=get_policy("O5")),
+                     device=dev, seed=0)
+    out = [(tuple(p.shape), p.dtype) for p in model.parameters()]
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def make(randn, shape, dtype, skew=False, scale=1.0):
+    """A random tensor; with ``skew`` a view one element into a larger one,
+    off the 16-byte grid."""
+    if not skew:
+        return randn(*shape, dtype=dtype, scale=scale)
+    n = math.prod(shape)
+    return randn(n + 1, dtype=dtype, scale=scale)[1:].view(shape)
+
+
+def opt_state(randn, specs, master=True, v_dtype=torch.float32):
+    """Random parameters, gradients and Adam state for ``specs``
+    (``(shape, dtype[, skew])``), as a step at the middle of training has
+    them: ``(params, grads, masters, exp_avgs, exp_avg_sqs)``."""
+    sk = lambda sp: len(sp) > 2 and sp[2]
+    params = [make(randn, sp[0], sp[1], sk(sp), 0.02) for sp in specs]
+    grads = [make(randn, sp[0], sp[1], sk(sp), 1e-3) for sp in specs]
+    masters = ([make(randn, sp[0], torch.float32, sk(sp)).copy_(p)
+                for sp, p in zip(specs, params)] if master else None)
+    ms = [make(randn, sp[0], torch.float32, sk(sp), 1e-4) for sp in specs]
+    vs = [make(randn, sp[0], v_dtype, sk(sp)).copy_(
+        randn(*sp[0], scale=1e-4) ** 2) for sp in specs]
+    return params, grads, masters, ms, vs
+
+
+def clone_state(state):
+    return tuple(None if ts is None else [t.clone() for t in ts]
+                 for ts in state)
+
+
+def state_equal(a, b) -> bool:
+    return all(x is y or all(torch.equal(s, t) for s, t in zip(x, y))
+               for x, y in zip(a, b))
+
+
+def ulp_of(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of ``x``'s dtype (fp32 or bf16) at ``x``'s magnitude,
+    in fp32."""
+    bits = 23 if x.dtype == torch.float32 else 7
+    return torch.exp2(torch.floor(torch.log2(
+        x.float().abs().clamp_min(2.0 ** -126))) - bits)
+
+
+def band_off(got, want, before) -> float:
+    """The largest distance of ``got`` from ``want`` as a share of the
+    band MASTER_ULPS ulps of ``want`` plus STEP_REL of the step
+    ``want - before``."""
+    w = want.float()
+    band = (MASTER_ULPS * ulp_of(want)
+            + STEP_REL * (w - before.float()).abs())
+    return ((got.float() - w).abs() / band).max().item()
+
+
+def step_bytes(specs, master=True, v_bytes=4) -> int:
+    """The bytes an Adam or LAMB step over ``specs`` must move: each
+    gradient and (without masters) parameter read, each master and moment
+    read and written, each parameter written."""
+    total = 0
+    for s, d in specs:
+        n = math.prod(s)
+        item = torch.empty((), dtype=d).element_size()
+        # the gradient read, the parameter written, the moments read and
+        # written, the master read and written (or the parameter read)
+        total += n * (2 * item + 8 + 2 * v_bytes + (8 if master else item))
+    return total
+
+
+def run_step(kernel, state, *, plain=False, **kw):
+    """One Adam (``kernel="adam"``) or LAMB step over ``state`` in place,
+    through the kernel or its plain version on the card."""
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    params, grads, masters, ms, vs = state
+    rows = mt.step_rows(params, masters, ms, vs)
+    hyper = dict(OPT_HYPER if kernel == "adam" else LAMB_HYPER)
+    if not plain:
+        getattr(mt, kernel)(grads, rows, **hyper, **kw)
+        return
+    h = mt._hyper(hyper["beta1"], hyper["beta2"],
+                  hyper.get("beta3", f32_sub(1.0, hyper["beta1"])),
+                  hyper["eps"], hyper["lr"], hyper["weight_decay"],
+                  hyper["adam_w_mode"])
+    args = (grads, rows, kw.get("inv_scale"), kw.get("clip"),
+            kw.get("finite"), kw.get("bc1"), kw.get("bc2"), h)
+    if kernel == "adam":
+        mt._adam_plain(*args)
+    else:
+        mt._lamb_plain(*args, hyper["use_trust"])
+
+
+def f32_sub(a: float, b: float) -> float:
+    return float(np.float32(a) - np.float32(b))
+
+
+def check_opt_step(label, kernel, got, want, exact: bool,
+                   before) -> float:
+    """A step's results through the kernel against the plain version's:
+    equal bits, or (a clip factor or trust ratios from sums in another
+    order) each value within MASTER_ULPS ulps plus STEP_REL of its step
+    (``before`` is the state the step started from).  Returns the largest
+    |difference|."""
+    worst = 0.0
+    for what, a, b, o in zip(("param", "grad", "master", "exp_avg",
+                              "exp_avg_sq"), got, want, before):
+        if a is None:
+            continue
+        for i, (x, y, z) in enumerate(zip(a, b, o)):
+            if x.numel() == 0:
+                continue
+            worst = max(worst, max_err(x, y))
+            if exact:
+                if not torch.equal(x, y):
+                    fail(f"{label}: {kernel} {what} {i} differs from the "
+                         f"plain version (max |diff| {max_err(x, y):.3g})")
+            else:
+                off = band_off(x, y, z)
+                if not off <= 1.0:
+                    fail(f"{label}: {kernel} {what} {i} {off:.2f} of its "
+                         f"band off the plain version ({MASTER_ULPS} ulps "
+                         f"+ {STEP_REL} of the step)")
+    return worst
+
+
+def edge_lists():
+    """Lists the flagship's does not reach: a zero-size tensor, odd
+    lengths (1, 7, 1001, one chunk + 1, two chunks + 3), bf16 and fp32
+    tensors beside each other and one off the 16-byte grid (the
+    one-by-one path); 600 tensors of 5 elements (more tensors than one
+    launch's table holds); one bf16 tensor of 4,100 chunks + 5 elements
+    (more blocks than a table holds: the tensor splits over two)."""
+    return {
+        "odd lengths and dtypes": [
+            ((0,), torch.bfloat16), ((1,), torch.float32),
+            ((7,), torch.bfloat16), ((1001,), torch.float32),
+            ((65537,), torch.bfloat16), ((2 * 65536 + 3,), torch.float32),
+            ((33, 31), torch.bfloat16, True), ((40,), torch.float32, True)],
+        "600 tensors": [((5,), torch.float32)] * 600,
+        "4,101 chunks": [((4100 * 65536 + 5,), torch.bfloat16)],
+    }
+
+
+def optimizer_kernels(randn, dev) -> dict:
+    """The four multi-tensor kernels of the optimizer tail
+    (``csrc/multi_tensor.cu``) against their plain versions on the card:
+    at the flagship's 148 tensors at O5 (bf16 weights, fp32 norm
+    parameters, fp32 masters) and on edge lists; ``multi_tensor_adam``
+    equal to the plain version bit for bit without a clip, with the loss
+    scaler's unscale folded in, and with a bf16 second moment; within
+    MASTER_ULPS with a clip; an inf at the list's first and last element
+    skips the whole step bit for bit; then each kernel timed beside its
+    plain version, its bound and the PyTorch call that computes the same
+    function."""
+    from apex_tpu_torch.ops import multi_tensor as mt
+
+    specs = flagship_list(dev)
+    n_el = sum(math.prod(s) for s, _ in specs)
+    log(f"[kernels] optimizer tail (CUDA multi-tensor), the flagship's "
+        f"{len(specs)} tensors at O5 ({n_el:,} elements: "
+        f"{sum(d == torch.bfloat16 for _, d in specs)} bf16, "
+        f"{sum(d == torch.float32 for _, d in specs)} fp32)")
+    one = lambda v: torch.full((), v, dtype=torch.float32, device=dev)
+    bc = dict(bc1=one(f32_sub(1.0, 0.9 ** 7)),
+              bc2=one(f32_sub(1.0, 0.999 ** 7)))
+    records = {}
+    lists = {"flagship": specs, **edge_lists()}
+    errs = {}
+    for label, sp in lists.items():
+        # -- scale (in place, out of place, axpby) and the check ----------
+        xs = [make(randn, *x) for x in sp]
+        outs = [torch.empty_like(x) for x in xs]
+        want = [torch.empty_like(x) for x in xs]
+        fk = mt.scale(xs, one(0.37), out=outs)
+        fp = torch.ones((), dtype=torch.bool, device=dev)
+        mt._scale_plain(xs, one(0.37), None, 0.0, want, fp)
+        ys = [make(randn, *x) for x in sp]
+        ax, axw = ([torch.empty_like(x) for x in xs] for _ in range(2))
+        mt.scale(xs, 0.5, ys=ys, b=-1.25, out=ax)
+        mt._scale_plain(xs, 0.5, ys, -1.25, axw,
+                        torch.ones((), dtype=torch.bool, device=dev))
+        if not (all(torch.equal(a, b) for a, b in zip(outs, want))
+                and all(torch.equal(a, b) for a, b in zip(ax, axw))
+                and bool(fk) and bool(fp)):
+            fail(f"optimizer {label}: multi_tensor_scale (or its axpby "
+                 "instance) differs from the plain version")
+        nz = [i for i, x in enumerate(xs) if x.numel()]
+        for i, pos in ((nz[0], 0), (nz[-1], -1)):
+            xs[i].view(-1)[pos] = float("inf")
+            if bool(mt.scale(xs)):
+                fail(f"optimizer {label}: an inf at tensor {i} escaped the "
+                     "finite check")
+            xs[i].view(-1)[pos] = 0.0
+        # -- l2norm ------------------------------------------------------
+        gs = [make(randn, *x, scale=1e-3) for x in sp]
+        del xs, ys, outs, want, ax, axw
+        inv = one(2.0 ** -3)
+        for inv_scale in (None, inv):
+            nk = mt.l2norm(gs, inv_scale=inv_scale, per_tensor=True)
+            npl = mt._l2norm_plain(gs, inv_scale, True, torch.ones(
+                (), dtype=torch.bool, device=dev))
+            rel = ((nk.per_tensor - npl.per_tensor).abs()
+                   / npl.per_tensor.clamp_min(1e-30)).max().item()
+            rel = max(rel, abs(nk.total.item() - npl.total.item())
+                      / npl.total.item())
+            again = mt.l2norm(gs, inv_scale=inv_scale, per_tensor=True)
+            if not (rel <= NORM_REL_TOL and bool(nk.finite)
+                    and torch.equal(again.per_tensor, nk.per_tensor)
+                    and torch.equal(again.total, nk.total)):
+                fail(f"optimizer {label}: multi_tensor_l2norm {rel:.3g} "
+                     f"off the plain norms (band {NORM_REL_TOL}) or not "
+                     "the same bits twice")
+        log(f"  {label}: scale, axpby equal to the plain version; l2norm "
+            f"within {rel:.2g} (band {NORM_REL_TOL}), same bits twice")
+        # -- adam and lamb -----------------------------------------------
+        cases = (("adam", "no clip", True, {}, torch.float32),
+                 ("adam", "unscale folded", True, dict(inv_scale=inv),
+                  torch.float32),
+                 ("adam", "bf16 exp_avg_sq", True, {}, torch.bfloat16),
+                 ("adam", "no masters", False, {}, torch.float32),
+                 ("adam", "clip", True, dict(clip=one(0.3)), torch.float32),
+                 ("lamb", "trust ratios", True, {}, torch.float32))
+        for kernel, what, master, kw, v_dtype in cases:
+            state = opt_state(randn, sp, master, v_dtype)
+            ref = clone_state(state)
+            orig = clone_state(state)
+            if kernel == "adam" and "clip" in kw:
+                # the clip factor from each side's own norm
+                gk = mt.l2norm(state[1]).total
+                gp = mt._l2norm_plain(ref[1], None, False, torch.ones(
+                    (), dtype=torch.bool, device=dev)).total
+                kw = dict(clip=torch.where(gk > 1e-3, one(1e-3) / gk,
+                                           one(1.0)))
+                kw_plain = dict(clip=torch.where(gp > 1e-3, one(1e-3) / gp,
+                                                 one(1.0)))
+            else:
+                kw_plain = kw
+            run_step(kernel, state, **bc, **kw)
+            run_step(kernel, ref, plain=True, **bc, **kw_plain)
+            exact = kernel == "adam" and what != "clip"
+            err = check_opt_step(f"optimizer {label} {what}", kernel, state,
+                                 ref, exact, orig)
+            errs[(label, kernel, what)] = err
+            del state, ref, orig
+            log(f"  {label}: multi_tensor_{kernel} {what}: "
+                + ("equal bits" if exact else
+                   f"within the band (max |diff| {err:.3g})"))
+        # -- a non-finite gradient skips everything ----------------------
+        for kernel in ("adam", "lamb"):
+            state = opt_state(randn, sp, True)
+            grads = state[1]
+            for i, pos in ((nz[0], 0), (nz[-1], -1)):
+                before = clone_state(state)
+                grads[i].view(-1)[pos] = float("inf")
+                finite = mt.scale(grads)
+                run_step(kernel, state, finite=finite, **bc)
+                grads[i].view(-1)[pos] = before[1][i].view(-1)[pos]
+                if bool(finite) or not state_equal(state, before):
+                    fail(f"optimizer {label}: multi_tensor_{kernel} wrote "
+                         f"with an inf at tensor {i}")
+            del state, before
+        log(f"  {label}: an inf at the first or the last element skips "
+            "adam and lamb, every bit kept")
+    torch.cuda.synchronize()
+    # -- timing at the flagship's list -----------------------------------
+    state = opt_state(randn, specs, True)
+    params, grads, masters, ms, vs = state
+    g_bytes = sum(g.numel() * g.element_size() for g in grads)
+    shape = f"{len(specs)} tensors, {n_el:,} elements, O5"
+    rows = mt.step_rows(params, masters, ms, vs)
+    plain_state = clone_state(state)
+    prow = mt.step_rows(plain_state[0], plain_state[2], plain_state[3],
+                        plain_state[4])
+    h = mt._hyper(0.9, 0.999, f32_sub(1.0, 0.9), 1e-8, 3e-4, 0.01, True)
+    # the library's fused AdamW over fp32 copies, without masters
+    lib_p = [m.clone() for m in masters]
+    lib_g = [g.float() for g in grads]
+    lib_m, lib_v = [m.clone() for m in ms], [v.clone() for v in vs]
+    lib_steps = [torch.full((), 7.0, device=dev) for _ in specs]
+    records["multi_tensor_adam"] = [measure(
+        "multi_tensor_adam", shape, 0.0,
+        lambda: mt.adam(grads, rows, **OPT_HYPER, **bc),
+        lambda: mt._adam_plain(grads, prow, None, None, None, bc["bc1"],
+                               bc["bc2"], h),
+        ("torch._fused_adamw_ (fp32, no masters)",
+         lambda: torch._fused_adamw_(
+             lib_p, lib_g, lib_m, lib_v, [], lib_steps, lr=3e-4, beta1=0.9,
+             beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
+             maximize=False)),
+        nbytes=step_bytes(specs), ops=14.0 * n_el, dtype=torch.float32,
+        plain_iters=3)]
+    del lib_p, lib_g, lib_m, lib_v
+    nk = mt.l2norm(grads, per_tensor=True)
+    npl = mt._l2norm_plain(grads, None, True,
+                           torch.ones((), dtype=torch.bool, device=dev))
+    records["multi_tensor_l2norm"] = [measure(
+        "multi_tensor_l2norm", shape + ", bf16/fp32 gradients",
+        max_err(nk.per_tensor, npl.per_tensor),
+        lambda: mt.l2norm(grads, per_tensor=True),
+        lambda: mt._l2norm_plain(grads, None, True, torch.ones(
+            (), dtype=torch.bool, device=dev)),
+        ("torch._foreach_norm + stack + norm",
+         lambda: torch.linalg.vector_norm(torch.stack(
+             [n.float() for n in torch._foreach_norm(grads)]))),
+        nbytes=g_bytes, ops=2.0 * n_el, dtype=torch.float32, plain_iters=3)]
+    unit = one(1.0)
+    records["multi_tensor_scale"] = [measure(
+        "multi_tensor_scale", shape + ", in place, x 1.0", 0.0,
+        lambda: mt.scale(grads, unit, out=grads),
+        lambda: mt._scale_plain(grads, unit, None, 0.0, grads, torch.ones(
+            (), dtype=torch.bool, device=dev)),
+        ("torch._foreach_mul_ (without the finite check: "
+         "_amp_foreach_non_finite_check_and_unscale_ takes no bf16)",
+         lambda: torch._foreach_mul_(grads, unit)),
+        nbytes=2 * g_bytes, ops=2.0 * n_el, dtype=torch.float32,
+        plain_iters=3)]
+    lstate = opt_state(randn, specs, True)
+    lrows = mt.step_rows(lstate[0], lstate[2], lstate[3], lstate[4],
+                         mt.KERNEL_LAMB)
+    lplain = clone_state(lstate)
+    lprow = mt.step_rows(lplain[0], lplain[2], lplain[3], lplain[4],
+                         mt.KERNEL_LAMB)
+    hl = mt._hyper(0.9, 0.999, 0.1, 1e-6, 1e-3, 0.01, True)
+    lamb_bytes = step_bytes(specs)
+    design = sum(math.prod(s) * ((26 if d == torch.bfloat16 else 28)
+                                 + (14 if d == torch.bfloat16 else 16))
+                 for s, d in specs)
+    log(f"  multi_tensor_lamb: the function moves {lamb_bytes:,} bytes "
+        f"(its bound); the two-stage design moves {design:,} (u written "
+        "and read back in fp32)")
+    records["multi_tensor_lamb"] = [measure(
+        "multi_tensor_lamb", shape,
+        errs[("flagship", "lamb", "trust ratios")],
+        lambda: mt.lamb(lstate[1], lrows, **LAMB_HYPER, **bc),
+        lambda: mt._lamb_plain(lstate[1], lprow, None, None, None, bc["bc1"],
+                               bc["bc2"], hl, True),
+        None, nbytes=lamb_bytes, ops=20.0 * n_el, dtype=torch.float32,
+        plain_iters=3)]
+    log("  multi_tensor_lamb: no PyTorch call computes LAMB (no library "
+        "column)")
+    del state, plain_state, lstate, lplain
+    torch.cuda.empty_cache()
+    return records
+
+
+# ---------------------------------------------------------- train-amp
+def opt_snapshot(tr) -> tuple:
+    """Device copies of a trainer's parameters, optimizer state (per
+    parameter, fp32 copies out of the packed buffers for a fused tail),
+    step counter and scaler state."""
+    unpacked = tr.opt.unpack_state()
+    params = [p.detach().clone() for p in tr.model.parameters()]
+    state = {k: [None if t is None else t.detach().clone() for t in v]
+             for k, v in unpacked.items() if k != "step"}
+    sc = tr.amp_state.scaler_states[0]
+    return (params, state, unpacked["step"].clone(),
+            tuple(t.clone() for t in sc))
+
+
+def same_snapshot(a, b) -> bool:
+    (pa, sa, ka, ca), (pb, sb, kb, cb) = a, b
+    return (all(torch.equal(x, y) for x, y in zip(pa, pb))
+            and sa.keys() == sb.keys()
+            and all(torch.equal(x, y) for k in sa
+                    for x, y in zip(sa[k], sb[k]))
+            and torch.equal(ka, kb)
+            and all(torch.equal(x, y) for x, y in zip(ca, cb)))
+
+
+def poison(param, where: int):
+    """A backward hook that sets one element of ``param``'s gradient (the
+    first, ``where=0``, or the last, ``-1``) to inf, as an overflowed
+    backward leaves it; returns the hook's handle."""
+    def hook(g):
+        g = g.clone()
+        g.view(-1)[where] = float("inf")
+        return g
+    return param.register_hook(hook)
+
+
+def phase_train_amp(dev) -> dict:
+    """The flagship trainer (12 layers, 8 x 1024, O5) with the dynamic loss
+    scaler, ``amp.initialize("O5", loss_scale="dynamic")``, per-leaf and
+    with ``--fused-opt-tail``, the two fed the same gradients each step:
+    three steps give the same bits; an inf injected in the backward (the
+    first gradient's first element, the fused trainer's last gradient's
+    last element) leaves parameters, masters, moments and the step counter
+    unchanged bit for bit and halves the scale, and the next step
+    proceeds; a ``StepGuard`` sees both steps; one tail under
+    ``torch.cuda.set_sync_debug_mode("error")`` makes no host
+    synchronisation; ``step_scaled`` (the unscale folded into the fused
+    tail's kernel) gives the per-leaf tail's bits.  Returns the launch
+    counts of one tail."""
+    from apex_tpu_torch.amp import StepGuard
+    from apex_tpu_torch.examples import gpt_pretrain
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    log("[train-amp] the flagship trainer (12 layers, 8 x 1024, O5) with "
+        "amp.initialize('O5', loss_scale='dynamic'), per-leaf and fused "
+        "tail, the same gradients each step")
+    flags = TRAIN_FLAGSHIP + ["--opt-level", "O5", "--lr", "3e-4",
+                              "--device", str(dev)]
+    over = dict(loss_scale="dynamic")
+    leaf = gpt_pretrain.Trainer(gpt_pretrain.parse_args(flags), over)
+    fused = gpt_pretrain.Trainer(gpt_pretrain.parse_args(
+        flags + ["--fused-opt-tail"]), over)
+    batch = leaf.to_device(*gpt_pretrain.batches(
+        np.random.default_rng(0), 1, leaf.global_batch, leaf.args.seq,
+        leaf.args.vocab)[0])
+    guard = StepGuard(scaler=leaf.mp.scaler)
+
+    def both(hooks=()):
+        """One step of each: the per-leaf trainer's backward, its
+        gradients handed to the fused trainer, both tails."""
+        handles = [poison(leaf_p, where) for leaf_p, where in hooks]
+        loss = leaf.backward(*batch)
+        for h in handles:
+            h.remove()
+        fused.opt.zero_grad(set_to_none=True)
+        for a, b in zip(leaf.model.parameters(), fused.model.parameters()):
+            b.grad = None if a.grad is None else a.grad.clone()
+        if hooks:
+            # the fused trainer's poison at its last gradient's last element
+            last = [p for p in fused.model.parameters()
+                    if p.grad is not None][-1]
+            last.grad.view(-1)[-1] = float("inf")
+        leaf.tail()
+        fused.tail()
+        return loss
+
+    losses = [both() for _ in range(3)]
+    if not same_snapshot(opt_snapshot(leaf), opt_snapshot(fused)):
+        fail("train-amp: the fused tail's parameters or state differ from "
+             "the per-leaf path's after 3 steps")
+    log(f"  3 steps: losses {[round(float(x), 5) for x in losses]}, fused "
+        f"tail == per-leaf bit for bit ({len(fused.opt._tail.plan.names)} "
+        "buckets)")
+    before = [opt_snapshot(t) for t in (leaf, fused)]
+    scale0 = float(leaf.amp_state.scaler_states[0].loss_scale)
+    first = next(iter(leaf.model.parameters()))
+    both(hooks=[(first, 0)])
+    for name, tr, snap in (("per-leaf", leaf, before[0]),
+                           ("fused", fused, before[1])):
+        after = opt_snapshot(tr)
+        scale1 = float(tr.amp_state.scaler_states[0].loss_scale)
+        if bool(tr.finite) or not same_snapshot(
+                (after[0], after[1], after[2], ()),
+                (snap[0], snap[1], snap[2], ())):
+            fail(f"train-amp: the {name} trainer's overflowed step moved "
+                 "its parameters or state")
+        if scale1 != scale0 / 2:
+            fail(f"train-amp: the {name} scale went {scale0} -> {scale1}, "
+                 "not halved")
+    v_bad = guard.observe(leaf.finite, step=4,
+                          scaler_state=leaf.amp_state.scaler_states[0])
+    log(f"  overflow at step 4: skipped, every bit kept, scale {scale0:g} "
+        f"-> {scale0 / 2:g}; guard {v_bad.action} "
+        f"(consecutive_bad {v_bad.consecutive_bad})")
+    steps_before = int(leaf.opt.unpack_state()["step"])
+    loss = both()
+    v_ok = guard.observe(leaf.finite, step=5,
+                         scaler_state=leaf.amp_state.scaler_states[0])
+    if not (bool(leaf.finite) and math.isfinite(float(loss))
+            and int(leaf.opt.unpack_state()["step"]) == steps_before + 1
+            and guard.total_bad == 1 and v_ok.consecutive_bad == 0
+            and v_bad.consecutive_bad == 1):
+        fail("train-amp: the step after the overflow did not proceed, or "
+             "the guard missed a step")
+    if not same_snapshot(opt_snapshot(leaf), opt_snapshot(fused)):
+        fail("train-amp: per-leaf and fused tails differ after the overflow")
+    log(f"  step 5 proceeds (loss {float(loss):.5f}, counter "
+        f"{steps_before} -> {steps_before + 1}); guard ok, total_bad "
+        f"{guard.total_bad}")
+    # a step of each with the tails under the sync debug mode
+    hand = lambda: [setattr(b, "grad", a.grad.clone()) for a, b in zip(
+        leaf.model.parameters(), fused.model.parameters())]
+    leaf.backward(*batch)
+    fused.opt.zero_grad(set_to_none=True)
+    hand()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        leaf.tail()
+        fused.tail()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = {k: v // 2 for k, v in launch_counts().items() if v}
+    log(f"  both tails under set_sync_debug_mode('error'): no host "
+        f"synchronisation; launches a tail {counts}")
+    # step_scaled: the unscale folded into the fused tail's kernel read
+    leaf.backward(*batch)
+    fused.opt.zero_grad(set_to_none=True)
+    hand()
+    leaf.tail()
+    sc = fused.amp_state.scaler_states[0]
+    finite = fused.opt.step_scaled(fused.mp.scaler.inv_scale(sc))
+    fused.amp_state = fused.amp_state._replace(
+        scaler_states=(fused.mp.scaler.adjust(sc, finite),))
+    if not (bool(finite) and same_snapshot(opt_snapshot(leaf),
+                                           opt_snapshot(fused))):
+        fail("train-amp: step_scaled's folded unscale differs from the "
+             "per-leaf unscale and step")
+    log("  step_scaled (the unscale folded into multi_tensor_adam's read) "
+        "== unscale_and_adjust + step, bit for bit")
+    del leaf, fused
+    torch.cuda.empty_cache()
+    # LAMB at the flagship: FusedMixedPrecisionLamb through step_scaled
+    from apex_tpu_torch.optimizers import FusedMixedPrecisionLamb
+
+    tr = gpt_pretrain.Trainer(gpt_pretrain.parse_args(flags), over)
+    tr.opt = FusedMixedPrecisionLamb(tr.model.parameters(), lr=2e-3)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses = []
+    for _ in range(3):
+        losses.append(tr.backward(*batch))
+        sc = tr.amp_state.scaler_states[0]
+        finite = tr.opt.step_scaled(tr.mp.scaler.inv_scale(sc))
+        tr.amp_state = tr.amp_state._replace(
+            scaler_states=(tr.mp.scaler.adjust(sc, finite),))
+    torch.cuda.synchronize()
+    lamb_counts = {k: v for k, v in launch_counts().items() if v}
+    losses = [float(x) for x in losses]
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+            and bool(finite)):
+        fail(f"train-amp: FusedMixedPrecisionLamb losses {losses} are not "
+             "finite and falling")
+    log(f"  FusedMixedPrecisionLamb (lr 2e-3, clip 1.0) through step_scaled, "
+        f"3 steps: losses {[round(x, 5) for x in losses]}; launches "
+        f"{lamb_counts}")
+    del tr
+    torch.cuda.empty_cache()
+    return dict(counts, **{k: lamb_counts.get(k, 0) for k in (
+        "multi_tensor_l2norm", "multi_tensor_lamb")})
+
+
 #: name -> (route, source, the TPU kernel it replaces); the forwards'
 #: records are bf16, whose kernel is attention_fwd_sm90.cuh (the entries'
 #: fp32 instances stay in their .cu files)
@@ -5566,6 +6179,15 @@ SOURCES = {
     "flash_bwd_dq_dbias": ("cuda",
                            "apex_tpu_torch/csrc/attention_bwd_sm90.cuh",
                            "apex_tpu/ops/attention.py:534"),
+    # the optimizer tail replaces XLA code, not a Pallas kernel
+    "multi_tensor_adam": ("cuda", "apex_tpu_torch/csrc/multi_tensor.cu",
+                          "apex_tpu/optimizers/fused_adam.py:100"),
+    "multi_tensor_l2norm": ("cuda", "apex_tpu_torch/csrc/multi_tensor.cu",
+                            "apex_tpu/multi_tensor_apply/__init__.py:121"),
+    "multi_tensor_scale": ("cuda", "apex_tpu_torch/csrc/multi_tensor.cu",
+                           "apex_tpu/multi_tensor_apply/__init__.py:41"),
+    "multi_tensor_lamb": ("cuda", "apex_tpu_torch/csrc/multi_tensor.cu",
+                          "apex_tpu/optimizers/fused_lamb.py:101"),
 }
 
 FLASH = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
@@ -5620,6 +6242,14 @@ def main() -> None:
     timed("profile", phase_profile_train, tr, batch)
     del tr, batch
     torch.cuda.empty_cache()
+    _, tr, batch = timed("train-fused-tail", phase_train, dev,
+                         TRAIN_FLAGSHIP + ["--fused-opt-tail"],
+                         "train-fused-tail")
+    timed("profile", phase_profile_train, tr, batch,
+          "flagship, fused tail (O5, 8 x 1024)")
+    del tr, batch
+    torch.cuda.empty_cache()
+    amp_counts = timed("train-amp", phase_train_amp, dev)
     long_counts, tr, batch = timed(
         "train-long", phase_train, dev, TRAIN_LONG, "train-long",
         LN_TRAIN + FLASH)
@@ -5660,8 +6290,14 @@ def main() -> None:
     for name in ("dequant_int8", "dequant_int4", "paged_decode_int8"):
         main_counts[name] = quant_counts.get(name, 0)
     main_counts["short_bwd"] = parity_counts[384].get("short_bwd", 0)
-    for name in ("mid_fwd", "mid_bwd", "ln_bwd", "ln_bwd_fold"):
+    for name in ("mid_fwd", "mid_bwd", "ln_bwd", "ln_bwd_fold",
+                 "multi_tensor_adam"):
         main_counts[name] = train_counts.get(name, 0)
+    # the optimizer tail: Adam from phase 7, the scaler's unscale from
+    # train-amp's tail, the clip's norm and LAMB from its LAMB steps
+    for name in ("multi_tensor_scale", "multi_tensor_l2norm",
+                 "multi_tensor_lamb"):
+        main_counts[name] = amp_counts.get(name, 0)
     for name in FLASH:
         main_counts[name] = long_counts.get(name, 0)
     main_counts["paged_decode_rows"] = chunked_counts.get(

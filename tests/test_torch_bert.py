@@ -301,7 +301,7 @@ def test_finetune_runs_on_cpu():
 @pytest.mark.parametrize("flag", [
     ["--tp", "2"], ["--zero3"], ["--dp-ici-size", "2"],
     ["--grad-compression", "int8"], ["--overlap-grad-sync"],
-    ["--fused-opt-tail"], ["--metrics-jsonl", "m.jsonl"],
+    ["--compress-ici-legs"], ["--metrics-jsonl", "m.jsonl"],
     ["--opt-level", "O2"]])
 def test_finetune_rejects_unported_flags(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):

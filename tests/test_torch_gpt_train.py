@@ -203,7 +203,7 @@ def test_trainer_loss_falls_on_cpu():
 @pytest.mark.parametrize("flag", [
     ["--tp", "2"], ["--pp", "2"], ["--zero"], ["--zero3"],
     ["--grad-compression", "int8"], ["--overlap-grad-sync"],
-    ["--fused-opt-tail"], ["--num-experts", "4"], ["--data", "x.bin"],
+    ["--trace-dir", "t"], ["--num-experts", "4"], ["--data", "x.bin"],
     ["--checkpoint-dir", "ck"], ["--opt-level", "O2"]])
 def test_trainer_rejects_unported_flags(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):

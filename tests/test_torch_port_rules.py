@@ -51,7 +51,7 @@ def test_forbidden_pattern_catches_what_it_should():
 @pytest.mark.parametrize("module", ["layer_norm", "attention_short",
                                     "attention_mid", "attention_flash",
                                     "attention_decode", "softmax",
-                                    "dropout"])
+                                    "dropout", "multi_tensor"])
 def test_kernel_wrappers_have_no_fallback(module):
     """No ``try`` in a wrapper module, and each counts its launches (the
     mid rung through the short rung's launchers, with its own names)."""
@@ -382,7 +382,11 @@ def test_contrib_modules_keep_the_jax_signatures(name):
     ("attention_decode", "paged_decode_int8"),
     ("attention_decode", "paged_decode_rows"),
     ("dequant_matmul", "dequant_matmul"), ("layer_norm", "ln_fwd"),
-    ("layer_norm", "ln_bwd"), ("layer_norm", "ln_bwd_fold")])
+    ("layer_norm", "ln_bwd"), ("layer_norm", "ln_bwd_fold"),
+    ("multi_tensor", "multi_tensor_scale"),
+    ("multi_tensor", "multi_tensor_l2norm"),
+    ("multi_tensor", "multi_tensor_adam"),
+    ("multi_tensor", "multi_tensor_lamb")])
 def test_c_entries_are_typed_as_the_source_declares(monkeypatch, module,
                                                     symbol):
     """The ctypes argument types of each C entry match its declaration
@@ -448,7 +452,11 @@ def test_decode_rows_and_tree_count_under_their_own_names():
     "serving.speculate", "serving.kv_cache", "serving.sampling",
     "serving.serve", "ops.softmax", "transformer.enums",
     "transformer.functional.fused_softmax", "random", "ops.dropout",
-    "transformer.tensor_parallel.random"])
+    "transformer.tensor_parallel.random", "ops.multi_tensor", "amp.scaler",
+    "optimizers.fused_tail", "optimizers.fused_lamb",
+    "optimizers.fused_mixed_precision_lamb", "optimizers.fused_sgd",
+    "optimizers.fused_novograd", "optimizers.fused_adagrad",
+    "optimizers.larc", "resilience.guard", "transformer.amp"])
 def test_new_modules_are_port_files(module):
     """The modules of the serving slice, the softmax entry point, the
     PRNG and dropout are in the package (so the import rule above covers
@@ -637,7 +645,11 @@ def test_every_c_entry_is_typed():
         ("attention_decode", "paged_decode_int8"),
         ("attention_decode", "paged_decode_rows"),
         ("dequant_matmul", "dequant_matmul"), ("layer_norm", "ln_fwd"),
-        ("layer_norm", "ln_bwd"), ("layer_norm", "ln_bwd_fold")}
+        ("layer_norm", "ln_bwd"), ("layer_norm", "ln_bwd_fold"),
+        ("multi_tensor", "multi_tensor_scale"),
+        ("multi_tensor", "multi_tensor_l2norm"),
+        ("multi_tensor", "multi_tensor_adam"),
+        ("multi_tensor", "multi_tensor_lamb")}
     found = set()
     for source in KERNEL_SOURCES:
         src = (ROOT / "apex_tpu_torch" / "csrc" / f"{source}.cu").read_text()

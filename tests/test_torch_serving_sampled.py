@@ -281,15 +281,17 @@ def test_graph_replay_counts_launches(monkeypatch):
     carry = {"tokens": torch.arange(4, dtype=torch.int32)}
     table = torch.ones((4, 2), dtype=torch.int32)
     common.reset_launch_counts()
+    # the counts this test makes (a kernel counted by an earlier test in
+    # the same process stays in the table at 0 after the reset)
+    launched = lambda: {k: v for k, v in common.launch_counts().items() if v}
     _, c1, out1 = sg(pools, carry, table)
-    assert common.launch_counts() == {"fake_kernel": 2, "fake_other": 1}
+    assert launched() == {"fake_kernel": 2, "fake_other": 1}
     assert sg.captures == 1 and len(calls) == 2        # warm + capture
     assert c1["tokens"].tolist() == [1, 2, 3, 4]
     assert out1.tolist() == [0, 2, 4, 6]
     for n in range(3):
         _, c2, out2 = sg(pools, c1, table * (n + 2))
-        assert common.launch_counts() == {"fake_kernel": 4 + 2 * n,
-                                          "fake_other": 2 + n}
+        assert launched() == {"fake_kernel": 4 + 2 * n, "fake_other": 2 + n}
         assert c2 is sg._graphs[next(iter(sg._graphs))].static_args[0]
         c1 = c2
     assert sg.replays == 3 and len(calls) == 2
@@ -299,5 +301,5 @@ def test_graph_replay_counts_launches(monkeypatch):
     # other pools: a fresh warm-up and capture
     sg({"k": torch.zeros(3)}, carry, table)
     assert sg.captures == 2 and len(calls) == 4
-    assert common.launch_counts() == {"fake_kernel": 10, "fake_other": 5}
+    assert launched() == {"fake_kernel": 10, "fake_other": 5}
     common.reset_launch_counts()

@@ -14,10 +14,14 @@ or, with the unscale folded into the optimizer's read of the gradients,
 ``mp.scaler.adjust(s, finite)``.  Every state is device tensors; nothing
 in a step reads them back.
 
-The amp decorators of JAX (``amp/lists.py``, ``amp/functional.py``) cast
-to fp16 and wait for the fp16 levels, ROADMAP.md queue A item 5's
-remainder.  ``StepGuard`` and ``DivergenceError`` are re-exported lazily
-from :mod:`apex_tpu_torch.resilience.guard`.
+Every opt level trains, O1-O3 in fp16 (``check_ported``).  The cast
+decorators (``half_function``, ``float_function``, ``promote_function``,
+the ``register_*`` forms and ``set_low_precision_dtype``, from
+:mod:`apex_tpu_torch.amp.functional`) and the cast lists over ``torch``
+and ``torch.nn.functional`` (``cast_namespaces``, and ``patch``, Apex's
+O1 patch with a ``restore``, from :mod:`apex_tpu_torch.amp.lists`) are
+re-exported here, as in JAX.  ``StepGuard`` and ``DivergenceError`` are
+re-exported lazily from :mod:`apex_tpu_torch.resilience.guard`.
 """
 
 from __future__ import annotations
@@ -26,10 +30,31 @@ from typing import Any, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from apex_tpu_torch.amp.functional import (
+    bfloat16_function,
+    float_function,
+    half_function,
+    promote_function,
+    register_float_function,
+    register_half_function,
+    register_promote_function,
+    set_low_precision_dtype,
+)
+from apex_tpu_torch.amp.lists import (
+    FP32_NN,
+    FP32_NUMPY,
+    LOW_PRECISION_LAX,
+    LOW_PRECISION_NUMPY,
+    PROMOTE_NUMPY,
+    SEQUENCE_NUMPY,
+    cast_namespaces,
+    patch,
+)
 from apex_tpu_torch.amp.policy import (
     OPT_LEVELS,
     Policy,
     check_ported,
+    check_serving,
     get_policy,
     is_norm_param,
     tree_cast,
@@ -42,10 +67,16 @@ from apex_tpu_torch.amp.scaler import (
 )
 
 __all__ = [
-    "OPT_LEVELS", "Policy", "check_ported", "get_policy", "is_norm_param",
-    "tree_cast", "LossScaler", "ScalerState", "all_finite",
+    "OPT_LEVELS", "Policy", "check_ported", "check_serving", "get_policy",
+    "is_norm_param", "tree_cast", "LossScaler", "ScalerState", "all_finite",
     "scale_gradients", "AmpState", "MixedPrecision", "initialize",
     "StepGuard", "DivergenceError",
+    "FP32_NN", "FP32_NUMPY", "LOW_PRECISION_LAX", "LOW_PRECISION_NUMPY",
+    "PROMOTE_NUMPY", "SEQUENCE_NUMPY", "cast_namespaces", "patch",
+    "bfloat16_function", "float_function", "half_function",
+    "promote_function", "register_float_function",
+    "register_half_function", "register_promote_function",
+    "set_low_precision_dtype",
 ]
 
 

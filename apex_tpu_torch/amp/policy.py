@@ -10,14 +10,15 @@ the ``cast_to_*`` methods cast a tree of tensors (nested dicts, lists or
 tuples, such as a state dict) the way JAX's cast a pytree, with
 :func:`is_norm_param` keeping norm parameters fp32.
 
-What runs: O0 (fp32, a static loss scale of 1.0 and the scaler's
-overflow skip-step), O4 (bf16 compute, fp32 params) and O5 (bf16 params
-and compute, fp32 norms and masters, the default), with any loss scale,
+Every level trains: O0 (fp32, a static loss scale of 1.0 and the
+scaler's overflow skip-step), O1 (fp32 params, fp16 compute, dynamic
+scaling), O2 (fp16 params, fp32 norms and masters, dynamic scaling), O3
+(pure fp16), O4 (bf16 compute, fp32 params) and O5 (bf16 params and
+compute, fp32 norms and masters, the default), with any loss scale,
 static or dynamic, put on them (``get_policy(..., loss_scale=...)``).
-:func:`check_ported` raises for fp16 parameters or compute (O1-O3): the
-kernels on the training path (the layer norm, the attention bodies,
-dropout) have no fp16 instances yet, ROADMAP.md queue A item 5's
-remainder.
+Serving runs in bf16 or fp32 only: :func:`check_serving` raises for an
+fp16 compute dtype (the decode kernel, the dequant pair and the sampler
+have no fp16 instances, ROADMAP.md queue A item A5b).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from typing import Any, Callable, Optional, Union
 import torch
 
 __all__ = ["Policy", "OPT_LEVELS", "get_policy", "check_ported",
-           "tree_cast", "is_norm_param"]
+           "check_serving", "tree_cast", "is_norm_param"]
 
 _NORM_KEY_FRAGMENTS = (
     "batchnorm",
@@ -178,13 +179,30 @@ def get_policy(opt_level: str = "O5", **overrides) -> Policy:
     return dataclasses.replace(OPT_LEVELS[opt_level], **clean)
 
 
+#: the element types the training path's kernels take
+TRAIN_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
 def check_ported(policy: Policy) -> None:
-    """Raise for a policy the port cannot run: fp16 parameters or compute
-    (the training path's kernels have no fp16 instances yet).  Any loss
-    scale runs."""
-    if torch.float16 in (policy.param_dtype, policy.compute_dtype):
+    """Raise for a policy the port cannot train: a parameter or compute
+    dtype its kernels do not take.  Every opt level O0-O5 trains, with any
+    loss scale."""
+    for name in ("param_dtype", "compute_dtype"):
+        dtype = getattr(policy, name)
+        if dtype not in TRAIN_DTYPES:
+            raise NotImplementedError(
+                f"opt level {policy.opt_level}: {name} {dtype} is not one "
+                f"of the kernels' {TRAIN_DTYPES}")
+
+
+def check_serving(compute_dtype: torch.dtype) -> None:
+    """Raise ``NotImplementedError`` for serving at an fp16 compute dtype
+    (a model built at O1-O3): the paged decode kernel, the dequantizing
+    matmuls and the Gumbel-max sampler have no fp16 instances, ROADMAP.md
+    queue A item A5b."""
+    if compute_dtype == torch.float16:
         raise NotImplementedError(
-            f"opt level {policy.opt_level}: fp16 parameters or compute are "
-            "not ported yet (ROADMAP.md queue A item 5, its remainder: fp16 "
-            "instances of the layer norm, attention and dropout kernels); "
-            "O0, O4 and O5 run, with any loss scale")
+            "serving at an fp16 compute dtype (opt levels O1-O3) is not "
+            "ported yet: ROADMAP.md queue A item A5b: fp16 serving (fp16 "
+            "instances of the paged decode kernel, the dequant matmuls and "
+            "gumbel_argmax); train at O1-O3, serve in bf16 (O4/O5) or fp32")

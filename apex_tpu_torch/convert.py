@@ -34,7 +34,9 @@ the JAX side), so neither package imports the other.  bf16 leaves (O5)
 are ``ml_dtypes.bfloat16`` arrays in numpy, which ``torch.from_numpy``
 rejects: they cross as their 16-bit patterns, so they too are copied bit
 for bit (``ml_dtypes``, which JAX installs, is imported only to hand a
-bf16 tensor back).
+bf16 tensor back).  fp16 leaves (the O1-O3 trees: fp16 weights, fp32 norms
+at O2) are numpy's own float16 and cross as they are, bit for bit, as do
+the fp32 masters of their optimizer state.
 
 The optimizer state of the fused optimizers (``{"step", "exp_avg",
 "exp_avg_sq", "master"}``, each moment and master a tree shaped like the

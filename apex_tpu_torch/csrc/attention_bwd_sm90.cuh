@@ -1,14 +1,15 @@
-// The bf16 attention backward for Hopper (sm_90a): TMA loads, a producer
-// warpgroup and consumer warpgroups, wgmma products with the scores, the
-// score gradients and the accumulated gradients in registers.  The short
-// and mid entries (attention_common.cuh's attn::bwd) launch both kernels
-// for bf16 inputs, after the delta pass, and the flash entries
-// (attention_flash.cu's flash_bwd_dkv and flash_bwd_dq) one each, with the
-// caller's delta; their fp32 instances keep SIMT FMA kernels in those
-// files (wgmma has no fp32 form, and TF32 would break the fp32 parity
-// that Precision.HIGHEST asks for).
+// The bf16 and fp16 attention backward for Hopper (sm_90a): TMA loads, a
+// producer warpgroup and consumer warpgroups, wgmma products with the
+// scores, the score gradients and the accumulated gradients in registers.
+// The short and mid entries (attention_common.cuh's attn::bwd) launch both
+// kernels for bf16 and fp16 inputs, after the delta pass, and the flash
+// entries (attention_flash.cu's flash_bwd_dkv and flash_bwd_dq) one each,
+// with the caller's delta; their fp32 instances keep SIMT FMA kernels in
+// those files (wgmma has no fp32 form, and TF32 would break the fp32
+// parity that Precision.HIGHEST asks for).  The element type T (bf16 or
+// fp16) is a template parameter, with the forward's Elem<T> conversions.
 //
-// Replaces, for bf16 inputs:
+// Replaces, for bf16 and fp16 inputs:
 //   apex_tpu/ops/attention_short.py::_short_bwd_kernel (:215, call :444)
 //   apex_tpu/ops/attention_mid.py::_mid_bwd_kernel     (:308, call :639)
 //   apex_tpu/ops/attention.py::_fa_bwd_dkv_kernel      (:429, call :673)
@@ -20,8 +21,12 @@
 // scale (+ bias) in fp32, p = exp(s - lse) with masked pairs exactly 0, dz
 // = p * (dp - delta), where delta = rowsum(dO * O) - dlse comes from the
 // delta pass; with dropout dV takes the dropped, scaled p and dz the
-// dropped, scaled dp; p and dz * scale are rounded to bf16 as the
-// operands of dV, dK and dQ.  Causal is top-left aligned (key <= query
+// dropped, scaled dp; p and dz * scale are rounded to T as the
+// operands of dV, dK and dQ.  In fp16 that rounding is where the range
+// ends: dz scales with the loss scale, and a dz * scale past 65504 becomes
+// inf (round to nearest, no saturation), reaches dQ/dK and makes the
+// scaler skip the step, as the plain versions' fp16 rounding of the same
+// operand does.  Causal is top-left aligned (key <= query
 // by index); sq and sk need not be multiples of a tile; query rows at or
 // past sq stay out of dK/dV.
 // The variants are template flags with the predicates of
@@ -53,7 +58,7 @@
 //    8-byte load), and every index of a (query, key) pair is swapped: the
 //    hash drop_keep(dr, hrow, qi, kj), the causal test kj <= qi, the ids
 //    kid[row] == qid[col], the bias element bslab[qi * sk + kj].  P^T (the
-//    dropped, scaled p) and dz^T * scale are converted to bf16 in registers
+//    dropped, scaled p) and dz^T * scale are converted to T in registers
 //    as the register A operand of dV += P^T . dO and dK += dz^T . Q, with
 //    dO and Q read MN-major through the descriptor's transpose bit (as the
 //    forward reads V).  dV is issued as soon as P^T is packed and runs
@@ -222,9 +227,9 @@ struct BwdParams {
   const int* kv_ids;    // (bh / heads, sk) int32, with SEGS
   const float* lse;     // (bh, sq): the dQ kernel reads its rows' here
   const float* delta;   // (bh, sq)
-  bf16* dq;             // (bh, sq, D)
-  bf16* dk;             // (bh, sk, D)
-  bf16* dv;             // (bh, sk, D)
+  void* dq;             // (bh, sq, D) of the inputs' type
+  void* dk;             // (bh, sk, D)
+  void* dv;             // (bh, sk, D)
   float* dbias;         // (bh, sq, sk) fp32, zero-filled, with DBIAS
   int heads, sq, sk, causal;
   float scale;
@@ -235,22 +240,22 @@ struct BwdParams {
 // The K-major k-steps of an m64 x N x D product: D / 16 steps of 16
 // columns, 32 bytes apart in a 128-byte slab row, slabs A_SLAB and B_SLAB
 // bytes apart.  accumulate = 0 on the first step overwrites d.
-template <int N, int D, int A_SLAB, int B_SLAB>
+template <typename T, int N, int D, int A_SLAB, int B_SLAB>
 __device__ __forceinline__ void product_kmajor(float (&d)[N / 2], uint64_t da,
                                                uint64_t db) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint64_t a = ((kk / 4) * (uint64_t)A_SLAB + (kk % 4) * 32) >> 4;
     const uint64_t b = ((kk / 4) * (uint64_t)B_SLAB + (kk % 4) * 32) >> 4;
-    wgmma_ss<N>(d, da + a, db + b, kk > 0);
+    wgmma_ss<T, N>(d, da + a, db + b, kk > 0);
   }
 }
 
-// d += A . B over kBT rows of k: A the bf16 fragments in registers (the
+// d += A . B over kBT rows of k: A the T fragments in registers (the
 // packed accumulator of a 64 x kBT tile), B a kBT x D tile read MN-major
 // (transpose bit; 16 rows of 128 bytes a k-step, the two 64-column slabs
 // of d = 128 LBO apart in the descriptor).
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void product_rs(float (&d)[D / 2],
                                            const uint32_t (&a)[kBT / 4],
                                            uint64_t db) {
@@ -258,18 +263,18 @@ __device__ __forceinline__ void product_rs(float (&d)[D / 2],
   for (int kk = 0; kk < kBT / 16; ++kk) {
     const uint32_t f[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
                            a[4 * kk + 3]};
-    wgmma_rs<D>(d, f, db + ((kk * 2048) >> 4));
+    wgmma_rs<T, D>(d, f, db + ((kk * 2048) >> 4));
   }
 }
 
 // ------------------------------------------------------------ dK/dV kernel
 
 // p of a (key, query) tile held in S (the accumulator of S^T = K . Q^T),
-// in place, and P, the dropped and scaled p as bf16 A fragments of dV +=
+// in place, and P, the dropped and scaled p as T A fragments of dV +=
 // P^T . dO; keep collects the thread's kept pairs (DROP).  Element i of S
 // is key kj[(i >> 1) & 1] and query q0 + 8 (i >> 2) + c0 + (i & 1); qids
 // are the query tile's ids (tile_ids).
-template <bool MASK, bool SEGS, bool DROP, bool BIAS>
+template <typename T, bool MASK, bool SEGS, bool DROP, bool BIAS>
 __device__ __forceinline__ void dkv_probs(
     float (&S)[kBT / 2], const float (&bv)[kBT / 2], uint32_t (&P)[kBT / 4],
     uint32_t& keep, const float* lse_s, const int (&kj)[2],
@@ -307,14 +312,14 @@ __device__ __forceinline__ void dkv_probs(
           v[e] = kept ? pr * p.dr.inv_keep : 0.0f;
         }
       }
-      P[2 * j + r] = pack_bf16(v[0], v[1]);
+      P[2 * j + r] = pack2<T>(v[0], v[1]);
     }
   }
 }
 
 // dz = p * (dp - delta) of the same tile, dp dropped and scaled where DROP
-// dropped p, and Z = dz * scale as bf16 A fragments of dK += dz^T . Q.
-template <bool DROP>
+// dropped p, and Z = dz * scale as T A fragments of dK += dz^T . Q.
+template <typename T, bool DROP>
 __device__ __forceinline__ void dkv_dz(const float (&S)[kBT / 2],
                                        const float (&dP)[kBT / 2],
                                        uint32_t (&Z)[kBT / 4], uint32_t keep,
@@ -335,14 +340,14 @@ __device__ __forceinline__ void dkv_dz(const float (&S)[kBT / 2],
         }
         v[e] = S[i] * (dp - (e ? dl.y : dl.x)) * p.scale;
       }
-      Z[2 * j + r] = pack_bf16(v[0], v[1]);
+      Z[2 * j + r] = pack2<T>(v[0], v[1]);
     }
   }
 }
 
-// q, k, v, dout: the tensor maps of (bh, sq|sk, D) bf16; grid (bh, key
+// q, k, v, dout: the tensor maps of (bh, sq|sk, D) T; grid (bh, key
 // tiles).
-template <int D, int NC, bool SEGS, bool DROP, bool BIAS>
+template <typename T, int D, int NC, bool SEGS, bool DROP, bool BIAS>
 __global__ void __launch_bounds__(DkvSmem<D, NC>::THREADS, NC == 1 ? 2 : 1)
 bwd_dkv_kernel(__grid_constant__ const CUtensorMap tq,
                __grid_constant__ const CUtensorMap tk,
@@ -481,10 +486,10 @@ bwd_dkv_kernel(__grid_constant__ const CUtensorMap tq,
         // S^T = K . Q^T and dP^T = V . dO^T, one commit group each
         float S[kBT / 2], dP[kBT / 2];
         wgmma_fence();
-        product_kmajor<kBT, D, L::K_SLAB, L::Q_SLAB>(
+        product_kmajor<T, kBT, D, L::K_SLAB, L::Q_SLAB>(
             S, desc_k, gmma_desc(qa, 16, 1024));
         wgmma_commit();
-        product_kmajor<kBT, D, L::K_SLAB, L::Q_SLAB>(
+        product_kmajor<T, kBT, D, L::K_SLAB, L::Q_SLAB>(
             dP, desc_v, gmma_desc(doa, 16, 1024));
         wgmma_commit();
         // the tile's query ids and the bias of the thread's pairs, read
@@ -507,25 +512,25 @@ bwd_dkv_kernel(__grid_constant__ const CUtensorMap tq,
         uint32_t P[kBT / 4];
         uint32_t keep = 0;
         if (masked) {
-          dkv_probs<true, SEGS, DROP, BIAS>(S, bv, P, keep, lse_s, kj, kid,
-                                            qids, q0, c0, hrow, p);
+          dkv_probs<T, true, SEGS, DROP, BIAS>(S, bv, P, keep, lse_s, kj,
+                                               kid, qids, q0, c0, hrow, p);
         } else {
-          dkv_probs<false, SEGS, DROP, BIAS>(S, bv, P, keep, lse_s, kj, kid,
-                                             qids, q0, c0, hrow, p);
+          dkv_probs<T, false, SEGS, DROP, BIAS>(S, bv, P, keep, lse_s, kj,
+                                                kid, qids, q0, c0, hrow, p);
         }
         // dV += P^T . dO, running while dz is formed
         fence_regs(dV);
         wgmma_fence();
-        product_rs<D>(dV, P, gmma_desc(doa, L::Q_SLAB, 1024));
+        product_rs<T, D>(dV, P, gmma_desc(doa, L::Q_SLAB, 1024));
         wgmma_commit();
         wgmma_wait_one();   // dP^T has landed; dV may still run
         fence_regs(dP);
 
         uint32_t Z[kBT / 4];
-        dkv_dz<DROP>(S, dP, Z, keep, delta_s, c0, p);
+        dkv_dz<T, DROP>(S, dP, Z, keep, delta_s, c0, p);
         fence_regs(dK);
         wgmma_fence();
-        product_rs<D>(dK, Z, gmma_desc(qa, L::Q_SLAB, 1024));
+        product_rs<T, D>(dK, Z, gmma_desc(qa, L::Q_SLAB, 1024));
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(dV);
@@ -540,13 +545,14 @@ bwd_dkv_kernel(__grid_constant__ const CUtensorMap tq,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (kj[r] >= p.sk) continue;
+      using T2 = typename Elem<T>::T2;
       const long at = (bh * p.sk + kj[r]) * D + c0;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
-        *reinterpret_cast<__nv_bfloat162*>(p.dk + at + 8 * j) =
-            __floats2bfloat162_rn(dK[4 * j + 2 * r], dK[4 * j + 2 * r + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(p.dv + at + 8 * j) =
-            __floats2bfloat162_rn(dV[4 * j + 2 * r], dV[4 * j + 2 * r + 1]);
+        *reinterpret_cast<T2*>(static_cast<T*>(p.dk) + at + 8 * j) =
+            Elem<T>::pair(dK[4 * j + 2 * r], dK[4 * j + 2 * r + 1]);
+        *reinterpret_cast<T2*>(static_cast<T*>(p.dv) + at + 8 * j) =
+            Elem<T>::pair(dV[4 * j + 2 * r], dV[4 * j + 2 * r + 1]);
       }
     }
   }
@@ -591,8 +597,8 @@ __device__ __forceinline__ void dq_probs(float (&S)[kBT / 2],
 
 // dz = p * (dp - delta), dp dropped and scaled (DROP); with DBIAS dz is
 // stored unscaled to the rows dbrow[r] (rows below sq, keys below sk); Z =
-// dz * scale as bf16 A fragments of dQ += dz . K.
-template <bool DROP, bool DBIAS>
+// dz * scale as T A fragments of dQ += dz . K.
+template <typename T, bool DROP, bool DBIAS>
 __device__ __forceinline__ void dq_dz(const float (&S)[kBT / 2],
                                       const float (&dP)[kBT / 2],
                                       uint32_t (&Z)[kBT / 4],
@@ -627,14 +633,15 @@ __device__ __forceinline__ void dq_dz(const float (&S)[kBT / 2],
           }
         }
       }
-      Z[2 * j + r] = pack_bf16(v[0] * p.scale, v[1] * p.scale);
+      Z[2 * j + r] = pack2<T>(v[0] * p.scale, v[1] * p.scale);
     }
   }
 }
 
-// q, k, v, dout: the tensor maps of (bh, sq|sk, D) bf16; grid (bh, query
+// q, k, v, dout: the tensor maps of (bh, sq|sk, D) T; grid (bh, query
 // tiles).
-template <int D, int NC, bool SEGS, bool DROP, bool BIAS, bool DBIAS>
+template <typename T, int D, int NC, bool SEGS, bool DROP, bool BIAS,
+          bool DBIAS>
 __global__ void __launch_bounds__(DqSmem<D, NC>::THREADS, NC == 1 ? 2 : 1)
 bwd_dq_kernel(__grid_constant__ const CUtensorMap tq,
               __grid_constant__ const CUtensorMap tk,
@@ -764,10 +771,10 @@ bwd_dq_kernel(__grid_constant__ const CUtensorMap tq,
 
         float S[kBT / 2], dP[kBT / 2];
         wgmma_fence();
-        product_kmajor<kBT, D, L::Q_SLAB, L::K_SLAB>(
+        product_kmajor<T, kBT, D, L::Q_SLAB, L::K_SLAB>(
             S, desc_q, gmma_desc(ka, 16, 1024));
         wgmma_commit();
-        product_kmajor<kBT, D, L::Q_SLAB, L::K_SLAB>(
+        product_kmajor<T, kBT, D, L::Q_SLAB, L::K_SLAB>(
             dP, desc_do, gmma_desc(va, 16, 1024));
         wgmma_commit();
         // the tile's key ids and the bias of the thread's pairs, read while
@@ -806,11 +813,12 @@ bwd_dq_kernel(__grid_constant__ const CUtensorMap tq,
         fence_regs(dP);
 
         uint32_t Z[kBT / 4];
-        dq_dz<DROP, DBIAS>(S, dP, Z, qi, dl, dbrow, pairs, k0, c0, hrow, p);
+        dq_dz<T, DROP, DBIAS>(S, dP, Z, qi, dl, dbrow, pairs, k0, c0, hrow,
+                              p);
         // dQ += dz . K: K read MN-major
         fence_regs(dQ);
         wgmma_fence();
-        product_rs<D>(dQ, Z, gmma_desc(ka, L::K_SLAB, 1024));
+        product_rs<T, D>(dQ, Z, gmma_desc(ka, L::K_SLAB, 1024));
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(dQ);
@@ -823,11 +831,11 @@ bwd_dq_kernel(__grid_constant__ const CUtensorMap tq,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (qi[r] >= p.sq) continue;
-      bf16* o = p.dq + (bh * p.sq + qi[r]) * D + c0;
+      T* o = static_cast<T*>(p.dq) + (bh * p.sq + qi[r]) * D + c0;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
-        *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
-            __floats2bfloat162_rn(dQ[4 * j + 2 * r], dQ[4 * j + 2 * r + 1]);
+        *reinterpret_cast<typename Elem<T>::T2*>(o + 8 * j) =
+            Elem<T>::pair(dQ[4 * j + 2 * r], dQ[4 * j + 2 * r + 1]);
       }
     }
   }
@@ -837,8 +845,9 @@ bwd_dq_kernel(__grid_constant__ const CUtensorMap tq,
 
 // The dK/dV kernel of (bh, sq, D) q and dout against (bh, sk, D) k and v,
 // NC consumer warpgroups (64 * NC keys) a block; lse and delta (bh, sq)
-// fp32, delta = rowsum(dO * O) - dlse (attn_delta_kernel).
-template <int D, int NC, bool SEGS, bool DROP, bool BIAS>
+// fp32, delta = rowsum(dO * O) - dlse (attn_delta_kernel); T bf16 (the
+// default) or fp16.
+template <int D, int NC, bool SEGS, bool DROP, bool BIAS, typename T = bf16>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const BwdParams& prm, int bh,
                        cudaStream_t stream) {
@@ -847,17 +856,17 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   const int tiles = (prm.sk + L::KB - 1) / L::KB;
   if (tiles > 65535) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv, tdo;
-  if (!encode_map(&tq, q, D, prm.sq, bh, kBT) ||
-      !encode_map(&tk, k, D, prm.sk, bh, L::KB) ||
-      !encode_map(&tv, v, D, prm.sk, bh, L::KB) ||
-      !encode_map(&tdo, dout, D, prm.sq, bh, kBT)) {
+  if (!encode_map<T>(&tq, q, D, prm.sq, bh, kBT) ||
+      !encode_map<T>(&tk, k, D, prm.sk, bh, L::KB) ||
+      !encode_map<T>(&tv, v, D, prm.sk, bh, L::KB) ||
+      !encode_map<T>(&tdo, dout, D, prm.sq, bh, kBT)) {
     return cudaErrorInvalidValue;
   }
   static bool opted = false;
   cudaError_t err =
-      opt_in(bwd_dkv_kernel<D, NC, SEGS, DROP, BIAS>, L::BYTES, &opted);
+      opt_in(bwd_dkv_kernel<T, D, NC, SEGS, DROP, BIAS>, L::BYTES, &opted);
   if (err != cudaSuccess) return err;
-  bwd_dkv_kernel<D, NC, SEGS, DROP, BIAS>
+  bwd_dkv_kernel<T, D, NC, SEGS, DROP, BIAS>
       <<<dim3(bh, tiles), L::THREADS, L::BYTES, stream>>>(tq, tk, tv, tdo,
                                                           prm);
   return cudaGetLastError();
@@ -865,8 +874,9 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 // The dQ kernel, NC consumer warpgroups (64 * NC query rows) a block; with
 // DBIAS prm.dbias is the zero-filled (bh, sq, sk) fp32 gradient of the
-// biased scores.
-template <int D, int NC, bool SEGS, bool DROP, bool BIAS, bool DBIAS>
+// biased scores.  T bf16 (the default) or fp16.
+template <int D, int NC, bool SEGS, bool DROP, bool BIAS, bool DBIAS,
+          typename T = bf16>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const BwdParams& prm, int bh,
                       cudaStream_t stream) {
@@ -875,41 +885,40 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   const int tiles = (prm.sq + L::QB - 1) / L::QB;
   if (tiles > 65535) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv, tdo;
-  if (!encode_map(&tq, q, D, prm.sq, bh, L::QB) ||
-      !encode_map(&tk, k, D, prm.sk, bh, kBT) ||
-      !encode_map(&tv, v, D, prm.sk, bh, kBT) ||
-      !encode_map(&tdo, dout, D, prm.sq, bh, L::QB)) {
+  if (!encode_map<T>(&tq, q, D, prm.sq, bh, L::QB) ||
+      !encode_map<T>(&tk, k, D, prm.sk, bh, kBT) ||
+      !encode_map<T>(&tv, v, D, prm.sk, bh, kBT) ||
+      !encode_map<T>(&tdo, dout, D, prm.sq, bh, L::QB)) {
     return cudaErrorInvalidValue;
   }
   static bool opted = false;
-  cudaError_t err = opt_in(bwd_dq_kernel<D, NC, SEGS, DROP, BIAS, DBIAS>,
+  cudaError_t err = opt_in(bwd_dq_kernel<T, D, NC, SEGS, DROP, BIAS, DBIAS>,
                            L::BYTES, &opted);
   if (err != cudaSuccess) return err;
-  bwd_dq_kernel<D, NC, SEGS, DROP, BIAS, DBIAS>
+  bwd_dq_kernel<T, D, NC, SEGS, DROP, BIAS, DBIAS>
       <<<dim3(bh, tiles), L::THREADS, L::BYTES, stream>>>(tq, tk, tv, tdo,
                                                           prm);
   return cudaGetLastError();
 }
 
-// Both kernels of the bf16 backward, after the delta pass; dbias: null, or
-// with DBIAS the zero-filled (bh, sq, sk) fp32 gradient of the biased
-// scores.
-template <int D, int NC, bool SEGS, bool DROP, bool BIAS, bool DBIAS>
+// Both kernels of the bf16 or fp16 (T) backward, after the delta pass;
+// dbias: null, or with DBIAS the zero-filled (bh, sq, sk) fp32 gradient of
+// the biased scores.
+template <int D, int NC, bool SEGS, bool DROP, bool BIAS, bool DBIAS,
+          typename T = bf16>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* dout, const int* q_ids, const int* kv_ids,
                        const float* lse, const float* delta, void* dq,
                        void* dk, void* dv, float* dbias, int bh, int heads,
                        int sq, int sk, int causal, float scale, Dropout dr,
                        Bias bias, cudaStream_t stream) {
-  const BwdParams prm{q_ids, kv_ids, lse, delta,
-                      static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-                      static_cast<bf16*>(dv), dbias, heads, sq, sk, causal,
-                      scale, dr, bias};
+  const BwdParams prm{q_ids, kv_ids, lse, delta, dq, dk, dv, dbias, heads,
+                      sq, sk, causal, scale, dr, bias};
   const cudaError_t err =
-      launch_dkv<D, NC, SEGS, DROP, BIAS>(q, k, v, dout, prm, bh, stream);
+      launch_dkv<D, NC, SEGS, DROP, BIAS, T>(q, k, v, dout, prm, bh, stream);
   if (err != cudaSuccess) return err;
-  return launch_dq<D, NC, SEGS, DROP, BIAS, DBIAS>(q, k, v, dout, prm, bh,
-                                                   stream);
+  return launch_dq<D, NC, SEGS, DROP, BIAS, DBIAS, T>(q, k, v, dout, prm, bh,
+                                                      stream);
 }
 
 }  // namespace

@@ -11,7 +11,7 @@
 // axis); here both rungs compute the same function the same way, so they
 // run one set of kernels behind separate entries, counters and checks.
 //
-// Forward: bf16 inputs run the Hopper kernel of attention_fwd_sm90.cuh
+// Forward: bf16 and fp16 inputs run the Hopper kernel of attention_fwd_sm90.cuh
 // (TMA, a producer warp and consumer warpgroups, wgmma with the scores and
 // the output in registers), in this rung's rounding order, s = (q . k) *
 // scale.  fp32 inputs run attn_fwd_kernel below: one block per
@@ -34,10 +34,10 @@
 //      dV += p^T dO and dK += (dz * scale)^T Q;
 //   3. a dQ kernel: one block per (batch*head, query tile).  It walks the
 //      key tiles up to the diagonal and accumulates dQ += (dz * scale) K.
-// bf16 inputs run the Hopper kernels of attention_bwd_sm90.cuh
+// bf16 and fp16 inputs run the Hopper kernels of attention_bwd_sm90.cuh
 // (sm90::bwd_dkv_kernel, sm90::bwd_dq_kernel: TMA, a producer warpgroup
 // and consumer warpgroups, wgmma with every tile product in registers,
-// p and dz * scale rounded to bf16 as their operands, where the TPU's
+// p and dz * scale rounded to bf16 or fp16 as their operands, where the TPU's
 // default precision rounds them); fp32 inputs run attn_bwd_dkv_kernel and
 // attn_bwd_dq_kernel below.  Both the forward and the backward scale the
 // product, s = (q . k) * scale, as _short_fwd_kernel (:176) and
@@ -98,6 +98,12 @@
 // H100's ~295 flop/byte bf16 balance point; the backward does 2.5x the
 // flops over 2x the bytes and is bound by operations.  The bf16 designs
 // are in attention_fwd_sm90.cuh and attention_bwd_sm90.cuh.
+
+// The element types, one a library: a source built with ATTN_F16 defined
+// (attention_*_f16.cu) holds the fp16 instances only (dtype 2), one with
+// ATTN_F32 (attention_*_f32.cu) the fp32 ones (0), and the plain source
+// the bf16 ones (1).  The build runs one nvcc a source, all at once, so
+// its wall is about that of the heaviest third.
 
 #pragma once
 
@@ -557,7 +563,7 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ------------------------------------------------------------------ launch
 
-// bf16: the Hopper forward of attention_fwd_sm90.cuh, with ATTN_FWD_WARPGROUPS
+// bf16/fp16: the Hopper forward of attention_fwd_sm90.cuh, with ATTN_FWD_WARPGROUPS
 // consumer warpgroups (64 query rows each) and the short/mid rounding order
 // ((q . k) * scale); fp32: attn_fwd_kernel.
 template <typename T, int D, bool SEGS, bool DROP, bool BIAS>
@@ -567,7 +573,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        int causal, float scale, Dropout dr, Bias bias,
                        cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
-    return sm90::launch<D, ATTN_FWD_WARPGROUPS, SEGS, DROP, BIAS, false>(
+    return sm90::launch<D, ATTN_FWD_WARPGROUPS, SEGS, DROP, BIAS, false, T>(
         q, k, v, q_ids, kv_ids, out, lse, bh, heads, sq, sk, causal, scale,
         dr, bias, stream);
   } else {
@@ -586,7 +592,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   }
 }
 
-// The delta pass, then bf16: the dK/dV and dQ kernels of
+// The delta pass, then bf16/fp16: the dK/dV and dQ kernels of
 // attention_bwd_sm90.cuh with ATTN_BWD_WARPGROUPS consumer warpgroups (64
 // keys or query rows each); fp32: attn_bwd_dkv_kernel, attn_bwd_dq_kernel.
 template <typename T, int D, bool SEGS, bool DROP, bool BIAS, bool DBIAS>
@@ -605,7 +611,8 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if constexpr (sizeof(T) == 2) {
-    return sm90::launch_bwd<D, ATTN_BWD_WARPGROUPS, SEGS, DROP, BIAS, DBIAS>(
+    return sm90::launch_bwd<D, ATTN_BWD_WARPGROUPS, SEGS, DROP, BIAS, DBIAS,
+                            T>(
         q, k, v, dout, q_ids, kv_ids, lse, delta, dq, dk, dv, dbias, bh,
         heads, sq, sk, causal, scale, dr, bias, stream);
   } else {
@@ -641,7 +648,8 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   }
 }
 
-// dtype: 0 = fp32, 1 = bf16; head dims 64 and 128.  q_ids/kv_ids: both
+// dtype: 0 = fp32, 1 = bf16, 2 = fp16, each taken by its own build (ATTN_F32,
+// the plain source, ATTN_F16); head dims 64 and 128.  q_ids/kv_ids: both
 // null (no segment ids) or (bh / heads, sq) and (bh / heads, sk) int32.
 // dr.inv_keep == 0: no dropout.  bias.ptr null: no bias; dbias null (the
 // backward): no dBias.  Each (dtype, d) has eight instances, with and
@@ -658,11 +666,19 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   }                                                                   \
   if (drop) return ATTN_BIAS(CALL, T, D, false, true);                \
   return ATTN_BIAS(CALL, T, D, false, false)
-#define ATTN_DISPATCH(CALL)                                         \
-  if (dtype == 0 && d == 128) { ATTN_DISPATCH_TD(CALL, float, 128); } \
-  if (dtype == 0 && d == 64) { ATTN_DISPATCH_TD(CALL, float, 64); }   \
-  if (dtype == 1 && d == 128) { ATTN_DISPATCH_TD(CALL, bf16, 128); }  \
-  if (dtype == 1 && d == 64) { ATTN_DISPATCH_TD(CALL, bf16, 64); }    \
+#if defined(ATTN_F16)
+#define ATTN_DTYPE 2
+#define ATTN_T f16
+#elif defined(ATTN_F32)
+#define ATTN_DTYPE 0
+#define ATTN_T float
+#else
+#define ATTN_DTYPE 1
+#define ATTN_T bf16
+#endif
+#define ATTN_DISPATCH(CALL)                                              \
+  if (dtype == ATTN_DTYPE && d == 128) { ATTN_DISPATCH_TD(CALL, ATTN_T, 128); } \
+  if (dtype == ATTN_DTYPE && d == 64) { ATTN_DISPATCH_TD(CALL, ATTN_T, 64); }   \
   return cudaErrorInvalidValue
 
 inline cudaError_t fwd(const void* q, const void* k, const void* v,

@@ -145,6 +145,7 @@ namespace flash {
 namespace {
 
 using attn::bf16;
+using attn::f16;
 using attn::round_up;
 
 constexpr int kRows = attn::kRows;   // rows of a tile each warp owns (16)
@@ -757,7 +758,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ------------------------------------------------------------------ launch
 
-// bf16: the Hopper forward of attention_fwd_sm90.cuh, 128 query rows a
+// bf16/fp16: the Hopper forward of attention_fwd_sm90.cuh, 128 query rows a
 // block (two consumer warpgroups), q scaled and rounded before the product
 // (QSCALE); fp32: flash_fwd_kernel.
 template <typename T, int D, bool SEGS, bool DROP, bool BIAS>
@@ -767,7 +768,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        int causal, float scale, attn::Dropout dr,
                        attn::Bias bias, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
-    return attn::sm90::launch<D, 2, SEGS, DROP, BIAS, true>(
+    return attn::sm90::launch<D, 2, SEGS, DROP, BIAS, true, T>(
         q, k, v, q_ids, kv_ids, out, lse, bh, heads, sq, sk, causal, scale,
         dr, bias, stream);
   } else {
@@ -788,7 +789,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   }
 }
 
-// bf16: the dK/dV kernel of attention_bwd_sm90.cuh, kBwdWarpgroups
+// bf16/fp16: the dK/dV kernel of attention_bwd_sm90.cuh, kBwdWarpgroups
 // consumer warpgroups (64 keys each) a block, with the caller's delta and
 // no dQ; fp32: flash_bwd_dkv_kernel.
 template <typename T, int D, bool SEGS, bool DROP, bool BIAS>
@@ -800,10 +801,9 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        attn::Bias bias, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
     const attn::sm90::BwdParams prm{
-        q_ids, kv_ids, lse, delta, nullptr, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), nullptr, heads, sq, sk, causal, scale, dr,
-        bias};
-    return attn::sm90::launch_dkv<D, kBwdWarpgroups, SEGS, DROP, BIAS>(
+        q_ids, kv_ids, lse, delta, nullptr, dk, dv, nullptr, heads, sq, sk,
+        causal, scale, dr, bias};
+    return attn::sm90::launch_dkv<D, kBwdWarpgroups, SEGS, DROP, BIAS, T>(
         q, k, v, dout, prm, bh, stream);
   } else {
     using L = DkvTiles<D>;
@@ -824,7 +824,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   }
 }
 
-// bf16: the dQ kernel of attention_bwd_sm90.cuh, kBwdWarpgroups consumer
+// bf16/fp16: the dQ kernel of attention_bwd_sm90.cuh, kBwdWarpgroups consumer
 // warpgroups (64 query rows each) a block, with DBIAS storing into the
 // caller's zero-filled dbias; fp32: flash_bwd_dq_kernel.
 template <typename T, int D, bool SEGS, bool DROP, bool BIAS, bool DBIAS>
@@ -836,9 +836,10 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       attn::Bias bias, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
     const attn::sm90::BwdParams prm{
-        q_ids, kv_ids, lse, delta, static_cast<bf16*>(dq), nullptr, nullptr,
-        dbias, heads, sq, sk, causal, scale, dr, bias};
-    return attn::sm90::launch_dq<D, kBwdWarpgroups, SEGS, DROP, BIAS, DBIAS>(
+        q_ids, kv_ids, lse, delta, dq, nullptr, nullptr, dbias, heads, sq, sk,
+        causal, scale, dr, bias};
+    return attn::sm90::launch_dq<D, kBwdWarpgroups, SEGS, DROP, BIAS, DBIAS,
+                                 T>(
         q, k, v, dout, prm, bh, stream);
   } else {
     using L = DqTiles<D>;
@@ -866,7 +867,9 @@ bool bad_shape(int bh, int sq, int sk) {
 }  // namespace
 }  // namespace flash
 
-// dtype: 0 = fp32, 1 = bf16; head dims 64 and 128; q_ids/kv_ids both null
+// dtype: 0 = fp32, 1 = bf16, 2 = fp16, each taken by its own build
+// (attention_flash_f32.cu with ATTN_F32, this source, attention_flash_f16.cu
+// with ATTN_F16); head dims 64 and 128; q_ids/kv_ids both null
 // or (bh / heads, sq) and (bh / heads, sk) int32 segment ids; bias null or
 // fp32, the (sq, sk) slab of row bh = b_i * heads + h_i at b_i *
 // bias_stride_b + h_i * bias_stride_h (0 on a broadcast dim); seed,
@@ -899,11 +902,23 @@ bool bad_shape(int bh, int sq, int sk) {
   const bool emit = (DBIAS) != nullptr;                                    \
   const attn::Dropout dr{seed, keep_threshold, inv_keep};                  \
   const attn::Bias bs{bias, bias_stride_b, bias_stride_h};                 \
-  if (dtype == 0 && d == 128) { FLASH_DISPATCH_TD(CALL, float, 128); }     \
-  if (dtype == 0 && d == 64) { FLASH_DISPATCH_TD(CALL, float, 64); }       \
-  if (dtype == 1 && d == 128) { FLASH_DISPATCH_TD(CALL, flash::bf16, 128); } \
-  if (dtype == 1 && d == 64) { FLASH_DISPATCH_TD(CALL, flash::bf16, 64); } \
+  if (dtype == FLASH_DTYPE && d == 128) {                                  \
+    FLASH_DISPATCH_TD(CALL, FLASH_T, 128);                                 \
+  }                                                                        \
+  if (dtype == FLASH_DTYPE && d == 64) {                                   \
+    FLASH_DISPATCH_TD(CALL, FLASH_T, 64);                                  \
+  }                                                                        \
   return cudaErrorInvalidValue
+#if defined(ATTN_F16)
+#define FLASH_DTYPE 2
+#define FLASH_T flash::f16
+#elif defined(ATTN_F32)
+#define FLASH_DTYPE 0
+#define FLASH_T float
+#else
+#define FLASH_DTYPE 1
+#define FLASH_T flash::bf16
+#endif
 
 extern "C" {
 

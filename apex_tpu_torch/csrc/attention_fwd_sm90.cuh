@@ -1,12 +1,18 @@
-// The bf16 attention forward for Hopper (sm_90a): TMA loads, a producer
-// warpgroup and consumer warpgroups, wgmma products with the scores and
-// the output in registers.  The short, mid (attention_common.cuh's attn::fwd)
-// and flash (attention_flash.cu) entries launch it for bf16 inputs; their
-// fp32 instances keep the SIMT FMA kernels of those files (wgmma has no
-// fp32 form, and TF32 would break the fp32 parity that Precision.HIGHEST
-// asks for).
+// The bf16 and fp16 attention forward for Hopper (sm_90a): TMA loads, a
+// producer warpgroup and consumer warpgroups, wgmma products with the
+// scores and the output in registers.  The short, mid (attention_common.cuh's
+// attn::fwd) and flash (attention_flash.cu) entries launch it for bf16 and
+// fp16 inputs; their fp32 instances keep the SIMT FMA kernels of those
+// files (wgmma has no fp32 form, and TF32 would break the fp32 parity that
+// Precision.HIGHEST asks for).  The element type T is a template parameter
+// (Elem<T>): the products' type string (.bf16 or .f16), the tensor maps'
+// data type and the round-to-nearest conversions of P, the scaled Q and
+// the output.  No conversion saturates: an fp16 value past 65504 becomes
+// inf, as a plain cast gives.  The fp16 instances are built in their own
+// sources (attention_*_f16.cu), so the bf16 ones are the same code as
+// before.
 //
-// Replaces, for bf16 inputs:
+// Replaces, for bf16 and fp16 inputs:
 //   apex_tpu/ops/attention_short.py::_short_fwd_kernel (:149, call :359)
 //   apex_tpu/ops/attention_mid.py::_mid_fwd_kernel     (:213, call :540)
 //   apex_tpu/ops/attention.py::_fa_fwd_kernel          (:213, call :396)
@@ -15,12 +21,12 @@
 // fp32, the online softmax over key tiles (running max m, running sum l,
 // the output rescaled in registers), masked scores the finite -1e30 and
 // masked probabilities exactly 0, l clamped at 1e-30, out = acc / l in
-// bf16, lse = m + log(l) (fp32, natural log) for the unchanged backward
+// T, lse = m + log(l) (fp32, natural log) for the unchanged backward
 // kernels.  Two rounding orders, a template flag (QSCALE):
 //   - short/mid (QSCALE false, _short_fwd_plain): s = (q . k) * scale in
 //     fp32, then + bias;
 //   - flash (QSCALE true, _flash_fwd_plain): q * scale in fp32 rounded to
-//     bf16 before the product (each warpgroup scales its own rows of the Q
+//     T before the product (each warpgroup scales its own rows of the Q
 //     tile in shared memory once it lands), s = (q * scale) . k + bias.
 // The variants are template flags with the predicates of
 // attention_tiles.cuh: SEGS (q_ids[i] == kv_ids[j]; a row that sees no key
@@ -95,6 +101,8 @@
 #include <cuda.h>
 
 #include "attention_tiles.cuh"
+
+#include <type_traits>
 
 namespace attn {
 namespace sm90 {
@@ -198,152 +206,217 @@ __device__ __forceinline__ void warpgroup_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
 }
 
-// m64nNk16 bf16 products with fp32 accumulators: SS reads A and B through
+// m64nNk16 products of T (bf16 or fp16) with fp32 accumulators: SS reads A and B through
 // descriptors (both K-major; accumulate = 0 overwrites d), RS takes A from
 // registers (the four 32-bit A fragments of a 16-wide k block) and B
 // through a descriptor with the transpose bit (MN-major), accumulating.
+// The products' inline PTX, one per shape, with the operand type TY
+// ("bf16" or "f16") spliced into the instruction.
+#define ATTN_WGMMA_SS_N64(TY)                                      \
+  asm volatile(                                                    \
+      "{\n.reg .pred p;\n"                                         \
+      "setp.ne.b32 p, %34, 0;\n"                                   \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "  \
+      "{"                                                          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                           \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                     \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                   \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                     \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                           \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),            \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),            \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),          \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),        \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),        \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),        \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),        \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])         \
+      : "l"(da), "l"(db), "r"(accumulate));
+
+#define ATTN_WGMMA_SS_N128(TY)                                      \
+  asm volatile(                                                     \
+      "{\n.reg .pred p;\n"                                          \
+      "setp.ne.b32 p, %66, 0;\n"                                    \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "  \
+      "{"                                                           \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                            \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                      \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                    \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                    \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                    \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                    \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                    \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                      \
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                            \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),             \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),             \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),           \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),         \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),         \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),         \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),         \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),         \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),         \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),         \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),         \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),         \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),         \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),         \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),         \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])          \
+      : "l"(da), "l"(db), "r"(accumulate));
+
+#define ATTN_WGMMA_RS_N64(TY)                                          \
+  asm volatile(                                                        \
+      "{\n.reg .pred p;\n"                                             \
+      "setp.ne.b32 p, %37, 0;\n"                                       \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "      \
+      "{"                                                              \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                               \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                         \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                       \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                         \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                 \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),              \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),            \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),            \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),            \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),            \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])             \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+
+#define ATTN_WGMMA_RS_N128(TY)                                         \
+  asm volatile(                                                        \
+      "{\n.reg .pred p;\n"                                             \
+      "setp.ne.b32 p, %69, 0;\n"                                       \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "     \
+      "{"                                                              \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                               \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                         \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                       \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                       \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                       \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                       \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                       \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                         \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                 \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),              \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),            \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),            \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),            \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),            \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),            \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),            \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),            \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),            \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),            \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),            \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),            \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),            \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])             \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                            uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  if constexpr (N == 64) {
-    wgmma_ss_n64(d, da, db, accumulate);
+  if constexpr (std::is_same_v<T, f16>) {
+    ATTN_WGMMA_SS_N64("f16");
   } else {
-    wgmma_ss_n128(d, da, db, accumulate);
+    ATTN_WGMMA_SS_N64("bf16");
   }
 }
 
-template <int N>
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  if constexpr (std::is_same_v<T, f16>) {
+    ATTN_WGMMA_SS_N128("f16");
+  } else {
+    ATTN_WGMMA_SS_N128("bf16");
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  if constexpr (std::is_same_v<T, f16>) {
+    ATTN_WGMMA_RS_N64("f16");
+  } else {
+    ATTN_WGMMA_RS_N64("bf16");
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  if constexpr (std::is_same_v<T, f16>) {
+    ATTN_WGMMA_RS_N128("f16");
+  } else {
+    ATTN_WGMMA_RS_N128("bf16");
+  }
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (N == 64) {
+    wgmma_ss_n64<T>(d, da, db, accumulate);
+  } else {
+    wgmma_ss_n128<T>(d, da, db, accumulate);
+  }
+}
+
+template <typename T, int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
   if constexpr (N == 64) {
-    wgmma_rs_n64(d, a, db);
+    wgmma_rs_n64<T>(d, a, db);
   } else {
-    wgmma_rs_n128(d, a, db);
+    wgmma_rs_n128<T>(d, a, db);
   }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+// The element types of the wgmma kernels: the tensor maps' data type, the
+// pair type, and the round-to-nearest conversions (cvt.rn, no
+// .satfinite: an fp16 value past 65504 becomes inf).
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<bf16> {
+  using T2 = __nv_bfloat162;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  __device__ static __forceinline__ T2 pair(float lo, float hi) {
+    return __floats2bfloat162_rn(lo, hi);
+  }
+  __device__ static __forceinline__ float2 unpair(T2 v) {
+    return __bfloat1622float2(v);
+  }
+};
+
+template <>
+struct Elem<f16> {
+  using T2 = __half2;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  __device__ static __forceinline__ T2 pair(float lo, float hi) {
+    return __floats2half2_rn(lo, hi);
+  }
+  __device__ static __forceinline__ float2 unpair(T2 v) {
+    return __half22float2(v);
+  }
+};
+
+// Two values rounded to T, as one 32-bit register (an A fragment half).
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const typename Elem<T>::T2 v = Elem<T>::pair(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
@@ -384,7 +457,7 @@ struct Smem {
 struct Params {
   const int* q_ids;    // (bh / heads, sq) int32, with SEGS
   const int* kv_ids;   // (bh / heads, sk) int32, with SEGS
-  bf16* out;           // (bh, sq, D)
+  void* out;           // (bh, sq, D) of the inputs' type
   float* lse;          // (bh, sq)
   int heads, sq, sk, causal;
   float scale;
@@ -403,11 +476,12 @@ constexpr float kMasked = -2e30f;
 // One consumer warpgroup's softmax over a key tile held in S (the
 // accumulator of S = Q . K^T): scale, bias, the predicate where MASK asks
 // for it, the running max and sum of the thread's two rows qi[0], qi[1],
-// the rescale of O, and P (bf16, dropped) as the A fragments of P . V.
+// the rescale of O, and P (T, dropped) as the A fragments of P . V.
 // Element i of S is row (i >> 1) & 1 and column 8 (i >> 2) + c0 + (i & 1).
 // With a bias, bv holds the tile's values, but on the ragged last key
 // tile (ragged), whose in-range values are read here from bias_rows.
-template <int D, bool MASK, bool SEGS, bool DROP, bool BIAS, bool QSCALE>
+template <typename T, int D, bool MASK, bool SEGS, bool DROP, bool BIAS,
+          bool QSCALE>
 __device__ __forceinline__ void softmax_tile(
     float (&S)[kKT / 2], const float (&bv)[kKT / 2], float (&O)[D / 2],
     uint32_t (&P)[kKT / 4], float (&m)[2], float (&l)[2], const int (&qi)[2],
@@ -466,7 +540,7 @@ __device__ __forceinline__ void softmax_tile(
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) O[i] *= corr[(i >> 1) & 1];
 #pragma unroll
-  for (int j = 0; j < kKT / 4; ++j) P[j] = pack_bf16(S[2 * j], S[2 * j + 1]);
+  for (int j = 0; j < kKT / 4; ++j) P[j] = pack2<T>(S[2 * j], S[2 * j + 1]);
 }
 
 // The bias of the thread's pairs of a whole key tile (k0 + kKT <= sk),
@@ -495,8 +569,9 @@ __device__ __forceinline__ void load_bias_tile(
   }
 }
 
-// q, k, v: the tensor maps of (bh, sq|sk, D) bf16; grid (bh, query tiles).
-template <int D, int NC, bool SEGS, bool DROP, bool BIAS, bool QSCALE>
+// q, k, v: the tensor maps of (bh, sq|sk, D) T; grid (bh, query tiles).
+template <typename T, int D, int NC, bool SEGS, bool DROP, bool BIAS,
+          bool QSCALE>
 __global__ void __launch_bounds__(Smem<D, NC>::THREADS, NC == 1 ? 2 : 1)
 fwd_kernel(__grid_constant__ const CUtensorMap tq,
            __grid_constant__ const CUtensorMap tk,
@@ -596,14 +671,14 @@ fwd_kernel(__grid_constant__ const CUtensorMap tq,
     const uint32_t qa = base + wg * 64 * 128;
     mbar_wait(qbar, 0);
     if constexpr (QSCALE) {
-      // q * scale in fp32, rounded to bf16 as the product's operand
+      // q * scale in fp32, rounded to T as the product's operand
+      using T2 = typename Elem<T>::T2;
       unsigned char* gq = smem_raw + (base - raw) + wg * 64 * 128;
       for (int s = 0; s < L::SLABS; ++s) {
-        __nv_bfloat162* x =
-            reinterpret_cast<__nv_bfloat162*>(gq + s * L::Q_SLAB);
+        T2* x = reinterpret_cast<T2*>(gq + s * L::Q_SLAB);
         for (int i = tid; i < 64 * 32; i += 128) {
-          const float2 f = __bfloat1622float2(x[i]);
-          x[i] = __floats2bfloat162_rn(f.x * p.scale, f.y * p.scale);
+          const float2 f = Elem<T>::unpair(x[i]);
+          x[i] = Elem<T>::pair(f.x * p.scale, f.y * p.scale);
         }
       }
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -628,7 +703,7 @@ fwd_kernel(__grid_constant__ const CUtensorMap tq,
             ((kk / 4) * (uint64_t)L::Q_SLAB + (kk % 4) * 32) >> 4;
         const uint64_t kstep =
             ((kk / 4) * (uint64_t)L::KV_SLAB + (kk % 4) * 32) >> 4;
-        wgmma_ss<kKT>(S, dq + step, dk + kstep, kk > 0);
+        wgmma_ss<T, kKT>(S, dq + step, dk + kstep, kk > 0);
       }
       wgmma_commit();
       // the bias of the thread's pairs, read while the product runs
@@ -644,11 +719,11 @@ fwd_kernel(__grid_constant__ const CUtensorMap tq,
       const bool masked = SEGS || ragged ||
                           (p.causal && k0 + kKT - 1 > q0 + wg * 64);
       if (masked) {
-        softmax_tile<D, true, SEGS, DROP, BIAS, QSCALE>(
+        softmax_tile<T, D, true, SEGS, DROP, BIAS, QSCALE>(
             S, bv, O, P, m, l, qi, qid, kidb, bias_rows, ragged, k0, c0, hrow,
             p);
       } else {
-        softmax_tile<D, false, SEGS, DROP, BIAS, QSCALE>(
+        softmax_tile<T, D, false, SEGS, DROP, BIAS, QSCALE>(
             S, bv, O, P, m, l, qi, qid, kidb, bias_rows, ragged, k0, c0, hrow,
             p);
       }
@@ -662,7 +737,7 @@ fwd_kernel(__grid_constant__ const CUtensorMap tq,
       for (int kk = 0; kk < kKT / 16; ++kk) {
         const uint32_t a[4] = {P[4 * kk], P[4 * kk + 1], P[4 * kk + 2],
                                P[4 * kk + 3]};
-        wgmma_rs<D>(O, a, dv + ((kk * 2048) >> 4));
+        wgmma_rs<T, D>(O, a, dv + ((kk * 2048) >> 4));
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -676,12 +751,11 @@ fwd_kernel(__grid_constant__ const CUtensorMap tq,
       const float ll = fmaxf(quad_sum(l[r]), 1e-30f);
       const float inv = 1.0f / ll;
       if (qi[r] >= p.sq) continue;
-      bf16* o = p.out + (bh * p.sq + qi[r]) * D + c0;
+      T* o = static_cast<T*>(p.out) + (bh * p.sq + qi[r]) * D + c0;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
-        *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
-            __floats2bfloat162_rn(O[4 * j + 2 * r] * inv,
-                                  O[4 * j + 2 * r + 1] * inv);
+        *reinterpret_cast<typename Elem<T>::T2*>(o + 8 * j) =
+            Elem<T>::pair(O[4 * j + 2 * r] * inv, O[4 * j + 2 * r + 1] * inv);
       }
       if (lane % 4 == 0) p.lse[bh * p.sq + qi[r]] = m[r] + logf(ll);
     }
@@ -716,26 +790,29 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D map over a contiguous (bh, s, d) bf16 tensor, boxes of 64 columns
-// x rows x 1, 128-byte swizzle, zero fill past every edge.
+// A 3-D map over a contiguous (bh, s, d) tensor of T (2 bytes), boxes of
+// 64 columns x rows x 1, 128-byte swizzle, zero fill past every edge.
+template <typename T>
 inline bool encode_map(CUtensorMap* map, const void* ptr, int d, int s,
                        int bh, int rows) {
+  static_assert(sizeof(T) == 2, "16-bit elements");
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+  return fn(map, Elem<T>::kMap, 3, const_cast<void*>(ptr),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The bf16 forward of (bh, sq, D) q against (bh, sk, D) k and v: NC
-// consumer warpgroups (64 * NC query rows a block), QSCALE the flash
-// rung's rounding order.
-template <int D, int NC, bool SEGS, bool DROP, bool BIAS, bool QSCALE>
+// The forward of (bh, sq, D) q against (bh, sk, D) k and v of T (bf16, the
+// default, or fp16): NC consumer warpgroups (64 * NC query rows a block),
+// QSCALE the flash rung's rounding order.
+template <int D, int NC, bool SEGS, bool DROP, bool BIAS, bool QSCALE,
+          typename T = bf16>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* q_ids, const int* kv_ids, void* out, float* lse,
                    int bh, int heads, int sq, int sk, int causal, float scale,
@@ -745,18 +822,18 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const int tiles = (sq + L::QT - 1) / L::QT;
   if (tiles > 65535) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
-  if (!encode_map(&tq, q, D, sq, bh, L::QT) ||
-      !encode_map(&tk, k, D, sk, bh, kKT) ||
-      !encode_map(&tv, v, D, sk, bh, kKT)) {
+  if (!encode_map<T>(&tq, q, D, sq, bh, L::QT) ||
+      !encode_map<T>(&tk, k, D, sk, bh, kKT) ||
+      !encode_map<T>(&tv, v, D, sk, bh, kKT)) {
     return cudaErrorInvalidValue;
   }
   static bool opted = false;
-  cudaError_t err = opt_in(fwd_kernel<D, NC, SEGS, DROP, BIAS, QSCALE>,
+  cudaError_t err = opt_in(fwd_kernel<T, D, NC, SEGS, DROP, BIAS, QSCALE>,
                            L::BYTES, &opted);
   if (err != cudaSuccess) return err;
-  const Params prm{q_ids, kv_ids, static_cast<bf16*>(out), lse, heads,
-                   sq, sk, causal, scale, dr, bias};
-  fwd_kernel<D, NC, SEGS, DROP, BIAS, QSCALE>
+  const Params prm{q_ids, kv_ids, out, lse, heads, sq, sk, causal, scale,
+                   dr, bias};
+  fwd_kernel<T, D, NC, SEGS, DROP, BIAS, QSCALE>
       <<<dim3(bh, tiles), L::THREADS, L::BYTES, stream>>>(tq, tk, tv, prm);
   return cudaGetLastError();
 }

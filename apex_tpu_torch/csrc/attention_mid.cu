@@ -35,7 +35,8 @@
 
 extern "C" {
 
-// dtype: 0 = fp32, 1 = bf16.  q_ids/kv_ids: both null, or (bh / heads, sq)
+// dtype: 1 = bf16 here; 0 = fp32 and 2 = fp16 in the libraries built from
+// the _f32 and _f16 sources, each taking its own only.  q_ids/kv_ids: both null, or (bh / heads, sq)
 // and (bh / heads, sk) int32 segment ids.  bias: null, or an fp32 additive
 // score bias whose (sq, sk) slab for row bh = b_i * heads + h_i starts
 // b_i * bias_stride_b + h_i * bias_stride_h elements in (a stride of 0 on a

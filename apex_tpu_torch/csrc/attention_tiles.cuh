@@ -1,5 +1,5 @@
 // Device helpers of the attention kernels for Hopper (sm_90a): tile
-// constants, fp32/bf16 conversions, warp reductions, the per-warp fp32
+// constants, fp32/bf16/fp16 conversions, warp reductions, the per-warp fp32
 // products of the SIMT kernels (full fp32 FMAs; the bf16 kernels run wgmma
 // in attention_fwd_sm90.cuh and attention_bwd_sm90.cuh), tile loads and
 // the dynamic shared-memory opt-in.  attention_common.cuh (the short and
@@ -13,6 +13,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -20,6 +21,7 @@ namespace attn {
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr int kTile = 64;       // rows of a block's q or k tile
 constexpr int kWarps = 4;       // each warp owns 16 rows of the tile
@@ -29,12 +31,16 @@ constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(f16 x) { return __half2float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
 }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
   return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ f16 from_f<f16>(float x) {
+  return __float2half_rn(x);
 }
 
 __host__ __device__ constexpr int round_up(int x, int m) {

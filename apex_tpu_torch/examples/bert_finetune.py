@@ -18,6 +18,9 @@ Accuracy climbs from chance to about 1.0 in a few hundred steps.
 Every ``--log-every`` steps one line gives the loss and the training
 accuracy (read from the device only then); the last lines give ms/step,
 sequences/s and the held-out accuracy before and after training.
+``--opt-level`` takes every level: at O1-O3 (fp16) the loss is scaled by
+the policy's loss scaler and the step skipped where the gradients
+overflow, as ``gpt_pretrain`` trains (the JAX example scales no loss).
 ``--device`` defaults to the GPU and raises without one.  Flags of the
 JAX example's multi-chip surface raise ``NotImplementedError`` naming
 their ROADMAP.md item, as ``gpt_pretrain.check_flags`` does.
@@ -90,7 +93,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--eval-batches", type=int, default=4)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--opt-level", default="O4",
-                    help="O0, O4 or O5 (the fp16 levels are not ported)")
+                    help="O0-O5; the fp16 levels O1-O3 with their loss "
+                         "scaler")
     ap.add_argument("--log-every", type=int, default=50,
                     help="read the loss and accuracy from the device and "
                          "print a line every N steps")
@@ -142,7 +146,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     builds the kernels), and the held-out accuracy before and after."""
     args = parse_args(argv)
     check_flags(args)
-    policy = amp.initialize(opt_level=args.opt_level).policy
+    mp = amp.initialize(opt_level=args.opt_level)
+    policy = mp.policy
     check_ported(policy)
     device = resolve_device(args.device)
     cfg = BertConfig(
@@ -164,6 +169,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                                          args.eval_batches, args.batch,
                                          args.seq, args.vocab))
     before = _accuracy(model, eval_pool)
+    scaled = policy.loss_scale is not None
+    amp_state = mp.init(device=device)
 
     pending: List[torch.Tensor] = []
     losses: List[float] = []
@@ -172,8 +179,15 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     for i in range(args.steps):
         opt.zero_grad(set_to_none=True)
         loss, acc = classification_loss(model, *train_pool[i % len(train_pool)])
-        loss.backward()
-        opt.step()
+        finite = None
+        if scaled:
+            mp.scale_loss(amp_state, loss).backward()
+            _, finite, amp_state = mp.unscale_and_adjust(
+                amp_state, [p.grad for p in model.parameters()
+                            if p.grad is not None])
+        else:
+            loss.backward()
+        opt.step(grads_finite=finite)
         pending.append(torch.stack([loss.detach(), acc.detach()]))
         if i == 0:
             _sync(device)

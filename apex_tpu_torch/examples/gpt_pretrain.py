@@ -11,10 +11,12 @@
 The same step as the JAX trainer's single-device path: a precision
 policy from ``--opt-level`` through ``amp.initialize`` (O5 by default:
 bf16 parameters and compute, fp32 norms, fp32 masters in the optimizer,
-no loss scaling), the GPT's mean next-token cross entropy, its backward
-through the port's kernels (layer norm, the short, mid and flash
-attention rungs), then the tail: where the policy has a loss scale (O0's
-static 1.0) the loss is scaled before the backward and the gradients
+no loss scaling; O1-O3 the fp16 levels, O2 fp16 parameters with fp32
+norms and masters and a dynamic loss scale), the GPT's mean next-token
+cross entropy, its backward through the port's kernels (layer norm, the
+short, mid and flash attention rungs, in bf16 or fp16), then the tail:
+where the policy has a loss scale (O0's and O3's static 1.0, O1's and
+O2's dynamic one) the loss is scaled before the backward and the gradients
 unscaled after it, with the overflow check (``unscale_and_adjust``), an
 optional global-norm clip (``--clip-grad``) and a ``FusedAdam`` step
 that is skipped where the gradients were not finite; the whole tail runs
@@ -105,8 +107,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--opt-level", default="O5",
-                    help="O0, O4 or O5 (the fp16 levels O1-O3 are not "
-                         "ported yet: ROADMAP.md queue A item 5's remainder)")
+                    help="O0-O5: O1-O3 train in fp16 with their loss "
+                         "scaler")
     ap.add_argument("--exp-avg-sq-dtype", default="float32",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--activation", default="gelu",

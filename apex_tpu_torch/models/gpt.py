@@ -49,7 +49,11 @@ chain and tree speculation with n-gram or model drafts, the decode and
 verify steps replayed as one CUDA graph per shape on the card, plus the
 full-recompute ``generate_reference`` that gates greedy serving.  A
 ``policy`` (``apex_tpu_torch.amp``) sets the dtypes as in JAX: under O5
-the parameters are bf16 and the norms' fp32.  Serving also runs
+the parameters are bf16 and the norms' fp32, under O2 the same in fp16,
+under O1 fp32 parameters compute in fp16, under O3 everything is fp16;
+every level trains, and serving (bf16 or fp32) raises
+``NotImplementedError`` at an fp16 compute dtype (ROADMAP.md A5b).
+Serving also runs
 from quantized weight pools (:func:`quantize_gpt_weights`: the five
 projections become ``QuantizedLinear``s over the dequant-matmul kernel,
 bit-identical pools to the JAX package's) and from int8 KV pages
@@ -70,7 +74,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from apex_tpu_torch.amp.policy import Policy, check_ported
+from apex_tpu_torch.amp.policy import Policy, check_ported, check_serving
 from apex_tpu_torch.ops.attention import flash_attention
 from apex_tpu_torch.ops.attention_decode import (
     FMHA_DECODE_MAX_ROWS,
@@ -973,6 +977,7 @@ class GPTModel(nn.Module):
         the first call runs eagerly and captures); a replay's outputs are
         static buffers that the next replay overwrites.  ``decode_eager``
         and ``spec_eager`` on the result are the eager steps."""
+        check_serving(self.config.compute_dtype)
         _check_options(temperature, top_k, top_p)
         _reject_unported(tp=None if tp == 1 else tp)
         c = self.config
@@ -1339,6 +1344,7 @@ class GPTModel(nn.Module):
         JAX.  Returns the per-prompt generated token lists (EOS included
         when hit)."""
         c = self.config
+        check_serving(c.compute_dtype)
         prompts = np.asarray(prompts)
         prompt_lengths = np.asarray(prompt_lengths)
         b, s = prompts.shape

@@ -39,6 +39,7 @@ from typing import Optional
 
 import torch
 
+from apex_tpu_torch.amp.policy import check_serving
 from apex_tpu_torch.ops.attention_decode import decode_contiguous
 from apex_tpu_torch.ops.attention_flash import checked as flash_checked
 from apex_tpu_torch.ops.attention_flash import flash_delta
@@ -187,7 +188,7 @@ def flash_attention(
     """Attention over ``(batch, heads, seq, head_dim)``, differentiable in
     q, k and v.
 
-    fp32 or bf16 inputs with both sequence lengths at most
+    fp32, bf16 or fp16 inputs with both sequence lengths at most
     ``short_seq_threshold()`` run the short kernel, with the longer one at
     most ``mid_seq_threshold()`` the mid kernel, and longer ones the flash
     kernels (512 and 2048 unless ``APEX_TPU_FMHA_SHORT_MAX_SEQ`` /
@@ -248,6 +249,7 @@ def flash_attention(
             raise ValueError(
                 "implementation='decode' supports plain (optionally "
                 "causal) attention only — no bias/segments/dropout")
+        check_serving(q.dtype)
         return decode_contiguous(q, k, v, causal=causal, sm_scale=sm_scale)
     ids = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
                dropout_rate=dropout_rate, dropout_seed=dropout_seed)

@@ -84,6 +84,7 @@ from apex_tpu_torch.ops.attention_short import (
     fold_bias_grad,
     id_operands,
     keep_rows,
+    library,
     segment_ids,
     softmax_scale,
     visible,
@@ -188,9 +189,10 @@ def _flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale, q_ids=None,
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(symbol: str):
-    """The loaded library and one of its C entries, typed once."""
-    lib = load("attention_flash")
+def _entry(symbol: str, dtype: torch.dtype = torch.bfloat16):
+    """The loaded library of ``dtype``'s instances and one of its C
+    entries, typed once."""
+    lib = load(library("attention_flash", dtype))
     fn = getattr(lib, symbol)
     fn.argtypes = ARGTYPES[symbol]
     fn.restype = ctypes.c_int
@@ -246,9 +248,9 @@ def _launch(kernel, q, k, v, ids, heads, rest, outs, causal, scale,
                                 if t is not None))
     bias_ptr, bias_b, bias_h = bias_operands(kernel, bias)
     bh, sq, d = q.shape
-    lib, fn = _entry(kernel)
+    lib, fn = _entry(kernel, q.dtype)
     name = counter((kernel, SEG[kernel]), q_ids is not None, drop, bias,
-                   dbias is not None)
+                   dbias is not None, half=q.dtype == torch.float16)
     ptrs = [t.data_ptr() for t in rest + outs]
     if kernel == KERNEL_DQ:
         ptrs.append(data_ptr(dbias))

@@ -60,6 +60,7 @@ from apex_tpu_torch.ops.attention_short import (
     keep_bias_like,
     launch_bwd,
     launch_fwd,
+    library,
     pad_head_dim,
     segment_ids,
     softmax_scale,
@@ -142,9 +143,10 @@ def _xla_with_lse(q, k, v, causal, sm_scale=None, q_segment_ids=None,
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(symbol: str):
-    """The loaded library and one of its C entries, typed once."""
-    lib = load("attention_mid")
+def _entry(symbol: str, dtype: torch.dtype = torch.bfloat16):
+    """The loaded library of ``dtype``'s instances and one of its C
+    entries, typed once."""
+    lib = load(library("attention_mid", dtype))
     fn = getattr(lib, symbol)
     fn.argtypes = ARGTYPES[symbol]
     fn.restype = ctypes.c_int

@@ -95,7 +95,9 @@ def short_seq_threshold() -> int:
     return int(v) if v else FMHA_SHORT_MAX_SEQ
 
 _NEG_INF = -1e30
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernels' element types (the C entries' dtype codes); each lives in
+#: a library of its own (:func:`library`)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (64, 128)
 
 #: the dropout arguments every attention C entry takes after ``scale``:
@@ -320,13 +322,24 @@ def drop_operands(drop):
     return as_int32(seed), as_int32(keep_threshold(rate)), inv_keep(rate)
 
 
-def counter(names, segs: bool, drop, bias=None, dbias: bool = False) -> str:
+def counter(names, segs: bool, drop, bias=None, dbias: bool = False,
+            half: bool = False) -> str:
     """A launch counter: the plain or segment name of ``names``, with
     ``_drop`` for a dropout instance, ``_bias`` for a launch with a bias
     and ``_dbias`` in its place for one that also emits the bias's
-    gradient."""
+    gradient, and ``_f16`` last for an fp16 instance."""
     return (names[segs] + ("" if drop is None else "_drop")
-            + ("_dbias" if dbias else "" if bias is None else "_bias"))
+            + ("_dbias" if dbias else "" if bias is None else "_bias")
+            + ("_f16" if half else ""))
+
+
+def library(source: str, dtype: torch.dtype) -> str:
+    """The CUDA source whose library holds ``dtype``'s instances: bf16's
+    is ``csrc/<source>.cu``, fp32's and fp16's ``<source>_f32.cu`` and
+    ``<source>_f16.cu``, each built by its own ``nvcc`` beside the others
+    (a third of the instances each, so the build's wall is a third's)."""
+    return source + {torch.float32: "_f32", torch.float16: "_f16"}.get(
+        dtype, "")
 
 
 def keep_rows(drop, lead, sq: int, sk: int, device) -> torch.Tensor:
@@ -430,9 +443,10 @@ def _short_bwd_plain(q, k, v, out, dout, lse, dlse, causal, scale,
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(symbol: str):
-    """The loaded library and one of its C entries, typed once."""
-    lib = load("attention_short")
+def _entry(symbol: str, dtype: torch.dtype = torch.bfloat16):
+    """The loaded library of ``dtype``'s instances and one of its C
+    entries, typed once."""
+    lib = load(library("attention_short", dtype))
     fn = getattr(lib, symbol)
     fn.argtypes = ARGTYPES[symbol]
     fn.restype = ctypes.c_int
@@ -456,7 +470,7 @@ def pad_head_dim(q, k, v, sm_scale):
 
 def check_kernel_inputs(kernel: str, q, k, v) -> None:
     """Reject what the attention kernels do not take: a dtype other than
-    fp32/bf16 shared by q/k/v, a head dim other than 64/128, more than
+    fp32/bf16/fp16 shared by q/k/v, a head dim other than 64/128, more than
     65535 (batch*heads) rows of the grid.  ``q`` is ``(b, h, s, d)`` or
     the flattened ``(b*h, s, d)``."""
     bh, d = math.prod(q.shape[:-2]), q.shape[-1]
@@ -483,7 +497,8 @@ def launch_fwd(entry, names, q, k, v, causal, scale, q_ids, kv_ids,
     plain and segment launch counters (:func:`counter` adds ``_drop``
     for ``drop = (rate, seed)`` and ``_bias`` for a :func:`bias_slab`
     ``bias``)."""
-    kernel = counter(names, q_ids is not None, drop, bias)
+    kernel = counter(names, q_ids is not None, drop, bias,
+                     half=q.dtype == torch.float16)
     check_kernel_inputs(kernel, q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -492,7 +507,7 @@ def launch_fwd(entry, names, q, k, v, causal, scale, q_ids, kv_ids,
     check_operands(kernel, q, k, v, *(
         t for t in (q_ids, kv_ids, bias) if t is not None))
     bias_ptr, bias_b, bias_h = bias_operands(kernel, bias)
-    lib, fn = entry(names[0])
+    lib, fn = entry(names[0], q.dtype)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     count_launch(kernel)
@@ -513,7 +528,8 @@ def launch_bwd(entry, names, q, k, v, out, dout, lse, dlse, causal, scale,
     zero where a causal tile is skipped."""
     if dbias and bias is None:
         raise ValueError(f"{names[0]}: dBias needs a bias")
-    kernel = counter(names, q_ids is not None, drop, bias, dbias)
+    kernel = counter(names, q_ids is not None, drop, bias, dbias,
+                     half=q.dtype == torch.float16)
     check_kernel_inputs(kernel, q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -527,7 +543,7 @@ def launch_bwd(entry, names, q, k, v, out, dout, lse, dlse, causal, scale,
     check_operands(kernel, q, k, v, out, dout, lse, *(
         t for t in (dlse, q_ids, kv_ids, bias) if t is not None))
     bias_ptr, bias_b, bias_h = bias_operands(kernel, bias)
-    lib, fn = entry(names[0])
+    lib, fn = entry(names[0], q.dtype)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     g = (torch.zeros((b, h, sq, sk), dtype=torch.float32, device=q.device)

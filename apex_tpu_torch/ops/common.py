@@ -27,9 +27,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
@@ -48,6 +50,9 @@ BUILD_DIR = _PKG / "_build"
 
 #: the CUDA sources this package builds (``csrc/<name>.cu``)
 KERNEL_SOURCES = ("attention_short", "attention_mid", "attention_flash",
+                  "attention_short_f16", "attention_mid_f16",
+                  "attention_flash_f16", "attention_short_f32",
+                  "attention_mid_f32", "attention_flash_f32",
                   "attention_decode", "dequant_matmul", "layer_norm",
                   "multi_tensor")
 
@@ -96,6 +101,9 @@ def add_launch_counts(counts: Dict[str, int], sign: int = 1) -> None:
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+#: seconds from the start of the last :func:`build` to each of its
+#: compiles' end (the build's wall is the largest)
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -114,7 +122,11 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha1(src.read_bytes())
+    text = src.read_bytes()
+    h = hashlib.sha1(text)
+    # an _f16 or _f32 source includes its twin's .cu
+    for inc in re.findall(rb'#include "([\w.]+\.cu)"', text):
+        h.update((CSRC / inc.decode()).read_bytes())
     for dep in sorted(CSRC.glob("*.cuh")):
         h.update(dep.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -134,6 +146,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs: List = []
+    t0 = time.perf_counter()
+    BUILD_SECONDS.clear()
     for n in todo:
         out = _lib_path(n)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -142,9 +156,18 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         procs.append((n, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
+    # read each compiler's report as it comes (a full pipe would stall it),
+    # noting when each one ends
+    readers = {n: threading.Thread(target=lambda p=p, n=n: _drain(p, n))
+               for n, _, _, p in procs}
+    for t in readers.values():
+        t.start()
+    for t in readers.values():
+        t.join()
     logs, failed = {}, []
     for n, out, tmp, p in procs:
-        text, _ = p.communicate()
+        text = _OUTPUT.pop(n)
+        BUILD_SECONDS[n] = _ENDED.pop(n) - t0
         logs[n] = text
         if p.returncode != 0:
             failed.append(f"{n} (nvcc exit {p.returncode}):\n{text}")
@@ -153,6 +176,15 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     if failed:
         raise KernelUnavailable("kernel build failed: " + "\n".join(failed))
     return logs
+
+
+_OUTPUT: Dict[str, str] = {}
+_ENDED: Dict[str, float] = {}
+
+
+def _drain(proc, name: str) -> None:
+    _OUTPUT[name] = proc.communicate()[0]
+    _ENDED[name] = time.perf_counter()
 
 
 def load(name: str) -> ctypes.CDLL:

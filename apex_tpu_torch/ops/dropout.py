@@ -18,14 +18,19 @@ program hashes its flat indices with threefry2x32 (the counter ``(n >>
 partitionable mode), turns the bits into JAX's float32 uniform, keeps an
 element where it is below ``float32(1 - rate)`` and writes ``x / (1 -
 rate)`` or 0 in ``x``'s dtype.  It reads ``x`` once and writes ``y``
-once, no mask in memory; the least time is the bytes (the hash, ~130
-32-bit integer operations an element, has no tensor-core rate).  Counted
-as ``dropout``.
+once, no mask in memory.  The least time is the larger of the bytes over
+the memory rate and the hash's operations (:data:`HASH_OPS` 32-bit integer
+operations an element, no tensor-core rate) over the card's 67 T/s of
+32-bit operations.  Counted as ``dropout``; an fp16 tensor (the opt levels
+O1-O3) launches the kernel's fp16 instance, counted as ``dropout_f16``.
 
 The scale: JAX divides by ``1.0 - rate``, a weakly typed Python float
 that becomes the activation's dtype first, so in bf16 the divisor is
 ``bf16(0.9) = 0.8984375``, and a bf16 result is
-``bf16(float32(x) / 0.8984375)``.  The kernel and the plain version both
+``bf16(float32(x) / 0.8984375)``; in fp16 ``fp16(0.9) = 0.89990234375``.
+(A quotient of two fp16 values taken in fp32 and rounded to fp16 is the
+correctly rounded fp16 quotient: 24 >= 2 * 11 + 2 bits.)  The kernel and
+the plain version both
 divide (correctly rounded, ``div_rn``) by that dtype-rounded value; a
 multiply by ``1 / (1 - rate)`` would give other bf16 bits.  (Under
 ``jit`` XLA turns an fp32 division by a constant into a multiply by its
@@ -47,9 +52,18 @@ import torch
 from apex_tpu_torch.ops.common import as_int32, count_launch
 from apex_tpu_torch.random import uniform_tensor
 
-__all__ = ["dropout", "dropout_fwd", "dropout_mask", "divisor", "KERNEL"]
+__all__ = ["dropout", "dropout_fwd", "dropout_mask", "divisor", "KERNEL",
+           "KERNEL_F16", "HASH_OPS", "DTYPES"]
 
 KERNEL = "dropout"
+KERNEL_F16 = "dropout_f16"
+#: the element types the kernel takes
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+#: 32-bit integer operations an element: threefry2x32's 20 rounds (an add,
+#: a rotate as two shifts and an or, an xor: 5 each) and 5 key injections
+#: (3 adds each, the schedule's xors folded), the counter split, the xor of
+#: the two words, the mantissa shift and or, the compare and the select
+HASH_OPS = 20 * 5 + 5 * 3 + 2 + 1 + 2 + 2
 #: elements a Triton program draws
 BLOCK = 1024
 
@@ -181,14 +195,14 @@ def _dropout_kernel():
 
 
 def _dropout_cuda(x: torch.Tensor, key, rate: float) -> torch.Tensor:
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"{KERNEL}: dtype {x.dtype} not in fp32/bf16")
+    if x.dtype not in DTYPES:
+        raise ValueError(f"{KERNEL}: dtype {x.dtype} not in {DTYPES}")
     triton, kernel = _dropout_kernel()
     x = x.contiguous()
     y = torch.empty_like(x)
     n = x.numel()
     k = np.asarray(key, dtype=np.uint32)
-    count_launch(KERNEL)
+    count_launch(KERNEL_F16 if x.dtype == torch.float16 else KERNEL)
     kernel[(triton.cdiv(n, BLOCK),)](
         x, y, n, as_int32(k[0]), as_int32(k[1]),
         float(keep_prob(rate)), divisor(rate, x.dtype), BLOCK=BLOCK,

@@ -65,7 +65,7 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
              dBias within its band, the same bits twice.  Phase 1 prints
              each such instance's registers and spills.  The Gumbel-max
              sampler (Triton) at 4 x 32768 and 20 x 32768, T 0.7 and 1,
-             without a floor and with top-k 40 + top-p 0.9, 256 ctx
+             without a floor and with top-k 40 + top-p 0.9, 64 ctx
              values: tokens equal to the plain version's wherever its top
              two ``y + g`` differ by more than 8 ulps (the rest counted,
              at most 0.1%), the same bits twice.  The optimizer tail's
@@ -142,7 +142,7 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
              prefix cache: decode ms/step, prefill stalls, TTFT, prefix
              hits; the many-row instance must launch.
    serve-spec — the same model, 4 slots of 32-token repetitive prompts,
-             24 new tokens, k=4: plain vs n-gram chain vs offramp_tree(4)
+             16 new tokens, k=4: plain vs n-gram chain vs offramp_tree(4)
              from the int4 ``ModelDraftSource``, each greedy replayed,
              greedy eager and sampled: tokens committed per verify step,
              ms per committed token, share equal to plain.
@@ -188,7 +188,7 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
              --normalization rmsnorm --seq 4096 --micro-batch 2
              --num-micro 1`` trains it, the same measurements as phase 7,
              the flash kernels required; then one step profiled.
-10. bert-parity — BERT at BERT-large's widths, 2 layers, fp32, b=4 x 512
+10. bert-parity — BERT at BERT-large's widths, 2 layers, fp32, b=2 x 512
              ragged: one step (loss, backward, FusedAdam) on the GPU
              against a CPU copy; attention_impl short/mid/pallas agree on
              the card; ``contrib.fmha`` on the GPU equals its CPU path.
@@ -263,8 +263,47 @@ with a float mask that requires grad):
              forward+backward a rung at b=2 h=4 s=300, fp32, GPU == CPU
              (output, dq, dk, dv, dBias).
 
-The last two lines are a JSON object with one record per kernel, and
-``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
+The fp16 levels O1-O3 (after train-long; phase 2 also builds the fp16
+attention instances from their own sources, holds every one against its
+plain version at the forward's and the backward's ragged cases, times
+each fp16 row at its bf16 row's shape beside the bf16 instance and SDPA
+in fp16, holds and times the fp16 hidden dropout bit for bit, the fp16
+layer norm with fp32 weights (O2) and fp16 weights (O3), the softmax in
+fp16 and Adam over the flagship's O2 list):
+   train-fp16-parity — a 2-layer GPT (hidden 512, 4 heads of 128, 2 x
+             384 tokens) through the port trainer at O1, O2 and O3 with
+             the dynamic loss scaler, 4 steps on the GPU and on a CPU copy
+             from the same weights and batches: step 1's loss, every
+             gradient and the updated parameters within fp16 bands; the
+             same steps skipped on both, the third (an inf in its
+             backward) skipped with the parameters unchanged bit for bit
+             and the scale halved, the fourth taken; then one O2 step
+             each, GPU against CPU, of the GPT with dropout 0.1/0.1 on
+             one key, BERT with padding (segment ids) and contrib
+             ``SelfMultiheadAttn`` with a float mask (and the key padding
+             and dropout beside it).
+   train-fp16 — the 12-layer flagship at O2 (fp16 parameters, fp32
+             norms and masters, dynamic scaling), 8 x 1024, through
+             ``gpt_pretrain --opt-level O2``: phase 7's measurements and
+             every skipped step, beside phase 7's O5 in this run; the mid
+             pair's fp16 instances must launch; then one step profiled.
+   train-long-fp16 — the 12-layer Llama mode at O2, 2 x 4096 (the flash
+             rung's fp16 instances), full depth.
+   train-long-fp16-skips — the same Llama run, 12 steps: before each,
+             the same backward with the flash rung's plain versions in
+             place of its kernels (on the card, from the same state); the
+             kernels must skip exactly the steps the plain versions
+             overflow on, and a skipped step's non-finite gradients are
+             named.
+   fp16-variants — ``flash_attention`` in fp16 on each rung (short s=384,
+             mid s=768, flash s=1280, the rung forced), causal, with
+             segment ids, dropout and a constant or trained bias, every
+             combination, GPU against CPU: every fp16 instance must
+             launch.
+
+The last two lines are a JSON object with one record per kernel (the
+fp16 instances' names end in ``_f16``), and ``{"ok": true, "device":
+{...}}``.  The script imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -285,7 +324,12 @@ import torch
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and the
 # operation rates of the types these kernels compute in
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float16: 989e12,
+                  torch.float32: 67e12}
+#: the 16-bit element types of the Hopper attention kernels: bf16 (O4/O5)
+#: and fp16 (O1-O3, the ``_f16`` sources); phase 2 holds and times each
+#: row in both, side by side
+SM90_DTYPES = (torch.bfloat16, torch.float16)
 
 # the flagship GPT (bench.py FLAGSHIP): vocab 32768, 12 layers, hidden
 # 1024, 8 heads (head_dim 128), ffn 4096, learned positions up to 1024
@@ -320,17 +364,41 @@ def bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0 ** -126))) - 7)
 
 
+def fp16_ulp(x: float) -> float:
+    """The spacing of fp16 values at magnitude ``x`` (11 significant
+    bits; 2**-24 among the subnormals)."""
+    return 2.0 ** (max(math.floor(math.log2(max(abs(x), 2.0 ** -24))),
+                       -14) - 10)
+
+
+def elem_ulp(x: float, dtype) -> float:
+    """The spacing of ``dtype``'s values (bf16 or fp16) at ``x``."""
+    return fp16_ulp(x) if dtype == torch.float16 else bf16_ulp(x)
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype)[6:]
+
+
+def f16(name: str, dtype) -> str:
+    """A launch counter of ``dtype``'s instance: ``_f16`` last for fp16."""
+    return name + "_f16" if dtype == torch.float16 else name
+
+
+
 def tolerance(ref: torch.Tensor) -> float:
     """Kernel-vs-plain tolerance on the same inputs.  fp32: 1e-4 of the
     output's scale (both compute in fp32; only the order of the sums
-    differs).  bf16: two bf16 ulps at the output's largest magnitude
-    (both round fp32 values to bf16, which may fall on either side of
-    a rounding boundary; the tensor-core kernels also round the
-    probabilities to bf16 before P.V)."""
+    differs).  bf16 and fp16: two ulps of the type at the output's largest
+    magnitude (both round fp32 values to the type, which may fall on
+    either side of a rounding boundary; the tensor-core kernels also
+    round the probabilities, dz * scale and, on the flash rung, q * scale
+    to the type before their products, where the plain versions of the
+    forward keep fp32)."""
     top = ref.float().abs().max().item()
     if ref.dtype == torch.float32:
         return 1e-4 * max(1.0, top)
-    return 2.0 * bf16_ulp(top)
+    return 2.0 * elem_ulp(top, ref.dtype)
 
 
 def _events_ms(run, iters: int) -> float:
@@ -392,6 +460,10 @@ def measure(name, shape, err, kernel, plain, library, *, nbytes, ops,
     function; the bound is the larger of ``nbytes`` over the memory rate
     and ``ops`` over the peak rate of ``dtype``."""
     ms, eager = time_ms(kernel)
+    if dtype == torch.float16:
+        # the fp16 rows' plain versions repeat their bf16 rows' (no
+        # yardstick of speed): two calls a timing
+        plain_iters = 2
     plain_ms, _ = time_ms(plain, plain_iters)
     lib_ms = time_ms(library[1])[0] if library else None
     bnd, by = bound_ms(nbytes, ops, dtype)
@@ -409,25 +481,29 @@ def measure(name, shape, err, kernel, plain, library, *, nbytes, ops,
 #: (attention_fwd_sm90.cuh) <D, NC, SEGS, DROP, BIAS, QSCALE>, the
 #: backward's (attention_bwd_sm90.cuh) dK/dV <D, NC, SEGS, DROP, BIAS> and
 #: dQ <D, NC, SEGS, DROP, BIAS, DBIAS>
+_SM90_TYPE = r"(13__nv_bfloat16|6__half)"
 _SM90_KERNELS = (
-    ("bf16 forward",
-     re.compile(r"fwd_kernelILi(\d+)ELi(\d)E" + r"Lb(\d)E" * 4),
+    ("forward",
+     re.compile(r"fwd_kernelI" + _SM90_TYPE + r"Li(\d+)ELi(\d)E"
+                + r"Lb(\d)E" * 4),
      ("+seg", "+drop", "+bias", " q*scale first"), "rows"),
-    ("bf16 dK/dV",
-     re.compile(r"bwd_dkv_kernelILi(\d+)ELi(\d)E" + r"Lb(\d)E" * 3),
+    ("dK/dV",
+     re.compile(r"bwd_dkv_kernelI" + _SM90_TYPE + r"Li(\d+)ELi(\d)E"
+                + r"Lb(\d)E" * 3),
      ("+seg", "+drop", "+bias"), "keys"),
-    ("bf16 dQ",
-     re.compile(r"bwd_dq_kernelILi(\d+)ELi(\d)E" + r"Lb(\d)E" * 4),
+    ("dQ",
+     re.compile(r"bwd_dq_kernelI" + _SM90_TYPE + r"Li(\d+)ELi(\d)E"
+                + r"Lb(\d)E" * 4),
      ("+seg", "+drop", "+bias", "+dbias"), "rows"),
 )
 
 
 def sm90_instances(text: str) -> dict:
     """``{instance: (registers, spill-store bytes)}`` of the Hopper
-    kernels (the bf16 forward's ``fwd_kernel<D, NC, SEGS, DROP, BIAS,
-    QSCALE>``, the bf16 backward's ``bwd_dkv_kernel<D, NC, SEGS, DROP,
-    BIAS>`` and ``bwd_dq_kernel<D, NC, SEGS, DROP, BIAS, DBIAS>``) from
-    ``nvcc -Xptxas -v`` output."""
+    kernels (the forward's ``fwd_kernel<T, D, NC, SEGS, DROP, BIAS,
+    QSCALE>``, the backward's ``bwd_dkv_kernel<T, D, NC, SEGS, DROP,
+    BIAS>`` and ``bwd_dq_kernel<T, D, NC, SEGS, DROP, BIAS, DBIAS>``, T
+    bf16 or fp16) from ``nvcc -Xptxas -v`` output."""
     found, current = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -437,10 +513,13 @@ def sm90_instances(text: str) -> dict:
                 t = pattern.search(m.group(1))
                 if not (t and "sm90" in m.group(1)):
                     continue
-                d, nc, *on = (int(x) for x in t.groups())
+                ty, d, nc, *on = t.groups()
+                d, nc, on = int(d), int(nc), [int(x) for x in on]
+                ty = "bf16" if ty.endswith("bfloat16") else "fp16"
                 flags = "".join(f for f, x in zip(names, on) if x)
                 plain = "" if any(on[:3]) else " plain"
-                current = f"{kind} d={d} {tile}={64 * nc}{plain}{flags}"
+                current = (f"{ty} {kind} d={d} {tile}={64 * nc}{plain}"
+                           f"{flags}")
                 found[current] = (0, 0)
                 break
             continue
@@ -500,6 +579,11 @@ def phase_build() -> str:
     logs = common.build()
     log(f"[build] {len(logs)} CUDA sources compiled in "
         f"{time.perf_counter() - t0:.1f} s: {sorted(logs)}")
+    # one nvcc a source, all started together: each one's end, from the
+    # start (the fp16 attention instances build in the _f16 sources)
+    log("  each source's compile ended at: " + ", ".join(
+        f"{n} {t:.1f} s" for n, t in sorted(common.BUILD_SECONDS.items(),
+                                            key=lambda x: x[1])))
     # the -Xptxas -v report, summed per source: a kernel that spills or
     # needs more registers than its launch bounds allow shows here
     for name, text in sorted(logs.items()):
@@ -540,11 +624,12 @@ def phase_kernels(dev) -> dict:
     heads = FLAGSHIP["num_attention_heads"]
     d = hidden // heads
 
-    records.update(layer_norm_kernels(randn, dev))
+    records.update(timed("kernels: layer_norm_kernels", layer_norm_kernels,
+                         randn, dev))
 
     # -- short prefill attention: b=1, h=8, causal ----------------------
     log("[kernels] short_fwd (CUDA), b=1 h=8 d=128 causal")
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32,) + SM90_DTYPES:
         for s in (512, 100):
             q, k, v = (randn(1, heads, s, d, dtype=dtype) for _ in range(3))
             got = short.short_fwd(q, k, v, causal=True)
@@ -557,11 +642,12 @@ def phase_kernels(dev) -> dict:
                      "> 1e-3")
             log(f"  short_fwd {str(dtype)[6:]} s={s} lse: max_abs_err "
                 f"{lse_err:.3g} (tolerance 1e-3)")
-            if dtype != torch.bfloat16 or s != 512:
+            if dtype not in SM90_DTYPES or s != 512:
                 continue
             pairs = heads * s * (s + 1) / 2           # causal (q, k) pairs
-            records["short_fwd"] = [measure(
-                "short_fwd", f"b=1 h={heads} s={s} d={d} causal bf16", err,
+            records[f16("short_fwd", dtype)] = [measure(
+                f16("short_fwd", dtype),
+                f"b=1 h={heads} s={s} d={d} causal {dtype_name(dtype)}", err,
                 lambda: short.short_fwd(q, k, v, causal=True),
                 lambda: short._short_fwd_plain(q, k, v, True, d ** -0.5),
                 ("SDPA", lambda: F.scaled_dot_product_attention(
@@ -569,25 +655,34 @@ def phase_kernels(dev) -> dict:
                 nbytes=4 * q.numel() * q.element_size() + heads * s * 4,
                 ops=4.0 * d * pairs, dtype=dtype)]
 
-    records.update(attention_train_kernels(randn))
+    # each part's wall, so the script's 450 s can be kept
+    part = lambda fn, *args: timed(f"kernels: {fn.__name__}", fn, *args)
+    records.update(part(attention_train_kernels, randn))
 
-    records.update(decode_kernels(randn, dev))
-    records.update(flash_kernels(randn))
-    crossover_long(randn)
-    records.update(dequant_kernels(randn))
-    records.update(decode_int8_kernels(randn, dev))
-    records.update(decode_rows_kernels(randn, dev))
-    for name, recs in decode_split_kernels(randn, dev).items():
+    records.update(part(decode_kernels, randn, dev))
+    records.update(part(flash_kernels, randn))
+    part(crossover_long, randn)
+    records.update(part(dequant_kernels, randn))
+    records.update(part(decode_int8_kernels, randn, dev))
+    records.update(part(decode_rows_kernels, randn, dev))
+    for name, recs in part(decode_split_kernels, randn, dev).items():
         records[name].extend(recs)
-    records.update(softmax_kernels(randn))
-    records.update(segment_kernels(randn))
-    records.update(dropout_kernels(randn))
-    records.update(gumbel_kernels(randn, dev))
-    records.update(bias_kernels(randn))
-    records.update(dbias_kernels(randn))
-    records.update(optimizer_kernels(randn, dev))
-    fwd_sm90_kernels(randn, dev)
-    bwd_sm90_kernels(randn, dev)
+    records.update(part(softmax_kernels, randn))
+    records.update(part(segment_kernels, randn))
+    records.update(part(dropout_kernels, randn))
+    records.update(part(gumbel_kernels, randn, dev))
+    records.update(part(bias_kernels, randn))
+    records.update(part(dbias_kernels, randn))
+    records.update(part(optimizer_kernels, randn, dev))
+    part(fwd_sm90_kernels, randn, dev)
+    part(bwd_sm90_kernels, randn, dev)
+    # each fp16 row beside its bf16 row, timed in this call at one shape
+    for name in sorted(records):
+        if name.endswith("_f16") and name[:-4] in records:
+            rec, bf = records[name][0], records[name[:-4]][0]
+            rec["bf16_ms"] = bf["ms"]
+            log(f"  {name}: {rec['ms']:.4f} ms, {rec['ms'] / bf['ms']:.3f}x "
+                f"the bf16 instance ({bf['ms']:.4f} ms) at {rec['shape']}")
     return records
 
 
@@ -596,11 +691,13 @@ def phase_kernels(dev) -> dict:
 #: 8 x 1024 tokens; the backward at the last two
 LN_ROWS = (4, 512, 2304, 8192)
 LN_BWD_ROWS = (2304, 8192)
-#: (label, x dtype, rms): the O5 norms (bf16 x, fp32 parameters) and the
-#: final norm's fp32 input (``_final_norm``)
+#: (label, x dtype, rms): the O5 norms (bf16 x, fp32 parameters), the
+#: final norm's fp32 input (``_final_norm``) and O2's (fp16 x, fp32
+#: parameters)
 LN_CASES = (("layer norm bf16", torch.bfloat16, False),
             ("RMSNorm bf16", torch.bfloat16, True),
-            ("layer norm fp32 x", torch.float32, False))
+            ("layer norm fp32 x", torch.float32, False),
+            ("layer norm fp16 (O2)", torch.float16, False))
 #: other instances, held but not timed: (rows, hidden, x dtype, parameter
 #: dtype, rms): ragged hiddens (the scalar instances), rows past one
 #: register chunk (read again each pass), bf16 and fp16 parameters
@@ -609,6 +706,7 @@ LN_PROBES = ((37, 72, torch.bfloat16, torch.bfloat16, False),
              (9, 3000, torch.bfloat16, torch.float32, True),
              (66, 4100, torch.float16, torch.float16, False),
              (5, 1024, torch.float16, torch.float32, True),
+             (8192, 1024, torch.float16, torch.float16, False),
              (3, 8192, torch.bfloat16, torch.bfloat16, False))
 #: the share of a bf16 dx's elements that may lie more than one bf16 ulp
 #: (at the element's own magnitude) off the plain version: the kernel's
@@ -1409,7 +1507,7 @@ def softmax_kernels(randn) -> dict:
     mask = randn(b, 1, s, s) > 1.0            # about 16% of keys masked
     mask[0, 0, 5] = True                      # one fully masked row
     records = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in SM90_DTYPES + (torch.float32,):
         dt = str(dtype)[6:]
         x = randn(b, np_, s, s, dtype=dtype, scale=3.0)
         xs = (x.float() * scale).to(dtype)
@@ -1418,12 +1516,15 @@ def softmax_kernels(randn) -> dict:
             run = lambda: sm._softmax_fwd(x, m, scale, causal)
             plain = lambda: sm._softmax_fwd_plain(x, m, scale, causal)
             err = check("softmax_fwd", run(), plain(), f"{dt} {what}")
-            if dtype != torch.bfloat16:
+            if dtype not in SM90_DTYPES:
                 continue
             nbytes = (softmax_read(x, m, causal) + x.numel()) \
                 * x.element_size() + (0 if m is None else m.numel())
+            # one counter for both 16-bit types (the Triton kernel is
+            # specialised on the pointer's type): bf16 first, the result
+            # line's record
             records.setdefault("softmax_fwd", []).append(measure(
-                "softmax_fwd", f"({b}, {np_}, {s}, {s}) {what} bf16", err,
+                "softmax_fwd", f"({b}, {np_}, {s}, {s}) {what} {dt}", err,
                 run, plain,
                 ("torch.softmax on the pre-scaled input",
                  lambda: torch.softmax(xs, dim=-1)),
@@ -1448,11 +1549,13 @@ def flash_kernels(randn) -> dict:
     scale = d ** -0.5
     records = {}
     log("[kernels] flash_fwd, flash_bwd_dkv, flash_bwd_dq (CUDA), d=128")
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32,) + SM90_DTYPES:
         dt = str(dtype)[6:]
         for bh, sq, sk, causal in ((b * heads, LONG_SEQ, LONG_SEQ, True),
                                    (4, 2500, 2500, True),
                                    (4, 700, 900, False)):
+            if dtype == torch.float16 and sq != LONG_SEQ:
+                continue        # fp16's ragged cases: bwd_sm90_kernels
             q, dout = (randn(bh, sq, d, dtype=dtype) for _ in range(2))
             k, v = (randn(bh, sk, d, dtype=dtype) for _ in range(2))
             what = f"{dt} bh={bh} sq={sq} sk={sk} causal={causal}"
@@ -1471,10 +1574,10 @@ def flash_kernels(randn) -> dict:
             dq_err = check("flash_bwd_dq", dq, want[0], f"{what} dq")
             dkv_err = max(check("flash_bwd_dkv", dk, want[1], f"{what} dk"),
                           check("flash_bwd_dkv", dv, want[2], f"{what} dv"))
-            if dtype != torch.bfloat16 or sq != LONG_SEQ:
+            if dtype not in SM90_DTYPES or sq != LONG_SEQ:
                 continue
             s = LONG_SEQ
-            shape = f"b={b} h={heads} s={s} d={d} causal bf16"
+            shape = f"b={b} h={heads} s={s} d={d} causal {dt}"
             numel = q.numel() * q.element_size()
             rows = b * heads * s * 4                  # an fp32 (b*h, s) row
             pairs = b * heads * s * (s + 1) / 2       # causal (q, k) pairs
@@ -1492,8 +1595,8 @@ def flash_kernels(randn) -> dict:
             log(f"  SDPA forward+backward through autograd {shape}: "
                 f"{fb_ms:.4f} ms of device time (profiler), the forward "
                 f"alone {f_ms:.4f}, so the backward {fb_ms - f_ms:.4f}")
-            records["flash_fwd"] = [measure(
-                "flash_fwd", shape, fwd_err,
+            records[f16("flash_fwd", dtype)] = [measure(
+                f16("flash_fwd", dtype), shape, fwd_err,
                 lambda: fl.flash_fwd(q, k, v, causal=True),
                 lambda: fl._flash_fwd_plain(q, k, v, True, scale),
                 ("SDPA", lambda: F.scaled_dot_product_attention(
@@ -1511,6 +1614,7 @@ def flash_kernels(randn) -> dict:
                     ("flash_bwd_dq", lambda: fl.flash_bwd_dq(
                         q, k, v, dout, lse, delta, causal=True), 1, 3,
                      dq_err)):
+                name = f16(name, dtype)
                 rec = measure(name, shape, err, fn, plain_bwd, None,
                               nbytes=(4 + n_out) * numel + 2 * rows,
                               ops=2.0 * n_prod * d * pairs, dtype=dtype,
@@ -1625,7 +1729,7 @@ def attention_train_kernels(randn) -> dict:
     scale = d ** -0.5
     records = {}
     log("[kernels] short_bwd, mid_fwd, mid_bwd (CUDA), b=8 h=8 d=128 causal")
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32,) + SM90_DTYPES:
         dt = str(dtype)[6:]
         for kind, s in (("short", 512), ("mid", 1024), ("mid", 640)):
             q, k, v, dout = (randn(b, heads, s, d, dtype=dtype)
@@ -1655,9 +1759,9 @@ def attention_train_kernels(randn) -> dict:
             what = f"{dt} s={s}" + (" with dlse" if dlse is not None else "")
             errs = [check(name, g, w, f"{what} {n}")
                     for g, w, n in zip(got, want, ("dq", "dk", "dv"))]
-            if dtype != torch.bfloat16 or s == 640:
+            if dtype not in SM90_DTYPES or s == 640:
                 continue
-            shape = f"b={b} h={heads} s={s} d={d} causal bf16"
+            shape = f"b={b} h={heads} s={s} d={d} causal {dt}"
             qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
 
             def sdpa_fwd_bwd():
@@ -1671,8 +1775,8 @@ def attention_train_kernels(randn) -> dict:
                 f"{fb_ms:.4f} ms of device time (profiler), the forward "
                 f"alone {f_ms:.4f}, so the backward {fb_ms - f_ms:.4f}")
             if kind == "mid":
-                records["mid_fwd"] = [measure(
-                    "mid_fwd", shape, fwd_err,
+                records[f16("mid_fwd", dtype)] = [measure(
+                    f16("mid_fwd", dtype), shape, fwd_err,
                     lambda: mid.mid_fwd(q, k, v, causal=True),
                     lambda: mid._mid_fwd_plain(q, k, v, True, scale),
                     ("SDPA", lambda: F.scaled_dot_product_attention(
@@ -1680,6 +1784,7 @@ def attention_train_kernels(randn) -> dict:
                     nbytes=4 * numel + b * heads * s * 4, ops=4.0 * d * pairs,
                     dtype=dtype)]
             # five products per (q, k) pair: s, dp, dv, dk, dq
+            name = f16(name, dtype)
             rec = measure(
                 name, shape, max(errs),
                 lambda: bwd(q, k, v, out, dout, lse, causal=True),
@@ -1780,9 +1885,11 @@ def segment_kernels(randn) -> dict:
     log(f"[kernels] segment-id variants (CUDA), h={heads} d={d}, not causal")
     for rung, b, s in SEG_SHAPES:
         timed_kind = "bert" if rung == "short" else "docs"
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32,) + SM90_DTYPES:
             dt = str(dtype)[6:]
             for kind in (timed_kind, "fmha"):
+                if dtype == torch.float16 and kind != timed_kind:
+                    continue    # fp16's ragged cases: bwd_sm90_kernels
                 q, k, v, dout = (randn(b, heads, s, d, dtype=dtype)
                                  for _ in range(4))
                 qi, ki = segment_ids(kind, b, s, q.device, seed=s + b)
@@ -1811,8 +1918,9 @@ def segment_kernels(randn) -> dict:
                         *flat, fl_lse, delta, **fids))
                     gq = fl.flash_bwd_dq(*flat, fl_lse, delta,
                                          **fids).view_as(q)
-                    names = ("flash_fwd_seg", "flash_bwd_dq_seg",
-                             "flash_bwd_dkv_seg")
+                    names = tuple(f16(n, dtype) for n in (
+                        "flash_fwd_seg", "flash_bwd_dq_seg",
+                        "flash_bwd_dkv_seg"))
                 else:
                     fwd, bwd = ((short.short_fwd, short.short_bwd)
                                 if rung == "short"
@@ -1822,7 +1930,8 @@ def segment_kernels(randn) -> dict:
                     wq, wk, wv = short._short_bwd_plain(
                         q, k, v, out, dout, lse, None, False, scale, qi, ki)
                     gq, gk, gv = bwd(q, k, v, out, dout, lse, **ids)
-                    names = (f"{rung}_fwd_seg",) + (f"{rung}_bwd_seg",) * 2
+                    names = (f16(f"{rung}_fwd_seg", dtype),) + (
+                        f16(f"{rung}_bwd_seg", dtype),) * 2
                     want_lse = lse
                 fwd_err = check(names[0], got, want, f"{what} out")
                 live = ~rows
@@ -1841,7 +1950,7 @@ def segment_kernels(randn) -> dict:
                              "is not about -1e30")
                     log(f"  {what}: {int(dead.sum())} fully masked query "
                         "rows give out 0 and dq 0 exactly")
-                if dtype != torch.bfloat16 or kind != timed_kind:
+                if dtype not in SM90_DTYPES or kind != timed_kind:
                     continue
                 records.update(seg_records(
                     rung, b, s, q, k, v, dout, out, lse, qi, ki, names,
@@ -1862,7 +1971,7 @@ def seg_records(rung, b, s, q, k, v, dout, out, lse, qi, ki, names, errs):
     ids = dict(q_segment_ids=qi, kv_segment_ids=ki)
     mask = (qi[:, :, None] == ki[:, None, :])[:, None]        # (b, 1, s, s)
     pairs = heads * seg_pairs(qi, ki)
-    shape = (f"b={b} h={heads} s={s} d={d} bf16, "
+    shape = (f"b={b} h={heads} s={s} d={d} {dtype_name(q.dtype)}, "
              f"{pairs / (b * heads * s * s):.3f} of the pairs visible")
     numel = q.numel() * q.element_size()
     rows = b * heads * s * 4                  # an fp32 (b*h, s) row
@@ -1958,7 +2067,10 @@ DROP_SHAPES = (
 #: phase 2's draws: a decode step's 4 slots and a k=4 chain verify of 4
 #: slots (20 rows), over the flagship's vocabulary
 GUMBEL_ROWS = (4, 20)
-GUMBEL_CTX = 256
+#: ctx values held a case (256 before the fp16 phases came, cut to keep
+#: the script's wall under 450 s; each value is one plain draw of every
+#: row, some 15 ms)
+GUMBEL_CTX = 64
 #: a row may go either way when the plain version's top two ``y + g``
 #: lie within this many fp32 ulps of the larger; such rows are counted,
 #: and may be at most this share of the rows
@@ -2078,7 +2190,7 @@ def dropout_kernels(randn) -> dict:
     key = fold_in(PRNGKey(7), 1)
     log("[kernels] dropout (Triton): the flagship's hidden activation, "
         f"8 x 1024 x 1024, rate {DROP_RATE}")
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32,) + SM90_DTYPES:
         x = randn(8, 1024, 1024, dtype=dtype)
         got = dr.dropout_fwd(x, key, DROP_RATE)
         want = dr._dropout_plain(x, key, DROP_RATE)
@@ -2088,22 +2200,27 @@ def dropout_kernels(randn) -> dict:
         kept = (got != 0).float().mean().item()
         log(f"  dropout {str(dtype)[6:]}: bit-identical to the plain "
             f"version; {kept:.4f} of the elements kept")
-        if dtype == torch.bfloat16:
-            # bound: x read once, y written once; the hash's integer
-            # operations have no rate in the table, the division and the
-            # compare are fp32
-            records["dropout"] = [measure(
-                "dropout", "8 x 1024 x 1024 bf16", 0.0,
+        if dtype in SM90_DTYPES:
+            # bound: x read once, y written once, or the hash's
+            # dr.HASH_OPS 32-bit integer operations an element at the
+            # card's 67 T/s of 32-bit operations (as gumbel_argmax's),
+            # whichever is longer
+            name = f16("dropout", dtype)
+            records[name] = [measure(
+                name, f"8 x 1024 x 1024 {dtype_name(dtype)}", 0.0,
                 lambda: dr.dropout_fwd(x, key, DROP_RATE),
                 lambda: dr._dropout_plain(x, key, DROP_RATE),
                 ("F.dropout", lambda: F.dropout(x, DROP_RATE, training=True)),
                 nbytes=2 * x.numel() * x.element_size(),
-                ops=2.0 * x.numel(), dtype=torch.float32, plain_iters=10)]
+                ops=float(dr.HASH_OPS) * x.numel(), dtype=torch.float32,
+                plain_iters=10)]
     drop = (DROP_RATE, DROP_SEED)
     log(f"[kernels] attention dropout instances (CUDA), rate {DROP_RATE}, "
         f"seed {DROP_SEED:#x}")
     for rung, b, heads, s, d, causal, kind, timed_names in DROP_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32,) + SM90_DTYPES:
+            if dtype == torch.float16 and not timed_names:
+                continue
             q, k, v, dout = (randn(b, heads, s, d, dtype=dtype)
                              for _ in range(4))
             ids = (segment_ids(kind, b, s, q.device, seed=s + b) if kind
@@ -2115,10 +2232,11 @@ def dropout_kernels(randn) -> dict:
                                  check(name, got, want,
                                        f"{str(dtype)[6:]} b={b} h={heads} "
                                        f"s={s} d={d} {label}"))
-            if dtype == torch.bfloat16:
+            if dtype in SM90_DTYPES:
                 records.update(variant_records(
                     rung, b, heads, s, d, causal, kind, q, k, v, dout, ids,
-                    drop, run, errs, timed_names))
+                    drop, run, errs, tuple(f16(n, dtype)
+                                           for n in timed_names)))
     drop_masks(randn)
     return records
 
@@ -2148,7 +2266,8 @@ def variant_run(rung, q, k, v, dout, causal, ids, drop, bias=None):
     # without the dropout
     base = dict(kw) if bias is not None else dict(
         q_segment_ids=qi, kv_segment_ids=ki)
-    tag = short.counter(("", "_seg"), qi is not None, drop, slab)
+    tag = short.counter(("", "_seg"), qi is not None, drop, slab,
+                        half=q.dtype == torch.float16)
     run = {}
     if rung == "flash":
         flat = [t.reshape(b * heads, -1, d) for t in (q, k, v, dout)]
@@ -2278,7 +2397,8 @@ def variant_records(rung, b, heads, s, d, causal, kind, q, k, v, dout, ids,
              + (" causal" if causal else "")
              + (f" {kind} ids" if qi is not None and bias is None else "")
              + (" ids" if qi is not None and bias is not None else "")
-             + (" dropout" if drop and bias is not None else "") + " bf16")
+             + (" dropout" if drop and bias is not None else "")
+             + f" {dtype_name(q.dtype)}")
     without = "bias" if bias is not None else "dropout"
     label = ("SDPA" + (" (float mask)" if bias is not None else "")
              + (f" dropout_p={p}" if p else ""))
@@ -2340,28 +2460,34 @@ FWD_SM90_LONELY_ROW = 3
 
 
 def fwd_sm90_kernels(randn, dev) -> None:
-    """Every bf16 instance of the short, mid and flash forwards (the
-    wgmma/TMA kernel: d = 64 and 128, segment ids x dropout x bias) at
-    ragged shapes, against its plain version on the same inputs and for
-    the same bits on a second call: out within two bf16 ulps, lse within
+    """Every bf16 and fp16 instance of the short, mid and flash forwards
+    (the wgmma/TMA kernel: d = 64 and 128, segment ids x dropout x bias)
+    at ragged shapes, against its plain version on the same inputs and for
+    the same bits on a second call: out within two ulps of the type, lse
+    within
     1e-3 where the row sees a key and about -1e30 where it sees none.
     The ids are blocks of 150 positions, with query row
     :data:`FWD_SM90_LONELY_ROW` at an id no key has; the bias is per
     (batch, head) with the rows of :data:`BIAS_MASKED_ROWS` hidden, whose
     output is the uniform mean of V over the keys they see."""
+    for dtype in SM90_DTYPES:
+        fwd_sm90_dtype(randn, dev, dtype)
+
+
+def fwd_sm90_dtype(randn, dev, dtype) -> None:
     from apex_tpu_torch.ops import attention_flash as fl
     from apex_tpu_torch.ops import attention_mid as mid
     from apex_tpu_torch.ops import attention_short as short
 
-    log("[kernels] bf16 forwards (attention_fwd_sm90.cuh): every instance "
-        "at ragged shapes")
+    log(f"[kernels] {dtype_name(dtype)} forwards (attention_fwd_sm90.cuh): "
+        "every instance at ragged shapes")
     entries = {"short": short.short_fwd, "mid": mid.mid_fwd}
     worst, n = {}, 0
     for rung, b, heads, sq, sk, causal in FWD_SM90_CASES:
         for d in (64, 128):
-            q = randn(b, heads, sq, d, dtype=torch.bfloat16)
-            k = randn(b, heads, sk, d, dtype=torch.bfloat16)
-            v = randn(b, heads, sk, d, dtype=torch.bfloat16)
+            q = randn(b, heads, sq, d, dtype=dtype)
+            k = randn(b, heads, sk, d, dtype=dtype)
+            v = randn(b, heads, sk, d, dtype=dtype)
             ki = (torch.arange(sk, device=dev) // 150).int().expand(b, sk)
             qi = (torch.arange(sq, device=dev) // 150).int().expand(
                 b, sq).contiguous()
@@ -2396,8 +2522,10 @@ def fwd_sm90_kernels(randn, dev) -> None:
                         got, got_lse = call()
                         again, again_lse = call()
                         name = (f"{rung}_fwd" + short.counter(
-                            ("", "_seg"), segs, drop, slab))
-                        what = (f"bf16 d={d} b={b} h={heads} sq={sq} sk={sk}"
+                            ("", "_seg"), segs, drop, slab,
+                            half=dtype == torch.float16))
+                        what = (f"{dtype_name(dtype)} d={d} b={b} h={heads} "
+                                f"sq={sq} sk={sk}"
                                 f"{' causal' if causal else ''}")
                         if not (torch.equal(got, again)
                                 and torch.equal(got_lse, again_lse)):
@@ -2483,28 +2611,34 @@ def bwd_sm90_calls(rung, b, heads, q, k, v, dout, dlse, causal, ids, drop,
 
 
 def bwd_sm90_kernels(randn, dev) -> None:
-    """Every bf16 instance of the short, mid and flash backwards (the
-    wgmma/TMA kernels of attention_bwd_sm90.cuh: d = 64 and 128, segment
+    """Every bf16 and fp16 instance of the short, mid and flash backwards
+    (the wgmma/TMA kernels of attention_bwd_sm90.cuh: d = 64 and 128, segment
     ids x dropout x bias, and beside each bias the dQ kernel's dBias
     instance) at :data:`BWD_SM90_CASES`, fed the plain forward's ``out``
     and ``lse`` and held against ``_short_bwd_plain`` (flash:
     ``_flash_bwd_plain``, :func:`bwd_sm90_calls`) on the same inputs and
-    for the same bits on a second call: dq, dk and dv within two bf16 ulps
-    of their largest magnitude (:func:`tolerance`, as every backward check
+    for the same bits on a second call: dq, dk and dv within two ulps of
+    the type at their largest magnitude (:func:`tolerance`, as every backward check
     of phase 2), a dBias element by element within :func:`dbias_band`.
     The ids, the lonely query row (:data:`FWD_SM90_LONELY_ROW`, which sees
     no key) and the bias with its hidden rows are those of
     :func:`fwd_sm90_kernels`; the mid cases take a real ``dlse``."""
+    for dtype in SM90_DTYPES:
+        bwd_sm90_dtype(randn, dev, dtype)
+
+
+def bwd_sm90_dtype(randn, dev, dtype) -> None:
     from apex_tpu_torch.ops import attention_short as short
 
-    log("[kernels] bf16 backwards (attention_bwd_sm90.cuh): every instance "
-        "at ragged shapes")
+    log(f"[kernels] {dtype_name(dtype)} backwards (attention_bwd_sm90.cuh): "
+        "every instance at ragged shapes")
+    half = dtype == torch.float16
     worst, band, n = {}, 0.0, 0
     for rung, b, heads, sq, sk, causal in BWD_SM90_CASES:
         for d in (64, 128):
-            q, dout = (randn(b, heads, sq, d, dtype=torch.bfloat16)
+            q, dout = (randn(b, heads, sq, d, dtype=dtype)
                        for _ in range(2))
-            k, v = (randn(b, heads, sk, d, dtype=torch.bfloat16)
+            k, v = (randn(b, heads, sk, d, dtype=dtype)
                     for _ in range(2))
             ki = (torch.arange(sk, device=dev) // 150).int().expand(
                 b, sk).contiguous()
@@ -2526,14 +2660,15 @@ def bwd_sm90_kernels(randn, dev) -> None:
                                 ids, drop, slab, bb, grad)
                             got, again = call(), call()
                             suffix = short.counter(("", "_seg"), segs, drop,
-                                                   slab, grad)
+                                                   slab, grad, half)
                             names = ((f"{rung}_bwd{suffix}",) * 3
                                      if rung != "flash" else
                                      (f"flash_bwd_dq{suffix}",) + (
                                          "flash_bwd_dkv" + short.counter(
                                              ("", "_seg"), segs, drop,
-                                             slab),) * 2)
-                            what = (f"bf16 d={d} b={b} h={heads} sq={sq} "
+                                             slab, half=half),) * 2)
+                            what = (f"{dtype_name(dtype)} d={d} b={b} "
+                                    f"h={heads} sq={sq} "
                                     f"sk={sk}{' causal' if causal else ''}"
                                     f"{' dlse' if dlse is not None else ''}")
                             if not all(torch.equal(g, a)
@@ -3502,7 +3637,8 @@ def phase_serve_chunked(model) -> dict:
 
 def phase_serve_spec(model) -> dict:
     """Phase 4's model (12-layer flagship, bf16): 4 slots of 32-token
-    repetitive prompts (a 4-token pattern tiled), 24 new tokens, k=4,
+    repetitive prompts (a 4-token pattern tiled), 16 new tokens (24 before
+    the fp16 phases came, cut for the script's wall), k=4,
     pages of 64: plain decode, a chain verify with n-gram drafts, and an
     ``offramp_tree(4)`` verify fed by the int4 ``ModelDraftSource`` of the
     same weights; each greedy with the steps replayed, greedy eager, and
@@ -3518,7 +3654,7 @@ def phase_serve_spec(model) -> dict:
         ContinuousBatcher, KVCacheConfig, PagedKVCache, Request, init_pools,
         NGramDraftSource, offramp_tree)
 
-    k, new, plen, slots = 4, 24, 32, 4
+    k, new, plen, slots = 4, 16, 32, 4
     c = model.config
     log(f"[serve-spec] flagship GPT, 12 layers, bf16: {slots} slots of "
         f"{plen}-token repetitive prompts x {new} tokens, k={k}: plain vs "
@@ -4085,13 +4221,20 @@ TRAIN_LONG = ["--position-embedding", "rope", "--activation", "swiglu",
               "--micro-batch", "2", "--num-micro", "1"]
 
 
+#: each training phase's figures by label, for the summary lines
+TRAIN_SUMMARY = {}
+
+
 def phase_train(dev, flags=TRAIN_FLAGSHIP, label="train",
-                need=LN_TRAIN + ("mid_fwd", "mid_bwd", "multi_tensor_adam")):
-    """A 12-layer GPT at O5 (bf16 params and compute, fp32 norms and
-    masters), remat on, through the port trainer's step as ``gpt_pretrain
-    <flags>`` builds it (the flagship, 8 x 1024 tokens, by default): 2
-    warm-up steps, then 10 timed steps on a repeated batch; the kernels
-    in ``need`` must have launched."""
+                need=LN_TRAIN + ("mid_fwd", "mid_bwd", "multi_tensor_adam"),
+                opt_level="O5"):
+    """A 12-layer GPT at ``opt_level`` (O5: bf16 params and compute, fp32
+    norms and masters; O2: the same in fp16 with the dynamic loss scaler),
+    remat on, through the port trainer's step as ``gpt_pretrain <flags>
+    --opt-level <opt_level>`` builds it (the flagship, 8 x 1024 tokens, by
+    default): 2 warm-up steps, then 10 timed steps on a repeated batch;
+    the kernels in ``need`` must have launched.  With a loss scaler every
+    skipped step (its gradients not finite) is printed."""
     from apex_tpu_torch.amp import get_policy
     from apex_tpu_torch.examples import gpt_pretrain
     from apex_tpu_torch.models import GPTModel
@@ -4099,9 +4242,10 @@ def phase_train(dev, flags=TRAIN_FLAGSHIP, label="train",
     from apex_tpu_torch.telemetry import mfu
 
     args = gpt_pretrain.parse_args(flags + [
-        "--opt-level", "O5", "--lr", "3e-4", "--device", str(dev)])
-    log(f"[{label}] gpt_pretrain {' '.join(flags)}: 12 layers, O5, remat "
-        "on, 2 warm-up + 10 timed steps of the port trainer on one batch")
+        "--opt-level", opt_level, "--lr", "3e-4", "--device", str(dev)])
+    log(f"[{label}] gpt_pretrain {' '.join(flags)}: {args.layers} layers, "
+        f"{opt_level}, remat on, 2 warm-up + 10 timed steps of the port "
+        "trainer on one batch")
     tr = gpt_pretrain.Trainer(args)
     batch = tr.to_device(*gpt_pretrain.batches(
         np.random.default_rng(0), 1, tr.global_batch, args.seq,
@@ -4115,15 +4259,24 @@ def phase_train(dev, flags=TRAIN_FLAGSHIP, label="train",
         loss_fp32 = ref.loss(*batch).item()
     del ref
     torch.cuda.empty_cache()
-    warm = [tr.step(*batch) for _ in range(2)]
+    finite = []
+
+    def step():
+        loss = tr.step(*batch)
+        if tr.finite is not None:
+            finite.append(tr.finite)
+        return loss
+
+    warm = [step() for _ in range(2)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    losses = [tr.step(*batch) for _ in range(10)]
+    losses = [step() for _ in range(10)]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
+    skipped = [i + 1 for i, f in enumerate(finite) if not bool(f)]
     losses = [float(x) for x in torch.stack(warm + losses).cpu()]
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[2] < losses[0]:
@@ -4131,15 +4284,22 @@ def phase_train(dev, flags=TRAIN_FLAGSHIP, label="train",
     ms = 1e3 * wall / 10
     tps = tr.tokens_per_step / (ms / 1e3)
     util = mfu(tps, tr.flops_per_token, PEAK_OPS_PER_S[torch.bfloat16])
-    log(f"  step 1 loss: {losses[0]:.5f} at O5 vs {loss_fp32:.5f} at fp32 "
-        f"from the same weights (|diff| {abs(losses[0] - loss_fp32):.5f})")
+    log(f"  step 1 loss: {losses[0]:.5f} at {opt_level} vs {loss_fp32:.5f} "
+        f"at fp32 from the same weights (|diff| "
+        f"{abs(losses[0] - loss_fp32):.5f})")
     log(f"  losses: {' '.join(f'{x:.4f}' for x in losses)}")
+    if tr.use_scaler:
+        scale = float(tr.amp_state.scaler_states[0].loss_scale)
+        log(f"  skipped steps (of the 12): {skipped or 'none'}; loss scale "
+            f"{scale:g} after the last")
     log(f"  {ms:.2f} ms/step, {tps:,.0f} tokens/s, MFU {util:.4f} against "
         f"the 989 TFLOP/s bf16 dense peak ({tr.n_params:,} params, the "
         f"SwiGLU gate included where there is one; {tr.flops_per_token:,} "
         f"model FLOPs per token, 6·N + 12·L·h·s at s={args.seq})")
-    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-        " GiB")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  peak device memory {peak:.2f} GiB")
+    TRAIN_SUMMARY[label] = dict(level=opt_level, ms=ms, tps=tps, mfu=util,
+                                peak_gib=peak, skipped=skipped)
     log(f"  launches in the 10 timed steps: {counts} (per step: "
         + ", ".join(f"{k} {v / 10:g}" for k, v in sorted(counts.items()))
         + ")")
@@ -4379,7 +4539,9 @@ def bias_kernels(randn) -> dict:
         f"fp32 biases, rows {BIAS_MASKED_ROWS} hidden by the bias alone")
     for (rung, b, heads, sq, sk, d, causal, kind, ids_kind, dropped,
          timed_names) in BIAS_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32,) + SM90_DTYPES:
+            if dtype == torch.float16 and not timed_names:
+                continue
             q, dout = (randn(b, heads, sq, d, dtype=dtype) for _ in range(2))
             k, v = (randn(b, heads, sk, d, dtype=dtype) for _ in range(2))
             ids = (segment_ids(ids_kind, b, sq, q.device, seed=sq + b)
@@ -4412,10 +4574,11 @@ def bias_kernels(randn) -> dict:
                          f" > {tol:.3g}")
                 log(f"  {what}: rows {rows} the bias hides read as the "
                     f"uniform mean of V (max_abs_err {err:.3g})")
-            if dtype == torch.bfloat16 and timed_names:
+            if dtype in SM90_DTYPES and timed_names:
                 records.update(variant_records(
                     rung, b, heads, sq, d, causal, kind, q, k, v, dout, ids,
-                    drop, run, errs, timed_names, bias))
+                    drop, run, errs, tuple(f16(n, dtype)
+                                           for n in timed_names), bias))
             del q, k, v, dout, bias, run
     return records
 
@@ -4560,7 +4723,9 @@ def dbias_kernels(randn) -> dict:
         f"shared fp32 biases, rows {BIAS_MASKED_ROWS} hidden by the bias")
     for (rung, b, heads, sq, sk, d, kind, ids_kind, dropped,
          timed_name) in DBIAS_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32,) + SM90_DTYPES:
+            if dtype == torch.float16 and not timed_name:
+                continue
             q, dout = (randn(b, heads, sq, d, dtype=dtype) for _ in range(2))
             k, v = (randn(b, heads, sk, d, dtype=dtype) for _ in range(2))
             ids = (segment_ids(ids_kind, b, sq, q.device, seed=sq + b)
@@ -4574,7 +4739,7 @@ def dbias_kernels(randn) -> dict:
                     + (" dropout" if dropped else ""))
             name = ("flash_bwd_dq" if rung == "flash" else f"{rung}_bwd") + \
                 short.counter(("", "_seg"), ids_kind is not None, drop, bias,
-                              True)
+                              True, dtype == torch.float16)
             got, again, want = run["kernel"](), run["kernel"](), run["plain"]()
             err = 0.0
             for label, g, w in zip(run["names"][:-1], got, want):
@@ -4587,8 +4752,8 @@ def dbias_kernels(randn) -> dict:
                 f"{share:.3g} of its band ({DBIAS_TOL:g} of each row's "
                 f"largest |dbias|: {median:.3g} the median row's, {top:.3g} "
                 "the largest), the same bits on a second call")
-            if dtype == torch.bfloat16 and timed_name:
-                assert name == timed_name, (name, timed_name)
+            if dtype in SM90_DTYPES and timed_name:
+                assert name == f16(timed_name, dtype), (name, timed_name)
                 records[name] = [dbias_record(
                     rung, name, q, k, v, dout, ids, bias, run, max(err, db_err),
                     what, F)]
@@ -5192,7 +5357,7 @@ def bert_batch(rng, b: int, s: int, vocab: int, lo: int = 128) -> tuple:
 
 
 def phase_bert_parity(dev) -> dict:
-    """BERT at BERT-large's widths, 2 layers, fp32 (O0), b=4 x 512 with
+    """BERT at BERT-large's widths, 2 layers, fp32 (O0), b=2 x 512 with
     ragged lengths: one step (loss, backward, FusedAdam) on the GPU
     through the kernels against a CPU copy through the plain versions;
     then ``attention_impl`` short, mid and pallas on the card agree on
@@ -5206,11 +5371,13 @@ def phase_bert_parity(dev) -> dict:
     from apex_tpu_torch.optimizers import FusedAdam
 
     lr = 1e-3
-    log("[bert-parity] BERT-large widths, 2 layers, fp32 (O0), b=4 x 512 "
+    log("[bert-parity] BERT-large widths, 2 layers, fp32 (O0), b=2 x 512 "
         f"ragged: one step on the GPU vs the CPU, FusedAdam lr={lr}")
     cfg = BertConfig(**dict(BERT_LARGE, num_layers=2),
                      policy=get_policy("O0"))
-    data = bert_batch(np.random.default_rng(1), 4, BERT_SEQ,
+    # b=2 (4 before the fp16 phases came, cut for the script's wall: the
+    # CPU's step)
+    data = bert_batch(np.random.default_rng(1), 2, BERT_SEQ,
                       cfg.vocab_size)
     gpu = BertModel(cfg, device=dev, seed=5)
     cpu = BertModel(cfg, device="cpu", seed=5)
@@ -5517,13 +5684,14 @@ MASTER_ULPS = 2
 STEP_REL = 1e-5
 
 
-def flagship_list(dev):
-    """The flagship's parameter tensors at O5 (bf16 weights, fp32 norm
-    parameters): ``(shapes, dtypes)`` in ``model.parameters()`` order."""
+def flagship_list(dev, level: str = "O5"):
+    """The flagship's parameter tensors at ``level`` (O5: bf16 weights,
+    fp32 norm parameters; O2: fp16 weights, fp32 norm parameters):
+    ``(shapes, dtypes)`` in ``model.parameters()`` order."""
     from apex_tpu_torch.amp import get_policy
     from apex_tpu_torch.models import GPTConfig, GPTModel
 
-    model = GPTModel(GPTConfig(**FLAGSHIP, policy=get_policy("O5")),
+    model = GPTModel(GPTConfig(**FLAGSHIP, policy=get_policy(level)),
                      device=dev, seed=0)
     out = [(tuple(p.shape), p.dtype) for p in model.parameters()]
     del model
@@ -5566,11 +5734,13 @@ def state_equal(a, b) -> bool:
 
 
 def ulp_of(x: torch.Tensor) -> torch.Tensor:
-    """The spacing of ``x``'s dtype (fp32 or bf16) at ``x``'s magnitude,
-    in fp32."""
-    bits = 23 if x.dtype == torch.float32 else 7
+    """The spacing of ``x``'s dtype (fp32, bf16 or fp16) at ``x``'s
+    magnitude, in fp32."""
+    bits, tiny = {torch.float32: (23, 2.0 ** -126),
+                  torch.float16: (10, 2.0 ** -14)}.get(x.dtype,
+                                                       (7, 2.0 ** -126))
     return torch.exp2(torch.floor(torch.log2(
-        x.float().abs().clamp_min(2.0 ** -126))) - bits)
+        x.float().abs().clamp_min(tiny))) - bits)
 
 
 def band_off(got, want, before) -> float:
@@ -5694,7 +5864,10 @@ def optimizer_kernels(randn, dev) -> dict:
     bc = dict(bc1=one(f32_sub(1.0, 0.9 ** 7)),
               bc2=one(f32_sub(1.0, 0.999 ** 7)))
     records = {}
-    lists = {"flagship": specs, **edge_lists()}
+    # O2's list: fp16 weights (with fp32 masters, and in the "no masters"
+    # case O3's fp16 parameters updated in place)
+    specs_o2 = flagship_list(dev, "O2")
+    lists = {"flagship": specs, "flagship O2": specs_o2, **edge_lists()}
     errs = {}
     for label, sp in lists.items():
         # -- scale (in place, out of place, axpby) and the check ----------
@@ -5751,6 +5924,9 @@ def optimizer_kernels(randn, dev) -> dict:
                  ("adam", "clip", True, dict(clip=one(0.3)), torch.float32),
                  ("lamb", "trust ratios", True, {}, torch.float32))
         for kernel, what, master, kw, v_dtype in cases:
+            if label == "flagship O2" and what not in ("no clip",
+                                                       "no masters"):
+                continue    # O2's and O3's steps; the rest as at O5
             state = opt_state(randn, sp, master, v_dtype)
             ref = clone_state(state)
             orig = clone_state(state)
@@ -5820,6 +5996,24 @@ def optimizer_kernels(randn, dev) -> dict:
         nbytes=step_bytes(specs), ops=14.0 * n_el, dtype=torch.float32,
         plain_iters=3)]
     del lib_p, lib_g, lib_m, lib_v
+    # O2: fp16 weights and gradients, fp32 masters and moments
+    s16 = opt_state(randn, specs_o2, True)
+    rows16 = mt.step_rows(s16[0], s16[2], s16[3], s16[4])
+    p16 = clone_state(s16)
+    prow16 = mt.step_rows(p16[0], p16[2], p16[3], p16[4])
+    rec = measure(
+        "multi_tensor_adam", f"{len(specs_o2)} tensors, {n_el:,} elements, "
+        "O2 (fp16 weights, fp32 masters)", 0.0,
+        lambda: mt.adam(s16[1], rows16, **OPT_HYPER, **bc),
+        lambda: mt._adam_plain(s16[1], prow16, None, None, None, bc["bc1"],
+                               bc["bc2"], h),
+        None, nbytes=step_bytes(specs_o2), ops=14.0 * n_el,
+        dtype=torch.float32, plain_iters=3)
+    base = records["multi_tensor_adam"][0]["ms"]
+    log(f"  multi_tensor_adam O2: {rec['ms'] / base:.3f}x the O5 step "
+        f"({base:.4f} ms)")
+    records["multi_tensor_adam"].append(rec)
+    del s16, p16, rows16, prow16
     nk = mt.l2norm(grads, per_tensor=True)
     npl = mt._l2norm_plain(grads, None, True,
                            torch.ones((), dtype=torch.bool, device=dev))
@@ -6069,6 +6263,459 @@ def phase_train_amp(dev) -> dict:
 #: name -> (route, source, the TPU kernel it replaces); the forwards'
 #: records are bf16, whose kernel is attention_fwd_sm90.cuh (the entries'
 #: fp32 instances stay in their .cu files)
+# ------------------------------------------------------- fp16 (O1-O3)
+#: train-fp16-parity's GPT: 2 layers, hidden 128, one head of 128 (the
+#: flagship's head width), vocab 512, 384 tokens a step (the short rung):
+#: the CPU's fp16 matrix products run at about 2 GFLOP/s on the card's
+#: host (this phase spent 430 s at hidden 512), so the CPU side is kept
+#: to some 1.4 GFLOP a step
+FP16_PARITY_FLAGS = ["--layers", "2", "--hidden", "128", "--heads", "1",
+                     "--vocab", "512", "--seq", "384", "--micro-batch",
+                     "1", "--num-micro", "1", "--lr", "1e-3"]
+FP16_PARITY_STEPS = 4
+#: the step (from 0) whose backward leaves an inf in the first gradient
+FP16_POISONED_STEP = 2
+#: the instances each O2 step of train-fp16-parity must launch: the GPT
+#: with dropout, BERT with padding, contrib attention with a float mask
+FP16_PARITY_NEED = {
+    "dropout": ("short_fwd_drop_f16", "short_bwd_drop_f16", "dropout_f16"),
+    "bert": ("short_fwd_seg_f16", "short_bwd_seg_f16"),
+    "mha": ("short_fwd_bias_f16", "short_bwd_bias_f16",
+            "short_fwd_seg_drop_bias_f16", "short_bwd_seg_drop_bias_f16")}
+#: fp16 bands of a GPU step against the CPU's, from the same weights,
+#: data and state: the loss to 5e-3 of its magnitude (fp16 activations,
+#: 2**-11 relative a rounding, averaged by the mean); a gradient to 2e-2 of
+#: its tensor's largest (fp16 activations through two layers, and the
+#: kernels' fp16 P and dz * scale operands where the plain versions keep
+#: P in fp32); an updated parameter to 1% of the learning rate plus one
+#: ulp of its dtype where the gradient's sign is sure, within a step of
+#: where it was elsewhere
+FP16_LOSS_REL = 5e-3
+FP16_GRAD_REL = 2e-2
+
+
+def check_fp16_step(label, gpu, cpu, before, lr) -> tuple:
+    """Hold one fp16 training step on the GPU against the CPU's within
+    the bands above: ``gpu``/``cpu`` are ``(loss, {name: grad}, {name:
+    param after})``, the gradients those the optimizer took (unscaled).
+    Returns ``(worst grad error, worst step error, sure elements)``, each
+    error as a share of its band."""
+    (lg, gg, pg), (lc, gc, pc) = gpu, cpu
+    if not abs(lg - lc) <= FP16_LOSS_REL * max(1.0, abs(lc)):
+        fail(f"{label}: loss {lg} (GPU) vs {lc} (CPU), band "
+             f"{FP16_LOSS_REL:g} of it")
+    worst_g, worst_p, n_sure = 0.0, 0.0, 0
+    for n in gc:
+        g_c, g_g = gc[n].float(), gg[n].float()
+        tol = FP16_GRAD_REL * g_c.abs().max().item() + 1e-12
+        err = (g_g - g_c).abs().max().item()
+        if not err <= tol:
+            fail(f"{label}: grad {n} differs by {err:.3g} > {tol:.3g}")
+        worst_g = max(worst_g, err / tol)
+        sure = g_c.abs() >= max(10 * tol, 1e-6)
+        band = 1e-2 * lr + ulp_of(pc[n])
+        dp = (pg[n].float() - pc[n].float()).abs()
+        n_sure += int(sure.sum())
+        if sure.any():
+            worst_p = max(worst_p, (dp[sure] / band[sure]).max().item())
+            if (dp[sure] > band[sure]).any():
+                fail(f"{label}: updated {n} differs by "
+                     f"{dp[sure].max().item():.3g} where the step is sure")
+        moved = (pg[n].float() - before[n].float()).abs()
+        if (moved > 1.001 * lr + ulp_of(before[n])).any():
+            fail(f"{label}: {n} moved by {moved.max().item():.3g} > lr")
+    return worst_g, worst_p, n_sure
+
+
+def snapshot(model, grads: bool = False) -> dict:
+    """The parameters (or their gradients, where there is one) on the
+    CPU."""
+    out = {}
+    for n, p in model.named_parameters():
+        t = p.grad if grads else p
+        if t is not None:
+            out[n] = t.detach().cpu().clone()
+    return out
+
+
+def amp_step(model, loss_fn, level: str, lr: float) -> tuple:
+    """One step of ``model`` at ``level`` with the dynamic loss scaler, as
+    the trainer takes it: the scaled loss's backward, the scaler's
+    unscale and overflow check, FusedAdam (fp32 masters where the level
+    keeps them) skipped on an overflow.  ``((loss, grads, params), finite)``
+    on the CPU."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    mp = amp.initialize(level, loss_scale="dynamic")
+    dev = next(model.parameters()).device
+    state = mp.init(device=dev)
+    opt = FusedAdam(model.parameters(), lr=lr,
+                    master_weights=mp.policy.master_weights)
+    opt.zero_grad(set_to_none=True)
+    loss = loss_fn(model)
+    mp.scale_loss(state, loss).backward()
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    _, finite, state = mp.unscale_and_adjust(state, grads)
+    opt.step(grads_finite=finite)
+    return ((float(loss.detach()), snapshot(model, True), snapshot(model)),
+            bool(finite))
+
+
+def gpu_cpu_step(label, build, loss_fn, level, lr, dev) -> dict:
+    """``build(device)`` a model on the GPU and the CPU with the GPU's
+    weights, one :func:`amp_step` each, held to the fp16 bands; returns
+    the GPU step's launches."""
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    gpu, cpu = build(dev), build("cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    before = snapshot(gpu)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got, fin_g = amp_step(gpu, loss_fn, level, lr)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want, fin_c = amp_step(cpu, loss_fn, level, lr)
+    if not (fin_g and fin_c):
+        fail(f"{label}: a step overflowed (GPU finite {fin_g}, CPU {fin_c})")
+    worst_g, worst_p, n_sure = check_fp16_step(label, got, want, before, lr)
+    log(f"  {label}: loss {got[0]:.5f} (GPU) vs {want[0]:.5f} (CPU); grads "
+        f"within {worst_g:.3f} of their band, updated params within "
+        f"{worst_p:.3f} of theirs at {n_sure} sure-sign elements; launches "
+        f"{({k: v for k, v in counts.items() if v})}")
+    del gpu, cpu
+    return counts
+
+
+def phase_train_fp16_parity(dev) -> dict:
+    """The fp16 levels against the CPU.  A 2-layer GPT
+    (:data:`FP16_PARITY_FLAGS`) through the port trainer at O1 (fp32
+    params, fp16 compute), O2 (fp16 params, fp32 norms and masters) and
+    O3 (pure fp16), each with the dynamic loss scaler, 4 steps on the GPU
+    and on a CPU copy from the same weights and batches: step 1's loss,
+    every gradient and the updated parameters within the fp16 bands
+    (:func:`check_fp16_step`); every step's loss within twice the loss
+    band; the same steps skipped on both, the poisoned step 3 (an inf in
+    the first gradient's backward) skipped on both with the parameters
+    unchanged bit for bit on the card and the scale halved on both, and
+    step 4 taken.  Then one O2 step each, GPU against CPU: the GPT with
+    hidden and attention dropout 0.1 on one key (the dropout instances
+    and the hidden-dropout kernel), BERT with padding (the segment-id
+    instances) and contrib ``SelfMultiheadAttn`` with a float mask, and
+    with the key padding and dropout beside it (the bias instances).
+    Returns the launches of each part."""
+    from apex_tpu_torch.amp import get_policy
+    from apex_tpu_torch.contrib.multihead_attn import SelfMultiheadAttn
+    from apex_tpu_torch.examples import gpt_pretrain
+    from apex_tpu_torch.models import (BertConfig, BertModel, GPTConfig,
+                                       GPTModel)
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.random import PRNGKey
+
+    log(f"[train-fp16-parity] gpt_pretrain {' '.join(FP16_PARITY_FLAGS)} "
+        f"at O1, O2, O3 with dynamic loss scaling: {FP16_PARITY_STEPS} steps "
+        f"on the GPU vs the CPU, step {FP16_POISONED_STEP + 1} poisoned")
+    counts = {}
+    for level in ("O1", "O2", "O3"):
+        trs = [gpt_pretrain.Trainer(gpt_pretrain.parse_args(
+            FP16_PARITY_FLAGS + ["--opt-level", level, "--device", d]),
+            dict(loss_scale="dynamic")) for d in (str(dev), "cpu")]
+        gpu, cpu = trs
+        cpu.model.load_state_dict({k: v.cpu() for k, v in
+                                   gpu.model.state_dict().items()})
+        data = gpt_pretrain.batches(np.random.default_rng(1),
+                                    FP16_PARITY_STEPS, gpu.global_batch,
+                                    gpu.args.seq, gpu.args.vocab)
+        lr = gpu.args.lr
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        rows = []
+        for i in range(FP16_PARITY_STEPS):
+            step = []
+            for tr in trs:
+                before = snapshot(tr.model)
+                hooks = ([poison(next(tr.model.parameters()), 0)]
+                         if i == FP16_POISONED_STEP else [])
+                loss = tr.backward(*tr.to_device(*data[i]))
+                for hd in hooks:
+                    hd.remove()
+                tr.tail()
+                step.append(((float(loss), snapshot(tr.model, True),
+                              snapshot(tr.model)), bool(tr.finite),
+                             float(tr.amp_state.scaler_states[0].loss_scale),
+                             before))
+            (g, fin_g, sc_g, bef_g), (c, fin_c, sc_c, _) = step
+            rows.append((fin_g, sc_g))
+            if i == 0:
+                worst_g, worst_p, n_sure = check_fp16_step(
+                    f"train-fp16-parity {level} step 1", g, c, bef_g, lr)
+                log(f"  {level} step 1: loss {g[0]:.5f} (GPU) vs {c[0]:.5f}"
+                    f" (CPU); grads within {worst_g:.3f} of their band, "
+                    f"updated params within {worst_p:.3f} of theirs at "
+                    f"{n_sure} sure-sign elements")
+            if not abs(g[0] - c[0]) <= 2 * FP16_LOSS_REL * max(1.0,
+                                                               abs(c[0])):
+                fail(f"train-fp16-parity {level} step {i + 1}: loss {g[0]} "
+                     f"(GPU) vs {c[0]} (CPU)")
+            if fin_g != fin_c or sc_g != sc_c:
+                fail(f"train-fp16-parity {level} step {i + 1}: the GPU "
+                     f"{'took' if fin_g else 'skipped'} it (scale {sc_g:g}),"
+                     f" the CPU {'took' if fin_c else 'skipped'} it (scale "
+                     f"{sc_c:g})")
+            if i == FP16_POISONED_STEP:
+                prev = rows[i - 1][1]
+                same = all(torch.equal(g[2][n], bef_g[n]) for n in bef_g)
+                if fin_g or not same or sc_g != prev / 2:
+                    fail(f"train-fp16-parity {level}: the poisoned step was "
+                         f"taken ({fin_g}) or moved a parameter "
+                         f"({not same}), or the scale went {prev:g} -> "
+                         f"{sc_g:g}")
+            if i == FP16_POISONED_STEP + 1 and not fin_g:
+                fail(f"train-fp16-parity {level}: the step after the "
+                     "overflow was skipped too")
+        torch.cuda.synchronize()
+        counts[level] = launch_counts()
+        skipped = [i + 1 for i, (f, _) in enumerate(rows) if not f]
+        log(f"  {level}: steps skipped on both {skipped}, scales "
+            f"{' '.join(f'{s:g}' for _, s in rows)} on both; launches "
+            f"{({k: v for k, v in counts[level].items() if v})}")
+        for name in ("short_fwd_f16", "short_bwd_f16") + LN_TRAIN:
+            if counts[level].get(name, 0) <= 0:
+                fail(f"train-fp16-parity {level}: {name} never launched")
+        del trs, gpu, cpu
+    small = dict(vocab_size=512, num_layers=2, hidden_size=128,
+                 num_attention_heads=1, max_position_embeddings=384)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, 512, (1, 384)))
+    key = PRNGKey(13)
+    counts["dropout"] = gpu_cpu_step(
+        "O2 GPT, dropout 0.1/0.1",
+        lambda d: GPTModel(GPTConfig(**small, policy=get_policy("O2"),
+                                     hidden_dropout=0.1,
+                                     attention_dropout=0.1), device=d,
+                           seed=4),
+        lambda m: m.loss(toks.to(m.device), toks.roll(-1, 1).to(m.device),
+                         rng=key), "O2", 1e-3, dev)
+    bert = dict(vocab_size=512, num_layers=2, hidden_size=128,
+                num_attention_heads=2, max_position_embeddings=256)
+    data = bert_batch(np.random.default_rng(3), 2, 256, 512, lo=64)
+    counts["bert"] = gpu_cpu_step(
+        "O2 BERT, padding as segment ids",
+        lambda d: BertModel(BertConfig(**bert, policy=get_policy("O2")),
+                            device=d, seed=6),
+        lambda m: m.loss(*(torch.as_tensor(a, device=m.device)
+                           for a in data)), "O2", 1e-3, dev)
+    e, heads, s, b = 128, 2, 128, 4
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(s, b, e, generator=gen).half()
+    mask = 0.5 * torch.randn(b, 1, s, s, generator=gen)
+    pad = torch.zeros(b, s, dtype=torch.bool)
+    pad[1, 2 * s // 3:] = True
+    dout = torch.randn(s, b, e, generator=gen)
+    counts["mha"] = {}
+    for label, kw in (("float mask", dict(attn_mask=mask)),
+                      ("float mask, padding, dropout 0.1",
+                       dict(attn_mask=mask, key_padding_mask=pad,
+                            rng=PRNGKey(21)))):
+        on = lambda t, d: t.to(d) if isinstance(t, torch.Tensor) else t
+        c = gpu_cpu_step(
+            f"O2 SelfMultiheadAttn, {label}",
+            lambda d: SelfMultiheadAttn(
+                e, heads, bias=True, include_norm_add=True, dropout=0.1,
+                policy=get_policy("O2"), device=d, key=PRNGKey(3)),
+            lambda m, kw=kw: (m(x.to(m.qkv_weight.device), **{
+                n: on(t, m.qkv_weight.device) for n, t in kw.items()}).float()
+                * dout.to(m.qkv_weight.device)).mean(), "O2", 1e-3, dev)
+        for n, v in c.items():
+            counts["mha"][n] = counts["mha"].get(n, 0) + v
+    for part, names in FP16_PARITY_NEED.items():
+        for name in names:
+            if counts[part].get(name, 0) <= 0:
+                fail(f"train-fp16-parity {part}: {name} never launched")
+    torch.cuda.empty_cache()
+    return counts
+
+
+@contextlib.contextmanager
+def patched(obj, **attrs):
+    """``obj``'s attributes set to ``attrs`` inside the block."""
+    saved = {name: getattr(obj, name) for name in attrs}
+    for name, value in attrs.items():
+        setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            setattr(obj, name, value)
+
+
+def phase_fp16_skips(dev, flags=TRAIN_LONG, steps=12,
+                     label="train-long-fp16-skips"):
+    """The steps an fp16 run skips are the plain version's.  The Llama mode
+    at O2 as train-long-fp16 trains it (seed, batch, learning rate), 12
+    steps: before each, the same scaled backward from the same state with
+    the flash rung's plain versions in place of its kernels
+    (``flash_attention``'s ``flash_run_fwd`` / ``flash_run_bwd``, on the
+    card, rounding the same operands to fp16) says whether the plain
+    version overflows; then the step through the kernels.  The two lists
+    of finite flags must be equal; a skipped step's non-finite gradients
+    are named.  Returns the kernel steps' flags."""
+    from apex_tpu_torch.amp.scaler import all_finite
+    from apex_tpu_torch.examples import gpt_pretrain
+    from apex_tpu_torch.ops import attention as att
+    from apex_tpu_torch.ops import attention_flash as fl
+
+    args = gpt_pretrain.parse_args(flags + [
+        "--opt-level", "O2", "--lr", "3e-4", "--device", str(dev)])
+    log(f"[{label}] gpt_pretrain {' '.join(flags)} --opt-level O2: each "
+        f"of {steps} steps' backward with the flash kernels' plain versions"
+        ", then the step through the kernels, from the same state")
+    tr = gpt_pretrain.Trainer(args)
+    batch = tr.to_device(*gpt_pretrain.batches(
+        np.random.default_rng(0), 1, tr.global_batch, args.seq,
+        args.vocab)[0])
+
+    def plain_fwd(q, k, v, causal, *, scale, ids, heads, drop, slab):
+        return fl._flash_fwd_plain(q, k, v, causal, scale, *ids, heads, drop,
+                                   slab)
+
+    def plain_bwd(kernel, q, k, v, dout, lse, delta, causal, *, scale, ids,
+                  heads, drop, slab, dbias=False):
+        grads = fl._flash_bwd_plain(q, k, v, dout, lse, delta, causal,
+                                    scale, *ids, heads, drop, slab, dbias)
+        if kernel == fl.KERNEL_DKV:
+            return grads[1:3]
+        return grads[0], (grads[3].view(-1, heads, *grads[3].shape[1:])
+                          if dbias else None)
+
+    params = list(tr.model.named_parameters())
+    plain_flags, kernel_flags = [], []
+    for i in range(steps):
+        with patched(att, flash_run_fwd=plain_fwd, flash_run_bwd=plain_bwd):
+            tr.backward(*batch)
+        plain_flags.append(bool(all_finite(
+            [p.grad for _, p in params if p.grad is not None])))
+        tr.step(*batch)
+        kernel_flags.append(bool(tr.finite))
+        if not kernel_flags[-1]:
+            bad = [n for n, p in params if p.grad is not None
+                   and not bool(torch.isfinite(p.grad).all())]
+            log(f"  step {i + 1} skipped (scale now "
+                f"{float(tr.amp_state.scaler_states[0].loss_scale):g}): "
+                f"non-finite gradients in {len(bad)} of {len(params)} "
+                f"tensors: {', '.join(bad[:8])}"
+                + (", ..." if len(bad) > 8 else ""))
+    skipped = lambda fl_: [i + 1 for i, f in enumerate(fl_) if not f]
+    log(f"  skipped through the kernels {skipped(kernel_flags) or 'none'}, "
+        f"through the plain versions {skipped(plain_flags) or 'none'}")
+    if kernel_flags != plain_flags:
+        fail(f"{label}: the kernels skipped steps {skipped(kernel_flags)}, "
+             f"the plain versions {skipped(plain_flags)}")
+    del tr, batch
+    torch.cuda.empty_cache()
+    return kernel_flags
+
+
+#: fp16-variants: each rung's fp16 instances through the port's
+#: ``flash_attention`` (forward, and backward through autograd), one shape
+#: a rung: (rung, b, h, s, d), causal
+FP16_VARIANT_SHAPES = (("short", 2, 4, 384, 64), ("mid", 1, 4, 768, 128),
+                       ("flash", 1, 2, 1280, 128))
+#: the backward's band here: four fp16 ulps of each gradient's largest
+#: magnitude (each device's backward replays its own forward's out, which
+#: the kernel and the plain version round two ulps apart, through delta =
+#: rowsum(dO * O)); a bias's gradient to 2e-2 of its largest (the same
+#: delta, an fp32 sum over the broadcast batch and heads)
+FP16_VARIANT_DBIAS_REL = 2e-2
+
+
+def phase_fp16_variants(dev) -> dict:
+    """Every fp16 instance of the seven attention kernels on the path a
+    user takes to it, ``flash_attention`` in fp16 with segment ids (packed
+    documents), attention dropout 0.1 and an fp32 bias, constant
+    (``bias_requires_grad=False``) or trained (the dBias instances), on
+    each rung of :data:`FP16_VARIANT_SHAPES` (``implementation=`` picks the
+    rung; the CPU side, every plain version in fp32 over the whole score
+    matrix, bounds the lengths): the output and the gradients
+    of q, k, v (and the bias) on the GPU against the same call on the CPU
+    (the plain versions), the forward within two fp16 ulps
+    (:func:`tolerance`), the backward within four (the data's note).
+    Returns the launches."""
+    from apex_tpu_torch.ops import (flash_attention, launch_counts,
+                                    reset_launch_counts)
+
+    log("[fp16-variants] flash_attention in fp16 on each rung: ids x "
+        "dropout x (no bias, a constant bias, a trained bias), GPU vs CPU")
+    counts = {}
+    n = 0
+    for rung, b, heads, s, d in FP16_VARIANT_SHAPES:
+        gen = torch.Generator().manual_seed(s)
+        q, k, v, dout = (torch.randn(b, heads, s, d, generator=gen).half()
+                         for _ in range(4))
+        ids = segment_ids("docs", b, s, "cpu", seed=s)
+        bias0 = torch.randn(1, heads, s, s, generator=gen)
+        impl = {"short": "short", "mid": "mid", "flash": "pallas"}[rung]
+        for segs in (False, True):
+            for drop in (False, True):
+                for bias_kind in (None, "const", "trained"):
+                    outs = []
+                    for device in (dev, torch.device("cpu")):
+                        qg, kg, vg = (t.detach().to(device).requires_grad_()
+                                      for t in (q, k, v))
+                        bias = None if bias_kind is None else \
+                            bias0.detach().to(device).requires_grad_(
+                                bias_kind == "trained")
+                        kw = dict(causal=True, bias=bias,
+                                  bias_requires_grad=bias_kind == "trained",
+                                  implementation=impl)
+                        if segs:
+                            kw.update(q_segment_ids=ids[0].to(device),
+                                      kv_segment_ids=ids[1].to(device))
+                        if drop:
+                            kw.update(dropout_rate=DROP_RATE,
+                                      dropout_seed=DROP_SEED)
+                        if device.type == "cuda":
+                            torch.cuda.synchronize()
+                            reset_launch_counts()
+                        out = flash_attention(qg, kg, vg, **kw)
+                        leaves = (qg, kg, vg) + (
+                            (bias,) if bias_kind == "trained" else ())
+                        grads = torch.autograd.grad(
+                            out, leaves, dout.to(device))
+                        if device.type == "cuda":
+                            torch.cuda.synchronize()
+                            for name, c in launch_counts().items():
+                                counts[name] = counts.get(name, 0) + c
+                        outs.append([out.detach().cpu()]
+                                    + [g.detach().cpu() for g in grads])
+                    got, want = outs
+                    what = (f"{rung} b={b} h={heads} s={s} d={d}"
+                            + (" ids" if segs else "")
+                            + (" dropout" if drop else "")
+                            + (f" {bias_kind} bias" if bias_kind else ""))
+                    for label, g, w in zip(("out", "dq", "dk", "dv",
+                                            "dbias"), got, want):
+                        err = max_err(g, w)
+                        tol = (tolerance(w) if label == "out" else
+                               FP16_VARIANT_DBIAS_REL * w.abs().max().item()
+                               if label == "dbias" else 2 * tolerance(w))
+                        if not err <= tol:
+                            fail(f"fp16-variants {what} {label}: GPU vs CPU "
+                                 f"{err:.3g} > {tol:.3g}")
+                    n += 1
+        del q, k, v, dout
+    log(f"  {n} cases, GPU == CPU within the bands; launches "
+        f"{({k: v for k, v in sorted(counts.items()) if v})}")
+    missing = [name for name in SOURCES if name.endswith("_f16")
+               and name.startswith(("short", "mid", "flash"))
+               and counts.get(name, 0) <= 0]
+    if missing:
+        fail(f"fp16-variants: instances never launched: {missing}")
+    torch.cuda.empty_cache()
+    return counts
+
+
 SOURCES = {
     "ln_fwd": ("cuda", "apex_tpu_torch/csrc/layer_norm.cu",
                "apex_tpu/ops/layer_norm.py:66"),
@@ -6190,6 +6837,13 @@ SOURCES = {
                           "apex_tpu/optimizers/fused_lamb.py:101"),
 }
 
+# the fp16 instances (O1-O3): the same kernels' fp16 template instances,
+# built from the attention_*_f16.cu sources, counted with _f16 last; the
+# hidden dropout's fp16 instance
+SOURCES.update({name + "_f16": entry for name, entry in list(SOURCES.items())
+                if entry[1].endswith("_sm90.cuh")})
+SOURCES["dropout_f16"] = SOURCES["dropout"]
+
 FLASH = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 
 
@@ -6257,6 +6911,31 @@ def main() -> None:
           f"Llama mode (O5, 2 x {LONG_SEQ})")
     del tr, batch
     torch.cuda.empty_cache()
+    fp16_parity = timed("train-fp16-parity", phase_train_fp16_parity, dev)
+    fp16_counts, tr, batch = timed(
+        "train-fp16", phase_train, dev, TRAIN_FLAGSHIP, "train-fp16",
+        LN_TRAIN + ("mid_fwd_f16", "mid_bwd_f16", "multi_tensor_adam"), "O2")
+    timed("profile", phase_profile_train, tr, batch,
+          "flagship (O2: fp16, fp32 norms and masters, 8 x 1024)")
+    del tr, batch
+    torch.cuda.empty_cache()
+    long_fp16_counts, tr, batch = timed(
+        "train-long-fp16", phase_train, dev, TRAIN_LONG, "train-long-fp16",
+        LN_TRAIN + tuple(n + "_f16" for n in FLASH), "O2")
+    del tr, batch
+    torch.cuda.empty_cache()
+    timed("train-long-fp16-skips", phase_fp16_skips, dev)
+    for label in ("train-fp16", "train-long-fp16"):
+        o5 = TRAIN_SUMMARY["train" if label == "train-fp16" else
+                           "train-long"]
+        o2 = TRAIN_SUMMARY[label]
+        log(f"[{label} summary] O2 {o2['ms']:.2f} ms/step, "
+            f"{o2['tps']:,.0f} tokens/s, MFU {o2['mfu']:.4f}, peak "
+            f"{o2['peak_gib']:.2f} GiB, skipped steps "
+            f"{o2['skipped'] or 'none'}; O5 in this run {o5['ms']:.2f} "
+            f"ms/step, {o5['tps']:,.0f} tokens/s, MFU {o5['mfu']:.4f}, "
+            f"peak {o5['peak_gib']:.2f} GiB")
+    variant_counts = timed("fp16-variants", phase_fp16_variants, dev)
     drop_parity_counts = timed("train-dropout-parity", phase_train_parity,
                                dev, DROP_RATE, (384, 640))
     drop_counts, tr, batch = timed("train-dropout", phase_train_dropout, dev)
@@ -6335,6 +7014,21 @@ def main() -> None:
     for name in ("short_bwd_dbias", "short_bwd_seg_drop_dbias",
                  "mid_bwd_dbias", "flash_bwd_dq_dbias"):
         main_counts[name] = dbias_counts.get(name, 0)
+    # fp16 (O1-O3): the short pair from train-fp16-parity's O2 trainer,
+    # its dropout, BERT and contrib steps; the mid pair from train-fp16,
+    # the flash kernels from train-long-fp16; every other instance from
+    # fp16-variants
+    fp16_paths = {name: fp16_parity["O2"] for name in ("short_fwd_f16",
+                                                        "short_bwd_f16")}
+    fp16_paths.update({name: fp16_parity[part] for part, names in
+                       FP16_PARITY_NEED.items() for name in names})
+    fp16_paths.update({name: fp16_counts for name in ("mid_fwd_f16",
+                                                      "mid_bwd_f16")})
+    fp16_paths.update({name + "_f16": long_fp16_counts for name in FLASH})
+    for name in SOURCES:
+        if name.endswith("_f16"):
+            main_counts[name] = fp16_paths.get(name, variant_counts).get(
+                name, 0)
     idle = [name for name in SOURCES if main_counts.get(name, 0) <= 0]
     if idle:
         fail(f"kernels never launched on their main path: {idle}")

@@ -309,3 +309,22 @@ def test_reference_takes_a_bias_as_jax_does():
         got = port_attention.mha_reference(*map(torch.from_numpy, (q, k, v)),
                                            bias=torch.from_numpy(bias))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
+
+
+@pytest.mark.parametrize("rung, kind", [("short", "per_head"),
+                                        ("mid", "per_batch"),
+                                        ("pallas", "shared")])
+def test_bias_instance_fp16_band(rung, kind):
+    """The bias instances in fp16 (O1-O3) with the key padding and
+    dropout beside them: 3 fp16 ulps (2**-10 relative) at each output's
+    largest magnitude."""
+    q, k, v, dout = inputs(96, 96, 64, seed=14)
+    bias = make_bias(kind, 96, 96, seed=14)
+    ids = padding_ids(96, 96)
+    want_out, want_g = jax_run(rung, q, k, v, dout, bias, True, ids, True,
+                               jnp.float16)
+    got_out, got_g = port_run(rung, q, k, v, dout, bias, True, ids, True,
+                              torch.float16)
+    for got, want in zip([got_out] + got_g[:3], [want_out] + want_g[:3]):
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 10)
+        assert np.abs(got - want).max() <= 3 * ulp

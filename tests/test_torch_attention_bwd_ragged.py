@@ -154,9 +154,9 @@ def test_plain_backward_matches_pallas_at_the_chip_checks_raggedness(
 
 def test_build_report_reads_the_hopper_instances():
     """``chip_smoke.sm90_instances`` reads, from ``nvcc -Xptxas -v``, the
-    registers and spill stores of the bf16 forward and of both backward
-    kernels, with their tile sizes and template flags, and skips the
-    SIMT kernels."""
+    registers and spill stores of the bf16 and fp16 forward and of both
+    backward kernels, with their element type, tile sizes and template
+    flags, and skips the SIMT kernels."""
     import chip_smoke
 
     def entry(symbol, spill, regs):
@@ -167,14 +167,19 @@ def test_build_report_reads_the_hopper_instances():
                 "registers, used 1 barriers, 656 bytes cmem[0]\n")
 
     sm90 = "_ZN4attn4sm9012_GLOBAL__N_1"
-    text = (entry(sm90 + "10fwd_kernelILi128ELi1ELb0ELb0ELb1ELb0EEEvx",
-                  88, 128)
-            + entry(sm90 + "14bwd_dkv_kernelILi128ELi2ELb1ELb0ELb1EEEvx",
-                    132, 168)
-            + entry(sm90 + "13bwd_dq_kernelILi64ELi2ELb0ELb1ELb1ELb1EEEvx",
-                    0, 168)
-            + entry(sm90 + "13bwd_dq_kernelILi64ELi2ELb0ELb0ELb0ELb0EEEvx",
-                    0, 168)
+    bf16, f16 = "13__nv_bfloat16", "6__half"
+    text = (entry(sm90 + "10fwd_kernelI" + bf16
+                  + "Li128ELi1ELb0ELb0ELb1ELb0EEEvx", 88, 128)
+            + entry(sm90 + "14bwd_dkv_kernelI" + bf16
+                    + "Li128ELi2ELb1ELb0ELb1EEEvx", 132, 168)
+            + entry(sm90 + "13bwd_dq_kernelI" + bf16
+                    + "Li64ELi2ELb0ELb1ELb1ELb1EEEvx", 0, 168)
+            + entry(sm90 + "13bwd_dq_kernelI" + bf16
+                    + "Li64ELi2ELb0ELb0ELb0ELb0EEEvx", 0, 168)
+            + entry(sm90 + "10fwd_kernelI" + f16
+                    + "Li128ELi2ELb0ELb1ELb0ELb1EEEvx", 0, 240)
+            + entry(sm90 + "13bwd_dq_kernelI" + f16
+                    + "Li128ELi2ELb1ELb0ELb1ELb1EEEvx", 16, 240)
             + entry("_ZN4attn12_GLOBAL__N_118attn_bwd_dq_kernelILi64ELb0E"
                     "Lb0ELb0ELb0EEEvPKf", 0, 90))
     assert chip_smoke.sm90_instances(text) == {
@@ -182,6 +187,8 @@ def test_build_report_reads_the_hopper_instances():
         "bf16 dK/dV d=128 keys=128+seg+bias": (168, 132),
         "bf16 dQ d=64 rows=128+drop+bias+dbias": (168, 0),
         "bf16 dQ d=64 rows=128 plain": (168, 0),
+        "fp16 forward d=128 rows=128+drop q*scale first": (240, 0),
+        "fp16 dQ d=128 rows=128+seg+bias+dbias": (240, 16),
     }
 
 
@@ -203,8 +210,12 @@ def test_chip_check_of_the_bf16_backward_runs_on_the_cpu(monkeypatch):
         return torch.randn(*shape, generator=gen).to(dtype)
 
     chip_smoke.bwd_sm90_kernels(randn, torch.device("cpu"))
-    assert lines[-1][0].startswith("  48 instance cases held")
-    assert "short_bwd_seg_drop_dbias 0.000" in lines[-1][0]
+    # one summary line a dtype: bf16, then fp16
+    bf16, f16 = (ln[0] for ln in lines if "instance cases held" in ln[0])
+    for line in (bf16, f16):
+        assert line.startswith("  48 instance cases held")
+    assert "short_bwd_seg_drop_dbias 0.000" in bf16
+    assert "short_bwd_seg_drop_dbias_f16 0.000" in f16
 
 
 def test_chip_check_of_the_flash_bf16_backward_runs_on_the_cpu(monkeypatch):
@@ -227,12 +238,13 @@ def test_chip_check_of_the_flash_bf16_backward_runs_on_the_cpu(monkeypatch):
         return torch.randn(*shape, generator=gen).to(dtype)
 
     chip_smoke.bwd_sm90_kernels(randn, torch.device("cpu"))
-    assert lines[-1][0].startswith("  24 instance cases held")
-    for name in ("flash_bwd_dkv_seg_drop_bias 0.000",
-                 "flash_bwd_dq_seg_drop_dbias 0.000", "flash_bwd_dkv 0.000",
-                 "flash_bwd_dq_bias 0.000"):
-        assert name in lines[-1][0]
-    assert "flash_bwd_dkv_dbias" not in lines[-1][0]
+    bf16, f16 = (ln[0] for ln in lines if "instance cases held" in ln[0])
+    for line, suffix in ((bf16, ""), (f16, "_f16")):
+        assert line.startswith("  24 instance cases held")
+        for name in ("flash_bwd_dkv_seg_drop_bias", "flash_bwd_dq_seg_drop_dbias",
+                     "flash_bwd_dkv", "flash_bwd_dq_bias"):
+            assert f"{name}{suffix} 0.000" in line
+        assert "flash_bwd_dkv_dbias" not in line
 
 
 def test_profile_counts_the_hopper_kernels_as_attention(monkeypatch):

@@ -408,3 +408,34 @@ def test_breakdown_tool_reads_the_hopper_dq_instances():
                     "CUtensorMap_stS2_S2_S2_S2_S2_NS1_9BwdParamsE", 120, 168))
     assert dq_registers({"attention_short": text}) == [
         ("attention_short", "bwd_dq_kernel", 128, "BIAS+DBIAS", 168, 0)]
+
+
+@pytest.mark.parametrize("rung", list(SIZES))
+def test_dbias_fp16_band(rung):
+    """fp16 q/k/v (O1-O3) with a trainable fp32 bias: the dBias instances
+    against JAX's Pallas kernels in interpret mode.  The output and
+    dq/dk/dv are held to 3 fp16 ulps (2**-10 relative) at each one's
+    largest magnitude, as the other fp16 bands; the fp32 dBias, summed
+    from each pair's fp32 ``dz`` in both packages, to 3 fp16 ulps of its
+    largest too (``delta = rowsum(dO * O)`` reads the fp16 output)."""
+    s = SIZES[rung]
+    q, k, v, dout = inputs(s, s, 64, seed=23)
+    bias = make_bias("per_batch", s, s, seed=23)
+    kw = dict(block_q=64, block_k=64) if rung == "pallas" else {}
+    f = lambda q, k, v, b: jax_flash_attention(
+        q, k, v, causal=True, bias=b, implementation=rung, **kw)
+    want, vjp = jax.vjp(f, *(jnp.asarray(x, jnp.float16)
+                             for x in (q, k, v)), jnp.asarray(bias))
+    want_g = vjp(jnp.asarray(dout, jnp.float16))
+    tq, tk, tv = (torch.from_numpy(x).half().requires_grad_()
+                  for x in (q, k, v))
+    tb = torch.from_numpy(bias).requires_grad_()
+    got = port_attention.flash_attention(tq, tk, tv, causal=True, bias=tb,
+                                         implementation=rung)
+    got.backward(torch.from_numpy(dout).half())
+    assert tb.grad.dtype == torch.float32 and tb.grad.shape == tb.shape
+    for g, w in zip((got, tq.grad, tk.grad, tv.grad, tb.grad),
+                    (want,) + tuple(want_g)):
+        w = np.asarray(w.astype(jnp.float32))
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(w).max())) - 10)
+        assert np.abs(g.detach().float().numpy() - w).max() <= 3 * ulp

@@ -167,3 +167,17 @@ def test_flat_entries_check_their_operands():
     q, k = torch.zeros((2, 8, 64)), torch.zeros((2, 8, 32))
     with pytest.raises(ValueError, match="b\\*h, s, d"):
         port_flash.flash_fwd(q, k, k)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_fp16_band(causal):
+    """fp16 (the O1-O3 levels): the port rounds ``q * scale``, ``p`` and
+    ``dz * scale`` to fp16 where the interpret-mode JAX kernels multiply
+    in fp32, as in bf16: 3 fp16 ulps (2**-10 relative) at each output's
+    largest magnitude."""
+    q, k, v, dout = _inputs(100, 100, 64, seed=17 + causal)
+    want_out, want_g = _jax(q, k, v, dout, causal, dtype=jnp.float16)
+    got_out, got_g = _port(q, k, v, dout, causal, dtype=torch.float16)
+    for got, want in zip([got_out] + got_g, [want_out] + want_g):
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 10)
+        assert np.abs(got - want).max() <= 3 * ulp

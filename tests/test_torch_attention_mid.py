@@ -179,3 +179,19 @@ def test_forced_rungs_and_unported_features():
         got = port_attention.flash_attention(q, q, q, implementation=rung,
                                              **drop)
         np.testing.assert_allclose(got.numpy(), want.numpy(), **FWD_TOL)
+
+
+def test_fp16_band():
+    """fp16 (the O1-O3 levels): the port rounds ``p`` and ``dz * scale``
+    to fp16 where the interpret-mode JAX kernel multiplies in fp32, as in
+    bf16, so the outputs are held to 3 fp16 ulps (2**-10 relative) at
+    each output's largest magnitude, with a real lse cotangent."""
+    q, k, v, dout, dlse = _inputs(576, 9)
+    want_out, want_lse, want_g = _jax(q, k, v, dout, True, dlse,
+                                      dtype=jnp.float16)
+    got_out, got_lse, got_g = _port(q, k, v, dout, True, dlse,
+                                    dtype=torch.float16)
+    np.testing.assert_allclose(got_lse, want_lse, rtol=1e-3, atol=1e-3)
+    for got, want in zip([got_out] + got_g, [want_out] + want_g):
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 10)
+        assert np.abs(got - want).max() <= 3 * ulp

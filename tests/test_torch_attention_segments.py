@@ -276,3 +276,19 @@ def test_head_dims_the_kernels_do_not_take_are_padded(monkeypatch, rung, d):
     np.testing.assert_allclose(got_out, want.detach().numpy(), **FWD_TOL)
     for got, t in zip(got_g, (tq, tk, tv)):
         np.testing.assert_allclose(got, t.grad.numpy(), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("rung", ["short", "mid", "pallas"])
+def test_segment_variant_fp16_band(rung):
+    """The segment instances in fp16 (O1-O3), fmha's padding with rows
+    that see no key: 3 fp16 ulps (2**-10 relative) at each output's
+    largest magnitude, as the bf16 band is 3 bf16 ulps."""
+    q, k, v, dout = inputs(96, 96, 64, seed=12)
+    qs, ks, _ = segments("fmha", 96, 96, seed=12)
+    want_out, want_g = jax_run(rung, q, k, v, dout, qs, ks, False,
+                               jnp.float16)
+    got_out, got_g = port_run(rung, q, k, v, dout, qs, ks, False,
+                              torch.float16)
+    for got, want in zip([got_out] + got_g, [want_out] + want_g):
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 10)
+        assert np.abs(got - want).max() <= 3 * ulp

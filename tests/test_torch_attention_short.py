@@ -141,3 +141,29 @@ def test_short_bwd_scales_after_the_product():
     ref.backward(dout)
     for got, t in zip((dq, dk, dv), (tq, tk, tv)):
         np.testing.assert_allclose(got.numpy(), t.grad.numpy(), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("s, causal", [(37, True), (200, True), (130, False)])
+def test_fp16_band(s, causal):
+    """fp16 (the O1-O3 levels) through the Pallas kernels in interpret
+    mode and the port's plain versions: the port rounds ``p`` and ``dz *
+    scale`` to fp16 where the interpret-mode JAX kernel multiplies in
+    fp32, so the output and the gradients are held to 3 fp16 ulps
+    (2**-10 relative) at each one's largest magnitude."""
+    q, k, v = _qkv(1, 2, s, 64, seed=300 + s)
+    dout = np.random.RandomState(s + 1).randn(1, 2, s, 64).astype(np.float32)
+    want, vjp = jax.vjp(
+        lambda q, k, v: jax_fmha_short(q, k, v, causal=causal,
+                                       implementation="pallas"),
+        *(jnp.asarray(x, jnp.float16) for x in (q, k, v)))
+    want_g = vjp(jnp.asarray(dout, jnp.float16))
+    tq, tk, tv = (torch.from_numpy(x).half().requires_grad_()
+                  for x in (q, k, v))
+    got = port_short.fmha_short(tq, tk, tv, causal=causal)
+    got.backward(torch.from_numpy(dout).half())
+    assert got.dtype == torch.float16
+    for g, w in zip([got] + [t.grad for t in (tq, tk, tv)],
+                    [want] + list(want_g)):
+        w = np.asarray(w.astype(jnp.float32))
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(w).max())) - 10)
+        assert np.abs(g.detach().float().numpy() - w).max() <= 3 * ulp

@@ -557,3 +557,41 @@ def test_gpt_config_takes_dropout_and_checks_its_range():
     for name in DROP:
         with pytest.raises(ValueError, match=name):
             GPTConfig(**SIZES, **{name: 1.0})
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 64), (1000,)])
+def test_fp16_hidden_dropout_matches_jax_bit_for_bit(shape):
+    """fp16 (O1-O3): JAX's mask bit for bit, and the kept values divided
+    by ``fp16(0.9) = 0.89990234375``, the output and the gradient the
+    same bits as JAX's."""
+    key = jax.random.fold_in(jax.random.PRNGKey(321), 2)
+    rs = np.random.RandomState(5)
+    x = torch.from_numpy(rs.randn(*shape).astype(np.float32)).half()
+    g = torch.from_numpy(rs.randn(*shape).astype(np.float32)).half()
+    assert port_dropout.divisor(RATE, torch.float16) == 0.89990234375
+    want, vjp = jax.vjp(lambda a: jax_hidden(a, key, RATE),
+                        jnp.asarray(x.numpy()))
+    (want_g,) = vjp(jnp.asarray(g.numpy()))
+    xt = x.clone().requires_grad_()
+    got = port_dropout.dropout(xt, np.asarray(key), RATE)
+    got.backward(g)
+    assert got.dtype == torch.float16
+    np.testing.assert_array_equal(got.detach().numpy().view(np.uint16),
+                                  np.asarray(want).view(np.uint16))
+    np.testing.assert_array_equal(xt.grad.numpy().view(np.uint16),
+                                  np.asarray(want_g).view(np.uint16))
+
+
+@pytest.mark.parametrize("rung", ["short", "mid", "pallas"])
+def test_dropout_variant_fp16_band(rung):
+    """The attention dropout instances in fp16 beside fmha's padding: 3
+    fp16 ulps (2**-10 relative) at each output's largest magnitude."""
+    q, k, v, dout = inputs(96, 96, 64, seed=14)
+    qs, ks, _ = segments("fmha", 96, 96)
+    want_out, want_g = jax_run(rung, q, k, v, dout, qs, ks, True, 78,
+                               jnp.float16)
+    got_out, got_g = port_run(rung, q, k, v, dout, qs, ks, True, 78,
+                              torch.float16)
+    for got, want in zip([got_out] + got_g, [want_out] + want_g):
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 10)
+        assert np.abs(got - want).max() <= 3 * ulp

@@ -156,11 +156,17 @@ def test_no_device_means_the_gpu(monkeypatch):
     dict(policy=get_policy("O1")), dict(hidden_dropout=0.1),
     dict(attention_dropout=0.1), dict(num_experts=4)])
 def test_unported_config_options_raise(option):
-    """Options not ported raise naming their ROADMAP.md item; dropout,
-    ported since, is taken (it applies only with a key)."""
+    """Options not ported raise naming their ROADMAP.md item; dropout and
+    the fp16 level O1 (fp32 parameters, fp16 compute), ported since, are
+    taken (dropout applies only with a key)."""
     if "hidden_dropout" in option or "attention_dropout" in option:
         cfg = GPTConfig(**SIZES, **option)
         assert {k: getattr(cfg, k) for k in option} == option
+        return
+    if "policy" in option:
+        cfg = GPTConfig(**SIZES, **option)
+        assert (cfg.params_dtype, cfg.compute_dtype, cfg.norm_dtype) == (
+            torch.float32, torch.float16, torch.float32)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         GPTConfig(**SIZES, **option)

@@ -244,5 +244,8 @@ def test_constructor_checks():
                           policy=get_policy("O5"), device="cpu")
     assert m.qkv_weight.dtype == torch.bfloat16
     assert m.lyr_nrm.scale.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        SelfMultiheadAttn(32, 4, policy=get_policy("O2"), device="cpu")
+    # O2, ported since: fp16 weights, an fp32 norm
+    m = SelfMultiheadAttn(32, 4, include_norm_add=True,
+                          policy=get_policy("O2"), device="cpu")
+    assert m.qkv_weight.dtype == torch.float16
+    assert m.lyr_nrm.scale.dtype == torch.float32

@@ -67,13 +67,14 @@ def test_kernel_wrappers_have_no_fallback(module):
 def _fake_launch(monkeypatch, mod, symbol):
     """A stand-in for the C entry ``symbol`` that records its arguments
     and reports success, so a launcher runs on CPU tensors (nothing is
-    launched): ``(calls, entry)``, ``entry`` in place of ``mod._entry``."""
+    launched): ``(calls, entry)``, ``entry`` in place of ``mod._entry``,
+    which also takes the operands' dtype (fp16's library is its own)."""
     from apex_tpu_torch.ops import attention_short
 
     calls = []
 
-    def entry(name):
-        assert name == symbol
+    def entry(name, dtype=torch.float32):
+        assert name == symbol and dtype in attention_short.DTYPES
         return None, lambda *args: calls.append(args) or 0
 
     monkeypatch.setattr(attention_short, "stream_of", lambda t: None)
@@ -769,10 +770,11 @@ def _cuda_function(src: str, signature: str) -> str:
 
 
 def test_bf16_backward_runs_the_hopper_kernels():
-    """The short/mid entries' bf16 backward launches the wgmma/TMA kernels
-    of ``csrc/attention_bwd_sm90.cuh`` after the delta pass, and no bf16
-    (tensor-core ``kTC``, WMMA) path is left in the SIMT dK/dV and dQ
-    kernels of ``attention_common.cuh``, which keep the fp32 instances."""
+    """The short/mid entries' bf16 (and fp16) backward launches the
+    wgmma/TMA kernels of ``csrc/attention_bwd_sm90.cuh``, templated on the
+    element type T, after the delta pass, and no bf16 (tensor-core
+    ``kTC``, WMMA) path is left in the SIMT dK/dV and dQ kernels of
+    ``attention_common.cuh``, which keep the fp32 instances."""
     csrc = ROOT / "apex_tpu_torch" / "csrc"
     common = (csrc / "attention_common.cuh").read_text()
     assert '#include "attention_bwd_sm90.cuh"' in common
@@ -783,10 +785,11 @@ def test_bf16_backward_runs_the_hopper_kernels():
     assert "attn_bwd_" not in bf16
     header = (csrc / "attention_bwd_sm90.cuh").read_text()
     both = _cuda_function(header, "cudaError_t launch_bwd(")
-    assert "launch_dkv<D, NC, SEGS, DROP, BIAS>" in both
-    assert "launch_dq<D, NC, SEGS, DROP, BIAS, DBIAS>" in both
-    assert "bwd_dkv_kernel<D, NC, SEGS, DROP, BIAS>\n      <<<" in header
-    assert "bwd_dq_kernel<D, NC, SEGS, DROP, BIAS, DBIAS>\n      <<<" in header
+    assert "launch_dkv<D, NC, SEGS, DROP, BIAS, T>" in both
+    assert "launch_dq<D, NC, SEGS, DROP, BIAS, DBIAS, T>" in both
+    assert "bwd_dkv_kernel<T, D, NC, SEGS, DROP, BIAS>\n      <<<" in header
+    assert ("bwd_dq_kernel<T, D, NC, SEGS, DROP, BIAS, DBIAS>\n      <<<"
+            in header)
     # no atomics (atomicAdd, PTX red/atom): the same bits on every call
     assert not re.search(r"atomic\w*\s*\(|\b(red|atom)\.", header)
     for kernel in ("attn_bwd_dkv_kernel(", "attn_bwd_dq_kernel("):

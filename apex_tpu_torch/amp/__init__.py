@@ -54,7 +54,6 @@ from apex_tpu_torch.amp.policy import (
     OPT_LEVELS,
     Policy,
     check_ported,
-    check_serving,
     get_policy,
     is_norm_param,
     tree_cast,
@@ -67,7 +66,7 @@ from apex_tpu_torch.amp.scaler import (
 )
 
 __all__ = [
-    "OPT_LEVELS", "Policy", "check_ported", "check_serving", "get_policy",
+    "OPT_LEVELS", "Policy", "check_ported", "get_policy",
     "is_norm_param", "tree_cast", "LossScaler", "ScalerState", "all_finite",
     "scale_gradients", "AmpState", "MixedPrecision", "initialize",
     "StepGuard", "DivergenceError",

@@ -16,9 +16,7 @@ scaling), O2 (fp16 params, fp32 norms and masters, dynamic scaling), O3
 (pure fp16), O4 (bf16 compute, fp32 params) and O5 (bf16 params and
 compute, fp32 norms and masters, the default), with any loss scale,
 static or dynamic, put on them (``get_policy(..., loss_scale=...)``).
-Serving runs in bf16 or fp32 only: :func:`check_serving` raises for an
-fp16 compute dtype (the decode kernel, the dequant pair and the sampler
-have no fp16 instances, ROADMAP.md queue A item A5b).
+Every level serves too, at its compute dtype, as in JAX.
 """
 
 from __future__ import annotations
@@ -29,7 +27,7 @@ from typing import Any, Callable, Optional, Union
 import torch
 
 __all__ = ["Policy", "OPT_LEVELS", "get_policy", "check_ported",
-           "check_serving", "tree_cast", "is_norm_param"]
+           "tree_cast", "is_norm_param"]
 
 _NORM_KEY_FRAGMENTS = (
     "batchnorm",
@@ -194,15 +192,3 @@ def check_ported(policy: Policy) -> None:
                 f"opt level {policy.opt_level}: {name} {dtype} is not one "
                 f"of the kernels' {TRAIN_DTYPES}")
 
-
-def check_serving(compute_dtype: torch.dtype) -> None:
-    """Raise ``NotImplementedError`` for serving at an fp16 compute dtype
-    (a model built at O1-O3): the paged decode kernel, the dequantizing
-    matmuls and the Gumbel-max sampler have no fp16 instances, ROADMAP.md
-    queue A item A5b."""
-    if compute_dtype == torch.float16:
-        raise NotImplementedError(
-            "serving at an fp16 compute dtype (opt levels O1-O3) is not "
-            "ported yet: ROADMAP.md queue A item A5b: fp16 serving (fp16 "
-            "instances of the paged decode kernel, the dequant matmuls and "
-            "gumbel_argmax); train at O1-O3, serve in bf16 (O4/O5) or fp32")

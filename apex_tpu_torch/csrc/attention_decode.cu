@@ -66,6 +66,13 @@
 //    dims), (num_pages, h, page_size, nb), staged beside the rows and
 //    applied in fp32 before the products.  The page type is a template
 //    parameter too.
+//  - Element types: q, out and 16-bit pages are fp32, bf16 or fp16 (the
+//    opt levels O1-O3), one template parameter T of the same code; every
+//    load widens to fp32 and the one store rounds to nearest even (an
+//    fp16 output past 65504 is inf, as JAX's astype).  Like the attention
+//    sources, one library an element type keeps each nvcc short: this
+//    source holds fp32 and bf16, attention_decode_f16.cu (DECODE_F16)
+//    the fp16 instances.
 //
 // The small kernel (paged_decode, paged_decode_int8: up to 8 rows): the
 // block's 8 warps take the 32 tokens of a staged tile 4 each (token
@@ -99,6 +106,7 @@
 // cores would buy nothing, so the products run on the CUDA cores in fp32.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -148,6 +156,16 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* p, float* out) {
 }
 
 template <int E>
+__device__ __forceinline__ void load_row(const __half* p, float* out) {
+#pragma unroll
+  for (int e = 0; e < E; e += 2) {
+    const float2 x = __half22float2(*reinterpret_cast<const __half2*>(p + e));
+    out[e] = x.x;
+    out[e + 1] = x.y;
+  }
+}
+
+template <int E>
 __device__ __forceinline__ void load_row(const int8_t* p, float* out) {
   if constexpr (E == 4) {
     const char4 x = *reinterpret_cast<const char4*>(p);
@@ -169,6 +187,12 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
       *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
   const float2 b = __bfloat1622float2(
       *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float4 load4(const __half* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&raw.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&raw.y));
   return make_float4(a.x, a.y, b.x, b.y);
 }
 __device__ __forceinline__ float4 load4(const int8_t* p) {
@@ -194,6 +218,10 @@ __device__ __forceinline__ void dequant(float* x, const float* srow,
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+// round to nearest even; past 65504 an fp16 output is inf, as in JAX
+__device__ __forceinline__ void store(__half* p, float x) {
+  *p = __float2half_rn(x);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -1051,7 +1079,9 @@ bool bad_shape(int b, int h, int sq, int page_size, int pages_per_seq,
 
 extern "C" {
 
-// dtype: 0 = fp32, 1 = bf16; rope_cos/rope_sin: (b, sq, d/2) fp32, or
+// dtype: 0 = fp32, 1 = bf16 (this source), 2 = fp16 (the build with
+// DECODE_F16 defined, attention_decode_f16.cu, which holds only those);
+// rope_cos/rope_sin: (b, sq, d/2) fp32, or
 // both null for no rotation.  span: positions a block takes (a multiple
 // of 64, at most 512); n_split = ceil(pages_per_seq * page_size / span);
 // ws: (b * h * sq * n_split * (d + 2)) fp32 and counters (b * h) int32,
@@ -1072,17 +1102,22 @@ int paged_decode(const void* q, const void* k_pages, const void* v_pages,
                          lengths, rope_cos, rope_sin, out, ws, counters, b, \
                          h, sq, page_size, pages_per_seq, 0, 1, causal,     \
                          scale, span, n_split, s)
+#if defined(DECODE_F16)
+  if (dtype == 2 && d == 128) DECODE(__half, 128);
+  if (dtype == 2 && d == 64) DECODE(__half, 64);
+#else
   if (dtype == 0 && d == 128) DECODE(float, 128);
   if (dtype == 0 && d == 64) DECODE(float, 64);
   if (dtype == 1 && d == 128) DECODE(__nv_bfloat16, 128);
   if (dtype == 1 && d == 64) DECODE(__nv_bfloat16, 64);
+#endif
 #undef DECODE
   return cudaErrorInvalidValue;
 }
 
 // int8 pages: k_pages/v_pages int8, k_scales/v_scales (num_pages, h,
 // page_size, nb) fp32 with nb = ceil(d / kv_block); q and out in dtype
-// (0 = fp32, 1 = bf16).  Otherwise as paged_decode.
+// (0 = fp32, 1 = bf16, 2 = fp16, as paged_decode).  Otherwise as paged_decode.
 int paged_decode_int8(const void* q, const void* k_pages, const void* v_pages,
                       const float* k_scales, const float* v_scales,
                       const int* page_table, const int* lengths,
@@ -1103,10 +1138,15 @@ int paged_decode_int8(const void* q, const void* k_pages, const void* v_pages,
                               ws, counters, b, h, sq, page_size,            \
                               pages_per_seq, nb, kv_block, causal, scale,   \
                               span, n_split, s)
+#if defined(DECODE_F16)
+  if (dtype == 2 && d == 128) DECODE(__half, 128);
+  if (dtype == 2 && d == 64) DECODE(__half, 64);
+#else
   if (dtype == 0 && d == 128) DECODE(float, 128);
   if (dtype == 0 && d == 64) DECODE(float, 64);
   if (dtype == 1 && d == 128) DECODE(__nv_bfloat16, 128);
   if (dtype == 1 && d == 64) DECODE(__nv_bfloat16, 64);
+#endif
 #undef DECODE
   return cudaErrorInvalidValue;
 }
@@ -1149,6 +1189,15 @@ int paged_decode_rows(const void* q, const void* k_pages, const void* v_pages,
                               page_size, pages_per_seq, nb, kv_block,      \
                               causal, tree_rows, scale, span, n_split,     \
                               row_tile, s)
+#if defined(DECODE_F16)
+  if (!page_int8) {
+    if (dtype == 2 && d == 128) ROWS(__half, __half, 128);
+    if (dtype == 2 && d == 64) ROWS(__half, __half, 64);
+  } else {
+    if (dtype == 2 && d == 128) ROWS(__half, int8_t, 128);
+    if (dtype == 2 && d == 64) ROWS(__half, int8_t, 64);
+  }
+#else
   if (!page_int8) {
     if (dtype == 0 && d == 128) ROWS(float, float, 128);
     if (dtype == 0 && d == 64) ROWS(float, float, 64);
@@ -1160,6 +1209,7 @@ int paged_decode_rows(const void* q, const void* k_pages, const void* v_pages,
     if (dtype == 1 && d == 128) ROWS(__nv_bfloat16, int8_t, 128);
     if (dtype == 1 && d == 64) ROWS(__nv_bfloat16, int8_t, 64);
   }
+#endif
 #undef ROWS
   return cudaErrorInvalidValue;
 }

@@ -82,6 +82,28 @@
 //    waves against tile width (a cost model fitted on the card: fc2 at
 //    m = 2304 in one wave of 8 x 16 tiles of 144 tokens, qkv in two waves
 //    of 256).
+//  - prefill with fp16 x (the opt levels O1-O3): the same kernel on
+//    .f32.f16.f16 products, each weight split into fp16 hi + lo.  fp16
+//    keeps 3 more bits of mantissa than bf16 but 3 fewer of exponent,
+//    and w - fp16(w) (about |w| 2^-12) of a typical
+//    weight (|w| ~ 0.02) falls in fp16's subnormals (below 2^-14) and
+//    loses its bits.  So each feature's weights are scaled by a power of
+//    two 2^e first, chosen from the largest scale of the feature's
+//    column over the split's k rows (the block scans them before it
+//    starts: kc reads a column) so that the largest |w| 2^e lies in
+//    [2^14, 2^15): no w 2^e overflows, and the hi and lo parts of every
+//    weight within 2^-24 of the largest stay normal.  2^e is folded into
+//    the scales (exact), and the fp32 sums are multiplied by 2^-e
+//    (exact) before the one rounding, so the function is unchanged.
+//    The tensor cores add products into their fp32 accumulator with
+//    truncation, a bias that grows with the number of products a sum
+//    takes: harmless at bf16's ulp, it put 3.2% of the fp16 outputs one
+//    ulp off the plain version at k = 4096 (1% at k = 1024; measured on
+//    an H100).  So each group of 4 k steps (a slab) starts a fresh sum
+//    (wgmma's scale-d 0) and the groups' sums are added in fp32 on the
+//    CUDA cores, after a wait for the group's products.  The second set
+//    of sums holds N / 2 registers more, so the fp16 tiles stop at 64
+//    tokens.
 //  - fp32 x (m > 8), dequant_tiled: exact fp32 on the CUDA cores (the
 //    parity phases and tests; fp32 has no tensor-core form that keeps
 //    it), 128 x 128 output tiles, k in steps of 32, each thread an 8 x 8
@@ -102,12 +124,16 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr int kThreads = 256;
 constexpr int kDecodeMaxM = 8;        // rows the decode kernel takes
@@ -124,9 +150,14 @@ enum Regime { kDecode = 0, kWgmma = 1, kTiled = 2 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(f16 x) { return __half2float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(bf16* p, float x) {
   *p = __float2bfloat16(x);
+}
+// round to nearest even; past 65504 an fp16 output is inf, as JAX's astype
+__device__ __forceinline__ void store(f16* p, float x) {
+  *p = __float2half_rn(x);
 }
 
 // 8 consecutive elements of x as fp32 (16- or 32-byte aligned)
@@ -142,6 +173,17 @@ __device__ __forceinline__ void load8(const bf16* p, float* out) {
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const float2 f = __bfloat1622float2(h[e]);
+    out[2 * e] = f.x;
+    out[2 * e + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const f16* p, float* out) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __half22float2(h[e]);
     out[2 * e] = f.x;
     out[2 * e + 1] = f.y;
   }
@@ -288,189 +330,219 @@ __device__ __forceinline__ void regs_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
 }
 
-// m64nNk16 bf16 products, fp32 accumulators, accumulating: A from
-// registers (the four 32-bit fragments of a 16-wide k block), B through a
-// descriptor, K-major (transpose bit 0).
-__device__ __forceinline__ void wgmma_n32(float (&d)[16],
-                                          const uint32_t (&a)[4],
-                                          uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+// m64nNk16 products of 16-bit operands (TY: "bf16" or "f16"), fp32
+// accumulators, accumulating (acc = 1) or overwriting them (acc = 0): A
+// from registers (the four 32-bit fragments of a 16-wide k block), B
+// through a descriptor, K-major (transpose bit 0).  One macro a shape,
+// defined for both types: wgmma_n<N>_<TY>.
+
+#define WGMMA_N32(TY) \
+__device__ __forceinline__ void wgmma_n32_##TY(float (&d)[16], \
+                                          const uint32_t (&a)[4], \
+                                          uint64_t b, int acc) { \
+  asm volatile( \
+      "{\n.reg .pred p;\n" \
+      "setp.ne.b32 p, %21, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." #TY "." #TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, " \
+      "%8, %9, %10, %11, %12, %13, %14, %15" \
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc)); \
 }
 
-__device__ __forceinline__ void wgmma_n64(float (&d)[32],
-                                          const uint32_t (&a)[4],
-                                          uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+#define WGMMA_N64(TY) \
+__device__ __forceinline__ void wgmma_n64_##TY(float (&d)[32], \
+                                          const uint32_t (&a)[4], \
+                                          uint64_t b, int acc) { \
+  asm volatile( \
+      "{\n.reg .pred p;\n" \
+      "setp.ne.b32 p, %37, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." #TY "." #TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, " \
+      "%8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc)); \
 }
 
-__device__ __forceinline__ void wgmma_n128(float (&d)[64],
-                                          const uint32_t (&a)[4],
-                                          uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+#define WGMMA_N128(TY) \
+__device__ __forceinline__ void wgmma_n128_##TY(float (&d)[64], \
+                                          const uint32_t (&a)[4], \
+                                          uint64_t b, int acc) { \
+  asm volatile( \
+      "{\n.reg .pred p;\n" \
+      "setp.ne.b32 p, %69, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." #TY "." #TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, " \
+      "%8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, " \
+      "%40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, " \
+      "%56, %57, %58, %59, %60, %61, %62, %63" \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc)); \
 }
 
-__device__ __forceinline__ void wgmma_n144(float (&d)[72],
-                                          const uint32_t (&a)[4],
-                                          uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %77, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71"
-      "}, {%72, %73, %74, %75}, %76, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+#define WGMMA_N144(TY) \
+__device__ __forceinline__ void wgmma_n144_##TY(float (&d)[72], \
+                                          const uint32_t (&a)[4], \
+                                          uint64_t b, int acc) { \
+  asm volatile( \
+      "{\n.reg .pred p;\n" \
+      "setp.ne.b32 p, %77, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n144k16.f32." #TY "." #TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, " \
+      "%8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, " \
+      "%40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, " \
+      "%56, %57, %58, %59, %60, %61, %62, %63, " \
+      "%64, %65, %66, %67, %68, %69, %70, %71" \
+      "}, {%72, %73, %74, %75}, %76, p, 1, 1, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), \
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), \
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc)); \
 }
 
-__device__ __forceinline__ void wgmma_n256(float (&d)[128],
-                                          const uint32_t (&a)[4],
-                                          uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+#define WGMMA_N256(TY) \
+__device__ __forceinline__ void wgmma_n256_##TY(float (&d)[128], \
+                                          const uint32_t (&a)[4], \
+                                          uint64_t b, int acc) { \
+  asm volatile( \
+      "{\n.reg .pred p;\n" \
+      "setp.ne.b32 p, %133, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." #TY "." #TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, " \
+      "%8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, " \
+      "%40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, " \
+      "%56, %57, %58, %59, %60, %61, %62, %63, " \
+      "%64, %65, %66, %67, %68, %69, %70, %71, " \
+      "%72, %73, %74, %75, %76, %77, %78, %79, " \
+      "%80, %81, %82, %83, %84, %85, %86, %87, " \
+      "%88, %89, %90, %91, %92, %93, %94, %95, " \
+      "%96, %97, %98, %99, %100, %101, %102, %103, " \
+      "%104, %105, %106, %107, %108, %109, %110, %111, " \
+      "%112, %113, %114, %115, %116, %117, %118, %119, " \
+      "%120, %121, %122, %123, %124, %125, %126, %127" \
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), \
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), \
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), \
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), \
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), \
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), \
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), \
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), \
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), \
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), \
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), \
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), \
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc)); \
 }
 
-template <int N>
+WGMMA_N32(bf16)
+WGMMA_N32(f16)
+WGMMA_N64(bf16)
+WGMMA_N64(f16)
+WGMMA_N128(bf16)
+WGMMA_N128(f16)
+WGMMA_N144(bf16)
+WGMMA_N144(f16)
+WGMMA_N256(bf16)
+WGMMA_N256(f16)
+
+#undef WGMMA_N32
+#undef WGMMA_N64
+#undef WGMMA_N128
+#undef WGMMA_N144
+#undef WGMMA_N256
+
+template <typename T, int N>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2],
-                                      const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (N == 32) wgmma_n32(d, a, b);
-  else if constexpr (N == 64) wgmma_n64(d, a, b);
-  else if constexpr (N == 128) wgmma_n128(d, a, b);
-  else if constexpr (N == 144) wgmma_n144(d, a, b);
-  else wgmma_n256(d, a, b);
+                                      const uint32_t (&a)[4], uint64_t b,
+                                      int acc = 1) {
+#define WGMMA_TY(NN)                                                \
+  if constexpr (std::is_same_v<T, f16>) NN##_f16(d, a, b, acc);     \
+  else NN##_bf16(d, a, b, acc)
+  if constexpr (N == 32) { WGMMA_TY(wgmma_n32); }
+  else if constexpr (N == 64) { WGMMA_TY(wgmma_n64); }
+  else if constexpr (N == 128) { WGMMA_TY(wgmma_n128); }
+  else if constexpr (N == 144) { WGMMA_TY(wgmma_n144); }
+  else { WGMMA_TY(wgmma_n256); }
+#undef WGMMA_TY
 }
 
 // ------------------------------------------------------------- the merge
@@ -909,10 +981,30 @@ __device__ __forceinline__ int wtile_off(int r, int col) {
                : (r * 128 + col) ^ ((r & 7) << 4);
 }
 
-// The A fragments (hi and lo) of one 16-row k step: this thread's rows
-// 2c, 2c + 1, 2c + 8, 2c + 9 of the step and its two features (the two
-// bytes of one 2-byte load; int4: nibble `hi` of each), scaled by sc.
-template <bool kInt4>
+// Two fp32 values as a packed pair of T (bf16 or fp16), rounded to
+// nearest even, and the pair back in fp32.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  if constexpr (std::is_same_v<T, f16>) {
+    const __half2 h = __floats2half2_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  } else {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+}
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t u) {
+  if constexpr (std::is_same_v<T, f16>)
+    return __half22float2(*reinterpret_cast<const __half2*>(&u));
+  else
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+// The A fragments (hi and lo, in T) of one 16-row k step: this thread's
+// rows 2c, 2c + 1, 2c + 8, 2c + 9 of the step and its two features (the
+// two bytes of one 2-byte load; int4: nibble `hi` of each), scaled by sc.
+template <typename T, bool kInt4>
 __device__ __forceinline__ void make_frags(const unsigned char* wt, int kr0,
                                            int col, bool hi_nibble,
                                            const float* sc, uint32_t (&fh)[4],
@@ -938,20 +1030,38 @@ __device__ __forceinline__ void make_frags(const unsigned char* wt, int kr0,
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int f = j & 1, p = j >> 1;
-    const __nv_bfloat162 h = __floats2bfloat162_rn(w[2 * p][f], w[2 * p + 1][f]);
-    const float2 hf = __bfloat1622float2(h);
-    const __nv_bfloat162 l = __floats2bfloat162_rn(w[2 * p][f] - hf.x,
-                                                   w[2 * p + 1][f] - hf.y);
-    fh[j] = *reinterpret_cast<const uint32_t*>(&h);
-    fl[j] = *reinterpret_cast<const uint32_t*>(&l);
+    fh[j] = pack2<T>(w[2 * p][f], w[2 * p + 1][f]);
+    const float2 hf = unpack2<T>(fh[j]);
+    fl[j] = pack2<T>(w[2 * p][f] - hf.x, w[2 * p + 1][f] - hf.y);
   }
 }
 
-template <int N, bool kInt4>
+// fp16 only: the largest |scale| of each of the block's scale columns
+// over the split's k rows, as fp32 bits (non-negative floats order as
+// their bits), for the power of two each feature's weights are scaled by.
+// Slot 16 h + j: column (first feature of half h) / block + j; a half
+// holds at most 128 / 16 + 1 (int8) or 64 / 8 + 1 (int4) columns.
+constexpr int kWmaxSlots = 32;
+
+// The power-of-two exponent e of a feature whose weights' scales reach
+// smax: the largest |w| = |q| * s (|q| <= qmax) times 2^e lies in
+// [2^14, 2^15), so w * 2^e, its fp16 hi part and the lo part of every
+// weight within 2^-24 of the largest stay normal (above 2^-14), and none
+// reaches fp16's 65504.  0 for an all-zero (or non-finite) column.
+__device__ __forceinline__ int weight_exponent(float smax, float qmax) {
+  const float top = smax * qmax;
+  if (!(top > 0.0f) || !isfinite(top)) return 0;
+  return min(100, max(-100, 14 - ilogbf(top)));
+}
+__device__ __forceinline__ float pow2(int e) {
+  return __int_as_float((127 + e) << 23);
+}
+
+template <typename T, int N, bool kInt4>
 __global__ void __launch_bounds__(kWgThreads, 1)
 dequant_wgmma(const __grid_constant__ CUtensorMap tmx,
               const __grid_constant__ CUtensorMap tmw,
-              const float* __restrict__ scales, bf16* __restrict__ out,
+              const float* __restrict__ scales, T* __restrict__ out,
               float* __restrict__ ws, int* __restrict__ counters, int m,
               int k, int n, int block, int kc) {
   using L = WgLayout<N, kInt4>;
@@ -969,6 +1079,11 @@ dequant_wgmma(const __grid_constant__ CUtensorMap tmx,
   const int k0 = blockIdx.z * kc;
   const int slabs = (min(k, k0 + kc) - k0 + kWgK - 1) / kWgK;
 
+  constexpr bool kHalf = std::is_same_v<T, f16>;
+  // a half's first feature: the low nibbles' (or int8's) p0, the high
+  // nibbles' p0 + n/2
+  auto first_feature = [&](int h) { return p0 + h * nq; };
+  __shared__ unsigned s_wmax[kWmaxSlots];
   if (threadIdx.x == 0) {
     for (int s = 0; s < kWgStages; ++s) {
       mbar_init(full0 + 8 * s, 1);
@@ -976,7 +1091,26 @@ dequant_wgmma(const __grid_constant__ CUtensorMap tmx,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if constexpr (kHalf) {
+    if (threadIdx.x < kWmaxSlots) s_wmax[threadIdx.x] = 0u;
+  }
   __syncthreads();
+  if constexpr (kHalf) {
+    // the whole block scans the split's scales of its columns
+    const int nb = n / block, k1 = min(k, k0 + kc);
+    const int width = kInt4 ? 64 : 128;
+    for (int h = 0; h < (kInt4 ? 2 : 1); ++h) {
+      const int fa = first_feature(h);
+      const int fb = first_feature(h) + min(width, nq - p0) - 1;
+      for (int col = fa / block; col <= fb / block; ++col) {
+        float mx = 0.0f;
+        for (int r = k0 + threadIdx.x; r < k1; r += kWgThreads)
+          mx = fmaxf(mx, fabsf(__ldg(scales + (long)r * nb + col)));
+        atomicMax(&s_wmax[16 * h + col - fa / block], __float_as_uint(mx));
+      }
+    }
+    __syncthreads();
+  }
 
   if (wg == 2) {
     // ------------------------------------------------------- producer
@@ -1009,6 +1143,19 @@ dequant_wgmma(const __grid_constant__ CUtensorMap tmx,
   const bool flive = pcol < nq;
   const int nb = n / block;
   const float* srow = scales + (flive ? fcol / block : 0);
+  // fp16: this thread's features' weights are scaled by 2^e before the
+  // hi + lo split (folded into the scales: exact, a power of two), and
+  // the sums by 2^-e after, in fp32
+  int e = 0;
+  if constexpr (kHalf) {
+    const int h = kInt4 ? wg : 0;
+    if (flive)
+      e = weight_exponent(
+          __uint_as_float(s_wmax[16 * h + fcol / block -
+                                 first_feature(h) / block]),
+          kInt4 ? 8.0f : 127.0f);
+  }
+  const float up = pow2(e);
 
   // the scales of this thread's 16 rows of slab t: k step s, row u
   auto load_scales = [&](int t, float (&sc)[16]) {
@@ -1017,13 +1164,20 @@ dequant_wgmma(const __grid_constant__ CUtensorMap tmx,
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int r = k0 + t * kWgK + 16 * s + 2 * c + (u & 1) + 8 * (u >> 1);
-        sc[4 * s + u] = flive && r < k ? __ldg(srow + (long)r * nb) : 0.0f;
+        float v = flive && r < k ? __ldg(srow + (long)r * nb) : 0.0f;
+        if constexpr (kHalf) v *= up;
+        sc[4 * s + u] = v;
       }
   };
 
   float acc[N / 2];
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
+  // fp16: the sum of the groups before the one in flight, added in fp32
+  // on the CUDA cores (below)
+  float total[kHalf ? N / 2 : 1];
+#pragma unroll
+  for (int i = 0; i < (kHalf ? N / 2 : 1); ++i) total[i] = 0.0f;
   // the k steps go in groups of G: a group's fragments are built while the
   // previous group's 2G products run, then its products issue back to back
   // (two buffers of G steps' fragments)
@@ -1035,8 +1189,8 @@ dequant_wgmma(const __grid_constant__ CUtensorMap tmx,
   mbar_wait(full0, 0);
 #pragma unroll
   for (int j = 0; j < G; ++j)
-    make_frags<kInt4>(gbase + L::XB, 16 * j + 2 * c, bcol, wg == 1,
-                      sc + 4 * j, fh[0][j], fl[0][j]);
+    make_frags<T, kInt4>(gbase + L::XB, 16 * j + 2 * c, bcol, wg == 1,
+                         sc + 4 * j, fh[0][j], fl[0][j]);
 
   const int steps = 4 * slabs;
   for (int g0 = 0; g0 < steps; g0 += 2 * G) {
@@ -1046,11 +1200,25 @@ dequant_wgmma(const __grid_constant__ CUtensorMap tmx,
       if (g >= steps) break;
       const int t = g / 4, s0 = (h * G) % 4;  // slab, first step in it
       const uint64_t dx = gmma_desc(base + (t % kWgStages) * L::STAGE);
+      if constexpr (kHalf) {
+        // the tensor cores add into the accumulator with truncation, a
+        // bias that grows with the products a sum takes (3% of fp16
+        // outputs a ulp off at k = 4096, 1% at 1024): each group's
+        // products start a fresh sum, added to the total here in fp32
+        wgmma_wait<0>();
+        fence_regs(acc);
+        if (g > 0) {
+#pragma unroll
+          for (int i = 0; i < N / 2; ++i) total[i] += acc[i];
+        }
+      }
       wgmma_fence();
 #pragma unroll
       for (int j = 0; j < G; ++j) {
-        wgmma<N>(acc, fh[h][j], dx + 2 * (s0 + j));   // 32 bytes a k step
-        wgmma<N>(acc, fl[h][j], dx + 2 * (s0 + j));
+        // 32 bytes a k step; fp16: the group's first product overwrites
+        wgmma<T, N>(acc, fh[h][j], dx + 2 * (s0 + j),
+                    kHalf && j == 0 ? 0 : 1);
+        wgmma<T, N>(acc, fl[h][j], dx + 2 * (s0 + j));
       }
       wgmma_commit();
       wgmma_wait<1>();                 // the previous group's products done
@@ -1068,29 +1236,37 @@ dequant_wgmma(const __grid_constant__ CUtensorMap tmx,
         }
 #pragma unroll
         for (int j = 0; j < G; ++j)
-          make_frags<kInt4>(gbase + (nt % kWgStages) * L::STAGE + L::XB,
-                            16 * (ns + j) + 2 * c, bcol, wg == 1,
-                            sc + 4 * (ns + j), fh[1 - h][j], fl[1 - h][j]);
+          make_frags<T, kInt4>(gbase + (nt % kWgStages) * L::STAGE + L::XB,
+                               16 * (ns + j) + 2 * c, bcol, wg == 1,
+                               sc + 4 * (ns + j), fh[1 - h][j], fl[1 - h][j]);
       }
     }
   }
   wgmma_wait<0>();
   fence_regs(acc);
+  if constexpr (kHalf) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] += total[i];
+  }
 
   // acc[i]: token 8 (i >> 2) + 2c + (i & 1), feature f0 + ((i >> 1) & 1)
   const int splits = gridDim.z;
+  const float down = pow2(-e);
   if (flive) {
 #pragma unroll
     for (int g = 0; g < N / 8; ++g)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int tok = m0 + 8 * g + 2 * c + e;
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const int tok = m0 + 8 * g + 2 * c + e2;
         if (tok >= m) continue;
-        const float v0 = acc[4 * g + e], v1 = acc[4 * g + 2 + e];
+        float v0 = acc[4 * g + e2], v1 = acc[4 * g + 2 + e2];
+        if constexpr (kHalf) {
+          v0 *= down;
+          v1 *= down;
+        }
         const long at = (long)tok * n + fcol;
         if (splits == 1)
-          *reinterpret_cast<__nv_bfloat162*>(out + at) =
-              __floats2bfloat162_rn(v0, v1);
+          *reinterpret_cast<uint32_t*>(out + at) = pack2<T>(v0, v1);
         else
           *reinterpret_cast<float2*>(ws + (long)blockIdx.z * m * n + at) =
               make_float2(v0, v1);
@@ -1100,8 +1276,8 @@ dequant_wgmma(const __grid_constant__ CUtensorMap tmx,
       !last_of_group<true>(counters + (long)blockIdx.y * gridDim.x +
                                     blockIdx.x, splits))
     return;
-  merge_tile<bf16, true, 256>(ws, out, m, n, splits, m0, N,
-                              tile_cols<kInt4>(p0, n));
+  merge_tile<T, true, 256>(ws, out, m, n, splits, m0, N,
+                           tile_cols<kInt4>(p0, n));
 }
 
 // ------------------------------------------------------------------ launch
@@ -1205,9 +1381,9 @@ cudaError_t launch_tiled(const T* x, const int8_t* q, const float* scales,
   return cudaGetLastError();
 }
 
-template <int N, bool kInt4>
-cudaError_t launch_wgmma(const bf16* x, const int8_t* q, const float* scales,
-                         bf16* out, float* ws, int* counters, int m, int k,
+template <typename T, int N, bool kInt4>
+cudaError_t launch_wgmma(const T* x, const int8_t* q, const float* scales,
+                         T* out, float* ws, int* counters, int m, int k,
                          int n, int block, int kc, int splits,
                          cudaStream_t stream) {
   using L = WgLayout<N, kInt4>;
@@ -1215,35 +1391,44 @@ cudaError_t launch_wgmma(const bf16* x, const int8_t* q, const float* scales,
   const dim3 grid((nq + L::WROW - 1) / L::WROW, (m + N - 1) / N, splits);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   CUtensorMap tmx, tmw;
-  if (!encode_map(&tmx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, m, k, kWgK,
-                  N, CU_TENSOR_MAP_SWIZZLE_128B) ||
+  if (!encode_map(&tmx, x,
+                  std::is_same_v<T, f16> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  2, m, k, kWgK, N, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !encode_map(&tmw, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, k, nq, L::WROW,
                   kWgK, kInt4 ? CU_TENSOR_MAP_SWIZZLE_64B
                               : CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
   static int opted = 0;
-  const cudaError_t err = opt_in(dequant_wgmma<N, kInt4>, L::BYTES, &opted);
+  const cudaError_t err =
+      opt_in(dequant_wgmma<T, N, kInt4>, L::BYTES, &opted);
   if (err != cudaSuccess) return err;
-  dequant_wgmma<N, kInt4><<<grid, kWgThreads, L::BYTES, stream>>>(
+  dequant_wgmma<T, N, kInt4><<<grid, kWgThreads, L::BYTES, stream>>>(
       tmx, tmw, scales, out, ws, counters, m, k, n, block, kc);
   return cudaGetLastError();
 }
 
-template <bool kInt4>
-cudaError_t wgmma_tile(int tile, const bf16* x, const int8_t* q,
-                       const float* scales, bf16* out, float* ws,
+template <typename T, bool kInt4>
+cudaError_t wgmma_tile(int tile, const T* x, const int8_t* q,
+                       const float* scales, T* out, float* ws,
                        int* counters, int m, int k, int n, int block, int kc,
                        int splits, cudaStream_t s) {
-#define WGMMA(N)                                                            \
-  case N:                                                                   \
-    return launch_wgmma<N, kInt4>(x, q, scales, out, ws, counters, m, k, n, \
-                                  block, kc, splits, s)
+#define WGMMA(N)                                                           \
+  case N:                                                                  \
+    return launch_wgmma<T, N, kInt4>(x, q, scales, out, ws, counters, m, k, \
+                                     n, block, kc, splits, s)
   switch (tile) {
     WGMMA(32);
     WGMMA(64);
-    WGMMA(128);
-    WGMMA(144);
-    WGMMA(256);
+  }
+  // fp16 keeps a second set of sums (the total) beside the accumulators:
+  // its tiles stop at 64 tokens
+  if constexpr (!std::is_same_v<T, f16>) {
+    switch (tile) {
+      WGMMA(128);
+      WGMMA(144);
+      WGMMA(256);
+    }
   }
 #undef WGMMA
   return cudaErrorInvalidValue;
@@ -1253,12 +1438,14 @@ cudaError_t wgmma_tile(int tile, const bf16* x, const int8_t* q,
 
 extern "C" {
 
-// x (m, k) fp32 (dtype 0) or bf16 (dtype 1); q int8 (k, n) or packed int4
+// x (m, k) fp32 (dtype 0), bf16 (1) or fp16 (2: only the build with
+// DEQUANT_F16 defined, dequant_matmul_f16.cu, takes it, and only it);
+// q int8 (k, n) or packed int4
 // (k, n/2) (int4 = 1); scales (k, n/block) fp32; out (m, n) in x's dtype.
 // regime 0: the decode kernel (m <= 8, kc <= 1024 a multiple of 8);
-// 1: the wgmma kernel (bf16 x, tile tokens a block: 32, 64, 128, 144 or
+// 1: the wgmma kernel (bf16 or fp16 x, tile tokens a block: 32, 64, 128, 144 or
 // 256; kc a multiple of 64; int4 needs n/2 % 16 == 0); 2: the tiled kernel
-// (kc a multiple of 32; fp32 x, or bf16 x over int4 weights).  k is cut into splits of kc rows; with more than
+// (kc a multiple of 32; fp32 x, or 16-bit x over int4 weights).  k is cut into splits of kc rows; with more than
 // one, work holds (splits, m, n) fp32 and counters one zeroed int32 per
 // output tile, which the kernel leaves at 0.  Needs k % 8 == 0 and, for
 // int8, n % 16 == 0 and block % 16 == 0; for int4, (n/2) % 8 == 0, block %
@@ -1269,9 +1456,17 @@ int dequant_matmul(const void* x, const void* q, const float* scales,
                    int block, int int4, int dtype, int regime, int tile,
                    int kc, int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // this build's element types: fp32 and bf16, or (DEQUANT_F16) fp16 only
+#if defined(DEQUANT_F16)
+  using H = f16;
+  const bool fp32 = false, ok = dtype == 2;
+#else
+  using H = bf16;
+  const bool fp32 = dtype == 0, ok = dtype == 0 || dtype == 1;
+#endif
   if (m < 1 || k < 8 || k % 8 || n < 1 || block < 1 || n % block ||
       kc < 1 || splits < 1 || (long)(splits - 1) * kc >= k ||
-      (long)splits * kc < k || dtype < 0 || dtype > 1 ||
+      (long)splits * kc < k || !ok ||
       (splits > 1 && (work == nullptr || counters == nullptr)))
     return cudaErrorInvalidValue;
   if (int4 ? (n % 2 || (n / 2) % 8 || block % 8 || (n / 2) % block)
@@ -1285,24 +1480,26 @@ int dequant_matmul(const void* x, const void* q, const float* scales,
   return launch_decode<T, I4>(static_cast<const T*>(x), qb, scales,        \
                               static_cast<T*>(out), work, counters, m, k,  \
                               n, block, kc, splits, s)
-    if (dtype == 0) {
+#if !defined(DEQUANT_F16)
+    if (fp32) {
       if (int4) DECODE(float, true);
       DECODE(float, false);
     }
-    if (int4) DECODE(bf16, true);
-    DECODE(bf16, false);
+#endif
+    if (int4) DECODE(H, true);
+    DECODE(H, false);
 #undef DECODE
   }
   if (regime == kWgmma) {
-    if (dtype != 1 || kc % kWgK || (int4 && (n / 2) % 16))
+    if (fp32 || kc % kWgK || (int4 && (n / 2) % 16))
       return cudaErrorInvalidValue;
-    const bf16* xb = static_cast<const bf16*>(x);
-    bf16* ob = static_cast<bf16*>(out);
+    const H* xh = static_cast<const H*>(x);
+    H* oh = static_cast<H*>(out);
     if (int4)
-      return wgmma_tile<true>(tile, xb, qb, scales, ob, work, counters, m, k,
-                              n, block, kc, splits, s);
-    return wgmma_tile<false>(tile, xb, qb, scales, ob, work, counters, m, k,
-                             n, block, kc, splits, s);
+      return wgmma_tile<H, true>(tile, xh, qb, scales, oh, work, counters, m,
+                                 k, n, block, kc, splits, s);
+    return wgmma_tile<H, false>(tile, xh, qb, scales, oh, work, counters, m,
+                                k, n, block, kc, splits, s);
   }
   if (regime == kTiled) {
     if (kc % BK) return cudaErrorInvalidValue;
@@ -1310,13 +1507,15 @@ int dequant_matmul(const void* x, const void* q, const float* scales,
   return launch_tiled<T, I4>(static_cast<const T*>(x), qb, scales,         \
                              static_cast<T*>(out), work, counters, m, k, n, \
                              block, kc, splits, s)
-    if (dtype == 0) {
+#if !defined(DEQUANT_F16)
+    if (fp32) {
       if (int4) TILED(float, true);
       TILED(float, false);
     }
-    // bf16 x reaches this kernel only over int4 weights whose n/2 is not a
-    // multiple of 16 (no TMA map); bf16 over int8 always takes wgmma
-    if (int4) TILED(bf16, true);
+#endif
+    // 16-bit x reaches this kernel only over int4 weights whose n/2 is not
+    // a multiple of 16 (no TMA map); over int8 it always takes wgmma
+    if (int4) TILED(H, true);
 #undef TILED
   }
   return cudaErrorInvalidValue;

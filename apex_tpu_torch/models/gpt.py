@@ -51,9 +51,8 @@ full-recompute ``generate_reference`` that gates greedy serving.  A
 ``policy`` (``apex_tpu_torch.amp``) sets the dtypes as in JAX: under O5
 the parameters are bf16 and the norms' fp32, under O2 the same in fp16,
 under O1 fp32 parameters compute in fp16, under O3 everything is fp16;
-every level trains, and serving (bf16 or fp32) raises
-``NotImplementedError`` at an fp16 compute dtype (ROADMAP.md A5b).
-Serving also runs
+every level trains and serves at its compute dtype (fp16 pages, the
+fp16 instances of the decode and dequant kernels).  Serving also runs
 from quantized weight pools (:func:`quantize_gpt_weights`: the five
 projections become ``QuantizedLinear``s over the dequant-matmul kernel,
 bit-identical pools to the JAX package's) and from int8 KV pages
@@ -74,7 +73,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from apex_tpu_torch.amp.policy import Policy, check_ported, check_serving
+from apex_tpu_torch.amp.policy import Policy, check_ported
 from apex_tpu_torch.ops.attention import flash_attention
 from apex_tpu_torch.ops.attention_decode import (
     FMHA_DECODE_MAX_ROWS,
@@ -209,8 +208,8 @@ class GPTDecodeFns:
     spec_tree: Any = None
     draft_source: Any = None
     #: the active width of the projections every step streams:
-    #: "float32"/"bf16" for plain weights, "int8"/"int4" for quantized
-    #: pools; mirrored as ``decode.weight_dtype``
+    #: "float32"/"bf16"/"float16" for plain weights, "int8"/"int4" for
+    #: quantized pools; mirrored as ``decode.weight_dtype``
     weight_dtype: Any = None
     #: bytes of every parameter and buffer one decode step reads (the
     #: JAX ``_per_chip_param_bytes`` at tp=1); mirrored as
@@ -292,7 +291,8 @@ def _bf16_projections(model: "GPTModel") -> "GPTModel":
     """A serving model whose projection weights are bf16 copies made once
     (``decode_fns(weight_dtype="bf16")``), so a bf16 step casts no
     weight; the biases stay as they are and are cast per call, as in
-    JAX."""
+    JAX.  At an fp16 compute dtype (O1) every call casts the bf16 copy to
+    fp16, as JAX's ``weight.astype(x.dtype)`` does."""
 
     def make(name: str, mod: nn.Module) -> nn.Module:
         new = _shallow_copy(mod)
@@ -639,7 +639,8 @@ class GPTModel(nn.Module):
     def _weight_pool_dtype(self) -> str:
         """The active weight width the projections imply: ``"int8"`` /
         ``"int4"`` for quantized pools, the storage dtype name
-        (``"float32"``/``"bf16"``) otherwise."""
+        (``"float32"``/``"bf16"``/``"float16"``, JAX's ``str(dtype)``)
+        otherwise."""
         for layer in self.layers[:1]:
             for name in QUANTIZED_WEIGHT_LEAVES:
                 mod = layer._modules.get(name)
@@ -957,10 +958,11 @@ class GPTModel(nn.Module):
         converted ONCE here: ``"int8"``/``"int4"`` quantize the
         projections (:func:`quantize_gpt_weights`, block size
         ``weight_block``) and the steps run the dequant-matmul kernel;
-        ``"bf16"`` makes bf16 copies of fp32 projection weights, so no step
-        casts a weight; ``None`` serves the model as given, including a
-        model :func:`quantize_gpt_weights` already converted (a declared
-        width must match it).  The active width and the weight-stream
+        ``"bf16"`` makes bf16 copies of fp32 projection weights, so no bf16
+        step casts a weight (at O1, fp16 compute, each step casts the bf16
+        copies to fp16, JAX's ``weight.astype(x.dtype)``); ``None`` serves
+        the model as given, including a model :func:`quantize_gpt_weights`
+        already converted (a declared width must match it).  The active width and the weight-stream
         bytes are stamped on the result and on ``decode``.
 
         ``temperature > 0`` samples (:func:`~apex_tpu_torch.serving
@@ -977,7 +979,6 @@ class GPTModel(nn.Module):
         the first call runs eagerly and captures); a replay's outputs are
         static buffers that the next replay overwrites.  ``decode_eager``
         and ``spec_eager`` on the result are the eager steps."""
-        check_serving(self.config.compute_dtype)
         _check_options(temperature, top_k, top_p)
         _reject_unported(tp=None if tp == 1 else tp)
         c = self.config
@@ -1344,7 +1345,6 @@ class GPTModel(nn.Module):
         JAX.  Returns the per-prompt generated token lists (EOS included
         when hit)."""
         c = self.config
-        check_serving(c.compute_dtype)
         prompts = np.asarray(prompts)
         prompt_lengths = np.asarray(prompt_lengths)
         b, s = prompts.shape

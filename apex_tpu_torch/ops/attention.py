@@ -39,7 +39,6 @@ from typing import Optional
 
 import torch
 
-from apex_tpu_torch.amp.policy import check_serving
 from apex_tpu_torch.ops.attention_decode import decode_contiguous
 from apex_tpu_torch.ops.attention_flash import checked as flash_checked
 from apex_tpu_torch.ops.attention_flash import flash_delta
@@ -249,7 +248,6 @@ def flash_attention(
             raise ValueError(
                 "implementation='decode' supports plain (optionally "
                 "causal) attention only — no bias/segments/dropout")
-        check_serving(q.dtype)
         return decode_contiguous(q, k, v, causal=causal, sm_scale=sm_scale)
     ids = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
                dropout_rate=dropout_rate, dropout_seed=dropout_seed)

@@ -16,7 +16,9 @@ atomic ticket), masked positions never weighted.  The grid comes from
 the shapes alone (:func:`_split_plan`): the host reads neither the
 lengths nor the page table.
 
-Ported: fp32 and bf16 pages, and int8 pages with per-(token, kv_block)
+Ported: fp32, bf16 and fp16 pages (q and the pages in one dtype; the
+fp16 instances are a library of their own, ``csrc/attention_decode_f16.cu``,
+counted as ``<name>_f16``), and int8 pages with per-(token, kv_block)
 fp32 scales ``(num_pages, h, page_size, ceil(d / kv_block))``
 dequantized in fp32 before the products, ``1 <= sq <=
 FMHA_DECODE_MAX_ROWS`` query rows, causal or not, the tree ``ancestor``
@@ -51,8 +53,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from apex_tpu_torch.ops.common import (
-    check, check_implementation, check_operands, count_launch, load,
-    split_scratch, stream_of,
+    check, check_implementation, check_operands, count_launch, f16_name,
+    load, split_scratch, stream_of,
 )
 from apex_tpu_torch.ops.rope import apply_rope_tables
 
@@ -96,7 +98,7 @@ DECODE_ROWS_SPAN = 128
 DECODE_ROWS_TILE = 32
 
 _NEG_INF = -1e30
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128)
 
 
@@ -292,9 +294,9 @@ _ARGTYPES = {
 }
 
 @functools.lru_cache(maxsize=None)
-def _entry(symbol: str = KERNEL):
+def _entry(symbol: str = KERNEL, source: str = "attention_decode"):
     """The loaded library and its C entry, typed once."""
-    lib = load("attention_decode")
+    lib = load(source)
     fn = getattr(lib, symbol)
     fn.argtypes = _ARGTYPES[symbol]
     fn.restype = ctypes.c_int
@@ -353,7 +355,8 @@ def _decode_cuda(q, k_pages, v_pages, page_table, lengths, causal, scale,
             f"ceil(d / kv_block)) = {tuple(k_pages.shape[:3])} + "
             f"({-(-d // kv_block)},), got {tuple(k_scales.shape)} "
             f"{k_scales.dtype}")
-    lib, fn = _entry(KERNEL_ROWS if rows else kernel)
+    lib, fn = _entry(KERNEL_ROWS if rows else kernel,
+                     f16_name("attention_decode", q.dtype))
     out = torch.empty_like(q)
     cos, sin = (t.data_ptr() for t in tables) if tables else (None, None)
     pages = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
@@ -369,6 +372,8 @@ def _decode_cuda(q, k_pages, v_pages, page_table, lengths, causal, scale,
     geometry = (b, h, sq, d, k_pages.shape[2], page_table.shape[1])
     nb = k_scales.shape[-1] if int8 else 0
     split = (plan.span, plan.n_split)
+    # one launch below, of the C entry of this branch
+    count_launch(f16_name(kernel, q.dtype))
     if rows:
         # the tree's rows as int32 bitmasks (bit j of row i: row i sees
         # fresh row j), read by the C entry from host memory and passed
@@ -376,19 +381,16 @@ def _decode_cuda(q, k_pages, v_pages, page_table, lengths, causal, scale,
         bits = (ctypes.c_int * FMHA_DECODE_MAX_TREE_ROWS)(*(
             [sum(int(bool(x)) << j for j, x in enumerate(r))
              for r in ancestor] if ancestor is not None else []))
-        count_launch(kernel)
         err = fn(*pages, *sc, page_table.data_ptr(), lengths.data_ptr(),
                  cos, sin, ctypes.addressof(bits), out.data_ptr(), ws, cnt,
                  *geometry, nb, int(kv_block), _DTYPES[q.dtype], int(int8),
                  int(causal), 0 if ancestor is None else sq, *split,
                  plan.row_tile, float(scale), stream)
     elif int8:
-        count_launch(KERNEL_INT8)
         err = fn(*pages, *sc, page_table.data_ptr(), lengths.data_ptr(), cos,
                  sin, out.data_ptr(), ws, cnt, *geometry, nb, int(kv_block),
                  _DTYPES[q.dtype], int(causal), *split, float(scale), stream)
     else:
-        count_launch(KERNEL)
         err = fn(*pages, page_table.data_ptr(), lengths.data_ptr(), cos, sin,
                  out.data_ptr(), ws, cnt, *geometry, _DTYPES[q.dtype],
                  int(causal), *split, float(scale), stream)

@@ -41,7 +41,7 @@ __all__ = [
     "KernelUnavailable", "build", "load", "check", "count_launch",
     "launch_counts", "reset_launch_counts", "stream_of", "check_operands",
     "check_implementation", "KERNEL_SOURCES", "as_int32", "split_scratch",
-    "split_scratch_tensors", "add_launch_counts",
+    "split_scratch_tensors", "add_launch_counts", "f16_name",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -53,7 +53,8 @@ KERNEL_SOURCES = ("attention_short", "attention_mid", "attention_flash",
                   "attention_short_f16", "attention_mid_f16",
                   "attention_flash_f16", "attention_short_f32",
                   "attention_mid_f32", "attention_flash_f32",
-                  "attention_decode", "dequant_matmul", "layer_norm",
+                  "attention_decode", "attention_decode_f16",
+                  "dequant_matmul", "dequant_matmul_f16", "layer_norm",
                   "multi_tensor")
 
 NVCC_FLAGS = (
@@ -70,6 +71,14 @@ class KernelUnavailable(RuntimeError):
 # ---------------------------------------------------------------- counters
 
 _LAUNCHES: Dict[str, int] = {}
+
+
+def f16_name(name: str, dtype: torch.dtype) -> str:
+    """``name`` with ``_f16`` last for an fp16 ``dtype``: the launch
+    counter of a kernel's fp16 instance, and the CUDA source that holds
+    the paged decode's and the dequant pair's fp16 instances
+    (``csrc/<name>_f16.cu``, the same code built by its own ``nvcc``)."""
+    return name + "_f16" if dtype == torch.float16 else name
 
 
 def count_launch(name: str) -> None:

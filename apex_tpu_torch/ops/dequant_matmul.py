@@ -19,12 +19,19 @@ bodies do; none writes the wide matrix to device memory.
 
 - ``decode`` (up to :data:`SKINNY_MAX_M` rows): fp32 FMAs on the CUDA
   cores over a ``cp.async`` ring of weight rows, k split to fill the SMs;
-- ``wgmma`` (more rows, bf16 x): the tensor cores, each dequantized
-  weight split into ``bf16(w)`` and ``bf16(w - bf16(w))`` and both
-  products accumulated in fp32, so the result is the fp32 sum to far
-  less than a bf16 ulp;
-- ``tiled`` (more rows, fp32 x, or bf16 x over int4 weights whose
+- ``wgmma`` (more rows, bf16 or fp16 x): the tensor cores, each
+  dequantized weight split into ``hi = T(w)`` and ``lo = T(w - hi)`` in
+  x's type T and both products accumulated in fp32, so the result is the
+  fp32 sum to far less than an ulp of T; in fp16 each feature's weights
+  are first scaled by a power of two (from its scales' largest), so that
+  no lo part falls into fp16's subnormals, the sums scaled back in fp32,
+  and each slab of 64 k rows is summed alone by the tensor cores and the
+  slabs added on the CUDA cores (their accumulator truncates);
+- ``tiled`` (more rows, fp32 x, or 16-bit x over int4 weights whose
   ``n / 2`` is not a multiple of 16): fp32 FMAs on the CUDA cores.
+
+fp32 and bf16 x take ``csrc/dequant_matmul.cu``'s library, fp16 x that of
+``dequant_matmul_f16.cu`` (the same code), counted as ``<name>_f16``.
 
 A k split is merged inside the same launch: the last block of an output
 tile adds the partials in split order (an ``atomicAdd`` ticket on a
@@ -44,8 +51,8 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from apex_tpu_torch.ops.common import (
-    check, check_implementation, check_operands, count_launch, load,
-    split_scratch, stream_of,
+    check, check_implementation, check_operands, count_launch, f16_name,
+    load, split_scratch, stream_of,
 )
 from apex_tpu_torch.ops.quantization import (
     dequantize_rows,
@@ -69,11 +76,15 @@ KERNELS = {"int8": "dequant_int8", "int4": "dequant_int4"}
 
 #: rows the decode kernel takes; more rows go to a prefill kernel
 SKINNY_MAX_M = 8
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _REGIMES = {"decode": 0, "wgmma": 1, "tiled": 2}
 
-#: the wgmma kernel's token tiles (its instances), the k rows of a slab
+#: the wgmma kernel's token tiles (its instances), the k rows of a slab;
+#: fp16 x keeps a second set of fp32 sums beside the accumulators (each
+#: slab's products summed alone, ``csrc/dequant_matmul.cu``), so its tiles
+#: stop at 64 tokens
 WGMMA_TILES = (32, 64, 128, 144, 256)
+WGMMA_TILES_F16 = (32, 64)
 _WG_K = 64
 #: the decode kernel's largest k slice (its x slice sits in shared memory)
 _DECODE_MAX_KC = 1024
@@ -138,9 +149,10 @@ def dequant_plan(m: int, k: int, n: int, weight_dtype: str,
     - ``decode`` (m <= :data:`SKINNY_MAX_M`): blocks (feature tile, split);
       ``floor(sms / tiles)`` splits wanted (one block an SM), ``kc``
       rounded up to 16 and at most 1024 rows.
-    - ``wgmma`` (bf16 x; int4 needs ``n / 2 % 16 == 0``, TMA's 16-byte
+    - ``wgmma`` (bf16 or fp16 x; int4 needs ``n / 2 % 16 == 0``, TMA's 16-byte
       row stride): blocks (feature tile, token tile, split); the token
-      tile from :data:`WGMMA_TILES` and the splits (``kc`` a multiple of
+      tile from :data:`WGMMA_TILES` (fp16 x: :data:`WGMMA_TILES_F16`)
+      and the splits (``kc`` a multiple of
       64) that minimise a cost model: waves over ``sms`` times ``kc *
       (tile + 217)``, plus the merge when k is split (the last block of a
       tile reads every split's fp32 tile).
@@ -159,10 +171,12 @@ def dequant_plan(m: int, k: int, n: int, weight_dtype: str,
         kc = min(_DECODE_MAX_KC, _round_up(_cdiv(k, want), 16))
         splits = _cdiv(k, kc)
         grid = (ftiles, splits)
-    elif x_dtype == torch.bfloat16 and not (int4 and nq % 16):
+    elif x_dtype in (torch.bfloat16, torch.float16) and not (
+            int4 and nq % 16):
         regime = "wgmma"
         best = None
-        for tile in WGMMA_TILES:
+        for tile in (WGMMA_TILES_F16 if x_dtype == torch.float16
+                     else WGMMA_TILES):
             for s in range(1, min(16, _cdiv(k, _WG_K)) + 1):
                 us, kc, splits = _wgmma_cost(m, k, tile, s, ftiles, sms)
                 key = (us, splits, -tile)
@@ -192,10 +206,10 @@ def _sm_count(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(symbol: str = "dequant_matmul"):
+def _entry(source: str = "dequant_matmul"):
     """The loaded library and its C entry, typed once."""
-    lib = load("dequant_matmul")
-    fn = getattr(lib, symbol)
+    lib = load(source)
+    fn = lib.dequant_matmul
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -248,8 +262,8 @@ def _dequant_cuda(x, qweight, scales, weight_dtype, bs):
     if plan.splits > 1:
         ws, cnt = split_scratch(x.device, stream.value, plan.workspace,
                            plan.counters)
-    lib, fn = _entry()
-    count_launch(kernel)
+    lib, fn = _entry(f16_name("dequant_matmul", x.dtype))
+    count_launch(f16_name(kernel, x.dtype))
     err = fn(x.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
              out.data_ptr(), ws, cnt, m, k, n, bs, int(int4),
              _DTYPES[x.dtype], _REGIMES[plan.regime], plan.tile, plan.kc,
@@ -268,7 +282,7 @@ def dequant_matmul(
     implementation: Optional[str] = None,
 ) -> torch.Tensor:
     """``x @ W`` where ``W`` lives as block-quantized int8 or packed
-    int4.  ``x (..., k)`` activations (fp32/bf16); ``qweight`` int8 —
+    int4.  ``x (..., k)`` activations (fp32/bf16/fp16); ``qweight`` int8 —
     ``(k, n)`` for ``weight_dtype="int8"``, ``(k, n / 2)`` packed for
     ``"int4"``; ``scales (k, n / block_size)`` fp32.  ``block_size``
     defaults to the value the scale shape implies.  Returns ``(..., n)``

@@ -80,7 +80,6 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from apex_tpu_torch.amp.policy import check_serving
 from apex_tpu_torch.random import PRNGKey, fold_in, keys_tensor
 from apex_tpu_torch.serving.kv_cache import (
     CacheOutOfPages,
@@ -196,7 +195,6 @@ class ContinuousBatcher:
         offload: Optional[Any] = None,
         key: Optional[Any] = None,
     ):
-        check_serving(cache.config.dtype)
         if logger is not None:
             raise NotImplementedError(
                 "the metrics logger is not ported yet (ROADMAP.md queue A "

@@ -157,6 +157,26 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
              (the dequant kernels at m=2304 in prefill), and one
              2300-token prompt in 256-token chunks (rope in the many-row
              instance).
+   serve-fp16-parity — (fp16 serving, O1-O3; phase 2 also holds and
+             times the fp16 instances of the paged decode and of the
+             dequant pair at their bf16 rows' shapes, the dequant's fp16
+             results under 1% a ulp off the plain version and none more)
+             2 layers at the flagship's width at O2: paged greedy ==
+             recompute on the same fp16, int8 and int4 weights,
+             monolithic, chunked + prefix-cached, chain and tree
+             speculative (a first divergence only under a top-two margin
+             of 1% of the logit scale); a prefix hit's fp16 logits
+             bit-identical to cold; int8 KV within quant-parity's band of
+             fp16 pages; the replayed decode and verify steps equal the
+             eager ones bit for bit (tokens, the K/V pools past the null
+             page, launches); the GPU's greedy and sampled streams against
+             the CPU's (hidden 256).
+   serve-fp16 — the 12-layer flagship at O2: phase 4's requests replayed
+             and eager (ms/step beside phase 4's bf16), int8 weights, int8
+             KV, a chunked prefix-cached run, an offramp_tree(4) run from
+             the int4 draft model, a sampled run, the fp16-vs-fp32 logit
+             band; the Llama mode at O2 on a 2300-token prompt; every
+             fp16 serving instance must launch.
 6. train-parity — one step of loss, backward and FusedAdam on the GPU
              (kernels) against a CPU copy of the same model and state
              (plain versions), fp32, 2 layers at the flagship's width:
@@ -385,6 +405,12 @@ def f16(name: str, dtype) -> str:
     return name + "_f16" if dtype == torch.float16 else name
 
 
+def short_name(dtype) -> str:
+    """``bf16``, ``fp16`` or ``fp32``: a record's shape names its type."""
+    return {torch.bfloat16: "bf16", torch.float16: "fp16"}.get(dtype,
+                                                                "fp32")
+
+
 
 def tolerance(ref: torch.Tensor) -> float:
     """Kernel-vs-plain tolerance on the same inputs.  fp32: 1e-4 of the
@@ -535,16 +561,18 @@ def sm90_instances(text: str) -> dict:
 
 
 #: the dequant kernels' template arguments in a mangled name: the decode
-#: kernel <T, MT, INT4>, the wgmma kernel <N, INT4>, the tiled one <T, INT4>
+#: kernel <T, MT, INT4>, the wgmma kernel <T, N, INT4>, the tiled one <T,
+#: INT4>
 _DEQUANT_KERNELS = re.compile(
-    r"dequant_(decode|wgmma|tiled)I(?:(13__nv_bfloat16|f)|Li(\d+)E)"
+    r"dequant_(decode|wgmma|tiled)I(13__nv_bfloat16|6__half|f)"
     r"(?:Li(\d+)E)?Lb(\d)E")
 
 
 def dequant_instances(text: str) -> dict:
     """``{instance: (registers, spill-store bytes)}`` of the dequant
-    kernels (``dequant_decode<T, MT, INT4>``, ``dequant_wgmma<N, INT4>``,
-    ``dequant_tiled<T, INT4>``) from ``nvcc -Xptxas -v`` output."""
+    kernels (``dequant_decode<T, MT, INT4>``, ``dequant_wgmma<T, N,
+    INT4>``, ``dequant_tiled<T, INT4>``) from ``nvcc -Xptxas -v``
+    output."""
     found, current = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -552,12 +580,14 @@ def dequant_instances(text: str) -> dict:
             current = None
             t = _DEQUANT_KERNELS.search(m.group(1))
             if t:
-                kind, dtype, tile, rows, int4 = t.groups()
-                x = "" if dtype is None else (
-                    " bf16 x" if dtype.endswith("bfloat16") else " fp32 x")
+                kind, dtype, num, int4 = t.groups()
+                x = (" bf16 x" if dtype.endswith("bfloat16") else
+                     " fp16 x" if dtype.endswith("half") else " fp32 x")
                 current = (f"dequant_{kind}{x}"
-                           + (f" {tile}-token tiles" if tile else "")
-                           + (f" {rows} rows" if rows else "")
+                           + (f" {num}-token tiles" if num and
+                              kind == "wgmma" else "")
+                           + (f" {num} rows" if num and kind == "decode"
+                              else "")
                            + (" int4" if int4 == "1" else " int8"))
                 found[current] = (0, 0)
             continue
@@ -655,7 +685,8 @@ def phase_kernels(dev) -> dict:
                 nbytes=4 * q.numel() * q.element_size() + heads * s * 4,
                 ops=4.0 * d * pairs, dtype=dtype)]
 
-    # each part's wall, so the script's 450 s can be kept
+    # each part's wall: the script must end within 1200 s, and aims at
+    # half of that
     part = lambda fn, *args: timed(f"kernels: {fn.__name__}", fn, *args)
     records.update(part(attention_train_kernels, randn))
 
@@ -887,8 +918,9 @@ def layer_norm_kernels(randn, dev) -> dict:
 def decode_kernels(randn, dev) -> dict:
     """``paged_decode`` against its plain version at the decode step's
     4-slot layout (lengths 0/1/300/576, pages of 64, NaN on the null
-    page), fp32 and bf16, sq 1 and 4, beside the many-row instance at the
-    same layout, then with the fused q-RoPE."""
+    page), fp32, bf16 and fp16 (``paged_decode_f16``), sq 1 and 4, beside
+    the many-row instance at the same layout, then with the fused
+    q-RoPE; the 16-bit rows timed."""
     from apex_tpu_torch.ops import attention_decode as dec
 
     records = {}
@@ -908,7 +940,7 @@ def decode_kernels(randn, dev) -> dict:
         table[i, :used] = perm[at:at + used]
         at += used
     table, lengths = table.to(dev), lengths.to(dev)
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32,) + SM90_DTYPES:
         kp = randn(num_pages, heads, page, d, dtype=dtype)
         vp = randn(num_pages, heads, page, d, dtype=dtype)
         kp[0] = float("nan")        # garbage on the null page stays out
@@ -925,21 +957,23 @@ def decode_kernels(randn, dev) -> dict:
                 check("paged_decode_rows", dec.fmha_decode(
                     q, kp, vp, table, lengths), want,
                     f"{str(dtype)[6:]} sq={sq} out (decode layout)")
-            if dtype != torch.bfloat16:
+            if dtype not in SM90_DTYPES:
                 continue
-            small, _ = time_ms(lambda: dec.fmha_decode(
-                q, kp, vp, table, lengths))
-            with many_row_instance(dec):
-                many, _ = time_ms(lambda: dec.fmha_decode(
+            if dtype == torch.bfloat16:
+                small, _ = time_ms(lambda: dec.fmha_decode(
                     q, kp, vp, table, lengths))
-            log(f"  bf16 sq={sq}, same layout: paged_decode {small:.4f} ms, "
-                f"the many-row instance {many:.4f} ms on the device")
+                with many_row_instance(dec):
+                    many, _ = time_ms(lambda: dec.fmha_decode(
+                        q, kp, vp, table, lengths))
+                log(f"  bf16 sq={sq}, same layout: paged_decode {small:.4f} "
+                    f"ms, the many-row instance {many:.4f} ms on the device")
             if sq != 1:
                 continue
             toks = int(lengths.sum())
-            records["paged_decode"] = [measure(
-                "paged_decode",
-                "4 slots, lengths 0/1/300/576, h=8 d=128 page=64 bf16", err,
+            name = f16("paged_decode", dtype)
+            records[name] = [measure(
+                name, "4 slots, lengths 0/1/300/576, h=8 d=128 page=64 "
+                f"{short_name(dtype)}", err,
                 lambda: dec.fmha_decode(q, kp, vp, table, lengths),
                 lambda: dec.paged_attention_reference(
                     q, kp, vp, table, lengths),
@@ -955,7 +989,7 @@ def decode_kernels(randn, dev) -> dict:
     from apex_tpu_torch.ops.rope import rope_table
 
     cos_t, sin_t = rope_table(pps * page, d, device=dev)
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32,) + SM90_DTYPES:
         kp = randn(num_pages, heads, page, d, dtype=dtype)
         vp = randn(num_pages, heads, page, d, dtype=dtype)
         for sq in (1, 4):
@@ -992,22 +1026,27 @@ DEQUANT_SHAPES = (("qkv", 4, 1024, 3072), ("attn_proj", 4, 1024, 1024),
 #: (the tiled kernel has both) and whether k is split
 DEQUANT_REQUIRED = ("decode, one split, direct store", "decode, ticket merge",
                     "wgmma bf16, direct store", "wgmma bf16, ticket merge",
+                    "wgmma fp16, direct store", "wgmma fp16, ticket merge",
                     "fp32 tiled, direct store", "fp32 tiled, ticket merge",
-                    "bf16 tiled, direct store")
+                    "bf16 tiled, direct store", "fp16 tiled, direct store")
 
-#: the share of bf16 outputs that may differ from the plain version's: a
-#: kernel that sums the fp32 products and rounds once differs only where
+#: the share of 16-bit outputs that may differ from the plain version's:
+#: a kernel that sums the fp32 products and rounds once differs only where
 #: the two orders of summation fall on either side of a rounding boundary
 #: (about 0.3% of the outputs); one bf16 pass over the weights (each w
-#: rounded to 8 bits) moves about 40% of them
+#: rounded to 8 bits) moves about 40% of them.  In fp16 no output may be
+#: more than one ulp off
 DEQUANT_FLIP_LIMIT = 0.01
+
+#: the x types phase 2 holds the dequant pair at
+DEQUANT_DTYPES = (torch.bfloat16, torch.float32, torch.float16)
 
 
 def dequant_path(plan, dtype) -> str:
     """The store path of a call: its kernel and whether k is split."""
-    kernel = {"decode": "decode", "wgmma": "wgmma bf16"}.get(
-        plan.regime,
-        "bf16 tiled" if dtype == torch.bfloat16 else "fp32 tiled")
+    kernel = ("decode" if plan.regime == "decode" else
+              f"{plan.regime} {short_name(dtype)}" if plan.regime == "wgmma"
+              else f"{short_name(dtype)} tiled")
     if plan.splits > 1:
         return f"{kernel}, ticket merge"
     return f"{kernel}, one split, direct store" if plan.regime == "decode" \
@@ -1019,38 +1058,64 @@ def bf16_flips(got, want) -> float:
     return (got != want).float().mean().item()
 
 
-def check_rounded_once(kernel: str, got, plain, one_pass, what: str) -> None:
-    """A bf16 result must be the fp32 sum rounded once: no more than
-    :data:`DEQUANT_FLIP_LIMIT` of its elements off the plain version's.
-    ``one_pass``, the same product from weights rounded to bf16, must
-    miss that limit, or the check could not tell the two apart."""
+def ulps_off(got, want, noise) -> float:
+    """The largest distance of ``got`` from ``want`` in fp16 ulps at each
+    element of ``want`` (equal elements, infs included, are 0 off), the
+    ulp never taken below ``noise``: the typical rounding error of an fp32
+    sum of the same products, sqrt(k) 2**-24 sum |x_i w_i| (an output that
+    cancels below it differs between any two orders of summation, the
+    tensor cores' accumulator among them, by more than its fp16 ulp)."""
+    g, w = got.float(), want.float()
+    ulp = torch.maximum(torch.exp2(torch.floor(torch.log2(
+        w.abs().clamp_min(2.0 ** -14))) - 10), noise)
+    off = torch.where(g == w, 0.0, (g - w).abs() / ulp)
+    return off.max().item()
+
+
+def check_rounded_once(kernel: str, got, plain, one_pass, what: str,
+                       noise=None) -> None:
+    """A 16-bit result must be the fp32 sum rounded once: no more than
+    :data:`DEQUANT_FLIP_LIMIT` of its elements off the plain version's,
+    and (fp16) none by more than one ulp (:func:`ulps_off`, ``noise`` the
+    fp32 sums' rounding error at each output).  ``one_pass``, the same
+    product from weights rounded to x's type, must miss that limit, or the
+    check could not tell the two apart."""
     flips, alone = bf16_flips(got, plain), bf16_flips(one_pass, plain)
+    ty = short_name(got.dtype)
     if alone < DEQUANT_FLIP_LIMIT:
-        fail(f"{kernel} {what}: a one-pass bf16 product differs from the "
+        fail(f"{kernel} {what}: a one-pass {ty} product differs from the "
              f"plain version in only {alone:.2%} of the outputs: the check "
              f"cannot tell it from the fp32 function")
     if flips >= DEQUANT_FLIP_LIMIT:
         fail(f"{kernel} {what}: {flips:.3%} of the outputs differ from the "
              f"plain version (limit {DEQUANT_FLIP_LIMIT:.0%}; a one-pass "
-             f"bf16 product: {alone:.2%})")
+             f"{ty} product: {alone:.2%})")
+    off = (ulps_off(got, plain, noise) if got.dtype == torch.float16
+           else None)
+    if off is not None and not off <= 1.0:
+        fail(f"{kernel} {what}: an output {off:.3g} fp16 ulps off the plain "
+             "version's one rounding (limit 1)")
     log(f"  {kernel} {what}: {flips:.3%} of the outputs off the plain "
-        f"version (limit {DEQUANT_FLIP_LIMIT:.0%}; a one-pass bf16 "
-        f"product: {alone:.2%})")
+        f"version (limit {DEQUANT_FLIP_LIMIT:.0%}; a one-pass {ty} "
+        f"product: {alone:.2%})"
+        + ("" if off is None else f", at most {off:.0f} ulp off"))
 
 
 def dequant_kernels(randn) -> dict:
     """``dequant_int8`` and ``dequant_int4`` against their plain versions,
-    block 128, bf16 and fp32 x, at :data:`DEQUANT_SHAPES`, each called twice
-    (the same bits: the k split is merged in a fixed order).  A bf16 result
-    is held to :func:`tolerance` and, elementwise, to
-    :func:`check_rounded_once`.  The bound is
-    the bytes moved (x, the quantized weights and scales, the output) or
-    the arithmetic: 2mkn at the tensor cores' bf16 rate for the bf16-x
-    prefill rows (the wgmma kernel), and 2mkn plus one dequantizing
-    multiply per weight at the fp32 rate for the others.  No PyTorch call
-    takes block-scaled int8/int4 weights, so there is no library time.  A
-    separate reading: ``torch.matmul`` on the dense bf16 weight at each
-    shape, the time the quantized pool has to beat.
+    block 128, bf16, fp32 and fp16 x (the ``_f16`` instances), at
+    :data:`DEQUANT_SHAPES`, each called twice (the same bits: the k split
+    is merged in a fixed order).  A 16-bit result is held to
+    :func:`tolerance` and, elementwise, to :func:`check_rounded_once`.
+    The bound is the bytes moved (x, the quantized weights and scales, the
+    output) or the arithmetic: 2mkn at the tensor cores' 16-bit rate for
+    the 16-bit-x prefill rows (the wgmma kernel), and 2mkn plus one
+    dequantizing multiply per weight at the fp32 rate for the others.  No
+    PyTorch call takes block-scaled int8/int4 weights: the bf16 rows have
+    no library time, and a separate reading is ``torch.matmul`` on the
+    dense bf16 weight at each shape, the time the quantized pool has to
+    beat; the fp16 rows carry ``torch.matmul`` on the dense fp16 weight
+    as their library time, that same yardstick.
 
     The plan (``dequant_plan``) sends each call to a kernel and a k split;
     the shapes must reach every store path of :data:`DEQUANT_REQUIRED`, or
@@ -1071,7 +1136,7 @@ def dequant_kernels(randn) -> dict:
         ("bf16-tiled probe", 64, 256, 2064, ("int4",), 8))
     plans = {(shape, wd, dtype): dequant_plan(*shape[1:4], wd, dtype, sms)
              for shape in shapes for wd in shape[4]
-             for dtype in (torch.bfloat16, torch.float32)}
+             for dtype in DEQUANT_DTYPES}
     reached = {dequant_path(p, key[2]) for key, p in plans.items()}
     missing = [path for path in DEQUANT_REQUIRED if path not in reached]
     if missing:
@@ -1086,8 +1151,8 @@ def dequant_kernels(randn) -> dict:
             kernel = f"dequant_{wd}"
             pool = quantize_weight(w, wd, block)
             q, s = pool["q8" if wd == "int8" else "q4"], pool["scales"]
-            wbf = dequantize_weight(pool).to(torch.bfloat16).float()
-            for dtype in (torch.bfloat16, torch.float32):
+            wide = dequantize_weight(pool)
+            for dtype in DEQUANT_DTYPES:
                 x = randn(m, k, dtype=dtype)
                 plan = plans[(shape, wd, dtype)]
                 what = (f"{name} m={m} k={k} n={n} block {block} x "
@@ -1100,18 +1165,24 @@ def dequant_kernels(randn) -> dict:
                     x, q, s, weight_dtype=wd, block_size=block)
                 got, want = run(), plain()
                 err = check(kernel, got, want, what)
-                if dtype == torch.bfloat16:
+                if dtype != torch.float32:
+                    noise = k ** 0.5 * 2.0 ** -24 * torch.matmul(
+                        x.float().abs(), wide.abs())
                     check_rounded_once(
-                        kernel, got, want,
-                        torch.matmul(x.float(), wbf).to(dtype), what)
+                        kernel, got, want, torch.matmul(
+                            x.float(), wide.to(dtype).float()).to(dtype),
+                        what, noise)
                 if not torch.equal(got, run()):
                     fail(f"{kernel} {what}: a second call gave other bits")
-                rate = (torch.bfloat16 if plan.regime == "wgmma"
-                        else torch.float32)
+                rate = dtype if plan.regime == "wgmma" else torch.float32
                 ops = 2.0 * m * k * n + (k * n if rate == torch.float32
                                          else 0)
-                records.setdefault(kernel, []).append(measure(
-                    kernel, what, err, run, plain, None,
+                dense = wide.to(dtype)
+                library = (("dense fp16 torch.matmul",
+                            lambda: torch.matmul(x, dense))
+                           if dtype == torch.float16 else None)
+                records.setdefault(f16(kernel, dtype), []).append(measure(
+                    f16(kernel, dtype), what, err, run, plain, library,
                     nbytes=x.numel() * x.element_size() + q.numel()
                     + s.numel() * 4 + m * n * x.element_size(),
                     ops=ops, dtype=rate))
@@ -1153,11 +1224,12 @@ def paged_layout(lengths, page: int, pps: int, dev):
 
 
 def decode_int8_kernels(randn, dev) -> dict:
-    """``paged_decode_int8`` against its plain version (bf16 and fp32 q,
-    sq 1 and 4) over pages the cache's quantizer made from random rows, at
-    phase 2's 4-slot layout (877 cached tokens) and at serve-long's 2300
-    tokens a slot; timed at bf16 q, sq=1, beside the bf16 pages' kernel
-    over the same values dequantized."""
+    """``paged_decode_int8`` against its plain version (bf16, fp16 and
+    fp32 q, sq 1 and 4) over pages the cache's quantizer made from random
+    rows, at phase 2's 4-slot layout (877 cached tokens) and at
+    serve-long's 2300 tokens a slot; timed at 16-bit q, sq=1 (fp16:
+    ``paged_decode_int8_f16``), beside the 16-bit pages' kernel over the
+    same values dequantized."""
     from apex_tpu_torch.ops import attention_decode as dec
     from apex_tpu_torch.ops.quantization import quantize_rows
 
@@ -1175,7 +1247,7 @@ def decode_int8_kernels(randn, dev) -> dict:
                           sc.view(num_pages, heads, page, 1)))
         (kp, ks), (vp, vs) = pages
         toks = sum(lengths)
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in SM90_DTYPES + (torch.float32,):
             for sq in (1, 4):
                 q = randn(4, heads, sq, d, dtype=dtype)
                 run = lambda: dec.fmha_decode(q, kp, vp, table, lens,
@@ -1184,12 +1256,14 @@ def decode_int8_kernels(randn, dev) -> dict:
                     q, kp, vp, table, lens, k_scales=ks, v_scales=vs)
                 what = f"{str(dtype)[6:]} sq={sq} {toks} cached tokens"
                 err = check("paged_decode_int8", run(), plain(), what)
-                if dtype != torch.bfloat16 or sq != 1:
+                if dtype not in SM90_DTYPES or sq != 1:
                     continue
-                records.setdefault("paged_decode_int8", []).append(measure(
-                    "paged_decode_int8",
+                name = f16("paged_decode_int8", dtype)
+                records.setdefault(name, []).append(measure(
+                    name,
                     f"4 slots, lengths {'/'.join(map(str, lengths))}, "
-                    f"h={heads} d={d} page={page} int8 pages, bf16 q", err,
+                    f"h={heads} d={d} page={page} int8 pages, "
+                    f"{short_name(dtype)} q", err,
                     run, plain,
                     None,
                     nbytes=2 * q.numel() * q.element_size()
@@ -1197,10 +1271,10 @@ def decode_int8_kernels(randn, dev) -> dict:
                     + lens.numel() * 4,
                     ops=4.0 * d * heads * toks, dtype=dtype))
                 kb, vb = ((p.float() * sc).to(dtype) for p, sc in pages)
-                bf16_ms, _ = time_ms(lambda: dec.fmha_decode(
+                wide_ms, _ = time_ms(lambda: dec.fmha_decode(
                     q, kb, vb, table, lens))
-                log(f"  paged_decode over bf16 pages, same layout: "
-                    f"{bf16_ms:.4f} ms on the device")
+                log(f"  paged_decode over {short_name(dtype)} pages, same "
+                    f"layout: {wide_ms:.4f} ms on the device")
     return records
 
 
@@ -1242,9 +1316,9 @@ def decode_split_kernels(randn, dev) -> dict:
     the tree mask, d = 64 and 128, pages of 16 and 64, an idle slot, NaN
     on the null page) against its plain version and against the plain
     model of the spans (``_decode_split_plain``), at :func:`tolerance`,
-    and the same bits twice; then serve-long's decode layout
-    (:data:`SERVE_LONG_DECODE`) with and without the rope, held and
-    timed."""
+    and the same bits twice, in bf16, fp16 (the ``_f16`` instances) and
+    fp32; then serve-long's decode layout (:data:`SERVE_LONG_DECODE`) with
+    and without the rope, held and timed in bf16 and fp16."""
     from apex_tpu_torch.ops import attention_decode as dec
     from apex_tpu_torch.ops.quantization import quantize_rows
     from apex_tpu_torch.ops.rope import rope_table
@@ -1293,7 +1367,7 @@ def decode_split_kernels(randn, dev) -> dict:
                          sc.view(num_pages, heads, page, -1)))
         (k8, ks), (v8, vs) = int8
         every = "/".join(map(str, lengths))
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in SM90_DTYPES + (torch.float32,):
             kp = randn(num_pages, heads, page, d, dtype=dtype)
             vp = randn(num_pages, heads, page, d, dtype=dtype)
             kp[0] = float("nan")        # garbage on the null page stays out
@@ -1332,7 +1406,7 @@ def decode_split_kernels(randn, dev) -> dict:
     table, lens, num_pages = paged_layout(lengths, page, pps, dev)
     cos_t, sin_t = rope_table(pps * page, 128, device=dev)
     toks = sum(lengths)
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in SM90_DTYPES + (torch.float32,):
         kp = randn(num_pages, heads, page, 128, dtype=dtype)
         vp = randn(num_pages, heads, page, 128, dtype=dtype)
         for sq in (1, 4):
@@ -1348,11 +1422,12 @@ def decode_split_kernels(randn, dev) -> dict:
                               f"{str(dtype)[6:]}{extra}", run, plain,
                               lambda call=call: dec._decode_split_plain(
                                   *call, span=span))
-                if dtype != torch.bfloat16 or sq != 1:
+                if dtype not in SM90_DTYPES or sq != 1:
                     continue
-                records.setdefault("paged_decode", []).append(measure(
-                    "paged_decode",
-                    f"4 slots x 2300, h={heads} d=128 page=64 bf16{extra}",
+                name = f16("paged_decode", dtype)
+                records.setdefault(name, []).append(measure(
+                    name, f"4 slots x 2300, h={heads} d=128 page=64 "
+                    f"{short_name(dtype)}{extra}",
                     err, run, plain, None,
                     nbytes=2 * q.numel() * q.element_size()
                     + 2 * toks * heads * 128 * kp.element_size()
@@ -1396,9 +1471,9 @@ def decode_rows_kernels(randn, dev) -> dict:
     over 512 cached tokens, page 64: ``paged_decode_rows``), and its tree
     instance at speculative verify's (4 slots of 877 cached tokens,
     ``offramp_tree(4)``'s 9 rows and ``chain_tree(4)``'s 5:
-    ``paged_decode_tree``); bf16, fp32, int8 pages, with and without the
-    fused q-RoPE, NaN on the null page.  Timed at bf16 pages without
-    rope; the int8 pages and rope timed beside it.  The bound: q in, out,
+    ``paged_decode_tree``); bf16, fp16 (``_f16``), fp32, int8 pages,
+    with and without the fused q-RoPE, NaN on the null page.  Timed at
+    16-bit pages without rope; the int8 pages and rope timed beside it.  The bound: q in, out,
     and each slot's visible K/V once (bytes), or 4 * d flops per visible
     (row, token) pair at the bf16 rate."""
     from apex_tpu_torch.ops import attention_decode as dec
@@ -1429,7 +1504,7 @@ def decode_rows_kernels(randn, dev) -> dict:
                          sc.view(num_pages, heads, page, 1)))
         (k8, ks), (v8, vs) = int8
         pairs = visible_pairs(lengths, sq, anc)
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in SM90_DTYPES + (torch.float32,):
             dt = str(dtype)[6:]
             kp = randn(num_pages, heads, page, d, dtype=dtype)
             vp = randn(num_pages, heads, page, d, dtype=dtype)
@@ -1462,21 +1537,21 @@ def decode_rows_kernels(randn, dev) -> dict:
                     fail(f"{name}: non-finite output")
                 runs[what] = (check(name, got, plain(), f"{dt} sq={sq}{what}"),
                               run, plain)
-            if dtype != torch.bfloat16:
+            if dtype not in SM90_DTYPES:
                 continue
             toks = sum(lengths)
             err, run, plain = runs[""]
-            records.setdefault(name, []).append(measure(
-                name, f"{label}, h={heads} d={d} page={page} bf16", err, run,
-                plain, None,
+            records.setdefault(f16(name, dtype), []).append(measure(
+                f16(name, dtype), f"{label}, h={heads} d={d} page={page} "
+                f"{short_name(dtype)}", err, run, plain, None,
                 nbytes=2 * q.numel() * q.element_size()
                 + 2 * toks * heads * d * kp.element_size()
                 + table.numel() * 4 + lens.numel() * 4,
                 ops=4.0 * d * heads * pairs, dtype=dtype))
             for what in (" with rope", " int8 pages"):
                 ms, _ = time_ms(runs[what][1])
-                log(f"  {name} bf16{what}, same layout: {ms:.4f} ms on the "
-                    "device")
+                log(f"  {f16(name, dtype)} {short_name(dtype)}{what}, same "
+                    f"layout: {ms:.4f} ms on the device")
     return records
 
 
@@ -2068,8 +2143,8 @@ DROP_SHAPES = (
 #: slots (20 rows), over the flagship's vocabulary
 GUMBEL_ROWS = (4, 20)
 #: ctx values held a case (256 before the fp16 phases came, cut to keep
-#: the script's wall under 450 s; each value is one plain draw of every
-#: row, some 15 ms)
+#: the script's wall near half of its 1200 s limit; each value is one
+#: plain draw of every row, some 15 ms)
 GUMBEL_CTX = 64
 #: a row may go either way when the plain version's top two ``y + g``
 #: lie within this many fp32 ulps of the larger; such rows are counted,
@@ -3987,6 +4062,393 @@ def phase_serve_quant_long(model) -> None:
         f"of {width} tokens {1e3 * np.mean(prefill_s):.2f} ms each; decode "
         f"{1e3 * (wall - sum(prefill_s)) / b.steps:.2f} ms per step; "
         f"launches {counts}")
+
+
+# ------------------------------------------------------ fp16 serving (O2)
+#: a first divergence of an fp16 greedy stream from its reference may fall
+#: only where the reference's top two logits lie within this share of the
+#: logit scale: fp16 rounds at other points on the two paths (the decode
+#: kernel keeps q rotated in fp32 and its softmax in fp32, the prefill's
+#: tensor cores round the probabilities to fp16), about 2**-11 of a value
+#: a rounding over 2 layers; 1% is the fp16 band of the CPU tests
+#: (``tests/test_torch_serving_fp16.py``)
+FP16_MARGIN_SHARE = 0.01
+#: the GPU-vs-CPU fp16 model: CPU fp16 products are slow, so a narrow GPT
+#: whose heads keep the kernels' d=128 (2 layers, hidden 256, vocab 512)
+FP16_CPU_SIZES = dict(vocab_size=512, num_layers=2, hidden_size=256,
+                      num_attention_heads=2, ffn_hidden_size=1024,
+                      max_position_embeddings=256)
+#: the fp16 instances on the fp16 serving path
+SERVE_F16 = ("paged_decode_f16", "paged_decode_int8_f16",
+             "paged_decode_rows_f16", "paged_decode_tree_f16",
+             "dequant_int8_f16", "dequant_int4_f16")
+
+
+def o2_model(sizes, dev, seed):
+    """A GPT at O2 (fp16 parameters and compute, fp32 norms), random
+    weights from ``seed``."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+
+    return GPTModel(GPTConfig(**sizes, policy=amp.get_policy("O2")),
+                    device=dev, seed=seed)
+
+
+def greedy_margin(model, context) -> tuple:
+    """``model``'s top-two logit margin and logit scale after ``context``
+    (full recompute)."""
+    ctx = torch.tensor([context], dtype=torch.int32, device=model.device)
+    with torch.no_grad():
+        row = model.apply(ctx)[0, -1].float()
+    top = row.topk(2).values
+    return (top[0] - top[1]).item(), row.abs().max().item()
+
+
+def same_greedy(label, ref_model, prompts, got, want) -> int:
+    """``got`` equal to ``want`` stream by stream, or equal up to a first
+    divergence where ``ref_model``'s top two logits lie within
+    :data:`FP16_MARGIN_SHARE` of the logit scale.  Returns the number of
+    streams that diverged."""
+    diverged = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        t = next(j for j in range(len(w)) if j >= len(g) or g[j] != w[j])
+        margin, scale = greedy_margin(ref_model, list(prompts[i]) + w[:t])
+        log(f"  {label}: stream {i} diverges at token {t}: top-two margin "
+            f"{margin:.4g} (logit scale {scale:.4g})")
+        if not margin < FP16_MARGIN_SHARE * scale:
+            fail(f"{label}: stream {i} {g} != {w} at token {t} with a "
+                 f"top-two margin of {margin:.4g} (scale {scale:.4g})")
+        diverged += 1
+    return diverged
+
+
+def phase_serve_fp16_parity(dev) -> None:
+    """fp16 serving gates, 2 layers at the flagship's width at O2: paged
+    greedy == ``generate_reference`` at fp16 on the same model and weight
+    pool (fp16, int8, int4), monolithic, chunked + prefix-cached and
+    chain/tree speculative (a first divergence only under
+    :data:`FP16_MARGIN_SHARE`); a prefix hit's logits bit-identical to a
+    cold prefill's; int8 KV pages within quant-parity's band of fp16
+    pages; the replayed decode and verify steps equal the eager steps bit
+    for bit (tokens, the K/V pools) with equal launches; then the GPU's
+    greedy and sampled streams against the CPU's on the same weights
+    (:data:`FP16_CPU_SIZES`)."""
+    from apex_tpu_torch.models.gpt import quantize_gpt_weights
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.random import PRNGKey
+    from apex_tpu_torch.serving import Request, offramp_tree
+
+    log("[serve-fp16-parity] 2 layers at the flagship's width, O2 (fp16): "
+        "paged vs recompute, prefix hit vs cold, replayed vs eager, GPU vs "
+        "CPU")
+    new, page, chunk = 16, 16, 16
+    plens = [48, 17, 32, 5, 60, 40]
+    model = o2_model(dict(FLAGSHIP, num_layers=2), dev, seed=1)
+    vocab = model.config.vocab_size
+    rng = np.random.RandomState(11)
+    width = max(plens)
+    pps = -(-(width + new + 8) // page)
+    prompts = rng.randint(1, vocab, (len(plens), width)).astype(np.int32)
+    prompts[2, :32] = prompts[0, :32]
+    prompts[4, :48] = prompts[0, :48]
+    for i, n in enumerate(plens):
+        prompts[i, n:] = 0
+    rows = [prompts[i, :n].tolist() for i, n in enumerate(plens)]
+    reqs = [Request(uid=i, prompt=rows[i], max_new_tokens=new)
+            for i in range(len(plens))]
+    notes = []
+    for wd in (None, "int8", "int4"):
+        m = model if wd is None else quantize_gpt_weights(model, wd)
+        want = m.generate_reference(prompts, plens, new).tolist()
+        comps, _, _, _ = serve(m, reqs, max_prompt_len=width, page_size=page,
+                               max_seqs=2, pages_per_seq=pps, harvest_every=4)
+        got = [comps[i].tokens for i in range(len(plens))]
+        d = same_greedy(f"serve-fp16-parity {wd or 'fp16'} weights", m,
+                        rows, got, want)
+        notes.append(f"{wd or 'fp16'} weights {len(plens) - d}/{len(plens)}")
+        if wd is not None:
+            continue
+        b = chunked_batcher(model, width, pps, chunk, page_size=page)
+        comps = b.run(reqs)
+        d = same_greedy("serve-fp16-parity chunked + prefix cache", model,
+                        rows, [comps[i].tokens for i in range(len(plens))],
+                        want)
+        notes.append(f"chunked + prefix {len(plens) - d}/{len(plens)} "
+                     f"(prefix {b.prefix_stats['hits']} hits)")
+        for what, tree in (("chain", None), ("offramp_tree(4)",
+                                             offramp_tree(4))):
+            draft = None if tree is None else draft_source(
+                model, pps, tree, page_size=page)
+            sb = spec_batcher(model, width, pps, tree=tree, draft=draft,
+                              page_size=page)
+            comps = sb.run(reqs)
+            d = same_greedy(f"serve-fp16-parity {what}", model, rows,
+                            [comps[i].tokens for i in range(len(plens))],
+                            want)
+            notes.append(f"{what} {len(plens) - d}/{len(plens)} "
+                         f"({sb.spec_stats['accepted']} of "
+                         f"{sb.spec_stats['drafted']} drafts accepted)")
+    log("  streams equal to recompute: " + "; ".join(notes))
+    # a prefix hit's logits against a cold prefill's, bit for bit
+    hot, fresh = (chunked_batcher(model, width, pps, chunk, page_size=page)
+                  for _ in range(2))
+
+    def last_logits(bt, uid, pr):
+        bt.run([Request(uid=uid, prompt=pr, max_new_tokens=2)])
+        return bt.last_prefill_logits.clone()
+
+    cold = last_logits(hot, "cold", rows[0])
+    hit = last_logits(hot, "hit", rows[0])
+    cow_cold = last_logits(fresh, "cc", rows[0][:32])
+    cow_hit = last_logits(hot, "ch", rows[0][:32])
+    if cold.dtype != torch.float16 or not (
+            torch.equal(cold, hit) and torch.equal(cow_cold, cow_hit)):
+        fail(f"serve-fp16-parity: prefix-hit logits ({cold.dtype}) differ "
+             f"from cold: {max_err(cold, hit):.3g} / "
+             f"{max_err(cow_cold, cow_hit):.3g}")
+    log("  prefix-hit fp16 logits bit-identical to cold (a partial match "
+        "and a copy-on-write whole-prompt match)")
+    # int8 KV pages against fp16 pages
+    band, agree, scale = kv_logit_band(model, prompts, np.array(plens), new)
+    log(f"  int8 KV pages vs fp16 pages over {new} decode steps: max |diff| "
+        f"{band:.5f} (logit scale {scale:.3f}), argmax agrees at "
+        f"{100 * agree:.1f}%")
+    if not band <= KV_BAND_MAX * scale or agree < KV_AGREE_MIN:
+        fail(f"serve-fp16-parity: int8 KV logits off fp16 pages by "
+             f"{band:.5f} (limit {KV_BAND_MAX * scale:.5f}) or argmax at "
+             f"{100 * agree:.1f}%")
+    # the replayed steps against the eager ones: tokens, pools, launches
+    for sampling in ({}, SAMPLED):
+        for k_ in (None, 4):
+            runs = []
+            for eager in (False, True):
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                bb, _ = sampled_batcher(model, width, pps, k=k_, eager=eager,
+                                        key=PRNGKey(0), sampling=sampling,
+                                        page_size=page)
+                comps = bb.run([Request(uid=i, prompt=rows[i],
+                                        max_new_tokens=new, seed=100 + i)
+                                for i in range(len(plens))])
+                torch.cuda.synchronize()
+                runs.append(([comps[i].tokens for i in range(len(plens))],
+                             {n: t.clone() for n, t in bb.pools.items()},
+                             launch_counts()))
+            what = (f"{'sampled' if sampling else 'greedy'} "
+                    f"{'verify' if k_ else 'decode'}")
+            (tr, pr, cr), (te, pe, ce) = runs
+            # the K/V every request wrote: page 0, the null page, takes
+            # the idle slots' garbage, which the graph's static inputs
+            # make other garbage
+            off = [n for n in pr if not torch.equal(pr[n][:, 1:],
+                                                    pe[n][:, 1:])]
+            if tr != te or off:
+                fail(f"serve-fp16-parity: replayed {what} differs from the "
+                     f"eager step: tokens equal {tr == te}, pools off {off} "
+                     f"(max |diff| " + ", ".join(
+                         f"{max_err(pr[n][:, 1:], pe[n][:, 1:]):.3g}"
+                         for n in off) + ")")
+            if cr != ce:
+                fail(f"serve-fp16-parity: replayed {what} launches {cr} != "
+                     f"eager {ce}")
+            if not any(n.endswith("_f16") for n in cr):
+                fail(f"serve-fp16-parity: {what} launched no fp16 instance")
+    log("  replayed == eager, bit for bit (tokens and the fp16 K/V pools "
+        "past the null page), greedy and sampled, decode and verify; "
+        "launches equal")
+    del model
+    torch.cuda.empty_cache()
+    # the GPU's streams against the CPU's on the same weights
+    gpu = o2_model(FP16_CPU_SIZES, dev, seed=3)
+    cpu = o2_model(FP16_CPU_SIZES, "cpu", seed=3)
+    cpu.load_state_dict({n: t.cpu() for n, t in gpu.state_dict().items()})
+    crng = np.random.RandomState(12)
+    cplens = [40, 23, 64, 9]
+    cprompts = [crng.randint(1, gpu.config.vocab_size, n).tolist()
+                for n in cplens]
+    creqs = [Request(uid=i, prompt=cprompts[i], max_new_tokens=new,
+                     seed=200 + i) for i in range(len(cplens))]
+    streams = {}
+    for label, m in (("gpu", gpu), ("cpu", cpu)):
+        for sampling in ({}, SAMPLED):
+            b, _ = sampled_batcher(m, 64, -(-(64 + new + 8) // page),
+                                   key=PRNGKey(0), sampling=sampling,
+                                   page_size=page)
+            comps = b.run(creqs)
+            streams[(label, bool(sampling))] = [comps[i].tokens
+                                                for i in range(len(cplens))]
+    d = same_greedy("serve-fp16-parity GPU vs CPU, greedy", cpu, cprompts,
+                    streams[("gpu", False)], streams[("cpu", False)])
+    sd = 0
+    for i, (g, c) in enumerate(zip(streams[("gpu", True)],
+                                   streams[("cpu", True)])):
+        if g == c:
+            continue
+        t = next(j for j in range(new) if g[j] != c[j])
+        margin, scale = first_divergence_margin(cpu, cprompts[i],
+                                                c[:t + 1], 200 + i, SAMPLED)
+        log(f"  sampled stream {i} diverges from the CPU at token {t}: "
+            f"CPU top-two margin {margin:.4g} (logit scale {scale:.4g})")
+        if not margin < FP16_MARGIN_SHARE * scale:
+            fail(f"serve-fp16-parity: sampled stream {i} GPU != CPU at "
+                 f"token {t} with a margin of {margin:.4g}")
+        sd += 1
+    log(f"  GPU == CPU (hidden {gpu.config.hidden_size}, "
+        f"{gpu.config.num_layers} layers, O2): greedy "
+        f"{len(cplens) - d}/{len(cplens)}, sampled {len(cplens) - sd}/"
+        f"{len(cplens)} streams equal, the rest diverging only under the "
+        "margin")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
+def phase_serve_fp16(dev, bf16_step_s) -> dict:
+    """The full flagship at O2 (fp16 weights and pages, fp32 norms), one
+    model built once: phase 4's 8 requests greedy through
+    ``ContinuousBatcher``, replayed and eager (decode ms/step beside
+    phase 4's bf16 in this run), TTFT; one run each from int8 weights and
+    from int8 KV pages; one chunked (C=256), prefix-cached run (a shared
+    256-token prefix); one ``offramp_tree(4)`` speculative run from the
+    int4 draft model; one sampled run; the fp16 logits against the same
+    weights at fp32 compute.  Then the Llama mode at O2 serves one
+    2300-token prompt (the flash rung's fp16 forward, the decode kernel's
+    fused q-RoPE).  Every fp16 serving instance (:data:`SERVE_F16`) must
+    launch.  Returns the launches of the whole phase."""
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.serving import Request, offramp_tree
+
+    log("[serve-fp16] flagship GPT, 12 layers, O2 (fp16): 8 requests x 32 "
+        "tokens, 4 slots, pages 64 x 9")
+    model = o2_model(FLAGSHIP, dev, seed=0)
+    vocab = model.config.vocab_size
+    plens = np.linspace(32, 512, 8).astype(int)
+    rng = np.random.RandomState(0)
+    new = 32
+    reqs = [Request(uid=i, prompt=rng.randint(1, vocab, n).tolist(),
+                    max_new_tokens=new) for i, n in enumerate(plens)]
+    serve(model, [Request(uid="warm", prompt=[1, 2, 3], max_new_tokens=2)],
+          512, 64, 4, 9)
+    total = {}
+
+    def run(label, fn):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+        return out, counts
+
+    def complete(label, comps, n):
+        for uid, c in comps.items():
+            if len(c.tokens) != n or not all(0 <= t < vocab
+                                             for t in c.tokens):
+                fail(f"serve-fp16 {label}: request {uid} returned "
+                     f"{c.tokens}")
+
+    step_s = {}
+    for label, kw in (("replayed", {}), ("eager", dict(eager=True)),
+                      ("int8 weights", dict(weight_dtype="int8")),
+                      ("int8 KV", dict(kv_dtype=torch.int8)),
+                      ("sampled, replayed", dict(sampling=SAMPLED))):
+        (comps, wall, prefill_s, b), _ = run(label, lambda kw=kw: serve(
+            model, reqs, 512, 64, 4, 9, **kw))
+        complete(label, comps, new)
+        step_s[label] = (wall - sum(prefill_s)) / b.steps
+        if label == "replayed":
+            ttft = sorted(c.ttft_s for c in comps.values())
+            log(f"  prefill {1e3 * np.mean(prefill_s):.2f} ms per prefill; "
+                f"TTFT p50 {1e3 * ttft[len(ttft) // 2]:.1f} ms, max "
+                f"{1e3 * ttft[-1]:.1f} ms (quantized to the harvest window)")
+    for label, s in step_s.items():
+        bf = bf16_step_s.get(label)
+        log(f"  decode {label}: {1e3 * s:.2f} ms/step (4 slots)"
+            + ("" if bf is None else
+               f"; bf16 {1e3 * bf:.2f} ms/step in phase 4 of this run, "
+               f"{s / bf:.3f}x"))
+    # chunked and prefix-cached: 4 requests sharing a 256-token prefix,
+    # after one that leaves it in the prefix index
+    prefix = rng.randint(1, vocab, 256).tolist()
+    creqs = [Request(uid=f"c{i}", prompt=prefix + rng.randint(
+        1, vocab, 8 + 40 * i).tolist(), max_new_tokens=16) for i in range(4)]
+    b = chunked_batcher(model, 512, 9, 256, slots=4, page_size=64)
+    # one priming request leaves the prefix's pages in the index
+    b.run([Request(uid="prime", prompt=prefix + [1, 2], max_new_tokens=2)])
+    comps, counts = run("chunked", lambda: b.run(creqs))
+    complete("chunked", {u: c for u, c in comps.items() if u != "prime"},
+             16)
+    if b.prefix_stats["hits"] < 4:
+        fail(f"serve-fp16: the chunked run took {b.prefix_stats}")
+    log(f"  chunked (C=256) + prefix cache: 4 requests, prefix "
+        f"{b.prefix_stats}; paged_decode_rows_f16 "
+        f"{counts.get('paged_decode_rows_f16', 0)} launches")
+    # tree speculation from the int4 draft model (4 slots, k=4)
+    tree = offramp_tree(4)
+    sreqs = [Request(uid=f"s{i}", prompt=(rng.randint(1, vocab, 8).tolist()
+                                          * 4), max_new_tokens=16)
+             for i in range(4)]
+    sb = spec_batcher(model, 32, 4, tree=tree, slots=4, page_size=16,
+                      draft=draft_source(model, 4, tree, slots=4))
+    comps, counts = run("tree", lambda: sb.run(sreqs))
+    complete("tree", comps, 16)
+    st = sb.spec_stats
+    log(f"  offramp_tree(4), int4 draft model: {st['committed']} tokens in "
+        f"{st['steps']} verify steps, {st['accepted']} of {st['drafted']} "
+        f"drafts accepted; tree {counts.get('paged_decode_tree_f16', 0)}, "
+        f"int4 {counts.get('dequant_int4_f16', 0)} launches")
+    # the fp16 logits against the same weights at fp32 compute
+    ref = fp32_copy(model)
+    toks = torch.as_tensor([reqs[3].prompt], device=dev)
+    with torch.no_grad():
+        lo = model.apply(toks)[0].float()
+        hi = ref.apply(toks)[0]
+    if not torch.isfinite(lo).all():
+        fail("serve-fp16: non-finite fp16 logits")
+    band = (lo - hi).abs().max().item()
+    agree = (lo.argmax(-1) == hi.argmax(-1)).float().mean().item()
+    log(f"  fp16 (O2) vs fp32 logits over a {toks.shape[1]}-token prompt: "
+        f"max |diff| {band:.4f} (logit scale {hi.abs().max().item():.3f}), "
+        f"argmax agrees at {100 * agree:.1f}% of positions")
+    del ref, model
+    torch.cuda.empty_cache()
+    # the Llama mode at O2: one prompt past 2048 tokens
+    llama = o2_model(LLAMA, dev, seed=4)
+    prompt = np.random.RandomState(9).randint(1, vocab, 2300).tolist()
+    (comps, wall, prefill_s, _), counts = run("llama", lambda: serve(
+        llama, [Request(uid="long", prompt=prompt, max_new_tokens=16)],
+        2304, 64, 1, 37))
+    complete("Llama", comps, 16)
+    log(f"  Llama mode O2, a 2300-token prompt (prefill padded to 2304): "
+        f"prefill {1e3 * prefill_s[0]:.2f} ms, 16 tokens in {wall:.3f} s; "
+        f"flash_fwd_f16 {counts.get('flash_fwd_f16', 0)}, paged_decode_f16 "
+        f"{counts.get('paged_decode_f16', 0)} launches")
+    for name in ("flash_fwd_f16", "paged_decode_f16"):
+        if counts.get(name, 0) <= 0:
+            fail(f"serve-fp16: the Llama run never launched {name}")
+    del llama
+    torch.cuda.empty_cache()
+    log("  launches of the fp16 serving instances: " + ", ".join(
+        f"{n} {total.get(n, 0)}" for n in SERVE_F16))
+    idle = [n for n in SERVE_F16 if total.get(n, 0) <= 0]
+    if idle:
+        fail(f"serve-fp16: never launched {idle}")
+    return total
+
+
+def fp32_copy(model):
+    """``model``'s weights at fp32 compute and parameters."""
+    from apex_tpu_torch.models import GPTModel
+
+    cfg = dataclasses.replace(model.config, policy=None,
+                              params_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    ref = GPTModel(cfg, device=model.device)
+    ref.load_state_dict({n: t.float() for n, t in
+                         model.state_dict().items()})
+    return ref
 
 
 def device_rows(prof) -> list:
@@ -6843,12 +7305,17 @@ SOURCES = {
 SOURCES.update({name + "_f16": entry for name, entry in list(SOURCES.items())
                 if entry[1].endswith("_sm90.cuh")})
 SOURCES["dropout_f16"] = SOURCES["dropout"]
+# fp16 serving (O1-O3): the paged decode's and the dequant pair's fp16
+# instances, built from their _f16 sources
+SOURCES.update({name: ("cuda", SOURCES[name[:-4]][1].replace(".cu", "_f16.cu"),
+                       SOURCES[name[:-4]][2]) for name in SERVE_F16})
 
 FLASH = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 
 
 def timed(label, fn, *args):
-    """Run one phase and log its wall time (the script has 1200 s)."""
+    """Run one phase and log its wall time (the script must end within
+    1200 s, and aims at half of that)."""
     t0 = time.perf_counter()
     out = fn(*args)
     log(f"({label}: {time.perf_counter() - t0:.1f} s)")
@@ -6891,6 +7358,8 @@ def main() -> None:
     timed("serve-chunked-long", phase_serve_chunked_long, model)
     del model
     torch.cuda.empty_cache()
+    timed("serve-fp16-parity", phase_serve_fp16_parity, dev)
+    serve_fp16_counts = timed("serve-fp16", phase_serve_fp16, dev, step_s)
     parity_counts = timed("train-parity", phase_train_parity, dev)
     train_counts, tr, batch = timed("train", phase_train, dev)
     timed("profile", phase_profile_train, tr, batch)
@@ -7025,6 +7494,8 @@ def main() -> None:
     fp16_paths.update({name: fp16_counts for name in ("mid_fwd_f16",
                                                       "mid_bwd_f16")})
     fp16_paths.update({name + "_f16": long_fp16_counts for name in FLASH})
+    # fp16 serving: the paged decode and the dequant pair from serve-fp16
+    fp16_paths.update({name: serve_fp16_counts for name in SERVE_F16})
     for name in SOURCES:
         if name.endswith("_f16"):
             main_counts[name] = fp16_paths.get(name, variant_counts).get(

@@ -169,16 +169,11 @@ def test_policy_helpers_equal_jax(level):
 
 def test_o0_o4_o5_take_a_loss_scale_and_fp16_raises():
     """Every level trains with any loss scale, the fp16 levels O1-O3
-    too; what raises at fp16 is serving (ROADMAP.md A5b)."""
+    too."""
     for level in ("O0", "O1", "O2", "O3", "O4", "O5"):
         amp.check_ported(amp.get_policy(level, loss_scale="dynamic"))
         amp.check_ported(amp.get_policy(level, loss_scale=8.0))
         amp.check_ported(amp.get_policy(level))
-    for dtype in (torch.float32, torch.bfloat16):
-        amp.check_serving(dtype)
-    for level in ("O1", "O2", "O3"):
-        with pytest.raises(NotImplementedError, match="A5b: fp16 serving"):
-            amp.check_serving(amp.get_policy(level).compute_dtype)
 
 
 def test_grad_scaler_at_world_size_one():

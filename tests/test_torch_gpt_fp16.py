@@ -1,6 +1,6 @@
 """The fp16 opt levels O1-O3: the port's GPT training step against the JAX
-package's, on one tiny model (2 layers, hidden 64, 2 heads, vocab 256),
-and fp16 serving refused.
+package's, on one tiny model (2 layers, hidden 64, 2 heads, vocab 256).
+Serving at these levels is held in ``tests/test_torch_serving_fp16.py``.
 
 The JAX model's parameter tree at each level gives the structure and the
 dtypes (O1: fp32 parameters; O2: fp16 with fp32 norms; O3: all fp16);
@@ -37,8 +37,6 @@ from apex_tpu.transformer import parallel_state
 from apex_tpu_torch import amp, convert
 from apex_tpu_torch.models import GPTConfig, GPTModel
 from apex_tpu_torch.optimizers import FusedAdam
-from apex_tpu_torch.serving import ContinuousBatcher, KVCacheConfig
-from apex_tpu_torch.serving.kv_cache import PagedKVCache
 
 SIZES = dict(vocab_size=256, num_layers=2, hidden_size=64,
              num_attention_heads=2, max_position_embeddings=128)
@@ -185,24 +183,3 @@ def test_fp16_parameter_trees_cross_from_jax(level):
             st["master"].numpy(),
             tm.layers[0].qkv.weight.detach().float().numpy())
 
-
-def test_serving_at_fp16_raises_naming_a5b():
-    """Serving's entry points refuse an fp16 compute dtype up front,
-    naming ROADMAP.md's A5b, before any kernel wrapper sees it."""
-    tm = GPTModel(GPTConfig(**SIZES, policy=amp.get_policy("O2")),
-                  device="cpu")
-    cfg = KVCacheConfig(num_layers=2, num_heads=2, head_dim=32,
-                        num_pages=9, page_size=16, max_seqs=2,
-                        pages_per_seq=4, dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="A5b: fp16 serving"):
-        tm.decode_fns(cfg, max_prompt_len=16)
-    with pytest.raises(NotImplementedError, match="A5b: fp16 serving"):
-        tm.generate(np.zeros((1, 8), np.int32), [8], 4)
-    cache = PagedKVCache(cfg)
-    with pytest.raises(NotImplementedError, match="A5b: fp16 serving"):
-        ContinuousBatcher(None, None, cache, {}, max_prompt_len=16)
-    from apex_tpu_torch.ops import flash_attention
-
-    q = torch.zeros(1, 2, 4, 64, dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="A5b"):
-        flash_attention(q, q, q, implementation="decode")

@@ -139,14 +139,8 @@ def test_policy_presets_match_jax(level):
     for field in ("opt_level", "keep_norm_fp32", "master_weights",
                   "loss_scale", "dynamic_loss_scale"):
         assert getattr(got, field) == getattr(want, field), field
-    # every level trains, O1-O3 in fp16; fp16 serving is what raises,
-    # naming ROADMAP.md's A5b
+    # every level trains, O1-O3 in fp16
     port_policy.check_ported(got)
-    if level in ("O1", "O2", "O3"):
-        with pytest.raises(NotImplementedError, match="A5b"):
-            port_policy.check_serving(got.compute_dtype)
-    else:
-        port_policy.check_serving(got.compute_dtype)
 
 
 def test_policy_overrides_and_bad_level():

@@ -1,5 +1,5 @@
-"""Carry GPT and BERT weights and optimizer state between the JAX package
-and the port.
+"""Carry GPT, BERT, T5 and ResNet weights and optimizer state between the
+JAX package and the port.
 
 The JAX ``GPTModel`` keeps its parameters as a nested dict with every
 layer leaf STACKED on a leading ``num_layers`` dim
@@ -15,7 +15,14 @@ it.  Nor for BERT: its tree adds ``tokentype_embedding``,
 ``binary_head``, which the port's ``BertModel`` names alike.  Nor for
 contrib attention: a ``SelfMultiheadAttn``/``EncdecMultiheadAttn`` tree is
 flat (``qkv_weight``, ``out_bias``, ``lyr_nrm.scale``, ...), and the port's
-modules name their parameters alike.  Both keep
+modules name their parameters alike.  T5's tree has two stacks,
+``enc_layers`` and ``dec_layers``, which unstack as the GPT's ``layers``
+(``enc_layers.<i>.cross_kv.weight``).  A ResNet crosses as two trees,
+``params`` (``conv_stem``, ``bn_stem``, ``stages`` a list of stages each
+a list of blocks, ``fc``) and ``batch_stats`` (``mean`` and ``var`` of
+each norm): :func:`resnet_from_jax` makes one state dict of both, list
+indices as names (``stages.1.0.conv_proj``, ``stages.1.0.bn1.mean``), and
+:func:`resnet_to_jax` splits it again; conv weights stay HWIO.  All keep
 the same per-leaf layouts (linear weights ``(in, out)``, the qkv output
 grouped per head, the LM head tied to ``embedding.weight``), so the
 bridge only flattens/unstacks the tree: values are copied bit for bit
@@ -57,7 +64,8 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "params_to_jax", "optimizer_state_from_jax",
+__all__ = ["params_from_jax", "params_to_jax", "resnet_from_jax",
+           "resnet_to_jax", "optimizer_state_from_jax",
            "optimizer_state_to_jax", "scaler_state_from_jax",
            "scaler_state_to_jax"]
 
@@ -65,12 +73,34 @@ __all__ = ["params_from_jax", "params_to_jax", "optimizer_state_from_jax",
 OPT_STATE_TREES = ("exp_avg", "exp_avg_sq", "master")
 
 
+#: the tree keys whose leaves are stacked on a leading layer dim (the
+#: GPT's and BERT's ``layers``, T5's two stacks)
+STACKED = ("layers", "enc_layers", "dec_layers")
+
+
 def _flatten(tree: Any, prefix: Tuple[str, ...] = ()):
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _flatten(tree[k], prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, sub in enumerate(tree):
+            yield from _flatten(sub, prefix + (str(i),))
     else:
         yield prefix, tree
+
+
+def _listify(node: Any) -> Any:
+    """Dicts keyed ``"0".."n-1"`` (ResNet's stages and blocks) back into
+    lists."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _listify(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node):
+        if sorted(int(k) for k in node) != list(range(len(node))):
+            raise ValueError(f"list indices {sorted(node)} are not "
+                             f"0..{len(node) - 1}")
+        return [node[str(i)] for i in range(len(node))]
+    return node
 
 
 def _tensor(arr: np.ndarray) -> torch.Tensor:
@@ -93,14 +123,18 @@ def _array(t: torch.Tensor) -> np.ndarray:
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX GPT or BERT parameter tree (numpy leaves) -> the port's state
-    dict (CPU tensors; ``load_state_dict`` moves them)."""
+    """JAX GPT, BERT, T5 or ResNet parameter tree (numpy leaves) -> the
+    port's state dict (CPU tensors; ``load_state_dict`` moves them).  A
+    stacked layer leaf (:data:`STACKED`) becomes one entry a layer, a
+    list entry (ResNet's ``stages``) one entry an index.  ResNet's
+    ``batch_stats`` tree crosses the same way (:func:`resnet_from_jax`
+    takes both)."""
     state: Dict[str, torch.Tensor] = {}
     for key, leaf in _flatten(tree):
         arr = np.asarray(leaf)
-        if key[0] == "layers":
+        if key[0] in STACKED:
             for i in range(arr.shape[0]):
-                state[".".join(("layers", str(i)) + key[1:])] = \
+                state[".".join((key[0], str(i)) + key[1:])] = \
                     _tensor(arr[i])
         else:
             state[".".join(key)] = _tensor(arr)
@@ -108,33 +142,56 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """The port's state dict -> the JAX GPT or BERT parameter tree (numpy
-    leaves, layer leaves stacked on a leading ``num_layers`` dim)."""
+    """The port's state dict -> the JAX GPT, BERT, T5 or ResNet parameter
+    tree (numpy leaves, each stack's layer leaves stacked on a leading
+    dim, ResNet's stages and blocks as lists)."""
     tree: Dict[str, Any] = {}
     per_layer: Dict[Tuple[str, ...], Dict[int, np.ndarray]] = {}
     for name, t in state.items():
         arr = _array(t)
         parts = name.split(".")
-        if parts[0] == "layers":
-            per_layer.setdefault(tuple(parts[2:]), {})[int(parts[1])] = arr
+        if parts[0] in STACKED:
+            per_layer.setdefault((parts[0],) + tuple(parts[2:]), {})[
+                int(parts[1])] = arr
             continue
         node = tree
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = arr
-    layers: Dict[str, Any] = {}
+    tree = _listify(tree)
     for key, by_index in per_layer.items():
         if sorted(by_index) != list(range(len(by_index))):
             raise ValueError(f"layer indices of {'.'.join(key)} are not "
                              f"0..{len(by_index) - 1}")
-        node = layers
+        node = tree
         for p in key[:-1]:
             node = node.setdefault(p, {})
         node[key[-1]] = np.stack([by_index[i]
                                   for i in range(len(by_index))])
-    if layers:
-        tree["layers"] = layers
     return tree
+
+
+#: the leaves of a ResNet state dict that are running statistics
+STAT_LEAVES = ("mean", "var")
+
+
+def resnet_from_jax(params: Dict[str, Any],
+                    batch_stats: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ResNet's ``(params, batch_stats)`` -> the port's state dict:
+    the parameters (HWIO conv weights as they are) and the running
+    statistics' buffers (``bn_stem.mean``, ``stages.0.0.bn1.var``, ...)."""
+    state = params_from_jax(params)
+    state.update(params_from_jax(batch_stats))
+    return state
+
+
+def resnet_to_jax(state: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
+    """The port's ResNet state dict -> the JAX ``(params, batch_stats)``
+    trees."""
+    stats = {k: v for k, v in state.items()
+             if k.rsplit(".", 1)[-1] in STAT_LEAVES}
+    params = {k: v for k, v in state.items() if k not in stats}
+    return params_to_jax(params), params_to_jax(stats)
 
 
 def _is_packed(tree: Any) -> bool:

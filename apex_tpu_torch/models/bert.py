@@ -31,10 +31,12 @@ norm through the layer-norm kernel; on the CPU the same calls run the
 kernels' plain versions.  ``remat`` recomputes each layer in the backward
 (``torch.utils.checkpoint``), as the port's GPT does.
 
-Not ported yet, raising ``NotImplementedError`` naming their ROADMAP.md
-items: the pipeline paths (``pipeline_loss``, ``pipeline_grads``; queue A
-item 10, A9) and the fused chunked cross entropy (``fused_ce=True``;
-queue A item 6, A4).
+The MLM loss takes the two-step or the fused chunked LM-head cross
+entropy by ``fused_ce`` (None: by logits size, as in JAX); on the fused
+path the head's per-vocab bias is the fused path's ``bias``.  Not ported
+yet, raising ``NotImplementedError`` naming their ROADMAP.md items: the
+pipeline paths (``pipeline_loss``, ``pipeline_grads``; queue A item 10,
+A9).
 """
 
 from __future__ import annotations
@@ -79,7 +81,8 @@ class BertConfig:
     changes nothing.  ``attention_impl`` forces a rung (``"short"``,
     ``"mid"``, ``"pallas"`` the flash rung) or leaves the ladder to choose
     (None).  ``fused_ce`` None picks the LM-head cross entropy by logits
-    size, as in JAX; the fused path is not ported (``True`` raises)."""
+    size, as in JAX; True and False force the fused chunked and the
+    two-step paths."""
 
     vocab_size: int = 32000
     num_layers: int = 4
@@ -110,10 +113,6 @@ class BertConfig:
                 f"attention_impl={self.attention_impl!r}: the port has the "
                 "short, mid and flash ('pallas') rungs; its plain "
                 "attention (the JAX 'xla' path) is an oracle, not a rung")
-        if self.fused_ce:
-            raise NotImplementedError(
-                "fused_ce=True: the fused chunked LM-head cross entropy is "
-                "not ported yet (ROADMAP.md queue A item 6, A4)")
         if self.ffn_hidden_size is None:
             self.ffn_hidden_size = 4 * self.hidden_size
         if self.hidden_size % self.num_attention_heads:
@@ -299,7 +298,7 @@ class BertModel(nn.Module):
     def _per_token_ce(self, hidden: torch.Tensor,
                       labels: torch.Tensor) -> torch.Tensor:
         """Per-token MLM cross entropy through the tied head and its
-        per-vocab bias."""
+        per-vocab bias (fused or two-step, by ``config.fused_ce``)."""
         c = self.config
         return lm_head_cross_entropy(
             self.mlm_hidden(hidden), self.embedding.weight, labels,

@@ -39,7 +39,7 @@ decode; every norm through ``ops.layer_norm``'s kernel.  On the CPU the
 same calls run the kernels' plain versions.
 
 Ported so far, at tensor-parallel world size 1: ``apply``, ``loss`` (the
-two-step LM-head cross entropy) and its backward, ``prefill_forward``,
+two-step or the fused chunked LM-head cross entropy) and its backward, ``prefill_forward``,
 ``prefill_chunk`` (chunked prefill through the paged kernel's many-row
 instance), ``decode_step``, ``verify_step`` (speculative verify of a
 chain, or of a tree under the kernel's ancestor mask) and the serving of
@@ -621,8 +621,9 @@ class GPTModel(nn.Module):
     # ----------------------------------------------------------- training
     def _per_token_ce(self, hidden: torch.Tensor,
                       targets: torch.Tensor) -> torch.Tensor:
-        """Per-token CE through the tied LM head (the two-step path, or
-        the fused one by ``config.fused_ce``)."""
+        """Per-token CE through the tied LM head (the two-step path or
+        the fused chunked one, by ``config.fused_ce``; None: by logits
+        size)."""
         return lm_head_cross_entropy(
             hidden, self.embedding.weight, targets,
             fused=self.config.fused_ce, chunk=self.config.fused_ce_chunk)

@@ -1,6 +1,7 @@
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     lm_head_cross_entropy,
     vocab_parallel_cross_entropy,
+    vocab_parallel_cross_entropy_from_hidden,
 )
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
     ColumnParallelLinear,
@@ -14,4 +15,5 @@ from apex_tpu_torch.transformer.tensor_parallel.utils import clip_grad_norm
 __all__ = ["ColumnParallelLinear", "QuantizedLinear", "RowParallelLinear",
            "VocabParallelEmbedding", "clip_grad_norm",
            "lm_head_cross_entropy", "normal_init",
-           "vocab_parallel_cross_entropy"]
+           "vocab_parallel_cross_entropy",
+           "vocab_parallel_cross_entropy_from_hidden"]

@@ -321,6 +321,40 @@ fp16 and Adam over the flagship's O2 list):
              combination, GPU against CPU: every fp16 instance must
              launch.
 
+The fused cross entropy, T5 and ResNet (after fmha-varlen; no new
+kernel: T5 runs rows 1, 2 and 7, the fused CE's chunk products are
+cuBLAS's and ResNet's convolutions cuDNN's):
+   fused-ce-parity — the fused chunked LM-head cross entropy, fp32, 2 x
+             512 tokens of hidden 1024 at vocab 32768 (chunk 8192) and
+             30522 with a bias and smoothing 0.1 (chunk 5087): equal to
+             the two-step path on the card and to the fused path on the
+             CPU (loss, dx, dW, dbias); the bf16 band at the flagship's
+             width (8 x 1024 tokens); each path's forward + backward
+             timed at 8 x 1024 and 24 x 1024 tokens with its peak.
+   train-fused-ce — the flagship trainer at O5, 8 x 1024 and 24 x 1024,
+             ``fused_ce`` True and False: ms/step, tokens/s, peak memory
+             (the card's crossover); at 24 x 1024 ``fused_ce=None`` must
+             take the fused path, whose peak must be below the two-step
+             path's.
+   bert-train-fused-ce — bert-train's BERT-large step with
+             ``fused_ce=True`` (chunks of 5087), not profiled.
+   t5-parity — T5 at bench.py's widths (hidden 512, 8 heads, vocab
+             32768), 2 + 2 layers: one step GPU vs CPU at fp32 (256 + 256
+             tokens; 384 encoder + 200 decoder, cross attention at sq !=
+             sk), then at O5 within bf16 bands; the encoder's cross
+             weights get zero gradients.
+   t5-train — bench.py's ``_t5_extra``: 6 + 6 layers, 16 x 512 + 512,
+             bf16, FusedAdam with masters: ms/step, tokens/s, MFU, peak
+             memory, a falling loss; short_fwd, short_bwd, ln_fwd and
+             ln_bwd must launch; one step profiled.
+   resnet-parity — ResNet-50 at 2 x 64x64 and ResNet-18 at 2 x 32x32,
+             fp32: one step GPU vs CPU (logits, running statistics,
+             gradients, updated parameters), then eval mode.
+   rn50-train — bench.py's RN50: 64 x 224x224, O5, FusedAdam: images/s,
+             ms/step, MFU from the convolutions' FLOPs, peak memory; one
+             step profiled; then a few steps of
+             ``examples/imagenet_amp`` and its prec@1 / prec@5.
+
 The last two lines are a JSON object with one record per kernel (the
 fp16 instances' names end in ``_f16``), and ``{"ok": true, "device":
 {...}}``.  The script imports nothing of JAX.
@@ -4566,22 +4600,24 @@ def step_of(model, opt, batch, rng=None):
             {n: p.detach().cpu().clone() for n, p in model.named_parameters()})
 
 
-def check_step(label, gpu, cpu, before, lr) -> tuple:
+def check_step(label, gpu, cpu, before, lr, loss_tol: float = 1e-5,
+               grad_tol: float = 1e-4) -> tuple:
     """Hold one training step on the GPU against the same step on a CPU
     copy (fp32 both): ``gpu``/``cpu`` are ``(loss, {name: grad}, {name:
-    param after the step})``.  The loss to 1e-5, every gradient to 1e-4
-    of its tensor's largest, the updated parameters to 1% of a step where
-    the gradient's sign is sure and within a step of where they were
-    elsewhere.  Returns ``(worst grad error, worst step error, elements
-    checked)``, each error as a share of its tolerance."""
+    param after the step})``.  The loss to ``loss_tol`` (1e-5), every
+    gradient to ``grad_tol`` (1e-4) of its tensor's largest, the updated
+    parameters to 1% of a step where the gradient's sign is sure and
+    within a step of where they were elsewhere.  Returns ``(worst grad
+    error, worst step error, elements checked)``, each error as a share
+    of its tolerance."""
     (lg, gg, pg), (lc, gc, pc) = gpu, cpu
-    if not abs(lg - lc) <= 1e-5 * max(1.0, abs(lc)):
+    if not abs(lg - lc) <= loss_tol * max(1.0, abs(lc)):
         fail(f"{label}: loss {lg} (GPU) vs {lc} (CPU)")
     worst_g, worst_p, steps_checked = 0.0, 0.0, 0
     for n in gc:
-        # fp32 on both sides, sums in another order: 1e-4 of the
-        # tensor's largest gradient
-        tol = 1e-4 * gc[n].abs().max().item() + 1e-9
+        # fp32 on both sides, sums in another order: by default 1e-4 of
+        # the tensor's largest gradient
+        tol = grad_tol * gc[n].abs().max().item() + 1e-9
         err = (gg[n] - gc[n]).abs().max().item()
         worst_g = max(worst_g, err / tol)
         if err > tol:
@@ -5957,14 +5993,17 @@ def attention_share(prof) -> str:
                      for name, t in kinds.items())
 
 
-def phase_bert_train(dev) -> dict:
+def phase_bert_train(dev, fused_ce=None, label="bert-train",
+                     profile=True) -> dict:
     """BERT-large (24 layers) at O4 (bf16 compute, fp32 parameters and
     Adam state), remat on, b=16 x 512 with lengths drawn in 128..512, 15%
     MLM positions and binary labels: 2 warm-up and 10 timed steps of loss
     -> backward -> FusedAdam (lr 1e-4) on one batch; the loss must be
     finite and fall, and the short rung's segment kernels must launch.
-    Prints ms/step, real and padded tokens/s, MFU, peak memory and the
-    launches; then one step profiled, broken down by kernel."""
+    ``fused_ce`` goes to ``BertConfig`` (None: by logits size, here the
+    two-step path; True the fused chunked one, chunks of 5087).  Prints
+    ms/step, real and padded tokens/s, MFU, peak memory and the launches;
+    then (``profile``) one step profiled, broken down by kernel."""
     from apex_tpu_torch.amp import get_policy
     from apex_tpu_torch.models import BertConfig, BertModel
     from apex_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -5972,12 +6011,12 @@ def phase_bert_train(dev) -> dict:
     from apex_tpu_torch.telemetry import mfu, transformer_flops_per_token
 
     b, s = BERT_BATCH, BERT_SEQ
-    log(f"[bert-train] BERT-large, 24 layers, O4, remat on, b={b} x {s} "
-        "(lengths 128..512, 15% MLM), FusedAdam lr 1e-4: 2 warm-up + 10 "
-        "timed steps on one batch")
+    log(f"[{label}] BERT-large, 24 layers, O4, remat on, b={b} x {s} "
+        f"(lengths 128..512, 15% MLM), fused_ce={fused_ce}, FusedAdam lr "
+        "1e-4: 2 warm-up + 10 timed steps on one batch")
     policy = get_policy("O4")
-    model = BertModel(BertConfig(**BERT_LARGE, policy=policy), device=dev,
-                      seed=0)
+    model = BertModel(BertConfig(**BERT_LARGE, policy=policy,
+                                 fused_ce=fused_ce), device=dev, seed=0)
     opt = FusedAdam(model.parameters(), lr=1e-4,
                     master_weights=policy.master_weights)
     data = bert_batch(np.random.default_rng(0), b, s,
@@ -6008,7 +6047,7 @@ def phase_bert_train(dev) -> dict:
     # to end below where it started and below its middle
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < min(losses[0], losses[len(losses) // 2]):
-        fail(f"bert-train: losses {losses} are not finite and falling")
+        fail(f"{label}: losses {losses} are not finite and falling")
     ms = 1e3 * wall / 10
     padded_tps, real_tps = b * s / (ms / 1e3), real / (ms / 1e3)
     fpt = transformer_flops_per_token(n_params, BERT_LARGE["num_layers"],
@@ -6028,9 +6067,10 @@ def phase_bert_train(dev) -> dict:
         + ")")
     for name in LN_TRAIN + ("short_fwd_seg", "short_bwd_seg"):
         if counts.get(name, 0) <= 0:
-            fail(f"bert-train: kernel {name} never launched on the main path")
-    phase_profile_train(types.SimpleNamespace(step=step), (),
-                        f"BERT-large (O4, {b} x {s})")
+            fail(f"{label}: kernel {name} never launched on the main path")
+    if profile:
+        phase_profile_train(types.SimpleNamespace(step=step), (),
+                            f"BERT-large (O4, {b} x {s})")
     del model, opt, batch
     torch.cuda.empty_cache()
     return counts
@@ -7178,6 +7218,620 @@ def phase_fp16_variants(dev) -> dict:
     return counts
 
 
+# ------------------------------------------ the fused CE, T5 and ResNet
+#: the fused CE's parity cases on the card: (vocab, per-vocab bias,
+#: smoothing) at 2 x 512 tokens of hidden 1024, fp32; 32768 walks chunks
+#: of 8192, BERT's 30522 chunks of 5087
+FUSED_CE_CASES = ((32768, False, 0.0), (30522, True, 0.1))
+FUSED_CE_HIDDEN = 1024
+FUSED_CE_TOKENS = (2, 512)
+#: the bf16 band's tokens (the flagship's micro-batch of 8 x 1024) and
+#: the token counts of the op's own fused vs two-step timing
+FUSED_CE_BAND_TOKENS = 8 * 1024
+FUSED_CE_TIMED_TOKENS = (8 * 1024, 24 * 1024)
+#: the flagship trainer's micro-batches of 1024 tokens in train-fused-ce
+FUSED_CE_MICRO = (8, 24)
+
+
+def ce_grads(x, w, b, t, g, **kw) -> tuple:
+    """``(loss, dx, dW, dbias or None)`` of ``sum(g * loss)`` through
+    ``lm_head_cross_entropy(**kw)`` on fresh leaves of ``x``, ``w`` and
+    ``b``."""
+    from apex_tpu_torch.transformer.tensor_parallel import (
+        lm_head_cross_entropy,
+    )
+
+    xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+    bs = None if b is None else b.clone().requires_grad_()
+    loss = lm_head_cross_entropy(xs, ws, t, bias=bs, **kw)
+    (loss * g).sum().backward()
+    return (loss.detach(), xs.grad, ws.grad,
+            None if bs is None else bs.grad)
+
+
+def ce_check(label: str, got: tuple, want: tuple, loss_tol: float,
+             rel: float) -> tuple:
+    """Hold ``(loss, dx, dW, dbias)`` against another path's: the losses
+    to ``loss_tol`` and each gradient to ``rel`` of its largest value.
+    Returns each part's error as a share of its tolerance."""
+    shares = []
+    for what, a, b in zip(("loss", "dx", "dW", "dbias"), got, want):
+        if b is None:
+            continue
+        tol = loss_tol if what == "loss" else \
+            rel * b.float().abs().max().item() + 1e-12
+        err = max_err(a.cpu(), b.cpu())
+        if not err <= tol:
+            fail(f"{label}: {what} differs by {err:.3g} > {tol:.3g}")
+        shares.append(f"{what} {err:.3g} ({err / tol:.3f} of {tol:.3g})")
+    return shares
+
+
+def phase_fused_ce_parity(dev) -> None:
+    """The fused chunked LM-head cross entropy on the card: fp32 at 2 x
+    512 tokens of hidden 1024, vocab 32768 (chunk 8192) and BERT's 30522
+    with a bias and smoothing 0.1 (chunk 5087): equal to the two-step path
+    on the card and to the fused path on the CPU (the loss to 1e-5, dx,
+    dW and dbias to 1e-4 of their largest); then the bf16 band at the
+    flagship's width (8 x 1024 tokens, hidden 1024, vocab 32768, O5's
+    bf16 hidden and weight): the bf16 fused path against the fused path
+    on the fp32 copies of the same values (the loss to 1e-4, dx and dW,
+    rounded to bf16 once, within one bf16 ulp of their largest), and the
+    two-step path's mean loss, whose logits are bf16, within 1e-2."""
+    from apex_tpu_torch.transformer.tensor_parallel import cross_entropy
+
+    log(f"[fused-ce-parity] {FUSED_CE_TOKENS[0]} x {FUSED_CE_TOKENS[1]} "
+        f"tokens of hidden "
+        f"{FUSED_CE_HIDDEN}, fp32: fused vs two-step on the GPU, GPU vs "
+        "CPU; then the bf16 band at the flagship's width")
+    gen = torch.Generator().manual_seed(23)
+    for vocab, with_bias, smoothing in FUSED_CE_CASES:
+        chunk = cross_entropy._largest_chunk_divisor(
+            vocab, cross_entropy.FUSED_CE_DEFAULT_CHUNK)
+        x = torch.randn(*FUSED_CE_TOKENS, FUSED_CE_HIDDEN, generator=gen)
+        w = 0.05 * torch.randn(vocab, FUSED_CE_HIDDEN, generator=gen)
+        b = 0.5 * torch.randn(vocab, generator=gen) if with_bias else None
+        t = torch.randint(0, vocab, FUSED_CE_TOKENS, generator=gen)
+        g = torch.rand(*FUSED_CE_TOKENS, generator=gen)
+        on = lambda a: None if a is None else a.to(dev)
+        args = [on(a) for a in (x, w, b, t, g)]
+        fused = ce_grads(*args, fused=True, smoothing=smoothing)
+        two = ce_grads(*args, fused=False, smoothing=smoothing)
+        cpu = ce_grads(x, w, b, t, g, fused=True, smoothing=smoothing)
+        tol = 1e-5 * max(1.0, two[0].abs().max().item())
+        label = (f"vocab {vocab} (chunk {chunk})"
+                 + (", bias" if with_bias else "")
+                 + (f", smoothing {smoothing}" if smoothing else ""))
+        shares = ce_check(f"fused-ce-parity {label}, fused vs two-step",
+                          fused, two, tol, 1e-4)
+        log(f"  {label}: fused vs two-step on the GPU: {'; '.join(shares)}")
+        tol = 1e-5 * max(1.0, cpu[0].abs().max().item())
+        shares = ce_check(f"fused-ce-parity {label}, GPU vs CPU", fused,
+                          cpu, tol, 1e-4)
+        log(f"  {label}: GPU vs CPU: {'; '.join(shares)}")
+        del fused, two, cpu, args
+    # the bf16 band at the flagship's width
+    n, h, vocab = (FUSED_CE_BAND_TOKENS, FLAGSHIP["hidden_size"],
+                   FLAGSHIP["vocab_size"])
+    x = torch.randn(n, h, generator=gen).to(dev, torch.bfloat16)
+    w = (0.05 * torch.randn(vocab, h, generator=gen)).to(dev, torch.bfloat16)
+    t = torch.randint(0, vocab, (n,), generator=gen).to(dev)
+    g = torch.full((n,), 1.0 / n, device=dev)
+    half = ce_grads(x, w, None, t, g, fused=True)
+    full = ce_grads(x.float(), w.float(), None, t, g, fused=True)
+    two = ce_grads(x, w, None, t, g, fused=False)
+    err_loss = max_err(half[0], full[0])
+    if not err_loss <= 1e-4:
+        fail(f"fused-ce-parity bf16: per-token loss off its fp32 twin by "
+             f"{err_loss:.3g} > 1e-4")
+    bands = []
+    for what, a, b in (("dx", half[1], full[1]), ("dW", half[2], full[2])):
+        if a.dtype != torch.bfloat16:
+            fail(f"fused-ce-parity bf16: {what} is {a.dtype}, not bf16")
+        top = b.abs().max().item()
+        err = max_err(a, b)
+        if not err <= bf16_ulp(top):
+            fail(f"fused-ce-parity bf16: {what} off its fp32 twin by "
+                 f"{err:.3g} > one bf16 ulp {bf16_ulp(top):.3g}")
+        bands.append(f"{what} {err:.3g} (one ulp {bf16_ulp(top):.3g})")
+    mean_two = (two[0].float().mean() - full[0].mean()).abs().item()
+    if not mean_two <= 1e-2:
+        fail(f"fused-ce-parity bf16: the two-step path's mean loss is "
+             f"{mean_two:.3g} off the fused path's")
+    log(f"  bf16 band at {n} tokens x vocab {vocab}, hidden {h}: fused "
+        f"bf16 vs fused fp32 per-token loss {err_loss:.3g}, "
+        f"{'; '.join(bands)}; the two-step path (bf16 logits): per-token "
+        f"loss up to {max_err(two[0], full[0]):.3g}, mean loss "
+        f"{mean_two:.3g} off")
+    # one forward + backward of each path, bf16, at 8 x 1024 and 24 x
+    # 1024 tokens: the op's own crossover
+    for tokens in FUSED_CE_TIMED_TOKENS:
+        xt = torch.randn(tokens, h, device=dev).to(torch.bfloat16)
+        tt = torch.randint(0, vocab, (tokens,), device=dev)
+        gt = torch.full((tokens,), 1.0 / tokens, device=dev)
+        times = {}
+        for fused in (True, False):
+            run = lambda: ce_grads(xt, w, None, tt, gt, fused=fused)
+            run()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            times[fused] = (_events_ms(lambda: [run() for _ in range(5)], 5),
+                            (torch.cuda.max_memory_allocated() - base)
+                            / 2**30)
+        log(f"  forward + backward at {tokens} tokens, bf16: fused "
+            f"{times[True][0]:.3f} ms (peak +{times[True][1]:.2f} GiB), "
+            f"two-step {times[False][0]:.3f} ms (peak "
+            f"+{times[False][1]:.2f} GiB)")
+        del xt, tt, gt
+    torch.cuda.empty_cache()
+
+
+def train_steps(step, n_warm: int = 2, n_timed: int = 10) -> tuple:
+    """Run ``step`` (returning a device loss) ``n_warm`` + ``n_timed``
+    times: ``(losses, ms a timed step, peak GiB over the timed steps,
+    launch counts of the timed steps)``."""
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    warm = [step() for _ in range(n_warm)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(n_timed)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    losses = [float(x) for x in torch.stack(warm + losses).cpu()]
+    return (losses, 1e3 * wall / n_timed,
+            torch.cuda.max_memory_allocated() / 2**30, counts)
+
+
+def phase_train_fused_ce(dev) -> None:
+    """The flagship trainer at O5 (``gpt_pretrain``, remat on) at
+    micro-batches of 8 x 1024 and 24 x 1024 tokens, each with
+    ``fused_ce=True`` and ``False``: 2 warm-up and 10 timed steps each,
+    ms/step, tokens/s and peak memory (the card's crossover).  At 24 x
+    1024 ``fused_ce=None`` must take the fused path and the fused path's
+    peak must be below the two-step path's; the loss must be finite and
+    fall."""
+    from apex_tpu_torch.examples import gpt_pretrain
+    from apex_tpu_torch.transformer.tensor_parallel import cross_entropy
+
+    log("[train-fused-ce] flagship at O5, remat on: fused_ce True vs False "
+        "at 8 x 1024 and 24 x 1024 tokens, 2 warm-up + 10 timed steps")
+    for micro in FUSED_CE_MICRO:
+        flags = ["--seq", "1024", "--micro-batch", str(micro),
+                 "--num-micro", "1", "--opt-level", "O5", "--lr", "3e-4",
+                 "--device", str(dev)]
+        tr = gpt_pretrain.Trainer(gpt_pretrain.parse_args(flags))
+        batch = tr.to_device(*gpt_pretrain.batches(
+            np.random.default_rng(0), 1, tr.global_batch, 1024,
+            tr.args.vocab)[0])
+        if micro == FUSED_CE_MICRO[-1]:
+            # the auto rule: 24576 tokens x 32768 x 4 B = 3.2 GB > 2 GiB
+            real, calls = cross_entropy._FusedCE.apply, []
+            spy = lambda *a: calls.append(1) or real(*a)
+            tr.model.config.fused_ce = None
+            with patched(cross_entropy._FusedCE, apply=spy):
+                tr.step(*batch)
+            torch.cuda.synchronize()
+            if not calls:
+                fail(f"train-fused-ce: fused_ce=None at {micro} x 1024 "
+                     "did not take the fused path")
+            log(f"  {micro} x 1024, fused_ce=None: the fused path "
+                f"({len(calls)} call a step), as fused_ce_auto("
+                f"{micro * 1024}, {tr.args.vocab}) says")
+        peaks = {}
+        for fused in (True, False):
+            tr.model.config.fused_ce = fused
+            losses, ms, peak, _ = train_steps(lambda: tr.step(*batch))
+            if not all(math.isfinite(x) for x in losses) or \
+                    not losses[-1] < losses[0]:
+                fail(f"train-fused-ce {micro} x 1024 fused={fused}: losses "
+                     f"{losses} are not finite and falling")
+            peaks[fused] = peak
+            log(f"  {micro} x 1024, fused_ce={fused}: {ms:.2f} ms/step, "
+                f"{tr.tokens_per_step / (ms / 1e3):,.0f} tokens/s, peak "
+                f"{peak:.2f} GiB, loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+        if micro == FUSED_CE_MICRO[-1] and not peaks[True] < peaks[False]:
+            fail(f"train-fused-ce: at {micro} x 1024 the fused path's peak "
+                 f"{peaks[True]:.2f} GiB is not below the two-step path's "
+                 f"{peaks[False]:.2f} GiB")
+        del tr, batch
+        torch.cuda.empty_cache()
+
+
+#: T5 at bench.py's widths (``_t5_extra``): hidden 512, 8 heads (head dim
+#: 64), ffn 2048, vocab 32768, 512 positions
+T5_WIDTHS = dict(vocab_size=32768, hidden_size=512, num_attention_heads=8,
+                 max_position_embeddings=512)
+T5_LAYERS, T5_BATCH, T5_SEQ = 6, 16, 512
+#: the T5 parity steps: (encoder tokens, decoder tokens), batch 2
+T5_PARITY_SEQS = ((256, 256), (384, 200))
+T5_KERNELS = ("short_fwd", "short_bwd", "ln_fwd", "ln_bwd")
+
+
+def t5_batch(rng, b: int, s_enc: int, s_dec: int, vocab: int) -> tuple:
+    """``(encoder tokens, decoder tokens, targets)``, uniform ids."""
+    return tuple(rng.integers(0, vocab, (b, s)).astype(np.int32)
+                 for s in (s_enc, s_dec, s_dec))
+
+
+def flat_grad(grads: dict) -> torch.Tensor:
+    return torch.cat([grads[n].float().flatten() for n in sorted(grads)])
+
+
+def phase_t5_parity(dev) -> dict:
+    """T5 at full width (hidden 512, 8 heads, vocab 32768), 2 + 2 layers:
+    one step (loss, backward, FusedAdam) on the GPU through the kernels
+    against a CPU copy through the plain versions, fp32 (O0), batch 2 at
+    256 + 256 tokens and at 384 encoder + 200 decoder tokens (cross
+    attention at sq != sk): ``check_step``'s tolerances; the encoder's
+    cross-attention weights get zero gradients on both.  Then the same
+    step at O5 (bf16 parameters and compute, fp32 norms and masters) at
+    384 + 200: the losses within 0.02, the whole gradient of each within
+    3% of its norm of the other's, and every updated parameter within one
+    bf16 ulp of the other's where the fp32 gradient's sign is sure.
+    Returns the first GPU step's launches."""
+    from apex_tpu_torch.amp import get_policy
+    from apex_tpu_torch.models import T5Config, T5Model
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    lr = 1e-3
+    log(f"[t5-parity] T5 widths (hidden {T5_WIDTHS['hidden_size']}, "
+        f"{T5_WIDTHS['num_attention_heads']} heads, vocab "
+        f"{T5_WIDTHS['vocab_size']}), 2 + 2 layers: one step on the GPU vs "
+        f"the CPU, FusedAdam lr={lr}, fp32 then O5")
+    counts = None
+    for level, seqs in (("O0", T5_PARITY_SEQS), ("O5", T5_PARITY_SEQS[1:])):
+        cfg = T5Config(**T5_WIDTHS, num_encoder_layers=2,
+                       num_decoder_layers=2, policy=get_policy(level))
+        for s_enc, s_dec in seqs:
+            data = t5_batch(np.random.default_rng(s_enc), 2, s_enc, s_dec,
+                            cfg.vocab_size)
+            gpu = T5Model(cfg, device=dev, seed=4)
+            cpu = T5Model(cfg, device="cpu", seed=4)
+            cpu.load_state_dict({k: v.cpu() for k, v in
+                                 gpu.state_dict().items()})
+            before = {k: v.cpu().clone() for k, v in
+                      gpu.state_dict().items()}
+            out = []
+            for model in (gpu, cpu):
+                opt = FusedAdam(model.parameters(), lr=lr,
+                                master_weights=cfg.policy.master_weights)
+                batch = [torch.as_tensor(a, device=model.device)
+                         for a in data]
+                if model is gpu:
+                    torch.cuda.synchronize()
+                    reset_launch_counts()
+                out.append(step_of(model, opt, batch))
+                if model is gpu:
+                    torch.cuda.synchronize()
+                    c = launch_counts()
+                    counts = counts or c
+            label = f"t5-parity {level} {s_enc} + {s_dec}"
+            for (_, grads, _) in out:
+                for name, gr in grads.items():
+                    if name.startswith("enc_layers.") and "cross" in name \
+                            and gr.abs().max().item() != 0.0:
+                        fail(f"{label}: encoder cross weight {name} has a "
+                             "nonzero gradient")
+            if level == "O0":
+                worst_g, worst_p, n_sure = check_step(label, *out, before,
+                                                      lr)
+                log(f"  {level} {s_enc} + {s_dec} tokens: loss "
+                    f"{out[0][0]:.6f} (GPU) vs {out[1][0]:.6f} (CPU); every "
+                    f"grad within 1e-4 of its scale (worst {worst_g:.3f} "
+                    f"of it); updated params within 1% of a step at "
+                    f"{n_sure} sure-sign elements (worst {worst_p:.3f})")
+            else:
+                (lg, gg, pg), (lc, gc, pc) = out
+                if not abs(lg - lc) <= 0.02:
+                    fail(f"{label}: loss {lg} (GPU) vs {lc} (CPU)")
+                err = ((flat_grad(gg) - flat_grad(gc)).norm()
+                       / flat_grad(gc).norm()).item()
+                if not err <= 0.03:
+                    fail(f"{label}: the GPU's gradient is {err:.4f} of its "
+                         "norm off the CPU's")
+                # a first Adam step moves a weight by about lr * sign(g):
+                # where the gradient is a tenth of its tensor's largest or
+                # more, both steps land within one ulp of the parameter's
+                # type (bf16, or fp32 for the norms) plus 1% of lr
+                worst = 0.0
+                for name in gc:
+                    sure = gc[name].float().abs() >= 0.1 * \
+                        gc[name].float().abs().max()
+                    band = ulp_of(pc[name][sure]) + 1e-2 * lr
+                    off = (pg[name][sure].float() - pc[name][sure].float()
+                           ).abs()
+                    if (off > band).any():
+                        fail(f"{label}: updated {name} differs by "
+                             f"{off.max().item():.3g}, past its band")
+                    if off.numel():
+                        worst = max(worst, (off / band).max().item())
+                log(f"  {level} {s_enc} + {s_dec} tokens: loss {lg:.5f} "
+                    f"(GPU) vs {lc:.5f} (CPU); whole gradient {err:.5f} of "
+                    f"its norm apart; updated params within an ulp + 1% of "
+                    f"a step where the gradient is a tenth of its tensor's "
+                    f"largest or more (worst {worst:.3f} of it)")
+            for name in T5_KERNELS + ("ln_bwd_fold",):
+                if c.get(name, 0) <= 0:
+                    fail(f"{label}: kernel {name} never launched")
+            del gpu, cpu, out
+    torch.cuda.empty_cache()
+    return counts
+
+
+def t5_step_flops(cfg, b: int, s_enc: int, s_dec: int, layer_params: int,
+                  cross_params: int, kv_params: int) -> int:
+    """Model FLOPs of one training step (forward and backward, 3 x the
+    forward's 2 per multiply-add): every weight once per token that
+    crosses it (an encoder layer's self-attention and MLP over encoder
+    tokens, a decoder layer's over decoder tokens and its cross kv over
+    encoder tokens, the tied head over decoder tokens) plus the
+    attention's score and value products (the encoder's, the decoder's
+    and cross attention, causal counted whole as in 12·L·h·s)."""
+    h, ne, nd = cfg.hidden_size, b * s_enc, b * s_dec
+    enc_w = layer_params - cross_params
+    dec_w = layer_params - kv_params
+    dense = (ne * cfg.num_encoder_layers * enc_w
+             + cfg.num_decoder_layers * (nd * dec_w + ne * kv_params)
+             + nd * cfg.vocab_size * h)
+    attn = 2 * 2 * h * b * (cfg.num_encoder_layers * s_enc * s_enc
+                            + cfg.num_decoder_layers
+                            * (s_dec * s_dec + s_dec * s_enc))
+    return 3 * (2 * dense + attn)
+
+
+def phase_t5_train(dev) -> dict:
+    """bench.py's ``_t5_extra`` T5 on one card: 6 + 6 layers, hidden 512,
+    8 heads, vocab 32768, b=16 x 512 encoder and 512 decoder tokens, bf16
+    parameters and compute, remat on, FusedAdam (lr 1e-4, fp32 masters):
+    2 warm-up and 10 timed steps on one batch.  The loss must be finite
+    and fall, and short_fwd, short_bwd, ln_fwd and ln_bwd must launch.
+    Prints ms/step, tokens/s, MFU, peak memory and the launches."""
+    from apex_tpu_torch.models import T5Config, T5Model
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    b, s = T5_BATCH, T5_SEQ
+    cfg = T5Config(**T5_WIDTHS, num_encoder_layers=T5_LAYERS,
+                   num_decoder_layers=T5_LAYERS,
+                   params_dtype=torch.bfloat16,
+                   compute_dtype=torch.bfloat16)
+    log(f"[t5-train] T5 {T5_LAYERS} + {T5_LAYERS} layers, hidden "
+        f"{cfg.hidden_size}, {cfg.num_attention_heads} heads, vocab "
+        f"{cfg.vocab_size}, b={b} x {s} + {s}, bf16, remat on, FusedAdam "
+        "lr 1e-4 with fp32 masters: 2 warm-up + 10 timed steps")
+    model = T5Model(cfg, device=dev, seed=7)
+    opt = FusedAdam(model.parameters(), lr=1e-4, master_weights=True)
+    batch = [torch.as_tensor(a, device=dev) for a in t5_batch(
+        np.random.default_rng(8), b, s, s, cfg.vocab_size)]
+    n_params = sum(p.numel() for p in model.parameters())
+    layer = model.enc_layers[0]
+    count = lambda mods: sum(p.numel() for m in mods for p in m.parameters())
+    flops = t5_step_flops(
+        cfg, b, s, s, count([layer]),
+        count([layer.ln_cross, layer.cross_q, layer.cross_kv,
+               layer.cross_proj]), count([layer.cross_kv]))
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = model.loss(*batch)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    losses, ms, peak, counts = train_steps(step)
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"t5-train: losses {losses} are not finite and falling")
+    tokens = b * 2 * s
+    util = flops / (ms / 1e3) / PEAK_OPS_PER_S[torch.bfloat16]
+    log(f"  losses: {' '.join(f'{x:.4f}' for x in losses)}")
+    log(f"  {ms:.2f} ms/step, {tokens / (ms / 1e3):,.0f} tokens/s "
+        f"(encoder + decoder; {b * s / (ms / 1e3):,.0f} target tokens/s), "
+        f"MFU {util:.4f} against the 989 TFLOP/s bf16 dense peak "
+        f"({n_params:,} params; {flops:,} model FLOPs a step)")
+    log(f"  peak device memory {peak:.2f} GiB")
+    log(f"  launches in the 10 timed steps: {counts} (per step: "
+        + ", ".join(f"{k} {v / 10:g}" for k, v in sorted(counts.items()))
+        + ")")
+    for name in T5_KERNELS:
+        if counts.get(name, 0) <= 0:
+            fail(f"t5-train: kernel {name} never launched on the main path")
+    phase_profile_train(types.SimpleNamespace(step=step), (),
+                        f"T5 (bf16, {b} x {s} + {s})")
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """bench.py's RN50 loss: the mean negative log-softmax of the label
+    over fp32 logits."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(1, labels[:, None])[:, 0].mean()
+
+
+#: the ResNet parity cases: (depth, batch, image size, the loss's
+#: tolerance, the logits' and running statistics' band and the
+#: gradients' band, each band a share of the tensor's largest).
+#: ResNet-18's last stage at 32x32 normalizes 2 values a channel, so
+#: fp32 rounding in the convolutions alone moves its step by a lot: on
+#: the CPU, the convolutions in fp64 against fp32 (this phase's inputs,
+#: weights drawn from its seed on the CPU) move the loss by 7.2e-5, the
+#: logits by 1.1e-4, the running statistics by 6.8e-4 and the gradients
+#: by 2.0e-2 of their largest; it is held to 5x those.  ResNet-50's at 64x64 moves them by
+#: 4.8e-7, 1.2e-6, 1.6e-6 and 5.8e-6, and is held to the fp32 defaults.
+RESNET_PARITY = ((50, 2, 64, 1e-5, 1e-4, 1e-4),
+                 (18, 2, 32, 4e-4, 5e-3, 0.1))
+
+
+def resnet_step(model, opt, images, labels) -> tuple:
+    """One step (training-mode forward, the buffers taking the new
+    statistics, backward, the optimizer): ``(loss, {name: grad}, {name:
+    param after}, logits, {buffer: value after})`` on the CPU."""
+    opt.zero_grad(set_to_none=True)
+    logits = model(images, training=True)
+    loss = xent(logits, labels)
+    loss.backward()
+    grads = {n: p.grad.detach().cpu().clone()
+             for n, p in model.named_parameters()}
+    opt.step()
+    return (loss.item(), grads,
+            {n: p.detach().cpu().clone() for n, p in model.named_parameters()},
+            logits.detach().cpu(),
+            {n: b.detach().cpu().clone() for n, b in model.named_buffers()})
+
+
+def phase_resnet_parity(dev) -> None:
+    """ResNet-50 (bottleneck) at 2 x 64x64 and ResNet-18 at 2 x 32x32
+    (1000 classes), fp32 (O0), TF32 off: one step on the GPU (cuDNN
+    convolutions, the Adam kernel) against a CPU copy: the logits and the
+    new running statistics, the loss and the gradients and updated
+    parameters (``check_step``) within the case's bands
+    (:data:`RESNET_PARITY`); then eval mode (the running statistics) on
+    both from the GPU's state after the step, the logits within the
+    case's band, the stem's norm equal to a batch norm by the buffers'
+    values."""
+    from apex_tpu_torch.amp import get_policy
+    from apex_tpu_torch.models import ResNet, ResNetConfig
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.utils.convnet import conv_nhwc
+
+    lr = 1e-3
+    log("[resnet-parity] one step on the GPU vs the CPU, fp32, TF32 off, "
+        f"FusedAdam lr={lr}")
+    for depth, b, size, loss_tol, band, grad_band in RESNET_PARITY:
+        cfg = ResNetConfig(depth=depth, policy=get_policy("O0"))
+        gen = torch.Generator().manual_seed(depth)
+        images = torch.randn(b, size, size, 3, generator=gen)
+        labels = torch.randint(0, cfg.num_classes, (b,), generator=gen)
+        gpu = ResNet(cfg, device=dev, seed=depth)
+        cpu = ResNet(cfg, device="cpu", seed=depth)
+        cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+        before = {n: p.detach().cpu().clone()
+                  for n, p in gpu.named_parameters()}
+        out = []
+        for model in (gpu, cpu):
+            opt = FusedAdam(model.parameters(), lr=lr)
+            out.append(resnet_step(model, opt, images.to(model.device),
+                                   labels.to(model.device)))
+        label = f"resnet-parity ResNet-{depth} {b} x {size}x{size}"
+        worst_o = 0.0
+        for what, a, b_ in (("logits", out[0][3], out[1][3]),) + tuple(
+                (f"buffer {n}", out[0][4][n], out[1][4][n])
+                for n in out[1][4]):
+            tol = band * b_.abs().max().item() + 1e-9
+            if not max_err(a, b_) <= tol:
+                fail(f"{label}: {what} differs by {max_err(a, b_):.3g} > "
+                     f"{tol:.3g}")
+            worst_o = max(worst_o, max_err(a, b_) / tol)
+        worst_g, worst_p, n_sure = check_step(
+            label, out[0][:3], out[1][:3], before, lr, loss_tol=loss_tol,
+            grad_tol=grad_band)
+        # eval mode from one state (the two steps' updates differ by up
+        # to 2 lr where a gradient is noise): the GPU's parameters and
+        # the running statistics its step wrote, on both devices
+        cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+        with torch.no_grad():
+            ev = [m.apply(None, None, images.to(m.device), training=False)[0]
+                  .cpu() for m in (gpu, cpu)]
+        tol = band * ev[1].abs().max().item()
+        if not max_err(ev[0], ev[1]) <= tol:
+            fail(f"{label}: eval logits differ by {max_err(*ev):.3g}")
+        # the stem's norm by hand from the buffers, on the card
+        bn = gpu.bn_stem
+        with torch.no_grad():
+            stem = conv_nhwc(images.to(dev), gpu.conv_stem, stride=2)
+            want = (stem - bn.mean) * torch.rsqrt(bn.var + cfg.bn_eps) \
+                * bn.scale + bn.bias
+            got, _ = gpu._bn(bn.params(), bn.stats(), stem, False)
+        if not max_err(got, want) <= 1e-5 * want.abs().max().item():
+            fail(f"{label}: eval mode does not normalize by the running "
+                 "statistics")
+        log(f"  ResNet-{depth} {b} x {size}x{size}: loss {out[0][0]:.6f} "
+            f"(GPU) vs {out[1][0]:.6f} (CPU); logits and running stats "
+            f"within {band:g} of their scale (worst {worst_o:.3f} of it); "
+            f"every grad within {grad_band:g} of its scale (worst "
+            f"{worst_g:.3f} of it); updated params within 1% of a step at "
+            f"{n_sure} sure-sign elements (worst {worst_p:.3f}); eval "
+            f"logits within {band:g} (worst {max_err(*ev) / tol:.3f} of "
+            "it), normalized by the running statistics")
+        del gpu, cpu, out
+    torch.cuda.empty_cache()
+
+
+RN50_BATCH, RN50_SIZE = 64, 224
+#: a few steps of the port's example at its default widths
+IMAGENET_FLAGS = ["--depth", "50", "--batch-size", "32", "--image-size",
+                  "224", "--steps-per-epoch", "6", "--eval-steps", "2"]
+
+
+def phase_rn50_train(dev) -> dict:
+    """bench.py's RN50 on one card: depth 50, batch 64 of 224x224, bf16
+    parameters and compute (O5: fp32 norms and Adam masters), local-batch
+    statistics, FusedAdam lr 1e-3: 2 warm-up and 10 timed steps on one
+    batch; images/s, ms/step, MFU from the convolutions' own FLOPs
+    (``ResNet.flops_per_image``, 3 x the forward's), peak memory, a
+    finite and falling loss.  Then a few steps of the port's
+    ``examples/imagenet_amp`` at depth 50 (fp32 parameters, bf16 compute,
+    FusedSGD with masters) and its prec@1 / prec@5."""
+    from apex_tpu_torch.amp import get_policy
+    from apex_tpu_torch.examples import imagenet_amp
+    from apex_tpu_torch.models import ResNet, ResNetConfig
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    b, size = RN50_BATCH, RN50_SIZE
+    log(f"[rn50-train] ResNet-50, batch {b} x {size}x{size}, O5 (bf16 "
+        "parameters and compute, fp32 norms and masters), FusedAdam lr "
+        "1e-3: 2 warm-up + 10 timed steps")
+    model = ResNet(ResNetConfig(depth=50, policy=get_policy("O5"),
+                                sync_bn_axis=None), device=dev, seed=0)
+    opt = FusedAdam(model.parameters(), lr=1e-3, master_weights=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    images = torch.randn(b, size, size, 3, generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (b,), generator=gen, device=dev)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = xent(model(images, training=True), labels)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    losses, ms, peak, counts = train_steps(step)
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"rn50-train: losses {losses} are not finite and falling")
+    flops = 3 * model.flops_per_image(size) * b
+    ips = b / (ms / 1e3)
+    util = flops / (ms / 1e3) / PEAK_OPS_PER_S[torch.bfloat16]
+    log(f"  losses: {' '.join(f'{x:.4f}' for x in losses)}")
+    log(f"  {ms:.2f} ms/step, {ips:,.1f} images/s, MFU {util:.4f} against "
+        f"the 989 TFLOP/s bf16 dense peak ({flops / b / 1e9:.2f} GFLOP an "
+        f"image, 3 x the convolutions' and fc's forward), peak device "
+        f"memory {peak:.2f} GiB; launches {counts}")
+    phase_profile_train(types.SimpleNamespace(step=step), (),
+                        f"ResNet-50 (O5, {b} x {size}x{size})")
+    del model, opt, images, labels
+    torch.cuda.empty_cache()
+    flags = IMAGENET_FLAGS + ["--device", str(dev)]
+    log(f"[rn50-train] imagenet_amp {' '.join(flags)}")
+    out = imagenet_amp.main(flags)
+    if not all(math.isfinite(x) for x in out["losses"]) or \
+            not 0.0 <= out["prec1"] <= out["prec5"] <= 100.0:
+        fail(f"rn50-train: imagenet_amp gave {out}")
+    log(f"  imagenet_amp: losses {' '.join(f'{x:.4f}' for x in out['losses'])}"
+        f"; val prec@1 {out['prec1']:.2f} prec@5 {out['prec5']:.2f}; "
+        f"{out['images_per_s']:,.1f} images/s")
+    del out
+    torch.cuda.empty_cache()
+    return dict(ms=ms, images_per_s=ips, mfu=util, peak_gib=peak)
+
+
 SOURCES = {
     "ln_fwd": ("cuda", "apex_tpu_torch/csrc/layer_norm.cu",
                "apex_tpu/ops/layer_norm.py:66"),
@@ -7425,6 +8079,19 @@ def main() -> None:
     bert_counts = timed("bert-train", phase_bert_train, dev)
     timed("bert-finetune", phase_bert_finetune, dev)
     fmha_counts = timed("fmha-varlen", phase_fmha_varlen, dev)
+    timed("fused-ce-parity", phase_fused_ce_parity, dev)
+    timed("train-fused-ce", phase_train_fused_ce, dev)
+    timed("bert-train-fused-ce", phase_bert_train, dev, True,
+          "bert-train-fused-ce", False)
+    timed("t5-parity", phase_t5_parity, dev)
+    t5_counts = timed("t5-train", phase_t5_train, dev)
+    log("[t5-train summary] launches of the table's rows 1, 2 and 7 in "
+        "the 10 timed steps: " + ", ".join(
+            f"{name} {t5_counts.get(name, 0)}"
+            for name in ("ln_fwd", "ln_bwd", "ln_bwd_fold", "short_fwd",
+                         "short_bwd")))
+    timed("resnet-parity", phase_resnet_parity, dev)
+    timed("rn50-train", phase_rn50_train, dev)
     # one record per kernel at its main path's shape; launches from the
     # path that carries it: the serving kernels from phase 4, the dequant
     # kernels and int8 pages from serve-quant, short_bwd from the s=384

@@ -165,6 +165,36 @@ def test_loss_grads_and_step_match_jax_fp32(mesh, s, rung):
         assert ((p - before[name])[~big].abs() <= LR * 1.001).all(), name
 
 
+@pytest.mark.parametrize("chunk", [64, 100])
+def test_fused_ce_matches_jax(mesh, chunk):
+    """``BertConfig(fused_ce=True)``: the MLM loss through the fused
+    chunked path, the head's per-vocab bias as its ``bias`` (chunk 64
+    divides the vocab of 256; 100 shrinks to 64), loss, gradients and
+    the Adam step against JAX's fused path, fp32, with the tolerances
+    above."""
+    jm, tm, params = models("O0", "short", seed=21, fused_ce=True,
+                            fused_ce_chunk=chunk)
+    data = batch(40, seed=21)
+    want_loss, want_grads, want_params = jax_step(mesh, jm, params, data)
+    loss, grads, state = port_step(tm, data)
+    np.testing.assert_allclose(loss, want_loss, rtol=1e-5, atol=1e-5)
+    want_g = convert.params_from_jax(want_grads)
+    want_p = convert.params_from_jax(want_params)
+    assert grads["lm_head.bias"].abs().max() > 0
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), want_g[name].numpy(),
+                                   rtol=1e-4, atol=2e-6, err_msg=name)
+    for name, p in state.items():
+        big = want_g[name].abs() >= 1e-5
+        np.testing.assert_allclose(p[big].numpy(), want_p[name][big].numpy(),
+                                   rtol=0, atol=1e-2 * LR, err_msg=name)
+    # the same loss as the two-step path on the same weights
+    _, two, _ = models("O0", "short", seed=21, fused_ce=False)
+    with torch.no_grad():
+        ref = two.loss(*map(torch.from_numpy, data)).item()
+    np.testing.assert_allclose(loss, ref, rtol=1e-5, atol=1e-5)
+
+
 def test_o4_bf16_band(mesh):
     """O4 (fp32 parameters and gradients, bf16 compute) through the short
     rung on both sides: the loss within 0.02 of JAX's, every gradient in
@@ -259,8 +289,8 @@ def test_config_and_methods_keep_the_jax_signatures():
 
 
 def test_unported_options_raise_naming_their_items():
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        BertConfig(**SIZES, fused_ce=True)
+    # fused_ce=True is ported since: test_fused_ce_matches_jax
+    assert BertConfig(**SIZES, fused_ce=True).fused_ce
     with pytest.raises(NotImplementedError, match="'xla'"):
         BertConfig(**SIZES, attention_impl="xla")
     # the fp16 level O2, ported since: fp16 parameters, fp32 norms

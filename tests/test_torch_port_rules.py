@@ -457,12 +457,16 @@ def test_decode_rows_and_tree_count_under_their_own_names():
     "optimizers.fused_tail", "optimizers.fused_lamb",
     "optimizers.fused_mixed_precision_lamb", "optimizers.fused_sgd",
     "optimizers.fused_novograd", "optimizers.fused_adagrad",
-    "optimizers.larc", "resilience.guard", "transformer.amp"])
+    "optimizers.larc", "resilience.guard", "transformer.amp",
+    "models.t5", "models.resnet", "utils.convnet", "parallel",
+    "parallel.sync_batchnorm", "contrib.xentropy", "examples.imagenet_amp"])
 def test_new_modules_are_port_files(module):
     """The modules of the serving slice, the softmax entry point, the
-    PRNG and dropout are in the package (so the import rule above covers
-    them)."""
+    PRNG and dropout, T5, ResNet and their helpers are in the package (so
+    the import rule above covers them)."""
     path = ROOT / "apex_tpu_torch" / (module.replace(".", "/") + ".py")
+    if not path.exists():
+        path = path.with_suffix("") / "__init__.py"
     assert path in PORT_FILES
     importlib.import_module(f"apex_tpu_torch.{module}")
 
@@ -472,7 +476,9 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
     from apex_tpu_torch.examples.gpt_pretrain import Trainer, parse_args
     from apex_tpu_torch.ops.dropout import dropout_mask
     from apex_tpu_torch.serving import KVCacheConfig, init_pools
-    from apex_tpu_torch.models import GPTConfig, GPTModel
+    from apex_tpu_torch.examples import imagenet_amp
+    from apex_tpu_torch.models import (GPTConfig, GPTModel, ResNet,
+                                       ResNetConfig, T5Config, T5Model)
     from apex_tpu_torch.serving.serve import init_carry
     from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
     from apex_tpu_torch.utils import resolve_device
@@ -491,7 +497,10 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
                  lambda: Trainer(args),
                  lambda: GPTModel(GPTConfig(num_layers=1, hidden_size=32,
                                             num_attention_heads=1,
-                                            vocab_size=64))):
+                                            vocab_size=64)),
+                 lambda: T5Model(T5Config(hidden_size=32, vocab_size=64)),
+                 lambda: ResNet(ResNetConfig(depth=18, width=4)),
+                 lambda: imagenet_amp.main(["--depth", "18"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")

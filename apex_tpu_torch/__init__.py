@@ -23,9 +23,12 @@ trains and fine-tunes through the attention kernels' segment-id instances
 (``examples.bert_finetune``), which also carry the packed-varlen
 ``contrib.fmha``.  The GPT trains with dropout through ``random`` (JAX's
 threefry2x32 PRNG, bit for bit), the hidden-dropout kernel
-(``ops.dropout``) and the attention kernels' dropout instances.
+(``ops.dropout``) and the attention kernels' dropout instances.  A fleet
+of serving replicas (``fleet``: routing, failover, the request journal,
+disaggregated prefill and decode, the host offload tier) serves on one
+GPU over the same step functions.
 """
 
-__all__ = ["amp", "contrib", "convert", "examples", "models",
+__all__ = ["amp", "contrib", "convert", "examples", "fleet", "models",
            "multi_tensor_apply", "ops", "optimizers", "random", "resilience",
            "serving", "telemetry", "transformer", "utils"]

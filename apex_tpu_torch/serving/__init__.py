@@ -1,16 +1,21 @@
-"""Serving: paged KV cache with the prefix cache, sampling and
-speculative acceptance, draft sources, continuous batching (monolithic
-or chunked prefill, speculative decoding)."""
+"""Serving: paged KV cache with the prefix cache and the host offload
+tier, sampling and speculative acceptance, draft sources, continuous
+batching (monolithic or chunked prefill, speculative decoding) with the
+fleet's seams (``apex_tpu_torch.fleet``: page handoff, cancel, pump)."""
 
 from apex_tpu_torch.serving.kv_cache import (
     AdmitResult,
     CacheOutOfPages,
+    HostOffloadPool,
     KVCacheConfig,
     PageAllocator,
     PagedKVCache,
     copy_pages,
+    export_pages,
+    import_pages,
     init_pools,
     prompt_page_hashes,
+    staged_nbytes,
     write_targets,
     write_tokens,
 )
@@ -23,6 +28,7 @@ from apex_tpu_torch.serving.sampling import (
 from apex_tpu_torch.serving.serve import (
     Completion,
     ContinuousBatcher,
+    HandoffPacket,
     Request,
     init_carry,
 )
@@ -42,10 +48,12 @@ from apex_tpu_torch.serving.speculate import (
 
 __all__ = [
     "AdmitResult", "CacheOutOfPages", "Completion", "ContinuousBatcher",
-    "DraftSource", "KVCacheConfig", "ModelDraftSource", "NGramDraftSource",
-    "NullDraftSource", "PageAllocator", "PagedKVCache", "Request",
-    "chain_tree", "copy_pages", "greedy", "init_carry", "init_pools",
-    "offramp_tree", "prompt_page_hashes", "sample", "spec_accept",
-    "spec_accept_tree", "tree_ancestors", "tree_chain_rows", "tree_depths",
-    "tree_max_depth", "validate_tree", "write_targets", "write_tokens",
+    "DraftSource", "HandoffPacket", "HostOffloadPool", "KVCacheConfig",
+    "ModelDraftSource", "NGramDraftSource", "NullDraftSource",
+    "PageAllocator", "PagedKVCache", "Request", "chain_tree", "copy_pages",
+    "export_pages", "greedy", "import_pages", "init_carry",
+    "init_pools", "offramp_tree", "prompt_page_hashes", "sample",
+    "spec_accept", "spec_accept_tree", "staged_nbytes", "tree_ancestors",
+    "tree_chain_rows", "tree_depths", "tree_max_depth", "validate_tree",
+    "write_targets", "write_tokens",
 ]

@@ -30,10 +30,35 @@ A replay does not call the kernel wrappers, so it would not count their
 launches (``ops/common.py``): the counts a capture adds are taken back
 and added again on every replay.  A failed capture or replay raises; it
 never falls back to the eager step.
+
+**One graph per (pools, step shape).**  A fleet drives N batchers, each
+over its own pools, through ONE set of step functions (JAX's "N
+replicas share one set of jitted step functions": zero extra
+compilations).  The graphs are keyed by the pools' identity (each
+buffer's address and shape) as well as the signature, so every replica
+keeps its own captures, and with them its own static carry: the carry a
+replay returns is that replica's, and the in-place writes the batcher
+makes between steps (admission, retirement, cancel, a handoff's import)
+land in it and nowhere else.  Captures are bounded by live replicas x
+step shapes, and once each replica has run each shape a fleet makes no
+new capture: the port's form of "zero extra compilations".  Graphs over
+pools that are gone are dropped with them (a weak reference on the
+pools' ``k`` buffer), so short-lived batchers do not pile up captures.
+
+What each replica's graphs hold on the card, per step shape: the static
+inputs (that replica's carry, ``max_seqs`` x 33 bytes, and its page
+table, ``max_seqs`` x ``pages_per_seq`` x 4 bytes) and the private memory
+pool the capture reserved for the step's intermediates (the activations
+of ``max_seqs`` rows through every layer, the fp32 logits of ``max_seqs``
+x vocab, the sampler's scratch).  :meth:`StepGraph.graph_bytes` reads
+both per pools key (``nbytes`` of each entry: the static inputs' bytes
+plus the capture's growth of ``torch.cuda.memory_reserved``); the pools
+themselves are the batcher's, not the graph's.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Any, Callable, Dict, List
 
 import torch
@@ -58,22 +83,30 @@ def _flat(args) -> List[torch.Tensor]:
 
 
 class _Entry:
-    def __init__(self, graph, static_args, outputs, launches):
+    def __init__(self, graph, static_args, outputs, launches, nbytes):
         self.graph = graph
         self.static_args = static_args
         self.outputs = outputs
         self.launches = launches
+        #: the static inputs' bytes plus the capture's private pool
+        self.nbytes = nbytes
+
+
+def _forget(graphs: Dict[Any, "_Entry"], pools_key) -> None:
+    """Drop the graphs over pools that no longer exist."""
+    for key in [k for k in graphs if k[0] == pools_key]:
+        del graphs[key]
 
 
 class StepGraph:
-    """``step`` replayed as one CUDA graph per signature (module
+    """``step`` replayed as one CUDA graph per (pools, signature) (module
     docstring).  Call it as the step; ``step`` itself stays the eager
     path."""
 
     def __init__(self, step: Callable):
         self.step = step
+        #: (pools key, signature) -> captured graph
         self._graphs: Dict[Any, _Entry] = {}
-        self._pools_key = None
         self._stream = None
         #: captures made and replays run (for the tests and the smoke run)
         self.captures = 0
@@ -86,19 +119,27 @@ class StepGraph:
             if isinstance(a, dict) else (tuple(a.shape), a.dtype)
             for a in args)
 
+    @staticmethod
+    def pools_key(pools: Dict[str, torch.Tensor]) -> tuple:
+        """The identity the graphs over ``pools`` are kept under."""
+        return tuple((k, t.data_ptr(), tuple(t.shape))
+                     for k, t in pools.items())
+
+    def graph_bytes(self) -> Dict[tuple, int]:
+        """Bytes the live graphs hold, summed per pools key."""
+        out: Dict[tuple, int] = {}
+        for (pkey, _), entry in self._graphs.items():
+            out[pkey] = out.get(pkey, 0) + entry.nbytes
+        return out
+
     @torch.no_grad()
     def __call__(self, pools: Dict[str, torch.Tensor], *args):
         device = pools["k"].device
-        pools_key = tuple((k, t.data_ptr(), tuple(t.shape))
-                          for k, t in pools.items())
-        if pools_key != self._pools_key:
-            # another server's pools: graphs over the old ones go
-            self._graphs.clear()
-            self._pools_key = pools_key
+        pkey = self.pools_key(pools)
         sig = self._signature(args)
-        entry = self._graphs.get(sig)
+        entry = self._graphs.get((pkey, sig))
         if entry is None:
-            return self._warm_and_capture(sig, device, pools, args)
+            return self._warm_and_capture((pkey, sig), device, pools, args)
         for static, given in zip(_flat(entry.static_args), _flat(args)):
             if given is not static:
                 static.copy_(given)
@@ -107,7 +148,7 @@ class StepGraph:
         self.replays += 1
         return (pools,) + entry.outputs
 
-    def _warm_and_capture(self, sig, device, pools, args):
+    def _warm_and_capture(self, key, device, pools, args):
         current = torch.cuda.current_stream(device)
         if self._stream is None:
             self._stream = torch.cuda.Stream(device)
@@ -125,6 +166,8 @@ class StepGraph:
                        if isinstance(a, dict) else a.clone()
                        for a in dev_args]
         graph = torch.cuda.CUDAGraph()
+        on_card = device.type == "cuda"
+        reserved = torch.cuda.memory_reserved(device) if on_card else 0
         before = launch_counts()
         # capture_begin/end, not ``torch.cuda.graph``: that context also
         # synchronizes and empties the allocator's cache, and the next
@@ -140,7 +183,15 @@ class StepGraph:
                 graph.capture_end()
         launches = count_delta(before, launch_counts())
         add_launch_counts(launches, -1)
-        self._graphs[sig] = _Entry(graph, static_args,
-                                   (carry,) + tuple(captured[2:]), launches)
+        if all(k[0] != key[0] for k in self._graphs):
+            # the first graph over these pools: they all go with the pools
+            weakref.finalize(pools["k"], _forget, self._graphs, key[0])
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in _flat(static_args))
+        if on_card:
+            nbytes += torch.cuda.memory_reserved(device) - reserved
+        self._graphs[key] = _Entry(graph, static_args,
+                                   (carry,) + tuple(captured[2:]), launches,
+                                   nbytes)
         self.captures += 1
         return out

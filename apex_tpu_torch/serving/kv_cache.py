@@ -31,15 +31,27 @@ of full prompt pages (:func:`prompt_page_hashes`, byte-identical to the
 JAX hashes), admissions share matched pages read-only instead of
 recomputing them (:class:`AdmitResult`), :func:`copy_pages` is the
 copy-on-write for a match that ends mid-page, and eviction is pure
-refcount GC.  ``PagedKVCache.evict_hook`` is the seam the host offload
-tier hangs off; that tier (``HostOffloadPool``, ``export_pages``,
-``import_pages``) is not ported yet (ROADMAP.md queue A item 8).
+refcount GC.
+
+**Moving pages** (the fleet's handoff and the host offload tier):
+:func:`export_pages` gathers physical pages out of every pool buffer into
+host tensors in the JAX layout, ``(num_layers, n_pages, heads, page_size,
+head_dim)`` a buffer (int8 pools: int8 values plus their fp32 scales),
+through ONE device-to-host copy into a pinned buffer on the card;
+:func:`import_pages` scatters them into (usually another pool's) physical
+pages.  No dtype ever widens, so a round trip is bit-identical, and
+:func:`staged_nbytes` equals the JAX package's for the same pools.
+:class:`HostOffloadPool` is the bounded LRU host tier that hangs off
+``PagedKVCache.evict_hook``: pages the refcount GC would free are staged
+there by prefix hash and faulted back later.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import hashlib
+import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -54,11 +66,15 @@ __all__ = [
     "AdmitResult",
     "PageAllocator",
     "PagedKVCache",
+    "HostOffloadPool",
     "prompt_page_hashes",
     "init_pools",
     "write_tokens",
     "write_targets",
     "copy_pages",
+    "export_pages",
+    "import_pages",
+    "staged_nbytes",
 ]
 
 
@@ -261,9 +277,10 @@ class PagedKVCache:
         self._extra_refs: Dict[int, List[int]] = {}
         # the offload seam: called once per GC burst as
         # ``evict_hook([(hash, parent_hash, page), ...])`` before any of
-        # those pages is freed; with a hook attached a burst frees at
-        # least ``evict_batch`` pages.  No hook by default (the host
-        # offload tier is ROADMAP.md queue A item 8).
+        # those pages is freed (their device content is still valid, so
+        # the hook may stage the whole burst to :class:`HostOffloadPool`
+        # in one transfer); with a hook attached a burst frees at least
+        # ``evict_batch`` pages.  The hook must not allocate or evict.
         self.evict_hook: Optional[Callable[
             [List[Tuple[bytes, Optional[bytes], int]]], None]] = None
         self.evict_batch: int = 8
@@ -460,6 +477,13 @@ class PagedKVCache:
                 None if cfg.kv_dtype is None else name(cfg.kv_dtype),
                 cfg.kv_block)
 
+    def device_tables(self, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(page_table, lengths)`` as int32 tensors on ``device``
+        (default: the GPU): a few KB a step."""
+        dev = resolve_device(device)
+        return (torch.as_tensor(self.page_table, device=dev),
+                torch.as_tensor(self.lengths, device=dev))
+
 
 # ---------------------------------------------------------------------------
 # Device side: pools + the token scatter
@@ -506,6 +530,128 @@ def copy_pages(
         s, d = src.to(pool.device), dst.to(pool.device)
         pool[:, d] = pool[:, s]
     return pools
+
+
+def export_pages(pools: Dict[str, torch.Tensor],
+                 pages) -> Dict[str, torch.Tensor]:
+    """Gather physical ``pages`` out of every pool buffer into host
+    tensors: the device-to-host half of a handoff or an offload.  Each
+    buffer stages as ``(num_layers, n_pages, heads, page_size, head_dim)``
+    (scales: ``(..., page_size, scale_blocks)``) in its own dtype, bf16 as
+    bf16 and int8 pools as int8 values plus fp32 scales, so a round trip
+    through :func:`import_pages` is bit-identical.  The gathers land in
+    one device buffer that crosses to the host in ONE copy (pinned on the
+    card; the copy synchronises, as JAX's ``device_get`` does); the staged
+    tensors are views of that host buffer."""
+    dev = pools["k"].device
+    idx = torch.as_tensor([int(p) for p in pages], dtype=torch.long,
+                          device=dev)
+    # byte spans padded to 16 so every view starts aligned for its dtype
+    spans, off = {}, 0
+    for k, v in pools.items():
+        shape = (v.shape[0], len(idx)) + tuple(v.shape[2:])
+        n = math.prod(shape) * v.element_size()
+        spans[k] = (off, n, shape, v.dtype)
+        off += -(-n // 16) * 16
+    flat = torch.empty((off,), dtype=torch.uint8, device=dev)
+    for k, (o, n, shape, dtype) in spans.items():
+        # each gather writes its span of the one buffer directly
+        torch.index_select(pools[k], 1, idx,
+                           out=flat[o:o + n].view(dtype).view(shape))
+    host = torch.empty((off,), dtype=torch.uint8,
+                       pin_memory=dev.type == "cuda")
+    host.copy_(flat)
+    return {k: host[o:o + n].view(dtype).view(shape)
+            for k, (o, n, shape, dtype) in spans.items()}
+
+
+def import_pages(pools: Dict[str, torch.Tensor],
+                 staged: Dict[str, torch.Tensor],
+                 pages) -> Dict[str, torch.Tensor]:
+    """Scatter an :func:`export_pages` staging dict into physical
+    ``pages`` of ``pools``, in place: the host-to-device half of a handoff
+    or a fault-in.  The staged buffers must come from a pool of the same
+    :meth:`PagedKVCache.compat_key` family, so the write is a bit-exact
+    move; a dtype that differs raises rather than casts.  Returns
+    ``pools``."""
+    dev = pools["k"].device
+    idx = torch.as_tensor([int(p) for p in pages], dtype=torch.long,
+                          device=dev)
+    for k, pool in pools.items():
+        src = staged[k]
+        if src.dtype != pool.dtype:
+            raise ValueError(
+                f"staged {k!r} is {src.dtype}, the pool {pool.dtype}: "
+                "pages move between pools of one compat_key family")
+        pool[:, idx] = src.to(dev, non_blocking=True)
+    return pools
+
+
+def staged_nbytes(staged: Dict[str, torch.Tensor]) -> int:
+    """Wire bytes of a staging dict (int8 pools: the int8 payload plus the
+    fp32 scales): the handoff and offload accounting."""
+    return int(sum(t.numel() * t.element_size() for t in staged.values()))
+
+
+class HostOffloadPool:
+    """Bounded LRU host-RAM tier for evicted prefix pages.
+
+    Hangs off :attr:`PagedKVCache.evict_hook`: when the refcount GC would
+    free an index-only page, the serving layer stages its bytes here,
+    keyed by the page's cumulative prefix hash, and a later admission
+    whose prompt chains onto that hash faults the page back (:meth:`take`
+    + :meth:`PagedKVCache.adopt_prefix_page` + :func:`import_pages`)
+    bit-identically.  Entries are whole staged pages (``(layers, 1,
+    heads, page_size, head_dim)`` a buffer) plus the parent hash that
+    relinks the chain.  ``max_pages`` bounds host RAM; past it the least
+    recently touched entry is dropped.  ``take`` pops: a faulted page
+    lives on the device again and the index owns it."""
+
+    def __init__(self, max_pages: int):
+        if max_pages < 1:
+            raise ValueError("max_pages must be >= 1")
+        self.max_pages = int(max_pages)
+        self._entries: "collections.OrderedDict[bytes, Dict[str, Any]]" \
+            = collections.OrderedDict()
+        self.stats = {"offloaded": 0, "faulted": 0, "lru_evicted": 0,
+                      "hits": 0, "misses": 0,
+                      "bytes_in": 0, "bytes_out": 0}
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __contains__(self, h: bytes) -> bool:
+        return h in self._entries
+
+    def put(self, h: bytes, parent: Optional[bytes],
+            staged: Dict[str, torch.Tensor]) -> None:
+        """Stage one page under hash ``h`` (re-staging a hash refreshes
+        its LRU position and content), dropping the coldest entries past
+        ``max_pages``."""
+        if h in self._entries:
+            self._entries.pop(h)
+        self._entries[h] = {"parent": parent, "data": staged}
+        self.stats["offloaded"] += 1
+        self.stats["bytes_in"] += staged_nbytes(staged)
+        while len(self._entries) > self.max_pages:
+            self._entries.popitem(last=False)
+            self.stats["lru_evicted"] += 1
+
+    def parent(self, h: bytes) -> Optional[bytes]:
+        return self._entries[h]["parent"]
+
+    def take(self, h: bytes) -> Optional[Dict[str, Any]]:
+        """Pop hash ``h``'s entry (``{"parent", "data"}``) for a fault-in,
+        or ``None`` (a recorded miss) when it was never offloaded or has
+        been dropped: the caller recomputes."""
+        e = self._entries.pop(h, None)
+        if e is None:
+            self.stats["misses"] += 1
+            return None
+        self.stats["hits"] += 1
+        self.stats["faulted"] += 1
+        self.stats["bytes_out"] += staged_nbytes(e["data"])
+        return e
 
 
 def write_targets(

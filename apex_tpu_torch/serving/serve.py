@@ -63,11 +63,30 @@ folds the slot's context length into it, so a seeded request samples the
 same stream in any slot at any admission order.
 
 On the card the decode and verify steps of ``decode_fns`` replay one CUDA
-graph per step shape (``serving/graphs.py``): a step's outputs are the
-graph's static buffers, so the window keeps a copy of each step's tokens.
+graph per (pools, step shape) (``serving/graphs.py``): a step's outputs
+are the graph's static buffers, so the window keeps a copy of each step's
+tokens, and the carry a replay returns is this batcher's own static carry,
+which the in-place writes below (admission, retirement, ``cancel``, an
+import) update.
 
-Not ported yet: the metrics logger, and the host offload tier and the
-fleet seams (item 8).
+**The fleet's seams** (``apex_tpu_torch/fleet``): ``live_slots``,
+:meth:`ContinuousBatcher.pump` (one admit + one harvest window over an
+external queue), :meth:`~ContinuousBatcher.cancel`, the levers
+``decode_enabled`` (off on a prefill-role replica), ``speculation_enabled``
+and ``chunk_throttle`` (the brownout ladder's; scheduling only, a stream's
+tokens never change), and the disaggregation handoff:
+:meth:`~ContinuousBatcher.handoff_ready`,
+:meth:`~ContinuousBatcher.export_request` (a :class:`HandoffPacket` of the
+request's committed tokens and its KV pages staged on the host) and
+:meth:`~ContinuousBatcher.import_request` (the pages scattered and the
+carry row written in one step, ``_import_state``).  ``offload=`` (a
+:class:`~apex_tpu_torch.serving.kv_cache.HostOffloadPool`, with
+``prefix_cache``) stages pages the prefix GC evicts to host RAM in one
+transfer a burst and faults them back at admission, bit-identical.
+Every harvest resolves through the module's ``_device_get``, the seam a
+fault injector hangs (``resilience.faults.hanging_harvests``).
+
+Not ported yet: the metrics logger (item 10).
 """
 
 from __future__ import annotations
@@ -83,14 +102,34 @@ import torch
 from apex_tpu_torch.random import PRNGKey, fold_in, keys_tensor
 from apex_tpu_torch.serving.kv_cache import (
     CacheOutOfPages,
+    HostOffloadPool,
     PagedKVCache,
     copy_pages,
+    export_pages,
+    import_pages,
+    prompt_page_hashes,
+    staged_nbytes,
 )
 from apex_tpu_torch.serving.speculate import NGramDraftSource, tree_chain_rows
 from apex_tpu_torch.telemetry.spans import phase
 from apex_tpu_torch.utils.platform import resolve_device
 
-__all__ = ["Request", "Completion", "ContinuousBatcher", "init_carry"]
+__all__ = ["Request", "Completion", "HandoffPacket", "ContinuousBatcher",
+           "init_carry"]
+
+
+def _to_host(x):
+    """A device tensor, or a list of them, on the host (a synchronising
+    copy)."""
+    if isinstance(x, (list, tuple)):
+        return [t.cpu() for t in x]
+    return x.cpu()
+
+
+#: the harvest-resolve seam: both windows pull device results through this
+#: module attribute, so a fault injector can hang a harvest where a wedged
+#: device would (``resilience.faults.hanging_harvests``)
+_device_get = _to_host
 
 
 @dataclasses.dataclass
@@ -122,6 +161,50 @@ class Completion:
     reason: str                 # "eos" | "budget"
     ttft_s: Optional[float] = None
     duration_s: Optional[float] = None
+
+
+@dataclasses.dataclass
+class HandoffPacket:
+    """One request's decode state in flight between replicas: the
+    committed tokens plus the host-staged bytes of every KV page written
+    so far (:func:`~apex_tpu_torch.serving.kv_cache.export_pages` layout;
+    int8 pools stage int8 values and fp32 scales).  Built by
+    :meth:`ContinuousBatcher.export_request`, consumed by
+    :meth:`ContinuousBatcher.import_request`; the sampling keys fold the
+    absolute context length, so the continued stream is the one that
+    never moved (greedy, or a seeded request)."""
+
+    req: Request
+    #: tokens committed on the source before the export
+    tokens: List[int]
+    staged: Dict[str, torch.Tensor]
+    n_pages: int
+    #: KV positions written on the source: ``prompt + len(tokens) - 1``
+    #: (the newest token's K/V is written by the next decode step)
+    written: int
+    wire_bytes: int
+    #: the source cache's page-layout family
+    #: (:meth:`~apex_tpu_torch.serving.kv_cache.PagedKVCache.compat_key`)
+    compat_key: tuple
+    #: the prompt's cumulative page hashes, so the destination's prefix
+    #: index adopts the imported pages without re-hashing
+    hashes: Optional[List[bytes]] = None
+
+
+def _import_state(pools, carry, staged, pages, slot: int, last: int,
+                 written: int, steps_left: int, done: bool,
+                 skey) -> None:
+    """The import side of a handoff as one step: the staged pages
+    scattered into ``pages`` and every carry field of ``slot`` written, in
+    place (``carry`` is the importing batcher's, on the card its graph's
+    static carry)."""
+    import_pages(pools, staged, pages)
+    dev = carry["tokens"].device
+    carry["tokens"][slot] = int(last)
+    carry["lengths"][slot] = int(written)
+    carry["steps_left"][slot] = int(steps_left)
+    carry["done"][slot] = bool(done)
+    carry["sample_keys"][slot] = keys_tensor(skey, dev)[0]
 
 
 def init_carry(max_seqs: int, key=None,
@@ -192,19 +275,20 @@ class ContinuousBatcher:
         spec_fn: Optional[Callable] = None,
         speculate_k: Optional[int] = None,
         draft_source: Optional[Any] = None,
-        offload: Optional[Any] = None,
+        offload: Optional[HostOffloadPool] = None,
         key: Optional[Any] = None,
     ):
         if logger is not None:
             raise NotImplementedError(
                 "the metrics logger is not ported yet (ROADMAP.md queue A "
                 "item 10, the rest of telemetry)")
-        if offload is not None:
-            raise NotImplementedError(
-                "the host offload tier is not ported yet (ROADMAP.md "
-                "queue A item 8)")
         if harvest_every < 1:
             raise ValueError("harvest_every must be >= 1")
+        if offload is not None and not prefix_cache:
+            raise ValueError(
+                "offload requires prefix_cache=True (the offload tier "
+                "keys staged pages by prefix hash; without the index "
+                "nothing could fault them back)")
         # the device step freezes slots at ITS eos id; the host truncates
         # at THIS one — a decode_fn that declares its id must agree
         _unset = object()
@@ -300,11 +384,27 @@ class ContinuousBatcher:
         self.chunk_fn = chunk_fn
         self.prefill_chunk = (None if prefill_chunk is None
                               else int(prefill_chunk))
+        #: brownout levers (the fleet's ladder drives them): with
+        #: ``speculation_enabled`` off the windows decode one token a step
+        #: (the spec step stays built); ``chunk_throttle=N`` runs a
+        #: prefill chunk on every Nth window iteration.  Scheduling only:
+        #: the key schedule folds context length, not step timing.
+        self.speculation_enabled = True
+        self.chunk_throttle = 1
+        self._chunk_tick = 0
+        #: the disaggregation lever: a prefill-role replica runs chunks and
+        #: resolves first tokens but never dispatches a decode or verify
+        #: step; its prompt-complete slots wait for the fleet's handoff
+        self.decode_enabled = True
         self.prefix_cache = bool(prefix_cache)
         self.measure_stall = bool(measure_stall)
         self.cache = cache
         self.pools = pools
         self.device = pools["k"].device
+        #: host-RAM tier for evicted prefix pages, on the cache's GC seam
+        self.offload = offload
+        if offload is not None:
+            cache.evict_hook = self._stage_to_offload
         self.max_prompt_len = int(max_prompt_len)
         self.harvest_every = int(harvest_every)
         self.eos_id = eos_id
@@ -335,6 +435,11 @@ class ContinuousBatcher:
         }
 
     # ------------------------------------------------------ host mirrors
+    @property
+    def live_slots(self) -> int:
+        """Slots decoding or prefilling (host state only)."""
+        return len(self._meta) + len(self._prefilling)
+
     @property
     def pending_prefill_chunks(self) -> int:
         """Prefill chunks still to run for in-flight admissions (host
@@ -416,6 +521,10 @@ class ContinuousBatcher:
                 raise ValueError(
                     f"prompt of {plen} tokens exceeds max_prompt_len "
                     f"{self.max_prompt_len}")
+            if self.offload is not None and len(self.offload):
+                # fault offloaded prefix pages back before the match, so
+                # admit() shares them and their chunks are skipped
+                self._fault_in(req.prompt)
             try:
                 res = self.cache.admit(
                     slot, plen + req.max_new_tokens,
@@ -578,18 +687,21 @@ class ContinuousBatcher:
         draft_s = 0.0
         done_h = None
         for _ in range(self.harvest_every):
-            did_chunk = False
-            if self._prefilling:
-                self._prefill_step(next(iter(self._prefilling)))
-                did_chunk = True
+            did_chunk = self._chunk_turn()
             # resolve pending first tokens now: a draft needs the whole
             # committed context
             if self._first_tok:
                 slots = list(self._first_tok)
-                firsts = torch.stack([self._first_tok.pop(s)
-                                      for s in slots]).cpu().tolist()
+                firsts = _device_get(torch.stack(
+                    [self._first_tok.pop(s) for s in slots])).tolist()
                 self._absorb_firsts(dict(zip(slots, firsts)),
                                     time.perf_counter())
+            # a prefill-role replica stops here: no verify step, its
+            # slots wait for the handoff
+            if not self.decode_enabled:
+                if not did_chunk:
+                    break
+                continue
             live = [(s, m) for s, m in self._meta.items()
                     if m["finished"] is None]
             if not live:
@@ -636,8 +748,8 @@ class ContinuousBatcher:
             else:
                 self.pools, self.carry, targets, n_commit, path = out
                 parts = [targets, n_commit, path]
-            resolved = [p.cpu() for p in
-                        parts + [self.carry["done"].to(torch.int32)]]
+            resolved = _device_get(
+                parts + [self.carry["done"].to(torch.int32)])
             out_h, nc_h = resolved[0].tolist(), resolved[1].tolist()
             path_h = resolved[2].tolist() if tree is not None else None
             done_h = resolved[-1].tolist()
@@ -670,11 +782,22 @@ class ContinuousBatcher:
         self.windows += 1
         self.spec_stats["draft_s"] += draft_s
         if done_h is None:
-            done_h = self.carry["done"].cpu().tolist()
+            done_h = _device_get(self.carry["done"]).tolist()
         self._retire(done_h, t_h)
 
+    def _chunk_turn(self) -> bool:
+        """A window iteration's prefill budget: at most one chunk of the
+        oldest admission, on every ``chunk_throttle``-th iteration."""
+        if not self._prefilling:
+            return False
+        self._chunk_tick += 1
+        if self._chunk_tick % max(1, self.chunk_throttle):
+            return False
+        self._prefill_step(next(iter(self._prefilling)))
+        return True
+
     def _decode_window(self) -> None:
-        if self.spec_fn is not None:
+        if self.spec_fn is not None and self.speculation_enabled:
             return self._spec_window()
         base = self.steps
         page_table = torch.as_tensor(self.cache.page_table,
@@ -682,12 +805,11 @@ class ContinuousBatcher:
         window: List[torch.Tensor] = []
         for _ in range(self.harvest_every):
             # a step's token budget: at most ONE prefill chunk ...
-            did_chunk = False
-            if self._prefilling:
-                self._prefill_step(next(iter(self._prefilling)))
-                did_chunk = True
-            # ... plus one decode token for every live slot
-            if self._window_budget(base) > 0:
+            did_chunk = self._chunk_turn()
+            # ... plus one decode token for every live slot (a
+            # prefill-role replica never decodes: its slots wait for the
+            # handoff)
+            if self.decode_enabled and self._window_budget(base) > 0:
                 with phase("decode"):
                     self.pools, self.carry = self.decode_fn(
                         self.pools, self.carry, page_table)
@@ -706,8 +828,8 @@ class ContinuousBatcher:
                                        for s in slots]).reshape(-1)
                           if slots else self.carry["tokens"][:0],
                           self.carry["done"].to(torch.int32)]
-        flat = torch.cat([p.reshape(-1).to(torch.int32)
-                          for p in parts]).cpu().tolist()
+        flat = _device_get(torch.cat([p.reshape(-1).to(torch.int32)
+                                      for p in parts])).tolist()
         t_h = time.perf_counter()
         self.windows += 1
         harvested = [flat[i * S:(i + 1) * S] for i in range(steps)]
@@ -723,6 +845,214 @@ class ContinuousBatcher:
                     continue        # slot joined after this step
                 self._note_token(m, harvested[i][slot], slot)
         self._retire(done_h, t_h)
+
+    # ----------------------------------------------------- offload tier
+    def _stage_to_offload(self, victims) -> None:
+        """The cache's ``evict_hook``: the refcount GC is about to free a
+        burst of index-only pages; their bytes cross to the host tier in
+        ONE device-to-host copy, and each entry keeps a copy of its own
+        page (not a view holding the whole burst).  The copies are
+        pageable: on an H100's host, pinned page buffers cost more in
+        allocation than their faster copies back saved."""
+        staged = export_pages(self.pools, [p for _, _, p in victims])
+        for i, (h, parent, _) in enumerate(victims):
+            self.offload.put(h, parent, {
+                k: v[:, i:i + 1].clone() for k, v in staged.items()})
+
+    def _fault_in(self, prompt) -> None:
+        """Bring a prompt's offloaded prefix pages back: walk the
+        cumulative hash chain, and for each hash not resident but staged
+        in the host tier adopt a fresh page into the prefix index and
+        scatter the staged bytes into it, bit-identical to a page that
+        never left.  Stops at the first hash neither tier holds.  The
+        walked chain is protected from the GC the adoption may run."""
+        cache = self.cache
+        hashes = prompt_page_hashes(prompt, cache.config.page_size)
+        chain: set = set()
+        prev = None
+        batch: List[Any] = []
+        for h in hashes:
+            chain.add(h)
+            if h in cache._prefix:
+                prev = h
+                continue
+            if h not in self.offload:
+                self.offload.stats["misses"] += 1
+                break
+            try:
+                page = cache.adopt_prefix_page(h, prev, protect=chain)
+            except CacheOutOfPages:
+                break               # the pool is full of live pages
+            entry = self.offload.take(h)
+            batch.append((page, entry["data"]))
+            prev = h
+        if not batch:
+            return
+        # one import for the chain, padded to a power-of-two page count
+        # by repeating the last page (same bytes at a duplicate index).
+        # The buckets are JAX's, where they bound the jitted scatter's
+        # compiles; the eager scatter here compiles nothing, and the
+        # padding is a copy on the device.  The pages cross to the device
+        # one entry at a time and are joined there: no host-side join
+        dev = self.pools["k"].device
+        pages = [p for p, _ in batch]
+        staged = {k: torch.cat([d[k].to(dev, non_blocking=True)
+                                for _, d in batch], dim=1)
+                  for k in batch[0][1]}
+        bucket = min(1 << (len(pages) - 1).bit_length(),
+                     cache.config.pages_per_seq)
+        if bucket > len(pages):
+            pad = bucket - len(pages)
+            pages = pages + [pages[-1]] * pad
+            staged = {k: torch.cat([v] + [v[:, -1:]] * pad, dim=1)
+                      for k, v in staged.items()}
+        import_pages(self.pools, staged, pages)
+
+    # ------------------------------------------------- handoff (fleet)
+    def handoff_ready(self) -> List[Any]:
+        """Uids exportable now: prompt ingested, first token committed to
+        the host stream, stream unfinished."""
+        return [m["req"].uid for s, m in self._meta.items()
+                if m["finished"] is None and m["tokens"]
+                and s not in self._first_tok]
+
+    def export_request(self, uid: Any) -> Optional[HandoffPacket]:
+        """Package an in-flight request's decode state for another
+        replica: stage every KV page written so far on the host and
+        release the slot (no :class:`Completion`: ownership moves).
+        ``None`` when ``uid`` is not exportable (:meth:`handoff_ready`).
+        The caller journals the transfer first: after this call the pages
+        live only in the packet."""
+        slot = next((s for s, m in self._meta.items()
+                     if m["req"].uid == uid), None)
+        if slot is None:
+            return None
+        m = self._meta[slot]
+        if m["finished"] is not None or not m["tokens"] \
+                or slot in self._first_tok:
+            return None
+        req = m["req"]
+        cfg = self.cache.config
+        # the host length mirror == positions written on the device:
+        # prompt + committed - 1 (the destination writes the newest)
+        written = int(self.cache.lengths[slot])
+        n_pages = cfg.tokens_to_pages(written)
+        # exactly the written pages: JAX pads to a power-of-two count so
+        # its jitted scatter compiles once a bucket; the eager gather and
+        # scatter here compile nothing, and padding would only copy more
+        pages = list(self.cache._slot_pages[slot][:n_pages])
+        staged = export_pages(self.pools, pages)
+        packet = HandoffPacket(
+            req=req, tokens=list(m["tokens"]), staged=staged,
+            n_pages=n_pages, written=written,
+            wire_bytes=staged_nbytes(staged),
+            compat_key=self.cache.compat_key(),
+            hashes=(prompt_page_hashes(req.prompt, cfg.page_size)
+                    if self.prefix_cache else None))
+        del self._meta[slot]
+        self.cache.retire(slot)
+        self.carry["done"][slot] = True
+        return packet
+
+    def import_request(self, packet: HandoffPacket) -> bool:
+        """Adopt a :class:`HandoffPacket` into a free slot: pages for the
+        whole prompt + budget, the staged bytes scattered into the leading
+        ``n_pages`` of them, and decoding resumed from the packet's last
+        token at the position the source left off (no recompute).
+        ``False`` on backpressure (no free slot or pages): the packet
+        stays valid."""
+        if packet.compat_key != self.cache.compat_key():
+            raise ValueError(
+                f"handoff across incompatible cache families: packet "
+                f"{packet.compat_key} vs pool "
+                f"{self.cache.compat_key()}: pages cannot move "
+                "between different page layouts")
+        req = packet.req
+        plen = len(req.prompt)
+        if plen > self.max_prompt_len:
+            raise ValueError(
+                f"prompt of {plen} tokens exceeds max_prompt_len "
+                f"{self.max_prompt_len}")
+        cfg = self.cache.config
+        slot = next((s for s in range(cfg.max_seqs)
+                     if s not in self._meta
+                     and s not in self._prefilling), None)
+        if slot is None:
+            return False
+        try:
+            self.cache.admit(slot, plen + req.max_new_tokens)
+        except CacheOutOfPages:
+            return False
+        pages = list(self.cache._slot_pages[slot][:packet.n_pages])
+        n_tok = len(packet.tokens)
+        last = int(packet.tokens[-1])
+        budget_left = req.max_new_tokens - n_tok
+        finished = None
+        if self.eos_id is not None and last == self.eos_id:
+            finished = "eos"
+        elif budget_left <= 0:
+            finished = "budget"
+        self.cache.lengths[slot] = packet.written
+        skey = self._slot_key(req)
+        self._n_admits += 1
+        _import_state(self.pools, self.carry, packet.staged, pages, slot,
+                     last, packet.written, budget_left, finished is not None,
+                     skey)
+        now = time.perf_counter()
+        self._meta[slot] = {
+            "req": req, "tokens": list(packet.tokens),
+            # TTFT happened on the source; the fleet log keeps the times
+            "t_admit": now, "t_first": now, "finished": finished,
+            "since_step": self.steps,
+        }
+        if self.prefix_cache and packet.hashes:
+            # the pages keep the hashes they were registered under
+            self.cache.register_prefix(slot, req.prompt,
+                                       hashes=packet.hashes)
+        return True
+
+    # ------------------------------------------------------------ cancel
+    def cancel(self, uid: Any) -> Optional[List[int]]:
+        """Evict an in-flight request: release its slot and page
+        references and freeze its carry row.  Returns the tokens harvested
+        so far (``[]`` while it is still prefilling), or ``None`` when
+        ``uid`` is not in flight; no :class:`Completion` is recorded, so
+        the uid can be served again.  Tokens an unharvested window made
+        are dropped: harvest is the commit point."""
+        for slot, m in self._meta.items():
+            if m["req"].uid != uid:
+                continue
+            self._first_tok.pop(slot, None)
+            tokens = list(m["tokens"])
+            del self._meta[slot]
+            self.cache.retire(slot)
+            self.carry["done"][slot] = True
+            return tokens
+        for slot, st in self._prefilling.items():
+            if st["req"].uid != uid:
+                continue
+            del self._prefilling[slot]
+            self.cache.retire(slot)
+            return []
+        return None
+
+    # -------------------------------------------------------------- pump
+    def pump(self, queue) -> bool:
+        """ONE scheduler turn over an external ``collections.deque`` of
+        :class:`Request`: admit while slots and pages allow (admitted
+        entries are popped), then run one harvest window.  Returns True
+        while the batcher holds or awaits work: the fleet router's unit
+        of interleaving."""
+        self._admit(queue)
+        if not self._meta and not self._prefilling:
+            if queue:
+                raise CacheOutOfPages(
+                    "no slot can ever admit the next request "
+                    f"(prompt+budget needs more pages than the "
+                    f"pool holds: {queue[0].uid!r})")
+            return False
+        self._decode_window()
+        return bool(self._meta or self._prefilling or queue)
 
     # --------------------------------------------------------------- run
     def run(self, requests: Sequence[Request]) -> Dict[Any, Completion]:

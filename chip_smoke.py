@@ -113,6 +113,16 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
              top-two margin is under 1e-4 of the logit scale); the
              replayed decode and verify steps give the eager steps'
              tokens, greedy and sampled, with equal launch counts.
+   fleet-parity — the fleet tier (``apex_tpu_torch.fleet``) at fp32, 2
+             layers at the flagship's width, one ``decode_fns`` shared
+             by every replica: a 12-request routing trace through two
+             2-slot replicas, then a second trace over the warmed
+             replicas with zero new decode-graph captures; the kill
+             drill, prefill/decode roles with matching slots and a
+             journal restart on fresh batchers each give the unkilled
+             unified streams token for token; every handed-off page and
+             every offloaded page faulted back byte-equal; captures ==
+             pools x step shapes.
 4. serve   — the full flagship GPT (12 layers, bf16): 8 requests with
              prompts of 32..512 tokens, 32 greedy tokens each, through
              ``decode_fns`` + ``ContinuousBatcher`` (the decode step
@@ -146,6 +156,20 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
              from the int4 ``ModelDraftSource``, each greedy replayed,
              greedy eager and sampled: tokens committed per verify step,
              ms per committed token, share equal to plain.
+   fleet   — the same model served by a fleet (JAX's bench fleet at full
+             width: pages of 16, chunks of 256, 2 replicas x 2 slots):
+             two 64-request cohort traces under affinity, least-loaded
+             and round-robin routing (interactive TTFT p50/p99, prefix
+             hits, prefill chunks); the kill drill (no request lost, any
+             divergence from the unkilled run under a top-two margin of
+             1% of the logit scale); the mixed trace through unified and
+             disaggregated topologies (a 4-slot decode replica; a
+             monolithic-prefill prefill replica): TTFT/ITL, handoffs,
+             pages, wire bytes, ms per export and import and their GB/s;
+             the host offload tier against recompute (wave-2 ms and
+             chunks); a journal restart and the journal's share of the
+             serving wall; decode-graph captures, replays and memory per
+             replica; launches of rows 1, 2, 3 and 8.
    fused-softmax — ``FusedScaleMaskSoftmax`` (padding mask and causal)
              forward and backward at (8, 8, 1024, 1024) bf16 through the
              softmax kernel, against its plain version.
@@ -7832,6 +7856,735 @@ def phase_rn50_train(dev) -> dict:
     return dict(ms=ms, images_per_s=ips, mfu=util, peak_gib=peak)
 
 
+# ------------------------------------------------------------------ fleet
+#: the fleet's geometry (JAX's bench.py child_fleet at the flagship's
+#: width): pages of 16, chunks of 256, a 768-token prompt window (a
+#: 704-token prompt + 32 new tokens - 1 of replay headroom fit it)
+FLEET_PAGE, FLEET_CHUNK, FLEET_MAXP = 16, 256, 768
+#: the routing traces: JAX's ratios with prompts 8x (4 cohorts of a
+#: 512-token system prompt; two 2-slot pools hold about 2 of them)
+FLEET_ROUTE = dict(n_requests=64, mean_gap=0.5, burstiness=6.0,
+                   prompt_len=(544, 704), new_tokens=(16, 32),
+                   interactive_frac=0.5, cohorts=4, cohort_frac=0.9,
+                   prefix_len=512)
+FLEET_ROUTE_SEEDS = (11, 6)
+FLEET_KILL_AFTER = 6
+#: the disaggregation trace (JAX's make_mixed_trace shape, prompts 8x)
+FLEET_MIXED = dict(n_requests=48, seed=21, mean_gap=2.0, burstiness=6.0,
+                   long_frac=0.6, short_prompt=(64, 128),
+                   long_prompt=(320, 512), new_tokens=(16, 28),
+                   session_frac=0.25, idle_gap=16.0)
+#: the offload working set: 256-token prompts twice one replica's pool,
+#: revisited after churn with a 16-token follow-up (a bare revisit would
+#: recompute its one 256-token chunk either way: the last prompt token is
+#: never matched)
+FLEET_OFFLOAD_PROMPT, FLEET_OFFLOAD_SUFFIX = 256, 16
+#: the journal drill: fleet steps served before the router is abandoned
+FLEET_JOURNAL_STEPS = 40
+#: the quantized fleets (rows 10-11 and the int8-page decode under the
+#: fleet): int8 and int4 weights over int8 KV pages, the first requests of
+#: routing trace 11, unkilled and with r0 killed after a few windows
+FLEET_QUANT_REQUESTS, FLEET_QUANT_KILL_AFTER = 16, 3
+#: fleet-parity (fp32, 2 layers): a smaller trace of the same shape
+FLEET_PARITY = dict(page=16, chunk=32, maxp=128, kill_after=3,
+                    trace=dict(n_requests=12, mean_gap=0.5, burstiness=6.0,
+                               prompt_len=(40, 72), new_tokens=(6, 12),
+                               interactive_frac=0.5, cohorts=2,
+                               cohort_frac=0.9, prefix_len=32),
+                    offload_prompt=32, offload_suffix=8, journal_steps=6)
+#: PCIe 5.0 x16, one direction (the published rate of the H100 SXM's link
+#: to its host): what a handoff's staged bytes cross twice
+HOST_LINK_BYTES_PER_S = 64e9
+
+
+class FleetPools:
+    """Replicas over pools made once per name: every fleet a phase builds
+    reuses them, so each replica's decode graph is captured once
+    (``StepGraph`` keys its graphs by pools)."""
+
+    def __init__(self, model, page: int, maxp: int, kv_dtype=None):
+        self.model, self.fns = model, None
+        self.page, self.maxp, self.kv_dtype = page, maxp, kv_dtype
+        self.pps = -(-maxp // page)
+        self.bank = {}
+
+    def config(self, slots: int = 2):
+        from apex_tpu_torch.serving import KVCacheConfig
+
+        c = self.model.config
+        return KVCacheConfig(
+            num_layers=c.num_layers, num_heads=c.num_attention_heads,
+            head_dim=c.head_dim, num_pages=1 + slots * self.pps,
+            page_size=self.page, max_seqs=slots, pages_per_seq=self.pps,
+            dtype=c.compute_dtype, kv_dtype=self.kv_dtype)
+
+    def batcher(self, name, slots=2, harvest=2, offload=None, fns=None):
+        from apex_tpu_torch.serving import (
+            ContinuousBatcher, PagedKVCache, init_pools)
+
+        fns = fns or self.fns
+        cfg = self.config(slots)
+        if (name, slots) not in self.bank:
+            self.bank[name, slots] = init_pools(cfg, self.model.device)
+        chunked = fns.chunk is not None
+        return ContinuousBatcher(
+            fns.prefill, fns.decode, PagedKVCache(cfg),
+            self.bank[name, slots], max_prompt_len=self.maxp,
+            harvest_every=harvest, chunk_fn=fns.chunk,
+            prefill_chunk=fns.prefill_chunk, prefix_cache=chunked,
+            offload=offload)
+
+    def replicas(self, shapes=((2, 2), (2, 2)), fns=(None, None)):
+        from apex_tpu_torch.fleet import Replica
+
+        return [Replica(f"r{i}", self.batcher(f"r{i}", s, h, fns=f))
+                for i, ((s, h), f) in enumerate(zip(shapes, fns))]
+
+    def graph_mib(self, *others) -> dict:
+        """MiB the decode graphs (of these fns and ``others``) hold a
+        replica's pools, beside the pools'."""
+        from apex_tpu_torch.serving.graphs import StepGraph
+
+        held = {}
+        for f in (self.fns,) + others:
+            for key, n in f.decode.graph.graph_bytes().items():
+                held[key] = held.get(key, 0) + n
+        out = {}
+        for key, pools in self.bank.items():
+            pool_b = sum(t.numel() * t.element_size()
+                         for t in pools.values())
+            out[f"{key[0]}/{key[1]} slots"] = (
+                held.get(StepGraph.pools_key(pools), 0) / 2**20,
+                pool_b / 2**20)
+        return out
+
+
+def timed_moves(router, record):
+    """Wrap every replica's ``export_request`` / ``import_request`` to
+    time each call between synchronisations (``record`` gets
+    ``(kind, seconds, wire bytes)``)."""
+    for r in router.replicas:
+        b = r.batcher
+        real_export, real_import = b.export_request, b.import_request
+
+        def export(uid, real=real_export):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pk = real(uid)
+            torch.cuda.synchronize()
+            if pk is not None:
+                record.append(("export", time.perf_counter() - t0,
+                               pk.wire_bytes))
+            return pk
+
+        def import_(pk, real=real_import):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ok = real(pk)
+            torch.cuda.synchronize()
+            if ok:
+                record.append(("import", time.perf_counter() - t0,
+                               pk.wire_bytes))
+            return ok
+
+        b.export_request, b.import_request = export, import_
+
+
+def fleet_healthy(label, router, killed=()) -> None:
+    """Fail unless every pump of ``router``'s replicas ran: the router
+    counts a pump that raised (a failed capture or replay, a launch
+    error, an out-of-memory) as a replica fault, quarantines the replica
+    after a few and serves its work elsewhere, so a fleet that completes
+    every request can still hide a failure.  Only the replicas named in
+    ``killed`` may be dead, and only by their kill."""
+    st = router.stats
+    bad = [r for r in router.replicas
+           if r.faults or r.quarantined or r.alive == (r.name in killed)]
+    if st["replica_faults"] or st["quarantined"] or bad:
+        fail(f"{label}: {st['replica_faults']} replica faults, "
+             f"{st['quarantined']} quarantined; " + "; ".join(
+                 f"{r.name} alive {r.alive}, quarantined {r.quarantined}, "
+                 f"last error {r.last_error}" for r in router.replicas))
+
+
+def checked_moves(router, moved):
+    """Wrap the replicas' export and import to hold every handed-off page
+    byte-equal to the source pool's before the export, and to the packet
+    in the destination's pool after the import."""
+    for r in router.replicas:
+        b = r.batcher
+        real_export, real_import = b.export_request, b.import_request
+
+        def export(uid, b=b, real=real_export):
+            slot = next(s for s, m in b._meta.items()
+                        if m["req"].uid == uid)
+            pages = list(b.cache._slot_pages[slot])
+            before = {k: v[:, pages].cpu() for k, v in b.pools.items()}
+            pk = real(uid)
+            n = pk.n_pages
+            for k, v in pk.staged.items():
+                if not torch.equal(v[:, :n].view(torch.int32),
+                                   before[k][:, :n].view(torch.int32)):
+                    fail(f"fleet-parity: {uid}'s exported {k} pages are "
+                         "not the source pool's bytes")
+            moved.append(n)
+            return pk
+
+        def import_(pk, b=b, real=real_import):
+            if not real(pk):
+                return False
+            slot = next(s for s, m in b._meta.items()
+                        if m["req"].uid == pk.req.uid)
+            pages = b.cache._slot_pages[slot][:pk.n_pages]
+            for k, v in b.pools.items():
+                if not torch.equal(v[:, pages].cpu().view(torch.int32),
+                                   pk.staged[k][:, :pk.n_pages]
+                                   .view(torch.int32)):
+                    fail(f"fleet-parity: {pk.req.uid}'s imported {k} pages "
+                         "are not the packet's bytes")
+            return True
+
+        b.export_request, b.import_request = export, import_
+
+
+def fleet_tokens(router) -> dict:
+    return {u: c.tokens for u, c in sorted(router.completions.items())}
+
+
+def replay_partway(router, trace, steps: int) -> int:
+    """``load_gen.replay``'s logical clock, stopped after ``steps`` fleet
+    steps (the process dies there).  Returns how many arrivals it
+    submitted."""
+    sim, i = 0.0, 0
+    for _ in range(steps):
+        while i < len(trace) and trace[i].t <= sim:
+            router.submit(trace[i].request, trace[i].slo)
+            i += 1
+        if i < len(trace) and router.pending == 0:
+            sim = max(sim, trace[i].t)
+            continue
+        router.step()
+        sim += 1.0
+    return i
+
+
+def journal_restart(label, bank, trace, steps, path):
+    """Serve ``trace`` partway under a journal at ``path``, abandon the
+    router, recover the journal and resume on fresh batchers over the
+    same weights; the arrivals the dead process never saw come after the
+    restart.  Returns ``(router, resume counts, journal write s, serving
+    wall s)``."""
+    from apex_tpu_torch.fleet import (
+        FleetPolicy, FleetRouter, RequestJournal, recover_journal)
+
+    jr = RequestJournal(path)
+    router = FleetRouter(bank.replicas(), FleetPolicy(), journal=jr)
+    t0 = time.perf_counter()
+    seen = replay_partway(router, trace, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    jr.close()
+    fleet_healthy(f"{label} (before the restart)", router)
+    if router.pending == 0:
+        fail("fleet journal drill: nothing was in flight when the router "
+             "was abandoned")
+    write_s = jr.stats["write_s"]
+    del router
+    rec = recover_journal(path)
+    if rec.corrupt or rec.gapped:
+        fail(f"fleet journal drill: {rec.corrupt} corrupt and {rec.gapped} "
+             "gapped records after a clean stop")
+    jr2 = RequestJournal(path)
+    restarted = FleetRouter(bank.replicas(), FleetPolicy(), journal=jr2)
+    out = restarted.resume_from_journal(rec)
+    t0 = time.perf_counter()
+    for it in trace[seen:]:
+        restarted.submit(it.request, it.slo)
+    restarted.drain()
+    torch.cuda.synchronize()
+    wall += time.perf_counter() - t0
+    jr2.close()
+    fleet_healthy(f"{label} (after the restart)", restarted)
+    return restarted, out, write_s + jr2.stats["write_s"], wall
+
+
+def offload_waves(bank, prompts, suffix, offload_pages):
+    """A working set served once, then revisited with a follow-up suffix,
+    on one replica with and without the host offload tier.  Returns
+    ``{mode: (wave-2 s, wave-2 chunks, tokens, batcher, pool, split)}``:
+    ``split`` is the wave's host seconds and calls in the eviction hook
+    (``"stage"``: the burst's gather, its copy to the host and the
+    entries) and in ``_fault_in`` (``"fault"``, less the staging of the
+    evictions its adoptions run), each call timed on the host clock as
+    the serving loop pays it (no synchronisation added)."""
+    from apex_tpu_torch.serving import HostOffloadPool, Request
+
+    out = {}
+    for mode in ("offload", "recompute"):
+        off = HostOffloadPool(offload_pages) if mode == "offload" else None
+        b = bank.batcher("o0", offload=off)
+        split = {"stage": [0.0, 0], "fault": [0.0, 0]}
+        active = []
+
+        def timed_call(kind, fn):
+            def call(arg):
+                t0 = time.perf_counter()
+                active.append(kind)
+                try:
+                    fn(arg)
+                finally:
+                    active.pop()
+                dt = time.perf_counter() - t0
+                split[kind][0] += dt
+                split[kind][1] += 1
+                if active:              # nested: the caller's time less it
+                    split[active[-1]][0] -= dt
+            return call
+
+        if off is not None:
+            b.cache.evict_hook = timed_call("stage", b.cache.evict_hook)
+            b._fault_in = timed_call("fault", b._fault_in)
+        for i, p in enumerate(prompts):
+            b.run([Request(uid=f"w1_{i}", prompt=p, max_new_tokens=4,
+                           seed=31 + i)])
+        c0 = b.prefill_chunks
+        for v in split.values():
+            v[:] = [0.0, 0]             # wave 2 only
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, p in enumerate(prompts):
+            b.run([Request(uid=f"w2_{i}", prompt=p + suffix[i],
+                           max_new_tokens=4, seed=71 + i)])
+        torch.cuda.synchronize()
+        out[mode] = (time.perf_counter() - t0, b.prefill_chunks - c0,
+                     {u: c.tokens for u, c in b.completions.items()
+                      if u.startswith("w2_")}, b, off, split)
+    return out
+
+
+def phase_fleet_parity(dev) -> dict:
+    """The fleet at fp32, 2 layers at the flagship's width, one
+    ``decode_fns`` shared by every replica: a 12-request routing trace
+    through two 2-slot replicas, then a second trace over the warmed
+    replicas with zero new decode captures; the kill drill (r0 dies after
+    3 windows), prefill/decode roles with matching slots, and a journal
+    restart on fresh batchers, each token for token equal to the unkilled
+    unified run; every handed-off page byte-equal to its source, and
+    offloaded pages faulted back byte-equal to the pages that left.  The
+    decode graph's captures equal pools x step shapes.  Returns the
+    launches."""
+    import tempfile
+
+    from apex_tpu_torch.fleet import FleetPolicy, FleetRouter
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.serving import (
+        HostOffloadPool, Request, export_pages, prompt_page_hashes)
+    from apex_tpu_torch.tools.load_gen import make_trace, replay
+
+    P = FLEET_PARITY
+    cfg = GPTConfig(**dict(FLAGSHIP, num_layers=2),
+                    compute_dtype=torch.float32)
+    model = GPTModel(cfg, device=dev, seed=5)
+    log("[fleet-parity] flagship width, 2 layers, fp32: 2 replicas x 2 "
+        f"slots, pages {P['page']}, chunks {P['chunk']}")
+    bank = FleetPools(model, P["page"], P["maxp"])
+    fns = bank.fns = model.decode_fns(bank.config(),
+                                      max_prompt_len=P["maxp"],
+                                      prefill_chunk=P["chunk"])
+    graph = fns.decode.graph
+    trace = make_trace(seed=11, vocab_size=cfg.vocab_size, **P["trace"])
+    reset_launch_counts()
+    ref = FleetRouter(bank.replicas(), FleetPolicy())
+    replay(ref, trace)
+    fleet_healthy("fleet-parity routing", ref)
+    want = fleet_tokens(ref)
+    if len(want) != len(trace):
+        fail(f"fleet-parity: {len(want)} of {len(trace)} requests done")
+    caps = graph.captures
+    for r in ref.replicas:
+        r.batcher.completions.clear()
+    again = FleetRouter(ref.replicas, FleetPolicy())
+    replay(again, make_trace(seed=6, vocab_size=cfg.vocab_size,
+                             **P["trace"]))
+    fleet_healthy("fleet-parity second trace", again)
+    if graph.captures != caps or len(again.completions) != len(trace):
+        fail(f"fleet-parity: a second trace over warmed replicas made "
+             f"{graph.captures - caps} new captures")
+    log(f"  routing trace: {len(want)} requests, affinity-routed "
+        f"{ref.stats['affinity_routed']}; a second trace over the warmed "
+        f"replicas: 0 new captures ({graph.captures} so far)")
+    drill = FleetRouter(bank.replicas(), FleetPolicy())
+    drill.replicas[0].fail_after(P["kill_after"])
+    replay(drill, trace)
+    fleet_healthy("fleet-parity kill drill", drill, killed=("r0",))
+    if fleet_tokens(drill) != want or drill.stats["migrations"] < 1:
+        fail(f"fleet-parity: the kill drill ({drill.stats['migrations']} "
+             "migrations) changed a stream")
+    moved = []
+    dis = FleetRouter(bank.replicas(), FleetPolicy(roles=("prefill",
+                                                          "decode")))
+    checked_moves(dis, moved)
+    replay(dis, trace)
+    fleet_healthy("fleet-parity disaggregated", dis)
+    if fleet_tokens(dis) != want or dis.stats["handoffs"] < len(want) \
+            or any(c.replays for c in dis.completions.values()):
+        fail(f"fleet-parity: disaggregated streams != unified "
+             f"({dis.stats['handoffs']} handoffs)")
+    with tempfile.TemporaryDirectory() as tmp:
+        restarted, res, _, _ = journal_restart(
+            "fleet-parity journal", bank, trace, P["journal_steps"],
+            f"{tmp}/journal.jsonl")
+    if fleet_tokens(restarted) != want or res["resumed"] < 1:
+        fail(f"fleet-parity: the journal restart ({res}) changed a stream")
+    log(f"  kill drill: {drill.stats['migrations']} migrations, streams "
+        f"identical; disaggregated: {dis.stats['handoffs']} handoffs of "
+        f"{sum(moved)} pages, byte-equal, streams identical; journal "
+        f"restart: {res['resumed']} resumed, {res['completed']} completed "
+        "from the journal, streams identical")
+    # offload: pages faulted back are the pages that left
+    rng = np.random.RandomState(23)
+    pps = bank.pps
+    n = 2 * 2 * pps // (P["offload_prompt"] // P["page"])
+    prompts = [rng.randint(1, cfg.vocab_size,
+                           P["offload_prompt"]).tolist() for _ in range(n)]
+    suffix = [rng.randint(1, cfg.vocab_size,
+                          P["offload_suffix"]).tolist() for _ in range(n)]
+    b = bank.batcher("o0", offload=HostOffloadPool(4 * 2 * pps))
+    b.run([Request(uid="a0", prompt=prompts[0], max_new_tokens=4)])
+    hashes = prompt_page_hashes(prompts[0], P["page"])
+    before = export_pages(b.pools, [b.cache._prefix[h]["page"]
+                                    for h in hashes])
+    for i, p in enumerate(prompts[1:]):
+        b.run([Request(uid=f"c{i}", prompt=p, max_new_tokens=4)])
+    if all(h in b.cache._prefix for h in hashes):
+        fail("fleet-parity: the churn evicted none of the first prompt's "
+             "pages")
+    b.run([Request(uid="a1", prompt=prompts[0] + suffix[0],
+                   max_new_tokens=4)])
+    back = export_pages(b.pools, [b.cache._prefix[h]["page"]
+                                  for h in hashes])
+    for k in before:
+        if not torch.equal(back[k].view(torch.int32),
+                           before[k].view(torch.int32)):
+            fail(f"fleet-parity: faulted-in {k} pages differ from the "
+                 "pages that left")
+    waves = offload_waves(bank, prompts, suffix, 4 * 2 * pps)
+    if waves["offload"][2] != waves["recompute"][2]:
+        fail("fleet-parity: offloaded and recomputed revisits differ")
+    log(f"  offload: {b.offload.stats['faulted']} pages faulted back "
+        "byte-equal; wave 2 "
+        + ", ".join(f"{m} {w[1]} chunks" for m, w in waves.items())
+        + ", the same streams")
+    shapes = len(bank.bank)
+    if graph.captures != shapes or graph.replays <= 0:
+        fail(f"fleet-parity: {graph.captures} decode captures for "
+             f"{shapes} pools x 1 step shape ({graph.replays} replays)")
+    counts = launch_counts()
+    log(f"  decode graph: {graph.captures} captures (= {shapes} pools x 1 "
+        f"step shape), {graph.replays} replays; launches {counts}")
+    del model, bank, fns, ref, again, drill, dis, restarted, b, waves
+    torch.cuda.empty_cache()
+    return counts
+
+
+def pct(xs, q):
+    s = sorted(xs)
+    return s[min(len(s) - 1, int(round(q * (len(s) - 1))))]
+
+
+def phase_fleet(model, card: str) -> dict:
+    """The flagship (phase 4's 12-layer bf16 model) served by a fleet on
+    one card, one ``decode_fns(prefill_chunk=256)`` for every replica:
+    JAX's bench fleet at full width.  Routing: two 64-request traces
+    (seeds 11 and 6) through two 2-slot replicas under affinity,
+    least-loaded and round-robin routing (interactive TTFT p50/p99, prefix
+    hits, prefill chunks); the kill drill (r0 dies after 6 windows of
+    trace 11: no request lost, every divergence from the unkilled run
+    under the 1% margin rule); the mixed trace through unified and
+    disaggregated topologies (the decode replica 4 slots, harvest every
+    8; and a monolithic-prefill prefill replica): TTFT/ITL, handoffs,
+    pages, wire bytes, ms per export and import; the offload tier against
+    recompute; a journal restart and the journal's share of the serving
+    wall.  Returns the phase's launches."""
+    import tempfile
+
+    from apex_tpu_torch.fleet import FleetPolicy, FleetRouter
+    from apex_tpu_torch.models.gpt import quantize_gpt_weights
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.serving import Request
+    from apex_tpu_torch.serving.graphs import count_delta
+    from apex_tpu_torch.tools.load_gen import (
+        make_mixed_trace, make_trace, replay, summarize_trace)
+
+    cfg = model.config
+    bank = FleetPools(model, FLEET_PAGE, FLEET_MAXP)
+    fns = bank.fns = model.decode_fns(bank.config(),
+                                      max_prompt_len=FLEET_MAXP,
+                                      prefill_chunk=FLEET_CHUNK)
+    mono = model.decode_fns(bank.config(), max_prompt_len=FLEET_MAXP)
+    graph = fns.decode.graph
+    log(f"[fleet] flagship GPT, 12 layers, bf16, pages {FLEET_PAGE}, "
+        f"chunks {FLEET_CHUNK}, window {FLEET_MAXP}, 2 replicas x 2 slots "
+        f"({bank.config().num_pages} pages each); {card}")
+    traces = [make_trace(seed=s, vocab_size=cfg.vocab_size, **FLEET_ROUTE)
+              for s in FLEET_ROUTE_SEEDS]
+    # warm-up: each replica's decode capture and the chunk step's first
+    # launches, outside the timed traces
+    for r in bank.replicas():
+        r.batcher.run([Request(uid="warm",
+                               prompt=list(range(1, FLEET_MAXP // 2)),
+                               max_new_tokens=4)])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    refs = {}
+    for routing in ("affinity", "least_loaded", "round_robin"):
+        ttft, chunks, hits, t0 = [], 0, 0, time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        for seed, trace in zip(FLEET_ROUTE_SEEDS, traces):
+            router = FleetRouter(bank.replicas(),
+                                 FleetPolicy(routing=routing))
+            recs = replay(router, trace)
+            fleet_healthy(f"fleet {routing} trace {seed}", router)
+            s = summarize_trace(recs)
+            if s["completed"] != len(trace) or s["lost"]:
+                fail(f"fleet {routing}: {s['completed']} of {len(trace)} "
+                     f"done, {s['lost']} lost")
+            ttft += [r["ttft_s"] for r in recs if r["slo"] == "interactive"
+                     and r.get("ttft_s") is not None]
+            chunks += sum(r.batcher.prefill_chunks for r in router.replicas)
+            hits += sum(r.batcher.prefix_stats["hits"]
+                        for r in router.replicas)
+            refs[routing, seed] = router
+        wall = time.perf_counter() - t0
+        log(f"  {routing}: interactive TTFT p50 {1e3 * pct(ttft, .5):.1f} "
+            f"ms, p99 {1e3 * pct(ttft, .99):.1f} ms ({len(ttft)} requests); "
+            f"{hits} prefix hits, {chunks} prefill chunks; wall "
+            f"{wall:.2f} s; peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+            f" GiB [{card}]")
+    ref = refs["affinity", FLEET_ROUTE_SEEDS[0]]
+    prompts = {it.request.uid: it.request.prompt for it in traces[0]}
+    uids = sorted(prompts)
+    # the gates' full recomputes launch kernels too: kept apart from the
+    # fleet's own launches
+    gate_launches = {}
+
+    def gated(fn, *args):
+        before = launch_counts()
+        out = fn(*args)
+        for name, n in count_delta(before, launch_counts()).items():
+            gate_launches[name] = gate_launches.get(name, 0) + n
+        return out
+
+    def margin_check(label, router):
+        got = fleet_tokens(router)
+        if sorted(got) != uids:
+            fail(f"fleet {label}: {len(got)} of {len(uids)} requests done")
+        return gated(same_greedy, f"fleet {label}", model,
+                     [prompts[u] for u in uids], [got[u] for u in uids],
+                     [fleet_tokens(ref)[u] for u in uids])
+
+    drill = FleetRouter(bank.replicas(), FleetPolicy())
+    drill.replicas[0].fail_after(FLEET_KILL_AFTER)
+    s = summarize_trace(replay(drill, traces[0]))
+    fleet_healthy("fleet kill drill", drill, killed=("r0",))
+    if s["lost"] or drill.stats["migrations"] < 1:
+        fail(f"fleet kill drill: {s['lost']} lost, "
+             f"{drill.stats['migrations']} migrations")
+    n = margin_check("kill drill", drill)
+    log(f"  kill drill: r0 dead after {FLEET_KILL_AFTER} windows, "
+        f"{drill.stats['migrations']} migrated, 0 lost, {s['completed']} "
+        f"completed; {n} streams diverge from the unkilled run, each under "
+        "the 1% margin rule")
+    # the mixed trace: unified against disaggregated, each with chunked
+    # prefill and with monolithic prefill (the prefill-role replica has no
+    # decode step to stall, so it ingests whole prompts: the mid rung)
+    mixed = make_mixed_trace(vocab_size=cfg.vocab_size, **FLEET_MIXED)
+    for shapes, f in ((((2, 2), (4, 8)), (None, None)),
+                      (((2, 2), (2, 2)), (mono, mono))):
+        for r in bank.replicas(shapes, f):
+            r.batcher.run([Request(uid="warm",
+                                   prompt=list(range(1, FLEET_MAXP // 16)),
+                                   max_new_tokens=4)])
+    topos = {"unified_2r": (((2, 2), (2, 2)), (None, None), None),
+             "disagg_2r": (((2, 2), (4, 8)), (None, None),
+                           ("prefill", "decode")),
+             "unified_2r_mono": (((2, 2), (2, 2)), (mono, mono), None),
+             "disagg_2r_mono": (((2, 2), (4, 8)), (mono, None),
+                                ("prefill", "decode"))}
+    mixed_runs = {}
+    for name, (shapes, f, roles) in topos.items():
+        moves = []
+        router = FleetRouter(bank.replicas(shapes, f),
+                             FleetPolicy(roles=roles))
+        timed_moves(router, moves)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        recs = replay(router, mixed)
+        wall = time.perf_counter() - t0
+        fleet_healthy(f"fleet {name}", router)
+        s = summarize_trace(recs)
+        if s["completed"] != len(mixed) or s["lost"]:
+            fail(f"fleet {name}: {s['completed']} of {len(mixed)} done")
+        inter = [r for r in recs if r["slo"] == "interactive"]
+        tt = [r["ttft_s"] for r in inter if r.get("ttft_s") is not None]
+        il = [r["itl_ms"] for r in inter if r.get("itl_ms") is not None]
+        st = router.stats
+        line = (f"  {name}: interactive TTFT p50 {1e3 * pct(tt, .5):.1f} "
+                f"p99 {1e3 * pct(tt, .99):.1f} ms, ITL p50 "
+                f"{pct(il, .5):.2f} p99 {pct(il, .99):.2f} ms; "
+                f"{st['handoffs']} handoffs, {st['handoff_pages']} pages, "
+                f"{st['handoff_bytes']} wire bytes")
+        for kind in ("export", "import"):
+            ts = [t for k, t, _ in moves if k == kind]
+            nb = sum(b for k, _, b in moves if k == kind)
+            if ts:
+                line += (f"; {kind} {1e3 * sum(ts) / len(ts):.3f} ms a "
+                         f"call, {nb / sum(ts) / 1e9:.2f} GB/s "
+                         f"({100 * nb / sum(ts) / HOST_LINK_BYTES_PER_S:.1f}"
+                         "% of PCIe 5.0 x16's 64 GB/s)")
+        log(line + f"; wall {wall:.2f} s; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+        mixed_runs[name] = router
+    mprompts = {it.request.uid: it.request.prompt for it in mixed}
+    muids = sorted(mprompts)
+    for name, base_name in (("disagg_2r", "unified_2r"),
+                            ("disagg_2r_mono", "unified_2r_mono")):
+        got = fleet_tokens(mixed_runs[name])
+        base = fleet_tokens(mixed_runs[base_name])
+        n = gated(same_greedy, f"fleet {name}", model,
+                  [mprompts[u] for u in muids], [got[u] for u in muids],
+                  [base[u] for u in muids])
+        if any(c.replays for c in mixed_runs[name].completions.values()):
+            fail(f"fleet {name}: a handed-off request was replayed")
+        log(f"  {name} vs {base_name}: {n} of {len(muids)} streams "
+            "diverge, each under the 1% margin rule (role-shaped decode "
+            "pool)")
+    # not a gate: the two prefill paths are two attention algorithms
+    # (mid_fwd over the padded prompt, paged_decode_rows chunk by chunk)
+    # that round apart in bf16
+    got = fleet_tokens(mixed_runs["unified_2r_mono"])
+    base = fleet_tokens(mixed_runs["unified_2r"])
+    apart = []
+    for u in muids:
+        if got[u] != base[u]:
+            t = next(j for j in range(len(base[u]))
+                     if j >= len(got[u]) or got[u][j] != base[u][j])
+            margin, scale = gated(greedy_margin, model,
+                                  list(mprompts[u]) + base[u][:t])
+            apart.append(margin / bf16_ulp(scale))
+    log(f"  monolithic vs chunked prefill (unified_2r_mono vs unified_2r, "
+        f"not a gate): {len(apart)} of {len(muids)} streams diverge, at "
+        "top-two margins of " + (", ".join(f"{m:.1f}" for m in
+                                           sorted(apart)) or "-")
+        + " bf16 ulps of the logit scale")
+    # the offload tier against recompute
+    rng = np.random.RandomState(23)
+    per = FLEET_OFFLOAD_PROMPT // FLEET_PAGE
+    n = 2 * (bank.config().num_pages - 1) // per
+    prompts_w = [rng.randint(1, cfg.vocab_size,
+                             FLEET_OFFLOAD_PROMPT).tolist()
+                 for _ in range(n)]
+    suffix = [rng.randint(1, cfg.vocab_size,
+                          FLEET_OFFLOAD_SUFFIX).tolist() for _ in range(n)]
+    torch.cuda.reset_peak_memory_stats()
+    waves = offload_waves(bank, prompts_w, suffix,
+                          4 * (bank.config().num_pages - 1))
+    if waves["offload"][2] != waves["recompute"][2]:
+        fail("fleet offload: faulted-in and recomputed revisits differ")
+    st = waves["offload"][4].stats
+    split = waves["offload"][5]
+    log(f"  offload: {n} prompts of {FLEET_OFFLOAD_PROMPT} tokens "
+        f"({n * per} pages, 2x a replica's {bank.config().num_pages - 1}), "
+        f"revisited with {FLEET_OFFLOAD_SUFFIX}-token follow-ups: wave 2 "
+        + "; ".join(f"{m} {1e3 * w[0]:.1f} ms, {w[1]} prefill chunks"
+                    for m, w in waves.items())
+        + f"; {st['offloaded']} pages offloaded, {st['faulted']} faulted "
+        f"back ({st['bytes_out'] / 2**20:.1f} MiB), the same streams; "
+        "offload's wave 2 on the host: "
+        + ", ".join(f"{kind} {1e3 * t:.1f} ms in {c} calls"
+                    for kind, (t, c) in split.items())
+        + f", the rest {1e3 * (waves['offload'][0] - split['stage'][0] - split['fault'][0]):.1f} ms"
+        f"; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"[{card}]")
+    # the journal: serve partway, abandon, recover and resume
+    with tempfile.TemporaryDirectory() as tmp:
+        restarted, res, write_s, wall = journal_restart(
+            "fleet journal", bank, traces[0], FLEET_JOURNAL_STEPS,
+            f"{tmp}/journal.jsonl")
+    n = margin_check("journal restart", restarted)
+    log(f"  journal restart after {FLEET_JOURNAL_STEPS} steps: "
+        f"{res['resumed']} resumed, {res['completed']} completed from the "
+        f"journal, {n} streams diverge (1% margin rule); journal writes "
+        f"{1e3 * write_s:.2f} ms of {wall:.2f} s serving = "
+        f"{100 * write_s / wall:.3f}% [{card}]")
+    # the quantized fleets: rows 10-11 and the int8-page decode under the
+    # fleet, with the kill drill
+    qtrace = traces[0][:FLEET_QUANT_REQUESTS]
+    qprompts = {it.request.uid: it.request.prompt for it in qtrace}
+    quids = sorted(qprompts)
+    qgraphs = []
+    for wd in ("int8", "int4"):
+        qmodel = quantize_gpt_weights(model, wd)
+        qbank = FleetPools(qmodel, FLEET_PAGE, FLEET_MAXP,
+                           kv_dtype=torch.int8)
+        qbank.fns = qmodel.decode_fns(qbank.config(),
+                                      max_prompt_len=FLEET_MAXP,
+                                      prefill_chunk=FLEET_CHUNK)
+        torch.cuda.reset_peak_memory_stats()
+        runs = {}
+        for label, kill in (("unkilled", None),
+                            ("kill drill", FLEET_QUANT_KILL_AFTER)):
+            router = FleetRouter(qbank.replicas(), FleetPolicy())
+            if kill is not None:
+                router.replicas[0].fail_after(kill)
+            s = summarize_trace(replay(router, qtrace))
+            fleet_healthy(f"fleet {wd} {label}", router,
+                          killed=("r0",) if kill is not None else ())
+            if s["completed"] != len(qtrace) or s["lost"]:
+                fail(f"fleet {wd} {label}: {s['completed']} of "
+                     f"{len(qtrace)} done, {s['lost']} lost")
+            runs[label] = router
+        drill = runs["kill drill"]
+        if drill.stats["migrations"] < 1:
+            fail(f"fleet {wd} kill drill: no request migrated")
+        got, base = fleet_tokens(drill), fleet_tokens(runs["unkilled"])
+        n = gated(same_greedy, f"fleet {wd} kill drill", qmodel,
+                  [qprompts[u] for u in quids], [got[u] for u in quids],
+                  [base[u] for u in quids])
+        g = qbank.fns.decode.graph
+        qgraphs.append(f"{wd} {g.captures} captures, {g.replays} replays")
+        log(f"  {wd} weights, int8 KV pages: {len(qtrace)} requests "
+            f"unkilled and with r0 dead after {FLEET_QUANT_KILL_AFTER} "
+            f"windows ({drill.stats['migrations']} migrated, 0 lost); "
+            f"{n} streams diverge from the unkilled run, each under the 1% "
+            f"margin rule; peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+            f" GiB [{card}]")
+        del qmodel, qbank, runs, drill
+    counts = {name: n - gate_launches.get(name, 0)
+              for name, n in launch_counts().items()}
+    log(f"  decode graphs across the phase: chunked {graph.captures} "
+        f"captures, {graph.replays} replays; monolithic "
+        f"{mono.decode.graph.captures} captures, "
+        f"{mono.decode.graph.replays} replays (warm-ups included: one a "
+        "replica's pools and step shape); quantized "
+        + ", ".join(qgraphs) + "; per replica "
+        + ", ".join(f"{k}: graphs {g:.1f} MiB, pools {p:.1f} MiB"
+                    for k, (g, p) in bank.graph_mib(mono).items()))
+    rows = ("ln_fwd", "short_fwd", "paged_decode", "paged_decode_rows",
+            "mid_fwd", "dequant_int8", "dequant_int4", "paged_decode_int8")
+    log("  launches of rows 1, 2, 3, 8, 10 and 11 by the fleets (replays "
+        "counted; the gates' recomputes apart): " + ", ".join(
+            f"{name} {counts.get(name, 0)}" for name in rows)
+        + "; by the gates: " + ", ".join(
+            f"{name} {gate_launches.get(name, 0)}" for name in rows))
+    for name in rows:
+        if name != "short_fwd" and counts.get(name, 0) <= 0:
+            fail(f"fleet: kernel {name} never launched")
+    return counts
+
+
 SOURCES = {
     "ln_fwd": ("cuda", "apex_tpu_torch/csrc/layer_norm.cu",
                "apex_tpu/ops/layer_norm.py:66"),
@@ -7991,6 +8744,7 @@ def main() -> None:
     timed("quant-parity", phase_quant_parity, dev)
     timed("chunked-parity", phase_chunked_parity, dev)
     timed("sample-parity", phase_sample_parity, dev)
+    timed("fleet-parity", phase_fleet_parity, dev)
     serve_counts, model, step_s = timed("serve", phase_serve, dev)
     busy = timed("profile", phase_profile, model)
     log("[serve summary] flagship decode, 4 slots (phase 4; busy share "
@@ -8004,6 +8758,7 @@ def main() -> None:
     quant_counts = timed("serve-quant", phase_serve_quant, model)
     chunked_counts = timed("serve-chunked", phase_serve_chunked, model)
     spec_counts = timed("serve-spec", phase_serve_spec, model)
+    timed("fleet", phase_fleet, model, card)
     del model
     torch.cuda.empty_cache()
     softmax_counts = timed("fused-softmax", phase_fused_softmax, dev)

@@ -288,7 +288,7 @@ def test_batcher_validation_matches_jax(models):
             (dict(draft_source=object()), "draft_source without spec_fn")):
         with pytest.raises(ValueError, match=match):
             ContinuousBatcher(*args, **kw, **bad)
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
+    with pytest.raises(ValueError, match="offload requires prefix_cache"):
         ContinuousBatcher(*args, **kw, offload=object())
     ccfg = dataclasses.replace(b.cache.config)
     with pytest.raises(ValueError, match="FMHA_DECODE_MAX_ROWS=512"):

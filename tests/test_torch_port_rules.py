@@ -459,11 +459,13 @@ def test_decode_rows_and_tree_count_under_their_own_names():
     "optimizers.fused_novograd", "optimizers.fused_adagrad",
     "optimizers.larc", "resilience.guard", "transformer.amp",
     "models.t5", "models.resnet", "utils.convnet", "parallel",
-    "parallel.sync_batchnorm", "contrib.xentropy", "examples.imagenet_amp"])
+    "parallel.sync_batchnorm", "contrib.xentropy", "examples.imagenet_amp",
+    "serving.graphs", "fleet", "fleet.router", "fleet.failover",
+    "fleet.journal", "resilience.faults", "tools.load_gen"])
 def test_new_modules_are_port_files(module):
     """The modules of the serving slice, the softmax entry point, the
-    PRNG and dropout, T5, ResNet and their helpers are in the package (so
-    the import rule above covers them)."""
+    PRNG and dropout, T5, ResNet and their helpers, and the fleet tier are
+    in the package (so the import rule above covers them)."""
     path = ROOT / "apex_tpu_torch" / (module.replace(".", "/") + ".py")
     if not path.exists():
         path = path.with_suffix("") / "__init__.py"

@@ -155,9 +155,10 @@ def test_generate_matches_jax_reference(setup):
 
 
 def test_unported_serving_options_raise(setup, jax_setup):
-    """Tensor parallelism (queue A item 9), the metrics logger and the host
-    offload tier raise naming their ROADMAP.md item; chunked prefill, the
-    prefix cache and speculation are ported and build, and so is sampling
+    """Tensor parallelism (queue A item 9) and the metrics logger raise
+    naming their ROADMAP.md item; the host offload tier is ported and, as
+    in JAX, needs the prefix cache; chunked prefill, the prefix cache and
+    speculation are ported and build, and so is sampling
     (item 3): temperature, top-k and top-p build, ``generate`` at
     temperature > 0 gives JAX's tokens for the same key, and ``sample``
     raises JAX's ValueError without a key and draws JAX's token with
@@ -176,9 +177,10 @@ def test_unported_serving_options_raise(setup, jax_setup):
     assert fns.chunk.prefill_chunk == 4 and fns.spec.speculate_k == 2
     args = (fns.prefill, fns.decode, PagedKVCache(ccfg),
             init_pools(ccfg, "cpu"))
-    for kw in (dict(logger=object()), dict(offload=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ContinuousBatcher(*args, max_prompt_len=10, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ContinuousBatcher(*args, max_prompt_len=10, logger=object())
+    with pytest.raises(ValueError, match="offload requires prefix_cache"):
+        ContinuousBatcher(*args, max_prompt_len=10, offload=object())
     kw = dict(temperature=0.5, top_k=20, top_p=0.9)
     got = tm.generate(prompts, plens, 6, page_size=PAGE,
                       key=np.asarray(jax.random.PRNGKey(11)), **kw)

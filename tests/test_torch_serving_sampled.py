@@ -261,7 +261,9 @@ def _fake_cuda():
 def test_graph_replay_counts_launches(monkeypatch):
     """Warm-up counts its launches, the capture adds none, each replay
     adds the capture's; a replay returns the static carry, which the next
-    call takes without a copy; new pools drop the old graphs."""
+    call takes without a copy; other pools get graphs of their own beside
+    the first pools' (one set a replica of a fleet), and lose them with
+    the pools."""
     monkeypatch.setattr(graphs.torch, "cuda", _fake_cuda())
     monkeypatch.setattr(torch.Tensor, "record_stream",
                         lambda self, stream: None, raising=False)
@@ -299,7 +301,14 @@ def test_graph_replay_counts_launches(monkeypatch):
     entry = next(iter(sg._graphs.values()))
     assert entry.static_args[1].tolist() == (table * 4).tolist()
     # other pools: a fresh warm-up and capture
-    sg({"k": torch.zeros(3)}, carry, table)
+    other = {"k": torch.zeros(3)}
+    sg(other, carry, table)
     assert sg.captures == 2 and len(calls) == 4
     assert launched() == {"fake_kernel": 10, "fake_other": 5}
+    # the first pools' graph stays: a replay, no capture
+    sg(pools, c1, table)
+    assert sg.captures == 2 and sg.replays == 4 and len(calls) == 4
+    assert len(sg._graphs) == 2
+    del other
+    assert len(sg._graphs) == 1
     common.reset_launch_counts()

@@ -103,8 +103,11 @@ def _listify(node: Any) -> Any:
     return node
 
 
-def _tensor(arr: np.ndarray) -> torch.Tensor:
-    """A CPU tensor with ``arr``'s values (bf16 through its bit pattern)."""
+def _tensor(arr: Any) -> torch.Tensor:
+    """A CPU tensor with ``arr``'s values (bf16 through its bit pattern;
+    a tensor, as a checkpoint restores it, is copied as it is)."""
+    if isinstance(arr, torch.Tensor):
+        return arr.detach().cpu().clone()
     arr = np.ascontiguousarray(arr)
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.int16).copy()).view(
@@ -131,7 +134,7 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     takes both)."""
     state: Dict[str, torch.Tensor] = {}
     for key, leaf in _flatten(tree):
-        arr = np.asarray(leaf)
+        arr = leaf if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
         if key[0] in STACKED:
             for i in range(arr.shape[0]):
                 state[".".join((key[0], str(i)) + key[1:])] = \
@@ -141,14 +144,18 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return state
 
 
-def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+def params_to_jax(state: Dict[str, torch.Tensor],
+                  tensors: bool = False) -> Dict[str, Any]:
     """The port's state dict -> the JAX GPT, BERT, T5 or ResNet parameter
     tree (numpy leaves, each stack's layer leaves stacked on a leading
-    dim, ResNet's stages and blocks as lists)."""
+    dim, ResNet's stages and blocks as lists).  ``tensors=True`` keeps
+    the leaves tensors on their device (stacked there), with no copy to
+    the host and no ``ml_dtypes``: the tree a checkpoint snapshots."""
     tree: Dict[str, Any] = {}
-    per_layer: Dict[Tuple[str, ...], Dict[int, np.ndarray]] = {}
+    per_layer: Dict[Tuple[str, ...], Dict[int, Any]] = {}
+    stack = torch.stack if tensors else np.stack
     for name, t in state.items():
-        arr = _array(t)
+        arr = t.detach() if tensors else _array(t)
         parts = name.split(".")
         if parts[0] in STACKED:
             per_layer.setdefault((parts[0],) + tuple(parts[2:]), {})[
@@ -166,8 +173,7 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         node = tree
         for p in key[:-1]:
             node = node.setdefault(p, {})
-        node[key[-1]] = np.stack([by_index[i]
-                                  for i in range(len(by_index))])
+        node[key[-1]] = stack([by_index[i] for i in range(len(by_index))])
     return tree
 
 
@@ -205,8 +211,11 @@ def _jax_plan(model: torch.nn.Module, bucket_bytes: int):
     leaves as ``(key, array)``."""
     from apex_tpu_torch.optimizers.fused_tail import tail_plan
 
-    leaves = list(_flatten(params_to_jax(model.state_dict())))
-    return tail_plan([np.shape(a) for _, a in leaves], bucket_bytes), leaves
+    shapes = {name: torch.empty(t.shape, dtype=t.dtype, device="meta")
+              for name, t in model.state_dict().items()}
+    leaves = list(_flatten(params_to_jax(shapes, tensors=True)))
+    return tail_plan([tuple(a.shape) for _, a in leaves],
+                     bucket_bytes), leaves
 
 
 def _bucket_bytes(optimizer) -> int:
@@ -220,23 +229,29 @@ def _unpack_jax(packed: Dict[str, Any], model, optimizer) -> Dict[str, Any]:
     per-leaf JAX tree of the model's parameters."""
     plan, leaves = _jax_plan(model, _bucket_bytes(optimizer))
     if sorted(packed) != plan.names or any(
-            np.asarray(packed[n]).size != b.size
+            _numel(packed[n]) != b.size
             for n, b in zip(plan.names, plan.buckets)):
         raise ValueError(
             "the packed state's buckets are not the plan of this model at "
             f"bucket_bytes={_bucket_bytes(optimizer)}: got "
-            f"{[(n, np.asarray(packed[n]).size) for n in sorted(packed)]}")
+            f"{[(n, _numel(packed[n])) for n in sorted(packed)]}")
     tree: Dict[str, Any] = {}
     for b, name in zip(plan.buckets, plan.names):
-        buf, off = np.asarray(packed[name]), 0
+        buf, off = packed[name], 0
+        if not isinstance(buf, torch.Tensor):
+            buf = np.asarray(buf)
         for i, size in zip(b.leaf_ids, b.sizes):
             key, like = leaves[i]
             node = tree
             for part in key[:-1]:
                 node = node.setdefault(part, {})
-            node[key[-1]] = buf[off:off + size].reshape(np.shape(like))
+            node[key[-1]] = buf[off:off + size].reshape(tuple(like.shape))
             off += size
     return tree
+
+
+def _numel(x: Any) -> int:
+    return x.numel() if isinstance(x, torch.Tensor) else np.asarray(x).size
 
 
 def optimizer_state_from_jax(opt_state: Dict[str, Any], model: torch.nn.Module,
@@ -265,16 +280,26 @@ def optimizer_state_from_jax(opt_state: Dict[str, Any], model: torch.nn.Module,
 
 
 def optimizer_state_to_jax(model: torch.nn.Module,
-                           optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+                           optimizer: torch.optim.Optimizer,
+                           tensors: bool = False) -> Dict[str, Any]:
     """``optimizer``'s state for ``model`` as a JAX fused-optimizer state
     (numpy leaves, layer leaves stacked; with ``fused_tail`` the packed
-    buckets of the JAX tree's plan)."""
+    buckets of the JAX tree's plan).  ``tensors=True`` keeps the leaves
+    tensors on their device, the step the optimizer's own 0-d int32
+    counter where every parameter shares it: nothing is read on the
+    host."""
     named = list(model.named_parameters())
     states = [optimizer.state[p] for _, p in named]
-    steps = {int(s["step"]) for s in states}
-    if len(steps) != 1:
-        raise ValueError(f"parameters are at different steps {sorted(steps)}")
-    out: Dict[str, Any] = {"step": np.int32(steps.pop())}
+    counters = {id(s["step"]): s["step"] for s in states}
+    if tensors and len(counters) == 1:
+        step = next(iter(counters.values())).detach().to(torch.int32)
+    else:
+        steps = {int(s["step"]) for s in states}
+        if len(steps) != 1:
+            raise ValueError(
+                f"parameters are at different steps {sorted(steps)}")
+        step = np.int32(steps.pop())
+    out: Dict[str, Any] = {"step": step}
     packed = bool(getattr(optimizer, "fused_tail", False))
     if packed:
         plan, leaves = _jax_plan(model, _bucket_bytes(optimizer))
@@ -282,13 +307,19 @@ def optimizer_state_to_jax(model: torch.nn.Module,
         if key not in states[0]:
             continue
         tree = params_to_jax({name: s[key] for (name, _), s
-                              in zip(named, states)})
+                              in zip(named, states)}, tensors=tensors)
         if packed:
             flat = dict(_flatten(tree))
-            tree = {name: np.concatenate(
-                        [np.asarray(flat[leaves[i][0]]).reshape(-1)
-                         for i in b.leaf_ids])
-                    for b, name in zip(plan.buckets, plan.names)}
+            if tensors:
+                tree = {name: torch.cat(
+                            [flat[leaves[i][0]].reshape(-1)
+                             for i in b.leaf_ids])
+                        for b, name in zip(plan.buckets, plan.names)}
+            else:
+                tree = {name: np.concatenate(
+                            [np.asarray(flat[leaves[i][0]]).reshape(-1)
+                             for i in b.leaf_ids])
+                        for b, name in zip(plan.buckets, plan.names)}
         out[key] = tree
     return out
 

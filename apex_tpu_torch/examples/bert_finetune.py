@@ -41,6 +41,7 @@ from apex_tpu_torch.amp.policy import check_ported
 from apex_tpu_torch.examples.gpt_pretrain import UNPORTED as _TRAINER
 from apex_tpu_torch.models.bert import BertConfig, BertModel
 from apex_tpu_torch.optimizers import FusedAdam
+from apex_tpu_torch.telemetry.metrics import MetricsLogger
 from apex_tpu_torch.utils.platform import resolve_device
 
 __all__ = ["UNPORTED", "check_flags", "classification_loss", "main",
@@ -51,7 +52,7 @@ __all__ = ["UNPORTED", "check_flags", "classification_loss", "main",
 #: entries for the same flags
 UNPORTED = {dest: _TRAINER[dest] for dest in (
     "tp", "zero3", "dp_ici_size", "grad_compression", "compress_ici_legs",
-    "no_error_feedback", "overlap_grad_sync", "metrics_jsonl")}
+    "no_error_feedback", "overlap_grad_sync")}
 
 
 def synthetic_task(rng: np.random.Generator, n_batches: int,
@@ -115,7 +116,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="keep the optimizer's state in packed buckets")
     ap.add_argument("--overlap-grad-sync", action="store_true")
     ap.add_argument("--bucket-mb", type=float, default=4.0)
-    ap.add_argument("--metrics-jsonl", default=None)
+    ap.add_argument("--metrics-jsonl", default=None,
+                    help="append structured step metrics here")
     return ap.parse_args(argv)
 
 
@@ -176,6 +178,11 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     losses: List[float] = []
     accs: List[float] = []
     t0 = None
+    # --metrics-jsonl: the step records of the JAX example, the device
+    # scalars resolved once every --log-every steps
+    tlm = (MetricsLogger(jsonl_path=args.metrics_jsonl, console=False,
+                         flush_every=args.log_every, run="bert_finetune")
+           if args.metrics_jsonl else None)
     for i in range(args.steps):
         opt.zero_grad(set_to_none=True)
         loss, acc = classification_loss(model, *train_pool[i % len(train_pool)])
@@ -189,6 +196,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
             loss.backward()
         opt.step(grads_finite=finite)
         pending.append(torch.stack([loss.detach(), acc.detach()]))
+        if tlm is not None:
+            tlm.log_scalars(i, loss=loss.detach(), train_acc=acc.detach())
         if i == 0:
             _sync(device)
             t0 = time.perf_counter()
@@ -199,6 +208,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
             accs += [r[1] for r in rows]
             print(f"step {i + 1}  loss {losses[-1]:.4f}  train_acc "
                   f"{accs[-1]:.3f}", flush=True)
+    if tlm is not None:
+        tlm.close()
     summary: Dict = {}
     if args.steps > 1:
         _sync(device)

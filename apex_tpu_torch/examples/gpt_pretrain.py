@@ -35,32 +35,64 @@ read from the device only then.  ``--position-embedding rope`` (with
 model keeps no table, so any ``--seq`` runs, past 2048 through the flash
 kernels.  ``--device`` defaults to the GPU and raises without one.
 
-Flags of the JAX trainer that the port does not have yet raise
-``NotImplementedError`` naming their ROADMAP.md item.
+The loop is the JAX trainer's, with its telemetry and resilience:
+
+- ``--data``: batches from a token file of :mod:`apex_tpu_torch.data`
+  (``write_token_file``), windows through ``IndexedTokenDataset`` in
+  ``MegatronPretrainingSampler`` order (:func:`file_batches`); each batch
+  is copied to the card once, from pinned memory;
+- the loss stays a device scalar: :class:`~apex_tpu_torch.telemetry.
+  metrics.MetricsLogger` resolves the pending losses in one
+  device-to-host copy every ``--log-every`` steps (the only host
+  synchronisation of the loop besides the first step's and the
+  checkpoints'), with live tokens/s and MFU from
+  :class:`~apex_tpu_torch.telemetry.metrics.StepStats`;
+  ``--metrics-jsonl`` appends the step records and the subsystem events
+  (checkpoint saves, verifies and restores, trace windows, guard and
+  watchdog events) for ``tools/metrics_report.py``;
+- ``--trace-dir`` arms :class:`~apex_tpu_torch.telemetry.spans.
+  TraceTrigger`: touch ``<trace-dir>/TRACE_REQUEST`` mid-run (or export
+  ``APEX_TPU_TRACE_DIR`` before launch) to capture a ``torch.profiler``
+  window of ``APEX_TPU_TRACE_STEPS`` steps;
+- ``--watchdog-s``: a :class:`~apex_tpu_torch.resilience.watchdog.
+  Watchdog` beaten every step (``$APEX_TPU_HEARTBEAT_FILE`` mirrors it);
+- ``--checkpoint-dir``: :class:`~apex_tpu_torch.utils.autoresume.
+  AutoResume` with a SIGTERM handler saves every ``--save-every`` steps,
+  at a termination request (then the loop returns) and at the last
+  step, and a restart resumes after the newest valid step.  The state is
+  the JAX trainer's tree, ``{"params", "opt", "amp", "step"}`` in JAX's
+  layout (:mod:`apex_tpu_torch.convert`), so a checkpoint written by the
+  JAX trainer resumes here and one written here is JAX's bytes.
+
+The multi-chip flags of the JAX trainer raise ``NotImplementedError``
+naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import argparse
-import time
-from typing import Dict, List, Optional
+import os
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from apex_tpu_torch import amp
+from apex_tpu_torch import amp, convert
 from apex_tpu_torch.amp.policy import check_ported
 from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
 from apex_tpu_torch.optimizers import FusedAdam
 from apex_tpu_torch.telemetry.metrics import (
+    MetricsLogger,
+    StepStats,
     device_peak_flops,
-    mfu,
     transformer_flops_per_token,
 )
+from apex_tpu_torch.telemetry.spans import TraceTrigger, phase
 from apex_tpu_torch.transformer.tensor_parallel import clip_grad_norm
 from apex_tpu_torch.utils.platform import resolve_device
 
-__all__ = ["Trainer", "batches", "main", "parse_args", "run"]
+__all__ = ["Trainer", "batches", "file_batches", "main", "parse_args",
+           "run"]
 
 #: flags of the JAX trainer that are not ported: ``dest -> (the value
 #: that leaves them off, the ROADMAP.md item that brings them)``
@@ -75,11 +107,6 @@ UNPORTED = {
     "no_error_feedback": (False, "queue A item 9 (quantized collectives)"),
     "overlap_grad_sync": (False, "queue A item 9 (overlapped grad sync)"),
     "num_experts": (None, "queue A item 9 (mixture-of-experts)"),
-    "data": (None, "queue A item 10 (data)"),
-    "checkpoint_dir": (None, "queue A item 10 (checkpointing)"),
-    "metrics_jsonl": (None, "queue A item 10 (telemetry)"),
-    "trace_dir": (None, "queue A item 10 (telemetry)"),
-    "watchdog_s": (None, "queue A item 10 (resilience)"),
 }
 
 
@@ -91,6 +118,36 @@ def batches(rng: np.random.Generator, n_batches: int, global_batch: int,
     for _ in range(n_batches):
         tokens = rng.integers(0, vocab, (global_batch, seq)).astype(np.int32)
         pool.append((tokens, np.roll(tokens, -1, axis=1)))
+    return pool
+
+
+def file_batches(path: str, n_batches: int, global_batch: int, seq: int,
+                 vocab: int) -> List:
+    """A pool from a token file of :mod:`apex_tpu_torch.data`, as the JAX
+    trainer draws it: windows through ``IndexedTokenDataset``, order
+    through ``MegatronPretrainingSampler`` (one logical rank), at most
+    ``n_batches`` ``(tokens, targets)`` int32 pairs on the host."""
+    from apex_tpu_torch.data import IndexedTokenDataset, pretraining_batches
+    from apex_tpu_torch.transformer.data import MegatronPretrainingSampler
+
+    ds = IndexedTokenDataset(path, seq_len=seq)
+    if ds.max_token >= vocab:
+        raise ValueError(
+            f"{path}: corpus max token id {ds.max_token} >= model vocab "
+            f"{vocab} — out-of-range ids would train on clamped/masked "
+            f"embeddings silently")
+    sampler = MegatronPretrainingSampler(
+        total_samples=len(ds), consumed_samples=0,
+        micro_batch_size=global_batch,
+        data_parallel_rank=0, data_parallel_size=1,
+    )
+    pool = []
+    for toks, tgts in pretraining_batches(ds, sampler):
+        pool.append((toks, tgts))
+        if len(pool) >= n_batches:
+            break
+    if not pool:
+        raise ValueError(f"{path}: fewer than {global_batch} windows")
     return pool
 
 
@@ -143,11 +200,23 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--num-experts", type=int, default=None)
     ap.add_argument("--position-embedding", default="learned",
                     choices=["learned", "rope"])
-    ap.add_argument("--data", default=None)
-    ap.add_argument("--checkpoint-dir", default=None)
-    ap.add_argument("--metrics-jsonl", default=None)
-    ap.add_argument("--trace-dir", default=None)
-    ap.add_argument("--watchdog-s", type=float, default=None)
+    ap.add_argument("--data", default=None,
+                    help="token file (apex_tpu_torch.data."
+                         "write_token_file); synthetic batches when "
+                         "omitted")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="save and resume here (AutoResume, SIGTERM-safe)")
+    ap.add_argument("--save-every", type=int, default=25)
+    ap.add_argument("--metrics-jsonl", default=None,
+                    help="append step records and subsystem events here "
+                         "(tools/metrics_report.py reads it)")
+    ap.add_argument("--trace-dir", default=None,
+                    help="arm the trace trigger: touch "
+                         "<trace-dir>/TRACE_REQUEST mid-run to capture a "
+                         "torch.profiler window of APEX_TPU_TRACE_STEPS "
+                         "steps")
+    ap.add_argument("--watchdog-s", type=float, default=None,
+                    help="stall watchdog deadline in seconds")
     return ap.parse_args(argv)
 
 
@@ -200,8 +269,52 @@ class Trainer:
             self.n_params, args.layers, args.hidden, args.seq)
 
     def to_device(self, tokens: np.ndarray, targets: np.ndarray):
-        return (torch.as_tensor(tokens, device=self.device),
-                torch.as_tensor(targets, device=self.device))
+        """A host batch on the trainer's device: on the card one copy
+        each, from pinned memory."""
+        if self.device.type != "cuda":
+            return (torch.as_tensor(tokens, device=self.device),
+                    torch.as_tensor(targets, device=self.device))
+        return tuple(
+            torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(
+                self.device, non_blocking=True)
+            for a in (tokens, targets))
+
+    # -- the checkpointed state --------------------------------------------
+    def state_tree(self, step: int) -> Dict[str, Any]:
+        """The JAX trainer's checkpoint tree after ``step``: ``params``
+        and ``opt`` in JAX's layout (layers stacked, tensors on the
+        device: the checkpoint's snapshot copies them), ``amp`` as JAX's
+        ``mp.state_dict`` (float64 scale, int64 counters) and ``step``."""
+        self._ensure_opt_state()
+        return {
+            "params": convert.params_to_jax(self.model.state_dict(),
+                                            tensors=True),
+            "opt": convert.optimizer_state_to_jax(self.model, self.opt,
+                                                  tensors=True),
+            "amp": {f"loss_scaler{i}": {
+                "loss_scale": s.loss_scale.to(torch.float64),
+                "growth_tracker": s.growth_tracker.to(torch.int64),
+                "unskipped": s.unskipped.to(torch.int64)}
+                for i, s in enumerate(self.amp_state.scaler_states)},
+            "step": np.int64(step),
+        }
+
+    def load_state(self, state: Dict[str, Any]) -> None:
+        """Load a restored :meth:`state_tree` (host tensors or numpy):
+        parameters in place, the optimizer's state, the scaler's."""
+        self.model.load_state_dict(convert.params_from_jax(state["params"]))
+        convert.optimizer_state_from_jax(state["opt"], self.model, self.opt)
+        self.amp_state = self.mp.load_state_dict(state["amp"], self.device)
+
+    def _ensure_opt_state(self) -> None:
+        """The optimizer's state exists from the start (as JAX's
+        ``opt.init``), so a checkpoint or a resume target has it before
+        the first step: zeros, the masters copied from the parameters,
+        what the first step would make."""
+        for p in self.model.parameters():
+            self.opt._state(p)
+        if self.opt.fused_tail:
+            self.opt._ensure_tail()
 
     def backward(self, tokens: torch.Tensor,
                  targets: torch.Tensor) -> torch.Tensor:
@@ -239,47 +352,117 @@ class Trainer:
         return loss
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def run(args: argparse.Namespace,
+        step_hook: Optional[Callable[[int, "Trainer"], None]] = None
+        ) -> Dict:
+    """Train ``args.steps`` steps (after a resumed step, from there);
+    returns the losses of the steps this call ran (``start`` is the
+    first), the timing of the steps after the first (which builds the
+    kernels), the trainer, and ``stopped_at`` where a termination request
+    ended the run after its checkpoint.  ``step_hook(i, trainer)`` runs
+    after each step's bookkeeping."""
+    from apex_tpu_torch.utils.autoresume import AutoResume
 
-
-def run(args: argparse.Namespace) -> Dict:
-    """Train ``args.steps`` steps; returns the per-step losses and the
-    timing of the steps after the first (which builds the kernels)."""
     tr = Trainer(args)
-    pool = [tr.to_device(*b) for b in batches(
-        np.random.default_rng(0), args.pool, tr.global_batch, args.seq,
-        args.vocab)]
-    peak = device_peak_flops(tr.device)
+    stats = StepStats(tokens_per_step=tr.tokens_per_step,
+                      flops_per_token=tr.flops_per_token,
+                      peak_flops=device_peak_flops(tr.device))
+    tlm = MetricsLogger(jsonl_path=args.metrics_jsonl,
+                        flush_every=args.log_every, stats=stats,
+                        run="gpt_pretrain")
+    # attached before the resume, so its restore events join the stream
+    # with the checkpoint, guard and trace events
+    tlm.attach_events()
+    start = 0
+    ar = None
+    try:
+        if args.checkpoint_dir:
+            ar = AutoResume(args.checkpoint_dir,
+                            interval_steps=args.save_every,
+                            install_sigterm_handler=True)
+            restored, start = ar.resume(target=tr.state_tree(0))
+            if restored is not None:
+                tr.load_state(restored)
+                start += 1  # the saved step already ran
+                print(f"resuming after step {start - 1}", flush=True)
+        return _loop(args, tr, ar, start, step_hook, stats, tlm)
+    finally:
+        if ar is not None:
+            ar.close()
+        tlm.close()  # flushes, deregisters the event sink, closes the fd
+
+
+def _loop(args, tr: Trainer, ar, start: int, step_hook,
+          stats: StepStats, tlm: MetricsLogger) -> Dict:
+    pool = (file_batches(args.data, args.pool, tr.global_batch, args.seq,
+                         args.vocab) if args.data else
+            batches(np.random.default_rng(0), args.pool, tr.global_batch,
+                    args.seq, args.vocab))
+    pool = [tr.to_device(*b) for b in pool]
     print(f"{tr.n_params:,} parameters, {tr.flops_per_token:,} model FLOPs "
           "per token (6·N + 12·L·h·s; N counts every parameter, the SwiGLU "
           "gate included)", flush=True)
-    pending: List[torch.Tensor] = []
-    losses: List[float] = []
-    t0 = None
-    summary: Dict = {}
-    for i in range(args.steps):
-        pending.append(tr.step(*pool[i % len(pool)]))
-        if i == 0:
-            _sync(tr.device)
-            t0 = time.perf_counter()
-        last = i == args.steps - 1
-        if (i + 1) % args.log_every == 0 or last:
-            losses.extend(float(x) for x in torch.stack(pending).cpu())
-            pending = []
-            line = f"step {i + 1}  loss {losses[-1]:.4f}"
-            if i > 0:
-                _sync(tr.device)
-                ms = 1e3 * (time.perf_counter() - t0) / i
-                tps = tr.tokens_per_step / (ms / 1e3)
-                summary = dict(ms_per_step=ms, tokens_per_s=tps,
-                               mfu=mfu(tps, tr.flops_per_token, peak))
-                line += f"  {ms:.1f} ms/step  {tps:,.0f} tokens/s"
-                if summary["mfu"] is not None:
-                    line += f"  mfu {summary['mfu']:.3f}"
+    trig = (TraceTrigger(trace_dir=args.trace_dir)
+            if (args.trace_dir or os.environ.get("APEX_TPU_TRACE_DIR"))
+            else None)
+    wd = None
+    if args.watchdog_s:
+        from apex_tpu_torch.resilience import Watchdog
+
+        wd = Watchdog(deadline_s=args.watchdog_s).start()
+    losses: List[torch.Tensor] = []
+    loss = None
+    out: Dict = {"start": start, "n_params": tr.n_params, "trainer": tr,
+                 "logger": tlm}
+    try:
+        for i in range(start, args.steps):
+            with tlm.timing("data"):
+                tokens, targets = pool[i % len(pool)]
+            loss = tr.step(tokens, targets)
+            losses.append(loss)
+            if i == start:
+                stats.begin(loss)  # one sync: the kernel builds excluded
+            else:
+                stats.tick()
+            tlm.log_scalars(i, loss=loss)  # resolves at the cadence
+            if trig is not None:
+                trig.poll(i)
+            if wd is not None:
+                wd.beat(step=i)
+            if ar is not None:
+                # build the state tree only on ticks maybe_save writes
+                due = (i > 0 and i % args.save_every == 0) \
+                    or ar.termination_requested() or i == args.steps - 1
+                if due:
+                    with tlm.timing("checkpoint"), phase("checkpoint"):
+                        saved = ar.maybe_save(i, tr.state_tree(i),
+                                              force=(i == args.steps - 1))
+                    if saved and ar.termination_requested():
+                        print("termination requested; checkpoint saved",
+                              flush=True)
+                        out["stopped_at"] = i
+                        break
+            if step_hook is not None:
+                step_hook(i, tr)
+        summary = stats.summary(loss)  # synchronises on the last step
+        tlm.flush()
+        out["losses"] = (torch.stack(losses).float().cpu().tolist()
+                         if losses else [])
+        out["ms_per_step"] = summary.get("ms_per_step")
+        out["tokens_per_s"] = summary.get("tokens_per_sec")
+        out["mfu"] = summary.get("mfu")
+        if summary.get("timed_steps") and "stopped_at" not in out:
+            line = (f"{summary['ms_per_step']:.1f} ms/step  "
+                    f"{summary['tokens_per_sec']:,.0f} tokens/s")
+            if "mfu" in summary:
+                line += f"  mfu {summary['mfu']:.3f}"
             print(line, flush=True)
-    return dict(losses=losses, n_params=tr.n_params, **summary)
+        return out
+    finally:
+        if wd is not None:
+            wd.stop()
+        if trig is not None:
+            trig.close()
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:

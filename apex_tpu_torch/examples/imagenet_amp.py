@@ -19,35 +19,34 @@ seeds: ``min(steps, 8)`` training batches cycled and ``--eval-steps``
 validation batches.  ``--evaluate`` runs validation only.  ``--device``
 defaults to the GPU and raises without one.
 
-Flags of the JAX example that the port does not have yet
-(``--checkpoint-dir``, ``--resume``, ``--metrics-jsonl``) raise
-``NotImplementedError`` naming their ROADMAP.md item.
+``--checkpoint-dir`` saves the JAX example's state tree after every
+epoch (``step_<epoch>``, and ``best.ckpt`` on a new best prec@1) through
+:mod:`apex_tpu_torch.checkpoint`: ``params`` and ``bn_stats`` in the JAX
+ResNet's layout, ``opt_state`` (``step``, ``momentum_buffer``,
+``master``), ``epoch`` and ``best_prec1``; ``--resume`` restores the
+newest step and continues after its epoch.  ``--metrics-jsonl`` appends
+the step losses (resolved once an epoch) and the checkpoint events.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
-from typing import Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from apex_tpu_torch import checkpoint
 from apex_tpu_torch.models.resnet import ResNet, ResNetConfig
 from apex_tpu_torch.optimizers import FusedSGD
+from apex_tpu_torch.telemetry.metrics import MetricsLogger
 from apex_tpu_torch.utils.platform import resolve_device
 
-__all__ = ["UNPORTED", "main", "parse_args", "synthetic_pool", "train_step",
-           "eval_step", "validate"]
-
-#: flags of the JAX example that are not ported: ``dest -> (the value
-#: that leaves them off, the ROADMAP.md item that brings them)``
-UNPORTED = {
-    "checkpoint_dir": (None, "queue A item 10 (checkpointing)"),
-    "resume": (False, "queue A item 10 (checkpointing)"),
-    "metrics_jsonl": (None, "queue A item 10 (telemetry)"),
-}
+__all__ = ["main", "parse_args", "synthetic_pool", "train_step",
+           "eval_step", "validate", "state_tree", "load_state"]
 
 
 def synthetic_pool(seed: int, n_batches: int, global_batch: int,
@@ -126,21 +125,67 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="validation only")
     ap.add_argument("--device", default=None,
                     help="default: the GPU; 'cpu' runs on the CPU")
-    # the JAX example's flags that are not ported (see UNPORTED)
-    ap.add_argument("--checkpoint-dir", default=None)
-    ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--metrics-jsonl", default=None)
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="save per-epoch checkpoints + best.ckpt here")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest checkpoint from "
+                         "--checkpoint-dir before training")
+    ap.add_argument("--metrics-jsonl", default=None,
+                    help="append step losses + checkpoint events here")
     return ap.parse_args(argv)
 
 
-def check_flags(args: argparse.Namespace) -> None:
-    """Raise for a flag the port does not have yet."""
-    for dest, (off, item) in UNPORTED.items():
-        value = getattr(args, dest)
-        if value != off:
-            raise NotImplementedError(
-                f"--{dest.replace('_', '-')}={value!r} is not ported yet "
-                f"(ROADMAP.md {item})")
+def _map(tree: Any, fn: Callable) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(v, fn) for v in tree)
+    return fn(tree)
+
+
+@torch.no_grad()
+def _copy(dst: Any, src: Any) -> None:
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy(dst[k], src[k])
+    elif isinstance(dst, (list, tuple)):
+        for d, s in zip(dst, src):
+            _copy(d, s)
+    else:
+        dst.copy_(src)
+
+
+def _opt_state(model: ResNet, opt) -> Dict[str, Any]:
+    """The optimizer's state as the JAX ``FusedSGD`` tree over the
+    model's ``params`` tree (the same tensors); made on first use, as
+    JAX's ``opt.init``."""
+    for p in model.parameters():
+        opt._state(p)
+    first = opt.state[next(model.parameters())]
+    out: Dict[str, Any] = {"step": first["step"]}
+    for key in ("momentum_buffer", "master"):
+        if key in first:
+            out[key] = _map(model.params_tree(),
+                            lambda p, key=key: opt.state[p][key])
+    return out
+
+
+def state_tree(model: ResNet, opt, epoch: int,
+               best_prec1: float) -> Dict[str, Any]:
+    """The JAX example's checkpoint tree (the live tensors: the
+    checkpoint's snapshot copies them)."""
+    return {"params": model.params_tree(), "opt_state": _opt_state(model, opt),
+            "bn_stats": model.stats_tree(), "epoch": np.int64(epoch),
+            "best_prec1": np.float64(best_prec1)}
+
+
+def load_state(model: ResNet, opt, state: Dict[str, Any]) -> tuple:
+    """Copy a restored :func:`state_tree` into the model and optimizer;
+    returns ``(epoch, best_prec1)``."""
+    _copy(state_tree(model, opt, 0, 0.0)["params"], state["params"])
+    _copy(_opt_state(model, opt), state["opt_state"])
+    model.load_stats(state["bn_stats"])
+    return int(state["epoch"]), float(state["best_prec1"])
 
 
 def _sync(device: torch.device) -> None:
@@ -150,7 +195,8 @@ def _sync(device: torch.device) -> None:
 
 def main(argv: Optional[List[str]] = None) -> Dict:
     args = parse_args(argv)
-    check_flags(args)
+    if args.resume and not args.checkpoint_dir:
+        raise SystemExit("--resume needs --checkpoint-dir")
     device = resolve_device(args.device)
     model = ResNet(ResNetConfig(depth=args.depth,
                                 num_classes=args.num_classes),
@@ -162,16 +208,42 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                                 args.num_classes, device)
     val_pool = synthetic_pool(1, args.eval_steps, args.batch_size,
                               args.image_size, args.num_classes, device)
+    start_epoch, best_prec1 = 0, 0.0
+    if args.resume:
+        last = checkpoint.latest_step(args.checkpoint_dir)
+        if last is None:
+            print(f"no checkpoint under {args.checkpoint_dir}; "
+                  "starting fresh")
+        else:
+            state = checkpoint.restore_step(
+                args.checkpoint_dir, step=last,
+                target=state_tree(model, opt, 0, 0.0))
+            epoch, best_prec1 = load_state(model, opt, state)
+            start_epoch = epoch + 1
+            print(f"resumed epoch {epoch} (best prec@1 {best_prec1:.2f}) "
+                  f"from {args.checkpoint_dir}")
     if args.evaluate:
         loss, p1, p5 = validate(model, val_pool)
         print(f"eval: loss {loss:.3f}  prec@1 {p1:.2f}  prec@5 {p5:.2f}")
         return {"model": model, "prec1": p1, "prec5": p5}
-    best_prec1, out = 0.0, {}
-    for epoch in range(args.epochs):
+    # step losses stay device scalars until the epoch's one flush
+    with MetricsLogger(jsonl_path=args.metrics_jsonl, console=False,
+                       flush_every=max(args.steps_per_epoch, 1),
+                       run="imagenet_amp").attach_events() as tlm:
+        return _train_epochs(args, model, opt, device, train_pool, val_pool,
+                             start_epoch, best_prec1, tlm)
+
+
+def _train_epochs(args, model, opt, device, train_pool, val_pool,
+                  start_epoch: int, best_prec1: float, tlm) -> Dict:
+    out: Dict = {}
+    for epoch in range(start_epoch, args.epochs):
         held, t0 = [], None
         for i in range(args.steps_per_epoch):
             held.append(train_step(model, opt,
                                    *train_pool[i % len(train_pool)]))
+            tlm.log_scalars(epoch * args.steps_per_epoch + i,
+                            loss=held[-1][0])
             if i == 0:
                 _sync(device)
                 t0 = time.perf_counter()
@@ -192,7 +264,16 @@ def main(argv: Optional[List[str]] = None) -> Dict:
               flush=True)
         out = dict(losses=losses, prec1=p1, prec5=p5, val_loss=val_loss,
                    images_per_s=ips)
-    return dict(out, model=model, best_prec1=best_prec1)
+        if args.checkpoint_dir:
+            state = state_tree(model, opt, epoch, best_prec1)
+            path = checkpoint.save_step(args.checkpoint_dir, epoch, state)
+            if is_best:
+                checkpoint.save(
+                    os.path.join(args.checkpoint_dir, "best.ckpt"), state)
+            print(f"  saved {path}" + ("  (best)" if is_best else ""),
+                  flush=True)
+    return dict(out, model=model, best_prec1=best_prec1,
+                start_epoch=start_epoch)
 
 
 if __name__ == "__main__":

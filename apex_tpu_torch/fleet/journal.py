@@ -63,15 +63,14 @@ class RequestJournal:
     every entry's harvested-token delta and terminal state, then ONE
     batched ``os.write``).  ``stats`` self-times the write path:
     ``write_s`` against the fleet's serving wall time is the journal's
-    share (JAX's gate holds it under 2%).  ``logger`` raises
-    ``NotImplementedError`` (ROADMAP.md queue A item 10)."""
+    share (JAX's gate holds it under 2%).  ``logger`` is kept as the JAX
+    journal keeps it (``self.logger``); the journal writes no telemetry
+    record of its own: the router's events cover its admissions and
+    replays."""
 
     def __init__(self, path: str, logger: Optional[Any] = None):
-        if logger is not None:
-            raise NotImplementedError(
-                "the journal's telemetry logger is not ported yet "
-                "(ROADMAP.md queue A item 10)")
         self.path = str(path)
+        self.logger = logger
         self._fd: Optional[int] = None
         self._fd_lock = threading.Lock()
         self._buf: List[str] = []

@@ -53,9 +53,8 @@ A ``journal=`` (:class:`~apex_tpu_torch.fleet.journal.RequestJournal`)
 makes the log durable: admissions are journaled write-ahead and every
 step's deltas land in one append, so a dead process recovers with
 :func:`~apex_tpu_torch.fleet.journal.recover_journal` +
-:meth:`FleetRouter.resume_from_journal`.  The JAX router's ``logger=``
-(telemetry events) and ``watchdog=`` (a heartbeat before every pump) wait
-for ROADMAP.md queue A item 10 and raise until then.
+:meth:`FleetRouter.resume_from_journal`.  ``logger=`` receives the JAX
+router's telemetry events and ``watchdog=`` is beaten before every pump.
 """
 
 from __future__ import annotations
@@ -345,8 +344,13 @@ class FleetRouter:
     journaled write-ahead inside :meth:`submit` and every :meth:`step`
     ends with one batched delta sync.  ``clock`` (default
     ``time.perf_counter``) times arrivals, deadlines, hedges and pump
-    stalls; a test injects its own.  ``logger`` and ``watchdog`` raise
-    ``NotImplementedError`` (ROADMAP.md queue A item 10).
+    stalls; a test injects its own.  ``logger`` is an optional
+    :class:`~apex_tpu_torch.telemetry.metrics.MetricsLogger` (anything
+    with ``event``) that receives the JAX router's events;
+    ``watchdog`` is an optional
+    :class:`~apex_tpu_torch.resilience.watchdog.Watchdog` beaten before
+    every pump, with the replica's serving fields, so a wedged pump
+    leaves a heartbeat file that names the stalled replica.
 
     Drive it with :meth:`submit` + :meth:`step` (one harvest window on
     every live replica a step: no replica blocks another), or
@@ -363,10 +367,6 @@ class FleetRouter:
         journal: Optional[Any] = None,
         watchdog: Optional[Any] = None,
     ):
-        if logger is not None or watchdog is not None:
-            raise NotImplementedError(
-                "the fleet's telemetry logger and heartbeat watchdog are "
-                "not ported yet (ROADMAP.md queue A item 10)")
         if not replicas:
             raise ValueError("a fleet needs at least one replica")
         self.replicas: List[Replica] = [
@@ -410,8 +410,10 @@ class FleetRouter:
         #: {"uid", "src", "dst", "packet", "replays",
         #: "handoffs"} — charged to the DESTINATION's load score only
         self._handoffs: List[dict] = []
+        self.logger = logger
         self._clock = clock
         self.journal = journal
+        self.watchdog = watchdog
         self._page_size = sizes.pop()
         self._max_prompt_len = min(
             r.batcher.max_prompt_len for r in self.replicas)
@@ -444,6 +446,11 @@ class FleetRouter:
             "handoffs": 0, "handoff_pages": 0, "handoff_bytes": 0,
             "routed": {r.name: 0 for r in self.replicas},
         }
+
+    # ------------------------------------------------------------ events
+    def _event(self, kind: str, **fields) -> None:
+        if self.logger is not None:
+            self.logger.event(kind, **fields)
 
     # ------------------------------------------------------------- state
     @property
@@ -578,6 +585,8 @@ class FleetRouter:
         if reason is not None:
             self.rejected[request.uid] = reason
             self.stats["rejected"] += 1
+            self._event("request_rejected", uid=request.uid,
+                        slo=cls.name, reason=reason)
             return False
         replica, aff = self._route(request)
         now = self._clock() if t_arrive is None else float(t_arrive)
@@ -594,6 +603,8 @@ class FleetRouter:
         self.stats["routed"][replica.name] += 1
         if aff > 0:
             self.stats["affinity_routed"] += 1
+        self._event("request_routed", uid=request.uid,
+                    replica=replica.name, slo=cls.name, affinity=aff)
         return True
 
     # -------------------------------------------------------------- step
@@ -632,6 +643,7 @@ class FleetRouter:
             work = self._pump_order(r.name)
             if not work and r.batcher.live_slots == 0:
                 continue
+            self._beat(r)
             t0 = self._clock()
             try:
                 r.batcher.pump(work)
@@ -657,11 +669,25 @@ class FleetRouter:
         return self.pending > 0
 
     # ------------------------------------------------------------ health
+    def _beat(self, r: Replica) -> None:
+        """Heartbeat BEFORE the pump, carrying the replica's serving
+        fields: if the pump then wedges, the heartbeat file names the
+        stalled replica."""
+        if self.watchdog is None:
+            return
+        self.watchdog.beat(step=self._steps, extra={
+            "replica": r.name,
+            "serving_step": int(r.batcher.steps),
+            "live_slots": int(r.batcher.live_slots),
+        })
+
     def _replica_fault(self, r: Replica, err: BaseException) -> None:
         r.faults += 1
         r.consecutive_faults += 1
         r.last_error = repr(err)
         self.stats["replica_faults"] += 1
+        self._event("replica_fault", replica=r.name, error=repr(err),
+                    consecutive=r.consecutive_faults)
         if r.consecutive_faults >= self.policy.max_replica_faults:
             self._quarantine(r, "faults")
 
@@ -676,6 +702,9 @@ class FleetRouter:
         r.alive = False
         r.quarantined = cause
         self.stats["quarantined"] += 1
+        self._event("replica_quarantined", replica=r.name,
+                    cause=cause, faults=r.faults, windows=r.windows,
+                    error=r.last_error)
 
     def drain(self, max_steps: int = 100_000
               ) -> Dict[Any, FleetCompletion]:
@@ -708,6 +737,8 @@ class FleetRouter:
                 if e.done:
                     # the primary reached a terminal state first
                     self.stats["hedge_losses"] += 1
+                    self._event("hedge_loss", uid=uid, replica=r.name,
+                                cause="primary_won")
                     continue
                 # first-commit-wins: cancel the primary, record the
                 # hedge's completion.  The full stream is the spawn
@@ -737,6 +768,8 @@ class FleetRouter:
                     duration_s=now - e.t_arrive,
                 )
                 self.stats["hedge_wins"] += 1
+                self._event("hedge_win", uid=uid, replica=r.name,
+                            tokens=len(e.emitted))
                 continue
             if e.done or e.replica != r.name:
                 continue
@@ -798,6 +831,7 @@ class FleetRouter:
             for r in self.replicas:
                 if r.alive and not r.batcher.decode_enabled:
                     r.batcher.decode_enabled = True
+                    self._event("role_fallback", replica=r.name)
             return
         # ---- export: prefill replicas shed decode-ready streams
         for r in self.replicas:
@@ -818,6 +852,7 @@ class FleetRouter:
                     continue    # staging bounded by destination slots
                 if self.journal is not None:
                     self.journal.handoff(uid, r.name, dst.name)
+                t0 = self._clock()
                 packet = r.batcher.export_request(uid)
                 if packet is None:
                     continue
@@ -825,6 +860,7 @@ class FleetRouter:
                 self._handoffs.append({
                     "uid": uid, "src": r.name, "dst": dst.name,
                     "packet": packet,
+                    "export_s": self._clock() - t0,
                     "replays": e.replays, "handoffs": e.handoffs,
                 })
         # ---- import: land staged packets where capacity allows
@@ -841,12 +877,19 @@ class FleetRouter:
             dst = self._by_name.get(pk["dst"])
             if dst is None or not dst.alive:
                 continue    # the migration pass re-routes next step
+            t0 = self._clock()
             if not dst.batcher.import_request(pk["packet"]):
                 continue                # backpressure: stay staged
             self._handoffs.remove(pk)
             self.stats["handoffs"] += 1
             self.stats["handoff_pages"] += pk["packet"].n_pages
             self.stats["handoff_bytes"] += pk["packet"].wire_bytes
+            self._event(
+                "kv_handoff", uid=uid, src=pk["src"], dst=pk["dst"],
+                pages=pk["packet"].n_pages,
+                bytes=pk["packet"].wire_bytes,
+                tokens=len(pk["packet"].tokens),
+                dur_s=round(pk["export_s"] + (self._clock() - t0), 6))
 
     # --------------------------------------------------------- deadlines
     def _cancel_everywhere(self, e) -> Optional[List[int]]:
@@ -888,6 +931,9 @@ class FleetRouter:
                      and budget_left >= 1
                      and any(r.alive for r in self.replicas))
             toks = self._cancel_everywhere(e)
+            self._event("deadline_miss", uid=uid, slo=e.slo,
+                        emitted=len(e.emitted), retry=retry,
+                        replays=e.replays)
             if retry:
                 e.deadline_retries += 1
                 self.stats["deadline_retries"] += 1
@@ -899,6 +945,9 @@ class FleetRouter:
                 e.deadline = now + (e.deadline_rel
                                     if e.deadline_rel is not None
                                     else cls.deadline_s)
+                self._event("request_migrated", uid=uid,
+                            replica=target.name, replays=e.replays,
+                            affinity=aff, cause="deadline")
             else:
                 e = self.log.complete(uid, toks or [], "deadline", now)
                 self.completions[uid] = FleetCompletion(
@@ -952,6 +1001,8 @@ class FleetRouter:
                                  "base": list(e.emitted)}
             self._queues[target.name].append(req)
             self.stats["hedges"] += 1
+            self._event("hedge_spawn", uid=uid, replica=target.name,
+                        primary=e.replica, base=len(e.emitted))
 
     def _drop_hedge(self, uid: Any, cause: str) -> None:
         """Cancel a live hedge (queue entry and/or in-flight slot on
@@ -969,6 +1020,8 @@ class FleetRouter:
         if rep is not None and rep.alive:
             rep.batcher.cancel(uid)
         self.stats["hedge_losses"] += 1
+        self._event("hedge_loss", uid=uid, replica=h["replica"],
+                    cause=cause)
 
     def _drop_hedges_on(self, name: str, cause: str) -> None:
         """A dead replica's hedges just evaporate — the primaries are
@@ -1015,6 +1068,8 @@ class FleetRouter:
             return
         self.brownout_level = new
         self.stats["brownout_transitions"] += 1
+        self._event("brownout", from_level=lvl, to_level=new,
+                    free_page_frac=round(free, 4), queue_depth=qd)
         for r in self.replicas:
             r.batcher.speculation_enabled = new < 1
             r.batcher.chunk_throttle = (bp.chunk_throttle
@@ -1029,6 +1084,8 @@ class FleetRouter:
         recovered."""
         entries = self.log.inflight_on(dead.name)
         self._queues[dead.name].clear()
+        self._event("replica_dead", replica=dead.name,
+                    migrated=len(entries))
         for e in entries:
             # a live hedge is dropped BEFORE re-routing the primary:
             # otherwise the migration could land the primary on the
@@ -1040,6 +1097,9 @@ class FleetRouter:
             self._queues[target.name].append(req)
             self.stats["migrations"] += 1
             self.stats["routed"][target.name] += 1
+            self._event("request_migrated", uid=req.uid,
+                        replica=target.name, replays=e.replays,
+                        affinity=aff)
 
     # ----------------------------------------------------------- journal
     def resume_from_journal(self, recovery) -> Dict[str, int]:
@@ -1099,7 +1159,12 @@ class FleetRouter:
             self.stats["routed"][target.name] += 1
             self.stats["resumed_from_journal"] += 1
             resumed += 1
+            self._event("request_migrated", uid=uid,
+                        replica=target.name, replays=e.replays,
+                        affinity=aff, cause="journal")
         if self.journal is not None:
             self.journal.prime(self.log)
-        return {"resumed": resumed, "completed": completed,
-                "corrupt": recovery.corrupt, "gapped": recovery.gapped}
+        out = {"resumed": resumed, "completed": completed,
+               "corrupt": recovery.corrupt, "gapped": recovery.gapped}
+        self._event("journal_replayed", **out)
+        return out

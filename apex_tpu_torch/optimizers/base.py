@@ -231,7 +231,12 @@ class FusedOptimizer(torch.optim.Optimizer):
         if not entries:
             return grads_finite
         if self.fused_tail:
-            self._ensure_tail()
+            from apex_tpu_torch.optimizers.fused_tail import (
+                emit_opt_tail_event,
+            )
+
+            emit_opt_tail_event(self, self._ensure_tail().plan,
+                                unscale_folded=inv_scale is not None)
         states = [self._state(p) for _, p in entries]
         grads = [p.grad for _, p in entries]
         counter = states[0]["step"]

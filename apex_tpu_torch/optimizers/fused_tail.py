@@ -17,9 +17,10 @@ The port keeps its own copy of JAX's bucket plan
 ``pack``, ``unpack``), so a JAX state packed for a tree and the port's
 packed for the same leaves have the same buckets.
 
-JAX's ``opt_tail`` telemetry event (free when no sink listens) waits for
-``telemetry.events``, ROADMAP.md queue A item 10; :func:`time_opt_tail`
-returns its numbers instead.
+Each packed step emits JAX's ``opt_tail`` telemetry event
+(:func:`emit_opt_tail_event`: static host fields, free when no sink
+listens, never a device synchronisation); :func:`time_opt_tail` emits it
+with the measured ms and GB/s and returns them.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from apex_tpu_torch.ops import multi_tensor as mt
+from apex_tpu_torch.telemetry import events as _events
 
 __all__ = [
     "DEFAULT_BUCKET_BYTES",
@@ -42,6 +44,7 @@ __all__ = [
     "fold_grads",
     "unpack_bufs",
     "tail_traffic_bytes",
+    "emit_opt_tail_event",
     "time_opt_tail",
 ]
 
@@ -231,6 +234,33 @@ def tail_traffic_bytes(params: Sequence[torch.Tensor], opt) -> int:
     return total
 
 
+def emit_opt_tail_event(opt, plan: GradientBuckets, *,
+                        unscale_folded: bool,
+                        self_ms: Optional[float] = None,
+                        gbs: Optional[float] = None) -> None:
+    """The ``opt_tail`` telemetry event of one packed step: the static
+    shape of the pass (host fields only), with ``self_ms``/``gbs`` where
+    :func:`time_opt_tail` measured them.  Free when no sink listens."""
+    if not _events.have_sinks():
+        return
+    total = sum(b.size for b in plan.buckets)
+    moment = getattr(opt, "exp_avg_sq_dtype", None) or torch.float32
+    fields = dict(
+        fused=True,
+        buffers=len(plan.buckets),
+        elements=int(total),
+        buffer_bytes=int(total) * 4,
+        moment_dtype=str(moment).replace("torch.", ""),
+        master_weights=bool(getattr(opt, "master_weights", False)),
+        unscale_folded=bool(unscale_folded),
+    )
+    if self_ms is not None:
+        fields["self_ms"] = round(float(self_ms), 4)
+    if gbs is not None:
+        fields["gbs"] = round(float(gbs), 2)
+    _events.emit("opt_tail", **fields)
+
+
 def time_opt_tail(opt, inv_scale: Optional[torch.Tensor] = None,
                   iters: int = 10, warmup: int = 2) -> dict:
     """Time the optimizer's step on its current gradients (``step`` or,
@@ -261,5 +291,9 @@ def time_opt_tail(opt, inv_scale: Optional[torch.Tensor] = None,
             run()
         ms = (time.perf_counter() - t0) / iters * 1e3
     nbytes = tail_traffic_bytes(params, opt)
-    return {"ms": ms, "bytes": nbytes,
-            "gbs": nbytes / (ms * 1e-3) / 1e9 if ms > 0 else 0.0}
+    gbs = nbytes / (ms * 1e-3) / 1e9 if ms > 0 else 0.0
+    if getattr(opt, "fused_tail", False):
+        emit_opt_tail_event(opt, opt._ensure_tail().plan,
+                            unscale_folded=inv_scale is not None,
+                            self_ms=ms, gbs=gbs)
+    return {"ms": ms, "bytes": nbytes, "gbs": gbs}

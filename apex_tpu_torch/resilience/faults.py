@@ -1,11 +1,11 @@
 """Deterministic fault injection for the fleet's drills.
 
-Counterpart of ``apex_tpu/resilience/faults.py``, the parts the serving
-fleet needs.  Every injection is count-based and deterministic (the
+Counterpart of ``apex_tpu/resilience/faults.py``.  Every injection is count-based and deterministic (the
 sleeps have deterministic placement), so a failing drill replays the
 same way.
 
-on-disk corruption, for the request journal's drills:
+on-disk corruption, for the checkpoint's and the request journal's
+drills:
   :func:`truncate_file`, :func:`flip_bit`, :func:`remove_file`
 
 serving faults (context managers over a
@@ -23,18 +23,29 @@ seam):
   :func:`exhaust_pool`      — steal the allocator's free pages (page
                               pressure, backpressure)
 
-The checkpoint write seams (:func:`failing_writes`,
-:func:`failing_renames`, :func:`sigterm_on_write`) need the checkpoint
-module and raise ``NotImplementedError`` until it is ported (ROADMAP.md
-queue A item 10).
+checkpoint write faults (context managers patching the checkpoint
+module's I/O seams ``checkpoint._open`` / ``checkpoint._replace``):
+  :func:`failing_writes`   — fail the Nth (and following) write-opens
+                             with a transient ``OSError``
+  :func:`failing_renames`  — fail the atomic tmp→final rename
+  :func:`sigterm_on_write` — deliver SIGTERM to this process at the
+                             Nth write-open (a preemption notice landing
+                             mid-save)
+
+numeric faults:
+  :func:`poison_tree` — NaN/Inf-poison one element of one floating leaf
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import signal
+import threading
 import time
 from typing import Any, Iterator, Optional
+
+import torch
 
 __all__ = [
     "truncate_file",
@@ -43,12 +54,20 @@ __all__ = [
     "failing_writes",
     "failing_renames",
     "sigterm_on_write",
+    "poison_tree",
+    "InjectedIOError",
     "stalled_pump",
     "hanging_harvests",
     "nonfinite_logits",
     "failing_windows",
     "exhaust_pool",
 ]
+
+
+class InjectedIOError(OSError):
+    """The transient storage failure raised by :func:`failing_writes`
+    (an ``OSError`` subclass so production retry/except paths treat it
+    exactly like the real thing, while tests can match the subtype)."""
 
 
 # --------------------------------------------------------------- on-disk
@@ -87,27 +106,150 @@ def remove_file(path: str) -> None:
 
 
 # ----------------------------------------------------------- write seams
-def _needs_checkpoint(name: str):
-    raise NotImplementedError(
-        f"faults.{name} patches the checkpoint module's write seams, which "
-        "are not ported yet (ROADMAP.md queue A item 10)")
+def _is_write_mode(mode: str) -> bool:
+    return any(c in mode for c in "wxa+")
 
 
-def failing_writes(*args, **kwargs):
-    """Fail the Nth checkpoint write-open (needs the checkpoint module)."""
-    _needs_checkpoint("failing_writes")
+class _SeamPatch:
+    """Swap ``checkpoint._open`` for a counting interceptor."""
+
+    def __init__(self, on_write):
+        self._on_write = on_write
+        self._lock = threading.Lock()
+        self.write_count = 0
+
+    def __enter__(self):
+        from apex_tpu_torch import checkpoint as ckpt
+
+        self._ckpt = ckpt
+        self._orig_open = ckpt._open
+
+        def intercepting_open(file, mode="r", *args, **kwargs):
+            if _is_write_mode(mode):
+                with self._lock:
+                    self.write_count += 1
+                    n = self.write_count
+                self._on_write(n, file)
+            return self._orig_open(file, mode, *args, **kwargs)
+
+        ckpt._open = intercepting_open
+        return self
+
+    def __exit__(self, *exc):
+        self._ckpt._open = self._orig_open
+        return False
 
 
-def failing_renames(*args, **kwargs):
-    """Fail the checkpoint's atomic rename (needs the checkpoint
-    module)."""
-    _needs_checkpoint("failing_renames")
+@contextlib.contextmanager
+def failing_writes(fail_first: int = 1, path_substr: Optional[str] = None,
+                   forever: bool = False) -> Iterator[_SeamPatch]:
+    """Within the block, checkpoint write-opens raise
+    :class:`InjectedIOError`: the first ``fail_first`` matching opens
+    fail (then writes succeed — the retry-then-succeed scenario), or
+    every matching open fails with ``forever=True`` (retry-exhausted).
+    ``path_substr`` restricts injection to matching paths.
+
+    The yielded handle exposes ``write_count`` (every checkpoint
+    write-open seen, matching or not) and ``matched_writes`` (a
+    single-element list with the count of ``path_substr``-matching
+    write-opens, i.e. the injector's own counter)."""
+    matched = [0]
+
+    def on_write(n: int, file) -> None:
+        if path_substr is not None and path_substr not in str(file):
+            return
+        matched[0] += 1
+        if forever or matched[0] <= fail_first:
+            raise InjectedIOError(
+                f"injected transient I/O failure "
+                f"(matching write #{matched[0]}) opening {file}"
+            )
+
+    with _SeamPatch(on_write) as patch:
+        patch.matched_writes = matched
+        yield patch
 
 
-def sigterm_on_write(*args, **kwargs):
-    """SIGTERM at the Nth checkpoint write-open (needs the checkpoint
-    module)."""
-    _needs_checkpoint("sigterm_on_write")
+@contextlib.contextmanager
+def failing_renames(fail_first: int = 1,
+                    forever: bool = False) -> Iterator[list]:
+    """Within the block, the checkpoint's atomic tmp→final rename
+    (``checkpoint._replace``) raises :class:`InjectedIOError` for the
+    first ``fail_first`` calls (or all of them with ``forever=True``).
+
+    This targets the highest-stakes window in ``save()``: when the
+    rename runs, the previous checkpoint at ``path`` is parked at
+    ``path + ".old"`` — a failed rename must restore it (so even retry
+    exhaustion leaves the old checkpoint in place), and a retried
+    rename rebuilds the tmp dir and lands the new one.  Yields a
+    single-element list holding the number of injected failures so
+    far."""
+    from apex_tpu_torch import checkpoint as ckpt
+
+    orig = ckpt._replace
+    count = [0]
+
+    def flaky_replace(src, dst):
+        if forever or count[0] < fail_first:
+            count[0] += 1
+            raise InjectedIOError(
+                f"injected transient failure renaming {src} -> {dst} "
+                f"(#{count[0]})"
+            )
+        return orig(src, dst)
+
+    ckpt._replace = flaky_replace
+    try:
+        yield count
+    finally:
+        ckpt._replace = orig
+
+
+@contextlib.contextmanager
+def sigterm_on_write(nth: int = 1) -> Iterator[_SeamPatch]:
+    """Deliver SIGTERM to this process at the ``nth`` checkpoint
+    write-open — a preemption notice arriving exactly mid-save.  The
+    write itself proceeds; what happens next is up to the installed
+    handler (e.g. ``AutoResume._on_sigterm`` marks termination and the
+    loop checkpoints at the next boundary)."""
+
+    def on_write(n: int, file) -> None:
+        if n == nth:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    with _SeamPatch(on_write) as patch:
+        yield patch
+
+
+# ---------------------------------------------------------------- numeric
+def poison_tree(tree: Any, leaf_index: int = 0, element: int = 0,
+                value: float = float("nan")) -> Any:
+    """Return ``tree`` with one element of one floating leaf replaced by
+    ``value`` (NaN by default, or e.g. ``float("inf")``): the scripted
+    divergence event for :class:`~apex_tpu_torch.resilience.guard.
+    StepGuard` tests.  Leaves are indexed in the checkpoint's flatten
+    order (the JAX package's) over floating tensors only; the poisoned
+    leaf is a copy, every other leaf passes through."""
+    from apex_tpu_torch.checkpoint import flatten_tree, unflatten_tree
+
+    flat, structure = flatten_tree(tree)
+    float_positions = [
+        i for i, leaf in enumerate(flat)
+        if isinstance(leaf, torch.Tensor) and leaf.is_floating_point()
+    ]
+    if not float_positions:
+        raise ValueError("poison_tree: tree has no floating leaves")
+    if not 0 <= leaf_index < len(float_positions):
+        raise ValueError(
+            f"leaf_index {leaf_index} out of range "
+            f"({len(float_positions)} floating leaves)"
+        )
+    pos = float_positions[leaf_index]
+    leaf = flat[pos].detach().clone()
+    leaf.reshape(-1)[element] = value
+    flat = list(flat)
+    flat[pos] = leaf
+    return unflatten_tree(structure, flat)
 
 
 # ---------------------------------------------------------------- serving

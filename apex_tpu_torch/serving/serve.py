@@ -86,7 +86,15 @@ transfer a burst and faults them back at admission, bit-identical.
 Every harvest resolves through the module's ``_device_get``, the seam a
 fault injector hangs (``resilience.faults.hanging_harvests``).
 
-Not ported yet: the metrics logger (item 10).
+``logger=`` (a :class:`~apex_tpu_torch.telemetry.metrics.MetricsLogger`,
+or anything with ``event`` and ``gauge``) receives the JAX batcher's
+records: ``request_admitted``, ``prefix_hit``, ``span`` (``prefill``,
+``prefill_chunk``, ``decode`` with the weight stream's fields),
+``spec_accept``, ``request_done``, ``page_offload``, ``page_faultin``,
+``request_exported``, ``request_imported``, ``request_cancelled``, and
+after every admission pass the ``pages_free``, ``pages_shared``,
+``live_slots`` and ``queue_depth`` gauges.  All are host values: the
+logger adds no synchronisation.
 """
 
 from __future__ import annotations
@@ -94,7 +102,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -278,10 +286,6 @@ class ContinuousBatcher:
         offload: Optional[HostOffloadPool] = None,
         key: Optional[Any] = None,
     ):
-        if logger is not None:
-            raise NotImplementedError(
-                "the metrics logger is not ported yet (ROADMAP.md queue A "
-                "item 10, the rest of telemetry)")
         if harvest_every < 1:
             raise ValueError("harvest_every must be >= 1")
         if offload is not None and not prefix_cache:
@@ -398,6 +402,13 @@ class ContinuousBatcher:
         self.decode_enabled = True
         self.prefix_cache = bool(prefix_cache)
         self.measure_stall = bool(measure_stall)
+        self.logger = logger
+        # the decode step's declared weight stream, stamped on each decode
+        # span (the port serves at tensor-parallel degree 1)
+        self.weight_dtype = getattr(decode_fn, "weight_dtype", None)
+        self.weight_stream_bytes = getattr(
+            decode_fn, "weight_stream_bytes", None)
+        self.tp = getattr(decode_fn, "tp", 1)
         self.cache = cache
         self.pools = pools
         self.device = pools["k"].device
@@ -434,6 +445,37 @@ class ContinuousBatcher:
             "shared_pages": 0, "tokens_skipped": 0, "copied_pages": 0,
         }
 
+    # ------------------------------------------------------------ events
+    def _event(self, kind: str, **fields) -> None:
+        if self.logger is not None:
+            self.logger.event(kind, **fields)
+
+    def _weight_fields(self) -> dict:
+        """The decode span's weight-stream fields (only when the decode
+        step declared its pool): the width label, the bytes one step
+        streams (``steps * weight_bytes / dur_s`` is the window's
+        weight-stream GB/s) and the tensor-parallel degree."""
+        if self.weight_dtype is None:
+            return {}
+        f = {"weight_dtype": self.weight_dtype}
+        if self.weight_stream_bytes is not None:
+            f["weight_bytes"] = int(self.weight_stream_bytes)
+        if self.tp is not None:
+            f["tp"] = int(self.tp)
+        return f
+
+    def _emit_gauges(self, queue_depth: int) -> None:
+        """The serving load gauges (``pages_free`` / ``pages_shared`` /
+        ``live_slots`` / ``queue_depth``): host mirrors, no device
+        synchronisation; the signals the fleet router scores replicas
+        by."""
+        if self.logger is None:
+            return
+        self.logger.gauge("pages_free", self.cache.allocator.num_free)
+        self.logger.gauge("pages_shared", self.cache.allocator.num_shared)
+        self.logger.gauge("live_slots", self.live_slots)
+        self.logger.gauge("queue_depth", int(queue_depth))
+
     # ------------------------------------------------------ host mirrors
     @property
     def live_slots(self) -> int:
@@ -465,9 +507,10 @@ class ContinuousBatcher:
             torch.cuda.synchronize(self.device)
 
     def _timed_prefill(self, fn, *args):
-        """Run one prefill dispatch; under ``measure_stall`` the device
-        queue is drained first and after, so the time is this prefill's
-        work, and it counts as a stall if a decoding slot was live."""
+        """Run one prefill dispatch: ``(outputs, seconds)``.  Under
+        ``measure_stall`` the device queue is drained first and after, so
+        the time is this prefill's work, and it counts as a stall if a
+        decoding slot was live."""
         with phase("prefill"):
             if self.measure_stall:
                 self._sync()
@@ -479,7 +522,7 @@ class ContinuousBatcher:
         if any(m["finished"] is None for m in self._meta.values()):
             self.decode_stall_s += dur
             self.max_prefill_stall_s = max(self.max_prefill_stall_s, dur)
-        return out
+        return out, dur
 
     # ------------------------------------------------------------- admit
     def _slot_key(self, req: Request) -> np.ndarray:
@@ -538,6 +581,8 @@ class ContinuousBatcher:
             t_admit = time.perf_counter()
             page_row = torch.as_tensor(self.cache.page_table[slot],
                                        device=self.device)
+            self._event("request_admitted", uid=req.uid, slot=slot,
+                        prompt_tokens=plen, budget=req.max_new_tokens)
             if self.prefill_chunk is not None:
                 self._admit_chunked(slot, req, res, skey, t_admit,
                                     page_row)
@@ -545,11 +590,14 @@ class ContinuousBatcher:
             toks = torch.zeros((1, self.max_prompt_len), dtype=torch.int32)
             toks[0, :plen] = torch.as_tensor(list(req.prompt),
                                              dtype=torch.int32)
-            self.pools, first = self._timed_prefill(
+            (self.pools, first), dispatch_s = self._timed_prefill(
                 self.prefill_fn, self.pools, toks.to(self.device), plen,
                 page_row, skey)
             self.cache.lengths[slot] = plen
             self._slot_live(slot, first, req, plen, t_admit, skey)
+            self._event("span", span="prefill", slot=slot, tokens=plen,
+                        dispatch_s=round(dispatch_s, 6))
+        self._emit_gauges(len(queue))
 
     def _admit_chunked(self, slot, req, res, skey, t_admit,
                        page_row) -> None:
@@ -567,8 +615,9 @@ class ContinuousBatcher:
         self._prefilling[slot] = {
             "req": req, "toks": toks, "plen": plen,
             "next_chunk": first_chunk, "write_from": res.matched_tokens,
+            "skipped": first_chunk * C,
             "hashes": res.page_hashes, "key": skey, "t_admit": t_admit,
-            "page_row": page_row,
+            "chunk_s": 0.0, "page_row": page_row,
         }
         if self.prefix_cache:
             st = self.prefix_stats
@@ -580,22 +629,34 @@ class ContinuousBatcher:
             st["tokens_skipped"] += first_chunk * C
             if res.copied_page is not None:
                 st["copied_pages"] += 1
+            self._event(
+                "prefix_hit", uid=req.uid, slot=slot,
+                matched_tokens=res.matched_tokens,
+                shared_pages=res.shared_pages,
+                tokens_skipped=first_chunk * C,
+                copied=res.copied_page is not None)
 
     # ----------------------------------------------------- prefill chunk
-    def _prefill_step(self, slot: int) -> None:
+    def _prefill_step(self, slot: int) -> float:
         """Run ONE chunk of the oldest in-flight admission; on the last
         chunk the slot joins the decoding set with its sampled first
-        token."""
+        token.  Returns the chunk's dispatch time, which the window keeps
+        out of the decode span's duration."""
         st = self._prefilling[slot]
         C = self.prefill_chunk
         c0 = st["next_chunk"] * C
-        self.pools, tok, logits = self._timed_prefill(
+        (self.pools, tok, logits), dur = self._timed_prefill(
             self.chunk_fn, self.pools, st["toks"][c0:c0 + C], c0,
             st["plen"], st["write_from"], st["page_row"], st["key"])
+        st["chunk_s"] += dur
         st["next_chunk"] += 1
         self.prefill_chunks += 1
+        self._event("span", span="prefill_chunk", slot=slot,
+                    chunk=st["next_chunk"] - 1, start=c0,
+                    tokens=min(C, st["plen"] - c0),
+                    dispatch_s=round(dur, 6))
         if st["next_chunk"] * C < st["plen"]:
-            return
+            return dur
         # last chunk: the prompt is fully ingested
         req = st["req"]
         del self._prefilling[slot]
@@ -606,6 +667,10 @@ class ContinuousBatcher:
         self.last_prefill_logits = logits
         self._slot_live(slot, tok, req, st["plen"], st["t_admit"],
                         st["key"])
+        self._event("span", span="prefill", slot=slot,
+                    tokens=st["plen"] - st["skipped"],
+                    dispatch_s=round(st["chunk_s"], 6))
+        return dur
 
     # ------------------------------------------------------------ decode
     def _window_budget(self, base: int) -> int:
@@ -658,16 +723,22 @@ class ContinuousBatcher:
                           and m["tokens"][-1] == self.eos_id)
                 else "budget")
             req = m["req"]
-            self.completions[req.uid] = Completion(
+            comp = Completion(
                 uid=req.uid, tokens=m["tokens"],
                 prompt_len=len(req.prompt), reason=reason,
                 ttft_s=(None if m["t_first"] is None
                         else m["t_first"] - m["t_admit"]),
                 duration_s=t_h - m["t_admit"],
             )
+            self.completions[req.uid] = comp
             self.cache.retire(slot)
             self.carry["done"][slot] = True
             del self._meta[slot]
+            self._event("request_done", uid=req.uid, slot=slot,
+                        new_tokens=len(comp.tokens), reason=reason,
+                        ttft_s=(None if comp.ttft_s is None
+                                else round(comp.ttft_s, 6)),
+                        duration_s=round(comp.duration_s, 6))
 
     def _spec_window(self) -> None:
         """One window of speculative serving steps: draft on the host,
@@ -684,10 +755,13 @@ class ContinuousBatcher:
         chain_set = set(chain_rows)
         page_table = torch.as_tensor(self.cache.page_table,
                                      device=self.device)
-        draft_s = 0.0
+        t0 = time.perf_counter()
+        chunk_s = draft_s = 0.0
+        steps = kept = 0
         done_h = None
         for _ in range(self.harvest_every):
-            did_chunk = self._chunk_turn()
+            did_chunk, dur = self._chunk_turn()
+            chunk_s += dur
             # resolve pending first tokens now: a draft needs the whole
             # committed context
             if self._first_tok:
@@ -754,47 +828,75 @@ class ContinuousBatcher:
             path_h = resolved[2].tolist() if tree is not None else None
             done_h = resolved[-1].tolist()
             self.steps += 1
-            st = self.spec_stats
-            st["steps"] += 1
-            st["slot_steps"] += len(live)
+            steps += 1
+            drafted = accepted = committed = offramp = 0
+            commits: List[int] = []
+            ev_src: Dict[str, Dict[str, int]] = {}
             for s, m in live:
                 nc = int(nc_h[s])
                 for j in range(nc):
                     self._note_token(m, int(out_h[s][j]), s)
+                kept += nc
                 dl = int(dlens[s])
                 acc = max(min(nc - 1, dl), 0)
                 if path_h is not None:
                     # committed nodes off the first-child chain: tokens a
                     # chain verify would have rejected
-                    st["offramp"] += sum(
+                    offramp += sum(
                         1 for t in range(1, acc + 1)
                         if int(path_h[s][t]) not in chain_set)
-                st["drafted"] += dl
-                st["accepted"] += acc
-                st["committed"] += nc
+                drafted += dl
+                accepted += acc
+                committed += nc
+                commits.append(nc)
                 src = sources.get(s)
                 if src is not None:
-                    rec = st["by_source"].setdefault(
+                    rec = ev_src.setdefault(
                         src, {"drafted": 0, "accepted": 0})
                     rec["drafted"] += dl
                     rec["accepted"] += acc
+            st = self.spec_stats
+            st["steps"] += 1
+            st["slot_steps"] += len(live)
+            st["drafted"] += drafted
+            st["accepted"] += accepted
+            st["committed"] += committed
+            st["offramp"] += offramp
+            for src, rec in ev_src.items():
+                tot = st["by_source"].setdefault(
+                    src, {"drafted": 0, "accepted": 0})
+                tot["drafted"] += rec["drafted"]
+                tot["accepted"] += rec["accepted"]
+            # one spec_accept event a verify step, from the commit
+            # resolve this loop already made
+            self._event("spec_accept", slots=len(live),
+                        drafted=drafted, accepted=accepted,
+                        committed=committed, commits=commits,
+                        by_source=ev_src, offramp=offramp)
         t_h = time.perf_counter()
         self.windows += 1
         self.spec_stats["draft_s"] += draft_s
         if done_h is None:
             done_h = _device_get(self.carry["done"]).tolist()
+        self._event(
+            "span", span="decode", steps=steps,
+            slots=len(self._meta), tokens=kept,
+            dur_s=round(max(t_h - t0 - chunk_s, 0.0), 6),
+            draft_s=round(draft_s, 6),
+            **self._weight_fields(),
+        )
         self._retire(done_h, t_h)
 
-    def _chunk_turn(self) -> bool:
+    def _chunk_turn(self) -> Tuple[bool, float]:
         """A window iteration's prefill budget: at most one chunk of the
-        oldest admission, on every ``chunk_throttle``-th iteration."""
+        oldest admission, on every ``chunk_throttle``-th iteration.
+        ``(whether a chunk ran, its dispatch seconds)``."""
         if not self._prefilling:
-            return False
+            return False, 0.0
         self._chunk_tick += 1
         if self._chunk_tick % max(1, self.chunk_throttle):
-            return False
-        self._prefill_step(next(iter(self._prefilling)))
-        return True
+            return False, 0.0
+        return True, self._prefill_step(next(iter(self._prefilling)))
 
     def _decode_window(self) -> None:
         if self.spec_fn is not None and self.speculation_enabled:
@@ -803,9 +905,12 @@ class ContinuousBatcher:
         page_table = torch.as_tensor(self.cache.page_table,
                                      device=self.device)
         window: List[torch.Tensor] = []
+        t0 = time.perf_counter()
+        chunk_s = 0.0      # interleaved prefill time, kept out of dur_s
         for _ in range(self.harvest_every):
             # a step's token budget: at most ONE prefill chunk ...
-            did_chunk = self._chunk_turn()
+            did_chunk, dur = self._chunk_turn()
+            chunk_s += dur
             # ... plus one decode token for every live slot (a
             # prefill-role replica never decodes: its slots wait for the
             # handoff)
@@ -837,6 +942,7 @@ class ContinuousBatcher:
         done_h = flat[steps * S + len(slots):]
 
         self._absorb_firsts(firsts_h, t_h)
+        kept = 0
         for i in range(steps):
             for slot, m in self._meta.items():
                 if m["finished"] is not None:
@@ -844,6 +950,16 @@ class ContinuousBatcher:
                 if base + i < m["since_step"]:
                     continue        # slot joined after this step
                 self._note_token(m, harvested[i][slot], slot)
+                kept += 1
+        # tokens = kept tokens only (a slot that finished mid-window
+        # decodes garbage for the rest of it); dur_s leaves out the
+        # interleaved chunks, which are spans of their own
+        self._event(
+            "span", span="decode", steps=steps,
+            slots=len(self._meta), tokens=kept,
+            dur_s=round(max(t_h - t0 - chunk_s, 0.0), 6),
+            **self._weight_fields(),
+        )
         self._retire(done_h, t_h)
 
     # ----------------------------------------------------- offload tier
@@ -858,6 +974,8 @@ class ContinuousBatcher:
         for i, (h, parent, _) in enumerate(victims):
             self.offload.put(h, parent, {
                 k: v[:, i:i + 1].clone() for k, v in staged.items()})
+        self._event("page_offload", pages=len(victims),
+                    bytes=staged_nbytes(staged))
 
     def _fault_in(self, prompt) -> None:
         """Bring a prompt's offloaded prefix pages back: walk the
@@ -871,12 +989,15 @@ class ContinuousBatcher:
         chain: set = set()
         prev = None
         batch: List[Any] = []
+        n_bytes = misses = 0
+        t0 = time.perf_counter()
         for h in hashes:
             chain.add(h)
             if h in cache._prefix:
                 prev = h
                 continue
             if h not in self.offload:
+                misses += 1
                 self.offload.stats["misses"] += 1
                 break
             try:
@@ -885,9 +1006,21 @@ class ContinuousBatcher:
                 break               # the pool is full of live pages
             entry = self.offload.take(h)
             batch.append((page, entry["data"]))
+            n_bytes += staged_nbytes(entry["data"])
             prev = h
-        if not batch:
-            return
+        pages_in = len(batch)
+        if batch:
+            self._import_chain(batch)
+        if pages_in or misses:
+            self._event(
+                "page_faultin", pages=pages_in, bytes=n_bytes,
+                tokens=pages_in * cache.config.page_size, misses=misses,
+                dur_s=round(time.perf_counter() - t0, 6))
+
+    def _import_chain(self, batch: List[Any]) -> None:
+        """Scatter a faulted-in chain's staged pages into their new
+        pages."""
+        cache = self.cache
         # one import for the chain, padded to a power-of-two page count
         # by repeating the last page (same bytes at a duplicate index).
         # The buckets are JAX's, where they bound the jitted scatter's
@@ -952,6 +1085,9 @@ class ContinuousBatcher:
         del self._meta[slot]
         self.cache.retire(slot)
         self.carry["done"][slot] = True
+        self._event("request_exported", uid=req.uid, slot=slot,
+                    pages=n_pages, bytes=packet.wire_bytes,
+                    tokens=len(packet.tokens))
         return packet
 
     def import_request(self, packet: HandoffPacket) -> bool:
@@ -1009,6 +1145,9 @@ class ContinuousBatcher:
             # the pages keep the hashes they were registered under
             self.cache.register_prefix(slot, req.prompt,
                                        hashes=packet.hashes)
+        self._event("request_imported", uid=req.uid, slot=slot,
+                    pages=packet.n_pages, bytes=packet.wire_bytes,
+                    tokens=n_tok)
         return True
 
     # ------------------------------------------------------------ cancel
@@ -1027,12 +1166,16 @@ class ContinuousBatcher:
             del self._meta[slot]
             self.cache.retire(slot)
             self.carry["done"][slot] = True
+            self._event("request_cancelled", uid=uid, slot=slot,
+                        new_tokens=len(tokens))
             return tokens
         for slot, st in self._prefilling.items():
             if st["req"].uid != uid:
                 continue
             del self._prefilling[slot]
             self.cache.retire(slot)
+            self._event("request_cancelled", uid=uid, slot=slot,
+                        new_tokens=0)
             return []
         return None
 

@@ -21,7 +21,8 @@ fleet shape gives the same token streams, which is what lets a kill drill
 compare a killed run with an unkilled one token for token.
 :func:`replay` drives a :class:`~apex_tpu_torch.fleet.router.FleetRouter`
 in logical time (arrivals release as fleet steps advance) while TTFT and
-ITL are wall seconds; :func:`summarize_trace` scores the records.
+ITL are wall seconds, and with a router ``logger`` each record also lands
+as a ``trace_request`` event; :func:`summarize_trace` scores the records.
 """
 
 from __future__ import annotations
@@ -220,7 +221,8 @@ def replay(
     :meth:`FleetRouter.step` advances the trace clock by
     ``arrivals_per_step`` units and releases every arrival that is
     due — deterministic scheduling, wall-clock latency measurement.
-    Returns one record per request (rejections included)."""
+    Returns one record per request (rejections included) and, when the
+    router has a logger, emits a ``trace_request`` event per record."""
     sim, i, steps = 0.0, 0, 0
     n = len(trace)
     while i < n or router.pending > 0:
@@ -265,6 +267,8 @@ def replay(
             rec = {"uid": uid, "slo": it.slo, "cohort": it.cohort,
                    "lost": True}
         records.append(rec)
+        if router.logger is not None:
+            router.logger.event("trace_request", **rec)
     return records
 
 

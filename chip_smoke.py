@@ -379,6 +379,41 @@ cuBLAS's and ResNet's convolutions cuDNN's):
              step profiled; then a few steps of
              ``examples/imagenet_amp`` and its prec@1 / prec@5.
 
+Observing, checkpointing and resuming (no new kernel: rows 1, 8-9 and
+the multi-tensor tail):
+   train-resilience — ``python -m apex_tpu_torch.examples.gpt_pretrain``'s
+             ``run`` at the flagship (O5, 12 layers, 8 x 1024) for 30
+             steps over a seeded token file (``--data``): twice
+             uninterrupted (without and with ``--metrics-jsonl``, a flush
+             every 10 steps: ms/step of each), then with every flag
+             (``--metrics-jsonl``, ``--trace-dir`` armed by its touch file
+             for a 2-step window, ``--watchdog-s``, ``--checkpoint-dir``,
+             ``--save-every 10``), stopped by a real SIGTERM after the
+             step-10 save, and resumed in a fresh trainer to the end.
+             Gates: the resumed losses and final parameters and masters
+             equal the uninterrupted run's bit for bit (or within the band
+             between the two uninterrupted runs, which names the first
+             tensor apart); the JSONL holds one step record a step with
+             the trainer's losses, the save, restore and trace events, and
+             ``tools/metrics_report.py`` reads it; ``_device_get`` ran once
+             a flush; every saved step verifies, a flipped bit in
+             ``data.bin`` is named by ``verify`` and skipped by
+             ``restore_latest_valid``.  Prints a checkpoint's bytes, the
+             sync save's time and GB/s, the time ``save_async`` blocks and
+             its full write, ``verify`` and ``restore``, the trace's size.
+   serve-telemetry — phase 4's bf16 flagship serving with
+             ``logger=MetricsLogger(...)`` through the replayed decode
+             graph (decode ms/step with and without it, the same tokens,
+             JAX's event kinds and fields and the four gauges), then 16
+             requests of the fleet's trace 11 through two replicas with
+             the router's ``logger=`` and ``watchdog=`` and the journal's
+             ``logger=``: the unlogged fleet's tokens, the router's and
+             the batchers' events, a heartbeat file naming a replica.
+   fault-drill — ``python -m apex_tpu_torch.tools.fault_drill`` as a
+             subprocess on the card: a 2-layer GPT trainer SIGKILLed
+             during ``save_async``, its surviving checkpoints verified,
+             the next life resumed from the last valid step.
+
 The last two lines are a JSON object with one record per kernel (the
 fp16 instances' names end in ``_f16``), and ``{"ok": true, "device":
 {...}}``.  The script imports nothing of JAX.
@@ -2868,14 +2903,15 @@ def drop_masks(randn) -> None:
 # ---------------------------------------------------------------- phase 3
 def serve(model, requests, max_prompt_len, page_size, max_seqs,
           pages_per_seq, harvest_every=8, weight_dtype=None, kv_dtype=None,
-          eager=False, sampling=None):
+          eager=False, sampling=None, logger=None):
     """Serve ``requests`` through ``decode_fns`` (``weight_dtype``,
     ``sampling``: its temperature/top-k/top-p, server key ``PRNGKey(0)``)
     over a fresh paged cache (``kv_dtype``) and ``ContinuousBatcher``,
     after one untimed 3-token request on the same batcher (the decode
     step's warm-up and graph capture at its shape); ``eager`` drives
-    ``decode_eager`` in place of the replayed step.  Returns
-    ``(completions, wall s, [prefill s], batcher)``."""
+    ``decode_eager`` in place of the replayed step; ``logger`` is the
+    batcher's metrics logger.  Returns ``(completions, wall s, [prefill
+    s], batcher)``."""
     from apex_tpu_torch.random import PRNGKey
     from apex_tpu_torch.serving import (
         ContinuousBatcher, KVCacheConfig, PagedKVCache, Request, init_pools)
@@ -2903,7 +2939,7 @@ def serve(model, requests, max_prompt_len, page_size, max_seqs,
         timed_prefill, fns.decode_eager if eager else fns.decode,
         PagedKVCache(ccfg), init_pools(ccfg, model.device),
         max_prompt_len=max_prompt_len, harvest_every=harvest_every,
-        key=PRNGKey(0))
+        key=PRNGKey(0), logger=logger)
     batcher.run([Request(uid="warm", prompt=[1, 2, 3], max_new_tokens=3)])
     batcher.completions.clear()
     batcher.steps = batcher.windows = 0
@@ -8068,10 +8104,11 @@ def replay_partway(router, trace, steps: int) -> int:
     return i
 
 
-def journal_restart(label, bank, trace, steps, path):
+def journal_restart(label, bank, trace, steps, path, restart=None):
     """Serve ``trace`` partway under a journal at ``path``, abandon the
     router, recover the journal and resume on fresh batchers over the
-    same weights; the arrivals the dead process never saw come after the
+    same weights (or over ``restart()``'s bank: the weights rebuilt from
+    a checkpoint); the arrivals the dead process never saw come after the
     restart.  Returns ``(router, resume counts, journal write s, serving
     wall s)``."""
     from apex_tpu_torch.fleet import (
@@ -8094,6 +8131,8 @@ def journal_restart(label, bank, trace, steps, path):
     if rec.corrupt or rec.gapped:
         fail(f"fleet journal drill: {rec.corrupt} corrupt and {rec.gapped} "
              "gapped records after a clean stop")
+    if restart is not None:
+        bank = restart()
     jr2 = RequestJournal(path)
     restarted = FleetRouter(bank.replicas(), FleetPolicy(), journal=jr2)
     out = restarted.resume_from_journal(rec)
@@ -8106,6 +8145,32 @@ def journal_restart(label, bank, trace, steps, path):
     jr2.close()
     fleet_healthy(f"{label} (after the restart)", restarted)
     return restarted, out, write_s + jr2.stats["write_s"], wall
+
+
+def restart_from_checkpoint(model, bank, path):
+    """The restarted process's weights: ``model``'s parameters saved with
+    the port's ``checkpoint.save`` in the JAX tree's layout, a new model
+    drawn from another seed, the checkpoint restored (verified) into it,
+    and a new bank of pools and ``decode_fns`` over it."""
+    from apex_tpu_torch import checkpoint, convert
+    from apex_tpu_torch.models import GPTModel
+
+    checkpoint.save(path, convert.params_to_jax(model.state_dict(),
+                                                tensors=True))
+    bad = checkpoint.verify(path)
+    if bad:
+        fail(f"fleet-parity: the weights' checkpoint fails verify: {bad}")
+    fresh = GPTModel(model.config, device=model.device, seed=99)
+    target = convert.params_to_jax(fresh.state_dict(), tensors=True)
+    fresh.load_state_dict(convert.params_from_jax(
+        checkpoint.restore(path, target=target, verify_integrity=True)))
+    for name, t in fresh.state_dict().items():
+        if not torch.equal(t, model.state_dict()[name]):
+            fail(f"fleet-parity: {name} differs after the checkpoint")
+    new = FleetPools(fresh, bank.page, bank.maxp, bank.kv_dtype)
+    new.fns = fresh.decode_fns(new.config(), max_prompt_len=bank.maxp,
+                               prefill_chunk=bank.fns.prefill_chunk)
+    return new
 
 
 def offload_waves(bank, prompts, suffix, offload_pages):
@@ -8234,14 +8299,17 @@ def phase_fleet_parity(dev) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         restarted, res, _, _ = journal_restart(
             "fleet-parity journal", bank, trace, P["journal_steps"],
-            f"{tmp}/journal.jsonl")
+            f"{tmp}/journal.jsonl",
+            restart=lambda: restart_from_checkpoint(model, bank,
+                                                    f"{tmp}/weights"))
     if fleet_tokens(restarted) != want or res["resumed"] < 1:
         fail(f"fleet-parity: the journal restart ({res}) changed a stream")
     log(f"  kill drill: {drill.stats['migrations']} migrations, streams "
         f"identical; disaggregated: {dis.stats['handoffs']} handoffs of "
         f"{sum(moved)} pages, byte-equal, streams identical; journal "
-        f"restart: {res['resumed']} resumed, {res['completed']} completed "
-        "from the journal, streams identical")
+        f"restart on weights rebuilt from the port's checkpoint: "
+        f"{res['resumed']} resumed, {res['completed']} completed from the "
+        "journal, streams identical")
     # offload: pages faulted back are the pages that left
     rng = np.random.RandomState(23)
     pps = bank.pps
@@ -8585,6 +8653,471 @@ def phase_fleet(model, card: str) -> dict:
     return counts
 
 
+# ------------------------------------------- telemetry, checkpoint, resume
+#: train-resilience: the flagship trainer's flags (O5, 8 x 1024), steps,
+#: the save interval, the step after which the SIGTERM is sent (the run
+#: then stops at the next step, after its checkpoint), the trace window
+RESILIENCE_FLAGS = TRAIN_FLAGSHIP + ["--lr", "3e-4", "--pool", "4",
+                                     "--log-every", "10"]
+RESILIENCE_STEPS, RESILIENCE_SAVE_EVERY = 30, 10
+RESILIENCE_SIGTERM_AFTER, RESILIENCE_TRACE_AT = 12, 3
+RESILIENCE_TRACE_STEPS = 2
+
+
+def state_apart(a: dict, b: dict):
+    """``(largest |a - b| over every tensor, the first tensor name apart)``
+    of two name -> tensor dicts (0.0, None when equal bit for bit)."""
+    worst, first = 0.0, None
+    for name in a:
+        x, y = a[name], b[name]
+        if torch.equal(x, y):
+            continue
+        first = first or name
+        worst = max(worst, (x.double() - y.double()).abs().max().item())
+    return worst, first
+
+
+def trainer_state(tr) -> dict:
+    """The trainer's parameters and fp32 masters (device copies)."""
+    out = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+    for i, p in enumerate(tr.model.parameters()):
+        m = tr.opt.state.get(p, {}).get("master")
+        if m is not None:
+            out[f"master.{i}"] = m.detach().clone()
+    return out
+
+
+def tree_bytes(tree) -> int:
+    from apex_tpu_torch.checkpoint import flatten_tree
+
+    leaves, _ = flatten_tree(tree)
+    return sum(t.numel() * t.element_size() for t in leaves
+               if isinstance(t, torch.Tensor))
+
+
+def dir_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def phase_train_resilience(dev, card: str) -> dict:
+    """The flagship trainer observed, checkpointed, stopped and resumed
+    (see the module docstring).  Returns the launches of the resumable
+    runs."""
+    import os
+    import signal
+    import tempfile
+
+    from apex_tpu_torch import checkpoint
+    from apex_tpu_torch.data import write_token_file
+    from apex_tpu_torch.examples import gpt_pretrain
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.resilience import faults, read_heartbeat
+    from apex_tpu_torch.telemetry import metrics as tmetrics
+    from apex_tpu_torch.telemetry.spans import TRACE_FILE
+
+    steps = RESILIENCE_STEPS
+    log(f"[train-resilience] gpt_pretrain {' '.join(RESILIENCE_FLAGS)} "
+        f"(O5, the flagship) for {steps} steps over a token file; "
+        f"--save-every {RESILIENCE_SAVE_EVERY}; {card}")
+    tmp = tempfile.TemporaryDirectory(prefix="resilience-")
+    root = tmp.name
+    try:
+        data = os.path.join(root, "tokens.bin")
+        n_tok = 4 * 8 * 1024 + 1
+        write_token_file(data, np.random.default_rng(7).integers(
+            0, FLAGSHIP["vocab_size"], n_tok), dtype="uint16")
+        base = RESILIENCE_FLAGS + ["--steps", str(steps), "--data", data,
+                                   "--device", str(dev)]
+
+        def run(extra, hook=None):
+            out = gpt_pretrain.run(gpt_pretrain.parse_args(base + extra),
+                                   step_hook=hook)
+            torch.cuda.synchronize()
+            return out
+
+        # four uninterrupted runs, alternating without and with the JSONL
+        # (each ms/step over the steps after the first)
+        plain = run([])
+        state_a = trainer_state(plain["trainer"])
+        del plain["trainer"]
+        band, first_apart, loss_band, ms = 0.0, None, 0.0, {}
+        flushes = -(-steps // 10)
+        for k, mode in enumerate(("with", "without", "with")):
+            gets = []
+            real_get = tmetrics._device_get
+            tmetrics._device_get = lambda h: (gets.append(len(h)),
+                                              real_get(h))[1]
+            try:
+                out = run([] if mode == "without" else [
+                    "--metrics-jsonl", os.path.join(root, f"u{k}.jsonl")])
+            finally:
+                tmetrics._device_get = real_get
+            tlm = out["logger"]
+            if mode == "with" and (
+                    len(gets) != flushes or tlm.n_resolves != flushes
+                    or any(n != 10 and n != steps % 10 for n in gets)):
+                fail(f"train-resilience: _device_get ran {len(gets)} times "
+                     f"({gets}) for {steps} steps at a flush every 10 "
+                     f"({tlm.n_resolves} resolves): not once a flush")
+            apart, first = state_apart(state_a, trainer_state(out["trainer"]))
+            del out["trainer"]
+            band, first_apart = max(band, apart), first_apart or first
+            loss_band = max([loss_band] + [abs(a - b) for a, b in zip(
+                plain["losses"], out["losses"])])
+            ms.setdefault(mode, []).append(out["ms_per_step"])
+        ms["without"].insert(0, plain["ms_per_step"])
+        log(f"  uninterrupted, alternating: ms/step without --metrics-jsonl "
+            + " / ".join(f"{x:.2f}" for x in ms["without"])
+            + ", with it (a flush every 10 steps) "
+            + " / ".join(f"{x:.2f}" for x in ms["with"])
+            + f"; the logger's own host time {1e3 * tlm.overhead_s:.2f} ms "
+            f"and its waits in _device_get {1e3 * tlm.resolve_wait_s:.2f} "
+            f"ms over {steps} steps; _device_get ran {len(gets)} times "
+            f"({gets} tensors) [{card}]")
+        if band or loss_band:
+            log(f"  uninterrupted runs differ: losses by {loss_band}, "
+                f"parameters/masters by {band} (first {first_apart}): "
+                "that band is the resume gate")
+        else:
+            log("  the four uninterrupted runs are equal bit for bit "
+                "(losses, parameters, masters): the resume gate is equality")
+
+        # the resumable run: every flag, a SIGTERM after a save, a resume
+        jsonl = os.path.join(root, "run.jsonl")
+        ck = os.path.join(root, "ck")
+        tdir = os.path.join(root, "trace")
+        hb = os.path.join(root, "heartbeat.json")
+        flags = ["--metrics-jsonl", jsonl, "--trace-dir", tdir,
+                 "--watchdog-s", "120", "--checkpoint-dir", ck,
+                 "--save-every", str(RESILIENCE_SAVE_EVERY)]
+        env = {"APEX_TPU_TRACE_STEPS": str(RESILIENCE_TRACE_STEPS),
+               "APEX_TPU_HEARTBEAT_FILE": hb}
+        old_env = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        saved_bad = {}
+
+        def hook(i, tr):
+            if i == RESILIENCE_TRACE_AT:
+                open(os.path.join(tdir, "TRACE_REQUEST"), "w").close()
+            if i == RESILIENCE_SIGTERM_AFTER:
+                os.kill(os.getpid(), signal.SIGTERM)
+            if i % RESILIENCE_SAVE_EVERY == 0 or i == steps - 1:
+                path = os.path.join(ck, f"step_{i}")
+                if os.path.isdir(path):
+                    saved_bad[i] = checkpoint.verify(path)
+
+        try:
+            reset_launch_counts()
+            first = run(flags, hook)
+            stop = first.get("stopped_at")
+            if stop != RESILIENCE_SIGTERM_AFTER + 1:
+                fail(f"train-resilience: the SIGTERM after step "
+                     f"{RESILIENCE_SIGTERM_AFTER} stopped the run at "
+                     f"{stop}")
+            saved_bad[stop] = checkpoint.verify(os.path.join(ck,
+                                                             f"step_{stop}"))
+            del first["trainer"]
+            second = run(flags, hook)
+            counts = launch_counts()
+        finally:
+            for k, v in old_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        if second["start"] != stop + 1:
+            fail(f"train-resilience: resumed at step {second['start']}, "
+                 f"not {stop + 1}")
+        losses = first["losses"] + second["losses"]
+        state_c = trainer_state(second["trainer"])
+        apart, first_c = state_apart(state_a, state_c)
+        loss_apart = max(abs(a - b) for a, b in zip(plain["losses"],
+                                                    losses))
+        if len(losses) != steps or apart > band or loss_apart > loss_band:
+            fail(f"train-resilience: the resumed run is {apart} from the "
+                 f"uninterrupted one (first {first_c}; losses "
+                 f"{loss_apart}), the band of two uninterrupted runs "
+                 f"{band} (losses {loss_band})")
+        log(f"  stopped by SIGTERM after step {RESILIENCE_SIGTERM_AFTER}: "
+            f"saved and stopped at step {stop}; resumed at step "
+            f"{second['start']} in a fresh trainer; losses and final "
+            f"parameters and masters "
+            + ("equal the uninterrupted run's bit for bit" if not apart
+               else f"within the band ({apart} <= {band})"))
+        for name in LN_TRAIN + ("mid_fwd", "mid_bwd", "multi_tensor_adam"):
+            if counts.get(name, 0) <= 0:
+                fail(f"train-resilience: kernel {name} never launched")
+        # gate 2: the JSONL, and the root report reads it
+        recs = [json.loads(line) for line in open(jsonl)]
+        step_recs = [r for r in recs if r["kind"] == "step"]
+        if [r["step"] for r in step_recs] != list(range(steps)) or \
+                [r["loss"] for r in step_recs] != losses:
+            fail(f"train-resilience: the JSONL's step records "
+                 f"{[r['step'] for r in step_recs]} do not carry the "
+                 "trainer's losses one a step")
+        events = [r["event"] for r in recs if r["kind"] == "event"]
+        for kind in ("checkpoint_save", "checkpoint_restore", "trace_start",
+                     "trace_captured"):
+            if kind not in events:
+                fail(f"train-resilience: no {kind} event in the JSONL "
+                     f"({sorted(set(events))})")
+        report = subprocess.run(
+            [sys.executable, os.path.join(os.path.dirname(
+                os.path.abspath(__file__)), "tools", "metrics_report.py"),
+             jsonl], capture_output=True, text=True, timeout=120)
+        if report.returncode != 0 or \
+                f"steps 0..{steps - 1} ({steps} logged)" not in report.stdout:
+            fail(f"train-resilience: tools/metrics_report.py could not "
+                 f"read the JSONL: {report.stderr[-400:]}")
+        beat = read_heartbeat(hb)
+        if beat is None or beat.get("step") is None:
+            fail("train-resilience: no heartbeat from the watchdog")
+        trace_step = os.path.join(tdir, f"step{RESILIENCE_TRACE_AT + 1}")
+        if not os.path.isfile(os.path.join(trace_step, TRACE_FILE)):
+            fail(f"train-resilience: no trace in {trace_step}")
+        log(f"  JSONL: {len(recs)} records, one step record a step with "
+            f"the trainer's losses, events {sorted(set(events))}; "
+            f"metrics_report reads it; heartbeat at step {beat['step']}; "
+            f"trace window of {RESILIENCE_TRACE_STEPS} steps from step "
+            f"{RESILIENCE_TRACE_AT + 1}: {dir_bytes(tdir) / 2**20:.2f} MiB")
+        # gate 4: the checkpoints
+        if any(saved_bad.values()) or sorted(saved_bad) != sorted(
+                {10, stop, 20, steps - 1}):
+            fail(f"train-resilience: saved steps and their verify "
+                 f"verdicts {saved_bad}")
+        last = os.path.join(ck, f"step_{steps - 1}")
+        faults.flip_bit(os.path.join(last, "data.bin"), 12345, 3)
+        bad = checkpoint.verify(last)
+        tree, step = checkpoint.restore_latest_valid(ck)
+        if bad != ["data.bin"] or step != 20:
+            fail(f"train-resilience: a flipped bit in data.bin: verify "
+                 f"{bad}, restore_latest_valid step {step}")
+        del tree
+        log(f"  checkpoints: steps {sorted(saved_bad)} verified after "
+            f"their saves; a flipped bit in step {steps - 1}'s data.bin "
+            f"named by verify ({bad}) and skipped by restore_latest_valid "
+            f"(step {step})")
+        # the checkpoint's costs on this card, at the trainer's state
+        tr = second["trainer"]
+        state = tr.state_tree(steps - 1)
+        nbytes = tree_bytes(state)
+        torch.cuda.synchronize()
+        path = os.path.join(root, "sync")
+        t0 = time.perf_counter()
+        checkpoint.save(path, state)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bad = checkpoint.verify(path)
+        verify_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = checkpoint.restore(path, verify_integrity=True)
+        restore_s = time.perf_counter() - t0
+        del back
+        if bad:
+            fail(f"train-resilience: the timed checkpoint fails verify: {bad}")
+        tr.step(*tr.to_device(*gpt_pretrain.batches(
+            np.random.default_rng(1), 1, tr.global_batch, tr.args.seq,
+            tr.args.vocab)[0]))           # the queue holds a step's work
+        t0 = time.perf_counter()
+        state = tr.state_tree(steps)
+        tree_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        handle = checkpoint.save_async(os.path.join(root, "async"), state)
+        block_s = time.perf_counter() - t0
+        handle.result(timeout=600)
+        write_s = time.perf_counter() - t0
+        log(f"  a checkpoint of the flagship's O5 state: {nbytes:,} bytes "
+            f"({nbytes / 2**30:.3f} GiB: bf16 weights, fp32 masters and "
+            f"moments); sync save {save_s:.3f} s = "
+            f"{nbytes / save_s / 1e9:.3f} GB/s; the state tree (layers "
+            f"stacked on the card) {1e3 * tree_s:.1f} ms, then save_async "
+            f"blocks the loop {1e3 * block_s:.1f} ms (the pinned snapshot "
+            f"and one stream synchronisation, behind a queued step) and its "
+            f"write lands in {write_s:.3f} s; verify {verify_s:.3f} s, "
+            f"restore (verified) {restore_s:.3f} s; [{card}]")
+        del tr, state, second, handle
+        return counts
+    finally:
+        tmp.cleanup()
+        torch.cuda.empty_cache()
+
+
+#: serve-telemetry's fleet: the first requests of routing trace 11
+TELEMETRY_FLEET_REQUESTS = 16
+#: the event kinds and fields the CPU tests hold to the JAX batcher's
+SERVE_EVENT_FIELDS = {
+    "request_admitted": {"uid", "slot", "prompt_tokens", "budget"},
+    "request_done": {"uid", "slot", "new_tokens", "reason", "ttft_s",
+                     "duration_s"},
+    ("span", "prefill"): {"span", "slot", "tokens", "dispatch_s"},
+    ("span", "decode"): {"span", "steps", "slots", "tokens", "dur_s",
+                         "weight_dtype", "weight_bytes", "tp"},
+}
+SERVE_GAUGES = {"pages_free", "pages_shared", "live_slots", "queue_depth"}
+
+
+def phase_serve_telemetry(model, card: str) -> None:
+    """Phase 4's serving with and without the batcher's logger, then a
+    fleet with the router's logger and watchdog and the journal's logger
+    (see the module docstring)."""
+    import os
+    import tempfile
+
+    from apex_tpu_torch.fleet import FleetPolicy, FleetRouter, RequestJournal
+    from apex_tpu_torch.resilience import Watchdog, read_heartbeat
+    from apex_tpu_torch.serving import Request
+    from apex_tpu_torch.telemetry import MetricsLogger
+    from apex_tpu_torch.tools.load_gen import make_trace, replay
+
+    cfg = model.config
+    plens = np.linspace(32, 512, 8).astype(int)
+    rng = np.random.RandomState(0)
+    reqs = [Request(uid=i, prompt=rng.randint(1, cfg.vocab_size, n).tolist(),
+                    max_new_tokens=32) for i, n in enumerate(plens)]
+    log(f"[serve-telemetry] phase 4's flagship bf16 serving (8 requests x "
+        f"32 tokens, 4 slots, replayed decode) with and without a "
+        f"MetricsLogger; {card}")
+    with tempfile.TemporaryDirectory(prefix="telemetry-") as root:
+        out = {}
+        # without and with the logger, twice, alternating (both logged
+        # runs append to one JSONL)
+        for mode in ("no logger", "logger", "no logger again",
+                     "logger again"):
+            tlm = (None if mode.startswith("no") else MetricsLogger(
+                jsonl_path=os.path.join(root, "serve.jsonl"), console=False))
+            comps, wall, prefill_s, b = serve(model, reqs, 512, 64, 4, 9,
+                                              logger=tlm)
+            host = 0.0
+            if tlm is not None:
+                tlm.close()
+                host = tlm.overhead_s
+            out[mode] = ({u: c.tokens for u, c in comps.items()},
+                         (wall - sum(prefill_s)) / b.steps, b.steps, host)
+        toks = out["no logger"][0]
+        for mode, (t, _, _, _) in out.items():
+            if t != toks:
+                fail(f"serve-telemetry: the tokens with {mode} differ from "
+                     "the unlogged run's")
+        recs = [json.loads(x) for x in open(os.path.join(root,
+                                                          "serve.jsonl"))]
+        seen, gauges = {}, set()
+        for r in recs:
+            if r["kind"] == "meters":
+                gauges |= set(r.get("gauges", {}))
+            if r["kind"] != "event":
+                continue
+            key = (r["event"] if r["event"] != "span"
+                   else ("span", r["span"]))
+            seen.setdefault(key, set()).update(
+                k for k in r if k not in ("t", "kind", "event"))
+        for key, fields in SERVE_EVENT_FIELDS.items():
+            if seen.get(key) != fields:
+                fail(f"serve-telemetry: {key} records carry "
+                     f"{sorted(seen.get(key, ()))}, not {sorted(fields)}")
+        decode = [r for r in recs if r.get("span") == "decode"]
+        done = [r for r in recs if r.get("event") == "request_done"]
+        if sum(r["tokens"] for r in decode) + len(done) != \
+                2 * (len(reqs) * 32 + 3) or gauges != SERVE_GAUGES:
+            fail(f"serve-telemetry: decode spans carry "
+                 f"{sum(r['tokens'] for r in decode)} tokens for "
+                 f"{len(done)} completions; gauges {sorted(gauges)}")
+        log("  decode ms/step (4 slots, replayed), alternating: "
+            + ", ".join(f"{m} {1e3 * s:.3f}"
+                        for m, (_, s, _, _) in out.items())
+            + "; the logger's own host time a decode step (with the warm-up "
+            "request's): " + ", ".join(
+                f"{1e3 * h / n:.4f} ms" for m, (_, _, n, h) in out.items()
+                if h)
+            + f"; the same tokens; {len(recs)} records, events "
+            f"{sorted(str(k) for k in seen)}, gauges {sorted(gauges)} "
+            f"[{card}]")
+        # the fleet: router logger + watchdog, journal logger
+        bank = FleetPools(model, FLEET_PAGE, FLEET_MAXP)
+        bank.fns = model.decode_fns(bank.config(), max_prompt_len=FLEET_MAXP,
+                                    prefill_chunk=FLEET_CHUNK)
+        trace = make_trace(seed=11, vocab_size=cfg.vocab_size,
+                           **FLEET_ROUTE)[:TELEMETRY_FLEET_REQUESTS]
+        plain = FleetRouter(bank.replicas(), FleetPolicy())
+        replay(plain, trace)
+        fleet_healthy("serve-telemetry fleet (no logger)", plain)
+        path = os.path.join(root, "fleet.jsonl")
+        hb = os.path.join(root, "heartbeat.json")
+        tlm = MetricsLogger(jsonl_path=path, console=False).attach_events()
+        reps = bank.replicas()
+        for r in reps:
+            r.batcher.logger = tlm
+        with Watchdog(deadline_s=300, heartbeat_file=hb) as wd:
+            logged = FleetRouter(
+                reps, FleetPolicy(), logger=tlm, watchdog=wd,
+                journal=RequestJournal(os.path.join(root, "journal.jsonl"),
+                                       logger=tlm))
+            t0 = time.perf_counter()
+            replay(logged, trace)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            logged.journal.close()
+        tlm.close()
+        fleet_healthy("serve-telemetry fleet (logged)", logged)
+        if fleet_tokens(logged) != fleet_tokens(plain):
+            fail("serve-telemetry: the logged fleet's tokens differ from "
+                 "the unlogged fleet's")
+        recs = [json.loads(x) for x in open(path)]
+        kinds = {r["event"] for r in recs if r["kind"] == "event"}
+        for kind in ("request_routed", "request_admitted", "span",
+                     "prefix_hit", "request_done", "trace_request"):
+            if kind not in kinds:
+                fail(f"serve-telemetry: no {kind} event from the fleet "
+                     f"({sorted(kinds)})")
+        beat = read_heartbeat(hb)
+        if beat is None or beat.get("replica") not in ("r0", "r1"):
+            fail(f"serve-telemetry: the heartbeat names no replica: {beat}")
+        report = subprocess.run(
+            [sys.executable, os.path.join(os.path.dirname(
+                os.path.abspath(__file__)), "tools", "metrics_report.py"),
+             path], capture_output=True, text=True, timeout=120)
+        if report.returncode != 0:
+            fail(f"serve-telemetry: metrics_report failed: "
+                 f"{report.stderr[-400:]}")
+        log(f"  fleet ({len(trace)} requests of trace 11, 2 x 2 slots): the "
+            f"unlogged fleet's tokens; {len(recs)} records, events "
+            f"{sorted(kinds)}; heartbeat names {beat['replica']} at fleet "
+            f"step {beat.get('step')}; wall {wall:.2f} s [{card}]")
+        del bank, plain, logged, reps
+
+
+def phase_fault_drill(card: str) -> None:
+    """``apex_tpu_torch.tools.fault_drill`` as a subprocess on the card: the
+    2-layer trainer killed with SIGKILL during ``save_async``, the
+    surviving checkpoints verified, the next life resumed from the last
+    valid step."""
+    import os
+    import tempfile
+
+    log(f"[fault-drill] python -m apex_tpu_torch.tools.fault_drill "
+        f"--device cuda (2-layer trainer, save_async each step); {card}")
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="drill-") as root:
+        try:
+            out = subprocess.run(
+                [sys.executable, "-m", "apex_tpu_torch.tools.fault_drill",
+                 "--root", os.path.join(root, "ck"), "--device", "cuda",
+                 "--steps", "4", "--kill-after-saves", "2"],
+                cwd=here, capture_output=True, text=True, timeout=400,
+                env=dict(os.environ, PYTHONPATH=here + os.pathsep
+                         + os.environ.get("PYTHONPATH", "")))
+        except subprocess.TimeoutExpired as e:
+            fail(f"fault-drill: timed out: {e}")
+    for line in out.stdout.splitlines():
+        if line.startswith("[fault-drill]"):
+            log("  " + line)
+    if out.returncode != 0 or "drill PASSED" not in out.stdout:
+        fail(f"fault-drill: exit {out.returncode}: {out.stdout[-1500:]} "
+             f"{out.stderr[-1500:]}")
+
+
 SOURCES = {
     "ln_fwd": ("cuda", "apex_tpu_torch/csrc/layer_norm.cu",
                "apex_tpu/ops/layer_norm.py:66"),
@@ -8759,6 +9292,7 @@ def main() -> None:
     chunked_counts = timed("serve-chunked", phase_serve_chunked, model)
     spec_counts = timed("serve-spec", phase_serve_spec, model)
     timed("fleet", phase_fleet, model, card)
+    timed("serve-telemetry", phase_serve_telemetry, model, card)
     del model
     torch.cuda.empty_cache()
     softmax_counts = timed("fused-softmax", phase_fused_softmax, dev)
@@ -8781,6 +9315,7 @@ def main() -> None:
           "flagship, fused tail (O5, 8 x 1024)")
     del tr, batch
     torch.cuda.empty_cache()
+    timed("train-resilience", phase_train_resilience, dev, card)
     amp_counts = timed("train-amp", phase_train_amp, dev)
     long_counts, tr, batch = timed(
         "train-long", phase_train, dev, TRAIN_LONG, "train-long",
@@ -8847,6 +9382,7 @@ def main() -> None:
                          "short_bwd")))
     timed("resnet-parity", phase_resnet_parity, dev)
     timed("rn50-train", phase_rn50_train, dev)
+    timed("fault-drill", phase_fault_drill, card)
     # one record per kernel at its main path's shape; launches from the
     # path that carries it: the serving kernels from phase 4, the dequant
     # kernels and int8 pages from serve-quant, short_bwd from the s=384

@@ -226,8 +226,10 @@ def test_step_guard_thresholds_equal_jax(at_floor):
         pytest.fail("the JAX guard never raised")
     assert tg.total_bad == jg.total_bad
     assert guard.locate_nonfinite(grads) == ["w (nan x1/2)"]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        guard.StepGuard(autoresume=object())
+    # the rollback is ported (tests/test_torch_resilience.py holds it to
+    # JAX's): an AutoResume-like object is taken as it is
+    ar = object()
+    assert guard.StepGuard(autoresume=ar).autoresume is ar
     assert amp.StepGuard is guard.StepGuard
     assert amp.DivergenceError is guard.DivergenceError
 

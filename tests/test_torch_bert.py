@@ -335,13 +335,22 @@ def test_finetune_runs_on_cpu():
     ["--grad-compression", "int8"], ["--overlap-grad-sync"],
     ["--compress-ici-legs"], ["--metrics-jsonl", "m.jsonl"],
     ["--opt-level", "O2"]])
-def test_finetune_rejects_unported_flags(flag):
-    """The multi-chip flags raise naming their ROADMAP.md item; O2, ported
-    since, takes a CPU step with its loss scaler."""
+def test_finetune_rejects_unported_flags(flag, tmp_path):
+    """The multi-chip flags raise naming their ROADMAP.md item; O2 and
+    ``--metrics-jsonl``, ported since, take a CPU step (O2 with its loss
+    scaler; the JSONL gets the step's record)."""
+    import json
+
     argv = ["--device", "cpu", "--steps", "1"] + flag
-    if flag == ["--opt-level", "O2"]:
+    if flag[0] == "--metrics-jsonl":
+        argv[-1] = str(tmp_path / "m.jsonl")
+    if flag[0] in ("--opt-level", "--metrics-jsonl"):
         out = bert_finetune.main(argv)
         assert len(out["losses"]) == 1 and np.isfinite(out["losses"][0])
+        if flag[0] == "--metrics-jsonl":
+            (rec,) = map(json.loads, open(argv[-1]))
+            assert rec["kind"] == "step" and rec["run"] == "bert_finetune"
+            assert rec["loss"] == out["losses"][0]
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
         bert_finetune.main(argv)

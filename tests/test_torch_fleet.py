@@ -453,7 +453,59 @@ def test_replicas_must_share_page_size(sides):
         tfleet.FleetRouter(reps)
 
 
+#: fields that are wall times, left out where records are compared
+TIMES = ("t", "dur_s", "dispatch_s", "draft_s", "ttft_s", "duration_s",
+         "itl_ms")
+
+
+class Capture:
+    """A logger that records the events and gauges it is handed (wall
+    times left out) and a watchdog that records its beats."""
+
+    def __init__(self):
+        self.records = []
+
+    def event(self, kind, **fields):
+        self.records.append(("event", kind, {
+            k: v for k, v in fields.items() if k not in TIMES}))
+
+    def gauge(self, name, value):
+        self.records.append(("gauge", name, value))
+
+    def beat(self, step=None, extra=None):
+        self.records.append(("beat", step, dict(extra or {})))
+
+
+def _logged_replay(side, arg):
+    """Trace 11 through a 2-replica fleet whose router (and, for the
+    logger, every batcher) reports to a :class:`Capture`; r0 dies after
+    3 windows, so failover's events are in the stream."""
+    cap = Capture()
+    reps = _replicas(side)
+    if arg == "logger":
+        for r in reps:
+            r.batcher.logger = cap
+    router = side.fleet.FleetRouter(reps, side.fleet.FleetPolicy(),
+                                    **{arg: cap})
+    router.replicas[0].fail_after(3)
+    side.load.replay(router, _trace(side, 11))
+    return cap.records, _tokens(router)
+
+
 @pytest.mark.parametrize("arg", ["logger", "watchdog"])
 def test_router_logger_and_watchdog_wait_for_item_10(sides, arg):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tfleet.FleetRouter(_replicas(sides[1]), **{arg: object()})
+    """The router's ``logger=`` gets JAX's records (the router's events,
+    every batcher's events and gauges, the replay's ``trace_request``
+    records) in JAX's order, and ``watchdog=`` JAX's beats (one before
+    every pump, with the replica's serving fields), over a kill drill;
+    the tokens are the unlogged run's."""
+    (jrec, jtok), (trec, ttok) = (_logged_replay(s, arg) for s in sides)
+    kinds = {r[1] for r in trec}
+    if arg == "logger":
+        assert {"request_routed", "replica_dead", "request_migrated",
+                "request_admitted", "span", "request_done",
+                "trace_request", "pages_free", "queue_depth"} <= kinds
+    else:
+        assert {r[0] for r in trec} == {"beat"} and len(trec) > 10
+    assert trec == jrec
+    assert ttok == jtok == _tokens(_replay(sides[1], fail_after=3)[0])

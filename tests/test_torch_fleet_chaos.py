@@ -93,6 +93,7 @@ def sides():
                                  max_seqs=2, pages_per_seq=PPS,
                                  dtype=torch.float32)
         jax_side = types.SimpleNamespace(
+            model=lambda c, **kw: jm.decode_fns(params, mesh, c, **kw),
             kv=jkv, serve=jserve, fleet=jfleet, faults=jfaults, cfg=jcfg,
             pools=lambda: jkv.init_pools(jcfg),
             fns=jm.decode_fns(params, mesh, jcfg, max_prompt_len=MAXP,
@@ -101,7 +102,8 @@ def sides():
             kv=tkv, serve=tserve, fleet=tfleet, faults=tfaults, cfg=tcfg,
             pools=lambda: tkv.init_pools(tcfg, "cpu"),
             fns=tm.decode_fns(tcfg, max_prompt_len=MAXP,
-                              prefill_chunk=CHUNK), model=tm, runs={})
+                              prefill_chunk=CHUNK), model=tm, runs={},
+            decode_fns=tm.decode_fns)
         yield jax_side, port_side
     parallel_state.destroy_model_parallel()
     assert apex_tpu._compat.shard_map is original
@@ -451,8 +453,121 @@ def test_cancel_mid_speculation_window_is_safe(sides):
     assert b.spec_stats["accepted"] > 0
 
 
+class Capture:
+    """A batcher logger recording events and gauges, wall times left
+    out."""
+
+    TIMES = ("dur_s", "dispatch_s", "draft_s", "ttft_s", "duration_s")
+
+    def __init__(self):
+        self.records = []
+
+    def event(self, kind, **fields):
+        self.records.append(("event", kind, {
+            k: v for k, v in fields.items() if k not in self.TIMES}))
+
+    def gauge(self, name, value):
+        self.records.append(("gauge", name, value))
+
+
+def _spec_logged(side, jax_side):
+    """Monolithic prefill and chain speculation (an n-gram draft of 3)
+    through one batcher with a logger; one request cancelled mid-run."""
+    from apex_tpu.serving import NGramDraftSource as JNGram
+
+    NEW, K, maxp = 8, 3, 12
+    pps = -(-(maxp + NEW) // PAGE)
+    kv = side.kv
+    cfg = kv.KVCacheConfig(num_layers=2, num_heads=4, head_dim=16,
+                           num_pages=1 + 2 * pps, page_size=PAGE,
+                           max_seqs=2, pages_per_seq=pps,
+                           dtype=torch.float32 if side.kv is tkv
+                           else jnp.float32)
+    if side is jax_side:
+        fns = side.model(cfg, max_prompt_len=maxp, speculate_k=K)
+        pools, draft = kv.init_pools(cfg), JNGram(K)
+    else:
+        fns = side.decode_fns(cfg, max_prompt_len=maxp, speculate_k=K)
+        pools, draft = kv.init_pools(cfg, "cpu"), NGramDraftSource(K)
+    rng = np.random.RandomState(3)
+    reqs = []
+    for i, n in enumerate((12, 11, 10)):
+        pat = rng.randint(1, 256, (4,))
+        reqs.append(side.serve.Request(
+            uid=f"s{i}", prompt=[int(t) for t in np.tile(pat, 3)[:n]],
+            max_new_tokens=NEW))
+    cap = Capture()
+    b = side.serve.ContinuousBatcher(
+        fns.prefill, fns.decode, kv.PagedKVCache(cfg), pools,
+        max_prompt_len=maxp, harvest_every=3, spec_fn=fns.spec,
+        speculate_k=K, draft_source=draft, logger=cap)
+    q = collections.deque(reqs)
+    b.pump(q)
+    b.cancel("s0")
+    while b.live_slots or q:
+        b.pump(q)
+    return cap.records, {u: c.tokens for u, c in b.completions.items()}
+
+
+def test_batcher_logger_matches_jax(sides):
+    """The batcher's ``logger=`` records on a speculative, monolithic
+    run with a cancel are JAX's: admissions, prefill and decode spans
+    (with the weight stream's fields), one ``spec_accept`` a verify step,
+    completions, the cancel, the gauges."""
+    j, t = (_spec_logged(s, sides[0]) for s in sides)
+    assert t[1] == j[1]
+    kinds = [r[1] for r in t[0]]
+    for k in ("request_admitted", "span", "spec_accept", "request_done",
+              "request_cancelled", "pages_free", "live_slots"):
+        assert k in kinds
+    assert t[0] == j[0]
+
+
+def _seam_drill(name, ckpt, faults, root, tree):
+    """One checkpoint write fault over a package's seams: the save lands
+    anyway (a retry, the parked copy put back, a SIGTERM that only
+    marks); returns what each package must agree on."""
+    import os
+    import signal
+
+    path = os.path.join(root, "ck")
+    ckpt.save(path, tree)                     # the copy an overwrite parks
+    got = []
+    if name == "sigterm_on_write":
+        prev = signal.signal(signal.SIGTERM, lambda *a: got.append("TERM"))
+        try:
+            with faults.sigterm_on_write(2) as patch:
+                ckpt.save(path, tree)
+        finally:
+            signal.signal(signal.SIGTERM, prev)
+        got.append(patch.write_count)
+    elif name == "failing_writes":
+        with faults.failing_writes(1) as patch:
+            ckpt.save(path, tree)
+        got += [patch.write_count, patch.matched_writes[0]]
+    else:
+        with faults.failing_renames(1) as count:
+            ckpt.save(path, tree)
+        got.append(count[0])
+    got.append(ckpt.verify(path))
+    got.append(sorted(os.listdir(root)))
+    return got
+
+
 @pytest.mark.parametrize("name", ["failing_writes", "failing_renames",
                                   "sigterm_on_write"])
-def test_checkpoint_seams_wait_for_item_10(name):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        getattr(tfaults, name)(1)
+def test_checkpoint_seams_wait_for_item_10(name, tmp_path, monkeypatch):
+    """The checkpoint write seams, ported with the checkpoint: under each
+    fault the port's save does what JAX's does (the same write-opens, one
+    injected failure retried, the SIGTERM delivered mid-save) and the
+    checkpoint verifies."""
+    from apex_tpu import checkpoint as jckpt
+    from apex_tpu_torch import checkpoint as tckpt
+
+    monkeypatch.setenv("APEX_TPU_IO_BACKOFF_BASE", "0.001")
+    tree = {"w": np.arange(6, dtype=np.float32), "n": np.int32(3)}
+    jgot = _seam_drill(name, jckpt, jfaults, str(tmp_path / "j"), tree)
+    tgot = _seam_drill(name, tckpt, tfaults, str(tmp_path / "t"),
+                       {"w": torch.arange(6, dtype=torch.float32),
+                        "n": torch.tensor(3, dtype=torch.int32)})
+    assert tgot == jgot and jgot[-2] == []

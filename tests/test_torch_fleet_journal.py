@@ -213,8 +213,12 @@ def test_unjournalable_uid_and_logger(tmp_path):
                   slo="interactive", replica="r0", t_arrive=0.0)
     with pytest.raises(ValueError, match="uids must be str or int"):
         j.admit(e)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tfleet.RequestJournal(str(tmp_path / "k.jsonl"), logger=object())
+    # the logger is kept, as JAX's journal keeps it
+    logger = object()
+    assert tfleet.RequestJournal(str(tmp_path / "k.jsonl"),
+                                 logger=logger).logger is logger
+    assert jfleet.RequestJournal(str(tmp_path / "l.jsonl"),
+                                 logger=logger).logger is logger
     assert tfleet.recover_journal(str(tmp_path / "none.jsonl")).entries == {}
 
 

@@ -205,18 +205,32 @@ def test_trainer_loss_falls_on_cpu():
     ["--grad-compression", "int8"], ["--overlap-grad-sync"],
     ["--trace-dir", "t"], ["--num-experts", "4"], ["--data", "x.bin"],
     ["--checkpoint-dir", "ck"], ["--opt-level", "O2"]])
-def test_trainer_rejects_unported_flags(flag):
+def test_trainer_rejects_unported_flags(flag, tmp_path):
     """The multi-chip flags raise naming their ROADMAP.md item; the fp16
-    level O2, ported since, takes a CPU step (fp16 parameters, fp32 norms
-    and masters, the dynamic loss scaler)."""
+    level O2 and the data, checkpoint and trace flags, ported since, take
+    a CPU step (O2: fp16 parameters, fp32 norms and masters, the dynamic
+    loss scaler; ``--data`` a token file; ``--checkpoint-dir`` the last
+    step's checkpoint; ``--trace-dir`` the armed trigger)."""
+    from apex_tpu_torch import checkpoint
+    from apex_tpu_torch.data import write_token_file
+
     argv = ["--device", "cpu", "--layers", "1", "--hidden", "32", "--heads",
             "1", "--vocab", "64", "--seq", "16", "--steps", "1"] + flag
-    if flag == ["--opt-level", "O2"]:
-        out = gpt_pretrain.main(argv)
-        assert len(out["losses"]) == 1 and np.isfinite(out["losses"][0])
+    ported = {"--opt-level", "--data", "--checkpoint-dir", "--trace-dir"}
+    if flag[0] not in ported:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
+            gpt_pretrain.main(argv)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        gpt_pretrain.main(argv)
+    argv[-1] = str(tmp_path / flag[1]) if flag[0] != "--opt-level" \
+        else flag[1]
+    if flag[0] == "--data":
+        write_token_file(argv[-1], np.arange(200) % 64)
+    out = gpt_pretrain.main(argv)
+    assert len(out["losses"]) == 1 and np.isfinite(out["losses"][0])
+    if flag[0] == "--checkpoint-dir":
+        assert checkpoint.verify(str(tmp_path / "ck" / "step_0")) == []
+    if flag[0] == "--trace-dir":
+        assert (tmp_path / "t" / "TRACE_REQUEST").parent.is_dir()
 
 
 def test_trainer_and_model_default_to_the_gpu(monkeypatch):

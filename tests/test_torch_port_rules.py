@@ -461,11 +461,16 @@ def test_decode_rows_and_tree_count_under_their_own_names():
     "models.t5", "models.resnet", "utils.convnet", "parallel",
     "parallel.sync_batchnorm", "contrib.xentropy", "examples.imagenet_amp",
     "serving.graphs", "fleet", "fleet.router", "fleet.failover",
-    "fleet.journal", "resilience.faults", "tools.load_gen"])
+    "fleet.journal", "resilience.faults", "tools.load_gen",
+    "telemetry", "telemetry.events", "telemetry.metrics", "telemetry.spans",
+    "transformer.log_util", "resilience", "resilience.retry",
+    "resilience.watchdog", "csrc", "checkpoint", "utils.autoresume",
+    "data", "transformer.data", "tools.fault_drill"])
 def test_new_modules_are_port_files(module):
     """The modules of the serving slice, the softmax entry point, the
-    PRNG and dropout, T5, ResNet and their helpers, and the fleet tier are
-    in the package (so the import rule above covers them)."""
+    PRNG and dropout, T5, ResNet and their helpers, the fleet tier, and
+    the telemetry, resilience and checkpoint tier are in the package (so
+    the import rule above covers them)."""
     path = ROOT / "apex_tpu_torch" / (module.replace(".", "/") + ".py")
     if not path.exists():
         path = path.with_suffix("") / "__init__.py"

@@ -325,7 +325,15 @@ def test_flops_per_image_counts_every_conv(monkeypatch):
     assert len(counted) == 1 + 16 * 3 + 4
 
 
-def test_imagenet_example_trains_two_steps_on_the_cpu(capsys):
+def test_imagenet_example_trains_two_steps_on_the_cpu(capsys, tmp_path):
+    """Two steps and a validation pass; then the checkpoint and metrics
+    flags: ``--resume`` needs ``--checkpoint-dir``, an epoch's checkpoint
+    (and ``best.ckpt``) verifies, and the JSONL holds a step record a
+    step and the save events."""
+    import json
+
+    from apex_tpu_torch import checkpoint
+
     out = imagenet_amp.main([
         "--depth", "18", "--batch-size", "4", "--image-size", "32",
         "--num-classes", "10", "--steps-per-epoch", "2", "--eval-steps",
@@ -335,10 +343,21 @@ def test_imagenet_example_trains_two_steps_on_the_cpu(capsys):
     assert 0.0 <= out["prec1"] <= out["prec5"] <= 100.0
     text = capsys.readouterr().out
     assert "prec@1" in text and "val:" in text
-    for flag in (["--resume"], ["--checkpoint-dir", "x"],
-                 ["--metrics-jsonl", "m.jsonl"]):
-        with pytest.raises(NotImplementedError, match="queue A item 10"):
-            imagenet_amp.main(flag + ["--device", "cpu"])
+    with pytest.raises(SystemExit, match="--resume needs --checkpoint-dir"):
+        imagenet_amp.main(["--resume", "--device", "cpu"])
+    ck, jsonl = tmp_path / "ck", tmp_path / "m.jsonl"
+    out = imagenet_amp.main([
+        "--depth", "18", "--batch-size", "2", "--image-size", "16",
+        "--num-classes", "10", "--steps-per-epoch", "2", "--eval-steps",
+        "1", "--device", "cpu", "--checkpoint-dir", str(ck),
+        "--metrics-jsonl", str(jsonl)])
+    best = out["best_prec1"] > 0          # a new best saves best.ckpt too
+    assert checkpoint.verify(str(ck / "step_0")) == []
+    assert (ck / "best.ckpt").is_dir() == best
+    recs = [json.loads(x) for x in jsonl.read_text().splitlines()]
+    assert [r["step"] for r in recs if r["kind"] == "step"] == [0, 1]
+    assert [r["event"] for r in recs if r["kind"] == "event"] == \
+        ["checkpoint_save"] * (1 + best)
 
 
 def test_imagenet_pool_is_the_jax_example_s():

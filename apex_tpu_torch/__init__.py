@@ -26,9 +26,27 @@ threefry2x32 PRNG, bit for bit), the hidden-dropout kernel
 (``ops.dropout``) and the attention kernels' dropout instances.  A fleet
 of serving replicas (``fleet``: routing, failover, the request journal,
 disaggregated prefill and decode, the host offload tier) serves on one
-GPU over the same step functions.
+GPU over the same step functions.  Training and serving checkpoint,
+resume and report through ``checkpoint``, ``resilience`` and
+``telemetry``.  apex's layer library is here too: ``normalization``
+(``FusedLayerNorm``, ``MixedFusedLayerNorm``, ``FusedRMSNorm`` over the
+layer norm kernels), ``mlp``, ``fused_dense``, ``reparameterization``
+(weight norm), ``rnn`` (JAX's cells and stacks), ``transformer.utils``,
+``testing``, and in ``contrib`` ``layer_norm``, ``groupbn``,
+``bottleneck``, ``transducer`` (its joint's dropout the dropout kernel)
+and ``sparsity``.  As in JAX, ``normalization``, ``fused_dense``,
+``mlp``, ``rnn`` and ``reparameterization`` are imported with the
+package; the rest on first import.
 """
 
-__all__ = ["amp", "contrib", "convert", "examples", "fleet", "models",
-           "multi_tensor_apply", "ops", "optimizers", "random", "resilience",
-           "serving", "telemetry", "transformer", "utils"]
+from apex_tpu_torch import normalization
+from apex_tpu_torch import fused_dense
+from apex_tpu_torch import mlp
+from apex_tpu_torch import rnn
+from apex_tpu_torch import reparameterization
+
+__all__ = ["amp", "checkpoint", "contrib", "convert", "data", "examples",
+           "fleet", "fp16_utils", "fused_dense", "mlp", "models",
+           "multi_tensor_apply", "normalization", "ops", "optimizers",
+           "parallel", "random", "reparameterization", "resilience", "rnn",
+           "serving", "telemetry", "testing", "transformer", "utils"]

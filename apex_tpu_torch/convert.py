@@ -45,6 +45,17 @@ bf16 tensor back).  fp16 leaves (the O1-O3 trees: fp16 weights, fp32 norms
 at O2) are numpy's own float16 and cross as they are, bit for bit, as do
 the fp32 masters of their optimizer state.
 
+The layer library's modules cross with :func:`layer_from_jax` and
+:func:`layer_to_jax`: the flax ``{"params": {"weight", "bias"}}`` of the
+three norm modules, ``MLP``'s list of ``{"weight", "bias"}`` (the port's
+layers are its children ``0``, ``1``, ...), ``fused_dense``'s
+``weight``/``bias`` and ``weight1``..``bias2``, an rnn cell's ``w_ih``,
+``w_hh``, ``bias``, ``w_mih``, ``w_mhh`` (a stack's list of cells as
+``0.w_ih``, ...), ``Bottleneck``'s ``conv1``..``conv_proj`` (HWIO) and
+``bn1.scale``.. (JAX's block normalizes with the batch's statistics and
+keeps no running ones), and ``BatchNorm2d_NHWC``'s parameters with its
+running statistics, which become the module's buffers.
+
 The optimizer state of the fused optimizers (``{"step", "exp_avg",
 "exp_avg_sq", "master"}``, each moment and master a tree shaped like the
 params, or with ``fused_tail=True`` a dict of packed buckets
@@ -65,7 +76,7 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_jax", "params_to_jax", "resnet_from_jax",
-           "resnet_to_jax", "optimizer_state_from_jax",
+           "resnet_to_jax", "layer_from_jax", "layer_to_jax", "optimizer_state_from_jax",
            "optimizer_state_to_jax", "scaler_state_from_jax",
            "scaler_state_to_jax"]
 
@@ -198,6 +209,22 @@ def resnet_to_jax(state: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
              if k.rsplit(".", 1)[-1] in STAT_LEAVES}
     params = {k: v for k, v in state.items() if k not in stats}
     return params_to_jax(params), params_to_jax(stats)
+
+
+def layer_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
+    """A JAX layer-library tree (numpy leaves) -> the port module's state
+    dict: a flax ``{"params": ...}`` unwrapped, lists as indices."""
+    if isinstance(tree, dict) and set(tree) == {"params"}:
+        tree = tree["params"]
+    return params_from_jax(tree)
+
+
+def layer_to_jax(state: Dict[str, torch.Tensor], flax: bool = False) -> Any:
+    """The port module's state dict -> the JAX tree (numpy leaves; a
+    list where the names are indices); ``flax=True`` wraps it as the
+    norm modules' ``{"params": ...}``."""
+    tree = params_to_jax(state)
+    return {"params": tree} if flax else tree
 
 
 def _is_packed(tree: Any) -> bool:

@@ -498,7 +498,8 @@ def mixed_dtype_fused_layer_norm_affine(
     normalized by the kernel (rounded to ``x``'s dtype), then ``xhat * w +
     b`` in fp32 and cast to ``weight.dtype``, as in JAX."""
     check_implementation(KERNEL, implementation)
-    xhat = _normalize(x, normalized_shape, eps, False)
+    hidden = _norm_size(normalized_shape)
+    xhat = _normalize(x, normalized_shape, eps, False).reshape(-1, hidden)
     out = (xhat.float() * weight.reshape(-1).float()
            + bias.reshape(-1).float())
-    return out.to(weight.dtype)
+    return out.to(weight.dtype).reshape(x.shape)

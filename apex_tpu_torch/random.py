@@ -52,7 +52,7 @@ from apex_tpu_torch.utils.platform import resolve_device
 
 __all__ = ["PRNGKey", "key_from_jax", "fold_in", "split", "bits", "uniform",
            "bernoulli", "threefry2x32", "bits_tensor", "uniform_tensor",
-           "seed_of", "fold_in_tensor", "keys_tensor", "threefry2x32_rows"]
+           "uniform_range_tensor", "seed_of", "fold_in_tensor", "keys_tensor", "threefry2x32_rows"]
 
 MASK32 = 0xFFFFFFFF
 #: the two rotation schedules of threefry2x32's five groups of 4 rounds
@@ -192,6 +192,19 @@ def uniform_tensor(key, shape: Shape, device=None) -> torch.Tensor:
     as the mantissa of a number in [1, 2), minus 1 (exact in fp32)."""
     b = bits_tensor(key, shape, device)
     return (b >> 9).to(torch.float32) * np.float32(2.0 ** -23)
+
+
+def uniform_range_tensor(key, shape: Shape, minval: float, maxval: float,
+                         device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)`` as a
+    float32 tensor: ``max(minval, u * (maxval - minval) + minval)`` with
+    the bounds and their span in fp32 and the product and sum rounded
+    once, as XLA fuses them on the CPU (the float64 product of two fp32
+    values is exact)."""
+    lo, hi = np.float32(minval), np.float32(maxval)
+    u = uniform_tensor(key, shape, device).double()
+    x = (u * float(hi - lo) + float(lo)).float()
+    return x.clamp_min(float(lo))
 
 
 def _key_rows(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

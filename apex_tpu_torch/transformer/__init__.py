@@ -3,8 +3,9 @@ from apex_tpu_torch.transformer import (
     functional,
     parallel_state,
     tensor_parallel,
+    utils,
 )
 from apex_tpu_torch.transformer.enums import AttnMaskType
 
 __all__ = ["AttnMaskType", "enums", "functional", "parallel_state",
-           "tensor_parallel"]
+           "tensor_parallel", "utils"]

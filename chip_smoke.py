@@ -379,6 +379,33 @@ cuBLAS's and ResNet's convolutions cuDNN's):
              step profiled; then a few steps of
              ``examples/imagenet_amp`` and its prec@1 / prec@5.
 
+apex's layer library (rows 1 and the dropout kernel):
+   library — each module forward+backward at full width, held against
+             its CPU copy on the same inputs (2 ulps of bf16 at the
+             largest magnitude for a kernel's output, 4 for a chain of
+             bf16 products, 1e-4 of the largest magnitude in fp32; the
+             bf16 Bottleneck and rnn stacks, whose two sides round
+             otherwise, each side against a float64 copy, the card's
+             error at most twice the CPU's), then ms a forward+backward
+             (the norms, dense layers and MLPs the median of 7 rounds
+             timed in alternation), peak memory and the launches: the four
+             norm modules (FusedLayerNorm, FastLayerNorm, FusedRMSNorm
+             with fp32 parameters, MixedFusedLayerNorm with bf16) on 8 x
+             1024 bf16 tokens at hidden 1024, ``ln_fwd`` and ``ln_bwd``
+             counted (beside ``F.layer_norm`` / ``F.rms_norm``);
+             FusedDenseGeluDense at BERT-large's FFN (8192 x 1024 -> 4096
+             -> 1024) and FusedDense 1024 -> 1024; apex's L0 MLP (480 ->
+             ... -> 1, batch 1024, relu and sigmoid); RN50's first-stage
+             and a stride-2 Bottleneck at batch 64 of 56 x 56 and
+             BatchNorm2d_NHWC with the fused residual and ReLU; LSTM and
+             mLSTM at hidden 4096, 256 steps, batch 32; the RNN-T joint
+             (relu, dropout 0.1 through the dropout kernel, counted) and
+             loss at MLPerf's widths (B 16, T 400, U 120, V 29, joint
+             512); the 1-D and 2-D sparsity masks of the flagship's fc1
+             and qkv, equal to the CPU's bit for bit (the 2-D near-tie
+             blocks counted), and one FusedAdam step through
+             ``ASP.wrap_optimizer_step``.
+
 Observing, checkpointing and resuming (no new kernel: rows 1, 8-9 and
 the multi-tensor tail):
    train-resilience — ``python -m apex_tpu_torch.examples.gpt_pretrain``'s
@@ -422,6 +449,7 @@ fp16 instances' names end in ``_f16``), and ``{"ok": true, "device":
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -443,6 +471,9 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float16: 989e12,
 #: and fp16 (O1-O3, the ``_f16`` sources); phase 2 holds and times each
 #: row in both, side by side
 SM90_DTYPES = (torch.bfloat16, torch.float16)
+#: profiler sessions ``profiled_ms`` opens before it falls back to CUDA
+#: events (a CUPTI session can come back without device records)
+PROFILE_TRIES = 3
 
 # the flagship GPT (bench.py FLAGSHIP): vocab 32768, 12 layers, hidden
 # 1024, 8 heads (head_dim 128), ffn 4096, learned positions up to 1024
@@ -1862,21 +1893,36 @@ def profiled_ms(fn, iters: int = 10) -> float:
     """Device ms per call of ``fn``: the kernels' device time summed by
     ``torch.profiler`` over ``iters`` calls after a warm-up.  For library
     calls through autograd, which are not captured in a CUDA graph here
-    and whose eager calls the host's launch rate can outlast."""
+    and whose eager calls the host's launch rate can outlast.
+
+    CUPTI now and then hands a session no device records at all.  Such a
+    session is profiled again, up to ``PROFILE_TRIES`` times; if none
+    sees device time, the calls are timed with CUDA events instead (the
+    host's gaps between the eager launches included, so an upper bound on
+    the device time), and the log says so."""
     from torch.profiler import ProfilerActivity, profile
+
+    def loop():
+        for _ in range(iters):
+            fn()
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    busy_us = sum(r[0] for r in device_rows(prof))
-    if busy_us == 0:
-        fail("profiled_ms: the profiler saw no device time")
-    return busy_us / 1e3 / iters
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            loop()
+            torch.cuda.synchronize()
+        busy_us = sum(r[0] for r in device_rows(prof))
+        if busy_us > 0:
+            return busy_us / 1e3 / iters
+        log(f"  profiled_ms: the profiler saw no device time (session "
+            f"{attempt} of {PROFILE_TRIES})")
+    ms = _events_ms(loop, iters)
+    log(f"  profiled_ms: timed with CUDA events instead: {ms:.4f} ms a "
+        f"call over {iters} eager calls (host gaps included)")
+    return ms
 
 
 def attention_train_kernels(randn) -> dict:
@@ -9088,6 +9134,569 @@ def phase_serve_telemetry(model, card: str) -> None:
         del bank, plain, logged, reps
 
 
+# ------------------------------------------------------- the layer library
+#: the norms' input: the flagship's and BERT-large's 8 x 1024 tokens at
+#: hidden 1024
+LIB_NORM = (8, 1024, 1024)
+#: BERT-large's FFN (8192 tokens, 1024 -> 4096 -> 1024) and a 1024 ->
+#: 1024 dense layer at the same tokens
+LIB_FFN = (8192, 1024, 4096)
+#: apex's own L0 MLP test configuration (tests/L0/run_mlp) at batch 1024
+LIB_MLP_SIZES, LIB_MLP_BATCH = [480, 1024, 1024, 512, 256, 1], 1024
+#: RN50's first-stage block and a stride-2 projection block, at batch 64
+#: of 56 x 56 as rn50-train runs: (c_in, c_mid, c_out, stride)
+LIB_BLOCKS = ((64, 64, 256, 1), (256, 128, 512, 2))
+LIB_BLOCK_BATCH, LIB_BLOCK_SIZE = 64, 56
+#: NVIDIA sentiment-discovery's mLSTM (the model apex.RNN was written
+#: for): a 64-wide byte embedding into hidden 4096, sequences of 256;
+#: batch 32 keeps the phase short
+LIB_RNN_IN, LIB_RNN_HIDDEN, LIB_RNN_SEQ, LIB_RNN_BATCH = 64, 4096, 256, 32
+#: MLPerf Training RNN-T: 29 symbols with the blank, joint width 512,
+#: B = 16, T = 400 frames, U = 120 labels
+LIB_RNNT = dict(b=16, t=400, u=120, v=29, h=512)
+#: the flagship's fc1 and qkv weights, (in, out)
+LIB_SPARSE = (("fc1", 1024, 4096), ("qkv", 1024, 3072))
+#: the band of a chain of bf16 products (GPU against the CPU on the same
+#: inputs): 4 bf16 ulps at the output's largest magnitude, as the two
+#: sides round each product's fp32 sums, taken in other orders
+LIB_CHAIN_ULPS = 4
+#: a bf16 module whose card and CPU round otherwise (convolutions and
+#: products summed in other orders, three batch norms' backward) is held
+#: through a float64 copy of its weights on the same inputs: the card's
+#: error against it at most this many times the CPU's, or two bf16 ulps
+#: at the largest magnitude where that is larger
+LIB_REF_FACTOR = 2.0
+#: rounds of :func:`lib_alternate` (the norms, the dense layers and their
+#: yardsticks)
+LIB_ROUNDS = 7
+
+
+def lib_timed(fn, n_warm: int = 3, n_timed: int = 10) -> tuple:
+    """``(ms a call, peak GiB, launch counts)`` of ``n_timed`` calls of
+    ``fn`` after ``n_warm``: the counts set to 0 just before and read
+    just after, the peak over the timed calls."""
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    for _ in range(n_warm):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    ms = _events_ms(lambda: [fn() for _ in range(n_timed)], n_timed)
+    counts = launch_counts()
+    return ms, torch.cuda.max_memory_allocated() / 2**30, counts
+
+
+def lib_alternate(fns: dict) -> dict:
+    """``{name: (ms of each round, peak GiB, counts of each round)}``:
+    :data:`LIB_ROUNDS` rounds, each timing every ``fns[name]`` once in
+    turn (:func:`lib_timed`), so that the host's jitter and the clocks'
+    ramp fall on all of them alike."""
+    out = {name: ([], 0.0, []) for name in fns}
+    for _ in range(LIB_ROUNDS):
+        for name, fn in fns.items():
+            ms, peak, counts = lib_timed(fn)
+            mss, top, seen = out[name]
+            out[name] = (mss + [ms], max(top, peak), seen + [counts])
+    return out
+
+
+def lib_spread(label: str, mss: list, yard_label: str = "",
+               yard_mss: list = ()) -> str:
+    """The log line of :func:`lib_alternate`'s rounds: each range, and
+    the ratio of the medians and of the least rounds to the yardstick."""
+    text = (f"    {len(mss)} alternated rounds of 10 calls: {label} "
+            f"{min(mss):.4f}-{max(mss):.4f} ms")
+    if yard_mss:
+        med, low = float(np.median(yard_mss)), min(yard_mss)
+        text += (f", {yard_label} {low:.4f}-{max(yard_mss):.4f} ms; "
+                 f"{label} / {yard_label}: medians "
+                 f"{float(np.median(mss)) / med if med else math.nan:.3g}, "
+                 f"least rounds {min(mss) / low if low else math.nan:.3g}")
+    return text
+
+
+def launched(counts: dict) -> dict:
+    """The kernels of ``counts`` that launched, by name."""
+    return {k: v for k, v in sorted(counts.items()) if v}
+
+
+def lib_band(label: str, got, want, ulps: float = 2.0) -> float:
+    """GPU against the CPU plain version: ``ulps`` ulps of a 16-bit type
+    at the largest magnitude, fp32 1e-4 of the largest magnitude (with a
+    floor of fp32's smallest normal, for a tensor of zeros)."""
+    want = want.to(got.device)
+    top = want.float().abs().max().item()
+    tol = (max(1e-4 * top, torch.finfo(torch.float32).tiny)
+           if want.dtype == torch.float32
+           else ulps * elem_ulp(top, want.dtype))
+    err = max_err(got, want)
+    if not math.isfinite(err) or err > tol:
+        fail(f"library {label}: max |GPU - CPU| = {err:.3g} > band "
+             f"{tol:.3g}")
+    return err
+
+
+def fwd_bwd(module, x, dy, *extra):
+    """One forward and backward of ``module`` on ``x`` (a leaf that
+    takes a gradient): ``(out, x.grad, {name: grad})``."""
+    module.zero_grad(set_to_none=True)
+    x = x.detach().requires_grad_()
+    out = module(x, *extra)
+    out.backward(dy)
+    return out.detach(), x.grad, {n: p.grad for n, p in
+                                  module.named_parameters()}
+
+
+def lib_check(label, gpu, x, dy, *extra, ulps: float = 2.0) -> float:
+    """``gpu`` and its CPU copy, forward and backward on the same inputs
+    (``x``/``dy`` on the card, copied): every output and gradient within
+    :func:`lib_band`."""
+    cpu = copy.deepcopy(gpu).to("cpu")
+    got = fwd_bwd(gpu, x, dy, *extra)
+    want = fwd_bwd(cpu, x.cpu(), dy.cpu(), *(e.cpu() for e in extra))
+    errs = [lib_band(f"{label} out", got[0], want[0], ulps),
+            lib_band(f"{label} dx", got[1], want[1], ulps)]
+    for name, g in got[2].items():
+        errs.append(lib_band(f"{label} d{name}", g, want[2][name], ulps))
+    return max(errs)
+
+
+def lib_check_ref(label, gpu, x, dy) -> str:
+    """``gpu`` (a bf16 module, the one that is timed) and its bf16 CPU
+    copy, forward and backward on the same inputs, each against a float64
+    copy of the same weights on the same inputs (on ``gpu``'s device: it
+    is the reference of the rounding; the fp32 check holds the
+    semantics).  Every output and gradient of the card within
+    :data:`LIB_REF_FACTOR` times the CPU's error, or two bf16 ulps at
+    the largest magnitude.  Returns the readings, in bf16 ulps at each
+    tensor's largest magnitude, for the log."""
+    cpu = copy.deepcopy(gpu).to("cpu")
+    ref = copy.deepcopy(gpu).to(torch.float64)
+    got = fwd_bwd(gpu, x, dy)
+    want = fwd_bwd(cpu, x.cpu(), dy.cpu())
+    exact = fwd_bwd(ref, x.double(), dy.double())
+    pairs = [("out", got[0], want[0], exact[0]),
+             ("dx", got[1], want[1], exact[1])]
+    pairs += [(f"d{n}", g, want[2][n], exact[2][n])
+              for n, g in got[2].items()]
+    ulps_gpu, ulps_cpu, ratio = {}, {}, 0.0
+    for what, g, c, e in pairs:
+        e = e.cpu()
+        top = e.abs().max().item()
+        ulp = elem_ulp(top, g.dtype)
+        e_gpu = (g.detach().cpu().double() - e).abs().max().item()
+        e_cpu = (c.detach().double() - e).abs().max().item()
+        tol = max(LIB_REF_FACTOR * e_cpu, 2 * ulp)
+        if not math.isfinite(e_gpu) or e_gpu > tol:
+            fail(f"library {label} {what}: the card's bf16 is {e_gpu:.3g} "
+                 f"from the float64 reference, the CPU's {e_cpu:.3g} (band "
+                 f"{tol:.3g})")
+        ulps_gpu[what], ulps_cpu[what] = e_gpu / ulp, e_cpu / ulp
+        if e_cpu:
+            ratio = max(ratio, e_gpu / e_cpu)
+    worst = max(ulps_gpu, key=ulps_gpu.get)
+    return (f"bf16 against float64: card/CPU out {ulps_gpu['out']:.3g}/"
+            f"{ulps_cpu['out']:.3g} ulps, dx {ulps_gpu['dx']:.3g}/"
+            f"{ulps_cpu['dx']:.3g}, worst {worst} {ulps_gpu[worst]:.3g}/"
+            f"{ulps_cpu[worst]:.3g}; card's error at most {ratio:.3g} x the "
+            f"CPU's (band {LIB_REF_FACTOR:g} x, or 2 ulps)")
+
+
+def phase_library(dev) -> dict:
+    """:func:`library_modules` with one CPU thread: the CPU copies'
+    OpenMP workers would otherwise spin on the host's cores through the
+    next module's timed (host-bound, eager) calls."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return library_modules(dev)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def library_modules(dev) -> dict:
+    """apex's layer library at full width, each module forward+backward
+    on the card: GPU against its CPU copy (the plain versions) on the
+    same inputs within the stated band, then ms a forward+backward, the
+    peak device memory and the launches of the timed calls; beside it
+    the one PyTorch call that computes the same function, as a yardstick
+    only.  bf16 weights and inputs (O5) where a module computes in its
+    parameters' dtype, fp32 parameters where JAX keeps fp32 (the norms'
+    O5 parameters, the batch norm's, the sparsity masks' weights)."""
+    import torch.nn.functional as F
+    from apex_tpu_torch import random as prng
+    from apex_tpu_torch.contrib import bottleneck, groupbn, sparsity
+    from apex_tpu_torch.contrib import layer_norm as contrib_ln
+    from apex_tpu_torch.contrib import transducer
+    from apex_tpu_torch.fused_dense import FusedDense, FusedDenseGeluDense
+    from apex_tpu_torch.mlp import MLP
+    from apex_tpu_torch.normalization import (FusedLayerNorm, FusedRMSNorm,
+                                              MixedFusedLayerNorm)
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch import rnn
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(23)
+    summary = {}
+    # the card has idled through the build: a second of products first,
+    # so the first module's timing does not pay for the clocks' ramp
+    a = torch.randn(4096, 4096, device=dev, dtype=bf16)
+    t0 = time.perf_counter()
+    while dev.type == "cuda" and time.perf_counter() - t0 < 1.0:
+        for _ in range(50):
+            a @ a
+        torch.cuda.synchronize()
+    del a
+
+    def randn(*shape, dtype=torch.float32, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale
+                + shift).to(dtype)
+
+    def report(name, shape, ms, peak, counts, err, yard=None):
+        summary[name] = dict(ms=ms, peak_gib=peak, counts=counts, err=err,
+                             library_ms=yard[1] if yard else None)
+        yard_txt = (f"; yardstick {yard[0]} {yard[1]:.4f} ms"
+                    if yard else "")
+        log(f"  {name} {shape}: {ms:.4f} ms a forward+backward, peak "
+            f"{peak:.2f} GiB, max |GPU - CPU| {err:.3g}{yard_txt}; "
+            f"launches {launched(counts)}")
+
+    def grad_call(call, leaves, dy):
+        def run():
+            torch.autograd.grad(call(), leaves, dy)
+        return run
+
+    def yardstick(call, leaves, dy):
+        return lib_timed(grad_call(call, leaves, dy))[0]
+
+    # ---- the norms over the ln_fwd / ln_bwd kernels
+    b, s, hidden = LIB_NORM
+    log(f"[library] norms: {b} x {s} tokens at hidden {hidden}, bf16 input; "
+        "FusedLayerNorm, FastLayerNorm, FusedRMSNorm fp32 parameters, "
+        "MixedFusedLayerNorm bf16 parameters")
+    x = randn(b, s, hidden, dtype=bf16, scale=3.0, shift=0.5)
+    dy = randn(b, s, hidden, dtype=bf16)
+    norms = (("FusedLayerNorm", FusedLayerNorm, torch.float32, False),
+             ("FastLayerNorm", contrib_ln.FastLayerNorm, torch.float32,
+              False),
+             ("FusedRMSNorm", FusedRMSNorm, torch.float32, True),
+             ("MixedFusedLayerNorm", MixedFusedLayerNorm, bf16, False))
+    built, fns = [], {}
+    for name, cls, pdt, rms in norms:
+        m = cls(hidden, param_dtype=pdt, device=dev)
+        with torch.no_grad():
+            m.weight.copy_(randn(hidden, scale=0.1, shift=1.0))
+            if m.bias is not None:
+                m.bias.copy_(randn(hidden, scale=0.1))
+        err = lib_check(name, m, x[0, :64], dy[0, :64])
+        xl = x.detach().requires_grad_()
+        wl = m.weight.detach().to(bf16).requires_grad_()
+        bl = (None if m.bias is None
+              else m.bias.detach().to(bf16).requires_grad_())
+        if rms:
+            yard = "F.rms_norm"
+            fns[(name, yard)] = grad_call(
+                lambda xl=xl, wl=wl: F.rms_norm(xl, (hidden,), wl, 1e-5),
+                (xl, wl), dy)
+        else:
+            yard = "F.layer_norm"
+            fns[(name, yard)] = grad_call(
+                lambda xl=xl, wl=wl, bl=bl: F.layer_norm(
+                    xl, (hidden,), wl, bl, 1e-5), (xl, wl, bl), dy)
+        fns[name] = lambda m=m: fwd_bwd(m, x, dy)
+        built.append((name, err, yard))
+    times = lib_alternate(fns)
+    for name, err, yard in built:
+        mss, peak, seen = times[name]
+        for kernel in ("ln_fwd", "ln_bwd"):
+            least = min(c.get(kernel, 0) for c in seen)
+            if least < 10:
+                fail(f"library {name}: {kernel} launched {least} times in "
+                     "10 forward+backward calls (a plain fallback would "
+                     "launch none)")
+        yard_mss = times[(name, yard)][0]
+        report(name, f"({b}, {s}, {hidden})", float(np.median(mss)), peak,
+               seen[-1], err, (yard, float(np.median(yard_mss))))
+        summary[name]["ms_range"] = (min(mss), max(mss))
+        log(lib_spread("module", mss, yard, yard_mss))
+    del built, fns, m, x, dy
+
+    # ---- the dense layers
+    tokens, d_model, d_ff = LIB_FFN
+    log(f"[library] fused_dense: {tokens} tokens, FusedDenseGeluDense "
+        f"{d_model} -> {d_ff} -> {d_model} (BERT-large's FFN) and FusedDense "
+        f"{d_model} -> {d_model}, bf16")
+    x = randn(tokens, d_model, dtype=bf16)
+    built, fns = [], {}
+    for name, m, out in (
+            ("FusedDenseGeluDense", FusedDenseGeluDense(
+                d_model, d_ff, d_model, params_dtype=bf16, device=dev,
+                key=prng.PRNGKey(1)), d_model),
+            ("FusedDense", FusedDense(d_model, d_model, params_dtype=bf16,
+                                      device=dev, key=prng.PRNGKey(2)),
+             d_model)):
+        dy = randn(tokens, out, dtype=bf16)
+        err = lib_check(name, m, x[:64], dy[:64], ulps=LIB_CHAIN_ULPS)
+        xl = x.detach().requires_grad_()
+        if name == "FusedDense":
+            yard = "F.linear"
+            w, bb = (t.detach().requires_grad_() for t in (m.weight, m.bias))
+            fns[(name, yard)] = grad_call(
+                lambda xl=xl, w=w, bb=bb: F.linear(xl, w.t(), bb),
+                (xl, w, bb), dy)
+        else:
+            yard = "F.linear + F.gelu"
+            ps = [t.detach().requires_grad_() for t in
+                  (m.weight1, m.bias1, m.weight2, m.bias2)]
+            fns[(name, yard)] = grad_call(
+                lambda xl=xl, ps=ps: F.linear(
+                    F.gelu(F.linear(xl, ps[0].t(), ps[1]),
+                           approximate="tanh"), ps[2].t(), ps[3]),
+                [xl] + ps, dy)
+        fns[name] = lambda m=m, dy=dy: fwd_bwd(m, x, dy)
+        built.append((name, err, yard))
+    times = lib_alternate(fns)
+    for name, err, yard in built:
+        mss, peak, seen = times[name]
+        yard_mss = times[(name, yard)][0]
+        report(name, f"({tokens}, {d_model})", float(np.median(mss)), peak,
+               seen[-1], err, (yard, float(np.median(yard_mss))))
+        summary[name]["ms_range"] = (min(mss), max(mss))
+        log(lib_spread("module", mss, yard, yard_mss))
+    del built, fns, m, x, dy
+
+    # ---- the MLP
+    log(f"[library] MLP {LIB_MLP_SIZES}, batch {LIB_MLP_BATCH}, bf16")
+    x = randn(LIB_MLP_BATCH, LIB_MLP_SIZES[0], dtype=bf16)
+    dy = randn(LIB_MLP_BATCH, LIB_MLP_SIZES[-1], dtype=bf16)
+    errs, fns = {}, {}
+    for act in ("relu", "sigmoid"):
+        m = MLP(LIB_MLP_SIZES, activation=act, params_dtype=bf16, device=dev,
+                key=prng.PRNGKey(3))
+        errs[act] = lib_check(f"MLP {act}", m, x[:64], dy[:64],
+                              ulps=LIB_CHAIN_ULPS)
+        fns[act] = lambda m=m: fwd_bwd(m, x, dy)
+    times = lib_alternate(fns)
+    for act, (mss, peak, seen) in times.items():
+        report(f"MLP {act}", f"({LIB_MLP_BATCH}, {LIB_MLP_SIZES[0]})",
+               float(np.median(mss)), peak, seen[-1], errs[act])
+        summary[f"MLP {act}"]["ms_range"] = (min(mss), max(mss))
+        log(lib_spread("module", mss))
+    del fns, m, x, dy
+
+    # ---- the bottleneck blocks and the NHWC batch norm
+    nb, size = LIB_BLOCK_BATCH, LIB_BLOCK_SIZE
+    log(f"[library] Bottleneck {LIB_BLOCKS} and BatchNorm2d_NHWC (fused "
+        f"residual + ReLU, fp32 parameters), batch {nb} of {size} x {size}, "
+        "bf16; GPU against the CPU at batch 2 (the statistics are the "
+        "batch's), the block in fp32, and the timed bf16 block with its "
+        "CPU copy against a float64 copy")
+    for c_in, c_mid, c_out, stride in LIB_BLOCKS:
+        gcpu = torch.Generator().manual_seed(c_in)
+        m = bottleneck.Bottleneck(c_in, c_mid, c_out, stride, device="cpu",
+                                  generator=gcpu).to(dev)
+        x = randn(2, size, size, c_in)
+        dy = randn(2, size // stride, size // stride, c_out)
+        err = lib_check(f"Bottleneck {c_in}->{c_out}/{stride} fp32", m, x,
+                        dy)
+        m = m.to(bf16)
+        ref = lib_check_ref(f"Bottleneck {c_in}->{c_out}/{stride}", m,
+                            x.to(bf16), dy.to(bf16))
+        x = randn(nb, size, size, c_in, dtype=bf16)
+        dy = randn(nb, size // stride, size // stride, c_out, dtype=bf16)
+        ms, peak, counts = lib_timed(lambda: fwd_bwd(m, x, dy))
+        report(f"Bottleneck {c_in}->{c_mid}->{c_out} stride {stride}",
+               f"({nb}, {size}, {size}, {c_in})", ms, peak, counts, err)
+        log(f"    {ref}")
+        del m
+    c = LIB_BLOCKS[0][2]
+    bn = groupbn.BatchNorm2d_NHWC(c, fuse_relu=True, device=dev)
+    with torch.no_grad():
+        bn.weight.copy_(randn(c, scale=0.1, shift=1.0))
+        bn.bias.copy_(randn(c, scale=0.1))
+    x = randn(nb, size, size, c, dtype=bf16)
+    z = randn(nb, size, size, c, dtype=bf16)
+    dy = randn(nb, size, size, c, dtype=bf16)
+    bn_cpu = copy.deepcopy(bn).to("cpu")
+    err = lib_check("BatchNorm2d_NHWC", bn, x[:2], dy[:2], z[:2])
+    bn_cpu(x[:2].cpu(), z[:2].cpu())
+    for name in ("running_mean", "running_var"):
+        err = max(err, lib_band(f"BatchNorm2d_NHWC {name}",
+                                getattr(bn, name), getattr(bn_cpu, name)))
+    ms, peak, counts = lib_timed(lambda: fwd_bwd(bn, x, dy, z))
+    xl = x.detach().requires_grad_()
+    w, bb = (t.detach().requires_grad_() for t in (bn.weight, bn.bias))
+    yard = ("F.batch_norm + add + relu", yardstick(
+        lambda: F.relu(F.batch_norm(
+            xl.permute(0, 3, 1, 2), None, None, w, bb, True, 0.1,
+            1e-5).permute(0, 2, 3, 1) + z), (xl, w, bb), dy))
+    report("BatchNorm2d_NHWC", f"({nb}, {size}, {size}, {c})", ms, peak,
+           counts, err, yard)
+    del bn, bn_cpu, x, z, dy
+
+    # ---- the rnn stacks
+    log(f"[library] rnn LSTM and mLSTM, input {LIB_RNN_IN}, hidden "
+        f"{LIB_RNN_HIDDEN}, {LIB_RNN_SEQ} steps, batch {LIB_RNN_BATCH}, bf16 "
+        "(GPU against the CPU in fp32 over 8 steps at batch 2, and the "
+        "timed bf16 stack with its CPU copy against a float64 copy)")
+    for kind in ("LSTM", "mLSTM"):
+        make = getattr(rnn, kind)
+        m32 = make(LIB_RNN_IN, LIB_RNN_HIDDEN, device=dev,
+                   key=prng.PRNGKey(4))
+        xs = randn(8, 2, LIB_RNN_IN)
+        dys = randn(8, 2, LIB_RNN_HIDDEN)
+        err = lib_check(f"{kind} fp32", m32, xs, dys)
+        m = m32.to(bf16)
+        del m32
+        ref = lib_check_ref(kind, m, xs.to(bf16), dys.to(bf16))
+        xs = randn(LIB_RNN_SEQ, LIB_RNN_BATCH, LIB_RNN_IN, dtype=bf16)
+        dys = randn(LIB_RNN_SEQ, LIB_RNN_BATCH, LIB_RNN_HIDDEN, dtype=bf16)
+        ms, peak, counts = lib_timed(lambda: fwd_bwd(m, xs, dys), 1, 3)
+        report(kind, f"({LIB_RNN_SEQ}, {LIB_RNN_BATCH}, {LIB_RNN_IN}) -> "
+               f"{LIB_RNN_HIDDEN}", ms, peak, counts, err)
+        log(f"    {ref}")
+        del m, xs, dys
+    torch.cuda.empty_cache()
+
+    # ---- the transducer: the joint's dropout through ops.dropout
+    p = LIB_RNNT
+    log(f"[library] transducer: B {p['b']}, T {p['t']}, U {p['u']}, V "
+        f"{p['v']}, joint width {p['h']} (MLPerf RNN-T), bf16 joint with "
+        f"ReLU and dropout {DROP_RATE}, a {p['h']} -> {p['v']} projection, "
+        "the fp32 loss")
+    joint = transducer.TransducerJoint(relu=True, dropout=DROP_RATE)
+    loss_fn = transducer.TransducerLoss()
+    w_out = randn(p["h"], p["v"], dtype=bf16, scale=p["h"] ** -0.5)
+    key = prng.PRNGKey(5)
+
+    def rnnt_loss(f, g, labels, f_len, y_len, w):
+        h = joint(f, g, rng=key)
+        return loss_fn(torch.matmul(h, w), labels, f_len, y_len).mean()
+
+    def rnnt_inputs(b, t, u):
+        f = randn(b, t, p["h"], dtype=bf16).requires_grad_()
+        g = randn(b, u + 1, p["h"], dtype=bf16).requires_grad_()
+        labels = torch.randint(1, p["v"], (b, u), generator=gen, device=dev)
+        f_len = torch.full((b,), t, device=dev)
+        f_len[1:] = torch.randint(t // 2, t + 1, (b - 1,), generator=gen,
+                                  device=dev)
+        y_len = torch.full((b,), u, device=dev)
+        y_len[1:] = torch.randint(u // 2, u + 1, (b - 1,), generator=gen,
+                                  device=dev)
+        return f, g, labels, f_len, y_len
+
+    # GPU against the CPU at B 2, T 40, U 12: the joint bit for bit (the
+    # dropout kernel against its plain version), the loss and gradients
+    small = rnnt_inputs(2, 40, 12)
+    hg = joint(small[0], small[1], rng=key)
+    hc = joint(small[0].cpu(), small[1].cpu(), rng=key)
+    if not torch.equal(hg.cpu(), hc):
+        fail("library transducer: the joint on the card differs from its "
+             "plain version (the dropout mask or the scaling)")
+    grads = []
+    for devc in (dev, torch.device("cpu")):
+        leaves = [small[0].detach().to(devc).requires_grad_(),
+                  small[1].detach().to(devc).requires_grad_()]
+        loss = rnnt_loss(*leaves, *(t.to(devc) for t in small[2:]),
+                         w_out.to(devc))
+        loss.backward()
+        grads.append((loss.detach(), leaves[0].grad, leaves[1].grad))
+    err = max(lib_band("transducer loss", grads[0][0], grads[1][0]),
+              lib_band("transducer df", grads[0][1], grads[1][1]),
+              lib_band("transducer dg", grads[0][2], grads[1][2]))
+    full = rnnt_inputs(p["b"], p["t"], p["u"])
+    t0 = time.perf_counter()
+    ms, peak, counts = lib_timed(
+        lambda: rnnt_loss(*full, w_out).backward(), 1, 2)
+    if counts.get("dropout", 0) != 4:
+        fail(f"library transducer: dropout launched "
+             f"{counts.get('dropout', 0)} times in 2 forward+backward "
+             "calls, not 4 (the joint's mask and its gradient's)")
+    report("transducer joint + loss", f"({p['b']}, {p['t']}, {p['u'] + 1}, "
+           f"{p['h']})", ms, peak, counts, err)
+    log(f"  transducer: {counts['dropout']} dropout launches in 2 "
+        f"forward+backward calls; wall of the 3 calls "
+        f"{time.perf_counter() - t0:.2f} s")
+    del full, small, hg, hc, grads
+    torch.cuda.empty_cache()
+
+    # ---- the sparsity masks and one masked FusedAdam step
+    log("[library] sparsity: m4n2_1d and m4n2_2d_best masks of the "
+        "flagship's fc1 and qkv (fp32 weights), GPU against the CPU bit for "
+        "bit; one FusedAdam step through ASP.wrap_optimizer_step")
+    params = {}
+    for name, fan_in, fan_out in LIB_SPARSE:
+        w = randn(fan_in, fan_out, scale=0.02)
+        params[name] = torch.nn.Parameter(w)
+        for pattern in ("m4n2_1d", "m4n2_2d_best"):
+            got = sparsity.create_mask(w, pattern)
+            want = sparsity.create_mask(w.cpu(), pattern)
+            if not torch.equal(got.cpu(), want):
+                fail(f"library sparsity {name} {pattern}: the mask on the "
+                     "card differs from the CPU's")
+            ms = _events_ms(lambda: sparsity.create_mask(w, pattern), 3)
+            ties = ""
+            if pattern == "m4n2_2d_best":
+                ties = (f", {int(sparsity.near_tie_blocks(w).sum())} of "
+                        f"{fan_in * fan_out // 16} blocks within fp32 "
+                        "rounding of a tie")
+            summary[f"sparsity {name} {pattern}"] = dict(ms=ms)
+            log(f"  create_mask({name} ({fan_in}, {fan_out}), {pattern}): "
+                f"{ms:.3f} ms, {got.float().mean().item():.3f} kept, equal "
+                f"to the CPU's{ties}")
+    asp = sparsity.ASP("m4n2_1d")
+    masks = asp.compute_sparse_masks(params)
+    asp.apply_masks_(params, masks)
+    grads = {n: randn(*t.shape, scale=0.01) for n, t in params.items()}
+    moved = {}
+    for side in (dev, torch.device("cpu")):
+        ps = {n: torch.nn.Parameter(t.detach().to(side, copy=True))
+              for n, t in params.items()}
+        ms_ = {n: m.to(side) for n, m in masks.items()}
+        opt = FusedAdam(list(ps.values()), lr=1e-3)
+        for n, t in ps.items():
+            t.grad = grads[n].to(side)
+        step = asp.wrap_optimizer_step(opt.step, ms_, params=ps)
+        reset_launch_counts()
+        step()
+        if side == dev:
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        moved[side.type] = ps
+    still, worst = [], 0.0
+    for name, t in moved[dev.type].items():
+        kept, before = masks[name], params[name].detach()
+        pruned_live = int((t[~kept] != 0).sum())
+        still.append(f"{name} {int((t[kept] == before[kept]).sum())} of "
+                     f"{int(kept.sum())}")
+        if pruned_live or torch.equal(t[kept], before[kept]):
+            fail(f"library sparsity: after the wrapped step {name} has "
+                 f"{pruned_live} pruned weights not zero, or no kept one "
+                 "moved")
+        got, want = t.detach().cpu(), moved["cpu"][name].detach()
+        ulps = ((got.double() - want.double()).abs()
+                / fp32_ulp(torch.maximum(got.abs(), want.abs()))).max()
+        worst = max(worst, ulps.item())
+        if not (torch.equal(got == 0, want == 0) and ulps <= 2):
+            fail(f"library sparsity: the masked step's {name} on the card "
+                 f"is {ulps.item():.3g} fp32 ulps from the CPU's (band 2), or "
+                 "zero elsewhere")
+    if counts.get("multi_tensor_adam", 0) < 1:
+        fail("library sparsity: the masked step launched no "
+             "multi_tensor_adam")
+    log(f"  masked FusedAdam step: pruned weights zero, within {worst:.3g} "
+        f"fp32 ulps of the CPU's step (band 2: the kernel and the CPU's "
+        f"PyTorch do not round the step alike); kept weights equal "
+        f"before and after the step: "
+        f"{', '.join(still)}; sparsity "
+        f"{asp.sparsity(masks):.3f}; launches {launched(counts)}")
+    del params, moved, masks
+    torch.cuda.empty_cache()
+    return summary
+
+
 def phase_fault_drill(card: str) -> None:
     """``apex_tpu_torch.tools.fault_drill`` as a subprocess on the card: the
     2-layer trainer killed with SIGKILL during ``save_async``, the
@@ -9382,6 +9991,7 @@ def main() -> None:
                          "short_bwd")))
     timed("resnet-parity", phase_resnet_parity, dev)
     timed("rn50-train", phase_rn50_train, dev)
+    timed("library", phase_library, dev)
     timed("fault-drill", phase_fault_drill, card)
     # one record per kernel at its main path's shape; launches from the
     # path that carries it: the serving kernels from phase 4, the dequant

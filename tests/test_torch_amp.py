@@ -24,6 +24,8 @@ from apex_tpu_torch.amp import scaler
 from apex_tpu_torch.resilience import guard
 from apex_tpu_torch.transformer.amp import GradScaler, model_parallel_all_finite
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 CFG = dict(init_scale=2.0 ** 4, growth_factor=2.0, backoff_factor=0.5,
            growth_interval=3, max_loss_scale=2.0 ** 6, min_loss_scale=2.0)
 

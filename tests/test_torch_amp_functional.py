@@ -23,6 +23,8 @@ from apex_tpu_torch import amp
 from apex_tpu_torch.amp import functional as tfun
 from apex_tpu_torch.amp import lists as tlists
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 JAX_DTYPE = {jnp.float16: torch.float16, jnp.bfloat16: torch.bfloat16,
              jnp.float32: torch.float32}
 

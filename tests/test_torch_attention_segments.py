@@ -39,6 +39,8 @@ from apex_tpu_torch.ops import attention_flash as port_flash
 from apex_tpu_torch.ops import attention_mid as port_mid
 from apex_tpu_torch.ops import attention_short as port_short
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=5e-5, atol=5e-5)
 B, H = 2, 2

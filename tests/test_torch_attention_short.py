@@ -23,6 +23,8 @@ from apex_tpu.ops.attention_short import fmha_short as jax_fmha_short
 from apex_tpu_torch.ops import attention as port_attention
 from apex_tpu_torch.ops import attention_short as port_short
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=5e-5, atol=5e-5)
 

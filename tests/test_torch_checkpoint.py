@@ -41,6 +41,8 @@ from apex_tpu_torch import checkpoint as tckpt
 from apex_tpu_torch import csrc as tcsrc
 from apex_tpu_torch.resilience import faults as tfaults
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

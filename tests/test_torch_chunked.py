@@ -48,6 +48,8 @@ from apex_tpu_torch.serving import (
     ContinuousBatcher, KVCacheConfig, PagedKVCache, Request, init_pools,
 )
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 SIZES = dict(vocab_size=64, num_layers=2, hidden_size=32,
              num_attention_heads=4, max_position_embeddings=64)
 LLAMA = dict(position_embedding="rope", activation="swiglu",

@@ -32,6 +32,8 @@ from apex_tpu.transformer import parallel_state
 from apex_tpu.transformer.tensor_parallel import cross_entropy as jax_ce
 from apex_tpu_torch.transformer.tensor_parallel import cross_entropy as port_ce
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

@@ -29,6 +29,8 @@ from apex_tpu.serving.speculate import offramp_tree, tree_ancestors
 from apex_tpu_torch.ops import attention_decode as port
 from apex_tpu_torch.ops.quantization import quantize_rows
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 H, D, KV_BLOCK = 4, 32, 16
 TOL = dict(rtol=1e-5, atol=1e-5)
 

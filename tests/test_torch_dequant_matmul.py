@@ -26,6 +26,8 @@ import torch
 from apex_tpu.models.gpt import GPTModel as JaxGPTModel
 from apex_tpu_torch.transformer.tensor_parallel import QuantizedLinear
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 # the packages' ``ops`` re-export the function under the module's name
 jd = importlib.import_module("apex_tpu.ops.dequant_matmul")
 td = importlib.import_module("apex_tpu_torch.ops.dequant_matmul")

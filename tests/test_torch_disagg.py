@@ -55,6 +55,8 @@ from apex_tpu_torch.serving import NGramDraftSource
 from apex_tpu_torch.serving import kv_cache as tkv
 from apex_tpu_torch.serving import serve as tserve
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 # ---------------------------------------------------------------------------
 # page movement: no model
 # ---------------------------------------------------------------------------

@@ -60,6 +60,8 @@ from apex_tpu_torch.ops import attention_mid as port_mid
 from apex_tpu_torch.ops import attention_short as port_short
 from apex_tpu_torch.ops import dropout as port_dropout
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=5e-5, atol=5e-5)
 B, H = 2, 2

@@ -30,6 +30,8 @@ from apex_tpu_torch.ops import attention_decode as port_decode
 from apex_tpu_torch.ops import layer_norm as port_ln
 from apex_tpu_torch.ops import rope as port_rope
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 FP32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=1e-2, atol=2e-2)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)

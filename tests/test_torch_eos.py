@@ -33,6 +33,8 @@ from apex_tpu_torch.models import GPTConfig, GPTModel
 from apex_tpu_torch.serving import KVCacheConfig
 from apex_tpu_torch.serving import speculate as tspec
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 SIZES = dict(vocab_size=64, num_layers=2, hidden_size=32,
              num_attention_heads=4, max_position_embeddings=64)
 EOS = (62, 52, 31, 5)

@@ -50,6 +50,8 @@ from apex_tpu_torch.serving import kv_cache as tkv
 from apex_tpu_torch.serving import serve as tserve
 from apex_tpu_torch.tools import load_gen as tload
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
@@ -493,7 +495,7 @@ def _logged_replay(side, arg):
 
 
 @pytest.mark.parametrize("arg", ["logger", "watchdog"])
-def test_router_logger_and_watchdog_wait_for_item_10(sides, arg):
+def test_router_logger_and_watchdog_match_jax(sides, arg):
     """The router's ``logger=`` gets JAX's records (the router's events,
     every batcher's events and gauges, the replay's ``trace_request``
     records) in JAX's order, and ``watchdog=`` JAX's beats (one before

@@ -52,6 +52,8 @@ from apex_tpu_torch.serving import NGramDraftSource
 from apex_tpu_torch.serving import kv_cache as tkv
 from apex_tpu_torch.serving import serve as tserve
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 SIZES = dict(vocab_size=256, num_layers=2, hidden_size=64,
              num_attention_heads=4, max_position_embeddings=128)
 PAGE, CHUNK, MAXP = 4, 8, 48

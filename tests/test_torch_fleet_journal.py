@@ -47,6 +47,8 @@ from apex_tpu_torch.resilience import faults as tfaults
 from apex_tpu_torch.serving import kv_cache as tkv
 from apex_tpu_torch.serving import serve as tserve
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 PACKAGES = {"jax": types.SimpleNamespace(fleet=jfleet, serve=jserve,
                                          faults=jfaults),
             "port": types.SimpleNamespace(fleet=tfleet, serve=tserve,

@@ -24,6 +24,8 @@ from apex_tpu.contrib.fmha import fmha as jax_fmha
 from apex_tpu_torch.contrib.fmha import FMHA, fmha
 from apex_tpu_torch.ops.common import launch_counts, reset_launch_counts
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=5e-5, atol=5e-5)
 

@@ -21,6 +21,8 @@ from apex_tpu.optimizers import FusedAdam as JaxFusedAdam
 from apex_tpu_torch import fp16_utils as tfp
 from apex_tpu_torch.optimizers import FusedAdam
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 LR = 1e-2
 
 

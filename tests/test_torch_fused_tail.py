@@ -37,6 +37,8 @@ from apex_tpu_torch.models import GPTConfig, GPTModel
 from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB
 from apex_tpu_torch.optimizers import fused_tail
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 SHAPES = {"a": (6, 5), "b": (5,), "c": (7,), "d": (3, 4), "e": (9,)}
 NAMES = sorted(SHAPES)
 BUCKET_BYTES = 64

@@ -28,6 +28,8 @@ from apex_tpu_torch import convert
 from apex_tpu_torch.amp import get_policy
 from apex_tpu_torch.models import GPTConfig, GPTModel
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_LOGIT_BAND = 0.05
 SIZES = dict(vocab_size=64, num_layers=2, hidden_size=32,

@@ -38,6 +38,8 @@ from apex_tpu_torch import amp, convert
 from apex_tpu_torch.models import GPTConfig, GPTModel
 from apex_tpu_torch.optimizers import FusedAdam
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 SIZES = dict(vocab_size=256, num_layers=2, hidden_size=64,
              num_attention_heads=2, max_position_embeddings=128)
 LR = 1e-3

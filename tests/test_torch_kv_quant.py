@@ -23,6 +23,8 @@ from apex_tpu_torch.serving import KVCacheConfig, init_pools, write_tokens
 
 import test_torch_weight_quant as wq
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 H, D, PAGE, PPS = 4, 32, 16, 9
 

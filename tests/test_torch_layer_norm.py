@@ -29,6 +29,8 @@ from apex_tpu.ops import layer_norm as jax_ln
 from apex_tpu_torch.ops import layer_norm as port_ln
 from apex_tpu_torch.ops.common import launch_counts
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 FP32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=1e-2, atol=2e-2)
 

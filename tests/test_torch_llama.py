@@ -45,6 +45,8 @@ from apex_tpu_torch.serving import (
     ContinuousBatcher, KVCacheConfig, PagedKVCache, Request, init_pools,
 )
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 LLAMA = dict(position_embedding="rope", activation="swiglu",
              normalization="rmsnorm")
 SIZES = dict(vocab_size=256, num_layers=2, hidden_size=64,

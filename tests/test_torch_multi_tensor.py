@@ -33,6 +33,8 @@ from apex_tpu_torch.amp import scaler
 from apex_tpu_torch.ops import common
 from apex_tpu_torch.ops import multi_tensor as mt
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 ROOT = Path(__file__).resolve().parent.parent
 FP32_TOL = dict(rtol=1e-6, atol=1e-7)
 BF16_TOL = dict(rtol=8e-3, atol=1e-6)

@@ -33,6 +33,8 @@ from apex_tpu_torch.contrib.multihead_attn import (
     SelfMultiheadAttn,
 )
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 OUT_TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 E, HEADS, B = 32, 4, 2

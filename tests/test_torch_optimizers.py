@@ -34,6 +34,8 @@ from apex_tpu_torch import optimizers as topt_mod
 from apex_tpu_torch.amp import policy as port_policy
 from apex_tpu_torch.optimizers import FusedAdam
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 SHAPES = {"w": (6, 5), "b": (5,), "scale": (7,)}
 FP32_TOL = dict(rtol=1e-6, atol=1e-7)
 BF16_TOL = dict(rtol=8e-3, atol=1e-6)

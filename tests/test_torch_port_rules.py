@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 ROOT = Path(__file__).resolve().parent.parent
 # the package's sources; its git-ignored build directory is not one
 PORT_FILES = sorted(
@@ -465,12 +467,16 @@ def test_decode_rows_and_tree_count_under_their_own_names():
     "telemetry", "telemetry.events", "telemetry.metrics", "telemetry.spans",
     "transformer.log_util", "resilience", "resilience.retry",
     "resilience.watchdog", "csrc", "checkpoint", "utils.autoresume",
-    "data", "transformer.data", "tools.fault_drill"])
+    "data", "transformer.data", "tools.fault_drill", "transformer.utils",
+    "testing", "normalization", "normalization.fused_layer_norm",
+    "contrib.layer_norm", "mlp", "fused_dense", "reparameterization", "rnn",
+    "contrib.groupbn", "contrib.bottleneck", "contrib.transducer",
+    "contrib.sparsity"])
 def test_new_modules_are_port_files(module):
     """The modules of the serving slice, the softmax entry point, the
-    PRNG and dropout, T5, ResNet and their helpers, the fleet tier, and
-    the telemetry, resilience and checkpoint tier are in the package (so
-    the import rule above covers them)."""
+    PRNG and dropout, T5, ResNet and their helpers, the fleet tier, the
+    telemetry, resilience and checkpoint tier, and the layer library are
+    in the package (so the import rule above covers them)."""
     path = ROOT / "apex_tpu_torch" / (module.replace(".", "/") + ".py")
     if not path.exists():
         path = path.with_suffix("") / "__init__.py"
@@ -843,3 +849,75 @@ def test_flash_bf16_backward_runs_the_hopper_kernels():
         for word in ("kTC", "abT_tc", "ab_tc", "wmma", "nvcuda", "mma.h"):
             assert word not in src, (name, word)
         assert not re.search(r"atomic\w*\s*\(|\b(red|atom)\.", src), name
+
+
+# ----------------------------------------- the layer library against JAX
+#: the layer library's modules, each the twin of the JAX module of the
+#: same path
+LAYER_MODULES = ("transformer.utils", "testing", "normalization",
+                 "normalization.fused_layer_norm", "contrib.layer_norm",
+                 "mlp", "fused_dense", "reparameterization", "rnn",
+                 "contrib.groupbn", "contrib.bottleneck",
+                 "contrib.transducer", "contrib.sparsity")
+#: JAX names whose twin has the port's platform in its name
+RENAMED = {"TEST_WITH_TPU": "TEST_WITH_GPU", "skipIfNoTpu": "skipIfNoGpu"}
+#: JAX parameters a port signature leaves out: flax's module plumbing
+FLAX = {"self", "parent", "name"}
+
+
+def _layer_twins():
+    out = []
+    for module in LAYER_MODULES:
+        ref = importlib.import_module(f"apex_tpu.{module}")
+        out += [(module, name) for name in ref.__all__]
+    return out
+
+
+@pytest.mark.parametrize("module, name", _layer_twins(),
+                         ids=lambda x: x if isinstance(x, str) else None)
+def test_layer_library_has_every_jax_name(module, name):
+    """Each public name of the 13 JAX modules is public in the port's
+    twin (the testing flags under their GPU names)."""
+    port = importlib.import_module(f"apex_tpu_torch.{module}")
+    name = RENAMED.get(name, name)
+    assert name in port.__all__ and hasattr(port, name), \
+        f"apex_tpu_torch.{module} lacks {name}"
+
+
+def _signature(fn):
+    import inspect
+
+    sig = inspect.signature(fn)
+    return ([p for p, v in sig.parameters.items()
+             if p not in FLAX | LEFT_OUT
+             and v.kind is not inspect.Parameter.KEYWORD_ONLY],
+            {p for p, v in sig.parameters.items()
+             if v.kind is inspect.Parameter.KEYWORD_ONLY})
+
+
+@pytest.mark.parametrize("module, name", [
+    (m, n) for m, n in _layer_twins() if n not in RENAMED],
+    ids=lambda x: x if isinstance(x, str) else None)
+def test_layer_library_keeps_the_jax_signatures(module, name):
+    """A function takes the JAX function's parameters in its order (less
+    ``params``/``key``); a class's constructor the JAX constructor's
+    (flax fields for the norms), then keyword-only ``device``, ``key`` or
+    ``generator``; a JAX ``__call__`` is the port's ``forward``."""
+    import inspect
+
+    port = getattr(importlib.import_module(f"apex_tpu_torch.{module}"), name)
+    ref = getattr(importlib.import_module(f"apex_tpu.{module}"), name)
+    if not callable(ref):
+        return
+    if inspect.isclass(ref):
+        init = ref.__init__
+        ref_pos, ref_kw = _signature(init)
+        pos, kw = _signature(port.__init__)
+        if "__call__" in vars(ref):
+            assert _signature(port.forward)[0] == _signature(
+                ref.__call__)[0]
+    else:
+        ref_pos, ref_kw = _signature(ref)
+        pos, kw = _signature(port)
+    assert pos == ref_pos
+    assert ref_kw <= kw and kw - ref_kw <= {"device", "key", "generator"}

@@ -23,6 +23,8 @@ import torch
 from apex_tpu.serving import kv_cache as jkv
 from apex_tpu_torch.serving import kv_cache as tkv
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 PAGE = 4
 
 

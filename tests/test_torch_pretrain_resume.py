@@ -30,6 +30,8 @@ from apex_tpu_torch import checkpoint
 from apex_tpu_torch.data import write_token_file
 from apex_tpu_torch.examples import gpt_pretrain, imagenet_amp
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = ["--vocab", "256", "--layers", "2", "--hidden", "64", "--heads", "2",
         "--seq", "32", "--micro-batch", "2", "--num-micro", "1", "--lr",

@@ -18,6 +18,8 @@ import torch
 from apex_tpu.ops import quantization as jq
 from apex_tpu_torch.ops import quantization as tq
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 
 def _same(got: torch.Tensor, want) -> None:
     want = np.asarray(want)

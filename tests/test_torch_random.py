@@ -23,6 +23,8 @@ from apex_tpu.transformer.tensor_parallel import random as jax_tp_random
 from apex_tpu_torch import random as R
 from apex_tpu_torch.transformer.tensor_parallel import random as tp_random
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 SEEDS = [0, 1, 42, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1, -1, -5, -(2 ** 31),
          2 ** 32 + 7, 2 ** 40 + 3, 2 ** 63 - 1]
 

@@ -35,6 +35,8 @@ from apex_tpu_torch.resilience import (
 from apex_tpu_torch.telemetry import events
 from apex_tpu_torch.utils.autoresume import AutoResume
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 
 @pytest.fixture(autouse=True)
 def _fast_io_retry(monkeypatch):

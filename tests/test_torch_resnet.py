@@ -42,6 +42,8 @@ from apex_tpu_torch.models import ResNet, ResNetConfig, resnet50
 from apex_tpu_torch.parallel import SyncBatchNorm, sync_batch_norm
 from apex_tpu_torch.utils import convnet
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 
 def _t(x):
     return torch.from_numpy(np.array(x))

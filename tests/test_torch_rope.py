@@ -17,6 +17,8 @@ import torch
 from apex_tpu.ops import rope as jax_rope
 from apex_tpu_torch.ops import rope as port_rope
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

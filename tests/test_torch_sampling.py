@@ -31,6 +31,8 @@ from apex_tpu_torch.ops import sampling as ops_sampling
 from apex_tpu_torch.random import fold_in_tensor, keys_tensor
 from apex_tpu_torch.serving import sampling as tsampling
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 V = 96
 TEMPERATURES = (0.5, 1.0, 1.7)
 TOP_KS = (None, 1, 5, V)

@@ -80,6 +80,8 @@ from apex_tpu_torch.serving import (
     kv_cache as tkv, speculate as tspec,
 )
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 SIZES = dict(vocab_size=256, num_layers=2, hidden_size=64,
              num_attention_heads=2, max_position_embeddings=128)
 LEVELS = ("O1", "O2", "O3")

@@ -30,6 +30,8 @@ from apex_tpu_torch.ops import softmax as tsm
 from apex_tpu_torch.transformer.enums import AttnMaskType
 from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 B, NP, SQ, SK = 2, 3, 8, 16
 SCALE = 0.7
 DTYPES = {"float32": (torch.float32, jnp.float32),

@@ -40,6 +40,8 @@ from apex_tpu_torch.amp import get_policy
 from apex_tpu_torch.models import T5Config, T5Model
 from apex_tpu_torch.optimizers import FusedAdam
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 SIZES = dict(vocab_size=128, num_encoder_layers=2, num_decoder_layers=1,
              hidden_size=64, num_attention_heads=4,
              max_position_embeddings=32, fused_ce_chunk=32)

@@ -32,6 +32,8 @@ from apex_tpu_torch.telemetry import metrics as tmetrics
 from apex_tpu_torch.telemetry.spans import TRACE_FILE
 from apex_tpu_torch.transformer import log_util as tlog
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 
 class Sink:
     def __init__(self):

@@ -45,6 +45,8 @@ from apex_tpu_torch.serving import (
 )
 from apex_tpu_torch.transformer.tensor_parallel import QuantizedLinear
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 FLAGSHIP = dict(vocab_size=64, num_layers=2, hidden_size=32,
                 num_attention_heads=4, max_position_embeddings=64)
 LLAMA = dict(vocab_size=256, num_layers=2, hidden_size=64,

@@ -22,6 +22,8 @@ import torch
 from apex_tpu.contrib import xentropy as jax_x
 from apex_tpu_torch.contrib import xentropy as port_x
 
+torch.set_num_threads(1)  # the suite's parallel workers share the cores
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

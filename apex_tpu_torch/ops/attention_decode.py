@@ -54,7 +54,7 @@ import torch
 
 from apex_tpu_torch.ops.common import (
     check, check_implementation, check_operands, count_launch, f16_name,
-    load, split_scratch, stream_of,
+    kernel_entry, load, split_scratch, stream_of,
 )
 from apex_tpu_torch.ops.rope import apply_rope_tables
 
@@ -318,14 +318,43 @@ def _decode_plain(q, k_pages, v_pages, page_table, lengths, causal, scale,
         kv_block=kv_block, ancestor=ancestor).to(q.dtype)
 
 
+def _kernel_of(sq: int, int8: bool, ancestor) -> str:
+    """The launch counter of a call (before ``_f16``): the tree, the
+    many-row, the int8-page or the plain instance."""
+    rows = ancestor is not None or sq > FMHA_DECODE_MAX_SQ
+    return (KERNEL_TREE if ancestor is not None else KERNEL_ROWS if rows
+            else KERNEL_INT8 if int8 else KERNEL)
+
+
+def decode_cost(q, k_pages, page_table, lengths, k_scales, ancestor):
+    """The ``(operations, bytes)`` of one decode call, as PERF.md's bound
+    column counts it: q read and the output written, each visible cached
+    token's K and V (and int8 scales) of every head read once, the page
+    table and lengths; two products of 2 * d a (query row, token) pair.
+    Counted from this call's lengths (a read of them on the host)."""
+    b, h, sq, d = q.shape
+    lens = [int(n) for n in lengths.tolist()]
+    if ancestor is None:
+        pairs = sum(max(0, min(n, n - sq + i + 1)) for n in lens
+                    for i in range(sq))
+    else:
+        pairs = sum(max(n - sq, 0) * sq for n in lens) + len(lens) * sum(
+            map(sum, ancestor))
+    per_token = d * k_pages.element_size()
+    if k_scales is not None:
+        per_token += 4 * k_scales.shape[-1]
+    nbytes = (2 * q.numel() * q.element_size() + 2 * sum(lens) * h
+              * per_token + 4 * (page_table.numel() + lengths.numel()))
+    return 4.0 * d * h * pairs, float(nbytes)
+
+
 def _decode_cuda(q, k_pages, v_pages, page_table, lengths, causal, scale,
                  rope, k_scales=None, v_scales=None, kv_block=128,
                  ancestor=None):
     b, h, sq, d = q.shape
     int8 = k_scales is not None
     rows = ancestor is not None or sq > FMHA_DECODE_MAX_SQ
-    kernel = (KERNEL_TREE if ancestor is not None else KERNEL_ROWS if rows
-              else KERNEL_INT8 if int8 else KERNEL)
+    kernel = _kernel_of(sq, int8, ancestor)
     page_dtype = torch.int8 if int8 else q.dtype
     if q.dtype not in _DTYPES or k_pages.dtype != page_dtype \
             or v_pages.dtype != page_dtype:
@@ -373,27 +402,29 @@ def _decode_cuda(q, k_pages, v_pages, page_table, lengths, causal, scale,
     nb = k_scales.shape[-1] if int8 else 0
     split = (plan.span, plan.n_split)
     # one launch below, of the C entry of this branch
-    count_launch(f16_name(kernel, q.dtype))
-    if rows:
-        # the tree's rows as int32 bitmasks (bit j of row i: row i sees
-        # fresh row j), read by the C entry from host memory and passed
-        # to the kernel by value
-        bits = (ctypes.c_int * FMHA_DECODE_MAX_TREE_ROWS)(*(
-            [sum(int(bool(x)) << j for j, x in enumerate(r))
-             for r in ancestor] if ancestor is not None else []))
-        err = fn(*pages, *sc, page_table.data_ptr(), lengths.data_ptr(),
-                 cos, sin, ctypes.addressof(bits), out.data_ptr(), ws, cnt,
-                 *geometry, nb, int(kv_block), _DTYPES[q.dtype], int(int8),
-                 int(causal), 0 if ancestor is None else sq, *split,
-                 plan.row_tile, float(scale), stream)
-    elif int8:
-        err = fn(*pages, *sc, page_table.data_ptr(), lengths.data_ptr(), cos,
-                 sin, out.data_ptr(), ws, cnt, *geometry, nb, int(kv_block),
-                 _DTYPES[q.dtype], int(causal), *split, float(scale), stream)
-    else:
-        err = fn(*pages, page_table.data_ptr(), lengths.data_ptr(), cos, sin,
-                 out.data_ptr(), ws, cnt, *geometry, _DTYPES[q.dtype],
-                 int(causal), *split, float(scale), stream)
+    with count_launch(f16_name(kernel, q.dtype)):
+        if rows:
+            # the tree's rows as int32 bitmasks (bit j of row i: row i sees
+            # fresh row j), read by the C entry from host memory and passed
+            # to the kernel by value
+            bits = (ctypes.c_int * FMHA_DECODE_MAX_TREE_ROWS)(*(
+                [sum(int(bool(x)) << j for j, x in enumerate(r))
+                 for r in ancestor] if ancestor is not None else []))
+            err = fn(*pages, *sc, page_table.data_ptr(), lengths.data_ptr(),
+                     cos, sin, ctypes.addressof(bits), out.data_ptr(), ws,
+                     cnt, *geometry, nb, int(kv_block), _DTYPES[q.dtype],
+                     int(int8), int(causal), 0 if ancestor is None else sq,
+                     *split, plan.row_tile, float(scale), stream)
+        elif int8:
+            err = fn(*pages, *sc, page_table.data_ptr(), lengths.data_ptr(),
+                     cos, sin, out.data_ptr(), ws, cnt, *geometry, nb,
+                     int(kv_block), _DTYPES[q.dtype], int(causal), *split,
+                     float(scale), stream)
+        else:
+            err = fn(*pages, page_table.data_ptr(), lengths.data_ptr(), cos,
+                     sin, out.data_ptr(), ws, cnt, *geometry,
+                     _DTYPES[q.dtype], int(causal), *split, float(scale),
+                     stream)
     check(lib, kernel, err)
     return out
 
@@ -496,6 +527,23 @@ def fmha_decode(
     if ancestor is not None:
         ancestor = _check_ancestor(ancestor, sq, causal)
     scale = (1.0 / d ** 0.5) if sm_scale is None else float(sm_scale)
+    return _run(q, k_pages, v_pages, page_table, lengths, causal, scale,
+                rope, k_scales, v_scales, kv_block, ancestor)
+
+
+def _costs(q, k_pages, v_pages, page_table, lengths, causal, scale, rope,
+           k_scales, v_scales, kv_block, ancestor):
+    """:func:`_run`'s entry costs (:func:`decode_cost`)."""
+    yield (f16_name(_kernel_of(q.shape[2], k_scales is not None, ancestor),
+                    q.dtype),
+           decode_cost(q, k_pages, page_table, lengths, k_scales, ancestor))
+
+
+@kernel_entry(_costs)
+def _run(q, k_pages, v_pages, page_table, lengths, causal, scale, rope,
+         k_scales, v_scales, kv_block, ancestor):
+    """:func:`fmha_decode` on checked operands: the kernel on a CUDA
+    tensor, the plain version on a CPU one."""
     args = (q, k_pages, v_pages, page_table, lengths, causal, scale, rope,
             k_scales, v_scales, kv_block, ancestor)
     if q.is_cuda:

@@ -74,6 +74,7 @@ from apex_tpu_torch.ops.attention_short import (
     _NEG_INF,
     add_bias,
     apply_keep,
+    attention_cost,
     bias_operands,
     bias_slab,
     check_kernel_inputs,
@@ -82,6 +83,7 @@ from apex_tpu_torch.ops.attention_short import (
     drop_operands,
     dropout_spec,
     fold_bias_grad,
+    fwd_cost,
     id_operands,
     keep_rows,
     library,
@@ -90,7 +92,7 @@ from apex_tpu_torch.ops.attention_short import (
     visible,
 )
 from apex_tpu_torch.ops.common import (
-    check, check_operands, count_launch, load, stream_of,
+    check, check_operands, count_launch, kernel_entry, load, stream_of,
 )
 
 __all__ = ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_delta"]
@@ -254,13 +256,42 @@ def _launch(kernel, q, k, v, ids, heads, rest, outs, causal, scale,
     ptrs = [t.data_ptr() for t in rest + outs]
     if kernel == KERNEL_DQ:
         ptrs.append(data_ptr(dbias))
-    count_launch(name)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), data_ptr(q_ids),
-             data_ptr(kv_ids), bias_ptr, *ptrs,
-             bh, heads or 1, sq, k.shape[1], d, DTYPES[q.dtype], int(causal),
-             bias_b, bias_h, float(scale), *drop_operands(drop),
-             stream_of(q))
+    with count_launch(name):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), data_ptr(q_ids),
+                 data_ptr(kv_ids), bias_ptr, *ptrs,
+                 bh, heads or 1, sq, k.shape[1], d, DTYPES[q.dtype],
+                 int(causal), bias_b, bias_h, float(scale),
+                 *drop_operands(drop), stream_of(q))
     check(lib, name, err)
+
+
+def flash_cost(kernel, q, k, causal, ids, slab, dbias: bool = False):
+    """The cost of one flash entry's call (``attention_cost``): the
+    forward's two products; dK/dV's four (QK^T, dO V^T, P^T dO, dS^T Q)
+    reading q, k, v, dout, the lse and delta and writing dk, dv; dQ's
+    three (QK^T, dO V^T, dS K) writing dq (and dBias)."""
+    if kernel == KERNEL:
+        return fwd_cost(q, k, causal, ids, slab)
+    if kernel == KERNEL_DKV:
+        return attention_cost(q, k, causal, ids, slab, products=4,
+                              q_like=2, k_like=4, rows=2)
+    return attention_cost(q, k, causal, ids, slab, products=3, q_like=3,
+                          k_like=2, rows=2, dbias=dbias)
+
+
+def _fwd_costs(q, k, v, causal, *, ids, drop, slab, **_):
+    """:func:`run_fwd`'s entry costs (:func:`flash_cost`)."""
+    yield (counter((KERNEL, SEG[KERNEL]), ids[0] is not None, drop, slab,
+                   half=q.dtype == torch.float16),
+           flash_cost(KERNEL, q, k, causal, ids, slab))
+
+
+def _bwd_costs(kernel, q, k, v, dout, lse, delta, causal, *, ids, drop,
+               slab, dbias=False, **_):
+    """:func:`run_bwd`'s entry costs (:func:`flash_cost`)."""
+    yield (counter((kernel, SEG[kernel]), ids[0] is not None, drop, slab,
+                   dbias, half=q.dtype == torch.float16),
+           flash_cost(kernel, q, k, causal, ids, slab, dbias))
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -292,6 +323,7 @@ def checked(kernel, q, k, v, sm_scale, q_segment_ids, kv_segment_ids,
                 slab=slab)
 
 
+@kernel_entry(_fwd_costs)
 def run_fwd(q, k, v, causal, *, scale, ids, heads, drop, slab):
     """:func:`flash_fwd` on :func:`checked` operands: the kernel on a CUDA
     tensor, the plain version on a CPU one."""
@@ -309,6 +341,7 @@ def run_fwd(q, k, v, causal, *, scale, ids, heads, drop, slab):
     return out, lse
 
 
+@kernel_entry(_bwd_costs)
 def run_bwd(kernel, q, k, v, dout, lse, delta, causal, *, scale, ids, heads,
             drop, slab, dbias=False):
     """:func:`flash_bwd_dkv` (``kernel`` :data:`KERNEL_DKV`: ``(dk, dv)``)

@@ -53,9 +53,11 @@ from apex_tpu_torch.ops.attention_short import (
     _short_bwd_plain,
     _short_fwd_plain,
     bias_slab,
+    bwd_costs,
     check_shapes,
     dropout_spec,
     fold_bias_grad,
+    fwd_costs,
     grad_of_bias,
     keep_bias_like,
     launch_bwd,
@@ -66,7 +68,7 @@ from apex_tpu_torch.ops.attention_short import (
     softmax_scale,
     visible,
 )
-from apex_tpu_torch.ops.common import check_implementation, load
+from apex_tpu_torch.ops.common import check_implementation, kernel_entry, load
 
 __all__ = ["fmha_mid", "mid_fwd", "mid_bwd", "FMHA_MID_MAX_SEQ",
            "mid_seq_threshold"]
@@ -221,6 +223,7 @@ def _checked(kernel, q, k, v, sm_scale, q_segment_ids, kv_segment_ids,
                 slab=bias_slab(kernel, bias, *q.shape[:3], k.shape[2]))
 
 
+@kernel_entry(fwd_costs((KERNEL, KERNEL_SEG)))
 def _run_fwd(q, k, v, causal, *, scale, ids, drop, slab):
     """:func:`mid_fwd` on :func:`_checked` operands: the kernel on a CUDA
     tensor, the plain version on a CPU one."""
@@ -232,6 +235,7 @@ def _run_fwd(q, k, v, causal, *, scale, ids, drop, slab):
     raise ValueError(f"{KERNEL}: unsupported device {q.device}")
 
 
+@kernel_entry(bwd_costs((KERNEL_BWD, KERNEL_BWD_SEG)))
 def _run_bwd(q, k, v, out, dout, lse, dlse, causal, *, scale, ids, drop,
              slab, dbias=False):
     """:func:`mid_bwd` on :func:`_checked` operands; with ``dbias`` also

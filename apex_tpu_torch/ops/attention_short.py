@@ -69,7 +69,7 @@ import torch
 
 from apex_tpu_torch.ops.common import (
     as_int32, check, check_implementation, check_operands, count_launch,
-    load, stream_of,
+    kernel_entry, load, stream_of,
 )
 
 __all__ = ["fmha_short", "short_fwd", "short_bwd", "FMHA_SHORT_MAX_SEQ",
@@ -175,6 +175,82 @@ def id_operands(q_ids, kv_ids):
 def data_ptr(t: Optional[torch.Tensor]):
     """``t``'s device pointer, or None (a null pointer) for no tensor."""
     return None if t is None else t.data_ptr()
+
+
+# ---------------------------------------------------------------- cost
+
+def visible_pairs(bh: int, sq: int, sk: int, causal: bool, q_ids=None,
+                  kv_ids=None) -> int:
+    """The (query, key) pairs the mask lets through over ``bh`` (batch *
+    heads) rows: what the kernels' products cost, counted from this
+    call's segment ids where there are any (a data-dependent count)."""
+    if q_ids is None:
+        if not causal:
+            return bh * sq * sk
+        n = min(sq, sk)
+        return bh * (n * (n + 1) // 2 + (sq - n) * sk)
+    heads = bh // q_ids.shape[0]
+    return heads * int(visible(sq, sk, causal, q_ids, kv_ids).sum())
+
+
+def attention_cost(q, k, causal, ids, slab, *, products: int, q_like: int,
+                   k_like: int, rows: int, dbias: bool = False):
+    """The ``(operations, bytes)`` of one attention kernel call, as
+    PERF.md's bound column counts it: ``products`` products of 2 * d
+    operations a visible pair (two forward, five a short/mid backward,
+    four for flash dK/dV and three for its dQ); ``q_like`` tensors of
+    q's shape and ``k_like`` of k's in q's dtype, ``rows`` fp32 vectors of
+    a value a query row (lse, delta, dlse), the int32 ids and the fp32
+    bias slab each read once, and with ``dbias`` the fp32 gradient of
+    every score written.  ``q`` is ``(..., sq, d)`` with ``bh`` rows."""
+    sq, d = q.shape[-2], q.shape[-1]
+    sk = k.shape[-2]
+    bh = q.numel() // (sq * d)
+    q_ids, kv_ids = ids
+    pairs = visible_pairs(bh, sq, sk, causal, q_ids, kv_ids)
+    nbytes = (q_like * q.numel() + k_like * k.numel()) * q.element_size() \
+        + rows * bh * sq * 4
+    if q_ids is not None:
+        nbytes += 4 * (q_ids.numel() + kv_ids.numel())
+    if slab is not None:
+        nbytes += 4 * slab.numel()
+    if dbias:
+        nbytes += 4 * bh * sq * sk
+    return 2.0 * products * d * pairs, float(nbytes)
+
+
+def fwd_cost(q, k, causal, ids, slab):
+    """A forward's cost: QK^T and PV; reads q, k, v, writes out and the
+    lse."""
+    return attention_cost(q, k, causal, ids, slab, products=2, q_like=2,
+                          k_like=2, rows=1)
+
+
+def bwd_cost(q, k, causal, ids, slab, dlse: bool, dbias: bool):
+    """A short or mid backward's cost: five products a pair; reads q, k,
+    v, out, dout and the lse (and dlse), writes dq, dk, dv (and dBias)."""
+    return attention_cost(q, k, causal, ids, slab, products=5, q_like=4,
+                          k_like=4, rows=1 + int(dlse), dbias=dbias)
+
+
+def fwd_costs(names):
+    """The :func:`~apex_tpu_torch.ops.common.kernel_entry` costs of a
+    short or mid forward entry whose launch counters are ``names``."""
+    def costs(q, k, v, causal, *, ids, drop, slab, **_):
+        yield (counter(names, ids[0] is not None, drop, slab,
+                       half=q.dtype == torch.float16),
+               fwd_cost(q, k, causal, ids, slab))
+    return costs
+
+
+def bwd_costs(names):
+    """The entry costs of a short or mid backward (:func:`fwd_costs`)."""
+    def costs(q, k, v, out, dout, lse, dlse, causal, *, ids, drop, slab,
+              dbias=False, **_):
+        yield (counter(names, ids[0] is not None, drop, slab, dbias,
+                       half=q.dtype == torch.float16),
+               bwd_cost(q, k, causal, ids, slab, dlse is not None, dbias))
+    return costs
 
 
 # ---------------------------------------------------------------- bias
@@ -510,11 +586,11 @@ def launch_fwd(entry, names, q, k, v, causal, scale, q_ids, kv_ids,
     lib, fn = entry(names[0], q.dtype)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    count_launch(kernel)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), data_ptr(q_ids),
-             data_ptr(kv_ids), bias_ptr, out.data_ptr(), lse.data_ptr(),
-             b * h, h, sq, sk, d, DTYPES[q.dtype], int(causal), bias_b,
-             bias_h, float(scale), *drop_operands(drop), stream_of(q))
+    with count_launch(kernel):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), data_ptr(q_ids),
+                 data_ptr(kv_ids), bias_ptr, out.data_ptr(), lse.data_ptr(),
+                 b * h, h, sq, sk, d, DTYPES[q.dtype], int(causal), bias_b,
+                 bias_h, float(scale), *drop_operands(drop), stream_of(q))
     check(lib, kernel, err)
     return out, lse
 
@@ -548,13 +624,13 @@ def launch_bwd(entry, names, q, k, v, out, dout, lse, dlse, causal, scale,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     g = (torch.zeros((b, h, sq, sk), dtype=torch.float32, device=q.device)
          if dbias else None)
-    count_launch(kernel)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), data_ptr(q_ids),
-             data_ptr(kv_ids), bias_ptr, out.data_ptr(), dout.data_ptr(),
-             lse.data_ptr(), data_ptr(dlse), delta.data_ptr(),
-             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), data_ptr(g), b * h,
-             h, sq, sk, d, DTYPES[q.dtype], int(causal), bias_b, bias_h,
-             float(scale), *drop_operands(drop), stream_of(q))
+    with count_launch(kernel):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), data_ptr(q_ids),
+                 data_ptr(kv_ids), bias_ptr, out.data_ptr(), dout.data_ptr(),
+                 lse.data_ptr(), data_ptr(dlse), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), data_ptr(g),
+                 b * h, h, sq, sk, d, DTYPES[q.dtype], int(causal), bias_b,
+                 bias_h, float(scale), *drop_operands(drop), stream_of(q))
     check(lib, kernel, err)
     return (dq, dk, dv, g) if dbias else (dq, dk, dv)
 
@@ -643,6 +719,7 @@ def _checked(kernel, q, k, v, sm_scale, q_segment_ids, kv_segment_ids,
                 slab=bias_slab(kernel, bias, *q.shape[:3], k.shape[2]))
 
 
+@kernel_entry(fwd_costs((KERNEL, KERNEL_SEG)))
 def _run_fwd(q, k, v, causal, *, scale, ids, drop, slab):
     """:func:`short_fwd` on :func:`_checked` operands: the kernel on a CUDA
     tensor, the plain version on a CPU one."""
@@ -654,6 +731,7 @@ def _run_fwd(q, k, v, causal, *, scale, ids, drop, slab):
     raise ValueError(f"{KERNEL}: unsupported device {q.device}")
 
 
+@kernel_entry(bwd_costs((KERNEL_BWD, KERNEL_BWD_SEG)))
 def _run_bwd(q, k, v, out, dout, lse, dlse, causal, *, scale, ids, drop,
              slab, dbias: bool = False):
     """:func:`short_bwd` on :func:`_checked` operands; with ``dbias`` also

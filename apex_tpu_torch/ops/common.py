@@ -19,12 +19,30 @@ never loaded.  :func:`build` starts one ``nvcc`` per source, all at once.
 Launch counters: every wrapper calls :func:`count_launch` where it
 launches its kernel and nowhere else, so a run can show that its main
 path went through the kernels (``chip_smoke.py`` resets them with
-:func:`reset_launch_counts` right before the main path).
+:func:`reset_launch_counts` right before the main path).  The launch
+runs inside the context :func:`count_launch` returns: while a profiler
+runs, a ``record_function`` range named by the counter, so the trace
+carries the counter's name beside the kernels it launched; otherwise
+nothing.
+
+Cost hook: each wrapper's entry (the function that branches between
+the kernel on a CUDA tensor and the plain version on a CPU one) is
+declared with :func:`kernel_entry` and the work of its kernel calls, the
+FLOPs (operations) and bytes of PERF.md's bound column (each operand
+read once, each output written once).  While a :class:`CostRecorder`
+is active (``apex_tpu_torch.pyprof.cost_analysis``), the entry reports
+that work on either branch, and :func:`in_kernel_entry` is true while
+it runs, so a recorder that also counts PyTorch's own operators (a
+``TorchDispatchMode``) does not count the wrapper's allocations or its
+plain version's operators a second time: the count of a function is the
+same on the CPU and on the card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -33,7 +51,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -42,6 +60,7 @@ __all__ = [
     "launch_counts", "reset_launch_counts", "stream_of", "check_operands",
     "check_implementation", "KERNEL_SOURCES", "as_int32", "split_scratch",
     "split_scratch_tensors", "add_launch_counts", "f16_name",
+    "CostRecorder", "kernel_entry", "in_kernel_entry",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -81,10 +100,19 @@ def f16_name(name: str, dtype: torch.dtype) -> str:
     return name + "_f16" if dtype == torch.float16 else name
 
 
-def count_launch(name: str) -> None:
-    """Add one launch of kernel ``name`` (called by its wrapper right
-    where it launches the kernel)."""
+def count_launch(name: str):
+    """Add one launch of kernel ``name``, called by its wrapper right where
+    it launches the kernel.  Returns the context the wrapper launches in
+    (``with count_launch(name): err = fn(...)``): a ``record_function``
+    range named ``name`` while a profiler runs, so its trace names the
+    kernels of the launch, and otherwise a no-op."""
     _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_RANGE
+
+
+_NO_RANGE = contextlib.nullcontext()
 
 
 def launch_counts() -> Dict[str, int]:
@@ -104,6 +132,79 @@ def add_launch_counts(counts: Dict[str, int], sign: int = 1) -> None:
     (``serving/graphs.py``)."""
     for name, n in counts.items():
         _LAUNCHES[name] = _LAUNCHES.get(name, 0) + sign * int(n)
+
+
+# ------------------------------------------------------------------- costs
+
+class CostRecorder:
+    """The work of the kernels launched (or run as plain versions) while
+    it is active: ``flops`` and ``bytes`` in all, and by kernel name
+    ``{name: [calls, flops, bytes]}``.  Entered as a context manager;
+    recorders nest, and each active one sees every report."""
+
+    def __init__(self):
+        self.flops = 0.0
+        self.bytes = 0.0
+        self.kernels: Dict[str, List[float]] = {}
+
+    def add(self, name: str, flops: float, nbytes: float) -> None:
+        self.flops += flops
+        self.bytes += nbytes
+        row = self.kernels.setdefault(name, [0, 0.0, 0.0])
+        row[0] += 1
+        row[1] += flops
+        row[2] += nbytes
+
+    def __enter__(self) -> "CostRecorder":
+        _RECORDERS.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _RECORDERS.remove(self)
+
+
+_RECORDERS: List[CostRecorder] = []
+#: depth of :func:`kernel_entry` calls on the stack
+_ENTRY_DEPTH = [0]
+
+
+def in_kernel_entry() -> bool:
+    """True inside a wrapper's entry (:func:`kernel_entry`) while a
+    recorder is active: PyTorch operators run here belong to a kernel's
+    reported cost."""
+    return _ENTRY_DEPTH[0] > 0
+
+
+def kernel_entry(costs: Callable[..., Iterable[Tuple[str, Tuple]]]):
+    """Declare a wrapper's entry, the function that launches its kernels
+    on a CUDA tensor or runs their plain version on a CPU one, and the
+    work of those kernel calls: ``costs`` takes the entry's arguments and
+    yields ``(counter, (operations, bytes))`` for each launch the call
+    makes (none where it launches nothing).  While a recorder is active,
+    the entry reports them after the call returns, on either branch;
+    otherwise the entry is the function itself, called straight through.
+    """
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def entry(*args, **kwargs):
+            if not _RECORDERS:
+                return fn(*args, **kwargs)
+            _ENTRY_DEPTH[0] += 1
+            try:
+                out = fn(*args, **kwargs)
+                # counted from this call's operands (segment ids and
+                # decode lengths are data)
+                for name, (flops, nbytes) in costs(*args, **kwargs):
+                    for rec in _RECORDERS:
+                        rec.add(name, float(flops), float(nbytes))
+            finally:
+                _ENTRY_DEPTH[0] -= 1
+            return out
+
+        return entry
+
+    return wrap
 
 
 # ------------------------------------------------------------------ build

@@ -52,7 +52,7 @@ import torch
 
 from apex_tpu_torch.ops.common import (
     check, check_implementation, check_operands, count_launch, f16_name,
-    load, split_scratch, stream_of,
+    kernel_entry, load, split_scratch, stream_of,
 )
 from apex_tpu_torch.ops.quantization import (
     dequantize_rows,
@@ -231,6 +231,17 @@ def _dequantized(qweight, scales, weight_dtype, block_size):
     return dequantize_rows(unpack_int4(qweight), scales, block_size)
 
 
+def dequant_cost(x, qweight, scales, n: int):
+    """The ``(operations, bytes)`` of one call, as PERF.md's bound column
+    counts it: ``2 m k n`` for the product and ``k n`` to dequantize each
+    weight once; x, the quantized weight and its scales read once, the
+    ``(m, n)`` output written once."""
+    m, k = x.shape
+    nbytes = (x.numel() * x.element_size() + qweight.numel()
+              + scales.numel() * 4 + m * n * x.element_size())
+    return 2.0 * m * k * n + k * n, float(nbytes)
+
+
 def _dequant_cuda(x, qweight, scales, weight_dtype, bs):
     kernel = KERNELS[weight_dtype]
     m, k = x.shape
@@ -263,15 +274,23 @@ def _dequant_cuda(x, qweight, scales, weight_dtype, bs):
         ws, cnt = split_scratch(x.device, stream.value, plan.workspace,
                            plan.counters)
     lib, fn = _entry(f16_name("dequant_matmul", x.dtype))
-    count_launch(f16_name(kernel, x.dtype))
-    err = fn(x.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
-             out.data_ptr(), ws, cnt, m, k, n, bs, int(int4),
-             _DTYPES[x.dtype], _REGIMES[plan.regime], plan.tile, plan.kc,
-             plan.splits, stream)
+    with count_launch(f16_name(kernel, x.dtype)):
+        err = fn(x.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
+                 out.data_ptr(), ws, cnt, m, k, n, bs, int(int4),
+                 _DTYPES[x.dtype], _REGIMES[plan.regime], plan.tile, plan.kc,
+                 plan.splits, stream)
     check(lib, kernel, err)
     return out
 
 
+def _costs(x, qweight, scales, *, weight_dtype, **_):
+    """:func:`dequant_matmul`'s entry costs (:func:`dequant_cost`)."""
+    n = qweight.shape[1] * (2 if weight_dtype == "int4" else 1)
+    yield (f16_name(KERNELS[weight_dtype], x.dtype),
+           dequant_cost(x.reshape(-1, x.shape[-1]), qweight, scales, n))
+
+
+@kernel_entry(_costs)
 def dequant_matmul(
     x: torch.Tensor,
     qweight: torch.Tensor,

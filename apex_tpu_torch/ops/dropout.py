@@ -49,7 +49,7 @@ import functools
 import numpy as np
 import torch
 
-from apex_tpu_torch.ops.common import as_int32, count_launch
+from apex_tpu_torch.ops.common import as_int32, count_launch, kernel_entry
 from apex_tpu_torch.random import uniform_tensor
 
 __all__ = ["dropout", "dropout_fwd", "dropout_mask", "divisor", "KERNEL",
@@ -194,6 +194,17 @@ def _dropout_kernel():
     return triton, dropout_kernel
 
 
+def dropout_cost(x: torch.Tensor):
+    """The ``(operations, bytes)`` of one call, as PERF.md's bound column
+    counts it: x read and y written once; :data:`HASH_OPS` 32-bit integer
+    operations an element."""
+    return float(HASH_OPS) * x.numel(), 2.0 * x.numel() * x.element_size()
+
+
+def _counter(x: torch.Tensor) -> str:
+    return KERNEL_F16 if x.dtype == torch.float16 else KERNEL
+
+
 def _dropout_cuda(x: torch.Tensor, key, rate: float) -> torch.Tensor:
     if x.dtype not in DTYPES:
         raise ValueError(f"{KERNEL}: dtype {x.dtype} not in {DTYPES}")
@@ -202,14 +213,22 @@ def _dropout_cuda(x: torch.Tensor, key, rate: float) -> torch.Tensor:
     y = torch.empty_like(x)
     n = x.numel()
     k = np.asarray(key, dtype=np.uint32)
-    count_launch(KERNEL_F16 if x.dtype == torch.float16 else KERNEL)
-    kernel[(triton.cdiv(n, BLOCK),)](
-        x, y, n, as_int32(k[0]), as_int32(k[1]),
-        float(keep_prob(rate)), divisor(rate, x.dtype), BLOCK=BLOCK,
-        num_warps=4)
+    with count_launch(_counter(x)):
+        kernel[(triton.cdiv(n, BLOCK),)](
+            x, y, n, as_int32(k[0]), as_int32(k[1]),
+            float(keep_prob(rate)), divisor(rate, x.dtype), BLOCK=BLOCK,
+            num_warps=4)
     return y
 
 
+def _costs(x: torch.Tensor, key, rate: float):
+    """:func:`dropout_fwd`'s entry costs (:func:`dropout_cost`): none for
+    an empty ``x``, which launches nothing."""
+    if x.numel():
+        yield _counter(x), dropout_cost(x)
+
+
+@kernel_entry(_costs)
 def dropout_fwd(x: torch.Tensor, key, rate: float) -> torch.Tensor:
     """``where(bernoulli(key, 1 - rate, x.shape), x / (1 - rate), 0)``
     with JAX's mask and rounding; ``key`` a host key of

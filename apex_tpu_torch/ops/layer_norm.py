@@ -42,8 +42,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 
 from apex_tpu_torch.ops.common import (
-    check, check_implementation, check_operands, count_launch, load,
-    stream_of,
+    check, check_implementation, check_operands, count_launch,
+    kernel_entry, load, stream_of,
 )
 
 __all__ = [
@@ -171,6 +171,33 @@ def _check_params(kernel, hidden, weight, bias_dtype):
                          f"the weight's {weight.dtype}")
 
 
+def fwd_cost(x2d, weight, rms):
+    """``ln_fwd``'s ``(operations, bytes)`` as PERF.md's bound column
+    counts them: x read and y written once, the weight (and bias) and the
+    fp32 row statistics; eight operations an element."""
+    rows, hidden = x2d.shape
+    nbytes = (2 * x2d.numel() * x2d.element_size()
+              + (1 if rms else 2) * hidden * weight.element_size()
+              + 2 * rows * 4)
+    return 8.0 * x2d.numel(), float(nbytes)
+
+
+def bwd_cost(x2d, weight, rms):
+    """``ln_bwd``'s: dy and x read, dx written, the parameters and their
+    gradients, the row statistics; twenty operations an element."""
+    rows, hidden = x2d.shape
+    nbytes = (3 * x2d.numel() * x2d.element_size()
+              + hidden * weight.element_size() * (2 if rms else 4)
+              + 2 * rows * 4)
+    return 20.0 * x2d.numel(), float(nbytes)
+
+
+def fold_cost(partials: int, hidden: int):
+    """``ln_bwd_fold``'s: the fp32 partials read once, the two sums
+    written; one add a partial."""
+    return float(partials), float(partials * 4 + 2 * hidden * 4)
+
+
 def _ln_fwd_cuda(x2d, weight, bias, eps, rms):
     rows, hidden = x2d.shape
     plan = layer_norm_plan(rows, hidden, x2d.dtype, weight.dtype)
@@ -184,13 +211,13 @@ def _ln_fwd_cuda(x2d, weight, bias, eps, rms):
     if rows == 0:
         return out, mean, invvar
     lib, fn = _entry(KERNEL)
-    count_launch(KERNEL)
-    err = fn(x2d.data_ptr(), weight.data_ptr(),
-             None if bias is None else bias.data_ptr(), out.data_ptr(),
-             mean.data_ptr(), invvar.data_ptr(), rows, hidden, float(eps),
-             int(rms), _DTYPES[x2d.dtype], _DTYPES[weight.dtype],
-             _vec(plan, x2d, weight, bias, out), FWD_WARPS, plan.fwd_grid,
-             stream_of(x2d))
+    with count_launch(KERNEL):
+        err = fn(x2d.data_ptr(), weight.data_ptr(),
+                 None if bias is None else bias.data_ptr(), out.data_ptr(),
+                 mean.data_ptr(), invvar.data_ptr(), rows, hidden, float(eps),
+                 int(rms), _DTYPES[x2d.dtype], _DTYPES[weight.dtype],
+                 _vec(plan, x2d, weight, bias, out), FWD_WARPS,
+                 plan.fwd_grid, stream_of(x2d))
     check(lib, KERNEL, err)
     return out, mean, invvar
 
@@ -214,6 +241,14 @@ def _ln_fwd_plain(x2d, weight, bias, eps, rms):
     return y.to(x2d.dtype), mean, invvar
 
 
+def _fwd_costs(x2d, weight, bias, eps, rms):
+    """:func:`layer_norm_fwd`'s entry costs: ``ln_fwd`` unless there are
+    no rows."""
+    if x2d.shape[0]:
+        yield KERNEL, fwd_cost(x2d, weight, rms)
+
+
+@kernel_entry(_fwd_costs)
 def layer_norm_fwd(
     x2d: torch.Tensor,
     weight: torch.Tensor,
@@ -332,13 +367,13 @@ def _ln_bwd_cuda(dy, x2d, weight, bias_dtype, mean, invvar, rms, params):
                 if params else None)
     stream = stream_of(x2d)
     lib, fn = _entry(KERNEL_BWD)
-    count_launch(KERNEL_BWD)
-    err = fn(dy.data_ptr(), x2d.data_ptr(), weight.data_ptr(),
-             mean.data_ptr(), invvar.data_ptr(), dx.data_ptr(),
-             None if partials is None else partials.data_ptr(), rows, hidden,
-             int(rms), _DTYPES[x2d.dtype], _DTYPES[weight.dtype],
-             _vec(plan, dy, x2d, weight, dx), plan.warps,
-             plan.rows_per_block, plan.blocks, stream)
+    with count_launch(KERNEL_BWD):
+        err = fn(dy.data_ptr(), x2d.data_ptr(), weight.data_ptr(),
+                 mean.data_ptr(), invvar.data_ptr(), dx.data_ptr(),
+                 None if partials is None else partials.data_ptr(), rows,
+                 hidden, int(rms), _DTYPES[x2d.dtype], _DTYPES[weight.dtype],
+                 _vec(plan, dy, x2d, weight, dx), plan.warps,
+                 plan.rows_per_block, plan.blocks, stream)
     check(lib, KERNEL_BWD, err)
     if params:
         _fold_cuda(partials, dscale, dbias, plan.blocks, hidden, stream)
@@ -349,13 +384,26 @@ def _fold_cuda(partials, dscale, dbias, blocks, hidden, stream) -> None:
     """``ln_bwd_fold``: ``dscale`` (and ``dbias`` unless None), both of one
     dtype, from the fp32 partials ``(2, blocks, hidden)``."""
     lib, fold = _entry(KERNEL_FOLD)
-    count_launch(KERNEL_FOLD)
-    err = fold(partials.data_ptr(), dscale.data_ptr(),
-               None if dbias is None else dbias.data_ptr(), blocks, hidden,
-               _DTYPES[dscale.dtype], stream)
+    with count_launch(KERNEL_FOLD):
+        err = fold(partials.data_ptr(), dscale.data_ptr(),
+                   None if dbias is None else dbias.data_ptr(), blocks,
+                   hidden, _DTYPES[dscale.dtype], stream)
     check(lib, KERNEL_FOLD, err)
 
 
+def _bwd_costs(dy, x2d, weight, bias_dtype, mean, invvar, rms, *,
+               params=True):
+    """:func:`layer_norm_bwd`'s entry costs: ``ln_bwd``, and the fold of
+    its partials when the parameters' gradients are asked for."""
+    rows, hidden = x2d.shape
+    if rows:
+        yield KERNEL_BWD, bwd_cost(x2d, weight, rms)
+        if params:
+            yield KERNEL_FOLD, fold_cost(layer_norm_plan(
+                rows, hidden, x2d.dtype, weight.dtype).partials, hidden)
+
+
+@kernel_entry(_bwd_costs)
 def layer_norm_bwd(
     dy: torch.Tensor,
     x2d: torch.Tensor,

@@ -49,7 +49,13 @@ from typing import NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from apex_tpu_torch.ops.common import check, count_launch, load, stream_of
+from apex_tpu_torch.ops.common import (
+    check,
+    count_launch,
+    kernel_entry,
+    load,
+    stream_of,
+)
 
 __all__ = [
     "CHUNK", "KERNELS", "Norms", "StepRows", "adam", "commit", "l2norm",
@@ -158,6 +164,62 @@ def _new_flag(dev) -> torch.Tensor:
     return torch.ones((), dtype=torch.bool, device=dev)
 
 
+# ------------------------------------------------------------------- cost
+def _nbytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts or ())
+
+
+def scale_cost(xs, ys, out):
+    """``multi_tensor_scale``'s (``_axpby``'s) ``(operations, bytes)`` as
+    PERF.md's bound column counts them: every input read and output
+    written once; two operations an element (four with ``ys``)."""
+    n = sum(x.numel() for x in xs)
+    return float((2 if ys is None else 4) * n), float(
+        _nbytes(xs) + _nbytes(ys) + _nbytes(out))
+
+
+def l2norm_cost(xs):
+    """``multi_tensor_l2norm``'s: every value read once; two operations
+    an element."""
+    return 2.0 * sum(x.numel() for x in xs), float(_nbytes(xs))
+
+
+def _scale_costs(xs, a=1.0, *, out=None, ys=None, b=0.0, finite=None):
+    """:func:`scale`'s entry costs: none when no value is there."""
+    if any(x.numel() for x in xs):
+        yield (KERNEL_SCALE if ys is None else KERNEL_AXPBY,
+               scale_cost(xs, ys, out))
+
+
+def _l2norm_costs(xs, **_):
+    """:func:`l2norm`'s entry costs."""
+    if any(x.numel() for x in xs):
+        yield KERNEL_L2NORM, l2norm_cost(xs)
+
+
+def _step_costs(kernel: str, ops_per_element: float):
+    """The entry costs of :func:`adam` (``kernel``) or :func:`lamb`."""
+    def costs(grads, rows, **_):
+        if rows.sizes.any():
+            yield kernel, step_cost(grads, rows, ops_per_element)
+    return costs
+
+
+def step_cost(grads, rows: "StepRows", ops_per_element: float):
+    """An Adam or LAMB step's: each gradient read, each master and moment
+    read and written (the parameter read where there is no master), each
+    parameter written; ``ops_per_element`` (14 Adam, 20 LAMB)."""
+    nbytes = 0
+    for i, p in enumerate(rows.params):
+        n = p.numel()
+        nbytes += n * (grads[i].element_size() + p.element_size()
+                       + 2 * rows.exp_avgs[i].element_size()
+                       + 2 * rows.exp_avg_sqs[i].element_size()
+                       + (8 if rows.master else p.element_size()))
+    n = sum(p.numel() for p in rows.params)
+    return ops_per_element * n, float(nbytes)
+
+
 # ------------------------------------------------------------------ scale
 def _scale_plain(xs, a, ys, b, outs, finite):
     flags = [torch.isfinite(x).all() for x in xs if x.numel()]
@@ -172,6 +234,7 @@ def _scale_plain(xs, a, ys, b, outs, finite):
         outs[i].copy_(val.to(outs[i].dtype))
 
 
+@kernel_entry(_scale_costs)
 def scale(xs: Sequence[torch.Tensor], a: Scalar = 1.0, *,
           out: Optional[Sequence[torch.Tensor]] = None,
           ys: Optional[Sequence[torch.Tensor]] = None, b: Scalar = 0.0,
@@ -227,10 +290,11 @@ def _scale_cuda(kernel, dev, xs, a, ys, b, out, finite) -> None:
     b_ptr = _scalar_ptr(kernel, b, dev) if isinstance(b, torch.Tensor) \
         else None
     lib, fn = _entry(KERNEL_SCALE)
-    count_launch(kernel)
-    err = fn(ptrs.ctypes.data, sz.ctypes.data, dt.ctypes.data, len(xs),
-             mode, a_ptr, b_ptr, 0.0 if a_ptr else float(a),
-             0.0 if b_ptr else float(b), finite.data_ptr(), stream_of(xs[0]))
+    with count_launch(kernel):
+        err = fn(ptrs.ctypes.data, sz.ctypes.data, dt.ctypes.data, len(xs),
+                 mode, a_ptr, b_ptr, 0.0 if a_ptr else float(a),
+                 0.0 if b_ptr else float(b), finite.data_ptr(),
+                 stream_of(xs[0]))
     check(lib, kernel, err)
 
 
@@ -266,6 +330,7 @@ def _l2norm_plain(xs, inv_scale, per_tensor, finite):
     return Norms(total, torch.sqrt(sq) if per_tensor else None, finite, sq)
 
 
+@kernel_entry(_l2norm_costs)
 def l2norm(xs: Sequence[torch.Tensor], *,
            inv_scale: Optional[torch.Tensor] = None,
            per_tensor: bool = False,
@@ -305,11 +370,11 @@ def _l2norm_cuda(dev, xs, inv_scale, per_tensor, finite) -> Norms:
     ptrs, sz, dt = _arr([x.data_ptr() for x in xs]), _arr(sizes), \
         _arr(codes, np.int32)
     lib, fn = _entry(KERNEL_L2NORM)
-    count_launch(KERNEL_L2NORM)
-    err = fn(ptrs.ctypes.data, sz.ctypes.data, dt.ctypes.data, n,
-             _scalar_ptr(KERNEL_L2NORM, inv_scale, dev), partials.data_ptr(),
-             sq.data_ptr(), _ptr(norms), total.data_ptr(), finite.data_ptr(),
-             stream_of(xs[0]))
+    with count_launch(KERNEL_L2NORM):
+        err = fn(ptrs.ctypes.data, sz.ctypes.data, dt.ctypes.data, n,
+                 _scalar_ptr(KERNEL_L2NORM, inv_scale, dev),
+                 partials.data_ptr(), sq.data_ptr(), _ptr(norms),
+                 total.data_ptr(), finite.data_ptr(), stream_of(xs[0]))
     check(lib, KERNEL_L2NORM, err)
     return Norms(total, norms, finite, sq)
 
@@ -319,14 +384,17 @@ class StepRows:
     """The operands of a step kernel that stay put from step to step: each
     row's parameter, fp32 master (or none), exp_avg and exp_avg_sq
     pointers, its size and dtypes.  The gradients' column is filled at
-    each call (``zero_grad(set_to_none=True)`` frees them)."""
+    each call (``zero_grad(set_to_none=True)`` frees them).  The pointer
+    table :attr:`ptrs` is built when a launch first reads it: the plain
+    version needs none."""
 
     def __init__(self, kernel, params, masters, exp_avgs, exp_avg_sqs):
         self.params, self.masters = list(params), masters
         self.exp_avgs, self.exp_avg_sqs = list(exp_avgs), list(exp_avg_sqs)
         n = len(self.params)
         self.master = masters is not None
-        self.ptrs = np.zeros((n, 5), dtype=np.int64)
+        self._ptrs = None
+        self._grads = None
         self.codes = np.zeros((n, 3), dtype=np.int32)
         self.sizes = np.zeros((n,), dtype=np.int64)
         for i, p in enumerate(self.params):
@@ -344,8 +412,6 @@ class StepRows:
                 if t.numel() != p.numel():
                     raise ValueError(f"{kernel}: state of {t.numel()} "
                                      f"elements for {p.numel()}")
-            self.ptrs[i, 1:] = (p.data_ptr(), _ptr(master) or 0,
-                                m.data_ptr(), v.data_ptr())
             self.codes[i, 1:] = (_code(kernel, p), _DTYPES[v.dtype])
             self.sizes[i] = p.numel()
 
@@ -358,7 +424,23 @@ class StepRows:
                 raise ValueError(f"{kernel}: gradient of {g.numel()} "
                                  f"elements for {self.sizes[i]}")
             self.codes[i, 0] = _code(kernel, g)
-            self.ptrs[i, 0] = g.data_ptr()
+        self._grads = grads
+
+    @property
+    def ptrs(self) -> np.ndarray:
+        """``(rows, 5)`` int64: the gradient, parameter, master (0 for
+        none), exp_avg and exp_avg_sq pointers of each row."""
+        if self._ptrs is None:
+            self._ptrs = np.zeros((len(self.params), 5), dtype=np.int64)
+            for i, p in enumerate(self.params):
+                master = self.masters[i].data_ptr() if self.master else 0
+                self._ptrs[i, 1:] = (p.data_ptr(), master,
+                                     self.exp_avgs[i].data_ptr(),
+                                     self.exp_avg_sqs[i].data_ptr())
+        if self._grads is not None:
+            self._ptrs[:, 0] = [g.data_ptr() for g in self._grads]
+            self._grads = None
+        return self._ptrs
 
 
 def step_rows(params, masters, exp_avgs, exp_avg_sqs,
@@ -422,6 +504,7 @@ def _step_scalars(kernel, dev, clip, inv_scale, bc1, bc2, finite):
         _flag_ptr(kernel, finite, dev),)
 
 
+@kernel_entry(_step_costs(KERNEL_ADAM, 14.0))
 def adam(grads: Sequence[torch.Tensor], rows: StepRows, *, lr: float,
          beta1: float, beta2: float, eps: float, weight_decay: float,
          adam_w_mode: bool, bc1: Optional[torch.Tensor] = None,
@@ -458,10 +541,10 @@ def _adam_cuda(dev, grads, rows, hyper, clip, inv_scale, bc1, bc2,
     scalars = _step_scalars(KERNEL_ADAM, dev, clip, inv_scale, bc1, bc2,
                             finite)
     lib, fn = _entry(KERNEL_ADAM)
-    count_launch(KERNEL_ADAM)
-    err = fn(rows.ptrs.ctypes.data, rows.sizes.ctypes.data,
-             rows.codes.ctypes.data, len(grads), int(rows.master), *scalars,
-             *hyper[:7], int(hyper[7]), stream_of(grads[0]))
+    with count_launch(KERNEL_ADAM):
+        err = fn(rows.ptrs.ctypes.data, rows.sizes.ctypes.data,
+                 rows.codes.ctypes.data, len(grads), int(rows.master),
+                 *scalars, *hyper[:7], int(hyper[7]), stream_of(grads[0]))
     check(lib, KERNEL_ADAM, err)
 
 
@@ -489,6 +572,7 @@ def _lamb_plain(grads, rows, inv_scale, clip, finite, bc1, bc2, hyper,
         commit(p, new, finite)
 
 
+@kernel_entry(_step_costs(KERNEL_LAMB, 20.0))
 def lamb(grads: Sequence[torch.Tensor], rows: StepRows, *, lr: float,
          beta1: float, beta2: float, beta3: float, eps: float,
          weight_decay: float, adam_w_mode: bool, use_trust: bool,
@@ -529,10 +613,10 @@ def _lamb_cuda(dev, grads, rows, hyper, use_trust, clip, inv_scale, bc1,
     scalars = _step_scalars(KERNEL_LAMB, dev, clip, inv_scale, bc1, bc2,
                             finite)
     lib, fn = _entry(KERNEL_LAMB)
-    count_launch(KERNEL_LAMB)
-    err = fn(rows.ptrs.ctypes.data, sizes.ctypes.data,
-             rows.codes.ctypes.data, len(grads), int(rows.master), *scalars,
-             u.data_ptr(), u_off.ctypes.data, partials.data_ptr(),
-             trust.data_ptr(), *hyper[:7], int(hyper[7]), int(use_trust),
-             stream_of(grads[0]))
+    with count_launch(KERNEL_LAMB):
+        err = fn(rows.ptrs.ctypes.data, sizes.ctypes.data,
+                 rows.codes.ctypes.data, len(grads), int(rows.master),
+                 *scalars, u.data_ptr(), u_off.ctypes.data,
+                 partials.data_ptr(), trust.data_ptr(), *hyper[:7],
+                 int(hyper[7]), int(use_trust), stream_of(grads[0]))
     check(lib, KERNEL_LAMB, err)

@@ -55,6 +55,7 @@ from apex_tpu_torch.ops import dropout as _dropout
 from apex_tpu_torch.ops.common import (
     check_operands,
     count_launch,
+    kernel_entry,
     split_scratch_tensors,
 )
 from apex_tpu_torch.random import MASK32, fold_in_tensor, threefry2x32_rows
@@ -222,6 +223,14 @@ def _gumbel_kernel():
     return triton, gumbel_kernel
 
 
+def gumbel_cost(x: torch.Tensor):
+    """The ``(operations, bytes)`` of one draw, as PERF.md's bound column
+    counts it: the logits read once and 16 bytes a row (its key, context
+    and result); :data:`THREEFRY_OPS` integer operations a logit."""
+    R, V = x.shape
+    return float(R * V * THREEFRY_OPS), float(R * V * 4 + R * 16)
+
+
 def _gumbel_argmax_cuda(x, keys, ctx, temperature, floor, row_stride):
     check_operands(KERNEL, *(t for t in (x, keys, ctx, floor)
                              if t is not None))
@@ -238,15 +247,22 @@ def _gumbel_argmax_cuda(x, keys, ctx, temperature, floor, row_stride):
         x.device, torch.cuda.current_stream(x.device).cuda_stream,
         2 * R * plan.split, R)
     out = torch.empty((R,), dtype=torch.int32, device=x.device)
-    count_launch(KERNEL)
-    kernel[(R, plan.split)](
-        x, keys, x if ctx is None else ctx, x if floor is None else floor,
-        part_v, part_i, cnt, out, V, x.stride(0), int(row_stride),
-        float(temperature), FOLD=ctx is not None, HAS_FLOOR=floor is not None,
-        SPLIT=plan.split, CHUNK=plan.chunk, BLOCK=BLOCK, num_warps=4)
+    with count_launch(KERNEL):
+        kernel[(R, plan.split)](
+            x, keys, x if ctx is None else ctx,
+            x if floor is None else floor, part_v, part_i, cnt, out, V,
+            x.stride(0), int(row_stride), float(temperature),
+            FOLD=ctx is not None, HAS_FLOOR=floor is not None,
+            SPLIT=plan.split, CHUNK=plan.chunk, BLOCK=BLOCK, num_warps=4)
     return out
 
 
+def _costs(x, keys, ctx, temperature, floor=None, row_stride=0):
+    """:func:`gumbel_argmax`'s entry costs (:func:`gumbel_cost`)."""
+    yield KERNEL, gumbel_cost(x)
+
+
+@kernel_entry(_costs)
 def gumbel_argmax(x: torch.Tensor, keys: torch.Tensor,
                   ctx: Optional[torch.Tensor], temperature: float,
                   floor: Optional[torch.Tensor] = None,

@@ -39,7 +39,11 @@ from typing import Optional
 
 import torch
 
-from apex_tpu_torch.ops.common import check_implementation, count_launch
+from apex_tpu_torch.ops.common import (
+    check_implementation,
+    count_launch,
+    kernel_entry,
+)
 
 __all__ = [
     "scaled_softmax",
@@ -116,6 +120,24 @@ def _mask_4d(mask: torch.Tensor, x4: torch.Tensor,
     return m.reshape(x4.shape)
 
 
+def softmax_cost(x, mask, causal: bool):
+    """The ``(operations, bytes)`` of one call, as PERF.md's bound column
+    counts it: the scores the softmax must read (a filled score, above
+    the diagonal when causal or where the mask is True, is never needed;
+    counted from this call's mask), y written once and the mask's bytes;
+    five operations a score."""
+    sq, sk = x.shape[-2:]
+    keep = torch.ones(sq, sk, dtype=torch.bool, device=x.device)
+    if causal:
+        keep = keep.tril()
+    if mask is not None:
+        keep = keep & ~mask.to(torch.bool)
+    read = int(torch.broadcast_to(keep, x.shape).sum())
+    nbytes = (read + x.numel()) * x.element_size() + (
+        0 if mask is None else mask.numel())
+    return 5.0 * x.numel(), float(nbytes)
+
+
 def _softmax_fwd_cuda(x, mask, scale, causal):
     triton, kernel = _softmax_kernel()
     if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
@@ -136,11 +158,11 @@ def _softmax_fwd_cuda(x, mask, scale, causal):
         return y.reshape(x.shape)
     block = triton.next_power_of_2(sk)
     num_warps = min(max(block // 256, 1), 16)
-    count_launch(KERNEL)
-    kernel[(rows,)](
-        x4, y, m4, np_ * sq, sq, sq, sk, float(scale), *strides,
-        CAUSAL=bool(causal), HAS_MASK=mask is not None, BLOCK=block,
-        num_warps=num_warps)
+    with count_launch(KERNEL):
+        kernel[(rows,)](
+            x4, y, m4, np_ * sq, sq, sq, sk, float(scale), *strides,
+            CAUSAL=bool(causal), HAS_MASK=mask is not None, BLOCK=block,
+            num_warps=num_warps)
     return y.reshape(x.shape)
 
 
@@ -160,6 +182,12 @@ def _softmax_fwd_plain(x, mask, scale, causal):
     return (ex / ex.sum(dim=-1, keepdim=True)).to(x.dtype)
 
 
+def _costs(x, mask, scale, causal):
+    """:func:`_softmax_fwd`'s entry costs (:func:`softmax_cost`)."""
+    yield KERNEL, softmax_cost(x, mask, causal)
+
+
+@kernel_entry(_costs)
 def _softmax_fwd(x, mask, scale, causal):
     if x.is_cuda:
         return _softmax_fwd_cuda(x, mask, scale, causal)

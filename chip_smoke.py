@@ -441,6 +441,51 @@ the multi-tensor tail):
              during ``save_async``, its surviving checkpoints verified,
              the next life resumed from the last valid step.
 
+Profiling and the one-GPU tools (no new kernel):
+   pyprof — ``apex_tpu_torch.pyprof.trace`` over 3 flagship O5 train
+             steps (``tools/profile_r05``'s headline) and 20 greedy
+             decode steps of the bf16 flagship replayed as a CUDA graph,
+             then ``parse``, ``prof``, ``prof_table`` and ``utilization``
+             with ``cost_analysis``: every launch counter of the window in
+             the GPU rows with its count (an eager launch by its
+             ``record_function`` range on the device, a replayed one by
+             its kernel's symbol); the step's count on the card equal to
+             its count on the CPU at the same configuration (fake
+             tensors); no FLOP/s share of 989 TFLOP/s and no bytes/s
+             share of 3.35 TB/s over 1.0.  A profiler session with no
+             device records is reopened up to ``PROFILE_TRIES`` times;
+             if none has any, the host side is held (the ranges, the
+             runtime's launch records) and one line says the device-side
+             checks did not run.  The counted steps follow a warm-up
+             step in the window; before it, the same steps in a window
+             with no warm-up step, a logged control: the launch records
+             without a device record and any range that lost its kernel
+             (such a trace is kept under ``chiprun_out/``).
+   pyprof-late — the train window again after ``library``: the steps
+             from the same seed equal the first window's bit for bit
+             (losses and parameters), and the counters match the trace.
+   kernel-validation — ``tools/kernel_validation --smoke`` in this
+             process: one shape a kernel beside its library call, the
+             errors against fp32, the generation identities; its numeric
+             and identity gates fail the run, its findings are printed.
+   memory-audit — ``tools/memory_audit``'s serve audit at tp=1 against
+             the card's memory; the 1B tier's int8 weight and KV pools
+             built on the card, ``memory_allocated``'s delta equal to the
+             priced bytes within 512 bytes a tensor; the flagship train
+             step's argument bytes and measured peak.
+   chaos — ``tools/chaos_drill``'s in-process matrix over the flagship in
+             fp32 at full depth (pages of 16, chunks of 64, two 2-slot
+             replicas, 24 requests of 160-256 prompt tokens): zero loss,
+             streams token-identical to the unfaulted run, the journal
+             under 2% of the wall, no replica fault in an unfaulted run.
+   dcgan — ``examples/dcgan_amp`` at O1: 50 steps, the first 5 equal to
+             the CPU's from the same weights and batches, two
+             ``multi_tensor_adam`` and three ``multi_tensor_scale``
+             launches a step.
+   profile-r05 — ``tools/profile_r05``'s headline, "fwd only" and
+             "optimizer tail only" rows with their class tables, and the
+             flagship's ``tools/scale_mfu`` row.
+
 The last two lines are a JSON object with one record per kernel (the
 fp16 instances' names end in ``_f16``), and ``{"ok": true, "device":
 {...}}``.  The script imports nothing of JAX.
@@ -9727,6 +9772,657 @@ def phase_fault_drill(card: str) -> None:
              f"{out.stderr[-1500:]}")
 
 
+# ------------------------------------------------ profiling and the tools
+#: the train step the pyprof phase traces (bench.py's flagship at O5)
+PYPROF_TRAIN_STEPS = 3
+#: greedy decode steps the pyprof phase traces, replayed (one harvest
+#: window of the flagship's 4-slot batcher)
+PYPROF_DECODE_STEPS = 20
+#: the device kernels one launch of a counter runs, one each, by their
+#: symbols (its ``_seg``/``_drop``/``_bias``/``_dbias``/``_f16`` instances
+#: are the same kernels; the 16-bit attention entries): a CUDA graph's
+#: replay names its kernels only so (no ``record_function`` range runs).
+#: The dequant pair (its kernel by the plan) and the multi-tensor entries
+#: (a launch a dtype group) have none.
+DEVICE_KERNELS = {
+    "ln_fwd": ("ln_fwd_kernel",), "ln_bwd": ("ln_bwd_kernel",),
+    "ln_bwd_fold": ("ln_bwd_fold_kernel",),
+    "short_fwd": ("fwd_kernel",), "mid_fwd": ("fwd_kernel",),
+    "flash_fwd": ("fwd_kernel",),
+    "short_bwd": ("attn_delta_kernel", "bwd_dkv_kernel", "bwd_dq_kernel"),
+    "mid_bwd": ("attn_delta_kernel", "bwd_dkv_kernel", "bwd_dq_kernel"),
+    "flash_bwd_dkv": ("bwd_dkv_kernel",), "flash_bwd_dq": ("bwd_dq_kernel",),
+    "paged_decode": ("paged_decode_kernel",),
+    "paged_decode_int8": ("paged_decode_kernel",),
+    "paged_decode_rows": ("paged_decode_rows_kernel",),
+    "paged_decode_tree": ("paged_decode_rows_kernel",),
+    "softmax_fwd": ("softmax_fwd",), "dropout": ("dropout_kernel",),
+    "gumbel_argmax": ("gumbel_kernel",)}
+
+
+def device_kernels(counter: str) -> tuple:
+    """:data:`DEVICE_KERNELS` of a counter, its instance suffixes off."""
+    return DEVICE_KERNELS.get(
+        re.sub(r"_(seg|drop|bias|dbias|f16)(?=_|$)", "", counter), ())
+
+
+def symbols_held(label, gpu, counts, name) -> bool:
+    """Each of ``name``'s device kernels appears in the GPU rows as often
+    as the window's counters launched it (logged); False without any."""
+    syms = device_kernels(name)
+    for sym in syms:
+        want = sum(n for k, n in counts.items() if sym in device_kernels(k))
+        got = symbol_count(gpu, sym)
+        if got != want:
+            fail(f"{label}: {name}: {want} launches of {sym} counted, the "
+                 f"GPU rows have {got}")
+        log(f"  {label}: {name}: {sym} {got} rows on the GPU == {want} "
+            "counted")
+    return bool(syms)
+
+
+#: the H100's peaks the utilization shares are read against
+PEAK_BYTES_PER_S = HBM_BYTES_PER_S
+
+
+def symbol_count(rows, symbol: str) -> int:
+    """GPU kernel rows whose name holds ``symbol`` as a whole word."""
+    pat = re.compile(r"(?<![A-Za-z0-9_])" + re.escape(symbol)
+                     + r"(?![A-Za-z0-9_])")
+    return sum(r["count"] for r in rows
+               if not r["line"].endswith("(user annotations)")
+               and pat.search(r["name"]))
+
+
+#: the CUDA API's kernel-launch records in a trace
+LAUNCH_RECORDS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                  "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+#: the ``record_function`` range of a window's warm-up call
+#: (``traced(warm=...)``); the ranges before its end are not checked
+WARM_RANGE = "chip_smoke warm-up"
+
+
+def launch_linkage(trace_dir) -> tuple:
+    """The trace's ``record_function`` ranges against its device records:
+    ``(linkage, lost)``.  ``linkage`` is ``{range name: (host ranges,
+    ranges with a device kernel)}``: a range is linked when a launch
+    record on its thread, inside its span, has a kernel (or a device copy
+    or memset) of the same correlation id on the GPU.  CUPTI's records of
+    the kernels and the launches carry that id; the device-side
+    ``gpu_user_annotation`` spans are built from them and can miss one.
+    Ranges that start before the end of :data:`WARM_RANGE` are left out.
+    ``lost`` reads what the trace lost: ``launches``, the kernel-launch
+    records (after the warm-up) and ``missing``, how many of them have no
+    device record, ``first``, how many in time order come before the
+    first one that has, the ``kernel_skew_ms`` (how far the earliest
+    kernel starts before its own launch record) and, by range name, the
+    unlinked ranges' starts in ms after the window opened."""
+    import bisect
+
+    from apex_tpu_torch.pyprof.parse import trace_files
+
+    ranges, launches, device, opened = [], {}, {}, []
+    for path in trace_files(trace_dir):
+        with open(path) as fh:
+            events = json.load(fh).get("traceEvents", [])
+        for ev in events:
+            if ev.get("ph") != "X":
+                continue
+            cat, args = ev.get("cat"), ev.get("args") or {}
+            if cat == "user_annotation":
+                ranges.append(ev)
+            elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+                device[args.get("correlation")] = float(ev["ts"])
+            elif ev.get("name") in LAUNCH_RECORDS:
+                launches.setdefault(ev.get("tid"), []).append(
+                    (float(ev["ts"]), args.get("correlation")))
+            elif cat == "Trace":
+                opened.append(float(ev["ts"]))
+    start = min(opened) if opened else min(
+        (float(ev["ts"]) for ev in ranges), default=0.0)
+    cut = max((float(ev["ts"]) + float(ev.get("dur", 0)) for ev in ranges
+               if ev["name"] == WARM_RANGE), default=start)
+    for recs in launches.values():
+        recs.sort(key=lambda r: r[0])
+    after = sorted(r for recs in launches.values() for r in recs
+                   if r[0] >= cut)
+    seen = [c in device for _, c in after]
+    lags = [device[c] - t for t, c in after if c in device]
+    out, unlinked = {}, {}
+    for ev in ranges:
+        t0, t1 = float(ev["ts"]), float(ev["ts"]) + float(ev.get("dur", 0))
+        if t0 < cut or ev["name"] == WARM_RANGE:
+            continue
+        recs = launches.get(ev.get("tid"), [])
+        i = bisect.bisect_left(recs, (t0, -1))
+        linked = False
+        while i < len(recs) and recs[i][0] <= t1:
+            if recs[i][1] in device:
+                linked = True
+                break
+            i += 1
+        host, dev = out.get(ev["name"], (0, 0))
+        out[ev["name"]] = (host + 1, dev + int(linked))
+        if not linked:
+            unlinked.setdefault(ev["name"], []).append(
+                round((t0 - start) / 1e3, 2))
+    return out, {
+        "launches": len(after), "missing": seen.count(False),
+        "first": seen.index(True) if True in seen else len(seen),
+        "kernel_skew_ms": round(max(0.0, -min(lags, default=0.0)) / 1e3, 3),
+        "unlinked": unlinked}
+
+
+def traced(label, run, counted, warm=None, keep=None) -> tuple:
+    """``run()`` under ``pyprof.trace``, reopened up to ``PROFILE_TRIES``
+    times while CUPTI hands the session no device records: ``(rows,
+    counts, device, linkage, lost)``, the parsed rows (host and device),
+    the launch counts of the window, whether the device side was seen,
+    and the ranges' :func:`launch_linkage`.  ``counted()`` resets the
+    counters before ``run()``; ``warm()``, when given, runs first in the
+    window inside :data:`WARM_RANGE`, uncounted and unchecked.  ``keep``,
+    a path, receives the gzipped trace when a launch record has no
+    device record."""
+    import gzip
+    import os
+    import shutil
+    import tempfile
+
+    from apex_tpu_torch import pyprof
+    from apex_tpu_torch.ops import launch_counts
+    from apex_tpu_torch.pyprof.parse import trace_files
+
+    if torch.autograd._profiler_enabled():
+        fail(f"{label}: a profiler is still running before the window (an "
+             "earlier phase left it on)")
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with tempfile.TemporaryDirectory(prefix="pyprof-") as d:
+            with pyprof.trace(d):
+                if warm is not None:
+                    with torch.profiler.record_function(WARM_RANGE):
+                        warm()
+                counted()
+                run()
+            counts = {k: v for k, v in launch_counts().items() if v}
+            rows = pyprof.parse(d)
+            linkage, lost = launch_linkage(d)
+            if keep and lost["missing"]:
+                os.makedirs(os.path.dirname(keep), exist_ok=True)
+                with open(trace_files(d)[0], "rb") as src, \
+                        gzip.open(keep, "wb") as dst:
+                    shutil.copyfileobj(src, dst)
+        if any(r["plane"].startswith("GPU") for r in rows):
+            return rows, counts, True, linkage, lost
+        log(f"  {label}: the profiler saw no device records (session "
+            f"{attempt} of {PROFILE_TRIES})")
+    return rows, counts, False, linkage, lost
+
+
+def check_window(label, rows, counts, device: bool, replayed=(),
+                 graph_launches: int = 0, linkage=None) -> None:
+    """The launch counters against the trace.  On the device: each eager
+    counter's ``record_function`` ranges, one a launch, every one linked
+    to a kernel on the GPU (:func:`launch_linkage`); each ``replayed``
+    counter's kernels by symbol (:data:`DEVICE_KERNELS`; a graph's replay
+    runs no range).  Without device records, the host side: each eager
+    counter's ranges on the host, the runtime's kernel-launch records (at
+    least one an eager launch; ATen's kernels launch too) and
+    ``graph_launches`` graph launches for the replays."""
+    gpu = [r for r in rows if r["plane"].startswith("GPU")]
+    host = [r for r in rows if r["plane"] == "CPU"]
+
+    def named(rs, name):
+        return sum(r["count"] for r in rs if r["name"] == name
+                   and r["line"].endswith("(user annotations)"))
+
+    if not device:
+        launches = sum(r["count"] for r in host
+                       if r["name"] in LAUNCH_RECORDS)
+        for name, n in counts.items():
+            if name in replayed:
+                continue
+            if named(host, name) != n:
+                fail(f"{label}: {name} counted {n} launches, the host "
+                     f"trace has {named(host, name)} of its ranges")
+        eager = sum(n for k, n in counts.items() if k not in replayed)
+        if launches < eager:
+            fail(f"{label}: {eager} counted launches, {launches} runtime "
+                 "launch records on the host")
+        graphs = sum(r["count"] for r in host
+                     if r["name"] == "cudaGraphLaunch")
+        if graphs != graph_launches:
+            fail(f"{label}: {graphs} cudaGraphLaunch records, "
+                 f"{graph_launches} replays")
+        log(f"  {label}: DEVICE-SIDE CHECKS DID NOT RUN: CUPTI handed "
+            f"{PROFILE_TRIES} profiler sessions no device records; the "
+            f"host side held ({eager} counted launches, {launches} runtime "
+            "launch records, every counter's ranges); the kernels are held "
+            "against their plain versions in phase 2")
+        return
+    for name, n in sorted(counts.items()):
+        if name in replayed:
+            if not symbols_held(label, gpu, counts, name):
+                fail(f"{label}: {name} replayed, and no symbol names its "
+                     "kernels")
+            continue
+        host, linked = (linkage or {}).get(name, (0, 0))
+        if host != n or linked != n:
+            fail(f"{label}: {name} counted {n} launches; the trace has "
+                 f"{host} of its ranges, {linked} of them with a kernel on "
+                 "the GPU")
+        log(f"  {label}: {name} {n} launches == {host} ranges, each with "
+            "its kernel on the GPU")
+
+
+def utilization_check(label, rows, costs, steps) -> dict:
+    """``pyprof.utilization`` of the device rows against ``costs`` (one
+    step's), printed; a FLOP/s or bytes/s share over 1.0 fails (the
+    count or the time is wrong)."""
+    from apex_tpu_torch import pyprof
+
+    classes = pyprof.prof([r for r in rows if r["plane"].startswith("GPU")])
+    log(f"  {label} classes ({steps} steps):")
+    for line in pyprof.prof_table(classes).splitlines():
+        log("    " + line)
+    util = pyprof.utilization(classes, costs,
+                              peak_flops=PEAK_OPS_PER_S[torch.bfloat16],
+                              peak_bandwidth=PEAK_BYTES_PER_S, steps=steps)
+    log(f"  {label} a {'window' if steps == 1 else 'step'}: compute "
+        f"{util['compute_ms']} ms, memory "
+        f"{util['memory_ms']} ms, other {util['host_other_ms']} ms; "
+        f"{util['flops']:.4g} FLOPs, {util['bytes_accessed']:.4g} bytes; "
+        f"{util['achieved_flops_per_sec'] / 1e12:.2f} TFLOP/s "
+        f"({util.get('compute_utilization')} of 989 TFLOP/s), "
+        f"{util['achieved_bytes_per_sec'] / 1e9:.1f} GB/s "
+        f"({util.get('bandwidth_utilization')} of 3.35 TB/s)")
+    for key in ("compute_utilization", "bandwidth_utilization"):
+        if util.get(key, 0.0) > 1.0:
+            fail(f"{label}: {key} {util[key]} > 1.0: the count or the "
+                 "time is wrong")
+    return util
+
+
+def train_window(step, tokens, targets, label: str) -> tuple:
+    """``PYPROF_TRAIN_STEPS`` steps in a ``traced`` window after a warm-up
+    step there (a late process's trace can lose the first device records
+    of a window), their launch counters held against the trace
+    (``check_window``): ``(rows, device)``, the rows of all
+    ``PYPROF_TRAIN_STEPS + 1`` steps."""
+    from apex_tpu_torch.ops import reset_launch_counts
+
+    rows, counts, device, linkage, lost = traced(
+        label, lambda: [step(tokens, targets)
+                        for _ in range(PYPROF_TRAIN_STEPS)],
+        reset_launch_counts, warm=lambda: step(tokens, targets))
+    log(f"  {label} window launches after a warm-up step: {counts}; "
+        f"{lost['missing']} of {lost['launches']} launch records without "
+        "a device record")
+    for name in LN_TRAIN + ("mid_fwd", "mid_bwd", "multi_tensor_adam"):
+        if counts.get(name, 0) <= 0:
+            fail(f"pyprof: {name} never launched in the {label} window")
+    check_window(label, rows, counts, device, linkage=linkage)
+    return rows, device
+
+
+#: the first pyprof window's trajectory: the loss of every step and a
+#: digest of the parameters after them (``pyprof_train``)
+PYPROF_TRAJECTORY = {}
+
+
+def param_digest(model) -> tuple:
+    """Each parameter's bytes summed as integers: equal only when the
+    parameters are (up to a reordering of bytes no step makes)."""
+    return tuple(int(p.detach().contiguous().view(torch.uint8)
+                     .to(torch.int64).sum()) for p in model.parameters())
+
+
+def pyprof_train(dev, label: str) -> tuple:
+    """The flagship O5 train step (``tools/profile_r05``'s headline) from
+    its seed: 2 steps, a step under ``cost_analysis``, then
+    ``PYPROF_TRAIN_STEPS`` steps in a trace window with no warm-up step,
+    a control that is no check: it logs the launch records the trace
+    holds no device record of and the ranges that lost their kernel
+    (and keeps such a trace under ``chiprun_out/``).  Returns ``(step,
+    tokens, targets, costs, trajectory)``, the trajectory the losses of
+    these steps and the parameters' digest after them."""
+    from apex_tpu_torch import pyprof
+    from apex_tpu_torch.ops import reset_launch_counts
+    from apex_tpu_torch.tools import profile_r05
+
+    model, _, step, _ = profile_r05.build(dev)
+    tokens, targets = profile_r05.batch(dev)
+    losses = []
+
+    def run(n):
+        for _ in range(n):
+            losses.append(step(tokens, targets))
+
+    run(2)
+    torch.cuda.synchronize()
+    costs = pyprof.cost_analysis(run, 1)
+    _, counts, device, linkage, lost = traced(
+        f"{label} (control)", lambda: run(PYPROF_TRAIN_STEPS),
+        reset_launch_counts,
+        keep=f"chiprun_out/pyprof_{label.replace(', ', '_')}.json.gz")
+    short = {k: v for k, v in linkage.items()
+             if k in counts and v[0] != v[1]}
+    log(f"  {label}, a window with no warm-up step (a control, not a "
+        f"check): device records {device}; {lost['missing']} of "
+        f"{lost['launches']} launch records without a device record, "
+        f"{lost['first']} before the first that has one; kernels start up "
+        f"to {lost['kernel_skew_ms']} ms before their launch records; "
+        "ranges without their kernel " + (
+            f"{short}, opened at "
+            f"{ {k: lost['unlinked'][k] for k in short} } ms into the "
+            "window" if short else "none"))
+    return step, tokens, targets, costs, (
+        [float(x) for x in losses], param_digest(model))
+
+
+def phase_pyprof(dev, card: str) -> None:
+    """``apex_tpu_torch.pyprof`` over the main path: 3 flagship O5 train
+    steps (``tools/profile_r05``'s headline step) and 20 greedy decode
+    steps of the bf16 flagship replayed as a CUDA graph, each traced,
+    parsed, filed into classes and married to ``cost_analysis``.  The
+    launch counters must match the trace (``check_window``); the step's
+    count on the card must equal its count on the CPU at the same
+    configuration (fake tensors there); no utilization share over 1.0."""
+    import collections
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from apex_tpu_torch import pyprof
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+    from apex_tpu_torch.ops import reset_launch_counts
+    from apex_tpu_torch.serving import (
+        ContinuousBatcher, KVCacheConfig, PagedKVCache, Request, init_pools)
+    from apex_tpu_torch.tools import profile_r05
+
+    log(f"[pyprof] {PYPROF_TRAIN_STEPS} flagship O5 train steps and "
+        f"{PYPROF_DECODE_STEPS} replayed decode steps under pyprof.trace; "
+        f"{card}")
+    step, tokens, targets, costs, PYPROF_TRAJECTORY["first"] = pyprof_train(
+        dev, "train")
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        _, _, cstep, _ = profile_r05.build("cpu")
+        ct = torch.randint(0, profile_r05.FLAGSHIP["vocab_size"],
+                           tuple(tokens.shape))
+        cg = torch.roll(ct, -1, dims=1)
+        for _ in range(2):
+            cstep(ct, cg)
+        cpu_costs = pyprof.cost_analysis(cstep, ct, cg)
+    log(f"  cost_analysis of a step: card {costs['flops']:.6g} FLOPs, "
+        f"{costs['bytes accessed']:.6g} bytes; CPU (fake tensors, "
+        f"{time.perf_counter() - t0:.1f} s) {cpu_costs['flops']:.6g} FLOPs, "
+        f"{cpu_costs['bytes accessed']:.6g} bytes; kernels "
+        + ", ".join(f"{k} {v['calls']}" for k, v in
+                    costs["kernels"].items()))
+    if (costs["flops"], costs["bytes accessed"]) != (
+            cpu_costs["flops"], cpu_costs["bytes accessed"]):
+        diff = {k: (v, cpu_costs["kernels"].get(k))
+                for k, v in costs["kernels"].items()
+                if cpu_costs["kernels"].get(k) != v}
+        fail(f"pyprof: the step's count differs between the card and the "
+             f"CPU: operators {costs['operator flops']} / "
+             f"{costs['operator bytes accessed']} vs "
+             f"{cpu_costs['operator flops']} / "
+             f"{cpu_costs['operator bytes accessed']}; kernels {diff}")
+    rows, device = train_window(step, tokens, targets, "train")
+    if device:
+        utilization_check("train", rows, costs, PYPROF_TRAIN_STEPS + 1)
+    del step
+    torch.cuda.empty_cache()
+
+    serve_model = GPTModel(GPTConfig(**FLAGSHIP,
+                                     compute_dtype=torch.bfloat16),
+                           device=dev, seed=0)
+    c = serve_model.config
+    ccfg = KVCacheConfig(
+        num_layers=c.num_layers, num_heads=c.num_attention_heads,
+        head_dim=c.head_dim, num_pages=1 + 4 * 9, page_size=64, max_seqs=4,
+        pages_per_seq=9, dtype=c.compute_dtype)
+    fns = serve_model.decode_fns(ccfg, max_prompt_len=512)
+    rng = np.random.RandomState(1)
+
+    def batcher(decode):
+        bt = ContinuousBatcher(
+            fns.prefill, decode, PagedKVCache(ccfg),
+            init_pools(ccfg, serve_model.device), max_prompt_len=512,
+            harvest_every=PYPROF_DECODE_STEPS)
+        bt.run([Request(uid="warm", prompt=[1, 2, 3], max_new_tokens=3)])
+        queue = collections.deque(Request(
+            uid=i, prompt=rng.randint(1, c.vocab_size, 256).tolist(),
+            max_new_tokens=PYPROF_DECODE_STEPS + 5) for i in range(4))
+        bt._admit(queue)
+        torch.cuda.synchronize()
+        return bt
+
+    bt = batcher(fns.decode)
+    rows, counts, device, _, _ = traced("decode", bt._decode_window,
+                                        reset_launch_counts)
+    log(f"  decode window launches (replays counted): {counts}")
+    if counts.get("paged_decode", 0) != PYPROF_DECODE_STEPS * c.num_layers:
+        fail(f"pyprof: {counts.get('paged_decode', 0)} paged_decode "
+             f"launches in {PYPROF_DECODE_STEPS} decode steps")
+    check_window("decode", rows, counts, device, replayed=set(counts),
+                 graph_launches=PYPROF_DECODE_STEPS)
+    eager = batcher(fns.decode_eager)
+    dcosts = pyprof.cost_analysis(eager._decode_window)
+    log(f"  cost_analysis of the eager window: {dcosts['flops']:.6g} "
+        f"FLOPs, {dcosts['bytes accessed']:.6g} bytes")
+    if device:
+        utilization_check(f"decode window ({PYPROF_DECODE_STEPS} steps)",
+                          rows, dcosts, 1)
+    del serve_model, fns, bt, eager
+    torch.cuda.empty_cache()
+
+
+def phase_pyprof_late(dev) -> None:
+    """The pyprof train window again, after the ~60 phases before it,
+    where a window's first device records go missing from the trace:
+    the same steps from the same seed as the first window, whose losses
+    and parameters must equal the first window's bit for bit (so every
+    counted launch ran as it did in a fresh process, whose trace held
+    them all), and whose counters must match the trace after a warm-up
+    step."""
+    log("[pyprof-late] the flagship O5 train window again, late in the "
+        "run")
+    step, tokens, targets, _, late = pyprof_train(dev, "train, late")
+    first = PYPROF_TRAJECTORY["first"]
+    same = late == first
+    log(f"  losses of the {len(late[0])} steps, late == first: {same} "
+        f"(late {late[0]}, first {first[0]}); parameters "
+        f"{'equal' if late[1] == first[1] else 'DIFFER'}")
+    if not same:
+        fail("pyprof-late: the late steps differ from the first window's")
+    train_window(step, tokens, targets, "train, late")
+    del step
+    torch.cuda.empty_cache()
+
+
+def phase_kernel_validation(dev) -> None:
+    """``tools/kernel_validation --smoke`` in this process: one shape a
+    kernel (each attention rung, the layer norm, the softmax, the dense
+    layers, the Adam tail, the paged decode and its chunked cells, the
+    dequant pair), their errors against fp32 and their device times
+    beside the library calls, and the generation identities.  Its numeric
+    and identity gates fail the run; its findings are printed."""
+    from apex_tpu_torch.tools import kernel_validation as kv
+
+    doc = kv.run(smoke=True, device=dev)
+    log(f"[kernel-validation] {len(doc['entries'])} entries in "
+        f"{doc['wall_s']} s on {doc['device']}")
+    for e in doc["entries"]:
+        f = e.get("fwd", e)
+        if e["kernel"] == "decode_generation":
+            log(f"  decode_generation: greedy {e['greedy_match']}, chunked "
+                f"{e['chunked_greedy_match']}, speculative "
+                f"{e['speculative_greedy_match']}")
+            continue
+        fb = e.get("fwd_bwd")
+        log(f"  {e['kernel']} {e.get('rung', '')} {e['shape']} "
+            f"{e['dtype']}: {f['kernel_ms']} ms (library "
+            f"{f.get('library_ms', f.get('dense_matmul_ms'))}), err "
+            f"{f['max_err_vs_fp32']:.3g} (library "
+            f"{f['library_err_vs_fp32']:.3g})"
+            + (f"; fwd+bwd {fb['kernel_ms']} ms (library "
+               f"{fb['library_ms']}), grad rel err "
+               f"{fb['grad_max_rel_err']:.3g}" if fb else ""))
+    for why in doc["findings"]:
+        log(f"  finding: {why}")
+    if doc["failures"]:
+        fail("kernel-validation: " + "; ".join(doc["failures"]))
+
+
+def phase_memory_audit(dev, card: str) -> None:
+    """``tools/memory_audit``: the serve audit at tp=1 against the card's
+    memory, the 1B tier's int8 weight pool and int8 KV pool built on the
+    card (``memory_allocated``'s delta equal to the priced bytes within
+    the caching allocator's 512-byte rounding a tensor), and the flagship
+    train step's argument bytes and measured peak."""
+    from apex_tpu_torch.tools import memory_audit as ma
+
+    doc = ma.run_serve_audit()
+    gb = doc["hbm_limit_bytes"] / 1e9
+    log(f"[memory-audit] serve, tp=1, {gb:.2f} GB ({card}): largest tier "
+        f"that fits {doc['value']}; with the 1B int4 draft "
+        f"{doc['draft_co_resident_largest_fit']}; fits only quantized "
+        f"{doc['fits_only_quantized']}")
+    for r in doc["tiers"]:
+        log(f"  {r['tier']}: " + ", ".join(
+            f"{w} {r['widths'][w]['total_bytes'] / 1e9:.2f} GB"
+            f"{'' if r['widths'][w]['fits_hbm'] else ' (no)'}"
+            for w in ma.WEIGHT_WIDTHS)
+            + f"; KV int8 {r['kv_pool_bytes']['int8'] / 1e9:.3f} GB, fp32 "
+            f"{r['kv_pool_bytes']['fp32'] / 1e9:.3f} GB")
+    got = ma.materialize_serve_pools(dev, "1B", "int8")
+    for what in ("weight", "kv"):
+        want, alloc = got[f"{what}_pool_bytes"], got[f"{what}_pool_allocated"]
+        slack = 512 * got[f"{what}_tensors"]
+        log(f"  1B int8 {what} pool on the card: priced {want:,} bytes, "
+            f"memory_allocated delta {alloc:,} ({got[f'{what}_tensors']} "
+            f"tensors, rounding allowed {slack:,})")
+        if not want <= alloc <= want + slack:
+            fail(f"memory-audit: the {what} pool took {alloc} bytes, "
+                 f"priced {want} (+{slack} rounding)")
+    train = ma.run_train_audit(dev)
+    log(f"  flagship O5 train step: {train['n_params']:,} params, arguments "
+        f"{train['argument_bytes'] / 2**30:.3f} GiB, measured peak "
+        f"{train['peak_bytes'] / 2**30:.3f} GiB (temp "
+        f"{train['temp_bytes'] / 2**30:.3f} GiB), loss {train['loss']:.4f}")
+
+
+#: the chaos matrix's trace: the JAX tool's shape with prompts of 160-256
+#: tokens (a cohort prefix of 128), so each router step's journal append
+#: rides device work of the flagship's size
+CHAOS_TRACE = dict(n_requests=24, seed=11, mean_gap=0.5, burstiness=4.0,
+                   prompt_len=(160, 256), new_tokens=(6, 12),
+                   interactive_frac=0.5, cohorts=2, cohort_frac=0.7,
+                   prefix_len=128)
+CHAOS_CHUNK, CHAOS_MAXP = 64, 320
+
+
+def phase_chaos(dev) -> None:
+    """``tools/chaos_drill``'s in-process matrix on the card: the flagship
+    at full depth and width in fp32 (so migrations replay token for
+    token), pages of 16 (``FLEET_PAGE``), chunks of 64, two 2-slot
+    replicas, the JAX tool's trace with 160-256-token prompts.  Zero loss,
+    streams token-identical to the unfaulted run, the journal under 2%
+    of the serving wall; no replica of an unfaulted run may fault."""
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+    from apex_tpu_torch.tools import chaos_drill as cd
+
+    model = GPTModel(GPTConfig(**FLAGSHIP, compute_dtype=torch.float32),
+                     device=dev, seed=5)
+    world = cd.World(model, page=FLEET_PAGE, chunk=CHAOS_CHUNK,
+                     maxp=CHAOS_MAXP, new=12)
+    trace = cd.make_trace(model.config.vocab_size, **CHAOS_TRACE)
+    log(f"[chaos] the matrix: flagship fp32, {model.config.num_layers} "
+        f"layers (no depth cut), 2 replicas x 2 slots, pages "
+        f"{FLEET_PAGE}, chunks {CHAOS_CHUNK}, {len(trace)} requests of "
+        f"{CHAOS_TRACE['prompt_len']} prompt tokens")
+    ledger = cd.run_matrix(world, trace, healthy=fleet_healthy)
+    problems = ledger.pop("problems")
+    log("  CHAOS " + json.dumps(ledger))
+    if problems or not (ledger["zero_loss"] and ledger["token_identical"]):
+        fail(f"chaos: {problems}")
+    del model, world
+    torch.cuda.empty_cache()
+
+
+#: the DCGAN phase: steps at O1 on the card, of which the first are held
+#: against the CPU's from the same weights and batches
+DCGAN_STEPS, DCGAN_PARITY_STEPS, DCGAN_BATCH = 50, 5, 64
+
+
+def phase_dcgan(dev) -> None:
+    """``examples/dcgan_amp`` at O1: the card's first steps equal the
+    CPU's from the same weights and batches (fp32 nets: parameters within
+    1e-5 of the largest, the three loss scales and unskipped counts
+    equal), then 50 steps on the card with ``multi_tensor_adam`` (two a
+    step) and ``multi_tensor_scale`` (the three unscales) counted."""
+    from apex_tpu_torch.examples import dcgan_amp
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    gpu, cpu = dcgan_amp.DCGAN(dev, "O1"), dcgan_amp.DCGAN("cpu", "O1")
+    for a, b in ((gpu.netD, cpu.netD), (gpu.netG, cpu.netG)):
+        b.load_state_dict({k: v.cpu() for k, v in a.state_dict().items()})
+    rng = np.random.default_rng(0)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(DCGAN_STEPS):
+        arrays = dcgan_amp.batches(rng, DCGAN_BATCH)
+        losses = gpu.step(*(torch.from_numpy(a).to(dev) for a in arrays))
+        if i < DCGAN_PARITY_STEPS:
+            want = cpu.step(*(torch.from_numpy(a) for a in arrays))
+            for net_g, net_c in ((gpu.netD, cpu.netD), (gpu.netG, cpu.netG)):
+                for (name, p), q in zip(net_g.named_parameters(),
+                                        net_c.parameters()):
+                    tol = 1e-5 * float(q.abs().max())
+                    if max_err(p.detach().cpu(), q) > tol:
+                        fail(f"dcgan step {i + 1}: {name} off the CPU's by "
+                             f"{max_err(p.detach().cpu(), q):.3g} > {tol:.3g}")
+            for sg, sc in zip(gpu.amp_state.scaler_states,
+                              cpu.amp_state.scaler_states):
+                if (float(sg.loss_scale), int(sg.unskipped)) != (
+                        float(sc.loss_scale), int(sc.unskipped)):
+                    fail(f"dcgan step {i + 1}: scaler {sg} vs the CPU's {sc}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    if counts.get("multi_tensor_adam", 0) != 2 * DCGAN_STEPS or \
+            counts.get("multi_tensor_scale", 0) != 3 * DCGAN_STEPS:
+        fail(f"dcgan: launches {counts}, want 2 multi_tensor_adam and 3 "
+             "multi_tensor_scale a step")
+    log(f"[dcgan] {DCGAN_STEPS} O1 steps (batch {DCGAN_BATCH}) in "
+        f"{wall:.2f} s; the first {DCGAN_PARITY_STEPS} == the CPU's; last "
+        f"losses {[round(float(x), 4) for x in losses]}; loss scales "
+        f"{gpu.loss_scales()}; launches {counts}")
+
+
+def phase_profile_r05(dev, card: str) -> None:
+    """``tools/profile_r05``'s headline, "fwd only" and "optimizer tail
+    only" rows, each with its class table, and the flagship's
+    ``tools/scale_mfu`` row."""
+    from apex_tpu_torch.tools import profile_r05, scale_mfu
+
+    log(f"[profile-r05] flagship O5 decomposition ({card})")
+    doc = profile_r05.run(["fwd only", "optimizer tail only"], device=dev)
+    for r in doc["rows"]:
+        log(f"  {r['label']}: {r['ms_per_step']} ms/step"
+            + ("" if r.get("classes") is not None else
+               "; device classes not measured (no device records)"))
+    log(f"  headline {doc['tokens_per_sec']:,.0f} tokens/s, MFU "
+        f"{doc['mfu']}")
+    row = scale_mfu.measure(*scale_mfu.CONFIGS[0], device=dev)
+    log(f"  scale_mfu {row['tag']}: {row['ms_per_step']} ms/step, "
+        f"{row['tokens_per_sec']:,.0f} tokens/s, MFU {row['mfu']}, peak "
+        f"{row['peak_gib']} GiB")
+
+
 SOURCES = {
     "ln_fwd": ("cuda", "apex_tpu_torch/csrc/layer_norm.cu",
                "apex_tpu/ops/layer_norm.py:66"),
@@ -9880,6 +10576,7 @@ def main() -> None:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     card = timed("build", phase_build)
+    timed("pyprof", phase_pyprof, dev, card)
     records = timed("kernels", phase_kernels, dev)
     timed("parity", phase_parity, dev)
     timed("rope-parity", phase_rope_parity, dev)
@@ -9992,6 +10689,12 @@ def main() -> None:
     timed("resnet-parity", phase_resnet_parity, dev)
     timed("rn50-train", phase_rn50_train, dev)
     timed("library", phase_library, dev)
+    timed("pyprof-late", phase_pyprof_late, dev)
+    timed("kernel-validation", phase_kernel_validation, dev)
+    timed("memory-audit", phase_memory_audit, dev, card)
+    timed("chaos", phase_chaos, dev)
+    timed("dcgan", phase_dcgan, dev)
+    timed("profile-r05", phase_profile_r05, dev, card)
     timed("fault-drill", phase_fault_drill, card)
     # one record per kernel at its main path's shape; launches from the
     # path that carries it: the serving kernels from phase 4, the dequant

@@ -471,7 +471,9 @@ def test_decode_rows_and_tree_count_under_their_own_names():
     "testing", "normalization", "normalization.fused_layer_norm",
     "contrib.layer_norm", "mlp", "fused_dense", "reparameterization", "rnn",
     "contrib.groupbn", "contrib.bottleneck", "contrib.transducer",
-    "contrib.sparsity"])
+    "contrib.sparsity", "pyprof", "pyprof.parse", "pyprof.prof",
+    "tools.profile_r05", "tools.scale_mfu", "tools.memory_audit",
+    "tools.kernel_validation", "tools.chaos_drill", "examples.dcgan_amp"])
 def test_new_modules_are_port_files(module):
     """The modules of the serving slice, the softmax entry point, the
     PRNG and dropout, T5, ResNet and their helpers, the fleet tier, the
@@ -921,3 +923,252 @@ def test_layer_library_keeps_the_jax_signatures(module, name):
         pos, kw = _signature(port)
     assert pos == ref_pos
     assert ref_kw <= kw and kw - ref_kw <= {"device", "key", "generator"}
+
+
+# ------------------------------------------- profiling and the one-GPU tools
+#: the port's twins of the root tools and the JAX example: (port module,
+#: the JAX file) and the JAX functions a twin replaces, with the reason
+TOOL_TWINS = {
+    "tools.profile_r05": ("tools/profile_r05.py", {}),
+    "tools.scale_mfu": ("tools/scale_mfu.py", {}),
+    "tools.chaos_drill": ("tools/chaos_drill.py", {}),
+    "tools.kernel_validation": ("tools/kernel_validation.py", {}),
+    "tools.memory_audit": ("tools/memory_audit.py", {
+        "build_step": "ZeRO-3 against DDP: multi-GPU, queue A item 9",
+        "run_memory_audit": "ZeRO-3 against DDP: multi-GPU, queue A item 9",
+        "train_zero3": "ZeRO-3 training: multi-GPU, queue A item 9",
+        "measure": "XLA's buffer assignment: run_train_audit reads "
+                   "max_memory_allocated of a step on the card"}),
+    "examples.dcgan_amp": ("examples/dcgan_amp.py", {
+        "init_g": "G is an nn.Module (Generator) drawn at construction",
+        "init_d": "D is an nn.Module (Discriminator) drawn at construction",
+        "gen": "Generator.forward", "disc": "Discriminator.forward"}),
+}
+
+
+@pytest.mark.parametrize("module", sorted(TOOL_TWINS))
+def test_tool_twins_keep_the_jax_functions(module):
+    """Every public function of the JAX tool is in its twin, but those
+    the twin replaces for a stated reason."""
+    jax_file, replaced = TOOL_TWINS[module]
+    names = set(re.findall(r"^def ([a-z]\w*)\(",
+                           (ROOT / jax_file).read_text(), re.MULTILINE))
+    port = importlib.import_module(f"apex_tpu_torch.{module}")
+    assert set(replaced) <= names
+    missing = {n for n in names - set(replaced) if not hasattr(port, n)}
+    assert not missing, f"apex_tpu_torch.{module} lacks {sorted(missing)}"
+    assert not any(hasattr(port, n) for n in replaced)
+
+
+def test_pyprof_keeps_the_jax_names_and_signatures():
+    import inspect
+
+    from apex_tpu import pyprof as ref
+    from apex_tpu_torch import pyprof as port
+
+    assert set(ref.__all__) == set(port.__all__)
+    for name in ref.__all__:
+        a, b = getattr(ref, name), getattr(port, name)
+        if inspect.isfunction(a):
+            assert list(inspect.signature(a).parameters) == list(
+                inspect.signature(b).parameters), name
+    for sub in ("parse", "prof"):
+        r = importlib.import_module(f"apex_tpu.pyprof.{sub}")
+        p = importlib.import_module(f"apex_tpu_torch.pyprof.{sub}")
+        assert set(r.__all__) <= set(p.__all__)
+
+
+#: the root files the JAX tools write: the port's tools never do
+JAX_TOOL_OUTPUTS = ("KERNELS_TPU.json", "PROFILE_r05.json", "PROFILE_r05.md",
+                    "SCALE_MFU.json", "MEMORY_AUDIT.json",
+                    "MEMORY_AUDIT_SERVE.json")
+
+
+@pytest.mark.parametrize("module", ["profile_r05", "scale_mfu",
+                                    "memory_audit", "kernel_validation",
+                                    "chaos_drill"])
+def test_port_tools_write_under_the_ignored_output_dir(module):
+    """The port's tools write to ``--out``, by default under the
+    git-ignored ``tool_out/`` (the chaos drill into its ``--root``),
+    never to a root file that was there before the port."""
+    src = (ROOT / "apex_tpu_torch" / "tools" / f"{module}.py").read_text()
+    for name in JAX_TOOL_OUTPUTS:
+        assert name not in src
+    for name in re.findall(r'"([\w.]+\.(?:json|md))"', src):
+        assert not (ROOT / name).exists(), name
+    if module != "chaos_drill":
+        assert '_REPO, "tool_out"' in src or "profile_r05._REPO" in src
+    assert "tool_out/" in (ROOT / ".gitignore").read_text().split()
+
+
+def test_metrics_report_stays_free_of_jax():
+    """The port runs the root ``tools/metrics_report.py`` on its own
+    stream, which stays legal while it imports neither jax nor apex_tpu."""
+    src = (ROOT / "tools" / "metrics_report.py").read_text()
+    assert not FORBIDDEN.search(src)
+
+
+def _count_launch_calls():
+    import ast
+
+    for path in sorted((ROOT / "apex_tpu_torch" / "ops").glob("*.py")):
+        if path.name == "common.py":
+            continue
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Call) and getattr(
+                    node.func, "id", None) == "count_launch":
+                yield path.name, node
+
+
+def test_every_launch_reports_its_cost():
+    """Each module that counts launches (``count_launch(name)``, one
+    argument) declares its entries' costs (``@kernel_entry(costs)``),
+    the cost hook beside the counter."""
+    import ast
+
+    calls = list(_count_launch_calls())
+    assert len(calls) >= 14
+    for name, node in calls:
+        assert len(node.args) == 1 and not node.keywords, \
+            f"{name}:{node.lineno}"
+    for name in sorted({name for name, _ in calls}):
+        tree = ast.parse((ROOT / "apex_tpu_torch" / "ops" / name)
+                         .read_text())
+        entries = [d for node in ast.walk(tree)
+                   if isinstance(node, ast.FunctionDef)
+                   for d in node.decorator_list
+                   if isinstance(d, ast.Call)
+                   and getattr(d.func, "id", None) == "kernel_entry"]
+        assert entries, name
+
+
+@pytest.mark.parametrize("module", ["attention_short", "attention_mid",
+                                    "attention_flash"])
+def test_attention_launches_count_and_report_their_cost(monkeypatch, module):
+    """A launch counts once, and its entry reports the same counter with
+    its cost to every active recorder: the bound column's formulas (two
+    products a visible pair forward, five a short/mid backward, four for
+    flash dK/dV and three for dQ)."""
+    from apex_tpu_torch.ops import attention_short as short
+    from apex_tpu_torch.ops.common import (
+        CostRecorder,
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    mod = importlib.import_module(f"apex_tpu_torch.ops.{module}")
+    pairs, d, numel, rows = 6 * 16 * 17 // 2, 64, 6 * 16 * 64, 96
+    reset_launch_counts()
+    plain = dict(scale=0.1, ids=(None, None), drop=None, slab=None)
+    if module == "attention_flash":
+        q, row = torch.zeros((6, 16, 64)), torch.zeros((6, 16))
+        for symbol, rest, outs in ((mod.KERNEL, (), (q, row)),
+                                   (mod.KERNEL_DKV, (q, row, row), (q, q)),
+                                   (mod.KERNEL_DQ, (q, row, row), (q,))):
+            _, entry = _fake_launch(monkeypatch, mod, symbol)
+            monkeypatch.setattr(mod, "_entry", entry)
+            mod._launch(symbol, q, q, q, (None, None), 3, rest, outs,
+                        True, 0.1)
+        with CostRecorder() as rec, CostRecorder() as inner:
+            mod.run_fwd(q, q, q, True, heads=3, **plain)
+            for symbol in (mod.KERNEL_DKV, mod.KERNEL_DQ):
+                mod.run_bwd(symbol, q, q, q, q, row, row, True, heads=3,
+                            **plain)
+        want = {"flash_fwd": (4.0 * d * pairs, 4 * numel * 4 + rows * 4),
+                "flash_bwd_dkv": (8.0 * d * pairs,
+                                  6 * numel * 4 + 2 * rows * 4),
+                "flash_bwd_dq": (6.0 * d * pairs,
+                                 5 * numel * 4 + 2 * rows * 4)}
+    else:
+        q, lse = torch.zeros((2, 3, 16, 64)), torch.zeros((2, 3, 16))
+        for symbol, call in (
+                (mod.KERNEL, lambda e: short.launch_fwd(
+                    e, (mod.KERNEL, mod.KERNEL_SEG), q, q, q, True, 0.1,
+                    None, None)),
+                (mod.KERNEL_BWD, lambda e: short.launch_bwd(
+                    e, (mod.KERNEL_BWD, mod.KERNEL_BWD_SEG), q, q, q, q,
+                    q, lse, None, True, 0.1, None, None))):
+            _, entry = _fake_launch(monkeypatch, mod, symbol)
+            call(entry)
+        with CostRecorder() as rec, CostRecorder() as inner:
+            mod._run_fwd(q, q, q, True, **plain)
+            mod._run_bwd(q, q, q, q, q, lse, None, True, **plain)
+        want = {mod.KERNEL: (4.0 * d * pairs, 4 * numel * 4 + rows * 4),
+                mod.KERNEL_BWD: (10.0 * d * pairs,
+                                 8 * numel * 4 + rows * 4)}
+    assert {k: v for k, v in launch_counts().items() if v} == dict.fromkeys(
+        want, 1)
+    for r in (rec, inner):
+        assert {k: (f, b) for k, (n, f, b) in r.kernels.items()} == want
+        assert all(n == 1 for n, _, _ in r.kernels.values())
+        assert r.flops == sum(f for f, _ in want.values())
+
+
+def test_a_launch_opens_its_range_only_under_a_profiler():
+    """``count_launch`` returns a ``record_function`` range named by the
+    counter while a profiler runs, and a no-op context otherwise, so an
+    unprofiled launch pays no profiler call."""
+    from apex_tpu_torch.ops import common
+
+    common.reset_launch_counts()
+    with common.count_launch("fake_kernel") as ctx:
+        assert ctx is None
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with common.count_launch("fake_kernel"):
+            torch.zeros(4).add_(1)
+    names = [e.name for e in prof.events()]
+    assert names.count("fake_kernel") == 1
+    assert common.launch_counts()["fake_kernel"] == 2
+
+
+def test_every_wrapper_reports_its_cost_on_the_cpu():
+    """Each wrapper's plain version (its CPU path) reports the counter and
+    the cost its launch would, so a function counts the same on both."""
+    from apex_tpu_torch import random as prng
+    from apex_tpu_torch.ops import attention_decode as dec
+    from apex_tpu_torch.ops import dropout as dr
+    from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.ops import multi_tensor as mt
+    from apex_tpu_torch.ops import sampling as smp
+    from apex_tpu_torch.ops import softmax as sm
+    from apex_tpu_torch.ops.common import CostRecorder
+
+    # the package exports the entry point under the module's name
+    dq = importlib.import_module("apex_tpu_torch.ops.dequant_matmul")
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((8, 64), generator=g, requires_grad=True)
+    w = torch.ones(64, requires_grad=True)
+    b = torch.zeros(64, requires_grad=True)
+    with CostRecorder() as rec:
+        ln.fused_layer_norm_affine(x, w, b, (64,), 1e-5).sum().backward()
+        sm.scaled_upper_triang_masked_softmax(torch.randn(2, 16, 16), 0.5)
+        dr.dropout_fwd(torch.randn(4, 32), prng.PRNGKey(1), 0.1)
+        smp.gumbel_argmax(torch.randn(2, 64), torch.zeros(
+            (2, 2), dtype=torch.int64), None, 1.0)
+        pages = torch.randn(5, 2, 4, 64)
+        dec.fmha_decode(torch.randn(1, 2, 1, 64), pages, pages,
+                        torch.tensor([[1, 2, 3, 4]], dtype=torch.int32),
+                        torch.tensor([10], dtype=torch.int32))
+        wq = dq.quantize_weight(torch.randn(64, 256), "int8", 128)
+        dq.dequant_matmul(torch.randn(3, 64), wq["q8"], wq["scales"],
+                          weight_dtype="int8")
+        ts = [torch.randn(16), torch.randn(8)]
+        mt.scale(ts, 0.5, out=ts)
+        mt.l2norm(ts)
+    want = {"ln_fwd": (8.0 * 512, 2 * 512 * 4 + 2 * 64 * 4 + 2 * 8 * 4),
+            "ln_bwd": (20.0 * 512, 3 * 512 * 4 + 64 * 4 * 4 + 2 * 8 * 4),
+            "softmax_fwd": (5.0 * 512, (2 * 136 + 512) * 4),
+            "dropout": (float(dr.HASH_OPS) * 128, 2 * 128 * 4),
+            "gumbel_argmax": (float(2 * 64 * smp.THREEFRY_OPS),
+                              2 * 64 * 4 + 2 * 16),
+            "paged_decode": (4.0 * 64 * 2 * 10, 2 * 128 * 4
+                             + 2 * 10 * 2 * 64 * 4 + 4 * 5),
+            "dequant_int8": (2.0 * 3 * 64 * 256 + 64 * 256,
+                             3 * 64 * 4 + 64 * 256 + 64 * 2 * 4
+                             + 3 * 256 * 4),
+            "multi_tensor_scale": (2.0 * 24, 2 * 24 * 4),
+            "multi_tensor_l2norm": (2.0 * 24, 24 * 4)}
+    got = {k: (f, nb) for k, (n, f, nb) in rec.kernels.items()}
+    assert got.pop("ln_bwd_fold")[0] > 0
+    assert got == want

@@ -36,6 +36,19 @@ of the port's ``QuantizedLinear`` (``layers.<i>.qkv.q8``,
 ``apex_tpu_torch.models.gpt.quantize_gpt_weights`` converted with the same
 width and block, strictly.
 
+Tensor parallelism: ``params_from_jax(tree, tp=, rank=)`` gives rank
+``rank``'s state dict of a GPT built over a tensor-parallel group of
+``tp``: each full logical JAX leaf is sliced as the layer that holds it
+describes its shards (``param_specs()`` of ``tensor_parallel.layers``):
+the column leaves (``qkv``, ``fc1``, ``fc_gate``) on their output dim,
+the row leaves (``attn_proj``, ``fc2``) on their contraction dim with the
+bias whole, the embedding on the vocab, the norms and the position table
+whole; a quantized pool's ``q8``/``q4``/``scales`` as their layer's
+weight, so rank r's bytes are the slice of JAX's ``quantize_gpt_weights(
+..., tp=)`` pool that JAX's ``_quantized_layer_specs`` hands device r.
+``params_to_jax`` takes the ranks' state dicts (a list) and joins them
+back along the same dims: the gathered shards give the tree bit for bit.
+
 Takes and returns numpy arrays (``jax.tree.map(np.asarray, params)`` on
 the JAX side), so neither package imports the other.  bf16 leaves (O5)
 are ``ml_dtypes.bfloat16`` arrays in numpy, which ``torch.from_numpy``
@@ -70,12 +83,15 @@ one state.  The loss scaler's state crosses with
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "params_to_jax", "resnet_from_jax",
+from apex_tpu_torch.transformer.tensor_parallel import layers as tp_layers
+
+__all__ = ["params_from_jax", "params_to_jax", "unshard_state",
+           "resnet_from_jax",
            "resnet_to_jax", "layer_from_jax", "layer_to_jax", "optimizer_state_from_jax",
            "optimizer_state_to_jax", "scaler_state_from_jax",
            "scaler_state_to_jax"]
@@ -136,13 +152,42 @@ def _array(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+#: the GPT's tensor-parallel layers by leaf module name, whose
+#: ``SPECS`` say how each of their leaves shards
+TP_LAYERS = {
+    "embedding": tp_layers.VocabParallelEmbedding,
+    "qkv": tp_layers.ColumnParallelLinear,
+    "fc1": tp_layers.ColumnParallelLinear,
+    "fc_gate": tp_layers.ColumnParallelLinear,
+    "attn_proj": tp_layers.RowParallelLinear,
+    "fc2": tp_layers.RowParallelLinear,
+}
+
+
+def _leaf_spec(name: str) -> tuple:
+    """The tensor-parallel spec of a GPT state-dict entry (an unstacked
+    leaf, ``layers.3.qkv.weight``): the layer's ``param_specs()`` entry,
+    ``()`` (whole on every rank) for the norms and the position table."""
+    parts = name.split(".")
+    if len(parts) < 2 or parts[-2] not in TP_LAYERS:
+        return ()
+    cls, leaf = TP_LAYERS[parts[-2]], parts[-1]
+    if leaf in ("q8", "q4", "scales"):
+        return tp_layers.QuantizedLinear.leaf_specs(
+            leaf if leaf != "scales" else "q8",
+            cls is tp_layers.RowParallelLinear)[leaf]
+    return cls.SPECS.get(leaf, ())
+
+
+def params_from_jax(tree: Dict[str, Any], tp: int = 1,
+                    rank: int = 0) -> Dict[str, torch.Tensor]:
     """JAX GPT, BERT, T5 or ResNet parameter tree (numpy leaves) -> the
     port's state dict (CPU tensors; ``load_state_dict`` moves them).  A
     stacked layer leaf (:data:`STACKED`) becomes one entry a layer, a
     list entry (ResNet's ``stages``) one entry an index.  ResNet's
     ``batch_stats`` tree crosses the same way (:func:`resnet_from_jax`
-    takes both)."""
+    takes both).  ``tp > 1`` gives tensor-parallel rank ``rank``'s
+    shards of a GPT tree (:func:`_leaf_spec`)."""
     state: Dict[str, torch.Tensor] = {}
     for key, leaf in _flatten(tree):
         arr = leaf if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
@@ -152,16 +197,37 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                     _tensor(arr[i])
         else:
             state[".".join(key)] = _tensor(arr)
+    if tp > 1:
+        state = {name: tp_layers.shard(t, _leaf_spec(name), tp, rank)
+                 for name, t in state.items()}
     return state
 
 
-def params_to_jax(state: Dict[str, torch.Tensor],
+def unshard_state(states: Sequence[Dict[str, torch.Tensor]]
+                  ) -> Dict[str, torch.Tensor]:
+    """The tensor-parallel ranks' state dicts (rank order) joined into
+    the tp = 1 state dict: each sharded entry concatenated along its
+    shard dim, a whole one taken from rank 0."""
+    out = {}
+    for name, t in states[0].items():
+        dim = tp_layers.shard_dim(_leaf_spec(name))
+        out[name] = t if dim is None or len(states) == 1 else torch.cat(
+            [st[name].to(t.device) for st in states], dim=dim)
+    return out
+
+
+def params_to_jax(state: Union[Dict[str, torch.Tensor],
+                               Sequence[Dict[str, torch.Tensor]]],
                   tensors: bool = False) -> Dict[str, Any]:
     """The port's state dict -> the JAX GPT, BERT, T5 or ResNet parameter
     tree (numpy leaves, each stack's layer leaves stacked on a leading
     dim, ResNet's stages and blocks as lists).  ``tensors=True`` keeps
     the leaves tensors on their device (stacked there), with no copy to
-    the host and no ``ml_dtypes``: the tree a checkpoint snapshots."""
+    the host and no ``ml_dtypes``: the tree a checkpoint snapshots.  A
+    list of the tensor-parallel ranks' state dicts is joined first
+    (:func:`unshard_state`)."""
+    if isinstance(state, (list, tuple)):
+        state = unshard_state(state)
     tree: Dict[str, Any] = {}
     per_layer: Dict[Tuple[str, ...], Dict[int, Any]] = {}
     stack = torch.stack if tensors else np.stack

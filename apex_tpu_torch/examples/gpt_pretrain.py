@@ -1,7 +1,10 @@
-"""GPT pretraining on one GPU: the port's counterpart of
-``examples/gpt_pretrain.py`` at tp = pp = dp = 1.
+"""GPT pretraining: the port's counterpart of ``examples/gpt_pretrain.py``
+at pp = dp = 1, on one GPU or tensor-parallel over one process a rank.
 
     python -m apex_tpu_torch.examples.gpt_pretrain --steps 20
+    torchrun --nproc-per-node 2 -m apex_tpu_torch.examples.gpt_pretrain \
+        --tp 2 --layers 2 --hidden 64 --heads 2 --vocab 256 --seq 128 \
+        --device cpu --steps 3
     python -m apex_tpu_torch.examples.gpt_pretrain --layers 2 --hidden 64 \\
         --heads 2 --vocab 256 --seq 128 --device cpu --steps 3
     python -m apex_tpu_torch.examples.gpt_pretrain --position-embedding rope \\
@@ -64,8 +67,20 @@ The loop is the JAX trainer's, with its telemetry and resilience:
   layout (:mod:`apex_tpu_torch.convert`), so a checkpoint written by the
   JAX trainer resumes here and one written here is JAX's bytes.
 
-The multi-chip flags of the JAX trainer raise ``NotImplementedError``
-naming their ROADMAP.md item.
+``--tp N`` shards the model over N ranks (Megatron tensor
+parallelism, ``transformer.parallel_state``): a default process group
+already initialized is taken as it is, otherwise the trainer initializes
+one from ``torchrun``'s environment (NCCL on the card with one rank a
+GPU, ``cuda:LOCAL_RANK``; gloo on the CPU), and a node with fewer GPUs
+than local ranks raises.  Every rank draws the same batches; the clip is
+model-parallel aware and the loss scaler's finite flag reaches consensus
+over the tensor-parallel group (``model_parallel_all_finite``), as in the
+JAX trainer.  ``--fused-opt-tail`` at tp > 1 raises as JAX's does (its
+packed buckets need whole parameters), and so does ``--checkpoint-dir``
+(the JAX checkpoint holds the full logical tree; gathering it is a
+ROADMAP.md 9a remainder).  A world larger than ``--tp`` is data
+parallelism, whose step raises (9b).  The other multi-chip flags of the
+JAX trainer raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -88,6 +103,8 @@ from apex_tpu_torch.telemetry.metrics import (
     transformer_flops_per_token,
 )
 from apex_tpu_torch.telemetry.spans import TraceTrigger, phase
+from apex_tpu_torch.transformer import parallel_state
+from apex_tpu_torch.transformer.amp import model_parallel_all_finite
 from apex_tpu_torch.transformer.tensor_parallel import clip_grad_norm
 from apex_tpu_torch.utils.platform import resolve_device
 
@@ -97,7 +114,6 @@ __all__ = ["Trainer", "batches", "file_batches", "main", "parse_args",
 #: flags of the JAX trainer that are not ported: ``dest -> (the value
 #: that leaves them off, the ROADMAP.md item that brings them)``
 UNPORTED = {
-    "tp": (1, "queue A item 9 (tensor parallelism)"),
     "pp": (1, "queue A item 9 (pipeline schedules)"),
     "zero": (False, "queue A item 9 (ZeRO)"),
     "zero3": (False, "queue A item 9 (ZeRO-3)"),
@@ -182,8 +198,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default=None,
                     help="default: the GPU; 'cpu' runs the kernels' plain "
                          "versions")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree (one process a rank)")
     # the JAX trainer's flags that are not ported (see UNPORTED)
-    ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--pp", type=int, default=1)
     ap.add_argument("--zero", action="store_true")
     ap.add_argument("--zero3", "--param-shard", action="store_true",
@@ -221,13 +238,66 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def check_flags(args: argparse.Namespace) -> None:
-    """Raise for a flag this slice does not port."""
+    """Raise for a flag this slice does not port, or a combination the
+    JAX trainer rejects."""
     for dest, (off, item) in UNPORTED.items():
         value = getattr(args, dest)
         if value != off:
             raise NotImplementedError(
                 f"--{dest.replace('_', '-')}={value!r} is not ported yet "
                 f"(ROADMAP.md {item})")
+    if args.tp > 1 and args.fused_opt_tail:
+        raise ValueError(
+            "--fused-opt-tail needs replicated params: the packed state "
+            "buffers concatenate leaves across bucket boundaries and "
+            "cannot be sharded over tp — drop the flag or --tp")
+    if args.tp > 1 and args.checkpoint_dir:
+        raise NotImplementedError(
+            f"--checkpoint-dir (--save-every {args.save_every}) at --tp "
+            f"{args.tp}: the checkpoint holds the full logical tree and "
+            "gathering the shards into it is not ported yet (ROADMAP.md "
+            "9a remainder: tp > 1 checkpoints)")
+
+
+def init_distributed(args: argparse.Namespace) -> None:
+    """The process group and the model-parallel grid ``--tp`` needs: a
+    default group already initialized is taken as it is; else, for
+    ``--tp`` above 1, one from ``torchrun``'s environment (``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``): NCCL on the card,
+    one rank a GPU (``--device`` becomes ``cuda:LOCAL_RANK``), gloo on the
+    CPU.  Then ``initialize_model_parallel(--tp)`` unless a grid exists,
+    which must have ``--tp`` ranks on its tensor-parallel axis.  Without
+    a group and at ``--tp 1`` nothing is made."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        if args.tp == 1:
+            return
+        if "WORLD_SIZE" not in os.environ:
+            raise RuntimeError(
+                f"--tp {args.tp} needs one process a rank: launch with "
+                f"torchrun --nproc-per-node {args.tp} (or initialize "
+                "torch.distributed first)")
+        on_cpu = args.device is not None and \
+            torch.device(args.device).type == "cpu"
+        if not on_cpu:
+            local = int(os.environ.get("LOCAL_RANK", 0))
+            local_world = int(os.environ.get("LOCAL_WORLD_SIZE", 1))
+            if torch.cuda.device_count() < local_world:
+                raise RuntimeError(
+                    f"{local_world} local ranks but "
+                    f"{torch.cuda.device_count()} GPUs: NCCL needs one GPU "
+                    "a rank")
+            args.device = f"cuda:{local}"
+            torch.cuda.set_device(args.device)
+        dist.init_process_group("gloo" if on_cpu else "nccl")
+    if not parallel_state.model_parallel_is_initialized():
+        parallel_state.initialize_model_parallel(args.tp)
+    tp = parallel_state.get_tensor_model_parallel_world_size()
+    if tp != args.tp:
+        raise ValueError(
+            f"--tp {args.tp} but the model-parallel grid has {tp} "
+            "tensor-parallel ranks")
 
 
 class Trainer:
@@ -239,6 +309,7 @@ class Trainer:
     def __init__(self, args: argparse.Namespace,
                  amp_overrides: Optional[Dict] = None):
         check_flags(args)
+        init_distributed(args)
         self.args = args
         self.mp = amp.initialize(opt_level=args.opt_level,
                                  **(amp_overrides or {}))
@@ -262,7 +333,11 @@ class Trainer:
         #: the last step's finite flag (a device bool; None without a
         #: loss scale)
         self.finite: Optional[torch.Tensor] = None
-        self.n_params = sum(p.numel() for p in self.model.parameters())
+        # the model's parameters, each sharded one counted whole
+        self.n_params = sum(
+            p.numel() * (args.tp if getattr(p, "tensor_model_parallel",
+                                            False) else 1)
+            for p in self.model.parameters())
         self.global_batch = args.micro_batch * args.num_micro
         self.tokens_per_step = self.global_batch * args.seq
         self.flops_per_token = transformer_flops_per_token(
@@ -338,7 +413,8 @@ class Trainer:
             grads = [p.grad for p in self.model.parameters()
                      if p.grad is not None]
             _, self.finite, self.amp_state = self.mp.unscale_and_adjust(
-                self.amp_state, grads)
+                self.amp_state, grads,
+                finite_reduce=model_parallel_all_finite)
         if self.args.clip_grad is not None:
             clip_grad_norm(self.model.parameters(), self.args.clip_grad)
         self.opt.step(grads_finite=self.finite)

@@ -23,9 +23,9 @@ Training draws JAX's dropout masks when ``loss``/``apply``/
 ``hidden_states`` get a key (``rng``, a host key of
 ``apex_tpu_torch.random``): it is split into one key a layer, as the JAX
 layer scan does, and each layer folds in 0 for the attention-dropout seed
-(through ``model_parallel_key(data_parallel_key(...))``, rank 0 each at
-world size 1), 1 and 2 for the hidden dropout after the attention
-projection and after the MLP.  The masks are bit-identical to JAX's
+(through ``model_parallel_key(data_parallel_key(...))``, this process's
+tensor- and data-parallel ranks), 1 and 2 for the hidden dropout after
+the attention projection and after the MLP.  The masks are bit-identical to JAX's
 (``ops.dropout`` for hidden dropout, the attention kernels' dropout
 instances for attention); remat recomputes a layer from its key, so it
 replays the same masks.  Without a key dropout does nothing, as in JAX,
@@ -38,7 +38,22 @@ through ``ops.attention_decode.fmha_decode`` (the paged kernel) in
 decode; every norm through ``ops.layer_norm``'s kernel.  On the CPU the
 same calls run the kernels' plain versions.
 
-Ported so far, at tensor-parallel world size 1: ``apply``, ``loss`` (the
+Tensor parallelism (Megatron's, as in JAX): a model built after
+``parallel_state.initialize_model_parallel(tp)`` holds this rank's shards
+(``heads / tp`` attention heads, ``ffn / tp`` MLP features, ``vocab / tp``
+embedding rows; the per-head grouping of qkv makes a contiguous slice
+whole triplets, and SwiGLU's gate is a second column-parallel
+projection), drawn from the same generator as the tp = 1 model's and
+sliced.  ``apply`` and ``logits`` return vocab-parallel logits; ``loss``
+is the same replicated scalar on every rank.  Serving shards every
+layer's KV pool by heads ``(L, pages, heads / tp, page, d)``, keeps the
+page tables and the host allocator the same on every rank, and gathers
+the vocab-parallel logits right before the sampler, so every rank draws
+the same token.  At tp > 1 the serving steps run eager (a gloo
+collective cannot be captured in a CUDA graph).  A data-parallel step
+(ROADMAP.md 9b), a pipeline (9d) and context parallelism (9e) raise.
+
+Ported so far: ``apply``, ``loss`` (the
 two-step or the fused chunked LM-head cross entropy) and its backward, ``prefill_forward``,
 ``prefill_chunk`` (chunked prefill through the paged kernel's many-row
 instance), ``decode_step``, ``verify_step`` (speculative verify of a
@@ -109,11 +124,14 @@ from apex_tpu_torch.serving.speculate import (
     tree_max_depth,
     validate_tree,
 )
+from apex_tpu_torch.transformer import parallel_state
 from apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear,
     QuantizedLinear,
     RowParallelLinear,
     VocabParallelEmbedding,
+    copy_to_tensor_model_parallel_region,
+    gather_from_tensor_model_parallel_region,
     lm_head_cross_entropy,
     normal_init,
 )
@@ -126,41 +144,27 @@ from apex_tpu_torch.utils.platform import resolve_device
 __all__ = ["GPTConfig", "GPTModel", "GPTDecodeFns", "QUANTIZED_WEIGHT_LEAVES",
            "dropout_keys", "quantize_gpt_weights"]
 
-#: options of the JAX serving entry points that the port does not take
-#: yet, with the ROADMAP.md item that brings each
-_UNPORTED = {
-    "tp": "queue A item 9 (tensor parallelism)",
-}
-
-
-def _reject_unported(**options) -> None:
-    for name, value in options.items():
-        if value is not None and value is not False and value != 0.0:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet "
-                f"(ROADMAP.md {_UNPORTED[name]})")
-
-
 def dropout_keys(key):
     """A layer's dropout draws from its key, as the JAX layer makes them
     (``apex_tpu/models/gpt.py:770-821``): ``(attention seed, hidden key
     after the attention projection, hidden key after the MLP)``, the seed
     ``bits(model_parallel_key(data_parallel_key(fold_in(key, 0))))`` and
     the keys ``data_parallel_key(fold_in(key, 1 or 2))``; each helper
-    folds in this process's rank, 0 at world size 1."""
+    folds in this process's rank."""
     attn = model_parallel_key(data_parallel_key(fold_in(key, 0)))
     return (seed_of(attn), data_parallel_key(fold_in(key, 1)),
             data_parallel_key(fold_in(key, 2)))
 
 
-def _graphed(step: Callable) -> Callable:
-    """``step`` eagerly on the CPU; on a CUDA device one CUDA graph a
-    step shape (:class:`~apex_tpu_torch.serving.graphs.StepGraph`, kept as
-    the result's ``graph``)."""
+def _graphed(step: Callable, graphs: bool = True) -> Callable:
+    """``step`` eagerly on the CPU (or without ``graphs``); on a CUDA
+    device one CUDA graph a step shape
+    (:class:`~apex_tpu_torch.serving.graphs.StepGraph`, kept as the
+    result's ``graph``)."""
     graph = StepGraph(step)
 
     def run(pools, *args):
-        if pools["k"].is_cuda:
+        if graphs and pools["k"].is_cuda:
             return graph(pools, *args)
         return step(pools, *args)
 
@@ -191,12 +195,12 @@ class GPTDecodeFns:
     ``speculate_k``.  The JAX fields ``prefill_chunk``, ``speculate_k``,
     ``spec_tree`` and ``draft_source`` are also stamped on the callables
     (``chunk.prefill_chunk``, ``spec.speculate_k``, ...), which is where
-    the batcher reads them; the JAX ``*_jit`` and ``tp`` fields have no
-    counterpart (tensor-parallel degree 1).  On the card ``decode`` and
-    ``spec`` replay one CUDA graph per step shape
-    (:class:`~apex_tpu_torch.serving.graphs.StepGraph`); ``decode_eager``
-    and ``spec_eager`` are the same steps run eagerly, the counterpart of
-    the JAX ``decode_jit`` seam, and on the CPU the only steps."""
+    the batcher reads them; the JAX ``*_jit`` fields have no counterpart.
+    At tp = 1 on the card ``decode`` and ``spec`` replay one CUDA graph
+    per step shape (:class:`~apex_tpu_torch.serving.graphs.StepGraph`,
+    ``graphed`` True); ``decode_eager`` and ``spec_eager`` are the same
+    steps run eagerly, the counterpart of the JAX ``decode_jit`` seam, and
+    on the CPU or at tp > 1 the only steps."""
 
     prefill: Any
     decode: Any
@@ -211,10 +215,16 @@ class GPTDecodeFns:
     #: "float32"/"bf16"/"float16" for plain weights, "int8"/"int4" for
     #: quantized pools; mirrored as ``decode.weight_dtype``
     weight_dtype: Any = None
-    #: bytes of every parameter and buffer one decode step reads (the
-    #: JAX ``_per_chip_param_bytes`` at tp=1); mirrored as
-    #: ``decode.weight_stream_bytes``
+    #: bytes of every parameter and buffer one decode step reads on this
+    #: rank (the JAX ``_per_chip_param_bytes``: sharded leaves at 1/tp,
+    #: replicated ones whole); mirrored as ``decode.weight_stream_bytes``
     weight_stream_bytes: Any = None
+    #: the tensor-parallel degree the steps run at; mirrored as
+    #: ``decode.tp``
+    tp: Any = None
+    #: whether ``decode``/``spec`` replay CUDA graphs on a CUDA device
+    #: (False at tp > 1, whose collectives a graph cannot capture)
+    graphed: Any = None
     decode_eager: Any = None
     spec_eager: Any = None
 
@@ -223,6 +233,47 @@ class GPTDecodeFns:
 #: wide matrices decode streams every token.  Embedding (tied LM head),
 #: position table, norms and biases stay full precision.
 QUANTIZED_WEIGHT_LEAVES = ("qkv", "attn_proj", "fc1", "fc_gate", "fc2")
+
+#: how each quantized leaf shards over tp: COLUMN leaves slice the output
+#: features (their scale blocks with them), ROW leaves the contraction
+#: rows, as the full-width layers do
+COLUMN_PARALLEL_LEAVES = ("qkv", "fc1", "fc_gate")
+ROW_PARALLEL_LEAVES = ("attn_proj", "fc2")
+
+
+def _check_quantized_tp(name: str, k: int, n: int, weight_dtype: str,
+                        block_size: int, tp: int) -> None:
+    """JAX's build-time divisibility of a tp-sharded quantized leaf of
+    full shape ``(k, n)``: every shard holds whole scale blocks and, for
+    int4, whole packed halves."""
+    if name in ROW_PARALLEL_LEAVES:
+        if k % tp:
+            raise ValueError(
+                f"layers/{name}: contraction dim {k} is not divisible "
+                f"by tp={tp}")
+        return
+    if n % tp:
+        raise ValueError(
+            f"layers/{name}: output dim {n} is not divisible by "
+            f"tp={tp}")
+    n_local = n // tp
+    if n_local % block_size:
+        raise ValueError(
+            f"layers/{name}: per-shard output width {n_local} "
+            f"(= {n} / tp={tp}) is not a multiple of "
+            f"block_size={block_size} — shard boundaries must align "
+            f"with scale blocks; pick a smaller block_size")
+    if weight_dtype == "int4" and n_local % (2 * block_size):
+        raise ValueError(
+            f"layers/{name}: the int4 halves layout needs the "
+            f"per-shard width {n_local} (= {n} / tp={tp}) to be a "
+            f"multiple of 2 * block_size = {2 * block_size}; pick a "
+            f"smaller even block_size")
+
+
+def _full_shape(name: str, k: int, n: int, tp: int) -> tuple:
+    """The full logical ``(k, n)`` of a leaf whose shard is ``(k, n)``."""
+    return (k * tp, n) if name in ROW_PARALLEL_LEAVES else (k, n * tp)
 
 
 def _shallow_copy(module: nn.Module) -> nn.Module:
@@ -255,7 +306,8 @@ def _swap_projections(model: "GPTModel",
 
 
 def quantize_gpt_weights(model: "GPTModel", weight_dtype: str,
-                         block_size: int = 128) -> "GPTModel":
+                         block_size: int = 128,
+                         tp: Optional[int] = None) -> "GPTModel":
     """A serving model whose projections are quantized weight pools —
     converted ONCE, at load.
 
@@ -267,22 +319,42 @@ def quantize_gpt_weights(model: "GPTModel", weight_dtype: str,
     ``block_size``-wide fp32 scales.  Rows are independent, so quantizing
     each layer's ``(k, n)`` matrix gives the JAX package's stacked
     ``(L*k, n)`` pools bit for bit.  Embedding, norms and biases are
-    shared with ``model`` unchanged.  The pools serve at tensor-parallel
-    degree 1 (``decode_fns`` rejects ``tp > 1``)."""
+    shared with ``model`` unchanged.
+
+    ``tp`` (default: the model's tensor-parallel degree, which it must
+    equal) is the degree the pool serves at.  Each rank quantizes only
+    its own shard: rows are independent and shard boundaries fall on
+    whole scale blocks (JAX's ``_check_quantized_tp`` errors), so an int8
+    shard, and an int4 row shard, is the slice of the JAX pool that rank
+    holds, and an int4 column shard packs its nibbles among its own
+    columns, as JAX's ``quantize_gpt_weights(..., tp=)`` packs each
+    shard."""
     if weight_dtype not in ("int8", "int4"):
         raise ValueError(
             f"weight_dtype must be 'int8' or 'int4', got "
             f"{weight_dtype!r}")
+    tp = model.tp if tp is None else int(tp)
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    if tp != model.tp:
+        raise ValueError(
+            f"quantize_gpt_weights(tp={tp}) but the model holds the shards "
+            f"of tp={model.tp}: each rank quantizes its own shard")
 
     def make(name: str, mod: nn.Module) -> QuantizedLinear:
         if isinstance(mod, QuantizedLinear):
             raise ValueError(
                 f"layers/{name} is already a {mod.weight_dtype} pool")
+        if tp > 1:
+            _check_quantized_tp(name, *_full_shape(name, *mod.weight.shape,
+                                                   tp),
+                                weight_dtype, block_size, tp)
         wq = quantize_weight(mod.weight.detach(), weight_dtype, block_size,
                              leaf=f"layers/{name}.weight")
         qkey = "q8" if weight_dtype == "int8" else "q4"
         bias = None if mod.bias is None else mod.bias.detach()
-        return QuantizedLinear(weight_dtype, wq[qkey], wq["scales"], bias)
+        return QuantizedLinear(weight_dtype, wq[qkey], wq["scales"], bias,
+                               row_parallel=name in ROW_PARALLEL_LEAVES)
 
     return _swap_projections(model, make)
 
@@ -461,21 +533,25 @@ class GPTLayer(nn.Module):
             return Norm(c.hidden_size, c.normalization, c.layernorm_epsilon,
                         c.norm_dtype, device)
 
+        col = dict(kw, gather_output=False, init_method=init)
+        row = dict(kw, input_is_parallel=True, init_method=out_init)
         self.ln1 = norm()
         self.qkv = ColumnParallelLinear(c.hidden_size, 3 * c.hidden_size,
-                                        init_method=init, **kw)
+                                        **col)
         self.attn_proj = RowParallelLinear(c.hidden_size, c.hidden_size,
-                                           init_method=out_init, **kw)
+                                           **row)
         self.ln2 = norm()
         self.fc1 = ColumnParallelLinear(c.hidden_size, c.ffn_hidden_size,
-                                        init_method=init, **kw)
+                                        **col)
         if c.activation == "swiglu":
+            # a second column-parallel projection, not a fused [gate | up]
+            # weight, whose contiguous tp slice would be all gate
             self.fc_gate = ColumnParallelLinear(
-                c.hidden_size, c.ffn_hidden_size, init_method=init, **kw)
+                c.hidden_size, c.ffn_hidden_size, **col)
         else:
             self.fc_gate = None
         self.fc2 = RowParallelLinear(c.ffn_hidden_size, c.hidden_size,
-                                     init_method=out_init, **kw)
+                                     **row)
 
 
 class GPTModel(nn.Module):
@@ -485,12 +561,28 @@ class GPTModel(nn.Module):
     ``device="cpu"`` for the plain PyTorch versions of the kernels.
     Parameters are drawn from a ``torch.Generator`` seeded with ``seed``
     (load JAX weights with :func:`apex_tpu_torch.convert.params_from_jax`
-    and ``load_state_dict``)."""
+    and ``load_state_dict``).  Built over a tensor-parallel group, the
+    model holds this rank's shards of the same draws."""
 
     def __init__(self, config: GPTConfig, *, device=None, seed: int = 0):
         super().__init__()
         c = config
         self.config = c
+        if parallel_state.get_pipeline_model_parallel_world_size() > 1:
+            raise NotImplementedError(
+                "the GPT over a pipeline is not ported yet (ROADMAP.md "
+                "9d, pipeline parallelism): initialize with pp=1")
+        if parallel_state.get_context_parallel_world_size() > 1:
+            raise NotImplementedError(
+                "context parallelism is not ported yet (ROADMAP.md 9e): "
+                "initialize with cp=1")
+        #: the tensor-parallel degree the model is sharded for
+        self.tp = parallel_state.get_tensor_model_parallel_world_size()
+        if c.num_attention_heads % self.tp:
+            raise ValueError(
+                f"num_attention_heads={c.num_attention_heads} must be "
+                f"divisible by tp={self.tp}")
+        self.heads_local = c.num_attention_heads // self.tp
         self.device = resolve_device(device)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         init = normal_init(c.init_method_std)
@@ -513,12 +605,12 @@ class GPTModel(nn.Module):
 
     # ------------------------------------------------------------ forward
     def _qkv_heads(self, layer: GPTLayer, y: torch.Tensor):
-        """(b, s, h) normed activations -> (q, k, v), each ``(b, heads, s,
-        head_dim)``, from the per-head-grouped qkv output."""
+        """(b, s, h) normed activations -> (q, k, v), each ``(b,
+        heads / tp, s, head_dim)``, from the per-head-grouped qkv output
+        (this rank's whole triplets)."""
         c = self.config
         b, s, _ = y.shape
-        qkv = layer.qkv(y).reshape(b, s, c.num_attention_heads, 3,
-                                   c.head_dim)
+        qkv = layer.qkv(y).reshape(b, s, self.heads_local, 3, c.head_dim)
         return tuple(qkv[:, :, :, i].transpose(1, 2) for i in range(3))
 
     def _dense_mlp(self, layer: GPTLayer, y: torch.Tensor) -> torch.Tensor:
@@ -553,7 +645,7 @@ class GPTModel(nn.Module):
         attn = flash_attention(q, k, v, causal=True,
                                dropout_rate=attn_rate, dropout_seed=seed,
                                implementation=c.attention_impl)
-        attn = attn.transpose(1, 2).reshape(b, s, c.hidden_size)
+        attn = attn.transpose(1, 2).reshape(b, s, -1)
         out = dropout(layer.attn_proj(attn), key1, hidden_rate)
         x = residual + out.to(residual.dtype)
         residual = x
@@ -608,12 +700,15 @@ class GPTModel(nn.Module):
         return self._final_norm(x)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        """Tied-embedding LM head: ``(..., h) -> (..., vocab)``."""
+        """Tied-embedding LM head: ``(..., h) -> (..., vocab / tp)``, this
+        rank's vocab slice."""
         w = self.embedding.weight.to(hidden.dtype)
-        return torch.matmul(hidden, w.t())
+        return torch.matmul(copy_to_tensor_model_parallel_region(hidden),
+                            w.t())
 
     def apply(self, tokens: torch.Tensor, rng=None) -> torch.Tensor:
-        """Forward to logits ``(b, s, vocab)``; ``rng`` turns dropout on."""
+        """Forward to logits ``(b, s, vocab / tp)``; ``rng`` turns dropout
+        on."""
         return self.logits(self.hidden_states(tokens, rng))
 
     forward = apply
@@ -632,7 +727,15 @@ class GPTModel(nn.Module):
              rng=None) -> torch.Tensor:
         """Mean next-token CE (fp32 scalar) over ``tokens``/``targets``
         ``(b, s)``; differentiable in every parameter.  ``rng`` (a key of
-        :mod:`apex_tpu_torch.random`, or None) turns dropout on."""
+        :mod:`apex_tpu_torch.random`, or None) turns dropout on.  The same
+        scalar on every tensor-parallel rank; a data-parallel world raises
+        (its gradient all-reduce is ROADMAP.md 9b)."""
+        if parallel_state.get_data_parallel_world_size() > 1:
+            raise NotImplementedError(
+                "a GPT step at data-parallel size "
+                f"{parallel_state.get_data_parallel_world_size()}: the "
+                "gradient all-reduce of data parallelism is not ported yet "
+                "(ROADMAP.md 9b)")
         return torch.mean(self._per_token_ce(
             self.hidden_states(tokens, rng), targets))
 
@@ -670,9 +773,9 @@ class GPTModel(nn.Module):
                 f"quantize_gpt_weights (or drop the declaration)")
 
     def weight_stream_bytes(self) -> int:
-        """Bytes of every parameter and buffer one decode step reads: the
-        JAX package's ``_per_chip_param_bytes`` at tp=1 (each shared
-        tensor once)."""
+        """Bytes of every parameter and buffer one decode step reads on
+        this rank: the JAX package's ``_per_chip_param_bytes`` (each shared
+        tensor once; a rank holds 1/tp of each sharded leaf)."""
         tensors = {id(t): t for t in list(self.parameters())
                    + list(self.buffers())}
         return int(sum(t.numel() * t.element_size()
@@ -789,7 +892,7 @@ class GPTModel(nn.Module):
                                v_scales=pool_l.get("v_scales"),
                                kv_block=kv_block, rope=rope_cs,
                                ancestor=ancestor)
-            attn = attn.transpose(1, 2).reshape(b, s, c.hidden_size)
+            attn = attn.transpose(1, 2).reshape(b, s, -1)
             x = residual + layer.attn_proj(attn).to(residual.dtype)
             residual = x
             y = layer.ln2(x).to(c.compute_dtype)
@@ -979,10 +1082,24 @@ class GPTModel(nn.Module):
         step shape (:class:`~apex_tpu_torch.serving.graphs.StepGraph`:
         the first call runs eagerly and captures); a replay's outputs are
         static buffers that the next replay overwrites.  ``decode_eager``
-        and ``spec_eager`` on the result are the eager steps."""
+        and ``spec_eager`` on the result are the eager steps.
+
+        Tensor parallelism: the steps run at the model's degree, which
+        ``tp`` (optional) must equal, as JAX's asserts against its mesh.
+        Every rank builds the same steps over its head shard of the pools
+        (``init_pools`` makes ``heads / tp``) and is driven with the same
+        page tables, tokens and keys; the vocab-parallel logits are
+        gathered right before the sampler, so every rank draws the same
+        tokens.  At tp > 1 the steps run eager (``graphed`` False)."""
         _check_options(temperature, top_k, top_p)
-        _reject_unported(tp=None if tp == 1 else tp)
         c = self.config
+        tp_size = self.tp
+        if tp is not None and int(tp) != tp_size:
+            raise ValueError(
+                f"decode_fns(tp={tp}) disagrees with the tensor-parallel "
+                f"group's size ({tp_size}), the source of truth: "
+                f"initialize_model_parallel({tp}) and build the model "
+                "under it")
         if draft_model is not None:
             if speculate_k is None:
                 raise ValueError(
@@ -1082,6 +1199,22 @@ class GPTModel(nn.Module):
         elif weight_dtype == "bf16" and wd_in == "float32":
             model = _bf16_projections(self)
         wd_active = model._weight_pool_dtype()
+        if wd_active in ("int8", "int4") and tp_size > 1:
+            # divisibility is checkable after the fact (pre-built pools
+            # included); the int4 packing's tp is not
+            for name in QUANTIZED_WEIGHT_LEAVES:
+                mod = model.layers[0]._modules.get(name)
+                if mod is None:
+                    continue
+                k, n_s = mod.scales.shape
+                blk = (mod.q8.shape[1] if wd_active == "int8"
+                       else 2 * mod.q4.shape[1]) // n_s
+                _check_quantized_tp(
+                    name, *_full_shape(name, k, n_s * blk, tp_size),
+                    wd_active, blk, tp_size)
+        # the one sampling seam: the vocab-parallel logits, gathered
+        full = gather_from_tensor_model_parallel_region
+        graphs = tp_size == 1
         kv = dict(quantized=cfg.quantized, kv_block=cfg.kv_block)
         sampled = temperature > 0.0
 
@@ -1109,7 +1242,7 @@ class GPTModel(nn.Module):
                              ks[li, 0].transpose(0, 1),
                              vs[li, 0].transpose(0, 1), wp, wo, **kv)
             last = hidden[0, length - 1]
-            return pools, first_token(model.logits(last), key, length)
+            return pools, first_token(full(model.logits(last)), key, length)
 
         def freeze(carry, active, tokens, n_c, is_eos):
             """The carry after a step that commits ``n_c (S,)`` tokens a
@@ -1131,6 +1264,7 @@ class GPTModel(nn.Module):
             logits, pools = model.decode_step(
                 carry["tokens"], carry["lengths"], active, page_table,
                 pools, **kv)
+            logits = full(logits)
             if sampled:
                 ctx = torch.where(active, carry["lengths"] + 1, 0)
                 tokens = sample_rows(logits, carry["sample_keys"], ctx,
@@ -1142,7 +1276,7 @@ class GPTModel(nn.Module):
             return pools, freeze(carry, active, tokens,
                                  active.to(torch.int32), eos_hit)
 
-        decode = _graphed(decode_eager)
+        decode = _graphed(decode_eager, graphs)
 
         chunk = None
         if prefill_chunk is not None:
@@ -1154,6 +1288,7 @@ class GPTModel(nn.Module):
                                        device=row.device).reshape(1, C)
                 logits, pools = model.prefill_chunk(
                     toks, start, plen, write_from, row, pools, **kv)
+                logits = full(logits)
                 return pools, first_token(logits, key, plen), logits
 
             # the batcher schedules chunks of ITS size and must reject a
@@ -1205,6 +1340,7 @@ class GPTModel(nn.Module):
                     logits, pools = model.verify_step(
                         rows, carry["lengths"], active, valid, page_table,
                         pools, **kv)
+                    logits = full(logits)
                     keys, ctx = step_keys(carry, active, jrow)
                     targets, n_acc = spec_accept(
                         logits, drafts, draft_len, keys, temperature, top_k,
@@ -1230,6 +1366,7 @@ class GPTModel(nn.Module):
                     logits, pools, (ks, vs) = model.verify_step(
                         rows, lengths, active, valid, page_table, pools,
                         tree=tree, **kv)
+                    logits = full(logits)
                     keys, ctx = step_keys(carry, active, jd)
                     outs, n_acc, path = spec_accept_tree(
                         logits, drafts, tree, valid[:, 1:], keys,
@@ -1255,7 +1392,7 @@ class GPTModel(nn.Module):
                             wp2.reshape(-1), wo2.reshape(-1), **kv)
                     return pools, new_carry, outs, n_c, path
 
-            spec_graph = _graphed(spec_body)
+            spec_graph = _graphed(spec_body, graphs)
 
             def host_drafts(drafts, draft_len):
                 return (torch.as_tensor(np.asarray(drafts, np.int32))
@@ -1270,6 +1407,9 @@ class GPTModel(nn.Module):
                                  draft_len.to(dev))
 
             def spec(pools, carry, page_table, drafts, draft_len):
+                if not graphs:
+                    return spec_eager(pools, carry, page_table, drafts,
+                                      draft_len)
                 return spec_graph(pools, carry, page_table,
                                   *host_drafts(drafts, draft_len))
 
@@ -1292,6 +1432,7 @@ class GPTModel(nn.Module):
             fn.eos_id = eos_id
             fn.weight_dtype = wd_active
             fn.weight_stream_bytes = wbytes
+            fn.tp = tp_size
         return GPTDecodeFns(
             prefill=prefill, decode=decode, decode_eager=decode_eager,
             spec_eager=spec_eager, eos_id=eos_id, chunk=chunk,
@@ -1299,7 +1440,8 @@ class GPTModel(nn.Module):
             speculate_k=getattr(spec, "speculate_k", None),
             spec_tree=getattr(spec, "spec_tree", None),
             draft_source=getattr(spec, "draft_source", None),
-            weight_dtype=wd_active, weight_stream_bytes=wbytes)
+            weight_dtype=wd_active, weight_stream_bytes=wbytes, tp=tp_size,
+            graphed=graphs)
 
     def generate(
         self,
@@ -1407,7 +1549,8 @@ class GPTModel(nn.Module):
         rows = torch.arange(b, device=dev)
         outs = []
         for _ in range(max_new_tokens):
-            logits = self.apply(buf)
+            logits = gather_from_tensor_model_parallel_region(
+                self.apply(buf))
             last = logits[rows, (lens - 1).clamp(0, total - 1)]
             nxt = torch.argmax(last, dim=-1).to(torch.int32)
             buf[rows, lens] = nxt

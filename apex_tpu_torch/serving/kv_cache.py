@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from apex_tpu_torch.ops.quantization import quantize_rows
+from apex_tpu_torch.transformer import parallel_state
 from apex_tpu_torch.utils.platform import resolve_device
 
 __all__ = [
@@ -493,12 +494,20 @@ class PagedKVCache:
 def init_pools(config: KVCacheConfig,
                device=None) -> Dict[str, torch.Tensor]:
     """Zeroed pools ``k``/``v`` of shape ``(num_layers, num_pages,
-    num_heads, page_size, head_dim)`` on ``device`` (default: the GPU,
-    see :func:`apex_tpu_torch.utils.resolve_device`), plus fp32
+    num_heads / tp, page_size, head_dim)`` on ``device`` (default: the
+    GPU, see :func:`apex_tpu_torch.utils.resolve_device`), plus fp32
     ``k_scales``/``v_scales`` ``(..., page_size, scale_blocks)`` filled
-    with ones when quantized."""
+    with ones when quantized.  Over a tensor-parallel group of ``tp``
+    ranks the pools are head-sharded: this rank's ``num_heads / tp``
+    heads of every layer (a scale spans one head's ``kv_block`` dims, so
+    a shard's int8 bytes are the slice of the whole pool's)."""
     cfg = config
-    shape = (cfg.num_layers, cfg.num_pages, cfg.num_heads,
+    tp = parallel_state.get_tensor_model_parallel_world_size()
+    if cfg.num_heads % tp:
+        raise ValueError(
+            f"tensor-parallel serving head-shards the KV pools: "
+            f"num_heads={cfg.num_heads} must be divisible by tp={tp}")
+    shape = (cfg.num_layers, cfg.num_pages, cfg.num_heads // tp,
              cfg.page_size, cfg.head_dim)
     dev = resolve_device(device)
     dt = cfg.kv_dtype if cfg.quantized else cfg.dtype

@@ -403,8 +403,8 @@ class ContinuousBatcher:
         self.prefix_cache = bool(prefix_cache)
         self.measure_stall = bool(measure_stall)
         self.logger = logger
-        # the decode step's declared weight stream, stamped on each decode
-        # span (the port serves at tensor-parallel degree 1)
+        # the decode step's declared weight stream and tensor-parallel
+        # degree, stamped on each decode span
         self.weight_dtype = getattr(decode_fn, "weight_dtype", None)
         self.weight_stream_bytes = getattr(
             decode_fn, "weight_stream_bytes", None)

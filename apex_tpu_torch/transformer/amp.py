@@ -1,24 +1,30 @@
-"""The model-parallel grad scaler at tensor- and pipeline-parallel world
-size 1.
+"""The model-parallel grad scaler: overflow consensus across tp/pp ranks.
 
 Counterpart of ``apex_tpu/transformer/amp.py``, whose
 :func:`model_parallel_all_finite` AND-reduces the finite flag over the
-model-parallel mesh axes so that every rank skips the same steps.  At
-world size 1 the consensus is the local flag.  Over a process group it
-needs the collectives of multi-GPU training, ROADMAP.md queue A item 9,
-and raises ``NotImplementedError``.
+model-parallel mesh axes (a ``pmin`` of the int flag) so that every rank
+skips the same steps.  Here it is an all-reduce MIN of the int flag over
+the tensor-parallel group, and over the pipeline group when it has more
+than one rank (``tensor_parallel.mappings.all_reduce``); an axis of one
+rank issues nothing, so at world size 1 the consensus is the local flag
+and no collective runs.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence
+from typing import Sequence
 
 import torch
 
 from apex_tpu_torch.amp.scaler import LossScaler
+from apex_tpu_torch.transformer import parallel_state
 from apex_tpu_torch.transformer.parallel_state import (
     PIPELINE_PARALLEL_AXIS,
     TENSOR_PARALLEL_AXIS,
+)
+from apex_tpu_torch.transformer.tensor_parallel.mappings import (
+    all_reduce,
+    group_size,
 )
 
 __all__ = ["GradScaler", "model_parallel_all_finite"]
@@ -27,16 +33,19 @@ __all__ = ["GradScaler", "model_parallel_all_finite"]
 def model_parallel_all_finite(
         finite: torch.Tensor,
         axis_names: Sequence[str] = (TENSOR_PARALLEL_AXIS,
-                                     PIPELINE_PARALLEL_AXIS),
-        group: Optional[Any] = None) -> torch.Tensor:
-    """The flag every model-parallel rank agrees on: at world size 1 (no
-    ``group``) the local flag itself."""
-    if group is not None:
-        raise NotImplementedError(
-            "model_parallel_all_finite over a process group: the "
-            "collectives of multi-GPU training are not ported yet "
-            "(ROADMAP.md queue A item 9)")
-    return finite
+                                     PIPELINE_PARALLEL_AXIS)
+) -> torch.Tensor:
+    """The flag every rank of ``axis_names`` agrees on: True only where
+    every rank's flag is (the reference's MAX all-reduce of found_inf,
+    polarity flipped)."""
+    groups = [g for g in map(parallel_state.get_axis_group, axis_names)
+              if g is not None and group_size(g) > 1]
+    if not groups:
+        return finite
+    out = finite.to(torch.int32)
+    for group in groups:
+        out = all_reduce(out, "min", group=group)
+    return out.to(torch.bool)
 
 
 class GradScaler(LossScaler):
@@ -44,13 +53,10 @@ class GradScaler(LossScaler):
     consensus (the local flag at world size 1)."""
 
     def __init__(self, *args, axis_names: Sequence[str] = (
-            TENSOR_PARALLEL_AXIS, PIPELINE_PARALLEL_AXIS),
-            group: Optional[Any] = None, **kwargs):
+            TENSOR_PARALLEL_AXIS, PIPELINE_PARALLEL_AXIS), **kwargs):
         super().__init__(*args, **kwargs)
         self.axis_names = tuple(axis_names)
-        self.group = group
 
     def unscale(self, state, grads):
         grads, finite = super().unscale(state, grads)
-        return grads, model_parallel_all_finite(finite, self.axis_names,
-                                                self.group)
+        return grads, model_parallel_all_finite(finite, self.axis_names)

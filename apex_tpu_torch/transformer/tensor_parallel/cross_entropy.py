@@ -1,11 +1,20 @@
-"""Vocab-parallel softmax cross entropy at tensor-parallel world size 1.
+"""Vocab-parallel softmax cross entropy.
 
 Counterpart of ``apex_tpu/transformer/tensor_parallel/cross_entropy.py``,
 plain PyTorch as the JAX package's is plain XLA (no TPU kernel).  The math
 is kept: fp32 logits, the max subtracted as a constant (no gradient
 through it), ``log(sum exp) - target logit``, uniform label smoothing over
-the vocab, and targets outside the vocab picking a zero logit.  At world
-size 1 the JAX collectives are identities.
+the global vocab, and targets outside the vocab picking a zero logit.
+Over a tensor-parallel group each rank holds the logits (or the LM-head
+rows) of its vocab slice, and JAX's three collectives run through
+:mod:`~apex_tpu_torch.transformer.tensor_parallel.mappings`: the detached
+row max all-reduced with MAX, the sum of exponentials all-reduced, and
+the target logit (with smoothing, stacked with the logit sum: one
+all-reduce for both) all-reduced, the last two as ``reduce_from`` regions
+(identity backward).  The two-step path's hidden goes through
+``copy_to``, so its gradient is all-reduced; the fused path's backward
+all-reduces ``dx`` itself, as JAX's ``_ce_bwd`` does.  At world size 1
+none of these issues a collective.
 
 ``lm_head_cross_entropy`` keeps the JAX auto rule (``FUSED_CE_AUTO_BYTES``,
 env ``APEX_TPU_FUSED_CE_BYTES``): at or below 2 GiB of fp32 logits it
@@ -31,6 +40,12 @@ from typing import Optional
 import torch
 
 from apex_tpu_torch.transformer import parallel_state
+from apex_tpu_torch.transformer.tensor_parallel.mappings import (
+    all_reduce,
+    copy_to_tensor_model_parallel_region,
+    reduce_from_tensor_model_parallel_region,
+)
+from apex_tpu_torch.transformer.tensor_parallel.utils import VocabUtility
 
 __all__ = [
     "FUSED_CE_AUTO_BYTES",
@@ -57,12 +72,16 @@ def fused_ce_auto(tokens_local: int, vocab_local: int) -> bool:
     return tokens_local * vocab_local * 4 > FUSED_CE_AUTO_BYTES
 
 
-def _check_world_size() -> None:
-    world = parallel_state.get_tensor_model_parallel_world_size()
-    if world != 1:
-        raise NotImplementedError(
-            f"cross entropy at tensor-parallel world size {world}: only "
-            "world size 1 is ported (ROADMAP.md queue A item 9)")
+def _local_target(target: torch.Tensor, vocab_local: int) -> tuple:
+    """``(local ids, in-range mask)`` of global ``target`` ids in this
+    rank's vocab slice (a target outside it picks local id 0)."""
+    tp = parallel_state.get_tensor_model_parallel_world_size()
+    start, end = VocabUtility.vocab_range_from_per_partition_vocab_size(
+        vocab_local, parallel_state.get_tensor_model_parallel_rank(), tp)
+    target = target.long()
+    in_range = (target >= start) & (target < end)
+    local = torch.where(in_range, target - start, torch.zeros_like(target))
+    return local, in_range
 
 
 def vocab_parallel_cross_entropy(
@@ -70,22 +89,26 @@ def vocab_parallel_cross_entropy(
     target: torch.Tensor,
     smoothing: float = 0.0,
 ) -> torch.Tensor:
-    """Per-token CE ``(...)`` in fp32 from logits ``(..., vocab)`` and int
-    targets ``(...)``."""
-    _check_world_size()
+    """Per-token CE ``(...)`` in fp32 from this rank's logits ``(...,
+    vocab / tp)`` and int targets ``(...)`` in the global vocab."""
     logits = vocab_parallel_logits.float()
-    vocab = logits.shape[-1]
-    logits = logits - logits.amax(dim=-1, keepdim=True).detach()
-    sum_exp = torch.exp(logits).sum(dim=-1)
-    target = target.long()
-    in_range = (target >= 0) & (target < vocab)
-    local = torch.where(in_range, target, torch.zeros_like(target))
+    vocab = logits.shape[-1] * \
+        parallel_state.get_tensor_model_parallel_world_size()
+    logits = logits - all_reduce(logits.amax(dim=-1, keepdim=True).detach(),
+                                 "max")
+    sum_exp = reduce_from_tensor_model_parallel_region(
+        torch.exp(logits).sum(dim=-1))
+    local, in_range = _local_target(target, logits.shape[-1])
     picked = torch.gather(logits, -1, local[..., None])[..., 0]
     picked = torch.where(in_range, picked, torch.zeros_like(picked))
     if smoothing > 0.0:
-        mean_logit = logits.sum(dim=-1) / vocab
+        # one all-reduce for the target logit and the logit sum
+        picked, logit_sum = reduce_from_tensor_model_parallel_region(
+            torch.stack([picked, logits.sum(dim=-1)]))
+        mean_logit = logit_sum / vocab
         return (torch.log(sum_exp) - (1.0 - smoothing) * picked
                 - smoothing * mean_logit)
+    picked = reduce_from_tensor_model_parallel_region(picked)
     return torch.log(sum_exp) - picked
 
 
@@ -117,15 +140,14 @@ def _chunk(x, weight, bias, c: int, chunk: int) -> tuple:
 
 
 class _FusedCE(torch.autograd.Function):
-    """Per-token CE from hidden ``x (n, h)``: JAX's ``_ce_from_hidden``
-    (forward ``_ce_fwd_scan``, backward ``_ce_bwd``) at world size 1."""
+    """Per-token CE from hidden ``x (n, h)`` and this rank's LM-head rows
+    ``weight (vocab / tp, h)``: JAX's ``_ce_from_hidden`` (forward
+    ``_ce_fwd_scan``, backward ``_ce_bwd``)."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, target, chunk: int, smoothing: float):
         n, vocab = x.shape[0], weight.shape[0]
-        target = target.long()
-        in_range = (target >= 0) & (target < vocab)
-        local = torch.where(in_range, target, torch.zeros_like(target))
+        local, in_range = _local_target(target, vocab)
         f32 = dict(dtype=torch.float32, device=x.device)
         m = torch.full((n,), -math.inf, **f32)
         se = torch.zeros((n,), **f32)
@@ -144,16 +166,19 @@ class _FusedCE(torch.autograd.Function):
             tl = torch.where(in_chunk, picked, tl)
             if smoothing > 0.0:
                 sl = sl + logits.sum(dim=-1)
-        # world size 1: the max and the sums need no collective, and
-        # se * exp(m - m) is se
-        global_max, sum_exp = m, se
+        tp = parallel_state.get_tensor_model_parallel_world_size()
+        global_max = all_reduce(m, "max")
+        # at one rank se * exp(m - m) is se, bit for bit
+        sum_exp = all_reduce(se * torch.exp(m - global_max))
         picked = torch.where(in_range, tl - global_max, torch.zeros_like(tl))
         if smoothing > 0.0:
-            mean_logit = sl / vocab - global_max
+            # one all-reduce for the target logit and the logit sum
+            picked, sl = all_reduce(torch.stack([picked, sl]))
+            mean_logit = sl / (vocab * tp) - global_max
             loss = (torch.log(sum_exp) - (1.0 - smoothing) * picked
                     - smoothing * mean_logit)
         else:
-            loss = torch.log(sum_exp) - picked
+            loss = torch.log(sum_exp) - all_reduce(picked)
         ctx.save_for_backward(x, weight, bias, local, in_range, global_max,
                               sum_exp)
         ctx.chunk, ctx.smoothing = chunk, smoothing
@@ -165,6 +190,8 @@ class _FusedCE(torch.autograd.Function):
             ctx.saved_tensors
         chunk, s = ctx.chunk, ctx.smoothing
         vocab = weight.shape[0]
+        vocab_global = vocab * \
+            parallel_state.get_tensor_model_parallel_world_size()
         gf = g.float()[:, None]
         rows = torch.arange(x.shape[0], device=x.device)
         dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
@@ -178,11 +205,14 @@ class _FusedCE(torch.autograd.Function):
             idx = local - c * chunk
             hit = in_range & (idx >= 0) & (idx < chunk)
             dl[rows[hit], idx[hit]] -= 1.0 - s
-            dl = (dl - s / vocab) * gf
+            dl = (dl - s / vocab_global) * gf
             d16 = dl.to(x.dtype)
             dx += _mm_f32(d16, w_c)
             dw[c * chunk:(c + 1) * chunk] = _mm_f32(d16.t(), x)
             db[c * chunk:(c + 1) * chunk] = dl.sum(dim=0)
+        # every vocab shard holds part of each softmax row: the hidden's
+        # gradient is the sum of the shards' parts
+        dx = all_reduce(dx)
         return (dx.to(x.dtype), dw.to(weight.dtype), db.to(bias.dtype),
                 None, None, None)
 
@@ -208,8 +238,9 @@ def vocab_parallel_cross_entropy_from_hidden(
     head; a zero fp32 one when None), ``smoothing`` uniform label
     smoothing over the vocab.  A vocab that ``chunk`` does not divide
     walks its largest divisor below ``chunk``; when that is under
-    ``min(512, vocab)`` the two-step path runs instead, as in JAX."""
-    _check_world_size()
+    ``min(512, vocab)`` the two-step path runs instead, as in JAX.  Over
+    a tensor-parallel group ``weight`` (and ``bias``) are this rank's
+    vocab rows and ``target`` holds global ids."""
     lead = hidden.shape[:-1]
     if weight.shape[0] % chunk:
         chunk = _largest_chunk_divisor(weight.shape[0], chunk)
@@ -246,7 +277,8 @@ def lm_head_cross_entropy(
         return vocab_parallel_cross_entropy_from_hidden(
             hidden, weight, targets, chunk=chunk, bias=bias,
             smoothing=smoothing)
-    logits = torch.matmul(hidden, weight.to(hidden.dtype).t())
+    logits = torch.matmul(copy_to_tensor_model_parallel_region(hidden),
+                          weight.to(hidden.dtype).t())
     if bias is not None:
         logits = logits + bias.to(logits.dtype)
     return vocab_parallel_cross_entropy(logits, targets, smoothing=smoothing)

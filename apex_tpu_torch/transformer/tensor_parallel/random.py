@@ -11,7 +11,11 @@ made at every world size, so at world size 1 it is a ``fold_in`` of rank
 Keys are the host-side numpy keys of :mod:`apex_tpu_torch.random`.  The
 JAX module's ``checkpoint`` has no counterpart here: the port remats with
 ``torch.utils.checkpoint``, and since keys are values the recompute draws
-the same masks with no RNG state to restore.
+the same masks with no RNG state to restore.  The ranks are those of
+:mod:`~apex_tpu_torch.transformer.parallel_state` (host ints), so over a
+tensor-parallel group the attention-dropout seed differs per rank and a
+hidden-dropout key, folded with the data-parallel rank only, agrees
+across it, as in JAX.
 """
 
 from __future__ import annotations
@@ -26,12 +30,10 @@ __all__ = ["model_parallel_key", "data_parallel_key"]
 
 
 def model_parallel_key(key):
-    """``fold_in(key, rank)`` with this process's tensor-parallel rank
-    (0 at world size 1)."""
+    """``fold_in(key, rank)`` with this process's tensor-parallel rank."""
     return fold_in(key, get_tensor_model_parallel_rank())
 
 
 def data_parallel_key(key):
-    """``fold_in(key, rank)`` with this process's data-parallel rank (0
-    at world size 1)."""
+    """``fold_in(key, rank)`` with this process's data-parallel rank."""
     return fold_in(key, get_data_parallel_rank())

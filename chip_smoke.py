@@ -10423,6 +10423,453 @@ def phase_profile_r05(dev, card: str) -> None:
         f"{row['peak_gib']} GiB")
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism: two ranks on one card over gloo
+# ---------------------------------------------------------------------------
+
+#: the tensor-parallel degree of the tp phases: two ranks share the card
+#: (NCCL refuses two ranks on one device, so the group is gloo's)
+TP = 2
+TP_SEED = 7
+#: tp-parity: the flagship's width at 2 layers, fp32, one loss and backward
+TP_PARITY_LAYERS = 2
+TP_PARITY_BATCH = (2, 384)
+#: fp32 tp-parity holds the loss and each gradient within this share
+TP_FP32_REL = 1e-5
+#: tp-train: the flagship at O5 (12 layers), 3 steps of 2 x 1024 tokens
+TP_TRAIN = ["--seq", "1024", "--micro-batch", "2", "--num-micro", "1",
+            "--lr", "3e-4", "--opt-level", "O5", "--clip-grad", "1.0"]
+TP_TRAIN_STEPS = 3
+#: bf16 bands of tp=2 against tp=1 from the same weights: the losses
+#: within 0.02, each gradient within 3% of its norm (the band the O5 step
+#: is held to against the JAX package, tests/test_torch_gpt_train.py)
+TP_BF16_LOSS = 0.02
+TP_BF16_GRAD = 0.03
+#: tp-serve: the flagship's width, fp32, cut to 4 layers; 6 requests
+TP_SERVE_LAYERS = 4
+TP_SERVE_PLENS = (40, 17, 64, 9, 33, 58)
+TP_SERVE_NEW = 12
+TP_SERVE_PAGE = 16
+TP_SERVE_CHUNK = 32
+#: a rank that runs longer than this fails the phase
+TP_TIMEOUT_S = 240.0
+
+
+def tp_sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def tp_requests(vocab: int):
+    """tp-serve's requests: six ragged prompts, the last two sharing a
+    32-token prefix with the first (the prefix cache's hits)."""
+    from apex_tpu_torch.serving import Request
+
+    rng = np.random.RandomState(TP_SEED)
+    prompts = [rng.randint(1, vocab, n).tolist() for n in TP_SERVE_PLENS]
+    for i in (4, 5):
+        prompts[i][:32] = prompts[0][:32]
+    return [Request(uid=i, prompt=p, max_new_tokens=TP_SERVE_NEW)
+            for i, p in enumerate(prompts)]
+
+
+def tp_serve_run(model, weight_dtype=None, chunk=None, tree=None) -> dict:
+    """tp-serve's requests through ``decode_fns`` and a
+    ``ContinuousBatcher`` on 2 slots (``weight_dtype`` pools, chunked
+    prefill with the prefix cache, or a tree verify fed n-gram drafts);
+    every step's page tables are hashed.  Returns the tokens, the hash,
+    ``graphed``, the per-rank weight-stream bytes and the decode
+    ms/step."""
+    import hashlib
+
+    from apex_tpu_torch.serving import (
+        ContinuousBatcher, KVCacheConfig, PagedKVCache, init_pools)
+
+    c = model.config
+    pps = -(-(max(TP_SERVE_PLENS) + TP_SERVE_NEW + 8) // TP_SERVE_PAGE)
+    ccfg = KVCacheConfig(
+        num_layers=c.num_layers, num_heads=c.num_attention_heads,
+        head_dim=c.head_dim, num_pages=1 + 4 * pps,
+        page_size=TP_SERVE_PAGE, max_seqs=2, pages_per_seq=pps,
+        dtype=c.compute_dtype)
+    maxp = 64
+    fns = model.decode_fns(
+        ccfg, max_prompt_len=maxp, weight_dtype=weight_dtype,
+        prefill_chunk=chunk, speculate_k=None if tree is None else 4,
+        spec_tree=tree)
+    tables = hashlib.sha256()
+
+    def hashed(step):
+        def run(pools, carry, page_table, *args):
+            tables.update(page_table.cpu().numpy().tobytes())
+            return step(pools, carry, page_table, *args)
+        run.__dict__.update(step.__dict__)
+        return run
+
+    batcher = ContinuousBatcher(
+        fns.prefill, hashed(fns.decode), PagedKVCache(ccfg),
+        init_pools(ccfg, model.device), max_prompt_len=maxp,
+        harvest_every=4, chunk_fn=fns.chunk, prefill_chunk=chunk,
+        prefix_cache=chunk is not None,
+        spec_fn=None if fns.spec is None else hashed(fns.spec),
+        speculate_k=None if tree is None else 4)
+    reqs = tp_requests(c.vocab_size)
+    dev = model.device
+    tp_sync(dev)
+    t0 = time.perf_counter()
+    comps = batcher.run(reqs)
+    tp_sync(dev)
+    wall = time.perf_counter() - t0
+    steps = batcher.steps + getattr(batcher, "spec_stats", {}).get("steps",
+                                                                    0)
+    return dict(tokens=[comps[r.uid].tokens for r in reqs],
+                tables=tables.hexdigest(), graphed=fns.graphed,
+                stream_bytes=fns.weight_stream_bytes,
+                ms_per_step=1e3 * wall / max(steps, 1))
+
+
+TP_SERVE_CASES = (("fp32", {}), ("int8", dict(weight_dtype="int8")),
+                  ("int4", dict(weight_dtype="int4")),
+                  ("chunked + prefix cache", dict(chunk=TP_SERVE_CHUNK)),
+                  ("offramp_tree(4), n-gram drafts", dict(tree="offramp")))
+
+
+def tp_serve_cases(model) -> dict:
+    from apex_tpu_torch.serving import offramp_tree
+
+    out = {}
+    for name, kw in TP_SERVE_CASES:
+        if kw.get("tree"):
+            kw = dict(kw, tree=offramp_tree(4))
+        out[name] = tp_serve_run(model, **kw)
+    return out
+
+
+def tp_pool_digests(model, rank: int, tp: int) -> dict:
+    """sha256 of rank ``rank``'s share of ``model``'s int8 and int4 pools
+    (block 128): each q8 and scales, each row leaf's q4, and each column
+    leaf's unpacked int4 values (a column shard packs its nibbles among
+    its own columns).  ``model`` at tp=1 gives the slices of the whole
+    pools; built at ``tp`` it gives its own."""
+    import hashlib
+
+    from apex_tpu_torch.models.gpt import (
+        COLUMN_PARALLEL_LEAVES, quantize_gpt_weights)
+    from apex_tpu_torch.ops.quantization import unpack_int4
+
+    def part(t, dim):
+        if model.tp == tp:
+            return t
+        return t.chunk(tp, dim=dim)[rank]
+
+    out = {}
+    for wd in ("int8", "int4"):
+        qm = quantize_gpt_weights(model, wd)
+        for i, layer in enumerate(qm.layers):
+            for name in ("qkv", "attn_proj", "fc1", "fc2"):
+                mod = layer._modules[name]
+                dim = 1 if name in COLUMN_PARALLEL_LEAVES else 0
+                for key in (mod.qkey, "scales"):
+                    t = getattr(mod, key)
+                    if key == "q4" and dim == 1:
+                        t = unpack_int4(t)
+                    t = part(t, dim).contiguous().cpu()
+                    out[f"{wd} layers.{i}.{name}.{key}"] = hashlib.sha256(
+                        t.view(torch.uint8).numpy().tobytes()
+                        if t.dtype == torch.int8 else
+                        t.numpy().tobytes()).hexdigest()
+        del qm
+    return out
+
+
+def tp_agree(dev, *values) -> bool:
+    """Whether every rank passed the same ``values``: an all-reduce MAX
+    and MIN of their hash."""
+    import hashlib
+
+    from apex_tpu_torch.transformer.tensor_parallel.mappings import (
+        all_reduce)
+
+    h = hashlib.sha256(repr(values).encode()).digest()
+    t = torch.tensor([int.from_bytes(h[:7], "little")], dtype=torch.int64,
+                     device=dev)
+    return bool(torch.equal(all_reduce(t, "max"), all_reduce(t, "min")))
+
+
+def tp_rank(rank: int, run: dict) -> dict:
+    """One tensor-parallel rank of the tp phases (a spawned process on the
+    card, its grid initialized; ``run`` the phase's shapes and device):
+    the fp32 parity step, the O5 trainer's 3 steps, the serving cases;
+    each path's launches counted from 0."""
+    from apex_tpu_torch.examples import gpt_pretrain
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    dev = torch.device(run["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    # tp-parity
+    model = GPTModel(GPTConfig(**run["parity"], compute_dtype=torch.float32),
+                     device=dev, seed=TP_SEED)
+    toks, tgts = (torch.as_tensor(a, device=dev) for a in run["batch"])
+    reset_launch_counts()
+    loss = model.loss(toks, tgts)
+    loss.backward()
+    tp_sync(dev)
+    out["parity"] = (loss.item(), {n: p.grad.cpu() for n, p in
+                                   model.named_parameters()},
+                     launch_counts())
+    del model, loss
+    torch.cuda.empty_cache()
+    # tp-train: the trainer takes the group and the grid as they are
+    args = gpt_pretrain.parse_args(run["train"] + ["--tp", str(TP),
+                                                   "--device", str(dev)])
+    tr = gpt_pretrain.Trainer(args)
+    tb = tr.to_device(*gpt_pretrain.batches(
+        np.random.default_rng(0), 1, tr.global_batch, args.seq,
+        args.vocab)[0])
+    reset_launch_counts()
+    losses = [tr.backward(*tb)]
+    grads = {n: p.grad.cpu() for n, p in tr.model.named_parameters()}
+    tr.tail()
+    tp_sync(dev)
+    t0 = time.perf_counter()
+    losses += [tr.step(*tb) for _ in range(TP_TRAIN_STEPS - 1)]
+    tp_sync(dev)
+    ms = 1e3 * (time.perf_counter() - t0) / (TP_TRAIN_STEPS - 1)
+    out["train"] = ([float(x) for x in losses], grads, launch_counts(), ms)
+    del tr, tb, grads
+    torch.cuda.empty_cache()
+    # tp-serve
+    model = GPTModel(GPTConfig(**run["serve"], compute_dtype=torch.float32),
+                     device=dev, seed=TP_SEED)
+    reset_launch_counts()
+    serve_out = tp_serve_cases(model)
+    counts = launch_counts()
+    out["serve"] = (serve_out, counts, tp_pool_digests(model, rank, TP))
+    out["agree"] = tp_agree(dev, {k: (v["tokens"], v["tables"])
+                                  for k, v in serve_out.items()})
+    return out
+
+
+def tp_tokens_check(label, ref_model, reqs, want, got) -> str:
+    """tp=2 tokens against tp=1's: equal, or a first divergence where
+    tp=1's top-two margin is under ``SAMPLE_MARGIN_SHARE`` of the logit
+    scale; returns a note of any divergence."""
+    notes = []
+    for req, w, g in zip(reqs, want, got):
+        if w == g:
+            continue
+        j = next((i for i, (a, b) in enumerate(zip(w, g)) if a != b),
+                 min(len(w), len(g)))
+        if j >= min(len(w), len(g)):
+            fail(f"{label}: request {req.uid} lengths differ: {w} vs {g}")
+        margin, scale = greedy_margin(ref_model, req.prompt + w[:j])
+        if margin >= SAMPLE_MARGIN_SHARE * scale:
+            fail(f"{label}: request {req.uid} diverges at token {j} ({w[j]}"
+                 f" vs {g[j]}) where tp=1's top-two margin {margin:.3g} is "
+                 f"not under {SAMPLE_MARGIN_SHARE:g} of the logit scale "
+                 f"{scale:.3g}")
+        notes.append(f"request {req.uid} at token {j}, margin {margin:.3g} "
+                     f"of scale {scale:.3g}")
+    return "; ".join(notes) or "identical"
+
+
+def grad_rel(got: dict, want: dict) -> dict:
+    """Each gradient's ``||got - want|| / ||want||`` (the norm floored at
+    1e-6 of the largest gradient norm: a gradient that is rounding noise,
+    as the key bias's, is held to that floor)."""
+    norms = {n: want[n].float().norm().item() for n in want}
+    floor = 1e-6 * max(norms.values())
+    return {n: (got[n].float() - want[n].float()).norm().item()
+            / max(norms[n], floor) for n in want}
+
+
+def phase_tp(dev, card: str) -> None:
+    """tp-parity, tp-train and tp-serve: the port at tensor-parallel
+    degree 2, two ranks (spawned processes) on the one card over gloo,
+    against tp=1 on the card from the same seeded weights (a model built
+    at tp holds the shards of the tp=1 model of its seed).  Then the
+    trainer at ``--tp 1`` under a one-rank NCCL group gives the bits it
+    gives without the group."""
+    import tempfile
+
+    from apex_tpu_torch import convert
+    from apex_tpu_torch.examples import gpt_pretrain
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+    from apex_tpu_torch.testing.distributed import spawn
+    from apex_tpu_torch.transformer import parallel_state
+
+    t_phase = time.perf_counter()
+    log(f"[tp] tensor parallelism at tp={TP}: two ranks on one card over "
+        "gloo (NCCL needs one GPU a rank), against tp=1 from the same "
+        "seeded weights")
+    rng = np.random.RandomState(TP_SEED)
+    toks = rng.randint(0, FLAGSHIP["vocab_size"], TP_PARITY_BATCH).astype(
+        np.int32)
+    batch = (toks, np.roll(toks, -1, axis=1))
+    run = dict(batch=batch, device=str(dev), train=TP_TRAIN,
+               parity=dict(FLAGSHIP, num_layers=TP_PARITY_LAYERS),
+               serve=dict(FLAGSHIP, num_layers=TP_SERVE_LAYERS))
+    # the tp=1 references
+    model = GPTModel(GPTConfig(**run["parity"], compute_dtype=torch.float32),
+                     device=dev, seed=TP_SEED)
+    loss = model.loss(*(torch.as_tensor(a, device=dev) for a in batch))
+    loss.backward()
+    parity_ref = (loss.item(), {n: p.grad.cpu() for n, p in
+                                model.named_parameters()})
+    del model, loss
+    args = gpt_pretrain.parse_args(TP_TRAIN + ["--device", str(dev)])
+    tr = gpt_pretrain.Trainer(args)
+    tb = tr.to_device(*gpt_pretrain.batches(
+        np.random.default_rng(0), 1, tr.global_batch, args.seq,
+        args.vocab)[0])
+    losses = [tr.backward(*tb)]
+    train_grads = {n: p.grad.cpu() for n, p in tr.model.named_parameters()}
+    tr.tail()
+    tp_sync(dev)
+    t0 = time.perf_counter()
+    losses += [tr.step(*tb) for _ in range(TP_TRAIN_STEPS - 1)]
+    tp_sync(dev)
+    train_ms = 1e3 * (time.perf_counter() - t0) / (TP_TRAIN_STEPS - 1)
+    train_losses = [float(x) for x in losses]
+    del tr, tb, losses
+    serve_model = GPTModel(GPTConfig(**run["serve"],
+                                     compute_dtype=torch.float32),
+                           device=dev, seed=TP_SEED)
+    serve_ref = tp_serve_cases(serve_model)
+    digests = [tp_pool_digests(serve_model, r, TP) for r in range(TP)]
+    tp_sync(dev)
+    torch.cuda.empty_cache()
+    log(f"  tp=1 references in {time.perf_counter() - t_phase:.1f} s")
+    # the two ranks
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        try:
+            ranks = spawn(tp_rank, TP, (run,), workdir=work,
+                          timeout_s=TP_TIMEOUT_S)
+        except Exception as err:   # a rank that failed or hung
+            fail(f"tp: {err}")
+    log(f"  {TP} ranks spawned, ran and joined in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # tp-parity: fp32, 2 layers
+    loss_ref, g_ref = parity_ref
+    rel = grad_rel(convert.unshard_state([r["parity"][1] for r in ranks]),
+                   g_ref)
+    worst = max(rel, key=rel.get)
+    for r, out in enumerate(ranks):
+        d = abs(out["parity"][0] - loss_ref) / abs(loss_ref)
+        if d > TP_FP32_REL:
+            fail(f"tp-parity: rank {r} loss {out['parity'][0]} vs tp=1 "
+                 f"{loss_ref} ({d:.3g} relative)")
+    if rel[worst] > TP_FP32_REL:
+        fail(f"tp-parity: gradient {worst} {rel[worst]:.3g} relative to "
+             f"tp=1's norm, over {TP_FP32_REL:g}")
+    log(f"[tp-parity] fp32, flagship width, {TP_PARITY_LAYERS} layers, "
+        f"{TP_PARITY_BATCH[0]} x {TP_PARITY_BATCH[1]}: losses "
+        f"{[r['parity'][0] for r in ranks]} vs tp=1 {loss_ref}; every "
+        f"gathered gradient within {rel[worst]:.3g} of its norm (worst "
+        f"{worst}; bound {TP_FP32_REL:g}); launches per rank "
+        f"{[r['parity'][2] for r in ranks]}")
+
+    # tp-train: the flagship at O5, 3 steps through the trainer
+    rel = grad_rel(convert.unshard_state([r["train"][1] for r in ranks]),
+                   train_grads)
+    worst = max(rel, key=rel.get)
+    if rel[worst] > TP_BF16_GRAD:
+        fail(f"tp-train: gradient {worst} {rel[worst]:.3g} of its norm from "
+             f"tp=1's, over {TP_BF16_GRAD:g}")
+    for r, out in enumerate(ranks):
+        off = max(abs(a - b) for a, b in zip(out["train"][0], train_losses))
+        if off > TP_BF16_LOSS or not all(map(math.isfinite, out["train"][0])):
+            fail(f"tp-train: rank {r} losses {out['train'][0]} vs tp=1 "
+                 f"{train_losses}")
+        for name in LN_TRAIN[:2] + ("mid_fwd", "mid_bwd",
+                                    "multi_tensor_adam"):
+            if out["train"][2].get(name, 0) <= 0:
+                fail(f"tp-train: rank {r} never launched {name}")
+    log(f"[tp-train] flagship at O5 ({' '.join(TP_TRAIN)}), "
+        f"{TP_TRAIN_STEPS} steps through gpt_pretrain.Trainer --tp {TP}: "
+        f"losses rank 0 {ranks[0]['train'][0]}, rank 1 "
+        f"{ranks[1]['train'][0]}, tp=1 {train_losses}; the step-1 "
+        f"gradients gathered within {rel[worst]:.3g} of their norms (worst "
+        f"{worst}; band {TP_BF16_GRAD:g}, losses {TP_BF16_LOSS:g})")
+    for r, out in enumerate(ranks):
+        log(f"  rank {r} launches in its 3 steps: {out['train'][2]}")
+    log(f"  ms/step (steps 2-3): tp=2 {ranks[0]['train'][3]:.1f} / "
+        f"{ranks[1]['train'][3]:.1f}, tp=1 {train_ms:.1f} — gloo-bound "
+        "with both ranks on one card, not a tensor-parallel speed")
+
+    # tp-serve: fp32 at full width, 4 layers
+    reqs = tp_requests(FLAGSHIP["vocab_size"])
+    for r, out in enumerate(ranks):
+        if not out["agree"]:
+            fail(f"tp-serve: rank {r}'s tokens or page tables differ from "
+                 "the other rank's (hash all-reduce)")
+        got, counts, pools = out["serve"]
+        if pools != digests[r]:
+            bad = sorted(k for k in digests[r] if pools.get(k) !=
+                         digests[r][k])
+            fail(f"tp-serve: rank {r}'s pools are not the tp=1 pools' "
+                 f"slices: {bad[:6]}")
+        for name in ("paged_decode", "paged_decode_rows",
+                     "paged_decode_tree", "dequant_int8", "dequant_int4",
+                     "ln_fwd"):
+            if counts.get(name, 0) <= 0:
+                fail(f"tp-serve: rank {r} never launched {name}")
+    for name, _ in TP_SERVE_CASES:
+        want = serve_ref[name]
+        got = ranks[0]["serve"][0][name]
+        note = tp_tokens_check(f"tp-serve {name}", serve_model, reqs,
+                               want["tokens"], got["tokens"])
+        if got["graphed"] or got["stream_bytes"] >= want["stream_bytes"]:
+            fail(f"tp-serve {name}: graphed {got['graphed']}, "
+                 f"{got['stream_bytes']} weight bytes a step per rank vs "
+                 f"{want['stream_bytes']} at tp=1")
+        log(f"[tp-serve] {name}: tokens {note}; page tables equal on both "
+            f"ranks; per-rank weight stream {got['stream_bytes']:,} B vs "
+            f"{want['stream_bytes']:,} at tp=1; graphed {got['graphed']}; "
+            f"{got['ms_per_step']:.2f} ms/step at tp=2 (eager, gloo-bound) "
+            f"vs {want['ms_per_step']:.2f} at tp=1 (graphed "
+            f"{want['graphed']})")
+    log(f"  each rank's int8 and int4 pools equal the tp=1 pools' slices "
+        f"({len(digests[0])} digests a rank); launches per rank: "
+        f"{[r['serve'][1] for r in ranks]}")
+    del serve_model
+    torch.cuda.empty_cache()
+
+    # the trainer at --tp 1 under a one-rank NCCL group: the same bits
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as work:
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method=f"file://{work}/rdv", rank=0, world_size=1,
+            timeout=__import__("datetime").timedelta(seconds=TP_TIMEOUT_S))
+        try:
+            tr = gpt_pretrain.Trainer(args)
+            assert parallel_state.get_tensor_model_parallel_world_size() == 1
+            tb = tr.to_device(*gpt_pretrain.batches(
+                np.random.default_rng(0), 1, tr.global_batch, args.seq,
+                args.vocab)[0])
+            nccl = [float(tr.step(*tb)) for _ in range(TP_TRAIN_STEPS)]
+        finally:
+            parallel_state.destroy_model_parallel()
+            dist.destroy_process_group()
+    if nccl != train_losses:
+        fail(f"tp: the trainer under a one-rank NCCL group gave losses "
+             f"{nccl}, without the group {train_losses}")
+    log(f"  gpt_pretrain --tp 1 under a one-rank NCCL group: losses "
+        f"{nccl}, the bits of the run without the group")
+    del tr, tb
+    torch.cuda.empty_cache()
+    log(f"  ({card}; tp phases {time.perf_counter() - t_phase:.1f} s)")
+
+
 SOURCES = {
     "ln_fwd": ("cuda", "apex_tpu_torch/csrc/layer_norm.cu",
                "apex_tpu/ops/layer_norm.py:66"),
@@ -10696,6 +11143,7 @@ def main() -> None:
     timed("dcgan", phase_dcgan, dev)
     timed("profile-r05", phase_profile_r05, dev, card)
     timed("fault-drill", phase_fault_drill, card)
+    timed("tp", phase_tp, dev, card)
     # one record per kernel at its main path's shape; launches from the
     # path that carries it: the serving kernels from phase 4, the dequant
     # kernels and int8 pages from serve-quant, short_bwd from the s=384

@@ -179,8 +179,10 @@ def test_o0_o4_o5_take_a_loss_scale_and_fp16_raises():
 
 
 def test_grad_scaler_at_world_size_one():
-    """GradScaler's consensus at world size 1 is the local flag (JAX's
-    pmin over one device); over a process group it raises naming A9."""
+    """GradScaler's consensus at world size 1 is the local flag itself
+    (JAX's pmin over one device), with no ``torch.distributed`` call; over
+    a tensor-parallel group it is an all-reduce MIN (the spawned runs are
+    in ``tests/test_torch_tensor_parallel.py``)."""
     rng = np.random.RandomState(9)
     for inf_at in (None, 1):
         grads = _grads(rng, inf_at)
@@ -192,8 +194,8 @@ def test_grad_scaler_at_world_size_one():
         assert bool(fin) == bool(jfin)
         for a, b in zip(tg, jg):
             np.testing.assert_array_equal(convert._array(a), np.asarray(b))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        model_parallel_all_finite(torch.tensor(True), group=object())
+    flag = torch.tensor(False)
+    assert model_parallel_all_finite(flag) is flag
 
 
 @pytest.mark.parametrize("at_floor", [False, True])

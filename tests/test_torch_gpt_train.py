@@ -212,13 +212,20 @@ def test_trainer_rejects_unported_flags(flag, tmp_path):
     level O2 and the data, checkpoint and trace flags, ported since, take
     a CPU step (O2: fp16 parameters, fp32 norms and masters, the dynamic
     loss scaler; ``--data`` a token file; ``--checkpoint-dir`` the last
-    step's checkpoint; ``--trace-dir`` the armed trigger)."""
+    step's checkpoint; ``--trace-dir`` the armed trigger).  ``--tp``,
+    ported since, needs one process a rank: without a process group it
+    raises naming ``torchrun`` (its spawned runs are in
+    ``tests/test_torch_gpt_tp.py``)."""
     from apex_tpu_torch import checkpoint
     from apex_tpu_torch.data import write_token_file
 
     argv = ["--device", "cpu", "--layers", "1", "--hidden", "32", "--heads",
             "1", "--vocab", "64", "--seq", "16", "--steps", "1"] + flag
     ported = {"--opt-level", "--data", "--checkpoint-dir", "--trace-dir"}
+    if flag[0] == "--tp":
+        with pytest.raises(RuntimeError, match="torchrun"):
+            gpt_pretrain.main(argv)
+        return
     if flag[0] not in ported:
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
             gpt_pretrain.main(argv)

@@ -457,12 +457,32 @@ def test_split_and_gather_at_one_rank_are_the_flat_tensor():
 @pytest.mark.parametrize("fn", ["split_tensor_into_1d_equal_chunks",
                                 "gather_split_1d_tensor"])
 def test_split_and_gather_over_ranks_wait_for_item_9(monkeypatch, fn):
+    """Over two tensor-parallel ranks (item 9a, now ported) the split is
+    rank 1's contiguous chunk and the gather all-gathers the chunks, here
+    through a stand-in for ``torch.distributed.all_gather`` that hands
+    each rank's slot its own copy (the spawned two-rank runs are in
+    ``tests/test_torch_tensor_parallel.py``)."""
     from apex_tpu_torch.transformer import parallel_state
+    from apex_tpu_torch.transformer.tensor_parallel import mappings
 
     monkeypatch.setattr(parallel_state,
                         "get_tensor_model_parallel_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        getattr(tutils, fn)(torch.ones(8))
+    monkeypatch.setattr(parallel_state,
+                        "get_tensor_model_parallel_rank", lambda: 1)
+    calls = []
+
+    def all_gather(parts, x, group=None):
+        calls.append(len(parts))
+        for i, part in enumerate(parts):
+            part.copy_(x + 100 * i)
+
+    monkeypatch.setattr(mappings.dist, "all_gather", all_gather)
+    x = torch.arange(8.0)
+    got = getattr(tutils, fn)(x)
+    if fn == "split_tensor_into_1d_equal_chunks":
+        assert torch.equal(got, x[4:]) and not calls
+    else:
+        assert torch.equal(got, torch.cat([x, x + 100])) and calls == [2]
 
 
 @pytest.mark.parametrize("fn", ["split_tensor_into_1d_equal_chunks",

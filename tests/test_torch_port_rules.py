@@ -473,7 +473,9 @@ def test_decode_rows_and_tree_count_under_their_own_names():
     "contrib.groupbn", "contrib.bottleneck", "contrib.transducer",
     "contrib.sparsity", "pyprof", "pyprof.parse", "pyprof.prof",
     "tools.profile_r05", "tools.scale_mfu", "tools.memory_audit",
-    "tools.kernel_validation", "tools.chaos_drill", "examples.dcgan_amp"])
+    "tools.kernel_validation", "tools.chaos_drill", "examples.dcgan_amp",
+    "transformer.tensor_parallel.mappings", "transformer.tensor_parallel.data",
+    "transformer.tensor_parallel.memory", "testing.distributed"])
 def test_new_modules_are_port_files(module):
     """The modules of the serving slice, the softmax entry point, the
     PRNG and dropout, T5, ResNet and their helpers, the fleet tier, the
@@ -1172,3 +1174,59 @@ def test_every_wrapper_reports_its_cost_on_the_cpu():
     got = {k: (f, nb) for k, (n, f, nb) in rec.kernels.items()}
     assert got.pop("ln_bwd_fold")[0] > 0
     assert got == want
+
+
+#: the ``torch.distributed`` calls the port could make
+DIST_CALLS = ("all_reduce", "all_gather", "all_gather_into_tensor",
+              "reduce_scatter_tensor", "broadcast", "barrier", "new_group",
+              "get_world_size", "get_rank", "send", "recv", "reduce",
+              "all_to_all_single", "init_process_group")
+
+
+@pytest.mark.parametrize("llama", [False, True], ids=["learned", "llama"])
+def test_tp1_paths_make_no_distributed_call(monkeypatch, llama):
+    """At tensor-parallel world size 1 every region is the identity: a
+    full ``loss`` and backward (the two-step and the fused cross entropy,
+    the clip and the finite consensus) and a ``decode_fns`` prefill,
+    decode, chunk and verify step call nothing of ``torch.distributed``."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.models import GPTConfig, GPTModel
+    from apex_tpu_torch.serving import (
+        ContinuousBatcher, KVCacheConfig, PagedKVCache, Request, init_pools)
+    from apex_tpu_torch.transformer.amp import model_parallel_all_finite
+    from apex_tpu_torch.transformer.tensor_parallel import clip_grad_norm
+
+    calls = []
+    for name in DIST_CALLS:
+        if hasattr(dist, name):
+            monkeypatch.setattr(
+                dist, name, lambda *a, _n=name, **k: calls.append(_n))
+    extra = dict(position_embedding="rope", activation="swiglu",
+                 normalization="rmsnorm") if llama else {}
+    for fused in (False, True):
+        model = GPTModel(GPTConfig(vocab_size=32, num_layers=1,
+                                   hidden_size=16, num_attention_heads=2,
+                                   max_position_embeddings=64,
+                                   compute_dtype=torch.float32,
+                                   fused_ce=fused, fused_ce_chunk=8,
+                                   **extra), device="cpu", seed=1)
+        toks = torch.randint(0, 32, (2, 8))
+        model.loss(toks, toks.roll(-1, 1)).backward()
+        clip_grad_norm(model.parameters(), 1.0)
+        model_parallel_all_finite(torch.tensor(True))
+    ccfg = KVCacheConfig(num_layers=1, num_heads=2, head_dim=8,
+                         num_pages=17, page_size=4, max_seqs=2,
+                         pages_per_seq=8, dtype=torch.float32)
+    for kw in ({}, dict(prefill_chunk=4, speculate_k=2)):
+        fns = model.decode_fns(ccfg, max_prompt_len=8, **kw)
+        assert fns.tp == 1 and fns.graphed
+        batcher = ContinuousBatcher(
+            fns.prefill, fns.decode, PagedKVCache(ccfg),
+            init_pools(ccfg, "cpu"), max_prompt_len=8, chunk_fn=fns.chunk,
+            prefill_chunk=kw.get("prefill_chunk"), spec_fn=fns.spec,
+            speculate_k=kw.get("speculate_k"))
+        comps = batcher.run([Request(uid=0, prompt=[1, 2, 3, 1, 2],
+                                     max_new_tokens=6)])
+        assert len(comps[0].tokens) == 6
+    assert calls == []

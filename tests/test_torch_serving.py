@@ -159,8 +159,10 @@ def test_generate_matches_jax_reference(setup):
 
 
 def test_unported_serving_options_raise(setup, jax_setup):
-    """Tensor parallelism (queue A item 9) raises naming its ROADMAP.md
-    item; the metrics logger is ported (its records are held to JAX's in
+    """Tensor parallelism (queue A item 9a) is ported: ``decode_fns(tp=)``
+    is checked against the tensor-parallel group, as JAX's against its
+    mesh, and a degree the model was not built for raises (the tp > 1
+    steps are held in ``tests/test_torch_tp_decode.py``); the metrics logger is ported (its records are held to JAX's in
     ``tests/test_torch_telemetry.py``); the host offload tier is ported and, as
     in JAX, needs the prefix cache; chunked prefill, the prefix cache and
     speculation are ported and build, and so is sampling
@@ -173,8 +175,9 @@ def test_unported_serving_options_raise(setup, jax_setup):
     ccfg = KVCacheConfig(num_layers=2, num_heads=4, head_dim=8,
                          num_pages=8, page_size=PAGE, max_seqs=2,
                          pages_per_seq=4, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="disagrees with the tensor-"):
         tm.decode_fns(ccfg, max_prompt_len=10, tp=2)
+    assert tm.decode_fns(ccfg, max_prompt_len=10, tp=1).tp == 1
     for kw in (dict(temperature=0.7), dict(top_k=5), dict(top_p=0.9)):
         assert tm.decode_fns(ccfg, max_prompt_len=10, **kw).decode
     fns = tm.decode_fns(ccfg, max_prompt_len=10, prefill_chunk=4,

@@ -252,13 +252,20 @@ def test_mismatched_or_unknown_width_raises():
 
 
 def test_tensor_parallel_pools_still_raise():
+    """A pool for a tensor-parallel degree the model was not built for
+    raises: ``decode_fns(tp=)`` against the group, as JAX's against its
+    mesh, and ``quantize_gpt_weights(tp=)`` against the model's shards
+    (tp > 1 pools, built under a group, are held in
+    ``tests/test_torch_tp_decode.py``)."""
     _, tm, _ = models("flagship")
     for wd in ("int8", "int4"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(ValueError, match="disagrees with the tensor-"):
             tm.decode_fns(_ccfg(False), max_prompt_len=10, weight_dtype=wd,
                           tp=2)
+    with pytest.raises(ValueError, match="shards of tp=1"):
+        quantize_gpt_weights(tm, "int4", BLOCK, tp=2)
     qm = quantize_gpt_weights(tm, "int4", BLOCK)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="disagrees with the tensor-"):
         qm.decode_fns(_ccfg(False), max_prompt_len=10, tp=2)
 
 
